@@ -1,0 +1,40 @@
+"""Carry the JAX package's parameters into the port.
+
+``params_from_numpy(tree)`` takes a JAX params pytree whose leaves are numpy
+arrays (``jax.tree.map(np.asarray, params)``) and returns the port's
+params: the same nested dicts and lists, 4-D conv weights turned from HWIO
+into OIHW, and blockwise-int8 ``{q, scale, n}`` leaves carried verbatim
+(their conv weights stay HWIO, the port's convention for quantized leaves).
+With the same weights both packages compute the same function.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+_HWIO_TO_OIHW = (3, 2, 0, 1)
+
+
+def _leaf(a, device) -> Any:
+    if isinstance(a, (int, float, bool)) or a is None:
+        return a
+    t = torch.from_numpy(np.array(a)).to(device)
+    if t.dim() == 4 and t.is_floating_point():
+        t = t.permute(*_HWIO_TO_OIHW).contiguous()
+    return t
+
+
+def params_from_numpy(tree: Any, device="cpu") -> Any:
+    """JAX-layout numpy params -> port params on ``device``."""
+    if isinstance(tree, dict) and {"q", "scale"} <= set(tree):
+        n = tree.get("n")
+        return dict(q=torch.from_numpy(np.array(tree["q"])).to(device),
+                    scale=torch.from_numpy(np.array(tree["scale"])).to(device),
+                    n=int(n) if n is not None else int(np.shape(tree["q"])[-1]))
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_numpy(v, device) for v in tree)
+    return _leaf(tree, device)

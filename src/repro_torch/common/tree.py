@@ -1,0 +1,46 @@
+"""Leaf-wise maps over nested dicts, lists and tuples of tensors (the
+subset of the JAX package's pytree helpers that serving needs)."""
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+Tree = Any
+
+
+def tree_map(fn: Callable, tree: Tree, *rest: Tree, is_leaf=None) -> Tree:
+    """Apply ``fn`` leaf-wise over trees of the same structure.  Containers
+    are dicts, lists and tuples; anything else (or what ``is_leaf`` accepts)
+    is a leaf."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest), is_leaf=is_leaf)
+                for k in tree}
+    if isinstance(tree, (list, tuple)):
+        out = [tree_map(fn, v, *(r[i] for r in rest), is_leaf=is_leaf)
+               for i, v in enumerate(tree)]
+        return type(tree)(out)
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Tree) -> list:
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_cast(tree: Tree, dtype: torch.dtype) -> Tree:
+    """Cast all floating tensor leaves to ``dtype``; leave the rest alone."""
+    def _cast(x):
+        if isinstance(x, torch.Tensor) and x.is_floating_point():
+            return x.to(dtype)
+        return x
+    return tree_map(_cast, tree)
+
+
+def tree_to(tree: Tree, device) -> Tree:
+    """Move every tensor leaf to ``device``."""
+    return tree_map(lambda x: x.to(device) if isinstance(x, torch.Tensor) else x,
+                    tree)

@@ -1,0 +1,196 @@
+"""Kernel dispatch for the episodic hot path: one policy, four backends.
+
+Every support-set aggregation the meta-learners run (per-class feature
+sums, the Simple CNAPs raw second moment, the Mahalanobis head) and the
+quantized head matmul go through the ops here.  Each op picks an
+implementation per *backend*:
+
+  ``naive``  the literal composite (per-example expansion, then a reduce);
+             for the second moment it forms the per-example (B, F, F)
+             outer products.  Kept as the oracle.
+  ``ref``    plain PyTorch; the second moment is reassociated through a
+             (B, C, F) hop so no (B, F, F) tensor forms; the Mahalanobis
+             head is the ``cholesky_solve`` composite.
+  ``cuda``   the hand-written kernels (:mod:`repro_torch.kernels`).  On a
+             CUDA tensor a wrapper launches its kernel or raises; on a CPU
+             tensor it runs its plain version, so the CPU tests exercise the
+             kernel path's arithmetic (explicit inverse for the head).
+  ``auto``   ``cuda`` for a CUDA tensor, ``ref`` for a CPU tensor.
+
+The default is a ContextVar (``use_backend`` scopes it).  Weights are
+mask-folded one-hots: zero rows (padding) contribute nothing.  Every op
+takes a leading task-lane axis T on its operands: the engine batches its
+lanes where the JAX package vmaps.  Serving runs under
+``torch.inference_mode``; there is no autograd wrapper yet.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import int8_matmul as _im
+from repro_torch.kernels import mahalanobis as _md
+from repro_torch.kernels import segment_pool as _sp
+from repro_torch.optim import quant as _quant
+
+BACKENDS = ("naive", "ref", "cuda", "auto")
+
+_default_backend: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_kernel_backend", default="auto")
+
+
+def _check(backend: str) -> str:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown kernel backend {backend!r}; "
+                         f"choose from {BACKENDS}")
+    return backend
+
+
+@contextlib.contextmanager
+def use_backend(backend: Optional[str]):
+    """Scoped default backend (None = leave the current default)."""
+    token = None
+    if backend is not None:
+        token = _default_backend.set(_check(backend))
+    try:
+        yield
+    finally:
+        if token is not None:
+            _default_backend.reset(token)
+
+
+def resolve_backend(backend: Optional[str] = None,
+                    device: Optional[torch.device] = None) -> str:
+    """None -> context default; ``auto`` -> ``cuda`` on a CUDA device, else
+    ``ref``."""
+    b = _check(_default_backend.get() if backend is None else backend)
+    if b == "auto":
+        return "cuda" if device is not None and torch.device(device).type == "cuda" \
+            else "ref"
+    return b
+
+
+# ===========================================================================
+# segment_sum: S[t, c, ...] = sum_b w[t, b, c] e[t, b, ...]
+# ===========================================================================
+
+
+def _segment_sum_expand(e: torch.Tensor, weights: torch.Tensor,
+                        accum_dtype) -> torch.Tensor:
+    """Expand to (T, B, C, ...) and reduce the example axis (shared by
+    ``naive`` and ``ref``: with C = way the hop is small)."""
+    w = weights.to(e.dtype).reshape(weights.shape + (1,) * (e.dim() - 2))
+    expanded = e.unsqueeze(2) * w
+    return torch.sum(expanded, dim=1, dtype=accum_dtype)
+
+
+def segment_sum(e: torch.Tensor, weights: torch.Tensor, accum_dtype=None,
+                backend: Optional[str] = None) -> torch.Tensor:
+    """``out[t, c, ...] = sum_b weights[t, b, c] * e[t, b, ...]``.
+
+    e: (T, B, ...); weights: (T, B, C) mask-folded one-hot -> (T, C, ...).
+    ``accum_dtype`` upcasts the reduction (the fp32 accumulator of a
+    low-precision chunk)."""
+    b = resolve_backend(backend, e.device)
+    if b in ("naive", "ref"):
+        return _segment_sum_expand(e, weights, accum_dtype)
+    t, n = e.shape[:2]
+    flat = e.reshape(t, n, -1).contiguous()
+    out = _sp.segment_pool_weighted(flat, weights.float().contiguous())
+    out = out.to(accum_dtype or e.dtype)
+    return out.reshape((t, weights.shape[2]) + e.shape[2:])
+
+
+# ===========================================================================
+# class_second_moment: S[t, c, i, j] = sum_b w[t, b, c] f[t, b, i] f[t, b, j]
+# ===========================================================================
+
+
+def _second_moment_naive(f, weights, accum_dtype):
+    outer = torch.einsum("tbi,tbj->tbij", f, f)
+    return _segment_sum_expand(outer, weights, accum_dtype)
+
+
+def _second_moment_ref(f, weights, accum_dtype):
+    """Hop through (T, B, C, F), then contract the example axis."""
+    dt = accum_dtype or f.dtype
+    hop = weights.to(f.dtype)[..., :, None] * f[..., None, :]
+    return torch.einsum("tbci,tbj->tcij", hop.to(dt), f.to(dt))
+
+
+def class_second_moment(f: torch.Tensor, weights: torch.Tensor,
+                        accum_dtype=None, backend: Optional[str] = None
+                        ) -> torch.Tensor:
+    """Per-class raw second moment without the per-example (B, F, F) tensor
+    (except on ``naive``).  f: (T, B, F); weights: (T, B, C) -> (T, C, F, F)."""
+    b = resolve_backend(backend, f.device)
+    if b == "naive":
+        return _second_moment_naive(f, weights, accum_dtype)
+    if b == "ref":
+        return _second_moment_ref(f, weights, accum_dtype)
+    out = _sp.class_second_moment(f.contiguous(), weights.float().contiguous())
+    return out.to(accum_dtype or f.dtype)
+
+
+# ===========================================================================
+# mahalanobis head: d2[t, m, c] = (q - mu_c)^T Sigma_c^{-1} (q - mu_c)
+# ===========================================================================
+
+
+def _mahalanobis_cho(qf, mu, chol):
+    """Per-class triangular solves against the Cholesky factors."""
+    diff = qf[:, :, None, :] - mu[:, None, :, :]             # (T, M, C, F)
+    rhs = diff.permute(0, 2, 3, 1)                            # (T, C, F, M)
+    sol = torch.cholesky_solve(rhs, chol, upper=False)
+    return torch.sum(diff * sol.permute(0, 3, 1, 2), dim=-1)
+
+
+def chol_inverse(chol: torch.Tensor) -> torch.Tensor:
+    """(..., F, F) lower Cholesky factors -> Sigma^{-1}.  Adaptation computes
+    it once per task state (``state["sinv"]``) so query dispatches skip the
+    O(C F^3) solves."""
+    return torch.cholesky_inverse(chol, upper=False)
+
+
+def mahalanobis_head(qf: torch.Tensor, mu: torch.Tensor, chol: torch.Tensor,
+                     backend: Optional[str] = None,
+                     sinv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """qf: (T, M, F); mu: (T, C, F); chol: (T, C, F, F) -> (T, M, C).
+
+    ``naive``/``ref``: ``cholesky_solve``.  ``cuda``: the kernel on the
+    explicit inverse ``sinv`` (computed here when not carried in)."""
+    b = resolve_backend(backend, qf.device)
+    if b in ("naive", "ref"):
+        return _mahalanobis_cho(qf, mu, chol)
+    if sinv is None:
+        sinv = chol_inverse(chol)
+    return _md.mahalanobis(qf.float().contiguous(), mu.float().contiguous(),
+                           sinv.float().contiguous())
+
+
+# ===========================================================================
+# int8_matmul: out[m, n] = sum_k x[m, k] q[k, n] scale[k, n // BLOCK]
+# ===========================================================================
+
+
+def int8_matmul(x: torch.Tensor, qs, backend: Optional[str] = None
+                ) -> torch.Tensor:
+    """``x @ W`` with W in the blockwise int8 ``{q, scale, n}`` form.
+    x: (..., K) float -> (..., N) float32.  Forward only by contract.
+
+    ``naive``/``ref``: dequantize to f32, one GEMM.  ``cuda``: the kernel,
+    which scales each int8 tile as it loads it.  Leading dims are flattened
+    around the 2-D kernel."""
+    b = resolve_backend(backend, x.device)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).float()
+    if b in ("naive", "ref"):
+        out = x2 @ _quant.dequantize(qs)
+    else:
+        out = _im.int8_matmul(x2.contiguous(), qs["q"].contiguous(),
+                              qs["scale"].float().contiguous())
+    n = _quant.resolve_n(qs)
+    return out.reshape(lead + (n,))

@@ -1,0 +1,142 @@
+"""Episodic serving launcher for the PyTorch port.
+
+    python -m repro_torch.launch.serve --episodic --learner simple_cnaps \
+        --serve-quant int8 --requests 8 --slots 4
+
+Each request is a support set to adapt on and a query stream to answer;
+``--repeat-frac`` of the requests revisit earlier users (cache hits).  The
+model is the JAX launcher's smoke size (conv backbone widths (16, 32),
+feature_dim 64; conv set encoder 2 blocks of width 16, task_dim 32) with
+random weights from ``--seed``.  Traffic comes from the numpy host sampler
+``repro_torch.data.episodic.host_task_batch_at``, so it differs from the
+JAX launcher's (which samples with ``jax.random``).  Runs on ``--device``
+(default ``cuda``; pass ``--device cpu`` to run without a GPU).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+
+def build_requests(n_requests: int, repeat_frac: float, shot: int,
+                   query_per_class: int, image_size: int, seed: int):
+    """``n_users`` cold requests (one task each, from one host batch), then
+    repeat requests drawn over those users; returns (cold, warm)."""
+    from repro_torch.data.episodic import HostEpisodicConfig, host_task_batch_at
+    from repro_torch.serve.episodic import EpisodicRequest
+
+    n_users = min(n_requests, max(1, round(n_requests * (1.0 - repeat_frac))))
+    cfg = HostEpisodicConfig(way=5, shot=shot, query_per_class=query_per_class,
+                             image_size=image_size)
+    batch = host_task_batch_at(seed, cfg, n_users, 0)
+
+    def request_for(uid):
+        return EpisodicRequest(uid=uid, support_x=batch.support_x[uid],
+                               support_y=batch.support_y[uid],
+                               query_x=batch.query_x[uid], way=cfg.way)
+
+    rng = np.random.default_rng(seed)
+    cold = [request_for(u) for u in range(n_users)]
+    warm = [request_for(int(rng.integers(0, n_users)))
+            for _ in range(n_requests - n_users)]
+    return cold, warm
+
+
+def run_episodic(args, clock: Callable[[], float] = time.monotonic) -> dict:
+    from repro_torch.core.lite import LiteSpec
+    from repro_torch.core.meta_learners import MetaLearnerConfig, make_learner
+    from repro_torch.core.set_encoder import SetEncoderConfig
+    from repro_torch.data.episodic import plan_buckets
+    from repro_torch.models.conv_backbone import (ConvBackboneConfig,
+                                                  make_conv_backbone)
+    from repro_torch.serve.episodic import EpisodicServeEngine, resolve_device
+
+    device = resolve_device(args.device)
+    backbone = make_conv_backbone(ConvBackboneConfig(widths=(16, 32),
+                                                     feature_dim=64))
+    learner = make_learner(
+        MetaLearnerConfig(kind=args.learner, way=5), backbone,
+        SetEncoderConfig(kind="conv", conv_blocks=2, conv_width=16, task_dim=32))
+    params = learner.init(torch.Generator().manual_seed(args.seed), device)
+    lite = LiteSpec(exact=True, chunk_size=args.lite_chunk,
+                    compute_dtype=args.lite_dtype)
+    cold, warm = build_requests(args.requests, args.repeat_frac, args.shot, 4,
+                                args.image_size, args.seed)
+    reqs = cold + warm
+    buckets = plan_buckets([r.support_x.shape[0] for r in reqs], max_buckets=2)
+    engine = EpisodicServeEngine(
+        learner, params, lite=lite, n_slots=args.slots,
+        query_chunk=args.query_chunk, support_buckets=buckets,
+        kernel_backend=args.kernel_backend,
+        cache_capacity=args.cache_capacity, serve_quant=args.serve_quant,
+        device=device)
+    # cold wave first, so every repeat finds its user's state cached
+    t0 = clock()
+    engine.run_to_completion(cold)
+    engine.run_to_completion(warm)
+    dt = max(clock() - t0, 1e-9)
+    s = engine.stats()
+    if not all(r.done for r in reqs):
+        raise RuntimeError("engine finished with unserved requests")
+    print(f"episodic serve: learner={args.learner} {len(reqs)} requests "
+          f"({len(cold)} distinct users) in {dt:.2f}s on {args.slots} slots, "
+          f"device={device} backend={engine.kernel_backend}")
+    print(f"  tasks adapted {s['tasks_adapted']} ({s['tasks_adapted']/dt:.1f}/s), "
+          f"queries {s['queries_served']} ({s['queries_served']/dt:.1f}/s), "
+          f"cache hit-rate {s['hit_rate']:.2f}")
+    print(f"  latency: adapt p50/p99 {s['adapt_p50_us']:.0f}/"
+          f"{s['adapt_p99_us']:.0f} us, query (first logit) p50/p99 "
+          f"{s['query_p50_us']:.0f}/{s['query_p99_us']:.0f} us")
+    print(f"  weights: quant={args.serve_quant} resident "
+          f"{s['param_bytes_resident']} B (fp32 {s['param_bytes_fp32']} B; "
+          f"frozen slice {s['frozen_param_bytes_resident']} / "
+          f"{s['frozen_param_bytes_fp32']} B)")
+    for r in reqs[:4]:
+        print(f"  req uid={r.uid}: cache_hit={r.cache_hit} "
+              f"preds={r.predictions()[:8].tolist()}")
+    return s
+
+
+def main(argv: Optional[List[str]] = None,
+         clock: Callable[[], float] = time.monotonic) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--episodic", action="store_true",
+                    help="adapt-many-tasks personalization serving (the only "
+                         "mode ported)")
+    ap.add_argument("--learner", default="protonets",
+                    choices=["protonets", "cnaps", "simple_cnaps"])
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--shot", type=int, default=10)
+    ap.add_argument("--image-size", type=int, default=24)
+    ap.add_argument("--query-chunk", type=int, default=8)
+    ap.add_argument("--repeat-frac", type=float, default=0.5,
+                    help="fraction of requests from repeat users (cache hits)")
+    ap.add_argument("--lite-chunk", type=int, default=32,
+                    help="serve-time adaptation chunk size")
+    ap.add_argument("--lite-dtype", choices=["bfloat16", "float16"],
+                    default=None, help="serve-time adaptation compute dtype")
+    ap.add_argument("--cache-capacity", type=int, default=64,
+                    help="task-state LRU capacity")
+    ap.add_argument("--serve-quant", choices=["none", "int8"], default="none",
+                    help="store the learner's frozen backbone in blockwise "
+                         "int8; the head runs through the int8_matmul kernel")
+    ap.add_argument("--kernel-backend", choices=["auto", "cuda", "ref", "naive"],
+                    default="auto",
+                    help="aggregation-kernel backend: auto = the CUDA kernels "
+                         "on a GPU, ref on the CPU")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu runs without a GPU)")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not args.episodic:
+        ap.error("only --episodic serving is ported to repro_torch")
+    return run_episodic(args, clock=clock)
+
+
+if __name__ == "__main__":
+    main()
