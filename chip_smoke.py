@@ -7,7 +7,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
 1. the card's name and power limit, and the torch / CUDA versions;
 2. build the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at a ragged shape, and time the kernel, the plain
+   main path's shapes and at a ragged shape, by the error of each output
+   row against that row's largest value, and time the kernel, the plain
    version and (where one exists) a single PyTorch library call;
 4. serve full-width Simple CNAPs (224 x 224 images, int8 frozen backbone)
    through ``EpisodicServeEngine.run_to_completion`` on the kernels, count
@@ -15,12 +16,24 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the same engine on the plain ``ref`` backend; profile one more run of
    that path (device busy time, idle share, top ops by device time); then a
    shorter ProtoNets pass, read the same way;
-5. print the ``kernels`` JSON line, the card line and, last, the result.
+5. drive the LM-side kernel entry point ``repro_torch.kernels.ops`` once
+   at published widths (flash attention of gemma2-2b's local and global
+   layers and of minitron-4b, kimi-k2's expert matmul, mamba2-780m's SSD
+   chunks), count each kernel's launches, then hold every output, and
+   ragged shapes, against the plain versions and time kernel, plain version
+   and library call, as phase 3 does; then plant faults in flash attention
+   at S 8192 (late rows zeroed, the wrong kv head, the window halved or
+   one key block short) and fail unless the same check flags each;
+6. print the ``kernels`` JSON line, the card line and, last, the result.
 
 In the ``kernels`` line, ``ms`` is the mean time of back-to-back wrapper
 calls (the wrapper's host work included), ``device_ms`` the profiler's
 device time of one launch, and ``bound_ms`` the larger of the bytes over
-the HBM rate and the FLOPs over the fp32 rate at the main path's shape.
+the HBM rate and the FLOPs over the peak rate of the work's precision (fp32
+for the episodic kernels and the SSD chunk, bf16 tensor cores for flash
+attention and gmm) at the main path's shape.  ``launches`` counts the
+launches of the path that runs the kernel: the Simple CNAPs serving path
+for the episodic kernels, the ops phase for the LM-side ones.
 
 It imports no JAX.
 """
@@ -37,9 +50,11 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and fp32 (non-tensor) FLOP/s
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 (non-tensor) and
+# dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 
 def fail(msg: str) -> None:
@@ -101,15 +116,92 @@ def kernel_device_ms(fn, symbol: str, n: int = 50):
     return sum(_dev_us(e) for e in evts) / sum(e.count for e in evts) / 1e3
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak: float = FP32_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def rel_err(got, want) -> float:
+def row_err(got, want) -> float:
+    """The largest error of a row: max|got - want| over each row (the last
+    axis; a 1-D tensor is one row) over that row's max|want|.  A row whose
+    values are small beside the rest of the tensor (late rows of causal
+    attention, which average thousands of keys) is held to its own scale."""
+    g, w = got.float(), want.float()
+    if w.dim() > 1:
+        g, w = g.reshape(-1, w.shape[-1]), w.reshape(-1, w.shape[-1])
+    err = (g - w).abs().amax(dim=-1)
+    scale = w.abs().amax(dim=-1).clamp_min(1e-30)
+    return float((err / scale).max())
+
+
+def global_err(got, want) -> float:
+    """max|got - want| over the whole tensor's max|want|."""
     scale = max(float(want.abs().max()), 1e-30)
     return float((got.float() - want.float()).abs().max()) / scale
+
+
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def check_kernels(specs, counted=None):
+    """Hold every case of every kernel against its plain version, by the
+    per-row error of each output within the case's tolerance, and time the
+    main cases: kernel, plain version and library call from CUDA events,
+    the kernel's device time from the profiler.  ``counted`` maps
+    (kernel, case index) to the outputs of a counted run of that case,
+    which are then checked in place of a fresh call.  Returns the rows of
+    the ``kernels`` line; each carries its first main case's times."""
+    import torch
+    counted = counted or {}
+    rows = {}
+    for spec in specs:
+        name = spec["name"]
+        row = dict(name=name, route="cuda", source=spec["source"],
+                   replaces=spec["replaces"], max_abs_err=0.0, max_row_err=0.0,
+                   max_global_err=0.0, cases=[])
+        for i, c in enumerate(spec["cases"]):
+            args, kw, tol = c["args"], c.get("kw", {}), c["tol"]
+            got = counted.pop((name, i), None)
+            got = got if got is not None else _as_tuple(c["fn"](*args, **kw))
+            torch.cuda.synchronize()
+            want = _as_tuple(c["plain"](*args, **kw))
+            err_abs = max(float((a.float() - b.float()).abs().max())
+                          for a, b in zip(got, want))
+            err_row = max(row_err(a, b) for a, b in zip(got, want))
+            err_glob = max(global_err(a, b) for a, b in zip(got, want))
+            ok = (all(a.shape == b.shape and a.dtype == b.dtype for a, b in zip(got, want))
+                  and all(bool(torch.isfinite(a).all()) for a in got) and err_row <= tol)
+            print(f"kernel {name:20s} {c['label']:58s} max_abs_err={err_abs:.3e} "
+                  f"row_err={err_row:.3e} tol={tol:.0e} (global {err_glob:.3e}) "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"{name} [{c['label']}] disagrees with its plain version")
+            row["max_abs_err"] = max(row["max_abs_err"], err_abs)
+            row["max_row_err"] = max(row["max_row_err"], err_row)
+            row["max_global_err"] = max(row["max_global_err"], err_glob)
+            del got, want
+            if c["main"]:
+                kern = lambda: c["fn"](*args, **kw)
+                it, reps = c["iters"]
+                b_ms, b_by = bound_ms(c["bytes"], c["flops"], c["peak"])
+                t = dict(shape=c["label"], ms=time_ms(kern, it, reps),
+                         plain_ms=time_ms(lambda: c["plain"](*args, **kw), it, reps),
+                         library_ms=(time_ms(lambda: c["lib"](*args), it, reps)
+                                     if c["lib"] else None),
+                         device_ms=kernel_device_ms(kern, spec["symbol"], n=it),
+                         bound_ms=b_ms, bound_by=b_by, bytes=c["bytes"], flops=c["flops"])
+                print(f"  time {c['label']}: kernel {t['ms']:.4f} ms per call (device "
+                      f"{t['device_ms']} ms per launch), plain {t['plain_ms']:.4f} ms, "
+                      f"library {t['library_ms']} ms, bound {b_ms:.5f} ms ({b_by}); "
+                      f"{c['flops'] / t['ms'] / 1e9:.3f} TFLOP/s", flush=True)
+                row["cases"].append(t)
+            torch.cuda.empty_cache()
+        row.update({k: row["cases"][0][k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                                                    "device_ms", "bound_ms", "bound_by")})
+        rows[name] = row
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -117,8 +209,10 @@ def rel_err(got, want) -> float:
 # ---------------------------------------------------------------------------
 
 def kernel_cases(dev):
-    """(name, source, replaces, tol, cases); a case is (label, make_inputs,
-    kernel_fn, plain_fn, library_fn or None, bytes, flops)."""
+    """The episodic kernels' specs: name, source, replaced TPU kernel,
+    device symbol and cases.  A case holds label, fn, plain, lib (or None),
+    args, tol (per-row, see :func:`row_err`), main (timed), iters
+    (back-to-back calls, repetitions), bytes, flops and peak."""
     import torch
     from repro_torch.kernels import int8_matmul as im
     from repro_torch.kernels import mahalanobis as md
@@ -137,93 +231,70 @@ def kernel_cases(dev):
             w[:, -pad_rows:] = 0.0          # collator padding: zero-weight rows
         return w.to(dev)
 
+    def case(label, fn, plain, lib, args, nbytes, flops):
+        # fp32 sums in other orders, whatever the input dtype
+        return dict(label=label, fn=fn, plain=plain, lib=lib, args=args, tol=1e-5,
+                    main=label.startswith("main"), iters=(50, 7), bytes=nbytes,
+                    flops=flops, peak=FP32_FLOPS)
+
     def seg_case(label, t, b, f, c, dtype=torch.float32, pad=0):
         x, w = randn(t, b, f, dtype=dtype), onehot(t, b, c, pad)
         nbytes = x.numel() * x.element_size() + w.numel() * 4 + t * c * f * 4
-        return (label, (x, w), sp.segment_pool_weighted, sp.segment_pool_weighted_plain,
-                lambda x, w: torch.bmm(w.transpose(1, 2), x.float()),
-                nbytes, 2.0 * t * b * c * f)
+        return case(label, sp.segment_pool_weighted, sp.segment_pool_weighted_plain,
+                    lambda x, w: torch.bmm(w.transpose(1, 2), x.float()), (x, w),
+                    nbytes, 2.0 * t * b * c * f)
 
     def sm_case(label, t, b, f, c, dtype=torch.float32, pad=0):
         x, w = randn(t, b, f, dtype=dtype), onehot(t, b, c, pad)
         nbytes = x.numel() * x.element_size() + w.numel() * 4 + t * c * f * f * 4
-        return (label, (x, w), sp.class_second_moment, sp.class_second_moment_plain,
-                lambda x, w: torch.einsum("tbc,tbi,tbj->tcij", w, x.float(), x.float()),
-                nbytes, 2.0 * t * c * b * f * f)
+        return case(label, sp.class_second_moment, sp.class_second_moment_plain,
+                    lambda x, w: torch.einsum("tbc,tbi,tbj->tcij", w, x.float(), x.float()),
+                    (x, w), nbytes, 2.0 * t * c * b * f * f)
 
     def md_case(label, t, m, c, f):
         q, mu = randn(t, m, f), randn(t, c, f)
         a = randn(t, c, f, f) / math.sqrt(f)
         sinv = a @ a.transpose(-1, -2) + torch.eye(f, device=dev)
         nbytes = 4 * (q.numel() + mu.numel() + sinv.numel() + t * m * c)
-        return (label, (q, mu, sinv), md.mahalanobis, md.mahalanobis_plain, None,
-                nbytes, 2.0 * t * c * m * f * f + 3.0 * t * c * m * f)
+        # library yardstick: one einsum on the difference q - mu computed
+        # beforehand, so it does less than the kernel, which forms it
+        diff = (q[:, :, None, :] - mu[:, None, :, :]).contiguous()
+        lib = lambda q, mu, sinv: torch.einsum("tmcf,tcfg,tmcg->tmc", diff, sinv, diff)
+        return case(label, md.mahalanobis, md.mahalanobis_plain, lib, (q, mu, sinv),
+                    nbytes, 2.0 * t * c * m * f * f + 3.0 * t * c * m * f)
 
     def im_case(label, m, k, n):
         x = randn(m, k)
         qs = quantize(randn(k, n) / math.sqrt(k))
         q, s = qs["q"].contiguous(), qs["scale"].contiguous()
         nbytes = 4 * x.numel() + q.numel() + 4 * s.numel() + 4 * m * n
-        return (label, (x, q, s), im.int8_matmul, im.int8_matmul_plain, None,
-                nbytes, 2.0 * m * k * n)
+        return case(label, im.int8_matmul, im.int8_matmul_plain, None, (x, q, s),
+                    nbytes, 2.0 * m * k * n)
 
     src = "src/repro_torch/kernels/csrc/"
-    # (name, source, replaces, tolerance, device symbol, cases)
+    spec = lambda name, source, replaces, symbol, cases: dict(
+        name=name, source=src + source, replaces=replaces, symbol=symbol, cases=cases)
     return [
-        ("segment_sum", src + "segment_pool.cu", "src/repro/kernels/segment_pool.py:55", 1e-5, "segment_sum_kernel", [
-            seg_case("main T4 B32 F256 C5", 4, 32, 256, 5),
-            seg_case("ragged T3 B37 F200 C5 bf16 pad5", 3, 37, 200, 5, torch.bfloat16, 5),
-            seg_case("ragged T2 B21 F72 C5 fp16 pad3", 2, 21, 72, 5, torch.float16, 3)]),
-        ("class_second_moment", src + "segment_pool.cu", "src/repro/kernels/segment_pool.py:112", 1e-5, "second_moment_kernel", [
-            sm_case("main T4 B32 F256 C5", 4, 32, 256, 5),
-            sm_case("ragged T3 B37 F200 C5 bf16 pad5", 3, 37, 200, 5, torch.bfloat16, 5),
-            sm_case("ragged T2 B21 F72 C5 fp16 pad3", 2, 21, 72, 5, torch.float16, 3)]),
-        ("mahalanobis", src + "mahalanobis.cu", "src/repro/kernels/mahalanobis.py:29", 1e-5, "mahalanobis_kernel", [
-            md_case("main T4 M8 C5 F256", 4, 8, 5, 256),
-            md_case("ragged T3 M13 C5 F200", 3, 13, 5, 200)]),
-        ("int8_matmul", src + "int8_matmul.cu", "src/repro/kernels/int8_matmul.py:50", 1e-5, "int8_matmul_kernel", [
-            im_case("main M128 K256 N256", 128, 256, 256),
-            im_case("main M32 K256 N256", 32, 256, 256),
-            im_case("ragged M50 K200 N300", 50, 200, 300)]),
+        spec("segment_sum", "segment_pool.cu", "src/repro/kernels/segment_pool.py:55",
+             "segment_sum_kernel", [
+                 seg_case("main T4 B32 F256 C5", 4, 32, 256, 5),
+                 seg_case("ragged T3 B37 F200 C5 bf16 pad5", 3, 37, 200, 5, torch.bfloat16, 5),
+                 seg_case("ragged T2 B21 F72 C5 fp16 pad3", 2, 21, 72, 5, torch.float16, 3)]),
+        spec("class_second_moment", "segment_pool.cu", "src/repro/kernels/segment_pool.py:112",
+             "second_moment_kernel", [
+                 sm_case("main T4 B32 F256 C5", 4, 32, 256, 5),
+                 sm_case("ragged T3 B37 F200 C5 bf16 pad5", 3, 37, 200, 5, torch.bfloat16, 5),
+                 sm_case("ragged T2 B21 F72 C5 fp16 pad3", 2, 21, 72, 5, torch.float16, 3)]),
+        spec("mahalanobis", "mahalanobis.cu", "src/repro/kernels/mahalanobis.py:29",
+             "mahalanobis_kernel", [
+                 md_case("main T4 M8 C5 F256", 4, 8, 5, 256),
+                 md_case("ragged T3 M13 C5 F200", 3, 13, 5, 200)]),
+        spec("int8_matmul", "int8_matmul.cu", "src/repro/kernels/int8_matmul.py:50",
+             "int8_matmul_kernel", [
+                 im_case("main M128 K256 N256", 128, 256, 256),
+                 im_case("query M32 K256 N256", 32, 256, 256),
+                 im_case("ragged M50 K200 N300", 50, 200, 300)]),
     ]
-
-
-def check_kernels(dev):
-    import torch
-    rows = {}
-    for name, source, replaces, tol, symbol, cases in kernel_cases(dev):
-        row = dict(name=name, route="cuda", source=source, replaces=replaces,
-                   tol=tol, max_abs_err=0.0, max_rel_err=0.0)
-        for i, (label, args, kern, plain, lib, nbytes, flops) in enumerate(cases):
-            got = kern(*args)
-            torch.cuda.synchronize()
-            want = plain(*args)
-            err_abs = float((got - want).abs().max())
-            err_rel = rel_err(got, want)
-            ok = err_rel <= tol and bool(torch.isfinite(got).all())
-            print(f"kernel {name:20s} {label:34s} max_abs_err={err_abs:.3e} "
-                  f"rel_err={err_rel:.3e} tol={tol:.0e} {'ok' if ok else 'FAIL'}",
-                  flush=True)
-            if not ok:
-                fail(f"{name} [{label}] disagrees with its plain version")
-            row["max_abs_err"] = max(row["max_abs_err"], err_abs)
-            row["max_rel_err"] = max(row["max_rel_err"], err_rel)
-            if i == 0:                        # the main path's shape is timed
-                b_ms, b_by = bound_ms(nbytes, flops)
-                row.update(
-                    shape=label,
-                    ms=time_ms(lambda: kern(*args)),
-                    plain_ms=time_ms(lambda: plain(*args)),
-                    library_ms=time_ms(lambda: lib(*args)) if lib else None,
-                    device_ms=kernel_device_ms(lambda: kern(*args), symbol),
-                    bound_ms=b_ms, bound_by=b_by)
-                print(f"  time {label}: kernel {row['ms']:.4f} ms per call "
-                      f"(device {row['device_ms']} ms per launch), plain "
-                      f"{row['plain_ms']:.4f} ms, library "
-                      f"{row['library_ms'] if lib else None} ms, bound "
-                      f"{b_ms:.5f} ms ({b_by})", flush=True)
-        rows[name] = row
-    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -373,6 +444,205 @@ def run_path(kind: str, n_requests: int, dev, launches, trace: bool = False):
                 predict_dispatches=s["predict_dispatches"])
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the LM-side kernel entry point repro_torch.kernels.ops
+# ---------------------------------------------------------------------------
+
+# per-row tolerances against the plain versions (see row_err): fp32 sums in
+# other orders; a bf16 output may differ by one bf16 rounding where the fp32
+# sums straddle a rounding boundary, at most 2^-7 = 7.8e-3 of its row's
+# largest value (fp16: 2^-10); ssd_chunk's outputs are fp32 whatever its
+# inputs, and exp amplifies the other summation order of torch.cumsum in
+# its plain version
+OPS_TOL = {"flash_attention": {"float32": 2e-5, "bfloat16": 1e-2, "float16": 2e-3},
+           "gmm": {"float32": 1e-5, "bfloat16": 1e-2, "float16": 2e-3},
+           "ssd_chunk": {"float32": 1e-4, "bfloat16": 1e-4}}
+
+
+def attn_pairs(s: int, causal: bool, window) -> int:
+    """Unmasked (query, key) pairs of one head."""
+    if not causal:
+        return s * s if window is None else sum(s - max(0, q - window + 1) for q in range(s))
+    if window is None:
+        return s * (s + 1) // 2
+    return sum(min(q + 1, window) for q in range(s))
+
+
+def ops_cases(dev):
+    """The LM-side kernels' specs, as :func:`kernel_cases` gives them; ``fn``
+    goes through repro_torch.kernels.ops, and the main cases are the ones
+    driven on the counted ops path."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gmm as gm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+
+    g = torch.Generator(device="cpu").manual_seed(1)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(device=dev, dtype=dtype)
+
+    def flash(label, b, s, hq, hkv, d, dtype, main=False, lib=False, **kw):
+        q, k, v = randn(b, s, hq, d, dtype=dtype), randn(b, s, hkv, d, dtype=dtype), \
+            randn(b, s, hkv, d, dtype=dtype)
+        esz = q.element_size()
+        sdpa = (lambda q, k, v: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)) if lib else None
+        return dict(label=label, fn=ops.flash_attention_gqa,
+                    plain=fa.flash_attention_gqa_plain, lib=sdpa, args=(q, k, v),
+                    kw=kw, tol=OPS_TOL["flash_attention"][str(dtype).split(".")[1]],
+                    main=main, iters=(3, 3),
+                    bytes=esz * (2 * b * s * hq * d + 2 * b * s * hkv * d),
+                    flops=4.0 * d * b * hq * attn_pairs(s, kw["causal"], kw.get("window")),
+                    peak=BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+
+    def flash_bh(label, bh, s, d, **kw):
+        q, k, v = (randn(bh, s, d) for _ in range(3))
+        return dict(label=label, fn=ops.flash_attention, plain=fa.flash_attention_plain,
+                    lib=None, args=(q, k, v), kw=kw,
+                    tol=OPS_TOL["flash_attention"]["float32"], main=False,
+                    bytes=4 * 4 * bh * s * d,
+                    flops=4.0 * d * bh * attn_pairs(s, kw["causal"], kw.get("window")),
+                    peak=FP32_FLOPS)
+
+    def gmm(label, e, c, d, f, dtype, main=False):
+        x, w = randn(e, c, d, dtype=dtype), randn(e, d, f, dtype=dtype, scale=d ** -0.5)
+        esz = x.element_size()
+        return dict(label=label, fn=ops.gmm, plain=gm.gmm_plain, lib=torch.bmm,
+                    args=(x, w), tol=OPS_TOL["gmm"][str(dtype).split(".")[1]],
+                    main=main, iters=(3, 3),
+                    bytes=esz * (e * c * d + e * d * f + e * c * f),
+                    flops=2.0 * e * c * d * f,
+                    peak=BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+
+    def ssd_case(label, gg, q, p, n, dtype=torch.float32, main=False):
+        # Mamba-2's initialisation ranges: dt log-uniform in [1e-3, 1e-1],
+        # A = -uniform(1, 16)
+        u = lambda *s: torch.rand(*s, generator=g)
+        dt = torch.exp(math.log(1e-3) + u(gg, q) * math.log(100.0)).to(dev, dtype)
+        A = (-(1.0 + 15.0 * u(gg))).to(dev, dtype)
+        x, B, C = (randn(gg, q, k, dtype=dtype) for k in (p, n, n))
+        pairs = q * (q + 1) // 2
+        esz = x.element_size()
+        return dict(label=label, fn=ops.ssd_chunk, plain=ssd.ssd_chunk_plain, lib=None,
+                    args=(x, dt, A, B, C),
+                    tol=OPS_TOL["ssd_chunk"][str(dtype).split(".")[1]], main=main,
+                    iters=(3, 3),
+                    bytes=esz * gg * (q * p + q + 1 + 2 * q * n)
+                    + 4 * gg * (q * p + q + 1 + p * n),
+                    flops=gg * (2.0 * pairs * (n + p) + 2.0 * q * p * n),
+                    peak=FP32_FLOPS)
+
+    src = "src/repro_torch/kernels/csrc/"
+    spec = lambda name, source, replaces, symbol, cases: dict(
+        name=name, source=src + source, replaces=replaces, symbol=symbol, cases=cases)
+    return [
+        # gemma2-2b: 8 query heads over 4 kv heads, head_dim 256, softcap 50,
+        # local layers window 4096; minitron-4b: 24 over 8, head_dim 128
+        spec("flash_attention", "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:89", "flash_attention_kernel", [
+            flash("minitron-4b B1 S8192 Hq24 Hkv8 D128 causal", 1, 8192, 24, 8, 128,
+                  torch.bfloat16, main=True, lib=True, causal=True),
+            flash("gemma2-2b global B1 S8192 Hq8 Hkv4 D256 causal cap50", 1, 8192, 8, 4,
+                  256, torch.bfloat16, main=True, causal=True, softcap=50.0),
+            flash("gemma2-2b local B1 S8192 Hq8 Hkv4 D256 window4096 cap50", 1, 8192, 8,
+                  4, 256, torch.bfloat16, main=True, causal=True, window=4096,
+                  softcap=50.0),
+            *(flash_bh(f"ragged BH2 S100 D32 causal={c} window={w} cap={cap}", 2, 100,
+                       32, causal=c, window=w, softcap=cap)
+              for c, w, cap in ((True, None, None), (False, None, None), (True, 24, None),
+                                (True, None, 50.0), (True, 24, 30.0))),
+            flash("ragged B2 S200 Hq4 Hkv2 D256 window64 cap50", 2, 200, 4, 2, 256,
+                  torch.bfloat16, causal=True, window=64, softcap=50.0),
+            flash("ragged B1 S77 Hq3 Hkv1 D80 non-causal", 1, 77, 3, 1, 80,
+                  torch.float32, causal=False),
+            flash("ragged B1 S130 Hq2 Hkv2 D64 fp16 window100", 1, 130, 2, 2, 64,
+                  torch.float16, causal=True, window=100)]),
+        # kimi-k2: 8 of its experts, 512 tokens each, d_model 7168, expert
+        # hidden 2048
+        spec("gmm", "gmm.cu", "src/repro/kernels/gmm.py:37", "gmm_kernel", [
+            gmm("kimi-k2 E8 C512 D7168 F2048", 8, 512, 7168, 2048, torch.bfloat16,
+                main=True),
+            gmm("ragged E2 C130 D200 F300", 2, 130, 200, 300, torch.float32),
+            gmm("ragged E2 C130 D200 F300", 2, 130, 200, 300, torch.bfloat16),
+            gmm("ragged E3 C33 D70 F45", 3, 33, 70, 45, torch.float16)]),
+        # mamba2-780m: 48 heads of 64 x 128 state, chunk 256, batch 1 x 8192
+        # tokens = 32 chunks
+        spec("ssd_chunk", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:56",
+             "ssd_chunk_kernel", [
+            ssd_case("mamba2-780m G1536 Q256 P64 N128", 48 * 32, 256, 64, 128, main=True),
+            ssd_case("ragged G6 Q32 P16 N8", 6, 32, 16, 8),
+            ssd_case("ragged G3 Q50 P24 N12", 3, 50, 24, 12),
+            ssd_case("ragged G4 Q64 P32 N16 bf16", 4, 64, 32, 16, torch.bfloat16)]),
+    ]
+
+
+def check_planted_faults(flash):
+    """Faults planted in flash attention at S 8192, each of which the
+    per-row check must flag: late rows zeroed, the kv head read one off,
+    the sliding window halved or one key block short.  Returns their
+    readings, with the whole-tensor measure beside them."""
+    import torch
+    mini, local = flash["cases"][0], flash["cases"][2]
+    q, k, v = mini["args"]
+    want = mini["plain"](q, k, v, **mini["kw"])
+    late = mini["fn"](q, k, v, **mini["kw"])
+    late[:, q.shape[1] // 2:] = 0
+    planted = [("minitron-4b: rows past S/2 zeroed", late, want, mini["tol"]),
+               ("minitron-4b: kv head read one off",
+                mini["fn"](q, k.roll(1, dims=2), v.roll(1, dims=2), **mini["kw"]), want,
+                mini["tol"])]
+    q, k, v = local["args"]
+    kw = local["kw"]
+    want = local["plain"](q, k, v, **kw)
+    planted += [(f"gemma2-2b local: window {kw['window']} halved",
+                 local["fn"](q, k, v, **{**kw, "window": kw["window"] // 2}), want,
+                 local["tol"]),
+                ("gemma2-2b local: window one 64-key block short",
+                 local["fn"](q, k, v, **{**kw, "window": kw["window"] - 64}), want,
+                 local["tol"])]
+    readings = []
+    for label, got, want, tol in planted:
+        r = dict(fault=label, row_err=row_err(got, want), global_err=global_err(got, want),
+                 tol=tol)
+        caught = r["row_err"] > tol
+        print(f"planted fault {label:48s} row_err={r['row_err']:.3e} "
+              f"(global {r['global_err']:.3e}) tol={tol:.0e} "
+              f"{'caught' if caught else 'MISSED'}", flush=True)
+        if not caught:
+            fail(f"the per-row check misses the planted fault: {label}")
+        readings.append(r)
+    del planted, want
+    torch.cuda.empty_cache()
+    return readings
+
+
+def run_ops_path(dev, launches):
+    """Drive repro_torch.kernels.ops once on every main shape with the
+    launch counts set to 0 just before and read just after; then hold each
+    output, and the ragged shapes, against the plain versions and time the
+    main shapes; then check that planted faults are caught.  Returns the
+    kernels' rows and the planted faults' readings."""
+    import torch
+    from repro_torch.kernels import _build
+    specs = ops_cases(dev)
+    mains = [(spec["name"], i, c) for spec in specs
+             for i, c in enumerate(spec["cases"]) if c["main"]]
+    torch.cuda.synchronize()
+    _build.launches.reset()
+    outs = {(name, i): _as_tuple(c["fn"](*c["args"], **c.get("kw", {}))) for name, i, c in mains}
+    torch.cuda.synchronize()
+    counts = _build.launches.snapshot()
+    launches["ops"] = counts
+    print(f"path ops: {len(mains)} calls through repro_torch.kernels.ops at published "
+          f"widths, launches {counts}", flush=True)
+    rows = check_kernels(specs, counted=outs)
+    return rows, check_planted_faults(specs[0])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -392,21 +662,25 @@ def main() -> int:
     _build.library()
     print(f"build: {lib_path.name} in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    rows = check_kernels(dev)
+    rows = check_kernels(kernel_cases(dev))
     launches = {}
     summary = [run_path("simple_cnaps", 8, dev, launches, trace=True),
                run_path("protonets", 4, dev, launches)]
-    main_counts = launches["simple_cnaps"]
-    for name in rows:
-        if main_counts.get(name, 0) < 1:
-            fail(f"kernel {name} was not launched on the main path")
+    ops_rows, planted = run_ops_path(dev, launches)
+    # each kernel counted on the path that runs it
+    path_of = {n: "simple_cnaps" for n in rows} | {n: "ops" for n in ops_rows}
+    rows |= ops_rows
+    for name, path in path_of.items():
+        if launches[path].get(name, 0) < 1:
+            fail(f"kernel {name} was not launched on the {path} path")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
-        dict(card=card, kernels=rows, paths=summary), indent=1))
+        dict(card=card, kernels=rows, paths=summary, launches=launches,
+             planted_faults=planted), indent=1))
     print(json.dumps({"kernels": [
         {k: rows[n][k] for k in ("name", "route", "source", "replaces")}
-        | {"launches": main_counts[n]}
+        | {"launches": launches[path_of[n]][n]}
         | {k: rows[n][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                    "bound_by", "library_ms", "device_ms")}
         for n in rows]}))

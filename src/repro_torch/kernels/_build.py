@@ -29,12 +29,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 # C entry point -> argument types after the pointers (all return cudaError_t)
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "rt_segment_sum": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
     "rt_class_second_moment": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
     "rt_mahalanobis": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "rt_int8_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _L, _L, _L, _L, _L, _L, _I, _I, _I, _F, _F, _P),
+    "rt_gmm": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "rt_ssd_chunk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,0 +1,37 @@
+"""Grouped (per-expert) matmul of the MoE layer:
+
+    out[e] = x[e] @ w[e]        x (E, C, D), w (E, D, F) -> (E, C, F)
+
+accumulated in fp32 over D, the output in x's dtype.  On a CUDA tensor the
+wrapper launches the hand-written kernel (``csrc/gmm.cu``) or raises; on a
+CPU tensor it runs the plain PyTorch version beside it.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._checks import check_tensor, ptr, require, stream
+from repro_torch.kernels.ref import gmm_ref
+
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)  # codes 0, 1, 2
+
+
+# the plain version: one fp32 einsum, cast to x's dtype
+gmm_plain = gmm_ref
+
+
+def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: (E, C, D); w: (E, D, F), one dtype of fp32/bf16/fp16 ->
+    (E, C, F) in that dtype."""
+    if x.device.type == "cpu":
+        return gmm_plain(x, w)
+    check_tensor("x", x, 3, _DTYPES, x.device)
+    check_tensor("w", w, 3, (x.dtype,), x.device)
+    e, c, d = x.shape
+    require(w.shape[:2] == (e, d), f"w {tuple(w.shape)} vs x {tuple(x.shape)}")
+    f = w.shape[2]
+    out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
+    _build.launch("rt_gmm", "gmm", ptr(x), ptr(w), ptr(out),
+                  _DTYPES.index(x.dtype), e, c, d, f, stream(x.device))
+    return out

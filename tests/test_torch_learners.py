@@ -20,7 +20,16 @@ Tolerances, relative to max|value|:
   equivalent paths differ as much on the same inputs (naive against ref
   backend: 6.2e-4 in logits; chunked against unchunked: 9.7e-4).  Argmax
   must agree wherever the top-2 margin exceeds the tolerance.
+
+``test_simple_cnaps_head_from_identical_features`` isolates that gap: both
+packages' Simple CNAPs adaptation and head run on a stub backbone whose
+features are its input, fed the same numpy features (the JAX backbone's own,
+under the JAX-adapted FiLM).  There ``chol`` and logits agree to
+TOL_HEAD = 1e-5 relative (measured 5.0e-6 and 6.1e-6), so the head's
+formulas are the same and the 4e-3 above comes from the features.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +44,7 @@ from repro.core.meta_learners import make_learner as j_make
 from repro.core.set_encoder import SetEncoderConfig as JSetCfg
 from repro.data.episodic import collate_task_batch as j_collate
 from repro.kernels import dispatch as jd
+from repro.models.backbone import BackboneDef as JBackboneDef
 from repro.models.conv_backbone import ConvBackboneConfig as JBBCfg
 from repro.models.conv_backbone import make_conv_backbone as j_bb
 from repro.serve.quant_params import dequantize_params as j_deq
@@ -45,6 +55,7 @@ from repro_torch.core.lite import LiteSpec, serve_class_stats
 from repro_torch.core.meta_learners import MetaLearnerConfig, make_learner
 from repro_torch.core.set_encoder import SetEncoderConfig
 from repro_torch.kernels import dispatch as td
+from repro_torch.models.backbone import BackboneDef
 from repro_torch.models.conv_backbone import ConvBackboneConfig, make_conv_backbone
 
 pytestmark = pytest.mark.torch_port
@@ -52,6 +63,7 @@ torch.set_num_threads(1)
 
 TOL = 1e-5
 TOL_SIMPLE_CNAPS = 4e-3
+TOL_HEAD = 1e-5
 WIDTHS, FDIM, IMG, T = (8, 16), 64, 16, 3
 BACKENDS = [("ref", "ref"), ("cuda", "pallas")]      # (port, JAX)
 
@@ -142,6 +154,51 @@ def test_simple_cnaps_adapt_predict_match(quant, t_backend, j_backend):
     assert np.isfinite(tlog).all()
     assert _rel(tlog, jlog) <= TOL_SIMPLE_CNAPS
     _argmax_agrees_where_confident(jlog, tlog, TOL_SIMPLE_CNAPS)
+
+
+def _identity_features(p, x, film):
+    return x.reshape(x.shape[0], -1)
+
+
+@pytest.mark.parametrize("t_backend,j_backend", BACKENDS)
+def test_simple_cnaps_head_from_identical_features(t_backend, j_backend):
+    """Simple CNAPs statistics, ridge, Cholesky and Mahalanobis head of both
+    packages on identical features: a stub backbone returns its input, and
+    both get the features that the JAX backbone computes for ``_tasks()``
+    under the JAX-adapted FiLM, as (4, 4, 4) "images"."""
+    jl, _ = _learners("simple_cnaps")
+    jp = jl.init(jax.random.key(0))
+    jb, _, qx = _tasks()
+    keys = jax.vmap(lambda i: jax.random.fold_in(jax.random.key(0), i))(jnp.arange(T))
+    film = jl.adapt_batch(jp, jb, keys, JLite(exact=True, chunk_size=8))["film"]
+    feats = lambda x, i: np.asarray(jl.backbone.features(
+        jp["bb"], x, jax.tree.map(lambda a: a[i], film))).reshape(-1, 4, 4, 4)
+    sx = np.stack([feats(jb.support_x[i], i) for i in range(T)])
+    qf = np.stack([feats(qx[i], i) for i in range(T)])
+
+    set_kw = dict(conv_blocks=2, conv_width=8, task_dim=16, in_channels=4)
+    jl = j_make(JCfg(kind="simple_cnaps", way=5),
+                JBackboneDef(lambda key: {}, _identity_features, FDIM, WIDTHS),
+                JSetCfg(**set_kw))
+    tl = make_learner(MetaLearnerConfig(kind="simple_cnaps", way=5),
+                      BackboneDef(lambda gen, device=None: {}, _identity_features,
+                                  FDIM, WIDTHS),
+                      SetEncoderConfig(**set_kw))
+    jp = jl.init(jax.random.key(0))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    jb = dataclasses.replace(jb, support_x=jnp.asarray(sx))
+    tb = TaskBatch(sx, *(np.asarray(getattr(jb, k)) for k in (
+        "support_y", "query_x", "query_y", "support_mask", "query_mask")),
+        way=5).to("cpu")
+    with jd.use_backend(j_backend):
+        js = jl.adapt_batch(jp, jb, keys, JLite(exact=True, chunk_size=8))
+        jlog = np.asarray(jl.predict_batch(jp, js, jnp.asarray(qf)))
+    with td.use_backend(t_backend):
+        ts = tl.adapt_batch(tp, tb, LiteSpec(exact=True, chunk_size=8))
+        tlog = tl.predict_batch(tp, ts, torch.from_numpy(qf)).numpy()
+    assert _rel(ts["mu"].numpy(), js["mu"]) <= TOL_HEAD
+    assert _rel(ts["chol"].numpy(), js["chol"]) <= TOL_HEAD
+    assert _rel(tlog, jlog) <= TOL_HEAD
 
 
 @pytest.mark.parametrize("t_backend,j_backend", BACKENDS)
