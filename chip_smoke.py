@@ -19,9 +19,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
 5. drive the LM-side kernel entry point ``repro_torch.kernels.ops`` once
    at published widths (flash attention of gemma2-2b's local and global
    layers and of minitron-4b, kimi-k2's expert matmul, mamba2-780m's SSD
-   chunks), count each kernel's launches, then hold every output, and
-   ragged shapes, against the plain versions and time kernel, plain version
-   and library call, as phase 3 does; then plant faults in flash attention
+   chunks), count each kernel's launches and fail unless every main call of
+   gmm and flash attention took the tensor-core route ("wgmma"), then hold
+   every output, and ragged shapes on both routes, against the plain
+   versions and time kernel, plain version and library call, as phase 3
+   does; then plant faults in flash attention
    at S 8192 (late rows zeroed, the wrong kv head, the window halved or
    one key block short) and fail unless the same check flags each;
 6. print the ``kernels`` JSON line, the card line and, last, the result.
@@ -173,7 +175,8 @@ def check_kernels(specs, counted=None):
             err_glob = max(global_err(a, b) for a, b in zip(got, want))
             ok = (all(a.shape == b.shape and a.dtype == b.dtype for a, b in zip(got, want))
                   and all(bool(torch.isfinite(a).all()) for a in got) and err_row <= tol)
-            print(f"kernel {name:20s} {c['label']:58s} max_abs_err={err_abs:.3e} "
+            route = f"route={c['route']} " if "route" in c else ""
+            print(f"kernel {name:20s} {c['label']:58s} {route}max_abs_err={err_abs:.3e} "
                   f"row_err={err_row:.3e} tol={tol:.0e} (global {err_glob:.3e}) "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
@@ -484,14 +487,22 @@ def ops_cases(dev):
     def randn(*shape, dtype=torch.float32, scale=1.0):
         return (torch.randn(*shape, generator=g) * scale).to(device=dev, dtype=dtype)
 
-    def flash(label, b, s, hq, hkv, d, dtype, main=False, lib=False, **kw):
+    def unaligned(t):
+        """A contiguous copy of ``t`` whose base is one element past a
+        16-byte boundary, which TMA cannot read: the "simt" route."""
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        return buf[1:].view(t.shape).copy_(t)
+
+    def flash(label, b, s, hq, hkv, d, dtype, main=False, lib=False, offset=False, **kw):
         q, k, v = randn(b, s, hq, d, dtype=dtype), randn(b, s, hkv, d, dtype=dtype), \
             randn(b, s, hkv, d, dtype=dtype)
+        if offset:
+            q, k, v = unaligned(q), unaligned(k), unaligned(v)
         esz = q.element_size()
         sdpa = (lambda q, k, v: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=True, enable_gqa=True)) if lib else None
-        return dict(label=label, fn=ops.flash_attention_gqa,
+        return dict(label=label, fn=ops.flash_attention_gqa, route=fa.flash_route(q, k, v),
                     plain=fa.flash_attention_gqa_plain, lib=sdpa, args=(q, k, v),
                     kw=kw, tol=OPS_TOL["flash_attention"][str(dtype).split(".")[1]],
                     main=main, iters=(3, 3),
@@ -502,16 +513,19 @@ def ops_cases(dev):
     def flash_bh(label, bh, s, d, **kw):
         q, k, v = (randn(bh, s, d) for _ in range(3))
         return dict(label=label, fn=ops.flash_attention, plain=fa.flash_attention_plain,
-                    lib=None, args=(q, k, v), kw=kw,
+                    route=fa.flash_route(q, k, v), lib=None, args=(q, k, v), kw=kw,
                     tol=OPS_TOL["flash_attention"]["float32"], main=False,
                     bytes=4 * 4 * bh * s * d,
                     flops=4.0 * d * bh * attn_pairs(s, kw["causal"], kw.get("window")),
                     peak=FP32_FLOPS)
 
-    def gmm(label, e, c, d, f, dtype, main=False):
+    def gmm(label, e, c, d, f, dtype, main=False, offset=False):
         x, w = randn(e, c, d, dtype=dtype), randn(e, d, f, dtype=dtype, scale=d ** -0.5)
+        if offset:
+            x, w = unaligned(x), unaligned(w)
         esz = x.element_size()
         return dict(label=label, fn=ops.gmm, plain=gm.gmm_plain, lib=torch.bmm,
+                    route=gm.gmm_route(x, w),
                     args=(x, w), tol=OPS_TOL["gmm"][str(dtype).split(".")[1]],
                     main=main, iters=(3, 3),
                     bytes=esz * (e * c * d + e * d * f + e * c * f),
@@ -541,9 +555,11 @@ def ops_cases(dev):
         name=name, source=src + source, replaces=replaces, symbol=symbol, cases=cases)
     return [
         # gemma2-2b: 8 query heads over 4 kv heads, head_dim 256, softcap 50,
-        # local layers window 4096; minitron-4b: 24 over 8, head_dim 128
+        # local layers window 4096; minitron-4b: 24 over 8, head_dim 128.  The
+        # bf16 / fp16 cases at head dims 64, 128 and 256 take the "wgmma"
+        # route, the fp32, other head dims and unaligned ones the "simt" route
         spec("flash_attention", "flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:89", "flash_attention_kernel", [
+             "src/repro/kernels/flash_attention.py:89", "flash_attention_wgmma_kernel", [
             flash("minitron-4b B1 S8192 Hq24 Hkv8 D128 causal", 1, 8192, 24, 8, 128,
                   torch.bfloat16, main=True, lib=True, causal=True),
             flash("gemma2-2b global B1 S8192 Hq8 Hkv4 D256 causal cap50", 1, 8192, 8, 4,
@@ -560,15 +576,29 @@ def ops_cases(dev):
             flash("ragged B1 S77 Hq3 Hkv1 D80 non-causal", 1, 77, 3, 1, 80,
                   torch.float32, causal=False),
             flash("ragged B1 S130 Hq2 Hkv2 D64 fp16 window100", 1, 130, 2, 2, 64,
-                  torch.float16, causal=True, window=100)]),
+                  torch.float16, causal=True, window=100),
+            flash("ragged B2 S200 Hq4 Hkv2 D128 cap30", 2, 200, 4, 2, 128, torch.bfloat16,
+                  causal=True, softcap=30.0),
+            flash("ragged B2 S200 Hq4 Hkv2 D128 non-causal window50", 2, 200, 4, 2, 128,
+                  torch.bfloat16, causal=False, window=50),
+            flash("ragged B1 S200 Hq4 Hkv1 D256 fp16 window100 cap50", 1, 200, 4, 1, 256,
+                  torch.float16, causal=True, window=100, softcap=50.0),
+            flash("ragged B1 S77 Hq2 Hkv1 D80 bf16 (head dim: simt)", 1, 77, 2, 1, 80,
+                  torch.bfloat16, causal=True),
+            flash("ragged B1 S100 Hq2 Hkv1 D128 bf16 unaligned (simt)", 1, 100, 2, 1, 128,
+                  torch.bfloat16, offset=True, causal=True, window=40)]),
         # kimi-k2: 8 of its experts, 512 tokens each, d_model 7168, expert
         # hidden 2048
-        spec("gmm", "gmm.cu", "src/repro/kernels/gmm.py:37", "gmm_kernel", [
+        spec("gmm", "gmm.cu", "src/repro/kernels/gmm.py:37", "gmm_wgmma_kernel", [
             gmm("kimi-k2 E8 C512 D7168 F2048", 8, 512, 7168, 2048, torch.bfloat16,
                 main=True),
             gmm("ragged E2 C130 D200 F300", 2, 130, 200, 300, torch.float32),
             gmm("ragged E2 C130 D200 F300", 2, 130, 200, 300, torch.bfloat16),
-            gmm("ragged E3 C33 D70 F45", 3, 33, 70, 45, torch.float16)]),
+            gmm("ragged E3 C33 D70 F45", 3, 33, 70, 45, torch.float16),
+            gmm("ragged E3 C130 D200 F264", 3, 130, 200, 264, torch.bfloat16),
+            gmm("ragged E2 C77 D136 F72", 2, 77, 136, 72, torch.float16),
+            gmm("ragged E2 C64 D128 F128 unaligned (simt)", 2, 64, 128, 128,
+                torch.bfloat16, offset=True)]),
         # mamba2-780m: 48 heads of 64 x 128 state, chunk 256, batch 1 x 8192
         # tokens = 32 chunks
         spec("ssd_chunk", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:56",
@@ -639,6 +669,12 @@ def run_ops_path(dev, launches):
     launches["ops"] = counts
     print(f"path ops: {len(mains)} calls through repro_torch.kernels.ops at published "
           f"widths, launches {counts}", flush=True)
+    for name in ("flash_attention", "gmm"):      # the tensor-core kernels
+        n_main = sum(1 for n, _, _ in mains if n == name)
+        routes = [c["route"] for n, _, c in mains if n == name]
+        if routes != ["wgmma"] * n_main or counts.get(f"{name}/wgmma", 0) != n_main:
+            fail(f"{name}: the main calls took routes {routes}, launches {counts}; "
+                 f"all {n_main} must take the tensor-core route (wgmma)")
     rows = check_kernels(specs, counted=outs)
     return rows, check_planted_faults(specs[0])
 

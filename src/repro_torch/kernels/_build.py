@@ -1,16 +1,19 @@
 """Build, load and count the hand-written CUDA kernels.
 
 The sources in ``csrc/`` are compiled for ``sm_90a`` at first use: one
-``nvcc -c`` per source, all started together, then one link into a shared
-library with a plain C interface, loaded with ``ctypes``.  The library goes
-to ``build/repro_torch_kernels/`` at the repository root (listed in
-``.gitignore``) under a name that hashes the sources and flags, so an edit
-rebuilds and an unchanged tree reuses it.  Nothing is built when a module is
+``nvcc -c`` per ``*.cu``, all started together, with ``csrc/`` on the
+include path for the shared headers (``*.cuh``), then one link into a
+shared library with a plain C interface, loaded with ``ctypes``.  The
+library goes to ``build/repro_torch_kernels/`` at the repository root
+(listed in ``.gitignore``) under a name that hashes every file of
+``csrc/`` (sources and headers) and the flags, so an edit rebuilds and an
+unchanged tree reuses it.  Nothing is built when a module is
 imported, and nothing here runs on a machine without ``nvcc``: the CPU paths
 never call :func:`library`.
 
 Each kernel wrapper bumps :data:`launches` where it launches its kernel and
-nowhere else, so a run can show that it went through the kernels.
+nowhere else, so a run can show that it went through the kernels; a kernel
+with two routes is counted under its name and under ``<name>/<route>``.
 """
 from __future__ import annotations
 
@@ -28,6 +31,10 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
+# the route argument of the kernels that have two (gmm, flash attention):
+# its code is the index here
+ROUTES = ("simt", "wgmma")
+
 # C entry point -> argument types after the pointers (all return cudaError_t)
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
@@ -35,9 +42,10 @@ _SIGNATURES = {
     "rt_class_second_moment": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
     "rt_mahalanobis": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "rt_int8_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # ..., route (0 "simt", 1 "wgmma"), stream
     "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _L, _L, _L, _L, _L, _L, _I, _I, _I, _F, _F, _P),
-    "rt_gmm": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+                           _L, _L, _L, _L, _L, _L, _I, _I, _I, _F, _F, _I, _P),
+    "rt_gmm": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "rt_ssd_chunk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
@@ -80,12 +88,15 @@ def find_nvcc() -> str:
 
 
 def _sources():
+    """The translation units: every ``csrc/*.cu``."""
     return sorted(CSRC.glob("*.cu"))
 
 
 def _digest() -> str:
+    """Hash of the flags and of every file in ``csrc/``, headers included,
+    so an edit to a header rebuilds too."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(p for p in CSRC.iterdir() if p.is_file()):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -103,7 +114,7 @@ def build(verbose: bool = False) -> pathlib.Path:
     objs, procs = [], []
     for src in _sources():
         obj = BUILD_DIR / f"{src.stem}-{os.getpid()}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
         if verbose:
             cmd[1:1] = ["-Xptxas", "-v"]
         procs.append((src, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -143,10 +154,13 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def launch(name: str, counter: str, *args) -> None:
+def launch(name: str, counter: str, *args, route: Optional[str] = None) -> None:
     """Call C entry point ``name`` and raise if the launch was refused;
-    count it under ``counter``."""
+    count it under ``counter`` and, given a ``route``, under
+    ``counter/route`` too."""
     err = getattr(library(), name)(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
     launches.bump(counter)
+    if route is not None:
+        launches.bump(f"{counter}/{route}")

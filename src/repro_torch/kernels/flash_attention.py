@@ -11,6 +11,13 @@ Two layouts reach the one kernel (``csrc/flash_attention.cu``):
 
 On a CUDA tensor each wrapper launches the kernel or raises; on a CPU
 tensor it runs the plain PyTorch version beside it.
+
+The kernel has two routes, and :func:`flash_route` picks one before the
+launch from dtype, head dim and layout alone: ``"wgmma"`` (tensor cores fed
+by TMA) for bf16 and fp16 at head dims 64, 128 and 256 that TMA can read,
+``"simt"`` (fp32 on the CUDA cores) otherwise.  This is a dispatch by dtype
+and layout, not a fallback: a launch that fails raises, and nothing retries
+it on the other route.
 """
 from __future__ import annotations
 
@@ -19,11 +26,12 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._checks import check_tensor, ptr, require, stream
+from repro_torch.kernels._checks import check_tensor, ptr, require, stream, tma_ready
 from repro_torch.kernels.ref import attention_ref
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)  # codes 0, 1, 2
 MAX_HEAD_DIM = 256
+WGMMA_HEAD_DIMS = (64, 128, 256)   # the tensor-core kernel's template cases
 
 
 # the plain version on (BH, S, D): the dense-softmax oracle
@@ -42,6 +50,16 @@ def flash_attention_gqa_plain(q, k, v, **kw) -> torch.Tensor:
     return o.reshape(b, hq, s, d).transpose(1, 2)
 
 
+def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """``"wgmma"`` for bf16 or fp16 q, k, v of one dtype, a head dim (the
+    last axis) in :data:`WGMMA_HEAD_DIMS`, that TMA can read
+    (:func:`~repro_torch.kernels._checks.tma_ready`), else ``"simt"``.  A plain
+    function of dtypes, shapes, strides and addresses."""
+    tc = (q.dtype in (torch.bfloat16, torch.float16) and k.dtype == q.dtype
+          and v.dtype == q.dtype and q.shape[-1] in WGMMA_HEAD_DIMS)
+    return "wgmma" if tc and tma_ready(q, k, v) else "simt"
+
+
 def _launch(q, k, v, b, hq, hkv, s, d, q_strides, kv_strides, causal,
             window, softcap) -> torch.Tensor:
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -53,12 +71,14 @@ def _launch(q, k, v, b, hq, hkv, s, d, q_strides, kv_strides, causal,
     require(hkv > 0 and hq % hkv == 0, f"{hq} query heads over {hkv} kv heads")
     require(window is None or window >= 0, f"window {window} < 0")
     require(softcap is None or softcap != 0, "softcap 0")
+    route = flash_route(q, k, v)
     o = torch.empty_like(q)
     _build.launch("rt_flash_attention", "flash_attention", ptr(q), ptr(k),
                   ptr(v), ptr(o), _DTYPES.index(q.dtype), b, hq, hkv, s, d,
                   *q_strides, *kv_strides, int(causal),
                   -1 if window is None else int(window), int(softcap is not None),
-                  float(softcap or 0.0), float(d ** -0.5), stream(q.device))
+                  float(softcap or 0.0), float(d ** -0.5), _build.ROUTES.index(route),
+                  stream(q.device), route=route)
     return o
 
 

@@ -5,13 +5,19 @@
 accumulated in fp32 over D, the output in x's dtype.  On a CUDA tensor the
 wrapper launches the hand-written kernel (``csrc/gmm.cu``) or raises; on a
 CPU tensor it runs the plain PyTorch version beside it.
+
+The kernel has two routes, and :func:`gmm_route` picks one before the launch
+from dtype and layout alone: ``"wgmma"`` (tensor cores fed by TMA) for bf16
+and fp16 operands that TMA can read, ``"simt"`` (fp32 on the CUDA cores)
+otherwise.  This is a dispatch by dtype and layout, not a fallback: a launch
+that fails raises, and nothing retries it on the other route.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._checks import check_tensor, ptr, require, stream
+from repro_torch.kernels._checks import check_tensor, ptr, require, stream, tma_ready
 from repro_torch.kernels.ref import gmm_ref
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)  # codes 0, 1, 2
@@ -19,6 +25,16 @@ _DTYPES = (torch.float32, torch.bfloat16, torch.float16)  # codes 0, 1, 2
 
 # the plain version: one fp32 einsum, cast to x's dtype
 gmm_plain = gmm_ref
+
+
+def gmm_route(x: torch.Tensor, w: torch.Tensor) -> str:
+    """``"wgmma"`` for bf16 or fp16 x and w of one dtype, D > 0, that TMA
+    can read (:func:`~repro_torch.kernels._checks.tma_ready`: for contiguous
+    operands, D and F multiples of 8), else ``"simt"``.  A plain function of
+    dtypes, shapes, strides and addresses."""
+    tc = (x.dtype in (torch.bfloat16, torch.float16) and w.dtype == x.dtype
+          and x.shape[-1] > 0)
+    return "wgmma" if tc and tma_ready(x, w) else "simt"
 
 
 def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -31,7 +47,9 @@ def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     e, c, d = x.shape
     require(w.shape[:2] == (e, d), f"w {tuple(w.shape)} vs x {tuple(x.shape)}")
     f = w.shape[2]
+    route = gmm_route(x, w)
     out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
     _build.launch("rt_gmm", "gmm", ptr(x), ptr(w), ptr(out),
-                  _DTYPES.index(x.dtype), e, c, d, f, stream(x.device))
+                  _DTYPES.index(x.dtype), e, c, d, f, _build.ROUTES.index(route),
+                  stream(x.device), route=route)
     return out
