@@ -19,21 +19,30 @@ Phases, each of which fails the run (non-zero exit) on any error:
 5. drive the LM-side kernel entry point ``repro_torch.kernels.ops`` once
    at published widths (flash attention of gemma2-2b's local and global
    layers and of minitron-4b, kimi-k2's expert matmul, mamba2-780m's SSD
-   chunks), count each kernel's launches and fail unless every main call of
-   gmm and flash attention took the tensor-core route ("wgmma"), then hold
-   every output, and ragged shapes on both routes, against the plain
-   versions and time kernel, plain version and library call, as phase 3
-   does; then plant faults in flash attention
-   at S 8192 (late rows zeroed, the wrong kv head, the window halved or
-   one key block short) and fail unless the same check flags each;
+   chunks in fp32 and in bf16), count each kernel's launches and fail
+   unless every main call of gmm, flash attention and ssd_chunk took the
+   tensor-core route ("wgmma"), then hold every output, and ragged shapes
+   on both routes, against the plain versions and time kernel, plain
+   version and library call, as phase 3 does; then plant faults in flash
+   attention at S 8192 (late rows zeroed, the wrong kv head, the window
+   halved or one key block short) and in ssd_chunk at the mamba2-780m shape
+   (A one head off, the last 32 dt of each chunk zeroed, y rows past Q/2
+   zeroed, every other chunk's states zeroed) and fail unless the same
+   check flags each;
 6. print the ``kernels`` JSON line, the card line and, last, the result.
 
 In the ``kernels`` line, ``ms`` is the mean time of back-to-back wrapper
-calls (the wrapper's host work included), ``device_ms`` the profiler's
-device time of one launch, and ``bound_ms`` the larger of the bytes over
-the HBM rate and the FLOPs over the peak rate of the work's precision (fp32
-for the episodic kernels and the SSD chunk, bf16 tensor cores for flash
-attention and gmm) at the main path's shape.  ``launches`` counts the
+calls (the wrapper's host work included; timed in turns with the library
+call, where there is one), ``device_ms`` the profiler's
+device time of one call (summed over the kernels a call launches),
+``library_device_ms`` the same for the library call, and ``bound_ms`` the
+larger of the bytes over the HBM rate and the FLOPs, counted once, over the
+peak rate of the units that do them (fp32 for the episodic kernels and the
+"simt" routes, bf16 tensor cores for the "wgmma" routes) at the main path's
+shape; a timed case whose call or device time reads below its bound fails
+the run.  ``route`` says how the kernel is written (CUDA C++), ``routes`` which of
+its own routes each main case took, and ``main_cases`` gives every main
+case's numbers where a kernel has more than one.  ``launches`` counts the
 launches of the path that runs the kernel: the Simple CNAPs serving path
 for the episodic kernels, the ops phase for the LM-side ones.
 
@@ -73,23 +82,41 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _mean_ms(fn, iters: int) -> float:
+    """Mean time of ``iters`` back-to-back calls, from CUDA events."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def time_ms(fn, iters: int = 50, reps: int = 7) -> float:
     """Median over ``reps`` of the mean time of ``iters`` back-to-back calls,
     from CUDA events, after a warm-up."""
     import torch
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return statistics.median(times)
+    return statistics.median(_mean_ms(fn, iters) for _ in range(reps))
+
+
+def time_pair_ms(fa, fb, iters: int = 50, reps: int = 7):
+    """``time_ms`` of two functions taken in turns (a b, b a, a b, ...), so
+    that a drift of the host's load between the two readings, which moves
+    a small kernel's call time by tens of percent, falls on both alike."""
+    import torch
+    fa()
+    fb()
+    torch.cuda.synchronize()
+    ta, tb = [], []
+    for r in range(reps):
+        for f, t in ((fa, ta), (fb, tb)) if r % 2 == 0 else ((fb, tb), (fa, ta)):
+            t.append(_mean_ms(f, iters))
+    return statistics.median(ta), statistics.median(tb)
 
 
 def _dev_us(evt) -> float:
@@ -97,8 +124,9 @@ def _dev_us(evt) -> float:
                          getattr(evt, "self_cuda_time_total", 0.0)))
 
 
-def profile(fn, n: int = 1):
-    """Run ``fn`` ``n`` times under torch.profiler (CPU + CUDA activity)."""
+def profile(fn, n: int = 1, raw: bool = False):
+    """Run ``fn`` ``n`` times under torch.profiler (CPU + CUDA activity);
+    returns the rows by op (key_averages) or, with ``raw``, every event."""
     import torch
     from torch.profiler import ProfilerActivity
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
@@ -106,16 +134,40 @@ def profile(fn, n: int = 1):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    return prof.key_averages()
+    return prof.events() if raw else prof.key_averages()
+
+
+def _per_call_ms(fn, n: int, keep, tries: int = 3):
+    """Device ms of one call of ``fn``, from ``n`` profiled calls: for each
+    kernel (or copy) on the card whose name ``keep`` accepts, the median
+    time of its launches times its launches per call (their count over n,
+    at least 1).  Medians and counts per name, and up to ``tries``
+    profiles, because the profiler has been seen to drop a launch of a
+    long kernel, to add one, or to record none of a call's."""
+    from torch.autograd import DeviceType
+    for _ in range(tries):
+        times = {}
+        for e in profile(fn, n, raw=True):
+            if e.device_type == DeviceType.CUDA and _dev_us(e) > 0 and keep(e.name):
+                times.setdefault(e.name, []).append(_dev_us(e))
+        if times:
+            return sum(statistics.median(t) * max(1, round(len(t) / n))
+                       for t in times.values()) / 1e3
+    return None
 
 
 def kernel_device_ms(fn, symbol: str, n: int = 50):
-    """Device time of one launch of the kernel whose name contains
-    ``symbol``, from the profiler; None if the profiler saw none."""
-    evts = [e for e in profile(fn, n) if symbol in e.key and _dev_us(e) > 0]
-    if not evts:
-        return None
-    return sum(_dev_us(e) for e in evts) / sum(e.count for e in evts) / 1e3
+    """Device time of one call of ``fn`` spent in the kernels whose names
+    contain ``symbol`` (a call may launch more than one); None if the
+    profiler saw none."""
+    return _per_call_ms(fn, n, lambda name: symbol in name)
+
+
+def call_device_ms(fn, n: int = 50):
+    """Device time of one call of ``fn``, summed over every kernel and copy
+    it ran on the card (a library call may launch several); None if the
+    profiler saw none."""
+    return _per_call_ms(fn, n, lambda name: True)
 
 
 def bound_ms(nbytes: float, flops: float, peak: float = FP32_FLOPS):
@@ -189,20 +241,34 @@ def check_kernels(specs, counted=None):
                 kern = lambda: c["fn"](*args, **kw)
                 it, reps = c["iters"]
                 b_ms, b_by = bound_ms(c["bytes"], c["flops"], c["peak"])
-                t = dict(shape=c["label"], ms=time_ms(kern, it, reps),
+                lib = (lambda: c["lib"](*args)) if c["lib"] else None
+                k_ms, lib_ms = time_pair_ms(kern, lib, it, reps) if lib else \
+                    (time_ms(kern, it, reps), None)
+                t = dict(shape=c["label"], route=c.get("route"), ms=k_ms,
                          plain_ms=time_ms(lambda: c["plain"](*args, **kw), it, reps),
-                         library_ms=(time_ms(lambda: c["lib"](*args), it, reps)
-                                     if c["lib"] else None),
-                         device_ms=kernel_device_ms(kern, spec["symbol"], n=it),
+                         library_ms=lib_ms,
+                         library_device_ms=call_device_ms(lib, n=it) if lib else None,
+                         device_ms=kernel_device_ms(kern, c.get("symbol", spec["symbol"]),
+                                                    n=it),
                          bound_ms=b_ms, bound_by=b_by, bytes=c["bytes"], flops=c["flops"])
+                lib_vs = (f", call {t['ms'] / t['library_ms']:.2f}x the library's"
+                          if lib else "")
                 print(f"  time {c['label']}: kernel {t['ms']:.4f} ms per call (device "
-                      f"{t['device_ms']} ms per launch), plain {t['plain_ms']:.4f} ms, "
-                      f"library {t['library_ms']} ms, bound {b_ms:.5f} ms ({b_by}); "
-                      f"{c['flops'] / t['ms'] / 1e9:.3f} TFLOP/s", flush=True)
+                      f"{t['device_ms']} ms per call), plain {t['plain_ms']:.4f} ms, "
+                      f"library {t['library_ms']} ms (device {t['library_device_ms']} ms), "
+                      f"bound {b_ms:.5f} ms ({b_by}); "
+                      f"{c['flops'] / t['ms'] / 1e9:.3f} TFLOP/s{lib_vs}", flush=True)
+                # the bound is the least time the card could take: a kernel
+                # that reads faster has a wrong bound (or a wrong timer)
+                if min(t["ms"], t["device_ms"] or math.inf) < b_ms:
+                    fail(f"{name} [{c['label']}]: call {t['ms']:.5f} ms or device "
+                         f"{t['device_ms']} ms is below its bound {b_ms:.5f} ms")
                 row["cases"].append(t)
             torch.cuda.empty_cache()
-        row.update({k: row["cases"][0][k] for k in ("shape", "ms", "plain_ms", "library_ms",
-                                                    "device_ms", "bound_ms", "bound_by")})
+        row.update({k: row["cases"][0][k] for k in (
+            "shape", "ms", "plain_ms", "library_ms", "library_device_ms", "device_ms",
+            "bound_ms", "bound_by")})
+        row["routes"] = [t["route"] or "simt" for t in row["cases"]]
         rows[name] = row
     return rows
 
@@ -459,7 +525,7 @@ def run_path(kind: str, n_requests: int, dev, launches, trace: bool = False):
 # its plain version
 OPS_TOL = {"flash_attention": {"float32": 2e-5, "bfloat16": 1e-2, "float16": 2e-3},
            "gmm": {"float32": 1e-5, "bfloat16": 1e-2, "float16": 2e-3},
-           "ssd_chunk": {"float32": 1e-4, "bfloat16": 1e-4}}
+           "ssd_chunk": {"float32": 1e-4, "bfloat16": 1e-4, "float16": 1e-4}}
 
 
 def attn_pairs(s: int, causal: bool, window) -> int:
@@ -532,23 +598,29 @@ def ops_cases(dev):
                     flops=2.0 * e * c * d * f,
                     peak=BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
 
-    def ssd_case(label, gg, q, p, n, dtype=torch.float32, main=False):
+    def ssd_case(label, gg, q, p, n, dtype=torch.float32, main=False, offset=False):
         # Mamba-2's initialisation ranges: dt log-uniform in [1e-3, 1e-1],
         # A = -uniform(1, 16)
         u = lambda *s: torch.rand(*s, generator=g)
         dt = torch.exp(math.log(1e-3) + u(gg, q) * math.log(100.0)).to(dev, dtype)
         A = (-(1.0 + 15.0 * u(gg))).to(dev, dtype)
         x, B, C = (randn(gg, q, k, dtype=dtype) for k in (p, n, n))
+        if offset:
+            x = unaligned(x)
         pairs = q * (q + 1) // 2
         esz = x.element_size()
+        route = ssd.ssd_route(x, dt, A, B, C)
+        # the work counted once (not the split passes of the "wgmma" route),
+        # at the rate of the units that do it: bf16 tensor cores or fp32
         return dict(label=label, fn=ops.ssd_chunk, plain=ssd.ssd_chunk_plain, lib=None,
+                    route=route, symbol="ssd_wgmma" if route == "wgmma" else "ssd_chunk_kernel",
                     args=(x, dt, A, B, C),
                     tol=OPS_TOL["ssd_chunk"][str(dtype).split(".")[1]], main=main,
                     iters=(3, 3),
                     bytes=esz * gg * (q * p + q + 1 + 2 * q * n)
                     + 4 * gg * (q * p + q + 1 + p * n),
                     flops=gg * (2.0 * pairs * (n + p) + 2.0 * q * p * n),
-                    peak=FP32_FLOPS)
+                    peak=BF16_FLOPS if route == "wgmma" else FP32_FLOPS)
 
     src = "src/repro_torch/kernels/csrc/"
     spec = lambda name, source, replaces, symbol, cases: dict(
@@ -600,20 +672,37 @@ def ops_cases(dev):
             gmm("ragged E2 C64 D128 F128 unaligned (simt)", 2, 64, 128, 128,
                 torch.bfloat16, offset=True)]),
         # mamba2-780m: 48 heads of 64 x 128 state, chunk 256, batch 1 x 8192
-        # tokens = 32 chunks
+        # tokens = 32 chunks; fp32, and bf16 (the model's compute dtype).
+        # P and N multiples of 16 (P <= 64, N <= 128) take the "wgmma"
+        # route; other widths and unaligned bases the "simt" route
         spec("ssd_chunk", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:56",
-             "ssd_chunk_kernel", [
+             "ssd_wgmma", [
             ssd_case("mamba2-780m G1536 Q256 P64 N128", 48 * 32, 256, 64, 128, main=True),
+            ssd_case("mamba2-780m G1536 Q256 P64 N128 bf16", 48 * 32, 256, 64, 128,
+                     torch.bfloat16, main=True),
             ssd_case("ragged G6 Q32 P16 N8", 6, 32, 16, 8),
             ssd_case("ragged G3 Q50 P24 N12", 3, 50, 24, 12),
-            ssd_case("ragged G4 Q64 P32 N16 bf16", 4, 64, 32, 16, torch.bfloat16)]),
+            ssd_case("ragged G4 Q64 P32 N16 bf16", 4, 64, 32, 16, torch.bfloat16),
+            ssd_case("ragged G5 Q100 P32 N32", 5, 100, 32, 32),
+            ssd_case("ragged G5 Q100 P16 N16 bf16", 5, 100, 16, 16, torch.bfloat16),
+            ssd_case("ragged G4 Q100 P16 N32 fp16", 4, 100, 16, 32, torch.float16),
+            ssd_case("ragged G3 Q130 P64 N128 bf16", 3, 130, 64, 128, torch.bfloat16),
+            ssd_case("ragged G2 Q70 P64 N256 bf16 (N: simt)", 2, 70, 64, 256, torch.bfloat16),
+            ssd_case("ragged G3 Q200 P48 N80", 3, 200, 48, 80),
+            ssd_case("ragged G3 Q100 P24 N32 bf16 (P: simt)", 3, 100, 24, 32,
+                     torch.bfloat16),
+            ssd_case("ragged G3 Q100 P32 N32 unaligned (simt)", 3, 100, 32, 32,
+                     offset=True)]),
     ]
 
 
-def check_planted_faults(flash):
-    """Faults planted in flash attention at S 8192, each of which the
-    per-row check must flag: late rows zeroed, the kv head read one off,
-    the sliding window halved or one key block short.  Returns their
+def check_planted_faults(flash, ssd):
+    """Faults planted in flash attention at S 8192 and in ssd_chunk at the
+    mamba2-780m shape (fp32), each of which the per-row check must flag:
+    late rows zeroed, the kv head read one off, the sliding window halved or
+    one key block short; A read one head off, the last 32 dt of each chunk
+    zeroed, y rows past Q/2 zeroed, the states of every other chunk zeroed.
+    An SSD fault reads as the worst of its four outputs.  Returns their
     readings, with the whole-tensor measure beside them."""
     import torch
     mini, local = flash["cases"][0], flash["cases"][2]
@@ -634,12 +723,29 @@ def check_planted_faults(flash):
                 ("gemma2-2b local: window one 64-key block short",
                  local["fn"](q, k, v, **{**kw, "window": kw["window"] - 64}), want,
                  local["tol"])]
+    mamba = ssd["cases"][0]
+    x, dt, A, B, C = mamba["args"]
+    want = mamba["plain"](x, dt, A, B, C)
+    dt_short = dt.clone()
+    dt_short[:, -32:] = 0
+    y_late = mamba["fn"](x, dt, A, B, C)
+    y_late[0][:, x.shape[1] // 2:] = 0
+    st_gap = mamba["fn"](x, dt, A, B, C)
+    st_gap[1][::2] = 0
+    planted += [("mamba2-780m: A read one head off", mamba["fn"](x, dt, A.roll(1), B, C),
+                 want, mamba["tol"]),
+                ("mamba2-780m: last 32 dt of each chunk zeroed",
+                 mamba["fn"](x, dt_short, A, B, C), want, mamba["tol"]),
+                ("mamba2-780m: y rows past Q/2 zeroed", y_late, want, mamba["tol"]),
+                ("mamba2-780m: states of every other chunk zeroed", st_gap, want,
+                 mamba["tol"])]
     readings = []
     for label, got, want, tol in planted:
-        r = dict(fault=label, row_err=row_err(got, want), global_err=global_err(got, want),
-                 tol=tol)
+        got, want = _as_tuple(got), _as_tuple(want)
+        r = dict(fault=label, row_err=max(row_err(a, b) for a, b in zip(got, want)),
+                 global_err=max(global_err(a, b) for a, b in zip(got, want)), tol=tol)
         caught = r["row_err"] > tol
-        print(f"planted fault {label:48s} row_err={r['row_err']:.3e} "
+        print(f"planted fault {label:52s} row_err={r['row_err']:.3e} "
               f"(global {r['global_err']:.3e}) tol={tol:.0e} "
               f"{'caught' if caught else 'MISSED'}", flush=True)
         if not caught:
@@ -669,14 +775,14 @@ def run_ops_path(dev, launches):
     launches["ops"] = counts
     print(f"path ops: {len(mains)} calls through repro_torch.kernels.ops at published "
           f"widths, launches {counts}", flush=True)
-    for name in ("flash_attention", "gmm"):      # the tensor-core kernels
+    for name in ("flash_attention", "gmm", "ssd_chunk"):   # the tensor-core kernels
         n_main = sum(1 for n, _, _ in mains if n == name)
         routes = [c["route"] for n, _, c in mains if n == name]
         if routes != ["wgmma"] * n_main or counts.get(f"{name}/wgmma", 0) != n_main:
             fail(f"{name}: the main calls took routes {routes}, launches {counts}; "
                  f"all {n_main} must take the tensor-core route (wgmma)")
     rows = check_kernels(specs, counted=outs)
-    return rows, check_planted_faults(specs[0])
+    return rows, check_planted_faults(specs[0], specs[2])
 
 
 def main() -> int:
@@ -714,11 +820,19 @@ def main() -> int:
     (out / "chip_smoke.json").write_text(json.dumps(
         dict(card=card, kernels=rows, paths=summary, launches=launches,
              planted_faults=planted), indent=1))
+    # "route" is how the kernel was written (CUDA C++); "routes" the
+    # kernel's own route ("wgmma" tensor cores or "simt" CUDA cores) at each
+    # main case, and "main_cases" each main case's numbers
+    case_keys = ("shape", "route", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "library_device_ms")
     print(json.dumps({"kernels": [
         {k: rows[n][k] for k in ("name", "route", "source", "replaces")}
         | {"launches": launches[path_of[n]][n]}
         | {k: rows[n][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                   "bound_by", "library_ms", "device_ms")}
+                                   "bound_by", "library_ms", "library_device_ms",
+                                   "device_ms", "routes")}
+        | ({"main_cases": [{k: t[k] for k in case_keys} for t in rows[n]["cases"]]}
+           if len(rows[n]["cases"]) > 1 else {})
         for n in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

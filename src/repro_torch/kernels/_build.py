@@ -31,7 +31,8 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
-# the route argument of the kernels that have two (gmm, flash attention):
+# the route argument of the kernels that have two (gmm, flash attention,
+# ssd_chunk):
 # its code is the index here
 ROUTES = ("simt", "wgmma")
 
@@ -46,7 +47,7 @@ _SIGNATURES = {
     "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _L, _L, _L, _L, _L, _L, _I, _I, _I, _F, _F, _I, _P),
     "rt_gmm": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "rt_ssd_chunk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "rt_ssd_chunk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -70,6 +71,7 @@ launches = LaunchCounter()
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_entry: Dict[str, ctypes._CFuncPtr] = {}   # name -> typed entry point
 
 
 def find_nvcc() -> str:
@@ -141,7 +143,8 @@ def build(verbose: bool = False) -> pathlib.Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+    """The loaded kernel library, built on first call; its entry points
+    get their argument types and go into :data:`_entry` once."""
     global _lib
     with _lock:
         if _lib is None:
@@ -150,6 +153,7 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
+                _entry[name] = fn
             _lib = lib
         return _lib
 
@@ -157,8 +161,13 @@ def library() -> ctypes.CDLL:
 def launch(name: str, counter: str, *args, route: Optional[str] = None) -> None:
     """Call C entry point ``name`` and raise if the launch was refused;
     count it under ``counter`` and, given a ``route``, under
-    ``counter/route`` too."""
-    err = getattr(library(), name)(*args)
+    ``counter/route`` too.  After the first call this is one dict lookup
+    and the foreign call: no lock, no attribute lookup."""
+    fn = _entry.get(name)
+    if fn is None:
+        library()
+        fn = _entry[name]
+    err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
     launches.bump(counter)

@@ -3,25 +3,35 @@ contiguous CUDA tensors of the stated dtypes, shapes and one device; and
 whether TMA can read a tensor, which the route choices ask."""
 from __future__ import annotations
 
-import ctypes
-from typing import Sequence
+from typing import Callable, Sequence, Union
 
 import torch
 
 
-def require(cond: bool, msg: str) -> None:
+def require(cond: bool, msg: Union[str, Callable[[], str]]) -> None:
+    """Raise ``ValueError(msg)`` unless ``cond``; a callable ``msg`` is
+    called only then, so a passing check formats nothing."""
     if not cond:
-        raise ValueError(msg)
+        raise ValueError(msg() if callable(msg) else msg)
 
 
 def check_tensor(name: str, t: torch.Tensor, ndim: int,
                  dtypes: Sequence[torch.dtype], device: torch.device) -> None:
-    require(isinstance(t, torch.Tensor), f"{name}: expected a tensor")
-    require(t.device.type == "cuda", f"{name}: the kernel takes CUDA tensors, got {t.device}")
-    require(t.device == device, f"{name}: on {t.device}, expected {device}")
-    require(t.dim() == ndim, f"{name}: expected {ndim}-D, got shape {tuple(t.shape)}")
-    require(t.dtype in dtypes, f"{name}: dtype {t.dtype} not in {list(dtypes)}")
-    require(t.is_contiguous(), f"{name}: must be contiguous")
+    """The messages are built only when a check fails: this runs on every
+    kernel call."""
+    if not isinstance(t, torch.Tensor):
+        raise ValueError(f"{name}: expected a tensor")
+    on = t.device
+    if on.type != "cuda":
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got {on}")
+    if on != device:
+        raise ValueError(f"{name}: on {on}, expected {device}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim}-D, got shape {tuple(t.shape)}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name}: dtype {t.dtype} not in {list(dtypes)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
 
 
 def tma_ready(*ts: torch.Tensor) -> bool:
@@ -33,9 +43,20 @@ def tma_ready(*ts: torch.Tensor) -> bool:
                for t in ts)
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: torch.Tensor) -> int:
+    """A tensor's address, as the C entry points take it (their argument
+    types are declared, so ctypes converts the int)."""
+    return t.data_ptr()
 
 
-def stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+# the current stream's raw handle without building a Stream object, where
+# this torch has the accessor its own kernel launchers use
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream(device: torch.device) -> int:
+    """The handle of ``device``'s current CUDA stream."""
+    if _raw_stream is not None:
+        return _raw_stream(device.index if device.index is not None
+                           else torch.cuda.current_device())
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,12 +1,14 @@
-// The Hopper (sm_90a) parts shared by the tensor-core kernels (gmm.cu and
-// flash_attention.cu): TMA tensor maps made on the host, mbarriers, TMA tile
-// loads into 128-byte-swizzled shared memory, wgmma shared-memory
-// descriptors, wgmma fence / commit / wait, named barriers, register
+// The Hopper (sm_90a) parts shared by the tensor-core kernels (gmm.cu,
+// flash_attention.cu and ssd_scan.cu): TMA tensor maps made on the host,
+// mbarriers, TMA tile loads into 128-byte-swizzled shared memory, wgmma
+// shared-memory descriptors, cp.async and the async-proxy fence for tiles
+// that threads write, wgmma fence / commit / wait, named barriers, register
 // rebalancing between warpgroups (setmaxnreg), and the wgmma.mma_async
 // instructions (m64nNk16, bf16 or fp16 in, fp32 accumulate) for N = 64, 128
 // and 256, with A from shared memory or from registers.
 //
-// Shared-memory tiles.  Every operand tile is loaded by TMA with
+// Shared-memory tiles.  Every operand tile is loaded by TMA (or written by
+// threads in the same layout, ssd_scan.cu) with
 // CU_TENSOR_MAP_SWIZZLE_128B, whose box is at most 128 bytes (64 16-bit
 // values) wide: a tile wider than that is stored as consecutive "atoms", each
 // 64 values wide and `rows` rows long (rows * 128 bytes).  Row r of an atom
@@ -159,6 +161,25 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
 }
 
 // ---------------------------------------------------------------------------
+// device: cp.async (16 bytes a thread, global -> shared, no registers)
+// ---------------------------------------------------------------------------
+
+// Copy 16 bytes from `src` to shared `dst` asynchronously; with ok false
+// the 16 bytes are zeros and nothing is read (src must still be mapped).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// Wait until this thread's copies are done (then a barrier for the others').
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
 // device: wgmma descriptors and synchronisation
 // ---------------------------------------------------------------------------
 
@@ -169,6 +190,13 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | (1ull << 62);
+}
+
+// Make this thread's ordinary shared-memory writes (st.shared) visible to
+// the async proxy, which wgmma reads shared memory through; then a barrier
+// before the wgmma (tiles written by threads, not by TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 // Order this warpgroup's earlier register and shared-memory writes before

@@ -12,12 +12,18 @@
 //
 // What bounds them on the H100, at the serving shapes (T=4 lanes, B=32 rows
 // per chunk, C=5 ways, F=256 features):
-//   segment sum: 2*T*B*C*F = 0.33 MFLOP over ~0.16 MB.  Neither resource
-//     matters; the launch does.  C is far below any MMA tile, so the kernel
-//     is a plain fp32 reduction: one thread per (t, f) column holds the C
-//     accumulators of its column in registers and walks the B rows in
-//     order.  Loads of x are coalesced along f; the w row is a broadcast.
-//     Rows past B are never read, so a ragged B adds nothing, not 0 * junk.
+//   segment sum: 2*T*B*C*F = 0.33 MFLOP over ~0.16 MB (bound 0.05 us by
+//     bytes).  Neither resource matters: latency and the launch do.  C is
+//     far below any MMA tile and w holds LITE-scaled weights, not only 0/1,
+//     so the kernel is an exact fp32 reduction on the CUDA cores, laid out
+//     so that no thread waits on a chain of loads: one block of 256 threads
+//     per (t, 64 fp32 or 128 16-bit columns of f), 16 row groups of a
+//     half-warp each; every thread issues all its x loads of a step at once
+//     (16 bytes each, coalesced along f), while the block stages the step's
+//     w rows (B x C fp32) in shared memory once.  The row groups' partial
+//     sums meet by a shuffle and then in shared memory in a fixed order (no
+//     atomics: the same bits every run).  Rows past B are never read, so a
+//     ragged B adds nothing, not 0 * junk.
 //   second moment: 2*T*C*B*F^2 = 84 MFLOP and a 5.2 MB fp32 output, so
 //     the write of the (T, C, F, F) output and the fp32 FMAs bound it about
 //     equally.  One block per (t*c, 32x32 output tile) stages 32-row slabs
@@ -37,32 +43,115 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 
-constexpr int kSegThreads = 128;  // columns f per block
-constexpr int kSegClasses = 8;    // class accumulators held per pass
+// segment sum: one block of 256 threads per (t, column tile of f).  A
+// half-warp spans kSegLanes x 16 bytes of a row (64 fp32 or 128 bf16/fp16
+// columns); the block's 16 half-warps are row groups, and row group r
+// takes rows r, r + 16, ... of B.
+constexpr int kSegThreads = 256;
+constexpr int kSegLanes = 16;                         // 16-byte vectors a row
+constexpr int kSegGroups = kSegThreads / kSegLanes;   // row groups
+constexpr int kSegWarps = kSegThreads / 32;
+constexpr int kSegClasses = 8;                        // class accumulators a pass
+constexpr int kSegRowsPer = 8;                        // rows a thread loads at once
+constexpr int kSegChunk = kSegGroups * kSegRowsPer;   // rows staged per step (128)
 
 template <typename T>
-__global__ void segment_sum_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                                   float* __restrict__ out, int B, int F, int C) {
+struct SegVec {  // 16 bytes of x: kN values
+  static constexpr int kN = 16 / sizeof(T);
+};
+
+// Load the kN values of x at column f0 of row `row` (f0 < F); `vec` says
+// whether a 16-byte load is aligned and stays inside the row.
+template <typename T>
+__device__ __forceinline__ void seg_load(const T* __restrict__ xr, int f0, int F, bool vec,
+                                         float (&v)[SegVec<T>::kN]) {
+  constexpr int kN = SegVec<T>::kN;
+  if (vec) {
+    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(xr + f0));
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int k = 0; k < kN; ++k) v[k] = to_f32(e[k]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kN; ++k) v[k] = f0 + k < F ? to_f32(xr[f0 + k]) : 0.f;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSegThreads)
+    segment_sum_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                       float* __restrict__ out, int B, int F, int C, int vec) {
+  constexpr int kN = SegVec<T>::kN;
+  constexpr int kCols = kSegLanes * kN;               // columns of the tile
+  __shared__ float wsm[kSegChunk][kSegClasses];       // w rows of this step
+  __shared__ float part[kSegWarps][kSegClasses][kCols];  // per-warp sums
   const int t = blockIdx.y;
-  const int f = blockIdx.x * kSegThreads + threadIdx.x;
-  if (f >= F) return;
+  const int lane = threadIdx.x % kSegLanes, grp = threadIdx.x / kSegLanes;
+  const int warp = threadIdx.x / 32;
+  const int f0 = blockIdx.x * kCols + lane * kN;
   const T* xt = x + (size_t)t * B * F;
   const float* wt = w + (size_t)t * B * C;
   float* ot = out + (size_t)t * C * F;
+
   for (int c0 = 0; c0 < C; c0 += kSegClasses) {
-    float acc[kSegClasses];
+    float acc[kSegClasses][kN];
 #pragma unroll
-    for (int k = 0; k < kSegClasses; ++k) acc[k] = 0.f;
-    for (int b = 0; b < B; ++b) {
-      const float xv = to_f32(xt[(size_t)b * F + f]);
-      const float* wb = wt + (size_t)b * C + c0;
+    for (int c = 0; c < kSegClasses; ++c)
 #pragma unroll
-      for (int k = 0; k < kSegClasses; ++k)
-        if (c0 + k < C) acc[k] = fmaf(wb[k], xv, acc[k]);
+      for (int k = 0; k < kN; ++k) acc[c][k] = 0.f;
+    for (int b0 = 0; b0 < B; b0 += kSegChunk) {
+      // every load of the step is issued before the first use: x rows into
+      // registers, w rows into shared memory; rows past B are not read
+      float xv[kSegRowsPer][kN];
+#pragma unroll
+      for (int r = 0; r < kSegRowsPer; ++r) {
+        const int b = b0 + grp + kSegGroups * r;
+        if (b < B && f0 < F) {
+          seg_load<T>(xt + (size_t)b * F, f0, F, vec != 0, xv[r]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < kN; ++k) xv[r][k] = 0.f;
+        }
+      }
+      __syncthreads();  // the last step is done with wsm
+      for (int i = threadIdx.x; i < kSegChunk * kSegClasses; i += kSegThreads) {
+        const int r = i / kSegClasses, c = i % kSegClasses;
+        const int b = b0 + r;
+        wsm[r][c] = (b < B && c0 + c < C) ? wt[(size_t)b * C + c0 + c] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < kSegRowsPer; ++r) {
+        const int rl = grp + kSegGroups * r;
+        if (b0 + rl < B) {  // a row past B adds nothing
+#pragma unroll
+          for (int c = 0; c < kSegClasses; ++c) {
+            const float wv = wsm[rl][c];
+#pragma unroll
+            for (int k = 0; k < kN; ++k) acc[c][k] = fmaf(wv, xv[r][k], acc[c][k]);
+          }
+        }
+      }
     }
+    // the two row groups of a warp, then the warps in order: a fixed order
+    // of additions, no atomics, so every run gives the same bits
 #pragma unroll
-    for (int k = 0; k < kSegClasses; ++k)
-      if (c0 + k < C) ot[(size_t)(c0 + k) * F + f] = acc[k];
+    for (int c = 0; c < kSegClasses; ++c)
+#pragma unroll
+      for (int k = 0; k < kN; ++k) {
+        const float v = acc[c][k] + __shfl_xor_sync(0xffffffffu, acc[c][k], 16);
+        if ((threadIdx.x & 31) < kSegLanes) part[warp][c][lane * kN + k] = v;
+      }
+    __syncthreads();
+    for (int i = threadIdx.x; i < kSegClasses * kCols; i += kSegThreads) {
+      const int c = i / kCols, col = i % kCols;
+      const int f = blockIdx.x * kCols + col;
+      float s = 0.f;
+#pragma unroll
+      for (int wi = 0; wi < kSegWarps; ++wi) s += part[wi][c][col];
+      if (c0 + c < C && f < F) ot[(size_t)(c0 + c) * F + f] = s;
+    }
+    __syncthreads();  // part is reused by the next class pass
   }
 }
 
@@ -118,9 +207,11 @@ template <typename T>
 int launch_segment_sum(const void* x, const void* w, void* out, int T_, int B, int F, int C,
                        void* stream) {
   if (T_ == 0 || F == 0 || C == 0) return 0;
-  dim3 grid((F + kSegThreads - 1) / kSegThreads, T_);
+  constexpr int kN = SegVec<T>::kN, kCols = kSegLanes * kN;
+  const int vec = ((uintptr_t)x % 16 == 0) && (F % kN == 0);
+  dim3 grid((F + kCols - 1) / kCols, T_);
   segment_sum_kernel<T><<<grid, kSegThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)x, (const float*)w, (float*)out, B, F, C);
+      (const T*)x, (const float*)w, (float*)out, B, F, C, vec);
   return (int)cudaGetLastError();
 }
 

@@ -11,31 +11,68 @@
 // Inputs are fp32, bf16 or fp16 (one dtype); the outputs are fp32.
 //
 // What bounds it, at the mamba2-780m shape (G = 48 heads x 32 chunks = 1536,
-// Q = 256, P = 64, N = 128, fp32): about 4*Q^2/2*(N + P)/2 + 2*Q*P*N FLOPs a
-// chunk, 0.04 TFLOP in all, over 0.8 GB of fp32 inputs and outputs: about
-// 50 FLOPs a byte, under the fp32 ridge (67 TFLOP/s over 3.35 TB/s = 20), so
-// bound by operations, at the fp32 rate as the work is fp32.
+// Q = 256, P = 64, N = 128): about 2*Q^2/2*(N + P) + 2*Q*P*N FLOPs a
+// chunk, 0.04 TFLOP in all, over 0.66 GB of fp32 inputs and outputs (0.41
+// GB with bf16 inputs).  On the CUDA cores in fp32 (route "simt") that is
+// bound by operations, 0.39 ms at 67 TFLOP/s; on the tensor cores (route
+// "wgmma"), with the work counted once, by bytes: 0.196 ms (fp32 inputs),
+// 0.121 ms (bf16) at 3.35 TB/s.
 //
-// Design.  One block of 256 threads per chunk g.  The (Q, Q) matrix
-// C B^T o L is 256 KiB in fp32 at Q = 256, more than a block's 227 KB of
-// shared memory, so the kernel tiles it: for each 32-row tile of l, it
-// streams the 32-column tiles of s with s <= l (tiles above the diagonal are
-// wholly masked and skipped), forms the 32 x 32 tile of
-// (C B^T) * exp(dA_cum[l] - dA_cum[s]) * dt[s] in shared memory, and adds its
-// product with the x tile to the y rows it accumulates in shared memory.
-// exp is evaluated only where l >= s: above the diagonal dA_cum[l] -
-// dA_cum[s] > 0 may overflow, and inf * 0 would give NaN.  The cumsum is
-// one thread's sequential loop over the chunk, in the order jnp.cumsum adds,
-// with the multiply and add kept apart (no fused multiply-add), because
-// exp amplifies any reordering.  The last l tile visits every s tile, and
-// on that pass the block also adds each s tile's share of the chunk state
-// into the fp32 output, which only this block writes.  Ragged Q, P and N are
-// zero filled on load and masked on store.
+// Two routes, chosen by the caller (kernels/ssd_scan.py: ssd_route) from
+// dtype, widths and alignment before the launch, never after a failure:
+//
+// "wgmma" (fp32, bf16 or fp16; P and N multiples of 16, P <= 64, N <= 128,
+// Q <= 512; 16-byte-aligned bases).  The chunk is causal attention with a
+// decay mask in place of a softmax, so it is tiled as flash attention is:
+// 64-row strips of l against 64-row blocks of s at or below the diagonal.
+// Two kernels, both one warpgroup per 64-row strip and wgmma on bf16
+// tiles in 128-byte-swizzled shared memory (csrc/hopper.cuh):
+//   * the y kernel, one block of two warpgroups per two strips of a chunk
+//     (the longest strips first).  Both strips share each block j of B and
+//     x, copied by cp.async under the previous block's products.  Per
+//     block: S = C B_j^T (K = N), then S' = S * exp(dA[l] - dA[s]) * dt[s]
+//     on the accumulator fragments in registers (exp only where l >= s:
+//     above the diagonal it overflows), then Y += S' x_j with S' as the
+//     register A operand (as flash takes P) and x_j read N-major;
+//   * the states kernel, one warpgroup per chunk: states = (decay * dt o
+//     x)^T B as one wgmma product over K = Q, the A operand built in
+//     registers from the staged x block, written once (no read-modify-write
+//     in global memory); it also writes chunk_decay and state_decay.
+// The cumsum of dt * A is a block scan by warp shuffles (its order of
+// additions, below, differs from torch.cumsum's within the tolerance).
+// fp32 accuracy: bf16 tensor cores with fp32 inputs split three ways and
+// every product summed from its six leading part products; each 16-deep K
+// slice summed alone by the tensor cores and the slices added in fp32 on
+// the CUDA cores, because the tensor cores' own fp32 sum truncates (see
+// the "wgmma" route below).  Against a float64 reference the route reads
+// half the per-row error of the fp32 plain version at the mamba2-780m
+// shape (PERF.md).
+//
+// "simt" (other widths, Q past 512, layouts 16-byte loads cannot read),
+// fp32 on the CUDA cores.  One block of 256 threads per chunk g.  The
+// (Q, Q) matrix C B^T o L is 256 KiB in fp32 at Q = 256, more than a
+// block's 227 KB of shared memory, so the kernel tiles it: for each 32-row
+// tile of l, it streams the 32-column tiles of s with s <= l (tiles above
+// the diagonal are wholly masked and skipped), forms the 32 x 32 tile of
+// (C B^T) * exp(dA_cum[l] - dA_cum[s]) * dt[s] in shared memory, and adds
+// its product with the x tile to the y rows it accumulates in shared
+// memory.  exp is evaluated only where l >= s: above the diagonal dA_cum[l]
+// - dA_cum[s] > 0 may overflow, and inf * 0 would give NaN.  The cumsum is
+// one thread's sequential loop over the chunk, in the order jnp.cumsum
+// adds, with the multiply and add kept apart (no fused multiply-add),
+// because exp amplifies any reordering.  The last l tile visits every s
+// tile, and on that pass the block also adds each s tile's share of the
+// chunk state into the fp32 output, which only this block writes.  Ragged
+// Q, P and N are zero filled on load and masked on store.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -172,18 +209,688 @@ int launch(const void* x, const void* dt, const void* A, const void* B, const vo
   return (int)cudaGetLastError();
 }
 
+
+// ---- the "wgmma" route ---------------------------------------------------
+//
+// Every tile the tensor cores read is bf16 in the 128-byte-swizzled layout
+// of hopper.cuh, 64 rows by WT columns (atoms of 64 columns).  bf16 holds a
+// bf16 input exactly; fp32 and fp16 inputs enter as three tiles, hi =
+// bf16(v), mid = bf16(v - hi), lo = bf16(v - hi - mid), and the fp32
+// intermediates (S' and decay * dt * x) are split the same way in
+// registers.  A product of two split operands is the fp32 sum of the six
+// part products down to 2^-16 of hi * hi (pair_a, pair_b); a product with
+// one split operand sums its three parts.  Two parts were not enough: a dot
+// product of C and B that cancels loses the 2^-17 of each term that a
+// two-way split keeps (a CPU model of this arithmetic,
+// tests/test_torch_hopper_routes.py, read 9e-5 per row against the 1e-4
+// budget; three parts read at most 1.5e-5).
+//
+// Loads.  The B and x blocks of step j + 1 are copied by cp.async while
+// step j computes: straight into the swizzled tiles for bf16 (two buffers),
+// into a row-major staging area for fp32 and fp16, which the next step
+// splits into the tiles.  The C strip is loaded once, directly.
+
+constexpr int kTcThreads = 128;         // one warpgroup a block
+constexpr int kTcRows = 64;             // rows l of a strip, rows s of a block
+constexpr int kTcAtom = kTcRows * 128;  // bytes of one 64-column atom
+
+// the part products summed for two split operands, q = 0 .. 5: part
+// pair_a(q) of A times part pair_b(q) of B, i.e. (hi, hi), (hi, mid),
+// (mid, hi), (mid, mid), (hi, lo), (lo, hi); constant once unrolled
+__host__ __device__ constexpr int pair_a(int q) { return q == 2 || q == 3 ? 1 : q == 5 ? 2 : 0; }
+__host__ __device__ constexpr int pair_b(int q) { return q == 1 || q == 3 ? 1 : q == 4 ? 2 : 0; }
+// the order the part products are issued in: smallest first, hi * hi last
+__host__ __device__ constexpr int pair_order(int i) {
+  return i == 0 ? 4 : i == 1 ? 5 : i == 2 ? 3 : i == 3 ? 1 : i == 4 ? 2 : 0;
+}
+
+template <typename T>
+struct TcIn {
+  static constexpr int kParts = std::is_same<T, __nv_bfloat16>::value ? 1 : 3;  // bf16 tiles
+  static constexpr int kBufs = kParts == 1 ? 2 : 1;  // tile buffers of the streamed blocks
+};
+
+// Shared-memory bytes of one 64 x WT bf16 tile.
+template <int WT>
+__host__ __device__ constexpr int tile_bytes() { return WT / 64 * kTcAtom; }
+
+// Row stride of the staging area of a 64 x WT block of T: 16 bytes of
+// padding, so that rows two apart do not share a bank.
+template <typename T, int WT>
+__host__ __device__ constexpr int stage_row() { return WT * (int)sizeof(T) + 16; }
+template <typename T, int WT>
+__host__ __device__ constexpr int stage_bytes() {
+  return TcIn<T>::kParts == 1 ? 0 : kTcRows * stage_row<T, WT>();
+}
+
+// The byte offset of 16-byte chunk c8 of row r in a swizzled tile.
+__device__ __forceinline__ uint32_t swz(int r, int c8) {
+  return (c8 / 8) * kTcAtom + r * 128 + (((c8 % 8) ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (a, b) -> three packed bf16 pairs: hi = bf16(v), mid = bf16(v - hi),
+// lo = bf16(v - hi - mid); each difference is exact in fp32.
+__device__ __forceinline__ void split3(float a, float b, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  a = __fsub_rn(a, hf.x);
+  b = __fsub_rn(b, hf.y);
+  __nv_bfloat162 m = __floats2bfloat162_rn(a, b);
+  const float2 mf = __bfloat1622float2(m);
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  mid = *reinterpret_cast<uint32_t*>(&m);
+  lo = pack_bf16(__fsub_rn(a, mf.x), __fsub_rn(b, mf.y));
+}
+
+// Split 8 values into the three tiles at `dst` (tile_bytes apart), chunk
+// offset `off`.
+template <typename T, int WT>
+__device__ __forceinline__ void put8(const float (&f)[8], uint8_t* dst, uint32_t off) {
+  uint4 h, m, l;
+  split3(f[0], f[1], h.x, m.x, l.x);
+  split3(f[2], f[3], h.y, m.y, l.y);
+  split3(f[4], f[5], h.z, m.z, l.z);
+  split3(f[6], f[7], h.w, m.w, l.w);
+  *reinterpret_cast<uint4*>(dst + off) = h;
+  *reinterpret_cast<uint4*>(dst + tile_bytes<WT>() + off) = m;
+  *reinterpret_cast<uint4*>(dst + 2 * tile_bytes<WT>() + off) = l;
+}
+
+// 8 values of T at p (16-byte aligned, global or shared) as floats.
+template <typename T>
+__device__ __forceinline__ void get8(const T* p, float (&f)[8]) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 a = reinterpret_cast<const float4*>(p)[0];
+    const float4 b = reinterpret_cast<const float4*>(p)[1];
+    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+    f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+  } else {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) f[k] = to_f32(e[k]);
+  }
+}
+
+// Rows r0 .. r0 + 63 of the (rows, W) row-major tensor `src` (W a multiple
+// of 16; 16-byte-aligned rows) as a 64 x WT block, rows past `rows` and
+// columns past W zero.  load_tile writes the tile(s) at `dst` at once (the
+// C strip); stage_tile starts cp.async copies of it: into the swizzled tile
+// at `dst` for bf16, into the staging area at `dst` for the other types,
+// which convert_tile then splits into the tiles.  Consecutive threads take
+// consecutive 16-byte pieces of a row, so the copies coalesce.
+template <typename T, int WT, int NTHR>
+__device__ __forceinline__ void load_tile(const T* __restrict__ src, int r0, int rows, int W,
+                                          uint8_t* dst, int tid) {
+  constexpr int kRowChunks = WT / 8;
+  constexpr int kPer = kTcRows * kRowChunks / NTHR;
+#pragma unroll 4
+  for (int i = 0; i < kPer; ++i) {
+    const int ch = i * NTHR + tid;
+    const int r = ch / kRowChunks, c8 = ch % kRowChunks;
+    const bool ok = r0 + r < rows && c8 * 8 < W;
+    if constexpr (TcIn<T>::kParts == 1) {
+      uint4 h = make_uint4(0, 0, 0, 0);
+      if (ok) h = __ldg(reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * W + c8 * 8));
+      *reinterpret_cast<uint4*>(dst + swz(r, c8)) = h;
+    } else {
+      float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (ok) get8(src + (size_t)(r0 + r) * W + c8 * 8, f);
+      put8<T, WT>(f, dst, swz(r, c8));
+    }
+  }
+}
+
+template <typename T, int WT, int NTHR>
+__device__ __forceinline__ void stage_tile(const T* __restrict__ src, int r0, int rows, int W,
+                                           uint8_t* dst) {
+  constexpr int kPiece = 16 / (int)sizeof(T);  // values a 16-byte piece
+  constexpr int kRowPieces = WT / kPiece;
+  constexpr int kPer = kTcRows * kRowPieces / NTHR;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int pc = i * NTHR + threadIdx.x;
+    const int r = pc / kRowPieces, e0 = (pc % kRowPieces) * kPiece;
+    const bool ok = r0 + r < rows && e0 < W;
+    const T* g = ok ? src + (size_t)(r0 + r) * W + e0 : src;
+    const uint32_t off =
+        TcIn<T>::kParts == 1 ? swz(r, e0 / 8) : r * stage_row<T, WT>() + e0 * (int)sizeof(T);
+    hopper::cp_async16(dst + off, g, ok);
+  }
+}
+
+template <typename T, int WT, int NTHR>
+__device__ __forceinline__ void convert_tile(const uint8_t* stage, uint8_t* dst) {
+  constexpr int kRowChunks = WT / 8;
+  constexpr int kPer = kTcRows * kRowChunks / NTHR;
+#pragma unroll 4
+  for (int i = 0; i < kPer; ++i) {
+    const int ch = i * NTHR + threadIdx.x;
+    const int r = ch / kRowChunks, c8 = ch % kRowChunks;
+    float f[8];
+    get8(reinterpret_cast<const T*>(stage + r * stage_row<T, WT>() + c8 * 8 * (int)sizeof(T)), f);
+    put8<T, WT>(f, dst, swz(r, c8));
+  }
+}
+
+// Run the K slices 0 .. KS - 1 of a product into the accumulator d, where
+// issue(acc, kk, add) issues slice kk's wgmma into acc (add: keep acc's
+// sum).  The tensor cores sum a slice alone, and it is added to d here in
+// fp32, round to nearest: their own sum truncates, and over a whole
+// product of cancelling terms that lost up to 7e-4 per row against the
+// 1e-4 budget (card measurement, PERF.md).  With two partial accumulators
+// (pa for even kk, pb for odd) a slice is added while the next one runs;
+// a 64 x 128 accumulator (R = 64) gets one, as two would spill.  `fresh`
+// says that d starts empty.
+template <int KS, int R, typename Issue>
+__device__ __forceinline__ void slices(float (&d)[R], Issue&& issue, bool fresh) {
+  constexpr bool kTwo = R <= 32;
+  float pa[R], pb[R];  // pb is unused (and dropped) where !kTwo
+#pragma unroll
+  for (int kk = 0; kk <= KS; ++kk) {
+    float(&cur)[R] = kTwo && kk % 2 ? pb : pa;
+    float(&prev)[R] = kTwo && kk % 2 == 0 ? pb : pa;
+    if (kk < KS) {
+      hopper::wgmma_fence();
+      issue(cur, kk, false);
+      hopper::wgmma_commit();
+      if (!kTwo) hopper::wgmma_wait<0>();
+    }
+    const int done = kTwo ? kk - 1 : kk;  // the slice whose sum is added now
+    if (done >= 0 && done < KS) {
+      if (kTwo) {
+        if (kk < KS) {
+          hopper::wgmma_wait<1>();
+        } else {
+          hopper::wgmma_wait<0>();
+        }
+      }
+      float(&part)[R] = kTwo ? prev : cur;
+      hopper::fence_regs(part);
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        d[i] = (fresh && done == 0) ? part[i] : __fadd_rn(d[i], part[i]);
+    }
+  }
+}
+
+// dt of the chunk into dts[0, Q) and its cumsum of dt * A into dA[0, Q),
+// by a block scan: thread t adds its K = ceil(Q / 128) consecutive values
+// in order, the 32 lanes of a warp scan their totals by shuffles
+// (Hillis-Steele, offsets 1 .. 16), and each thread adds the totals of the
+// warps before it in order, then its lane's exclusive prefix, then its own
+// running sum.  The multiplies and adds are kept apart (no fused
+// multiply-add).  tests/test_torch_hopper_routes.py models this order.
+// The first 128 threads of the block compute it (so both kernels add in
+// the same order); every thread of the block reaches its barriers.
+template <typename T>
+__device__ __forceinline__ void chunk_cumsum(const T* __restrict__ dt, float a, float* dts,
+                                             float* dA, float* wsum, int Q) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool on = tid < kTcThreads;  // whole warps
+  if (on)
+    for (int i = tid; i < Q; i += kTcThreads) dts[i] = to_f32(dt[i]);
+  __syncthreads();
+  if (!on) {
+    __syncthreads();
+    __syncthreads();
+    return;
+  }
+  const int K = (Q + kTcThreads - 1) / kTcThreads;
+  float run = 0.f;
+  for (int k = 0; k < K; ++k) {
+    const int i = tid * K + k;
+    if (i < Q) {
+      run = __fadd_rn(run, __fmul_rn(dts[i], a));
+      dA[i] = run;
+    }
+  }
+  float inc = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float up = __shfl_up_sync(0xffffffffu, inc, off);
+    if (lane >= off) inc = __fadd_rn(inc, up);
+  }
+  float excl = __shfl_up_sync(0xffffffffu, inc, 1);
+  if (lane == 0) excl = 0.f;
+  if (lane == 31) wsum[warp] = inc;
+  __syncthreads();
+  float base = 0.f;
+  for (int w = 0; w < warp; ++w) base = __fadd_rn(base, wsum[w]);
+  const float off = __fadd_rn(base, excl);
+  for (int k = 0; k < K; ++k) {
+    const int i = tid * K + k;
+    if (i < Q) dA[i] = __fadd_rn(off, dA[i]);
+  }
+  __syncthreads();
+}
+
+// Shared memory of the y kernel: the two C strips' tiles, the B and x block
+// tiles (kBufs buffers), their staging areas, then dt and dA (Qp = nL * 64
+// floats each), 64 column factors, 2 nL block ranges and 4 warp totals;
+// 1024 bytes more for the alignment.
+template <typename T, int NT>
+constexpr size_t y_smem(int Qp) {
+  using In = TcIn<T>;
+  return (size_t)2 * In::kParts * tile_bytes<NT>() +
+         (size_t)In::kBufs * In::kParts * (tile_bytes<NT>() + tile_bytes<64>()) +
+         stage_bytes<T, NT>() + stage_bytes<T, 64>() +
+         (2 * (size_t)Qp + kTcRows + 2 * (size_t)Qp / kTcRows + 4) * sizeof(float) + 1024;
+}
+
+constexpr int kYThreads = 2 * kTcThreads;  // two warpgroups, two strips
+
+// y_diag of two 64-row strips of chunk g, one a warpgroup (grid: ceil(nL /
+// 2) * G blocks; block pi of a chunk takes strips la = nL - 1 - 2 pi and la
+// - 1, the longest first; for odd nL the last block's second warpgroup
+// repeats strip 0 and stores nothing).  The two strips share each block j
+// <= la of B and x, loaded once by all 256 threads.  Per warpgroup and
+// block: S = C_li B_j^T (wgmma, K = N, both K-major), S' = S * exp(dA[l] -
+// dA[s]) * dt[s] where l >= s (else 0: exp is evaluated only there, as
+// above the diagonal it overflows) in the accumulator registers, split
+// into three bf16 A fragments, and Y += S' x_j (wgmma with A from
+// registers, x_j N-major).  A block past a warpgroup's strip (j > li) is
+// wholly masked (S' = 0), so that both warpgroups issue the same wgmma
+// whatever their strip.
+template <typename T, int NT>
+__global__ void __launch_bounds__(kYThreads, 1)
+    ssd_wgmma_y_kernel(const T* __restrict__ x, const T* __restrict__ dt,
+                       const T* __restrict__ A, const T* __restrict__ Bm,
+                       const T* __restrict__ Cm, float* __restrict__ y, int Q, int P, int N,
+                       int nL) {
+  using In = TcIn<T>;
+  constexpr int kParts = In::kParts;
+  constexpr int kNT = tile_bytes<NT>(), kXT = tile_bytes<64>();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = hopper::align_1024(smem_raw);
+  uint8_t* cs = sm;                        // 2 x kParts tiles
+  uint8_t* bs = cs + 2 * kParts * kNT;     // kBufs x kParts tiles
+  uint8_t* xs = bs + In::kBufs * kParts * kNT;
+  uint8_t* bst = xs + In::kBufs * kParts * kXT;  // staging (fp32 / fp16)
+  uint8_t* xst = bst + stage_bytes<T, NT>();
+  float* dts = reinterpret_cast<float*>(xst + stage_bytes<T, 64>());
+  float* dA = dts + nL * kTcRows;
+  float* es = dA + nL * kTcRows;  // [64] exp(m - dA[s]) * dt[s] of this block
+  float* bmin = es + kTcRows;     // [nL] least dA of each 64-row block
+  float* bmax = bmin + nL;        // [nL] largest
+  float* wsum = bmax + nL;
+
+  const int npair = (nL + 1) / 2;
+  const int g = blockIdx.x / npair;
+  const int la = nL - 1 - 2 * (int)(blockIdx.x % npair);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = __shfl_sync(0xffffffffu, warp / 4, 0);  // uniform, as the compiler sees it
+  const int tid = threadIdx.x % kTcThreads;              // in the warpgroup
+  const int li = wg == 0 ? la : max(la - 1, 0);          // this warpgroup's strip
+  const bool store = wg == 0 || la >= 1;
+  const int l0 = li * kTcRows;
+  const size_t gq = (size_t)g * Q;
+  const T* bg = Bm + gq * N;
+  const T* xg = x + gq * P;
+  uint8_t* cw = cs + wg * kParts * kNT;  // this warpgroup's C strip
+  // block 0's copies run under the cumsum and the C strips' loads
+  stage_tile<T, NT, kYThreads>(bg, 0, Q, N, kParts == 1 ? bs : bst);
+  stage_tile<T, 64, kYThreads>(xg, 0, Q, P, kParts == 1 ? xs : xst);
+  hopper::cp_async_commit();
+  chunk_cumsum(dt + gq, to_f32(A[g]), dts, dA, wsum, Q);
+  for (int b = warp; b < nL; b += kYThreads / 32) {  // block ranges of dA
+    float lo = INFINITY, hi = -INFINITY;
+    for (int i = 64 * b + lane; i < min(64 * b + 64, Q); i += 32) {
+      lo = fminf(lo, dA[i]);
+      hi = fmaxf(hi, dA[i]);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+      hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+    }
+    if (lane == 0) {
+      bmin[b] = lo;
+      bmax[b] = hi;
+    }
+  }
+  load_tile<T, NT, kTcThreads>(Cm + gq * N, l0, Q, N, cw, tid);
+
+  // this thread's rows of the strip (l0 + row0, + 8) and column pair base
+  const int row0 = 16 * (warp % 4) + lane / 4, col0 = 2 * (lane % 4);
+  float yacc[32], sc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) yacc[i] = 0.f;
+  const uint32_t ca = hopper::smem_u32(cw);
+
+  for (int j = 0; j <= la; ++j) {
+    const int s0 = j * kTcRows;
+    const int buf = In::kBufs == 2 ? j % 2 : 0;
+    uint8_t* bt = bs + buf * kParts * kNT;
+    uint8_t* xt = xs + buf * kParts * kXT;
+    hopper::cp_async_wait_all();
+    __syncthreads();  // block j is in; the last block's products are done
+    if constexpr (kParts == 3) {
+      convert_tile<T, NT, kYThreads>(bst, bt);
+      convert_tile<T, 64, kYThreads>(xst, xt);
+    }
+    // exp(dA[l] - dA[s]) = exp(dA[l] - m) exp(m - dA[s]) with m the block's
+    // least dA: 64 + 2 exps a thread instead of 32, where no factor can
+    // overflow (exp(m - dA[s]) <= 1; dA[l] - m <= 60), which holds on every
+    // block below the diagonal when dt * A <= 0 and on the diagonal unless
+    // dA falls by more than 60 within 64 steps.  Else exp per element.
+    const float m = bmin[j];
+    const bool factor = bmax[li] - m <= 60.f;
+    if (threadIdx.x < kTcRows) {
+      const int s = s0 + threadIdx.x;
+      es[threadIdx.x] = s < Q ? expf(m - dA[s]) * dts[s] : 0.f;
+    }
+    hopper::fence_proxy_async();
+    __syncthreads();
+    if (j < la) {  // block j + 1's copies run under this block's products
+      const int nb = In::kBufs == 2 ? (j + 1) % 2 : 0;
+      stage_tile<T, NT, kYThreads>(bg, s0 + kTcRows, Q, N, kParts == 1 ? bs + nb * kNT : bst);
+      stage_tile<T, 64, kYThreads>(xg, s0 + kTcRows, Q, P, kParts == 1 ? xs + nb * kXT : xst);
+      hopper::cp_async_commit();
+    }
+    const uint32_t ba = hopper::smem_u32(bt), xa = hopper::smem_u32(xt);
+
+    // S = C_li B_j^T over K = N: each 16-deep slice's part products summed
+    // by the tensor cores (smallest first), the slices in fp32 here
+    auto s_slice = [&](float(&d)[32], int kk, bool add) {
+      const uint32_t off = (kk / 4) * kTcAtom + (kk % 4) * 32;
+      if constexpr (kParts == 1) {
+        hopper::wgmma_ss<64, false, 0>(d, hopper::smem_desc(ca + off, 16, 1024),
+                                       hopper::smem_desc(ba + off, 16, 1024), add);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 6; ++i) {
+          const int q = pair_order(i);
+          hopper::wgmma_ss<64, false, 0>(d, hopper::smem_desc(ca + pair_a(q) * kNT + off, 16, 1024),
+                                         hopper::smem_desc(ba + pair_b(q) * kNT + off, 16, 1024),
+                                         add || i > 0);
+        }
+      }
+    };
+    slices<NT / 16>(sc, s_slice, true);
+
+    // S' in registers, split into three A fragments of 16 columns each
+    float el[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int l = l0 + row0 + 8 * r;
+      el[r] = factor && l < Q ? expf(dA[l] - m) : 0.f;
+    }
+    // the choices (factored exp or not; a block that needs the mask, on
+    // the diagonal or past Q, or not) are made outside the element loops,
+    // so that no path pays for the other (a per-element choice cost a
+    // fifth of the kernel's time)
+    uint32_t pf[3][4][4];
+    auto build = [&](auto factor_c, auto mask_c) {
+      constexpr bool kFactor = decltype(factor_c)::value, kMask = decltype(mask_c)::value;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int l = l0 + row0 + 8 * r;
+          float v[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int sl = 8 * jj + col0 + c, s = s0 + sl;
+            const float cb = sc[4 * jj + 2 * r + c];
+            if (!kMask || (l >= s && l < Q)) {
+              v[c] = kFactor ? (cb * el[r]) * es[sl] : (cb * expf(dA[l] - dA[s])) * dts[s];
+            } else {
+              v[c] = 0.f;
+            }
+          }
+          const int k = jj / 2, i = 2 * (jj % 2) + r;
+          split3(v[0], v[1], pf[0][k][i], pf[1][k][i], pf[2][k][i]);
+        }
+    };
+    using Yes = std::true_type;
+    using No = std::false_type;
+    const bool mask = j >= li || l0 + kTcRows > Q;
+    if (factor) {
+      if (mask) build(Yes(), Yes()); else build(Yes(), No());
+    } else {
+      if (mask) build(No(), Yes()); else build(No(), No());
+    }
+
+    // Y += S' x_j (x_j is (s, p): N-major), promoted per 16 rows of s
+    auto y_slice = [&](float(&d)[32], int kk, bool add) {
+      if constexpr (kParts == 1) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q)
+          hopper::wgmma_rs<64, false, 1>(d, pf[2 - q][kk],
+                                         hopper::smem_desc(xa + kk * 2048, kTcAtom, 1024),
+                                         add || q > 0);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 6; ++i) {
+          const int q = pair_order(i);
+          hopper::wgmma_rs<64, false, 1>(
+              d, pf[pair_a(q)][kk],
+              hopper::smem_desc(xa + pair_b(q) * kXT + kk * 2048, kTcAtom, 1024), add || i > 0);
+        }
+      }
+    };
+    slices<4>(yacc, y_slice, false);
+  }
+
+  if (!store) return;
+  float* yg = y + gq * P;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int l = l0 + row0 + 8 * r;
+    if (l >= Q) continue;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int p = 8 * jj + col0;
+      if (p < P)
+        *reinterpret_cast<float2*>(yg + (size_t)l * P + p) =
+            make_float2(yacc[4 * jj + 2 * r], yacc[4 * jj + 2 * r + 1]);
+    }
+  }
+}
+
+// Shared memory of the states kernel: the B block tiles (kBufs buffers),
+// the B staging area (fp32 / fp16), the x staging area, then dt, dA and
+// the weights exp(dA[Q-1] - dA[s]) * dt[s] (Qp floats each), warp totals.
+template <typename T, int NT>
+constexpr size_t state_smem(int Qp) {
+  using In = TcIn<T>;
+  return (size_t)In::kBufs * In::kParts * tile_bytes<NT>() + stage_bytes<T, NT>() +
+         kTcRows * stage_row<T, 64>() + (3 * (size_t)Qp + 4) * sizeof(float) + 1024;
+}
+
+// The chunk state of chunk g (grid: G), written once:
+//   states[p, n] = sum_s (exp(dA[Q-1] - dA[s]) dt[s] x[s, p]) B[s, n]
+// as wgmma with M = P (rows past P zero), K = s in 64-row blocks of B
+// (N-major, as B is (s, n)) and A = (decay * dt * x)^T formed in registers
+// from the staged x block and split three ways.  The block also writes
+// chunk_decay and state_decay.
+template <typename T, int NT>
+__global__ void __launch_bounds__(kTcThreads)
+    ssd_wgmma_state_kernel(const T* __restrict__ x, const T* __restrict__ dt,
+                           const T* __restrict__ A, const T* __restrict__ Bm,
+                           float* __restrict__ st, float* __restrict__ cd,
+                           float* __restrict__ sd, int Q, int P, int N, int nL) {
+  using In = TcIn<T>;
+  constexpr int kParts = In::kParts;
+  constexpr int kNT = tile_bytes<NT>();
+  constexpr int kXRow = stage_row<T, 64>();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = hopper::align_1024(smem_raw);
+  uint8_t* bs = sm;                                  // kBufs x kParts tiles
+  uint8_t* bst = bs + In::kBufs * kParts * kNT;      // staging (fp32 / fp16)
+  uint8_t* xst = bst + stage_bytes<T, NT>();         // x block, row-major
+  float* dts = reinterpret_cast<float*>(xst + kTcRows * kXRow);
+  float* dA = dts + nL * kTcRows;
+  float* wq = dA + nL * kTcRows;
+  float* wsum = wq + nL * kTcRows;
+
+  const int g = blockIdx.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t gq = (size_t)g * Q;
+  const T* bg = Bm + gq * N;
+  const T* xg = x + gq * P;
+  // x is staged row-major in every dtype (it is read into registers)
+  auto stage_x = [&](int s0) {
+    constexpr int kPiece = 16 / (int)sizeof(T), kRowPieces = 64 / kPiece;
+#pragma unroll
+    for (int i = 0; i < kTcRows * kRowPieces / kTcThreads; ++i) {
+      const int pc = i * kTcThreads + threadIdx.x;
+      const int r = pc / kRowPieces, e0 = (pc % kRowPieces) * kPiece;
+      const bool ok = s0 + r < Q && e0 < P;
+      hopper::cp_async16(xst + r * kXRow + e0 * (int)sizeof(T),
+                         ok ? xg + (size_t)(s0 + r) * P + e0 : xg, ok);
+    }
+  };
+  stage_tile<T, NT, kTcThreads>(bg, 0, Q, N, kParts == 1 ? bs : bst);
+  stage_x(0);
+  hopper::cp_async_commit();
+  chunk_cumsum(dt + gq, to_f32(A[g]), dts, dA, wsum, Q);
+  const float last = dA[Q - 1];
+  for (int i = threadIdx.x; i < nL * kTcRows; i += kTcThreads) {
+    wq[i] = i < Q ? expf(last - dA[i]) * dts[i] : 0.f;
+    if (i < Q) sd[gq + i] = expf(dA[i]);
+  }
+  if (threadIdx.x == 0) cd[g] = expf(last);
+
+  const int p0 = 16 * warp + lane / 4, col0 = 2 * (lane % 4);
+  float acc[NT / 2];
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
+
+  for (int j = 0; j < nL; ++j) {
+    const int s0 = j * kTcRows;
+    const int buf = In::kBufs == 2 ? j % 2 : 0;
+    uint8_t* bt = bs + buf * kParts * kNT;
+    hopper::cp_async_wait_all();
+    __syncthreads();  // block j is in, wq is written; the last block's products are done
+    if constexpr (kParts == 3) convert_tile<T, NT, kTcThreads>(bst, bt);
+    // A fragments: row p0 + 8 (m % 2), columns 16 kk + 8 (m / 2) + col0 + c
+    uint32_t af[3][4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int p = p0 + 8 * (m % 2);
+        float v[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int sl = 16 * kk + 8 * (m / 2) + col0 + c;
+          v[c] = p < P ? to_f32(*reinterpret_cast<const T*>(xst + sl * kXRow +
+                                                           p * (int)sizeof(T))) * wq[s0 + sl]
+                       : 0.f;
+        }
+        split3(v[0], v[1], af[0][kk][m], af[1][kk][m], af[2][kk][m]);
+      }
+    hopper::fence_proxy_async();
+    __syncthreads();  // the x and B staging areas are free again
+    if (j + 1 < nL) {  // block j + 1's copies run under this block's products
+      const int nb = In::kBufs == 2 ? (j + 1) % 2 : 0;
+      stage_tile<T, NT, kTcThreads>(bg, s0 + kTcRows, Q, N, kParts == 1 ? bs + nb * kNT : bst);
+      stage_x(s0 + kTcRows);
+      hopper::cp_async_commit();
+    }
+    const uint32_t ba = hopper::smem_u32(bt);
+
+    auto st_slice = [&](float(&d)[NT / 2], int kk, bool add) {
+      if constexpr (kParts == 1) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q)
+          hopper::wgmma_rs<NT, false, 1>(d, af[2 - q][kk],
+                                         hopper::smem_desc(ba + kk * 2048, kTcAtom, 1024),
+                                         add || q > 0);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 6; ++i) {
+          const int q = pair_order(i);
+          hopper::wgmma_rs<NT, false, 1>(
+              d, af[pair_a(q)][kk],
+              hopper::smem_desc(ba + pair_b(q) * kNT + kk * 2048, kTcAtom, 1024), add || i > 0);
+        }
+      }
+    };
+    slices<4>(acc, st_slice, false);
+  }
+
+  float* stg = st + (size_t)g * P * N;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int p = p0 + 8 * r;
+    if (p >= P) continue;
+#pragma unroll
+    for (int jj = 0; jj < NT / 8; ++jj) {
+      const int n = 8 * jj + col0;
+      if (n < N)
+        *reinterpret_cast<float2*>(stg + (size_t)p * N + n) =
+            make_float2(acc[4 * jj + 2 * r], acc[4 * jj + 2 * r + 1]);
+    }
+  }
+}
+
+template <typename T, int NT>
+int launch_wgmma(const void* x, const void* dt, const void* A, const void* B, const void* C,
+                 void* y, void* st, void* cd, void* sd, int G, int Q, int P, int N,
+                 cudaStream_t stream) {
+  const int nL = (Q + kTcRows - 1) / kTcRows;
+  const size_t ys = y_smem<T, NT>(nL * kTcRows), ss = state_smem<T, NT>(nL * kTcRows);
+  auto yk = ssd_wgmma_y_kernel<T, NT>;
+  auto sk = ssd_wgmma_state_kernel<T, NT>;
+  cudaError_t e = hopper::allow_smem(yk, ys);
+  if (e == cudaSuccess) e = hopper::allow_smem(sk, ss);
+  if (e != cudaSuccess) return (int)e;
+  sk<<<G, kTcThreads, ss, stream>>>((const T*)x, (const T*)dt, (const T*)A, (const T*)B,
+                                    (float*)st, (float*)cd, (float*)sd, Q, P, N, nL);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  yk<<<(nL + 1) / 2 * G, kYThreads, ys, stream>>>((const T*)x, (const T*)dt, (const T*)A,
+                                                  (const T*)B, (const T*)C, (float*)y, Q, P, N,
+                                                  nL);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_wgmma_n(const void* x, const void* dt, const void* A, const void* B, const void* C,
+                   void* y, void* st, void* cd, void* sd, int G, int Q, int P, int N,
+                   cudaStream_t stream) {
+  if (P % 16 != 0 || N % 16 != 0 || P > 64 || N > 128 || Q > 512)
+    return (int)cudaErrorInvalidValue;
+  if (N <= 64) return launch_wgmma<T, 64>(x, dt, A, B, C, y, st, cd, sd, G, Q, P, N, stream);
+  return launch_wgmma<T, 128>(x, dt, A, B, C, y, st, cd, sd, G, Q, P, N, stream);
+}
+
 }  // namespace
 
 // x: (G, Q, P); dt: (G, Q); A: (G,); B, C: (G, Q, N), one dtype (0 fp32,
 // 1 bf16, 2 fp16), contiguous.  Outputs fp32: y (G, Q, P), states (G, P, N),
-// chunk_decay (G,), state_decay (G, Q).  Returns the cudaError_t of the
-// launch.
+// chunk_decay (G,), state_decay (G, Q).  route 0 = "simt", 1 = "wgmma"
+// (P and N multiples of 16, P <= 64, N <= 128, Q <= 512, 16-byte-aligned
+// bases).
+// Returns the cudaError_t of the launch.
 extern "C" int rt_ssd_chunk(const void* x, const void* dt, const void* A, const void* B,
                             const void* C, void* y, void* st, void* cd, void* sd, int dtype, int G,
-                            int Q, int P, int N, void* stream) {
+                            int Q, int P, int N, int route, void* stream) {
   if (G == 0) return 0;
   if (Q <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (route == 1) {
+    switch (dtype) {
+      case 0:
+        return launch_wgmma_n<float>(x, dt, A, B, C, y, st, cd, sd, G, Q, P, N, s);
+      case 1:
+        return launch_wgmma_n<__nv_bfloat16>(x, dt, A, B, C, y, st, cd, sd, G, Q, P, N, s);
+      case 2:
+        return launch_wgmma_n<__half>(x, dt, A, B, C, y, st, cd, sd, G, Q, P, N, s);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (route != 0) return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
       return launch<float>(x, dt, A, B, C, y, st, cd, sd, G, Q, P, N, s);

@@ -65,11 +65,11 @@ def _launch(q, k, v, b, hq, hkv, s, d, q_strides, kv_strides, causal,
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_tensor(name, t, q.dim(), _DTYPES, q.device)
     require(k.dtype == q.dtype and v.dtype == q.dtype,
-            f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
-    require(k.shape == v.shape, f"k {tuple(k.shape)} vs v {tuple(v.shape)}")
-    require(0 < d <= MAX_HEAD_DIM, f"head dim {d} not in 1..{MAX_HEAD_DIM}")
-    require(hkv > 0 and hq % hkv == 0, f"{hq} query heads over {hkv} kv heads")
-    require(window is None or window >= 0, f"window {window} < 0")
+            lambda: f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    require(k.shape == v.shape, lambda: f"k {tuple(k.shape)} vs v {tuple(v.shape)}")
+    require(0 < d <= MAX_HEAD_DIM, lambda: f"head dim {d} not in 1..{MAX_HEAD_DIM}")
+    require(hkv > 0 and hq % hkv == 0, lambda: f"{hq} query heads over {hkv} kv heads")
+    require(window is None or window >= 0, lambda: f"window {window} < 0")
     require(softcap is None or softcap != 0, "softcap 0")
     route = flash_route(q, k, v)
     o = torch.empty_like(q)
@@ -91,7 +91,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap)
     require(q.dim() == 3 and q.shape == k.shape,
-            f"q {tuple(q.shape)}, k {tuple(k.shape)}: expected one (BH, S, D)")
+            lambda: f"q {tuple(q.shape)}, k {tuple(k.shape)}: expected one (BH, S, D)")
     bh, s, d = q.shape
     strides = (s * d, 0, d)                     # (batch, head, sequence)
     return _launch(q, k, v, bh, 1, 1, s, d, strides, strides, causal, window,
@@ -108,7 +108,7 @@ def flash_attention_gqa(q, k, v, *, causal: bool = True,
         return flash_attention_gqa_plain(q, k, v, **kw)
     require(q.dim() == 4 and k.dim() == 4 and q.shape[:2] == k.shape[:2]
             and q.shape[3] == k.shape[3],
-            f"q {tuple(q.shape)}, k {tuple(k.shape)}: expected (B, S, H, D)")
+            lambda: f"q {tuple(q.shape)}, k {tuple(k.shape)}: expected (B, S, H, D)")
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     return _launch(q, k, v, b, hq, hkv, s, d, (s * hq * d, d, hq * d),

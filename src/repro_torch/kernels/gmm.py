@@ -45,7 +45,7 @@ def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     check_tensor("x", x, 3, _DTYPES, x.device)
     check_tensor("w", w, 3, (x.dtype,), x.device)
     e, c, d = x.shape
-    require(w.shape[:2] == (e, d), f"w {tuple(w.shape)} vs x {tuple(x.shape)}")
+    require(w.shape[:2] == (e, d), lambda: f"w {tuple(w.shape)} vs x {tuple(x.shape)}")
     f = w.shape[2]
     route = gmm_route(x, w)
     out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)

@@ -35,8 +35,8 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
     m, k = x.shape
     kq, n = q.shape
     nb = -(-n // BLOCK)
-    require(kq == k, f"contraction mismatch: x K={k} vs q K={kq}")
-    require(scale.shape == (k, nb), f"scale {tuple(scale.shape)}, expected {(k, nb)}")
+    require(kq == k, lambda: f"contraction mismatch: x K={k} vs q K={kq}")
+    require(scale.shape == (k, nb), lambda: f"scale {tuple(scale.shape)}, expected {(k, nb)}")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     _build.launch("rt_int8_matmul", "int8_matmul", ptr(x), ptr(q), ptr(scale),
                   ptr(out), m, k, n, nb, stream(x.device))

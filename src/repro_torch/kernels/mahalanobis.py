@@ -33,8 +33,8 @@ def mahalanobis(q: torch.Tensor, mu: torch.Tensor,
     check_tensor("sinv", sinv, 4, (torch.float32,), q.device)
     t, m, f = q.shape
     c = mu.shape[1]
-    require(mu.shape == (t, c, f), f"mu {tuple(mu.shape)} vs q {tuple(q.shape)}")
-    require(sinv.shape == (t, c, f, f), f"sinv {tuple(sinv.shape)} vs mu {tuple(mu.shape)}")
+    require(mu.shape == (t, c, f), lambda: f"mu {tuple(mu.shape)} vs q {tuple(q.shape)}")
+    require(sinv.shape == (t, c, f, f), lambda: f"sinv {tuple(sinv.shape)} vs mu {tuple(mu.shape)}")
     out = torch.empty((t, m, c), dtype=torch.float32, device=q.device)
     _build.launch("rt_mahalanobis", "mahalanobis", ptr(q), ptr(mu), ptr(sinv),
                   ptr(out), t, m, c, f, stream(q.device))

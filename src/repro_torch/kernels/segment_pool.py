@@ -31,36 +31,38 @@ def class_second_moment_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum("tbci,tbj->tcij", left, xf)
 
 
-def _check_args(x: torch.Tensor, w: torch.Tensor) -> None:
-    check_tensor("x", x, 3, _X_DTYPES, x.device)
-    check_tensor("w", w, 3, (torch.float32,), x.device)
-    require(w.shape[:2] == x.shape[:2],
-            f"w {tuple(w.shape)} does not match x {tuple(x.shape)} on (T, B)")
+def _check_args(x: torch.Tensor, w: torch.Tensor, dev: torch.device):
+    """The kernels' argument checks; returns (T, B, F, C)."""
+    check_tensor("x", x, 3, _X_DTYPES, dev)
+    check_tensor("w", w, 3, (torch.float32,), dev)
+    t, b, f = x.shape
+    tw, bw, c = w.shape
+    require(tw == t and bw == b,
+            lambda: f"w {tuple(w.shape)} does not match x {tuple(x.shape)} on (T, B)")
+    return t, b, f, c
 
 
 def segment_pool_weighted(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (T, B, F) fp32/bf16/fp16; w: (T, B, C) fp32 -> (T, C, F) fp32."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return segment_pool_weighted_plain(x, w)
-    _check_args(x, w)
-    t, b, f = x.shape
-    c = w.shape[2]
-    out = torch.empty((t, c, f), dtype=torch.float32, device=x.device)
+    dev = x.device
+    t, b, f, c = _check_args(x, w, dev)
+    out = torch.empty(t, c, f, dtype=torch.float32, device=dev)  # sizes as varargs: parsed faster
     _build.launch("rt_segment_sum", "segment_sum", ptr(x),
                   _X_DTYPES.index(x.dtype), ptr(w), ptr(out), t, b, f, c,
-                  stream(x.device))
+                  stream(dev))
     return out
 
 
 def class_second_moment(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (T, B, F) fp32/bf16/fp16; w: (T, B, C) fp32 -> (T, C, F, F) fp32."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return class_second_moment_plain(x, w)
-    _check_args(x, w)
-    t, b, f = x.shape
-    c = w.shape[2]
-    out = torch.empty((t, c, f, f), dtype=torch.float32, device=x.device)
+    dev = x.device
+    t, b, f, c = _check_args(x, w, dev)
+    out = torch.empty(t, c, f, f, dtype=torch.float32, device=dev)
     _build.launch("rt_class_second_moment", "class_second_moment", ptr(x),
                   _X_DTYPES.index(x.dtype), ptr(w), ptr(out), t, b, f, c,
-                  stream(x.device))
+                  stream(dev))
     return out

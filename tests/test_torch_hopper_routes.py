@@ -1,9 +1,15 @@
 """The route choice of the tensor-core kernels, the numerics of the
 tensor-core route, and the kernel build's digest, on the CPU.
 
-* :func:`gmm_route` and :func:`flash_route` pick ``"wgmma"`` or ``"simt"``
-  from dtype, head dim, strides and ``data_ptr() % 16`` alone, so CPU
-  tensors (strided views, offset slices) exercise every case.
+* :func:`gmm_route`, :func:`flash_route` and :func:`ssd_route` pick
+  ``"wgmma"`` or ``"simt"`` from dtype, widths, strides and
+  ``data_ptr() % 16`` alone, so CPU tensors (strided views, offset slices)
+  exercise every case.
+* A dense model of ssd_chunk's tensor-core arithmetic (fp32 and fp16
+  operands and the fp32 intermediates split three ways into bf16, the part
+  products summed in fp32, the kernel's block-scan cumsum order) is held
+  against the JAX kernel per row within 2.5e-5, a quarter of the 1e-4 the
+  card is held to.
 * A dense model of the tensor-core route's arithmetic (bf16 / fp16 products
   summed in fp32; in attention, P = exp(s - m) rounded to q's dtype before
   P V while l sums the fp32 P) is held against the JAX package's
@@ -24,6 +30,7 @@ from repro.kernels import ops as jops
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import flash_route
 from repro_torch.kernels.gmm import gmm_route
+from repro_torch.kernels.ssd_scan import ssd_route
 
 pytestmark = pytest.mark.torch_port
 torch.set_num_threads(1)
@@ -210,3 +217,159 @@ def test_build_compiles_only_sources(tmp_path, monkeypatch):
         (tmp_path / name).write_text("")
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     assert [p.name for p in _build._sources()] == ["a.cu", "b.cu"]
+
+
+# ---------------------------------------------------------------------------
+# ssd_chunk: the route choice and the tensor-core route's numerics
+# ---------------------------------------------------------------------------
+
+def _ssd(g=2, q=64, p=32, n=16, dtype=F32, **over):
+    t = dict(x=torch.zeros(g, q, p, dtype=dtype), dt=torch.zeros(g, q, dtype=dtype),
+             A=torch.zeros(g, dtype=dtype), B=torch.zeros(g, q, n, dtype=dtype),
+             C=torch.zeros(g, q, n, dtype=dtype))
+    t.update({k: v() for k, v in over.items()})
+    return t["x"], t["dt"], t["A"], t["B"], t["C"]
+
+
+SSD_CASES = {
+    "fp32 P32 N16": (lambda: _ssd(), "wgmma"),
+    "bf16 P64 N128": (lambda: _ssd(p=64, n=128, dtype=BF), "wgmma"),
+    "fp16 P16 N32": (lambda: _ssd(p=16, n=32, dtype=F16), "wgmma"),
+    "bf16 Q100 P64 N128": (lambda: _ssd(q=100, p=64, n=128, dtype=BF), "wgmma"),
+    "dt fp32 under bf16 x": (lambda: _ssd(dtype=BF, dt=lambda: torch.zeros(2, 64)), "simt"),
+    "B fp16 under fp32 x": (lambda: _ssd(B=lambda: torch.zeros(2, 64, 16, dtype=F16)), "simt"),
+    "P 24: not a multiple of 16": (lambda: _ssd(p=24), "simt"),
+    "N 8: not a multiple of 16": (lambda: _ssd(n=8), "simt"),
+    "P 128: wider than the tile": (lambda: _ssd(p=128), "simt"),
+    "N 144: wider than the tile": (lambda: _ssd(n=144), "simt"),
+    "Q 512": (lambda: _ssd(q=512), "wgmma"),
+    "Q 520: dt and dA outgrow shared memory": (lambda: _ssd(q=520), "simt"),
+    "x base off 16 bytes": (lambda: _ssd(x=lambda: _offset((2, 64, 32), F32)), "simt"),
+    "C base off 16 bytes": (lambda: _ssd(dtype=BF, C=lambda: _offset((2, 64, 16), BF)),
+                            "simt"),
+}
+
+
+@pytest.mark.parametrize("case", list(SSD_CASES))
+def test_ssd_route(case):
+    make, want = SSD_CASES[case]
+    assert ssd_route(*make()) == want
+
+
+def _split3(t: torch.Tensor):
+    """fp32 -> (hi, mid, lo) as floats: hi = bf16(t), mid = bf16(t - hi),
+    lo = bf16(t - hi - mid), each difference exact in fp32."""
+    parts, rest = [], t
+    for _ in range(3):
+        part = rest.to(torch.bfloat16).float()
+        parts.append(part)
+        rest = rest - part
+    return parts
+
+
+# the products of two three-way split operands that the kernel sums: all
+# terms down to 2^-16 of hi * hi (hi*lo ~ 2^-18, mid*mid ~ 2^-18)
+SPLIT_PAIRS = ((0, 0), (0, 1), (1, 0), (1, 1), (0, 2), (2, 0))
+
+
+def _split_matmul(a_parts, b_parts):
+    if len(b_parts) == 1:                       # b exact in bf16
+        return sum(a @ b_parts[0] for a in a_parts)
+    return sum(a_parts[i] @ b_parts[j] for i, j in SPLIT_PAIRS)
+
+
+def block_cumsum_model(d: np.ndarray, threads: int = 128) -> np.ndarray:
+    """The kernel's cumsum of the fp32 values ``d`` (Q,), in its order of
+    additions: thread t runs over its ceil(Q / threads) consecutive values;
+    the lanes of each warp scan the thread totals (Hillis-Steele, offsets
+    1 .. 16); a value is then (totals of the warps before, in order, + its
+    lane's exclusive prefix) + its running sum."""
+    f32 = np.float32
+    q = d.shape[0]
+    k = -(-q // threads)
+    run = np.zeros((threads, k), f32)
+    tot = np.zeros(threads, f32)
+    for t in range(threads):
+        acc = f32(0)
+        for j in range(k):
+            if t * k + j < q:
+                acc = f32(acc + d[t * k + j])
+                run[t, j] = acc
+        tot[t] = acc
+    inc = tot.reshape(-1, 32).copy()
+    off = 1
+    while off < 32:
+        up = np.concatenate([np.zeros((inc.shape[0], off), f32), inc[:, :-off]], axis=1)
+        inc = np.where(np.arange(32) >= off, (inc + up).astype(f32), inc)
+        off *= 2
+    excl = np.concatenate([np.zeros((inc.shape[0], 1), f32), inc[:, :-1]], axis=1)
+    out = np.zeros(q, f32)
+    for t in range(threads):
+        w, lane = divmod(t, 32)
+        base = f32(0)
+        for v in range(w):
+            base = f32(base + inc[v, 31])
+        start = f32(base + excl[w, lane])
+        for j in range(k):
+            if t * k + j < q:
+                out[t * k + j] = f32(start + run[t, j])
+    return out
+
+
+def tc_ssd_model(x, dt, A, B, C):
+    """The "wgmma" route's arithmetic, dense, one chunk at a time: the
+    block-scan cumsum; fp32 and fp16 inputs split three ways into bf16
+    (bf16 inputs taken as they are); the fp32 intermediates S' = (S *
+    exp(dA[l] - dA[s])) * dt[s] (below the diagonal) and decay * dt * x
+    split the same way; every product summed in fp32 over
+    :data:`SPLIT_PAIRS` (one split operand: over its three parts)."""
+    f = lambda t: t.float()
+    parts = (lambda t: [f(t)]) if x.dtype == torch.bfloat16 else (lambda t: _split3(f(t)))
+    ys, sts, cds, sds = [], [], [], []
+    for g in range(x.shape[0]):
+        d = (f(dt[g]) * f(A[g])).numpy()
+        dA = torch.from_numpy(block_cumsum_model(d))
+        q = dA.shape[0]
+        xs, bs, cs = parts(x[g]), parts(B[g]), parts(C[g])
+        s = _split_matmul(cs, [b.T for b in bs])
+        mask = torch.tril(torch.ones(q, q, dtype=torch.bool))
+        seg = torch.where(mask, dA[:, None] - dA[None, :], 0.0)
+        sp = torch.where(mask, (s * torch.exp(seg)) * f(dt[g])[None, :], 0.0)
+        ys.append(_split_matmul(_split3(sp), xs))
+        w = torch.exp(dA[-1] - dA) * f(dt[g])
+        sts.append(_split_matmul([a.T for a in _split3(f(x[g]) * w[:, None])], bs))
+        cds.append(torch.exp(dA[-1]))
+        sds.append(torch.exp(dA))
+    return torch.stack(ys), torch.stack(sts), torch.stack(cds), torch.stack(sds)
+
+
+# the "wgmma" route's budget on the card is 1e-4 per row (OPS_TOL in
+# chip_smoke.py); its model must stay within a quarter of it
+SSD_MODEL_TOL = 2.5e-5
+
+
+def _ssd_numpy(rng, g, q, p, n):
+    """Mamba-2's initialisation ranges, as chip_smoke.py draws them: dt
+    log-uniform in [1e-3, 1e-1], A = -uniform(1, 16)."""
+    dt = np.exp(np.log(1e-3) + rng.random((g, q)) * np.log(100.0))
+    A = -(1.0 + 15.0 * rng.random(g))
+    x, B, C = (rng.standard_normal((g, q, k)) for k in (p, n, n))
+    return [a.astype(np.float32) for a in (x, dt, A, B, C)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("q,p,n", [(64, 16, 16), (100, 32, 32), (100, 16, 32), (256, 64, 128)])
+def test_tc_ssd_model_matches_jax(q, p, n, dtype):
+    args = _ssd_numpy(np.random.default_rng(13), 3, q, p, n)
+    got = tc_ssd_model(*(torch.from_numpy(a).to(getattr(torch, dtype)) for a in args))
+    want = jops.ssd_chunk(*(jnp.asarray(a, getattr(jnp, dtype)) for a in args))
+    for t, j in zip(got, want):
+        assert tuple(t.shape) == j.shape
+        assert _row_err(t.numpy(), np.asarray(j, np.float32)) <= SSD_MODEL_TOL
+
+
+def test_block_cumsum_model_is_a_cumsum():
+    d = np.random.default_rng(14).standard_normal(300).astype(np.float32)
+    got = block_cumsum_model(d)
+    np.testing.assert_allclose(got, np.cumsum(d.astype(np.float64)), rtol=0, atol=1e-4)
+    assert got[0] == d[0]

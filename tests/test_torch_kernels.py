@@ -19,6 +19,7 @@ from repro.optim import quant as j_quant
 from repro_torch.kernels import int8_matmul as t_im
 from repro_torch.kernels import mahalanobis as t_md
 from repro_torch.kernels import segment_pool as t_sp
+from repro_torch.kernels._checks import check_tensor, require
 
 pytestmark = pytest.mark.torch_port
 torch.set_num_threads(1)
@@ -107,3 +108,59 @@ def test_int8_matmul_plain_matches_pallas(m, k, n):
                            torch.from_numpy(np.array(qs["q"])),
                            torch.from_numpy(np.array(qs["scale"])))
     _close(got.numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# the wrappers' argument checks, as far as the CPU can build bad arguments
+# ---------------------------------------------------------------------------
+
+class _ReportsCuda(torch.Tensor):
+    """A CPU tensor that reports cuda:0 as its device, so that the checks
+    after the device check can be reached without a card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+_CUDA0 = torch.device("cuda", 0)
+_F32 = (torch.float32,)
+
+BAD_ARGS = {
+    "not a tensor": (lambda: [[1.0, 2.0]], "x: expected a tensor"),
+    "a CPU tensor": (lambda: torch.zeros(2, 3, 4), "x: the kernel takes CUDA tensors, got cpu"),
+    "the wrong rank": (lambda: torch.zeros(2, 3).as_subclass(_ReportsCuda),
+                       "x: expected 3-D, got shape (2, 3)"),
+    "the wrong dtype": (lambda: torch.zeros(2, 3, 4, dtype=torch.float64).as_subclass(
+        _ReportsCuda), "x: dtype torch.float64 not in [torch.float32]"),
+    "non-contiguous": (lambda: torch.zeros(2, 4, 3).transpose(1, 2).as_subclass(_ReportsCuda),
+                       "x: must be contiguous"),
+}
+
+
+@pytest.mark.parametrize("case", list(BAD_ARGS))
+def test_check_tensor_raises_naming_the_argument(case):
+    make, message = BAD_ARGS[case]
+    with pytest.raises(ValueError) as err:
+        check_tensor("x", make(), 3, _F32, _CUDA0)
+    assert str(err.value) == message
+
+
+def test_check_tensor_passes_a_good_argument():
+    check_tensor("x", torch.zeros(2, 3, 4).as_subclass(_ReportsCuda), 3, _F32, _CUDA0)
+
+
+def test_require_builds_its_message_only_on_failure():
+    calls = []
+
+    def msg():
+        calls.append(1)
+        return "w (2, 3) does not match x"
+
+    require(True, msg)
+    assert calls == []
+    with pytest.raises(ValueError, match=r"w \(2, 3\) does not match x"):
+        require(False, msg)
+    assert calls == [1]
+    with pytest.raises(ValueError, match="empty chunk"):
+        require(False, "empty chunk")
