@@ -7,12 +7,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
 1. the card's name and power limit, and the torch / CUDA versions;
 2. build the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at a ragged shape, by the error of each output
-   row against that row's largest value, and time the kernel, the plain
-   version and (where one exists) a single PyTorch library call;
+   main path's shapes and at ragged and wide ones (the Mahalanobis head on
+   every path of its planner), by the error of each output row against
+   that row's largest value, and time the kernel, the plain version and
+   (where one exists) a single PyTorch library call; then plant faults in
+   the Mahalanobis head (one cluster rank's rows of Sinv zeroed) and the
+   class second moment (two class columns of w swapped) and fail unless
+   the same check flags each;
 4. serve full-width Simple CNAPs (224 x 224 images, int8 frozen backbone)
    through ``EpisodicServeEngine.run_to_completion`` on the kernels, count
-   each kernel's launches, and hold the logits and adapted states against
+   each kernel's launches (and fail unless every Mahalanobis launch took
+   the bulk copy), and hold the logits and adapted states against
    the same engine on the plain ``ref`` backend; profile one more run of
    that path (device busy time, idle share, top ops by device time); then a
    shorter ProtoNets pass, read the same way;
@@ -195,6 +200,14 @@ def global_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max()) / scale
 
 
+def unaligned(t):
+    """A contiguous copy of ``t`` whose base is one element past a 16-byte
+    boundary, which neither TMA nor a bulk copy can read."""
+    import torch
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
 def _as_tuple(out):
     return out if isinstance(out, tuple) else (out,)
 
@@ -320,17 +333,20 @@ def kernel_cases(dev):
                     lambda x, w: torch.einsum("tbc,tbi,tbj->tcij", w, x.float(), x.float()),
                     (x, w), nbytes, 2.0 * t * c * b * f * f)
 
-    def md_case(label, t, m, c, f):
+    def md_case(label, t, m, c, f, offset=False):
         q, mu = randn(t, m, f), randn(t, c, f)
         a = randn(t, c, f, f) / math.sqrt(f)
         sinv = a @ a.transpose(-1, -2) + torch.eye(f, device=dev)
+        if offset:
+            sinv = unaligned(sinv)
         nbytes = 4 * (q.numel() + mu.numel() + sinv.numel() + t * m * c)
         # library yardstick: one einsum on the difference q - mu computed
         # beforehand, so it does less than the kernel, which forms it
         diff = (q[:, :, None, :] - mu[:, None, :, :]).contiguous()
         lib = lambda q, mu, sinv: torch.einsum("tmcf,tcfg,tmcg->tmc", diff, sinv, diff)
         return case(label, md.mahalanobis, md.mahalanobis_plain, lib, (q, mu, sinv),
-                    nbytes, 2.0 * t * c * m * f * f + 3.0 * t * c * m * f)
+                    nbytes, 2.0 * t * c * m * f * f + 3.0 * t * c * m * f) | dict(
+                        route=md.mahalanobis_plan(m, f, sinv.data_ptr() % 16 == 0).route)
 
     def im_case(label, m, k, n):
         x = randn(m, k)
@@ -353,11 +369,21 @@ def kernel_cases(dev):
              "second_moment_kernel", [
                  sm_case("main T4 B32 F256 C5", 4, 32, 256, 5),
                  sm_case("ragged T3 B37 F200 C5 bf16 pad5", 3, 37, 200, 5, torch.bfloat16, 5),
-                 sm_case("ragged T2 B21 F72 C5 fp16 pad3", 2, 21, 72, 5, torch.float16, 3)]),
+                 sm_case("ragged T2 B21 F72 C5 fp16 pad3", 2, 21, 72, 5, torch.float16, 3),
+                 sm_case("wide T4 B32 F512 C5", 4, 32, 512, 5)]),
+        # the planner's paths: one bulk copy a block; 4-byte cp.async by
+        # every thread where F % 4 != 0 or Sinv is misaligned; several query
+        # tiles; two streaming stages at F 640
         spec("mahalanobis", "mahalanobis.cu", "src/repro/kernels/mahalanobis.py:29",
              "mahalanobis_kernel", [
                  md_case("main T4 M8 C5 F256", 4, 8, 5, 256),
-                 md_case("ragged T3 M13 C5 F200", 3, 13, 5, 200)]),
+                 md_case("ragged T3 M13 C5 F200", 3, 13, 5, 200),
+                 md_case("wide T4 M8 C5 F512", 4, 8, 5, 512),
+                 md_case("tiles T2 M130 C5 F256", 2, 130, 5, 256),
+                 md_case("ragged T3 M8 C5 F250 (F % 4: threads)", 3, 8, 5, 250),
+                 md_case("ragged T2 M8 C5 F256 Sinv unaligned (threads)", 2, 8, 5, 256,
+                         offset=True),
+                 md_case("wide T1 M8 C5 F640 (two stages)", 1, 8, 5, 640)]),
         spec("int8_matmul", "int8_matmul.cu", "src/repro/kernels/int8_matmul.py:50",
              "int8_matmul_kernel", [
                  im_case("main M128 K256 N256", 128, 256, 256),
@@ -553,12 +579,6 @@ def ops_cases(dev):
     def randn(*shape, dtype=torch.float32, scale=1.0):
         return (torch.randn(*shape, generator=g) * scale).to(device=dev, dtype=dtype)
 
-    def unaligned(t):
-        """A contiguous copy of ``t`` whose base is one element past a
-        16-byte boundary, which TMA cannot read: the "simt" route."""
-        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-        return buf[1:].view(t.shape).copy_(t)
-
     def flash(label, b, s, hq, hkv, d, dtype, main=False, lib=False, offset=False, **kw):
         q, k, v = randn(b, s, hq, d, dtype=dtype), randn(b, s, hkv, d, dtype=dtype), \
             randn(b, s, hkv, d, dtype=dtype)
@@ -696,6 +716,52 @@ def ops_cases(dev):
     ]
 
 
+def read_faults(planted):
+    """Hold each planted fault (label, got, want, tol) to the per-row check,
+    which must flag it; returns the readings, with the whole-tensor measure
+    beside them."""
+    import torch
+    readings = []
+    for label, got, want, tol in planted:
+        got, want = _as_tuple(got), _as_tuple(want)
+        r = dict(fault=label, row_err=max(row_err(a, b) for a, b in zip(got, want)),
+                 global_err=max(global_err(a, b) for a, b in zip(got, want)), tol=tol)
+        caught = r["row_err"] > tol
+        print(f"planted fault {label:52s} row_err={r['row_err']:.3e} "
+              f"(global {r['global_err']:.3e}) tol={tol:.0e} "
+              f"{'caught' if caught else 'MISSED'}", flush=True)
+        if not caught:
+            fail(f"the per-row check misses the planted fault: {label}")
+        readings.append(r)
+    planted.clear()
+    torch.cuda.empty_cache()
+    return readings
+
+
+def check_episodic_faults(specs):
+    """Faults planted in the Mahalanobis head and the class second moment at
+    their main shapes, each against the plain version on the intact inputs:
+    the kernel fed a Sinv whose rows of one cluster rank's slice are zeroed,
+    and w with two class columns swapped."""
+    from repro_torch.kernels.mahalanobis import mahalanobis_plan
+    by = {spec["name"]: spec["cases"][0] for spec in specs}
+    md, sm = by["mahalanobis"], by["class_second_moment"]
+    q, mu, sinv = md["args"]
+    plan = mahalanobis_plan(q.shape[1], q.shape[2], True)
+    rank = min(3, plan.k - 1)
+    i0, i1 = rank * plan.rows, min(q.shape[2], (rank + 1) * plan.rows)
+    cut = sinv.clone()
+    cut[:, :, i0:i1] = 0
+    x, w = sm["args"]
+    swapped = w.clone()
+    swapped[..., [0, 1]] = w[..., [1, 0]]
+    return read_faults([
+        (f"mahalanobis: Sinv rows {i0}-{i1 - 1} (rank {rank}'s slice) zeroed",
+         md["fn"](q, mu, cut), md["plain"](q, mu, sinv), md["tol"]),
+        ("class_second_moment: w class columns 0 and 1 swapped",
+         sm["fn"](x, swapped), sm["plain"](x, w), sm["tol"])])
+
+
 def check_planted_faults(flash, ssd):
     """Faults planted in flash attention at S 8192 and in ssd_chunk at the
     mamba2-780m shape (fp32), each of which the per-row check must flag:
@@ -704,7 +770,6 @@ def check_planted_faults(flash, ssd):
     zeroed, y rows past Q/2 zeroed, the states of every other chunk zeroed.
     An SSD fault reads as the worst of its four outputs.  Returns their
     readings, with the whole-tensor measure beside them."""
-    import torch
     mini, local = flash["cases"][0], flash["cases"][2]
     q, k, v = mini["args"]
     want = mini["plain"](q, k, v, **mini["kw"])
@@ -739,21 +804,7 @@ def check_planted_faults(flash, ssd):
                 ("mamba2-780m: y rows past Q/2 zeroed", y_late, want, mamba["tol"]),
                 ("mamba2-780m: states of every other chunk zeroed", st_gap, want,
                  mamba["tol"])]
-    readings = []
-    for label, got, want, tol in planted:
-        got, want = _as_tuple(got), _as_tuple(want)
-        r = dict(fault=label, row_err=max(row_err(a, b) for a, b in zip(got, want)),
-                 global_err=max(global_err(a, b) for a, b in zip(got, want)), tol=tol)
-        caught = r["row_err"] > tol
-        print(f"planted fault {label:52s} row_err={r['row_err']:.3e} "
-              f"(global {r['global_err']:.3e}) tol={tol:.0e} "
-              f"{'caught' if caught else 'MISSED'}", flush=True)
-        if not caught:
-            fail(f"the per-row check misses the planted fault: {label}")
-        readings.append(r)
-    del planted, want
-    torch.cuda.empty_cache()
-    return readings
+    return read_faults(planted)
 
 
 def run_ops_path(dev, launches):
@@ -804,11 +855,19 @@ def main() -> int:
     _build.library()
     print(f"build: {lib_path.name} in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    rows = check_kernels(kernel_cases(dev))
+    specs = kernel_cases(dev)
+    rows = check_kernels(specs)
+    planted = check_episodic_faults(specs)
+    del specs
     launches = {}
     summary = [run_path("simple_cnaps", 8, dev, launches, trace=True),
                run_path("protonets", 4, dev, launches)]
-    ops_rows, planted = run_ops_path(dev, launches)
+    served = launches["simple_cnaps"]
+    if served.get("mahalanobis/bulk", 0) != served.get("mahalanobis", 0):
+        fail(f"the serving path's Mahalanobis launches did not all take the bulk copy: "
+             f"{served}")
+    ops_rows, ops_planted = run_ops_path(dev, launches)
+    planted += ops_planted
     # each kernel counted on the path that runs it
     path_of = {n: "simple_cnaps" for n in rows} | {n: "ops" for n in ops_rows}
     rows |= ops_rows
