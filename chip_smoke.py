@@ -7,17 +7,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
 1. the card's name and power limit, and the torch / CUDA versions;
 2. build the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at ragged and wide ones (the Mahalanobis head on
-   every path of its planner), by the error of each output row against
+   main path's shapes and at ragged and wide ones (the Mahalanobis head and
+   the int8 matmul on every path of their planners, the head's "stream"
+   route at F 2304, 3072 and 8192), by the error of each output row against
    that row's largest value, and time the kernel, the plain version and
    (where one exists) a single PyTorch library call; then plant faults in
-   the Mahalanobis head (one cluster rank's rows of Sinv zeroed) and the
-   class second moment (two class columns of w swapped) and fail unless
-   the same check flags each;
+   the Mahalanobis head (one cluster rank's rows of Sinv zeroed), the
+   class second moment (two class columns of w swapped) and the int8
+   matmul (one K group's rows of q zeroed; the scales of two quantisation
+   blocks swapped) and fail unless the same check flags each;
 4. serve full-width Simple CNAPs (224 x 224 images, int8 frozen backbone)
    through ``EpisodicServeEngine.run_to_completion`` on the kernels, count
    each kernel's launches (and fail unless every Mahalanobis launch took
-   the bulk copy), and hold the logits and adapted states against
+   the bulk copy and every int8 matmul launch the 16-byte copies), and
+   hold the logits and adapted states against
    the same engine on the plain ``ref`` backend; profile one more run of
    that path (device busy time, idle share, top ops by device time); then a
    shorter ProtoNets pass, read the same way;
@@ -259,7 +262,7 @@ def check_kernels(specs, counted=None):
                     (time_ms(kern, it, reps), None)
                 t = dict(shape=c["label"], route=c.get("route"), ms=k_ms,
                          plain_ms=time_ms(lambda: c["plain"](*args, **kw), it, reps),
-                         library_ms=lib_ms,
+                         library_ms=lib_ms, library=c.get("lib_note"),
                          library_device_ms=call_device_ms(lib, n=it) if lib else None,
                          device_ms=kernel_device_ms(kern, c.get("symbol", spec["symbol"]),
                                                     n=it),
@@ -268,7 +271,8 @@ def check_kernels(specs, counted=None):
                           if lib else "")
                 print(f"  time {c['label']}: kernel {t['ms']:.4f} ms per call (device "
                       f"{t['device_ms']} ms per call), plain {t['plain_ms']:.4f} ms, "
-                      f"library {t['library_ms']} ms (device {t['library_device_ms']} ms), "
+                      f"library {t['library_ms']} ms (device {t['library_device_ms']} ms"
+                      f"{'; ' + t['library'] if t['library'] else ''}), "
                       f"bound {b_ms:.5f} ms ({b_by}); "
                       f"{c['flops'] / t['ms'] / 1e9:.3f} TFLOP/s{lib_vs}", flush=True)
                 # the bound is the least time the card could take: a kernel
@@ -299,7 +303,7 @@ def kernel_cases(dev):
     from repro_torch.kernels import int8_matmul as im
     from repro_torch.kernels import mahalanobis as md
     from repro_torch.kernels import segment_pool as sp
-    from repro_torch.optim.quant import quantize
+    from repro_torch.optim.quant import dequantize, quantize
 
     g = torch.Generator(device="cpu").manual_seed(0)
 
@@ -313,11 +317,11 @@ def kernel_cases(dev):
             w[:, -pad_rows:] = 0.0          # collator padding: zero-weight rows
         return w.to(dev)
 
-    def case(label, fn, plain, lib, args, nbytes, flops):
+    def case(label, fn, plain, lib, args, nbytes, flops, main=None):
         # fp32 sums in other orders, whatever the input dtype
         return dict(label=label, fn=fn, plain=plain, lib=lib, args=args, tol=1e-5,
-                    main=label.startswith("main"), iters=(50, 7), bytes=nbytes,
-                    flops=flops, peak=FP32_FLOPS)
+                    main=label.startswith("main") if main is None else main,
+                    iters=(50, 7), bytes=nbytes, flops=flops, peak=FP32_FLOPS)
 
     def seg_case(label, t, b, f, c, dtype=torch.float32, pad=0):
         x, w = randn(t, b, f, dtype=dtype), onehot(t, b, c, pad)
@@ -333,10 +337,18 @@ def kernel_cases(dev):
                     lambda x, w: torch.einsum("tbc,tbi,tbj->tcij", w, x.float(), x.float()),
                     (x, w), nbytes, 2.0 * t * c * b * f * f)
 
-    def md_case(label, t, m, c, f, offset=False):
+    def routed(c, plan, route):
+        # the case's route, as the planner picks it; a case written for one
+        # route fails the run if the planner sends it down another
+        if route is not None and plan.route != route:
+            fail(f"{c['label']}: the planner picked route {plan.route}, not {route}")
+        return c | dict(route=plan.route)
+
+    def md_case(label, t, m, c, f, offset=False, route=None, main=None):
         q, mu = randn(t, m, f), randn(t, c, f)
         a = randn(t, c, f, f) / math.sqrt(f)
         sinv = a @ a.transpose(-1, -2) + torch.eye(f, device=dev)
+        del a
         if offset:
             sinv = unaligned(sinv)
         nbytes = 4 * (q.numel() + mu.numel() + sinv.numel() + t * m * c)
@@ -344,17 +356,28 @@ def kernel_cases(dev):
         # beforehand, so it does less than the kernel, which forms it
         diff = (q[:, :, None, :] - mu[:, None, :, :]).contiguous()
         lib = lambda q, mu, sinv: torch.einsum("tmcf,tcfg,tmcg->tmc", diff, sinv, diff)
-        return case(label, md.mahalanobis, md.mahalanobis_plain, lib, (q, mu, sinv),
-                    nbytes, 2.0 * t * c * m * f * f + 3.0 * t * c * m * f) | dict(
-                        route=md.mahalanobis_plan(m, f, sinv.data_ptr() % 16 == 0).route)
+        return routed(case(label, md.mahalanobis, md.mahalanobis_plain, lib, (q, mu, sinv),
+                           nbytes, 2.0 * t * c * m * f * f + 3.0 * t * c * m * f, main),
+                      md.mahalanobis_plan(m, f, sinv.data_ptr() % 16 == 0), route) | dict(
+                          lib_note="einsum on q - mu formed beforehand: less work")
 
-    def im_case(label, m, k, n):
+    def im_case(label, m, k, n, offset=False, route=None, main=None):
         x = randn(m, k)
+        if offset:
+            x = unaligned(x)
         qs = quantize(randn(k, n) / math.sqrt(k))
         q, s = qs["q"].contiguous(), qs["scale"].contiguous()
         nbytes = 4 * x.numel() + q.numel() + 4 * s.numel() + 4 * m * n
-        return case(label, im.int8_matmul, im.int8_matmul_plain, None, (x, q, s),
-                    nbytes, 2.0 * m * k * n)
+        # library yardstick: one torch.mm on the fp32 weight dequantized
+        # beforehand, so it does less than the kernel (no dequantisation)
+        # and reads four times the weight's bytes
+        w = dequantize(dict(q=q, scale=s, n=n))
+        lib = lambda x, q, s: torch.mm(x, w)
+        return routed(case(label, im.int8_matmul, im.int8_matmul_plain, lib, (x, q, s),
+                           nbytes, 2.0 * m * k * n, main),
+                      im.int8_matmul_plan(m, k, n, x.data_ptr() % 16 == 0), route) | dict(
+                          lib_note="torch.mm on the weight dequantized beforehand: no "
+                                   "dequantisation, 4x the weight bytes")
 
     src = "src/repro_torch/kernels/csrc/"
     spec = lambda name, source, replaces, symbol, cases: dict(
@@ -373,9 +396,11 @@ def kernel_cases(dev):
                  sm_case("wide T4 B32 F512 C5", 4, 32, 512, 5)]),
         # the planner's paths: one bulk copy a block; 4-byte cp.async by
         # every thread where F % 4 != 0 or Sinv is misaligned; several query
-        # tiles; two streaming stages at F 640
+        # tiles; two streaming stages at F 640; past F 2048 the stream route
+        # at the d_model of gemma2-2b (2304), minitron-4b (3072) and
+        # qwen2-72b (8192), timed, and with 4-byte copies at F % 4 != 0
         spec("mahalanobis", "mahalanobis.cu", "src/repro/kernels/mahalanobis.py:29",
-             "mahalanobis_kernel", [
+             "mahalanobis", [
                  md_case("main T4 M8 C5 F256", 4, 8, 5, 256),
                  md_case("ragged T3 M13 C5 F200", 3, 13, 5, 200),
                  md_case("wide T4 M8 C5 F512", 4, 8, 5, 512),
@@ -383,12 +408,23 @@ def kernel_cases(dev):
                  md_case("ragged T3 M8 C5 F250 (F % 4: threads)", 3, 8, 5, 250),
                  md_case("ragged T2 M8 C5 F256 Sinv unaligned (threads)", 2, 8, 5, 256,
                          offset=True),
-                 md_case("wide T1 M8 C5 F640 (two stages)", 1, 8, 5, 640)]),
+                 md_case("wide T1 M8 C5 F640 (two stages)", 1, 8, 5, 640),
+                 md_case("stream T1 M8 C2 F2304", 1, 8, 2, 2304, route="stream", main=True),
+                 md_case("stream T1 M8 C2 F3072", 1, 8, 2, 3072, route="stream", main=True),
+                 md_case("stream T1 M8 C2 F8192", 1, 8, 2, 8192, route="stream", main=True),
+                 md_case("stream T1 M13 C2 F2306 (F % 4: 4-byte copies)", 1, 13, 2, 2306,
+                         route="stream")]),
+        # the adapt chunk (M 128) and the query dispatch (M 32) of the
+        # serving path, timed; ragged shapes on both copy paths
         spec("int8_matmul", "int8_matmul.cu", "src/repro/kernels/int8_matmul.py:50",
              "int8_matmul_kernel", [
-                 im_case("main M128 K256 N256", 128, 256, 256),
-                 im_case("query M32 K256 N256", 32, 256, 256),
-                 im_case("ragged M50 K200 N300", 50, 200, 300)]),
+                 im_case("main M128 K256 N256", 128, 256, 256, route="cp16"),
+                 im_case("query M32 K256 N256", 32, 256, 256, route="cp16", main=True),
+                 im_case("ragged M50 K200 N300 (N % 16: cp4)", 50, 200, 300, route="cp4"),
+                 im_case("ragged M50 K130 N300 (K % 4: cp4)", 50, 130, 300, route="cp4"),
+                 im_case("ragged M50 K200 N320", 50, 200, 320, route="cp16"),
+                 im_case("ragged M32 K256 N256 x unaligned (cp4)", 32, 256, 256, offset=True,
+                         route="cp4")]),
     ]
 
 
@@ -739,13 +775,16 @@ def read_faults(planted):
 
 
 def check_episodic_faults(specs):
-    """Faults planted in the Mahalanobis head and the class second moment at
-    their main shapes, each against the plain version on the intact inputs:
-    the kernel fed a Sinv whose rows of one cluster rank's slice are zeroed,
-    and w with two class columns swapped."""
+    """Faults planted in the Mahalanobis head, the class second moment and
+    the int8 matmul at their main shapes, each against the plain version on
+    the intact inputs: the kernel fed a Sinv whose rows of one cluster
+    rank's slice are zeroed, w with two class columns swapped, q whose K
+    rows of the last K group of a block are zeroed, and the scales of
+    quantisation blocks 0 and 1 swapped."""
+    from repro_torch.kernels.int8_matmul import GROUPS, int8_matmul_plan
     from repro_torch.kernels.mahalanobis import mahalanobis_plan
     by = {spec["name"]: spec["cases"][0] for spec in specs}
-    md, sm = by["mahalanobis"], by["class_second_moment"]
+    md, sm, im = by["mahalanobis"], by["class_second_moment"], by["int8_matmul"]
     q, mu, sinv = md["args"]
     plan = mahalanobis_plan(q.shape[1], q.shape[2], True)
     rank = min(3, plan.k - 1)
@@ -755,11 +794,22 @@ def check_episodic_faults(specs):
     x, w = sm["args"]
     swapped = w.clone()
     swapped[..., [0, 1]] = w[..., [1, 0]]
+    x8, q8, s8 = im["args"]
+    step = int8_matmul_plan(*x8.shape, q8.shape[1], True).chunk // GROUPS
+    k0, k1 = (GROUPS - 1) * step, min(q8.shape[0], GROUPS * step)
+    q_cut = q8.clone()
+    q_cut[k0:k1] = 0
+    s_swapped = s8[:, [1, 0] + list(range(2, s8.shape[1]))].contiguous()
+    want8 = im["plain"](x8, q8, s8)
     return read_faults([
         (f"mahalanobis: Sinv rows {i0}-{i1 - 1} (rank {rank}'s slice) zeroed",
          md["fn"](q, mu, cut), md["plain"](q, mu, sinv), md["tol"]),
         ("class_second_moment: w class columns 0 and 1 swapped",
-         sm["fn"](x, swapped), sm["plain"](x, w), sm["tol"])])
+         sm["fn"](x, swapped), sm["plain"](x, w), sm["tol"]),
+        (f"int8_matmul: q rows {k0}-{k1 - 1} (K group {GROUPS - 1}'s) zeroed",
+         im["fn"](x8, q_cut, s8), want8, im["tol"]),
+        ("int8_matmul: scales of quantisation blocks 0 and 1 swapped",
+         im["fn"](x8, q8, s_swapped), want8, im["tol"])])
 
 
 def check_planted_faults(flash, ssd):
@@ -866,6 +916,9 @@ def main() -> int:
     if served.get("mahalanobis/bulk", 0) != served.get("mahalanobis", 0):
         fail(f"the serving path's Mahalanobis launches did not all take the bulk copy: "
              f"{served}")
+    if served.get("int8_matmul/cp16", 0) != served.get("int8_matmul", 0):
+        fail(f"the serving path's int8 matmul launches did not all take the 16-byte "
+             f"copies: {served}")
     ops_rows, ops_planted = run_ops_path(dev, launches)
     planted += ops_planted
     # each kernel counted on the path that runs it

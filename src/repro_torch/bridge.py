@@ -26,8 +26,9 @@ def _leaf(a, device) -> Any:
     return t
 
 
-def params_from_numpy(tree: Any, device="cpu") -> Any:
-    """JAX-layout numpy params -> port params on ``device``."""
+def params_from_numpy(tree: Any, device="cuda") -> Any:
+    """JAX-layout numpy params -> port params on ``device``: the card
+    unless the caller asks for the CPU."""
     if isinstance(tree, dict) and {"q", "scale"} <= set(tree):
         n = tree.get("n")
         return dict(q=torch.from_numpy(np.array(tree["q"])).to(device),

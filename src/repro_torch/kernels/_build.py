@@ -41,9 +41,11 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SIGNATURES = {
     "rt_segment_sum": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
     "rt_class_second_moment": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
-    # ..., T, M, C, F, then the plan: k, rows, stage_rows, stages, tile, bulk
-    "rt_mahalanobis": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    "rt_int8_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # ..., T, M, C, F, then the plan: k, rows, stage_rows, stages, tile, bulk,
+    # cols, then the stream route's scratch
+    "rt_mahalanobis": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    # ..., M, K, N, NB, then the plan: tile_m, chunk, stages, vec
+    "rt_int8_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # ..., route (0 "simt", 1 "wgmma"), stream
     "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _L, _L, _L, _L, _L, _L, _I, _I, _I, _F, _F, _I, _P),

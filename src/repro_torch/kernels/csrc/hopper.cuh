@@ -1,5 +1,6 @@
 // The Hopper (sm_90a) parts shared by the tensor-core kernels (gmm.cu,
-// flash_attention.cu and ssd_scan.cu): TMA tensor maps made on the host,
+// flash_attention.cu and ssd_scan.cu; mahalanobis.cu and int8_matmul.cu use
+// its mbarriers and cp.async): TMA tensor maps made on the host,
 // mbarriers, TMA tile loads into 128-byte-swizzled shared memory, wgmma
 // shared-memory descriptors, cp.async and the async-proxy fence for tiles
 // that threads write, wgmma fence / commit / wait, named barriers, register
@@ -161,7 +162,7 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
 }
 
 // ---------------------------------------------------------------------------
-// device: cp.async (16 bytes a thread, global -> shared, no registers)
+// device: cp.async (16 or 4 bytes a thread, global -> shared, no registers)
 // ---------------------------------------------------------------------------
 
 // Copy 16 bytes from `src` to shared `dst` asynchronously; with ok false
@@ -169,6 +170,12 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
                "r"(ok ? 16 : 0)
+               : "memory");
+}
+// The same for 4 bytes (cp.async.ca: the 16-byte .cg form has no 4-byte size).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 4 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {

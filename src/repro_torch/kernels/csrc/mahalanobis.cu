@@ -45,6 +45,26 @@
 // arrived at on entry and waited on before those writes makes sure every
 // block has started.  (Two full cluster barriers, every block waiting on
 // both, took 1.6 us on an H100.)
+//
+// Wide F, the "stream" route (F > 2048).  The design above keeps the diff
+// rows of a tile (8 queries x F) in shared memory whole, which at F 8192
+// takes 256 KB, more than a block's 227 KB; and it gives a (t, c, tile) at
+// most 8 blocks, so at F 8192 a few classes would pull 256 MB each through
+// a few SMs.  The stream route splits Sinv[t, c] into bands of 32 rows,
+// one block a band (F / 32 blocks a (t, c, tile): 512 at F 8192 for two
+// classes), with no cluster.  A block walks its band's columns in slices
+// of 256: each stage holds Sinv[band, slice] (32 KB, rows of 1 KB read
+// whole), q[tile, slice] and mu[slice], copied together by cp.async (16
+// bytes a copy where F % 4 == 0 and Sinv is 16-byte aligned, else 4
+// bytes), two stages in flight.  Warp w owns rows 4w .. 4w + 3 of the
+// band; a lane forms the diff of its 8 columns of the slice (j = lane +
+// 32 jj) in registers and keeps, across the slices, its partial of u[m, i]
+// = sum_j Sinv[i, j] diff[m, j] for its 4 rows and 8 queries.  At the end
+// the lanes meet by the butterfly, each row adds diff[m, i] * u[m, i] (rows
+// in order, warps in order) and the block writes its band's partial sums;
+// a second kernel adds the bands in band order.  No atomics: the same
+// bits on every run.  Every Sinv element is read once per tile of up to 8
+// queries.  F up to 65536.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,6 +82,8 @@ constexpr int kMaxTile = 32;    // queries a cluster serves
 constexpr int kMaxStages = 2;
 constexpr int kMaxCluster = 8;  // blocks a cluster (the portable limit)
 constexpr int kCols = 8;        // columns of a pass a lane holds in registers
+constexpr int kBandRows = 32;     // stream route: Sinv rows a block
+constexpr int kSliceCols = 256;   // stream route: columns a stage
 
 // mbarrier wait bounded in time: a copy that never lands (a fault in the
 // copy path) traps, which fails the launch, instead of hanging the card.
@@ -107,6 +129,7 @@ __device__ __forceinline__ void thread_rows(float* dst, const float* src, int nr
   asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];" ::"r"(hopper::smem_u32(bar))
                : "memory");
 }
+
 
 // Grid (k * tiles, C, T), clusters of (k, 1, 1).  Dynamic shared memory:
 // `stages` buffers of stage_rows x F floats (Sinv rows), then the diff
@@ -245,19 +268,180 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The stream route.  Grid (bands * tiles, C, T), bands = ceil(F / 32).
+// Dynamic shared memory: two stages of [32][256] Sinv, [8][256] q and
+// [256] mu.  Writes each band's partial sums to part[t, c, tile, band, 8].
+__global__ void __launch_bounds__(kThreads)
+    mahalanobis_stream_kernel(const float* __restrict__ q, const float* __restrict__ mu,
+                              const float* __restrict__ sinv, float* __restrict__ part, int M,
+                              int C, int F, int tile, int vec) {
+  constexpr int kRowsW = kBandRows / kWarps;   // rows a warp
+  constexpr int kColsL = kSliceCols / 32;      // columns of a slice a lane
+  constexpr int kStage = (kBandRows + kGroup + 1) * kSliceCols;  // floats a stage
+  const int bands = (F + kBandRows - 1) / kBandRows;
+  const int band = blockIdx.x % bands, ti = blockIdx.x / bands;
+  const int t = blockIdx.z, c = blockIdx.y, m0 = ti * tile;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  extern __shared__ __align__(16) float smem[];
+  float* const sm = smem;
+  __shared__ float red[kWarps][kGroup];
+
+  const int i0 = band * kBandRows;
+  const int nrows = min(kBandRows, F - i0);
+  const int nslices = (F + kSliceCols - 1) / kSliceCols;
+  const float* S = sinv + (((size_t)t * C + c) * F + i0) * F;
+  const float* qt = q + ((size_t)t * M + m0) * F;
+  const float* mut = mu + ((size_t)t * C + c) * F;
+  const auto live = [&](int mm) { return mm < tile && m0 + mm < M; };
+
+  // stage column slice `sl`: the band's Sinv rows, q rows and mu, zeros
+  // past F, past the band and past the tile
+  const auto load_slice = [&](int sl) {
+    float* Sb = sm + (sl & 1) * kStage;
+    float* Qb = Sb + kBandRows * kSliceCols;
+    float* Mb = Qb + kGroup * kSliceCols;
+    const int j0 = sl * kSliceCols;
+    if (vec) {
+      for (int e = tid; e < kBandRows * kSliceCols / 4; e += kThreads) {
+        const int r = e / (kSliceCols / 4), jj = (e % (kSliceCols / 4)) * 4, j = j0 + jj;
+        const bool ok = r < nrows && j < F;
+        hopper::cp_async16(Sb + r * kSliceCols + jj, ok ? S + (size_t)r * F + j : S, ok);
+      }
+    } else {
+      for (int e = tid; e < kBandRows * kSliceCols; e += kThreads) {
+        const int r = e / kSliceCols, j = j0 + e % kSliceCols;
+        const bool ok = r < nrows && j < F;
+        hopper::cp_async4(Sb + e, ok ? S + (size_t)r * F + j : S, ok);
+      }
+    }
+    for (int e = tid; e < kGroup * kSliceCols; e += kThreads) {
+      const int mm = e / kSliceCols, j = j0 + e % kSliceCols;
+      const bool ok = live(mm) && j < F;
+      hopper::cp_async4(Qb + e, ok ? qt + (size_t)mm * F + j : q, ok);
+    }
+    for (int e = tid; e < kSliceCols; e += kThreads)
+      hopper::cp_async4(Mb + e, j0 + e < F ? mut + j0 + e : mu, j0 + e < F);
+    hopper::cp_async_commit();
+  };
+
+  load_slice(0);
+  if (nslices > 1) load_slice(1);
+  float acc[kRowsW][kGroup];
+#pragma unroll
+  for (int rr = 0; rr < kRowsW; ++rr)
+#pragma unroll
+    for (int mm = 0; mm < kGroup; ++mm) acc[rr][mm] = 0.f;
+  for (int sl = 0; sl < nslices; ++sl) {
+    if (sl + 1 < nslices)
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    else
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();
+    const float* Sb = sm + (sl & 1) * kStage;
+    const float* Qb = Sb + kBandRows * kSliceCols;
+    const float* Mb = Qb + kGroup * kSliceCols;
+    // the diff of this lane's columns of the slice, in registers
+    float dj[kGroup][kColsL];
+#pragma unroll
+    for (int jj = 0; jj < kColsL; ++jj) {
+      const float mv = Mb[lane + 32 * jj];
+#pragma unroll
+      for (int mm = 0; mm < kGroup; ++mm) dj[mm][jj] = Qb[mm * kSliceCols + lane + 32 * jj] - mv;
+    }
+#pragma unroll
+    for (int rr = 0; rr < kRowsW; ++rr) {
+      const float* Srow = Sb + (warp * kRowsW + rr) * kSliceCols + lane;
+#pragma unroll
+      for (int jj = 0; jj < kColsL; ++jj) {
+        const float sv = Srow[32 * jj];
+#pragma unroll
+        for (int mm = 0; mm < kGroup; ++mm) acc[rr][mm] = fmaf(sv, dj[mm][jj], acc[rr][mm]);
+      }
+    }
+    __syncthreads();  // every thread is done with this stage
+    if (sl + 2 < nslices) load_slice(sl + 2);
+  }
+  // u[m, i] of each row by the butterfly; then sum_i diff[m, i] u[m, i],
+  // rows in order
+  float p[kGroup];
+#pragma unroll
+  for (int mm = 0; mm < kGroup; ++mm) p[mm] = 0.f;
+#pragma unroll
+  for (int rr = 0; rr < kRowsW; ++rr) {
+    const int r = warp * kRowsW + rr;
+    const float mv = r < nrows ? mut[i0 + r] : 0.f;
+#pragma unroll
+    for (int mm = 0; mm < kGroup; ++mm) {
+      float u = acc[rr][mm];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) u += __shfl_xor_sync(0xffffffffu, u, off);
+      if (r < nrows && live(mm)) p[mm] = fmaf(qt[(size_t)mm * F + i0 + r] - mv, u, p[mm]);
+    }
+  }
+  if (lane == 0)
+#pragma unroll
+    for (int mm = 0; mm < kGroup; ++mm) red[warp][mm] = p[mm];
+  __syncthreads();
+  if (tid < kGroup) {
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) v += red[w][tid];
+    const int tiles = gridDim.x / bands;
+    part[((((size_t)t * C + c) * tiles + ti) * bands + band) * kGroup + tid] = v;
+  }
+}
+
+// The stream route's second kernel: out[t, m, c] = the bands' partial sums
+// of (t, c, m's tile), added in band order.
+__global__ void mahalanobis_stream_sum_kernel(const float* __restrict__ part,
+                                              float* __restrict__ out, int T, int M, int C,
+                                              int bands, int tile) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= T * M * C) return;
+  const int c = idx % C, m = (idx / C) % M, t = idx / (C * M);
+  const int tiles = (M + tile - 1) / tile;
+  const float* pp =
+      part + ((((size_t)t * C + c) * tiles + m / tile) * bands) * kGroup + m % tile;
+  float v = 0.f;
+  for (int b = 0; b < bands; ++b) v += pp[(size_t)b * kGroup];
+  out[idx] = v;
+}
+
 }  // namespace
 
 // q: (T, M, F); mu: (T, C, F); sinv: (T, C, F, F); out: (T, M, C).  All fp32,
-// contiguous.  The plan (mahalanobis.py::mahalanobis_plan): clusters of k
-// blocks, `rows` Sinv rows a block, streamed in `stages` buffers of
-// `stage_rows` rows, `tile` queries a cluster, `bulk` the copy path.
-// Returns the cudaError_t of the launch.
+// contiguous.  The plan (mahalanobis.py::mahalanobis_plan): `tile` queries a
+// cluster or block, `bulk` the copy path; `cols` 0: clusters of k blocks,
+// `rows` Sinv rows a block, streamed in `stages` buffers of `stage_rows`
+// rows; `cols` 256: the stream route, k bands of 32 rows, partial sums in
+// `part` (T * C * ceil(M / tile) * k * 8 floats).  Returns the cudaError_t
+// of the launch.
 extern "C" int rt_mahalanobis(const void* q, const void* mu, const void* sinv, void* out, int T,
                               int M, int C, int F, int k, int rows, int stage_rows, int stages,
-                              int tile, int bulk, void* stream) {
+                              int tile, int bulk, int cols, void* part, void* stream) {
   if (T == 0 || M == 0 || C == 0) return 0;
-  if (k < 1 || k > kMaxCluster || rows < 1 || stage_rows < 1 || stages < 1 || stages > kMaxStages ||
-      tile < 1 || tile > kMaxTile || F < 1)
+  if (F < 1 || tile < 1 || tile > kMaxTile) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int tiles = (M + tile - 1) / tile;
+  if (cols != 0) {
+    if (cols != kSliceCols || tile > kGroup || rows != kBandRows ||
+        k != (F + kBandRows - 1) / kBandRows || part == nullptr)
+      return (int)cudaErrorInvalidValue;
+    const size_t smem = sizeof(float) * 2 * (kBandRows + kGroup + 1) * kSliceCols;
+    cudaError_t e = hopper::allow_smem(mahalanobis_stream_kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    mahalanobis_stream_kernel<<<dim3((unsigned)(k * tiles), (unsigned)C, (unsigned)T), kThreads,
+                                smem, st>>>((const float*)q, (const float*)mu,
+                                            (const float*)sinv, (float*)part, M, C, F, tile,
+                                            bulk);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    const int n = T * M * C;
+    mahalanobis_stream_sum_kernel<<<(n + 255) / 256, 256, 0, st>>>((const float*)part,
+                                                                   (float*)out, T, M, C, k, tile);
+    return (int)cudaGetLastError();
+  }
+  if (k < 1 || k > kMaxCluster || rows < 1 || stage_rows < 1 || stages < 1 || stages > kMaxStages)
     return (int)cudaErrorInvalidValue;
   const int tile8 = (tile + kGroup - 1) / kGroup * kGroup;
   const size_t smem = sizeof(float) * ((size_t)stages * stage_rows + tile8) * (size_t)F;
@@ -266,10 +450,10 @@ extern "C" int rt_mahalanobis(const void* q, const void* mu, const void* sinv, v
     if (e != cudaSuccess) return (int)e;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(k * ((M + tile - 1) / tile)), (unsigned)C, (unsigned)T);
+  cfg.gridDim = dim3((unsigned)(k * tiles), (unsigned)C, (unsigned)T);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
+  cfg.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = (unsigned)k;

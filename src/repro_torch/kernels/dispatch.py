@@ -182,7 +182,7 @@ def int8_matmul(x: torch.Tensor, qs, backend: Optional[str] = None
     x: (..., K) float -> (..., N) float32.  Forward only by contract.
 
     ``naive``/``ref``: dequantize to f32, one GEMM.  ``cuda``: the kernel,
-    which scales each int8 tile as it loads it.  Leading dims are flattened
+    which folds each quantisation block's scale into x.  Leading dims are flattened
     around the 2-D kernel."""
     b = resolve_backend(backend, x.device)
     lead = x.shape[:-1]

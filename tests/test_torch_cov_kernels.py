@@ -15,7 +15,10 @@ kernel's planner, on the CPU.
   against their plain versions on the card.
 * The planner's branches: the bulk copy against the per-thread copy (F % 4
   and the alignment of Sinv), the cluster size k at small F, the query
-  tiles, the two streaming stages at wide F, and the widths it refuses.
+  tiles, the two streaming stages at wide F, the "stream" route past F
+  2048 (bands of 32 rows of Sinv, one block each, walked in column slices;
+  its bands' partials, added in band order, are the model's rank
+  partials with k bands of 32 rows), and the widths it refuses.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -60,19 +63,22 @@ def mahalanobis_model(q, mu, sinv, plan: MahalanobisPlan):
 
 
 # F across the backbones (64-512) and off the kernel's tiles; M one tile,
-# a ragged tile, several tiles; F 640 streams through two stages
-MD_CASES = [(f, m) for f in (16, 40, 72, 200, 256, 512) for m in (8, 13, 130)] + [(640, 8)]
+# a ragged tile, several tiles; F 640 streams through two stages; F 2304
+# (gemma2-2b's d_model) takes the stream route
+MD_CASES = [(f, m) for f in (16, 40, 72, 200, 256, 512) for m in (8, 13, 130)] + [
+    (640, 8), (2304, 8)]
 
 
 @pytest.mark.parametrize("f,m", MD_CASES)
 def test_mahalanobis_sum_order_matches_pallas(f, m):
     rng = np.random.default_rng(f * 1000 + m)
-    t, c = (1, 3) if f >= 256 else (2, 5)
+    t, c = (1, 2) if f > 2048 else (1, 3) if f >= 256 else (2, 5)
     q = rng.standard_normal((t, m, f)).astype(np.float32)
     mu = rng.standard_normal((t, c, f)).astype(np.float32)
     a = rng.standard_normal((t, c, f, f)).astype(np.float32) / np.sqrt(f)
     sinv = (a @ np.swapaxes(a, -1, -2) + np.eye(f, dtype=np.float32)).astype(np.float32)
     plan = mahalanobis_plan(m, f, True)
+    assert plan.route == ("stream" if f > 2048 else "bulk")
     got = mahalanobis_model(q, mu, sinv, plan)
     want = np.stack([np.asarray(j_md.mahalanobis(
         jnp.asarray(q[i]), jnp.asarray(mu[i]), jnp.asarray(sinv[i]), interpret=True))
@@ -118,7 +124,40 @@ def test_mahalanobis_plan(case):
     assert plan.route == ("bulk" if plan.bulk else "threads")
 
 
-@pytest.mark.parametrize("m,f", [(8, 0), (0, 64), (8, 2049)])
+# past F 2048 (M, F, Sinv aligned) -> (bands, rows, stage_rows, stages,
+# tile, bulk, cols): d_models of src/repro/configs/ (gemma2-2b,
+# minitron-4b, zamba2-7b, qwen2-72b) and the widest F the route takes
+STREAM_PLAN_CASES = {
+    "F 2049: the first width past the diff budget, 4-byte copies": (
+        (8, 2049, True), MahalanobisPlan(65, 32, 32, 2, 8, False, 256)),
+    "F 2304": ((8, 2304, True), MahalanobisPlan(72, 32, 32, 2, 8, True, 256)),
+    "F 3072": ((8, 3072, True), MahalanobisPlan(96, 32, 32, 2, 8, True, 256)),
+    "F 3584, M 13: two tiles of 8 queries": (
+        (13, 3584, True), MahalanobisPlan(112, 32, 32, 2, 8, True, 256)),
+    "F 8192": ((8, 8192, True), MahalanobisPlan(256, 32, 32, 2, 8, True, 256)),
+    "F 8192, Sinv misaligned: 4-byte copies": (
+        (8, 8192, False), MahalanobisPlan(256, 32, 32, 2, 8, False, 256)),
+    "F 8192, M 3": ((3, 8192, True), MahalanobisPlan(256, 32, 32, 2, 3, True, 256)),
+    "F 65536: the widest": ((8, 65536, True), MahalanobisPlan(2048, 32, 32, 2, 8, True, 256)),
+}
+
+
+@pytest.mark.parametrize("case", list(STREAM_PLAN_CASES))
+def test_mahalanobis_stream_plan(case):
+    args, want = STREAM_PLAN_CASES[case]
+    plan = mahalanobis_plan(*args)
+    assert plan == want
+    m, f, _ = args
+    assert plan.route == "stream"
+    # every row of Sinv belongs to one band; a tile is at most the 8
+    # queries of the kernel's registers; two stages of 32 rows x 256 columns
+    # of Sinv, 8 q rows and mu fit the shared memory
+    assert (plan.k - 1) * plan.rows < f <= plan.k * plan.rows
+    assert plan.tile <= 8
+    assert 2 * 4 * (plan.rows + 8 + 1) * plan.cols <= 200 * 1024
+
+
+@pytest.mark.parametrize("m,f", [(8, 0), (0, 64), (8, 65537)])
 def test_mahalanobis_plan_refuses(m, f):
     with pytest.raises(ValueError, match="the kernel takes"):
         mahalanobis_plan(m, f, True)

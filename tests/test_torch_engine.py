@@ -62,7 +62,7 @@ def test_engine_matches_jax_engine(kind, quant):
                       make_conv_backbone(ConvBackboneConfig(widths=WIDTHS, feature_dim=FDIM)),
                       SetEncoderConfig(conv_blocks=2, conv_width=8, task_dim=16))
     jp = jl.init(jax.random.key(0))
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     cold, warm = t_launch.build_requests(7, 0.43, 3, 4, IMG, seed=5)
     kw = dict(n_slots=3, query_chunk=8, support_buckets=(16,), serve_quant=quant)
     je = JEngine(jl, jp, lite=JLite(exact=True, chunk_size=8),

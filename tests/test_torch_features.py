@@ -45,7 +45,7 @@ def _np(tree):
 @pytest.fixture(scope="module")
 def bb():
     jp = j_init_bb(jax.random.key(3), JBBCfg(widths=WIDTHS, feature_dim=FDIM))
-    return jp, params_from_numpy(_np(jp))
+    return jp, params_from_numpy(_np(jp), device="cpu")
 
 
 @pytest.mark.parametrize("film_kind", ["none", "shared", "per_task"])
@@ -81,7 +81,7 @@ def test_conv_features_match(bb, film_kind, image_size):
 def test_conv_features_int8_head_match(bb, t_backend, j_backend):
     jp, _ = bb
     jq = dict(jp, head=dict(jp["head"], w=j_quantize(jp["head"]["w"])))
-    tp = params_from_numpy(_np(jq))
+    tp = params_from_numpy(_np(jq), device="cpu")
     assert tp["head"]["w"]["q"].dtype == torch.int8
     x = np.random.default_rng(1).standard_normal((6, 16, 16, 3)).astype(np.float32)
     with jd.use_backend(j_backend):
@@ -96,7 +96,7 @@ def test_conv_features_int8_head_match(bb, t_backend, j_backend):
 def test_encode_set_match():
     jcfg = JSetCfg(kind="conv", conv_blocks=2, conv_width=8, task_dim=16)
     jp = j_init_set(jax.random.key(5), jcfg)
-    tp = params_from_numpy(_np(jp))
+    tp = params_from_numpy(_np(jp), device="cpu")
     assert tp["blocks"][0]["w"].shape == (8, 3, 3, 3)          # OIHW
     x = np.random.default_rng(2).standard_normal((7, 16, 16, 3)).astype(np.float32)
     want = j_encode_set(jp, jnp.asarray(x), jcfg)

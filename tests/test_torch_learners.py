@@ -103,7 +103,7 @@ def _tasks(seed=0):
 def _run_both(kind, quant, t_backend, j_backend):
     jl, tl = _learners(kind)
     jp = j_deq(j_qf(jl, jl.init(jax.random.key(0)), quant))
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     jb, tb, qx = _tasks()
     keys = jax.vmap(lambda i: jax.random.fold_in(jax.random.key(0), i))(jnp.arange(T))
     with jd.use_backend(j_backend):
@@ -185,7 +185,7 @@ def test_simple_cnaps_head_from_identical_features(t_backend, j_backend):
                                   FDIM, WIDTHS),
                       SetEncoderConfig(**set_kw))
     jp = jl.init(jax.random.key(0))
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     jb = dataclasses.replace(jb, support_x=jnp.asarray(sx))
     tb = TaskBatch(sx, *(np.asarray(getattr(jb, k)) for k in (
         "support_y", "query_x", "query_y", "support_mask", "query_mask")),
@@ -207,7 +207,7 @@ def test_class_stats_sums_and_second_moments_match(t_backend, j_backend):
     task's support set, chunked, with padded rows: 1e-5."""
     jl, tl = _learners("protonets")
     jp = jl.init(jax.random.key(1))
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     jb, tb, _ = _tasks(seed=3)
     feats = lambda p, x: jl.backbone.features(p, x, None)
     for i in range(T):
