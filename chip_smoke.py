@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's episodic serving path on one NVIDIA GPU.
+"""Drive the PyTorch port's episodic serving and training paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py            # needs one CUDA card, nvcc and the repo
 
@@ -24,7 +25,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the same engine on the plain ``ref`` backend; profile one more run of
    that path (device busy time, idle share, top ops by device time); then a
    shorter ProtoNets pass, read the same way;
-5. drive the LM-side kernel entry point ``repro_torch.kernels.ops`` once
+5. LITE episodic meta-training on the kernels, at the same full width
+   (224 x 224 images, 8 tasks a step from the host sampler, 5-way 10-shot
+   with 6 queries a class, h 8, chunks of 16, random weights): one step of
+   Simple CNAPs and one of ProtoNets on the ``cuda`` backend against
+   ``ref`` from the same params, tasks and H scores (loss, each gradient
+   leaf against that leaf's max|ref|, the params after one AdamW update;
+   the CPU tests' tolerances), failing unless B1 (both learners), B2 and
+   B3 (Simple CNAPs) launched inside the differentiated step and unless
+   every leaf the reference trains gets a gradient; then the same check
+   must flag three faults planted in the kernels' backwards (B1's dx
+   zeroed for one class, B2's g + g^T dropped, B3's dmu sign flipped);
+   five Simple CNAPs steps through ``train()`` (loss, ms per step, tasks/s
+   without the first step, peak memory; launches counted on exactly that
+   run) and one more step profiled (device time by kind of kernel, idle
+   share); the peak memory of a LITE step against an exact step on the
+   same two tasks, which must be lower; and ``python -m
+   repro_torch.launch.train --episodic`` at its own defaults on the card
+   as a subprocess, which must exit 0;
+6. drive the LM-side kernel entry point ``repro_torch.kernels.ops`` once
    at published widths (flash attention of gemma2-2b's local and global
    layers and of minitron-4b, kimi-k2's expert matmul, mamba2-780m's SSD
    chunks in fp32 and in bf16), count each kernel's launches and fail
@@ -37,7 +56,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (A one head off, the last 32 dt of each chunk zeroed, y rows past Q/2
    zeroed, every other chunk's states zeroed) and fail unless the same
    check flags each;
-6. print the ``kernels`` JSON line, the card line and, last, the result.
+7. print the ``kernels`` JSON line, the card line and, last, the result.
 
 In the ``kernels`` line, ``ms`` is the mean time of back-to-back wrapper
 calls (the wrapper's host work included; timed in turns with the library
@@ -52,14 +71,19 @@ the run.  ``route`` says how the kernel is written (CUDA C++), ``routes`` which 
 its own routes each main case took, and ``main_cases`` gives every main
 case's numbers where a kernel has more than one.  ``launches`` counts the
 launches of the path that runs the kernel: the Simple CNAPs serving path
-for the episodic kernels, the ops phase for the LM-side ones.
+for the episodic kernels, the ops phase for the LM-side ones;
+``train_launches`` those of B1-B3 in the five training-loop steps of phase
+5.  ``chiprun_out/chip_smoke.json`` holds every reading, the training
+phase's under ``paths``.
 
 It imports no JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -576,7 +600,412 @@ def run_path(kind: str, n_requests: int, dev, launches, trace: bool = False):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the LM-side kernel entry point repro_torch.kernels.ops
+# phase 5: LITE episodic meta-training on the kernels
+# ---------------------------------------------------------------------------
+
+TRAIN_TASKS = 8                              # tasks_per_step
+TRAIN_LITE = dict(h=8, chunk_size=16)
+TRAIN_STEPS = 5
+# the CPU tests' tolerances (tests/test_torch_train_learners.py and
+# test_torch_train_step.py), each relative to the leaf's max|ref|: the
+# kernel path against the plain path on the same card
+TRAIN_TOL = {"protonets": dict(loss=1e-4, grad=1e-4, params=1e-4),
+             "simple_cnaps": dict(loss=4e-3, grad=5e-2, params=5e-2)}
+
+
+def train_batch(t: int, step: int, dev):
+    """Step ``step``'s T tasks from the host sampler, the JAX launcher's task
+    shape (5-way, 10 shot, 6 queries a class), on ``dev``."""
+    from repro_torch.data.episodic import HostEpisodicConfig, host_task_batch_at
+    cfg = HostEpisodicConfig(way=5, shot=10, query_per_class=6, image_size=IMAGE_SIZE)
+    return host_task_batch_at(17, cfg, t, step).to(dev)
+
+
+def meta_grads(learner, params, batch, scores, backend, lite=None):
+    """(loss, accuracy, grads) of the task-mean LITE loss on ``backend``."""
+    from repro_torch.core.episodic_train import make_batched_meta_grads
+    from repro_torch.core.lite import LiteSpec
+    from repro_torch.kernels import dispatch
+    with dispatch.use_backend(backend):
+        return make_batched_meta_grads(learner, LiteSpec(**(lite or TRAIN_LITE)))(
+            params, batch, scores)
+
+
+def leaf_errors(got, want):
+    """{path: max|got - want| / max|want|}; a leaf whose reference is zero
+    everywhere reads its own max|got| (which must then be zero too)."""
+    from repro_torch.common.tree import tree_paths
+    g, w = tree_paths(got), tree_paths(want)
+    out = {}
+    for k, b in w.items():
+        a, scale = g[k].float(), float(b.abs().max())
+        out[k] = float((a - b.float()).abs().max()) / scale if scale > 0 else \
+            float(a.abs().max())
+    return out
+
+
+def one_update(params, grads):
+    """The train step's update on given grads: global-norm clip, AdamW from
+    a fresh state (MetaTrainConfig's lr and clip)."""
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.optim.clip import clip_by_global_norm
+    cfg = AdamWConfig(weight_decay=0.0)
+    clipped, _ = clip_by_global_norm(grads, 10.0)
+    return adamw_update(params, clipped, adamw_init(params, cfg), 1e-3, cfg)[0]
+
+
+def update_errors(params, g_got, g_want, grad_tol: float):
+    """The params after one update from each gradient: the worst leaf's
+    max|difference| over its max|param|, over the elements whose reference
+    gradient exceeds ``grad_tol`` of its leaf's largest.  AdamW's first
+    update is about lr * sign(g), so an element whose gradient is below the
+    gradient check's own resolution may move by lr either way; those are
+    counted and left out.  Returns (error, elements left out)."""
+    from repro_torch.common.tree import tree_paths
+    a, b = tree_paths(one_update(params, g_got)), tree_paths(one_update(params, g_want))
+    gw = tree_paths(g_want)
+    worst, left_out = 0.0, 0
+    for k, pw in b.items():
+        g = gw[k].float().abs()
+        keep = g > grad_tol * float(g.max())
+        left_out += int((~keep).sum()) - int((g == 0).sum())
+        if keep.any():
+            diff = float((a[k].float() - pw.float()).abs()[keep].max())
+            worst = max(worst, diff / max(float(pw.abs().max()), 1e-30))
+    return worst, left_out
+
+
+def grad_check(kind, got, want):
+    """Hold (loss, grads) of the kernel path to the plain path's: the worst
+    leaf's error, and the leaves the reference trains that come out all
+    zero.  Returns the reading; ``ok`` says whether it passes."""
+    tol = TRAIN_TOL[kind]
+    errs = leaf_errors(got[2], want[2])
+    from repro_torch.common.tree import tree_paths
+    ref = tree_paths(want[2])
+    dead = [k for k, b in ref.items() if float(b.abs().max()) > 0
+            and float(tree_paths(got[2])[k].abs().max()) == 0]
+    worst = max(errs, key=errs.get)
+    loss_err = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+    ok = loss_err <= tol["loss"] and errs[worst] <= tol["grad"] and not dead
+    return dict(loss=float(got[0]), ref_loss=float(want[0]), loss_err=loss_err,
+                grad_err=errs[worst], worst_leaf=worst, dead_leaves=dead, ok=ok,
+                leaf_errors=errs)
+
+
+def _sync(batch):
+    import torch
+    if batch.support_x.is_cuda:
+        torch.cuda.synchronize(batch.support_x.device)
+
+
+def train_parity(kind, learner, params, batch, scores):
+    """One LITE step's loss and gradients on the kernels (counts read from
+    exactly that step) and on ``ref``, from the same params, tasks and
+    scores, then one clipped AdamW update from each; returns the reading and
+    both results."""
+    from repro_torch.kernels import _build
+    meta_grads(learner, params, batch, scores, "cuda")       # cuDNN / allocator warm-up
+    _sync(batch)
+    _build.launches.reset()
+    got = meta_grads(learner, params, batch, scores, "cuda")
+    _sync(batch)
+    counts = _build.launches.snapshot()
+    want = meta_grads(learner, params, batch, scores, "ref")
+    r = grad_check(kind, got, want)
+    p_err, unresolved = update_errors(params, got[2], want[2], TRAIN_TOL[kind]["grad"])
+    r.update(params_err=p_err, params_unresolved=unresolved, launches=counts)
+    r["ok"] = r["ok"] and r["params_err"] <= TRAIN_TOL[kind]["params"]
+    print(f"train {kind}: T {batch.num_tasks}, loss cuda {r['loss']:.6f} ref "
+          f"{r['ref_loss']:.6f} (rel {r['loss_err']:.3e}), accuracy {float(got[1]):.3f}, "
+          f"grad err {r['grad_err']:.3e} (worst leaf {r['worst_leaf']}), params err "
+          f"after AdamW {r['params_err']:.3e} ({unresolved} elements of unresolved "
+          f"sign left out), tol {TRAIN_TOL[kind]}, zero leaves "
+          f"{r['dead_leaves']}, launches {counts}", flush=True)
+    for k, e in r["leaf_errors"].items():
+        print(f"    grad {k:36s} {e:.3e}", flush=True)
+    del r["leaf_errors"]
+    return r, got, want
+
+
+@contextlib.contextmanager
+def planted_backward(fn_cls, backward):
+    """``fn_cls.backward`` replaced by ``backward`` for the block: autograd
+    looks the backward up on the class at each call."""
+    orig = fn_cls.__dict__["backward"]
+    fn_cls.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        fn_cls.backward = orig
+
+
+def _b1_class0_dx_zeroed(ctx, g):
+    import torch
+    x, w = ctx.saved_tensors
+    g = g.float().clone()
+    g[:, 0] = 0.0
+    return (torch.einsum("tbc,tck->tbk", w.float(), g).to(x.dtype),
+            torch.einsum("tbk,tck->tbc", x.float(), g))
+
+
+def _b2_unsymmetrised(ctx, g):
+    import torch
+    f, w = ctx.saved_tensors
+    f32, w, g = f.float(), w.float(), g.float()
+    df = torch.einsum("tbc,tbci->tbi", w, torch.einsum("tcij,tbj->tbci", g, f32))
+    return df.to(f.dtype), torch.einsum("tbi,tbci->tbc", f32,
+                                        torch.einsum("tcij,tbj->tbci", g, f32))
+
+
+def _b3_dmu_sign_flipped(ctx, g):
+    import torch
+    q, mu, sinv = ctx.saved_tensors
+    g = g.float()
+    diff = q[:, :, None, :] - mu[:, None, :, :]
+    u = torch.einsum("tcij,tmcj->tmci", sinv + sinv.transpose(-1, -2), diff)
+    gu = g[..., None] * u
+    return gu.sum(dim=2), gu.sum(dim=1), torch.einsum("tmc,tmci,tmcj->tcij", g, diff, diff)
+
+
+def train_planted_faults(runs):
+    """Faults planted in the kernels' backwards, each of which the step's
+    gradient check must flag: B1's dx zeroed for class 0 (ProtoNets), B2's
+    g + g^T symmetrisation dropped and B3's dmu sign flipped (Simple
+    CNAPs).  ``runs[kind]`` is (learner, params, batch, scores, ref
+    result)."""
+    from repro_torch.kernels import dispatch
+    readings = []
+    for label, kind, fn_cls, backward in (
+            ("segment_sum: dx zeroed for class 0", "protonets", dispatch._SegmentSum,
+             _b1_class0_dx_zeroed),
+            ("class_second_moment: g + g^T symmetrisation dropped", "simple_cnaps",
+             dispatch._SecondMoment, _b2_unsymmetrised),
+            ("mahalanobis: dmu sign flipped", "simple_cnaps", dispatch._Mahalanobis,
+             _b3_dmu_sign_flipped)):
+        learner, params, batch, scores, want = runs[kind]
+        with planted_backward(fn_cls, backward):
+            got = meta_grads(learner, params, batch, scores, "cuda")
+        r = grad_check(kind, got, want)
+        caught = not r["ok"]
+        print(f"planted backward fault {label:52s} grad err {r['grad_err']:.3e} "
+              f"(worst leaf {r['worst_leaf']}) tol {TRAIN_TOL[kind]['grad']:.0e} "
+              f"{'caught' if caught else 'MISSED'}", flush=True)
+        if not caught:
+            fail(f"the training gradient check misses the planted fault: {label}")
+        readings.append(dict(fault=label, grad_err=r["grad_err"], worst_leaf=r["worst_leaf"],
+                             loss_err=r["loss_err"], tol=TRAIN_TOL[kind]["grad"]))
+    return readings
+
+
+def train_loop_run(learner, params, dev, steps: int, tasks: int, ckpt_dir):
+    """``steps`` steps of the fault-tolerant loop on the kernels; returns the
+    TrainResult."""
+    from repro_torch.configs.base import MetaTrainConfig
+    from repro_torch.core.lite import LiteSpec
+    from repro_torch.data.episodic import HostEpisodicConfig, host_task_batch_at
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.loop import train
+    from repro_torch.train.step import make_episodic_train_step
+    adamw = AdamWConfig(weight_decay=0.0)
+    meta = MetaTrainConfig(tasks_per_step=tasks, lite_h=TRAIN_LITE["h"],
+                           lite_chunk=TRAIN_LITE["chunk_size"], kernel_backend="cuda")
+    step = make_episodic_train_step(learner, LiteSpec(**TRAIN_LITE), meta, adamw)
+    state = dict(params=params, opt=adamw_init(params, adamw))
+    cfg = HostEpisodicConfig(way=5, shot=10, query_per_class=6, image_size=IMAGE_SIZE)
+    return train(state, step, lambda s: dict(tasks=host_task_batch_at(17, cfg, tasks, s),
+                                             key=(0, s)),
+                 steps, ckpt=CheckpointManager(ckpt_dir, keep=2), ckpt_every=steps,
+                 state_template=state, prefetch=2,
+                 batch_put=lambda b: dict(b, tasks=b["tasks"].to(dev)))
+
+
+def step_memory(kind, dev, lite):
+    """Peak device bytes of one LITE step (``lite``) of ``kind`` on the
+    kernels, T 2, after a warm-up step."""
+    import torch
+    from repro_torch.core.lite import index_scores
+    learner, params = build_model(kind, dev)
+    batch = train_batch(2, 0, dev)
+    scores = index_scores(0, 0, range(2), batch.support_y.shape[1], dev)
+    meta_grads(learner, params, batch, scores, "cuda", lite)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out = meta_grads(learner, params, batch, scores, "cuda", lite)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    del out, learner, params, batch
+    torch.cuda.empty_cache()
+    return peak, base
+
+
+TRAIN_CATEGORIES = (   # device kernel name -> what it is, first match wins
+    ("B1 segment_sum", ("segment_sum_kernel",)),
+    ("B2 class_second_moment", ("second_moment_kernel",)),
+    ("B3 mahalanobis", ("mahalanobis",)),
+    ("cuSOLVER (Cholesky, inverse)", ("potrf", "potri", "trsm", "trtri", "cusolver",
+                                      "lauum", "syrk", "getrf")),
+    ("max-pool", ("pool",)),
+    # cuDNN's kernels, its NCHW <-> NHWC layout transforms among them
+    ("convolutions (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "winograd", "fft",
+                              "wgrad", "dgrad", "fprop", "nchw", "nhwc")),
+    ("GEMMs (einsum, matmul)", ("gemm", "cutlass", "gemv", "dot_kernel", "splitk")),
+    ("reductions", ("reduce",)),
+    ("copies", ("memcpy", "memset", "copy")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def trace_train_step(step, state, batch, wall_ms: float, top: int = 15):
+    """One training step under torch.profiler: device busy time by
+    category, the idle share against ``wall_ms`` (the unprofiled step
+    time), B1-B3's device time, and the top kernels."""
+    from torch.autograd import DeviceType
+    rows = profile(lambda: step(state, batch))
+    dev_rows = sorted((r for r in rows if r.device_type == DeviceType.CUDA
+                       and _dev_us(r) > 0), key=_dev_us, reverse=True)
+    busy = sum(_dev_us(r) for r in dev_rows) / 1e3
+    cats = {}
+    for r in dev_rows:
+        name = r.key.lower()
+        cat = next((c for c, keys in TRAIN_CATEGORIES if any(k in name for k in keys)),
+                   "other")
+        c = cats.setdefault(cat, dict(device_ms=0.0, launches=0))
+        c["device_ms"] += _dev_us(r) / 1e3
+        c["launches"] += r.count
+    print(f"  train trace: device busy {busy:.2f} ms of an unprofiled step of "
+          f"{wall_ms:.2f} ms (idle share {1 - busy / wall_ms:.3f})", flush=True)
+    for c, v in sorted(cats.items(), key=lambda kv: -kv[1]["device_ms"]):
+        print(f"    {v['device_ms']:9.3f} ms  {100 * v['device_ms'] / busy:5.1f} %  "
+              f"x{v['launches']:<5d} {c}", flush=True)
+    table = [dict(op=r.key[:90], count=r.count, device_ms=_dev_us(r) / 1e3)
+             for r in dev_rows]
+    for r in table[:top]:
+        print(f"    {r['device_ms']:9.3f} ms  x{r['count']:<5d} {r['op']}", flush=True)
+    return dict(busy_ms=busy, step_wall_ms=wall_ms, idle_share=1 - busy / wall_ms,
+                categories=cats, top=table[:40])
+
+
+def run_training(dev, launches):
+    """Phase 5: LITE meta-training on the kernels.  One step of Simple CNAPs
+    and of ProtoNets on ``cuda`` against ``ref`` (gradients, and params after
+    AdamW); planted backward faults; five Simple CNAPs steps through
+    ``train()`` (launch counts set to 0 just before and read just after:
+    the training path's counts); one profiled step; the peak memory of a
+    LITE step against an exact one; the launcher as a subprocess."""
+    import tempfile
+    import torch
+    from repro_torch.core.lite import LiteSpec, index_scores
+    from repro_torch.kernels import _build
+    out = dict(kind="train", tasks_per_step=TRAIN_TASKS, lite=TRAIN_LITE,
+               image_size=IMAGE_SIZE)
+    runs = {}
+    for kind in ("simple_cnaps", "protonets"):
+        learner, params = build_model(kind, dev)
+        batch = train_batch(TRAIN_TASKS, 0, dev)
+        scores = index_scores(0, 0, range(TRAIN_TASKS), batch.support_y.shape[1], dev)
+        r, got, want = train_parity(kind, learner, params, batch, scores)
+        if not r["ok"]:
+            fail(f"train {kind}: the kernel path's step disagrees with the ref path's")
+        need = ("segment_sum",) + (("class_second_moment", "mahalanobis")
+                                   if kind == "simple_cnaps" else ())
+        for k in need:
+            if r["launches"].get(k, 0) < 1:
+                fail(f"train {kind}: kernel {k} was not launched in the differentiated "
+                     f"step: {r['launches']}")
+        out[f"parity_{kind}"] = r
+        runs[kind] = (learner, params, batch, scores, want)
+        del got
+    out["planted_backward_faults"] = train_planted_faults(runs)
+    runs.clear()
+    torch.cuda.empty_cache()
+
+    learner, params = build_model("simple_cnaps", dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
+        torch.cuda.synchronize(dev)
+        _build.launches.reset()
+        res = train_loop_run(learner, params, dev, TRAIN_STEPS, TRAIN_TASKS, ckpt_dir)
+        torch.cuda.synchronize(dev)
+        counts = _build.launches.snapshot()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [m["loss"] for m in res.metrics_history]
+    ms = [1e3 * t for t in res.step_times]
+    print(f"train loop simple_cnaps: {TRAIN_STEPS} steps of T {TRAIN_TASKS} at "
+          f"{IMAGE_SIZE} px, losses {losses}, ms per step {ms}, tasks/s "
+          f"{res.throughput(TRAIN_TASKS, skip=1):.3f} (first step excluded), peak "
+          f"memory {peak} B, launches {counts}", flush=True)
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses) \
+            or res.nonfinite_steps or res.rollbacks:
+        fail(f"train loop: losses {losses}, skipped steps {res.nonfinite_steps}, "
+             f"rollbacks {res.rollbacks}")
+    for k in ("segment_sum", "class_second_moment", "mahalanobis"):
+        if counts.get(k, 0) < TRAIN_STEPS:
+            fail(f"train loop: kernel {k} launched {counts.get(k, 0)} times in "
+                 f"{TRAIN_STEPS} steps: {counts}")
+    launches["train"] = counts
+    out.update(losses=losses, step_ms=ms, tasks_per_s=res.throughput(TRAIN_TASKS, skip=1),
+               peak_bytes=peak, launches=counts, steps=TRAIN_STEPS)
+
+    # one more step, timed and then profiled, on the loop's final state
+    from repro_torch.configs.base import MetaTrainConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import make_episodic_train_step
+    step = make_episodic_train_step(learner, LiteSpec(**TRAIN_LITE), MetaTrainConfig(
+        tasks_per_step=TRAIN_TASKS, kernel_backend="cuda"), AdamWConfig(weight_decay=0.0))
+    t0 = time.perf_counter()
+    batch = dict(tasks=train_batch(TRAIN_TASKS, TRAIN_STEPS, dev), key=(0, TRAIN_STEPS))
+    torch.cuda.synchronize(dev)
+    out["host_batch_ms"] = (time.perf_counter() - t0) * 1e3
+    print(f"  one batch from the host sampler (T {TRAIN_TASKS}, {IMAGE_SIZE} px), moved to "
+          f"the card: {out['host_batch_ms']:.1f} ms", flush=True)
+    step(res.state, batch)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    step(res.state, batch)
+    torch.cuda.synchronize(dev)
+    out["trace"] = trace_train_step(step, res.state, batch,
+                                    (time.perf_counter() - t0) * 1e3)
+    del res, step, batch, learner, params
+    torch.cuda.empty_cache()
+
+    mem = {}
+    for kind in ("simple_cnaps", "protonets"):
+        lite_peak, base = step_memory(kind, dev, TRAIN_LITE)
+        exact_peak, _ = step_memory(kind, dev, dict(exact=True))
+        mem[kind] = dict(lite_peak_bytes=lite_peak, exact_peak_bytes=exact_peak,
+                         base_bytes=base)
+        print(f"train memory {kind}, T 2: peak of a LITE step (h {TRAIN_LITE['h']}, "
+              f"chunk {TRAIN_LITE['chunk_size']}) {lite_peak} B, of an exact step "
+              f"{exact_peak} B ({lite_peak / exact_peak:.3f}x); {base} B held before "
+              f"the step", flush=True)
+        if not lite_peak < exact_peak:
+            fail(f"train memory {kind}: LITE's peak {lite_peak} B is not below the exact "
+                 f"step's {exact_peak} B")
+    out["memory"] = mem
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_launcher_") as ckpt_dir:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--episodic", "--steps",
+               "3", "--tasks-per-step", "2", "--ckpt-dir", ckpt_dir]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
+                              env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        secs = time.perf_counter() - t0
+    summary = [l for l in proc.stdout.splitlines() if l.startswith("done at step")]
+    print(f"train launcher: {' '.join(cmd[1:4])} ... exit {proc.returncode} in "
+          f"{secs:.1f} s; {summary[-1] if summary else proc.stdout[-500:]}", flush=True)
+    if proc.returncode != 0 or not summary or "device=cuda" not in proc.stdout:
+        fail(f"the training launcher failed (exit {proc.returncode}):\n"
+             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    out["launcher"] = dict(exit=proc.returncode, seconds=secs, summary=summary[-1])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the LM-side kernel entry point repro_torch.kernels.ops
 # ---------------------------------------------------------------------------
 
 # per-row tolerances against the plain versions (see row_err): fp32 sums in
@@ -919,6 +1348,7 @@ def main() -> int:
     if served.get("int8_matmul/cp16", 0) != served.get("int8_matmul", 0):
         fail(f"the serving path's int8 matmul launches did not all take the 16-byte "
              f"copies: {served}")
+    summary.append(run_training(dev, launches))
     ops_rows, ops_planted = run_ops_path(dev, launches)
     planted += ops_planted
     # each kernel counted on the path that runs it
@@ -932,6 +1362,8 @@ def main() -> int:
     (out / "chip_smoke.json").write_text(json.dumps(
         dict(card=card, kernels=rows, paths=summary, launches=launches,
              planted_faults=planted), indent=1))
+    # "train_launches": the launches of the episodic kernels in the five
+    # steps of the training loop (phase 5).
     # "route" is how the kernel was written (CUDA C++); "routes" the
     # kernel's own route ("wgmma" tensor cores or "simt" CUDA cores) at each
     # main case, and "main_cases" each main case's numbers
@@ -940,6 +1372,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {k: rows[n][k] for k in ("name", "route", "source", "replaces")}
         | {"launches": launches[path_of[n]][n]}
+        | ({"train_launches": launches["train"][n]} if n in launches["train"] else {})
         | {k: rows[n][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                    "bound_by", "library_ms", "library_device_ms",
                                    "device_ms", "routes")}

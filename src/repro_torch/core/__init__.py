@@ -1,2 +1,2 @@
-"""Episodic task containers, FiLM, the set encoder, the LITE serve
-estimators and the meta-learners."""
+"""Episodic task containers, FiLM, the set encoder, the LITE estimators, the
+meta-learners and the task-batched meta-train step."""

@@ -72,6 +72,47 @@ class TaskBatch:
                          query_mask=conv(self.query_mask, f32), way=self.way)
 
 
+def validate_task(task: Task) -> None:
+    """Host-side invariant checks (used by tests and the data pipeline)."""
+    if task.support_x.shape[0] != task.support_y.shape[0]:
+        raise ValueError("support len mismatch")
+    if task.query_x.shape[0] != task.query_y.shape[0]:
+        raise ValueError("query len mismatch")
+
+
+def validate_task_batch(batch: TaskBatch) -> None:
+    t = batch.support_x.shape[0]
+    for leaf in (batch.support_y, batch.support_mask, batch.query_x,
+                 batch.query_y, batch.query_mask):
+        if leaf.shape[0] != t:
+            raise ValueError("task-axis length mismatch")
+    if tuple(batch.support_mask.shape) != tuple(batch.support_y.shape):
+        raise ValueError("support mask and labels differ in shape")
+    if tuple(batch.query_mask.shape) != tuple(batch.query_y.shape):
+        raise ValueError("query mask and labels differ in shape")
+
+
+def query_batches(task: Task, batch_size: int):
+    """Split a task's query set (tensors) into ceil(M / batch_size) padded
+    batches and a per-example weight (Algorithm 1's outer loop): returns
+    (query_x (B, Mb, ...), query_y (B, Mb), weight (B, Mb)).  An existing
+    ``task.query_mask`` (collator padding) folds into the weights."""
+    m = task.query_x.shape[0]
+    b = -(-m // batch_size)
+    pad = b * batch_size - m
+
+    def _pad(a):
+        return torch.cat([a, a.new_zeros((pad,) + tuple(a.shape[1:]))])
+
+    qx = _pad(task.query_x).reshape((b, batch_size) + tuple(task.query_x.shape[1:]))
+    qy = _pad(task.query_y).reshape(b, batch_size)
+    w = (torch.arange(b * batch_size, device=qx.device) < m).to(
+        torch.float32).reshape(b, batch_size)
+    if task.query_mask is not None:
+        w = w * _pad(task.query_mask).reshape(b, batch_size)
+    return qx, qy, w
+
+
 def stack_task_states(states) -> Tree:
     """Stack single-task states into a task-state batch (leading task axis);
     the inverse of :func:`index_task_state`."""

@@ -1,0 +1,124 @@
+"""The task-batched meta-training step on one device (the JAX package's
+``repro/core/episodic_train.py``, its ``mesh is None`` branch): T tasks,
+one H draw each, the task-MEAN loss differentiated by one backward, one
+clipped AdamW step.
+
+    step = make_batched_meta_train_step(learner, lite)
+    params, opt_state, metrics = step(params, opt_state, batch, scores)
+
+``batch`` is a :class:`repro_torch.core.episodic.TaskBatch` of tensors and
+``scores`` (T, N) choose each task's H subset
+(:func:`repro_torch.core.lite.index_scores`, or the JAX package's own in
+the parity tests).  The step reads nothing back to the host: the metrics
+are 0-dim tensors, and a non-finite gradient turns the update into a
+``torch.where`` select of the old params and optimizer state.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.common.tree import tree_leaves, tree_map, tree_rebuild
+from repro_torch.core.episodic import TaskBatch
+from repro_torch.core.lite import LiteSpec
+from repro_torch.core.meta_learners import MetaLearner
+from repro_torch.optim.adamw import AdamWConfig, adamw_update
+from repro_torch.optim.clip import clip_by_global_norm
+
+Tree = Any
+
+
+def make_batched_meta_grads(learner: MetaLearner, lite: LiteSpec) -> Callable:
+    """(params, batch, scores) -> (loss, accuracy, grads): the task-mean
+    loss and accuracy and the gradient of that mean, taken by one backward
+    through the shared parameters (peak gradient memory O(P)).  A leaf the
+    loss does not reach (the CNAPs backbone) gets a zero gradient."""
+
+    def grads_fn(params: Tree, batch: TaskBatch, scores: torch.Tensor):
+        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        with torch.enable_grad():
+            losses, aux = learner.meta_loss(live, batch, scores, lite)
+            loss = losses.mean()
+            leaves = tree_leaves(live)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        return (loss.detach(), aux["accuracy"].mean().detach(),
+                tree_rebuild(params, grads))
+
+    return grads_fn
+
+
+def _tree_all_finite(tree: Tree) -> torch.Tensor:
+    """0-dim bool tensor: every element of every leaf is finite (no host
+    sync)."""
+    return torch.stack([torch.isfinite(leaf).all() for leaf in tree_leaves(tree)]).all()
+
+
+def _take_tasks(batch: TaskBatch, lo: int, hi: int) -> TaskBatch:
+    return TaskBatch(*(getattr(batch, k)[lo:hi] for k in (
+        "support_x", "support_y", "query_x", "query_y", "support_mask",
+        "query_mask")), way=batch.way)
+
+
+def _accumulated_grads(grads_fn: Callable, params: Tree, batch: TaskBatch,
+                       scores: torch.Tensor, accum: int):
+    """Mean loss, accuracy and grads over ``batch`` as ``accum`` sequential
+    chunks of tasks, so peak activation memory is that of T/accum tasks.
+    Each task keeps its own row of ``scores``, so the result does not
+    depend on the chunking; ``accum=1`` calls ``grads_fn`` directly."""
+    if accum <= 1:
+        return grads_fn(params, batch, scores)
+    per = batch.num_tasks // accum
+    loss = acc = torch.zeros((), device=scores.device)
+    grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                           device=p.device), params)
+    for i in range(accum):
+        lo, hi = i * per, (i + 1) * per
+        l, a, g = grads_fn(params, _take_tasks(batch, lo, hi), scores[lo:hi])
+        loss, acc = loss + l, acc + a
+        grads = tree_map(torch.add, grads, g)
+    scale = 1.0 / accum       # equal chunk sizes: mean of chunk means
+    return loss * scale, acc * scale, tree_map(lambda g: g * scale, grads)
+
+
+def make_batched_meta_train_step(learner: MetaLearner, lite: LiteSpec,
+                                 adamw: AdamWConfig = AdamWConfig(weight_decay=0.0),
+                                 lr: float = 1e-3,
+                                 max_grad_norm: float = 10.0,
+                                 schedule: Optional[Callable] = None,
+                                 accum_steps: int = 1,
+                                 skip_nonfinite: bool = True) -> Callable:
+    """Task-batched meta-training step: T tasks -> ONE AdamW step.
+
+        step(params, opt_state, batch, scores) -> (params, opt_state, metrics)
+
+    ``schedule`` (update count -> lr) overrides the constant ``lr``; the
+    metrics report the lr applied.  With ``skip_nonfinite`` a NaN/inf
+    gradient element suppresses the update: params and optimizer state
+    (``count`` included) come out bit-identical to the inputs and
+    ``metrics['nonfinite']`` is 1.  Metrics are 0-dim device tensors."""
+    grads_fn = make_batched_meta_grads(learner, lite)
+
+    def step(params: Tree, opt_state: Dict, batch: TaskBatch,
+             scores: torch.Tensor) -> Tuple[Tree, Dict, Dict]:
+        if batch.num_tasks % accum_steps:
+            raise ValueError(f"tasks_per_step={batch.num_tasks} not "
+                             f"divisible by accum_steps={accum_steps}")
+        loss, acc, grads = _accumulated_grads(grads_fn, params, batch, scores,
+                                              accum_steps)
+        ok = _tree_all_finite(grads) if skip_nonfinite else None
+        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+        lr_t = lr if schedule is None else schedule(opt_state["count"])
+        new_params, new_opt = adamw_update(params, grads, opt_state, lr_t, adamw)
+        metrics = dict(loss=loss, accuracy=acc, grad_norm=gnorm,
+                       lr=torch.as_tensor(lr_t, dtype=torch.float32))
+        if ok is not None:
+            pick = lambda n, o: torch.where(ok, n, o)  # noqa: E731
+            new_params = tree_map(pick, new_params, params)
+            new_opt = tree_map(pick, new_opt, opt_state)
+            metrics["nonfinite"] = (~ok).to(torch.float32)
+        return new_params, new_opt, metrics
+
+    return step

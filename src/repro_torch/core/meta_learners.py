@@ -1,42 +1,53 @@
-"""Meta-learners for test-time adaptation: ProtoNets, CNAPs and Simple
-CNAPs (paper Sec. 3.1), the serving half.
+"""Meta-learners + LITE: ProtoNets, CNAPs and Simple CNAPs (paper Sec. 3.1).
 
-Every learner speaks one batched, mask-aware contract (the episodic serving
-engine's API):
+Every learner speaks two task-batched, mask-aware contracts:
 
-    states = learner.adapt_batch(params, task_batch, lite)   # leaves (T, ...)
-    logits = learner.predict_batch(params, states, query_x)  # (T, M, way)
+    losses, aux = learner.meta_loss(params, batch, scores, lite)   # (T,) each
+    states = learner.adapt_batch(params, task_batch, lite)         # leaves (T, ...)
+    logits = learner.predict_batch(params, states, query_x)        # (T, M, way)
 
-``task_batch`` is a :class:`repro_torch.core.episodic.TaskBatch` of
-tensors.  The task-lane axis T is a batch dimension written out (the JAX
-package vmaps per-task functions).  Adaptation runs the forward-only LITE
-serve estimators (:mod:`repro_torch.core.lite`): exact values over every
-support example, chunk-bounded memory.  Serving draws no random numbers, so
-``adapt_batch`` takes no keys.
+``batch`` / ``task_batch`` is a :class:`repro_torch.core.episodic.TaskBatch`
+of tensors.  The task-lane axis T is a batch dimension written out (the JAX
+package vmaps per-task functions).  ``meta_loss`` is the training loss: the
+LITE estimators (:mod:`repro_torch.core.lite`) at every support-set
+aggregation site, their H subsets chosen by ``scores`` (T, N), one draw a
+task shared by every site; it returns per-task losses and accuracies, and
+the caller differentiates their mean.  ``estimator="subsampled"`` is the
+paper's naive small-task baseline.  Adaptation runs the forward-only serve
+estimators under ``torch.inference_mode`` and draws no random numbers.
 
 The class statistics and the Simple CNAPs Mahalanobis head go through
-:mod:`repro_torch.kernels.dispatch`.  ``meta_loss`` (training) and the
-fomaml / finetuner learners are not ported yet.
+:mod:`repro_torch.kernels.dispatch`, whose ``cuda`` ops carry their own
+autograd.  Anything task-adapted that feeds the support encoder (the
+CNAPs FiLM parameters) enters the estimators as a *param*, beside the
+detached backbone (``_film_as_params``), so the no-grad complement cannot
+leak gradient through a closure.  fomaml and finetuner are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+import functools
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.common.init import lecun_normal
+from repro_torch.common.tree import tree_detach, tree_map
 from repro_torch.core.episodic import TaskBatch
 from repro_torch.core.film import generate_film_params, init_film_generator
-from repro_torch.core.lite import (LiteSpec, serve_class_stats,
-                                   serve_segment_sum, serve_sum)
+from repro_torch.core.lite import (LiteSpec, _flat_encode, _masked_onehot,
+                                   _masked_scale, _take_rows, lite_class_stats,
+                                   lite_segment_sum, lite_sum,
+                                   sample_stratified_indices, serve_class_stats,
+                                   serve_segment_sum, serve_sum,
+                                   subsampled_task_sum)
 from repro_torch.core.set_encoder import (SetEncoderConfig, encode_set,
                                           init_set_encoder)
 from repro_torch.kernels import dispatch
 from repro_torch.models.backbone import BackboneDef
 
 Tree = Any
-SERVE_KINDS = ("protonets", "cnaps", "simple_cnaps")
+KINDS = ("protonets", "cnaps", "simple_cnaps")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,12 +65,13 @@ class MetaLearner:
     cfg: MetaLearnerConfig
     backbone: BackboneDef
     init: Callable[..., Tree]            # (torch.Generator, device) -> params
+    meta_loss: Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
     adapt_batch: Callable[..., Tree]
     predict_batch: Callable[[Tree, Tree, torch.Tensor], torch.Tensor]
 
 
 def _batched_api(adapt: Callable, predict: Callable):
-    """Wrap the batched bodies in ``inference_mode``: serving never builds
+    """Wrap the serving bodies in ``inference_mode``: serving never builds
     an autograd graph."""
     def adapt_batch(params, batch: TaskBatch,
                     lite: LiteSpec = LiteSpec(exact=True)):
@@ -74,6 +86,26 @@ def _batched_api(adapt: Callable, predict: Callable):
     return adapt_batch, predict_batch
 
 
+def _xent(logits: torch.Tensor, labels: torch.Tensor,
+          w: torch.Tensor) -> torch.Tensor:
+    """(T,) cross-entropy: each task's weighted mean over its real queries,
+    so collator padding never moves the loss."""
+    ll = torch.log_softmax(logits, dim=-1).gather(-1, labels[..., None])[..., 0]
+    w = w.to(ll.dtype)
+    return -torch.sum(ll * w, dim=-1) / torch.clamp(w.sum(dim=-1), min=1.0)
+
+
+def _accuracy(logits: torch.Tensor, labels: torch.Tensor,
+              w: torch.Tensor) -> torch.Tensor:
+    hit = (logits.argmax(dim=-1) == labels).to(torch.float32)
+    return torch.sum(hit * w, dim=-1) / torch.clamp(w.sum(dim=-1), min=1.0)
+
+
+def _loss_and_metrics(logits: torch.Tensor, batch: TaskBatch):
+    return (_xent(logits, batch.query_y, batch.query_mask),
+            dict(accuracy=_accuracy(logits, batch.query_y, batch.query_mask)))
+
+
 def _features_by_task(bb: BackboneDef, bb_params, x: torch.Tensor, film):
     """(T, M, H, W, C) -> (T, M, F) float32 features."""
     t, m = x.shape[:2]
@@ -81,32 +113,72 @@ def _features_by_task(bb: BackboneDef, bb_params, x: torch.Tensor, film):
     return qf.float().unflatten(0, (t, m))
 
 
+# naive small-task estimators (the paper's Fig. 4 baseline), with the call
+# shape of the LITE ones
+def _sub_seg(encode_fn, params, xs, ys, num_classes: int, spec: LiteSpec,
+             mask: torch.Tensor, scores: Optional[torch.Tensor]):
+    """Class-stratified subsampling (at least one example a class, paper
+    App. D.4, so class statistics stay finite); forward AND backward see
+    only the subset, scaled by N/H.  Returns (sums, exact counts)."""
+    t, n = ys.shape
+    h = spec.resolved_h(n)
+    if spec.exact or h >= n:
+        idx = torch.arange(n, device=ys.device).expand(t, n)
+        scale = torch.ones(t, device=ys.device)
+    else:
+        idx = sample_stratified_indices(scores, ys, num_classes, h, mask)
+        scale = _masked_scale(mask, h)
+    onehot_h = _masked_onehot(ys.gather(1, idx), num_classes, mask.gather(1, idx))
+    enc = _flat_encode(encode_fn, params, _take_rows(xs, idx))
+    sums = tree_map(lambda e: scale.reshape((-1,) + (1,) * (e.dim() - 1))
+                    * torch.einsum("tb...,tbc->tc...", e.float(), onehot_h), enc)
+    return sums, _masked_onehot(ys, num_classes, mask).sum(dim=1)
+
+
 # ===========================================================================
-# ProtoNets: metric head over class prototypes
+# ProtoNets: metric head over class prototypes, all backbone params learned
 # ===========================================================================
 
 def make_protonets(cfg: MetaLearnerConfig, bb: BackboneDef) -> MetaLearner:
     def init(gen, device=None):
         return dict(bb=bb.init(gen, device))
 
-    def adapt(params, sx, sy, mask, lite):
-        def encode(p, x):
-            return bb.features(p, x, None)
-        sums, counts = serve_segment_sum(encode, params["bb"], sx, sy, cfg.way,
-                                         lite, mask)
+    def encode(p, x):
+        return bb.features(p, x, None)
+
+    def _prototypes(params, sx, sy, mask, lite, seg):
+        sums, counts = seg(encode, params["bb"], sx, sy, cfg.way, lite, mask)
         return sums / torch.clamp(counts, min=1.0)[..., None]   # (T, C, F)
 
-    def predict(params, protos, qx):
+    def _logits(params, protos, qx):
         qf = _features_by_task(bb, params["bb"], qx, None)       # (T, M, F)
         return -torch.sum((qf[:, :, None, :] - protos[:, None, :, :]) ** 2,
                           dim=-1)
 
-    return MetaLearner(cfg, bb, init, *_batched_api(adapt, predict))
+    def meta_loss(params, batch: TaskBatch, scores, lite: LiteSpec,
+                  estimator=None):
+        seg = _sub_seg if estimator == "subsampled" else lite_segment_sum
+        protos = _prototypes(params, batch.support_x, batch.support_y,
+                             batch.support_mask, lite,
+                             functools.partial(seg, scores=scores))
+        return _loss_and_metrics(_logits(params, protos, batch.query_x), batch)
+
+    def adapt(params, sx, sy, mask, lite):
+        return _prototypes(params, sx, sy, mask, lite, serve_segment_sum)
+
+    return MetaLearner(cfg, bb, init, meta_loss, *_batched_api(adapt, _logits))
 
 
 # ===========================================================================
 # CNAPs / Simple CNAPs: frozen backbone + per-task FiLM
 # ===========================================================================
+
+def _film_as_params(bb_params, film):
+    """(detached backbone params, live FiLM tensors): the pytree the LITE
+    estimators treat as their params, so the complement pass stops the
+    gradient through FiLM as Eq. 8 requires."""
+    return (tree_detach(bb_params), film)
+
 
 def _make_cnaps_family(cfg: MetaLearnerConfig, bb: BackboneDef,
                        set_cfg: SetEncoderConfig, simple: bool) -> MetaLearner:
@@ -132,15 +204,40 @@ def _make_cnaps_family(cfg: MetaLearnerConfig, bb: BackboneDef,
         bbp, film = pf
         return bb.features(bbp, x, film)
 
-    def adapt(params, sx, sy, mask, lite):
+    def _class_stats(pf, sx, sy, mask, lite, mode, scores):
+        """Per-class feature sums (+ raw second moments for Simple CNAPs)
+        through the dispatch-fused estimators; ``subsampled`` is the naive
+        baseline, which keeps the literal outer-product composite (its
+        forward sees only the H subset)."""
+        if mode == "subsampled":
+            def encode(p, x):
+                feat = _features(p, x)
+                if simple:
+                    return dict(feat=feat,
+                                outer=torch.einsum("bi,bj->bij", feat, feat))
+                return dict(feat=feat)
+            return _sub_seg(encode, pf, sx, sy, cfg.way, lite, mask, scores)
+        if mode == "serve":
+            return serve_class_stats(_features, pf, sx, sy, cfg.way, lite, mask,
+                                     second_moment=simple)
+        return lite_class_stats(_features, pf, sx, sy, cfg.way, lite, mask, scores,
+                                second_moment=simple)
+
+    def _configure(params, sx, sy, mask, lite, mode, scores=None):
+        """Support set -> task state (FiLM and head statistics), by
+        ``mode``: ``lite`` (training), ``subsampled`` (the naive baseline)
+        or ``serve`` (forward-only adaptation)."""
+        sum_est = dict(lite=functools.partial(lite_sum, scores=scores),
+                       subsampled=functools.partial(subsampled_task_sum,
+                                                    scores=scores),
+                       serve=serve_sum)[mode]
         # task embedding: mean-pooled set encodings over real examples
         n = torch.clamp(mask.sum(dim=1), min=1.0)                   # (T,)
-        z_sum = serve_sum(lambda p, x: encode_set(p, x, set_cfg),
-                          params["enc"], sx, lite, mask)
+        z_sum = sum_est(lambda p, x: encode_set(p, x, set_cfg), params["enc"],
+                        sx, lite, mask)
         film = generate_film_params(params["film_gen"], z_sum / n[:, None])
-        sums, counts = serve_class_stats(_features, (params["bb"], film), sx,
-                                         sy, cfg.way, lite, mask,
-                                         second_moment=simple)
+        sums, counts = _class_stats(_film_as_params(params["bb"], film), sx, sy,
+                                    mask, lite, mode, scores)
         k_c = torch.clamp(counts, min=1.0)                          # (T, C)
         mu = sums["feat"] / k_c[..., None]                          # (T, C, F)
         state = dict(film=film, mu=mu)
@@ -161,8 +258,12 @@ def _make_cnaps_family(cfg: MetaLearnerConfig, bb: BackboneDef,
             eps = cfg.cov_eps + 1e-3 * torch.clamp(diag_mean, min=0.0)
             eye = torch.eye(fdim, dtype=sigma.dtype, device=sigma.device)
             sigma = sigma + eps[..., None, None] * eye
-            # cholesky_ex: no host sync on an error check
-            state["chol"] = torch.linalg.cholesky_ex(sigma).L
+            # cholesky_ex: no host sync on an error check.  A failed
+            # factorisation becomes NaN, as in the JAX package, which the
+            # train step's non-finite check turns into a skipped step
+            chol, info = torch.linalg.cholesky_ex(sigma)
+            state["chol"] = torch.where((info == 0)[..., None, None], chol,
+                                        float("nan"))
             if dispatch.resolve_backend(None, sigma.device) == "cuda":
                 # the Mahalanobis kernel takes the explicit inverse: compute
                 # it once here so every query dispatch skips the solves
@@ -175,15 +276,25 @@ def _make_cnaps_family(cfg: MetaLearnerConfig, bb: BackboneDef,
             state["b"] = wb[..., fdim]                              # (T, C)
         return state
 
-    def predict(params, state, qx):
-        qf = _features_by_task(bb, params["bb"], qx, state["film"])
+    def _logits(params, state, qx):
+        qf = _features_by_task(bb, tree_detach(params["bb"]), qx, state["film"])
         if simple:
             return -dispatch.mahalanobis_head(qf, state["mu"], state["chol"],
                                               sinv=state.get("sinv"))
         return torch.einsum("tmf,tcf->tmc", qf, state["w"]) + \
             state["b"][:, None, :]
 
-    return MetaLearner(cfg, bb, init, *_batched_api(adapt, predict))
+    def meta_loss(params, batch: TaskBatch, scores, lite: LiteSpec,
+                  estimator=None):
+        mode = "subsampled" if estimator == "subsampled" else "lite"
+        state = _configure(params, batch.support_x, batch.support_y,
+                           batch.support_mask, lite, mode, scores)
+        return _loss_and_metrics(_logits(params, state, batch.query_x), batch)
+
+    def adapt(params, sx, sy, mask, lite):
+        return _configure(params, sx, sy, mask, lite, "serve")
+
+    return MetaLearner(cfg, bb, init, meta_loss, *_batched_api(adapt, _logits))
 
 
 def make_learner(cfg: MetaLearnerConfig, bb: BackboneDef,
@@ -196,4 +307,4 @@ def make_learner(cfg: MetaLearnerConfig, bb: BackboneDef,
         return _make_cnaps_family(cfg, bb, set_cfg,
                                   simple=cfg.kind == "simple_cnaps")
     raise ValueError(f"meta-learner kind {cfg.kind!r} is not ported; "
-                     f"choose from {SERVE_KINDS}")
+                     f"choose from {KINDS}")

@@ -1,6 +1,7 @@
 """Argument checks shared by the kernel wrappers: the kernels take only
-contiguous CUDA tensors of the stated dtypes, shapes and one device; and
-whether TMA can read a tensor, which the route choices ask."""
+contiguous CUDA tensors of the stated dtypes, shapes and one device, and
+no tensor that autograd would follow; and whether TMA can read a tensor,
+which the route choices ask."""
 from __future__ import annotations
 
 from typing import Callable, Sequence, Union
@@ -13,6 +14,23 @@ def require(cond: bool, msg: Union[str, Callable[[], str]]) -> None:
     called only then, so a passing check formats nothing."""
     if not cond:
         raise ValueError(msg() if callable(msg) else msg)
+
+
+def require_no_grad(name: str, *ts: torch.Tensor) -> None:
+    """Raise when grad mode is on and a tensor that requires grad reaches a
+    kernel.  A kernel writes its result into a fresh ``torch.empty``
+    through a foreign call, so autograd sees no ``grad_fn`` and would drop
+    the gradient of everything upstream without a word.  The
+    differentiable ops reach their kernels inside a
+    ``torch.autograd.Function`` (:mod:`repro_torch.kernels.dispatch`),
+    whose forward runs with grad mode off; every other caller must detach
+    or run under ``torch.no_grad``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(
+            f"{name}: a tensor that requires grad reached the CUDA kernel "
+            f"outside its autograd.Function; the kernel's output has no "
+            f"grad_fn, so the gradient would be lost (call the op through "
+            f"repro_torch.kernels.dispatch, or detach)")
 
 
 def check_tensor(name: str, t: torch.Tensor, ndim: int,

@@ -14,14 +14,24 @@ implementation per *backend*:
   ``cuda``   the hand-written kernels (:mod:`repro_torch.kernels`).  On a
              CUDA tensor a wrapper launches its kernel or raises; on a CPU
              tensor it runs its plain version, so the CPU tests exercise the
-             kernel path's arithmetic (explicit inverse for the head).
+             kernel path's arithmetic (explicit inverse for the head) and
+             the backward formulas below.
   ``auto``   ``cuda`` for a CUDA tensor, ``ref`` for a CPU tensor.
 
 The default is a ContextVar (``use_backend`` scopes it).  Weights are
 mask-folded one-hots: zero rows (padding) contribute nothing.  Every op
 takes a leading task-lane axis T on its operands: the engine batches its
-lanes where the JAX package vmaps.  Serving runs under
-``torch.inference_mode``; there is no autograd wrapper yet.
+lanes where the JAX package vmaps.
+
+On ``cuda`` the three differentiable ops (``segment_sum``,
+``class_second_moment``, ``mahalanobis_head``) reach their kernels inside
+a ``torch.autograd.Function``: the forward launches the kernel, the
+backward is the JAX package's own plain math (its ``custom_vjp``
+backwards, ``repro/kernels/dispatch.py``) written over the task-lane axis
+T, in plain einsums.  A kernel wrapper refuses a tensor that requires grad
+anywhere else (:func:`repro_torch.kernels._checks.require_no_grad`), so a
+path that forgets its Function fails instead of training a frozen model.
+``int8_matmul`` is forward only by contract.
 """
 from __future__ import annotations
 
@@ -87,6 +97,27 @@ def _segment_sum_expand(e: torch.Tensor, weights: torch.Tensor,
     return torch.sum(expanded, dim=1, dtype=accum_dtype)
 
 
+class _SegmentSum(torch.autograd.Function):
+    """x (T, B, K), w (T, B, C) fp32 -> (T, C, K) fp32 through the kernel.
+    Backward (``_segment_sum_pallas_bwd``): dx = w g, dw = x . g."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _sp.segment_pool_weighted(x.contiguous(), w.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.float()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.einsum("tbc,tck->tbk", w.float(), g).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.einsum("tbk,tck->tbc", x.float(), g)
+        return dx, dw
+
+
 def segment_sum(e: torch.Tensor, weights: torch.Tensor, accum_dtype=None,
                 backend: Optional[str] = None) -> torch.Tensor:
     """``out[t, c, ...] = sum_b weights[t, b, c] * e[t, b, ...]``.
@@ -98,8 +129,7 @@ def segment_sum(e: torch.Tensor, weights: torch.Tensor, accum_dtype=None,
     if b in ("naive", "ref"):
         return _segment_sum_expand(e, weights, accum_dtype)
     t, n = e.shape[:2]
-    flat = e.reshape(t, n, -1).contiguous()
-    out = _sp.segment_pool_weighted(flat, weights.float().contiguous())
+    out = _SegmentSum.apply(e.reshape(t, n, -1), weights.float())
     out = out.to(accum_dtype or e.dtype)
     return out.reshape((t, weights.shape[2]) + e.shape[2:])
 
@@ -121,6 +151,33 @@ def _second_moment_ref(f, weights, accum_dtype):
     return torch.einsum("tbci,tbj->tcij", hop.to(dt), f.to(dt))
 
 
+class _SecondMoment(torch.autograd.Function):
+    """f (T, B, F), w (T, B, C) fp32 -> (T, C, F, F) fp32 through the kernel.
+    Backward (``_second_moment_pallas_bwd``): the output is symmetric in
+    (i, j), so df takes g + g^T; dw contracts g with f f^T."""
+
+    @staticmethod
+    def forward(ctx, f, w):
+        ctx.save_for_backward(f, w)
+        return _sp.class_second_moment(f.contiguous(), w.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        f, w = ctx.saved_tensors
+        f32, w, g = f.float(), w.float(), g.float()
+        df = dw = None
+        if ctx.needs_input_grad[0]:
+            gs = g + g.transpose(-1, -2)
+            # df[t, b, i] = sum_{c, j} w[t, b, c] gs[t, c, i, j] f[t, b, j]
+            gf = torch.einsum("tcij,tbj->tbci", gs, f32)
+            df = torch.einsum("tbc,tbci->tbi", w, gf).to(f.dtype)
+        if ctx.needs_input_grad[1]:
+            # dw[t, b, c] = sum_{i, j} g[t, c, i, j] f[t, b, i] f[t, b, j]
+            gf = torch.einsum("tcij,tbj->tbci", g, f32)
+            dw = torch.einsum("tbi,tbci->tbc", f32, gf)
+        return df, dw
+
+
 def class_second_moment(f: torch.Tensor, weights: torch.Tensor,
                         accum_dtype=None, backend: Optional[str] = None
                         ) -> torch.Tensor:
@@ -131,7 +188,7 @@ def class_second_moment(f: torch.Tensor, weights: torch.Tensor,
         return _second_moment_naive(f, weights, accum_dtype)
     if b == "ref":
         return _second_moment_ref(f, weights, accum_dtype)
-    out = _sp.class_second_moment(f.contiguous(), weights.float().contiguous())
+    out = _SecondMoment.apply(f, weights.float())
     return out.to(accum_dtype or f.dtype)
 
 
@@ -155,6 +212,34 @@ def chol_inverse(chol: torch.Tensor) -> torch.Tensor:
     return torch.cholesky_inverse(chol, upper=False)
 
 
+class _Mahalanobis(torch.autograd.Function):
+    """q (T, M, F), mu (T, C, F), sinv (T, C, F, F), fp32 -> (T, M, C)
+    through the kernel.  Backward (``_mahalanobis_pallas_bwd``), with
+    diff = q - mu and u = (Sinv + Sinv^T) diff: dq = g u, dmu = -g u,
+    dsinv = g diff diff^T.  Simple CNAPs carries dsinv on to its Cholesky
+    factor through ``chol_inverse``'s own autograd."""
+
+    @staticmethod
+    def forward(ctx, q, mu, sinv):
+        ctx.save_for_backward(q, mu, sinv)
+        return _md.mahalanobis(q.contiguous(), mu.contiguous(), sinv.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        q, mu, sinv = ctx.saved_tensors
+        g = g.float()
+        diff = q[:, :, None, :] - mu[:, None, :, :]            # (T, M, C, F)
+        dq = dmu = dsinv = None
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            u = torch.einsum("tcij,tmcj->tmci", sinv + sinv.transpose(-1, -2), diff)
+            gu = g[..., None] * u
+            dq = gu.sum(dim=2) if ctx.needs_input_grad[0] else None
+            dmu = -gu.sum(dim=1) if ctx.needs_input_grad[1] else None
+        if ctx.needs_input_grad[2]:
+            dsinv = torch.einsum("tmc,tmci,tmcj->tcij", g, diff, diff)
+        return dq, dmu, dsinv
+
+
 def mahalanobis_head(qf: torch.Tensor, mu: torch.Tensor, chol: torch.Tensor,
                      backend: Optional[str] = None,
                      sinv: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -167,8 +252,7 @@ def mahalanobis_head(qf: torch.Tensor, mu: torch.Tensor, chol: torch.Tensor,
         return _mahalanobis_cho(qf, mu, chol)
     if sinv is None:
         sinv = chol_inverse(chol)
-    return _md.mahalanobis(qf.float().contiguous(), mu.float().contiguous(),
-                           sinv.float().contiguous())
+    return _Mahalanobis.apply(qf.float(), mu.float(), sinv.float())
 
 
 # ===========================================================================

@@ -26,7 +26,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._checks import check_tensor, ptr, require, stream, tma_ready
+from repro_torch.kernels._checks import (check_tensor, ptr, require,
+                                          require_no_grad, stream, tma_ready)
 from repro_torch.kernels.ref import attention_ref
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)  # codes 0, 1, 2
@@ -90,6 +91,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap)
+    require_no_grad("flash_attention", q, k, v)
     require(q.dim() == 3 and q.shape == k.shape,
             lambda: f"q {tuple(q.shape)}, k {tuple(k.shape)}: expected one (BH, S, D)")
     bh, s, d = q.shape
@@ -106,6 +108,7 @@ def flash_attention_gqa(q, k, v, *, causal: bool = True,
     kw = dict(causal=causal, window=window, softcap=softcap)
     if q.device.type == "cpu":
         return flash_attention_gqa_plain(q, k, v, **kw)
+    require_no_grad("flash_attention", q, k, v)
     require(q.dim() == 4 and k.dim() == 4 and q.shape[:2] == k.shape[:2]
             and q.shape[3] == k.shape[3],
             lambda: f"q {tuple(q.shape)}, k {tuple(k.shape)}: expected (B, S, H, D)")

@@ -17,7 +17,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._checks import check_tensor, ptr, require, stream, tma_ready
+from repro_torch.kernels._checks import (check_tensor, ptr, require,
+                                          require_no_grad, stream, tma_ready)
 from repro_torch.kernels.ref import gmm_ref
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)  # codes 0, 1, 2
@@ -42,6 +43,7 @@ def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     (E, C, F) in that dtype."""
     if x.device.type == "cpu":
         return gmm_plain(x, w)
+    require_no_grad("gmm", x, w)
     check_tensor("x", x, 3, _DTYPES, x.device)
     check_tensor("w", w, 3, (x.dtype,), x.device)
     e, c, d = x.shape

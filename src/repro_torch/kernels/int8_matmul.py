@@ -17,7 +17,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._checks import check_tensor, ptr, require, stream
+from repro_torch.kernels._checks import (check_tensor, ptr, require,
+                                          require_no_grad, stream)
 from repro_torch.optim.quant import BLOCK, dequantize
 
 TILE_N = 32               # output columns a block (kTileN); divides BLOCK
@@ -68,6 +69,7 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
     (M, N) fp32."""
     if x.device.type == "cpu":
         return int8_matmul_plain(x, q, scale)
+    require_no_grad("int8_matmul", x, q, scale)
     check_tensor("x", x, 2, (torch.float32,), x.device)
     check_tensor("q", q, 2, (torch.int8,), x.device)
     check_tensor("scale", scale, 2, (torch.float32,), x.device)

@@ -17,7 +17,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._checks import check_tensor, ptr, require, stream
+from repro_torch.kernels._checks import (check_tensor, ptr, require,
+                                          require_no_grad, stream)
 
 MAX_CLUSTER = 8           # blocks a cluster (the portable limit)
 MIN_ROWS = 32             # Sinv rows worth a block of their own
@@ -96,6 +97,7 @@ def mahalanobis(q: torch.Tensor, mu: torch.Tensor,
     (T, M, C) fp32 squared distances."""
     if q.device.type == "cpu":
         return mahalanobis_plain(q, mu, sinv)
+    require_no_grad("mahalanobis", q, mu, sinv)
     check_tensor("q", q, 3, (torch.float32,), q.device)
     check_tensor("mu", mu, 3, (torch.float32,), q.device)
     check_tensor("sinv", sinv, 4, (torch.float32,), q.device)

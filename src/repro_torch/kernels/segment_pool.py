@@ -13,7 +13,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._checks import check_tensor, ptr, require, stream
+from repro_torch.kernels._checks import (check_tensor, ptr, require,
+                                          require_no_grad, stream)
 
 _X_DTYPES = (torch.float32, torch.bfloat16, torch.float16)  # codes 0, 1, 2
 
@@ -46,6 +47,7 @@ def segment_pool_weighted(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (T, B, F) fp32/bf16/fp16; w: (T, B, C) fp32 -> (T, C, F) fp32."""
     if x.is_cpu:
         return segment_pool_weighted_plain(x, w)
+    require_no_grad("segment_pool_weighted", x, w)
     dev = x.device
     t, b, f, c = _check_args(x, w, dev)
     out = torch.empty(t, c, f, dtype=torch.float32, device=dev)  # sizes as varargs: parsed faster
@@ -59,6 +61,7 @@ def class_second_moment(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (T, B, F) fp32/bf16/fp16; w: (T, B, C) fp32 -> (T, C, F, F) fp32."""
     if x.is_cpu:
         return class_second_moment_plain(x, w)
+    require_no_grad("class_second_moment", x, w)
     dev = x.device
     t, b, f, c = _check_args(x, w, dev)
     out = torch.empty(t, c, f, f, dtype=torch.float32, device=dev)

@@ -25,7 +25,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._checks import check_tensor, ptr, require, stream, tma_ready
+from repro_torch.kernels._checks import (check_tensor, ptr, require,
+                                          require_no_grad, stream, tma_ready)
 from repro_torch.kernels.ref import ssd_chunk_ref
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)  # codes 0, 1, 2
@@ -63,6 +64,7 @@ def ssd_chunk(x, dt, A, B, C):
     state_decay (G, Q)), all fp32."""
     if x.device.type == "cpu":
         return ssd_chunk_plain(x, dt, A, B, C)
+    require_no_grad("ssd_chunk", x, dt, A, B, C)
     check_tensor("x", x, 3, _DTYPES, x.device)
     for name, t, nd in (("dt", dt, 2), ("A", A, 1), ("B", B, 3), ("C", C, 3)):
         check_tensor(name, t, nd, (x.dtype,), x.device)

@@ -1,0 +1,188 @@
+"""Episodic meta-training launcher for the PyTorch port.
+
+    python -m repro_torch.launch.train --episodic --steps 100 \\
+        --tasks-per-step 8 --learner simple_cnaps --schedule cosine
+
+Task-batched LITE meta-training (:mod:`repro_torch.core.episodic_train`)
+through the fault-tolerant loop (:mod:`repro_torch.train.loop`) with
+checkpoints and resume, at the JAX launcher's episodic smoke size (conv
+backbone widths (16, 32), feature_dim 64; conv set encoder 2 blocks of
+width 16, task_dim 32; way 5, shot 10, 6 queries a class) with random
+weights from seed 0.  Tasks come from the numpy host sampler
+``host_task_batch_at`` (the JAX launcher's ``--data-source host``), and
+each task's H subset from a counter-based hash of (23, step, task,
+example).  Runs on ``--device`` (default ``cuda``; it raises without a
+card unless ``--device cpu`` is given) with ``--kernel-backend auto``,
+the hand-written kernels on the card.
+
+Not ported: the LM launcher (without ``--episodic``), ``--data-source
+device`` and the multi-device flags (ROADMAP A12, A14).
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import tempfile
+
+import torch
+
+# EX_TEMPFAIL: a preempted run flushed a checkpoint; rerunning the same
+# command resumes exactly
+EXIT_PREEMPTED = 75
+
+
+def _fault_summary(result) -> str:
+    return (f"nonfinite_skips={len(result.nonfinite_steps)} "
+            f"rollbacks={result.rollbacks} "
+            f"data_retries={result.data_retries} "
+            f"stragglers={result.straggler_steps}")
+
+
+def run_episodic(args) -> None:
+    from repro_torch.configs.base import MetaTrainConfig
+    from repro_torch.core.lite import LiteSpec
+    from repro_torch.core.meta_learners import MetaLearnerConfig, make_learner
+    from repro_torch.core.set_encoder import SetEncoderConfig
+    from repro_torch.data.episodic import HostEpisodicConfig, host_task_batch_at
+    from repro_torch.faults import PreemptionSignal
+    from repro_torch.models.conv_backbone import ConvBackboneConfig, make_conv_backbone
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.serve.episodic import resolve_device
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.loop import PreemptedError, train
+    from repro_torch.train.step import make_episodic_init_state, make_episodic_train_step
+
+    if args.data_source == "device":
+        raise SystemExit("--data-source device draws tasks with jax.random, which "
+                         "torch cannot reproduce; the port trains on the host "
+                         "sampler (--data-source host)")
+    device = resolve_device(args.device)
+    meta = MetaTrainConfig(tasks_per_step=args.tasks_per_step,
+                           dp_shards=args.dp_shards, dcn_shards=args.dcn_shards,
+                           grad_reduce=args.grad_reduce,
+                           accum_steps=args.accum_steps, lr=args.peak_lr,
+                           schedule=args.schedule,
+                           warmup_steps=max(args.steps // 50, 1),
+                           total_steps=args.steps, lite_dtype=args.lite_dtype,
+                           prefetch=args.prefetch, donate=not args.no_donate,
+                           kernel_backend=args.kernel_backend)
+    print(f"episodic meta-training: learner={args.learner} "
+          f"tasks_per_step={meta.tasks_per_step} dp_shards={meta.dp_shards} "
+          f"dcn_shards={meta.dcn_shards} grad_reduce={meta.grad_reduce} "
+          f"accum_steps={meta.accum_steps} "
+          f"schedule={meta.schedule or 'constant'} "
+          f"prefetch={meta.prefetch} donate={meta.donate} "
+          f"lite_dtype={meta.lite_dtype or 'float32'} "
+          f"kernel_backend={meta.kernel_backend} device={device}", flush=True)
+
+    backbone = make_conv_backbone(ConvBackboneConfig(widths=(16, 32), feature_dim=64))
+    learner = make_learner(MetaLearnerConfig(kind=args.learner, way=5), backbone,
+                           SetEncoderConfig(kind="conv", conv_blocks=2, conv_width=16,
+                                            task_dim=32))
+    lite = LiteSpec(h=meta.lite_h, chunk_size=meta.lite_chunk,
+                    compute_dtype=meta.lite_dtype)
+    adamw = AdamWConfig(weight_decay=0.0)
+    state = make_episodic_init_state(learner, adamw)(
+        torch.Generator().manual_seed(0), device)
+    step = make_episodic_train_step(learner, lite, meta, adamw)
+
+    hcfg = HostEpisodicConfig(way=5, shot=10, query_per_class=6,
+                              image_size=args.image_size)
+
+    def batch_at(s):
+        return dict(tasks=host_task_batch_at(17, hcfg, meta.tasks_per_step, s),
+                    key=(23, s))
+
+    def batch_put(b):
+        return dict(b, tasks=b["tasks"].to(device))
+
+    ckpt_dir = args.ckpt_dir or os.path.join(
+        tempfile.gettempdir(), f"repro_torch_train_ckpt_episodic_{args.learner}")
+    ckpt = CheckpointManager(ckpt_dir, keep=3)
+    preempt = PreemptionSignal().install()
+    try:
+        result = train(state, step, batch_at, args.steps, ckpt=ckpt,
+                       ckpt_every=args.ckpt_every, state_template=state,
+                       log_every=max(args.steps // 10, 1),
+                       prefetch=meta.prefetch, donate=meta.donate,
+                       batch_put=batch_put, preempt=preempt,
+                       max_nonfinite=args.max_nonfinite_skips,
+                       data_retries=args.data_retries)
+    except PreemptedError as e:
+        print(f"preempted: {e} — rerun to resume", flush=True)
+        sys.exit(EXIT_PREEMPTED)
+    if not result.metrics_history:
+        print(f"nothing to do: checkpoint already at step {result.step} "
+              f"(resumed_from={result.resumed_from})")
+        return
+    print(f"done at step {result.step}; resumed_from={result.resumed_from}; "
+          f"loss {result.metrics_history[0]['loss']:.4f} -> "
+          f"{result.metrics_history[-1]['loss']:.4f}; "
+          f"accuracy {result.metrics_history[-1]['accuracy']:.3f}; "
+          f"throughput {result.throughput(meta.tasks_per_step):.1f} tasks/s; "
+          f"{_fault_summary(result)}", flush=True)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--episodic", action="store_true",
+                    help="task-batched LITE meta-training (the only workload "
+                         "ported)")
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--schedule", choices=["cosine", "wsd"], default=None,
+                    help="LR schedule (default: constant --peak-lr)")
+    ap.add_argument("--peak-lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="defaults to repro_torch_train_ckpt_episodic_<learner> "
+                         "in the temporary directory")
+    ap.add_argument("--ckpt-every", type=int, default=100)
+    ap.add_argument("--learner", default="protonets",
+                    choices=["protonets", "cnaps", "simple_cnaps"])
+    ap.add_argument("--tasks-per-step", type=int, default=8)
+    ap.add_argument("--dp-shards", type=int, default=1,
+                    help="data-parallel shards of the task axis: only 1 until "
+                         "multi-GPU is ported (ROADMAP A12)")
+    ap.add_argument("--dcn-shards", type=int, default=1,
+                    help="host-level shards: only 1 until A12")
+    ap.add_argument("--grad-reduce", choices=["pmean", "compressed"],
+                    default="pmean", help="cross-host gradient reduction: only "
+                                          "pmean (one device) until A12")
+    ap.add_argument("--accum-steps", type=int, default=1,
+                    help="sequential gradient-accumulation chunks of the tasks "
+                         "per optimizer step")
+    ap.add_argument("--image-size", type=int, default=24)
+    ap.add_argument("--prefetch", type=int, default=2,
+                    help="background batch lookahead depth (0 = sync loop)")
+    ap.add_argument("--data-source", choices=["device", "host"], default="host",
+                    help="episodic task stream: only the numpy host sampler; "
+                         "'device' (jax.random draws) is refused")
+    ap.add_argument("--no-donate", action="store_true",
+                    help="accepted for the JAX launcher's flag; eager PyTorch "
+                         "donates no buffers, so it changes nothing")
+    ap.add_argument("--lite-dtype", choices=["bfloat16", "float16"], default=None,
+                    help="LITE no-grad complement compute dtype (default fp32)")
+    ap.add_argument("--max-nonfinite-skips", type=int, default=8,
+                    help="consecutive NaN/inf-skipped steps tolerated before a "
+                         "rollback to the last checkpoint (then DivergenceError)")
+    ap.add_argument("--data-retries", type=int, default=2,
+                    help="bounded exponential-backoff retries of a failing "
+                         "batch source")
+    ap.add_argument("--kernel-backend", choices=["auto", "cuda", "ref", "naive"],
+                    default="auto",
+                    help="aggregation-kernel backend (repro_torch.kernels."
+                         "dispatch): auto = the hand-written CUDA kernels on a "
+                         "GPU and ref on the CPU.  The JAX launcher defaults to "
+                         "ref because its Pallas kernels run in interpret mode "
+                         "off the TPU; here the kernels are the main path")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu runs without a GPU)")
+    args = ap.parse_args(argv)
+    if not args.episodic:
+        ap.error("only --episodic training is ported to repro_torch (the LM "
+                 "launcher waits for the LM zoo, ROADMAP A14)")
+    run_episodic(args)
+
+
+if __name__ == "__main__":
+    main()

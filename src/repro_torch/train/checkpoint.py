@@ -1,0 +1,162 @@
+"""Checkpoint manager: atomic per-step directories, keep-N retention,
+resume from the latest COMMITTED step (the JAX package's
+``repro/train/checkpoint.py`` format).
+
+A step directory holds ``state.npz`` (path-keyed flat tree, ``params/bb/
+blocks/0/w`` style; bfloat16 leaves stored as uint16 views, numpy having no
+bf16), ``meta.json`` (step, the dtype sidecar, ``extra``, and a crc32 of
+the encoded leaves) and a ``COMMIT`` marker written last.  A save goes to a
+``.tmp_step_*`` sibling and is published by ``os.replace``, so a death
+mid-save leaves nothing that resume would trust.  Restore takes a template
+tree (the initial state serves) whose leaves give each tensor's dtype and
+device; it checks the crc32.
+
+The leaves are the port's own layout (conv weights OIHW); checkpoints do
+not cross-load with the JAX package's (HWIO) yet.
+"""
+from __future__ import annotations
+
+import json
+import os
+import pathlib
+import shutil
+import zlib
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.common.tree import tree_paths
+from repro_torch.faults.plan import CKPT_PRE_COMMIT, CKPT_PRE_REPLACE, InjectedKill
+
+Tree = Any
+_BF16 = "bfloat16"
+
+
+class ChecksumError(RuntimeError):
+    """The stored crc32 does not match the bytes on disk: the checkpoint was
+    corrupted after its publish."""
+
+
+def _unflatten(template: Tree, leaf_at, prefix: str = "") -> Tree:
+    if isinstance(template, dict):
+        return {k: _unflatten(v, leaf_at, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        return type(template)(
+            _unflatten(v, leaf_at, f"{prefix}/{i}" if prefix else str(i))
+            for i, v in enumerate(template))
+    return leaf_at(prefix, template)
+
+
+def encode_array_tree(tree: Tree) -> Tuple[Dict[str, np.ndarray], Dict[str, str]]:
+    """Path-keyed numpy arrays and their dtype sidecar."""
+    arrays: Dict[str, np.ndarray] = {}
+    dtypes: Dict[str, str] = {}
+    for k, v in tree_paths(tree).items():
+        t = torch.as_tensor(v).detach().cpu()
+        if t.dtype == torch.bfloat16:
+            dtypes[k] = _BF16
+            arrays[k] = t.view(torch.int16).numpy().view(np.uint16)
+        else:
+            arrays[k] = t.numpy()
+            dtypes[k] = str(arrays[k].dtype)
+    return arrays, dtypes
+
+
+def _tree_crc32(arrays: Dict[str, np.ndarray], dtypes: Dict[str, str]) -> int:
+    """CRC32 over the dtype sidecar and the encoded leaves in sorted key
+    order."""
+    crc = zlib.crc32(json.dumps(dtypes, sort_keys=True).encode())
+    for k in sorted(arrays):
+        crc = zlib.crc32(k.encode(), crc)
+        crc = zlib.crc32(np.ascontiguousarray(arrays[k]).tobytes(), crc)
+    return crc & 0xFFFFFFFF
+
+
+def _decode(arr: np.ndarray, dtype_str: str, like: torch.Tensor) -> torch.Tensor:
+    if dtype_str == _BF16:
+        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr))
+    return t.to(dtype=like.dtype, device=like.device)
+
+
+class CheckpointManager:
+    def __init__(self, directory: str | pathlib.Path, keep: int = 3,
+                 fault_plan=None):
+        """``fault_plan`` (:class:`repro_torch.faults.FaultPlan`) injects
+        kills at ``ckpt.pre_commit`` and ``ckpt.pre_replace`` inside
+        ``save``, so tests show that a death mid-save leaves the previous
+        committed checkpoint restorable."""
+        self.dir = pathlib.Path(directory)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.keep = keep
+        self._fault_plan = fault_plan
+
+    def _maybe_kill(self, site: str, step: int) -> None:
+        if self._fault_plan is not None and \
+                self._fault_plan.fire(site, step) is not None:
+            raise InjectedKill(f"killed at {site} while saving step {step}")
+
+    def save(self, step: int, state: Tree, extra: Optional[Dict] = None
+             ) -> pathlib.Path:
+        final = self.dir / f"step_{step:010d}"
+        tmp = self.dir / f".tmp_step_{step:010d}"
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir(parents=True)
+        arrays, dtypes = encode_array_tree(state)
+        with open(tmp / "state.npz", "wb") as f:
+            np.savez(f, **arrays)
+            f.flush()
+            os.fsync(f.fileno())
+        meta = dict(step=step, dtypes=dtypes, extra=extra or {},
+                    crc32=_tree_crc32(arrays, dtypes))
+        (tmp / "meta.json").write_text(json.dumps(meta))
+        self._maybe_kill(CKPT_PRE_COMMIT, step)
+        (tmp / "COMMIT").write_text("ok")
+        self._maybe_kill(CKPT_PRE_REPLACE, step)
+        if final.exists():
+            shutil.rmtree(final)
+        os.replace(tmp, final)           # atomic publish
+        self._gc()
+        return final
+
+    def _gc(self):
+        steps = self.all_steps()
+        for s in steps[: max(0, len(steps) - self.keep)]:
+            shutil.rmtree(self.dir / f"step_{s:010d}", ignore_errors=True)
+
+    def all_steps(self):
+        return [int(p.name.split("_")[1]) for p in sorted(self.dir.glob("step_*"))
+                if (p / "COMMIT").exists()]
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, step: int, template: Tree) -> Tuple[Tree, Dict]:
+        """The state at ``step`` in ``template``'s structure, each leaf in
+        its template leaf's dtype and device; raises
+        :class:`ChecksumError` if the stored crc32 does not match."""
+        d = self.dir / f"step_{step:010d}"
+        if not (d / "COMMIT").exists():
+            raise FileNotFoundError(f"no committed checkpoint at step {step}")
+        meta = json.loads((d / "meta.json").read_text())
+        with np.load(d / "state.npz") as data:
+            arrays = {k: data[k] for k in data.files}
+        crc = _tree_crc32(arrays, meta["dtypes"])
+        if "crc32" in meta and crc != meta["crc32"]:
+            raise ChecksumError(f"{d}: content crc32 {crc:#010x} != stored "
+                                f"{meta['crc32']:#010x}")
+        state = _unflatten(template, lambda k, like: _decode(
+            arrays[k], meta["dtypes"].get(k, ""), like))
+        return state, meta["extra"]
+
+    def restore_latest(self, template: Tree):
+        step = self.latest_step()
+        if step is None:
+            return None
+        state, extra = self.restore(step, template)
+        return step, state, extra
