@@ -41,8 +41,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
    run) and one more step profiled (device time by kind of kernel, idle
    share); the peak memory of a LITE step against an exact step on the
    same two tasks, which must be lower; and ``python -m
-   repro_torch.launch.train --episodic`` at its own defaults on the card
+   repro_torch.launch.train --episodic --data-source host`` on the card
    as a subprocess, which must exit 0;
+5b. the rest of single-device meta-training, at the same width: one
+   batch of the on-device sampler timed, drawn twice for one step (must be
+   bit-equal) and once for the next (must differ), its class patterns' RMS
+   and noise std within 5 % of the config's; five Simple CNAPs steps
+   through ``train()`` on it (B1-B3 launched in each) and one profiled
+   step, beside phase 5's host-sampler loop; Algorithm 1's per-task step
+   with query_batch 0 and 8 on one task (params within phase 5's
+   tolerance of each other, the peak memory of each, B1-B3 launched), and
+   ``run_looped_baseline`` over 8 tasks against one batched step of them;
+   the Fig. 4 experiment (LITE, h 8, 16, 32, 4 draws) on ``cuda`` against
+   ``ref`` (within 5e-2, B1-B3 launched); one meta-train step of FOMAML
+   and of FineTuner (ms, peak memory), each served through the engine
+   against ``ref`` as in phase 4, FineTuner's int8 head failing unless B4
+   launched; one int8-state AdamW update against the fp32 state's; and
+   the launcher at its defaults (the device sampler);
 6. drive the LM-side kernel entry point ``repro_torch.kernels.ops`` once
    at published widths (flash attention of gemma2-2b's local and global
    layers and of minitron-4b, kimi-k2's expert matmul, mamba2-780m's SSD
@@ -74,7 +89,9 @@ launches of the path that runs the kernel: the Simple CNAPs serving path
 for the episodic kernels, the ops phase for the LM-side ones;
 ``train_launches`` those of B1-B3 in the five training-loop steps of phase
 5.  ``chiprun_out/chip_smoke.json`` holds every reading, the training
-phase's under ``paths``.
+phases' under ``paths``, and every path's launches under ``launches``:
+``train_device`` (the device-sampler loop), ``algo1`` (the two per-task
+steps), ``fig4``, ``fomaml`` and ``finetuner`` (their serving runs).
 
 It imports no JAX.
 """
@@ -464,6 +481,10 @@ IMAGE_SIZE = 224
 # inverse and the GPU's other summation orders.
 LOGIT_TOL = 1e-3
 STATE_TOL = 1e-4        # mu: fp32 sums of the same features in two orders
+# the adapted state each kind's check reads: class means, prototypes, the
+# fitted head, the adapted head
+STATE_PART = {"simple_cnaps": lambda s: s["mu"], "protonets": lambda s: s,
+              "finetuner": lambda s: s["w"], "fomaml": lambda s: s["head"]["w"]}
 
 
 def build_model(kind: str, dev):
@@ -578,10 +599,9 @@ def run_path(kind: str, n_requests: int, dev, launches, trace: bool = False):
         n_conf += int(conf.sum())
         agree += int((a.argmax(-1) == b.argmax(-1))[conf].sum())
     state_err = 0.0
-    key = "mu" if kind != "protonets" else None
+    part = STATE_PART[kind]
     for uid in {r.uid for r in got}:
-        a, b = eng.store.peek(uid), ref.store.peek(uid)
-        a, b = (a[key], b[key]) if key else (a, b)
+        a, b = part(eng.store.peek(uid)), part(ref.store.peek(uid))
         state_err = max(state_err, float((a - b).abs().max() / b.abs().max()))
     print(f"  cuda vs ref: logits rel err {worst:.3e} (tol {LOGIT_TOL:.0e}), "
           f"argmax agree {agree}/{n_conf} confident queries, state rel err "
@@ -798,12 +818,15 @@ def train_planted_faults(runs):
     return readings
 
 
-def train_loop_run(learner, params, dev, steps: int, tasks: int, ckpt_dir):
-    """``steps`` steps of the fault-tolerant loop on the kernels; returns the
-    TrainResult."""
+def train_loop_run(learner, params, dev, steps: int, tasks: int, ckpt_dir,
+                   source: str = "host"):
+    """``steps`` steps of the fault-tolerant loop on the kernels, tasks from
+    the numpy host sampler or (``source="device"``) the sampler on the
+    card; returns the TrainResult."""
     from repro_torch.configs.base import MetaTrainConfig
     from repro_torch.core.lite import LiteSpec
-    from repro_torch.data.episodic import HostEpisodicConfig, host_task_batch_at
+    from repro_torch.data.episodic import (EpisodicImageConfig, HostEpisodicConfig,
+                                           host_task_batch_at, task_batch_at)
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
     from repro_torch.train.checkpoint import CheckpointManager
     from repro_torch.train.loop import train
@@ -813,12 +836,16 @@ def train_loop_run(learner, params, dev, steps: int, tasks: int, ckpt_dir):
                            lite_chunk=TRAIN_LITE["chunk_size"], kernel_backend="cuda")
     step = make_episodic_train_step(learner, LiteSpec(**TRAIN_LITE), meta, adamw)
     state = dict(params=params, opt=adamw_init(params, adamw))
-    cfg = HostEpisodicConfig(way=5, shot=10, query_per_class=6, image_size=IMAGE_SIZE)
-    return train(state, step, lambda s: dict(tasks=host_task_batch_at(17, cfg, tasks, s),
-                                             key=(0, s)),
-                 steps, ckpt=CheckpointManager(ckpt_dir, keep=2), ckpt_every=steps,
-                 state_template=state, prefetch=2,
-                 batch_put=lambda b: dict(b, tasks=b["tasks"].to(dev)))
+    if source == "device":
+        dcfg = EpisodicImageConfig(way=5, shot=10, query_per_class=6, image_size=IMAGE_SIZE)
+        batch_at = lambda s: dict(tasks=task_batch_at(17, dcfg, tasks, s, dev), key=(0, s))
+        put = None
+    else:
+        cfg = HostEpisodicConfig(way=5, shot=10, query_per_class=6, image_size=IMAGE_SIZE)
+        batch_at = lambda s: dict(tasks=host_task_batch_at(17, cfg, tasks, s), key=(0, s))
+        put = lambda b: dict(b, tasks=b["tasks"].to(dev))
+    return train(state, step, batch_at, steps, ckpt=CheckpointManager(ckpt_dir, keep=2),
+                 ckpt_every=steps, state_template=state, prefetch=2, batch_put=put)
 
 
 def step_memory(kind, dev, lite):
@@ -987,20 +1014,363 @@ def run_training(dev, launches):
                  f"step's {exact_peak} B")
     out["memory"] = mem
 
+    out["launcher"] = run_launcher(["--data-source", "host"])
+    return out
+
+
+def run_launcher(extra, expect: str = "device=cuda"):
+    """``python -m repro_torch.launch.train --episodic`` (3 steps of 2
+    tasks, ``extra`` flags) on the card as a subprocess, which must exit 0
+    and print ``expect`` and ``device=cuda``; returns its reading."""
+    import tempfile
     with tempfile.TemporaryDirectory(prefix="chip_smoke_launcher_") as ckpt_dir:
         cmd = [sys.executable, "-m", "repro_torch.launch.train", "--episodic", "--steps",
-               "3", "--tasks-per-step", "2", "--ckpt-dir", ckpt_dir]
+               "3", "--tasks-per-step", "2", *extra, "--ckpt-dir", ckpt_dir]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
                               env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
         secs = time.perf_counter() - t0
     summary = [l for l in proc.stdout.splitlines() if l.startswith("done at step")]
-    print(f"train launcher: {' '.join(cmd[1:4])} ... exit {proc.returncode} in "
+    print(f"train launcher: {' '.join(cmd[1:4] + extra)} ... exit {proc.returncode} in "
           f"{secs:.1f} s; {summary[-1] if summary else proc.stdout[-500:]}", flush=True)
-    if proc.returncode != 0 or not summary or "device=cuda" not in proc.stdout:
+    if proc.returncode != 0 or not summary or "device=cuda" not in proc.stdout \
+            or expect not in proc.stdout:
         fail(f"the training launcher failed (exit {proc.returncode}):\n"
              f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
-    out["launcher"] = dict(exit=proc.returncode, seconds=secs, summary=summary[-1])
+    return dict(cmd=cmd[1:4] + extra, exit=proc.returncode, seconds=secs,
+                summary=summary[-1])
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the rest of single-device meta-training
+# ---------------------------------------------------------------------------
+
+FIG4_H = (8, 16, 32)
+FIG4_DRAWS = 4
+FIG4_TOL = 5e-2
+# one update from a fresh state reads no quantized moment, so the int8
+# state's params are the fp32 state's to rounding: the CPU test's params
+# tolerance (tests/test_torch_sampler_ckpt.py)
+INT8_PARAMS_TOL = 1e-6
+
+
+def _counted(fn):
+    """(fn's result, the kernel launches it made, its synchronised ms)."""
+    import torch
+    from repro_torch.kernels import _build
+    torch.cuda.synchronize()
+    _build.launches.reset()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, _build.launches.snapshot(), (time.perf_counter() - t0) * 1e3
+
+
+def _need(what, counts, kernels, at_least=1):
+    for k in kernels:
+        if counts.get(k, 0) < at_least:
+            fail(f"{what}: kernel {k} launched {counts.get(k, 0)} times (want at least "
+                 f"{at_least}): {counts}")
+
+
+def _peak(fn, dev):
+    """(fn's result, the peak device bytes while it ran)."""
+    import torch
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return out, torch.cuda.max_memory_allocated(dev)
+
+
+def max_leaf_err(got, want) -> float:
+    return max(leaf_errors(got, want).values())
+
+
+def device_sampler_check(dev, host_loop):
+    """One device batch timed, drawn twice for the same step (bit-equal)
+    and once for the next (different); its class patterns' RMS and noise
+    std held to the config's; five Simple CNAPs ``train()`` steps on it
+    (launches counted on exactly that run) and one profiled step, beside
+    phase 5's loop on the host sampler."""
+    import tempfile
+    import torch
+    from repro_torch.configs.base import MetaTrainConfig
+    from repro_torch.core.lite import LiteSpec
+    from repro_torch.data.episodic import EpisodicImageConfig, task_batch_at
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import make_episodic_train_step
+    cfg = EpisodicImageConfig(way=5, shot=10, query_per_class=6, image_size=IMAGE_SIZE)
+    fields = ("support_x", "support_y", "query_x", "query_y", "support_mask", "query_mask")
+    task_batch_at(17, cfg, TRAIN_TASKS, 0, dev)                       # warm-up
+    times = []
+    for _ in range(5):
+        b, _, ms = _counted(lambda: task_batch_at(17, cfg, TRAIN_TASKS, 0, dev))
+        times.append(ms)
+    again = task_batch_at(17, cfg, TRAIN_TASKS, 0, dev)
+    same = all(torch.equal(getattr(b, f), getattr(again, f)) for f in fields)
+    differs = not torch.equal(b.support_x, task_batch_at(17, cfg, TRAIN_TASKS, 1, dev).support_x)
+    order = torch.argsort(b.support_y, dim=1, stable=True)
+    x = torch.stack([b.support_x[t, order[t]] for t in range(TRAIN_TASKS)]).reshape(
+        TRAIN_TASKS, cfg.way, cfg.shot, *b.support_x.shape[2:]).double()
+    mean = x.mean(dim=2)
+    noise_sd = float(torch.sqrt(((x - mean[:, :, None]) ** 2).sum() /
+                                (x.numel() - mean.numel())))
+    sep = float(torch.sqrt(torch.mean(mean ** 2) - cfg.noise ** 2 / cfg.shot))
+    del x, mean, again
+    batch_ms = statistics.median(times)
+    print(f"device sampler: one batch of T {TRAIN_TASKS} at {IMAGE_SIZE} px {batch_ms:.3f} ms "
+          f"(median of 5: {[round(t, 3) for t in times]}; host sampler "
+          f"{host_loop['host_batch_ms']:.1f} ms, phase 5); same step bit-equal {same}, next step differs {differs}; class "
+          f"pattern RMS {sep:.4f} (class_sep {cfg.class_sep}), noise std {noise_sd:.4f} "
+          f"(noise {cfg.noise})", flush=True)
+    if not (same and differs):
+        fail("device sampler: a batch is not a pure function of its step")
+    if abs(sep - cfg.class_sep) > 0.05 * cfg.class_sep or \
+            abs(noise_sd - cfg.noise) > 0.05 * cfg.noise:
+        fail(f"device sampler: statistics off: pattern RMS {sep}, noise std {noise_sd}")
+
+    learner, params = build_model("simple_cnaps", dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
+        res, counts, _ = _counted(lambda: train_loop_run(
+            learner, params, dev, TRAIN_STEPS, TRAIN_TASKS, ckpt_dir, source="device"))
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [m["loss"] for m in res.metrics_history]
+    ms = [1e3 * t for t in res.step_times]
+    tps = res.throughput(TRAIN_TASKS, skip=1)
+    print(f"train loop simple_cnaps on the device sampler: {TRAIN_STEPS} steps of T "
+          f"{TRAIN_TASKS}, losses {losses}, ms per step {ms}, tasks/s {tps:.3f} (first step "
+          f"excluded; host sampler, phase 5: {host_loop['tasks_per_s']:.3f} tasks/s, ms per "
+          f"step {host_loop['step_ms']}), peak memory {peak} B, launches {counts}", flush=True)
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(v) for v in losses) \
+            or res.nonfinite_steps or res.rollbacks:
+        fail(f"device-sampler loop: losses {losses}, skipped {res.nonfinite_steps}")
+    _need("device-sampler loop", counts, ("segment_sum", "class_second_moment",
+                                          "mahalanobis"), TRAIN_STEPS)
+    step = make_episodic_train_step(learner, LiteSpec(**TRAIN_LITE), MetaTrainConfig(
+        tasks_per_step=TRAIN_TASKS, kernel_backend="cuda"), AdamWConfig(weight_decay=0.0))
+    batch = dict(tasks=task_batch_at(17, cfg, TRAIN_TASKS, TRAIN_STEPS, dev),
+                 key=(0, TRAIN_STEPS))
+    step(res.state, batch)
+    _, _, wall = _counted(lambda: step(res.state, batch))
+    trace = trace_train_step(step, res.state, batch, wall)
+    return dict(batch_ms=batch_ms, batch_ms_all=times, deterministic=same,
+                next_step_differs=differs, pattern_rms=sep, noise_std=noise_sd,
+                losses=losses, step_ms=ms, tasks_per_s=tps, peak_bytes=peak,
+                launches=counts, trace=trace,
+                host_sampler=dict(batch_ms=host_loop["host_batch_ms"],
+                                  step_ms=host_loop["step_ms"],
+                                  tasks_per_s=host_loop["tasks_per_s"]))
+
+
+def algorithm1_check(dev, launches):
+    """Paper Algorithm 1's per-task step with query_batch 0 and 8 on one
+    task and its scores (params held together, peak memory of each), then
+    the looped baseline over 8 tasks against one batched step of them."""
+    import torch
+    from repro_torch.core.episodic_train import (make_batched_meta_train_step,
+                                                 make_meta_train_step, run_looped_baseline)
+    from repro_torch.core.lite import LiteSpec, index_scores
+    from repro_torch.data.episodic import EpisodicImageConfig, task_batch_at
+    from repro_torch.kernels import dispatch
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    cfg = EpisodicImageConfig(way=5, shot=10, query_per_class=6, image_size=IMAGE_SIZE)
+    adamw = AdamWConfig(weight_decay=0.0)
+    lite = LiteSpec(**TRAIN_LITE)
+    learner, params = build_model("simple_cnaps", dev)
+    batch = task_batch_at(17, cfg, TRAIN_TASKS, 0, dev)
+    task = batch.task(0)
+    scores = index_scores(0, 0, [0], task.support_y.shape[0], dev)[0]
+    out, counts_all = dict(), {}
+    with dispatch.use_backend("cuda"):
+        for qb in (0, 8):
+            step = make_meta_train_step(learner, lite, query_batch=qb, adamw=adamw)
+            step(params, adamw_init(params, adamw), task, scores)             # warm-up
+            (res, counts, ms), peak = _peak(lambda: _counted(lambda: step(
+                params, adamw_init(params, adamw), task, scores)), dev)
+            out[qb] = dict(params=res[0], loss=float(res[2]["loss"]), ms=ms, peak_bytes=peak,
+                           launches=counts)
+            for k, v in counts.items():
+                counts_all[k] = counts_all.get(k, 0) + v
+        err = max_leaf_err(out[8].pop("params"), out[0].pop("params"))
+        loss_err = abs(out[8]["loss"] - out[0]["loss"]) / abs(out[0]["loss"])
+        tol = TRAIN_TOL["simple_cnaps"]
+        print(f"algorithm 1 simple_cnaps, one task (N 50, M 30): query_batch 0: loss "
+              f"{out[0]['loss']:.6f}, {out[0]['ms']:.2f} ms, peak {out[0]['peak_bytes']} B; "
+              f"query_batch 8: loss {out[8]['loss']:.6f}, {out[8]['ms']:.2f} ms, peak "
+              f"{out[8]['peak_bytes']} B; loss rel {loss_err:.3e}, params err {err:.3e} (tol "
+              f"{tol['params']:.0e}); launches {counts_all}", flush=True)
+        if err > tol["params"] or loss_err > tol["loss"]:
+            fail("algorithm 1: query micro-batches disagree with the single pass")
+        _need("algorithm 1 step", counts_all, ("segment_sum", "class_second_moment",
+                                              "mahalanobis"))
+        launches["algo1"] = counts_all
+
+        tasks = [batch.task(i) for i in range(TRAIN_TASKS)]
+        looped = lambda: run_looped_baseline(learner, lite, params, adamw_init(params, adamw),
+                                             tasks, (0, 0), adamw=adamw)
+        bscores = index_scores(0, 0, range(TRAIN_TASKS), batch.support_y.shape[1], dev)
+        bstep = make_batched_meta_train_step(learner, lite, adamw=adamw)
+        batched = lambda: bstep(params, adamw_init(params, adamw), batch, bscores)
+        looped()
+        batched()
+        _, _, loop_ms = _counted(looped)
+        _, _, batch_ms = _counted(batched)
+    print(f"algorithm 1 looped baseline: {TRAIN_TASKS} per-task steps {loop_ms:.2f} ms "
+          f"({TRAIN_TASKS / loop_ms * 1e3:.3f} tasks/s); one batched step of the same "
+          f"{TRAIN_TASKS} tasks {batch_ms:.2f} ms ({TRAIN_TASKS / batch_ms * 1e3:.3f} tasks/s)",
+          flush=True)
+    out.update(params_err=err, loss_err=loss_err, launches=counts_all, looped_ms=loop_ms,
+               batched_ms=batch_ms)
+    return out
+
+
+def fig4_check(dev, launches):
+    """``gradient_experiment`` for Simple CNAPs on the first set-encoder
+    conv at h 8, 16 and 32, 4 draws of the LITE estimator, on ``cuda``
+    (launches counted) and on ``ref`` with the same draws.  Not the
+    subsampled one: at these widths its class covariances, N/H times a
+    few examples' outer products less the square of their scaled mean, are
+    not positive definite, and both packages' Cholesky returns NaN
+    (ROADMAP R5)."""
+    from repro_torch.core.diagnostics import gradient_experiment
+    from repro_torch.data.episodic import EpisodicImageConfig, task_batch_at
+    from repro_torch.kernels import dispatch
+    cfg = EpisodicImageConfig(way=5, shot=10, query_per_class=6, image_size=IMAGE_SIZE)
+    learner, params = build_model("simple_cnaps", dev)
+    batch = task_batch_at(17, cfg, 1, 0, dev)
+    run = lambda: gradient_experiment(learner.meta_loss, params, batch, FIG4_H, FIG4_DRAWS,
+                                      seed=3,
+                                      param_filter=lambda p: p["enc"]["blocks"][0]["w"])
+    res = {}
+    for backend in ("cuda", "ref"):
+        with dispatch.use_backend(backend):
+            run()                                                    # warm-up
+            res[backend], counts, ms = _counted(run)
+        res[backend]["ms"] = ms
+        if backend == "cuda":
+            launches["fig4"] = counts
+    worst = 0.0
+    for h in FIG4_H:
+        for m in ("rmse", "bias_mse"):
+            a, b = res["cuda"]["lite"][h][m], res["ref"]["lite"][h][m]
+            worst = max(worst, abs(a - b) / abs(b) if math.isfinite(a + b) else math.inf)
+    norm_err = abs(res["cuda"]["exact_norm"] - res["ref"]["exact_norm"]) / res["ref"]["exact_norm"]
+    print(f"fig 4 simple_cnaps, enc/blocks/0/w, h {FIG4_H}, {FIG4_DRAWS} draws: cuda "
+          f"{res['cuda']['ms']:.1f} ms, ref {res['ref']['ms']:.1f} ms; exact norm "
+          f"{res['cuda']['exact_norm']:.6e} (rel {norm_err:.3e}); worst rmse/bias_mse rel "
+          f"{worst:.3e} (tol {FIG4_TOL:.0e}); launches {launches['fig4']}", flush=True)
+    print("    lite " + "; ".join(
+        f"h {h}: rmse {res['cuda']['lite'][h]['rmse']:.4e} bias_mse "
+        f"{res['cuda']['lite'][h]['bias_mse']:.4e}" for h in FIG4_H), flush=True)
+    if not worst <= FIG4_TOL or not norm_err <= FIG4_TOL:
+        fail("fig 4: the cuda backend's estimator statistics disagree with ref's")
+    _need("fig 4", launches["fig4"], ("segment_sum", "class_second_moment", "mahalanobis"))
+    return dict(cuda=res["cuda"], ref=res["ref"], worst_rel=worst, exact_norm_rel=norm_err,
+                launches=launches["fig4"])
+
+
+def baselines_check(dev, launches):
+    """FOMAML and FineTuner: one meta-train step of T 8 each on ``cuda``
+    (ms, peak memory), then each served through the engine against
+    ``ref``; FineTuner's int8 frozen backbone must launch B4."""
+    from repro_torch.core.episodic_train import make_batched_meta_train_step
+    from repro_torch.core.lite import LiteSpec, index_scores
+    from repro_torch.data.episodic import EpisodicImageConfig, task_batch_at
+    from repro_torch.kernels import dispatch
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    cfg = EpisodicImageConfig(way=5, shot=10, query_per_class=6, image_size=IMAGE_SIZE)
+    batch = task_batch_at(17, cfg, TRAIN_TASKS, 0, dev)
+    scores = index_scores(0, 0, range(TRAIN_TASKS), batch.support_y.shape[1], dev)
+    adamw = AdamWConfig(weight_decay=0.0)
+    out = {}
+    for kind in ("fomaml", "finetuner"):
+        learner, params = build_model(kind, dev)
+        step = make_batched_meta_train_step(learner, LiteSpec(**TRAIN_LITE), adamw=adamw)
+        go = lambda: step(params, adamw_init(params, adamw), batch, scores)
+        with dispatch.use_backend("cuda"):
+            go()                                                             # warm-up
+            (res, _, ms), peak = _peak(lambda: _counted(go), dev)
+        loss = float(res[2]["loss"])
+        print(f"train {kind}: one step of T {TRAIN_TASKS} at {IMAGE_SIZE} px {ms:.2f} ms, "
+              f"loss {loss:.6f}, accuracy {float(res[2]['accuracy']):.3f}, peak {peak} B",
+              flush=True)
+        if not math.isfinite(loss) or float(res[2]["nonfinite"]) != 0.0:
+            fail(f"train {kind}: a non-finite step")
+        del res, learner, params
+        out[kind] = dict(train_step_ms=ms, train_peak_bytes=peak, loss=loss,
+                         serve=run_path(kind, 8, dev, launches))
+    _need("finetuner served int8", launches["finetuner"], ("int8_matmul",))
+    return out
+
+
+def int8_adamw_check(dev):
+    """One AdamW update of the Simple CNAPs params with int8 state against
+    fp32 state from the same gradients: params, the quantized moments
+    against the fp32 ones (within one quantisation step), state bytes."""
+    import torch
+    from repro_torch.common.tree import tree_leaves, tree_paths
+    from repro_torch.core.lite import index_scores
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.bridge import HWIO_TO_OIHW
+    from repro_torch.optim.quant import BLOCK, dequantize, dequantize_log, is_quantized
+    learner, params = build_model("simple_cnaps", dev)
+    batch = train_batch(2, 0, dev)
+    grads = meta_grads(learner, params, batch, index_scores(
+        0, 0, range(2), batch.support_y.shape[1], dev), "cuda")[2]
+    res = {}
+    for dt in ("float32", "int8"):
+        cfg = AdamWConfig(weight_decay=0.1, state_dtype=dt)
+        res[dt] = adamw_update(params, grads, adamw_init(params, cfg), 1e-3, cfg)
+    p_err = max_leaf_err(res["int8"][0], res["float32"][0])
+    worst = {"mu": 0.0, "nu": 0.0}
+    for part, deq in (("mu", dequantize), ("nu", dequantize_log)):
+        want = tree_paths(res["float32"][1][part])
+        leaves = tree_leaves(res["int8"][1][part], is_leaf=is_quantized)
+        for (k, w), qs in zip(want.items(), leaves):
+            x = deq(qs)
+            step = qs["scale"].repeat_interleave(BLOCK, dim=-1)[..., :qs["n"]]
+            if w.dim() == 4:                  # the state is HWIO, the moments OIHW
+                x, step = x.permute(*HWIO_TO_OIHW), step.permute(*HWIO_TO_OIHW)
+            if part == "mu":
+                d = (x - w).abs() / step
+            else:          # the log domain, where nu's codes live
+                live = (w > 1.5e-12) & (x > 0)      # 0 is the floor's code
+                d = ((x.clamp_min(1e-30).log() - w.clamp_min(1e-30).log()).abs() / step)[live]
+            worst[part] = max(worst[part], float(d.max()) if d.numel() else 0.0)
+    nbytes = lambda tree: sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+                              if torch.is_tensor(t))
+    b32 = nbytes([res["float32"][1]["mu"], res["float32"][1]["nu"]])
+    b8 = nbytes([res["int8"][1]["mu"], res["int8"][1]["nu"]])
+    print(f"int8 AdamW simple_cnaps: params after one update vs fp32 state {p_err:.3e} (tol "
+          f"{INT8_PARAMS_TOL:.0e}); moments within {worst['mu']:.3f} (mu) and "
+          f"{worst['nu']:.3f} (nu, log domain) quantisation steps; state {b8} B against "
+          f"{b32} B fp32 ({b8 / b32:.3f}x)", flush=True)
+    if p_err > INT8_PARAMS_TOL or max(worst.values()) > 1.0:
+        fail("int8 AdamW: the update or its state disagrees with fp32 state's")
+    return dict(params_err=p_err, state_steps=worst, state_bytes=b8, fp32_state_bytes=b32)
+
+
+def run_training_rest(dev, launches, host_loop):
+    """Phase 5b: the device sampler and its loop, Algorithm 1, the Fig. 4
+    experiment, FOMAML and FineTuner, the int8 AdamW state and the
+    launcher at its defaults, each with its launches under its own key."""
+    import torch
+    out = dict(kind="train_rest")
+    out["sampler"] = device_sampler_check(dev, host_loop)
+    launches["train_device"] = out["sampler"]["launches"]
+    torch.cuda.empty_cache()
+    out["algorithm1"] = algorithm1_check(dev, launches)
+    torch.cuda.empty_cache()
+    out["fig4"] = fig4_check(dev, launches)
+    torch.cuda.empty_cache()
+    out["baselines"] = baselines_check(dev, launches)
+    torch.cuda.empty_cache()
+    out["int8_adamw"] = int8_adamw_check(dev)
+    torch.cuda.empty_cache()
+    out["launcher"] = run_launcher([], expect="data_source=device")
     return out
 
 
@@ -1349,6 +1719,7 @@ def main() -> int:
         fail(f"the serving path's int8 matmul launches did not all take the 16-byte "
              f"copies: {served}")
     summary.append(run_training(dev, launches))
+    summary.append(run_training_rest(dev, launches, summary[-1]))
     ops_rows, ops_planted = run_ops_path(dev, launches)
     planted += ops_planted
     # each kernel counted on the path that runs it

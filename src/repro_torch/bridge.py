@@ -1,16 +1,20 @@
-"""Carry the JAX package's parameters into the port.
+"""Carry parameters and optimizer state between the JAX package's layout
+and the port's.
 
-``params_from_numpy(tree)`` takes a JAX params pytree whose leaves are numpy
-arrays (``jax.tree.map(np.asarray, params)``) and returns the port's
-params: the same nested dicts and lists, 4-D conv weights turned from HWIO
-into OIHW, and blockwise-int8 ``{q, scale, n}`` leaves carried verbatim
-(their conv weights stay HWIO, the port's convention for quantized leaves).
-With the same weights both packages compute the same function.
+The two packages' trees have the same nested dicts, lists and leaf paths.
+They differ in one place: a 4-D conv weight is HWIO in the JAX package and
+OIHW in the port.  Blockwise-int8 ``{q, scale, n}`` leaves (frozen serving
+weights, the int8 AdamW state) are the JAX package's layout in both, their
+conv weights HWIO, so they cross as they are.
 
-``opt_state_from_numpy(opt)`` does the same for an AdamW state
-``{mu, nu, count}``: ``mu`` and ``nu`` mirror the params and take the same
-layout change, ``count`` is carried as it is, so both packages can start
-from the same params *and* optimizer state.
+``params_from_numpy(tree)`` takes a JAX params pytree whose leaves are
+numpy arrays (``jax.tree.map(np.asarray, params)``) and returns the port's
+params; ``opt_state_from_numpy(opt)`` does the same for an AdamW state
+``{mu, nu, count}``, ``mu`` and ``nu`` mirroring the params.
+``params_to_numpy`` and ``opt_state_to_numpy`` are their inverses, and
+:func:`to_jax_layout` the same layout change on tensors, which the
+checkpoints store.  With the same weights both packages compute the same
+function.
 """
 from __future__ import annotations
 
@@ -19,35 +23,73 @@ from typing import Any
 import numpy as np
 import torch
 
-_HWIO_TO_OIHW = (3, 2, 0, 1)
+from repro_torch.optim.quant import is_quantized
+
+HWIO_TO_OIHW = (3, 2, 0, 1)
+OIHW_TO_HWIO = (2, 3, 1, 0)
 
 
-def _leaf(a, device) -> Any:
+def is_conv_weight(t) -> bool:
+    """A leaf whose layout differs between the packages: a 4-D floating
+    tensor outside a quantized leaf."""
+    return torch.is_tensor(t) and t.dim() == 4 and t.is_floating_point()
+
+
+def _walk(tree: Any, fn) -> Any:
+    """``tree`` rebuilt with ``fn`` at every leaf; a quantized dict goes to
+    ``fn`` whole."""
+    if isinstance(tree, dict) and not is_quantized(tree):
+        return {k: _walk(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_walk(v, fn) for v in tree)
+    return fn(tree)
+
+
+def to_jax_layout(tree: Any) -> Any:
+    """The port's tree with its conv weights turned OIHW -> HWIO."""
+    return _walk(tree, lambda t: t.permute(*OIHW_TO_HWIO).contiguous()
+                 if is_conv_weight(t) else t)
+
+
+def _from_np(a, device) -> Any:
     if isinstance(a, (int, float, bool)) or a is None:
         return a
     a = np.array(a)
     if a.dtype.name == "bfloat16":       # ml_dtypes' bf16: torch reads its bits
-        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
-    else:
-        t = torch.from_numpy(a).to(device)
-    if t.dim() == 4 and t.is_floating_point():
-        t = t.permute(*_HWIO_TO_OIHW).contiguous()
-    return t
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _leaf_from_numpy(a, device) -> Any:
+    if is_quantized(a):
+        n = a.get("n")
+        return dict(q=_from_np(a["q"], device), scale=_from_np(a["scale"], device),
+                    n=int(n) if n is not None else int(np.shape(a["q"])[-1]))
+    t = _from_np(a, device)
+    return t.permute(*HWIO_TO_OIHW).contiguous() if is_conv_weight(t) else t
+
+
+def _to_np(t) -> Any:
+    if not torch.is_tensor(t):
+        return t
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes                 # numpy has no bf16 of its own
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
 
 
 def params_from_numpy(tree: Any, device="cuda") -> Any:
     """JAX-layout numpy params -> port params on ``device``: the card
     unless the caller asks for the CPU."""
-    if isinstance(tree, dict) and {"q", "scale"} <= set(tree):
-        n = tree.get("n")
-        return dict(q=torch.from_numpy(np.array(tree["q"])).to(device),
-                    scale=torch.from_numpy(np.array(tree["scale"])).to(device),
-                    n=int(n) if n is not None else int(np.shape(tree["q"])[-1]))
-    if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(params_from_numpy(v, device) for v in tree)
-    return _leaf(tree, device)
+    return _walk(tree, lambda a: _leaf_from_numpy(a, device))
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """Port params -> JAX-layout numpy params (quantized leaves' ``n`` an
+    int)."""
+    return _walk(to_jax_layout(tree), lambda t: {k: _to_np(v) for k, v in t.items()}
+                 if is_quantized(t) else _to_np(t))
 
 
 def opt_state_from_numpy(opt: Any, device="cuda") -> Any:
@@ -55,3 +97,9 @@ def opt_state_from_numpy(opt: Any, device="cuda") -> Any:
     return dict(mu=params_from_numpy(opt["mu"], device),
                 nu=params_from_numpy(opt["nu"], device),
                 count=torch.from_numpy(np.array(opt["count"])).to(device))
+
+
+def opt_state_to_numpy(opt: Any) -> Any:
+    """The port's AdamW state -> JAX-layout numpy ``{mu, nu, count}``."""
+    return dict(mu=params_to_numpy(opt["mu"]), nu=params_to_numpy(opt["nu"]),
+                count=_to_np(opt["count"]))

@@ -26,9 +26,9 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree, is_leaf=None) -> Tree:
     return fn(tree, *rest)
 
 
-def tree_leaves(tree: Tree) -> list:
+def tree_leaves(tree: Tree, is_leaf=None) -> list:
     out = []
-    tree_map(out.append, tree)
+    tree_map(out.append, tree, is_leaf=is_leaf)
     return out
 
 

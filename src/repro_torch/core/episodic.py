@@ -59,6 +59,12 @@ class TaskBatch:
     def num_tasks(self) -> int:
         return self.support_x.shape[0]
 
+    def task(self, i: int) -> Task:
+        """Task ``i``, its padding and masks included."""
+        return Task(self.support_x[i], self.support_y[i], self.query_x[i],
+                    self.query_y[i], way=self.way, support_mask=self.support_mask[i],
+                    query_mask=self.query_mask[i])
+
     def to(self, device) -> "TaskBatch":
         """Tensors on ``device``: floats as float32, labels as int64."""
         def conv(a, dtype):

@@ -1,10 +1,19 @@
-"""The task-batched meta-training step on one device (the JAX package's
-``repro/core/episodic_train.py``, its ``mesh is None`` branch): T tasks,
-one H draw each, the task-MEAN loss differentiated by one backward, one
-clipped AdamW step.
+"""Meta-training steps on one device (the JAX package's
+``repro/core/episodic_train.py``, its ``mesh is None`` branch).
+
+The task-batched step: T tasks, one H draw each, the task-MEAN loss
+differentiated by one backward, one clipped AdamW step.
 
     step = make_batched_meta_train_step(learner, lite)
     params, opt_state, metrics = step(params, opt_state, batch, scores)
+
+Paper Algorithm 1's per-task step, with its query micro-batches: one task,
+one H draw (``scores`` (N,)) shared by every micro-batch, the gradients of
+the micro-batches summed by their real query counts, one AdamW step; and
+the looped baseline that takes that step once per task.
+
+    step = make_meta_train_step(learner, lite, query_batch=8)
+    params, opt_state, metrics = step(params, opt_state, task, scores)
 
 ``batch`` is a :class:`repro_torch.core.episodic.TaskBatch` of tensors and
 ``scores`` (T, N) choose each task's H subset
@@ -20,8 +29,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.common.tree import tree_leaves, tree_map, tree_rebuild
-from repro_torch.core.episodic import TaskBatch
-from repro_torch.core.lite import LiteSpec
+from repro_torch.core.episodic import Task, TaskBatch, query_batches
+from repro_torch.core.lite import LiteSpec, index_scores
 from repro_torch.core.meta_learners import MetaLearner
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
 from repro_torch.optim.clip import clip_by_global_norm
@@ -115,10 +124,85 @@ def make_batched_meta_train_step(learner: MetaLearner, lite: LiteSpec,
         metrics = dict(loss=loss, accuracy=acc, grad_norm=gnorm,
                        lr=torch.as_tensor(lr_t, dtype=torch.float32))
         if ok is not None:
-            pick = lambda n, o: torch.where(ok, n, o)  # noqa: E731
+            # a quantized state's trailing dim ``n`` is a python int
+            pick = lambda n, o: torch.where(ok, n, o) if torch.is_tensor(n) else n  # noqa: E731
             new_params = tree_map(pick, new_params, params)
             new_opt = tree_map(pick, new_opt, opt_state)
             metrics["nonfinite"] = (~ok).to(torch.float32)
         return new_params, new_opt, metrics
 
     return step
+
+
+def _as_batch(task: Task, query_x, query_y, query_mask) -> TaskBatch:
+    """``task``'s support set and the given queries as a batch of one."""
+    sm = task.support_mask
+    if sm is None:
+        sm = torch.ones(task.support_y.shape, device=task.support_y.device)
+    return TaskBatch(task.support_x[None], task.support_y[None], query_x[None],
+                     query_y[None], sm[None], query_mask[None], way=task.way)
+
+
+def make_meta_train_step(learner: MetaLearner, lite: LiteSpec,
+                         query_batch: int = 0,
+                         adamw: AdamWConfig = AdamWConfig(weight_decay=0.0),
+                         lr: float = 1e-3,
+                         max_grad_norm: float = 10.0) -> Callable:
+    """Paper Algorithm 1's per-task step on a :class:`Task` of tensors:
+
+        step(params, opt_state, task, scores) -> (params, opt_state, metrics)
+
+    ``scores`` (N,) choose the task's H subset.  ``query_batch=0`` is one
+    query pass; ``> 0`` splits the queries into padded, masked micro-batches
+    (:func:`repro_torch.core.episodic.query_batches`), each a ``meta_loss``
+    over the whole support set with the same scores, its loss and gradients
+    weighted by its real query count, so the result equals the single
+    pass and only one micro-batch's query activations are live."""
+    grads_fn = make_batched_meta_grads(learner, lite)
+
+    def step(params: Tree, opt_state: Dict, task: Task, scores: torch.Tensor
+             ) -> Tuple[Tree, Dict, Dict]:
+        scores = scores.reshape(1, -1)
+        if query_batch > 0:
+            qx, qy, qw = query_batches(task, query_batch)
+            loss, grads = torch.zeros((), device=scores.device), None
+            for b in range(qx.shape[0]):
+                l, _, g = grads_fn(params, _as_batch(task, qx[b], qy[b], qw[b]), scores)
+                wb = qw[b].sum()
+                loss = loss + l * wb
+                grads = tree_map(lambda x: x * wb, g) if grads is None else \
+                    tree_map(lambda a, x: a + x * wb, grads, g)
+            w_tot = torch.clamp(qw.sum(), min=1.0)
+            loss, grads = loss / w_tot, tree_map(lambda a: a / w_tot, grads)
+        else:
+            qm = task.query_mask
+            if qm is None:
+                qm = torch.ones(task.query_y.shape, device=task.query_y.device)
+            loss, _, grads = grads_fn(params, _as_batch(task, task.query_x, task.query_y,
+                                                        qm), scores)
+        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+        params, opt_state = adamw_update(params, grads, opt_state, lr, adamw)
+        return params, opt_state, dict(loss=loss, grad_norm=gnorm)
+
+    return step
+
+
+def run_looped_baseline(learner: MetaLearner, lite: LiteSpec, params: Tree,
+                        opt_state: Dict, tasks, key: Tuple[int, int],
+                        adamw: AdamWConfig = AdamWConfig(weight_decay=0.0),
+                        lr: float = 1e-3, max_grad_norm: float = 10.0,
+                        scores=None):
+    """Paper Algorithm 1 as written: one AdamW step per task, in a loop
+    over ``tasks`` (:class:`Task` s of tensors); the baseline the batched
+    step is measured against.  Task i draws its H subset from
+    ``index_scores(*key, [i], N_i)``, the batched step's convention for
+    task i of the step ``key``; ``scores`` (one (N_i,) row per task)
+    replaces those draws.  Returns (params, opt_state, the last metrics)."""
+    step = make_meta_train_step(learner, lite, adamw=adamw, lr=lr,
+                                max_grad_norm=max_grad_norm)
+    metrics = None
+    for i, task in enumerate(tasks):
+        s = scores[i] if scores is not None else index_scores(
+            key[0], key[1], [i], task.support_y.shape[0], task.support_y.device)[0]
+        params, opt_state, metrics = step(params, opt_state, task, s)
+    return params, opt_state, metrics

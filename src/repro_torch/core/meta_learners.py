@@ -1,4 +1,5 @@
-"""Meta-learners + LITE: ProtoNets, CNAPs and Simple CNAPs (paper Sec. 3.1).
+"""Meta-learners + LITE: ProtoNets, CNAPs, Simple CNAPs, first-order MAML
+and the FineTuner transfer baseline (paper Sec. 3.1 and 5).
 
 Every learner speaks two task-batched, mask-aware contracts:
 
@@ -14,14 +15,22 @@ aggregation site, their H subsets chosen by ``scores`` (T, N), one draw a
 task shared by every site; it returns per-task losses and accuracies, and
 the caller differentiates their mean.  ``estimator="subsampled"`` is the
 paper's naive small-task baseline.  Adaptation runs the forward-only serve
-estimators under ``torch.inference_mode`` and draws no random numbers.
+estimators under ``torch.inference_mode`` and draws no random numbers;
+fomaml and finetuner take gradients inside adaptation (their inner SGD),
+so theirs runs outside it, on detached leaves under ``torch.enable_grad``.
 
 The class statistics and the Simple CNAPs Mahalanobis head go through
 :mod:`repro_torch.kernels.dispatch`, whose ``cuda`` ops carry their own
 autograd.  Anything task-adapted that feeds the support encoder (the
 CNAPs FiLM parameters) enters the estimators as a *param*, beside the
 detached backbone (``_film_as_params``), so the no-grad complement cannot
-leak gradient through a closure.  fomaml and finetuner are not ported yet.
+leak gradient through a closure.
+
+fomaml writes the task-lane axis out as a loop: each lane's inner loop
+adapts its own copy of every weight, backbone included, so the lanes
+share no convolution.  finetuner's lanes share the frozen backbone, so
+its heads (T, F, way) train together: one backward of the lanes' summed
+losses gives each head its own gradient.
 """
 from __future__ import annotations
 
@@ -32,7 +41,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.common.init import lecun_normal
-from repro_torch.common.tree import tree_detach, tree_map
+from repro_torch.common.tree import (tree_detach, tree_leaves, tree_map,
+                                     tree_rebuild)
 from repro_torch.core.episodic import TaskBatch
 from repro_torch.core.film import generate_film_params, init_film_generator
 from repro_torch.core.lite import (LiteSpec, _flat_encode, _masked_onehot,
@@ -47,15 +57,17 @@ from repro_torch.kernels import dispatch
 from repro_torch.models.backbone import BackboneDef
 
 Tree = Any
-KINDS = ("protonets", "cnaps", "simple_cnaps")
+KINDS = ("protonets", "cnaps", "simple_cnaps", "fomaml", "finetuner")
 
 
 @dataclasses.dataclass(frozen=True)
 class MetaLearnerConfig:
-    kind: str = "protonets"      # protonets | cnaps | simple_cnaps
+    kind: str = "protonets"      # one of KINDS
     way: int = 5
     gen_hidden: int = 64
     head_hidden: int = 64
+    inner_lr: float = 0.01       # fomaml / finetuner inner SGD
+    inner_steps: int = 5
     cov_eps: float = 1.0         # simple-cnaps covariance ridge
     film_init_std: float = 0.1
 
@@ -70,14 +82,19 @@ class MetaLearner:
     predict_batch: Callable[[Tree, Tree, torch.Tensor], torch.Tensor]
 
 
-def _batched_api(adapt: Callable, predict: Callable):
+def _batched_api(adapt: Callable, predict: Callable,
+                 inner_grad: bool = False):
     """Wrap the serving bodies in ``inference_mode``: serving never builds
-    an autograd graph."""
+    an autograd graph outside an inner loop.  ``inner_grad`` adapt bodies
+    (fomaml, finetuner) differentiate their own inner loop, which an
+    inference tensor cannot enter, so they run as they are."""
     def adapt_batch(params, batch: TaskBatch,
                     lite: LiteSpec = LiteSpec(exact=True)):
+        args = (params, batch.support_x, batch.support_y, batch.support_mask, lite)
+        if inner_grad:
+            return adapt(*args)
         with torch.inference_mode():
-            return adapt(params, batch.support_x, batch.support_y,
-                         batch.support_mask, lite)
+            return adapt(*args)
 
     def predict_batch(params, states, qx):
         with torch.inference_mode():
@@ -88,9 +105,10 @@ def _batched_api(adapt: Callable, predict: Callable):
 
 def _xent(logits: torch.Tensor, labels: torch.Tensor,
           w: torch.Tensor) -> torch.Tensor:
-    """(T,) cross-entropy: each task's weighted mean over its real queries,
-    so collator padding never moves the loss."""
-    ll = torch.log_softmax(logits, dim=-1).gather(-1, labels[..., None])[..., 0]
+    """(T,) cross-entropy: each task's weighted mean over its real rows,
+    so collator padding (support label -1, weight 0) never moves the loss."""
+    ll = torch.log_softmax(logits, dim=-1).gather(
+        -1, labels.clamp(min=0)[..., None])[..., 0]
     w = w.to(ll.dtype)
     return -torch.sum(ll * w, dim=-1) / torch.clamp(w.sum(dim=-1), min=1.0)
 
@@ -297,6 +315,102 @@ def _make_cnaps_family(cfg: MetaLearnerConfig, bb: BackboneDef,
     return MetaLearner(cfg, bb, init, meta_loss, *_batched_api(adapt, _logits))
 
 
+# ===========================================================================
+# First-order MAML (paper baseline; no aggregation site, so no LITE)
+# ===========================================================================
+
+def make_fomaml(cfg: MetaLearnerConfig, bb: BackboneDef) -> MetaLearner:
+    fdim = bb.feature_dim
+
+    def init(gen, device=None):
+        return dict(bb=bb.init(gen, device),
+                    head=dict(w=lecun_normal(gen, (fdim, cfg.way), fdim, device),
+                              b=torch.zeros(cfg.way, device=device)))
+
+    def _logits_p(p, x):
+        """(B, H, W, C) -> (B, way) under one lane's weights ``p``."""
+        return bb.features(p["bb"], x, None).float() @ p["head"]["w"] + p["head"]["b"]
+
+    def _inner_adapt(params, sx, sy, sw):
+        """One task's ``inner_steps`` SGD steps on its support loss, from
+        detached ``params``; returns the adapted weights, detached."""
+        p = tree_detach(params)
+        with torch.enable_grad():
+            for _ in range(cfg.inner_steps):
+                leaves = [a.requires_grad_(True) for a in map(torch.Tensor.detach,
+                                                               tree_leaves(p))]
+                live = tree_rebuild(p, leaves)
+                loss = _xent(_logits_p(live, sx)[None], sy[None], sw[None])[0]
+                grads = torch.autograd.grad(loss, leaves)
+                p = tree_rebuild(p, [(a - cfg.inner_lr * g).detach()
+                                     for a, g in zip(leaves, grads)])
+        return p
+
+    def meta_loss(params, batch: TaskBatch, scores, lite: LiteSpec,
+                  estimator=None):
+        del scores, lite, estimator
+        losses, accs = [], []
+        for t in range(batch.num_tasks):
+            adapted = _inner_adapt(params, batch.support_x[t], batch.support_y[t],
+                                   batch.support_mask[t])
+            # first order: the adapted point as a constant offset of params
+            at = tree_map(lambda a, b: a + (b - a).detach(), params, adapted)
+            logits = _logits_p(at, batch.query_x[t])[None]
+            losses.append(_xent(logits, batch.query_y[t:t + 1], batch.query_mask[t:t + 1]))
+            accs.append(_accuracy(logits, batch.query_y[t:t + 1],
+                                  batch.query_mask[t:t + 1]))
+        return torch.cat(losses), dict(accuracy=torch.cat(accs))
+
+    def adapt(params, sx, sy, mask, lite):
+        return tree_map(lambda *ls: torch.stack(ls), *[
+            _inner_adapt(params, sx[t], sy[t], mask[t]) for t in range(sx.shape[0])])
+
+    def predict(params, states, qx):
+        return torch.stack([_logits_p(tree_map(lambda a: a[t], states), qx[t])
+                            for t in range(qx.shape[0])])
+
+    return MetaLearner(cfg, bb, init, meta_loss,
+                       *_batched_api(adapt, predict, inner_grad=True))
+
+
+# ===========================================================================
+# FineTuner transfer baseline (frozen backbone, a linear head per task)
+# ===========================================================================
+
+def make_finetuner(cfg: MetaLearnerConfig, bb: BackboneDef) -> MetaLearner:
+    fdim = bb.feature_dim
+
+    def init(gen, device=None):
+        return dict(bb=bb.init(gen, device))
+
+    def adapt(params, sx, sy, mask, lite):
+        """Heads {w (T, F, way), b (T, way)}: ``inner_steps`` SGD steps from
+        zeros on the detached support features."""
+        with torch.no_grad():
+            feats = _features_by_task(bb, tree_detach(params["bb"]), sx, None)
+        w = feats.new_zeros(sx.shape[0], fdim, cfg.way)
+        b = feats.new_zeros(sx.shape[0], cfg.way)
+        with torch.enable_grad():
+            for _ in range(cfg.inner_steps):
+                w, b = w.detach().requires_grad_(True), b.detach().requires_grad_(True)
+                logits = torch.einsum("tnf,tfc->tnc", feats, w) + b[:, None, :]
+                gw, gb = torch.autograd.grad(_xent(logits, sy, mask).sum(), (w, b))
+                w, b = w - cfg.inner_lr * gw, b - cfg.inner_lr * gb
+        return dict(w=w.detach(), b=b.detach())
+
+    def predict(params, head, qx):
+        qf = _features_by_task(bb, params["bb"], qx, None)
+        return torch.einsum("tmf,tfc->tmc", qf, head["w"]) + head["b"][:, None, :]
+
+    def meta_loss(params, batch: TaskBatch, scores, lite: LiteSpec,
+                  estimator=None):
+        head = adapt(params, batch.support_x, batch.support_y, batch.support_mask, lite)
+        return _loss_and_metrics(predict(params, head, batch.query_x), batch)
+
+    return MetaLearner(cfg, bb, init, meta_loss,
+                       *_batched_api(adapt, predict, inner_grad=True))
+
+
 def make_learner(cfg: MetaLearnerConfig, bb: BackboneDef,
                  set_cfg: Optional[SetEncoderConfig] = None) -> MetaLearner:
     if cfg.kind == "protonets":
@@ -306,5 +420,8 @@ def make_learner(cfg: MetaLearnerConfig, bb: BackboneDef,
             raise ValueError("CNAPs-family learners need a SetEncoderConfig")
         return _make_cnaps_family(cfg, bb, set_cfg,
                                   simple=cfg.kind == "simple_cnaps")
-    raise ValueError(f"meta-learner kind {cfg.kind!r} is not ported; "
-                     f"choose from {KINDS}")
+    if cfg.kind == "fomaml":
+        return make_fomaml(cfg, bb)
+    if cfg.kind == "finetuner":
+        return make_finetuner(cfg, bb)
+    raise ValueError(f"unknown meta-learner kind {cfg.kind!r}; choose from {KINDS}")

@@ -1,13 +1,23 @@
-"""Host-side episodic data: shape buckets, collation, query chunking and the
-numpy synthetic image-task source.
+"""Episodic data: shape buckets, collation, query chunking, and two
+synthetic image-task sources.
 
-All of it is numpy and bit-identical with the functions of the same names in
-the JAX package's ``data/episodic.py``: the same seed gives the same tasks,
-the same bucket plan and the same padded batches.
+The host half (buckets, collation, chunking, ``host_task_batch_at``) is
+numpy and bit-identical with the functions of the same names in the JAX
+package's ``data/episodic.py``: the same seed gives the same tasks, the
+same bucket plan and the same padded batches.
 
-Image tasks: each class is a low-frequency pattern under heavy pixel noise;
-``augment`` adds a random crop, a horizontal flip and per-image
-standardization, all vectorized over the batch.
+The device half (``EpisodicImageConfig``, ``sample_image_task``,
+``image_task_stream``, ``sample_image_task_batch``, ``task_batch_at``)
+draws the JAX package's on-device task family on a torch device from a
+``torch.Generator`` there.  ``jax.random`` cannot be reproduced, so it
+keeps the contract, not the bits: a batch is a pure function of (seed,
+cfg, tasks, step), the generator seeded with a splitmix64 hash of (seed,
+step).
+
+Image tasks: each class is a low-frequency pattern under heavy pixel noise.
+The host source upsamples it 2x by repetition; ``augment`` adds a random
+crop, a horizontal flip and per-image standardization, all vectorized over
+the batch.  The device source upsamples a (h/4, w/4) pattern bilinearly.
 """
 from __future__ import annotations
 
@@ -15,8 +25,11 @@ import dataclasses
 from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 from repro_torch.core.episodic import Task, TaskBatch
+from repro_torch.core.lite import _GOLDEN, _mix64
 
 
 def bucket_size(n: int, multiple: int = 8) -> int:
@@ -57,6 +70,17 @@ def bucket_for(n: int, buckets: Sequence[int]) -> int:
             return b
     raise ValueError(f"size {n} exceeds every planned bucket {tuple(buckets)}; "
                      f"re-plan buckets from a fresh stream histogram")
+
+
+def collate_with_buckets(tasks: Sequence[Task], support_buckets: Sequence[int],
+                         query_buckets: Sequence[int]) -> TaskBatch:
+    """Collate against planned buckets: the pad targets are the smallest
+    support and query caps that cover the batch's largest task, so a stream
+    lands on at most ``len(support_buckets) * len(query_buckets)`` shapes."""
+    return collate_task_batch(
+        tasks,
+        support_size=bucket_for(max(t.n_support for t in tasks), support_buckets),
+        query_size=bucket_for(max(t.n_query for t in tasks), query_buckets))
 
 
 def collate_task_batch(tasks: Sequence[Task],
@@ -179,3 +203,91 @@ def host_task_batch_at(seed: int, cfg: HostEpisodicConfig,
     ones = lambda y: np.ones(y.shape, np.float32)
     return TaskBatch(support_x=sx, support_y=sy, query_x=qx, query_y=qy,
                      support_mask=ones(sy), query_mask=ones(qy), way=way)
+
+
+# ---------------------------------------------------------------------------
+# the on-device sampler
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class EpisodicImageConfig:
+    way: int = 5
+    shot: int = 10                   # support examples per class
+    query_per_class: int = 10
+    image_size: int = 32
+    channels: int = 3
+    class_sep: float = 0.5           # RMS of the class patterns
+    noise: float = 1.5               # std of the per-example pixel noise
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """A generator on ``device`` seeded from splitmix64 of (seed, step), so
+    any step's draws can be rebuilt alone."""
+    with np.errstate(over="ignore"):
+        h = _mix64(np.array([seed], np.uint64) * np.uint64(_GOLDEN) + np.uint64(step))
+    gen = torch.Generator(device=torch.device(device))
+    gen.manual_seed(int(h[0] >> np.uint64(1)))    # manual_seed takes < 2**63
+    return gen
+
+
+def upsample_patterns(base: torch.Tensor, size: int) -> torch.Tensor:
+    """(..., h, w, C) NHWC -> (..., size, size, C): bilinear, half-pixel
+    centres, no antialiasing (``jax.image.resize(..., "linear")`` when
+    upsampling)."""
+    lead, (h, w, c) = base.shape[:-3], base.shape[-3:]
+    x = base.reshape(-1, h, w, c).permute(0, 3, 1, 2)
+    x = F.interpolate(x, size=(size, size), mode="bilinear", align_corners=False,
+                      antialias=False)
+    return x.permute(0, 2, 3, 1).reshape(lead + (size, size, c))
+
+
+def sample_image_task_batch(gen: torch.Generator, cfg: EpisodicImageConfig,
+                            num_tasks: int) -> TaskBatch:
+    """``num_tasks`` tasks of one shape on ``gen``'s device, NHWC float32,
+    all-ones masks.  Each task: a (way, h/4, w/4, C) normal pattern per
+    class, upsampled bilinearly and scaled to RMS ``class_sep`` over the
+    task; every example its class pattern plus ``noise`` * N(0, 1); the
+    support rows in a random order, the queries class by class."""
+    t, way, size, c = num_tasks, cfg.way, cfg.image_size, cfg.channels
+    dev = gen.device
+    normal = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+    base = upsample_patterns(normal(t, way, size // 4, size // 4, c), size)
+    rms = torch.sqrt(torch.mean(base ** 2, dim=(1, 2, 3, 4), keepdim=True) + 1e-8)
+    base = cfg.class_sep * base / rms
+
+    def draw(per):
+        x = base[:, :, None] + cfg.noise * normal(t, way, per, size, size, c)
+        y = torch.arange(way, device=dev).repeat_interleave(per).expand(t, -1)
+        return x.reshape(t, way * per, size, size, c), y
+
+    sx, sy = draw(cfg.shot)
+    qx, qy = draw(cfg.query_per_class)
+    perm = torch.argsort(torch.rand(sy.shape, generator=gen, device=dev), dim=1)
+    lanes = torch.arange(t, device=dev)[:, None]
+    ones = lambda y: torch.ones(y.shape, device=dev)  # noqa: E731
+    return TaskBatch(support_x=sx[lanes, perm], support_y=sy[lanes, perm],
+                     query_x=qx, query_y=qy.contiguous(), support_mask=ones(sy),
+                     query_mask=ones(qy), way=way)
+
+
+def sample_image_task(gen: torch.Generator, cfg: EpisodicImageConfig) -> Task:
+    """One task of :func:`sample_image_task_batch`'s family."""
+    return sample_image_task_batch(gen, cfg, 1).task(0)
+
+
+def image_task_stream(seed: int, cfg: EpisodicImageConfig,
+                      device="cuda") -> Iterator[Task]:
+    """Task i of the stream from ``step_generator(seed, i, device)``."""
+    i = 0
+    while True:
+        yield sample_image_task(step_generator(seed, i, device), cfg)
+        i += 1
+
+
+def task_batch_at(seed: int, cfg: EpisodicImageConfig, tasks_per_step: int,
+                  step: int, device="cuda") -> TaskBatch:
+    """Step ``step``'s batch on ``device``: a pure function of (seed, cfg,
+    tasks_per_step, step), the restart contract of
+    :mod:`repro_torch.train.loop`."""
+    return sample_image_task_batch(step_generator(seed, step, device), cfg,
+                                   tasks_per_step)

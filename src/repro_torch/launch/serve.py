@@ -11,6 +11,9 @@ random weights from ``--seed``.  Traffic comes from the numpy host sampler
 ``repro_torch.data.episodic.host_task_batch_at``, so it differs from the
 JAX launcher's (which samples with ``jax.random``).  Runs on ``--device``
 (default ``cuda``; pass ``--device cpu`` to run without a GPU).
+``--learner`` takes every kind: fomaml serves in fp32 (it freezes no
+weights), finetuner with ``--serve-quant int8`` runs its frozen head
+through the int8 matmul kernel.
 """
 from __future__ import annotations
 
@@ -108,7 +111,8 @@ def main(argv: Optional[List[str]] = None,
                     help="adapt-many-tasks personalization serving (the only "
                          "mode ported)")
     ap.add_argument("--learner", default="protonets",
-                    choices=["protonets", "cnaps", "simple_cnaps"])
+                    choices=["protonets", "cnaps", "simple_cnaps", "fomaml",
+                             "finetuner"])
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--shot", type=int, default=10)

@@ -8,15 +8,18 @@ through the fault-tolerant loop (:mod:`repro_torch.train.loop`) with
 checkpoints and resume, at the JAX launcher's episodic smoke size (conv
 backbone widths (16, 32), feature_dim 64; conv set encoder 2 blocks of
 width 16, task_dim 32; way 5, shot 10, 6 queries a class) with random
-weights from seed 0.  Tasks come from the numpy host sampler
-``host_task_batch_at`` (the JAX launcher's ``--data-source host``), and
-each task's H subset from a counter-based hash of (23, step, task,
-example).  Runs on ``--device`` (default ``cuda``; it raises without a
-card unless ``--device cpu`` is given) with ``--kernel-backend auto``,
-the hand-written kernels on the card.
+weights from seed 0.  Tasks come, as in the JAX launcher, from
+``--data-source device`` (the default: the on-device sampler
+``task_batch_at``, drawn on ``--device`` from a generator seeded by
+(17, step)) or ``--data-source host`` (the numpy host sampler
+``host_task_batch_at``, bit-identical with the JAX package's), and each
+task's H subset from a counter-based hash of (23, step, task, example).
+Runs on ``--device`` (default ``cuda``; it raises without a card unless
+``--device cpu`` is given) with ``--kernel-backend auto``, the
+hand-written kernels on the card.
 
-Not ported: the LM launcher (without ``--episodic``), ``--data-source
-device`` and the multi-device flags (ROADMAP A12, A14).
+Not ported: the LM launcher (without ``--episodic``) and the multi-device
+flags (ROADMAP A12, A14).
 """
 from __future__ import annotations
 
@@ -44,7 +47,8 @@ def run_episodic(args) -> None:
     from repro_torch.core.lite import LiteSpec
     from repro_torch.core.meta_learners import MetaLearnerConfig, make_learner
     from repro_torch.core.set_encoder import SetEncoderConfig
-    from repro_torch.data.episodic import HostEpisodicConfig, host_task_batch_at
+    from repro_torch.data.episodic import (EpisodicImageConfig, HostEpisodicConfig,
+                                           host_task_batch_at, task_batch_at)
     from repro_torch.faults import PreemptionSignal
     from repro_torch.models.conv_backbone import ConvBackboneConfig, make_conv_backbone
     from repro_torch.optim.adamw import AdamWConfig
@@ -53,10 +57,6 @@ def run_episodic(args) -> None:
     from repro_torch.train.loop import PreemptedError, train
     from repro_torch.train.step import make_episodic_init_state, make_episodic_train_step
 
-    if args.data_source == "device":
-        raise SystemExit("--data-source device draws tasks with jax.random, which "
-                         "torch cannot reproduce; the port trains on the host "
-                         "sampler (--data-source host)")
     device = resolve_device(args.device)
     meta = MetaTrainConfig(tasks_per_step=args.tasks_per_step,
                            dp_shards=args.dp_shards, dcn_shards=args.dcn_shards,
@@ -74,6 +74,7 @@ def run_episodic(args) -> None:
           f"schedule={meta.schedule or 'constant'} "
           f"prefetch={meta.prefetch} donate={meta.donate} "
           f"lite_dtype={meta.lite_dtype or 'float32'} "
+          f"data_source={args.data_source} "
           f"kernel_backend={meta.kernel_backend} device={device}", flush=True)
 
     backbone = make_conv_backbone(ConvBackboneConfig(widths=(16, 32), feature_dim=64))
@@ -87,15 +88,25 @@ def run_episodic(args) -> None:
         torch.Generator().manual_seed(0), device)
     step = make_episodic_train_step(learner, lite, meta, adamw)
 
-    hcfg = HostEpisodicConfig(way=5, shot=10, query_per_class=6,
-                              image_size=args.image_size)
+    if args.data_source == "host":
+        hcfg = HostEpisodicConfig(way=5, shot=10, query_per_class=6,
+                                  image_size=args.image_size)
 
-    def batch_at(s):
-        return dict(tasks=host_task_batch_at(17, hcfg, meta.tasks_per_step, s),
-                    key=(23, s))
+        def batch_at(s):
+            return dict(tasks=host_task_batch_at(17, hcfg, meta.tasks_per_step, s),
+                        key=(23, s))
 
-    def batch_put(b):
-        return dict(b, tasks=b["tasks"].to(device))
+        def batch_put(b):
+            return dict(b, tasks=b["tasks"].to(device))
+    else:     # drawn on the device: nothing to move
+        tcfg = EpisodicImageConfig(way=5, shot=10, query_per_class=6,
+                                   image_size=args.image_size)
+
+        def batch_at(s):
+            return dict(tasks=task_batch_at(17, tcfg, meta.tasks_per_step, s, device),
+                        key=(23, s))
+
+        batch_put = None
 
     ckpt_dir = args.ckpt_dir or os.path.join(
         tempfile.gettempdir(), f"repro_torch_train_ckpt_episodic_{args.learner}")
@@ -154,9 +165,10 @@ def main(argv=None) -> None:
     ap.add_argument("--image-size", type=int, default=24)
     ap.add_argument("--prefetch", type=int, default=2,
                     help="background batch lookahead depth (0 = sync loop)")
-    ap.add_argument("--data-source", choices=["device", "host"], default="host",
-                    help="episodic task stream: only the numpy host sampler; "
-                         "'device' (jax.random draws) is refused")
+    ap.add_argument("--data-source", choices=["device", "host"], default="device",
+                    help="episodic task stream: the sampler on --device, or the "
+                         "numpy host sampler (collation the prefetcher overlaps "
+                         "with the device's work)")
     ap.add_argument("--no-donate", action="store_true",
                     help="accepted for the JAX launcher's flag; eager PyTorch "
                          "donates no buffers, so it changes nothing")

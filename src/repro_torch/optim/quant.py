@@ -4,6 +4,14 @@ A quantized tensor is ``{q: int8 same shape, scale: f32 with the last dim
 reduced by BLOCK, n: original trailing dim}``.  The scale of a block is its
 absmax / 127, floored at 1e-12; values round half to even (``torch.round``,
 as ``jnp.round``) and clip to [-127, 127].
+
+The log-domain half (``quantize_log`` / ``dequantize_log``, for AdamW's
+second moment) is the linear one applied to ``log(max(x, 1e-12))`` and
+undone by ``exp``.  Those two are each framework's own: XLA's CPU log
+and exp are not correctly rounded (about 2.5 % and 9.5 % of fp32 inputs
+read one ulp off the correctly rounded value), torch's nearly are, so
+the log half agrees with the JAX package's to an ulp of the log, not bit
+for bit; on the same log values it is bit-exact.
 """
 from __future__ import annotations
 
@@ -21,6 +29,11 @@ def _pad_to_block(x: torch.Tensor):
     if pad:
         x = F.pad(x, (0, pad))
     return x, n
+
+
+def is_quantized(x) -> bool:
+    """A ``{q, scale, n}`` dict: one leaf of a tree, not a subtree."""
+    return isinstance(x, dict) and {"q", "scale"} <= set(x)
 
 
 def resolve_n(qs: Dict, n=None) -> int:
@@ -51,3 +64,36 @@ def dequantize(qs: Dict, n: int = None) -> torch.Tensor:
     blocks = qp.reshape(qp.shape[:-1] + (-1, BLOCK))
     x = blocks * scale[..., None]
     return x.reshape(qp.shape)[..., :n]
+
+
+def zeros_quantized(shape, device=None) -> Dict:
+    """The quantized form of zeros of ``shape``: int8 zeros, every block's
+    scale at the 1e-12 floor."""
+    shape = tuple(shape)
+    n = shape[-1]
+    nb = (n + BLOCK - 1) // BLOCK
+    return dict(q=torch.zeros(shape, dtype=torch.int8, device=device),
+                scale=torch.full(shape[:-1] + (nb,), 1e-12, dtype=torch.float32,
+                                 device=device),
+                n=n)
+
+
+# -- the log-domain form, for strictly positive state of a wide dynamic range
+# (AdamW's second moment): a linear absmax block would round its small
+# entries to 0 and blow up 1/sqrt(v); quantizing log(v) bounds the error
+# multiplicatively.
+
+_LOG_FLOOR = 1e-12
+
+
+def quantize_log(x: torch.Tensor) -> Dict:
+    return quantize(torch.log(torch.clamp(x.to(torch.float32), min=_LOG_FLOOR)))
+
+
+def dequantize_log(qs: Dict, n: int = None) -> torch.Tensor:
+    v = torch.exp(dequantize(qs, n))
+    return torch.where(v <= _LOG_FLOOR * 1.5, torch.zeros_like(v), v)
+
+
+def zeros_quantized_log(shape, device=None) -> Dict:
+    return quantize_log(torch.zeros(tuple(shape), dtype=torch.float32, device=device))

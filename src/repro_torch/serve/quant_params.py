@@ -2,9 +2,10 @@
 in blockwise int8, dequantized at each dispatch.
 
 Which leaves freeze is a property of the learner kind (``FROZEN_SLICES``):
-the backbone ``bb`` for every ported kind.  Its leaves are stored in the
-``{q, scale, n}`` form of :mod:`repro_torch.optim.quant` (about 4x fewer
-resident bytes); everything adaptation writes stays fp32.  Leaves on the
+the backbone ``bb`` for every kind but fomaml, whose inner loop rewrites
+every leaf, so it freezes nothing and serves in fp32.  Frozen leaves are
+stored in the ``{q, scale, n}`` form of :mod:`repro_torch.optim.quant`
+(about 4x fewer resident bytes); everything adaptation writes stays fp32.  Leaves on the
 backbone's ``quant_native_paths`` (the head matmul) stay int8 even at
 dispatch and go to the ``int8_matmul`` kernel.
 
@@ -20,7 +21,9 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.bridge import HWIO_TO_OIHW, OIHW_TO_HWIO
 from repro_torch.optim.quant import dequantize, quantize
+from repro_torch.optim.quant import is_quantized as is_quantized_leaf
 
 Tree = Any
 
@@ -31,14 +34,10 @@ FROZEN_SLICES: Dict[str, Tuple[str, ...]] = {
     "protonets": ("bb",),
     "cnaps": ("bb",),
     "simple_cnaps": ("bb",),
+    "finetuner": ("bb",),
+    "fomaml": (),            # adaptation rewrites every leaf
 }
 
-_OIHW_TO_HWIO = (2, 3, 1, 0)
-_HWIO_TO_OIHW = (3, 2, 0, 1)
-
-
-def is_quantized_leaf(x) -> bool:
-    return isinstance(x, dict) and {"q", "scale"} <= set(x)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,7 +97,7 @@ def quantize_frozen(learner, params: Tree, mode: str = "int8") -> ServingWeights
         if rel in native_rel and leaf.dim() == 2:
             native_paths.append(path)
         if leaf.dim() == 4:                    # OIHW -> the JAX HWIO layout
-            leaf = leaf.permute(*_OIHW_TO_HWIO)
+            leaf = leaf.permute(*OIHW_TO_HWIO)
         return quantize(leaf)
 
     tree = _walk(params, visit)
@@ -118,7 +117,7 @@ def dequantize_params(sw: ServingWeights) -> Tree:
         if not is_quantized_leaf(leaf) or path in native:
             return leaf
         w = dequantize(leaf)
-        return w.permute(*_HWIO_TO_OIHW).contiguous() if w.dim() == 4 else w
+        return w.permute(*HWIO_TO_OIHW).contiguous() if w.dim() == 4 else w
 
     return _walk(sw.tree, visit)
 

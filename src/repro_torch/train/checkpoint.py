@@ -9,10 +9,12 @@ the encoded leaves) and a ``COMMIT`` marker written last.  A save goes to a
 ``.tmp_step_*`` sibling and is published by ``os.replace``, so a death
 mid-save leaves nothing that resume would trust.  Restore takes a template
 tree (the initial state serves) whose leaves give each tensor's dtype and
-device; it checks the crc32.
+device; it checks the crc32 where the directory has one.
 
-The leaves are the port's own layout (conv weights OIHW); checkpoints do
-not cross-load with the JAX package's (HWIO) yet.
+The leaves are stored in the JAX package's layout
+(:func:`repro_torch.bridge.to_jax_layout`): conv weights and their
+``mu``/``nu`` HWIO, int8 ``{q, scale, n}`` state as it is.  A step
+directory written by either package restores in the other.
 """
 from __future__ import annotations
 
@@ -26,8 +28,10 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.bridge import HWIO_TO_OIHW, is_conv_weight, to_jax_layout
 from repro_torch.common.tree import tree_paths
 from repro_torch.faults.plan import CKPT_PRE_COMMIT, CKPT_PRE_REPLACE, InjectedKill
+from repro_torch.optim.quant import is_quantized
 
 Tree = Any
 _BF16 = "bfloat16"
@@ -38,15 +42,20 @@ class ChecksumError(RuntimeError):
     corrupted after its publish."""
 
 
-def _unflatten(template: Tree, leaf_at, prefix: str = "") -> Tree:
+def _unflatten(template: Tree, leaf_at, prefix: str = "",
+               in_quantized: bool = False) -> Tree:
+    """``template`` rebuilt with ``leaf_at(path, like, in_quantized)`` at
+    every leaf; ``in_quantized`` marks the parts of a ``{q, scale, n}``
+    leaf, which keep the stored layout."""
     if isinstance(template, dict):
-        return {k: _unflatten(v, leaf_at, f"{prefix}/{k}" if prefix else str(k))
+        inner = in_quantized or is_quantized(template)
+        return {k: _unflatten(v, leaf_at, f"{prefix}/{k}" if prefix else str(k), inner)
                 for k, v in template.items()}
     if isinstance(template, (list, tuple)):
         return type(template)(
-            _unflatten(v, leaf_at, f"{prefix}/{i}" if prefix else str(i))
+            _unflatten(v, leaf_at, f"{prefix}/{i}" if prefix else str(i), in_quantized)
             for i, v in enumerate(template))
-    return leaf_at(prefix, template)
+    return leaf_at(prefix, template, in_quantized)
 
 
 def encode_array_tree(tree: Tree) -> Tuple[Dict[str, np.ndarray], Dict[str, str]]:
@@ -74,12 +83,22 @@ def _tree_crc32(arrays: Dict[str, np.ndarray], dtypes: Dict[str, str]) -> int:
     return crc & 0xFFFFFFFF
 
 
-def _decode(arr: np.ndarray, dtype_str: str, like: torch.Tensor) -> torch.Tensor:
+def _decode(path: str, arr: np.ndarray, dtype_str: str, like, in_quantized: bool):
+    """The stored leaf at ``path`` in the dtype, device and layout of
+    ``like``; a python scalar (a quantized leaf's ``n``) comes back as one.
+    A shape that is not the template's raises."""
+    if not torch.is_tensor(like):
+        return type(like)(arr.item())
     if dtype_str == _BF16:
         t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(arr))
-    return t.to(dtype=like.dtype, device=like.device)
+    if not in_quantized and is_conv_weight(like):
+        t = t.permute(*HWIO_TO_OIHW)
+    if t.shape != like.shape:
+        raise ValueError(f"checkpoint leaf {path}: shape {tuple(t.shape)} in the port's "
+                         f"layout, the template's {tuple(like.shape)}")
+    return t.to(dtype=like.dtype, device=like.device).contiguous()
 
 
 class CheckpointManager:
@@ -106,7 +125,7 @@ class CheckpointManager:
         if tmp.exists():
             shutil.rmtree(tmp)
         tmp.mkdir(parents=True)
-        arrays, dtypes = encode_array_tree(state)
+        arrays, dtypes = encode_array_tree(to_jax_layout(state))
         with open(tmp / "state.npz", "wb") as f:
             np.savez(f, **arrays)
             f.flush()
@@ -150,8 +169,8 @@ class CheckpointManager:
         if "crc32" in meta and crc != meta["crc32"]:
             raise ChecksumError(f"{d}: content crc32 {crc:#010x} != stored "
                                 f"{meta['crc32']:#010x}")
-        state = _unflatten(template, lambda k, like: _decode(
-            arrays[k], meta["dtypes"].get(k, ""), like))
+        state = _unflatten(template, lambda k, like, inq: _decode(
+            k, arrays[k], meta["dtypes"].get(k, ""), like, inq))
         return state, meta["extra"]
 
     def restore_latest(self, template: Tree):

@@ -1,5 +1,6 @@
-"""Background batch lookahead for the training loop (the JAX package's
-``repro/train/pipeline.py::Prefetcher``).
+"""Background batch lookahead for the training loop and the per-shape step
+cache (the JAX package's ``repro/train/pipeline.py``: ``Prefetcher`` and
+``BucketedStepCache``).
 
 A worker thread evaluates the deterministic ``batch_at(step)`` stream in
 order, moves each batch to the device with ``put``, and pushes it into a
@@ -10,9 +11,10 @@ the same pure function the synchronous loop would call.
 """
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Dict, Optional
 
 Tree = Any
 
@@ -122,3 +124,43 @@ class Prefetcher:
         except queue.Empty:
             pass
         self._thread.join(timeout=5.0)
+
+
+def _shape_key(tree: Tree) -> tuple:
+    """Hashable (structure, shapes, dtypes) of ``tree``: containers and
+    dataclasses by type and field, tensors and arrays by shape and dtype,
+    other leaves (ints, strings) by type, as a traced program would key
+    them."""
+    if isinstance(tree, dict):
+        return ("dict",) + tuple((k, _shape_key(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return (type(tree).__name__,) + tuple(_shape_key(v) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return (type(tree).__name__,) + tuple(
+            (f.name, _shape_key(getattr(tree, f.name)))
+            for f in dataclasses.fields(tree))
+    if hasattr(tree, "shape") and hasattr(tree, "dtype"):
+        return (tuple(tree.shape), str(tree.dtype))
+    return (type(tree).__name__,)
+
+
+class BucketedStepCache:
+    """A step-like callable keyed per (structure, shapes, dtypes) of its
+    arguments, with the JAX package's exact ``compile_count``: how many
+    distinct keys it has been called with.  A flat count over a ragged
+    stream is the bucketing policy working.  Eager PyTorch compiles
+    nothing, so every key runs the same ``step_fn``; the key is where a
+    per-shape CUDA graph would be captured."""
+
+    def __init__(self, step_fn: Callable):
+        self._fn = step_fn
+        self._seen: Dict[tuple, int] = {}
+
+    @property
+    def compile_count(self) -> int:
+        return len(self._seen)
+
+    def __call__(self, *args):
+        key = _shape_key(args)
+        self._seen[key] = self._seen.get(key, 0) + 1
+        return self._fn(*args)
