@@ -25,6 +25,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the same engine on the plain ``ref`` backend; profile one more run of
    that path (device busy time, idle share, top ops by device time); then a
    shorter ProtoNets pass, read the same way;
+4b. the rest of serving at phase 4's width: 12 users and then their 12
+   repeats (support attached, uid order) through an L1 of 2 over a disk
+   warm tier, failing unless every repeat rehydrates (12 rehydrates, 12
+   adaptations), each rehydrated state is bit-equal to a copy taken at its
+   adaptation and each repeat's logits are within 1e-6 of max|logit| of the
+   cold wave's, and the same traffic with no warm tier, in turns (tasks/s,
+   first-logit p50/p99, mean spill and rehydrate ms); one FOMAML state
+   spilled and rehydrated, timed against its re-adaptation; the traffic
+   again with new users submitted between steps, with the SLO at 1.5x and
+   3x the measured adapt wave and without, in turns; a queue of 2 against 8 submits (6
+   rejections, each with a retry-after); a 1 us deadline (every queued
+   request abandoned); ``warm.corrupt`` (quarantine, re-adaptation to a
+   cold engine's logits) and ``warm.vanish`` (one spill error, serving
+   goes on); and ``python -m repro_torch.launch.serve --episodic`` with a
+   warm directory, an SLO, a bounded queue and a deadline as a
+   subprocess, whose ``store:`` line must show spills and rehydrates;
 5. LITE episodic meta-training on the kernels, at the same full width
    (224 x 224 images, 8 tasks a step from the host sampler, 5-way 10-shot
    with 6 queries a class, h 8, chunks of 16, random weights): one step of
@@ -90,8 +106,9 @@ for the episodic kernels, the ops phase for the LM-side ones;
 ``train_launches`` those of B1-B3 in the five training-loop steps of phase
 5.  ``chiprun_out/chip_smoke.json`` holds every reading, the training
 phases' under ``paths``, and every path's launches under ``launches``:
-``train_device`` (the device-sampler loop), ``algo1`` (the two per-task
-steps), ``fig4``, ``fomaml`` and ``finetuner`` (their serving runs).
+``serve_warm`` (phase 4b's warm-tier run), ``train_device`` (the
+device-sampler loop), ``algo1`` (the two per-task steps), ``fig4``,
+``fomaml`` and ``finetuner`` (their serving runs).
 
 It imports no JAX.
 """
@@ -601,7 +618,7 @@ def run_path(kind: str, n_requests: int, dev, launches, trace: bool = False):
     state_err = 0.0
     part = STATE_PART[kind]
     for uid in {r.uid for r in got}:
-        a, b = part(eng.store.peek(uid)), part(ref.store.peek(uid))
+        a, b = part(eng.store.l1.peek(uid)), part(ref.store.l1.peek(uid))
         state_err = max(state_err, float((a - b).abs().max() / b.abs().max()))
     print(f"  cuda vs ref: logits rel err {worst:.3e} (tol {LOGIT_TOL:.0e}), "
           f"argmax agree {agree}/{n_conf} confident queries, state rel err "
@@ -617,6 +634,376 @@ def run_path(kind: str, n_requests: int, dev, launches, trace: bool = False):
                 logits_rel_err=worst, launches=counts,
                 adapt_dispatches=s["adapt_dispatches"],
                 predict_dispatches=s["predict_dispatches"])
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the rest of serving (warm tier, SLO, backpressure, deadlines,
+# the warm tier's faults, the launcher)
+# ---------------------------------------------------------------------------
+
+WARM_USERS = 12
+WARM_LOGIT_TOL = 1e-6   # a rehydrated state is the adapted state's bits
+
+
+def warm_traffic(dev):
+    """``WARM_USERS`` tasks (way 5, shot 10, 10 queries a class) from the
+    device sampler, on the host as the engine takes them; ``make(uids,
+    support)`` builds fresh requests over them."""
+    from repro_torch.data.episodic import EpisodicImageConfig, task_batch_at
+    from repro_torch.serve.episodic import EpisodicRequest
+    cfg = EpisodicImageConfig(way=5, shot=10, query_per_class=10, image_size=IMAGE_SIZE)
+    b = task_batch_at(23, cfg, WARM_USERS, 0, dev)
+    sx, sy, qx = (b.support_x.cpu().numpy(), b.support_y.cpu().numpy(),
+                  b.query_x.cpu().numpy())
+
+    def make(uids, support=True):
+        return [EpisodicRequest(uid=u, support_x=sx[u] if support else None,
+                                support_y=sy[u] if support else None,
+                                query_x=qx[u]) for u in uids]
+    return make
+
+
+def warm_engine(learner, params, dev, **kw):
+    """Phase 4's engine (the kernels, 4 lanes, chunks of 32, 8 queries a
+    dispatch, int8 backbone) with ``kw`` on top."""
+    from repro_torch.core.lite import LiteSpec
+    from repro_torch.data.episodic import plan_buckets
+    from repro_torch.serve.episodic import EpisodicServeEngine
+    kw.setdefault("serve_quant", "int8")
+    return EpisodicServeEngine(learner, params, lite=LiteSpec(exact=True, chunk_size=32),
+                               n_slots=4, query_chunk=8, support_buckets=plan_buckets([50]),
+                               kernel_backend="cuda", clock=time.perf_counter,
+                               device=dev, **kw)
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.common.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _bit_equal(a, b) -> bool:
+    import torch
+    from repro_torch.common.tree import tree_paths
+    pa, pb = tree_paths(a), tree_paths(b)
+    return list(pa) == list(pb) and all(
+        pa[k].dtype == pb[k].dtype and pa[k].device == pb[k].device
+        and torch.equal(pa[k], pb[k]) for k in pa)
+
+
+def store_breakdown(state, dev, tmp, reps: int = 5):
+    """Median ms of each part of one spill and one rehydrate of ``state``:
+    the copy to the host, the npz encoding (into memory), the whole
+    ``save_array_tree`` (encoding, write, fsync), the checked read and the
+    copy back to the card."""
+    import io
+    import numpy as np
+    import torch
+    from repro_torch.bridge import to_jax_layout
+    from repro_torch.common.tree import tree_map, tree_to
+    from repro_torch.train.checkpoint import (encode_array_tree, load_array_tree,
+                                              save_array_tree)
+    meta = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), state)
+    host = tree_map(lambda t: t.cpu(), state)
+    parts = {"to_host": lambda: tree_map(lambda t: t.cpu(), state),
+             "encode": lambda: np.savez(io.BytesIO(),
+                                        **encode_array_tree(to_jax_layout(host))[0]),
+             "save_fsync": lambda: save_array_tree(tmp / "x.npz", host),
+             "load_crc": lambda: load_array_tree(tmp / "x.npz", meta, verify=True),
+             "to_device": lambda: tree_to(host, dev)}
+    tmp.mkdir(parents=True, exist_ok=True)
+    out = {}
+    for name, fn in parts.items():
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = statistics.median(times)
+    print("  one spill and rehydrate, median ms: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in out.items()) + f" ({_tree_bytes(state)} B)", flush=True)
+    return out
+
+
+def warm_tier_run(learner, params, dev, make, warm_dir, launches):
+    """Item 1: 12 cold users, then their 12 repeats (support attached) in
+    uid order through an L1 of 2, each repeat a rehydrate whose state must
+    be the adapted state's bits and whose logits the cold wave's; and the
+    same traffic with no warm tier, in turns (warm, none, none, warm, each
+    warm run on a fresh directory).  Launches counted on the first run."""
+    import numpy as np
+    import torch
+    from repro_torch.common.tree import tree_map
+    from repro_torch.kernels import _build
+    uids = list(range(WARM_USERS))
+    out = {"warm": [], "none": []}
+    for i, mode in enumerate(("warm", "none", "none", "warm")):
+        eng = warm_engine(learner, params, dev, cache_capacity=2,
+                          warm_dir=warm_dir / str(i) if mode == "warm" else None)
+        adapted, restored = {}, {}
+        put, get = eng.store.put, eng.store.get
+
+        def put_copy(uid, st, put=put, adapted=adapted):
+            adapted.setdefault(uid, tree_map(lambda t: t.clone(), st))
+            put(uid, st)
+
+        def get_seen(uid, get=get, store=eng.store, restored=restored):
+            before = store.rehydrates
+            st = get(uid)
+            if store.rehydrates > before:
+                restored[uid] = st
+            return st
+
+        eng.store.put, eng.store.get = put_copy, get_seen
+        cold, repeat = make(uids), make(uids)
+        torch.cuda.synchronize()
+        _build.launches.reset()
+        t0 = time.perf_counter()
+        eng.run_to_completion(cold)
+        eng.run_to_completion(repeat)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if i == 0:
+            launches["serve_warm"] = _build.launches.snapshot()
+        s = eng.stats()
+        rel = max(float(np.abs(r.all_logits() - c.all_logits()).max()
+                        / np.abs(c.all_logits()).max()) for c, r in zip(cold, repeat))
+        row = dict(seconds=dt, tasks_per_s=2 * WARM_USERS / dt,
+                   tasks_adapted=s["tasks_adapted"], rehydrates=s["rehydrates"],
+                   spills=s["spills"], query_p50_us=s["query_p50_us"],
+                   query_p99_us=s["query_p99_us"], spill_ms=s["spill_mean_us"] / 1e3,
+                   rehydrate_ms=s["rehydrate_mean_us"] / 1e3,
+                   adapt_wave_ms=s["adapt_cost_est_us"] / 1e3,
+                   repeat_logits_rel=rel, adapt_compiles=s["adapt_compiles"],
+                   predict_compiles=s["predict_compiles"])
+        print(f"serve_warm {mode}: {2 * WARM_USERS} requests ({WARM_USERS} users, then "
+              f"their repeats) in {dt:.4f} s, tasks/s {row['tasks_per_s']:.3f}, adapted "
+              f"{s['tasks_adapted']}, rehydrates {s['rehydrates']}, spills {s['spills']}, "
+              f"first-logit p50/p99 {s['query_p50_us']:.0f}/{s['query_p99_us']:.0f} us, "
+              f"mean spill {row['spill_ms']:.3f} ms, rehydrate {row['rehydrate_ms']:.3f} ms, "
+              f"adapt wave (EWMA) {row['adapt_wave_ms']:.2f} ms, repeat vs cold logits "
+              f"{rel:.3e}", flush=True)
+        if not all(r.done for r in cold + repeat):
+            fail(f"serve_warm {mode}: requests left unserved")
+        if mode == "warm":
+            same = [u for u in uids if u in restored and _bit_equal(restored[u], adapted[u])]
+            print(f"  rehydrated states bit-equal to the adapted ones: {len(same)}/"
+                  f"{WARM_USERS}; launches {_build.launches.snapshot()}", flush=True)
+            if s["rehydrates"] != WARM_USERS or s["tasks_adapted"] != WARM_USERS:
+                fail(f"serve_warm: {s['rehydrates']} rehydrates and {s['tasks_adapted']} "
+                     f"adaptations (want {WARM_USERS} each)")
+            if len(same) != WARM_USERS or not all(r.cache_hit for r in repeat):
+                fail("serve_warm: a rehydrated state differs from its adapted state")
+            if rel > WARM_LOGIT_TOL:
+                fail(f"serve_warm: repeat logits {rel:.3e} of max|logit| from the cold "
+                     f"wave's (tol {WARM_LOGIT_TOL:.0e})")
+            _need("serve_warm", launches["serve_warm"],
+                  ("segment_sum", "class_second_moment", "mahalanobis", "int8_matmul"))
+            if i == 0:
+                out["breakdown"] = store_breakdown(adapted[0], dev, warm_dir / "breakdown")
+        elif s["tasks_adapted"] != 2 * WARM_USERS or s["rehydrates"] != 0:
+            fail(f"serve_warm without a warm tier: {s['tasks_adapted']} adaptations")
+        out[mode].append(row)
+    return out
+
+
+def fomaml_warm_check(dev, make, warm_dir):
+    """Item 2: one FOMAML state (a whole backbone) spilled and rehydrated
+    through a store of capacity 1, timed against its re-adaptation."""
+    import numpy as np
+    import torch
+    from repro_torch.core.episodic import Task, index_task_state
+    from repro_torch.core.lite import LiteSpec
+    from repro_torch.data.episodic import collate_task_batch, plan_buckets
+    from repro_torch.kernels import dispatch
+    from repro_torch.serve.episodic import TwoTierTaskStore
+    learner, params = build_model("fomaml", dev)
+    reqs = make([0, 1])
+    states, adapt_ms = [], []
+    for r in reqs + reqs[:1]:                    # the last a timed re-adaptation
+        task = Task(support_x=r.support_x, support_y=r.support_y,
+                    query_x=np.zeros_like(r.query_x[:1]), query_y=np.zeros(1, np.int32))
+        batch = collate_task_batch([task], support_size=plan_buckets([50])[0],
+                                   query_size=1).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with dispatch.use_backend("cuda"):
+            st = learner.adapt_batch(params, batch, LiteSpec(exact=True, chunk_size=32))
+        torch.cuda.synchronize()
+        adapt_ms.append((time.perf_counter() - t0) * 1e3)
+        states.append(index_task_state(st, 0))
+    store = TwoTierTaskStore(1, warm_dir=warm_dir, device=dev, clock=time.perf_counter)
+    store.put(0, states[0])
+    store.put(1, states[1])                      # spills 0
+    for i in range(4):                           # each get rehydrates, spills the other
+        back = store.get(i % 2)
+        torch.cuda.synchronize()
+        if back is None or not _bit_equal(back, states[i % 2]):
+            fail("fomaml warm tier: a rehydrated state differs from the adapted one")
+    nbytes = _tree_bytes(states[0])
+    row = dict(state_bytes=nbytes, readapt_ms=adapt_ms[-1],
+               spill_ms=store.spill_s / store.spills * 1e3,
+               rehydrate_ms=store.rehydrate_s / store.rehydrates * 1e3,
+               spills=store.spills, rehydrates=store.rehydrates)
+    print(f"serve_warm fomaml: state {nbytes} B; re-adapt {adapt_ms[-1]:.2f} ms (first "
+          f"{adapt_ms[0]:.2f}), rehydrate {row['rehydrate_ms']:.3f} ms, spill "
+          f"{row['spill_ms']:.3f} ms (means of {store.rehydrates} and {store.spills})",
+          flush=True)
+    if row["rehydrate_ms"] >= row["readapt_ms"]:
+        fail("fomaml warm tier: rehydrating costs no less than re-adapting")
+    return row
+
+
+def scheduling_check(learner, params, dev, make, wave_ms, warm_root):
+    """Item 3: the item-1 traffic with new users submitted between steps
+    while lanes stream, with the SLO at 1.5x item 1's adapt wave, at 3x
+    and without, twice each in turns (none, 1.5x, 3x, 3x, 1.5x, none); a
+    queue of 2 against 8 submits; a 1 us deadline."""
+    uids = list(range(WARM_USERS))
+    slos = {"no_slo": None, "slo_1.5x": 1.5 * wave_ms * 1e3, "slo_3x": 3 * wave_ms * 1e3}
+    out = {name: dict(slo_us=slo, runs=[]) for name, slo in slos.items()}
+    for rep, order in enumerate((list(slos), list(slos)[::-1])):
+        for name in order:
+            eng = warm_engine(learner, params, dev, cache_capacity=2,
+                              query_slo_us=slos[name], adapt_cost_hint_us=wave_ms * 1e3,
+                              warm_dir=warm_root / f"{name}_{rep}")
+            # two users first, then one more request each step, so new users
+            # are admitted beside lanes that stream
+            pending = make(uids) + make(uids)
+            reqs = list(pending)
+            for r in pending[:2]:
+                eng.submit(r)
+            pending = pending[2:]
+            while eng.busy or pending:
+                eng.step()
+                if pending:
+                    eng.submit(pending.pop(0))
+            s = eng.stats()
+            if not all(r.done for r in reqs):
+                fail(f"serve_warm {name}: requests left unserved")
+            run = dict(slo_preemptions=s["slo_preemptions"], query_p50_us=s["query_p50_us"],
+                       query_p99_us=s["query_p99_us"], tasks_adapted=s["tasks_adapted"],
+                       rehydrates=s["rehydrates"])
+            out[name]["runs"].append(run)
+            slo = slos[name]
+            print(f"serve_warm {name}: SLO {slo if slo is None else round(slo)} us, "
+                  f"preemptions {s['slo_preemptions']}, first-logit p50/p99 "
+                  f"{s['query_p50_us']:.0f}/{s['query_p99_us']:.0f} us, adapted "
+                  f"{s['tasks_adapted']}, rehydrates {s['rehydrates']}", flush=True)
+    if any(r["slo_preemptions"] for r in out["no_slo"]["runs"]):
+        fail("serve_warm: an engine without an SLO preempted an adapt wave")
+
+    eng = warm_engine(learner, params, dev, max_queue=2, adapt_cost_hint_us=wave_ms * 1e3)
+    reqs = make(range(8))
+    taken = [eng.submit(r) for r in reqs]
+    eng.run_to_completion([])
+    rejected = [r for r in reqs if r.rejected]
+    print(f"serve_warm max_queue=2: {sum(taken)} queued, {len(rejected)} rejected, "
+          f"retry_after_us {[round(r.retry_after_us) for r in rejected]}", flush=True)
+    if len(rejected) != 6 or eng.stats()["rejections"] != 6 or \
+            not all(r.retry_after_us and r.retry_after_us > 0 for r in rejected) or \
+            not all(r.done and r.served == r.n_queries for r in reqs if not r.rejected):
+        fail("serve_warm: the bounded queue did not reject 6 of 8 with a retry-after")
+    out["max_queue"] = dict(queued=sum(taken), rejected=len(rejected),
+                            retry_after_us=[r.retry_after_us for r in rejected])
+
+    eng = warm_engine(learner, params, dev, deadline_us=1.0)
+    late = make(range(8))
+    for r in late:
+        eng.submit(r)
+    eng.run_to_completion([])
+    s = eng.stats()
+    print(f"serve_warm deadline_us=1: {s['deadline_abandoned']} of {len(late)} abandoned, "
+          f"adapted {s['tasks_adapted']}", flush=True)
+    if s["deadline_abandoned"] != len(late) or not all(r.abandoned and r.done for r in late):
+        fail("serve_warm: a 1 us deadline did not abandon every queued request")
+    out["deadline"] = dict(abandoned=s["deadline_abandoned"], tasks_adapted=s["tasks_adapted"])
+    return out
+
+
+def warm_faults_check(learner, params, dev, make, warm_root):
+    """Item 4: ``warm.corrupt`` on uid 0 must quarantine it and its repeat
+    re-adapt to a cold engine's logits; ``warm.vanish`` must cost one spill
+    error while serving goes on."""
+    import numpy as np
+    from repro_torch.faults import WARM_CORRUPT, WARM_VANISH, FaultPlan
+    plan = FaultPlan.single(WARM_CORRUPT, at=0)
+    eng = warm_engine(learner, params, dev, cache_capacity=2, fault_plan=plan,
+                      warm_dir=warm_root / "corrupt")
+    eng.run_to_completion(make([0, 1, 2]))       # uid 0 spilled, then truncated
+    (repeat,) = eng.run_to_completion(make([0]))
+    (ref,) = warm_engine(learner, params, dev).run_to_completion(make([0]))
+    s = corrupt = eng.stats()
+    rel = float(np.abs(repeat.all_logits() - ref.all_logits()).max()
+                / np.abs(ref.all_logits()).max())
+    print(f"serve_warm warm.corrupt: fired {plan.fired_count(WARM_CORRUPT)}, quarantined "
+          f"{s['quarantined']}, repeat cache_hit {repeat.cache_hit}, adapted "
+          f"{s['tasks_adapted']}, logits vs a cold engine {rel:.3e} (tol {LOGIT_TOL:.0e})",
+          flush=True)
+    if plan.fired_count(WARM_CORRUPT) != 1 or s["quarantined"] != 1 or repeat.cache_hit \
+            or s["tasks_adapted"] != 4 or not repeat.done or rel > LOGIT_TOL:
+        fail("serve_warm: the corrupt warm entry was not quarantined and re-adapted")
+    plan = FaultPlan.single(WARM_VANISH)
+    eng = warm_engine(learner, params, dev, cache_capacity=2, fault_plan=plan,
+                      warm_dir=warm_root / "vanish")
+    reqs = eng.run_to_completion(make([0, 1, 2, 3]) + make([0], support=True))
+    s = eng.stats()
+    print(f"serve_warm warm.vanish: spill_errors {s['spill_errors']}, spills {s['spills']}, "
+          f"served {sum(r.done for r in reqs)}/{len(reqs)}", flush=True)
+    if s["spill_errors"] != 1 or not all(r.done for r in reqs) or s["rehydrates"] != 0:
+        fail("serve_warm: the vanished warm directory was not survived as one spill error")
+    return dict(corrupt=dict(quarantined=corrupt["quarantined"], logits_rel=rel),
+                vanish=dict(spill_errors=s["spill_errors"]))
+
+
+def run_serve_launcher(warm_dir, slo_us):
+    """``python -m repro_torch.launch.serve --episodic`` with a warm
+    directory, an L1 of 2, an SLO, a bounded queue and a deadline, on the
+    card as a subprocess; its ``store:`` line must show spills and
+    rehydrates."""
+    import re
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--episodic", "--learner",
+           "simple_cnaps", "--serve-quant", "int8", "--requests", "16",
+           "--warm-dir", str(warm_dir), "--cache-capacity", "2",
+           "--query-slo-us", str(slo_us), "--max-queue", "64", "--deadline-us", "1e8"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    secs = time.perf_counter() - t0
+    m = re.search(r"spills=(\d+) rehydrates=(\d+)", proc.stdout)
+    store = [l.strip() for l in proc.stdout.splitlines() if "store:" in l]
+    print(f"serve launcher: exit {proc.returncode} in {secs:.1f} s; "
+          f"{store[-1] if store else proc.stdout[-500:]}", flush=True)
+    if proc.returncode != 0 or not m or int(m[1]) < 1 or int(m[2]) < 1 \
+            or "device=cuda" not in proc.stdout:
+        fail(f"the serving launcher failed (exit {proc.returncode}):\n"
+             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    return dict(cmd=cmd[1:], exit=proc.returncode, seconds=secs, spills=int(m[1]),
+                rehydrates=int(m[2]))
+
+
+def run_serve_warm(dev, launches):
+    """Phase 4b at phase 4's width (Simple CNAPs, int8 backbone, 224 px):
+    the warm tier, FOMAML's state, the scheduler, the warm faults and the
+    launcher, each failing the run unless its check holds."""
+    import pathlib as _pl
+    import tempfile
+    t0 = time.perf_counter()
+    learner, params = build_model("simple_cnaps", dev)
+    make = warm_traffic(dev)
+    out = dict(kind="serve_warm")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_warm_") as tmp:
+        root = _pl.Path(tmp)
+        out["tier"] = warm_tier_run(learner, params, dev, make, root / "tier", launches)
+        wave_ms = out["tier"]["warm"][0]["adapt_wave_ms"]
+        out["fomaml"] = fomaml_warm_check(dev, make, root / "fomaml")
+        out["scheduling"] = scheduling_check(learner, params, dev, make, wave_ms, root)
+        out["faults"] = warm_faults_check(learner, params, dev, make, root)
+        out["launcher"] = run_serve_launcher(root / "launcher", round(1.5 * wave_ms * 1e3))
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 4b: {out['seconds']:.1f} s", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1718,6 +2105,7 @@ def main() -> int:
     if served.get("int8_matmul/cp16", 0) != served.get("int8_matmul", 0):
         fail(f"the serving path's int8 matmul launches did not all take the 16-byte "
              f"copies: {served}")
+    summary.append(run_serve_warm(dev, launches))
     summary.append(run_training(dev, launches))
     summary.append(run_training_rest(dev, launches, summary[-1]))
     ops_rows, ops_planted = run_ops_path(dev, launches)

@@ -1,7 +1,7 @@
-"""Fault injection for the training runtime (:mod:`repro_torch.faults.plan`)
-and :class:`PreemptionSignal`, the production half of graceful
-preemption: the launcher installs it on SIGTERM; the loop polls it at each
-step boundary, flushes a checkpoint and raises ``PreemptedError`` (the same
+"""Fault injection for the training and serving runtime
+(:mod:`repro_torch.faults.plan`) and :class:`PreemptionSignal`, the
+production half of graceful preemption: the launcher installs it on
+SIGTERM; the loop polls it at each step boundary, flushes a checkpoint and raises ``PreemptedError`` (the same
 path a ``train.preempt`` fault takes)."""
 from __future__ import annotations
 
@@ -11,13 +11,15 @@ from typing import Optional, Sequence
 from repro_torch.faults.plan import (ALL_SITES, CKPT_PRE_COMMIT,
                                      CKPT_PRE_REPLACE, DATA_NAN,
                                      DATA_TRANSIENT, FAULT_SITES,
-                                     TRAIN_PREEMPT, TRAIN_STRAGGLER, FaultPlan,
+                                     TRAIN_PREEMPT, TRAIN_STRAGGLER,
+                                     WARM_CORRUPT, WARM_VANISH, FaultPlan,
                                      FaultSpec, InjectedKill,
                                      TransientDataError, advance_clock)
 
 __all__ = [
     "ALL_SITES", "CKPT_PRE_COMMIT", "CKPT_PRE_REPLACE", "DATA_NAN",
     "DATA_TRANSIENT", "FAULT_SITES", "TRAIN_PREEMPT", "TRAIN_STRAGGLER",
+    "WARM_CORRUPT", "WARM_VANISH",
     "FaultPlan", "FaultSpec", "InjectedKill", "TransientDataError",
     "advance_clock", "PreemptionSignal",
 ]

@@ -1,13 +1,14 @@
 """Deterministic fault-injection plans: the port's copy of the JAX
-package's ``repro/faults/plan.py``, for the sites that the training loop
-and the checkpointer fire.
+package's ``repro/faults/plan.py``, for the sites that the training loop,
+the checkpointer and the serving warm tier fire.
 
 A :class:`FaultPlan` is a seeded, fully deterministic schedule of
 :class:`FaultSpec` triggers ``(site, at, kind)`` that the fault-tolerant
 components accept by injection (``train(fault_plan=...)``,
-``CheckpointManager(fault_plan=...)``), so every failure mode the loop
-claims to survive reproduces in a test without monkeypatching, timing or
-real signals.
+``CheckpointManager(fault_plan=...)``,
+``EpisodicServeEngine(fault_plan=...)``), so every failure mode they claim
+to survive reproduces in a test without monkeypatching, timing or real
+signals.
 
 ==========================  ================================================
 ``data.nan``                poison the step's batch with NaN (every float
@@ -22,10 +23,16 @@ real signals.
                             checkpoint tmp write, before the COMMIT marker
 ``ckpt.pre_replace``        kill after COMMIT, before the atomic
                             ``os.replace`` publish
+``warm.corrupt``            truncate a uid's just-published warm-tier npz to
+                            ``payload`` bytes (default 16) — the read
+                            quarantines it
+``warm.vanish``             remove the warm directory before a spill — the
+                            store degrades to L1-only
 ==========================  ================================================
 
-``at`` is the step (``None`` matches any); ``count`` bounds how many times a
-spec fires; every firing is recorded in ``plan.fired``.
+``at`` is the step, or the task uid at the warm sites (``None`` matches
+any); ``count`` bounds how many times a spec fires; every firing is
+recorded in ``plan.fired``.
 """
 from __future__ import annotations
 
@@ -41,9 +48,11 @@ TRAIN_PREEMPT = "train.preempt"
 TRAIN_STRAGGLER = "train.straggler"
 CKPT_PRE_COMMIT = "ckpt.pre_commit"
 CKPT_PRE_REPLACE = "ckpt.pre_replace"
+WARM_CORRUPT = "warm.corrupt"
+WARM_VANISH = "warm.vanish"
 
 ALL_SITES = (DATA_NAN, DATA_TRANSIENT, TRAIN_PREEMPT, TRAIN_STRAGGLER,
-             CKPT_PRE_COMMIT, CKPT_PRE_REPLACE)
+             CKPT_PRE_COMMIT, CKPT_PRE_REPLACE, WARM_CORRUPT, WARM_VANISH)
 
 # every FaultSpec.site must be one of these (checked at construction), and
 # every injection point names its site by the constants above (the lint
@@ -119,6 +128,23 @@ class FaultPlan:
         return cls([FaultSpec(site=site, at=at, kind=kind, payload=payload,
                               count=count)])
 
+    @classmethod
+    def seeded(cls, seed: int, site: str, num_steps: int, rate: float,
+               kind: str = "error", payload: Any = None,
+               count: int = 1) -> "FaultPlan":
+        """Each step in ``range(num_steps)`` gets a trigger with probability
+        ``rate``, drawn from ``np.random.default_rng(seed)``: the same seed
+        gives the same schedule (the JAX package's, draw for draw)."""
+        rng = np.random.default_rng(seed)
+        steps = np.nonzero(rng.random(num_steps) < rate)[0]
+        return cls([FaultSpec(site=site, at=int(s), kind=kind,
+                              payload=payload, count=count) for s in steps])
+
+    def extend(self, other: "FaultPlan") -> "FaultPlan":
+        """Merge another plan's specs into this one (one ``fired`` log)."""
+        self.specs.extend(other.specs)
+        return self
+
     def fire(self, site: str, at: Optional[int] = None) -> Optional[FaultSpec]:
         for spec in self.specs:
             if spec.site != site or spec.remaining <= 0:
@@ -129,6 +155,12 @@ class FaultPlan:
             self.fired.append((site, at, spec.kind))
             return spec
         return None
+
+    def fired_count(self, site: Optional[str] = None) -> int:
+        """Firings so far, of ``site`` or of every site."""
+        if site is None:
+            return len(self.fired)
+        return sum(1 for s, _, _ in self.fired if s == site)
 
     def wrap_batch_at(self, batch_at: Callable[[int], Any]
                       ) -> Callable[[int], Any]:

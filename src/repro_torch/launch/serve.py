@@ -1,19 +1,27 @@
 """Episodic serving launcher for the PyTorch port.
 
     python -m repro_torch.launch.serve --episodic --learner simple_cnaps \
-        --serve-quant int8 --requests 8 --slots 4
+        --serve-quant int8 --requests 8 --slots 4 --cache-capacity 2 \
+        --warm-dir /tmp/warm_states --query-slo-us 50000
 
 Each request is a support set to adapt on and a query stream to answer;
-``--repeat-frac`` of the requests revisit earlier users (cache hits).  The
-model is the JAX launcher's smoke size (conv backbone widths (16, 32),
-feature_dim 64; conv set encoder 2 blocks of width 16, task_dim 32) with
-random weights from ``--seed``.  Traffic comes from the numpy host sampler
-``repro_torch.data.episodic.host_task_batch_at``, so it differs from the
-JAX launcher's (which samples with ``jax.random``).  Runs on ``--device``
-(default ``cuda``; pass ``--device cpu`` to run without a GPU).
-``--learner`` takes every kind: fomaml serves in fp32 (it freezes no
+``--repeat-frac`` of the requests revisit earlier users (store hits).  The
+task-state store is an L1 LRU of ``--cache-capacity`` states over an
+optional ``--warm-dir`` disk tier: evicted states spill there and repeat
+users rehydrate bit-exactly instead of re-adapting.  ``--query-slo-us``
+lets near-deadline query chunks preempt an adapt wave (costed from
+``--adapt-cost-hint-us`` until measured), ``--max-queue`` bounds the
+admission queue and ``--deadline-us`` abandons requests still without
+logits past it.  The model is the JAX launcher's smoke size (conv backbone
+widths (16, 32), feature_dim 64; conv set encoder 2 blocks of width 16,
+task_dim 32) with random weights from ``--seed``.  Traffic comes from the
+numpy host sampler ``repro_torch.data.episodic.host_task_batch_at``, so it
+differs from the JAX launcher's (which samples with ``jax.random``).  Runs
+on ``--device`` (default ``cuda``; pass ``--device cpu`` to run without a
+GPU).  ``--learner`` takes every kind: fomaml serves in fp32 (it freezes no
 weights), finetuner with ``--serve-quant int8`` runs its frozen head
-through the int8 matmul kernel.
+through the int8 matmul kernel.  Not ported: the JAX launcher's LM decode,
+``--replicas`` and ``--serve-layout``.
 """
 from __future__ import annotations
 
@@ -75,7 +83,10 @@ def run_episodic(args, clock: Callable[[], float] = time.monotonic) -> dict:
         learner, params, lite=lite, n_slots=args.slots,
         query_chunk=args.query_chunk, support_buckets=buckets,
         kernel_backend=args.kernel_backend,
-        cache_capacity=args.cache_capacity, serve_quant=args.serve_quant,
+        cache_capacity=args.cache_capacity, warm_dir=args.warm_dir,
+        warm_shards=args.warm_shards or 1, query_slo_us=args.query_slo_us,
+        adapt_cost_hint_us=args.adapt_cost_hint_us, max_queue=args.max_queue,
+        deadline_us=args.deadline_us, serve_quant=args.serve_quant,
         device=device)
     # cold wave first, so every repeat finds its user's state cached
     t0 = clock()
@@ -83,17 +94,31 @@ def run_episodic(args, clock: Callable[[], float] = time.monotonic) -> dict:
     engine.run_to_completion(warm)
     dt = max(clock() - t0, 1e-9)
     s = engine.stats()
-    if not all(r.done for r in reqs):
-        raise RuntimeError("engine finished with unserved requests")
+    # every request ends served or as a counted degradation (rejected,
+    # abandoned past its deadline, failed on a quarantined state)
+    if not all(r.done or r.rejected for r in reqs):
+        raise RuntimeError("engine finished with requests in no terminal state")
     print(f"episodic serve: learner={args.learner} {len(reqs)} requests "
           f"({len(cold)} distinct users) in {dt:.2f}s on {args.slots} slots, "
           f"device={device} backend={engine.kernel_backend}")
     print(f"  tasks adapted {s['tasks_adapted']} ({s['tasks_adapted']/dt:.1f}/s), "
           f"queries {s['queries_served']} ({s['queries_served']/dt:.1f}/s), "
-          f"cache hit-rate {s['hit_rate']:.2f}")
+          f"cache hit-rate {s['hit_rate']:.2f}, "
+          f"compiles adapt={s['adapt_compiles']} "
+          f"predict={s['predict_compiles']}")
     print(f"  latency: adapt p50/p99 {s['adapt_p50_us']:.0f}/"
           f"{s['adapt_p99_us']:.0f} us, query (first logit) p50/p99 "
-          f"{s['query_p50_us']:.0f}/{s['query_p99_us']:.0f} us")
+          f"{s['query_p50_us']:.0f}/{s['query_p99_us']:.0f} us; "
+          f"store: evictions={s['evictions']} spills={s['spills']} "
+          f"rehydrates={s['rehydrates']} (mean spill "
+          f"{s['spill_mean_us']:.0f} us, rehydrate "
+          f"{s['rehydrate_mean_us']:.0f} us), "
+          f"slo_preemptions={s['slo_preemptions']}")
+    print(f"  degradation: quarantined={s['quarantined']} "
+          f"spill_errors={s['spill_errors']} "
+          f"rejections={s['rejections']} "
+          f"deadline_abandoned={s['deadline_abandoned']} "
+          f"failed_requests={s['failed_requests']}")
     print(f"  weights: quant={args.serve_quant} resident "
           f"{s['param_bytes_resident']} B (fp32 {s['param_bytes_fp32']} B; "
           f"frozen slice {s['frozen_param_bytes_resident']} / "
@@ -125,7 +150,30 @@ def main(argv: Optional[List[str]] = None,
     ap.add_argument("--lite-dtype", choices=["bfloat16", "float16"],
                     default=None, help="serve-time adaptation compute dtype")
     ap.add_argument("--cache-capacity", type=int, default=64,
-                    help="task-state LRU capacity")
+                    help="L1 task-state LRU capacity (resident adapted "
+                         "states); evictions spill to --warm-dir when set")
+    ap.add_argument("--warm-dir", default=None,
+                    help="disk warm tier for evicted task states, rehydrated "
+                         "bit-exactly on a repeat uid instead of re-adapting "
+                         "(default: off, evictions discard)")
+    ap.add_argument("--warm-shards", type=int, default=None,
+                    help="uid-hash shard subdirs under --warm-dir (default: "
+                         "none, the files at its root)")
+    ap.add_argument("--query-slo-us", type=float, default=None,
+                    help="per-request first-logit SLO in microseconds: a "
+                         "pending adapt wave is deferred when it would push "
+                         "a live lane's queries past this deadline")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="bound the admission queue: a submit over the bound "
+                         "is rejected with a retry-after estimate (EWMA adapt "
+                         "cost) (default: unbounded)")
+    ap.add_argument("--deadline-us", type=float, default=None,
+                    help="per-request deadline from enqueue: a request still "
+                         "without logits past it is abandoned and its lane or "
+                         "queue place freed (default: off)")
+    ap.add_argument("--adapt-cost-hint-us", type=float, default=None,
+                    help="seed of the EWMA adapt-dispatch cost the SLO "
+                         "scheduler plans with (measured thereafter)")
     ap.add_argument("--serve-quant", choices=["none", "int8"], default="none",
                     help="store the learner's frozen backbone in blockwise "
                          "int8; the head runs through the int8_matmul kernel")

@@ -1,48 +1,98 @@
 """Episodic serving engine: adapt many tasks, answer their query streams.
 
 A request is one episode: a support set to adapt on and a query stream to
-answer.  ``submit`` enqueues; each ``step`` admits FIFO from the queue into
-up to ``n_slots`` live task lanes (head-of-line: a request whose uid is
-already live waits, so one uid is never adapted twice at once), adapts the
-newly admitted tasks in one batched dispatch per support bucket, and serves
-the next query chunk of every live task in one batched dispatch.  Lanes are
-padded to ``n_slots``, so every dispatch has one shape per bucket.
+answer.  Re-adaptation is the expensive tail of serving, so the engine is
+built around keeping adapted task states:
 
-Adapted states live in an LRU keyed by task uid (:class:`TaskStateCache`):
-a repeat uid skips adaptation.  Requests carry enqueue / admit / adapt /
-first-logit / done timestamps from the engine's injectable ``clock``, and
-``stats()`` reports nearest-rank p50/p99 adapt and first-logit latency.
+* **Continuous batching** — ``submit`` enqueues; each ``step`` admits FIFO
+  from the queue into up to ``n_slots`` live task lanes (head-of-line: a
+  request whose uid is already live waits, so one uid is never adapted
+  twice at once), adapts the newly admitted tasks in one batched dispatch
+  per support bucket, and serves the next query chunk of every live task
+  in one batched dispatch.  Lanes are padded to ``n_slots``, so every
+  dispatch has one shape per bucket; both dispatches go through a
+  per-shape :class:`repro_torch.train.pipeline.BucketedStepCache`, whose
+  counts ``stats()`` reports as ``adapt_compiles`` / ``predict_compiles``.
+* **Latency accounting from an injectable clock** — requests carry
+  enqueue / admit / adapt / first-logit / done timestamps from the
+  engine's ``clock`` (default ``time.monotonic``), and ``stats()`` reports
+  nearest-rank p50/p99 adapt and first-logit latency.
+* **SLO-aware scheduling** — with ``query_slo_us`` set, a step whose
+  pending adapt wave would push a live lane's first query past its
+  deadline (estimated from an EWMA of measured adapt-dispatch time,
+  seeded by ``adapt_cost_hint_us``) defers the wave and serves queries
+  instead; a deadline already missed no longer preempts, so adapt waves
+  cannot starve.
+* **Backpressure, deadlines, faults** — ``max_queue`` rejects a submit
+  over the bound with a ``retry_after_us`` estimate; ``deadline_us``
+  abandons a request still without logits past its deadline;
+  ``fault_plan`` drives the warm tier's sites ``warm.corrupt`` and
+  ``warm.vanish``.
+* **Two-tier task-state store** — adapted states live in an L1 LRU keyed
+  by uid (:class:`TaskStateCache`); with ``warm_dir`` set, L1 eviction
+  spills the state to a disk warm tier (:class:`WarmTaskStore`, one npz a
+  uid in the JAX package's format) and a repeat uid that misses L1
+  rehydrates bit-exactly instead of re-adapting.  Only the disk's errors
+  are handled as the disk's: the copies between the card and the host lie
+  outside every ``except``, so a CUDA error propagates.
 
 The engine runs on ``device`` (default ``"cuda"``) and raises if that
 device is not available; a CPU run must ask for it.  The kernel backend
 (:mod:`repro_torch.kernels.dispatch`) is fixed at construction: ``auto``
 resolves to the CUDA kernels on a GPU and to ``ref`` on the CPU.
 
-Not ported yet: the disk warm tier, SLO scheduling, deadlines, the bounded
-queue, fault injection, sharded layouts and replicas.
+Not ported: the JAX engine's sharded serving layouts (``serve_layout``,
+``mesh``) and the replica router (``repro/serve/replica.py``).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import json
 import math
+import os
+import pathlib
+import shutil
 import time
+import zipfile
+import zlib
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.common.tree import tree_to
+from repro_torch.common.tree import tree_map, tree_to
 from repro_torch.core.episodic import Task, index_task_state, stack_task_states
 from repro_torch.core.lite import LiteSpec
 from repro_torch.core.meta_learners import MetaLearner
 from repro_torch.data.episodic import (bucket_for, collate_task_batch,
                                        iter_query_chunks)
+from repro_torch.faults.plan import WARM_CORRUPT, WARM_VANISH
 from repro_torch.kernels import dispatch
 from repro_torch.serve.quant_params import (dequantize_params, param_bytes,
                                             quantize_frozen)
+from repro_torch.train.checkpoint import (ChecksumError, load_array_tree,
+                                          save_array_tree)
+from repro_torch.train.pipeline import BucketedStepCache
 
 Tree = Any
+
+# the port's template sidecar; the JAX package's store writes (and lists)
+# ``uid_*.tmpl.pkl`` pickles of jax.ShapeDtypeStruct, which the port cannot
+# read, so neither store lists or drops the other's sidecars
+_SIDECAR = ".tmpl.json"
+# what reading a warm entry raises when the file is bad: a truncated or
+# zero-byte npz (EOFError, BadZipFile), a bad member (ValueError,
+# KeyError), a crc32 mismatch, the file system itself
+_READ_ERRORS = (OSError, EOFError, ValueError, KeyError, zipfile.BadZipFile,
+                zlib.error, ChecksumError)
+
+
+def stable_uid_hash(uid: int) -> int:
+    """Process-stable hash of a task uid: crc32 of its 8-byte little-endian
+    signed encoding, the JAX package's own (Python's ``hash`` is salted per
+    process; warm-dir shards must agree across restarts)."""
+    return zlib.crc32(int(uid).to_bytes(8, "little", signed=True))
 
 
 def _pctl(xs: Sequence[float], q: float) -> float:
@@ -65,10 +115,19 @@ def resolve_device(device) -> torch.device:
 
 @dataclasses.dataclass
 class EpisodicRequest:
-    """One episode.  ``uid`` is the task identity (the cache key): a repeat
-    uid may omit its support set while its state is cached.  ``query_x`` is
-    served in engine-sized chunks, logits kept in arrival order.  The
-    ``t_*`` timestamps (seconds) come from the engine's clock."""
+    """One episode.  ``uid`` is the task identity (the store key): a repeat
+    uid may omit its support set while its state is in either store tier.
+    ``query_x`` is served in engine-sized chunks, logits kept in arrival
+    order.
+
+    Degradation outcomes (each also a ``stats()`` counter): ``rejected`` —
+    the bounded queue refused the submit (``retry_after_us`` says when to
+    offer it again); ``abandoned`` — its deadline passed before its first
+    logit; ``failed`` — a support-less request whose only stored state was
+    quarantined, so nothing can produce its logits.
+
+    The ``t_*`` timestamps (seconds) come from the engine's clock:
+    ``t_adapt`` is absent on a store hit."""
 
     uid: int
     query_x: np.ndarray                          # (M, H, W, C)
@@ -79,6 +138,10 @@ class EpisodicRequest:
     served: int = 0
     cache_hit: Optional[bool] = None
     done: bool = False
+    rejected: bool = False
+    retry_after_us: Optional[float] = None
+    abandoned: bool = False
+    failed: bool = False
     t_enqueue: Optional[float] = None
     t_admit: Optional[float] = None
     t_adapt: Optional[float] = None
@@ -100,11 +163,14 @@ class EpisodicRequest:
 
 
 class TaskStateCache:
-    """LRU of adapted task states keyed by uid.  ``hits``/``misses`` count
-    ``get`` lookups only; ``put`` on a present uid is an overwrite;
-    ``evictions`` counts capacity evictions."""
+    """LRU of adapted task states keyed by uid, the L1 of the two-tier
+    store.  ``hits``/``misses`` count ``get`` lookups only; ``put`` on a
+    present uid is an overwrite (recency refreshed); ``evictions`` counts
+    capacity evictions, each ``(uid, state)`` handed to ``on_evict`` (the
+    warm tier's spill) before it leaves L1."""
 
-    def __init__(self, capacity: int = 64):
+    def __init__(self, capacity: int = 64,
+                 on_evict: Optional[Callable[[int, Tree], None]] = None):
         if capacity < 1:
             raise ValueError(f"cache capacity must be >= 1, got {capacity}")
         self.capacity = capacity
@@ -112,6 +178,7 @@ class TaskStateCache:
         self.misses = 0
         self.overwrites = 0
         self.evictions = 0
+        self._on_evict = on_evict
         self._d: "collections.OrderedDict[int, Tree]" = collections.OrderedDict()
 
     def get(self, uid: int) -> Optional[Tree]:
@@ -132,14 +199,290 @@ class TaskStateCache:
         self._d[uid] = state
         self._d.move_to_end(uid)
         while len(self._d) > self.capacity:
-            self._d.popitem(last=False)
+            old_uid, old_state = self._d.popitem(last=False)
             self.evictions += 1
+            if self._on_evict is not None:
+                self._on_evict(old_uid, old_state)
 
     def __contains__(self, uid: int) -> bool:
         return uid in self._d
 
     def __len__(self) -> int:
         return len(self._d)
+
+
+def _template_json(tree: Tree):
+    """The structure, shapes and dtypes of a state tree, as JSON."""
+    if isinstance(tree, dict):
+        return {"dict": {k: _template_json(v) for k, v in tree.items()}}
+    if isinstance(tree, (list, tuple)):
+        return {type(tree).__name__: [_template_json(v) for v in tree]}
+    return {"shape": list(tree.shape), "dtype": str(tree.dtype).removeprefix("torch.")}
+
+
+def _template_from_json(obj) -> Tree:
+    """:func:`_template_json`'s inverse: the tree with a meta tensor (shape
+    and dtype, no storage) at every leaf."""
+    if "dict" in obj:
+        return {k: _template_from_json(v) for k, v in obj["dict"].items()}
+    if "list" in obj:
+        return [_template_from_json(v) for v in obj["list"]]
+    if "tuple" in obj:
+        return tuple(_template_from_json(v) for v in obj["tuple"])
+    dtype = getattr(torch, obj["dtype"], None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"not a torch dtype: {obj['dtype']!r}")
+    return torch.empty(obj["shape"], dtype=dtype, device="meta")
+
+
+class WarmTaskStore:
+    """Disk warm tier for spilled task states: one npz per uid written by
+    :func:`repro_torch.train.checkpoint.save_array_tree` (the JAX package's
+    format, leaves in its layout) and published by ``os.replace``, so a
+    rehydrated state is bit-exact to the spilled one.  ``put`` takes a tree
+    of host tensors and ``get`` returns one: moving states to and from the
+    card is the caller's job.
+
+    Each uid's template (structure, shapes, dtypes) is held in memory and
+    written beside the npz, after it, as a JSON sidecar ``uid_N.tmpl.json``:
+    a fresh store over the same directory reads the sidecars and serves
+    every surviving uid (``template_restores``).  A sidecar that cannot be
+    read is dropped (its uid re-adapts).
+
+    With ``shards > 1`` a uid's files live in ``shard_{stable_uid_hash(uid)
+    % shards}``, the JAX package's directory for it.  A ``get`` or ``in``
+    miss rescans the uid's canonical sidecar path, the root and every shard
+    (``rescan_hits``), so a uid spilled by another store after this one's
+    startup scan is still found, and a ``put`` migrates an entry written
+    under another shard count to its canonical shard.
+
+    Every read checks the crc32 the writer embedded.  A read that fails on
+    the file (truncated, bad zip, checksum, missing leaf, or the file gone)
+    quarantines the entry: the npz is renamed aside
+    (``quarantine_uid_N_K.npz``), the sidecar and template dropped,
+    ``quarantined`` bumped, and ``get`` returns None.  ``fault_plan`` site
+    ``warm.corrupt`` truncates a uid's just-published npz to ``payload``
+    bytes (default 16)."""
+
+    def __init__(self, directory: str | pathlib.Path, fault_plan=None,
+                 shards: int = 1):
+        if shards < 1:
+            raise ValueError(f"shards must be >= 1, got {shards}")
+        self.dir = pathlib.Path(directory)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.shards = int(shards)
+        self._templates: Dict[int, Tree] = {}
+        # the subdir each known uid's files live in: its canonical shard,
+        # unless written under another shard count and not yet migrated
+        self._homes: Dict[int, pathlib.Path] = {}
+        self._fault_plan = fault_plan
+        self.quarantined = 0
+        self.template_restores = 0
+        self.rescan_hits = 0
+        for side in sorted(self.dir.glob(f"uid_*{_SIDECAR}")) + \
+                sorted(self.dir.glob(f"shard_*/uid_*{_SIDECAR}")):
+            if self._load_sidecar(side):
+                self.template_restores += 1
+
+    def _load_sidecar(self, side: pathlib.Path) -> bool:
+        try:
+            uid = int(side.name.split(".")[0].split("_", 1)[1])
+            self._templates[uid] = _template_from_json(json.loads(side.read_text()))
+            self._homes[uid] = side.parent
+            return True
+        except (OSError, ValueError, KeyError, TypeError) as e:
+            print(f"warm tier: dropping unreadable template sidecar "
+                  f"{side.name} ({type(e).__name__}: {e})", flush=True)
+            side.unlink(missing_ok=True)
+            return False
+
+    def _shard_dir(self, uid: int) -> pathlib.Path:
+        """Canonical subdir for ``uid``, a function of (uid, shards) only."""
+        if self.shards == 1:
+            return self.dir
+        return self.dir / f"shard_{stable_uid_hash(uid) % self.shards}"
+
+    def _home(self, uid: int) -> pathlib.Path:
+        return self._homes.get(uid, self._shard_dir(uid))
+
+    def _path(self, uid: int) -> pathlib.Path:
+        return self._home(uid) / f"uid_{uid}.npz"
+
+    def _tmpl_path(self, uid: int) -> pathlib.Path:
+        return self._home(uid) / f"uid_{uid}{_SIDECAR}"
+
+    def _rescan(self, uid: int) -> bool:
+        """Look for ``uid``'s sidecar written after this store's startup
+        scan: its canonical shard first, then the root and every shard."""
+        name = f"uid_{uid}{_SIDECAR}"
+        candidates = [self._shard_dir(uid) / name, self.dir / name]
+        candidates += sorted(self.dir.glob(f"shard_*/{name}"))
+        for side in candidates:
+            if side.exists() and self._load_sidecar(side):
+                self.rescan_hits += 1
+                return True
+        return False
+
+    def put(self, uid: int, state: Tree) -> None:
+        home = self._shard_dir(uid)
+        if home != self.dir:
+            # parents=False: a vanished warm root stays an OSError for the
+            # caller (warm.vanish degrades to L1-only), never recreated here
+            home.mkdir(exist_ok=True)
+        old_home = self._homes.get(uid)
+        tmp = home / f".tmp_uid_{uid}.npz"
+        save_array_tree(tmp, state)
+        os.replace(tmp, home / f"uid_{uid}.npz")
+        tmpl = tree_map(lambda a: torch.empty(a.shape, dtype=a.dtype, device="meta"),
+                        state)
+        self._templates[uid] = tmpl
+        self._homes[uid] = home
+        # the sidecar after the npz: a crash between the two leaves an npz
+        # that no store lists, never a sidecar naming a half-written file
+        side_tmp = home / f".tmp_uid_{uid}{_SIDECAR}"
+        with open(side_tmp, "w") as f:
+            json.dump(_template_json(tmpl), f)
+        os.replace(side_tmp, home / f"uid_{uid}{_SIDECAR}")
+        if old_home is not None and old_home != home:
+            # migrated from another shard layout: drop the old files so a
+            # rescan can never resurrect the stale copy
+            (old_home / f"uid_{uid}.npz").unlink(missing_ok=True)
+            (old_home / f"uid_{uid}{_SIDECAR}").unlink(missing_ok=True)
+        if self._fault_plan is not None:
+            spec = self._fault_plan.fire(WARM_CORRUPT, uid)
+            if spec is not None:
+                keep = int(spec.payload) if spec.payload is not None else 16
+                with open(self._path(uid), "r+b") as f:
+                    f.truncate(keep)
+
+    def _quarantine(self, uid: int, err: Exception) -> None:
+        path = self._path(uid)
+        self.quarantined += 1
+        self._tmpl_path(uid).unlink(missing_ok=True)
+        self._templates.pop(uid, None)
+        if path.exists():
+            aside = path.parent / f"quarantine_uid_{uid}_{self.quarantined}.npz"
+            os.replace(path, aside)
+            where = f"moved aside to {aside.name}"
+        else:
+            where = "file already gone"
+        self._homes.pop(uid, None)
+        print(f"warm tier: quarantined uid={uid} ({type(err).__name__}: "
+              f"{err}; {where})", flush=True)
+
+    def get(self, uid: int) -> Optional[Tree]:
+        """``uid``'s state as host tensors, or None (unknown, or
+        quarantined now)."""
+        if uid not in self._templates and not self._rescan(uid):
+            return None
+        path = self._path(uid)
+        if not path.exists():
+            self._quarantine(uid, FileNotFoundError(str(path)))
+            return None
+        try:
+            return load_array_tree(path, self._templates[uid], verify=True)
+        except _READ_ERRORS as e:
+            self._quarantine(uid, e)
+            return None
+
+    def __contains__(self, uid: int) -> bool:
+        if uid not in self._templates and not self._rescan(uid):
+            return False
+        return self._path(uid).exists()
+
+    def __len__(self) -> int:
+        return sum(1 for uid in self._templates if self._path(uid).exists())
+
+
+class TwoTierTaskStore:
+    """L1 LRU of resident task states (on ``device``) over an optional disk
+    warm tier.
+
+    ``get`` promotes a warm hit back into L1, which may spill another
+    state.  ``hits``/``misses`` are the L1's; ``spills`` counts evictions
+    that landed in the warm tier, ``rehydrates`` warm-tier loads, and
+    ``spill_s`` / ``rehydrate_s`` their total seconds on ``clock`` (copy
+    and disk together).  Without ``warm_dir`` eviction discards.
+
+    A spill whose write fails with an ``OSError`` (the warm directory
+    removed under the engine: the ``warm.vanish`` site) is logged and
+    counted once in ``spill_errors``, and the store serves L1-only from
+    then on; a discarded state re-adapts on its next request.  The copy
+    from the card to the host (spill) and back (rehydrate) lies outside
+    every ``except``: a device error propagates."""
+
+    def __init__(self, capacity: int = 64,
+                 warm_dir: Optional[str | pathlib.Path] = None,
+                 fault_plan=None, warm_shards: int = 1, device="cuda",
+                 clock: Callable[[], float] = time.perf_counter):
+        self.device = resolve_device(device)
+        self.warm = (WarmTaskStore(warm_dir, fault_plan=fault_plan,
+                                   shards=warm_shards)
+                     if warm_dir is not None else None)
+        self.l1 = TaskStateCache(capacity, on_evict=self._spill)
+        self._fault_plan = fault_plan
+        self._clock = clock
+        self.spills = 0
+        self.rehydrates = 0
+        self.spill_errors = 0
+        self.spill_s = 0.0
+        self.rehydrate_s = 0.0
+        self.warm_disabled = False
+
+    @property
+    def quarantined(self) -> int:
+        return self.warm.quarantined if self.warm is not None else 0
+
+    @property
+    def rescan_hits(self) -> int:
+        return self.warm.rescan_hits if self.warm is not None else 0
+
+    def _warm_live(self) -> bool:
+        return self.warm is not None and not self.warm_disabled
+
+    def _spill(self, uid: int, state: Tree) -> None:
+        if not self._warm_live():
+            return
+        t0 = self._clock()
+        host = tree_map(lambda t: t.cpu(), state)
+        if self._fault_plan is not None and \
+                self._fault_plan.fire(WARM_VANISH, uid) is not None:
+            shutil.rmtree(self.warm.dir, ignore_errors=True)
+        try:
+            self.warm.put(uid, host)
+        except OSError as e:
+            self.spill_errors += 1
+            self.warm_disabled = True
+            print(f"warm tier: spill of uid={uid} failed ({type(e).__name__}: "
+                  f"{e}); degrading to L1-only, evicted states will re-adapt",
+                  flush=True)
+            return
+        self.spill_s += self._clock() - t0
+        self.spills += 1
+
+    def get(self, uid: int) -> Optional[Tree]:
+        state = self.l1.get(uid)
+        if state is not None:
+            return state
+        if self._warm_live():
+            t0 = self._clock()
+            host = self.warm.get(uid)
+            if host is not None:
+                state = tree_to(host, self.device)
+                self.rehydrate_s += self._clock() - t0
+                self.rehydrates += 1
+                self.l1.put(uid, state)          # promote (may spill another)
+                return state
+        return None
+
+    def put(self, uid: int, state: Tree) -> None:
+        self.l1.put(uid, state)
+
+    def __contains__(self, uid: int) -> bool:
+        return uid in self.l1 or (self._warm_live() and uid in self.warm)
+
+    def __len__(self) -> int:
+        return len(self.l1)
 
 
 @dataclasses.dataclass
@@ -151,7 +494,8 @@ class _Slot:
 
 class EpisodicServeEngine:
     """Single-device adapt-many-tasks engine over the batched contract
-    (``learner.adapt_batch`` / ``learner.predict_batch``).
+    (``learner.adapt_batch`` / ``learner.predict_batch``); the module
+    docstring has the whole contract.
 
     ``support_buckets`` are the planned support pad caps
     (:func:`repro_torch.data.episodic.plan_buckets`); a larger support set
@@ -159,6 +503,14 @@ class EpisodicServeEngine:
     frozen slice in blockwise int8 (dequantized at each dispatch, the head
     left int8 for the ``int8_matmul`` kernel).  ``params`` may live on any
     device; the engine moves them to ``device``.
+
+    ``warm_dir`` (and ``warm_shards`` uid-hash subdirs under it) turns on
+    the disk warm tier; ``fault_plan`` reaches its fault sites.
+    ``query_slo_us`` is the first-logit SLO the scheduler defends, planning
+    with ``adapt_cost_hint_us`` until an adapt dispatch has been timed.
+    ``max_queue`` bounds the admission queue (admitted requests are never
+    dropped for it); ``deadline_us`` abandons a request still without logits
+    that long after its enqueue.  All default off.
     """
 
     def __init__(self, learner: MetaLearner, params: Tree, *,
@@ -167,9 +519,18 @@ class EpisodicServeEngine:
                  cache_capacity: int = 64,
                  kernel_backend: Optional[str] = None,
                  clock: Optional[Callable[[], float]] = None,
-                 serve_quant: str = "none", device="cuda"):
+                 warm_dir: Optional[str | pathlib.Path] = None,
+                 query_slo_us: Optional[float] = None,
+                 adapt_cost_hint_us: Optional[float] = None,
+                 fault_plan=None,
+                 max_queue: Optional[int] = None,
+                 deadline_us: Optional[float] = None,
+                 serve_quant: str = "none", device="cuda",
+                 warm_shards: int = 1):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
+        if max_queue is not None and max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1, got {max_queue}")
         self.device = resolve_device(device)
         self.learner = learner
         self.serve_quant = serve_quant
@@ -181,9 +542,31 @@ class EpisodicServeEngine:
         self.n_slots = n_slots
         self.query_chunk = query_chunk
         self.support_buckets = tuple(sorted(support_buckets))
-        self.store = TaskStateCache(cache_capacity)
         self.clock = clock if clock is not None else time.monotonic
+        self.store = TwoTierTaskStore(cache_capacity, warm_dir,
+                                      fault_plan=fault_plan,
+                                      warm_shards=warm_shards,
+                                      device=self.device, clock=self.clock)
+        self.query_slo_us = query_slo_us
+        self.max_queue = max_queue
+        self.deadline_us = deadline_us
+        # EWMA of measured adapt-dispatch time; a zero-duration reading (a
+        # fake clock that was not advanced) is ignored
+        self._adapt_cost_est_us: Optional[float] = adapt_cost_hint_us
         self.kernel_backend = dispatch.resolve_backend(kernel_backend, self.device)
+
+        def _adapt_fn(weights, batch):
+            with dispatch.use_backend(self.kernel_backend):
+                return learner.adapt_batch(dequantize_params(weights), batch,
+                                           self.lite)
+
+        def _predict_fn(weights, states, qx):
+            with dispatch.use_backend(self.kernel_backend):
+                return learner.predict_batch(dequantize_params(weights),
+                                             states, qx)
+
+        self._adapt = BucketedStepCache(_adapt_fn)
+        self._predict = BucketedStepCache(_predict_fn)
         self._queue: "collections.deque[EpisodicRequest]" = collections.deque()
         self._slots: List[Optional[_Slot]] = [None] * n_slots
         # the (n_slots, ...) predict-side stack of an unchanged live cohort
@@ -192,7 +575,11 @@ class EpisodicServeEngine:
         self._query_lat_us: List[float] = []
         self.tasks_adapted = 0
         self.queries_served = 0
+        self.slo_preemptions = 0
         self.steps = 0
+        self.rejections = 0
+        self.deadline_abandoned = 0
+        self.failed_requests = 0
         self.adapt_dispatches = 0
         self.predict_dispatches = 0
 
@@ -204,16 +591,35 @@ class EpisodicServeEngine:
                 return i
         return None
 
-    def submit(self, req: EpisodicRequest) -> None:
+    def submit(self, req: EpisodicRequest) -> bool:
         """Enqueue ``req`` (stamps ``t_enqueue``); admission is FIFO in
-        ``step``."""
+        ``step``.  Over ``max_queue`` the request is rejected instead
+        (returns False, ``req.rejected`` set, nothing queued is displaced)
+        with ``retry_after_us`` = the adapt waves queued ahead of it at the
+        EWMA adapt cost (0 before any estimate)."""
         if req.t_enqueue is None:
             req.t_enqueue = self.clock()
+        if self.max_queue is not None and len(self._queue) >= self.max_queue:
+            req.rejected = True
+            est = self._adapt_cost_est_us or 0.0
+            req.retry_after_us = math.ceil(
+                (len(self._queue) + 1) / self.n_slots) * est
+            self.rejections += 1
+            return False
         self._queue.append(req)
+        return True
+
+    def add_request(self, req: EpisodicRequest) -> bool:
+        """Place ``req`` in a free slot now; False when every slot is live
+        or its uid is (offer it again after a step)."""
+        if req.t_enqueue is None:
+            req.t_enqueue = self.clock()
+        return self._try_admit(req)
 
     def _try_admit(self, req: EpisodicRequest) -> bool:
         """Admit ``req`` into a free slot; False defers (no free slot, or its
-        uid is live)."""
+        uid is live).  A support-less request whose stored state is
+        quarantined at the read fails terminally (consumed, no slot)."""
         if self._free_slot() is None:
             return False
         if req.way != self.learner.cfg.way:
@@ -232,6 +638,12 @@ class EpisodicServeEngine:
             raise ValueError(f"request uid={req.uid}: no cached task state "
                              f"and no support set to adapt on")
         state = self.store.get(req.uid)
+        if state is None and req.support_x is None:
+            req.failed = True
+            req.done = True
+            req.t_done = self.clock()
+            self.failed_requests += 1
+            return True
         req.cache_hit = state is not None
         req.t_admit = self.clock()
         self._slots[self._free_slot()] = _Slot(
@@ -243,6 +655,27 @@ class EpisodicServeEngine:
         while self._queue and self._try_admit(self._queue[0]):
             self._queue.popleft()
 
+    def _earliest_query_deadline_us(self) -> Optional[float]:
+        """Earliest SLO deadline over the live adapted lanes (the lanes a
+        deferred adapt wave would help; lanes awaiting adaptation need it)."""
+        if self.query_slo_us is None:
+            return None
+        deadlines = [s.req.t_enqueue * 1e6 + self.query_slo_us
+                     for s in self._slots
+                     if s is not None and s.state is not None]
+        return min(deadlines) if deadlines else None
+
+    def _adapt_wave_preempted(self, now: float) -> bool:
+        """Defer the pending adapt wave iff a live lane's deadline is still
+        ahead but would pass during the estimated adapt dispatch."""
+        if self._adapt_cost_est_us is None:
+            return False
+        dmin = self._earliest_query_deadline_us()
+        if dmin is None:
+            return False
+        now_us = now * 1e6
+        return now_us < dmin <= now_us + self._adapt_cost_est_us
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -253,7 +686,7 @@ class EpisodicServeEngine:
         """One ``adapt_batch`` dispatch per support bucket among the slots
         awaiting adaptation, padded to ``n_slots`` lanes.  A task's pad cap
         follows its own support size, so its state does not depend on its
-        co-tenants."""
+        co-tenants.  The EWMA times the dispatch to the end of its work."""
         need = [i for i, s in enumerate(self._slots)
                 if s is not None and s.state is None]
         if not need:
@@ -273,14 +706,17 @@ class EpisodicServeEngine:
                     query_y=np.zeros((1,), np.int32), way=r.way))
             while len(tasks) < self.n_slots:     # fixed task-lane count
                 tasks.append(tasks[0])
-            batch = collate_task_batch(tasks, support_size=cap,
-                                       query_size=1).to(self.device)
-            with dispatch.use_backend(self.kernel_backend):
-                states = self.learner.adapt_batch(
-                    dequantize_params(self._weights), batch, self.lite)
+            batch = collate_task_batch(tasks, support_size=cap, query_size=1)
+            t0 = self.clock()
+            states = self._adapt(self._weights, batch.to(self.device))
             self._sync()
             t1 = self.clock()
             self.adapt_dispatches += 1
+            dt_us = (t1 - t0) * 1e6
+            if dt_us > 0:
+                self._adapt_cost_est_us = (
+                    dt_us if self._adapt_cost_est_us is None
+                    else 0.7 * self._adapt_cost_est_us + 0.3 * dt_us)
             for lane, i in enumerate(idxs):
                 st = index_task_state(states, lane)
                 slot = self._slots[i]
@@ -301,7 +737,7 @@ class EpisodicServeEngine:
         every live task; empty lanes carry a filler state and zero queries."""
         lanes = []                                # (slot_idx, chunk, n_real)
         for i, s in enumerate(self._slots):
-            if s is None or s.state is None:
+            if s is None or s.state is None:      # awaiting (deferred) adapt
                 continue
             item = next(s.stream, None)
             if item is None:                      # stream exhausted (M == 0)
@@ -326,10 +762,8 @@ class EpisodicServeEngine:
             states.extend([states[0]] * (self.n_slots - len(lanes)))
             stacked = stack_task_states(states)
             self._stacked_states = (cohort, stacked)
-        with dispatch.use_backend(self.kernel_backend):
-            out = self.learner.predict_batch(
-                dequantize_params(self._weights), stacked,
-                torch.from_numpy(qx).to(self.device))
+        out = self._predict(self._weights, stacked,
+                            torch.from_numpy(qx).to(self.device))
         logits = out.float().cpu().numpy()
         self.predict_dispatches += 1
         t_out = self.clock()
@@ -346,11 +780,45 @@ class EpisodicServeEngine:
                 self._retire(i)
         return served
 
+    def _abandon_hopeless(self) -> None:
+        """With ``deadline_us``: drop each queued request, and retire each
+        lane still awaiting adaptation, whose deadline passed before its
+        first logit.  A request already streaming logits runs to the end."""
+        if self.deadline_us is None:
+            return
+        now_us = self.clock() * 1e6
+
+        def hopeless(r: EpisodicRequest) -> bool:
+            return (r.t_first_logit is None
+                    and now_us > r.t_enqueue * 1e6 + self.deadline_us)
+
+        kept = collections.deque()
+        for r in self._queue:
+            if hopeless(r):
+                r.abandoned = True
+                r.done = True
+                r.t_done = now_us / 1e6
+                self.deadline_abandoned += 1
+            else:
+                kept.append(r)
+        self._queue = kept
+        for i, s in enumerate(self._slots):
+            if s is not None and hopeless(s.req):
+                s.req.abandoned = True
+                self.deadline_abandoned += 1
+                self._retire(i)
+
     def step(self) -> int:
-        """Admit from the queue, adapt the pending tasks, serve one query
-        chunk per live task.  Returns the number of queries served."""
+        """Abandon hopeless requests, admit from the queue, adapt the
+        pending tasks unless the SLO scheduler defers the wave, serve one
+        query chunk per live task.  Returns the number of queries served."""
+        self._abandon_hopeless()
         self._admit_from_queue()
-        self._adapt_pending()
+        if any(s is not None and s.state is None for s in self._slots):
+            if self._adapt_wave_preempted(self.clock()):
+                self.slo_preemptions += 1
+            else:
+                self._adapt_pending()
         served = self._serve_queries()
         self.queries_served += served
         self.steps += 1
@@ -366,6 +834,20 @@ class EpisodicServeEngine:
             steps += 1
         return requests
 
+    def drain_unfinished(self) -> List[EpisodicRequest]:
+        """Remove and return every request still owed logits, live lanes
+        first (slot order), then the queue in FIFO order, leaving the
+        engine empty."""
+        out: List[EpisodicRequest] = []
+        for i, s in enumerate(self._slots):
+            if s is not None:
+                out.append(s.req)
+                self._slots[i] = None
+        out.extend(self._queue)
+        self._queue.clear()
+        self._stacked_states = None
+        return out
+
     @property
     def busy(self) -> bool:
         return bool(self._queue) or any(s is not None for s in self._slots)
@@ -375,28 +857,50 @@ class EpisodicServeEngine:
     def stats(self) -> Dict[str, float]:
         """Counters and nearest-rank latency percentiles (us): adapt is
         enqueue -> state ready (cold requests only), query is enqueue ->
-        first logit.  ``hit_rate`` is over cache lookups at admission."""
-        c = self.store
-        lookups = c.hits + c.misses
+        first logit.  ``cache_*`` / ``hit_rate`` are the L1's; ``spills`` /
+        ``rehydrates`` the warm tier's traffic and ``spill_mean_us`` /
+        ``rehydrate_mean_us`` its mean time a state.  Degradation:
+        ``quarantined``, ``spill_errors`` (> 0: the store went L1-only),
+        ``rejections``, ``deadline_abandoned``, ``failed_requests``.
+        ``*_compiles`` count the distinct dispatch shapes, ``*_dispatches``
+        the dispatches."""
+        st = self.store
+        l1 = st.l1
+        lookups = l1.hits + l1.misses
         return dict(
             tasks_adapted=self.tasks_adapted,
             queries_served=self.queries_served,
             steps=self.steps,
-            adapt_dispatches=self.adapt_dispatches,
-            predict_dispatches=self.predict_dispatches,
             queue_depth=len(self._queue),
-            cache_hits=c.hits,
-            cache_misses=c.misses,
-            hit_rate=c.hits / lookups if lookups else 0.0,
-            evictions=c.evictions,
-            overwrites=c.overwrites,
+            cache_hits=l1.hits,
+            cache_misses=l1.misses,
+            hit_rate=l1.hits / lookups if lookups else 0.0,
+            evictions=l1.evictions,
+            overwrites=l1.overwrites,
+            spills=st.spills,
+            rehydrates=st.rehydrates,
+            rescan_hits=st.rescan_hits,
+            quarantined=st.quarantined,
+            spill_errors=st.spill_errors,
+            rejections=self.rejections,
+            deadline_abandoned=self.deadline_abandoned,
+            failed_requests=self.failed_requests,
+            slo_preemptions=self.slo_preemptions,
+            adapt_cost_est_us=(self._adapt_cost_est_us
+                               if self._adapt_cost_est_us is not None else 0.0),
             adapt_p50_us=_pctl(self._adapt_lat_us, 50),
             adapt_p99_us=_pctl(self._adapt_lat_us, 99),
             query_p50_us=_pctl(self._query_lat_us, 50),
             query_p99_us=_pctl(self._query_lat_us, 99),
+            adapt_compiles=self._adapt.compile_count,
+            predict_compiles=self._predict.compile_count,
+            adapt_dispatches=self.adapt_dispatches,
+            predict_dispatches=self.predict_dispatches,
+            spill_mean_us=st.spill_s / st.spills * 1e6 if st.spills else 0.0,
+            rehydrate_mean_us=(st.rehydrate_s / st.rehydrates * 1e6
+                               if st.rehydrates else 0.0),
             param_bytes_resident=self._param_bytes["resident_bytes"],
             param_bytes_fp32=self._param_bytes["fp32_bytes"],
             frozen_param_bytes_resident=self._param_bytes["frozen_resident_bytes"],
             frozen_param_bytes_fp32=self._param_bytes["frozen_fp32_bytes"],
         )
-

@@ -15,6 +15,11 @@ The leaves are stored in the JAX package's layout
 (:func:`repro_torch.bridge.to_jax_layout`): conv weights and their
 ``mu``/``nu`` HWIO, int8 ``{q, scale, n}`` state as it is.  A step
 directory written by either package restores in the other.
+
+:func:`save_array_tree` / :func:`load_array_tree` write and read one
+self-describing npz per tree (the dtype sidecar and the crc32 ride inside
+it as ``__dtypes__`` and ``__crc32__``), byte for byte the JAX package's
+format; the serving warm tier spills adapted task states through them.
 """
 from __future__ import annotations
 
@@ -98,7 +103,44 @@ def _decode(path: str, arr: np.ndarray, dtype_str: str, like, in_quantized: bool
     if t.shape != like.shape:
         raise ValueError(f"checkpoint leaf {path}: shape {tuple(t.shape)} in the port's "
                          f"layout, the template's {tuple(like.shape)}")
-    return t.to(dtype=like.dtype, device=like.device).contiguous()
+    # a template leaf on the meta device (shape and dtype only) decodes
+    # onto the host
+    device = "cpu" if like.is_meta else like.device
+    return t.to(dtype=like.dtype, device=device).contiguous()
+
+
+def save_array_tree(file, tree: Tree) -> None:
+    """One self-describing npz: the leaves in the JAX package's layout,
+    path-keyed, a ``__dtypes__`` json member and a ``__crc32__`` of the
+    whole content, fsynced before return.  Atomic publish (tmp +
+    ``os.replace``) is the caller's job."""
+    arrays, dtypes = encode_array_tree(to_jax_layout(tree))
+    crc = _tree_crc32(arrays, dtypes)
+    with open(file, "wb") as f:
+        np.savez(f, __dtypes__=np.asarray(json.dumps(dtypes)),
+                 __crc32__=np.uint32(crc), **arrays)
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def load_array_tree(file, template: Tree, verify: bool = False) -> Tree:
+    """A :func:`save_array_tree` npz (either package's) in ``template``'s
+    structure, each leaf in its template leaf's dtype, device and the
+    port's layout; a template leaf on the meta device gives a CPU tensor.
+    ``verify=True`` recomputes the crc32 and raises :class:`ChecksumError`
+    on a mismatch (a file without ``__crc32__`` passes); a truncated file
+    fails earlier, inside ``np.load``."""
+    with np.load(file) as data:
+        arrays = {k: data[k] for k in data.files}
+    dtypes = json.loads(str(arrays.pop("__dtypes__")))
+    stored = arrays.pop("__crc32__", None)
+    if verify and stored is not None:
+        crc = _tree_crc32(arrays, dtypes)
+        if crc != int(stored):
+            raise ChecksumError(f"{file}: content crc32 {crc:#010x} != stored "
+                                f"{int(stored):#010x}")
+    return _unflatten(template, lambda k, like, inq: _decode(
+        k, arrays[k], dtypes.get(k, ""), like, inq))
 
 
 class CheckpointManager:
