@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's episodic serving and training paths on one
-NVIDIA GPU.
+"""Drive the PyTorch port's episodic serving and training paths and its LM
+decode serving on one NVIDIA GPU.
 
     python3 chip_smoke.py            # needs one CUDA card, nvcc and the repo
 
@@ -87,6 +87,26 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (A one head off, the last 32 dt of each chunk zeroed, y rows past Q/2
    zeroed, every other chunk's states zeroed) and fail unless the same
    check flags each;
+6b. LM decode serving (``repro_torch.serve.engine.ServeEngine``) of
+   minitron-4b at full width and depth, random weights drawn on the card
+   from seed 0, bf16 compute, 4 slots: 8 requests (prompts 1024 x 4, then
+   512, 2048, 512, 2048, so the first cohort decodes stacked and the
+   second slot by slot), 32 new tokens each, failing unless every layer of
+   every prefill launched flash attention (B5) on "wgmma" and nothing
+   else launched (tokens/s, peak memory); the same traffic through the
+   engine on ``ref`` (greedy), and teacher-forced on ``ref``'s tokens
+   through the kernel path and through ``ref`` in fp32 compute (TF32
+   off), failing unless the kernel path's logits (prefill and decode) are
+   within ``LM_GATE`` times the bf16 ``ref`` run's own error against the
+   fp32 run; prefill ms at 512, 1024 and 2048 tokens on the kernels and on
+   ``ref`` in turns, the first-token latency, a decode step at 4 slots and
+   at 1 beside their bounds, one profiled prefill and decode step (B5's
+   share, idle share); then gemma2-2b (head dim 256, softcap 50, window
+   4096) with prompts of 4608 and 1024 tokens the same way, and a planted
+   fault (local and global windows swapped) that the gate must flag; B5
+   at the prefill shapes against its plain version and beside SDPA; and
+   ``python -m repro_torch.launch.serve`` (LM, smoke config) on the card
+   as a subprocess, which must exit 0;
 7. print the ``kernels`` JSON line, the card line and, last, the result.
 
 In the ``kernels`` line, ``ms`` is the mean time of back-to-back wrapper
@@ -102,13 +122,17 @@ the run.  ``route`` says how the kernel is written (CUDA C++), ``routes`` which 
 its own routes each main case took, and ``main_cases`` gives every main
 case's numbers where a kernel has more than one.  ``launches`` counts the
 launches of the path that runs the kernel: the Simple CNAPs serving path
-for the episodic kernels, the ops phase for the LM-side ones;
+for the episodic kernels, LM serving of minitron-4b (phase 6b) for flash
+attention, the ops phase for gmm and ssd_chunk (``ops_launches`` and
+``lm_serve_gemma2_launches`` give flash attention's other counts, and
+``lm_prefill_cases`` its numbers at the prefill shapes);
 ``train_launches`` those of B1-B3 in the five training-loop steps of phase
 5.  ``chiprun_out/chip_smoke.json`` holds every reading, the training
 phases' under ``paths``, and every path's launches under ``launches``:
 ``serve_warm`` (phase 4b's warm-tier run), ``train_device`` (the
 device-sampler loop), ``algo1`` (the two per-task steps), ``fig4``,
-``fomaml`` and ``finetuner`` (their serving runs).
+``fomaml`` and ``finetuner`` (their serving runs), ``lm_serve`` and
+``lm_serve_gemma2`` (phase 6b's counted engine runs).
 
 It imports no JAX.
 """
@@ -1273,25 +1297,25 @@ TRAIN_CATEGORIES = (   # device kernel name -> what it is, first match wins
 )
 
 
-def trace_train_step(step, state, batch, wall_ms: float, top: int = 15):
-    """One training step under torch.profiler: device busy time by
-    category, the idle share against ``wall_ms`` (the unprofiled step
-    time), B1-B3's device time, and the top kernels."""
+def device_breakdown(fn, categories, header, top: int):
+    """One call of ``fn`` under torch.profiler: device busy ms, the device
+    time and launches by category (``categories``: name -> substrings of
+    a kernel's name, first match wins), and the kernels by device time;
+    ``header(busy)`` is printed before the categories and the ``top``
+    kernels."""
     from torch.autograd import DeviceType
-    rows = profile(lambda: step(state, batch))
+    rows = profile(fn)
     dev_rows = sorted((r for r in rows if r.device_type == DeviceType.CUDA
                        and _dev_us(r) > 0), key=_dev_us, reverse=True)
     busy = sum(_dev_us(r) for r in dev_rows) / 1e3
     cats = {}
     for r in dev_rows:
         name = r.key.lower()
-        cat = next((c for c, keys in TRAIN_CATEGORIES if any(k in name for k in keys)),
-                   "other")
+        cat = next((c for c, keys in categories if any(k in name for k in keys)), "other")
         c = cats.setdefault(cat, dict(device_ms=0.0, launches=0))
         c["device_ms"] += _dev_us(r) / 1e3
         c["launches"] += r.count
-    print(f"  train trace: device busy {busy:.2f} ms of an unprofiled step of "
-          f"{wall_ms:.2f} ms (idle share {1 - busy / wall_ms:.3f})", flush=True)
+    print(header(busy, cats), flush=True)
     for c, v in sorted(cats.items(), key=lambda kv: -kv[1]["device_ms"]):
         print(f"    {v['device_ms']:9.3f} ms  {100 * v['device_ms'] / busy:5.1f} %  "
               f"x{v['launches']:<5d} {c}", flush=True)
@@ -1299,6 +1323,17 @@ def trace_train_step(step, state, batch, wall_ms: float, top: int = 15):
              for r in dev_rows]
     for r in table[:top]:
         print(f"    {r['device_ms']:9.3f} ms  x{r['count']:<5d} {r['op']}", flush=True)
+    return busy, cats, table
+
+
+def trace_train_step(step, state, batch, wall_ms: float, top: int = 15):
+    """One training step under torch.profiler: device busy time by
+    category, the idle share against ``wall_ms`` (the unprofiled step
+    time), B1-B3's device time, and the top kernels."""
+    busy, cats, table = device_breakdown(
+        lambda: step(state, batch), TRAIN_CATEGORIES,
+        lambda busy, _: f"  train trace: device busy {busy:.2f} ms of an unprofiled step "
+                        f"of {wall_ms:.2f} ms (idle share {1 - busy / wall_ms:.3f})", top)
     return dict(busy_ms=busy, step_wall_ms=wall_ms, idle_share=1 - busy / wall_ms,
                 categories=cats, top=table[:40])
 
@@ -1785,6 +1820,32 @@ def attn_pairs(s: int, causal: bool, window) -> int:
     return sum(min(q + 1, window) for q in range(s))
 
 
+def flash_case(randn, label, b, s, hq, hkv, d, dtype, main=False, lib=False,
+               offset=False, iters=(3, 3), **kw):
+    """A case of flash attention through ``ops.flash_attention_gqa`` on q (b,
+    s, hq, d) and k, v (b, s, hkv, d) drawn by ``randn``, as
+    :func:`check_kernels` takes it; ``lib`` times SDPA beside it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    q, k, v = randn(b, s, hq, d, dtype=dtype), randn(b, s, hkv, d, dtype=dtype), \
+        randn(b, s, hkv, d, dtype=dtype)
+    if offset:
+        q, k, v = unaligned(q), unaligned(k), unaligned(v)
+    esz = q.element_size()
+    sdpa = (lambda q, k, v: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, enable_gqa=True)) if lib else None
+    return dict(label=label, fn=ops.flash_attention_gqa, route=fa.flash_route(q, k, v),
+                plain=fa.flash_attention_gqa_plain, lib=sdpa, args=(q, k, v),
+                kw=kw, tol=OPS_TOL["flash_attention"][str(dtype).split(".")[1]],
+                main=main, iters=iters,
+                bytes=esz * (2 * b * s * hq * d + 2 * b * s * hkv * d),
+                flops=4.0 * d * b * hq * attn_pairs(s, kw["causal"], kw.get("window")),
+                peak=BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+
+
 def ops_cases(dev):
     """The LM-side kernels' specs, as :func:`kernel_cases` gives them; ``fn``
     goes through repro_torch.kernels.ops, and the main cases are the ones
@@ -1801,22 +1862,7 @@ def ops_cases(dev):
     def randn(*shape, dtype=torch.float32, scale=1.0):
         return (torch.randn(*shape, generator=g) * scale).to(device=dev, dtype=dtype)
 
-    def flash(label, b, s, hq, hkv, d, dtype, main=False, lib=False, offset=False, **kw):
-        q, k, v = randn(b, s, hq, d, dtype=dtype), randn(b, s, hkv, d, dtype=dtype), \
-            randn(b, s, hkv, d, dtype=dtype)
-        if offset:
-            q, k, v = unaligned(q), unaligned(k), unaligned(v)
-        esz = q.element_size()
-        sdpa = (lambda q, k, v: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True)) if lib else None
-        return dict(label=label, fn=ops.flash_attention_gqa, route=fa.flash_route(q, k, v),
-                    plain=fa.flash_attention_gqa_plain, lib=sdpa, args=(q, k, v),
-                    kw=kw, tol=OPS_TOL["flash_attention"][str(dtype).split(".")[1]],
-                    main=main, iters=(3, 3),
-                    bytes=esz * (2 * b * s * hq * d + 2 * b * s * hkv * d),
-                    flops=4.0 * d * b * hq * attn_pairs(s, kw["causal"], kw.get("window")),
-                    peak=BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+    flash = lambda *a, **kw: flash_case(randn, *a, **kw)
 
     def flash_bh(label, bh, s, d, **kw):
         q, k, v = (randn(bh, s, d) for _ in range(3))
@@ -2072,6 +2118,361 @@ def run_ops_path(dev, launches):
     return rows, check_planted_faults(specs[0], specs[2])
 
 
+# ---------------------------------------------------------------------------
+# phase 6b: LM decode serving of the dense GQA transformers
+# ---------------------------------------------------------------------------
+
+LM_SLOTS = 4
+LM_MAX_NEW = 32
+# wave 1: four prompts of one length decode as one stacked cohort; wave 2:
+# ragged lengths, which decode slot by slot
+LM_PROMPTS = (1024, 1024, 1024, 1024, 512, 2048, 512, 2048)
+LM_PREFILL_LENGTHS = (512, 1024, 2048)
+LM_DECODE_POS = 1024
+# the kernel path's logits may be at most LM_GATE times as far from an
+# fp32-compute ref run (TF32 off) as the bf16 ref run is: both bf16 runs
+# share the weights' rounding to bf16, which dominates their error, and
+# differ only in attention's roundings of P (normalised and rounded to bf16
+# in ref, un-normalised in the kernel's registers)
+LM_GATE = 2.0
+# gemma2-2b: one prompt past the 4096-token window, one inside it.  The long
+# prompt's first GEMMA_HIDDEN tokens are one token repeated, so what the
+# window hides from the last positions is coherent and a wrong window moves
+# the logits well past rounding (random tokens there would average out)
+GEMMA_PROMPTS = (4608, 1024)
+GEMMA_HIDDEN = 512
+GEMMA_MAX_NEW = 8
+LM_CATEGORIES = (   # device kernel name -> what it is, first match wins
+    ("B5 flash_attention", ("flash_attention",)),
+    ("GEMMs (cuBLAS)", ("gemm", "nvjet", "cutlass", "gemv", "xmma", "splitk", "dot_kernel")),
+    ("reductions", ("reduce", "softmax", "norm")),
+    ("copies", ("memcpy", "memset", "copy", "cat")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "index")),
+)
+
+
+def lm_requests(cfg, lengths, max_new: int, seed: int, hidden: int = 0):
+    """One request of each prompt length, tokens from numpy's generator; a
+    prompt longer than ``hidden`` has its first ``hidden`` tokens set to
+    its first token."""
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i, n in enumerate(lengths):
+        prompt = rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+        if hidden and n > hidden:
+            prompt[:hidden] = prompt[0]
+        reqs.append(Request(uid=i, prompt=prompt, max_new_tokens=max_new))
+    return reqs
+
+
+def lm_engine(cfg, params, backend: str, slots: int, max_seq: int, record=None,
+              forced=None):
+    """A ``ServeEngine``; with ``record``, one whose sampler keeps every
+    logits row it samples from (true vocab, under the request's uid) and,
+    with ``forced``, emits the given tokens in place of its own (teacher
+    forcing), so two runs decode the same token streams."""
+    from repro_torch.serve.engine import ServeEngine
+
+    class Recorded(ServeEngine):
+        def _sample(self, logits, req):
+            record.setdefault(req.uid, []).append(logits[0, :cfg.vocab].float())
+            if forced is not None:
+                return [forced[req.uid][len(req.out_tokens)]]
+            return super()._sample(logits, req)
+
+    cls = ServeEngine if record is None else Recorded
+    return cls(cfg, params, n_slots=slots, max_seq=max_seq, kernel_backend=backend)
+
+
+def lm_errs(got, want):
+    """(prefill, decode) error: the largest over requests of max|got - want|
+    of a logits row over that row's max|want|; row 0 of a request is its
+    prefill's, the rest its decode steps'."""
+    pre, dec = 0.0, 0.0
+    for uid, rows in want.items():
+        if len(got[uid]) != len(rows):
+            fail(f"request {uid}: {len(got[uid])} logits rows against {len(rows)}")
+        for j, (g, w) in enumerate(zip(got[uid], rows)):
+            if not bool(g.isfinite().all()):
+                fail(f"request {uid}: non-finite logits at step {j}")
+            e = global_err(g, w)
+            pre, dec = (max(pre, e), dec) if j == 0 else (pre, max(dec, e))
+    return pre, dec
+
+
+def lm_gate(label: str, runs, fault: bool = False):
+    """Hold run ``got`` (the kernel path, or a planted fault's run) against
+    ``ref32`` at LM_GATE times the error of ``ref16``; returns the
+    readings.  A fault must fail the gate."""
+    e_ref = lm_errs(runs["ref16"], runs["ref32"])
+    e_got = lm_errs(runs["got"], runs["ref32"])
+    e_pair = lm_errs(runs["got"], runs["ref16"])
+    limit = [LM_GATE * e for e in e_ref]
+    passed = all(g <= lim for g, lim in zip(e_got, limit))
+    print(f"  {label}: vs fp32 ref, prefill/decode logits err {e_got[0]:.3e}/{e_got[1]:.3e} "
+          f"(gate {limit[0]:.3e}/{limit[1]:.3e} = {LM_GATE}x bf16 ref's "
+          f"{e_ref[0]:.3e}/{e_ref[1]:.3e}); vs bf16 ref {e_pair[0]:.3e}/{e_pair[1]:.3e} "
+          f"{('MISSED' if passed else 'caught') if fault else ('ok' if passed else 'FAIL')}",
+          flush=True)
+    if passed == fault:
+        fail(f"{label}: " + ("the gate misses the planted fault" if fault else
+                             "the kernel path is outside its gate"))
+    return dict(err_vs_fp32=e_got, ref16_err_vs_fp32=e_ref, err_vs_ref16=e_pair,
+                gate=limit, passed=passed)
+
+
+def lm_runs(cfg, params32, params16, reqs, slots, max_seq, fault=None):
+    """The traffic ``reqs()`` through recorded engines: ``ref`` in the
+    compute dtype (greedy; its tokens are forced on the others), the kernel
+    path, ``ref`` in fp32 compute and, given ``fault`` (a context manager
+    that plants one), the kernel path with the fault."""
+    import dataclasses
+    runs = {"ref16": {}}
+    ref_reqs = reqs()
+    lm_engine(cfg, params16, "ref", slots, max_seq, record=runs["ref16"]) \
+        .run_to_completion(ref_reqs)
+    forced = {r.uid: r.out_tokens for r in ref_reqs}
+    runs["got"] = {}
+    lm_engine(cfg, params16, "cuda", slots, max_seq, record=runs["got"],
+              forced=forced).run_to_completion(reqs())
+    runs["ref32"] = {}
+    lm_engine(dataclasses.replace(cfg, compute_dtype="float32"), params32, "ref", slots,
+              max_seq, record=runs["ref32"], forced=forced).run_to_completion(reqs())
+    if fault is not None:
+        runs["fault"] = {}
+        with fault():
+            lm_engine(cfg, params16, "cuda", slots, max_seq, record=runs["fault"],
+                      forced=forced).run_to_completion(reqs())
+    return runs
+
+
+def lm_counted(cfg, params16, reqs, slots, max_seq, dev):
+    """One plain engine run on the kernels with the launch counts set to 0
+    just before and read just after; (requests, counts, wall s, peak B)."""
+    import torch
+    from repro_torch.kernels import _build
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.launches.reset()
+    t0 = time.perf_counter()
+    served = lm_engine(cfg, params16, "cuda", slots, max_seq).run_to_completion(reqs)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    counts = _build.launches.snapshot()
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_prefill = len(reqs) * cfg.n_layers
+    if counts != {"flash_attention": n_prefill, "flash_attention/wgmma": n_prefill}:
+        fail(f"{cfg.name}: launches {counts}; every layer of each of the {len(reqs)} "
+             f"prefills must launch B5 on the wgmma route ({n_prefill}) and nothing else")
+    for r in served:
+        if not r.done or len(r.out_tokens) != r.max_new_tokens or \
+                not all(0 <= t < cfg.vocab for t in r.out_tokens):
+            fail(f"{cfg.name} request {r.uid}: done={r.done}, tokens {r.out_tokens}")
+    return served, counts, wall, peak
+
+
+def lm_bounds(cfg, s: int, b: int, k_len: int):
+    """(prefill bound ms, by; decode bound ms, by).  The bytes: the layers'
+    matmul weights in bf16 and the fp32 LM head, each read once (the
+    embedding's rows are a gather), and for decode the cache's k_len
+    positions of b slots.  The FLOPs, at the bf16 tensor-core peak:
+    prefill of s tokens (the matmuls, causal attention's pairs, the last
+    token's LM head); a decode step of b tokens (the matmuls, the head)."""
+    a = cfg.attention
+    per_layer = cfg.d_model * (a.n_heads + 2 * a.n_kv_heads) * a.head_dim \
+        + a.n_heads * a.head_dim * cfg.d_model + 3 * cfg.d_model * cfg.d_ff
+    weights = 2.0 * cfg.n_layers * per_layer + 4.0 * cfg.vocab_padded * cfg.d_model
+    head_flops = 2.0 * cfg.d_model * cfg.vocab_padded
+    flops = 2.0 * cfg.n_layers * per_layer * s + head_flops \
+        + cfg.n_layers * 4.0 * a.head_dim * a.n_heads * attn_pairs(s, True, None)
+    cache = 2.0 * 2 * b * k_len * cfg.n_layers * a.n_kv_heads * a.head_dim
+    return (bound_ms(weights, flops, BF16_FLOPS),
+            bound_ms(weights + cache, b * (2.0 * cfg.n_layers * per_layer + head_flops),
+                     BF16_FLOPS))
+
+
+def trace_lm(fn, wall_ms: float, label: str, top: int = 8):
+    """One call of ``fn`` under torch.profiler: device busy time by kind of
+    kernel, B5's share of it, the idle share against ``wall_ms`` (the
+    unprofiled call), and the top kernels."""
+    b5 = lambda cats: cats.get("B5 flash_attention", {}).get("device_ms", 0.0)
+    busy, cats, table = device_breakdown(
+        fn, LM_CATEGORIES,
+        lambda busy, cats: f"  trace {label}: device busy {busy:.3f} ms of an unprofiled "
+                           f"{wall_ms:.3f} ms (idle share {1 - busy / wall_ms:.3f}); B5 "
+                           f"{b5(cats):.3f} ms = {100 * b5(cats) / max(busy, 1e-9):.1f} % "
+                           f"of busy", top)
+    return dict(busy_ms=busy, wall_ms=wall_ms, idle_share=1 - busy / wall_ms,
+                b5_ms=b5(cats), b5_share=b5(cats) / max(busy, 1e-9), categories=cats,
+                top=table[:20])
+
+
+def lm_timings(cfg, params16, dev):
+    """Prefill ms by prompt length on the kernels and on ``ref`` in turns,
+    the first-token latency (``add_request``: prefill, splice, first
+    sample), a decode step at LM_SLOTS slots and at 1 beside their bounds,
+    and one profiled prefill and decode step."""
+    import torch
+    from repro_torch.models.registry import get_api
+    api = get_api(cfg)
+    g = torch.Generator(device=dev).manual_seed(2)
+    out = dict(prefill={}, decode={})
+    for n in LM_PREFILL_LENGTHS:
+        batch = dict(tokens=torch.randint(0, cfg.vocab, (1, n), generator=g, device=dev))
+        k_ms, r_ms = time_pair_ms(lambda: api.prefill(params16, batch, cfg, backend="cuda"),
+                                  lambda: api.prefill(params16, batch, cfg, backend="ref"),
+                                  iters=3, reps=3)
+        eng = lm_engine(cfg, params16, "cuda", 1, n + 8)
+        ftl = []
+        for r in lm_requests(cfg, (n,) * 3, 1, seed=4):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            eng.add_request(r)            # a budget of 1: the slot frees at once
+            ftl.append((time.perf_counter() - t0) * 1e3)
+        (b_ms, b_by), _ = lm_bounds(cfg, n, 1, n)
+        out["prefill"][n] = dict(ms=k_ms, ref_ms=r_ms, first_token_ms=statistics.median(ftl),
+                                 bound_ms=b_ms, bound_by=b_by)
+        print(f"  prefill S{n}: {k_ms:.3f} ms on the kernels, {r_ms:.3f} ms on ref, "
+              f"first token {statistics.median(ftl):.3f} ms; bound {b_ms:.3f} ms ({b_by})",
+              flush=True)
+    for b in (LM_SLOTS, 1):
+        cache = api.init_cache(cfg, b, LM_DECODE_POS + 8, dev)
+        cache["len"] = LM_DECODE_POS
+        toks = torch.zeros((b, 1), dtype=torch.long, device=dev)
+        ms = time_ms(lambda: api.decode_step(params16, cache, toks, cfg), iters=10, reps=3)
+        _, (b_ms, b_by) = lm_bounds(cfg, 1, b, LM_DECODE_POS + 1)
+        out["decode"][b] = dict(ms=ms, tokens_per_s=b * 1e3 / ms, bound_ms=b_ms,
+                                bound_by=b_by, pos=LM_DECODE_POS)
+        print(f"  decode step at {b} slot(s), position {LM_DECODE_POS}: {ms:.3f} ms "
+              f"({b * 1e3 / ms:.1f} tokens/s); bound {b_ms:.3f} ms ({b_by})", flush=True)
+    n = LM_PREFILL_LENGTHS[1]
+    batch = dict(tokens=torch.randint(0, cfg.vocab, (1, n), generator=g, device=dev))
+    out["trace_prefill"] = trace_lm(lambda: api.prefill(params16, batch, cfg, backend="cuda"),
+                                    out["prefill"][n]["ms"], f"prefill S{n}")
+    cache = api.init_cache(cfg, LM_SLOTS, LM_DECODE_POS + 8, dev)
+    cache["len"] = LM_DECODE_POS
+    toks = torch.zeros((LM_SLOTS, 1), dtype=torch.long, device=dev)
+    out["trace_decode"] = trace_lm(lambda: api.decode_step(params16, cache, toks, cfg),
+                                   out["decode"][LM_SLOTS]["ms"],
+                                   f"decode step at {LM_SLOTS} slots")
+    return out
+
+
+@contextlib.contextmanager
+def swapped_windows():
+    """The planted fault: local and global layers' windows swapped."""
+    from repro_torch.models import transformer as TT
+    orig = TT.layer_windows
+    TT.layer_windows = lambda cfg: [cfg.sliding_window if w == TT.GLOBAL_WINDOW
+                                    else TT.GLOBAL_WINDOW for w in orig(cfg)]
+    try:
+        yield
+    finally:
+        TT.layer_windows = orig
+
+
+def prefill_kernel_specs(dev):
+    """B5 at the prefill shapes of this phase's traffic, as
+    :func:`check_kernels` takes them: against its plain version, timed
+    beside SDPA in turns (minitron-4b; SDPA has no softcap, so none beside
+    gemma2-2b's)."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(5)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g).to(device=dev, dtype=dtype)
+
+    bf = torch.bfloat16
+    return [dict(name="flash_attention", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                 replaces="src/repro/kernels/flash_attention.py:89",
+                 symbol="flash_attention_wgmma_kernel", cases=[
+        *(flash_case(randn, f"minitron-4b prefill B1 S{n} Hq24 Hkv8 D128 causal", 1, n, 24,
+                     8, 128, bf, main=True, lib=True, iters=(20, 5), causal=True)
+          for n in LM_PREFILL_LENGTHS),
+        flash_case(randn, "gemma2-2b local prefill B1 S4608 Hq8 Hkv4 D256 window4096 cap50",
+                   1, 4608, 8, 4, 256, bf, main=True, iters=(10, 5), causal=True,
+                   window=4096, softcap=50.0)])]
+
+
+def run_lm_serve(dev, launches):
+    """Phase 6b: LM decode serving of minitron-4b and gemma2-2b at full width
+    and depth on random weights drawn on the card, bf16 compute."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as TT
+    t_phase = time.perf_counter()
+    out = {}
+
+    cfg = get_config("minitron-4b")
+    params = TT.init_transformer(torch.Generator(device=dev).manual_seed(0), cfg)
+    p16 = TT.compute_params(params, cfg)
+    max_seq = max(LM_PROMPTS) + LM_MAX_NEW + 8
+    for backend in ("cuda", "ref"):         # cuBLAS handles, allocator
+        lm_engine(cfg, p16, backend, 1, 128).run_to_completion(
+            lm_requests(cfg, (64,), 2, seed=1))
+    served, counts, wall, peak = lm_counted(cfg, p16, lm_requests(
+        cfg, LM_PROMPTS, LM_MAX_NEW, seed=0), LM_SLOTS, max_seq, dev)
+    launches["lm_serve"] = counts
+    n_tok = sum(len(r.out_tokens) for r in served)
+    print(f"path lm_serve: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}), "
+          f"{len(served)} requests "
+          f"(prompts {LM_PROMPTS}), {n_tok} tokens in {wall:.3f} s on {LM_SLOTS} slots: "
+          f"{n_tok / wall:.1f} tokens/s, peak memory {peak} B, launches {counts}",
+          flush=True)
+    runs = lm_runs(cfg, params, p16, lambda: lm_requests(cfg, LM_PROMPTS, LM_MAX_NEW,
+                                                         seed=0), LM_SLOTS, max_seq)
+    gate = lm_gate(f"{cfg.name} kernel path", runs)
+    del runs
+    timings = lm_timings(cfg, p16, dev)
+    out["minitron"] = dict(requests=len(served), tokens=n_tok, seconds=wall,
+                           tokens_per_s=n_tok / wall, peak_bytes=peak, launches=counts,
+                           gate=gate, **timings)
+    del params, p16
+    torch.cuda.empty_cache()
+
+    gcfg = get_config("gemma2-2b")
+    gparams = TT.init_transformer(torch.Generator(device=dev).manual_seed(0), gcfg)
+    g16 = TT.compute_params(gparams, gcfg)
+    gmax = max(GEMMA_PROMPTS) + GEMMA_MAX_NEW + 8
+    greqs = lambda: lm_requests(gcfg, GEMMA_PROMPTS, GEMMA_MAX_NEW, seed=3,
+                                hidden=GEMMA_HIDDEN)
+    served, gcounts, gwall, gpeak = lm_counted(gcfg, g16, greqs(), 2, gmax, dev)
+    launches["lm_serve_gemma2"] = gcounts
+    print(f"path lm_serve_gemma2: {gcfg.name} ({gcfg.n_layers} layers, head dim "
+          f"{gcfg.attention.head_dim}, softcap {gcfg.attention.attn_softcap}, window "
+          f"{gcfg.sliding_window}), "
+          f"prompts {GEMMA_PROMPTS}, {sum(len(r.out_tokens) for r in served)} tokens in "
+          f"{gwall:.3f} s, peak memory {gpeak} B, launches {gcounts}", flush=True)
+    runs = lm_runs(gcfg, gparams, g16, greqs, 2, gmax, fault=swapped_windows)
+    ggate = lm_gate(f"{gcfg.name} kernel path", runs)
+    fault = lm_gate(f"{gcfg.name} planted fault: local and global windows swapped",
+                    {**runs, "got": runs["fault"]}, fault=True)
+    out["gemma2"] = dict(seconds=gwall, peak_bytes=gpeak, launches=gcounts, gate=ggate,
+                         planted_fault=fault)
+    del runs, gparams, g16
+    torch.cuda.empty_cache()
+
+    out["prefill_kernel"] = check_kernels(prefill_kernel_specs(dev))["flash_attention"]
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--requests", "4", "--slots",
+           "2", "--max-new", "8"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    secs = time.perf_counter() - t0
+    line = next((l for l in proc.stdout.splitlines() if "tok/s" in l), proc.stdout[-500:])
+    print(f"serve launcher (LM): {' '.join(cmd[1:])} exit {proc.returncode} in {secs:.1f} s; "
+          f"{line}", flush=True)
+    if proc.returncode != 0 or "device=cuda" not in line:
+        fail(f"the LM serving launcher failed (exit {proc.returncode}):\n"
+             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    out["launcher"] = dict(cmd=cmd[1:], exit=proc.returncode, seconds=secs, line=line)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 6b: {out['seconds']:.1f} s", flush=True)
+    return dict(kind="lm_serve", **out)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2110,9 +2511,16 @@ def main() -> int:
     summary.append(run_training_rest(dev, launches, summary[-1]))
     ops_rows, ops_planted = run_ops_path(dev, launches)
     planted += ops_planted
-    # each kernel counted on the path that runs it
-    path_of = {n: "simple_cnaps" for n in rows} | {n: "ops" for n in ops_rows}
+    summary.append(run_lm_serve(dev, launches))
+    # each kernel counted on the path that runs it: flash attention on LM
+    # serving's prefills, gmm and ssd_chunk on the ops path
+    path_of = {n: "simple_cnaps" for n in rows} | {n: "ops" for n in ops_rows} \
+        | {"flash_attention": "lm_serve"}
     rows |= ops_rows
+    prefill_row = summary[-1]["prefill_kernel"]
+    rows["flash_attention"]["lm_prefill_cases"] = prefill_row["cases"]
+    rows["flash_attention"]["max_abs_err"] = max(rows["flash_attention"]["max_abs_err"],
+                                                 prefill_row["max_abs_err"])
     for name, path in path_of.items():
         if launches[path].get(name, 0) < 1:
             fail(f"kernel {name} was not launched on the {path} path")
@@ -2132,11 +2540,16 @@ def main() -> int:
         {k: rows[n][k] for k in ("name", "route", "source", "replaces")}
         | {"launches": launches[path_of[n]][n]}
         | ({"train_launches": launches["train"][n]} if n in launches["train"] else {})
+        | ({f"{p}_launches": launches[p][n] for p in ("ops", "lm_serve_gemma2")
+            if p != path_of[n] and n in launches[p]})
         | {k: rows[n][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                    "bound_by", "library_ms", "library_device_ms",
                                    "device_ms", "routes")}
         | ({"main_cases": [{k: t[k] for k in case_keys} for t in rows[n]["cases"]]}
            if len(rows[n]["cases"]) > 1 else {})
+        | ({"lm_prefill_cases": [{k: t[k] for k in case_keys}
+                                 for t in rows[n]["lm_prefill_cases"]]}
+           if "lm_prefill_cases" in rows[n] else {})
         for n in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,11 @@ params; ``opt_state_from_numpy(opt)`` does the same for an AdamW state
 :func:`to_jax_layout` the same layout change on tensors, which the
 checkpoints store.  With the same weights both packages compute the same
 function.
+
+The LM transformers have no conv weight: ``lm_params_from_numpy`` carries
+a JAX transformer's params (stacked layers, leading L axis) across as they
+are, and ``lm_cache_from_numpy`` its KV cache (``k``, ``v`` (L, B, S, H,
+D); ``len`` a Python int in the port).
 """
 from __future__ import annotations
 
@@ -103,3 +108,15 @@ def opt_state_to_numpy(opt: Any) -> Any:
     """The port's AdamW state -> JAX-layout numpy ``{mu, nu, count}``."""
     return dict(mu=params_to_numpy(opt["mu"]), nu=params_to_numpy(opt["nu"]),
                 count=_to_np(opt["count"]))
+
+
+def lm_params_from_numpy(tree: Any, device="cuda") -> Any:
+    """A JAX transformer's numpy params -> the port's on ``device``, leaf by
+    leaf, in the same layout."""
+    return _walk(tree, lambda a: _from_np(a, device))
+
+
+def lm_cache_from_numpy(cache: Any, device="cuda") -> Any:
+    """A JAX transformer's numpy KV cache -> the port's on ``device``."""
+    return {k: int(np.asarray(v)) if k == "len" else _from_np(v, device)
+            for k, v in cache.items()}

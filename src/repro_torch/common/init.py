@@ -12,7 +12,12 @@ import torch
 
 def normal_init(gen: torch.Generator, shape, std: float = 0.02,
                 device=None) -> torch.Tensor:
-    return (std * torch.randn(shape, generator=gen)).to(device)
+    """``std`` times standard normals drawn on ``gen``'s device (a CUDA
+    generator draws on the card, so a model of billions of weights is not
+    drawn on one host thread), then moved to ``device`` (default: where
+    they were drawn).  A CPU generator's draws do not depend on
+    ``device``."""
+    return (std * torch.randn(shape, generator=gen, device=gen.device)).to(device)
 
 
 def lecun_normal(gen: torch.Generator, shape, fan_in: int,

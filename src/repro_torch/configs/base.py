@@ -8,6 +8,15 @@ hand-written kernels on a CUDA device (the JAX package defaults to
 multi-device knobs (``dp_shards``, ``dcn_shards``, ``grad_reduce=
 'compressed'``) raise, because multi-GPU training is not ported (ROADMAP
 A12).
+
+Beside it, the model configs of the JAX package (``AttentionConfig``,
+``MoEConfig``, ``SSMConfig``, ``ModelConfig``), copied field for field so
+that every architecture's ``CONFIG`` and ``SMOKE`` equal the JAX package's.
+The port reads the fields of the model (widths, attention variant, scales,
+``compute_dtype``); the JAX package's sharding and rematerialisation knobs
+(``remat_policy``, ``shard_activations_model``, ``moe_shard_map``,
+``attn_head_constraints``, ``tp_enabled``, ``activation_layout``) are kept
+so the configs stay equal, and change nothing on one device.
 """
 from __future__ import annotations
 
@@ -15,6 +24,118 @@ import dataclasses
 from typing import Optional
 
 from repro_torch.kernels.dispatch import BACKENDS
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionConfig:
+    """Attention sub-config. kind='gqa' covers MHA (n_kv_heads == n_heads)
+    and GQA; kind='mla' is DeepSeek-style Multi-head Latent Attention."""
+
+    kind: str = "gqa"                # "gqa" | "mla"
+    n_heads: int = 8
+    n_kv_heads: int = 8
+    head_dim: int = 64
+    qkv_bias: bool = False           # qwen2
+    attn_softcap: Optional[float] = None  # gemma2: 50.0
+    rope_theta: float = 10000.0
+    # MLA-only fields (DeepSeek-V2):
+    q_lora_rank: int = 0             # 0 -> dense q projection
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 8
+    top_k: int = 2
+    n_shared: int = 0                # always-on shared experts
+    d_ff: int = 2048                 # per-expert hidden width
+    capacity_factor: float = 1.25
+    router_softcap: Optional[float] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 SSD block config."""
+
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2                  # d_inner = expand * d_model
+    head_dim: int = 64
+    n_groups: int = 1
+    chunk_size: int = 256
+    dt_min: float = 0.001
+    dt_max: float = 0.1
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Unified model config covering all assigned families.
+
+    family:
+      'transformer'  decoder-only LM (dense or MoE FFN, GQA or MLA attn)
+      'mamba2'       pure SSM LM
+      'hybrid'       zamba2: mamba2 trunk + shared attention block
+      'encdec'       whisper: transformer encoder-decoder
+    """
+
+    name: str = "model"
+    family: str = "transformer"
+    n_layers: int = 2
+    d_model: int = 256
+    d_ff: int = 1024                  # dense FFN hidden (per layer)
+    vocab: int = 32000
+    max_seq: int = 8192
+    attention: Optional[AttentionConfig] = None
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    # gemma2-style alternating local/global attention. window applies to
+    # every layer whose index % 2 == 0 when local_global=True.
+    local_global: bool = False
+    sliding_window: int = 4096
+    final_softcap: Optional[float] = None   # gemma2: 30.0
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    # minicpm-style mup-ish scaling knobs (1.0 = off)
+    embed_scale: float = 1.0
+    residual_scale: float = 1.0
+    logit_scale: float = 1.0
+    # zamba2: apply the shared attention block after every k-th mamba layer
+    hybrid_attn_every: int = 6
+    # whisper: encoder depth (decoder depth = n_layers)
+    n_encoder_layers: int = 0
+    frontend: Optional[str] = None    # None | 'vision_stub' | 'audio_stub'
+    n_frontend_tokens: int = 256      # patch / frame count provided by stub
+    # numerics & memory policy
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    remat_policy: str = "nothing"     # 'nothing'|'dots'|'none'
+    shard_activations_model: bool = True
+    loss_chunk: int = 0               # >0: chunked cross-entropy over seq
+    # optimizer-state dtype policy ('float32'|'bfloat16'|'int8')
+    opt_state_dtype: str = "float32"
+    moe_shard_map: bool = True
+    attn_head_constraints: bool = True
+    tp_enabled: bool = True
+    activation_layout: str = "hidden"
+
+    @property
+    def vocab_padded(self) -> int:
+        """Vocab rounded up to a multiple of 2048; true-vocab entries beyond
+        ``vocab`` are never produced and their logits are masked."""
+        return _round_up(self.vocab, 2048)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,4 +1,19 @@
-"""Episodic serving launcher for the PyTorch port.
+"""Serving launcher for the PyTorch port: LM token decode (the default)
+and episodic personalization (``--episodic``).
+
+LM token decode, continuous batching over the KV-cache API
+(:class:`repro_torch.serve.engine.ServeEngine`), on the smoke config of
+``--arch`` (a dense GQA transformer; the other families are not ported)
+with random weights from ``--seed``:
+
+    python -m repro_torch.launch.serve --arch minitron-4b --requests 8 \
+        --slots 4 --max-new 16
+
+Prompts are ``--prompt-len`` tokens drawn from numpy's generator seeded
+with 0, as the JAX launcher draws them.  On a card every prefill layer runs
+the flash attention kernel (``--kernel-backend auto``).
+
+Episodic serving:
 
     python -m repro_torch.launch.serve --episodic --learner simple_cnaps \
         --serve-quant int8 --requests 8 --slots 4 --cache-capacity 2 \
@@ -20,8 +35,8 @@ differs from the JAX launcher's (which samples with ``jax.random``).  Runs
 on ``--device`` (default ``cuda``; pass ``--device cpu`` to run without a
 GPU).  ``--learner`` takes every kind: fomaml serves in fp32 (it freezes no
 weights), finetuner with ``--serve-quant int8`` runs its frozen head
-through the int8 matmul kernel.  Not ported: the JAX launcher's LM decode,
-``--replicas`` and ``--serve-layout``.
+through the int8 matmul kernel.  Not ported: ``--replicas`` and
+``--serve-layout`` (ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -129,12 +144,57 @@ def run_episodic(args, clock: Callable[[], float] = time.monotonic) -> dict:
     return s
 
 
+def run_lm(args, clock: Callable[[], float] = time.monotonic) -> dict:
+    """The JAX launcher's LM path: ``--requests`` prompts through the
+    continuous-batching engine on the smoke config of ``--arch``."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models.registry import get_api
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.episodic import resolve_device
+
+    device = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch)
+    api = get_api(cfg)
+    params = api.init(torch.Generator(device=device).manual_seed(args.seed), cfg)
+    engine = ServeEngine(cfg, params, n_slots=args.slots,
+                         max_seq=args.prompt_len + args.max_new + 8,
+                         kernel_backend=args.kernel_backend)
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i,
+                    prompt=rng.integers(0, cfg.vocab,
+                                        size=args.prompt_len).astype(np.int32),
+                    max_new_tokens=args.max_new, temperature=args.temperature)
+            for i in range(args.requests)]
+    t0 = clock()
+    engine.run_to_completion(reqs)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = max(clock() - t0, 1e-9)
+    n_tok = sum(len(r.out_tokens) for r in reqs)
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    print(f"{cfg.name} ({cfg.family} cache): {len(reqs)} requests, "
+          f"{n_tok} tokens in {dt:.2f}s ({n_tok / dt:.1f} tok/s on device={device} "
+          f"({name}), backend={args.kernel_backend})")
+    for r in reqs[:4]:
+        print(f"  req {r.uid}: {r.prompt.tolist()} -> {r.out_tokens}")
+    if not all(r.done for r in reqs):
+        raise RuntimeError("engine finished with requests unserved")
+    return dict(requests=len(reqs), tokens=n_tok, seconds=dt)
+
+
 def main(argv: Optional[List[str]] = None,
          clock: Callable[[], float] = time.monotonic) -> dict:
+    from repro_torch.configs.registry import ARCH_IDS
+
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_IDS, default="minitron-4b",
+                    help="LM decode: the architecture whose smoke config serves")
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--episodic", action="store_true",
-                    help="adapt-many-tasks personalization serving (the only "
-                         "mode ported)")
+                    help="adapt-many-tasks personalization serving (default: "
+                         "LM token decode)")
     ap.add_argument("--learner", default="protonets",
                     choices=["protonets", "cnaps", "simple_cnaps", "fomaml",
                              "finetuner"])
@@ -179,14 +239,15 @@ def main(argv: Optional[List[str]] = None,
                          "int8; the head runs through the int8_matmul kernel")
     ap.add_argument("--kernel-backend", choices=["auto", "cuda", "ref", "naive"],
                     default="auto",
-                    help="aggregation-kernel backend: auto = the CUDA kernels "
-                         "on a GPU, ref on the CPU")
+                    help="kernel backend (the episodic aggregation kernels; "
+                         "the LM prefill's flash attention): auto = the CUDA "
+                         "kernels on a GPU, ref on the CPU")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs without a GPU)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not args.episodic:
-        ap.error("only --episodic serving is ported to repro_torch")
+        return run_lm(args, clock=clock)
     return run_episodic(args, clock=clock)
 
 

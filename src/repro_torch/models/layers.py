@@ -1,0 +1,226 @@
+"""Transformer building blocks of the dense GQA models: the port of the JAX
+package's ``repro/models/layers.py`` (its GQA half; the MLA functions come
+with the MoE / MLA slice, ROADMAP A14b).
+
+Layouts are the JAX package's: a weight is (d_in, d_out) and is used as
+``x @ w``; activations are (B, S, D); q is (B, S, Hq, Dh), k and v are
+(B, S, Hkv, Dh).  Initializers draw on an explicit ``torch.Generator``
+(on its device; see :mod:`repro_torch.common.init`) and take ``lead``, a
+leading shape for stacked layers.
+
+Full-sequence attention takes a kernel backend, one of
+:data:`repro_torch.kernels.dispatch.BACKENDS`: ``cuda`` runs the
+hand-written flash attention kernel
+(:func:`repro_torch.kernels.ops.flash_attention_gqa`; on a CPU tensor its
+plain version), every other backend the transcription
+:func:`attention_scores` of the JAX package's attention, and ``auto``
+(the default) is ``cuda`` on a CUDA tensor and the transcription on the
+CPU.  The two differ by where P is rounded: the transcription rounds the
+normalised probabilities to v's dtype before the PV product, as the JAX
+package does, while the kernel rounds the un-normalised P in registers
+(and its plain version does not round P at all).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.common.init import lecun_normal, normal_init
+from repro_torch.configs.base import AttentionConfig, ModelConfig
+from repro_torch.kernels.dispatch import resolve_backend
+from repro_torch.kernels.ops import flash_attention_gqa
+
+Params = Dict
+
+
+def init_device(gen: torch.Generator, device) -> torch.device:
+    """Where an initializer puts its params: ``device``, else the
+    generator's device."""
+    return torch.device(device) if device is not None else gen.device
+
+
+def dot_f32(subscripts: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """einsum with f32 accumulation and an f32 result.  PyTorch has no
+    bf16 x bf16 -> f32 product, so 16-bit operands are upcast first, as
+    the JAX package does on the CPU; callers keep the operands small (decode
+    passes the cache's first ``k_len`` positions only)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.einsum(subscripts, a, b)
+    return torch.einsum(subscripts, a.float(), b.float())
+
+
+# --------------------------------------------------------------------------
+# norms / rotary / misc
+# --------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(dt)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, n_heads, head_dim); positions: broadcastable to (..., S)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)             # (d/2,)
+    angles = positions[..., None].float() * freqs                 # (..., S, d/2)
+    cos = torch.cos(angles)[..., None, :]                         # (..., S, 1, d/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+# --------------------------------------------------------------------------
+# attention core
+# --------------------------------------------------------------------------
+
+def attention_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     causal: bool, window: Optional[int] = None,
+                     cap: Optional[float] = None,
+                     q_positions: Optional[torch.Tensor] = None,
+                     k_positions: Optional[torch.Tensor] = None,
+                     k_len: Optional[int] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Grouped scaled-dot-product attention, the JAX package's arithmetic.
+
+    q: (B, Sq, Hq, Dh); k, v: (B, Sk, Hkv, Dh) with Hq % Hkv == 0.
+    window: keys with q_pos - k_pos < window are seen.  k_len: the number of
+    valid keys (decode).  Returns (B, Sq, Hq, Dh) in q's dtype; logits and
+    softmax in f32, the probabilities rounded to v's dtype for the PV
+    product.
+    """
+    b, sq, hq, dh = q.shape
+    _, sk, hkv, _ = k.shape
+    qg = q.reshape(b, sq, hkv, hq // hkv, dh)
+    if scale is None:
+        scale = dh ** -0.5
+    logits = dot_f32("bqkgd,bskd->bkgqs", qg, k) * scale
+    logits = softcap(logits, cap)
+    dev = q.device
+    qpos = torch.arange(sq, device=dev) if q_positions is None else q_positions
+    kpos = torch.arange(sk, device=dev) if k_positions is None else k_positions
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= qpos[:, None] >= kpos[None, :]
+    if window is not None:
+        mask &= (qpos[:, None] - kpos[None, :]) < window
+    if k_len is not None:
+        mask &= kpos[None, :] < k_len
+    logits = logits.masked_fill(~mask, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = dot_f32("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
+    return out.reshape(b, sq, hq, v.shape[-1]).to(q.dtype)
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     window: Optional[int] = None, cap: Optional[float] = None,
+                     backend: Optional[str] = "auto") -> torch.Tensor:
+    """Full-sequence causal self-attention over q (B, S, Hq, Dh) and k, v
+    (B, S, Hkv, Dh) on ``backend``: the flash attention kernel on ``cuda``,
+    :func:`attention_scores` otherwise.  A window at least S long masks
+    nothing, so the kernel is given none."""
+    if resolve_backend(backend, q.device) != "cuda":
+        return attention_scores(q, k, v, causal=True, window=window, cap=cap)
+    if window is not None and window >= q.shape[1]:
+        window = None
+    return flash_attention_gqa(q, k, v, causal=True, window=window, softcap=cap)
+
+
+# --------------------------------------------------------------------------
+# GQA attention layer
+# --------------------------------------------------------------------------
+
+def init_gqa(gen: torch.Generator, cfg: ModelConfig, device=None, lead=()) -> Params:
+    a = cfg.attention
+    d, hq, hkv, dh = cfg.d_model, a.n_heads, a.n_kv_heads, a.head_dim
+    dev = init_device(gen, device)
+    p = dict(
+        wq=lecun_normal(gen, (*lead, d, hq * dh), d, dev),
+        wk=lecun_normal(gen, (*lead, d, hkv * dh), d, dev),
+        wv=lecun_normal(gen, (*lead, d, hkv * dh), d, dev),
+        wo=lecun_normal(gen, (*lead, hq * dh, d), hq * dh, dev),
+    )
+    if a.qkv_bias:
+        p.update(bq=torch.zeros((*lead, hq * dh), device=dev),
+                 bk=torch.zeros((*lead, hkv * dh), device=dev),
+                 bv=torch.zeros((*lead, hkv * dh), device=dev))
+    return p
+
+
+def gqa_project_qkv(p: Params, x: torch.Tensor, a: AttentionConfig,
+                    positions: torch.Tensor):
+    b, s, _ = x.shape
+    q = x @ p["wq"].to(x.dtype)
+    k = x @ p["wk"].to(x.dtype)
+    v = x @ p["wv"].to(x.dtype)
+    if a.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    q = q.reshape(b, s, a.n_heads, a.head_dim)
+    k = k.reshape(b, s, a.n_kv_heads, a.head_dim)
+    v = v.reshape(b, s, a.n_kv_heads, a.head_dim)
+    return apply_rope(q, positions, a.rope_theta), apply_rope(k, positions, a.rope_theta), v
+
+
+def gqa_attention(p: Params, x: torch.Tensor, a: AttentionConfig, *,
+                  window: Optional[int] = None,
+                  backend: Optional[str] = "auto") -> torch.Tensor:
+    """Full-sequence (prefill) GQA self-attention."""
+    b, s, _ = x.shape
+    q, k, v = gqa_project_qkv(p, x, a, torch.arange(s, device=x.device))
+    o = causal_attention(q, k, v, window=window, cap=a.attn_softcap, backend=backend)
+    return o.reshape(b, s, -1) @ p["wo"].to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# dense gated-MLP
+# --------------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, device=None,
+             lead=()) -> Params:
+    dev = init_device(gen, device)
+    return dict(
+        w_gate=lecun_normal(gen, (*lead, d_model, d_ff), d_model, dev),
+        w_up=lecun_normal(gen, (*lead, d_model, d_ff), d_model, dev),
+        w_down=lecun_normal(gen, (*lead, d_ff, d_model), d_ff, dev),
+    )
+
+
+def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    g = F.silu(x @ p["w_gate"].to(x.dtype))
+    u = x @ p["w_up"].to(x.dtype)
+    return (g * u) @ p["w_down"].to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# embedding / unembedding
+# --------------------------------------------------------------------------
+
+def init_embed(gen: torch.Generator, vocab_padded: int, d_model: int,
+               device=None) -> torch.Tensor:
+    return normal_init(gen, (vocab_padded, d_model), 0.02, init_device(gen, device))
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    return table[tokens].to(dtype)
+
+
+def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """x: (..., D) -> logits (..., Vp) in f32."""
+    return torch.einsum("...d,vd->...v", x.float(), table.float())

@@ -1,0 +1,50 @@
+"""Model API dispatch: one interface over the model families, the port of
+the JAX package's ``repro/models/registry.py``.
+
+    api = get_api(cfg)
+    params = api.init(gen, cfg)                  # on gen's device
+    logits, cache = api.prefill(params, batch, cfg, backend="auto")
+    logits, cache = api.decode_step(params, cache, tokens, cfg)
+    cache = api.init_cache(cfg, batch_size, max_seq, device)
+    params = api.compute_params(params, cfg)     # matmul weights cast once
+
+The dense transformers are ported; ``loss`` comes with LM training
+(ROADMAP A14e).  The other families raise, naming the item that ports them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAPI:
+    init: Callable
+    prefill: Callable
+    decode_step: Callable
+    init_cache: Callable
+    compute_params: Callable
+
+
+_APIS = {
+    "transformer": ModelAPI(
+        init=transformer.init_transformer,
+        prefill=transformer.prefill,
+        decode_step=transformer.decode_step,
+        init_cache=transformer.init_cache,
+        compute_params=transformer.compute_params,
+    ),
+}
+
+_NOT_PORTED = {"mamba2": "A14c", "hybrid": "A14c", "encdec": "A14d"}
+
+
+def get_api(cfg: ModelConfig) -> ModelAPI:
+    if cfg.family in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
+            f"(ROADMAP {_NOT_PORTED[cfg.family]})")
+    return _APIS[cfg.family]
