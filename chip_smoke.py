@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's episodic serving and training paths and its LM
-decode serving on one NVIDIA GPU.
+"""Drive the PyTorch port's episodic serving and training paths, its
+episodic LM meta-training and its LM decode serving on one NVIDIA GPU.
 
     python3 chip_smoke.py            # needs one CUDA card, nvcc and the repo
 
@@ -10,7 +10,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
 3. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at ragged and wide ones (the Mahalanobis head and
    the int8 matmul on every path of their planners, the head's "stream"
-   route at F 2304, 3072 and 8192), by the error of each output row against
+   route at F 2304, 3072 and 8192; B1-B3 at the episodic LM's shapes, F
+   3072), by the error of each output row against
    that row's largest value, and time the kernel, the plain version and
    (where one exists) a single PyTorch library call; then plant faults in
    the Mahalanobis head (one cluster rank's rows of Sinv zeroed), the
@@ -74,6 +75,32 @@ Phases, each of which fails the run (non-zero exit) on any error:
    against ``ref`` as in phase 4, FineTuner's int8 head failing unless B4
    launched; one int8-state AdamW update against the fp32 state's; and
    the launcher at its defaults (the device sampler);
+5c. episodic LM meta-training: Simple CNAPs with the ``tokens`` set
+   encoder over minitron-4b at full width and depth (random weights drawn
+   on the card from seed 0, fp32 params, bf16 compute, every block
+   checkpointed), 2 token tasks a step (5-way, 8 shot, 2 queries a class,
+   256 tokens, vocab 256000), LITE h 8, chunks of 8: one step on the
+   kernels against ``ref`` in bf16 and in fp32 compute from the same
+   params, tasks and H scores, failing unless the kernel path's loss and
+   worst gradient leaf (``enc`` and ``film_gen``) are within ``LM_GATE``
+   times the bf16 ``ref`` run's own error against the fp32 run, every leaf
+   the reference trains gets a gradient, B5 launched on "wgmma" in the
+   forward (the H pass, the complement chunks, the queries) and in the
+   backward (the checkpoints' recompute) and nothing else in the
+   backward, and B1-B3 (B3 on its "stream" route) in the differentiated
+   step; two faults planted in B5's backward (dv of the last kv head
+   zeroed, dq's sign flipped past S/2) that the same gate must flag;
+   three steps through the example's step (loss, ms a step, tasks/s
+   without the first, launches counted on exactly that run) and one
+   profiled step; the peak memory of a LITE step against an exact step,
+   which must be lower; ``adapt_batch`` and ``predict_batch`` on two
+   held-out tasks gated the same way on the logits; ProtoNets at 4 layers
+   (every weight trained) gated the same way, on tasks of concentration
+   1.0 (a gate fails outright where the fp32 run's loss or gradient is
+   exactly 0); B5 at the step's shapes
+   against its plain version and SDPA; and ``python -m
+   repro_torch.examples.episodic_lm --steps 2`` on the card as a
+   subprocess, which must exit 0;
 6. drive the LM-side kernel entry point ``repro_torch.kernels.ops`` once
    at published widths (flash attention of gemma2-2b's local and global
    layers and of minitron-4b, kimi-k2's expert matmul, mamba2-780m's SSD
@@ -127,12 +154,15 @@ attention, the ops phase for gmm and ssd_chunk (``ops_launches`` and
 ``lm_serve_gemma2_launches`` give flash attention's other counts, and
 ``lm_prefill_cases`` its numbers at the prefill shapes);
 ``train_launches`` those of B1-B3 in the five training-loop steps of phase
-5.  ``chiprun_out/chip_smoke.json`` holds every reading, the training
+5 and of flash attention in the three steps of phase 5c
+(``lm_train_launches`` B1-B3's there; ``lm_train_cases`` flash
+attention's numbers at phase 5c's shapes).  ``chiprun_out/chip_smoke.json`` holds every reading, the training
 phases' under ``paths``, and every path's launches under ``launches``:
 ``serve_warm`` (phase 4b's warm-tier run), ``train_device`` (the
 device-sampler loop), ``algo1`` (the two per-task steps), ``fig4``,
-``fomaml`` and ``finetuner`` (their serving runs), ``lm_serve`` and
-``lm_serve_gemma2`` (phase 6b's counted engine runs).
+``fomaml`` and ``finetuner`` (their serving runs), ``lm_train`` (phase
+5c's three steps), ``lm_serve`` and ``lm_serve_gemma2`` (phase 6b's
+counted engine runs).
 
 It imports no JAX.
 """
@@ -405,19 +435,19 @@ def kernel_cases(dev):
                     main=label.startswith("main") if main is None else main,
                     iters=(50, 7), bytes=nbytes, flops=flops, peak=FP32_FLOPS)
 
-    def seg_case(label, t, b, f, c, dtype=torch.float32, pad=0):
+    def seg_case(label, t, b, f, c, dtype=torch.float32, pad=0, main=None):
         x, w = randn(t, b, f, dtype=dtype), onehot(t, b, c, pad)
         nbytes = x.numel() * x.element_size() + w.numel() * 4 + t * c * f * 4
         return case(label, sp.segment_pool_weighted, sp.segment_pool_weighted_plain,
                     lambda x, w: torch.bmm(w.transpose(1, 2), x.float()), (x, w),
-                    nbytes, 2.0 * t * b * c * f)
+                    nbytes, 2.0 * t * b * c * f, main)
 
-    def sm_case(label, t, b, f, c, dtype=torch.float32, pad=0):
+    def sm_case(label, t, b, f, c, dtype=torch.float32, pad=0, main=None):
         x, w = randn(t, b, f, dtype=dtype), onehot(t, b, c, pad)
         nbytes = x.numel() * x.element_size() + w.numel() * 4 + t * c * f * f * 4
         return case(label, sp.class_second_moment, sp.class_second_moment_plain,
                     lambda x, w: torch.einsum("tbc,tbi,tbj->tcij", w, x.float(), x.float()),
-                    (x, w), nbytes, 2.0 * t * c * b * f * f)
+                    (x, w), nbytes, 2.0 * t * c * b * f * f, main)
 
     def routed(c, plan, route):
         # the case's route, as the planner picks it; a case written for one
@@ -469,13 +499,19 @@ def kernel_cases(dev):
              "segment_sum_kernel", [
                  seg_case("main T4 B32 F256 C5", 4, 32, 256, 5),
                  seg_case("ragged T3 B37 F200 C5 bf16 pad5", 3, 37, 200, 5, torch.bfloat16, 5),
-                 seg_case("ragged T2 B21 F72 C5 fp16 pad3", 2, 21, 72, 5, torch.float16, 3)]),
+                 seg_case("ragged T2 B21 F72 C5 fp16 pad3", 2, 21, 72, 5, torch.float16, 3),
+                 # the episodic LM's shapes at minitron-4b's d_model (phase
+                 # 5c): an H pass or a complement chunk, an adaptation
+                 seg_case("lm T2 B8 F3072 C5", 2, 8, 3072, 5, main=True),
+                 seg_case("lm T2 B40 F3072 C5", 2, 40, 3072, 5, main=True)]),
         spec("class_second_moment", "segment_pool.cu", "src/repro/kernels/segment_pool.py:112",
              "second_moment_kernel", [
                  sm_case("main T4 B32 F256 C5", 4, 32, 256, 5),
                  sm_case("ragged T3 B37 F200 C5 bf16 pad5", 3, 37, 200, 5, torch.bfloat16, 5),
                  sm_case("ragged T2 B21 F72 C5 fp16 pad3", 2, 21, 72, 5, torch.float16, 3),
-                 sm_case("wide T4 B32 F512 C5", 4, 32, 512, 5)]),
+                 sm_case("wide T4 B32 F512 C5", 4, 32, 512, 5),
+                 sm_case("lm T2 B8 F3072 C5", 2, 8, 3072, 5, main=True),
+                 sm_case("lm T2 B40 F3072 C5", 2, 40, 3072, 5, main=True)]),
         # the planner's paths: one bulk copy a block; 4-byte cp.async by
         # every thread where F % 4 != 0 or Sinv is misaligned; several query
         # tiles; two streaming stages at F 640; past F 2048 the stream route
@@ -495,7 +531,9 @@ def kernel_cases(dev):
                  md_case("stream T1 M8 C2 F3072", 1, 8, 2, 3072, route="stream", main=True),
                  md_case("stream T1 M8 C2 F8192", 1, 8, 2, 8192, route="stream", main=True),
                  md_case("stream T1 M13 C2 F2306 (F % 4: 4-byte copies)", 1, 13, 2, 2306,
-                         route="stream")]),
+                         route="stream"),
+                 md_case("lm T2 M10 C5 F3072 (stream)", 2, 10, 5, 3072, route="stream",
+                         main=True)]),
         # the adapt chunk (M 128) and the query dispatch (M 32) of the
         # serving path, timed; ragged shapes on both copy paths
         spec("int8_matmul", "int8_matmul.cu", "src/repro/kernels/int8_matmul.py:50",
@@ -1797,6 +1835,393 @@ def run_training_rest(dev, launches, host_loop):
 
 
 # ---------------------------------------------------------------------------
+# phase 5c: episodic LM meta-training, LITE over minitron-4b
+# ---------------------------------------------------------------------------
+
+LM_TRAIN_TASKS = 2                           # tasks a step
+LM_TRAIN_LITE = dict(h=8, chunk_size=8)
+LM_TRAIN_STEPS = 3
+LM_PROTO_LAYERS = 4                          # ProtoNets trains every weight: cut depth
+# ProtoNets' logits are squared distances of 3072-wide features: at the
+# sampler's concentration 0.3 its margins on these tasks exceed fp32's
+# resolution, its loss and gradient come out exactly 0 and the gate would
+# hold nothing, so its tasks' class unigrams are flatter
+LM_PROTO_CONCENTRATION = 1.0
+# the example's task family (5-way, 8 shot, 2 queries a class) at a
+# realistic sequence length over the full vocab
+LM_TASK = dict(way=5, shot=8, query_per_class=2, seq_len=256)
+LM_TRAIN_CATEGORIES = (   # device kernel name -> what it is, first match wins
+    ("B5 flash_attention", ("flash_attention",)),
+    ("B1 segment_sum", ("segment_sum_kernel",)),
+    ("B2 class_second_moment", ("second_moment_kernel",)),
+    ("B3 mahalanobis", ("mahalanobis",)),
+    ("cuSOLVER (Cholesky, inverse)", ("potrf", "potri", "trsm", "trtri", "cusolver",
+                                      "lauum", "syrk", "getrf")),
+    ("GEMMs (cuBLAS)", ("gemm", "nvjet", "cutlass", "gemv", "xmma", "splitk", "dot_kernel")),
+    ("reductions", ("reduce", "softmax", "norm")),
+    ("copies", ("memcpy", "memset", "copy", "cat")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "index", "scatter")),
+)
+
+
+def lm_learner(kind, cfg):
+    """Phase 5c's learner of ``kind`` over the LM backbone of ``cfg``, with
+    the example's ``tokens`` set encoder (task_dim 32)."""
+    from repro_torch.core.meta_learners import MetaLearnerConfig, make_learner
+    from repro_torch.core.set_encoder import SetEncoderConfig
+    from repro_torch.models.lm_backbone import make_lm_backbone
+    return make_learner(MetaLearnerConfig(kind=kind, way=LM_TASK["way"]),
+                        make_lm_backbone(cfg),
+                        SetEncoderConfig(kind="tokens", in_channels=cfg.vocab, task_dim=32))
+
+
+def lm_tasks(cfg, tasks: int, step: int, dev, seed: int = 0, **kw):
+    """(TaskBatch, H scores) of ``step``: token tasks on the card (LM_TASK,
+    updated by ``kw``) and the counter-based H draw of (seed, step, task,
+    example)."""
+    from repro_torch.core.lite import index_scores
+    from repro_torch.data.episodic import EpisodicTokenConfig, token_task_batch_at
+    batch = token_task_batch_at(seed, EpisodicTokenConfig(vocab=cfg.vocab, **LM_TASK, **kw),
+                                tasks, step, dev)
+    return batch, index_scores(seed, step, range(tasks), batch.support_y.shape[1], dev)
+
+
+def lm_grads(learner, params, batch, scores, backend, lite=None):
+    """One step's (loss, accuracy, {path: gradient or None}, launches) on
+    ``backend``: ``make_reached_meta_grads``' gradient over the leaves the
+    loss reaches, written out here so that the launch counts of the
+    meta-loss (forward) and of the backward read apart."""
+    import torch
+    from repro_torch.common.tree import tree_leaves, tree_map, tree_paths
+    from repro_torch.core.lite import LiteSpec
+    from repro_torch.kernels import _build, dispatch
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    with dispatch.use_backend(backend), torch.enable_grad():
+        torch.cuda.synchronize()
+        _build.launches.reset()
+        losses, aux = learner.meta_loss(live, batch, scores,
+                                        LiteSpec(**(lite or LM_TRAIN_LITE)))
+        loss = losses.mean()
+        torch.cuda.synchronize()
+        fwd = _build.launches.snapshot()
+        grads = torch.autograd.grad(loss, tree_leaves(live), allow_unused=True)
+        torch.cuda.synchronize()
+        total = _build.launches.snapshot()
+    bwd = {k: n - fwd.get(k, 0) for k, n in total.items() if n - fwd.get(k, 0)}
+    return (float(loss.detach()), float(aux["accuracy"].mean()),
+            dict(zip(tree_paths(params), grads)), dict(forward=fwd, backward=bwd))
+
+
+def lm_grad_errs(got, want, prefixes):
+    """(loss error, {leaf: error}) of run ``got`` against run ``want``: the
+    loss's relative error, and each leaf's max|got - want| over its
+    max|want| for the leaves under ``prefixes``.  Fails if a leaf that
+    ``want`` trains (a non-zero gradient) gets none in ``got``."""
+    loss_err = abs(got[0] - want[0]) / max(abs(want[0]), 1e-30)
+    errs = {}
+    for k, w in want[2].items():
+        g = got[2][k]
+        if not k.startswith(prefixes) or w is None:
+            if g is not None and k.startswith(prefixes):
+                fail(f"leaf {k}: a gradient where the reference has none")
+            continue
+        scale = float(w.abs().max())
+        if g is None or (scale > 0 and float(g.abs().max()) == 0):
+            fail(f"leaf {k}: the reference trains it, this run gives it no gradient")
+        errs[k] = float((g.float() - w.float()).abs().max()) / max(scale, 1e-30)
+    return loss_err, errs
+
+
+def lm_train_gate(label: str, runs, prefixes, fault: bool = False):
+    """Phase 6b's gate on a training step: run ``got`` (the kernel path, or a
+    planted fault's run) against the fp32-compute ``ref32`` run, at LM_GATE
+    times the bf16 ``ref16`` run's own error, for the loss and for the
+    worst gradient leaf under ``prefixes``.  A fault must fail it."""
+    if runs["ref32"][0] == 0 or not any(
+            w is not None and float(w.abs().max()) > 0 for k, w in runs["ref32"][2].items()
+            if k.startswith(prefixes)):
+        fail(f"{label}: the fp32 run's loss or gradient is exactly 0 (a saturated "
+             f"softmax): the gate would hold nothing")
+    l_ref, e_ref = lm_grad_errs(runs["ref16"], runs["ref32"], prefixes)
+    l_got, e_got = lm_grad_errs(runs["got"], runs["ref32"], prefixes)
+    worst_ref, worst_got = max(e_ref.values()), max(e_got.values())
+    worst_leaf = max(e_got, key=e_got.get)
+    passed = l_got <= LM_GATE * l_ref and worst_got <= LM_GATE * worst_ref
+    over = sum(e_got[k] > LM_GATE * e_ref[k] for k in e_got)
+    print(f"  {label}: vs fp32 ref, loss err {l_got:.3e} (gate {LM_GATE * l_ref:.3e}), worst "
+          f"leaf err {worst_got:.3e} at {worst_leaf} (gate {LM_GATE * worst_ref:.3e} = "
+          f"{LM_GATE}x bf16 ref's {worst_ref:.3e}, {len(e_got)} leaves, {over} of them past "
+          f"{LM_GATE}x their own bf16 ref error) "
+          f"{('MISSED' if passed else 'caught') if fault else ('ok' if passed else 'FAIL')}",
+          flush=True)
+    if passed == fault:
+        fail(f"{label}: " + ("the gate misses the planted fault" if fault else
+                             "the kernel path is outside its gate"))
+    return dict(loss_err=l_got, ref16_loss_err=l_ref, worst_leaf_err=worst_got,
+                worst_leaf=worst_leaf, ref16_worst_leaf_err=worst_ref,
+                leaves=len(e_got), leaves_past_own_ratio=over, passed=passed,
+                leaf_errors=e_got, ref16_leaf_errors=e_ref)
+
+
+def b5_backward_faults():
+    """(label, backward) of the two faults planted in B5's backward, each
+    the Function's own backward with its result spoilt: dv of the last kv
+    head zeroed, and dq's sign flipped for the rows past S/2."""
+    from repro_torch.kernels import dispatch
+    backward = dispatch._FlashAttention.backward
+
+    def dv_last_kv_head_zeroed(ctx, g):
+        dq, dk, dv, *rest = backward(ctx, g)
+        if dv is not None:
+            dv = dv.clone()
+            dv[:, :, -1] = 0
+        return (dq, dk, dv, *rest)
+
+    def dq_sign_flipped_late(ctx, g):
+        dq, *rest = backward(ctx, g)
+        if dq is not None:
+            dq = dq.clone()
+            dq[:, dq.shape[1] // 2:] *= -1
+        return (dq, *rest)
+
+    return (("B5 backward: dv of the last kv head zeroed", dv_last_kv_head_zeroed),
+            ("B5 backward: dq's sign flipped past S/2", dq_sign_flipped_late))
+
+
+def lm_parity(kind, cfg, params, batch, scores, prefixes, plant: bool = False):
+    """One LITE step of ``kind`` on the kernels (counted) against ``ref`` in
+    bf16 and in fp32 compute from the same params, tasks and H scores,
+    through the gate; with ``plant``, the two faults planted in B5's
+    backward, which the same gate must flag."""
+    import dataclasses
+    from repro_torch.kernels import dispatch
+    learner = lm_learner(kind, cfg)
+    lm_grads(learner, params, batch, scores, "cuda")            # allocator, cuBLAS
+    runs = dict(got=lm_grads(learner, params, batch, scores, "cuda"),
+                ref16=lm_grads(learner, params, batch, scores, "ref"),
+                ref32=lm_grads(lm_learner(kind, dataclasses.replace(
+                    cfg, compute_dtype="float32")), params, batch, scores, "ref"))
+    launches = runs["got"][3]
+    print(f"train lm {kind}: {cfg.name}, {cfg.n_layers} layers, T {batch.num_tasks}, loss "
+          f"cuda {runs['got'][0]:.6g} ref {runs['ref16'][0]:.6g} fp32 {runs['ref32'][0]:.6g}, "
+          f"accuracy {runs['got'][1]:.3f}; launches forward {launches['forward']}, "
+          f"backward {launches['backward']}", flush=True)
+    out = dict(loss=runs["got"][0], ref16_loss=runs["ref16"][0], ref32_loss=runs["ref32"][0],
+               accuracy=runs["got"][1], launches=launches,
+               gate=lm_train_gate(f"{cfg.name} {kind} LITE step", runs, prefixes))
+    if plant:
+        out["planted_faults"] = []
+        for label, fn in b5_backward_faults():
+            with planted_backward(dispatch._FlashAttention, fn):
+                got = lm_grads(learner, params, batch, scores, "cuda")
+            r = lm_train_gate(f"planted fault: {label}", {**runs, "got": got}, prefixes,
+                              fault=True)
+            out["planted_faults"].append(dict(fault=label, **{
+                k: v for k, v in r.items() if not k.endswith("leaf_errors")}))
+    return out
+
+
+def lm_train_loop(learner, params, cfg, dev):
+    """LM_TRAIN_STEPS steps through the example's step on the kernels (the
+    launch counts set to 0 just before and read just after), then one
+    step timed and one profiled."""
+    import torch
+    from repro_torch.core.lite import LiteSpec
+    from repro_torch.examples.episodic_lm import make_meta_step
+    from repro_torch.kernels import _build
+    step = make_meta_step(learner, LiteSpec(**LM_TRAIN_LITE))
+    data = [lm_tasks(cfg, LM_TRAIN_TASKS, s, dev) for s in range(LM_TRAIN_STEPS + 1)]
+    losses, ms = [], []
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.launches.reset()
+    for s in range(LM_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, loss, _ = step(params, *data[s])
+        losses.append(float(loss))               # reads the loss back: synchronises
+        ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize(dev)
+    counts = _build.launches.snapshot()
+    peak = torch.cuda.max_memory_allocated(dev)
+    tasks_per_s = LM_TRAIN_TASKS * (LM_TRAIN_STEPS - 1) / (sum(ms[1:]) / 1e3)
+    print(f"train lm loop: {LM_TRAIN_STEPS} steps of T {LM_TRAIN_TASKS}, losses {losses}, ms "
+          f"per step {ms}, tasks/s {tasks_per_s:.3f} (first step excluded), peak memory "
+          f"{peak} B, launches {counts}", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train lm loop: losses {losses}")
+    _need("train lm loop", counts, ("flash_attention", "segment_sum", "class_second_moment",
+                                    "mahalanobis"), LM_TRAIN_STEPS)
+    wall = _counted(lambda: step(params, *data[-1]))[2]
+    busy, cats, table = device_breakdown(
+        lambda: step(params, *data[-1]), LM_TRAIN_CATEGORIES,
+        lambda busy, _: f"  train lm trace: device busy {busy:.2f} ms of an unprofiled step "
+                        f"of {wall:.2f} ms (idle share {1 - busy / wall:.3f})", 15)
+    return params, dict(losses=losses, step_ms=ms, tasks_per_s=tasks_per_s, peak_bytes=peak,
+                        launches=counts, trace=dict(busy_ms=busy, step_wall_ms=wall,
+                                                    idle_share=1 - busy / wall,
+                                                    categories=cats, top=table[:40]))
+
+
+def lm_memory(learner, params, batch, scores, dev):
+    """Peak device bytes of a LITE step and of an exact step (h = N) on the
+    same tasks, each after a warm-up step; LITE's must be lower."""
+    import torch
+    from repro_torch.core.lite import LiteSpec
+    from repro_torch.core.episodic_train import make_reached_meta_grads
+    out = {}
+    for name, lite in (("lite", LiteSpec(**LM_TRAIN_LITE)), ("exact", LiteSpec(exact=True))):
+        grads_fn = make_reached_meta_grads(learner, lite)
+        grads_fn(params, batch, scores)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        res, peak = _peak(lambda: grads_fn(params, batch, scores), dev)
+        del res
+        out[name] = dict(peak_bytes=peak, base_bytes=base)
+    ratio = out["lite"]["peak_bytes"] / out["exact"]["peak_bytes"]
+    print(f"train lm memory, T {batch.num_tasks}: peak of a LITE step (h "
+          f"{LM_TRAIN_LITE['h']}, chunk {LM_TRAIN_LITE['chunk_size']}) "
+          f"{out['lite']['peak_bytes']} B, of an exact step {out['exact']['peak_bytes']} B "
+          f"({ratio:.3f}x); {out['lite']['base_bytes']} B held before the step", flush=True)
+    if not out["lite"]["peak_bytes"] < out["exact"]["peak_bytes"]:
+        fail("train lm memory: LITE's peak is not below the exact step's")
+    return dict(out, ratio=ratio)
+
+
+def lm_serving(cfg, params, dev):
+    """``adapt_batch`` and ``predict_batch`` on two held-out tasks on the
+    kernels (counted) against ``ref`` in bf16 and in fp32 compute: the
+    logits within LM_GATE times the bf16 ref's own error, relative to
+    max|logit|."""
+    import dataclasses
+    from repro_torch.examples.episodic_lm import heldout_accuracy
+    from repro_torch.kernels import dispatch
+    batch, _ = lm_tasks(cfg, 2, 0, dev, seed=5)
+    runs = {}
+    for name, c, backend in (("got", cfg, "cuda"), ("ref16", cfg, "ref"),
+                             ("ref32", dataclasses.replace(cfg, compute_dtype="float32"),
+                              "ref")):
+        learner = lm_learner("simple_cnaps", c)
+        with dispatch.use_backend(backend):
+            (logits, acc), counts, ms = _counted(lambda: heldout_accuracy(learner, params,
+                                                                         batch))
+        runs[name] = (logits.float(), float(acc), counts, ms)
+    e_got = global_err(runs["got"][0], runs["ref32"][0])
+    e_ref = global_err(runs["ref16"][0], runs["ref32"][0])
+    passed = e_got <= LM_GATE * e_ref
+    counts = runs["got"][2]
+    print(f"serve lm: adapt + predict, 2 held-out tasks, {runs['got'][3]:.1f} ms on the kernels "
+          f"({runs['ref16'][3]:.1f} on ref), accuracy {runs['got'][1]:.3f}; logits vs fp32 ref "
+          f"{e_got:.3e} (gate {LM_GATE * e_ref:.3e} = {LM_GATE}x bf16 ref's {e_ref:.3e}) "
+          f"{'ok' if passed else 'FAIL'}; launches {counts}", flush=True)
+    if not passed:
+        fail("serve lm: the kernel path's logits are outside their gate")
+    _need("serve lm", counts, ("flash_attention", "segment_sum", "class_second_moment",
+                               "mahalanobis"))
+    return dict(ms=runs["got"][3], ref_ms=runs["ref16"][3], accuracy=runs["got"][1],
+                err_vs_fp32=e_got, ref16_err_vs_fp32=e_ref, gate=LM_GATE * e_ref,
+                launches=counts)
+
+
+def lm_train_kernel_specs(dev):
+    """B5 at phase 5c's shapes (the H pass: 16 sequences; the queries: 20;
+    256 tokens), as :func:`check_kernels` takes them, beside SDPA."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(6)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g).to(device=dev, dtype=dtype)
+
+    n_h = LM_TRAIN_TASKS * LM_TRAIN_LITE["h"]
+    n_q = LM_TRAIN_TASKS * LM_TASK["way"] * LM_TASK["query_per_class"]
+    s = LM_TASK["seq_len"]
+    return [dict(name="flash_attention", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                 replaces="src/repro/kernels/flash_attention.py:89",
+                 symbol="flash_attention_wgmma_kernel", cases=[
+        flash_case(randn, f"minitron-4b LITE H pass B{n_h} S{s} Hq24 Hkv8 D128 causal", n_h,
+                   s, 24, 8, 128, torch.bfloat16, main=True, lib=True, iters=(20, 5),
+                   causal=True),
+        flash_case(randn, f"minitron-4b queries B{n_q} S{s} Hq24 Hkv8 D128 causal", n_q, s,
+                   24, 8, 128, torch.bfloat16, main=True, lib=True, iters=(20, 5),
+                   causal=True)])]
+
+
+def run_lm_train(dev, launches):
+    """Phase 5c: LITE meta-training of Simple CNAPs over minitron-4b at full
+    width and depth (random weights drawn on the card from seed 0, fp32
+    params, bf16 compute, blocks checkpointed), ProtoNets at LM_PROTO_LAYERS
+    layers, the serving side and the example as a subprocess."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_config
+    t_phase = time.perf_counter()
+    cfg = get_config("minitron-4b")
+    if cfg.remat_policy != "nothing" or cfg.compute_dtype != "bfloat16":
+        fail(f"{cfg.name}: expected remat_policy 'nothing' and bf16 compute")
+    n_layers = cfg.n_layers
+    learner = lm_learner("simple_cnaps", cfg)
+    params = learner.init(torch.Generator(device=dev).manual_seed(0), dev)
+    batch, scores = lm_tasks(cfg, LM_TRAIN_TASKS, 0, dev)
+    out = dict(kind="lm_train", arch=cfg.name, tasks_per_step=LM_TRAIN_TASKS,
+               lite=LM_TRAIN_LITE, task=LM_TASK, vocab=cfg.vocab)
+
+    r = lm_parity("simple_cnaps", cfg, params, batch, scores, ("enc/", "film_gen/"),
+                  plant=True)
+    fwd, bwd = r["launches"]["forward"], r["launches"]["backward"]
+    n_comp = LM_TASK["way"] * LM_TASK["shot"] - LM_TRAIN_LITE["h"]
+    chunks = -(-n_comp // LM_TRAIN_LITE["chunk_size"])
+    want_fwd, want_bwd = (chunks + 2) * n_layers, 2 * n_layers   # H, chunks, queries
+    if fwd.get("flash_attention") != want_fwd or bwd.get("flash_attention") != want_bwd \
+            or fwd.get("flash_attention/wgmma") != want_fwd \
+            or bwd.get("flash_attention/wgmma") != want_bwd:
+        fail(f"train lm: B5 launches forward {fwd}, backward {bwd}; want {want_fwd} in the "
+             f"forward (the H pass, {chunks} complement chunks, the queries) and {want_bwd} "
+             f"in the backward (the checkpoints' recompute of the H pass and the queries), "
+             f"all on wgmma")
+    _need("train lm forward", fwd, ("segment_sum", "class_second_moment", "mahalanobis"))
+    if fwd.get("mahalanobis/stream") != fwd.get("mahalanobis"):
+        fail(f"train lm: the Mahalanobis head did not take the stream route: {fwd}")
+    if any(not k.startswith("flash_attention") for k in bwd):
+        fail(f"train lm: the backward launched more than B5's recompute: {bwd}")
+    out["parity_simple_cnaps"] = r
+    torch.cuda.empty_cache()
+
+    params, out["loop"] = lm_train_loop(learner, params, cfg, dev)
+    launches["lm_train"] = out["loop"]["launches"]
+    out["memory"] = lm_memory(learner, params, batch, scores, dev)
+    torch.cuda.empty_cache()
+    out["serving"] = lm_serving(cfg, params, dev)
+    del learner, params
+    torch.cuda.empty_cache()
+
+    cfg4 = dataclasses.replace(cfg, n_layers=LM_PROTO_LAYERS)
+    p4 = lm_learner("protonets", cfg4).init(torch.Generator(device=dev).manual_seed(0), dev)
+    batch, scores = lm_tasks(cfg, LM_TRAIN_TASKS, 0, dev,
+                             concentration=LM_PROTO_CONCENTRATION)
+    out["parity_protonets"] = lm_parity("protonets", cfg4, p4, batch, scores, ("bb/",))
+    del p4
+    torch.cuda.empty_cache()
+
+    b5 = check_kernels(lm_train_kernel_specs(dev))["flash_attention"]
+    out["kernel_cases"], out["kernel_max_abs_err"] = b5["cases"], b5["max_abs_err"]
+    cmd = [sys.executable, "-m", "repro_torch.examples.episodic_lm", "--steps", "2"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    secs = time.perf_counter() - t0
+    tail = proc.stdout.strip().splitlines()[-1:] or [proc.stdout[-300:]]
+    print(f"episodic LM example: {' '.join(cmd[1:])} exit {proc.returncode} in {secs:.1f} s; "
+          f"{tail[0]}", flush=True)
+    if proc.returncode != 0 or "device=cuda" not in proc.stdout:
+        fail(f"the episodic LM example failed (exit {proc.returncode}):\n"
+             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    out["example"] = dict(cmd=cmd[1:], exit=proc.returncode, seconds=secs, line=tail[0])
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 5c: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the LM-side kernel entry point repro_torch.kernels.ops
 # ---------------------------------------------------------------------------
 
@@ -2509,6 +2934,8 @@ def main() -> int:
     summary.append(run_serve_warm(dev, launches))
     summary.append(run_training(dev, launches))
     summary.append(run_training_rest(dev, launches, summary[-1]))
+    lm_train = run_lm_train(dev, launches)
+    summary.append(lm_train)
     ops_rows, ops_planted = run_ops_path(dev, launches)
     planted += ops_planted
     summary.append(run_lm_serve(dev, launches))
@@ -2519,8 +2946,10 @@ def main() -> int:
     rows |= ops_rows
     prefill_row = summary[-1]["prefill_kernel"]
     rows["flash_attention"]["lm_prefill_cases"] = prefill_row["cases"]
+    rows["flash_attention"]["lm_train_cases"] = lm_train["kernel_cases"]
     rows["flash_attention"]["max_abs_err"] = max(rows["flash_attention"]["max_abs_err"],
-                                                 prefill_row["max_abs_err"])
+                                                 prefill_row["max_abs_err"],
+                                                 lm_train["kernel_max_abs_err"])
     for name, path in path_of.items():
         if launches[path].get(name, 0) < 1:
             fail(f"kernel {name} was not launched on the {path} path")
@@ -2530,16 +2959,20 @@ def main() -> int:
         dict(card=card, kernels=rows, paths=summary, launches=launches,
              planted_faults=planted), indent=1))
     # "train_launches": the launches of the episodic kernels in the five
-    # steps of the training loop (phase 5).
+    # steps of the training loop (phase 5), of flash attention in the three
+    # steps of phase 5c; "lm_train_launches" those of B1-B3 in phase 5c.
     # "route" is how the kernel was written (CUDA C++); "routes" the
     # kernel's own route ("wgmma" tensor cores or "simt" CUDA cores) at each
     # main case, and "main_cases" each main case's numbers
     case_keys = ("shape", "route", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "library_device_ms")
+    train_path = {n: "train" for n in launches["train"]} | {"flash_attention": "lm_train"}
     print(json.dumps({"kernels": [
         {k: rows[n][k] for k in ("name", "route", "source", "replaces")}
         | {"launches": launches[path_of[n]][n]}
-        | ({"train_launches": launches["train"][n]} if n in launches["train"] else {})
+        | ({"train_launches": launches[train_path[n]][n]} if n in train_path else {})
+        | ({"lm_train_launches": launches["lm_train"][n]}
+           if n in launches["lm_train"] and train_path.get(n) != "lm_train" else {})
         | ({f"{p}_launches": launches[p][n] for p in ("ops", "lm_serve_gemma2")
             if p != path_of[n] and n in launches[p]})
         | {k: rows[n][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -2547,9 +2980,8 @@ def main() -> int:
                                    "device_ms", "routes")}
         | ({"main_cases": [{k: t[k] for k in case_keys} for t in rows[n]["cases"]]}
            if len(rows[n]["cases"]) > 1 else {})
-        | ({"lm_prefill_cases": [{k: t[k] for k in case_keys}
-                                 for t in rows[n]["lm_prefill_cases"]]}
-           if "lm_prefill_cases" in rows[n] else {})
+        | ({f"lm_{c}_cases": [{k: t[k] for k in case_keys} for t in rows[n][f"lm_{c}_cases"]]
+            for c in ("prefill", "train") if f"lm_{c}_cases" in rows[n]})
         for n in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

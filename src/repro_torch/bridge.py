@@ -19,7 +19,12 @@ function.
 The LM transformers have no conv weight: ``lm_params_from_numpy`` carries
 a JAX transformer's params (stacked layers, leading L axis) across as they
 are, and ``lm_cache_from_numpy`` its KV cache (``k``, ``v`` (L, B, S, H,
-D); ``len`` a Python int in the port).
+D); ``len`` a Python int in the port).  A meta-learner over an LM backbone
+crosses with ``learner_params_from_numpy`` (and back with
+``learner_params_to_numpy``): its ``bb`` subtree as an LM tree, the rest
+(set encoder, FiLM generator, head generator) as above.  The path decides,
+never a leaf's rank: a stacked (L, E, D, F) expert weight is not a conv
+weight.
 """
 from __future__ import annotations
 
@@ -120,3 +125,17 @@ def lm_cache_from_numpy(cache: Any, device="cuda") -> Any:
     """A JAX transformer's numpy KV cache -> the port's on ``device``."""
     return {k: int(np.asarray(v)) if k == "len" else _from_np(v, device)
             for k, v in cache.items()}
+
+
+def learner_params_from_numpy(tree: Any, device="cuda") -> Any:
+    """A JAX meta-learner's numpy params over an LM backbone -> the port's
+    on ``device``: ``bb`` by :func:`lm_params_from_numpy`, every other
+    subtree by :func:`params_from_numpy`."""
+    return {k: (lm_params_from_numpy if k == "bb" else params_from_numpy)(v, device)
+            for k, v in tree.items()}
+
+
+def learner_params_to_numpy(tree: Any) -> Any:
+    """The inverse of :func:`learner_params_from_numpy`."""
+    return {k: _walk(v, _to_np) if k == "bb" else params_to_numpy(v)
+            for k, v in tree.items()}

@@ -66,13 +66,18 @@ class TaskBatch:
                     query_mask=self.query_mask[i])
 
     def to(self, device) -> "TaskBatch":
-        """Tensors on ``device``: floats as float32, labels as int64."""
-        def conv(a, dtype):
-            return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+        """Tensors on ``device``: labels as int64, masks as float32, and
+        inputs by kind: integer inputs (token ids) as int64, floating ones
+        (images) as float32."""
+        def conv(a, dtype=None):
+            a = np.asarray(a)
+            if dtype is None:
+                dtype = torch.int64 if a.dtype.kind in "iu" else torch.float32
+            return torch.tensor(a, dtype=dtype, device=device)
         f32, i64 = torch.float32, torch.int64
-        return TaskBatch(support_x=conv(self.support_x, f32),
+        return TaskBatch(support_x=conv(self.support_x),
                          support_y=conv(self.support_y, i64),
-                         query_x=conv(self.query_x, f32),
+                         query_x=conv(self.query_x),
                          query_y=conv(self.query_y, i64),
                          support_mask=conv(self.support_mask, f32),
                          query_mask=conv(self.query_mask, f32), way=self.way)

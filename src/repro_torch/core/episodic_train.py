@@ -38,23 +38,36 @@ from repro_torch.optim.clip import clip_by_global_norm
 Tree = Any
 
 
-def make_batched_meta_grads(learner: MetaLearner, lite: LiteSpec) -> Callable:
+def make_reached_meta_grads(learner: MetaLearner, lite: LiteSpec) -> Callable:
     """(params, batch, scores) -> (loss, accuracy, grads): the task-mean
     loss and accuracy and the gradient of that mean, taken by one backward
-    through the shared parameters (peak gradient memory O(P)).  A leaf the
-    loss does not reach (the CNAPs backbone) gets a zero gradient."""
+    through the shared parameters (peak gradient memory O(P)), as a list
+    in ``tree_leaves`` order with None for a leaf the loss does not reach
+    (the CNAPs backbone), which gets no gradient buffer."""
 
     def grads_fn(params: Tree, batch: TaskBatch, scores: torch.Tensor):
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
         with torch.enable_grad():
             losses, aux = learner.meta_loss(live, batch, scores, lite)
             loss = losses.mean()
-            leaves = tree_leaves(live)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(leaves, grads)]
-        return (loss.detach(), aux["accuracy"].mean().detach(),
-                tree_rebuild(params, grads))
+            grads = torch.autograd.grad(loss, tree_leaves(live), allow_unused=True)
+        return loss.detach(), aux["accuracy"].mean().detach(), list(grads)
+
+    return grads_fn
+
+
+def make_batched_meta_grads(learner: MetaLearner, lite: LiteSpec) -> Callable:
+    """(params, batch, scores) -> (loss, accuracy, grads) as
+    :func:`make_reached_meta_grads`, the gradient a tree of ``params``'
+    structure in which a leaf the loss does not reach gets zeros (the
+    optimizer steps every leaf, as the JAX package's does)."""
+    reached = make_reached_meta_grads(learner, lite)
+
+    def grads_fn(params: Tree, batch: TaskBatch, scores: torch.Tensor):
+        loss, acc, grads = reached(params, batch, scores)
+        return loss, acc, tree_rebuild(params, [
+            torch.zeros_like(p) if g is None else g
+            for p, g in zip(tree_leaves(params), grads)])
 
     return grads_fn
 

@@ -18,7 +18,9 @@ every example, under ``torch.inference_mode``.
 
 Every function here takes task-batched inputs: leaves (T, N, ...) with a
 (T, N) validity mask (1 real, 0 padding); the JAX package vmaps the same
-per-task functions over T.  The class-statistics sites run their chunk
+per-task functions over T.  Inputs may be images or integer token ids:
+padding fills zeros and a ``compute_dtype`` cast touches floating leaves
+only, so ids stay ids.  The class-statistics sites run their chunk
 bodies through :mod:`repro_torch.kernels.dispatch`.
 
 The H subsets are a function of per-index scores, a (T, N) tensor: torch

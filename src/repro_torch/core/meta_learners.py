@@ -8,7 +8,9 @@ Every learner speaks two task-batched, mask-aware contracts:
     logits = learner.predict_batch(params, states, query_x)        # (T, M, way)
 
 ``batch`` / ``task_batch`` is a :class:`repro_torch.core.episodic.TaskBatch`
-of tensors.  The task-lane axis T is a batch dimension written out (the JAX
+of tensors: its examples are whatever the backbone takes, NHWC images or
+(for an LM backbone, :mod:`repro_torch.models.lm_backbone`) int64 token
+ids.  The task-lane axis T is a batch dimension written out (the JAX
 package vmaps per-task functions).  ``meta_loss`` is the training loss: the
 LITE estimators (:mod:`repro_torch.core.lite`) at every support-set
 aggregation site, their H subsets chosen by ``scores`` (T, N), one draw a
@@ -125,7 +127,8 @@ def _loss_and_metrics(logits: torch.Tensor, batch: TaskBatch):
 
 
 def _features_by_task(bb: BackboneDef, bb_params, x: torch.Tensor, film):
-    """(T, M, H, W, C) -> (T, M, F) float32 features."""
+    """(T, M, ...) examples (NHWC images, or token ids for an LM backbone)
+    -> (T, M, F) float32 features."""
     t, m = x.shape[:2]
     qf = bb.features(bb_params, x.flatten(0, 1), film)
     return qf.float().unflatten(0, (t, m))
@@ -328,7 +331,7 @@ def make_fomaml(cfg: MetaLearnerConfig, bb: BackboneDef) -> MetaLearner:
                               b=torch.zeros(cfg.way, device=device)))
 
     def _logits_p(p, x):
-        """(B, H, W, C) -> (B, way) under one lane's weights ``p``."""
+        """(B, ...) examples -> (B, way) under one lane's weights ``p``."""
         return bb.features(p["bb"], x, None).float() @ p["head"]["w"] + p["head"]["b"]
 
     def _inner_adapt(params, sx, sy, sw):

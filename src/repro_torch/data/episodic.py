@@ -1,5 +1,5 @@
-"""Episodic data: shape buckets, collation, query chunking, and two
-synthetic image-task sources.
+"""Episodic data: shape buckets, collation, query chunking, two synthetic
+image-task sources and a token-task source for the episodic LM.
 
 The host half (buckets, collation, chunking, ``host_task_batch_at``) is
 numpy and bit-identical with the functions of the same names in the JAX
@@ -13,6 +13,11 @@ draws the JAX package's on-device task family on a torch device from a
 keeps the contract, not the bits: a batch is a pure function of (seed,
 cfg, tasks, step), the generator seeded with a splitmix64 hash of (seed,
 step).
+
+The token source (``EpisodicTokenConfig``, ``sample_token_task``,
+``token_task_batch_at``) is the JAX package's ``sample_token_task`` on a
+torch device, its contract kept the same way: each class a unigram
+distribution over the vocabulary, every sequence drawn from its class's.
 
 Image tasks: each class is a low-frequency pattern under heavy pixel noise.
 The host source upsamples it 2x by repetition; ``augment`` adds a random
@@ -290,4 +295,59 @@ def task_batch_at(seed: int, cfg: EpisodicImageConfig, tasks_per_step: int,
     tasks_per_step, step), the restart contract of
     :mod:`repro_torch.train.loop`."""
     return sample_image_task_batch(step_generator(seed, step, device), cfg,
+                                   tasks_per_step)
+
+
+# ---------------------------------------------------------------------------
+# token tasks (the episodic LM)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class EpisodicTokenConfig:
+    way: int = 5
+    shot: int = 8
+    query_per_class: int = 8
+    seq_len: int = 64
+    vocab: int = 256
+    concentration: float = 0.3       # lower = more distinct class unigrams
+
+
+def sample_token_task_batch(gen: torch.Generator, cfg: EpisodicTokenConfig,
+                            num_tasks: int) -> TaskBatch:
+    """``num_tasks`` token tasks on ``gen``'s device: ids (T, N, seq_len)
+    and (T, M, seq_len) int64, labels int64, all-ones masks.  Each task: a
+    class's unigram logits N(0, 1) / ``concentration`` over the vocab,
+    every token of a class's sequences a categorical draw from them; the
+    support rows in a random order, the queries class by class (the JAX
+    package's ``sample_token_task``)."""
+    t, way, seq = num_tasks, cfg.way, cfg.seq_len
+    dev = gen.device
+    logits = torch.randn((t * way, cfg.vocab), generator=gen, device=dev) / cfg.concentration
+    probs = torch.softmax(logits, dim=-1)
+
+    def draw(per):
+        ids = torch.multinomial(probs, per * seq, replacement=True, generator=gen)
+        y = torch.arange(way, device=dev).repeat_interleave(per).expand(t, -1)
+        return ids.reshape(t, way * per, seq), y
+
+    sx, sy = draw(cfg.shot)
+    qx, qy = draw(cfg.query_per_class)
+    perm = torch.argsort(torch.rand(sy.shape, generator=gen, device=dev), dim=1)
+    lanes = torch.arange(t, device=dev)[:, None]
+    ones = lambda y: torch.ones(y.shape, device=dev)  # noqa: E731
+    return TaskBatch(support_x=sx[lanes, perm], support_y=sy[lanes, perm],
+                     query_x=qx, query_y=qy.contiguous(), support_mask=ones(sy),
+                     query_mask=ones(qy), way=way)
+
+
+def sample_token_task(gen: torch.Generator, cfg: EpisodicTokenConfig) -> Task:
+    """One task of :func:`sample_token_task_batch`'s family."""
+    return sample_token_task_batch(gen, cfg, 1).task(0)
+
+
+def token_task_batch_at(seed: int, cfg: EpisodicTokenConfig, tasks_per_step: int,
+                        step: int, device="cuda") -> TaskBatch:
+    """Step ``step``'s T token tasks on ``device``: a pure function of
+    (seed, cfg, tasks_per_step, step)."""
+    return sample_token_task_batch(step_generator(seed, step, device), cfg,
                                    tasks_per_step)

@@ -1,9 +1,9 @@
 """Kernel dispatch for the episodic hot path: one policy, four backends.
 
 Every support-set aggregation the meta-learners run (per-class feature
-sums, the Simple CNAPs raw second moment, the Mahalanobis head) and the
-quantized head matmul go through the ops here.  Each op picks an
-implementation per *backend*:
+sums, the Simple CNAPs raw second moment, the Mahalanobis head), the
+quantized head matmul and the LM trunk's causal self-attention go through
+the ops here.  Each op picks an implementation per *backend*:
 
   ``naive``  the literal composite (per-example expansion, then a reduce);
              for the second moment it forms the per-example (B, F, F)
@@ -23,14 +23,17 @@ mask-folded one-hots: zero rows (padding) contribute nothing.  Every op
 takes a leading task-lane axis T on its operands: the engine batches its
 lanes where the JAX package vmaps.
 
-On ``cuda`` the three differentiable ops (``segment_sum``,
-``class_second_moment``, ``mahalanobis_head``) reach their kernels inside
-a ``torch.autograd.Function``: the forward launches the kernel, the
-backward is the JAX package's own plain math (its ``custom_vjp``
-backwards, ``repro/kernels/dispatch.py``) written over the task-lane axis
-T, in plain einsums.  A kernel wrapper refuses a tensor that requires grad
-anywhere else (:func:`repro_torch.kernels._checks.require_no_grad`), so a
-path that forgets its Function fails instead of training a frozen model.
+On ``cuda`` the four differentiable ops (``segment_sum``,
+``class_second_moment``, ``mahalanobis_head``, ``flash_attention``) reach
+their kernels inside a ``torch.autograd.Function``: the forward launches
+the kernel, the backward is plain math.  For B1-B3 that is the JAX
+package's own ``custom_vjp`` backwards (``repro/kernels/dispatch.py``)
+written over the task-lane axis T, in plain einsums; for flash attention
+it is the VJP of the transcription the JAX trunk differentiates
+(``models/layers.py::attention_scores``), recomputed from the saved q, k
+and v.  A kernel wrapper refuses a tensor that requires grad anywhere else
+(:func:`repro_torch.kernels._checks.require_no_grad`), so a path that
+forgets its Function fails instead of training a frozen model.
 ``int8_matmul`` is forward only by contract.
 """
 from __future__ import annotations
@@ -41,6 +44,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import int8_matmul as _im
 from repro_torch.kernels import mahalanobis as _md
 from repro_torch.kernels import segment_pool as _sp
@@ -278,3 +282,67 @@ def int8_matmul(x: torch.Tensor, qs, backend: Optional[str] = None
                               qs["scale"].float().contiguous())
     n = _quant.resolve_n(qs)
     return out.reshape(lead + (n,))
+
+
+# ===========================================================================
+# flash_attention: causal self-attention of the LM trunk
+# ===========================================================================
+
+
+def _attention_transcription():
+    """``models.layers.attention_scores``, the JAX package's attention
+    arithmetic (imported at the call: ``models.layers`` imports this
+    module)."""
+    from repro_torch.models.layers import attention_scores
+    return attention_scores
+
+
+class _FlashAttention(torch.autograd.Function):
+    """q (B, S, Hq, D), k, v (B, S, Hkv, D) -> (B, S, Hq, D) in q's dtype,
+    causal, through the kernel (``ops.flash_attention_gqa``).
+
+    Backward: the VJP of the transcription ``attention_scores``, recomputed
+    from the saved q, k and v.  That transcription is what the JAX trunk
+    differentiates: its LM layers never call the Pallas kernel, which has
+    no ``custom_vjp``, so no backward kernel is owed.  The two sides round
+    P differently in 16-bit dtypes: the forward rounds the un-normalised P
+    in registers before P V, the backward's recomputed P is the
+    transcription's (softmax in fp32, the normalised P rounded to v's
+    dtype).  In fp32 both are the same function to summation order."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, softcap):
+        ctx.save_for_backward(q, k, v)
+        ctx.window, ctx.softcap = window, softcap
+        return _fa.flash_attention_gqa(q.contiguous(), k.contiguous(), v.contiguous(),
+                                       causal=True, window=window, softcap=softcap)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+            out = _attention_transcription()(*qkv, causal=True, window=ctx.window,
+                                             cap=ctx.softcap)
+            live = [t for t in qkv if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, live, g)) if live else iter(())
+        return tuple(next(grads) if n else None for n in need) + (None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: Optional[int] = None, softcap: Optional[float] = None,
+                    backend: Optional[str] = None) -> torch.Tensor:
+    """Causal self-attention: q (B, S, Hq, D), k, v (B, S, Hkv, D), Hq a
+    multiple of Hkv -> (B, S, Hq, D) in q's dtype.  Keys with
+    ``q_pos - k_pos < window`` are seen; ``softcap`` caps the logits.
+
+    ``naive``/``ref``: the transcription ``attention_scores``.  ``cuda``:
+    the kernel inside :class:`_FlashAttention` (a window at least S long
+    masks nothing, so the kernel is given none)."""
+    b = resolve_backend(backend, q.device)
+    if b in ("naive", "ref"):
+        return _attention_transcription()(q, k, v, causal=True, window=window,
+                                          cap=softcap)
+    if window is not None and window >= q.shape[1]:
+        window = None
+    return _FlashAttention.apply(q, k, v, window, softcap)

@@ -1,6 +1,6 @@
-"""Backbone protocol: anything that maps images to a feature vector and
-exposes FiLM modulation sites can serve as a meta-learner's feature
-extractor."""
+"""Backbone protocol: anything that maps examples (images, or token
+sequences for an LM backbone) to a feature vector and exposes FiLM
+modulation sites can serve as a meta-learner's feature extractor."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,10 +16,12 @@ class BackboneDef:
     """A feature extractor usable by the episodic layer.
 
     init: (torch.Generator, device) -> params.
-    features: (params, x, film) -> (B, feature_dim).  ``x`` is NHWC
-      (B, H, W, C).  ``film`` is None or a list of {gamma, beta}, one per
-      site, each of shape (C,) or (T, C); with (T, C) the batch is T tasks'
-      rows in order, B = T * n.
+    features: (params, x, film) -> (B, feature_dim) float32.  ``x`` is
+      NHWC (B, H, W, C) images for a conv backbone, (B, S) int64 token ids
+      for an LM backbone (:mod:`repro_torch.models.lm_backbone`).
+      ``film`` is None or a list of {gamma, beta}, one per site, each of
+      shape (C,) or (T, C); with (T, C) the batch is T tasks' rows in
+      order, B = T * n.
     quant_native_paths: '/'-joined param paths whose weight ``features``
       consumes directly in the blockwise int8 ``{q, scale, n}`` form
       (through :func:`repro_torch.kernels.dispatch.int8_matmul`).

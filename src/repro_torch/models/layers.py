@@ -9,10 +9,12 @@ Layouts are the JAX package's: a weight is (d_in, d_out) and is used as
 leading shape for stacked layers.
 
 Full-sequence attention takes a kernel backend, one of
-:data:`repro_torch.kernels.dispatch.BACKENDS`: ``cuda`` runs the
+:data:`repro_torch.kernels.dispatch.BACKENDS`, and goes through
+:func:`repro_torch.kernels.dispatch.flash_attention`: ``cuda`` runs the
 hand-written flash attention kernel
 (:func:`repro_torch.kernels.ops.flash_attention_gqa`; on a CPU tensor its
-plain version), every other backend the transcription
+plain version) inside an autograd Function whose backward is the VJP of
+:func:`attention_scores`, every other backend the transcription
 :func:`attention_scores` of the JAX package's attention, and ``auto``
 (the default) is ``cuda`` on a CUDA tensor and the transcription on the
 CPU.  The two differ by where P is rounded: the transcription rounds the
@@ -29,8 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.common.init import lecun_normal, normal_init
 from repro_torch.configs.base import AttentionConfig, ModelConfig
-from repro_torch.kernels.dispatch import resolve_backend
-from repro_torch.kernels.ops import flash_attention_gqa
+from repro_torch.kernels import dispatch
 
 Params = Dict
 
@@ -131,14 +132,10 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      window: Optional[int] = None, cap: Optional[float] = None,
                      backend: Optional[str] = "auto") -> torch.Tensor:
     """Full-sequence causal self-attention over q (B, S, Hq, Dh) and k, v
-    (B, S, Hkv, Dh) on ``backend``: the flash attention kernel on ``cuda``,
-    :func:`attention_scores` otherwise.  A window at least S long masks
-    nothing, so the kernel is given none."""
-    if resolve_backend(backend, q.device) != "cuda":
-        return attention_scores(q, k, v, causal=True, window=window, cap=cap)
-    if window is not None and window >= q.shape[1]:
-        window = None
-    return flash_attention_gqa(q, k, v, causal=True, window=window, softcap=cap)
+    (B, S, Hkv, Dh) on ``backend``: the flash attention kernel (in its
+    autograd Function) on ``cuda``, :func:`attention_scores` otherwise
+    (:func:`repro_torch.kernels.dispatch.flash_attention`)."""
+    return dispatch.flash_attention(q, k, v, window=window, softcap=cap, backend=backend)
 
 
 # --------------------------------------------------------------------------

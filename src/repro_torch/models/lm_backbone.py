@@ -1,0 +1,53 @@
+"""An LM architecture as an episodic :class:`BackboneDef`: the port of the
+JAX package's ``repro/models/lm_backbone.py`` (its transformer half).
+
+The paper's scheme wraps any feature extractor.  Here the support and
+query examples are token sequences (B, S) int64, the features are the
+final hidden states mean-pooled over S in fp32, and FiLM modulates the
+residual stream after every block (one site of width d_model a layer).
+
+The dense GQA transformers are ported; ``family="mamba2"`` raises, naming
+ROADMAP A14c, and MoE / MLA configs raise in the trunk (A14b).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models import transformer
+from repro_torch.models.backbone import BackboneDef
+
+
+def _film_stack(film: Optional[List[Dict]]) -> Optional[Dict]:
+    """Per-site {gamma, beta} of shape (D,) or (T, D), one a layer ->
+    {gamma, beta} stacked on a leading L axis."""
+    if film is None:
+        return None
+    return {k: torch.stack([f[k] for f in film]) for k in ("gamma", "beta")}
+
+
+def make_lm_backbone(cfg: ModelConfig) -> BackboneDef:
+    if cfg.family == "mamba2":
+        raise NotImplementedError(
+            f"{cfg.name}: the mamba2 episodic backbone comes with the mamba2 "
+            f"family (ROADMAP A14c)")
+    if cfg.family != "transformer":
+        raise ValueError(f"episodic LM backbone unsupported for {cfg.family!r}")
+    transformer.require_dense(cfg)
+    dtype = getattr(torch, cfg.compute_dtype)
+
+    def init(gen: torch.Generator, device=None):
+        return transformer.init_transformer(gen, cfg, device)
+
+    def features(params, tokens: torch.Tensor, film) -> torch.Tensor:
+        """(B, S) int64 ids -> (B, d_model) float32.  Attention runs on the
+        current kernel backend (:func:`repro_torch.kernels.dispatch.use_backend`)."""
+        x = L.embed(params["embed"], tokens, dtype) * cfg.embed_scale
+        h, _ = transformer.trunk(params, x, cfg, backend=None, film=_film_stack(film))
+        return h.float().mean(dim=1)
+
+    return BackboneDef(init=init, features=features, feature_dim=cfg.d_model,
+                       film_sites=(cfg.d_model,) * cfg.n_layers, name=f"lm:{cfg.name}")

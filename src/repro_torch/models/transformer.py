@@ -14,8 +14,13 @@ Entry points:
   decode_step(params, cache, tokens, cfg)  one-token decode; writes the new
                                     k and v into ``cache`` in place
 
-``prefill`` runs its attention on a kernel backend (``auto``: the flash
-attention kernel on a CUDA tensor, see :mod:`repro_torch.models.layers`).
+  trunk(params, x, cfg, film=None)  embedded inputs -> final hidden states,
+                                    per-layer FiLM, checkpointed blocks
+                                    (the episodic LM backbone's forward)
+
+``prefill`` and ``trunk`` run their attention on a kernel backend
+(``auto``: the flash attention kernel on a CUDA tensor, see
+:mod:`repro_torch.models.layers`; ``trunk`` differentiates through it).
 Decode attends one query to the cache: the JAX package computes it in
 plain array code, with no kernel, and so does the port.
 
@@ -27,10 +32,13 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.init import lecun_normal
 from repro_torch.common.tree import tree_map
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.film import apply_film
+from repro_torch.kernels import dispatch
 from repro_torch.models import layers as L
 
 Params = Dict
@@ -113,23 +121,59 @@ def _layer(params: Params, i: int) -> Params:
 # --------------------------------------------------------------------------
 
 def block(cfg: ModelConfig, lp: Params, x: torch.Tensor, window: int,
-          backend: Optional[str] = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (x', aux loss); the aux loss is 0 for a dense FFN."""
+          backend: Optional[str] = "auto", film: Optional[Dict] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (x', aux loss); the aux loss is 0 for a dense FFN.
+    ``film`` {gamma, beta} of shape (D,) or (T, D) (task t on the t-th of T
+    equal groups of rows) modulates the residual stream after the FFN
+    residual, the LM-family FiLM site."""
     h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     x = x + cfg.residual_scale * L.gqa_attention(lp["attn"], h, cfg.attention,
                                                  window=window, backend=backend)
     h = L.rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
     x = x + cfg.residual_scale * L.mlp(lp["ffn"], h)
+    if film is not None:
+        x = apply_film(x, film["gamma"], film["beta"], channel_axis=-1)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def _remat(cfg: ModelConfig) -> bool:
+    """Whether ``trunk`` checkpoints its blocks (``cfg.remat_policy``, as
+    the JAX package's ``_remat`` reads it): ``"none"`` saves every
+    activation, ``"nothing"`` only each block's input, recomputing the
+    block in the backward."""
+    if cfg.remat_policy == "dots":
+        raise NotImplementedError(
+            f"{cfg.name}: remat_policy 'dots' (save the matmuls' outputs) comes "
+            f"with LM training (ROADMAP A14e, part 2)")
+    return cfg.remat_policy != "none"
+
+
 def trunk(params: Params, x: torch.Tensor, cfg: ModelConfig,
-          backend: Optional[str] = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Embedded inputs (B, S, D) -> (final hidden states, aux loss)."""
+          backend: Optional[str] = "auto", film: Optional[Dict] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Embedded inputs (B, S, D) -> (final hidden states, aux loss).
+
+    ``film``: optional per-layer FiLM {gamma, beta} stacked on a leading L
+    axis, (L, D) or (L, T, D) for T tasks whose rows are in order.  While
+    grad is enabled under ``remat_policy="nothing"`` each block runs under
+    ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint``): its
+    recompute in the backward runs the block's forward, and its kernels,
+    a second time."""
     require_dense(cfg)
+    remat = _remat(cfg) and torch.is_grad_enabled()
+    # resolved now: a checkpoint's recompute runs in the backward, outside
+    # the caller's use_backend scope
+    backend = dispatch.resolve_backend(backend, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, w in enumerate(layer_windows(cfg)):
-        x, a = block(cfg, _layer(params, i), x, w, backend)
+        f = None if film is None else {k: v[i] for k, v in film.items()}
+        if remat:
+            # the block draws no random numbers: no RNG state to restore
+            x, a = checkpoint(block, cfg, _layer(params, i), x, w, backend, f,
+                              use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, a = block(cfg, _layer(params, i), x, w, backend, f)
         aux = aux + a
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
