@@ -1,5 +1,6 @@
 """Drive the PyTorch port's episodic serving and training paths, its
-episodic LM meta-training and its LM decode serving on one NVIDIA GPU.
+episodic LM meta-training, its LM training and its LM decode serving on
+one NVIDIA GPU.
 
     python3 chip_smoke.py            # needs one CUDA card, nvcc and the repo
 
@@ -76,7 +77,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    launched; one int8-state AdamW update against the fp32 state's; and
    the launcher at its defaults (the device sampler);
 5c. episodic LM meta-training: Simple CNAPs with the ``tokens`` set
-   encoder over minitron-4b at full width and depth (random weights drawn
+   encoder over minitron-4b at full width and 16 of its 32 layers (cut
+   to keep the whole run within its time; random weights drawn
    on the card from seed 0, fp32 params, bf16 compute, every block
    checkpointed), 2 token tasks a step (5-way, 8 shot, 2 queries a class,
    256 tokens, vocab 256000), LITE h 8, chunks of 8: one step on the
@@ -101,6 +103,34 @@ Phases, each of which fails the run (non-zero exit) on any error:
    against its plain version and SDPA; and ``python -m
    repro_torch.examples.episodic_lm --steps 2`` on the card as a
    subprocess, which must exit 0;
+5d. LM training of gemma2-2b at full width and depth as published (fp32
+   params and AdamW state, bf16 compute, every block checkpointed, loss
+   chunks of 512; random weights drawn on the card from seed 0) on the
+   token pipeline (vocab 256000, B 2, S 4608, branching 4, seed 0): one
+   step's loss and gradient on the kernels, on ``ref`` in bf16 and on
+   ``ref`` in fp32 compute (the pipeline's batch with each sequence's
+   first 512 tokens repeated, so that what the window hides is coherent),
+   failing unless the kernel path's loss and worst leaf are within
+   ``LM_GATE`` times the bf16 ``ref`` run's own error, every leaf gets a
+   gradient, B5 launched 26 times in the forward and 26 in the
+   checkpoints' recompute, all on "wgmma", with the window on the 13
+   local layers and none on the global ones, and nothing else launched;
+   three faults planted in B5's backward (phase 5c's two and the window
+   dropped) that the gate must flag; three steps of ``make_train_step``
+   through ``train()`` (losses, ms a step, tokens/s without the first,
+   peak memory beside the 41.8 GB of fp32 params, gradients and AdamW
+   state; launches counted on exactly that run) and one profiled step
+   (device time by kind, idle share, B5's share) beside the step's FLOP
+   bound; one step of minitron-4b at full width and depth with int8 AdamW
+   state at 2 x 2048 (ms, peak memory, a finite loss); ``remat_policy``
+   "dots" against "none" at gemma2-2b's width and 2 layers within the
+   same gate, with B5's launches under each; B5 at the step's shapes
+   against its plain version; and ``python -m repro_torch.launch.train
+   --arch gemma2-2b --steps 6 --batch 2 --seq 32`` (rerun on its
+   checkpoint directory, which must have nothing to do), ``python -m
+   repro_torch.examples.train_lm --steps 4`` and ``python -m
+   repro_torch.examples.serve_lm --requests 2`` on the card as
+   subprocesses, which must exit 0;
 6. drive the LM-side kernel entry point ``repro_torch.kernels.ops`` once
    at published widths (flash attention of gemma2-2b's local and global
    layers and of minitron-4b, kimi-k2's expert matmul, mamba2-780m's SSD
@@ -115,10 +145,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
    zeroed, every other chunk's states zeroed) and fail unless the same
    check flags each;
 6b. LM decode serving (``repro_torch.serve.engine.ServeEngine``) of
-   minitron-4b at full width and depth, random weights drawn on the card
+   minitron-4b at full width and 16 of its 32 layers (cut to keep the
+   whole run within its time), random weights drawn on the card
    from seed 0, bf16 compute, 4 slots: 8 requests (prompts 1024 x 4, then
    512, 2048, 512, 2048, so the first cohort decodes stacked and the
-   second slot by slot), 32 new tokens each, failing unless every layer of
+   second slot by slot), 16 new tokens each, failing unless every layer of
    every prefill launched flash attention (B5) on "wgmma" and nothing
    else launched (tokens/s, peak memory); the same traffic through the
    engine on ``ref`` (greedy), and teacher-forced on ``ref``'s tokens
@@ -134,12 +165,18 @@ Phases, each of which fails the run (non-zero exit) on any error:
    at the prefill shapes against its plain version and beside SDPA; and
    ``python -m repro_torch.launch.serve`` (LM, smoke config) on the card
    as a subprocess, which must exit 0;
-7. print the ``kernels`` JSON line, the card line and, last, the result.
+7. run the phases' subprocesses (the launchers and examples that phases
+   4b, 5, 5b, 5c, 5d and 6b name), all at once after every timed reading,
+   each of which must exit 0 and print what its phase expects;
+8. print the ``kernels`` JSON line, the card line and, last, the result.
 
 In the ``kernels`` line, ``ms`` is the mean time of back-to-back wrapper
 calls (the wrapper's host work included; timed in turns with the library
 call, where there is one), ``device_ms`` the profiler's
-device time of one call (summed over the kernels a call launches),
+device time of one call (summed over the kernels a call launches; where
+the profiler reads it below the bound or not at all, the time between CUDA
+events on each side of one call queued behind a sleep kernel, and
+``device_timer`` says which),
 ``library_device_ms`` the same for the library call, and ``bound_ms`` the
 larger of the bytes over the HBM rate and the FLOPs, counted once, over the
 peak rate of the units that do them (fp32 for the episodic kernels and the
@@ -156,12 +193,14 @@ attention, the ops phase for gmm and ssd_chunk (``ops_launches`` and
 ``train_launches`` those of B1-B3 in the five training-loop steps of phase
 5 and of flash attention in the three steps of phase 5c
 (``lm_train_launches`` B1-B3's there; ``lm_train_cases`` flash
-attention's numbers at phase 5c's shapes).  ``chiprun_out/chip_smoke.json`` holds every reading, the training
+attention's numbers at phase 5c's shapes), and ``lm_pretrain_launches``
+flash attention's in the three steps of phase 5d (``lm_pretrain_cases``
+its numbers at phase 5d's shapes).  ``chiprun_out/chip_smoke.json`` holds every reading, the training
 phases' under ``paths``, and every path's launches under ``launches``:
 ``serve_warm`` (phase 4b's warm-tier run), ``train_device`` (the
 device-sampler loop), ``algo1`` (the two per-task steps), ``fig4``,
 ``fomaml`` and ``finetuner`` (their serving runs), ``lm_train`` (phase
-5c's three steps), ``lm_serve`` and ``lm_serve_gemma2`` (phase 6b's
+5c's three steps), ``lm_pretrain`` (phase 5d's three steps), ``lm_serve`` and ``lm_serve_gemma2`` (phase 6b's
 counted engine runs).
 
 It imports no JAX.
@@ -169,6 +208,7 @@ It imports no JAX.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -191,6 +231,39 @@ BF16_FLOPS = 989e12
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+T_START = time.perf_counter()
+
+
+def mark(what: str) -> None:
+    """Print the seconds since the script started beside ``what``."""
+    print(f"[{time.perf_counter() - T_START:.1f} s] {what}", flush=True)
+
+
+# the subprocess checks that the phases queue, run together after every
+# timed reading (their processes would share the card with it)
+DEFERRED = []
+
+
+def defer(out: dict, key: str, fn, *args) -> None:
+    """Queue ``fn(*args)``, a subprocess check, for :func:`run_deferred`,
+    which stores its result as ``out[key]``."""
+    DEFERRED.append((out, key, fn, args))
+
+
+def run_deferred() -> None:
+    """Run the queued subprocess checks at once, a thread each; each fails
+    the run as it would alone, and every one is waited for."""
+    import concurrent.futures
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(DEFERRED)) as pool:
+        futs = [(out, key, pool.submit(fn, *args)) for out, key, fn, args in DEFERRED]
+        for out, key, fut in futs:
+            out[key] = fut.result()
+    print(f"subprocesses: {len(DEFERRED)} checks at once in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    DEFERRED.clear()
 
 
 def card_line() -> str:
@@ -245,12 +318,13 @@ def _dev_us(evt) -> float:
 
 
 def profile(fn, n: int = 1, raw: bool = False):
-    """Run ``fn`` ``n`` times under torch.profiler (CPU + CUDA activity);
-    returns the rows by op (key_averages) or, with ``raw``, every event."""
+    """Run ``fn`` ``n`` times under torch.profiler; returns the rows by name
+    (key_averages) or, with ``raw``, every event.  CUDA activity only:
+    every reading here is of the device's rows, and without the CPU ops a
+    step of 19 k launches is read in 3 s, not 9, with the same busy time."""
     import torch
     from torch.profiler import ProfilerActivity
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
@@ -276,11 +350,49 @@ def _per_call_ms(fn, n: int, keep, tries: int = 3):
     return None
 
 
-def kernel_device_ms(fn, symbol: str, n: int = 50):
-    """Device time of one call of ``fn`` spent in the kernels whose names
-    contain ``symbol`` (a call may launch more than one); None if the
-    profiler saw none."""
-    return _per_call_ms(fn, n, lambda name: symbol in name)
+# cycles of the sleep kernel that holds the stream while a call is queued
+# behind it (about 1.1 ms at the H100's 1.755 GHz boost clock)
+SLEEP_CYCLES = 2_000_000
+
+
+def event_device_ms(fn, n: int = 10) -> float:
+    """Device time of one call of ``fn`` from CUDA events recorded on each
+    side of it, while a sleep kernel queued just before holds the stream so
+    that the events time the call's kernels and not the host's work to
+    launch them: the median over ``n`` calls.  It counts every kernel the
+    call launches and any gap between them, so it can read above the
+    profiler's time of one kernel but never below the card's own."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    got = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        got.append(start.elapsed_time(end))
+    return statistics.median(got)
+
+
+def kernel_device_ms(fn, symbol: str, n: int = 50, floor: float = 0.0):
+    """(device time of one call of ``fn`` spent in the kernels whose names
+    contain ``symbol`` (a call may launch more than one), the timer that
+    read it): the profiler's; where it reads below ``floor`` (the least time
+    the card could take) or sees no launch, the CUDA events' of
+    :func:`event_device_ms` (the profiler has read flash attention at S
+    8192 at half its time in three profiles in a row, and none of it in
+    others)."""
+    got = _per_call_ms(fn, n, lambda name: symbol in name)
+    if got is not None and got >= floor:
+        return got, "profiler"
+    ev = event_device_ms(fn)
+    print(f"    the profiler read {got} ms, below the bound {floor:.5f} ms or nothing; "
+          f"CUDA events around one call read {ev:.5f} ms, which is kept", flush=True)
+    return ev, "events"
 
 
 def call_device_ms(fn, n: int = 50):
@@ -331,7 +443,9 @@ def check_kernels(specs, counted=None):
     """Hold every case of every kernel against its plain version, by the
     per-row error of each output within the case's tolerance, and time the
     main cases: kernel, plain version and library call from CUDA events,
-    the kernel's device time from the profiler.  ``counted`` maps
+    the kernel's device time from the profiler (or, where that reads below
+    the bound or nothing, from CUDA events: :func:`kernel_device_ms`).
+    ``counted`` maps
     (kernel, case index) to the outputs of a counted run of that case,
     which are then checked in place of a fresh call.  Returns the rows of
     the ``kernels`` line; each carries its first main case's times."""
@@ -376,13 +490,13 @@ def check_kernels(specs, counted=None):
                          plain_ms=time_ms(lambda: c["plain"](*args, **kw), it, reps),
                          library_ms=lib_ms, library=c.get("lib_note"),
                          library_device_ms=call_device_ms(lib, n=it) if lib else None,
-                         device_ms=kernel_device_ms(kern, c.get("symbol", spec["symbol"]),
-                                                    n=it),
                          bound_ms=b_ms, bound_by=b_by, bytes=c["bytes"], flops=c["flops"])
+                t["device_ms"], t["device_timer"] = kernel_device_ms(
+                    kern, c.get("symbol", spec["symbol"]), n=it, floor=b_ms)
                 lib_vs = (f", call {t['ms'] / t['library_ms']:.2f}x the library's"
                           if lib else "")
                 print(f"  time {c['label']}: kernel {t['ms']:.4f} ms per call (device "
-                      f"{t['device_ms']} ms per call), plain {t['plain_ms']:.4f} ms, "
+                      f"{t['device_ms']} ms per call, {t['device_timer']}), plain {t['plain_ms']:.4f} ms, "
                       f"library {t['library_ms']} ms (device {t['library_device_ms']} ms"
                       f"{'; ' + t['library'] if t['library'] else ''}), "
                       f"bound {b_ms:.5f} ms ({b_by}); "
@@ -396,7 +510,7 @@ def check_kernels(specs, counted=None):
             torch.cuda.empty_cache()
         row.update({k: row["cases"][0][k] for k in (
             "shape", "ms", "plain_ms", "library_ms", "library_device_ms", "device_ms",
-            "bound_ms", "bound_by")})
+            "device_timer", "bound_ms", "bound_by")})
         row["routes"] = [t["route"] or "simt" for t in row["cases"]]
         rows[name] = row
     return rows
@@ -615,8 +729,8 @@ def trace_path(learner, params, reqs, dev, clock, wall_s: float, top: int = 12):
     rows = profile(lambda: serve(learner, params, reqs, "cuda", dev, clock))
     wall_ms = (clock() - t0) * 1e3
     from torch.autograd import DeviceType
-    # device-side rows only (kernels, copies): a CPU op's row repeats the
-    # device time of the kernels it launched
+    # device-side rows only (kernels, copies): the host's rows (the CUDA
+    # runtime's calls) carry no device time of their own
     dev_rows = sorted((r for r in rows if r.device_type == DeviceType.CUDA
                        and _dev_us(r) > 0), key=_dev_us, reverse=True)
     busy_ms = sum(_dev_us(r) for r in dev_rows) / 1e3
@@ -1019,20 +1133,22 @@ def warm_faults_check(learner, params, dev, make, warm_root):
                 vanish=dict(spill_errors=s["spill_errors"]))
 
 
-def run_serve_launcher(warm_dir, slo_us):
+def run_serve_launcher(slo_us):
     """``python -m repro_torch.launch.serve --episodic`` with a warm
-    directory, an L1 of 2, an SLO, a bounded queue and a deadline, on the
-    card as a subprocess; its ``store:`` line must show spills and
-    rehydrates."""
+    directory of its own, an L1 of 2, an SLO, a bounded queue and a
+    deadline, on the card as a subprocess; its ``store:`` line must show
+    spills and rehydrates."""
     import re
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--episodic", "--learner",
-           "simple_cnaps", "--serve-quant", "int8", "--requests", "16",
-           "--warm-dir", str(warm_dir), "--cache-capacity", "2",
-           "--query-slo-us", str(slo_us), "--max-queue", "64", "--deadline-us", "1e8"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300,
-                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
-    secs = time.perf_counter() - t0
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_warm_") as warm_dir:
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--episodic", "--learner",
+               "simple_cnaps", "--serve-quant", "int8", "--requests", "16",
+               "--warm-dir", warm_dir, "--cache-capacity", "2",
+               "--query-slo-us", str(slo_us), "--max-queue", "64", "--deadline-us", "1e8"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300,
+                              env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        secs = time.perf_counter() - t0
     m = re.search(r"spills=(\d+) rehydrates=(\d+)", proc.stdout)
     store = [l.strip() for l in proc.stdout.splitlines() if "store:" in l]
     print(f"serve launcher: exit {proc.returncode} in {secs:.1f} s; "
@@ -1062,7 +1178,7 @@ def run_serve_warm(dev, launches):
         out["fomaml"] = fomaml_warm_check(dev, make, root / "fomaml")
         out["scheduling"] = scheduling_check(learner, params, dev, make, wave_ms, root)
         out["faults"] = warm_faults_check(learner, params, dev, make, root)
-        out["launcher"] = run_serve_launcher(root / "launcher", round(1.5 * wave_ms * 1e3))
+        defer(out, "launcher", run_serve_launcher, round(1.5 * wave_ms * 1e3))
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 4b: {out['seconds']:.1f} s", flush=True)
     return out
@@ -1082,12 +1198,21 @@ TRAIN_TOL = {"protonets": dict(loss=1e-4, grad=1e-4, params=1e-4),
              "simple_cnaps": dict(loss=4e-3, grad=5e-2, params=5e-2)}
 
 
-def train_batch(t: int, step: int, dev):
+@functools.lru_cache(maxsize=None)
+def host_train_batch(t: int, step: int):
     """Step ``step``'s T tasks from the host sampler, the JAX launcher's task
-    shape (5-way, 10 shot, 6 queries a class), on ``dev``."""
+    shape (5-way, 10 shot, 6 queries a class), in host memory.  A pure
+    function of its arguments, so drawn once for all the callers that ask
+    again (a 224 px batch of T 8 takes about 7 s); ``__wrapped__`` draws
+    afresh where the draw is timed."""
     from repro_torch.data.episodic import HostEpisodicConfig, host_task_batch_at
     cfg = HostEpisodicConfig(way=5, shot=10, query_per_class=6, image_size=IMAGE_SIZE)
-    return host_task_batch_at(17, cfg, t, step).to(dev)
+    return host_task_batch_at(17, cfg, t, step)
+
+
+def train_batch(t: int, step: int, dev):
+    """:func:`host_train_batch` on ``dev``."""
+    return host_train_batch(t, step).to(dev)
 
 
 def meta_grads(learner, params, batch, scores, backend, lite=None):
@@ -1444,7 +1569,8 @@ def run_training(dev, launches):
     step = make_episodic_train_step(learner, LiteSpec(**TRAIN_LITE), MetaTrainConfig(
         tasks_per_step=TRAIN_TASKS, kernel_backend="cuda"), AdamWConfig(weight_decay=0.0))
     t0 = time.perf_counter()
-    batch = dict(tasks=train_batch(TRAIN_TASKS, TRAIN_STEPS, dev), key=(0, TRAIN_STEPS))
+    batch = dict(tasks=host_train_batch.__wrapped__(TRAIN_TASKS, TRAIN_STEPS).to(dev),
+                 key=(0, TRAIN_STEPS))
     torch.cuda.synchronize(dev)
     out["host_batch_ms"] = (time.perf_counter() - t0) * 1e3
     print(f"  one batch from the host sampler (T {TRAIN_TASKS}, {IMAGE_SIZE} px), moved to "
@@ -1474,7 +1600,7 @@ def run_training(dev, launches):
                  f"step's {exact_peak} B")
     out["memory"] = mem
 
-    out["launcher"] = run_launcher(["--data-source", "host"])
+    defer(out, "launcher", run_launcher, ["--data-source", "host"])
     return out
 
 
@@ -1830,7 +1956,7 @@ def run_training_rest(dev, launches, host_loop):
     torch.cuda.empty_cache()
     out["int8_adamw"] = int8_adamw_check(dev)
     torch.cuda.empty_cache()
-    out["launcher"] = run_launcher([], expect="data_source=device")
+    defer(out, "launcher", run_launcher, [], "data_source=device")
     return out
 
 
@@ -1839,6 +1965,9 @@ def run_training_rest(dev, launches, host_loop):
 # ---------------------------------------------------------------------------
 
 LM_TRAIN_TASKS = 2                           # tasks a step
+# minitron-4b's 32 layers cut to 16 (here and in phase 6b), so that the
+# whole script stays within the time it took before phase 5d was added
+LM_TRAIN_LAYERS = 16
 LM_TRAIN_LITE = dict(h=8, chunk_size=8)
 LM_TRAIN_STEPS = 3
 LM_PROTO_LAYERS = 4                          # ProtoNets trains every weight: cut depth
@@ -1932,17 +2061,18 @@ def lm_grad_errs(got, want, prefixes):
     return loss_err, errs
 
 
-def lm_train_gate(label: str, runs, prefixes, fault: bool = False):
+def lm_train_gate(label: str, runs, prefixes, fault: bool = False, ref16_errs=None):
     """Phase 6b's gate on a training step: run ``got`` (the kernel path, or a
     planted fault's run) against the fp32-compute ``ref32`` run, at LM_GATE
-    times the bf16 ``ref16`` run's own error, for the loss and for the
+    times the bf16 ``ref16`` run's own error (or ``ref16_errs``, that
+    run's :func:`lm_grad_errs` taken before), for the loss and for the
     worst gradient leaf under ``prefixes``.  A fault must fail it."""
     if runs["ref32"][0] == 0 or not any(
             w is not None and float(w.abs().max()) > 0 for k, w in runs["ref32"][2].items()
             if k.startswith(prefixes)):
         fail(f"{label}: the fp32 run's loss or gradient is exactly 0 (a saturated "
              f"softmax): the gate would hold nothing")
-    l_ref, e_ref = lm_grad_errs(runs["ref16"], runs["ref32"], prefixes)
+    l_ref, e_ref = ref16_errs or lm_grad_errs(runs["ref16"], runs["ref32"], prefixes)
     l_got, e_got = lm_grad_errs(runs["got"], runs["ref32"], prefixes)
     worst_ref, worst_got = max(e_ref.values()), max(e_got.values())
     worst_leaf = max(e_got, key=e_got.get)
@@ -2148,14 +2278,14 @@ def lm_train_kernel_specs(dev):
 
 def run_lm_train(dev, launches):
     """Phase 5c: LITE meta-training of Simple CNAPs over minitron-4b at full
-    width and depth (random weights drawn on the card from seed 0, fp32
+    width and LM_TRAIN_LAYERS layers (random weights drawn on the card from seed 0, fp32
     params, bf16 compute, blocks checkpointed), ProtoNets at LM_PROTO_LAYERS
     layers, the serving side and the example as a subprocess."""
     import dataclasses
     import torch
     from repro_torch.configs.registry import get_config
     t_phase = time.perf_counter()
-    cfg = get_config("minitron-4b")
+    cfg = dataclasses.replace(get_config("minitron-4b"), n_layers=LM_TRAIN_LAYERS)
     if cfg.remat_policy != "nothing" or cfg.compute_dtype != "bfloat16":
         fail(f"{cfg.name}: expected remat_policy 'nothing' and bf16 compute")
     n_layers = cfg.n_layers
@@ -2185,14 +2315,17 @@ def run_lm_train(dev, launches):
         fail(f"train lm: the backward launched more than B5's recompute: {bwd}")
     out["parity_simple_cnaps"] = r
     torch.cuda.empty_cache()
+    mark("5c: Simple CNAPs parity and planted faults done")
 
     params, out["loop"] = lm_train_loop(learner, params, cfg, dev)
     launches["lm_train"] = out["loop"]["launches"]
     out["memory"] = lm_memory(learner, params, batch, scores, dev)
     torch.cuda.empty_cache()
+    mark("5c: loop and memory done")
     out["serving"] = lm_serving(cfg, params, dev)
     del learner, params
     torch.cuda.empty_cache()
+    mark("5c: serving done")
 
     cfg4 = dataclasses.replace(cfg, n_layers=LM_PROTO_LAYERS)
     p4 = lm_learner("protonets", cfg4).init(torch.Generator(device=dev).manual_seed(0), dev)
@@ -2201,9 +2334,19 @@ def run_lm_train(dev, launches):
     out["parity_protonets"] = lm_parity("protonets", cfg4, p4, batch, scores, ("bb/",))
     del p4
     torch.cuda.empty_cache()
+    mark("5c: ProtoNets parity done")
 
     b5 = check_kernels(lm_train_kernel_specs(dev))["flash_attention"]
     out["kernel_cases"], out["kernel_max_abs_err"] = b5["cases"], b5["max_abs_err"]
+    defer(out, "example", run_episodic_lm_example)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 5c: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def run_episodic_lm_example():
+    """``python -m repro_torch.examples.episodic_lm --steps 2`` on the card
+    as a subprocess, which must exit 0 on ``device=cuda``."""
     cmd = [sys.executable, "-m", "repro_torch.examples.episodic_lm", "--steps", "2"]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
@@ -2215,9 +2358,425 @@ def run_lm_train(dev, launches):
     if proc.returncode != 0 or "device=cuda" not in proc.stdout:
         fail(f"the episodic LM example failed (exit {proc.returncode}):\n"
              f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
-    out["example"] = dict(cmd=cmd[1:], exit=proc.returncode, seconds=secs, line=tail[0])
+    return dict(cmd=cmd[1:], exit=proc.returncode, seconds=secs, line=tail[0])
+
+
+# ---------------------------------------------------------------------------
+# phase 5d: LM training of gemma2-2b at full width and depth
+# ---------------------------------------------------------------------------
+
+PRETRAIN_BATCH = 2
+# past gemma2-2b's window of 4096 (the local layers mask keys) and 9 loss
+# chunks of 512
+PRETRAIN_SEQ = 4608
+PRETRAIN_STEPS = 3
+# the parity step's sequences keep their first PRETRAIN_HIDDEN tokens at
+# their first token, so that what the window hides from the last positions
+# is coherent (phase 6b's reason): on the pipeline's tokens as drawn, a
+# backward that drops the window left the worst leaf at half the gate
+# (attention at initialisation is nearly uniform); with the prefix it
+# reads 4x the gate
+PRETRAIN_HIDDEN = 512
+PRETRAIN_MINITRON_SEQ = 2048
+PRETRAIN_DOTS_LAYERS = 2
+PRETRAIN_GATE_PREFIXES = ("",)          # the gate reads every leaf
+
+
+def pretrain_batch(cfg, step: int, dev, seq: int = PRETRAIN_SEQ, hidden: int = 0):
+    """The token pipeline's batch of ``step`` (vocab, ``seq``, batch
+    PRETRAIN_BATCH, branching 4, seed 0) on ``dev``; with ``hidden``, each
+    sequence's first ``hidden`` tokens set to its first."""
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig, batch_to_device
+    b = TokenPipeline(TokenPipelineConfig(vocab=cfg.vocab, seq_len=seq,
+                                          global_batch=PRETRAIN_BATCH, branching=4,
+                                          seed=0)).batch_at(step)
+    if hidden:
+        b["tokens"][:, :hidden] = b["tokens"][:, :1]
+    return batch_to_device(b, dev)
+
+
+@contextlib.contextmanager
+def recorded_windows(calls):
+    """Every flash attention launch in the block appends its window (None:
+    global) to ``calls``."""
+    from repro_torch.kernels import flash_attention as fa
+    orig = fa.flash_attention_gqa
+
+    def rec(q, k, v, **kw):
+        calls.append(kw.get("window"))
+        return orig(q, k, v, **kw)
+
+    fa.flash_attention_gqa = rec
+    try:
+        yield
+    finally:
+        fa.flash_attention_gqa = orig
+
+
+def pretrain_grads(cfg, params, batch, backend):
+    """The LM loss and its gradient over every leaf on ``backend``, through
+    ``api.loss`` as ``make_train_step`` calls it: (loss, None, {path:
+    gradient}, launches and windows of the forward and of the backward)."""
+    import torch
+    from repro_torch.common.tree import tree_leaves, tree_paths, tree_rebuild
+    from repro_torch.kernels import _build, dispatch
+    from repro_torch.models.registry import get_api
+    live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    windows = []
+    with dispatch.use_backend(backend), torch.enable_grad(), recorded_windows(windows):
+        torch.cuda.synchronize()
+        _build.launches.reset()
+        loss, _ = get_api(cfg).loss(tree_rebuild(params, live), batch, cfg, backend=None)
+        torch.cuda.synchronize()
+        fwd, n_fwd = _build.launches.snapshot(), len(windows)
+        grads = torch.autograd.grad(loss, live)
+        torch.cuda.synchronize()
+        total = _build.launches.snapshot()
+    bwd = {k: n - fwd.get(k, 0) for k, n in total.items() if n - fwd.get(k, 0)}
+    return (float(loss.detach()), None, dict(zip(tree_paths(params), grads)),
+            dict(forward=fwd, backward=bwd, windows=(windows[:n_fwd], windows[n_fwd:])))
+
+
+def pretrain_gate(label: str, got, ref32, ref16_errs, fault: bool = False):
+    """:func:`lm_train_gate` over every leaf, the bf16 ``ref`` run's errors
+    taken before (its gradient, 10.5 GB at gemma2-2b, is not kept)."""
+    r = lm_train_gate(label, dict(got=got, ref32=ref32), PRETRAIN_GATE_PREFIXES, fault,
+                      ref16_errs)
+    return {k: v for k, v in r.items() if not k.endswith("leaf_errors")}
+
+
+def b5_window_dropped():
+    """(label, backward): B5's backward with the window dropped, the local
+    layers differentiated as global ones."""
+    from repro_torch.kernels import dispatch
+    backward = dispatch._FlashAttention.backward
+
+    def window_dropped(ctx, g):
+        window, ctx.window = ctx.window, None
+        try:
+            return backward(ctx, g)
+        finally:
+            ctx.window = window
+
+    return "B5 backward: the window dropped (local layers as global)", window_dropped
+
+
+def check_pretrain_launches(label, cfg, r, want_fwd: int, want_bwd: int, seq: int):
+    """Fail unless B5 launched ``want_fwd`` times in the forward and
+    ``want_bwd`` in the backward, all on "wgmma", nothing else launched,
+    and the forward's windows were the config's layer by layer (the local
+    window on the even layers, none on the odd; a window of at least
+    ``seq`` keys is none), the checkpoints' recompute the same in reverse."""
+    from repro_torch.models.transformer import layer_windows
+    want = {part: {k: n for k in ("flash_attention", "flash_attention/wgmma")} if n else {}
+            for part, n in (("forward", want_fwd), ("backward", want_bwd))}
+    got = {part: r[part] for part in ("forward", "backward")}
+    if got != want:
+        fail(f"{label}: launches {got}; want {want} (B5 on wgmma and nothing else)")
+    layer = [w if w < seq else None for w in layer_windows(cfg)]
+    for part, calls, order in zip(("forward", "backward"), r["windows"], (1, -1)):
+        if calls and calls != layer[::order]:
+            fail(f"{label}: B5's windows in the {part} {calls}; want {layer[::order]}")
+
+
+def pretrain_parity(cfg, dev, hidden: int):
+    """One step's loss and gradient on the kernels, on ``ref`` in bf16 and on
+    ``ref`` in fp32 compute, from the same params (drawn on the card from
+    seed 0) and the pipeline's batch 0 (its first ``hidden`` tokens
+    repeated), through the gate; then the three faults planted in B5's
+    backward, which the gate must flag."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.registry import get_api
+    params = get_api(cfg).init(torch.Generator(device=dev).manual_seed(0), cfg)
+    batch = pretrain_batch(cfg, 0, dev, hidden=hidden)
+    pretrain_grads(cfg, params, batch, "cuda")              # allocator, cuBLAS
+    ref32 = pretrain_grads(dataclasses.replace(cfg, compute_dtype="float32"), params, batch,
+                           "ref")
+    ref16 = pretrain_grads(cfg, params, batch, "ref")
+    ref16_errs = lm_grad_errs(ref16, ref32, PRETRAIN_GATE_PREFIXES)
+    ref16_loss = ref16[0]
+    del ref16
+    mark("5d: ref runs done")
+    got = pretrain_grads(cfg, params, batch, "cuda")
+    n = cfg.n_layers
+    check_pretrain_launches(f"{cfg.name} step", cfg, got[3], n, n, PRETRAIN_SEQ)
+    print(f"pretrain {cfg.name}: {n} layers, B {PRETRAIN_BATCH} S {PRETRAIN_SEQ} (first "
+          f"{hidden} tokens repeated), loss cuda {got[0]:.6g} ref {ref16_loss:.6g} fp32 "
+          f"{ref32[0]:.6g}; launches forward {got[3]['forward']}, backward "
+          f"{got[3]['backward']}; windows a pass {got[3]['windows'][0][:2]}...", flush=True)
+    out = dict(hidden=hidden, loss=got[0], ref16_loss=ref16_loss, ref32_loss=ref32[0],
+               launches={k: got[3][k] for k in ("forward", "backward")},
+               gate=pretrain_gate(f"{cfg.name} LM step", got, ref32, ref16_errs))
+    del got
+    out["planted_faults"] = []
+    for label, fn in (*b5_backward_faults(), b5_window_dropped()):
+        with planted_backward(dispatch._FlashAttention, fn):
+            bad = pretrain_grads(cfg, params, batch, "cuda")
+        r = pretrain_gate(f"planted fault: {label}", bad, ref32, ref16_errs, fault=True)
+        out["planted_faults"].append(dict(fault=label, **r))
+        del bad
+    del ref32, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def pretrain_loop(cfg, dev):
+    """PRETRAIN_STEPS steps of ``make_train_step`` through ``train()`` from
+    ``make_init_state`` (seed 0) on the pipeline's batches, no checkpoint,
+    the launch counts set to 0 just before and read just after; then one
+    step timed and one profiled."""
+    import torch
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.kernels import _build
+    from repro_torch.train.loop import train
+    from repro_torch.train.step import adamw_for, make_init_state, make_train_step
+    state = make_init_state(cfg, adamw_for(cfg))(torch.Generator(device=dev).manual_seed(0),
+                                                 dev)
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+    held = torch.cuda.memory_allocated(dev)
+    step = make_train_step(cfg, adamw_for(cfg))
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.launches.reset()
+    result = train(state, step, lambda s: pretrain_batch(cfg, s, dev), PRETRAIN_STEPS,
+                   log_every=1)
+    torch.cuda.synchronize(dev)
+    counts = _build.launches.snapshot()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [m["loss"] for m in result.metrics_history]
+    ms = [t * 1e3 for t in result.step_times]
+    tokens = PRETRAIN_BATCH * PRETRAIN_SEQ
+    tok_s = tokens * (len(ms) - 1) / (sum(ms[1:]) / 1e3)
+    reckoned = 16 * n_params          # fp32 params, grads, AdamW mu and nu
+    print(f"pretrain loop: {cfg.name}, {PRETRAIN_STEPS} steps of B {PRETRAIN_BATCH} S "
+          f"{PRETRAIN_SEQ}, losses {losses}, ms per step {ms}, {tok_s:.1f} tokens/s (first "
+          f"step excluded), peak memory {peak} B against {reckoned} B reckoned for fp32 "
+          f"params, grads and AdamW state ({n_params} params; {held} B held before the "
+          f"loop), launches {counts}", flush=True)
+    if not all(math.isfinite(x) for x in losses) or any(
+            m["nonfinite"] for m in result.metrics_history):
+        fail(f"pretrain loop: losses {losses}, metrics {result.metrics_history}")
+    n = PRETRAIN_STEPS * 2 * cfg.n_layers
+    if counts != {"flash_attention": n, "flash_attention/wgmma": n}:
+        fail(f"pretrain loop: launches {counts}; want B5 {n} times on wgmma (the forward "
+             f"and the checkpoints' recompute of {cfg.n_layers} layers a step) and nothing "
+             f"else")
+    batch = pretrain_batch(cfg, PRETRAIN_STEPS, dev)
+    wall = _counted(lambda: step(state, batch))[2]
+    busy, cats, table = device_breakdown(
+        lambda: step(state, batch), LM_CATEGORIES,
+        lambda busy, _: f"  pretrain trace: device busy {busy:.2f} ms of an unprofiled step "
+                        f"of {wall:.2f} ms (idle share {1 - busy / wall:.3f})", 15)
+    del state, step
+    torch.cuda.empty_cache()
+    return dict(losses=losses, step_ms=ms, tokens_per_s=tok_s, peak_bytes=peak,
+                reckoned_bytes=reckoned, params=n_params, held_bytes=held, launches=counts,
+                trace=dict(busy_ms=busy, step_wall_ms=wall, idle_share=1 - busy / wall,
+                           categories=cats, top=table[:40]))
+
+
+def pretrain_bound(cfg, b: int, s: int):
+    """(bound ms, bf16 FLOPs, f32 FLOPs) of one step, forward and backward
+    (3x the forward's FLOPs, the checkpoints' recompute not counted): the
+    trunk's weight matmuls and attention (causal pairs within each layer's
+    window) on the bf16 tensor cores, the f32 unembed at the fp32 rate; the
+    two in sequence, since each waits on the other's output."""
+    a = cfg.attention
+    d, hq, hkv, dh, f = cfg.d_model, a.n_heads, a.n_kv_heads, a.head_dim, cfg.d_ff
+    per_token = 2 * (d * hq * dh + 2 * d * hkv * dh + hq * dh * d + 3 * d * f)
+    from repro_torch.models.transformer import layer_windows
+    pairs = sum(attn_pairs(s, True, w if w < s else None) for w in layer_windows(cfg))
+    bf16 = 3 * (cfg.n_layers * per_token * b * s + 4.0 * dh * b * hq * pairs)
+    f32 = 3 * 2.0 * b * s * cfg.vocab_padded * d
+    return (bf16 / BF16_FLOPS + f32 / FP32_FLOPS) * 1e3, bf16, f32
+
+
+def pretrain_minitron(dev):
+    """minitron-4b at full width and depth with int8 AdamW state (its only
+    change): one step at PRETRAIN_BATCH x PRETRAIN_MINITRON_SEQ after a
+    warm-up step, its ms and peak memory; the loss must be finite."""
+    import dataclasses
+    import torch
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.configs.registry import get_config
+    from repro_torch.train.step import adamw_for, make_init_state, make_train_step
+    cfg = dataclasses.replace(get_config("minitron-4b"), opt_state_dtype="int8")
+    state = make_init_state(cfg, adamw_for(cfg))(torch.Generator(device=dev).manual_seed(0),
+                                                 dev)
+    held = torch.cuda.memory_allocated(dev)
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+    step = make_train_step(cfg, adamw_for(cfg))
+    batches = [pretrain_batch(cfg, s, dev, seq=PRETRAIN_MINITRON_SEQ) for s in range(2)]
+    step(state, batches[0])
+    (_, metrics), peak = _peak(lambda: step(state, batches[1]), dev)
+    loss = float(metrics["loss"])
+    wall = _counted(lambda: step(state, batches[1]))[2]
+    print(f"pretrain minitron-4b (int8 AdamW state): {n_params} params, B {PRETRAIN_BATCH} S "
+          f"{PRETRAIN_MINITRON_SEQ}, loss {loss:.6g}, a step {wall:.1f} ms, peak memory "
+          f"{peak} B ({held} B held: fp32 params and int8 state)", flush=True)
+    if not math.isfinite(loss) or float(metrics["nonfinite"]):
+        fail(f"pretrain minitron-4b: loss {loss}, metrics {metrics}")
+    del state, step, batches
+    torch.cuda.empty_cache()
+    return dict(arch=cfg.name, opt_state_dtype="int8", params=n_params, loss=loss,
+                step_ms=wall, peak_bytes=peak, held_bytes=held)
+
+
+def pretrain_dots(cfg, dev):
+    """At ``cfg``'s width and PRETRAIN_DOTS_LAYERS layers: the gradient under
+    ``remat_policy`` "dots" against "none" on the kernels, within LM_GATE
+    times the bf16 ``ref`` run's own error against an fp32 run, and B5's
+    launches under each (none: forward only; dots: and the recompute)."""
+    import dataclasses
+    import torch
+    from repro_torch.models.registry import get_api
+    c = dataclasses.replace(cfg, n_layers=PRETRAIN_DOTS_LAYERS, remat_policy="none")
+    params = get_api(c).init(torch.Generator(device=dev).manual_seed(0), c)
+    batch = pretrain_batch(c, 0, dev, hidden=PRETRAIN_HIDDEN)
+    ref32 = pretrain_grads(dataclasses.replace(c, compute_dtype="float32"), params, batch,
+                           "ref")
+    ref16_errs = lm_grad_errs(pretrain_grads(c, params, batch, "ref"), ref32,
+                              PRETRAIN_GATE_PREFIXES)
+    none = pretrain_grads(c, params, batch, "cuda")
+    dots = pretrain_grads(dataclasses.replace(c, remat_policy="dots"), params, batch, "cuda")
+    n = c.n_layers
+    check_pretrain_launches("remat none", c, none[3], n, 0, PRETRAIN_SEQ)
+    check_pretrain_launches("remat dots", c, dots[3], n, n, PRETRAIN_SEQ)
+    l_ref, e_ref = ref16_errs
+    l_got, e_got = lm_grad_errs(dots, none, PRETRAIN_GATE_PREFIXES)
+    worst = max(e_got.values())
+    passed = l_got <= LM_GATE * l_ref and worst <= LM_GATE * max(e_ref.values())
+    print(f"  remat dots vs none, {n} layers: loss err {l_got:.3e}, worst leaf err {worst:.3e} "
+          f"(gate {LM_GATE * l_ref:.3e} / {LM_GATE * max(e_ref.values()):.3e}); B5 launches "
+          f"none {none[3]['forward']} / {none[3]['backward']}, dots {dots[3]['forward']} / "
+          f"{dots[3]['backward']} {'ok' if passed else 'FAIL'}", flush=True)
+    if not passed:
+        fail("remat dots: its gradient is outside the bf16 gate of remat none's")
+    launches_of = {k: {p: r[3][p] for p in ("forward", "backward")}
+                   for k, r in (("none", none), ("dots", dots))}
+    del params, ref32, none, dots
+    torch.cuda.empty_cache()
+    return dict(layers=n, loss_err=l_got, worst_leaf_err=worst, gate_loss=LM_GATE * l_ref,
+                gate_leaf=LM_GATE * max(e_ref.values()), launches=launches_of, passed=passed)
+
+
+PRETRAIN_SUBPROCESSES = (
+    # (the commands run one after the other in one directory, what the
+    # last line of each must hold)
+    ((["-m", "repro_torch.launch.train", "--arch", "gemma2-2b", "--steps", "6", "--batch",
+       "2", "--seq", "32"], "device=cuda"),
+     (["-m", "repro_torch.launch.train", "--arch", "gemma2-2b", "--steps", "6", "--batch",
+       "2", "--seq", "32"], "nothing to do")),
+    ((["-m", "repro_torch.examples.train_lm", "--steps", "4"], "final loss"),),
+    ((["-m", "repro_torch.examples.serve_lm", "--requests", "2"], "all requests complete"),),
+)
+
+
+def run_chain(chain, tmp):
+    """The commands of ``chain`` in turn, with ``tmp`` as their temporary
+    directory (the launchers' default checkpoint directories); returns the
+    readings, failing on a non-zero exit or a last line without its
+    expected text."""
+    out = []
+    for args, expect in chain:
+        cmd = [sys.executable, *args]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
+                              env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+                                   "TMPDIR": tmp})
+        secs = time.perf_counter() - t0
+        line = (proc.stdout.strip().splitlines() or [""])[-1]
+        print(f"  {' '.join(args[1:])}: exit {proc.returncode} in {secs:.1f} s; {line}",
+              flush=True)
+        if proc.returncode != 0 or expect not in line or "device=cuda" not in proc.stdout:
+            fail(f"{' '.join(args[1:])} (exit {proc.returncode}; want {expect!r} in its last "
+                 f"line and device=cuda):\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+        out.append(dict(cmd=args, exit=proc.returncode, seconds=secs, line=line))
+    return out
+
+
+def pretrain_subprocesses():
+    """The LM launcher (then rerun on its checkpoint directory, which must
+    resume with nothing to do) and both examples as subprocesses on the
+    card, the three chains at once, each in a temporary directory of its
+    own."""
+    import concurrent.futures
+    import tempfile
+    with tempfile.TemporaryDirectory() as root:
+        dirs = [tempfile.mkdtemp(dir=root) for _ in PRETRAIN_SUBPROCESSES]
+        with concurrent.futures.ThreadPoolExecutor(len(dirs)) as pool:
+            futs = [pool.submit(run_chain, chain, d)
+                    for chain, d in zip(PRETRAIN_SUBPROCESSES, dirs)]
+            return [f.result() for f in futs]
+
+
+def pretrain_kernel_specs(dev):
+    """B5 at the step's shapes (B 2, S 4608, 8 / 4 heads of 256, softcap
+    50; the local layers' window 4096 and the global layers'), as
+    :func:`check_kernels` takes them; SDPA has no softcap, so no library
+    call."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(7)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g).to(device=dev, dtype=dtype)
+
+    b, s = PRETRAIN_BATCH, PRETRAIN_SEQ
+    return [dict(name="flash_attention", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                 replaces="src/repro/kernels/flash_attention.py:89",
+                 symbol="flash_attention_wgmma_kernel", cases=[
+        flash_case(randn, f"gemma2-2b local B{b} S{s} Hq8 Hkv4 D256 window4096 cap50", b, s,
+                   8, 4, 256, torch.bfloat16, main=True, iters=(10, 5), causal=True,
+                   window=4096, softcap=50.0),
+        flash_case(randn, f"gemma2-2b global B{b} S{s} Hq8 Hkv4 D256 cap50", b, s, 8, 4, 256,
+                   torch.bfloat16, main=True, iters=(10, 5), causal=True, softcap=50.0)])]
+
+
+def run_lm_pretrain(dev, launches):
+    """Phase 5d: LM training of gemma2-2b at full width and depth as
+    published (fp32 params and AdamW state, bf16 compute, every block
+    checkpointed, loss chunks of 512; random weights drawn on the card
+    from seed 0) on the token pipeline at B 2, S 4608; minitron-4b with
+    int8 state; remat "dots" against "none"; the launchers as
+    subprocesses; B5 at the step's shapes."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    t_phase = time.perf_counter()
+    cfg = get_config("gemma2-2b")
+    if (cfg.remat_policy, cfg.compute_dtype, cfg.param_dtype, cfg.opt_state_dtype,
+            cfg.loss_chunk) != ("nothing", "bfloat16", "float32", "float32", 512):
+        fail(f"{cfg.name}: expected remat 'nothing', bf16 compute, fp32 params and state, "
+             f"loss chunks of 512")
+    out = dict(kind="lm_pretrain", arch=cfg.name, batch=PRETRAIN_BATCH, seq=PRETRAIN_SEQ)
+    out["parity"] = pretrain_parity(cfg, dev, PRETRAIN_HIDDEN)
+    mark("5d: parity and planted faults done")
+    out["loop"] = pretrain_loop(cfg, dev)
+    mark("5d: loop done")
+    launches["lm_pretrain"] = out["loop"]["launches"]
+    bound, bf16, f32 = pretrain_bound(cfg, PRETRAIN_BATCH, PRETRAIN_SEQ)
+    step_ms = statistics.median(out["loop"]["step_ms"][1:])
+    out["bound"] = dict(ms=bound, bf16_flops=bf16, f32_flops=f32,
+                        share=bound / step_ms)
+    print(f"pretrain bound: {bf16:.4g} bf16 FLOPs at {BF16_FLOPS:.4g}/s + {f32:.4g} f32 "
+          f"FLOPs (the unembed) at {FP32_FLOPS:.4g}/s = {bound:.1f} ms a step; the loop's "
+          f"median step {step_ms:.1f} ms ({100 * bound / step_ms:.1f} % of the bound's "
+          f"rate)", flush=True)
+    out["minitron_int8"] = pretrain_minitron(dev)
+    mark("5d: minitron-4b done")
+    out["dots"] = pretrain_dots(cfg, dev)
+    mark("5d: dots done")
+    b5 = check_kernels(pretrain_kernel_specs(dev))["flash_attention"]
+    out["kernel_cases"], out["kernel_max_abs_err"] = b5["cases"], b5["max_abs_err"]
+    cats = out["loop"]["trace"]["categories"]
+    b5_ms = cats.get("B5 flash_attention", {}).get("device_ms", 0.0)
+    out["b5_share"] = b5_ms / out["loop"]["trace"]["busy_ms"]
+    print(f"pretrain B5: {b5_ms:.2f} ms of a step's device time "
+          f"({100 * out['b5_share']:.1f} %)", flush=True)
+    defer(out, "subprocesses", pretrain_subprocesses)
     out["seconds"] = time.perf_counter() - t_phase
-    print(f"phase 5c: {out['seconds']:.1f} s", flush=True)
+    print(f"phase 5d: {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -2548,7 +3107,8 @@ def run_ops_path(dev, launches):
 # ---------------------------------------------------------------------------
 
 LM_SLOTS = 4
-LM_MAX_NEW = 32
+LM_MAX_NEW = 16
+LM_SERVE_LAYERS = 16        # minitron-4b's 32 cut to 16, as in phase 5c
 # wave 1: four prompts of one length decode as one stacked cohort; wave 2:
 # ragged lengths, which decode slot by slot
 LM_PROMPTS = (1024, 1024, 1024, 1024, 512, 2048, 512, 2048)
@@ -2822,15 +3382,17 @@ def prefill_kernel_specs(dev):
 
 
 def run_lm_serve(dev, launches):
-    """Phase 6b: LM decode serving of minitron-4b and gemma2-2b at full width
-    and depth on random weights drawn on the card, bf16 compute."""
+    """Phase 6b: LM decode serving of minitron-4b (LM_SERVE_LAYERS layers)
+    and gemma2-2b (every layer) at full width on random weights drawn on the
+    card, bf16 compute."""
+    import dataclasses
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.models import transformer as TT
     t_phase = time.perf_counter()
-    out = {}
+    out = dict(kind="lm_serve")
 
-    cfg = get_config("minitron-4b")
+    cfg = dataclasses.replace(get_config("minitron-4b"), n_layers=LM_SERVE_LAYERS)
     params = TT.init_transformer(torch.Generator(device=dev).manual_seed(0), cfg)
     p16 = TT.compute_params(params, cfg)
     max_seq = max(LM_PROMPTS) + LM_MAX_NEW + 8
@@ -2840,6 +3402,7 @@ def run_lm_serve(dev, launches):
     served, counts, wall, peak = lm_counted(cfg, p16, lm_requests(
         cfg, LM_PROMPTS, LM_MAX_NEW, seed=0), LM_SLOTS, max_seq, dev)
     launches["lm_serve"] = counts
+    mark("6b: minitron-4b counted run done")
     n_tok = sum(len(r.out_tokens) for r in served)
     print(f"path lm_serve: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}), "
           f"{len(served)} requests "
@@ -2850,7 +3413,9 @@ def run_lm_serve(dev, launches):
                                                          seed=0), LM_SLOTS, max_seq)
     gate = lm_gate(f"{cfg.name} kernel path", runs)
     del runs
+    mark("6b: minitron-4b gate done")
     timings = lm_timings(cfg, p16, dev)
+    mark("6b: minitron-4b timings done")
     out["minitron"] = dict(requests=len(served), tokens=n_tok, seconds=wall,
                            tokens_per_s=n_tok / wall, peak_bytes=peak, launches=counts,
                            gate=gate, **timings)
@@ -2876,10 +3441,21 @@ def run_lm_serve(dev, launches):
                     {**runs, "got": runs["fault"]}, fault=True)
     out["gemma2"] = dict(seconds=gwall, peak_bytes=gpeak, launches=gcounts, gate=ggate,
                          planted_fault=fault)
+    mark("6b: gemma2-2b done")
     del runs, gparams, g16
     torch.cuda.empty_cache()
 
     out["prefill_kernel"] = check_kernels(prefill_kernel_specs(dev))["flash_attention"]
+    defer(out, "launcher", run_lm_serve_launcher)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 6b: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def run_lm_serve_launcher():
+    """``python -m repro_torch.launch.serve`` (LM, smoke config) on the card
+    as a subprocess, which must exit 0 and print its tokens/s line on
+    ``device=cuda``."""
     cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--requests", "4", "--slots",
            "2", "--max-new", "8"]
     t0 = time.perf_counter()
@@ -2892,10 +3468,7 @@ def run_lm_serve(dev, launches):
     if proc.returncode != 0 or "device=cuda" not in line:
         fail(f"the LM serving launcher failed (exit {proc.returncode}):\n"
              f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
-    out["launcher"] = dict(cmd=cmd[1:], exit=proc.returncode, seconds=secs, line=line)
-    out["seconds"] = time.perf_counter() - t_phase
-    print(f"phase 6b: {out['seconds']:.1f} s", flush=True)
-    return dict(kind="lm_serve", **out)
+    return dict(cmd=cmd[1:], exit=proc.returncode, seconds=secs, line=line)
 
 
 def main() -> int:
@@ -2917,13 +3490,16 @@ def main() -> int:
     _build.library()
     print(f"build: {lib_path.name} in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    mark("built")
     specs = kernel_cases(dev)
     rows = check_kernels(specs)
     planted = check_episodic_faults(specs)
     del specs
+    mark("phase 3 done")
     launches = {}
     summary = [run_path("simple_cnaps", 8, dev, launches, trace=True),
                run_path("protonets", 4, dev, launches)]
+    mark("phase 4 done")
     served = launches["simple_cnaps"]
     if served.get("mahalanobis/bulk", 0) != served.get("mahalanobis", 0):
         fail(f"the serving path's Mahalanobis launches did not all take the bulk copy: "
@@ -2932,13 +3508,24 @@ def main() -> int:
         fail(f"the serving path's int8 matmul launches did not all take the 16-byte "
              f"copies: {served}")
     summary.append(run_serve_warm(dev, launches))
+    mark("phase 4b done")
     summary.append(run_training(dev, launches))
+    mark("phase 5 done")
     summary.append(run_training_rest(dev, launches, summary[-1]))
+    mark("phase 5b done")
     lm_train = run_lm_train(dev, launches)
     summary.append(lm_train)
+    mark("phase 5c done")
+    lm_pretrain = run_lm_pretrain(dev, launches)
+    summary.append(lm_pretrain)
+    mark("phase 5d done")
     ops_rows, ops_planted = run_ops_path(dev, launches)
     planted += ops_planted
+    mark("phase 6 done")
     summary.append(run_lm_serve(dev, launches))
+    mark("phase 6b done")
+    run_deferred()
+    mark("subprocesses done")
     # each kernel counted on the path that runs it: flash attention on LM
     # serving's prefills, gmm and ssd_chunk on the ops path
     path_of = {n: "simple_cnaps" for n in rows} | {n: "ops" for n in ops_rows} \
@@ -2947,9 +3534,11 @@ def main() -> int:
     prefill_row = summary[-1]["prefill_kernel"]
     rows["flash_attention"]["lm_prefill_cases"] = prefill_row["cases"]
     rows["flash_attention"]["lm_train_cases"] = lm_train["kernel_cases"]
+    rows["flash_attention"]["lm_pretrain_cases"] = lm_pretrain["kernel_cases"]
     rows["flash_attention"]["max_abs_err"] = max(rows["flash_attention"]["max_abs_err"],
                                                  prefill_row["max_abs_err"],
-                                                 lm_train["kernel_max_abs_err"])
+                                                 lm_train["kernel_max_abs_err"],
+                                                 lm_pretrain["kernel_max_abs_err"])
     for name, path in path_of.items():
         if launches[path].get(name, 0) < 1:
             fail(f"kernel {name} was not launched on the {path} path")
@@ -2964,8 +3553,8 @@ def main() -> int:
     # "route" is how the kernel was written (CUDA C++); "routes" the
     # kernel's own route ("wgmma" tensor cores or "simt" CUDA cores) at each
     # main case, and "main_cases" each main case's numbers
-    case_keys = ("shape", "route", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms", "library_device_ms")
+    case_keys = ("shape", "route", "ms", "device_ms", "device_timer", "plain_ms", "bound_ms",
+                 "bound_by", "library_ms", "library_device_ms")
     train_path = {n: "train" for n in launches["train"]} | {"flash_attention": "lm_train"}
     print(json.dumps({"kernels": [
         {k: rows[n][k] for k in ("name", "route", "source", "replaces")}
@@ -2973,15 +3562,15 @@ def main() -> int:
         | ({"train_launches": launches[train_path[n]][n]} if n in train_path else {})
         | ({"lm_train_launches": launches["lm_train"][n]}
            if n in launches["lm_train"] and train_path.get(n) != "lm_train" else {})
-        | ({f"{p}_launches": launches[p][n] for p in ("ops", "lm_serve_gemma2")
+        | ({f"{p}_launches": launches[p][n] for p in ("ops", "lm_serve_gemma2", "lm_pretrain")
             if p != path_of[n] and n in launches[p]})
         | {k: rows[n][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                    "bound_by", "library_ms", "library_device_ms",
-                                   "device_ms", "routes")}
+                                   "device_ms", "device_timer", "routes")}
         | ({"main_cases": [{k: t[k] for k in case_keys} for t in rows[n]["cases"]]}
            if len(rows[n]["cases"]) > 1 else {})
         | ({f"lm_{c}_cases": [{k: t[k] for k in case_keys} for t in rows[n][f"lm_{c}_cases"]]
-            for c in ("prefill", "train") if f"lm_{c}_cases" in rows[n]})
+            for c in ("prefill", "train", "pretrain") if f"lm_{c}_cases" in rows[n]})
         for n in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

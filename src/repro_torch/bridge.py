@@ -18,7 +18,9 @@ function.
 
 The LM transformers have no conv weight: ``lm_params_from_numpy`` carries
 a JAX transformer's params (stacked layers, leading L axis) across as they
-are, and ``lm_cache_from_numpy`` its KV cache (``k``, ``v`` (L, B, S, H,
+are, ``lm_state_from_numpy`` / ``lm_state_to_numpy`` an LM train state
+``dict(params, opt)`` (AdamW ``mu`` and ``nu`` in fp32, bf16 or int8
+``{q, scale, n}``, and ``count``) both ways, and ``lm_cache_from_numpy`` its KV cache (``k``, ``v`` (L, B, S, H,
 D); ``len`` a Python int in the port).  A meta-learner over an LM backbone
 crosses with ``learner_params_from_numpy`` (and back with
 ``learner_params_to_numpy``): its ``bb`` subtree as an LM tree, the rest
@@ -115,10 +117,38 @@ def opt_state_to_numpy(opt: Any) -> Any:
                 count=_to_np(opt["count"]))
 
 
+def _lm_leaf_from_numpy(a, device) -> Any:
+    if is_quantized(a):
+        return dict(q=_from_np(a["q"], device), scale=_from_np(a["scale"], device),
+                    n=int(a["n"]) if a.get("n") is not None else int(np.shape(a["q"])[-1]))
+    return _from_np(a, device)
+
+
+def _lm_leaf_to_numpy(t) -> Any:
+    return {k: _to_np(v) for k, v in t.items()} if is_quantized(t) else _to_np(t)
+
+
 def lm_params_from_numpy(tree: Any, device="cuda") -> Any:
     """A JAX transformer's numpy params -> the port's on ``device``, leaf by
     leaf, in the same layout."""
-    return _walk(tree, lambda a: _from_np(a, device))
+    return _walk(tree, lambda a: _lm_leaf_from_numpy(a, device))
+
+
+def lm_state_from_numpy(state: Any, device="cuda") -> Any:
+    """A JAX LM train state ``dict(params, opt)`` with numpy leaves (a
+    restored checkpoint, or ``jax.tree.map(np.asarray, state)``) -> the
+    port's on ``device``, every leaf by its path in the same layout."""
+    opt = state["opt"]
+    return dict(params=lm_params_from_numpy(state["params"], device),
+                opt=dict(mu=lm_params_from_numpy(opt["mu"], device),
+                         nu=lm_params_from_numpy(opt["nu"], device),
+                         count=torch.from_numpy(np.array(opt["count"])).to(device)))
+
+
+def lm_state_to_numpy(state: Any) -> Any:
+    """The inverse of :func:`lm_state_from_numpy`: numpy leaves in the JAX
+    package's layout (quantized leaves' ``n`` an int)."""
+    return _walk(state, _lm_leaf_to_numpy)
 
 
 def lm_cache_from_numpy(cache: Any, device="cuda") -> Any:

@@ -1,9 +1,22 @@
-"""Episodic meta-training launcher for the PyTorch port.
+"""Training launcher for the PyTorch port (the JAX package's
+``repro/launch/train.py`` on one device).
+
+    python -m repro_torch.launch.train --arch gemma2-2b --steps 200 \\
+        --batch 8 --seq 128 --ckpt-dir /tmp/ck
+
+LM training (the default): the arch's smoke config (``--full`` prints the
+JAX launcher's warning and runs the smoke config too, since the
+production mesh is multi-GPU work, ROADMAP A12) with random weights from
+seed 0, AdamW in the config's state dtype, a cosine schedule (or
+``--schedule wsd``) from ``--peak-lr``, batches from
+:class:`repro_torch.data.tokens.TokenPipeline` (seed 0), through the
+fault-tolerant loop with checkpoints and resume.  The step updates the
+state in place (:func:`repro_torch.train.step.make_train_step`).
 
     python -m repro_torch.launch.train --episodic --steps 100 \\
         --tasks-per-step 8 --learner simple_cnaps --schedule cosine
 
-Task-batched LITE meta-training (:mod:`repro_torch.core.episodic_train`)
+``--episodic``: task-batched LITE meta-training (:mod:`repro_torch.core.episodic_train`)
 through the fault-tolerant loop (:mod:`repro_torch.train.loop`) with
 checkpoints and resume, at the JAX launcher's episodic smoke size (conv
 backbone widths (16, 32), feature_dim 64; conv set encoder 2 blocks of
@@ -14,12 +27,12 @@ weights from seed 0.  Tasks come, as in the JAX launcher, from
 (17, step)) or ``--data-source host`` (the numpy host sampler
 ``host_task_batch_at``, bit-identical with the JAX package's), and each
 task's H subset from a counter-based hash of (23, step, task, example).
-Runs on ``--device`` (default ``cuda``; it raises without a card unless
-``--device cpu`` is given) with ``--kernel-backend auto``, the
-hand-written kernels on the card.
+Both run on ``--device`` (default ``cuda``; it raises without a card
+unless ``--device cpu`` is given) with ``--kernel-backend auto``, the
+hand-written kernels on the card (flash attention on every layer of the
+LM).  A preempted run exits 75 after flushing a checkpoint.
 
-Not ported: the LM launcher (without ``--episodic``) and the multi-device
-flags (ROADMAP A12, A14).
+Not ported: the multi-device flags (ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -40,6 +53,64 @@ def _fault_summary(result) -> str:
             f"rollbacks={result.rollbacks} "
             f"data_retries={result.data_retries} "
             f"stragglers={result.straggler_steps}")
+
+
+def _finish_preempted(e) -> None:
+    print(f"preempted: {e} — rerun to resume", flush=True)
+    sys.exit(EXIT_PREEMPTED)
+
+
+def run_lm(args) -> None:
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig, batch_to_device
+    from repro_torch.faults import PreemptionSignal
+    from repro_torch.kernels import dispatch
+    from repro_torch.optim.schedules import schedule_for
+    from repro_torch.serve.episodic import resolve_device
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.loop import PreemptedError, train
+    from repro_torch.train.step import adamw_for, make_init_state, make_train_step
+
+    device = resolve_device(args.device)
+    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+    cfg = get_smoke_config(args.arch)
+    if args.full:
+        print(f"[warn] --full needs >=256 devices (have {n_dev}); running the smoke "
+              f"config on one device", flush=True)
+    print(f"arch={cfg.name} devices={n_dev} device={device}", flush=True)
+
+    init = make_init_state(cfg, adamw_for(cfg))
+    sched = schedule_for(args.schedule or "cosine", args.peak_lr,
+                         max(args.steps // 50, 1), args.steps)
+    step = make_train_step(cfg, adamw_for(cfg), schedule=sched)
+    state = init(torch.Generator(device=device).manual_seed(0), device)
+    pipe = TokenPipeline(TokenPipelineConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                             global_batch=args.batch))
+
+    def batch_at(s):
+        return batch_to_device(pipe.batch_at(s), device)
+
+    ckpt = CheckpointManager(args.ckpt_dir or os.path.join(
+        tempfile.gettempdir(), f"repro_torch_train_ckpt_{cfg.name}"), keep=3)
+    preempt = PreemptionSignal().install()
+    try:
+        with dispatch.use_backend(args.kernel_backend):
+            result = train(state, step, batch_at, args.steps, ckpt=ckpt,
+                           ckpt_every=args.ckpt_every, state_template=state,
+                           log_every=25, preempt=preempt,
+                           max_nonfinite=args.max_nonfinite_skips,
+                           data_retries=args.data_retries)
+    except PreemptedError as e:
+        _finish_preempted(e)
+    if not result.metrics_history:
+        print(f"nothing to do: checkpoint already at step {result.step} "
+              f"(resumed_from={result.resumed_from})")
+        return
+    print(f"done at step {result.step}; "
+          f"loss {result.metrics_history[0]['loss']:.4f} -> "
+          f"{result.metrics_history[-1]['loss']:.4f}; "
+          f"resumed_from={result.resumed_from}; "
+          f"{_fault_summary(result)} device={device}", flush=True)
 
 
 def run_episodic(args) -> None:
@@ -121,8 +192,7 @@ def run_episodic(args) -> None:
                        max_nonfinite=args.max_nonfinite_skips,
                        data_retries=args.data_retries)
     except PreemptedError as e:
-        print(f"preempted: {e} — rerun to resume", flush=True)
-        sys.exit(EXIT_PREEMPTED)
+        _finish_preempted(e)
     if not result.metrics_history:
         print(f"nothing to do: checkpoint already at step {result.step} "
               f"(resumed_from={result.resumed_from})")
@@ -136,18 +206,32 @@ def run_episodic(args) -> None:
 
 
 def main(argv=None) -> None:
+    from repro_torch.configs.registry import ARCH_IDS
+
     ap = argparse.ArgumentParser()
-    ap.add_argument("--episodic", action="store_true",
-                    help="task-batched LITE meta-training (the only workload "
-                         "ported)")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="minitron-4b",
+                    help="LM to train (the dense transformers are ported)")
     ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--schedule", choices=["cosine", "wsd"], default=None,
-                    help="LR schedule (default: constant --peak-lr)")
+                    help="LR schedule (LM default cosine; --episodic default "
+                         "constant --peak-lr)")
     ap.add_argument("--peak-lr", type=float, default=3e-4)
     ap.add_argument("--ckpt-dir", default=None,
-                    help="defaults to repro_torch_train_ckpt_episodic_<learner> "
-                         "in the temporary directory")
+                    help="defaults to repro_torch_train_ckpt_<arch> (LM) or "
+                         "repro_torch_train_ckpt_episodic_<learner> "
+                         "(--episodic) in the temporary directory")
     ap.add_argument("--ckpt-every", type=int, default=100)
+    ap.add_argument("--pods", type=int, default=1,
+                    help="pods of the production mesh, read with --full on "
+                         ">= 256 devices only (ROADMAP A12)")
+    ap.add_argument("--full", action="store_true",
+                    help="full assigned config on the production mesh; with "
+                         "fewer than 256 devices it warns and runs the smoke "
+                         "config")
+    ap.add_argument("--episodic", action="store_true",
+                    help="task-batched LITE meta-training workload")
     ap.add_argument("--learner", default="protonets",
                     choices=["protonets", "cnaps", "simple_cnaps"])
     ap.add_argument("--tasks-per-step", type=int, default=8)
@@ -182,18 +266,19 @@ def main(argv=None) -> None:
                          "batch source")
     ap.add_argument("--kernel-backend", choices=["auto", "cuda", "ref", "naive"],
                     default="auto",
-                    help="aggregation-kernel backend (repro_torch.kernels."
-                         "dispatch): auto = the hand-written CUDA kernels on a "
+                    help="kernel backend (repro_torch.kernels.dispatch) of the "
+                         "episodic aggregation kernels and of the LM's flash "
+                         "attention: auto = the hand-written CUDA kernels on a "
                          "GPU and ref on the CPU.  The JAX launcher defaults to "
                          "ref because its Pallas kernels run in interpret mode "
                          "off the TPU; here the kernels are the main path")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs without a GPU)")
     args = ap.parse_args(argv)
-    if not args.episodic:
-        ap.error("only --episodic training is ported to repro_torch (the LM "
-                 "launcher waits for the LM zoo, ROADMAP A14)")
-    run_episodic(args)
+    if args.episodic:
+        run_episodic(args)
+    else:
+        run_lm(args)
 
 
 if __name__ == "__main__":

@@ -3,13 +3,14 @@ the JAX package's ``repro/models/registry.py``.
 
     api = get_api(cfg)
     params = api.init(gen, cfg)                  # on gen's device
+    loss, metrics = api.loss(params, batch, cfg, backend="auto")
     logits, cache = api.prefill(params, batch, cfg, backend="auto")
     logits, cache = api.decode_step(params, cache, tokens, cfg)
     cache = api.init_cache(cfg, batch_size, max_seq, device)
     params = api.compute_params(params, cfg)     # matmul weights cast once
 
-The dense transformers are ported; ``loss`` comes with LM training
-(ROADMAP A14e).  The other families raise, naming the item that ports them.
+The dense transformers are ported.  The other families raise, naming the
+item that ports them.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from repro_torch.models import transformer
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
     init: Callable
+    loss: Callable
     prefill: Callable
     decode_step: Callable
     init_cache: Callable
@@ -32,6 +34,7 @@ class ModelAPI:
 _APIS = {
     "transformer": ModelAPI(
         init=transformer.init_transformer,
+        loss=transformer.loss,
         prefill=transformer.prefill,
         decode_step=transformer.decode_step,
         init_cache=transformer.init_cache,

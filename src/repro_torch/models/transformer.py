@@ -10,6 +10,7 @@ axis is a Python loop here.  Per-layer windows are Python ints
 the compute dtype, len: int}``.
 
 Entry points:
+  loss(params, batch, cfg)          training objective (chunked cross-entropy)
   prefill(params, batch, cfg)       full-sequence forward -> (last logits, cache)
   decode_step(params, cache, tokens, cfg)  one-token decode; writes the new
                                     k and v into ``cache`` in place
@@ -18,21 +19,24 @@ Entry points:
                                     per-layer FiLM, checkpointed blocks
                                     (the episodic LM backbone's forward)
 
-``prefill`` and ``trunk`` run their attention on a kernel backend
-(``auto``: the flash attention kernel on a CUDA tensor, see
-:mod:`repro_torch.models.layers`; ``trunk`` differentiates through it).
+``loss``, ``prefill`` and ``trunk`` run their attention on a kernel
+backend (``auto``: the flash attention kernel on a CUDA tensor, see
+:mod:`repro_torch.models.layers`; ``loss`` and ``trunk`` differentiate
+through it).
 Decode attends one query to the cache: the JAX package computes it in
 plain array code, with no kernel, and so does the port.
 
-MoE FFNs and MLA attention raise (ROADMAP A14b); ``loss`` comes with LM
-training (A14e).
+MoE FFNs and MLA attention raise (ROADMAP A14b).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.common.init import lecun_normal
 from repro_torch.common.tree import tree_map
@@ -42,6 +46,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.models import layers as L
 
 Params = Dict
+AUX_COEF = 0.01
 GLOBAL_WINDOW = 1 << 30
 
 
@@ -137,16 +142,31 @@ def block(cfg: ModelConfig, lp: Params, x: torch.Tensor, window: int,
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def _remat(cfg: ModelConfig) -> bool:
-    """Whether ``trunk`` checkpoints its blocks (``cfg.remat_policy``, as
-    the JAX package's ``_remat`` reads it): ``"none"`` saves every
-    activation, ``"nothing"`` only each block's input, recomputing the
-    block in the backward."""
+# matmuls with no batch dimension: ``x @ w`` of a (B, S, D) activation by a
+# (D, F) weight reaches the dispatcher as ``aten.mm`` on the folded rows
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The JAX package's ``dots_with_no_batch_dims_saveable``: keep the
+    outputs of the weight matmuls, recompute everything else (norms, rope,
+    the batched attention products and the flash attention kernel)."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig) -> Optional[Dict]:
+    """How ``trunk`` checkpoints its blocks (``cfg.remat_policy``, as the
+    JAX package's ``_remat`` reads it): None for ``"none"`` (every
+    activation saved), else the keyword arguments of
+    ``torch.utils.checkpoint``: ``"nothing"`` saves only each block's
+    input and recomputes the block in the backward, ``"dots"`` also saves
+    the weight matmuls' outputs (a selective-checkpoint policy)."""
+    if cfg.remat_policy == "none":
+        return None
     if cfg.remat_policy == "dots":
-        raise NotImplementedError(
-            f"{cfg.name}: remat_policy 'dots' (save the matmuls' outputs) comes "
-            f"with LM training (ROADMAP A14e, part 2)")
-    return cfg.remat_policy != "none"
+        return dict(context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                 _save_dots))
+    return {}
 
 
 def trunk(params: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -156,22 +176,22 @@ def trunk(params: Params, x: torch.Tensor, cfg: ModelConfig,
 
     ``film``: optional per-layer FiLM {gamma, beta} stacked on a leading L
     axis, (L, D) or (L, T, D) for T tasks whose rows are in order.  While
-    grad is enabled under ``remat_policy="nothing"`` each block runs under
-    ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint``): its
-    recompute in the backward runs the block's forward, and its kernels,
-    a second time."""
+    grad is enabled under ``remat_policy`` "nothing" or "dots" each block
+    runs under ``torch.utils.checkpoint`` (the JAX package's
+    ``jax.checkpoint``): its recompute in the backward runs the block's
+    forward, and its kernels, a second time."""
     require_dense(cfg)
-    remat = _remat(cfg) and torch.is_grad_enabled()
+    remat = _remat(cfg) if torch.is_grad_enabled() else None
     # resolved now: a checkpoint's recompute runs in the backward, outside
     # the caller's use_backend scope
     backend = dispatch.resolve_backend(backend, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, w in enumerate(layer_windows(cfg)):
         f = None if film is None else {k: v[i] for k, v in film.items()}
-        if remat:
+        if remat is not None:
             # the block draws no random numbers: no RNG state to restore
             x, a = checkpoint(block, cfg, _layer(params, i), x, w, backend, f,
-                              use_reentrant=False, preserve_rng_state=False)
+                              use_reentrant=False, preserve_rng_state=False, **remat)
         else:
             x, a = block(cfg, _layer(params, i), x, w, backend, f)
         aux = aux + a
@@ -195,6 +215,64 @@ def embed_inputs(params: Params, batch: Dict, cfg: ModelConfig) -> torch.Tensor:
         fe = batch["frontend_embeds"].to(_dtype(cfg))
         x = torch.cat([fe, x], dim=1)
     return x
+
+
+# --------------------------------------------------------------------------
+# training loss (chunked cross-entropy over the sequence axis)
+# --------------------------------------------------------------------------
+
+def _chunk_nll(params: Params, h: torch.Tensor, labels: torch.Tensor,
+               mask: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Sum over the masked positions of one chunk's NLL, in f32."""
+    logits = logits_head(params, h, cfg)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.sum((lse - ll) * mask)
+
+
+def _xent(params: Params, h: torch.Tensor, labels: torch.Tensor,
+          mask: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """h: (B, S, D); labels, mask: (B, S).  Mean NLL over the mask.
+
+    When ``cfg.loss_chunk`` divides S into more than one chunk, the chunks'
+    sums are added in order into an f32 running sum (the JAX package's
+    ``lax.scan``), and while grad is enabled each chunk runs under
+    ``torch.utils.checkpoint``, so the backward holds one chunk's (B,
+    chunk, Vp) f32 logits at a time, not all of them.  Otherwise one pass,
+    as the reference does it."""
+    s = h.shape[1]
+    chunk = cfg.loss_chunk if cfg.loss_chunk > 0 else s
+    n = s // chunk if s % chunk == 0 else 0
+    denom = torch.clamp(torch.sum(mask), min=1.0)
+    if n <= 1:
+        return _chunk_nll(params, h, labels, mask, cfg) / denom
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n):
+        part = (params, h[:, i * chunk:(i + 1) * chunk],
+                labels[:, i * chunk:(i + 1) * chunk], mask[:, i * chunk:(i + 1) * chunk], cfg)
+        if torch.is_grad_enabled():
+            total = total + checkpoint(_chunk_nll, *part, use_reentrant=False,
+                                       preserve_rng_state=False)
+        else:
+            total = total + _chunk_nll(*part)
+    return total / denom
+
+
+def loss(params: Params, batch: Dict, cfg: ModelConfig, backend: Optional[str] = "auto"
+         ) -> Tuple[torch.Tensor, Dict]:
+    """Next-token loss.  ``batch['tokens']`` (B, S) int64 (and
+    ``frontend_embeds`` for a frontend model, whose positions are dropped
+    before the loss).  Labels are the tokens shifted by one, the last
+    position masked.  Returns (nll + AUX_COEF * aux, dict(nll=, aux=))."""
+    tokens = batch["tokens"]
+    x = embed_inputs(params, batch, cfg)
+    h, aux = trunk(params, x, cfg, backend=backend)
+    h = h[:, x.shape[1] - tokens.shape[1]:, :]
+    labels = F.pad(tokens[:, 1:], (0, 1))
+    mask = F.pad(torch.ones(tokens[:, 1:].shape, dtype=torch.float32, device=tokens.device),
+                 (0, 1))
+    nll = _xent(params, h, labels, mask, cfg)
+    return nll + AUX_COEF * aux, dict(nll=nll, aux=aux)
 
 
 # --------------------------------------------------------------------------

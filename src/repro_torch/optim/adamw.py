@@ -20,7 +20,8 @@ are the JAX package's layout, which the checkpoints store as they are.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+import math
+from typing import Any, Dict, List, Tuple
 
 import torch
 
@@ -83,26 +84,101 @@ def adamw_init(params: Tree, cfg: AdamWConfig) -> Dict:
                 count=torch.zeros((), dtype=torch.int32, device=count_device))
 
 
+def _upd(p, g, m, v, c1, c2, lr, cfg: AdamWConfig):
+    """One leaf's (new param, new mu, new nu)."""
+    g = g.float()
+    m_f = cfg.b1 * _read_state(m, p, cfg, False) + (1 - cfg.b1) * g
+    v_f = cfg.b2 * _read_state(v, p, cfg, True) + (1 - cfg.b2) * g * g
+    step = (m_f / c1) / (torch.sqrt(v_f / c2) + cfg.eps)
+    if p.dim() >= 2:     # decay matrices only (norms/bias exempt)
+        step = step + cfg.weight_decay * p.float()
+    return ((p.float() - lr * step).to(p.dtype), _write_state(m_f, p, cfg, False),
+            _write_state(v_f, p, cfg, True))
+
+
+def _bias_corrections(count: torch.Tensor, cfg: AdamWConfig):
+    return 1.0 - cfg.b1 ** count.float(), 1.0 - cfg.b2 ** count.float()
+
+
 def adamw_update(params: Tree, grads: Tree, state: Dict, lr,
                  cfg: AdamWConfig) -> Tuple[Tree, Dict]:
     """One AdamW step; ``lr`` a float or a 0-dim tensor.  Nothing here
     reads a value back to the host."""
     count = state["count"] + 1
-    c1 = 1.0 - cfg.b1 ** count.float()
-    c2 = 1.0 - cfg.b2 ** count.float()
-
-    def upd(p, g, m, v):
-        g = g.float()
-        m_f = cfg.b1 * _read_state(m, p, cfg, False) + (1 - cfg.b1) * g
-        v_f = cfg.b2 * _read_state(v, p, cfg, True) + (1 - cfg.b2) * g * g
-        step = (m_f / c1) / (torch.sqrt(v_f / c2) + cfg.eps)
-        if p.dim() >= 2:     # decay matrices only (norms/bias exempt)
-            step = step + cfg.weight_decay * p.float()
-        return ((p.float() - lr * step).to(p.dtype), _write_state(m_f, p, cfg, False),
-                _write_state(v_f, p, cfg, True))
-
+    c1, c2 = _bias_corrections(count, cfg)
     leaves = lambda t: tree_leaves(t, is_leaf=is_quantized)  # noqa: E731
-    out = [upd(*ls) for ls in zip(*map(leaves, (params, grads, state["mu"],
-                                                state["nu"])))]
+    out = [_upd(*ls, c1, c2, lr, cfg)
+           for ls in zip(*map(leaves, (params, grads, state["mu"], state["nu"])))]
     pick = lambda i: tree_rebuild(params, [o[i] for o in out])  # noqa: E731
     return pick(0), dict(mu=pick(1), nu=pick(2), count=count)
+
+
+# elements of one leaf updated at a time by ``adamw_update_``: its fp32
+# temporaries (the gradient, mu, nu, the step) then take a few times 64 MB
+# however large the leaf (gemma2-2b's (256000, 2304) embedding is 590 M)
+UPDATE_CHUNK = 1 << 24
+
+
+def _row_slices(p: torch.Tensor):
+    """Slices of ``p``'s leading axis of at most about UPDATE_CHUNK
+    elements, each (but the last) a multiple of 64 elements, so that an
+    elementwise op's vectorised body and scalar tail see the same elements
+    as on the whole leaf.  The int8 state's blocks run along the last
+    axis, so a slice of rows holds whole blocks; a 4-D (conv) leaf, whose
+    int8 state is laid out HWIO, and a leaf of one dimension are not
+    sliced."""
+    if p.dim() in (0, 1, 4) or p.numel() <= UPDATE_CHUNK:
+        return [...]
+    row = p.numel() // p.shape[0]
+    align = 64 // math.gcd(row, 64)
+    rows = max(align, UPDATE_CHUNK // row // align * align)
+    return [slice(r, r + rows) for r in range(0, p.shape[0], rows)]
+
+
+def _state_rows(s, rows):
+    if is_quantized(s):
+        return dict(q=s["q"][rows], scale=s["scale"][rows], n=s["n"])
+    return s[rows]
+
+
+def _assign(dst, src, ok) -> None:
+    """``dst[...] = src`` (where ``ok``, else unchanged), a quantized leaf
+    part by part."""
+    if is_quantized(dst):
+        for k in ("q", "scale"):
+            _assign(dst[k], src[k], ok)
+        return
+    dst.copy_(src if ok is None else torch.where(ok, src, dst))
+
+
+def adamw_update_(params: Tree, grads: List, state: Dict, lr, cfg: AdamWConfig,
+                  grad_scale=None, ok=None) -> None:
+    """:func:`adamw_update` in place: the leaves of ``params`` and ``state``
+    are overwritten with the updated values, the counterpart of a jitted
+    step's donated buffers.  ``grads`` is a list in ``tree_leaves(params)``
+    order; each entry is set to None once its leaf is updated, so the
+    caller's reference is the last.  ``mu`` and ``nu`` are matched to the
+    params by path.
+
+    ``grad_scale`` (a 0-dim tensor) multiplies every gradient first,
+    ``clip_by_global_norm``'s factor (:func:`repro_torch.optim.clip.
+    clip_scale`).  ``ok`` (a 0-dim bool tensor) keeps params and state
+    bit-identical where it is false, ``count`` included.  Leaves are
+    updated a slice of rows at a time (:func:`_row_slices`), so the peak
+    is params, grads and state once each plus one slice's temporaries.
+    Bit-equal to ``adamw_update`` after ``clip_by_global_norm`` on the
+    CPU."""
+    count = state["count"] + 1
+    c1, c2 = _bias_corrections(count, cfg)
+    leaves = []
+    tree_map(lambda p, m, v: leaves.append((p, m, v)), params, state["mu"], state["nu"])
+    for i, (p, m, v) in enumerate(leaves):
+        g, grads[i] = grads[i], None
+        for rows in _row_slices(p):
+            gs = g[rows] if grad_scale is None else g[rows] * grad_scale
+            new = _upd(p[rows], gs, _state_rows(m, rows), _state_rows(v, rows), c1, c2,
+                       lr, cfg)
+            for dst, src in zip((p[rows], _state_rows(m, rows), _state_rows(v, rows)), new):
+                _assign(dst, src, ok)
+        del g
+    _assign(state["count"], count, ok)

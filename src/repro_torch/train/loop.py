@@ -146,8 +146,11 @@ def train(state: Tree,
     span boundaries, bounded by ``max_span``; within a span the straggler
     monitor sees the span-average step time and non-finite skips are
     detected at the span's end.  ``donate`` is accepted for the JAX
-    loop's signature and does nothing: eager PyTorch has no buffer
-    donation, and the step builds new tensors without copying the old.
+    loop's signature and does nothing here: whether a step reuses its
+    state's buffers is the step's own contract.  The LM step
+    (:func:`repro_torch.train.step.make_train_step`) updates params and
+    optimizer state in place, the counterpart of the JAX loop's donated
+    buffers; the episodic step returns new tensors.
 
     ``fault_plan`` injects faults at the documented sites; ``preempt`` is a
     :class:`repro_torch.faults.PreemptionSignal`; ``max_nonfinite`` bounds

@@ -1,26 +1,112 @@
-"""The episodic meta-training step in the loop's ``(state, batch) ->
-(state, metrics)`` form (the JAX package's ``repro/train/step.py``
-episodic adapters), so meta-training inherits checkpoint, resume and
-straggler handling.
+"""Training steps in the loop's ``(state, batch) -> (state, metrics)``
+form (the JAX package's ``repro/train/step.py``): LM training of the model
+zoo (``make_init_state``, ``make_train_step``, ``make_eval_step``), and
+the episodic meta-training adapters, so both inherit checkpoint, resume
+and straggler handling.
 
-``batch`` is ``dict(tasks=TaskBatch, key=(seed, step))``, with an optional
-``scores`` (T, N) tensor; without it the step derives each task's H scores
-from ``key``, the task's index and the example's index
-(:func:`repro_torch.core.lite.index_scores`), so a batch is a pure function
-of its step.
+The LM step's ``batch`` is ``dict(tokens=(B, S) int64)`` on the params'
+device (:func:`repro_torch.data.tokens.batch_to_device`).  The LM step
+updates the state it is given in place (:func:`repro_torch.optim.adamw.
+adamw_update_`), as the JAX loop's jitted step updates its donated
+buffers: a caller that needs the old state copies it first.
+
+The episodic step's ``batch`` is ``dict(tasks=TaskBatch, key=(seed,
+step))``, with an optional ``scores`` (T, N) tensor; without it the step
+derives each task's H scores from ``key``, the task's index and the
+example's index (:func:`repro_torch.core.lite.index_scores`), so a batch
+is a pure function of its step.  It returns a new state.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, Tuple
 
 import torch
 
+from repro_torch.common.tree import tree_leaves, tree_map, tree_rebuild
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.episodic_train import _tree_all_finite
 from repro_torch.core.lite import index_scores
 from repro_torch.kernels import dispatch
-from repro_torch.optim.adamw import AdamWConfig, adamw_init
-from repro_torch.optim.schedules import schedule_for
+from repro_torch.models.registry import get_api
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update_
+from repro_torch.optim.clip import clip_scale
+from repro_torch.optim.schedules import cosine_schedule, schedule_for
 
 State = Dict[str, Any]
+
+
+def make_init_state(cfg: ModelConfig, adamw_cfg: AdamWConfig) -> Callable:
+    """``init_state(gen: torch.Generator, device) -> dict(params, opt)``:
+    the model's params drawn on ``gen`` (see ``api.init``), floating leaves
+    cast to ``cfg.param_dtype``, and a zero AdamW state."""
+    api = get_api(cfg)
+
+    def init_state(gen: torch.Generator, device=None) -> State:
+        params = api.init(gen, cfg, device)
+        if cfg.param_dtype != "float32":
+            dt = getattr(torch, cfg.param_dtype)
+            params = tree_map(lambda p: p.to(dt) if p.is_floating_point() else p, params)
+        return dict(params=params, opt=adamw_init(params, adamw_cfg))
+
+    return init_state
+
+
+def make_train_step(cfg: ModelConfig, adamw_cfg: AdamWConfig,
+                    schedule: Callable | None = None,
+                    max_grad_norm: float = 1.0,
+                    skip_nonfinite: bool = True) -> Callable:
+    """``train_step(state, batch) -> (state, metrics)``: the loss and its
+    gradient (attention on the current kernel backend,
+    :func:`repro_torch.kernels.dispatch.use_backend`; ``auto`` by default),
+    the global-norm clip at ``max_grad_norm``, the lr of ``schedule`` at
+    the update count (default: cosine, peak 3e-4, warmup 2000, total
+    100000) and AdamW.
+
+    The step consumes ``state``: params and optimizer state are updated in
+    place and the same dict is returned, each gradient freed once its leaf
+    is updated, so the peak is params, grads and state once each.
+    ``skip_nonfinite`` (default on): a NaN/inf gradient leaves params and
+    state bit-identical and ``metrics['nonfinite']`` is 1.  Metrics
+    (``loss``, ``grad_norm``, ``lr``, ``nll``, ``aux``, ``nonfinite``) are
+    0-dim device tensors."""
+    api = get_api(cfg)
+    if schedule is None:
+        schedule = functools.partial(cosine_schedule, peak=3e-4, warmup_steps=2000,
+                                     total_steps=100000)
+
+    def train_step(state: State, batch: Dict) -> Tuple[State, Dict]:
+        leaves = tree_leaves(state["params"])
+        live = [p.detach().requires_grad_(True) for p in leaves]
+        with torch.enable_grad():
+            loss, metrics = api.loss(tree_rebuild(state["params"], live), batch, cfg,
+                                     backend=None)
+            grads = list(torch.autograd.grad(loss, live))
+        del live
+        ok = _tree_all_finite(grads) if skip_nonfinite else None
+        scale, gnorm = clip_scale(grads, max_grad_norm)
+        lr = schedule(state["opt"]["count"])
+        adamw_update_(state["params"], grads, state["opt"], lr, adamw_cfg, grad_scale=scale,
+                      ok=ok)
+        out = dict(loss=loss.detach(), grad_norm=gnorm, lr=lr,
+                   **{k: v.detach() for k, v in metrics.items()})
+        if ok is not None:
+            out["nonfinite"] = (~ok).to(torch.float32)
+        return state, out
+
+    return train_step
+
+
+def make_eval_step(cfg: ModelConfig) -> Callable:
+    """``eval_step(params, batch) -> dict(loss, nll, aux)``, without grad."""
+    api = get_api(cfg)
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        loss, metrics = api.loss(params, batch, cfg, backend=None)
+        return dict(loss=loss, **metrics)
+
+    return eval_step
 
 
 def make_episodic_init_state(learner, adamw_cfg: AdamWConfig) -> Callable:
@@ -67,3 +153,7 @@ def make_episodic_train_step(learner, lite, meta_cfg,
         return dict(params=params, opt=opt), metrics
 
     return train_step
+
+
+def adamw_for(cfg: ModelConfig) -> AdamWConfig:
+    return AdamWConfig(state_dtype=cfg.opt_state_dtype)

@@ -205,7 +205,9 @@ def test_launcher_refusals(tmp_path):
         main(["--episodic", "--device", "cpu", "--dp-shards", "2",
               "--ckpt-dir", str(tmp_path)])
     with pytest.raises(SystemExit):
-        main(["--device", "cpu"])                 # only --episodic is ported
+        main(["--arch", "no-such-arch", "--device", "cpu"])
     if not torch.cuda.is_available():             # the default device is the card
         with pytest.raises(RuntimeError, match="cuda"):
             main(["--episodic", "--ckpt-dir", str(tmp_path)])
+        with pytest.raises(RuntimeError, match="cuda"):
+            main(["--arch", "gemma2-2b", "--ckpt-dir", str(tmp_path)])   # the LM path
