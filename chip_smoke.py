@@ -1,6 +1,6 @@
 """Drive the PyTorch port's episodic serving and training paths, its
-episodic LM meta-training, its LM training and its LM decode serving on
-one NVIDIA GPU.
+episodic LM meta-training, its LM training and its LM decode serving
+(dense, MoE and MLA transformers) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # needs one CUDA card, nvcc and the repo
 
@@ -165,9 +165,33 @@ Phases, each of which fails the run (non-zero exit) on any error:
    at the prefill shapes against its plain version and beside SDPA; and
    ``python -m repro_torch.launch.serve`` (LM, smoke config) on the card
    as a subprocess, which must exit 0;
+6c. LM decode serving of the MoE transformers at full published width:
+   kimi-k2-1t-a32b (GQA + MoE, 384 experts top-8, 1 of its 61 layers) and
+   deepseek-v2-236b (MLA + MoE, 160 experts top-6, 2 of its 60 layers),
+   random weights drawn on the card from seed 0 with every leaf cast to
+   bf16 as it is drawn, bf16 compute, through ``ServeEngine`` at 2 slots:
+   4 requests (prompts 1024, 1024, then 512 and 2048, so one cohort
+   decodes stacked and one ragged), 8 new tokens each, failing unless the
+   gmm kernel (B7) launched on "wgmma" three times per layer per
+   ``prefill`` and per ``decode_step`` call of the engine, flash attention
+   (B5) on "wgmma" once per kimi-k2 prefill layer, and nothing else
+   (tokens/s, peak memory); the same traffic through ``ref`` in bf16
+   (greedy), and teacher-forced through the kernel path and through
+   ``ref`` in fp32 compute from the same bf16 weights, every routing
+   recorded: the gate of phase 6b on the logits rows whose token the three
+   runs route to the same experts at every layer (the rest counted and
+   printed, at least ``MOE_MIN_READ`` of the rows read), and a planted B7
+   fault (expert e computed with expert e+1's weights) that it must flag
+   on kimi-k2; prefill ms at 1024 tokens and a decode step at 2 slots
+   beside bounds that read every expert's weights once, one profile of
+   each; B7 on the inputs the path gave it (the gate and down projections
+   at C 32 / 56 and the gate at C 8) against its plain version, timed
+   beside ``torch.bmm`` in turns and beside the bytes bound; and ``python
+   -m repro_torch.launch.serve --arch deepseek-v2-236b`` (smoke config) on
+   the card as a subprocess, which must exit 0;
 7. run the phases' subprocesses (the launchers and examples that phases
-   4b, 5, 5b, 5c, 5d and 6b name), all at once after every timed reading,
-   each of which must exit 0 and print what its phase expects;
+   4b, 5, 5b, 5c, 5d, 6b and 6c name), all at once after every timed
+   reading, each of which must exit 0 and print what its phase expects;
 8. print the ``kernels`` JSON line, the card line and, last, the result.
 
 In the ``kernels`` line, ``ms`` is the mean time of back-to-back wrapper
@@ -187,9 +211,11 @@ its own routes each main case took, and ``main_cases`` gives every main
 case's numbers where a kernel has more than one.  ``launches`` counts the
 launches of the path that runs the kernel: the Simple CNAPs serving path
 for the episodic kernels, LM serving of minitron-4b (phase 6b) for flash
-attention, the ops phase for gmm and ssd_chunk (``ops_launches`` and
-``lm_serve_gemma2_launches`` give flash attention's other counts, and
-``lm_prefill_cases`` its numbers at the prefill shapes);
+attention, LM serving of kimi-k2 (phase 6c) for gmm, the ops phase for
+ssd_chunk (``ops_launches``, ``lm_serve_gemma2_launches``,
+``lm_serve_kimi_launches`` and ``lm_serve_deepseek_launches`` give the
+other counts, ``lm_prefill_cases`` flash attention's numbers at the
+prefill shapes and ``lm_moe_cases`` gmm's at phase 6c's);
 ``train_launches`` those of B1-B3 in the five training-loop steps of phase
 5 and of flash attention in the three steps of phase 5c
 (``lm_train_launches`` B1-B3's there; ``lm_train_cases`` flash
@@ -201,7 +227,8 @@ phases' under ``paths``, and every path's launches under ``launches``:
 device-sampler loop), ``algo1`` (the two per-task steps), ``fig4``,
 ``fomaml`` and ``finetuner`` (their serving runs), ``lm_train`` (phase
 5c's three steps), ``lm_pretrain`` (phase 5d's three steps), ``lm_serve`` and ``lm_serve_gemma2`` (phase 6b's
-counted engine runs).
+counted engine runs), ``lm_serve_kimi`` and ``lm_serve_deepseek`` (phase
+6c's).
 
 It imports no JAX.
 """
@@ -209,6 +236,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import itertools
 import json
 import math
 import os
@@ -3153,16 +3181,19 @@ def lm_requests(cfg, lengths, max_new: int, seed: int, hidden: int = 0):
 
 
 def lm_engine(cfg, params, backend: str, slots: int, max_seq: int, record=None,
-              forced=None):
+              forced=None, timeline=None):
     """A ``ServeEngine``; with ``record``, one whose sampler keeps every
     logits row it samples from (true vocab, under the request's uid) and,
     with ``forced``, emits the given tokens in place of its own (teacher
-    forcing), so two runs decode the same token streams."""
+    forcing), so two runs decode the same token streams; with ``timeline``,
+    it appends ("sample", uid) there at each sample."""
     from repro_torch.serve.engine import ServeEngine
 
     class Recorded(ServeEngine):
         def _sample(self, logits, req):
             record.setdefault(req.uid, []).append(logits[0, :cfg.vocab].float())
+            if timeline is not None:
+                timeline.append(("sample", req.uid))
             if forced is not None:
                 return [forced[req.uid][len(req.out_tokens)]]
             return super()._sample(logits, req)
@@ -3171,10 +3202,11 @@ def lm_engine(cfg, params, backend: str, slots: int, max_seq: int, record=None,
     return cls(cfg, params, n_slots=slots, max_seq=max_seq, kernel_backend=backend)
 
 
-def lm_errs(got, want):
+def lm_errs(got, want, skip=frozenset()):
     """(prefill, decode) error: the largest over requests of max|got - want|
     of a logits row over that row's max|want|; row 0 of a request is its
-    prefill's, the rest its decode steps'."""
+    prefill's, the rest its decode steps'.  Rows (uid, j) in ``skip`` are
+    not read."""
     pre, dec = 0.0, 0.0
     for uid, rows in want.items():
         if len(got[uid]) != len(rows):
@@ -3182,18 +3214,21 @@ def lm_errs(got, want):
         for j, (g, w) in enumerate(zip(got[uid], rows)):
             if not bool(g.isfinite().all()):
                 fail(f"request {uid}: non-finite logits at step {j}")
+            if (uid, j) in skip:
+                continue
             e = global_err(g, w)
             pre, dec = (max(pre, e), dec) if j == 0 else (pre, max(dec, e))
     return pre, dec
 
 
-def lm_gate(label: str, runs, fault: bool = False):
+def lm_gate(label: str, runs, fault: bool = False, skip=frozenset()):
     """Hold run ``got`` (the kernel path, or a planted fault's run) against
-    ``ref32`` at LM_GATE times the error of ``ref16``; returns the
-    readings.  A fault must fail the gate."""
-    e_ref = lm_errs(runs["ref16"], runs["ref32"])
-    e_got = lm_errs(runs["got"], runs["ref32"])
-    e_pair = lm_errs(runs["got"], runs["ref16"])
+    ``ref32`` at LM_GATE times the error of ``ref16``, on every logits row
+    but those in ``skip``; returns the readings.  A fault must fail the
+    gate."""
+    e_ref = lm_errs(runs["ref16"], runs["ref32"], skip)
+    e_got = lm_errs(runs["got"], runs["ref32"], skip)
+    e_pair = lm_errs(runs["got"], runs["ref16"], skip)
     limit = [LM_GATE * e for e in e_ref]
     passed = all(g <= lim for g, lim in zip(e_got, limit))
     print(f"  {label}: vs fp32 ref, prefill/decode logits err {e_got[0]:.3e}/{e_got[1]:.3e} "
@@ -3278,20 +3313,21 @@ def lm_bounds(cfg, s: int, b: int, k_len: int):
                      BF16_FLOPS))
 
 
-def trace_lm(fn, wall_ms: float, label: str, top: int = 8):
+def trace_lm(fn, wall_ms: float, label: str, top: int = 8, categories=LM_CATEGORIES,
+             kernel: str = "B5 flash_attention"):
     """One call of ``fn`` under torch.profiler: device busy time by kind of
-    kernel, B5's share of it, the idle share against ``wall_ms`` (the
-    unprofiled call), and the top kernels."""
-    b5 = lambda cats: cats.get("B5 flash_attention", {}).get("device_ms", 0.0)
+    kernel (``categories``), ``kernel``'s share of it, the idle share
+    against ``wall_ms`` (the unprofiled call), and the top kernels."""
+    kern = lambda cats: cats.get(kernel, {}).get("device_ms", 0.0)
     busy, cats, table = device_breakdown(
-        fn, LM_CATEGORIES,
+        fn, categories,
         lambda busy, cats: f"  trace {label}: device busy {busy:.3f} ms of an unprofiled "
-                           f"{wall_ms:.3f} ms (idle share {1 - busy / wall_ms:.3f}); B5 "
-                           f"{b5(cats):.3f} ms = {100 * b5(cats) / max(busy, 1e-9):.1f} % "
-                           f"of busy", top)
-    return dict(busy_ms=busy, wall_ms=wall_ms, idle_share=1 - busy / wall_ms,
-                b5_ms=b5(cats), b5_share=b5(cats) / max(busy, 1e-9), categories=cats,
-                top=table[:20])
+                           f"{wall_ms:.3f} ms (idle share {1 - busy / wall_ms:.3f}); "
+                           f"{kernel.split()[0]} {kern(cats):.3f} ms = "
+                           f"{100 * kern(cats) / max(busy, 1e-9):.1f} % of busy", top)
+    return dict(busy_ms=busy, wall_ms=wall_ms, idle_share=1 - busy / wall_ms, kernel=kernel,
+                kernel_ms=kern(cats), kernel_share=kern(cats) / max(busy, 1e-9),
+                categories=cats, top=table[:20])
 
 
 def lm_timings(cfg, params16, dev):
@@ -3452,12 +3488,12 @@ def run_lm_serve(dev, launches):
     return out
 
 
-def run_lm_serve_launcher():
-    """``python -m repro_torch.launch.serve`` (LM, smoke config) on the card
-    as a subprocess, which must exit 0 and print its tokens/s line on
-    ``device=cuda``."""
+def run_lm_serve_launcher(extra=()):
+    """``python -m repro_torch.launch.serve`` (LM, smoke config; ``extra``
+    arguments, such as another ``--arch``) on the card as a subprocess,
+    which must exit 0 and print its tokens/s line on ``device=cuda``."""
     cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--requests", "4", "--slots",
-           "2", "--max-new", "8"]
+           "2", "--max-new", "8", *extra]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
                           env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
@@ -3469,6 +3505,424 @@ def run_lm_serve_launcher():
         fail(f"the LM serving launcher failed (exit {proc.returncode}):\n"
              f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
     return dict(cmd=cmd[1:], exit=proc.returncode, seconds=secs, line=line)
+
+
+# ---------------------------------------------------------------------------
+# phase 6c: LM decode serving of the MoE and MLA transformers
+# ---------------------------------------------------------------------------
+
+# (arch, layers kept): full published width, depth cut to fit one card
+# (kimi-k2: 33.8 GB of bf16 experts a layer) and the run's time
+MOE_MODELS = (("kimi-k2-1t-a32b", 1), ("deepseek-v2-236b", 2))
+MOE_SLOTS = 2
+MOE_MAX_NEW = 8
+# wave 1: two prompts of one length decode as one stacked cohort; wave 2:
+# ragged lengths, which decode slot by slot
+MOE_PROMPTS = (1024, 1024, 512, 2048)
+MOE_PREFILL = 1024
+MOE_DECODE_POS = 1024
+# the gate reads at least this share of the logits rows: the rest are rows
+# whose token the three runs route to different experts (see moe_gate)
+MOE_MIN_READ = 0.5
+MOE_CATEGORIES = (("B7 gmm", ("gmm",)),) + LM_CATEGORIES
+
+
+def moe_model(arch: str, layers: int, dev):
+    """The config at full width and ``layers`` layers, and its params drawn
+    on the card from seed 0, every leaf in the config's bf16 param dtype as
+    it is drawn (the fp32 draws of one kimi-k2 layer's experts alone would
+    not fit)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as TT
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    params = TT.init_transformer(torch.Generator(device=dev).manual_seed(0), cfg,
+                                 at_param_dtype=True)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    return cfg, params
+
+
+def counting(engine, calls: dict):
+    """``engine`` with its model API's ``prefill`` and ``decode_step``
+    counted into ``calls``."""
+    import dataclasses
+    api = engine.api
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **kw)
+        return call
+
+    engine.api = dataclasses.replace(api, prefill=counted("prefill", api.prefill),
+                                     decode_step=counted("decode_step", api.decode_step))
+    return engine
+
+
+def moe_reqs(cfg):
+    return lm_requests(cfg, MOE_PROMPTS, MOE_MAX_NEW, seed=0)
+
+
+def moe_counted(cfg, params, dev):
+    """One engine run on the kernels with the launch counts set to 0 just
+    before and read just after, the engine's model calls counted: B7 must
+    have launched on "wgmma" three times per layer per ``prefill`` and per
+    ``decode_step`` call, B5 on "wgmma" once per GQA prefill layer, and
+    nothing else.  Returns (requests, counts, calls, wall s, peak B)."""
+    import torch
+    from repro_torch.kernels import _build
+    calls = {}
+    eng = counting(lm_engine(cfg, params, "cuda", MOE_SLOTS,
+                             max(MOE_PROMPTS) + MOE_MAX_NEW + 8), calls)
+    reqs = moe_reqs(cfg)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.launches.reset()
+    t0 = time.perf_counter()
+    eng.run_to_completion(reqs)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    counts = _build.launches.snapshot()
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_gmm = 3 * cfg.n_layers * (calls.get("prefill", 0) + calls.get("decode_step", 0))
+    want = {"gmm": n_gmm, "gmm/wgmma": n_gmm}
+    if cfg.attention.kind == "gqa":
+        n_fa = cfg.n_layers * calls.get("prefill", 0)
+        want |= {"flash_attention": n_fa, "flash_attention/wgmma": n_fa}
+    if counts != want or calls.get("prefill") != len(MOE_PROMPTS):
+        fail(f"{cfg.name}: launches {counts} over engine calls {calls}; want {want}")
+    for r in reqs:
+        if not r.done or len(r.out_tokens) != r.max_new_tokens or \
+                not all(0 <= t < cfg.vocab for t in r.out_tokens):
+            fail(f"{cfg.name} request {r.uid}: done={r.done}, tokens {r.out_tokens}")
+    return reqs, counts, calls, wall, peak
+
+
+@contextlib.contextmanager
+def recording_routes(timeline: list):
+    """Append ("route", expert ids (T, k)) to ``timeline`` at every call of
+    the MoE router, in call order."""
+    from repro_torch.models import moe as M
+    orig = M.router_probs
+
+    def router(p, x, cfg):
+        out = orig(p, x, cfg)
+        timeline.append(("route", out[1]))
+        return out
+
+    M.router_probs = router
+    try:
+        yield
+    finally:
+        M.router_probs = orig
+
+
+def kept_experts(ids, cfg):
+    """(T, k) expert ids -> (T, k) on the host: each token's experts that
+    keep it within capacity (the stable sort of ``moe_ffn``), sorted, -1
+    where a slot was dropped."""
+    import torch
+    from repro_torch.models import moe as M
+    t, k = ids.shape
+    flat = ids.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    counts = torch.bincount(flat, minlength=cfg.moe.n_experts)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.empty_like(flat)
+    rank[order] = torch.arange(t * k, device=ids.device) - starts[flat[order]]
+    keep = (rank < M.capacity(t, cfg.moe)).reshape(t, k)
+    return torch.where(keep, ids, -1).sort(dim=1).values.cpu()
+
+
+def routings(timeline: list, cfg):
+    """The timeline of one engine run -> (per route call, the kept experts of
+    each token; per sampled logits row (uid, j) in sample order, the index
+    of its token in each of the calls that made it).  A call's tokens are
+    sampled from in order, one row each (decode), or only its last token
+    (a prefill)."""
+    calls, rows, seen, i = [], [], {}, 0
+    while i < len(timeline):
+        group = []
+        while i < len(timeline) and timeline[i][0] == "route":
+            group.append(len(calls))
+            calls.append(kept_experts(timeline[i][1], cfg))
+            i += 1
+        uids = []
+        while i < len(timeline) and timeline[i][0] == "sample":
+            uids.append(timeline[i][1])
+            i += 1
+        t = calls[group[0]].shape[0]
+        for n, uid in enumerate(uids):
+            j = seen.get(uid, 0)
+            seen[uid] = j + 1
+            rows.append(((uid, j), [(c, n if len(uids) == t else t - 1) for c in group]))
+    return calls, rows
+
+
+def moe_runs(cfg, params, fault=None):
+    """The traffic through recorded engines with every routing recorded:
+    ``ref`` in bf16 (greedy; its tokens are forced on the others), the
+    kernel path, ``ref`` in fp32 compute from the same bf16 weights (the
+    fp32 masters do not fit: ``compute_params`` does not widen them, each
+    layer casts its weight to fp32 at the call) and, given ``fault``, the
+    kernel path with it.  Returns the logits runs, the routing runs and
+    each run's peak memory."""
+    import dataclasses
+    import torch
+    max_seq = max(MOE_PROMPTS) + MOE_MAX_NEW + 8
+    runs, routes, peaks = {}, {}, {}
+    forced = None
+    plan = [("ref16", cfg, "ref", None), ("got", cfg, "cuda", None),
+            ("ref32", dataclasses.replace(cfg, compute_dtype="float32"), "ref", None)]
+    if fault is not None:
+        plan.append(("fault", cfg, "cuda", fault))
+    for name, c, backend, ctx in plan:
+        runs[name], timeline = {}, []
+        reqs = moe_reqs(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        with recording_routes(timeline), (ctx() if ctx else contextlib.nullcontext()):
+            lm_engine(c, params, backend, MOE_SLOTS, max_seq, record=runs[name],
+                      forced=forced, timeline=timeline).run_to_completion(reqs)
+        peaks[name] = torch.cuda.max_memory_allocated()
+        routes[name] = routings(timeline, cfg)
+        if forced is None:
+            forced = {r.uid: r.out_tokens for r in reqs}
+        mark(f"6c: {cfg.name} {name} run done (peak memory {peaks[name]} B)")
+    return runs, routes, peaks
+
+
+def route_disagreements(routes, names=("ref16", "got", "ref32")):
+    """(the (token, layer) routings on which each pair of runs disagrees,
+    out of how many; the logits rows whose token any two of ``names`` route
+    differently at some layer)."""
+    import torch
+    calls = {n: routes[n][0] for n in names}
+    if len({len(c) for c in calls.values()}) != 1:
+        fail(f"the runs made different numbers of router calls: "
+             f"{ {n: len(c) for n, c in calls.items()} }")
+    total = sum(c.shape[0] for c in calls[names[0]])
+    differ = {f"{a}/{b}": sum(int((x != y).any(dim=1).sum())
+                              for x, y in zip(calls[a], calls[b]))
+              for a, b in itertools.combinations(names, 2)}
+    skip = set()
+    for row, where in routes[names[0]][1]:
+        for c, t in where:
+            if any(not torch.equal(calls[n][c][t], calls[names[0]][c][t]) for n in names):
+                skip.add(row)
+    return dict(tokens_x_layers=total, differ=differ), frozenset(skip)
+
+
+def moe_gate(cfg, runs, routes, fault: bool):
+    """Phase 6b's gate on the logits rows whose token all three runs route
+    alike at every layer.  A near-tied k-th expert can flip between bf16
+    and fp32 roundings; a flipped expert moves that token's output by a
+    whole expert's share, so such a row is not a reading of rounding and
+    is left out, counted and printed.  (An earlier token's flip reaches a
+    later one only through deepseek-v2's second layer's attention, diluted
+    over the prompt.)  The gate fails if it reads under MOE_MIN_READ of
+    the rows, or no prefill row."""
+    disagree, skip = route_disagreements(routes)
+    n_rows = sum(len(r) for r in runs["ref32"].values())
+    read = n_rows - len(skip)
+    print(f"  {cfg.name} routings: {disagree['tokens_x_layers']} (token, layer) pairs; "
+          f"runs disagree on {disagree['differ']}; the gate reads {read} of {n_rows} logits "
+          f"rows (left out: {sorted(skip)})", flush=True)
+    if read < MOE_MIN_READ * n_rows or all((uid, 0) in skip for uid in runs["ref32"]):
+        fail(f"{cfg.name}: the gate reads {read} of {n_rows} rows")
+    out = dict(routings=disagree, rows=n_rows, rows_read=read, rows_left_out=sorted(skip),
+               gate=lm_gate(f"{cfg.name} kernel path", runs, skip=skip))
+    if fault:
+        f_dis, _ = route_disagreements(routes, ("got", "fault"))
+        out["planted_fault"] = lm_gate(
+            f"{cfg.name} planted fault: B7 reads expert e+1's weights for expert e",
+            {**runs, "got": runs["fault"]}, fault=True, skip=skip)
+        out["planted_fault"]["routings"] = f_dis
+    return out
+
+
+@contextlib.contextmanager
+def gmm_replaced(make):
+    """The gmm wrapper that ``moe_ffn`` calls (through ``dispatch.gmm``)
+    replaced by ``make(wrapper)`` for the scope."""
+    from repro_torch.kernels import gmm as gm
+    orig = gm.gmm
+    gm.gmm = make(orig)
+    try:
+        yield
+    finally:
+        gm.gmm = orig
+
+
+def gmm_expert_shifted():
+    """The planted B7 fault: expert e multiplied by expert e+1's weights
+    (the last expert by its own), two launches of the kernel a call."""
+    import torch
+    return gmm_replaced(lambda gmm: lambda x, w: torch.cat([gmm(x[:-1], w[1:]),
+                                                           gmm(x[-1:], w[-1:])]))
+
+
+def captured_gmm(store: list):
+    """Append (x, w) of every gmm call to ``store``."""
+    return gmm_replaced(lambda gmm: lambda x, w: (store.append((x, w)), gmm(x, w))[1])
+
+
+def moe_bounds(cfg, s: int, b: int, k_len: int):
+    """(prefill bound ms, by; decode bound ms, by).  The bytes: every bf16
+    weight read once, every expert's included (the capacity buffer runs
+    each expert, tokens or none), the LM head once (the embedding's rows
+    are a gather), and for decode the cache's k_len positions of b slots.
+    The FLOPs, at the bf16 tensor-core peak, count what the tokens need:
+    the attention projections, causal attention's pairs, k experts and the
+    shared ones a token, the router, the last token's (decode: each
+    token's) LM head."""
+    a, m = cfg.attention, cfg.moe
+    if a.kind == "mla":
+        qk, h = a.qk_nope_dim + a.qk_rope_dim, a.n_heads
+        attn = (cfg.d_model * a.q_lora_rank + a.q_lora_rank * h * qk
+                + cfg.d_model * (a.kv_lora_rank + a.qk_rope_dim)
+                + a.kv_lora_rank * h * (a.qk_nope_dim + a.v_head_dim)
+                + h * a.v_head_dim * cfg.d_model)
+        pair_flops = 2.0 * h * (qk + a.v_head_dim)
+        cache_row = a.kv_lora_rank + a.qk_rope_dim
+    else:
+        attn = cfg.d_model * (a.n_heads + 2 * a.n_kv_heads) * a.head_dim \
+            + a.n_heads * a.head_dim * cfg.d_model
+        pair_flops = 4.0 * a.n_heads * a.head_dim
+        cache_row = 2 * a.n_kv_heads * a.head_dim
+    experts = 3 * m.n_experts * cfg.d_model * m.d_ff
+    active = 3 * (m.top_k + m.n_shared) * cfg.d_model * m.d_ff + cfg.d_model * m.n_experts
+    shared = 3 * m.n_shared * cfg.d_model * m.d_ff
+    head = cfg.vocab_padded * cfg.d_model
+    weights = 2.0 * (cfg.n_layers * (attn + experts + shared + cfg.d_model * m.n_experts)
+                     + head)
+    per_token = 2.0 * cfg.n_layers * (attn + active)
+    prefill = bound_ms(weights, per_token * s + 2.0 * head
+                       + cfg.n_layers * pair_flops * attn_pairs(s, True, None), BF16_FLOPS)
+    cache = 2.0 * b * k_len * cfg.n_layers * cache_row
+    decode = bound_ms(weights + cache, b * (per_token + 2.0 * head
+                                            + cfg.n_layers * pair_flops * k_len), BF16_FLOPS)
+    return prefill, decode
+
+
+def moe_timings(cfg, params, dev):
+    """Prefill ms at MOE_PREFILL tokens, a decode step at MOE_SLOTS slots
+    (position MOE_DECODE_POS), each beside its bound, one profile of each;
+    and the gmm inputs of both calls' first layer, for the kernel check."""
+    import torch
+    from repro_torch.models import transformer as TT
+    g = torch.Generator(device=dev).manual_seed(2)
+    batch = dict(tokens=torch.randint(0, cfg.vocab, (1, MOE_PREFILL), generator=g, device=dev))
+    cache = TT.init_cache(cfg, MOE_SLOTS, MOE_DECODE_POS + 8, dev)
+    cache["len"] = MOE_DECODE_POS
+    toks = torch.randint(0, cfg.vocab, (MOE_SLOTS, 1), generator=g, device=dev)
+    prefill = lambda: TT.prefill(params, batch, cfg, backend="cuda")
+    decode = lambda: TT.decode_step(params, cache, toks, cfg, backend="cuda")
+    (p_bound, p_by), (d_bound, d_by) = moe_bounds(cfg, MOE_PREFILL, MOE_SLOTS,
+                                                  MOE_DECODE_POS + 1)
+    p_ms = time_ms(prefill, iters=3, reps=3)
+    d_ms = time_ms(decode, iters=5, reps=3)
+    out = dict(prefill=dict(s=MOE_PREFILL, ms=p_ms, bound_ms=p_bound, bound_by=p_by,
+                            tokens_per_s=MOE_PREFILL * 1e3 / p_ms),
+               decode=dict(slots=MOE_SLOTS, pos=MOE_DECODE_POS, ms=d_ms, bound_ms=d_bound,
+                           bound_by=d_by, tokens_per_s=MOE_SLOTS * 1e3 / d_ms))
+    print(f"  {cfg.name} prefill S{MOE_PREFILL}: {p_ms:.3f} ms (bound {p_bound:.3f} ms, "
+          f"{p_by}); decode step at {MOE_SLOTS} slots, position {MOE_DECODE_POS}: {d_ms:.3f} "
+          f"ms, {MOE_SLOTS * 1e3 / d_ms:.1f} tokens/s (bound {d_bound:.3f} ms, {d_by})",
+          flush=True)
+    out["trace_prefill"] = trace_lm(prefill, p_ms, f"{cfg.name} prefill S{MOE_PREFILL}",
+                                    categories=MOE_CATEGORIES, kernel="B7 gmm")
+    out["trace_decode"] = trace_lm(decode, d_ms, f"{cfg.name} decode at {MOE_SLOTS} slots",
+                                   categories=MOE_CATEGORIES, kernel="B7 gmm")
+    inputs = []
+    with captured_gmm(inputs):
+        prefill()
+        n = len(inputs)
+        decode()
+    torch.cuda.synchronize(dev)
+    # the first layer's gate and down projections of each call
+    return out, dict(prefill_gate=inputs[0], prefill_down=inputs[2], decode_gate=inputs[n])
+
+
+def moe_gmm_cases(name, inputs):
+    """B7 at the path's shapes, the inputs the path gave it (weights are the
+    model's), as :func:`check_kernels` takes them: against its plain
+    version, timed beside ``torch.bmm`` in turns and beside the bytes
+    bound."""
+    import torch
+    from repro_torch.kernels import gmm as gm
+    from repro_torch.kernels import ops
+    cases = []
+    for label, (x, w) in inputs.items():
+        e, c, d = x.shape
+        f = w.shape[2]
+        cases.append(dict(
+            label=f"{name} {label} E{e} C{c} D{d} F{f}", fn=ops.gmm, plain=gm.gmm_plain,
+            lib=torch.bmm, route=gm.gmm_route(x, w), args=(x, w),
+            tol=OPS_TOL["gmm"]["bfloat16"], main=True, iters=(3, 3),
+            bytes=x.element_size() * (e * c * d + e * d * f + e * c * f),
+            flops=2.0 * e * c * d * f, peak=BF16_FLOPS))
+    return cases
+
+
+def run_moe_serve(dev, launches):
+    """Phase 6c: LM decode serving of kimi-k2 (GQA + MoE, one layer) and
+    deepseek-v2 (MLA + MoE, two layers) at full width on random bf16
+    weights drawn on the card, through ``ServeEngine`` at MOE_SLOTS slots."""
+    import torch
+    t_phase = time.perf_counter()
+    out = dict(kind="lm_serve_moe")
+    for arch, layers in MOE_MODELS:
+        cfg, params = moe_model(arch, layers, dev)
+        key = arch.split("-")[0]
+        resident = torch.cuda.memory_allocated(dev)
+        mark(f"6c: {cfg.name} drawn ({layers} layer(s), {resident} B resident)")
+        for backend in ("cuda", "ref"):     # cuBLAS handles, allocator
+            lm_engine(cfg, params, backend, 1, 80).run_to_completion(
+                lm_requests(cfg, (64,), 2, seed=1))
+        reqs, counts, calls, wall, peak = moe_counted(cfg, params, dev)
+        launches[f"lm_serve_{key}"] = counts
+        n_tok = sum(len(r.out_tokens) for r in reqs)
+        print(f"path lm_serve_{key}: {cfg.name} ({layers} of its layers, d_model "
+              f"{cfg.d_model}, {cfg.moe.n_experts} experts top-{cfg.moe.top_k}, "
+              f"{cfg.attention.kind}), prompts {MOE_PROMPTS}, {n_tok} tokens in {wall:.3f} s "
+              f"on {MOE_SLOTS} slots: {n_tok / wall:.1f} tokens/s; engine calls {calls}; "
+              f"launches {counts}; peak memory {peak} B ({resident} B resident)", flush=True)
+        mark(f"6c: {cfg.name} counted run done")
+        runs, routes, run_peaks = moe_runs(cfg, params,
+                                           fault=gmm_expert_shifted if key == "kimi" else None)
+        gate = moe_gate(cfg, runs, routes, fault=key == "kimi")
+        del runs, routes
+        torch.cuda.empty_cache()
+        timings, inputs = moe_timings(cfg, params, dev)
+        mark(f"6c: {cfg.name} gate and timings done")
+        spec = [dict(name="gmm", source="src/repro_torch/kernels/csrc/gmm.cu",
+                     replaces="src/repro/kernels/gmm.py:37", symbol="gmm_wgmma_kernel",
+                     cases=moe_gmm_cases(key, inputs))]
+        row = check_kernels(spec)["gmm"]
+        if any(t["route"] != "wgmma" for t in row["cases"]):
+            fail(f"{cfg.name}: B7 at the path's shapes took routes {row['routes']}")
+        out[key] = dict(layers=layers, requests=len(reqs), tokens=n_tok, seconds=wall,
+                        tokens_per_s=n_tok / wall, peak_bytes=peak, resident_bytes=resident,
+                        launches=counts, engine_calls=calls, kernel=row, run_peaks=run_peaks,
+                        **gate, **timings)
+        mark(f"6c: {cfg.name} done")
+        del params, inputs, spec, row
+        torch.cuda.empty_cache()
+    out["gmm_cases"] = [c for k in ("kimi", "deepseek") for c in out[k]["kernel"]["cases"]]
+    out["gmm_max_abs_err"] = max(out[k]["kernel"]["max_abs_err"] for k in ("kimi", "deepseek"))
+    defer(out, "launcher", run_moe_serve_launcher)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 6c: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def run_moe_serve_launcher():
+    """``python -m repro_torch.launch.serve --arch deepseek-v2-236b`` (its
+    smoke config: MLA and MoE) on the card as a subprocess, which must exit
+    0 and print its tokens/s line on ``device=cuda``."""
+    return run_lm_serve_launcher(["--arch", "deepseek-v2-236b"])
 
 
 def main() -> int:
@@ -3524,14 +3978,20 @@ def main() -> int:
     mark("phase 6 done")
     summary.append(run_lm_serve(dev, launches))
     mark("phase 6b done")
+    moe_serve = run_moe_serve(dev, launches)
+    summary.append(moe_serve)
+    mark("phase 6c done")
     run_deferred()
     mark("subprocesses done")
     # each kernel counted on the path that runs it: flash attention on LM
-    # serving's prefills, gmm and ssd_chunk on the ops path
+    # serving's prefills, gmm on MoE serving's expert projections (kimi-k2),
+    # ssd_chunk on the ops path
     path_of = {n: "simple_cnaps" for n in rows} | {n: "ops" for n in ops_rows} \
-        | {"flash_attention": "lm_serve"}
+        | {"flash_attention": "lm_serve", "gmm": "lm_serve_kimi"}
     rows |= ops_rows
-    prefill_row = summary[-1]["prefill_kernel"]
+    prefill_row = summary[-2]["prefill_kernel"]
+    rows["gmm"]["lm_moe_cases"] = moe_serve["gmm_cases"]
+    rows["gmm"]["max_abs_err"] = max(rows["gmm"]["max_abs_err"], moe_serve["gmm_max_abs_err"])
     rows["flash_attention"]["lm_prefill_cases"] = prefill_row["cases"]
     rows["flash_attention"]["lm_train_cases"] = lm_train["kernel_cases"]
     rows["flash_attention"]["lm_pretrain_cases"] = lm_pretrain["kernel_cases"]
@@ -3562,7 +4022,8 @@ def main() -> int:
         | ({"train_launches": launches[train_path[n]][n]} if n in train_path else {})
         | ({"lm_train_launches": launches["lm_train"][n]}
            if n in launches["lm_train"] and train_path.get(n) != "lm_train" else {})
-        | ({f"{p}_launches": launches[p][n] for p in ("ops", "lm_serve_gemma2", "lm_pretrain")
+        | ({f"{p}_launches": launches[p][n] for p in ("ops", "lm_serve_gemma2", "lm_pretrain",
+                                                       "lm_serve_kimi", "lm_serve_deepseek")
             if p != path_of[n] and n in launches[p]})
         | {k: rows[n][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                    "bound_by", "library_ms", "library_device_ms",
@@ -3570,7 +4031,7 @@ def main() -> int:
         | ({"main_cases": [{k: t[k] for k in case_keys} for t in rows[n]["cases"]]}
            if len(rows[n]["cases"]) > 1 else {})
         | ({f"lm_{c}_cases": [{k: t[k] for k in case_keys} for t in rows[n][f"lm_{c}_cases"]]
-            for c in ("prefill", "train", "pretrain") if f"lm_{c}_cases" in rows[n]})
+            for c in ("prefill", "train", "pretrain", "moe") if f"lm_{c}_cases" in rows[n]})
         for n in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

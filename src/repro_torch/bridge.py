@@ -17,11 +17,14 @@ checkpoints store.  With the same weights both packages compute the same
 function.
 
 The LM transformers have no conv weight: ``lm_params_from_numpy`` carries
-a JAX transformer's params (stacked layers, leading L axis) across as they
-are, ``lm_state_from_numpy`` / ``lm_state_to_numpy`` an LM train state
-``dict(params, opt)`` (AdamW ``mu`` and ``nu`` in fp32, bf16 or int8
-``{q, scale, n}``, and ``count``) both ways, and ``lm_cache_from_numpy`` its KV cache (``k``, ``v`` (L, B, S, H,
-D); ``len`` a Python int in the port).  A meta-learner over an LM backbone
+a JAX transformer's params (stacked layers, leading L axis; an MoE layer's
+router, (L, E, D, F) experts and nested ``shared`` dict; MLA's latent
+projections and norms) across as they are, ``lm_state_from_numpy`` /
+``lm_state_to_numpy`` an LM train state ``dict(params, opt)`` (AdamW
+``mu`` and ``nu`` in fp32, bf16 or int8 ``{q, scale, n}``, and ``count``)
+both ways, and ``lm_cache_from_numpy`` its cache (``k``, ``v`` (L, B, S,
+H, D), or MLA's latent ``ckv`` (L, B, S, R) and ``krope`` (L, B, S,
+rope); ``len`` a Python int in the port).  A meta-learner over an LM backbone
 crosses with ``learner_params_from_numpy`` (and back with
 ``learner_params_to_numpy``): its ``bb`` subtree as an LM tree, the rest
 (set encoder, FiLM generator, head generator) as above.  The path decides,
@@ -152,7 +155,8 @@ def lm_state_to_numpy(state: Any) -> Any:
 
 
 def lm_cache_from_numpy(cache: Any, device="cuda") -> Any:
-    """A JAX transformer's numpy KV cache -> the port's on ``device``."""
+    """A JAX transformer's numpy cache (GQA's k and v, or MLA's ckv and
+    krope) -> the port's on ``device``."""
     return {k: int(np.asarray(v)) if k == "len" else _from_np(v, device)
             for k, v in cache.items()}
 

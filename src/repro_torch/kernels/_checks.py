@@ -16,7 +16,7 @@ def require(cond: bool, msg: Union[str, Callable[[], str]]) -> None:
         raise ValueError(msg() if callable(msg) else msg)
 
 
-def require_no_grad(name: str, *ts: torch.Tensor) -> None:
+def require_no_grad(name: str, *ts: torch.Tensor, missing: str = "") -> None:
     """Raise when grad mode is on and a tensor that requires grad reaches a
     kernel.  A kernel writes its result into a fresh ``torch.empty``
     through a foreign call, so autograd sees no ``grad_fn`` and would drop
@@ -24,13 +24,15 @@ def require_no_grad(name: str, *ts: torch.Tensor) -> None:
     differentiable ops reach their kernels inside a
     ``torch.autograd.Function`` (:mod:`repro_torch.kernels.dispatch`),
     whose forward runs with grad mode off; every other caller must detach
-    or run under ``torch.no_grad``."""
+    or run under ``torch.no_grad``.  ``missing`` names the ROADMAP item
+    that gives a kernel without a Function its Function."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise RuntimeError(
             f"{name}: a tensor that requires grad reached the CUDA kernel "
             f"outside its autograd.Function; the kernel's output has no "
             f"grad_fn, so the gradient would be lost (call the op through "
-            f"repro_torch.kernels.dispatch, or detach)")
+            f"repro_torch.kernels.dispatch, or detach)"
+            + (f"; {name} has no autograd.Function yet: ROADMAP {missing}" if missing else ""))
 
 
 def check_tensor(name: str, t: torch.Tensor, ndim: int,

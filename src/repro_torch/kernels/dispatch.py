@@ -2,8 +2,8 @@
 
 Every support-set aggregation the meta-learners run (per-class feature
 sums, the Simple CNAPs raw second moment, the Mahalanobis head), the
-quantized head matmul and the LM trunk's causal self-attention go through
-the ops here.  Each op picks an implementation per *backend*:
+quantized head matmul, the LM trunk's causal self-attention and the MoE
+layer's grouped expert matmuls go through the ops here.  Each op picks an implementation per *backend*:
 
   ``naive``  the literal composite (per-example expansion, then a reduce);
              for the second moment it forms the per-example (B, F, F)
@@ -34,7 +34,9 @@ it is the VJP of the transcription the JAX trunk differentiates
 and v.  A kernel wrapper refuses a tensor that requires grad anywhere else
 (:func:`repro_torch.kernels._checks.require_no_grad`), so a path that
 forgets its Function fails instead of training a frozen model.
-``int8_matmul`` is forward only by contract.
+``int8_matmul`` is forward only by contract.  ``gmm`` is forward only
+until B7 has its Function (ROADMAP A14b part 2): on ``cuda`` it refuses
+an operand that requires grad.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import gmm as _gm
 from repro_torch.kernels import int8_matmul as _im
 from repro_torch.kernels import mahalanobis as _md
 from repro_torch.kernels import segment_pool as _sp
@@ -346,3 +349,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window is not None and window >= q.shape[1]:
         window = None
     return _FlashAttention.apply(q, k, v, window, softcap)
+
+
+# ===========================================================================
+# gmm: the MoE layer's grouped expert matmul, out[e] = x[e] @ w[e]
+# ===========================================================================
+
+GMM_AUTOGRAD_ITEM = "A14b part 2 (B7's autograd Function)"
+
+
+def gmm(x: torch.Tensor, w: torch.Tensor, backend: Optional[str] = None) -> torch.Tensor:
+    """x: (E, C, D); w: (E, D, F) -> (E, C, F) in x's dtype.
+
+    ``naive``/``ref``: the reference's einsum in the activations' dtype
+    (``w`` cast to it).  ``cuda``: the gmm kernel (B7; on a CPU tensor its
+    plain version), forward only: with grad enabled, an operand that
+    requires grad raises, naming the item that gives B7 its Function,
+    whatever the device, and nothing falls back to the einsum."""
+    b = resolve_backend(backend, x.device)
+    if b in ("naive", "ref"):
+        return torch.einsum("ecd,edf->ecf", x, w.to(x.dtype))
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise NotImplementedError(
+            f"gmm: training through the MoE layer on the cuda backend needs "
+            f"ROADMAP {GMM_AUTOGRAD_ITEM}; its kernel is forward only")
+    return _gm.gmm(x.contiguous(), w.to(x.dtype).contiguous())

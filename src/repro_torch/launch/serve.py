@@ -3,15 +3,17 @@ and episodic personalization (``--episodic``).
 
 LM token decode, continuous batching over the KV-cache API
 (:class:`repro_torch.serve.engine.ServeEngine`), on the smoke config of
-``--arch`` (a dense GQA transformer; the other families are not ported)
-with random weights from ``--seed``:
+``--arch`` (a transformer: dense GQA, or MoE / MLA as kimi-k2-1t-a32b and
+deepseek-v2-236b; the other families are not ported) with random weights
+from ``--seed``:
 
     python -m repro_torch.launch.serve --arch minitron-4b --requests 8 \
         --slots 4 --max-new 16
 
 Prompts are ``--prompt-len`` tokens drawn from numpy's generator seeded
-with 0, as the JAX launcher draws them.  On a card every prefill layer runs
-the flash attention kernel (``--kernel-backend auto``).
+with 0, as the JAX launcher draws them.  On a card every GQA prefill layer
+runs the flash attention kernel and every MoE expert projection, in
+prefill and decode, the gmm kernel (``--kernel-backend auto``).
 
 Episodic serving:
 

@@ -210,7 +210,8 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, default="minitron-4b",
-                    help="LM to train (the dense transformers are ported)")
+                    help="LM to train (the transformers are ported; an MoE one "
+                         "trains on the CPU only until ROADMAP A14b part 2)")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--batch", type=int, default=8)

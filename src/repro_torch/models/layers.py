@@ -1,6 +1,6 @@
-"""Transformer building blocks of the dense GQA models: the port of the JAX
-package's ``repro/models/layers.py`` (its GQA half; the MLA functions come
-with the MoE / MLA slice, ROADMAP A14b).
+"""Transformer building blocks: the port of the JAX package's
+``repro/models/layers.py`` (GQA and MLA attention, the gated MLP, embed and
+unembed).
 
 Layouts are the JAX package's: a weight is (d_in, d_out) and is used as
 ``x @ w``; activations are (B, S, D); q is (B, S, Hq, Dh), k and v are
@@ -21,6 +21,12 @@ CPU.  The two differ by where P is rounded: the transcription rounds the
 normalised probabilities to v's dtype before the PV product, as the JAX
 package does, while the kernel rounds the un-normalised P in registers
 (and its plain version does not round P at all).
+
+MLA (DeepSeek-V2) prefill stays on the transcription whatever the backend,
+as in the reference: its q and k are nope + rope = 192 wide and its v 128,
+which the flash attention kernel does not take (one head dim for q, k and
+v).  Its absorbed decode is plain einsums against the latent cache, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -182,6 +188,104 @@ def gqa_attention(p: Params, x: torch.Tensor, a: AttentionConfig, *,
     b, s, _ = x.shape
     q, k, v = gqa_project_qkv(p, x, a, torch.arange(s, device=x.device))
     o = causal_attention(q, k, v, window=window, cap=a.attn_softcap, backend=backend)
+    return o.reshape(b, s, -1) @ p["wo"].to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# MLA attention layer (DeepSeek-V2): low-rank latent KV cache
+# --------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, device=None, lead=()) -> Params:
+    a = cfg.attention
+    d, h = cfg.d_model, a.n_heads
+    qk = a.qk_nope_dim + a.qk_rope_dim
+    r = a.kv_lora_rank
+    dev = init_device(gen, device)
+    p = dict(
+        wkv_a=lecun_normal(gen, (*lead, d, r + a.qk_rope_dim), d, dev),
+        kv_norm=torch.zeros((*lead, r), device=dev),
+        wk_b=lecun_normal(gen, (*lead, r, h * a.qk_nope_dim), r, dev),
+        wv_b=lecun_normal(gen, (*lead, r, h * a.v_head_dim), r, dev),
+        wo=lecun_normal(gen, (*lead, h * a.v_head_dim, d), h * a.v_head_dim, dev),
+    )
+    if a.q_lora_rank > 0:
+        p["wq_a"] = lecun_normal(gen, (*lead, d, a.q_lora_rank), d, dev)
+        p["q_norm"] = torch.zeros((*lead, a.q_lora_rank), device=dev)
+        p["wq_b"] = lecun_normal(gen, (*lead, a.q_lora_rank, h * qk), a.q_lora_rank, dev)
+    else:
+        p["wq"] = lecun_normal(gen, (*lead, d, h * qk), d, dev)
+    return p
+
+
+def mla_queries(p: Params, x: torch.Tensor, a: AttentionConfig, eps: float,
+                positions: torch.Tensor):
+    """Returns (q_nope (B, S, H, nope), q_rope (B, S, H, rope))."""
+    b, s, _ = x.shape
+    if a.q_lora_rank > 0:
+        ql = rms_norm(x @ p["wq_a"].to(x.dtype), p["q_norm"], eps)
+        q = ql @ p["wq_b"].to(x.dtype)
+    else:
+        q = x @ p["wq"].to(x.dtype)
+    q = q.reshape(b, s, a.n_heads, a.qk_nope_dim + a.qk_rope_dim)
+    q_nope, q_rope = q.split([a.qk_nope_dim, a.qk_rope_dim], dim=-1)
+    return q_nope, apply_rope(q_rope, positions, a.rope_theta)
+
+
+def mla_latent(p: Params, x: torch.Tensor, a: AttentionConfig, eps: float,
+               positions: torch.Tensor):
+    """Compress x -> (c_kv (B, S, R) normalised latent, k_rope (B, S, 1,
+    rope)): the pair is the decode-time cache."""
+    b, s, _ = x.shape
+    kv = x @ p["wkv_a"].to(x.dtype)
+    c_kv, k_rope = kv.split([a.kv_lora_rank, a.qk_rope_dim], dim=-1)
+    c_kv = rms_norm(c_kv, p["kv_norm"], eps)
+    k_rope = apply_rope(k_rope.reshape(b, s, 1, a.qk_rope_dim), positions, a.rope_theta)
+    return c_kv, k_rope
+
+
+def mla_attention(p: Params, x: torch.Tensor, a: AttentionConfig, eps: float,
+                  latent=None) -> torch.Tensor:
+    """Full-sequence MLA (train / prefill): the latent expanded to per-head
+    K and V, then the transcription :func:`attention_scores` at scale
+    (nope + rope)^-0.5.  ``latent``: :func:`mla_latent`'s output for x at
+    positions 0..S-1, where the caller has it (prefill caches it)."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)
+    q_nope, q_rope = mla_queries(p, x, a, eps, positions)
+    c_kv, k_rope = mla_latent(p, x, a, eps, positions) if latent is None else latent
+    k_nope = (c_kv @ p["wk_b"].to(x.dtype)).reshape(b, s, a.n_heads, a.qk_nope_dim)
+    v = (c_kv @ p["wv_b"].to(x.dtype)).reshape(b, s, a.n_heads, a.v_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(b, s, a.n_heads, a.qk_rope_dim)], dim=-1)
+    scale = (a.qk_nope_dim + a.qk_rope_dim) ** -0.5
+    o = attention_scores(q, k, v, causal=True, cap=a.attn_softcap, scale=scale)
+    return o.reshape(b, s, -1) @ p["wo"].to(x.dtype)
+
+
+def mla_decode_attention(p: Params, x: torch.Tensor, a: AttentionConfig, eps: float,
+                         cache_ckv: torch.Tensor, cache_krope: torch.Tensor,
+                         cache_len: int) -> torch.Tensor:
+    """Absorbed-matmul MLA decode: the queries are mapped into the latent
+    space (q_nope . wk_b per head) and attend to the R-wide latent cache
+    directly.  x: (B, S, D) at positions ``cache_len`` ..; cache_ckv (B,
+    Smax, R) and cache_krope (B, Smax, rope) already hold them.  Only the
+    first ``cache_len + 1`` positions are attended: the reference masks the
+    rest to -1e30 (softmax weight exactly 0)."""
+    b, s, _ = x.shape
+    h, rope, nope, dv = a.n_heads, a.qk_rope_dim, a.qk_nope_dim, a.v_head_dim
+    r = a.kv_lora_rank
+    positions = cache_len + torch.arange(s, device=x.device).expand(b, s)
+    q_nope, q_rope = mla_queries(p, x, a, eps, positions)
+    wk_b = p["wk_b"].to(x.dtype).reshape(r, h, nope)
+    q_lat = torch.einsum("bshn,rhn->bshr", q_nope, wk_b)
+    ckv, krope = cache_ckv[:, :cache_len + 1], cache_krope[:, :cache_len + 1]
+    logits = (dot_f32("bshr,bkr->bhsk", q_lat, ckv) +
+              dot_f32("bshn,bkn->bhsk", q_rope, krope))
+    logits = softcap(logits * ((nope + rope) ** -0.5), a.attn_softcap)
+    probs = torch.softmax(logits, dim=-1)
+    o_lat = dot_f32("bhsk,bkr->bshr", probs.to(ckv.dtype), ckv)
+    wv_b = p["wv_b"].to(x.dtype).reshape(r, h, dv)
+    o = torch.einsum("bshr,rhd->bshd", o_lat.to(x.dtype), wv_b)
     return o.reshape(b, s, -1) @ p["wo"].to(x.dtype)
 
 

@@ -7,7 +7,9 @@ final hidden states mean-pooled over S in fp32, and FiLM modulates the
 residual stream after every block (one site of width d_model a layer).
 
 The dense GQA transformers are ported; ``family="mamba2"`` raises, naming
-ROADMAP A14c, and MoE / MLA configs raise in the trunk (A14b).
+ROADMAP A14c, and MoE / MLA configs raise here (A14b part 2: their
+meta-training differentiates through the gmm kernel, which has no autograd
+Function yet).
 """
 from __future__ import annotations
 

@@ -3,14 +3,15 @@ the JAX package's ``repro/models/registry.py``.
 
     api = get_api(cfg)
     params = api.init(gen, cfg)                  # on gen's device
+    params = api.init(gen, cfg, at_param_dtype=True)   # each leaf cast as drawn
     loss, metrics = api.loss(params, batch, cfg, backend="auto")
     logits, cache = api.prefill(params, batch, cfg, backend="auto")
-    logits, cache = api.decode_step(params, cache, tokens, cfg)
+    logits, cache = api.decode_step(params, cache, tokens, cfg, backend="auto")
     cache = api.init_cache(cfg, batch_size, max_seq, device)
     params = api.compute_params(params, cfg)     # matmul weights cast once
 
-The dense transformers are ported.  The other families raise, naming the
-item that ports them.
+The transformers (dense, MoE, MLA) are ported.  The other families raise,
+naming the item that ports them.
 """
 from __future__ import annotations
 

@@ -1,32 +1,36 @@
-"""The dense decoder-only transformer (GQA attention, gated MLP; local /
-global windows, softcaps, QKV bias, the minicpm scales and the phi-3-vision
-frontend stub): the port of the dense half of the JAX package's
-``repro/models/transformer.py``.
+"""The decoder-only transformer: the port of the JAX package's
+``repro/models/transformer.py``.  GQA or MLA attention, a dense gated MLP or
+an MoE FFN; local / global windows, softcaps, QKV bias, the minicpm scales
+and the phi-3-vision frontend stub.
 
 Parameters are the JAX package's tree: per-layer weights stacked on a
 leading L axis under ``layers``; the JAX package's ``lax.scan`` over that
 axis is a Python loop here.  Per-layer windows are Python ints
-(:func:`layer_windows`).  The KV cache is ``{k, v: (L, B, S, Hkv, Dh) in
-the compute dtype, len: int}``.
+(:func:`layer_windows`).  The cache is ``{k, v: (L, B, S, Hkv, Dh)}`` for
+GQA and ``{ckv: (L, B, S, R), krope: (L, B, S, rope)}`` for MLA (the
+latent cache), in the compute dtype, with ``len: int``; its sequence axis
+is 2 in both.
 
 Entry points:
-  loss(params, batch, cfg)          training objective (chunked cross-entropy)
+  loss(params, batch, cfg)          training objective (chunked cross-entropy
+                                    + AUX_COEF * the MoE load-balance loss)
   prefill(params, batch, cfg)       full-sequence forward -> (last logits, cache)
   decode_step(params, cache, tokens, cfg)  one-token decode; writes the new
-                                    k and v into ``cache`` in place
+                                    positions into ``cache`` in place
 
   trunk(params, x, cfg, film=None)  embedded inputs -> final hidden states,
                                     per-layer FiLM, checkpointed blocks
                                     (the episodic LM backbone's forward)
 
-``loss``, ``prefill`` and ``trunk`` run their attention on a kernel
-backend (``auto``: the flash attention kernel on a CUDA tensor, see
-:mod:`repro_torch.models.layers`; ``loss`` and ``trunk`` differentiate
-through it).
-Decode attends one query to the cache: the JAX package computes it in
-plain array code, with no kernel, and so does the port.
-
-MoE FFNs and MLA attention raise (ROADMAP A14b).
+Every entry point takes a kernel backend (``auto``: the kernels on a CUDA
+tensor, see :mod:`repro_torch.kernels.dispatch`).  GQA's full-sequence
+attention runs the flash attention kernel (B5; ``loss`` and ``trunk``
+differentiate through it); MLA's stays on the transcription (see
+:mod:`repro_torch.models.layers`).  An MoE layer runs its three expert
+projections through the gmm kernel (B7), in prefill and decode alike;
+B7 has no autograd Function yet, so ``loss`` through an MoE layer on the
+``cuda`` backend raises, naming ROADMAP A14b part 2.  Decode attention is
+plain array code, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -38,12 +42,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.common.init import lecun_normal
+from repro_torch.common.init import drawn_as, lecun_normal
 from repro_torch.common.tree import tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.film import apply_film
 from repro_torch.kernels import dispatch
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 Params = Dict
 AUX_COEF = 0.01
@@ -55,11 +60,37 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def require_dense(cfg: ModelConfig) -> None:
-    """Raise for the transformer variants this slice does not port."""
+    """Raise for what the episodic LM backbone does not take yet: an MoE or
+    MLA trunk (its meta-training differentiates through B7)."""
     if cfg.moe is not None or cfg.attention.kind == "mla":
         raise NotImplementedError(
-            f"{cfg.name}: MoE FFNs and MLA attention are not ported yet "
-            f"(ROADMAP A14b); the port serves the dense GQA transformers")
+            f"{cfg.name}: the episodic LM backbone over MoE FFNs or MLA attention "
+            f"comes with ROADMAP A14b part 2; it takes the dense GQA transformers")
+
+
+def moe_dispatch(lp: Params, h2d: torch.Tensor, cfg: ModelConfig,
+                 backend: Optional[str] = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MoE FFN of one layer on (T, D) tokens, on one device.  The JAX
+    package routes to its expert-parallel ``moe_ffn_sharded`` under a mesh
+    (``cfg.moe_shard_map``); the port's counterpart is a process group of
+    more than one rank, and that path is ROADMAP A12."""
+    if cfg.moe_shard_map and torch.distributed.is_available() \
+            and torch.distributed.is_initialized() and torch.distributed.get_world_size() > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: the expert-parallel MoE dispatch over several ranks is "
+            f"ROADMAP A12; the port runs moe_ffn on one device")
+    return M.moe_ffn(lp, h2d, cfg.moe, backend=backend)
+
+
+def _ffn(lp: Params, h: torch.Tensor, cfg: ModelConfig, backend: Optional[str]
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The FFN of one layer on (B, S, D): (y, aux loss); aux is 0 for a
+    dense MLP."""
+    if cfg.moe is None:
+        return L.mlp(lp["ffn"], h), torch.zeros((), dtype=torch.float32, device=h.device)
+    b, s, d = h.shape
+    y, aux = moe_dispatch(lp["ffn"], h.reshape(b * s, d), cfg, backend)
+    return y.reshape(b, s, d), aux
 
 
 # --------------------------------------------------------------------------
@@ -69,45 +100,72 @@ def require_dense(cfg: ModelConfig) -> None:
 def init_block(gen: torch.Generator, cfg: ModelConfig, device=None, lead=()) -> Params:
     """One block's params; ``lead`` prefixes every leaf's shape (the stacked
     layers' (L,))."""
-    require_dense(cfg)
     dev = L.init_device(gen, device)
+    mla = cfg.attention.kind == "mla"
     return dict(
         attn_norm=torch.zeros((*lead, cfg.d_model), device=dev),
         ffn_norm=torch.zeros((*lead, cfg.d_model), device=dev),
-        attn=L.init_gqa(gen, cfg, dev, lead),
-        ffn=L.init_mlp(gen, cfg.d_model, cfg.d_ff, dev, lead),
+        attn=(L.init_mla if mla else L.init_gqa)(gen, cfg, dev, lead),
+        ffn=(M.init_moe(gen, cfg.d_model, cfg.moe, dev, lead) if cfg.moe is not None
+             else L.init_mlp(gen, cfg.d_model, cfg.d_ff, dev, lead)),
     )
 
 
-def init_transformer(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
+def init_transformer(gen: torch.Generator, cfg: ModelConfig, device=None,
+                     at_param_dtype: bool = False) -> Params:
     """Random params drawn on ``gen``'s device (moved to ``device`` if
     given).  Torch cannot reproduce ``jax.random``: to compute what a JAX
     model computes, carry its params across with
-    :func:`repro_torch.bridge.lm_params_from_numpy`."""
+    :func:`repro_torch.bridge.lm_params_from_numpy`.
+
+    ``at_param_dtype``: every floating leaf in ``cfg.param_dtype``, each
+    draw cast before the next is drawn (:func:`repro_torch.common.init.drawn_as`).
+    The numbers are those of casting the fp32 tree after init, as the JAX
+    package's ``make_init_state`` does; only the peak differs (one kimi-k2
+    layer's experts are 67.6 GB in fp32, 33.8 in bf16)."""
+    dt = getattr(torch, cfg.param_dtype) if at_param_dtype else None
     dev = L.init_device(gen, device)
-    p = dict(
-        embed=L.init_embed(gen, cfg.vocab_padded, cfg.d_model, dev),
-        layers=init_block(gen, cfg, dev, lead=(cfg.n_layers,)),
-        final_norm=torch.zeros((cfg.d_model,), device=dev),
-    )
-    if not cfg.tie_embeddings:
-        p["lm_head"] = lecun_normal(gen, (cfg.vocab_padded, cfg.d_model),
-                                    cfg.vocab_padded, dev)
+    with drawn_as(dt):
+        p = dict(
+            embed=L.init_embed(gen, cfg.vocab_padded, cfg.d_model, dev),
+            layers=init_block(gen, cfg, dev, lead=(cfg.n_layers,)),
+            final_norm=torch.zeros((cfg.d_model,), device=dev),
+        )
+        if not cfg.tie_embeddings:
+            p["lm_head"] = lecun_normal(gen, (cfg.vocab_padded, cfg.d_model),
+                                        cfg.vocab_padded, dev)
+    if dt is not None:              # the zero-initialised leaves
+        p = tree_map(lambda t: t.to(dt) if t.is_floating_point() else t, p)
     return p
+
+
+# leaves of ``attn`` / ``ffn`` that the layers read in f32, never through
+# ``x @ w.to(x.dtype)``: MLA's norm scales and the MoE router
+_F32_LEAVES = ("kv_norm", "q_norm", "router")
+
+
+def _narrowed(tree: Params, dt: torch.dtype) -> Params:
+    return {k: _narrowed(v, dt) if isinstance(v, dict)
+            else v if k in _F32_LEAVES or v.element_size() <= dt.itemsize else v.to(dt)
+            for k, v in tree.items()}
 
 
 def compute_params(params: Params, cfg: ModelConfig) -> Params:
     """``params`` with every matmul weight and bias of the layers cast to
-    the compute dtype once.  The layers cast each weight to the
-    activations' dtype at every call (``x @ w.to(x.dtype)``, as the JAX
-    package reads), which re-reads and re-writes every fp32 weight on every
-    step in eager PyTorch; after this cast that ``.to`` is free and the
-    numbers are the same.  Norm scales, the embedding and the LM head keep
-    their dtype (``unembed`` computes in f32)."""
+    the compute dtype once, where that narrows it (nested dicts, such as
+    the MoE's ``shared`` expert, leaf by leaf).  The layers cast each
+    weight to the activations' dtype at every call (``x @ w.to(x.dtype)``,
+    as the JAX package reads), which re-reads and re-writes every fp32
+    weight on every step in eager PyTorch; after this cast that ``.to`` is
+    free and the numbers are the same.  A weight narrower than the compute
+    dtype (bf16 params, fp32 compute) is left as it is: widening it once
+    would hold a second copy of twice its size, and the per-call cast
+    gives the same numbers.  Norm scales, the router, the embedding and
+    the LM head keep their dtype (they are read in f32)."""
     dt = _dtype(cfg)
     layers = dict(params["layers"])
     for part in ("attn", "ffn"):
-        layers[part] = {k: v.to(dt) for k, v in layers[part].items()}
+        layers[part] = _narrowed(layers[part], dt)
     return {**params, "layers": layers}
 
 
@@ -128,18 +186,24 @@ def _layer(params: Params, i: int) -> Params:
 def block(cfg: ModelConfig, lp: Params, x: torch.Tensor, window: int,
           backend: Optional[str] = "auto", film: Optional[Dict] = None
           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (x', aux loss); the aux loss is 0 for a dense FFN.
+    """x: (B, S, D) -> (x', aux loss); the aux loss is the MoE layer's
+    load-balance loss, 0 for a dense FFN.
     ``film`` {gamma, beta} of shape (D,) or (T, D) (task t on the t-th of T
     equal groups of rows) modulates the residual stream after the FFN
     residual, the LM-family FiLM site."""
+    a = cfg.attention
     h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    x = x + cfg.residual_scale * L.gqa_attention(lp["attn"], h, cfg.attention,
-                                                 window=window, backend=backend)
+    if a.kind == "mla":
+        attn_out = L.mla_attention(lp["attn"], h, a, cfg.norm_eps)
+    else:
+        attn_out = L.gqa_attention(lp["attn"], h, a, window=window, backend=backend)
+    x = x + cfg.residual_scale * attn_out
     h = L.rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
-    x = x + cfg.residual_scale * L.mlp(lp["ffn"], h)
+    y, aux = _ffn(lp, h, cfg, backend)
+    x = x + cfg.residual_scale * y
     if film is not None:
         x = apply_film(x, film["gamma"], film["beta"], channel_axis=-1)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 # matmuls with no batch dimension: ``x @ w`` of a (B, S, D) activation by a
@@ -180,7 +244,6 @@ def trunk(params: Params, x: torch.Tensor, cfg: ModelConfig,
     runs under ``torch.utils.checkpoint`` (the JAX package's
     ``jax.checkpoint``): its recompute in the backward runs the block's
     forward, and its kernels, a second time."""
-    require_dense(cfg)
     remat = _remat(cfg) if torch.is_grad_enabled() else None
     # resolved now: a checkpoint's recompute runs in the backward, outside
     # the caller's use_backend scope
@@ -281,12 +344,17 @@ def loss(params: Params, batch: Dict, cfg: ModelConfig, backend: Optional[str] =
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, device="cuda") -> Dict:
     """An empty cache of ``max_seq`` positions on ``device`` (the card
-    unless the caller asks for the CPU)."""
-    require_dense(cfg)
+    unless the caller asks for the CPU): ``k``, ``v`` (L, B, S, Hkv, Dh) for
+    GQA, the latent ``ckv`` (L, B, S, R) and ``krope`` (L, B, S, rope) for
+    MLA."""
     a = cfg.attention
-    shape = (cfg.n_layers, batch_size, max_seq, a.n_kv_heads, a.head_dim)
-    return dict(k=torch.zeros(shape, dtype=_dtype(cfg), device=device),
-                v=torch.zeros(shape, dtype=_dtype(cfg), device=device), len=0)
+    lead = (cfg.n_layers, batch_size, max_seq)
+    zeros = lambda *shape: torch.zeros(shape, dtype=_dtype(cfg), device=device)
+    if a.kind == "mla":
+        return dict(ckv=zeros(*lead, a.kv_lora_rank), krope=zeros(*lead, a.qk_rope_dim),
+                    len=0)
+    return dict(k=zeros(*lead, a.n_kv_heads, a.head_dim),
+                v=zeros(*lead, a.n_kv_heads, a.head_dim), len=0)
 
 
 def prefill(params: Params, batch: Dict, cfg: ModelConfig,
@@ -294,46 +362,58 @@ def prefill(params: Params, batch: Dict, cfg: ModelConfig,
     """Full forward over the prompt (``batch['tokens']`` (B, S) int64, and
     ``frontend_embeds`` for a frontend model); returns (last-token logits
     (B, Vp) f32, the cache of the prompt's S positions)."""
-    require_dense(cfg)
     a = cfg.attention
+    mla = a.kind == "mla"
     x = embed_inputs(params, batch, cfg)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)
-    ks = torch.empty((cfg.n_layers, b, s, a.n_kv_heads, a.head_dim), dtype=x.dtype,
-                     device=x.device)
-    vs = torch.empty_like(ks)
+    new = lambda *shape: torch.empty((cfg.n_layers, b, s, *shape), dtype=x.dtype,
+                                     device=x.device)
+    if mla:
+        cache = dict(ckv=new(a.kv_lora_rank), krope=new(a.qk_rope_dim))
+    else:
+        cache = dict(k=new(a.n_kv_heads, a.head_dim), v=new(a.n_kv_heads, a.head_dim))
     for i, w in enumerate(layer_windows(cfg)):
         lp = _layer(params, i)
         h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        q, ks[i], vs[i] = L.gqa_project_qkv(lp["attn"], h, a, positions)
-        o = L.causal_attention(q, ks[i], vs[i], window=w, cap=a.attn_softcap,
-                               backend=backend)
-        x = x + cfg.residual_scale * (o.reshape(b, s, -1) @ lp["attn"]["wo"].to(h.dtype))
+        if mla:
+            ckv, krope = L.mla_latent(lp["attn"], h, a, cfg.norm_eps, positions)
+            cache["ckv"][i], cache["krope"][i] = ckv, krope.reshape(b, s, -1)
+            attn_out = L.mla_attention(lp["attn"], h, a, cfg.norm_eps, latent=(ckv, krope))
+        else:
+            ks, vs = cache["k"], cache["v"]
+            q, ks[i], vs[i] = L.gqa_project_qkv(lp["attn"], h, a, positions)
+            o = L.causal_attention(q, ks[i], vs[i], window=w, cap=a.attn_softcap,
+                                   backend=backend)
+            attn_out = o.reshape(b, s, -1) @ lp["attn"]["wo"].to(h.dtype)
+        x = x + cfg.residual_scale * attn_out
         h = L.rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
-        x = x + cfg.residual_scale * L.mlp(lp["ffn"], h)
+        x = x + cfg.residual_scale * _ffn(lp, h, cfg, backend)[0]
     h = L.rms_norm(x[:, -1:, :], params["final_norm"], cfg.norm_eps)
-    return logits_head(params, h, cfg)[:, 0, :], dict(k=ks, v=vs, len=s)
+    return logits_head(params, h, cfg)[:, 0, :], dict(cache, len=s)
 
 
 def decode_step(params: Params, cache: Dict, tokens: torch.Tensor,
-                cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+                cfg: ModelConfig, backend: Optional[str] = "auto"
+                ) -> Tuple[torch.Tensor, Dict]:
     """One decode step.  tokens: (B, 1) int64; ``cache`` from
     :func:`init_cache` or :func:`prefill`.  Returns (logits (B, Vp) f32,
-    the cache at ``len + 1``).
+    the cache at ``len + 1``); an MoE FFN runs on ``backend``.
 
-    The new k and v are written into ``cache['k']`` and ``cache['v']`` in
-    place, at position ``len`` (the JAX package returns updated copies):
-    the returned cache shares those tensors, and the one passed in must not
-    be decoded from again.  Only the first ``len + 1`` positions are
-    attended: the reference masks the rest to -1e30, whose softmax weight
-    is exactly 0, so the slice computes the same up to summation order."""
-    require_dense(cfg)
+    The new position (k and v, or MLA's latent ckv and krope) is written
+    into the cache's tensors in place, at position ``len`` (the JAX package
+    returns updated copies): the returned cache shares those tensors, and
+    the one passed in must not be decoded from again.  Only the first
+    ``len + 1`` positions are attended: the reference masks the rest to
+    -1e30, whose softmax weight is exactly 0, so the slice computes the
+    same up to summation order."""
     a = cfg.attention
+    mla = a.kind == "mla"
     x = L.embed(params["embed"], tokens, _dtype(cfg)) * cfg.embed_scale
     pos = int(cache["len"])
-    k_c, v_c = cache["k"], cache["v"]
-    if pos >= k_c.shape[2]:
-        raise ValueError(f"the cache holds {k_c.shape[2]} positions; it is full")
+    kv = [cache[n] for n in (("ckv", "krope") if mla else ("k", "v"))]
+    if pos >= kv[0].shape[2]:
+        raise ValueError(f"the cache holds {kv[0].shape[2]} positions; it is full")
     b = tokens.shape[0]
     positions = torch.full((b, 1), pos, device=x.device)
     q_pos = torch.full((1,), pos, device=x.device)
@@ -341,14 +421,24 @@ def decode_step(params: Params, cache: Dict, tokens: torch.Tensor,
     for i, w in enumerate(layer_windows(cfg)):
         lp = _layer(params, i)
         h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        q, k, v = L.gqa_project_qkv(lp["attn"], h, a, positions)
-        k_c[i, :, pos] = k[:, 0]
-        v_c[i, :, pos] = v[:, 0]
-        o = L.attention_scores(q, k_c[i, :, :pos + 1], v_c[i, :, :pos + 1], causal=False,
-                               window=w, cap=a.attn_softcap, q_positions=q_pos,
-                               k_positions=k_pos, k_len=pos + 1)
-        x = x + cfg.residual_scale * (o.reshape(b, 1, -1) @ lp["attn"]["wo"].to(h.dtype))
+        if mla:
+            ckv_c, krope_c = kv[0][i], kv[1][i]
+            ckv, krope = L.mla_latent(lp["attn"], h, a, cfg.norm_eps, positions)
+            ckv_c[:, pos] = ckv[:, 0]
+            krope_c[:, pos] = krope[:, 0, 0]
+            attn_out = L.mla_decode_attention(lp["attn"], h, a, cfg.norm_eps, ckv_c,
+                                              krope_c, pos)
+        else:
+            k_c, v_c = kv[0][i], kv[1][i]
+            q, k, v = L.gqa_project_qkv(lp["attn"], h, a, positions)
+            k_c[:, pos] = k[:, 0]
+            v_c[:, pos] = v[:, 0]
+            o = L.attention_scores(q, k_c[:, :pos + 1], v_c[:, :pos + 1], causal=False,
+                                   window=w, cap=a.attn_softcap, q_positions=q_pos,
+                                   k_positions=k_pos, k_len=pos + 1)
+            attn_out = o.reshape(b, 1, -1) @ lp["attn"]["wo"].to(h.dtype)
+        x = x + cfg.residual_scale * attn_out
         h = L.rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
-        x = x + cfg.residual_scale * L.mlp(lp["ffn"], h)
+        x = x + cfg.residual_scale * _ffn(lp, h, cfg, backend)[0]
     h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return logits_head(params, h, cfg)[:, 0, :], dict(k=k_c, v=v_c, len=pos + 1)
+    return logits_head(params, h, cfg)[:, 0, :], {**cache, "len": pos + 1}

@@ -14,8 +14,9 @@ greedy is ``argmax``; temperature sampling draws from an explicit
 package's ``jax.random.categorical`` draws; the same seed gives the same
 stream).
 
-Prefill runs on ``kernel_backend`` (``auto``: the flash attention kernel
-on a CUDA device).  The matmul weights are cast to the compute dtype once,
+Prefill and decode run on ``kernel_backend`` (``auto``: the kernels on a
+CUDA device: flash attention on every GQA prefill layer, the gmm kernel on
+every MoE expert projection, prefill and decode).  The matmul weights are cast to the compute dtype once,
 at construction (:func:`repro_torch.models.transformer.compute_params`).
 The episodic workload is served by
 :class:`repro_torch.serve.episodic.EpisodicServeEngine`.
@@ -183,7 +184,8 @@ class ServeEngine:
             self._flush_stacked()
         if stacked is not None:
             logits, new_cache = self.api.decode_step(self.params, stacked,
-                                                     self._tokens(active), self.cfg)
+                                                     self._tokens(active), self.cfg,
+                                                     backend=self.kernel_backend)
             self._stacked = (list(active), new_cache)
             # sample in slot order (the per-slot path's order too, so a
             # seeded run does not depend on the path)
@@ -192,7 +194,8 @@ class ServeEngine:
         else:
             for i in active:
                 logits, self._caches[i] = self.api.decode_step(
-                    self.params, self._caches[i], self._tokens([i]), self.cfg)
+                    self.params, self._caches[i], self._tokens([i]), self.cfg,
+                    backend=self.kernel_backend)
                 self._commit(i, logits)
         return len(active)
 
@@ -214,7 +217,7 @@ def _splice_cache(full: Dict, pre: Dict) -> Dict:
     of a ``max_seq`` cache, in place; returns ``full`` at the prefill's
     ``len``."""
     for k, t in pre.items():
-        if k != "len":                       # (L, B, S, H, D)
+        if k != "len":      # (L, B, S, ...): k, v (.., H, D); MLA's ckv, krope (.., R)
             full[k][:, :, :t.shape[2]] = t
     full["len"] = pre["len"]
     return full

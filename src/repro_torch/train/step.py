@@ -23,7 +23,7 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
-from repro_torch.common.tree import tree_leaves, tree_map, tree_rebuild
+from repro_torch.common.tree import tree_leaves, tree_rebuild
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.episodic_train import _tree_all_finite
 from repro_torch.core.lite import index_scores
@@ -39,14 +39,12 @@ State = Dict[str, Any]
 def make_init_state(cfg: ModelConfig, adamw_cfg: AdamWConfig) -> Callable:
     """``init_state(gen: torch.Generator, device) -> dict(params, opt)``:
     the model's params drawn on ``gen`` (see ``api.init``), floating leaves
-    cast to ``cfg.param_dtype``, and a zero AdamW state."""
+    in ``cfg.param_dtype`` (each cast as it is drawn), and a zero AdamW
+    state."""
     api = get_api(cfg)
 
     def init_state(gen: torch.Generator, device=None) -> State:
-        params = api.init(gen, cfg, device)
-        if cfg.param_dtype != "float32":
-            dt = getattr(torch, cfg.param_dtype)
-            params = tree_map(lambda p: p.to(dt) if p.is_floating_point() else p, params)
+        params = api.init(gen, cfg, device, at_param_dtype=True)
         return dict(params=params, opt=adamw_init(params, adamw_cfg))
 
     return init_state

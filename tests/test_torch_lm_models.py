@@ -213,12 +213,10 @@ def test_attention_window_and_softcap_mask():
         assert float((got - want).abs().max()) <= 1e-6
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "kimi-k2-1t-a32b", "mamba2-780m",
-                                  "zamba2-7b", "whisper-base"])
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-7b", "whisper-base"])
 def test_unported_families_raise_naming_their_item(arch):
     cfg = treg.get_smoke_config(arch)
-    item = {"deepseek-v2-236b": "A14b", "kimi-k2-1t-a32b": "A14b", "mamba2-780m": "A14c",
-            "zamba2-7b": "A14c", "whisper-base": "A14d"}[arch]
+    item = {"mamba2-780m": "A14c", "zamba2-7b": "A14c", "whisper-base": "A14d"}[arch]
     with pytest.raises(NotImplementedError, match=item):
         api = get_api(cfg)
         api.init(torch.Generator().manual_seed(0), cfg)
