@@ -131,6 +131,33 @@ Phases, each of which fails the run (non-zero exit) on any error:
    repro_torch.examples.train_lm --steps 4`` and ``python -m
    repro_torch.examples.serve_lm --requests 2`` on the card as
    subprocesses, which must exit 0;
+5e. training through MoE and MLA: LM training of deepseek-v2-236b at full
+   width and 1 of its 60 layers as published (bf16 params and AdamW
+   state, bf16 compute, every block checkpointed, loss chunks of 512;
+   random weights drawn on the card from seed 0, each leaf cast to bf16 as
+   it is drawn) on the token pipeline (B 2, S 2048: a capacity of 200
+   slots an expert): one step's loss and gradient on the kernels, on
+   ``ref`` in bf16 and on ``ref`` in fp32 compute from the same bf16
+   weights, every routing recorded, failing unless the kernel path's loss
+   and worst leaf are within ``LM_GATE`` times the bf16 ``ref`` run's own
+   error, B7 launched on "wgmma" 3 times a layer in the forward, 3 in the
+   checkpoints' recompute, 3 dx and 3 dw products, and nothing else, the
+   recompute routed as the forward did, and a second identical step gave
+   the same bits; two faults planted in B7's backward (expert e+1's dw
+   written to expert e; dx zeroed on the last expert's slots) that the
+   gate must flag; three steps of ``make_train_step`` through ``train()``
+   (losses, ms a step, tokens/s, peak memory beside the 40.2 GB of bf16
+   params, gradients and AdamW state, which must fit the card; launches
+   counted on exactly that run) and one profiled step beside the step's
+   bound; B7 at the step's shapes (the forward, dx on the transposed copy
+   of w, dw on the transposed copy of x, K = 200) against its plain
+   version, beside ``torch.bmm`` and the bytes bound, and the two copies
+   timed; then Simple CNAPs over deepseek-v2 at full width and 2 of its 60
+   layers (18.0 GB of frozen bf16 trunk), phase 5c's tasks and gate, B7's
+   launches by role (no dw: a dw product fails the phase) and B1-B3's,
+   three steps through the example's step; and ``python -m
+   repro_torch.launch.train --arch deepseek-v2-236b --steps 3`` (smoke
+   config) on the card as a subprocess, which must exit 0;
 6. drive the LM-side kernel entry point ``repro_torch.kernels.ops`` once
    at published widths (flash attention of gemma2-2b's local and global
    layers and of minitron-4b, kimi-k2's expert matmul, mamba2-780m's SSD
@@ -190,7 +217,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    -m repro_torch.launch.serve --arch deepseek-v2-236b`` (smoke config) on
    the card as a subprocess, which must exit 0;
 7. run the phases' subprocesses (the launchers and examples that phases
-   4b, 5, 5b, 5c, 5d, 6b and 6c name), all at once after every timed
+   4b, 5, 5b, 5c, 5d, 5e, 6b and 6c name), all at once after every timed
    reading, each of which must exit 0 and print what its phase expects;
 8. print the ``kernels`` JSON line, the card line and, last, the result.
 
@@ -217,16 +244,20 @@ ssd_chunk (``ops_launches``, ``lm_serve_gemma2_launches``,
 other counts, ``lm_prefill_cases`` flash attention's numbers at the
 prefill shapes and ``lm_moe_cases`` gmm's at phase 6c's);
 ``train_launches`` those of B1-B3 in the five training-loop steps of phase
-5 and of flash attention in the three steps of phase 5c
-(``lm_train_launches`` B1-B3's there; ``lm_train_cases`` flash
-attention's numbers at phase 5c's shapes), and ``lm_pretrain_launches``
-flash attention's in the three steps of phase 5d (``lm_pretrain_cases``
+5, of flash attention in the three steps of phase 5c and of gmm in the
+three LM training steps of phase 5e (``lm_train_launches`` B1-B3's in
+phase 5c; ``lm_train_cases`` flash attention's numbers at phase 5c's
+shapes), ``lm_moe_episodic_launches`` gmm's in the three episodic steps
+of phase 5e, ``lm_moe_train_cases`` gmm's numbers at phase 5e's shapes,
+forward and backward, and ``lm_pretrain_launches`` flash attention's in
+the three steps of phase 5d (``lm_pretrain_cases``
 its numbers at phase 5d's shapes).  ``chiprun_out/chip_smoke.json`` holds every reading, the training
 phases' under ``paths``, and every path's launches under ``launches``:
 ``serve_warm`` (phase 4b's warm-tier run), ``train_device`` (the
 device-sampler loop), ``algo1`` (the two per-task steps), ``fig4``,
 ``fomaml`` and ``finetuner`` (their serving runs), ``lm_train`` (phase
-5c's three steps), ``lm_pretrain`` (phase 5d's three steps), ``lm_serve`` and ``lm_serve_gemma2`` (phase 6b's
+5c's three steps), ``lm_pretrain`` (phase 5d's three steps), ``lm_moe_train`` and
+``lm_moe_episodic`` (phase 5e's), ``lm_serve`` and ``lm_serve_gemma2`` (phase 6b's
 counted engine runs), ``lm_serve_kimi`` and ``lm_serve_deepseek`` (phase
 6c's).
 
@@ -2809,6 +2840,540 @@ def run_lm_pretrain(dev, launches):
 
 
 # ---------------------------------------------------------------------------
+# phase 5e: training through MoE and MLA: deepseek-v2 at full width
+# ---------------------------------------------------------------------------
+
+MOE_TRAIN_ARCH = "deepseek-v2-236b"
+# 1 of its 60 layers: 5.02 G params (experts 3.77 G, shared experts 0.047 G,
+# MLA 0.149 G, embedding and head 1.05 G) at 8 bytes a param (bf16 params,
+# gradients, AdamW mu and nu) are 40.2 GB, and the MLA transcription's
+# (B, 128, S, S) fp32 scores come on top
+MOE_TRAIN_LAYERS = 1
+# B PRETRAIN_BATCH (2) x S 2048: 4096 tokens, a capacity of 200 slots an
+# expert (int(4096 * 6 * 1.25 / 160) + 1 = 193, rounded up to 8s)
+MOE_TRAIN_SEQ = 2048
+MOE_TRAIN_STEPS = 3
+# the episodic LM over 2 of its 60 layers: an 18.0 GB frozen bf16 trunk,
+# on tasks of phase 5c's ProtoNets concentration (its reason: at 0.3 wide
+# features can solve a task with margins past fp32's resolution, a loss and
+# gradient of exactly 0, and the gate would hold nothing)
+MOE_EPISODIC_LAYERS = 2
+MOE_TRAIN_GATE_PREFIXES = ("",)          # the gate reads every leaf
+
+
+@contextlib.contextmanager
+def counted_gmm_products(products: dict):
+    """Count into ``products`` the products that B7's backward
+    (``dispatch._GMM``) computes in the block, ``dx`` and ``dw``: with
+    the launches of a pass, they tell the recompute's launches from the
+    backward's own, and a dw on a frozen weight from a dx."""
+    from repro_torch.kernels import dispatch
+    backward = dispatch._GMM.backward
+
+    def counted(ctx, g):
+        dx, dw = backward(ctx, g)
+        products["dx"] = products.get("dx", 0) + (dx is not None)
+        products["dw"] = products.get("dw", 0) + (dw is not None)
+        return dx, dw
+
+    with planted_backward(dispatch._GMM, counted):
+        yield
+
+
+def b7_roles(launches, products):
+    """B7's launches of a differentiated pass by role: the forward's, the
+    checkpoints' recompute, dx and dw (the backward's launches less its
+    products)."""
+    fwd, bwd = launches["forward"], launches["backward"]
+    dx, dw = products.get("dx", 0), products.get("dw", 0)
+    return dict(forward=fwd.get("gmm", 0), recompute=bwd.get("gmm", 0) - dx - dw, dx=dx,
+                dw=dw, wgmma=fwd.get("gmm/wgmma", 0) + bwd.get("gmm/wgmma", 0),
+                total=fwd.get("gmm", 0) + bwd.get("gmm", 0))
+
+
+def check_b7_roles(label, launches, products, want, forward_too=()):
+    """Fail unless B7's launches by role are ``want``, all on "wgmma", and
+    nothing else launched but, in the forward, the kernels ``forward_too``."""
+    roles = b7_roles(launches, products)
+    other = [k for part in ("forward", "backward") for k in launches[part]
+             if not k.startswith("gmm") and not (part == "forward" and
+                                                 k.startswith(forward_too))]
+    print(f"  {label}: B7 launches forward {roles['forward']}, recompute "
+          f"{roles['recompute']}, dx {roles['dx']}, dw {roles['dw']} ({roles['wgmma']} of "
+          f"{roles['total']} on wgmma); want {want}", flush=True)
+    if {k: roles[k] for k in want} != want or roles["wgmma"] != roles["total"] or other:
+        fail(f"{label}: B7 launches {roles} (want {want}, all on wgmma) and {other} "
+             f"besides; launches {launches}")
+    return roles
+
+
+@contextlib.contextmanager
+def forced_routes(ids: list):
+    """The MoE router's expert ids replaced, call by call in order, by
+    ``ids`` (another run's, (T, k) each); its weights are its own
+    probabilities at those ids, renormalised, and its aux loss reads those
+    ids: a run in another precision then sends every token to the experts
+    the recorded run sent it to."""
+    import torch
+    from repro_torch.models import moe as M
+    orig, it = M.router_probs, iter(ids)
+
+    def router(p, x, cfg):
+        _, _, probs = orig(p, x, cfg)
+        top_i = next(it)
+        top_p = torch.gather(probs, 1, top_i)
+        return top_p / top_p.sum(dim=-1, keepdim=True), top_i, probs
+
+    M.router_probs = router
+    try:
+        yield
+    finally:
+        M.router_probs = orig
+
+
+def forward_routes(cfg, params, batch, backend):
+    """The expert ids (T, k) of every router call of one forward of the
+    loss on ``backend``, without grad."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.registry import get_api
+    timeline = []
+    with torch.no_grad(), dispatch.use_backend(backend), recording_routes(timeline):
+        get_api(cfg).loss(params, batch, cfg, backend=None)
+    return [ids for _, ids in timeline]
+
+
+def moe_train_grads(cfg, params, batch, backend, force=None):
+    """:func:`pretrain_grads` of the MoE model with every router call's
+    routing recorded and B7's backward products counted; ``force``: the
+    expert ids to route by (:func:`forced_routes`).  Returns (loss, None,
+    {path: gradient}, launches, each call's kept experts, products, each
+    call's expert ids)."""
+    timeline, products = [], {}
+    with (forced_routes(force) if force is not None else contextlib.nullcontext()), \
+            recording_routes(timeline), counted_gmm_products(products):
+        r = pretrain_grads(cfg, params, batch, backend)
+    ids = [i for _, i in timeline]
+    return (*r, [kept_experts(i, cfg) for i in ids], products, ids)
+
+
+def b7_backward_faults():
+    """(label, backward) of the two faults planted in B7's backward, each
+    the Function's own backward with its result spoilt: expert e+1's dw
+    written to expert e (the last expert keeps its own), and dx zeroed on
+    the last expert's slots."""
+    import torch
+    from repro_torch.kernels import dispatch
+    backward = dispatch._GMM.backward
+
+    def dw_shifted(ctx, g):
+        dx, dw = backward(ctx, g)
+        return dx, (None if dw is None else torch.cat([dw[1:], dw[-1:]]))
+
+    def dx_last_expert_zeroed(ctx, g):
+        dx, dw = backward(ctx, g)
+        if dx is not None:
+            dx = dx.clone()
+            dx[-1] = 0
+        return dx, dw
+
+    return (("B7 backward: dw of expert e+1 written to expert e", dw_shifted),
+            ("B7 backward: dx zeroed on the last expert's slots", dx_last_expert_zeroed))
+
+
+def equal_bits(a, b) -> bool:
+    """Whether two tensors (or two Nones) hold the same bits."""
+    import torch
+    if a is None or b is None:
+        return a is b
+    bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(a.view(bits), b.view(bits))
+
+
+def moe_train_parity(cfg, dev):
+    """One step's loss and gradient on the kernels, on ``ref`` in bf16 and on
+    ``ref`` in fp32 compute, from the same bf16 params (drawn on the card
+    from seed 0, each leaf cast as it is drawn) and the pipeline's batch 0,
+    through the gate, every routing recorded; the same step again on the
+    kernels, which must give the same bits; then the two faults planted in
+    B7's backward, which the gate must flag."""
+    import dataclasses
+    import torch
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import transformer as TT
+    params = TT.init_transformer(torch.Generator(device=dev).manual_seed(0), cfg,
+                                 at_param_dtype=True)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    batch = pretrain_batch(cfg, 0, dev, seq=MOE_TRAIN_SEQ)
+    moe_train_grads(cfg, params, batch, "cuda")             # allocator, cuBLAS
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    n = cfg.n_layers
+    # the fp32 run routes as the kernel path does (the backward recomputes
+    # the layers last first); its own routing is only counted
+    routed = forward_routes(cfg, params, batch, "cuda")
+    own32 = [kept_experts(ids, cfg) for ids in forward_routes(cfg32, params, batch, "ref")]
+    ref32 = moe_train_grads(cfg32, params, batch, "ref", force=routed + routed[::-1])
+    mark("5e: fp32 ref run done")
+    ref16 = moe_train_grads(cfg, params, batch, "ref")
+    ref16_errs = lm_grad_errs(ref16, ref32, MOE_TRAIN_GATE_PREFIXES)
+    ref16_loss, ref16_routes = ref16[0], ref16[4]
+    del ref16
+    torch.cuda.reset_peak_memory_stats(dev)
+    got = moe_train_grads(cfg, params, batch, "cuda")
+    step_peak = torch.cuda.max_memory_allocated(dev)
+    roles = check_b7_roles(f"{cfg.name} step", got[3], got[5],
+                           dict(forward=3 * n, recompute=3 * n, dx=3 * n, dw=3 * n))
+    if len(got[6]) != 2 * n or not all(map(equal_bits, got[6], routed + routed[::-1])):
+        fail(f"{cfg.name}: the step's forward or its checkpoints' recompute routed otherwise "
+             f"than a forward without grad ({len(got[6])} router calls)")
+    routes = dict(got=got[4][:n], ref16=ref16_routes[:n], ref32=own32)
+    tokens = sum(x.shape[0] for x in routes["got"])
+    differ = {f"{a}/{b}": sum(int((x != y).any(dim=1).sum()) for x, y in zip(routes[a], routes[b]))
+              for a, b in itertools.combinations(routes, 2)}
+    kept = sum(int((x >= 0).sum()) for x in routes["got"])
+    print(f"moe train {cfg.name}: {n} layer(s), B {PRETRAIN_BATCH} S {MOE_TRAIN_SEQ}, {n_params} "
+          f"params; loss cuda {got[0]:.6g} ref {ref16_loss:.6g} fp32 {ref32[0]:.6g}; "
+          f"launches forward {got[3]['forward']}, backward {got[3]['backward']}, products "
+          f"{got[5]}; peak of the kernel path's step (params and gradients, no AdamW state) "
+          f"{step_peak} B; routings: {tokens} (token, layer) pairs, {kept} of "
+          f"{tokens * cfg.moe.top_k} routes kept; left to themselves the runs route "
+          f"differently on {differ}.  The fp32 run is given the kernel path's expert ids "
+          f"(its own weights at them), so the gate reads every leaf whole, the routed "
+          f"experts' too: unforced, a token routed otherwise moves a whole token's share "
+          f"of dw from one expert to another, beyond any rounding",
+          flush=True)
+    gate = lm_train_gate(f"{cfg.name} LM step", dict(got=got, ref32=ref32),
+                         MOE_TRAIN_GATE_PREFIXES, ref16_errs=ref16_errs)
+    experts = {k: (e, gate["ref16_leaf_errors"][k]) for k, e in gate["leaf_errors"].items()
+               if "/ffn/w_" in k and "/shared/" not in k}
+    for k, (e, e_ref) in experts.items():
+        print(f"    routed experts {k}: {e:.3e} (bf16 ref {e_ref:.3e})", flush=True)
+    out = dict(params=n_params, loss=got[0], ref16_loss=ref16_loss, ref32_loss=ref32[0],
+               launches={k: got[3][k] for k in ("forward", "backward")}, b7_roles=roles,
+               step_peak_bytes=step_peak, routings=dict(pairs=tokens, kept=kept, differ=differ),
+               expert_leaf_errors=experts,
+               gate={k: v for k, v in gate.items() if not k.endswith("leaf_errors")})
+    again = moe_train_grads(cfg, params, batch, "cuda")
+    unequal = [k for k, g in got[2].items() if not equal_bits(g, again[2][k])]
+    same_routes = all(map(equal_bits, got[4], again[4]))
+    print(f"  bits: a second step on the kernels, loss {'equal' if again[0] == got[0] else 'NOT equal'}, "
+          f"routings {'equal' if same_routes else 'NOT equal'}, {len(got[2]) - len(unequal)} of "
+          f"{len(got[2])} gradient leaves bit-equal{': ' + str(unequal) if unequal else ''}",
+          flush=True)
+    if unequal or again[0] != got[0] or not same_routes:
+        fail(f"{cfg.name}: two identical steps differ (loss, routing or the leaves {unequal})")
+    out["bits_equal"] = True
+    del again, got
+    torch.cuda.empty_cache()
+    mark("5e: gate and bits done")
+    out["planted_faults"] = []
+    for label, fn in b7_backward_faults():
+        with planted_backward(dispatch._GMM, fn):
+            bad = moe_train_grads(cfg, params, batch, "cuda")
+        r = lm_train_gate(f"planted fault: {label}", dict(got=bad, ref32=ref32),
+                          MOE_TRAIN_GATE_PREFIXES, fault=True, ref16_errs=ref16_errs)
+        out["planted_faults"].append(dict(fault=label, **{
+            k: v for k, v in r.items() if not k.endswith("leaf_errors")}))
+        del bad
+    del ref32, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_train_bound(cfg, b: int, s: int, kept: int, n_params: int):
+    """(bound ms, by, bf16 FLOPs, f32 FLOPs, bytes) of one training step.
+    FLOPs: 3x the forward's (the checkpoints' recompute not counted): MLA's
+    projections, the shared experts and the ``kept`` routes' expert
+    projections (this batch's routing) on the bf16 tensor cores; MLA's
+    transcription (causal pairs), the router and the unembed in fp32, at
+    the fp32 rate, in sequence with the bf16 work.  Bytes: the bf16 params,
+    mu and nu read once and written once."""
+    a, m = cfg.attention, cfg.moe
+    qk, h = a.qk_nope_dim + a.qk_rope_dim, a.n_heads
+    attn = (cfg.d_model * a.q_lora_rank + a.q_lora_rank * h * qk
+            + cfg.d_model * (a.kv_lora_rank + a.qk_rope_dim)
+            + a.kv_lora_rank * h * (a.qk_nope_dim + a.v_head_dim) + h * a.v_head_dim * cfg.d_model)
+    shared = 3 * m.n_shared * cfg.d_model * m.d_ff
+    t = b * s
+    bf16 = 3 * 2.0 * (cfg.n_layers * t * (attn + shared) + kept * 3 * cfg.d_model * m.d_ff)
+    pairs = b * attn_pairs(s, True, None)
+    f32 = 3 * 2.0 * (cfg.n_layers * (pairs * h * (qk + a.v_head_dim) + t * cfg.d_model * m.n_experts)
+                     + t * cfg.vocab_padded * cfg.d_model)
+    nbytes = 2 * 3 * 2.0 * n_params
+    t_ops = (bf16 / BF16_FLOPS + f32 / FP32_FLOPS) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", bf16, f32,
+            nbytes)
+
+
+def moe_train_loop(cfg, dev):
+    """MOE_TRAIN_STEPS steps of ``make_train_step`` through ``train()`` from
+    ``make_init_state`` (seed 0: the parity's weights) on the pipeline's
+    batches, no checkpoint, the launch counts set to 0 just before and read
+    just after; then one step timed and one profiled."""
+    import torch
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.kernels import _build
+    from repro_torch.train.loop import train
+    from repro_torch.train.step import adamw_for, make_init_state, make_train_step
+    state = make_init_state(cfg, adamw_for(cfg))(torch.Generator(device=dev).manual_seed(0),
+                                                 dev)
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+    held = torch.cuda.memory_allocated(dev)
+    step = make_train_step(cfg, adamw_for(cfg))
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.launches.reset()
+    result = train(state, step, lambda s: pretrain_batch(cfg, s, dev, seq=MOE_TRAIN_SEQ),
+                   MOE_TRAIN_STEPS, log_every=1)
+    torch.cuda.synchronize(dev)
+    counts = _build.launches.snapshot()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [m["loss"] for m in result.metrics_history]
+    ms = [t * 1e3 for t in result.step_times]
+    tokens = PRETRAIN_BATCH * MOE_TRAIN_SEQ
+    tok_s = tokens * (len(ms) - 1) / (sum(ms[1:]) / 1e3)
+    reckoned = 8 * n_params           # bf16 params, grads, AdamW mu and nu
+    print(f"moe train loop: {cfg.name}, {MOE_TRAIN_STEPS} steps of B {PRETRAIN_BATCH} S "
+          f"{MOE_TRAIN_SEQ}, losses {losses}, ms per step {ms}, {tok_s:.1f} tokens/s (first "
+          f"step excluded), peak memory {peak} B against {reckoned} B reckoned for bf16 "
+          f"params, grads and AdamW state ({n_params} params; {held} B held before the "
+          f"loop), launches {counts}", flush=True)
+    if not all(math.isfinite(x) for x in losses) or any(
+            m["nonfinite"] for m in result.metrics_history):
+        fail(f"moe train loop: losses {losses}, metrics {result.metrics_history}")
+    n = MOE_TRAIN_STEPS * 12 * cfg.n_layers
+    if counts != {"gmm": n, "gmm/wgmma": n}:
+        fail(f"moe train loop: launches {counts}; want B7 {n} times on wgmma (the forward, "
+             f"the checkpoints' recompute, dx and dw of 3 projections, {cfg.n_layers} "
+             f"layer(s) a step) and nothing else")
+    if peak >= 80e9:
+        fail(f"moe train loop: peak memory {peak} B does not fit the 80 GB card")
+    batch = pretrain_batch(cfg, MOE_TRAIN_STEPS, dev, seq=MOE_TRAIN_SEQ)
+    wall = _counted(lambda: step(state, batch))[2]
+    busy, cats, table = device_breakdown(
+        lambda: step(state, batch), MOE_CATEGORIES,
+        lambda busy, _: f"  moe train trace: device busy {busy:.2f} ms of an unprofiled step "
+                        f"of {wall:.2f} ms (idle share {1 - busy / wall:.3f})", 15)
+    del state, step
+    torch.cuda.empty_cache()
+    return dict(losses=losses, step_ms=ms, tokens_per_s=tok_s, peak_bytes=peak,
+                reckoned_bytes=reckoned, params=n_params, held_bytes=held, launches=counts,
+                trace=dict(busy_ms=busy, step_wall_ms=wall, idle_share=1 - busy / wall,
+                           categories=cats, top=table[:40]))
+
+
+def moe_train_kernel_specs(cfg, dev):
+    """B7 at the training step's shapes (E 160, C 200, D 5120, F 1536): the
+    forward (and the recompute) x @ w, dx = g w^T and dw = x^T g (K = C =
+    200, not a multiple of B7's 64-deep slab), on the contiguous transposed
+    copies the Function makes, against its plain version, timed beside
+    ``torch.bmm`` and the bytes bound; and the two copies, timed."""
+    import torch
+    from repro_torch.kernels import gmm as gm
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as M
+    g = torch.Generator(device=dev).manual_seed(9)
+    e, d, f = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff
+    c = M.capacity(PRETRAIN_BATCH * MOE_TRAIN_SEQ, cfg.moe)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(torch.bfloat16)
+
+    w = randn(e, d, f, scale=d ** -0.5)
+    x, dout = randn(e, c, d), randn(e, c, f)
+    copies = {}
+    for name, t in (("w^T", w), ("x^T", x)):
+        ms = time_ms(lambda: t.transpose(1, 2).contiguous(), iters=5, reps=3)
+        nbytes = 2 * t.numel() * t.element_size()
+        copies[name] = dict(shape=list(t.shape), bytes=nbytes, ms=ms,
+                            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+        print(f"  B7 backward's copy {name} of {tuple(t.shape)}: {nbytes} B read and written "
+              f"in {ms:.4f} ms (bound {copies[name]['bound_ms']:.4f} ms)", flush=True)
+    w_t, x_t = w.transpose(1, 2).contiguous(), x.transpose(1, 2).contiguous()
+    cases = []
+    for label, a, b in (("forward x @ w", x, w), ("dx = g @ w^T", dout, w_t),
+                        ("dw = x^T @ g", x_t, dout)):
+        ee, m, k = a.shape
+        n = b.shape[2]
+        cases.append(dict(
+            label=f"deepseek train {label} E{ee} M{m} K{k} N{n}", fn=ops.gmm,
+            plain=gm.gmm_plain, lib=torch.bmm, route=gm.gmm_route(a, b), args=(a, b),
+            tol=OPS_TOL["gmm"]["bfloat16"], main=True, iters=(3, 3),
+            bytes=a.element_size() * (ee * m * k + ee * k * n + ee * m * n),
+            flops=2.0 * ee * m * k * n, peak=BF16_FLOPS))
+    return [dict(name="gmm", source="src/repro_torch/kernels/csrc/gmm.cu",
+                 replaces="src/repro/kernels/gmm.py:37", symbol="gmm_wgmma_kernel",
+                 cases=cases)], copies
+
+
+def moe_episodic(dev, launches):
+    """Simple CNAPs (``tokens`` encoder) over deepseek-v2 at full width and
+    MOE_EPISODIC_LAYERS layers, the trunk frozen in bf16 as drawn: one LITE
+    step on the kernels gated against ``ref`` in bf16 and in fp32 compute
+    (phase 5c's gate), B7's launches by role (forward, the recompute, dx;
+    a dw fails the phase) and B1-B3's; then LM_TRAIN_STEPS steps through
+    the example's step, the launch counts set to 0 just before and read
+    just after."""
+    import dataclasses
+    import torch
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.lite import LiteSpec
+    from repro_torch.examples.episodic_lm import make_meta_step
+    from repro_torch.kernels import _build
+    cfg = dataclasses.replace(get_config(MOE_TRAIN_ARCH), n_layers=MOE_EPISODIC_LAYERS)
+    learner = lm_learner("simple_cnaps", cfg)
+    params = learner.init(torch.Generator(device=dev).manual_seed(0), dev)
+    trunk = tree_leaves(params["bb"])
+    if {t.dtype for t in trunk} != {torch.bfloat16}:
+        fail(f"{cfg.name}: the trunk is not drawn in bf16: {({t.dtype for t in trunk})}")
+    trunk_bytes = sum(t.numel() * t.element_size() for t in trunk)
+    batch, scores = lm_tasks(cfg, LM_TRAIN_TASKS, 0, dev, concentration=LM_PROTO_CONCENTRATION)
+    lm_grads(learner, params, batch, scores, "cuda")            # allocator, cuBLAS
+    products, timeline, timeline16 = {}, [], []
+    with counted_gmm_products(products), recording_routes(timeline):
+        got = lm_grads(learner, params, batch, scores, "cuda")
+    with recording_routes(timeline16):
+        ref16 = lm_grads(learner, params, batch, scores, "ref")
+    # the fp32 run routes as the kernel path does, call by call (phase 5e's
+    # LM step says why)
+    with forced_routes([ids for _, ids in timeline]):
+        ref32 = lm_grads(lm_learner("simple_cnaps", dataclasses.replace(
+            cfg, compute_dtype="float32")), params, batch, scores, "ref")
+    runs = dict(got=got, ref16=ref16, ref32=ref32)
+    differ = sum(int((kept_experts(a, cfg) != kept_experts(b, cfg)).any(dim=1).sum())
+                 for (_, a), (_, b) in zip(timeline, timeline16))
+    pairs = sum(ids.shape[0] for _, ids in timeline)
+    del timeline, timeline16
+    n = cfg.n_layers
+    n_comp = LM_TASK["way"] * LM_TASK["shot"] - LM_TRAIN_LITE["h"]
+    passes = -(-n_comp // LM_TRAIN_LITE["chunk_size"]) + 2     # H, chunks, queries
+    # the first layer's MoE input needs no gradient (frozen embedding and
+    # attention; FiLM comes after the FFN residual): dx from the second on
+    want = dict(forward=3 * n * passes, recompute=3 * n * 2, dx=3 * (n - 1) * 2, dw=0)
+    print(f"train lm moe: {cfg.name}, {n} layers ({trunk_bytes} B of frozen bf16 trunk), T "
+          f"{batch.num_tasks}, loss cuda {got[0]:.6g} ref {runs['ref16'][0]:.6g} fp32 "
+          f"{runs['ref32'][0]:.6g} (routed as the kernel path), accuracy {got[1]:.3f}; "
+          f"launches forward {got[3]['forward']}, backward {got[3]['backward']}; products "
+          f"{products}; the kernel path and bf16 ref route {differ} of {pairs} (token, layer) "
+          f"pairs differently", flush=True)
+    roles = check_b7_roles(f"{cfg.name} simple_cnaps LITE step", got[3], products, want,
+                           forward_too=("segment_sum", "class_second_moment", "mahalanobis"))
+    _need("train lm moe forward", got[3]["forward"],
+          ("segment_sum", "class_second_moment", "mahalanobis"))
+    out = dict(arch=cfg.name, layers=n, trunk_bytes=trunk_bytes, loss=got[0],
+               ref16_loss=runs["ref16"][0], ref32_loss=runs["ref32"][0], accuracy=got[1],
+               launches=got[3], b7_roles=roles, routings=dict(pairs=pairs, differ=differ),
+               gate={k: v for k, v in lm_train_gate(
+                   f"{cfg.name} simple_cnaps LITE step", runs, ("enc/", "film_gen/")).items()
+                   if not k.endswith("leaf_errors")})
+    del runs, got
+    torch.cuda.empty_cache()
+    mark("5e: episodic gate done")
+
+    step = make_meta_step(learner, LiteSpec(**LM_TRAIN_LITE))
+    data = [lm_tasks(cfg, LM_TRAIN_TASKS, s, dev, concentration=LM_PROTO_CONCENTRATION)
+            for s in range(LM_TRAIN_STEPS)]
+    losses, ms, products = [], [], {}
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.launches.reset()
+    with counted_gmm_products(products):
+        for s in range(LM_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            params, loss, _ = step(params, *data[s])
+            losses.append(float(loss))           # reads the loss back: synchronises
+            ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize(dev)
+    counts = _build.launches.snapshot()
+    peak = torch.cuda.max_memory_allocated(dev)
+    tasks_per_s = LM_TRAIN_TASKS * (LM_TRAIN_STEPS - 1) / (sum(ms[1:]) / 1e3)
+    n_b7 = LM_TRAIN_STEPS * sum(want.values())
+    print(f"train lm moe loop: {LM_TRAIN_STEPS} steps of T {LM_TRAIN_TASKS}, losses {losses}, "
+          f"ms per step {ms}, tasks/s {tasks_per_s:.3f} (first step excluded), peak memory "
+          f"{peak} B, launches {counts}, B7 products {products}", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train lm moe loop: losses {losses}")
+    if counts.get("gmm") != n_b7 or counts.get("gmm/wgmma") != n_b7 or products.get("dw"):
+        fail(f"train lm moe loop: B7 launches {counts}, products {products}; want {n_b7} on "
+             f"wgmma ({want} a step) and no dw")
+    _need("train lm moe loop", counts, ("segment_sum", "class_second_moment", "mahalanobis"),
+          LM_TRAIN_STEPS)
+    launches["lm_moe_episodic"] = counts
+    out.update(loop=dict(losses=losses, step_ms=ms, tasks_per_s=tasks_per_s, peak_bytes=peak,
+                         launches=counts, products=products))
+    del learner, params, data, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_moe_train_launcher():
+    """``python -m repro_torch.launch.train --arch deepseek-v2-236b --steps
+    3`` (its smoke config: MLA and MoE) on the card as a subprocess, which
+    must exit 0 on ``device=cuda``."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        return run_chain([(["-m", "repro_torch.launch.train", "--arch", MOE_TRAIN_ARCH,
+                            "--steps", "3"], "device=cuda")], tmp)
+
+
+def run_moe_train(dev, launches):
+    """Phase 5e: training through MoE and MLA.  LM training of deepseek-v2
+    at full width and MOE_TRAIN_LAYERS layer(s) as published (bf16 params
+    and AdamW state, bf16 compute, every block checkpointed, loss chunks of
+    512; random weights drawn on the card from seed 0) at B 2 x S 2048; B7
+    at the step's shapes, forward and backward; the episodic LM over
+    MOE_EPISODIC_LAYERS layers; the launcher as a subprocess."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_config
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MOE_TRAIN_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    if (cfg.remat_policy, cfg.compute_dtype, cfg.param_dtype, cfg.opt_state_dtype,
+            cfg.loss_chunk) != ("nothing", "bfloat16", "bfloat16", "bfloat16", 512):
+        fail(f"{cfg.name}: expected remat 'nothing', bf16 compute, params and AdamW state, "
+             f"loss chunks of 512")
+    out = dict(kind="lm_moe_train", arch=cfg.name, layers=cfg.n_layers, batch=PRETRAIN_BATCH,
+               seq=MOE_TRAIN_SEQ)
+    out["parity"] = moe_train_parity(cfg, dev)
+    mark("5e: parity and planted faults done")
+    out["loop"] = moe_train_loop(cfg, dev)
+    launches["lm_moe_train"] = out["loop"]["launches"]
+    mark("5e: loop done")
+    kept = out["parity"]["routings"]["kept"]
+    bound, by, bf16, f32, nbytes = moe_train_bound(cfg, PRETRAIN_BATCH, MOE_TRAIN_SEQ, kept,
+                                                   out["loop"]["params"])
+    step_ms = statistics.median(out["loop"]["step_ms"][1:])
+    out["bound"] = dict(ms=bound, by=by, bf16_flops=bf16, f32_flops=f32, bytes=nbytes,
+                        share=bound / step_ms)
+    print(f"moe train bound: {bf16:.4g} bf16 FLOPs at {BF16_FLOPS:.4g}/s + {f32:.4g} f32 FLOPs "
+          f"(MLA's transcription, the router, the unembed) at {FP32_FLOPS:.4g}/s, {nbytes:.4g} "
+          f"B of state: {bound:.1f} ms a step ({by}); the loop's median step {step_ms:.1f} ms "
+          f"({100 * bound / step_ms:.1f} % of the bound's rate)", flush=True)
+    specs, out["copies"] = moe_train_kernel_specs(cfg, dev)
+    row = check_kernels(specs)["gmm"]
+    if any(t["route"] != "wgmma" for t in row["cases"]):
+        fail(f"{cfg.name}: B7 at the training step's shapes took routes {row['routes']}")
+    out["kernel_cases"], out["kernel_max_abs_err"] = row["cases"], row["max_abs_err"]
+    cats = out["loop"]["trace"]["categories"]
+    b7_ms = cats.get("B7 gmm", {}).get("device_ms", 0.0)
+    out["b7_share"] = b7_ms / out["loop"]["trace"]["busy_ms"]
+    print(f"moe train B7: {b7_ms:.2f} ms of a step's device time "
+          f"({100 * out['b7_share']:.1f} %)", flush=True)
+    del specs, row
+    torch.cuda.empty_cache()
+    mark("5e: B7 cases done")
+    out["episodic"] = moe_episodic(dev, launches)
+    mark("5e: episodic loop done")
+    defer(out, "launcher", run_moe_train_launcher)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 5e: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the LM-side kernel entry point repro_torch.kernels.ops
 # ---------------------------------------------------------------------------
 
@@ -3973,6 +4538,9 @@ def main() -> int:
     lm_pretrain = run_lm_pretrain(dev, launches)
     summary.append(lm_pretrain)
     mark("phase 5d done")
+    moe_train = run_moe_train(dev, launches)
+    summary.append(moe_train)
+    mark("phase 5e done")
     ops_rows, ops_planted = run_ops_path(dev, launches)
     planted += ops_planted
     mark("phase 6 done")
@@ -3991,7 +4559,9 @@ def main() -> int:
     rows |= ops_rows
     prefill_row = summary[-2]["prefill_kernel"]
     rows["gmm"]["lm_moe_cases"] = moe_serve["gmm_cases"]
-    rows["gmm"]["max_abs_err"] = max(rows["gmm"]["max_abs_err"], moe_serve["gmm_max_abs_err"])
+    rows["gmm"]["lm_moe_train_cases"] = moe_train["kernel_cases"]
+    rows["gmm"]["max_abs_err"] = max(rows["gmm"]["max_abs_err"], moe_serve["gmm_max_abs_err"],
+                                     moe_train["kernel_max_abs_err"])
     rows["flash_attention"]["lm_prefill_cases"] = prefill_row["cases"]
     rows["flash_attention"]["lm_train_cases"] = lm_train["kernel_cases"]
     rows["flash_attention"]["lm_pretrain_cases"] = lm_pretrain["kernel_cases"]
@@ -4009,13 +4579,15 @@ def main() -> int:
              planted_faults=planted), indent=1))
     # "train_launches": the launches of the episodic kernels in the five
     # steps of the training loop (phase 5), of flash attention in the three
-    # steps of phase 5c; "lm_train_launches" those of B1-B3 in phase 5c.
+    # steps of phase 5c, of gmm in the three steps of phase 5e's LM
+    # training; "lm_train_launches" those of B1-B3 in phase 5c.
     # "route" is how the kernel was written (CUDA C++); "routes" the
     # kernel's own route ("wgmma" tensor cores or "simt" CUDA cores) at each
     # main case, and "main_cases" each main case's numbers
     case_keys = ("shape", "route", "ms", "device_ms", "device_timer", "plain_ms", "bound_ms",
                  "bound_by", "library_ms", "library_device_ms")
-    train_path = {n: "train" for n in launches["train"]} | {"flash_attention": "lm_train"}
+    train_path = {n: "train" for n in launches["train"]} | {"flash_attention": "lm_train",
+                                                             "gmm": "lm_moe_train"}
     print(json.dumps({"kernels": [
         {k: rows[n][k] for k in ("name", "route", "source", "replaces")}
         | {"launches": launches[path_of[n]][n]}
@@ -4023,7 +4595,8 @@ def main() -> int:
         | ({"lm_train_launches": launches["lm_train"][n]}
            if n in launches["lm_train"] and train_path.get(n) != "lm_train" else {})
         | ({f"{p}_launches": launches[p][n] for p in ("ops", "lm_serve_gemma2", "lm_pretrain",
-                                                       "lm_serve_kimi", "lm_serve_deepseek")
+                                                       "lm_serve_kimi", "lm_serve_deepseek",
+                                                       "lm_moe_episodic")
             if p != path_of[n] and n in launches[p]})
         | {k: rows[n][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                    "bound_by", "library_ms", "library_device_ms",
@@ -4031,7 +4604,8 @@ def main() -> int:
         | ({"main_cases": [{k: t[k] for k in case_keys} for t in rows[n]["cases"]]}
            if len(rows[n]["cases"]) > 1 else {})
         | ({f"lm_{c}_cases": [{k: t[k] for k in case_keys} for t in rows[n][f"lm_{c}_cases"]]
-            for c in ("prefill", "train", "pretrain", "moe") if f"lm_{c}_cases" in rows[n]})
+            for c in ("prefill", "train", "pretrain", "moe", "moe_train")
+            if f"lm_{c}_cases" in rows[n]})
         for n in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -27,9 +27,9 @@ H, D), or MLA's latent ``ckv`` (L, B, S, R) and ``krope`` (L, B, S,
 rope); ``len`` a Python int in the port).  A meta-learner over an LM backbone
 crosses with ``learner_params_from_numpy`` (and back with
 ``learner_params_to_numpy``): its ``bb`` subtree as an LM tree, the rest
-(set encoder, FiLM generator, head generator) as above.  The path decides,
-never a leaf's rank: a stacked (L, E, D, F) expert weight is not a conv
-weight.
+(set encoder, FiLM generator, head generator) as above.  A leaf's rank
+alone does not decide: a stacked (L, E, D, F) expert weight is 4-D and not
+a conv weight (:func:`is_conv_weight`).
 """
 from __future__ import annotations
 
@@ -44,26 +44,33 @@ HWIO_TO_OIHW = (3, 2, 0, 1)
 OIHW_TO_HWIO = (2, 3, 1, 0)
 
 
-def is_conv_weight(t) -> bool:
+# an MoE layer's stacked (L, E, D, F) experts: 4-D, one layout in both packages
+EXPERT_KEYS = ("w_gate", "w_up", "w_down")
+
+
+def is_conv_weight(t, key) -> bool:
     """A leaf whose layout differs between the packages: a 4-D floating
-    tensor outside a quantized leaf."""
-    return torch.is_tensor(t) and t.dim() == 4 and t.is_floating_point()
+    tensor outside a quantized leaf (HWIO in the JAX package, OIHW here),
+    but for an MoE layer's stacked experts (``key`` in EXPERT_KEYS)."""
+    return (key not in EXPERT_KEYS and torch.is_tensor(t) and t.dim() == 4
+            and t.is_floating_point())
 
 
-def _walk(tree: Any, fn) -> Any:
-    """``tree`` rebuilt with ``fn`` at every leaf; a quantized dict goes to
-    ``fn`` whole."""
+def _walk(tree: Any, fn, key=None) -> Any:
+    """``tree`` rebuilt with ``fn(leaf, key)`` at every leaf, ``key`` the
+    leaf's dict key (None in a list); a quantized dict goes to ``fn``
+    whole."""
     if isinstance(tree, dict) and not is_quantized(tree):
-        return {k: _walk(v, fn) for k, v in tree.items()}
+        return {k: _walk(v, fn, k) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_walk(v, fn) for v in tree)
-    return fn(tree)
+    return fn(tree, key)
 
 
 def to_jax_layout(tree: Any) -> Any:
     """The port's tree with its conv weights turned OIHW -> HWIO."""
-    return _walk(tree, lambda t: t.permute(*OIHW_TO_HWIO).contiguous()
-                 if is_conv_weight(t) else t)
+    return _walk(tree, lambda t, key: t.permute(*OIHW_TO_HWIO).contiguous()
+                 if is_conv_weight(t, key) else t)
 
 
 def _from_np(a, device) -> Any:
@@ -75,13 +82,11 @@ def _from_np(a, device) -> Any:
     return torch.from_numpy(a).to(device)
 
 
-def _leaf_from_numpy(a, device) -> Any:
+def _leaf_from_numpy(a, key, device) -> Any:
     if is_quantized(a):
-        n = a.get("n")
-        return dict(q=_from_np(a["q"], device), scale=_from_np(a["scale"], device),
-                    n=int(n) if n is not None else int(np.shape(a["q"])[-1]))
+        return _lm_leaf_from_numpy(a, device)
     t = _from_np(a, device)
-    return t.permute(*HWIO_TO_OIHW).contiguous() if is_conv_weight(t) else t
+    return t.permute(*HWIO_TO_OIHW).contiguous() if is_conv_weight(t, key) else t
 
 
 def _to_np(t) -> Any:
@@ -97,14 +102,13 @@ def _to_np(t) -> Any:
 def params_from_numpy(tree: Any, device="cuda") -> Any:
     """JAX-layout numpy params -> port params on ``device``: the card
     unless the caller asks for the CPU."""
-    return _walk(tree, lambda a: _leaf_from_numpy(a, device))
+    return _walk(tree, lambda a, key: _leaf_from_numpy(a, key, device))
 
 
 def params_to_numpy(tree: Any) -> Any:
     """Port params -> JAX-layout numpy params (quantized leaves' ``n`` an
     int)."""
-    return _walk(to_jax_layout(tree), lambda t: {k: _to_np(v) for k, v in t.items()}
-                 if is_quantized(t) else _to_np(t))
+    return _walk(to_jax_layout(tree), lambda t, _: _lm_leaf_to_numpy(t))
 
 
 def opt_state_from_numpy(opt: Any, device="cuda") -> Any:
@@ -134,7 +138,7 @@ def _lm_leaf_to_numpy(t) -> Any:
 def lm_params_from_numpy(tree: Any, device="cuda") -> Any:
     """A JAX transformer's numpy params -> the port's on ``device``, leaf by
     leaf, in the same layout."""
-    return _walk(tree, lambda a: _lm_leaf_from_numpy(a, device))
+    return _walk(tree, lambda a, _: _lm_leaf_from_numpy(a, device))
 
 
 def lm_state_from_numpy(state: Any, device="cuda") -> Any:
@@ -151,7 +155,7 @@ def lm_state_from_numpy(state: Any, device="cuda") -> Any:
 def lm_state_to_numpy(state: Any) -> Any:
     """The inverse of :func:`lm_state_from_numpy`: numpy leaves in the JAX
     package's layout (quantized leaves' ``n`` an int)."""
-    return _walk(state, _lm_leaf_to_numpy)
+    return _walk(state, lambda t, _: _lm_leaf_to_numpy(t))
 
 
 def lm_cache_from_numpy(cache: Any, device="cuda") -> Any:
@@ -171,5 +175,5 @@ def learner_params_from_numpy(tree: Any, device="cuda") -> Any:
 
 def learner_params_to_numpy(tree: Any) -> Any:
     """The inverse of :func:`learner_params_from_numpy`."""
-    return {k: _walk(v, _to_np) if k == "bb" else params_to_numpy(v)
+    return {k: _walk(v, lambda t, _: _to_np(t)) if k == "bb" else params_to_numpy(v)
             for k, v in tree.items()}

@@ -24,15 +24,15 @@ def require_no_grad(name: str, *ts: torch.Tensor, missing: str = "") -> None:
     differentiable ops reach their kernels inside a
     ``torch.autograd.Function`` (:mod:`repro_torch.kernels.dispatch`),
     whose forward runs with grad mode off; every other caller must detach
-    or run under ``torch.no_grad``.  ``missing`` names the ROADMAP item
-    that gives a kernel without a Function its Function."""
+    or run under ``torch.no_grad``.  ``missing`` names the Function that
+    differentiates through the kernel, for the message."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise RuntimeError(
             f"{name}: a tensor that requires grad reached the CUDA kernel "
             f"outside its autograd.Function; the kernel's output has no "
             f"grad_fn, so the gradient would be lost (call the op through "
             f"repro_torch.kernels.dispatch, or detach)"
-            + (f"; {name} has no autograd.Function yet: ROADMAP {missing}" if missing else ""))
+            + (f"; {name}'s autograd.Function is {missing}" if missing else ""))
 
 
 def check_tensor(name: str, t: torch.Tensor, ndim: int,

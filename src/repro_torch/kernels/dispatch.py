@@ -23,20 +23,19 @@ mask-folded one-hots: zero rows (padding) contribute nothing.  Every op
 takes a leading task-lane axis T on its operands: the engine batches its
 lanes where the JAX package vmaps.
 
-On ``cuda`` the four differentiable ops (``segment_sum``,
-``class_second_moment``, ``mahalanobis_head``, ``flash_attention``) reach
-their kernels inside a ``torch.autograd.Function``: the forward launches
-the kernel, the backward is plain math.  For B1-B3 that is the JAX
-package's own ``custom_vjp`` backwards (``repro/kernels/dispatch.py``)
-written over the task-lane axis T, in plain einsums; for flash attention
-it is the VJP of the transcription the JAX trunk differentiates
+On ``cuda`` the five differentiable ops (``segment_sum``,
+``class_second_moment``, ``mahalanobis_head``, ``flash_attention``,
+``gmm``) reach their kernels inside a ``torch.autograd.Function``: the
+forward launches the kernel.  For B1-B3 the backward is the JAX package's
+own ``custom_vjp`` backwards (``repro/kernels/dispatch.py``) written over
+the task-lane axis T, in plain einsums; for flash attention it is the VJP
+of the transcription the JAX trunk differentiates
 (``models/layers.py::attention_scores``), recomputed from the saved q, k
-and v.  A kernel wrapper refuses a tensor that requires grad anywhere else
-(:func:`repro_torch.kernels._checks.require_no_grad`), so a path that
-forgets its Function fails instead of training a frozen model.
-``int8_matmul`` is forward only by contract.  ``gmm`` is forward only
-until B7 has its Function (ROADMAP A14b part 2): on ``cuda`` it refuses
-an operand that requires grad.
+and v; for gmm both backward products are grouped matmuls, and run on the
+gmm kernel itself.  A kernel wrapper refuses a tensor that requires grad
+anywhere else (:func:`repro_torch.kernels._checks.require_no_grad`), so a
+path that forgets its Function fails instead of training a frozen model.
+``int8_matmul`` is forward only by contract.
 """
 from __future__ import annotations
 
@@ -355,7 +354,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # gmm: the MoE layer's grouped expert matmul, out[e] = x[e] @ w[e]
 # ===========================================================================
 
-GMM_AUTOGRAD_ITEM = "A14b part 2 (B7's autograd Function)"
+class _GMM(torch.autograd.Function):
+    """x (E, C, D), w (E, D, F), one dtype -> (E, C, F) through the gmm
+    kernel (B7).
+
+    Backward, with g = d out (E, C, F): dx = g w^T, (E, C, F) @ (E, F, D),
+    and dw = x^T g, (E, D, C) @ (E, C, F); each only where
+    ``needs_input_grad`` asks for it, so a frozen weight (the CNAPs
+    family's trunk) launches no dw.  Both are grouped matmuls, B7's own
+    contract, so both run on B7.  B7 reads its B operand row-major (K, N)
+    through TMA, so w^T and x^T are given to it as contiguous transposed
+    copies (a copy of w^T is one expert projection's weight: 2.52 GB at
+    deepseek-v2).  dw's K is the capacity C, a multiple of 8 (``moe.capacity``),
+    so x^T's rows are 16-byte aligned and TMA can read it; a K that is not a
+    multiple of B7's 64-deep slab is zero filled by the TMA box."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _gm.gmm(x.contiguous(), w.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _gm.gmm(g, w.transpose(1, 2).contiguous())
+        if ctx.needs_input_grad[1]:
+            dw = _gm.gmm(x.transpose(1, 2).contiguous(), g)
+        return dx, dw
 
 
 def gmm(x: torch.Tensor, w: torch.Tensor, backend: Optional[str] = None) -> torch.Tensor:
@@ -363,14 +391,9 @@ def gmm(x: torch.Tensor, w: torch.Tensor, backend: Optional[str] = None) -> torc
 
     ``naive``/``ref``: the reference's einsum in the activations' dtype
     (``w`` cast to it).  ``cuda``: the gmm kernel (B7; on a CPU tensor its
-    plain version), forward only: with grad enabled, an operand that
-    requires grad raises, naming the item that gives B7 its Function,
-    whatever the device, and nothing falls back to the einsum."""
+    plain version) inside :class:`_GMM`, forward and backward; nothing
+    falls back to the einsum."""
     b = resolve_backend(backend, x.device)
     if b in ("naive", "ref"):
         return torch.einsum("ecd,edf->ecf", x, w.to(x.dtype))
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise NotImplementedError(
-            f"gmm: training through the MoE layer on the cuda backend needs "
-            f"ROADMAP {GMM_AUTOGRAD_ITEM}; its kernel is forward only")
-    return _gm.gmm(x.contiguous(), w.to(x.dtype).contiguous())
+    return _GMM.apply(x, w.to(x.dtype))

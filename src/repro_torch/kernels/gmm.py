@@ -43,7 +43,7 @@ def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     (E, C, F) in that dtype."""
     if x.device.type == "cpu":
         return gmm_plain(x, w)
-    require_no_grad("gmm", x, w, missing="A14b part 2 (B7's autograd Function)")
+    require_no_grad("gmm", x, w, missing="dispatch._GMM")
     check_tensor("x", x, 3, _DTYPES, x.device)
     check_tensor("w", w, 3, (x.dtype,), x.device)
     e, c, d = x.shape

@@ -70,5 +70,7 @@ def ssd_chunk_ref(x, dt, A, B, C):
 
 
 def gmm_ref(x, w) -> torch.Tensor:
-    """Grouped (per-expert) matmul: x (E, C, D), w (E, D, F) -> (E, C, F)."""
-    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+    """Grouped (per-expert) matmul: x (E, C, D), w (E, D, F) -> (E, C, F),
+    summed in fp32 (fp64 for fp64 operands)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    return torch.einsum("ecd,edf->ecf", x.to(acc), w.to(acc)).to(x.dtype)

@@ -29,8 +29,9 @@ weights from seed 0.  Tasks come, as in the JAX launcher, from
 task's H subset from a counter-based hash of (23, step, task, example).
 Both run on ``--device`` (default ``cuda``; it raises without a card
 unless ``--device cpu`` is given) with ``--kernel-backend auto``, the
-hand-written kernels on the card (flash attention on every layer of the
-LM).  A preempted run exits 75 after flushing a checkpoint.
+hand-written kernels on the card (flash attention on every GQA layer of
+the LM, the gmm kernel on every MoE layer's experts, forward and
+backward).  A preempted run exits 75 after flushing a checkpoint.
 
 Not ported: the multi-device flags (ROADMAP A12).
 """
@@ -210,8 +211,9 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, default="minitron-4b",
-                    help="LM to train (the transformers are ported; an MoE one "
-                         "trains on the CPU only until ROADMAP A14b part 2)")
+                    help="LM to train (the transformers are ported, dense, MoE "
+                         "and MLA alike; the gmm kernel runs the MoE experts "
+                         "forward and backward on a card)")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--batch", type=int, default=8)
@@ -269,7 +271,7 @@ def main(argv=None) -> None:
                     default="auto",
                     help="kernel backend (repro_torch.kernels.dispatch) of the "
                          "episodic aggregation kernels and of the LM's flash "
-                         "attention: auto = the hand-written CUDA kernels on a "
+                         "attention and gmm: auto = the hand-written CUDA kernels on a "
                          "GPU and ref on the CPU.  The JAX launcher defaults to "
                          "ref because its Pallas kernels run in interpret mode "
                          "off the TPU; here the kernels are the main path")

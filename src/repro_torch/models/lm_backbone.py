@@ -6,10 +6,12 @@ query examples are token sequences (B, S) int64, the features are the
 final hidden states mean-pooled over S in fp32, and FiLM modulates the
 residual stream after every block (one site of width d_model a layer).
 
-The dense GQA transformers are ported; ``family="mamba2"`` raises, naming
-ROADMAP A14c, and MoE / MLA configs raise here (A14b part 2: their
-meta-training differentiates through the gmm kernel, which has no autograd
-Function yet).
+Every ``family="transformer"`` config is taken: dense GQA, MoE and MLA
+(an MoE trunk differentiates through the gmm kernel's autograd Function;
+a frozen trunk launches no weight gradient).  The trunk is drawn in the
+config's ``param_dtype``, each leaf cast as it is drawn (deepseek-v2 and
+kimi-k2 publish bf16 params).  ``family="mamba2"`` raises, naming ROADMAP
+A14c.
 """
 from __future__ import annotations
 
@@ -38,11 +40,10 @@ def make_lm_backbone(cfg: ModelConfig) -> BackboneDef:
             f"family (ROADMAP A14c)")
     if cfg.family != "transformer":
         raise ValueError(f"episodic LM backbone unsupported for {cfg.family!r}")
-    transformer.require_dense(cfg)
     dtype = getattr(torch, cfg.compute_dtype)
 
     def init(gen: torch.Generator, device=None):
-        return transformer.init_transformer(gen, cfg, device)
+        return transformer.init_transformer(gen, cfg, device, at_param_dtype=True)
 
     def features(params, tokens: torch.Tensor, film) -> torch.Tensor:
         """(B, S) int64 ids -> (B, d_model) float32.  Attention runs on the

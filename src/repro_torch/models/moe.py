@@ -7,7 +7,8 @@ Token -> expert assignments are sorted by expert id, packed into an
 and combined back with the router weights.  C = :func:`capacity`; a slot
 past capacity is dropped (GShard semantics).  The three expert projections
 go through :func:`repro_torch.kernels.dispatch.gmm`: the hand-written gmm
-kernel (B7) on the ``cuda`` backend, the reference's einsum otherwise.
+kernel (B7) on the ``cuda`` backend, forward and backward (its autograd
+Function), the reference's einsum otherwise.
 
 Where PyTorch differs from JAX, the port keeps the reference's numbers:
 
@@ -24,7 +25,9 @@ Where PyTorch differs from JAX, the port keeps the reference's numbers:
   scatter adds each kept token into its own slot, onto zeros); each token
   adds its k weighted expert outputs one at a time in the compute dtype, in
   ascending expert id, the order in which the reference's scatter-add meets
-  them.  No atomics, so two runs on the card give the same bits.
+  them.  The pack's backward is the same fixed-order gather (:class:`_Pack`).
+  No atomics, so two runs on the card give the same bits, forward and
+  backward.
 """
 from __future__ import annotations
 
@@ -90,6 +93,37 @@ def capacity(t: int, cfg: MoEConfig) -> int:
     return max(8, ((c + 7) // 8) * 8)   # align slots
 
 
+class _Pack(torch.autograd.Function):
+    """The capacity buffer: ``buf[e, j] = x[rows[e, j]]`` where
+    ``filled[e, j]``, else 0.
+
+    Backward: a token's gradient is the sum of its kept slots' gradients,
+    added one at a time in the compute dtype in ascending expert id (its
+    sorted positions ``pos``), the order in which the reference's
+    scatter-add into x (the transpose of its gather ``x[tok_sorted]``)
+    meets them; a slot dropped at capacity (clamped to slot c - 1) adds
+    exactly 0.  Autograd's own backward of the gather is an indexed add
+    whose order among a token's k slots, and whose precision, are the
+    library's; this one is a fixed-order gather, like the combine."""
+
+    @staticmethod
+    def forward(ctx, x, rows, filled, slot, keep, pos):
+        ctx.save_for_backward(slot, keep, pos)
+        ctx.tokens = x.shape[0]
+        return torch.where(filled, x[rows], torch.zeros((), dtype=x.dtype, device=x.device))
+
+    @staticmethod
+    def backward(ctx, g):
+        slot, keep, pos = ctx.saved_tensors
+        g = g.reshape(-1, g.shape[-1])
+        zero = torch.zeros((), dtype=g.dtype, device=g.device)
+        dx = torch.zeros((ctx.tokens, g.shape[1]), dtype=g.dtype, device=g.device)
+        for i in range(pos.shape[1]):
+            s = pos[:, i]
+            dx = dx + torch.where(keep[s][:, None], g[slot[s]], zero)
+        return dx, None, None, None, None, None
+
+
 def moe_ffn(p: Params, x: torch.Tensor, cfg: MoEConfig,
             backend: Optional[str] = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (T, D) flattened tokens -> (y (T, D) in x's dtype, aux loss f32)."""
@@ -111,11 +145,16 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: MoEConfig,
     keep = pos_in_e < c                                          # capacity drop
     slot = e_sorted * c + torch.clamp(pos_in_e, max=c - 1)
 
+    # each token's k sorted positions in ascending expert id
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(t * k, device=dev)
+    pos = torch.sort(inv.reshape(t, k), dim=1).values            # (T, k)
+
     # pack: slot j of expert e takes sorted position starts[e] + j, if any
     j = torch.arange(c, device=dev)
     src = torch.clamp(starts[:, None] + j, max=t * k - 1)        # (E, C)
     filled = (j < counts[:, None])[..., None]
-    buf = torch.where(filled, x[tok_sorted[src]], torch.zeros((), dtype=x.dtype, device=dev))
+    buf = _Pack.apply(x, tok_sorted[src], filled, slot, keep, pos)
 
     # grouped expert FFN: one grouped matmul per projection (B7 on cuda)
     dt = x.dtype
@@ -124,9 +163,6 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: MoEConfig,
     out = dispatch.gmm(g * u, p["w_down"].to(dt), backend=backend).reshape(e * c, d)
 
     # combine: each token's k slots in ascending expert id (sorted position)
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(t * k, device=dev)
-    pos = torch.sort(inv.reshape(t, k), dim=1).values            # (T, k)
     scale = (weights.reshape(-1)[order] * keep).to(dt)
     y = torch.zeros((t, d), dtype=dt, device=dev)
     for i in range(k):

@@ -27,9 +27,9 @@ tensor, see :mod:`repro_torch.kernels.dispatch`).  GQA's full-sequence
 attention runs the flash attention kernel (B5; ``loss`` and ``trunk``
 differentiate through it); MLA's stays on the transcription (see
 :mod:`repro_torch.models.layers`).  An MoE layer runs its three expert
-projections through the gmm kernel (B7), in prefill and decode alike;
-B7 has no autograd Function yet, so ``loss`` through an MoE layer on the
-``cuda`` backend raises, naming ROADMAP A14b part 2.  Decode attention is
+projections through the gmm kernel (B7), in prefill, decode and training
+alike (``loss`` and ``trunk`` differentiate through B7's autograd
+Function, whose backward products run on B7 too).  Decode attention is
 plain array code, as in the JAX package.
 """
 from __future__ import annotations
@@ -57,15 +57,6 @@ GLOBAL_WINDOW = 1 << 30
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
-
-
-def require_dense(cfg: ModelConfig) -> None:
-    """Raise for what the episodic LM backbone does not take yet: an MoE or
-    MLA trunk (its meta-training differentiates through B7)."""
-    if cfg.moe is not None or cfg.attention.kind == "mla":
-        raise NotImplementedError(
-            f"{cfg.name}: the episodic LM backbone over MoE FFNs or MLA attention "
-            f"comes with ROADMAP A14b part 2; it takes the dense GQA transformers")
 
 
 def moe_dispatch(lp: Params, h2d: torch.Tensor, cfg: ModelConfig,
@@ -214,7 +205,10 @@ _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
     """The JAX package's ``dots_with_no_batch_dims_saveable``: keep the
     outputs of the weight matmuls, recompute everything else (norms, rope,
-    the batched attention products and the flash attention kernel)."""
+    the batched attention products, the flash attention kernel and the
+    MoE's expert projections).  An expert projection ``ecd,edf->ecf`` has a
+    batch dim, so JAX recomputes it too; here it is the gmm kernel (B7)
+    inside its autograd Function, whose output is no ``aten.mm``."""
     return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
 
 

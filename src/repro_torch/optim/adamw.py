@@ -11,22 +11,26 @@ state dtype:
               ``mu`` linear, ``nu`` in the log domain, a 4x smaller state
 
 The int8 state quantizes in blocks along the last axis of the JAX
-package's layout.  A 4-D conv leaf is OIHW here and HWIO there, so its
+package's layout.  A conv weight (:func:`repro_torch.bridge.is_conv_weight`:
+a 4-D leaf but an MoE layer's experts) is OIHW here and HWIO there, so its
 state is quantized over the leaf's HWIO view (permuted OIHW -> HWIO
 before ``quantize``, back after ``dequantize``): its blocks run along the
 output channels as the JAX package's do, and its ``{q, scale, n}`` leaves
 are the JAX package's layout, which the checkpoints store as they are.
+Every other leaf, an MoE layer's stacked (L, E, D, F) experts included,
+has one layout in both packages.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Any, Dict, List, Tuple
 
 import torch
 
-from repro_torch.bridge import HWIO_TO_OIHW, OIHW_TO_HWIO
-from repro_torch.common.tree import tree_leaves, tree_map, tree_rebuild
+from repro_torch.bridge import HWIO_TO_OIHW, OIHW_TO_HWIO, is_conv_weight
+from repro_torch.common.tree import tree_leaves, tree_map, tree_paths, tree_rebuild
 from repro_torch.optim.quant import (dequantize, dequantize_log, is_quantized,
                                      quantize, quantize_log, zeros_quantized,
                                      zeros_quantized_log)
@@ -49,28 +53,35 @@ class AdamWConfig:
                              f"from {STATE_DTYPES})")
 
 
-def _jax_shape(p: torch.Tensor) -> Tuple[int, ...]:
-    return tuple(p.permute(*OIHW_TO_HWIO).shape) if p.dim() == 4 else tuple(p.shape)
+def _conv_flags(params: Tree) -> List[bool]:
+    """Per leaf of ``params``, in ``tree_leaves`` order: whether it is a
+    conv weight (:func:`repro_torch.bridge.is_conv_weight`)."""
+    return [is_conv_weight(t, path.rsplit("/", 1)[-1])
+            for path, t in tree_paths(params).items()]
 
 
-def _zeros_state(p: torch.Tensor, cfg: AdamWConfig, log: bool):
+def _jax_shape(p: torch.Tensor, conv: bool) -> Tuple[int, ...]:
+    return tuple(p.permute(*OIHW_TO_HWIO).shape) if conv else tuple(p.shape)
+
+
+def _zeros_state(p: torch.Tensor, cfg: AdamWConfig, log: bool, conv: bool):
     if cfg.state_dtype == "int8":
         make = zeros_quantized_log if log else zeros_quantized
-        return make(_jax_shape(p), device=p.device)
+        return make(_jax_shape(p, conv), device=p.device)
     return torch.zeros(p.shape, dtype=getattr(torch, cfg.state_dtype), device=p.device)
 
 
-def _read_state(s, p: torch.Tensor, cfg: AdamWConfig, log: bool) -> torch.Tensor:
+def _read_state(s, p: torch.Tensor, cfg: AdamWConfig, log: bool, conv: bool) -> torch.Tensor:
     if cfg.state_dtype != "int8":
         return s.float()
-    x = (dequantize_log if log else dequantize)(s, _jax_shape(p)[-1])
-    return x.permute(*HWIO_TO_OIHW) if p.dim() == 4 else x
+    x = (dequantize_log if log else dequantize)(s, _jax_shape(p, conv)[-1])
+    return x.permute(*HWIO_TO_OIHW) if conv else x
 
 
-def _write_state(x: torch.Tensor, p: torch.Tensor, cfg: AdamWConfig, log: bool):
+def _write_state(x: torch.Tensor, cfg: AdamWConfig, log: bool, conv: bool):
     if cfg.state_dtype != "int8":
         return x.to(getattr(torch, cfg.state_dtype))
-    if p.dim() == 4:
+    if conv:
         x = x.permute(*OIHW_TO_HWIO)
     return (quantize_log if log else quantize)(x)
 
@@ -79,21 +90,26 @@ def adamw_init(params: Tree, cfg: AdamWConfig) -> Dict:
     # mu (signed, well scaled) quantizes linearly; nu (positive, a wide
     # dynamic range under 1/sqrt) in the log domain
     count_device = tree_leaves(params)[0].device
-    return dict(mu=tree_map(lambda p: _zeros_state(p, cfg, False), params),
-                nu=tree_map(lambda p: _zeros_state(p, cfg, True), params),
+    convs = _conv_flags(params)
+
+    def state(log: bool):
+        it = iter(convs)
+        return tree_map(lambda p: _zeros_state(p, cfg, log, next(it)), params)
+
+    return dict(mu=state(False), nu=state(True),
                 count=torch.zeros((), dtype=torch.int32, device=count_device))
 
 
-def _upd(p, g, m, v, c1, c2, lr, cfg: AdamWConfig):
+def _upd(p, g, m, v, c1, c2, lr, cfg: AdamWConfig, conv: bool):
     """One leaf's (new param, new mu, new nu)."""
     g = g.float()
-    m_f = cfg.b1 * _read_state(m, p, cfg, False) + (1 - cfg.b1) * g
-    v_f = cfg.b2 * _read_state(v, p, cfg, True) + (1 - cfg.b2) * g * g
+    m_f = cfg.b1 * _read_state(m, p, cfg, False, conv) + (1 - cfg.b1) * g
+    v_f = cfg.b2 * _read_state(v, p, cfg, True, conv) + (1 - cfg.b2) * g * g
     step = (m_f / c1) / (torch.sqrt(v_f / c2) + cfg.eps)
     if p.dim() >= 2:     # decay matrices only (norms/bias exempt)
         step = step + cfg.weight_decay * p.float()
-    return ((p.float() - lr * step).to(p.dtype), _write_state(m_f, p, cfg, False),
-            _write_state(v_f, p, cfg, True))
+    return ((p.float() - lr * step).to(p.dtype), _write_state(m_f, cfg, False, conv),
+            _write_state(v_f, cfg, True, conv))
 
 
 def _bias_corrections(count: torch.Tensor, cfg: AdamWConfig):
@@ -107,8 +123,9 @@ def adamw_update(params: Tree, grads: Tree, state: Dict, lr,
     count = state["count"] + 1
     c1, c2 = _bias_corrections(count, cfg)
     leaves = lambda t: tree_leaves(t, is_leaf=is_quantized)  # noqa: E731
-    out = [_upd(*ls, c1, c2, lr, cfg)
-           for ls in zip(*map(leaves, (params, grads, state["mu"], state["nu"])))]
+    out = [_upd(*ls, c1, c2, lr, cfg, conv)
+           for *ls, conv in zip(*map(leaves, (params, grads, state["mu"], state["nu"])),
+                                _conv_flags(params))]
     pick = lambda i: tree_rebuild(params, [o[i] for o in out])  # noqa: E731
     return pick(0), dict(mu=pick(1), nu=pick(2), count=count)
 
@@ -119,20 +136,28 @@ def adamw_update(params: Tree, grads: Tree, state: Dict, lr,
 UPDATE_CHUNK = 1 << 24
 
 
-def _row_slices(p: torch.Tensor):
-    """Slices of ``p``'s leading axis of at most about UPDATE_CHUNK
-    elements, each (but the last) a multiple of 64 elements, so that an
-    elementwise op's vectorised body and scalar tail see the same elements
-    as on the whole leaf.  The int8 state's blocks run along the last
-    axis, so a slice of rows holds whole blocks; a 4-D (conv) leaf, whose
-    int8 state is laid out HWIO, and a leaf of one dimension are not
-    sliced."""
-    if p.dim() in (0, 1, 4) or p.numel() <= UPDATE_CHUNK:
+def _row_slices(p: torch.Tensor, conv: bool = False):
+    """Indices that cut ``p`` into blocks of at most about UPDATE_CHUNK
+    elements: the first axis one of whose rows (one index of it) fits
+    UPDATE_CHUNK is cut in slices of rows, each (but the last) a multiple
+    of 64 elements, and the axes before it one index at a time (a stacked
+    (L, E, D, F) expert leaf: one layer and a few experts a block).  Every
+    block starts at a multiple of 64 elements, so that an elementwise op's
+    vectorised body and scalar tail see the same elements as on the whole
+    leaf; where one index of the axes before it would not hold a multiple
+    of 64, only the leading axis is cut.  The int8 state's blocks run
+    along the last axis, so a block holds whole ones; a conv leaf, whose
+    int8 state is laid out HWIO, and a leaf of one dimension are not cut."""
+    if conv or p.dim() <= 1 or p.numel() <= UPDATE_CHUNK:
         return [...]
-    row = p.numel() // p.shape[0]
+    ax = next(i for i in range(p.dim()) if math.prod(p.shape[i + 1:]) <= UPDATE_CHUNK)
+    if math.prod(p.shape[ax:]) % 64:
+        ax = 0
+    row = math.prod(p.shape[ax + 1:])
     align = 64 // math.gcd(row, 64)
     rows = max(align, UPDATE_CHUNK // row // align * align)
-    return [slice(r, r + rows) for r in range(0, p.shape[0], rows)]
+    return [(*lead, slice(r, r + rows)) for lead in itertools.product(*map(range, p.shape[:ax]))
+            for r in range(0, p.shape[ax], rows)]
 
 
 def _state_rows(s, rows):
@@ -172,12 +197,12 @@ def adamw_update_(params: Tree, grads: List, state: Dict, lr, cfg: AdamWConfig,
     c1, c2 = _bias_corrections(count, cfg)
     leaves = []
     tree_map(lambda p, m, v: leaves.append((p, m, v)), params, state["mu"], state["nu"])
-    for i, (p, m, v) in enumerate(leaves):
+    for i, ((p, m, v), conv) in enumerate(zip(leaves, _conv_flags(params))):
         g, grads[i] = grads[i], None
-        for rows in _row_slices(p):
+        for rows in _row_slices(p, conv):
             gs = g[rows] if grad_scale is None else g[rows] * grad_scale
             new = _upd(p[rows], gs, _state_rows(m, rows), _state_rows(v, rows), c1, c2,
-                       lr, cfg)
+                       lr, cfg, conv)
             for dst, src in zip((p[rows], _state_rows(m, rows), _state_rows(v, rows)), new):
                 _assign(dst, src, ok)
         del g

@@ -98,7 +98,7 @@ def _decode(path: str, arr: np.ndarray, dtype_str: str, like, in_quantized: bool
         t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(arr))
-    if not in_quantized and is_conv_weight(like):
+    if not in_quantized and is_conv_weight(like, path.rsplit("/", 1)[-1]):
         t = t.permute(*HWIO_TO_OIHW)
     if t.shape != like.shape:
         raise ValueError(f"checkpoint leaf {path}: shape {tuple(t.shape)} in the port's "

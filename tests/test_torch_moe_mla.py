@@ -36,6 +36,7 @@ from repro.configs import registry as jreg
 from repro.models import layers as JL
 from repro.models import moe as JM
 from repro.models import transformer as JT
+from repro.models.lm_backbone import make_lm_backbone as j_lm_bb
 from repro.models.registry import get_api as j_get_api
 from repro.serve.engine import Request as JRequest
 from repro.serve.engine import ServeEngine as JEngine
@@ -43,6 +44,7 @@ from repro_torch.bridge import lm_cache_from_numpy, lm_params_from_numpy
 from repro_torch.common.tree import tree_leaves, tree_map, tree_paths
 from repro_torch.configs import registry as treg
 from repro_torch.kernels import _checks, dispatch
+from repro_torch.kernels import gmm as tgm
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as TT
@@ -194,30 +196,43 @@ def test_moe_combine_is_deterministic():
 
 
 def test_gmm_dispatch_refuses_grad_on_cuda_naming_its_item():
-    """B7 is forward only: on the cuda backend an operand that requires grad
-    raises, naming A14b part 2; ``ref`` differentiates the einsum, and
-    the wrapper's own check names the item too."""
+    """B7 differentiates through its autograd Function: on the ``cuda``
+    backend (the kernel's plain version on CPU tensors) an operand that
+    requires grad gets the ``ref`` einsum's output and gradients; the raw
+    wrapper still refuses a tensor that requires grad outside the
+    Function, naming the Function (``dispatch._GMM``)."""
     g = torch.Generator().manual_seed(0)
     x = torch.randn(2, 8, 16, generator=g, requires_grad=True)
-    w = torch.randn(2, 16, 8, generator=g)
-    with pytest.raises(NotImplementedError, match="A14b part 2"):
-        dispatch.gmm(x, w, backend="cuda")
-    with torch.no_grad():
-        got = dispatch.gmm(x, w, backend="cuda")
-    assert _rel(got, torch.einsum("ecd,edf->ecf", x, w)) <= 1e-6
-    dispatch.gmm(x, w, backend="ref").sum().backward()
-    assert x.grad is not None
-    with pytest.raises(RuntimeError, match=r"A14b part 2 \(B7's autograd Function\)"):
-        _checks.require_no_grad("gmm", x, w, missing=dispatch.GMM_AUTOGRAD_ITEM)
+    w = torch.randn(2, 16, 8, generator=g, requires_grad=True)
+    dout = torch.randn(2, 8, 8, generator=g)
+    got = dispatch.gmm(x, w, backend="cuda")
+    want = dispatch.gmm(x, w, backend="ref")
+    assert got.grad_fn is not None and _rel(got, want) <= 1e-6
+    for a, b in zip(torch.autograd.grad(got, (x, w), dout),
+                    torch.autograd.grad(want, (x, w), dout)):
+        assert _rel(a, b) <= 1e-6
+    meta = [t.detach().to("meta").requires_grad_(True) for t in (x, w)]
+    with pytest.raises(RuntimeError, match=r"dispatch\._GMM"):
+        tgm.gmm(*meta)
+    with pytest.raises(RuntimeError, match=r"dispatch\._GMM"):
+        _checks.require_no_grad("gmm", x, w, missing="dispatch._GMM")
 
 
 def test_loss_through_moe_on_cuda_backend_raises():
+    """``loss`` through an MoE layer on the ``cuda`` backend no longer
+    raises: its value and every gradient leaf match ``ref``'s (fp32, 1e-5
+    / 1e-4 of each leaf's max)."""
     jc, tc = _cfgs("kimi-k2-1t-a32b")
-    tp = tree_map(lambda t: t.requires_grad_(True),
-                  lm_params_from_numpy(_jax_params("kimi-k2-1t-a32b"), "cpu"))
     _, tb = _tokens(tc, b=2, s=16)
-    with pytest.raises(NotImplementedError, match="A14b part 2"):
-        TT.loss(tp, tb, tc, backend="cuda")
+    out = {}
+    for backend in ("ref", "cuda"):
+        tp = tree_map(lambda t: t.requires_grad_(True),
+                      lm_params_from_numpy(_jax_params("kimi-k2-1t-a32b"), "cpu"))
+        loss, _ = TT.loss(tp, tb, tc, backend=backend)
+        out[backend] = (loss, torch.autograd.grad(loss, tree_leaves(tp)))
+    assert _rel(out["cuda"][0], out["ref"][0]) <= 1e-5
+    for a, b in zip(out["cuda"][1], out["ref"][1]):
+        assert _rel(a, b) <= 1e-4
 
 
 def test_moe_dispatch_over_ranks_raises_naming_a12(monkeypatch):
@@ -428,8 +443,24 @@ def test_init_at_param_dtype_casts_each_draw():
 
 
 def test_episodic_backbone_over_moe_raises_naming_part_2():
-    with pytest.raises(NotImplementedError, match="A14b part 2"):
-        make_lm_backbone(treg.get_smoke_config("deepseek-v2-236b"))
+    """The episodic LM backbone over MLA + MoE builds (it no longer raises)
+    and its features, with a FiLM list and without, match
+    ``repro.models.lm_backbone``'s on the JAX params in fp32 within 1e-5."""
+    jc, tc = _cfgs("deepseek-v2-236b")
+    jbb, tbb = j_lm_bb(jc), make_lm_backbone(tc)
+    assert tbb.feature_dim == jbb.feature_dim and tuple(tbb.film_sites) == tuple(jbb.film_sites)
+    jp = _jax_params("deepseek-v2-236b")
+    tp = lm_params_from_numpy(jp, "cpu")
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, jc.vocab, size=(3, 12)).astype(np.int32)
+    film = [{k: (0.1 * rng.standard_normal(jc.d_model)).astype(np.float32)
+             for k in ("gamma", "beta")} for _ in range(jc.n_layers)]
+    for f in (None, film):
+        want = jbb.features(jax.tree.map(jnp.asarray, jp), jnp.asarray(toks),
+                            None if f is None else [tree_map(jnp.asarray, s) for s in f])
+        got = tbb.features(tp, torch.from_numpy(toks).long(),
+                           None if f is None else [tree_map(torch.from_numpy, s) for s in f])
+        assert got.dtype == torch.float32 and _rel(got, want) <= TOL["float32"]
 
 
 # ---------------------------------------------------------------------------
