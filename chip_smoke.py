@@ -1,6 +1,7 @@
 """Drive the PyTorch port's episodic serving and training paths, its
 episodic LM meta-training, its LM training and its LM decode serving
-(dense, MoE and MLA transformers) on one NVIDIA GPU.
+(dense, MoE and MLA transformers, the mamba2 SSM and the zamba2 hybrid)
+on one NVIDIA GPU.
 
     python3 chip_smoke.py            # needs one CUDA card, nvcc and the repo
 
@@ -158,6 +159,29 @@ Phases, each of which fails the run (non-zero exit) on any error:
    three steps through the example's step; and ``python -m
    repro_torch.launch.train --arch deepseek-v2-236b --steps 3`` (smoke
    config) on the card as a subprocess, which must exit 0;
+5f. training through the SSM and hybrid models: LM training of
+   mamba2-780m at full width and depth as published (fp32 params and
+   AdamW state, bf16 compute, every block checkpointed, loss chunks of
+   512; random weights drawn on the card from seed 0) on the token
+   pipeline (B 2, S 4096): one step's loss and gradient on the kernels,
+   on ``ref`` in bf16 and on ``ref`` in fp32 compute, failing unless the
+   kernel path's loss and worst leaf are within ``LM_GATE`` times the
+   bf16 ``ref`` run's own error, B6 launched on "wgmma" once a layer in
+   the forward and once in the checkpoints' recompute and nothing else,
+   and a second identical step gave the same bits; a fault planted in
+   B6's autograd Function (dt's cotangent zeroed for head 0) that the
+   gate must flag; three steps of ``make_train_step`` through ``train()``
+   (losses, ms a step, tokens/s, peak memory; launches counted on exactly
+   that run) and one profiled step beside the step's bound; zamba2-7b at
+   full width on 12 of its 81 layers (two shared sites, B 2, S 2048) the
+   same way, B5 once a site in the forward on the route its head dim 112
+   takes, without the fault; Simple CNAPs and ProtoNets (``tokens``
+   encoder) over mamba2-780m at full width and depth, phase 5c's tasks
+   and gate, B6 once a layer a pass (inside its Function where the trunk
+   is trained, ProtoNets' recompute too) and B1-B3 at F 1536; B6 and B5
+   at the steps' shapes against their plain versions; and ``python -m
+   repro_torch.launch.train --arch mamba2-780m --steps 3`` (smoke config)
+   on the card as a subprocess, which must exit 0;
 6. drive the LM-side kernel entry point ``repro_torch.kernels.ops`` once
    at published widths (flash attention of gemma2-2b's local and global
    layers and of minitron-4b, kimi-k2's expert matmul, mamba2-780m's SSD
@@ -216,9 +240,30 @@ Phases, each of which fails the run (non-zero exit) on any error:
    beside ``torch.bmm`` in turns and beside the bytes bound; and ``python
    -m repro_torch.launch.serve --arch deepseek-v2-236b`` (smoke config) on
    the card as a subprocess, which must exit 0;
+6d. LM decode serving of the SSM and hybrid models at full width and
+   depth: mamba2-780m (48 layers, 4 slots, prompts 1024 x 4 then 1000 and
+   2048, 16 new tokens) and zamba2-7b (81 layers: 68 mamba, 13 sites of
+   the shared block; 2 slots, prompts 1024, 1024, then 512 and 2048, 8
+   new tokens), random weights drawn on the card from seed 0, bf16
+   compute, through ``ServeEngine``, failing unless every ``prefill``
+   launched B6 on "wgmma" once a mamba layer and B5 once a shared site (on
+   the route ``flash_route`` picks at head dim 112), no ``decode_step``
+   launched anything, and nothing else launched (tokens/s, peak memory);
+   the same traffic through ``ref`` (greedy) and teacher-forced through
+   the kernel path and ``ref`` in fp32 compute: phase 6b's gate on the
+   logits and on the SSM states each prefill leaves in the cache, and a
+   fault planted in B6 on mamba2-780m (every other chunk's states
+   zeroed) that the gate must flag; prefill ms at 1024 and 2048 tokens on
+   the kernels and on ``ref`` in turns and a decode step beside their
+   bounds, one profiled prefill and decode step each (B6's share, idle
+   share); B6 at the prefill shapes and B5 at zamba2's against their
+   plain versions (B5 beside SDPA); and ``python -m
+   repro_torch.launch.serve --arch mamba2-780m`` and ``--arch zamba2-7b``
+   (smoke configs) on the card as subprocesses, which must exit 0;
 7. run the phases' subprocesses (the launchers and examples that phases
-   4b, 5, 5b, 5c, 5d, 5e, 6b and 6c name), all at once after every timed
-   reading, each of which must exit 0 and print what its phase expects;
+   4b, 5, 5b, 5c, 5d, 5e, 5f, 6b, 6c and 6d name), all at once after every
+   timed reading, each of which must exit 0 and print what its phase
+   expects;
 8. print the ``kernels`` JSON line, the card line and, last, the result.
 
 In the ``kernels`` line, ``ms`` is the mean time of back-to-back wrapper
@@ -238,14 +283,20 @@ its own routes each main case took, and ``main_cases`` gives every main
 case's numbers where a kernel has more than one.  ``launches`` counts the
 launches of the path that runs the kernel: the Simple CNAPs serving path
 for the episodic kernels, LM serving of minitron-4b (phase 6b) for flash
-attention, LM serving of kimi-k2 (phase 6c) for gmm, the ops phase for
-ssd_chunk (``ops_launches``, ``lm_serve_gemma2_launches``,
-``lm_serve_kimi_launches`` and ``lm_serve_deepseek_launches`` give the
+attention, LM serving of kimi-k2 (phase 6c) for gmm, LM serving of
+mamba2-780m (phase 6d) for ssd_chunk (``ops_launches``,
+``lm_serve_gemma2_launches``, ``lm_serve_kimi_launches``,
+``lm_serve_deepseek_launches`` and ``lm_serve_zamba2_launches`` give the
 other counts, ``lm_prefill_cases`` flash attention's numbers at the
-prefill shapes and ``lm_moe_cases`` gmm's at phase 6c's);
+prefill shapes, ``lm_zamba2_cases`` its numbers at zamba2-7b's head dim
+112, ``lm_moe_cases`` gmm's at phase 6c's and ``lm_ssm_cases``
+ssd_chunk's at phases 6d's and 5f's shapes);
 ``train_launches`` those of B1-B3 in the five training-loop steps of phase
-5, of flash attention in the three steps of phase 5c and of gmm in the
-three LM training steps of phase 5e (``lm_train_launches`` B1-B3's in
+5, of flash attention in the three steps of phase 5c, of gmm in the
+three LM training steps of phase 5e and of ssd_chunk in the three
+mamba2-780m steps of phase 5f (``lm_ssm_train_zamba2_launches`` and
+``lm_ssm_episodic_launches`` its launches in zamba2-7b's steps and in the
+episodic Simple CNAPs step's forward; ``lm_train_launches`` B1-B3's in
 phase 5c; ``lm_train_cases`` flash attention's numbers at phase 5c's
 shapes), ``lm_moe_episodic_launches`` gmm's in the three episodic steps
 of phase 5e, ``lm_moe_train_cases`` gmm's numbers at phase 5e's shapes,
@@ -257,9 +308,11 @@ phases' under ``paths``, and every path's launches under ``launches``:
 device-sampler loop), ``algo1`` (the two per-task steps), ``fig4``,
 ``fomaml`` and ``finetuner`` (their serving runs), ``lm_train`` (phase
 5c's three steps), ``lm_pretrain`` (phase 5d's three steps), ``lm_moe_train`` and
-``lm_moe_episodic`` (phase 5e's), ``lm_serve`` and ``lm_serve_gemma2`` (phase 6b's
-counted engine runs), ``lm_serve_kimi`` and ``lm_serve_deepseek`` (phase
-6c's).
+``lm_moe_episodic`` (phase 5e's), ``lm_ssm_train``, ``lm_ssm_train_zamba2``
+and ``lm_ssm_episodic`` (phase 5f's), ``lm_serve`` and ``lm_serve_gemma2``
+(phase 6b's counted engine runs), ``lm_serve_kimi`` and
+``lm_serve_deepseek`` (phase 6c's), ``lm_serve_mamba2`` and
+``lm_serve_zamba2`` (phase 6d's).
 
 It imports no JAX.
 """
@@ -503,7 +556,9 @@ def check_kernels(specs, counted=None):
     per-row error of each output within the case's tolerance, and time the
     main cases: kernel, plain version and library call from CUDA events,
     the kernel's device time from the profiler (or, where that reads below
-    the bound or nothing, from CUDA events: :func:`kernel_device_ms`).
+    the bound or nothing, from CUDA events: :func:`kernel_device_ms`).  A
+    case with an ``oracle`` is held against it in place of the plain
+    version (which is still the one timed).
     ``counted`` maps
     (kernel, case index) to the outputs of a counted run of that case,
     which are then checked in place of a fresh call.  Returns the rows of
@@ -521,7 +576,7 @@ def check_kernels(specs, counted=None):
             got = counted.pop((name, i), None)
             got = got if got is not None else _as_tuple(c["fn"](*args, **kw))
             torch.cuda.synchronize()
-            want = _as_tuple(c["plain"](*args, **kw))
+            want = _as_tuple(c.get("oracle", c["plain"])(*args, **kw))
             err_abs = max(float((a.float() - b.float()).abs().max())
                           for a, b in zip(got, want))
             err_row = max(row_err(a, b) for a, b in zip(got, want))
@@ -531,7 +586,9 @@ def check_kernels(specs, counted=None):
             route = f"route={c['route']} " if "route" in c else ""
             print(f"kernel {name:20s} {c['label']:58s} {route}max_abs_err={err_abs:.3e} "
                   f"row_err={err_row:.3e} tol={tol:.0e} (global {err_glob:.3e}) "
-                  f"{'ok' if ok else 'FAIL'}", flush=True)
+                  + (f"against fp64 (the fp32 plain version's row_err "
+                     f"{c['plain_row_err_vs_fp64']:.3e}) " if "oracle" in c else "")
+                  + f"{'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 fail(f"{name} [{c['label']}] disagrees with its plain version")
             row["max_abs_err"] = max(row["max_abs_err"], err_abs)
@@ -2120,12 +2177,14 @@ def lm_grad_errs(got, want, prefixes):
     return loss_err, errs
 
 
-def lm_train_gate(label: str, runs, prefixes, fault: bool = False, ref16_errs=None):
+def lm_train_gate(label: str, runs, prefixes, fault: bool = False, ref16_errs=None,
+                  per_leaf: bool = False):
     """Phase 6b's gate on a training step: run ``got`` (the kernel path, or a
     planted fault's run) against the fp32-compute ``ref32`` run, at LM_GATE
     times the bf16 ``ref16`` run's own error (or ``ref16_errs``, that
     run's :func:`lm_grad_errs` taken before), for the loss and for the
-    worst gradient leaf under ``prefixes``.  A fault must fail it."""
+    worst gradient leaf under ``prefixes``; with ``per_leaf``, for every
+    leaf against its own bf16 error too.  A fault must fail it."""
     if runs["ref32"][0] == 0 or not any(
             w is not None and float(w.abs().max()) > 0 for k, w in runs["ref32"][2].items()
             if k.startswith(prefixes)):
@@ -2135,12 +2194,13 @@ def lm_train_gate(label: str, runs, prefixes, fault: bool = False, ref16_errs=No
     l_got, e_got = lm_grad_errs(runs["got"], runs["ref32"], prefixes)
     worst_ref, worst_got = max(e_ref.values()), max(e_got.values())
     worst_leaf = max(e_got, key=e_got.get)
-    passed = l_got <= LM_GATE * l_ref and worst_got <= LM_GATE * worst_ref
     over = sum(e_got[k] > LM_GATE * e_ref[k] for k in e_got)
+    passed = l_got <= LM_GATE * l_ref and worst_got <= LM_GATE * worst_ref \
+        and not (per_leaf and over)
     print(f"  {label}: vs fp32 ref, loss err {l_got:.3e} (gate {LM_GATE * l_ref:.3e}), worst "
           f"leaf err {worst_got:.3e} at {worst_leaf} (gate {LM_GATE * worst_ref:.3e} = "
           f"{LM_GATE}x bf16 ref's {worst_ref:.3e}, {len(e_got)} leaves, {over} of them past "
-          f"{LM_GATE}x their own bf16 ref error) "
+          f"{LM_GATE}x their own bf16 ref error{', which the gate reads' if per_leaf else ''}) "
           f"{('MISSED' if passed else 'caught') if fault else ('ok' if passed else 'FAIL')}",
           flush=True)
     if passed == fault:
@@ -2496,11 +2556,12 @@ def pretrain_grads(cfg, params, batch, backend):
             dict(forward=fwd, backward=bwd, windows=(windows[:n_fwd], windows[n_fwd:])))
 
 
-def pretrain_gate(label: str, got, ref32, ref16_errs, fault: bool = False):
+def pretrain_gate(label: str, got, ref32, ref16_errs, fault: bool = False,
+                  per_leaf: bool = False):
     """:func:`lm_train_gate` over every leaf, the bf16 ``ref`` run's errors
     taken before (its gradient, 10.5 GB at gemma2-2b, is not kept)."""
     r = lm_train_gate(label, dict(got=got, ref32=ref32), PRETRAIN_GATE_PREFIXES, fault,
-                      ref16_errs)
+                      ref16_errs, per_leaf)
     return {k: v for k, v in r.items() if not k.endswith("leaf_errors")}
 
 
@@ -2581,11 +2642,15 @@ def pretrain_parity(cfg, dev, hidden: int):
     return out
 
 
-def pretrain_loop(cfg, dev):
+def pretrain_loop(cfg, dev, seq: int = PRETRAIN_SEQ, want=None, categories=None,
+                  label: str = "pretrain"):
     """PRETRAIN_STEPS steps of ``make_train_step`` through ``train()`` from
-    ``make_init_state`` (seed 0) on the pipeline's batches, no checkpoint,
-    the launch counts set to 0 just before and read just after; then one
-    step timed and one profiled."""
+    ``make_init_state`` (seed 0) on the pipeline's batches of ``seq``
+    tokens, no checkpoint, the launch counts set to 0 just before and read
+    just after, which must be ``want`` (default: B5 on "wgmma" in the
+    forward and the checkpoints' recompute of every layer, and nothing
+    else); then one step timed and one profiled (device time by
+    ``categories``, default LM_CATEGORIES)."""
     import torch
     from repro_torch.common.tree import tree_leaves
     from repro_torch.kernels import _build
@@ -2599,34 +2664,35 @@ def pretrain_loop(cfg, dev):
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     _build.launches.reset()
-    result = train(state, step, lambda s: pretrain_batch(cfg, s, dev), PRETRAIN_STEPS,
+    result = train(state, step, lambda s: pretrain_batch(cfg, s, dev, seq), PRETRAIN_STEPS,
                    log_every=1)
     torch.cuda.synchronize(dev)
     counts = _build.launches.snapshot()
     peak = torch.cuda.max_memory_allocated(dev)
     losses = [m["loss"] for m in result.metrics_history]
     ms = [t * 1e3 for t in result.step_times]
-    tokens = PRETRAIN_BATCH * PRETRAIN_SEQ
+    tokens = PRETRAIN_BATCH * seq
     tok_s = tokens * (len(ms) - 1) / (sum(ms[1:]) / 1e3)
     reckoned = 16 * n_params          # fp32 params, grads, AdamW mu and nu
-    print(f"pretrain loop: {cfg.name}, {PRETRAIN_STEPS} steps of B {PRETRAIN_BATCH} S "
-          f"{PRETRAIN_SEQ}, losses {losses}, ms per step {ms}, {tok_s:.1f} tokens/s (first "
+    print(f"{label} loop: {cfg.name}, {PRETRAIN_STEPS} steps of B {PRETRAIN_BATCH} S "
+          f"{seq}, losses {losses}, ms per step {ms}, {tok_s:.1f} tokens/s (first "
           f"step excluded), peak memory {peak} B against {reckoned} B reckoned for fp32 "
           f"params, grads and AdamW state ({n_params} params; {held} B held before the "
           f"loop), launches {counts}", flush=True)
     if not all(math.isfinite(x) for x in losses) or any(
             m["nonfinite"] for m in result.metrics_history):
-        fail(f"pretrain loop: losses {losses}, metrics {result.metrics_history}")
+        fail(f"{label} loop: losses {losses}, metrics {result.metrics_history}")
     n = PRETRAIN_STEPS * 2 * cfg.n_layers
-    if counts != {"flash_attention": n, "flash_attention/wgmma": n}:
-        fail(f"pretrain loop: launches {counts}; want B5 {n} times on wgmma (the forward "
-             f"and the checkpoints' recompute of {cfg.n_layers} layers a step) and nothing "
-             f"else")
-    batch = pretrain_batch(cfg, PRETRAIN_STEPS, dev)
+    if want is None:
+        want = {"flash_attention": n, "flash_attention/wgmma": n}
+    if counts != want:
+        fail(f"{label} loop: launches {counts}; want {want} ({PRETRAIN_STEPS} steps: the "
+             f"forward and the checkpoints' recompute) and nothing else")
+    batch = pretrain_batch(cfg, PRETRAIN_STEPS, dev, seq)
     wall = _counted(lambda: step(state, batch))[2]
     busy, cats, table = device_breakdown(
-        lambda: step(state, batch), LM_CATEGORIES,
-        lambda busy, _: f"  pretrain trace: device busy {busy:.2f} ms of an unprofiled step "
+        lambda: step(state, batch), categories or LM_CATEGORIES,
+        lambda busy, _: f"  {label} trace: device busy {busy:.2f} ms of an unprofiled step "
                         f"of {wall:.2f} ms (idle share {1 - busy / wall:.3f})", 15)
     del state, step
     torch.cuda.empty_cache()
@@ -3374,6 +3440,250 @@ def run_moe_train(dev, launches):
 
 
 # ---------------------------------------------------------------------------
+# phase 5f: training through the SSM and hybrid models
+# ---------------------------------------------------------------------------
+
+# mamba2-780m at full width and depth: B 2 x S 4096 (16 chunks of 256 a
+# sequence), fp32 params and AdamW state (12.5 GB)
+SSM_TRAIN_SEQ = 4096
+# zamba2-7b at full width on 12 of its 81 layers: 2 groups of 5 mamba layers
+# and the shared block (so its gradient sums two sites), then 2 tail mamba
+# layers.  Full depth would need 16 B a param for 5.62 G params, 90 GB
+ZAMBA_TRAIN_LAYERS = 12
+ZAMBA_TRAIN_SEQ = 2048
+def ssm_steps_want(cfg, dev, steps: int):
+    """The launches of ``steps`` training steps: each step's forward and
+    its checkpoints' recompute (:func:`ssm_want`)."""
+    fwd, rec = ssm_want(cfg, dev, steps), ssm_want(cfg, dev, steps, recompute=True)
+    return {k: fwd.get(k, 0) + rec.get(k, 0) for k in fwd}
+
+
+def b6_dt_head_zeroed(nh: int):
+    """(label, backward): B6's backward with dt's cotangent zeroed for head 0
+    of every chunk (G is (b, nc, h) flattened, h = ``nh``)."""
+    from repro_torch.kernels import dispatch
+    backward = dispatch._SSDChunk.backward
+
+    def dt_head_zeroed(ctx, *gs):
+        dx, ddt, *rest = backward(ctx, *gs)
+        if ddt is not None:
+            ddt = ddt.clone()
+            ddt.view(-1, nh, ddt.shape[-1])[:, 0] = 0
+        return (dx, ddt, *rest)
+
+    return "B6 backward: dt's cotangent zeroed for head 0", dt_head_zeroed
+
+
+def ssm_flops(cfg, s: int) -> float:
+    """The forward FLOPs of one sequence of ``s`` tokens through the trunk of
+    an SSM or hybrid config (weight matmuls, the SSD, the shared block's
+    causal attention), without the LM head."""
+    from repro_torch.models import mamba2 as TM
+    sc = cfg.ssm
+    nm, sites, h = ssm_shape(cfg)
+    d, di, p, n, q = cfg.d_model, sc.d_inner(cfg.d_model), sc.head_dim, sc.d_state, \
+        sc.chunk_size
+    mm = d * TM.in_proj_dim(cfg) + di * d
+    chunks = -(-s // q)
+    ssd = h * (chunks * (q * (q + 1) * (n + p) + 2.0 * q * p * n) + 2.0 * s * p * n)
+    flops = nm * (2.0 * mm * s + ssd)
+    if sites:
+        a = cfg.attention
+        shared = d * (a.n_heads + 2 * a.n_kv_heads) * a.head_dim + a.n_heads * a.head_dim * d \
+            + 3 * d * cfg.d_ff
+        flops += sites * (2.0 * shared * s + 4.0 * a.head_dim * a.n_heads
+                          * attn_pairs(s, True, None))
+    return flops
+
+
+def ssm_check_step(label, cfg, r, dev):
+    """Fail unless one step's forward launched B6 on "wgmma" once a mamba
+    layer and B5 once a shared site, the backward B6 once a mamba layer
+    (the checkpoints' recompute), and nothing else."""
+    want = dict(forward=ssm_want(cfg, dev), backward=ssm_want(cfg, dev, recompute=True))
+    got = {part: r[part] for part in ("forward", "backward")}
+    if got != want:
+        fail(f"{label}: launches {got}; want {want}")
+
+
+def ssm_train_parity(cfg, dev, seq: int, plant: bool):
+    """One step's loss and gradient on the kernels, on ``ref`` in bf16 and on
+    ``ref`` in fp32 compute, from the same params (drawn on the card from
+    seed 0) and the pipeline's batch 0, through the gate read leaf by leaf
+    too (at mamba2-780m's 48 layers the embedding's bf16 gradient is 0.10
+    of its max from the fp32 run's, which sets the worst-leaf gate wider
+    than a fault in one head's dt moves ``dt_bias``); the same step again
+    on the kernels, which must give the same bits; with ``plant``, the
+    fault planted in B6's backward, which the gate must flag."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.registry import get_api
+    params = get_api(cfg).init(torch.Generator(device=dev).manual_seed(0), cfg)
+    batch = pretrain_batch(cfg, 0, dev, seq)
+    ref32 = pretrain_grads(dataclasses.replace(cfg, compute_dtype="float32"), params, batch,
+                           "ref")
+    ref16 = pretrain_grads(cfg, params, batch, "ref")
+    ref16_errs = lm_grad_errs(ref16, ref32, PRETRAIN_GATE_PREFIXES)
+    ref16_loss = ref16[0]
+    del ref16
+    got = pretrain_grads(cfg, params, batch, "cuda")
+    ssm_check_step(f"{cfg.name} step", cfg, got[3], dev)
+    again = pretrain_grads(cfg, params, batch, "cuda")
+    same = got[0] == again[0] and all(equal_bits(got[2][k], again[2][k]) for k in got[2])
+    del again
+    nm, sites, _ = ssm_shape(cfg)
+    print(f"train ssm {cfg.name}: {cfg.n_layers} layers ({nm} mamba, {sites} shared sites), "
+          f"B {PRETRAIN_BATCH} S {seq}, loss cuda {got[0]:.6g} ref {ref16_loss:.6g} fp32 "
+          f"{ref32[0]:.6g}; launches forward {got[3]['forward']}, backward "
+          f"{got[3]['backward']}; a second identical step bit-equal: {same}", flush=True)
+    if not same:
+        fail(f"{cfg.name}: two identical steps on the kernels gave different bits")
+    out = dict(loss=got[0], ref16_loss=ref16_loss, ref32_loss=ref32[0], bit_equal=same,
+               launches={k: got[3][k] for k in ("forward", "backward")},
+               gate=pretrain_gate(f"{cfg.name} LM step", got, ref32, ref16_errs,
+                                  per_leaf=True))
+    del got
+    if plant:
+        label, fn = b6_dt_head_zeroed(cfg.ssm.n_heads(cfg.d_model))
+        with planted_backward(dispatch._SSDChunk, fn):
+            bad = pretrain_grads(cfg, params, batch, "cuda")
+        out["planted_fault"] = dict(fault=label, **pretrain_gate(
+            f"planted fault: {label}", bad, ref32, ref16_errs, fault=True, per_leaf=True))
+        del bad
+    del ref32, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssm_episodic(dev, launches):
+    """Simple CNAPs and ProtoNets (``tokens`` set encoder) over mamba2-780m
+    at full width and depth, phase 5c's tasks and gate (ProtoNets' tasks at
+    concentration LM_PROTO_CONCENTRATION), LITE h 8: one step each on the
+    kernels against ``ref`` in bf16 and in fp32 compute.  B6 runs once a
+    layer for each pass of the forward (the H pass, the no-grad complement
+    chunks, the queries): inside its autograd Function where the trunk is
+    trained (ProtoNets, whose checkpoints' recompute runs it again for the
+    H pass and the queries), as the bare wrapper where nothing in the trunk
+    needs grad (the complement; Simple CNAPs' frozen trunk, FiLM'd only at
+    its final states).  B1-B3 at F 1536."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    cfg = get_config("mamba2-780m")
+    n = cfg.n_layers
+    n_comp = LM_TASK["way"] * LM_TASK["shot"] - LM_TRAIN_LITE["h"]
+    passes = -(-n_comp // LM_TRAIN_LITE["chunk_size"]) + 2      # H, chunks, queries
+    out = {}
+    for kind, prefixes, kernels in (
+            ("simple_cnaps", ("enc/", "film_gen/"),
+             ("segment_sum", "class_second_moment", "mahalanobis")),
+            ("protonets", ("bb/",), ("segment_sum",))):
+        learner = lm_learner(kind, cfg)
+        params = learner.init(torch.Generator(device=dev).manual_seed(0), dev)
+        kw = dict(concentration=LM_PROTO_CONCENTRATION) if kind == "protonets" else {}
+        batch, scores = lm_tasks(cfg, LM_TRAIN_TASKS, 0, dev, **kw)
+        r = lm_parity(kind, cfg, params, batch, scores, prefixes)
+        fwd, bwd = r["launches"]["forward"], r["launches"]["backward"]
+        n_bwd = 2 * n if kind == "protonets" else 0
+        want = (passes * n, n_bwd)
+        got = tuple((part.get("ssd_chunk", 0), part.get("ssd_chunk/wgmma", 0)) for part in
+                    (fwd, bwd))
+        if got != tuple((w, w) for w in want) or any(
+                not k.startswith("ssd_chunk") for k in bwd):
+            fail(f"train ssm {kind}: launches forward {fwd}, backward {bwd}; want B6 on "
+                 f"wgmma {want[0]} times in the forward ({passes} passes of {n} layers) and "
+                 f"{want[1]} in the backward, and nothing else there")
+        _need(f"train ssm {kind} forward", fwd, kernels)
+        out[kind] = r
+        del learner, params, batch, scores
+        torch.cuda.empty_cache()
+        mark(f"5f: episodic {kind} done")
+    launches["lm_ssm_episodic"] = out["simple_cnaps"]["launches"]["forward"]
+    return out
+
+
+def run_ssm_train_launcher():
+    """``python -m repro_torch.launch.train --arch mamba2-780m --steps 3``
+    (its smoke config) on the card as a subprocess, which must exit 0 on
+    ``device=cuda``."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        return run_chain([(["-m", "repro_torch.launch.train", "--arch", "mamba2-780m",
+                            "--steps", "3"], "device=cuda")], tmp)
+
+
+def ssm_train_loop(cfg, dev, seq: int, label: str):
+    """:func:`pretrain_loop` for an SSM or hybrid config, with its launches
+    and categories, beside the step's bound: the forward's FLOPs three
+    times (the recompute not counted) at the bf16 peak, the fp32 unembed at
+    the fp32 rate."""
+    r = pretrain_loop(cfg, dev, seq, want=ssm_steps_want(cfg, dev, PRETRAIN_STEPS),
+                      categories=SSM_CATEGORIES, label=label)
+    bf16 = 3 * PRETRAIN_BATCH * ssm_flops(cfg, seq)
+    f32 = 3 * 2.0 * PRETRAIN_BATCH * seq * cfg.vocab_padded * cfg.d_model
+    bound = (bf16 / BF16_FLOPS + f32 / FP32_FLOPS) * 1e3
+    step_ms = statistics.median(r["step_ms"][1:])
+    b6 = r["trace"]["categories"].get("B6 ssd_chunk", {}).get("device_ms", 0.0)
+    r.update(bound=dict(ms=bound, bf16_flops=bf16, f32_flops=f32, share=bound / step_ms),
+             b6_ms=b6, b6_share=b6 / max(r["trace"]["busy_ms"], 1e-9))
+    print(f"{label} bound: {bf16:.4g} bf16 FLOPs + {f32:.4g} f32 FLOPs = {bound:.1f} ms a "
+          f"step; the loop's median step {step_ms:.1f} ms ({100 * bound / step_ms:.1f} % of "
+          f"the bound's rate); B6 {b6:.2f} ms of a step's device time "
+          f"({100 * r['b6_share']:.1f} %)", flush=True)
+    return r
+
+
+def run_ssm_train(dev, launches):
+    """Phase 5f: training through the SSM and hybrid models.  LM training of
+    mamba2-780m at full width and depth as published (fp32 params and
+    AdamW state, bf16 compute, every block checkpointed, loss chunks of
+    512; random weights drawn on the card from seed 0) at B 2 x S 4096;
+    zamba2-7b at full width on ZAMBA_TRAIN_LAYERS layers at B 2 x S 2048;
+    the episodic LM over mamba2-780m; B6 and B5 at the steps' shapes; the
+    launcher as a subprocess."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_config
+    t_phase = time.perf_counter()
+    cfg = get_config("mamba2-780m")
+    zcfg = dataclasses.replace(get_config("zamba2-7b"), n_layers=ZAMBA_TRAIN_LAYERS)
+    for c in (cfg, zcfg):
+        if (c.remat_policy, c.compute_dtype, c.param_dtype, c.opt_state_dtype,
+                c.loss_chunk) != ("nothing", "bfloat16", "float32", "float32", 512):
+            fail(f"{c.name}: expected remat 'nothing', bf16 compute, fp32 params and AdamW "
+                 f"state, loss chunks of 512")
+    out = dict(kind="lm_ssm_train", arch=cfg.name, batch=PRETRAIN_BATCH, seq=SSM_TRAIN_SEQ)
+    out["parity"] = ssm_train_parity(cfg, dev, SSM_TRAIN_SEQ, plant=True)
+    mark("5f: mamba2-780m parity and planted fault done")
+    out["loop"] = ssm_train_loop(cfg, dev, SSM_TRAIN_SEQ, "train ssm")
+    launches["lm_ssm_train"] = out["loop"]["launches"]
+    mark("5f: mamba2-780m loop done")
+    out["zamba2"] = dict(layers=zcfg.n_layers, seq=ZAMBA_TRAIN_SEQ,
+                         parity=ssm_train_parity(zcfg, dev, ZAMBA_TRAIN_SEQ, plant=False))
+    mark("5f: zamba2-7b parity done")
+    out["zamba2"]["loop"] = ssm_train_loop(zcfg, dev, ZAMBA_TRAIN_SEQ, "train hybrid")
+    launches["lm_ssm_train_zamba2"] = out["zamba2"]["loop"]["launches"]
+    mark("5f: zamba2-7b loop done")
+    out["episodic"] = ssm_episodic(dev, launches)
+    b = PRETRAIN_BATCH
+    rows = check_kernels(ssm_path_specs(dev, [
+        (f"mamba2-780m train B{b} S{SSM_TRAIN_SEQ} G{b * SSM_TRAIN_SEQ // 256 * 48} Q256 P64 "
+         f"N128 fp32", b * SSM_TRAIN_SEQ // 256 * 48, 64, 128),
+        (f"zamba2-7b train B{b} S{ZAMBA_TRAIN_SEQ} G{b * ZAMBA_TRAIN_SEQ // 256 * 112} Q256 "
+         f"P64 N64 fp32", b * ZAMBA_TRAIN_SEQ // 256 * 112, 64, 64)],
+        [(f"zamba2-7b train B{b} S{ZAMBA_TRAIN_SEQ} Hq32 Hkv32 D112 causal", b,
+          ZAMBA_TRAIN_SEQ)]))
+    if any(r != "wgmma" for r in rows["ssd_chunk"]["routes"]):
+        fail(f"B6 at the training steps' shapes took routes {rows['ssd_chunk']['routes']}")
+    out["ssd_kernel"], out["flash_kernel"] = rows["ssd_chunk"], rows["flash_attention"]
+    torch.cuda.empty_cache()
+    defer(out, "launcher", run_ssm_train_launcher)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 5f: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the LM-side kernel entry point repro_torch.kernels.ops
 # ---------------------------------------------------------------------------
 
@@ -3423,6 +3733,36 @@ def flash_case(randn, label, b, s, hq, hkv, d, dtype, main=False, lib=False,
                 peak=BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
 
 
+def ssd_case(g, dev, label, gg, q, p, n, dtype=None, main=False, offset=False,
+             iters=(3, 3)):
+    """A case of ssd_chunk through ``ops.ssd_chunk`` on G = ``gg`` chunks of
+    ``q`` steps, P ``p``, N ``n``, drawn on the CPU generator ``g`` (dt and A
+    in Mamba-2's initialisation ranges: dt log-uniform in [1e-3, 1e-1], A =
+    -uniform(1, 16)), as :func:`check_kernels` takes it.  The work is
+    counted once (not the split passes of the "wgmma" route), at the rate
+    of the units that do it: bf16 tensor cores or fp32."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+    dtype = dtype or torch.float32
+    u = lambda *s: torch.rand(*s, generator=g)  # noqa: E731
+    dt = torch.exp(math.log(1e-3) + u(gg, q) * math.log(100.0)).to(dev, dtype)
+    A = (-(1.0 + 15.0 * u(gg))).to(dev, dtype)
+    x, B, C = (torch.randn(gg, q, k, generator=g).to(dev, dtype) for k in (p, n, n))
+    if offset:
+        x = unaligned(x)
+    pairs = q * (q + 1) // 2
+    esz = x.element_size()
+    route = ssd.ssd_route(x, dt, A, B, C)
+    return dict(label=label, fn=ops.ssd_chunk, plain=ssd.ssd_chunk_plain, lib=None,
+                route=route, symbol="ssd_wgmma" if route == "wgmma" else "ssd_chunk_kernel",
+                args=(x, dt, A, B, C),
+                tol=OPS_TOL["ssd_chunk"][str(dtype).split(".")[1]], main=main, iters=iters,
+                bytes=esz * gg * (q * p + q + 1 + 2 * q * n) + 4 * gg * (q * p + q + 1 + p * n),
+                flops=gg * (2.0 * pairs * (n + p) + 2.0 * q * p * n),
+                peak=BF16_FLOPS if route == "wgmma" else FP32_FLOPS)
+
+
 def ops_cases(dev):
     """The LM-side kernels' specs, as :func:`kernel_cases` gives them; ``fn``
     goes through repro_torch.kernels.ops, and the main cases are the ones
@@ -3432,7 +3772,6 @@ def ops_cases(dev):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gmm as gm
     from repro_torch.kernels import ops
-    from repro_torch.kernels import ssd_scan as ssd
 
     g = torch.Generator(device="cpu").manual_seed(1)
 
@@ -3463,29 +3802,7 @@ def ops_cases(dev):
                     flops=2.0 * e * c * d * f,
                     peak=BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
 
-    def ssd_case(label, gg, q, p, n, dtype=torch.float32, main=False, offset=False):
-        # Mamba-2's initialisation ranges: dt log-uniform in [1e-3, 1e-1],
-        # A = -uniform(1, 16)
-        u = lambda *s: torch.rand(*s, generator=g)
-        dt = torch.exp(math.log(1e-3) + u(gg, q) * math.log(100.0)).to(dev, dtype)
-        A = (-(1.0 + 15.0 * u(gg))).to(dev, dtype)
-        x, B, C = (randn(gg, q, k, dtype=dtype) for k in (p, n, n))
-        if offset:
-            x = unaligned(x)
-        pairs = q * (q + 1) // 2
-        esz = x.element_size()
-        route = ssd.ssd_route(x, dt, A, B, C)
-        # the work counted once (not the split passes of the "wgmma" route),
-        # at the rate of the units that do it: bf16 tensor cores or fp32
-        return dict(label=label, fn=ops.ssd_chunk, plain=ssd.ssd_chunk_plain, lib=None,
-                    route=route, symbol="ssd_wgmma" if route == "wgmma" else "ssd_chunk_kernel",
-                    args=(x, dt, A, B, C),
-                    tol=OPS_TOL["ssd_chunk"][str(dtype).split(".")[1]], main=main,
-                    iters=(3, 3),
-                    bytes=esz * gg * (q * p + q + 1 + 2 * q * n)
-                    + 4 * gg * (q * p + q + 1 + p * n),
-                    flops=gg * (2.0 * pairs * (n + p) + 2.0 * q * p * n),
-                    peak=BF16_FLOPS if route == "wgmma" else FP32_FLOPS)
+    ssd = functools.partial(ssd_case, g, dev)
 
     src = "src/repro_torch/kernels/csrc/"
     spec = lambda name, source, replaces, symbol, cases: dict(
@@ -3542,21 +3859,21 @@ def ops_cases(dev):
         # route; other widths and unaligned bases the "simt" route
         spec("ssd_chunk", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:56",
              "ssd_wgmma", [
-            ssd_case("mamba2-780m G1536 Q256 P64 N128", 48 * 32, 256, 64, 128, main=True),
-            ssd_case("mamba2-780m G1536 Q256 P64 N128 bf16", 48 * 32, 256, 64, 128,
+            ssd("mamba2-780m G1536 Q256 P64 N128", 48 * 32, 256, 64, 128, main=True),
+            ssd("mamba2-780m G1536 Q256 P64 N128 bf16", 48 * 32, 256, 64, 128,
                      torch.bfloat16, main=True),
-            ssd_case("ragged G6 Q32 P16 N8", 6, 32, 16, 8),
-            ssd_case("ragged G3 Q50 P24 N12", 3, 50, 24, 12),
-            ssd_case("ragged G4 Q64 P32 N16 bf16", 4, 64, 32, 16, torch.bfloat16),
-            ssd_case("ragged G5 Q100 P32 N32", 5, 100, 32, 32),
-            ssd_case("ragged G5 Q100 P16 N16 bf16", 5, 100, 16, 16, torch.bfloat16),
-            ssd_case("ragged G4 Q100 P16 N32 fp16", 4, 100, 16, 32, torch.float16),
-            ssd_case("ragged G3 Q130 P64 N128 bf16", 3, 130, 64, 128, torch.bfloat16),
-            ssd_case("ragged G2 Q70 P64 N256 bf16 (N: simt)", 2, 70, 64, 256, torch.bfloat16),
-            ssd_case("ragged G3 Q200 P48 N80", 3, 200, 48, 80),
-            ssd_case("ragged G3 Q100 P24 N32 bf16 (P: simt)", 3, 100, 24, 32,
+            ssd("ragged G6 Q32 P16 N8", 6, 32, 16, 8),
+            ssd("ragged G3 Q50 P24 N12", 3, 50, 24, 12),
+            ssd("ragged G4 Q64 P32 N16 bf16", 4, 64, 32, 16, torch.bfloat16),
+            ssd("ragged G5 Q100 P32 N32", 5, 100, 32, 32),
+            ssd("ragged G5 Q100 P16 N16 bf16", 5, 100, 16, 16, torch.bfloat16),
+            ssd("ragged G4 Q100 P16 N32 fp16", 4, 100, 16, 32, torch.float16),
+            ssd("ragged G3 Q130 P64 N128 bf16", 3, 130, 64, 128, torch.bfloat16),
+            ssd("ragged G2 Q70 P64 N256 bf16 (N: simt)", 2, 70, 64, 256, torch.bfloat16),
+            ssd("ragged G3 Q200 P48 N80", 3, 200, 48, 80),
+            ssd("ragged G3 Q100 P24 N32 bf16 (P: simt)", 3, 100, 24, 32,
                      torch.bfloat16),
-            ssd_case("ragged G3 Q100 P32 N32 unaligned (simt)", 3, 100, 32, 32,
+            ssd("ragged G3 Q100 P32 N32 unaligned (simt)", 3, 100, 32, 32,
                      offset=True)]),
     ]
 
@@ -3786,19 +4103,28 @@ def lm_errs(got, want, skip=frozenset()):
     return pre, dec
 
 
-def lm_gate(label: str, runs, fault: bool = False, skip=frozenset()):
-    """Hold run ``got`` (the kernel path, or a planted fault's run) against
-    ``ref32`` at LM_GATE times the error of ``ref16``, on every logits row
-    but those in ``skip``; returns the readings.  A fault must fail the
-    gate."""
-    e_ref = lm_errs(runs["ref16"], runs["ref32"], skip)
-    e_got = lm_errs(runs["got"], runs["ref32"], skip)
-    e_pair = lm_errs(runs["got"], runs["ref16"], skip)
+def lm_gate(label: str, runs, fault: bool = False, skip=frozenset(), run: str = "got",
+            states: bool = False):
+    """Hold ``run`` (the kernel path ``got``, or a planted fault's run)
+    against ``ref32`` at LM_GATE times the error of ``ref16``, on every
+    logits row but those in ``skip`` and, with ``states``, on the SSM
+    states each prefill left in the cache (:func:`ssm_state_err`; at
+    random initialisation the SSD is about 1 % of each mixer's output
+    beside its D skip, under bf16's rounding of their sum, so a fault
+    inside B6 barely moves the logits, while the states are B6's own
+    product); returns the readings.  A fault must fail the gate."""
+    def errs(a, b):
+        e = lm_errs(runs[a], runs[b], skip)
+        return e + (ssm_state_err(runs["states"][a], runs["states"][b]),) if states else e
+
+    e_ref, e_got, e_pair = errs("ref16", "ref32"), errs(run, "ref32"), errs(run, "ref16")
     limit = [LM_GATE * e for e in e_ref]
     passed = all(g <= lim for g, lim in zip(e_got, limit))
-    print(f"  {label}: vs fp32 ref, prefill/decode logits err {e_got[0]:.3e}/{e_got[1]:.3e} "
-          f"(gate {limit[0]:.3e}/{limit[1]:.3e} = {LM_GATE}x bf16 ref's "
-          f"{e_ref[0]:.3e}/{e_ref[1]:.3e}); vs bf16 ref {e_pair[0]:.3e}/{e_pair[1]:.3e} "
+    show = lambda es: "/".join(f"{e:.3e}" for e in es)  # noqa: E731
+    print(f"  {label}: vs fp32 ref, prefill/decode logits"
+          f"{' / prefill SSM states' if states else ''} err {show(e_got)} (gate "
+          f"{show(limit)} = {LM_GATE}x bf16 ref's {show(e_ref)}); vs bf16 ref "
+          f"{show(e_pair)} "
           f"{('MISSED' if passed else 'caught') if fault else ('ok' if passed else 'FAIL')}",
           flush=True)
     if passed == fault:
@@ -3808,28 +4134,47 @@ def lm_gate(label: str, runs, fault: bool = False, skip=frozenset()):
                 gate=limit, passed=passed)
 
 
-def lm_runs(cfg, params32, params16, reqs, slots, max_seq, fault=None):
+def recording_states(engine, store: list):
+    """``engine`` with each ``prefill``'s SSM states (the cache's ``ssm``
+    leaf, fp32) appended to ``store``, in the order of the calls."""
+    import dataclasses
+    prefill = engine.api.prefill
+
+    def call(*a, **kw):
+        logits, cache = prefill(*a, **kw)
+        store.append(cache["ssm"].clone())
+        return logits, cache
+
+    engine.api = dataclasses.replace(engine.api, prefill=call)
+    return engine
+
+
+def lm_runs(cfg, params32, params16, reqs, slots, max_seq, fault=None, states=False):
     """The traffic ``reqs()`` through recorded engines: ``ref`` in the
     compute dtype (greedy; its tokens are forced on the others), the kernel
     path, ``ref`` in fp32 compute and, given ``fault`` (a context manager
-    that plants one), the kernel path with the fault."""
+    that plants one), the kernel path with the fault.  With ``states``,
+    each run's prefill SSM states go to ``runs["states"][run]``."""
     import dataclasses
-    runs = {"ref16": {}}
+    runs = {"ref16": {}, "states": {}}
+
+    def engine(name, *args, **kw):
+        eng = lm_engine(*args, record=runs[name], **kw)
+        return recording_states(eng, runs["states"].setdefault(name, [])) if states else eng
+
     ref_reqs = reqs()
-    lm_engine(cfg, params16, "ref", slots, max_seq, record=runs["ref16"]) \
-        .run_to_completion(ref_reqs)
+    engine("ref16", cfg, params16, "ref", slots, max_seq).run_to_completion(ref_reqs)
     forced = {r.uid: r.out_tokens for r in ref_reqs}
     runs["got"] = {}
-    lm_engine(cfg, params16, "cuda", slots, max_seq, record=runs["got"],
-              forced=forced).run_to_completion(reqs())
+    engine("got", cfg, params16, "cuda", slots, max_seq, forced=forced).run_to_completion(reqs())
     runs["ref32"] = {}
-    lm_engine(dataclasses.replace(cfg, compute_dtype="float32"), params32, "ref", slots,
-              max_seq, record=runs["ref32"], forced=forced).run_to_completion(reqs())
+    engine("ref32", dataclasses.replace(cfg, compute_dtype="float32"), params32, "ref", slots,
+           max_seq, forced=forced).run_to_completion(reqs())
     if fault is not None:
         runs["fault"] = {}
         with fault():
-            lm_engine(cfg, params16, "cuda", slots, max_seq, record=runs["fault"],
-                      forced=forced).run_to_completion(reqs())
+            engine("fault", cfg, params16, "cuda", slots, max_seq,
+                   forced=forced).run_to_completion(reqs())
     return runs
 
 
@@ -4038,8 +4383,8 @@ def run_lm_serve(dev, launches):
           f"{gwall:.3f} s, peak memory {gpeak} B, launches {gcounts}", flush=True)
     runs = lm_runs(gcfg, gparams, g16, greqs, 2, gmax, fault=swapped_windows)
     ggate = lm_gate(f"{gcfg.name} kernel path", runs)
-    fault = lm_gate(f"{gcfg.name} planted fault: local and global windows swapped",
-                    {**runs, "got": runs["fault"]}, fault=True)
+    fault = lm_gate(f"{gcfg.name} planted fault: local and global windows swapped", runs,
+                    fault=True, run="fault")
     out["gemma2"] = dict(seconds=gwall, peak_bytes=gpeak, launches=gcounts, gate=ggate,
                          planted_fault=fault)
     mark("6b: gemma2-2b done")
@@ -4109,23 +4454,6 @@ def moe_model(arch: str, layers: int, dev):
     return cfg, params
 
 
-def counting(engine, calls: dict):
-    """``engine`` with its model API's ``prefill`` and ``decode_step``
-    counted into ``calls``."""
-    import dataclasses
-    api = engine.api
-
-    def counted(name, fn):
-        def call(*a, **kw):
-            calls[name] = calls.get(name, 0) + 1
-            return fn(*a, **kw)
-        return call
-
-    engine.api = dataclasses.replace(api, prefill=counted("prefill", api.prefill),
-                                     decode_step=counted("decode_step", api.decode_step))
-    return engine
-
-
 def moe_reqs(cfg):
     return lm_requests(cfg, MOE_PROMPTS, MOE_MAX_NEW, seed=0)
 
@@ -4138,9 +4466,9 @@ def moe_counted(cfg, params, dev):
     nothing else.  Returns (requests, counts, calls, wall s, peak B)."""
     import torch
     from repro_torch.kernels import _build
-    calls = {}
-    eng = counting(lm_engine(cfg, params, "cuda", MOE_SLOTS,
-                             max(MOE_PROMPTS) + MOE_MAX_NEW + 8), calls)
+    record = []
+    eng = launches_by_call(lm_engine(cfg, params, "cuda", MOE_SLOTS,
+                                     max(MOE_PROMPTS) + MOE_MAX_NEW + 8), record)
     reqs = moe_reqs(cfg)
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -4151,10 +4479,11 @@ def moe_counted(cfg, params, dev):
     wall = time.perf_counter() - t0
     counts = _build.launches.snapshot()
     peak = torch.cuda.max_memory_allocated(dev)
-    n_gmm = 3 * cfg.n_layers * (calls.get("prefill", 0) + calls.get("decode_step", 0))
+    calls = engine_calls(record)
+    n_gmm = 3 * cfg.n_layers * (calls["prefill"] + calls["decode_step"])
     want = {"gmm": n_gmm, "gmm/wgmma": n_gmm}
     if cfg.attention.kind == "gqa":
-        n_fa = cfg.n_layers * calls.get("prefill", 0)
+        n_fa = cfg.n_layers * calls["prefill"]
         want |= {"flash_attention": n_fa, "flash_attention/wgmma": n_fa}
     if counts != want or calls.get("prefill") != len(MOE_PROMPTS):
         fail(f"{cfg.name}: launches {counts} over engine calls {calls}; want {want}")
@@ -4301,8 +4630,8 @@ def moe_gate(cfg, runs, routes, fault: bool):
     if fault:
         f_dis, _ = route_disagreements(routes, ("got", "fault"))
         out["planted_fault"] = lm_gate(
-            f"{cfg.name} planted fault: B7 reads expert e+1's weights for expert e",
-            {**runs, "got": runs["fault"]}, fault=True, skip=skip)
+            f"{cfg.name} planted fault: B7 reads expert e+1's weights for expert e", runs,
+            fault=True, skip=skip, run="fault")
         out["planted_fault"]["routings"] = f_dis
     return out
 
@@ -4490,6 +4819,351 @@ def run_moe_serve_launcher():
     return run_lm_serve_launcher(["--arch", "deepseek-v2-236b"])
 
 
+# ---------------------------------------------------------------------------
+# phase 6d: LM decode serving of the SSM and hybrid models
+# ---------------------------------------------------------------------------
+
+# (arch, slots, prompts, new tokens), each at full width and depth.
+# mamba2-780m: four prompts of one length decode as one stacked cohort,
+# then 1000 (a ragged last chunk: the zero-padded tail) and 2048 slot by
+# slot; zamba2-7b (5.62 G params, 22.5 GB in fp32 and 11 GB of bf16 compute
+# copies): a stacked pair, then 512 and 2048
+SSM_SERVE = (("mamba2-780m", 4, (1024, 1024, 1024, 1024, 1000, 2048), 16),
+             ("zamba2-7b", 2, (1024, 1024, 512, 2048), 8))
+SSM_PREFILL_LENGTHS = (1024, 2048)
+SSM_DECODE_POS = 1024
+SSM_CATEGORIES = (("B6 ssd_chunk", ("ssd_wgmma", "ssd_chunk_kernel")),) + LM_CATEGORIES
+
+
+def ssm_shape(cfg):
+    """(mamba layers, shared sites, SSD heads) of an SSM or hybrid config."""
+    from repro_torch.models import zamba2 as TZ
+    if cfg.family == "hybrid":
+        return TZ.n_mamba_layers(cfg), TZ.layout(cfg)[0], cfg.ssm.n_heads(cfg.d_model)
+    return cfg.n_layers, 0, cfg.ssm.n_heads(cfg.d_model)
+
+
+def hybrid_flash_route(cfg, dev) -> str:
+    """The route ``flash_route`` picks for the shared block's attention (bf16
+    q, k, v of the config's heads; zamba2-7b's head dim 112 is no "wgmma"
+    head dim)."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_route
+    a = cfg.attention
+    t = torch.empty((1, 8, a.n_heads, a.head_dim), dtype=torch.bfloat16, device=dev)
+    return flash_route(t, t, t)
+
+
+def ssm_want(cfg, dev, passes: int = 1, recompute: bool = False):
+    """The launches of ``passes`` full-sequence forwards (a prefill, or a
+    training forward): B6 on "wgmma" once a mamba layer, B5 once a shared
+    site on the route its head dim takes; with ``recompute``, those of the
+    checkpoints' recompute, which runs the mamba blocks only."""
+    nm, sites, _ = ssm_shape(cfg)
+    n = passes * nm
+    want = {"ssd_chunk": n, "ssd_chunk/wgmma": n}
+    if sites and not recompute:
+        route = hybrid_flash_route(cfg, dev)
+        want |= {"flash_attention": passes * sites, f"flash_attention/{route}": passes * sites}
+    return want
+
+
+def launches_by_call(engine, record: list):
+    """``engine`` with its model API's ``prefill`` and ``decode_step``
+    appending (name, the kernel launches of that call) to ``record``."""
+    import dataclasses
+    from repro_torch.kernels import _build
+    api = engine.api
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            before = _build.launches.snapshot()
+            out = fn(*a, **kw)
+            after = _build.launches.snapshot()
+            record.append((name, {k: n - before.get(k, 0) for k, n in after.items()
+                                  if n - before.get(k, 0)}))
+            return out
+        return call
+
+    engine.api = dataclasses.replace(api, prefill=counted("prefill", api.prefill),
+                                     decode_step=counted("decode_step", api.decode_step))
+    return engine
+
+
+def engine_calls(record) -> dict:
+    """The number of ``prefill`` and ``decode_step`` calls in a
+    :func:`launches_by_call` record."""
+    return {n: sum(1 for c, _ in record if c == n) for n in ("prefill", "decode_step")}
+
+
+def ssm_counted(cfg, params16, reqs, slots, max_seq, dev):
+    """One engine run on the kernels with the launch counts set to 0 just
+    before and read just after, each model call's launches recorded: every
+    ``prefill`` must have launched B6 on "wgmma" once a mamba layer and B5
+    once a shared site, no ``decode_step`` anything, and nothing else.
+    Returns (requests, counts, calls, wall s, peak B)."""
+    import torch
+    from repro_torch.kernels import _build
+    record = []
+    eng = launches_by_call(lm_engine(cfg, params16, "cuda", slots, max_seq), record)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.launches.reset()
+    t0 = time.perf_counter()
+    eng.run_to_completion(reqs)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    counts = _build.launches.snapshot()
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = ssm_want(cfg, dev)
+    calls = engine_calls(record)
+    bad = [(c, got) for c, got in record if got != (want if c == "prefill" else {})]
+    total = {k: n * len(reqs) for k, n in want.items()}
+    if bad or calls["prefill"] != len(reqs) or counts != total:
+        fail(f"{cfg.name}: launches {counts} over engine calls {calls}; want {want} a "
+             f"prefill and none a decode step ({len(bad)} calls differ, first "
+             f"{bad[:2]})")
+    for r in reqs:
+        if not r.done or len(r.out_tokens) != r.max_new_tokens or \
+                not all(0 <= t < cfg.vocab for t in r.out_tokens):
+            fail(f"{cfg.name} request {r.uid}: done={r.done}, tokens {r.out_tokens}")
+    return reqs, counts, calls, wall, peak
+
+
+def ssm_bounds(cfg, s: int, b: int, k_len: int):
+    """(prefill bound ms, by; decode bound ms, by) of ``cfg`` (mamba2 or
+    zamba2).  The bytes: the mamba blocks' and the shared block's matmul
+    and conv weights in bf16, their fp32 SSM parameters and norms, the fp32
+    tied embedding read once by the LM head; a decode step of ``b`` slots
+    also reads and writes every layer's conv and fp32 SSM states and reads
+    each site's first ``k_len`` cached keys and values.  The FLOPs, at the
+    bf16 tensor-core peak: prefill of ``s`` tokens (:func:`ssm_flops`, and
+    the last token's head); a decode step of ``b`` tokens (the weight
+    matmuls, the state update and read-out, attention over ``k_len`` keys,
+    the head)."""
+    from repro_torch.models import mamba2 as TM
+    sc = cfg.ssm
+    nm, sites, h = ssm_shape(cfg)
+    d, di, p, n = cfg.d_model, sc.d_inner(cfg.d_model), sc.head_dim, sc.d_state
+    c = TM.conv_dim(cfg)
+    mm = d * TM.in_proj_dim(cfg) + di * d                          # a mamba block's matmuls
+    shared, cache, attn = 0, 0.0, 0.0
+    if sites:
+        a = cfg.attention
+        shared = d * (a.n_heads + 2 * a.n_kv_heads) * a.head_dim + a.n_heads * a.head_dim * d \
+            + 3 * d * cfg.d_ff
+        cache = 2.0 * 2 * b * k_len * sites * a.n_kv_heads * a.head_dim
+        attn = sites * (2.0 * shared + 4.0 * a.head_dim * a.n_heads * k_len)
+    weights = 2.0 * (nm * (mm + c * sc.d_conv + c) + shared) + 4.0 * nm * (3 * h + d + di) \
+        + 4.0 * cfg.vocab_padded * d
+    head = 2.0 * d * cfg.vocab_padded
+    states = 2.0 * nm * b * (2 * c * (sc.d_conv - 1) + 4 * h * p * n)
+    dec_flops = b * (nm * (2.0 * mm + 4.0 * h * p * n) + attn + head)
+    return (bound_ms(weights, ssm_flops(cfg, s) + head, BF16_FLOPS),
+            bound_ms(weights + states + cache, dec_flops, BF16_FLOPS))
+
+
+def ssm_timings(cfg, params16, slots: int, dev):
+    """Prefill ms at SSM_PREFILL_LENGTHS on the kernels and on ``ref`` in
+    turns, a decode step at ``slots`` slots beside their bounds, and one
+    profiled prefill (at the first length) and decode step: B6's share of
+    the device time and the idle share."""
+    import torch
+    from repro_torch.models.registry import get_api
+    api = get_api(cfg)
+    g = torch.Generator(device=dev).manual_seed(2)
+    out = dict(prefill={})
+    for n in SSM_PREFILL_LENGTHS:
+        batch = dict(tokens=torch.randint(0, cfg.vocab, (1, n), generator=g, device=dev))
+        k_ms, r_ms = time_pair_ms(lambda: api.prefill(params16, batch, cfg, backend="cuda"),
+                                  lambda: api.prefill(params16, batch, cfg, backend="ref"),
+                                  iters=2, reps=3)
+        (b_ms, b_by), _ = ssm_bounds(cfg, n, 1, n)
+        out["prefill"][n] = dict(ms=k_ms, ref_ms=r_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"  {cfg.name} prefill S{n}: {k_ms:.3f} ms on the kernels, {r_ms:.3f} ms on ref; "
+              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+    cache = api.init_cache(cfg, slots, SSM_DECODE_POS + 8, dev)
+    cache["len"] = SSM_DECODE_POS
+    toks = torch.zeros((slots, 1), dtype=torch.long, device=dev)
+    # the cache is written in place at position len: each call rewrites the same one
+    ms = time_ms(lambda: api.decode_step(params16, dict(cache), toks, cfg), iters=5, reps=3)
+    _, (b_ms, b_by) = ssm_bounds(cfg, 1, slots, SSM_DECODE_POS + 1)
+    out["decode"] = dict(slots=slots, ms=ms, tokens_per_s=slots * 1e3 / ms, bound_ms=b_ms,
+                         bound_by=b_by, pos=SSM_DECODE_POS)
+    print(f"  {cfg.name} decode step at {slots} slots, position {SSM_DECODE_POS}: {ms:.3f} ms "
+          f"({slots * 1e3 / ms:.1f} tokens/s); bound {b_ms:.4f} ms ({b_by})", flush=True)
+    n = SSM_PREFILL_LENGTHS[0]
+    batch = dict(tokens=torch.randint(0, cfg.vocab, (1, n), generator=g, device=dev))
+    out["trace_prefill"] = trace_lm(lambda: api.prefill(params16, batch, cfg, backend="cuda"),
+                                    out["prefill"][n]["ms"], f"{cfg.name} prefill S{n}",
+                                    categories=SSM_CATEGORIES, kernel="B6 ssd_chunk")
+    out["trace_decode"] = trace_lm(lambda: api.decode_step(params16, dict(cache), toks, cfg),
+                                   ms, f"{cfg.name} decode step at {slots} slots",
+                                   categories=SSM_CATEGORIES, kernel="B6 ssd_chunk")
+    return out
+
+
+@contextlib.contextmanager
+def ssd_states_gap():
+    """The planted fault: B6's chunk states of every other chunk (every
+    other G) zeroed in each of its outputs, phase 6's planted fault on the
+    model's path."""
+    from repro_torch.kernels import ssd_scan
+    orig = ssd_scan.ssd_chunk
+
+    def gap(*args):
+        y, st, cd, sd = orig(*args)
+        st[::2] = 0
+        return y, st, cd, sd
+
+    ssd_scan.ssd_chunk = gap
+    try:
+        yield
+    finally:
+        ssd_scan.ssd_chunk = orig
+
+
+def ssd_chunk_fp64(x, dt, A, B, C):
+    """``ssd_chunk_plain``'s arithmetic in fp64, the outputs cast to fp32:
+    the oracle of the path-shape cases."""
+    import torch
+    x, dt, A, B, C = (t.double() for t in (x, dt, A, B, C))
+    dA_cum = torch.cumsum(dt * A[:, None], dim=1)                  # (G, Q)
+    pos = torch.arange(x.shape[1], device=x.device)
+    mask = pos[:, None] >= pos[None, :]
+    seg = dA_cum[:, :, None] - dA_cum[:, None, :]
+    L = torch.where(mask, torch.exp(torch.where(mask, seg, 0.0)), 0.0)
+    y = torch.einsum("gls,gs,gsp->glp", torch.einsum("gln,gsn->gls", C, B) * L, dt, x)
+    st = torch.einsum("gqn,gq,gqp->gpn", B, torch.exp(dA_cum[:, -1:] - dA_cum) * dt, x)
+    return tuple(t.float() for t in (y, st, torch.exp(dA_cum[:, -1]), torch.exp(dA_cum)))
+
+
+def fp64_held(case):
+    """A B6 case held against :func:`ssd_chunk_fp64` at LM_GATE times the
+    fp32 plain version's own per-row error against it (at least the
+    case's tolerance).  At Q 256 the plain version's y rows are 1.7e-4
+    to 7.7e-4 from fp64 on Mamba-2's initialisation ranges (exp of a
+    difference of two fp32 cumsums of up to 400 in magnitude, then a sum
+    that cancels), so a per-row tolerance of 1e-4 against it reads which
+    of two fp32 orders a row's draws favour."""
+    want = ssd_chunk_fp64(*case["args"])
+    own = max(row_err(a, b) for a, b in zip(case["plain"](*case["args"]), want))
+    return case | dict(oracle=lambda *a: want, tol=max(case["tol"], LM_GATE * own),
+                       plain_row_err_vs_fp64=own)
+
+
+def ssm_path_specs(dev, shapes, flash_shapes):
+    """B6 at the path's shapes (``shapes``: (label, G, P, N); Q 256, fp32
+    operands as the models give them; held against fp64,
+    :func:`fp64_held`) and B5 at zamba2's (``flash_shapes``: (label, B,
+    S); 32 heads of 112, causal, bf16, beside SDPA), as
+    :func:`check_kernels` takes them."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(8)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g).to(device=dev, dtype=dtype)
+
+    src = "src/repro_torch/kernels/csrc/"
+    specs = [dict(name="ssd_chunk", source=src + "ssd_scan.cu",
+                  replaces="src/repro/kernels/ssd_scan.py:56", symbol="ssd_wgmma",
+                  cases=[fp64_held(ssd_case(g, dev, label, gg, 256, p, n, main=True))
+                         for label, gg, p, n in shapes])]
+    if flash_shapes:
+        specs.append(dict(
+            name="flash_attention", source=src + "flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:89", symbol="flash_attention_kernel",
+            cases=[flash_case(randn, label, b, s, 32, 32, 112, torch.bfloat16, main=True,
+                              lib=True, iters=(5, 3), causal=True)
+                   for label, b, s in flash_shapes]))
+    return specs
+
+
+def ssm_state_err(got, want) -> float:
+    """The largest over prefills and layers of a layer's SSM state error:
+    max|got - want| over that layer's states over their max|want|."""
+    worst = 0.0
+    for g, w in zip(got, want, strict=True):
+        g, w = g.float().flatten(1), w.float().flatten(1)
+        err = (g - w).abs().amax(1) / w.abs().amax(1).clamp_min(1e-30)
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def ssm_serve_one(arch, slots, prompts, max_new, dev, launches, fault: bool):
+    """One model of phase 6d: the counted engine run, the gate (and the
+    planted B6 fault, with ``fault``), the timings."""
+    import torch
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import get_api
+    cfg = get_config(arch)
+    params = get_api(cfg).init(torch.Generator(device=dev).manual_seed(0), cfg)
+    p16 = get_api(cfg).compute_params(params, cfg)
+    nm, sites, h = ssm_shape(cfg)
+    max_seq = max(prompts) + max_new + 8
+    reqs = lambda: lm_requests(cfg, prompts, max_new, seed=0)  # noqa: E731
+    for backend in ("cuda", "ref"):         # cuBLAS handles, allocator
+        lm_engine(cfg, p16, backend, 1, 128).run_to_completion(
+            lm_requests(cfg, (64,), 2, seed=1))
+    served, counts, calls, wall, peak = ssm_counted(cfg, p16, reqs(), slots, max_seq, dev)
+    key = f"lm_serve_{arch.split('-')[0]}"
+    launches[key] = counts
+    n_tok = sum(len(r.out_tokens) for r in served)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"path {key}: {cfg.name} ({cfg.n_layers} layers: {nm} mamba, {sites} shared sites; "
+          f"d_model {cfg.d_model}, {h} SSD heads, {n_params} params), {len(served)} requests "
+          f"(prompts {prompts}), {n_tok} tokens in {wall:.3f} s on {slots} slots: "
+          f"{n_tok / wall:.1f} tokens/s, peak memory {peak} B, engine calls {calls}, "
+          f"launches {counts}", flush=True)
+    runs = lm_runs(cfg, params, p16, reqs, slots, max_seq,
+                   fault=ssd_states_gap if fault else None, states=True)
+    out = dict(arch=cfg.name, layers=cfg.n_layers, mamba_layers=nm, sites=sites,
+               params=n_params, requests=len(served), tokens=n_tok, seconds=wall,
+               tokens_per_s=n_tok / wall, peak_bytes=peak, launches=counts, calls=calls,
+               gate=lm_gate(f"{cfg.name} kernel path", runs, states=True))
+    if fault:
+        out["planted_fault"] = lm_gate(
+            f"{cfg.name} planted fault: B6's states of every other chunk zeroed", runs,
+            fault=True, run="fault", states=True)
+    del runs
+    mark(f"6d: {cfg.name} gate done")
+    out.update(ssm_timings(cfg, p16, slots, dev))
+    mark(f"6d: {cfg.name} timings done")
+    del params, p16
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_ssm_serve(dev, launches):
+    """Phase 6d: LM decode serving of mamba2-780m and zamba2-7b at full
+    width and depth (random weights drawn on the card from seed 0, bf16
+    compute) through ``ServeEngine``; B6 and B5 at the path's shapes; the
+    launchers as subprocesses."""
+    import torch
+    t_phase = time.perf_counter()
+    out = dict(kind="lm_serve_ssm")
+    for (arch, slots, prompts, max_new), fault in zip(SSM_SERVE, (True, False)):
+        out[arch] = ssm_serve_one(arch, slots, prompts, max_new, dev, launches, fault)
+    specs = ssm_path_specs(dev, [
+        (f"mamba2-780m prefill S{n} G{n // 256 * 48} Q256 P64 N128 fp32", n // 256 * 48, 64, 128)
+        for n in SSM_PREFILL_LENGTHS] + [
+        (f"zamba2-7b prefill S{n} G{n // 256 * 112} Q256 P64 N64 fp32", n // 256 * 112, 64, 64)
+        for n in SSM_PREFILL_LENGTHS],
+        [(f"zamba2-7b prefill B1 S{n} Hq32 Hkv32 D112 causal", 1, n)
+         for n in SSM_PREFILL_LENGTHS])
+    rows = check_kernels(specs)
+    if any(r != "wgmma" for r in rows["ssd_chunk"]["routes"]):
+        fail(f"B6 at the SSM path's shapes took routes {rows['ssd_chunk']['routes']}")
+    out["ssd_kernel"], out["flash_kernel"] = rows["ssd_chunk"], rows["flash_attention"]
+    for arch in ("mamba2-780m", "zamba2-7b"):
+        defer(out, f"launcher_{arch}", run_lm_serve_launcher, ["--arch", arch])
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 6d: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4541,23 +5215,31 @@ def main() -> int:
     moe_train = run_moe_train(dev, launches)
     summary.append(moe_train)
     mark("phase 5e done")
+    ssm_train = run_ssm_train(dev, launches)
+    summary.append(ssm_train)
+    mark("phase 5f done")
     ops_rows, ops_planted = run_ops_path(dev, launches)
     planted += ops_planted
     mark("phase 6 done")
-    summary.append(run_lm_serve(dev, launches))
+    lm_serve = run_lm_serve(dev, launches)
+    summary.append(lm_serve)
     mark("phase 6b done")
     moe_serve = run_moe_serve(dev, launches)
     summary.append(moe_serve)
     mark("phase 6c done")
+    ssm_serve = run_ssm_serve(dev, launches)
+    summary.append(ssm_serve)
+    mark("phase 6d done")
     run_deferred()
     mark("subprocesses done")
     # each kernel counted on the path that runs it: flash attention on LM
     # serving's prefills, gmm on MoE serving's expert projections (kimi-k2),
-    # ssd_chunk on the ops path
+    # ssd_chunk on the SSD chunks of mamba2-780m's prefills
     path_of = {n: "simple_cnaps" for n in rows} | {n: "ops" for n in ops_rows} \
-        | {"flash_attention": "lm_serve", "gmm": "lm_serve_kimi"}
+        | {"flash_attention": "lm_serve", "gmm": "lm_serve_kimi",
+           "ssd_chunk": "lm_serve_mamba2"}
     rows |= ops_rows
-    prefill_row = summary[-2]["prefill_kernel"]
+    prefill_row = lm_serve["prefill_kernel"]
     rows["gmm"]["lm_moe_cases"] = moe_serve["gmm_cases"]
     rows["gmm"]["lm_moe_train_cases"] = moe_train["kernel_cases"]
     rows["gmm"]["max_abs_err"] = max(rows["gmm"]["max_abs_err"], moe_serve["gmm_max_abs_err"],
@@ -4565,10 +5247,19 @@ def main() -> int:
     rows["flash_attention"]["lm_prefill_cases"] = prefill_row["cases"]
     rows["flash_attention"]["lm_train_cases"] = lm_train["kernel_cases"]
     rows["flash_attention"]["lm_pretrain_cases"] = lm_pretrain["kernel_cases"]
+    rows["flash_attention"]["lm_zamba2_cases"] = (ssm_serve["flash_kernel"]["cases"]
+                                                  + ssm_train["flash_kernel"]["cases"])
     rows["flash_attention"]["max_abs_err"] = max(rows["flash_attention"]["max_abs_err"],
                                                  prefill_row["max_abs_err"],
                                                  lm_train["kernel_max_abs_err"],
-                                                 lm_pretrain["kernel_max_abs_err"])
+                                                 lm_pretrain["kernel_max_abs_err"],
+                                                 ssm_serve["flash_kernel"]["max_abs_err"],
+                                                 ssm_train["flash_kernel"]["max_abs_err"])
+    rows["ssd_chunk"]["lm_ssm_cases"] = (ssm_serve["ssd_kernel"]["cases"]
+                                         + ssm_train["ssd_kernel"]["cases"])
+    rows["ssd_chunk"]["max_abs_err"] = max(rows["ssd_chunk"]["max_abs_err"],
+                                           ssm_serve["ssd_kernel"]["max_abs_err"],
+                                           ssm_train["ssd_kernel"]["max_abs_err"])
     for name, path in path_of.items():
         if launches[path].get(name, 0) < 1:
             fail(f"kernel {name} was not launched on the {path} path")
@@ -4580,6 +5271,7 @@ def main() -> int:
     # "train_launches": the launches of the episodic kernels in the five
     # steps of the training loop (phase 5), of flash attention in the three
     # steps of phase 5c, of gmm in the three steps of phase 5e's LM
+    # training, of ssd_chunk in the three steps of phase 5f's mamba2-780m
     # training; "lm_train_launches" those of B1-B3 in phase 5c.
     # "route" is how the kernel was written (CUDA C++); "routes" the
     # kernel's own route ("wgmma" tensor cores or "simt" CUDA cores) at each
@@ -4587,7 +5279,8 @@ def main() -> int:
     case_keys = ("shape", "route", "ms", "device_ms", "device_timer", "plain_ms", "bound_ms",
                  "bound_by", "library_ms", "library_device_ms")
     train_path = {n: "train" for n in launches["train"]} | {"flash_attention": "lm_train",
-                                                             "gmm": "lm_moe_train"}
+                                                             "gmm": "lm_moe_train",
+                                                             "ssd_chunk": "lm_ssm_train"}
     print(json.dumps({"kernels": [
         {k: rows[n][k] for k in ("name", "route", "source", "replaces")}
         | {"launches": launches[path_of[n]][n]}
@@ -4596,7 +5289,9 @@ def main() -> int:
            if n in launches["lm_train"] and train_path.get(n) != "lm_train" else {})
         | ({f"{p}_launches": launches[p][n] for p in ("ops", "lm_serve_gemma2", "lm_pretrain",
                                                        "lm_serve_kimi", "lm_serve_deepseek",
-                                                       "lm_moe_episodic")
+                                                       "lm_moe_episodic", "lm_serve_zamba2",
+                                                       "lm_ssm_train_zamba2",
+                                                       "lm_ssm_episodic")
             if p != path_of[n] and n in launches[p]})
         | {k: rows[n][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                    "bound_by", "library_ms", "library_device_ms",
@@ -4604,7 +5299,7 @@ def main() -> int:
         | ({"main_cases": [{k: t[k] for k in case_keys} for t in rows[n]["cases"]]}
            if len(rows[n]["cases"]) > 1 else {})
         | ({f"lm_{c}_cases": [{k: t[k] for k in case_keys} for t in rows[n][f"lm_{c}_cases"]]
-            for c in ("prefill", "train", "pretrain", "moe", "moe_train")
+            for c in ("prefill", "train", "pretrain", "moe", "moe_train", "ssm", "zamba2")
             if f"lm_{c}_cases" in rows[n]})
         for n in rows]}))
     print(card)

@@ -16,15 +16,19 @@ params; ``opt_state_from_numpy(opt)`` does the same for an AdamW state
 checkpoints store.  With the same weights both packages compute the same
 function.
 
-The LM transformers have no conv weight: ``lm_params_from_numpy`` carries
-a JAX transformer's params (stacked layers, leading L axis; an MoE layer's
+The LM families have no conv weight of that kind: ``lm_params_from_numpy``
+carries a JAX LM's params (stacked layers, leading L axis; an MoE layer's
 router, (L, E, D, F) experts and nested ``shared`` dict; MLA's latent
-projections and norms) across as they are, ``lm_state_from_numpy`` /
+projections and norms; mamba2's 3-D depthwise ``conv_w`` (L, c, k);
+zamba2's ``mamba`` stack and its ``shared`` block, whose 2-D MLP leaves
+share the experts' keys) across as they are, ``lm_state_from_numpy`` /
 ``lm_state_to_numpy`` an LM train state ``dict(params, opt)`` (AdamW
 ``mu`` and ``nu`` in fp32, bf16 or int8 ``{q, scale, n}``, and ``count``)
 both ways, and ``lm_cache_from_numpy`` its cache (``k``, ``v`` (L, B, S,
 H, D), or MLA's latent ``ckv`` (L, B, S, R) and ``krope`` (L, B, S,
-rope); ``len`` a Python int in the port).  A meta-learner over an LM backbone
+rope); mamba2's ``conv`` (L, B, c, k-1) and fp32 ``ssm`` (L, B, h, p, n);
+zamba2's per-site ``k``, ``v`` (G, B, S, H, D) beside its mamba layers'
+states; ``len`` a Python int in the port).  A meta-learner over an LM backbone
 crosses with ``learner_params_from_numpy`` (and back with
 ``learner_params_to_numpy``): its ``bb`` subtree as an LM tree, the rest
 (set encoder, FiLM generator, head generator) as above.  A leaf's rank
@@ -136,8 +140,8 @@ def _lm_leaf_to_numpy(t) -> Any:
 
 
 def lm_params_from_numpy(tree: Any, device="cuda") -> Any:
-    """A JAX transformer's numpy params -> the port's on ``device``, leaf by
-    leaf, in the same layout."""
+    """A JAX LM's numpy params -> the port's on ``device``, leaf by leaf,
+    in the same layout."""
     return _walk(tree, lambda a, _: _lm_leaf_from_numpy(a, device))
 
 
@@ -159,8 +163,9 @@ def lm_state_to_numpy(state: Any) -> Any:
 
 
 def lm_cache_from_numpy(cache: Any, device="cuda") -> Any:
-    """A JAX transformer's numpy cache (GQA's k and v, or MLA's ckv and
-    krope) -> the port's on ``device``."""
+    """A JAX LM's numpy cache (GQA's k and v, MLA's ckv and krope, the SSM
+    layers' conv and ssm, zamba2's per-site k and v) -> the port's on
+    ``device``, every leaf in its dtype and layout."""
     return {k: int(np.asarray(v)) if k == "len" else _from_np(v, device)
             for k, v in cache.items()}
 

@@ -7,8 +7,9 @@ after every layer.  The port of the JAX package's
     python -m repro_torch.examples.episodic_lm --arch minitron-4b [--device cpu]
 
 It runs the arch's smoke config on ``--device`` (default ``cuda``: the
-hand-written kernels, flash attention inside its autograd Function; it
-raises without a card unless ``--device cpu`` is given).  Each step takes
+hand-written kernels, flash attention or, for mamba2-780m, ssd_chunk
+inside its autograd Function; it raises without a card unless
+``--device cpu`` is given).  Each step takes
 one token task (4-way, 8 shot, 6 queries a class, 48 tokens), the
 meta-loss gradient over the leaves the loss reaches, a global-norm clip at
 10 and plain SGD at 1e-3; then the held-out accuracy over 10 tasks through

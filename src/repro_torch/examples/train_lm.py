@@ -7,8 +7,9 @@ monitoring.
 
     python -m repro_torch.examples.train_lm --arch minitron-4b --steps 300
 
-It runs on ``--device`` (default ``cuda``: flash attention on every layer;
-it raises without a card unless ``--device cpu`` is given).  ``--full``
+It runs on ``--device`` (default ``cuda``: the arch's kernels, flash
+attention on every attention layer, ssd_chunk on every SSD chunk; it
+raises without a card unless ``--device cpu`` is given).  ``--full``
 trains the full assigned config on that one device instead: gemma2-2b's
 fp32 params, gradients and AdamW state (41.8 GB) fit an 80 GB card,
 minitron-4b's (81.6 GB) do not.

@@ -2,8 +2,9 @@
 
 Every support-set aggregation the meta-learners run (per-class feature
 sums, the Simple CNAPs raw second moment, the Mahalanobis head), the
-quantized head matmul, the LM trunk's causal self-attention and the MoE
-layer's grouped expert matmuls go through the ops here.  Each op picks an implementation per *backend*:
+quantized head matmul, the LM trunk's causal self-attention, the MoE
+layer's grouped expert matmuls and the Mamba-2 SSD's intra-chunk terms go
+through the ops here.  Each op picks an implementation per *backend*:
 
   ``naive``  the literal composite (per-example expansion, then a reduce);
              for the second moment it forms the per-example (B, F, F)
@@ -23,16 +24,17 @@ mask-folded one-hots: zero rows (padding) contribute nothing.  Every op
 takes a leading task-lane axis T on its operands: the engine batches its
 lanes where the JAX package vmaps.
 
-On ``cuda`` the five differentiable ops (``segment_sum``,
+On ``cuda`` the six differentiable ops (``segment_sum``,
 ``class_second_moment``, ``mahalanobis_head``, ``flash_attention``,
-``gmm``) reach their kernels inside a ``torch.autograd.Function``: the
-forward launches the kernel.  For B1-B3 the backward is the JAX package's
+``gmm``, ``ssd_chunk``) reach their kernels inside a
+``torch.autograd.Function``: the forward launches the kernel.  For B1-B3 the backward is the JAX package's
 own ``custom_vjp`` backwards (``repro/kernels/dispatch.py``) written over
 the task-lane axis T, in plain einsums; for flash attention it is the VJP
 of the transcription the JAX trunk differentiates
 (``models/layers.py::attention_scores``), recomputed from the saved q, k
 and v; for gmm both backward products are grouped matmuls, and run on the
-gmm kernel itself.  A kernel wrapper refuses a tensor that requires grad
+gmm kernel itself; for ssd_chunk it is the VJP of the kernel's plain
+version, recomputed from the saved operands.  A kernel wrapper refuses a tensor that requires grad
 anywhere else (:func:`repro_torch.kernels._checks.require_no_grad`), so a
 path that forgets its Function fails instead of training a frozen model.
 ``int8_matmul`` is forward only by contract.
@@ -50,6 +52,7 @@ from repro_torch.kernels import gmm as _gm
 from repro_torch.kernels import int8_matmul as _im
 from repro_torch.kernels import mahalanobis as _md
 from repro_torch.kernels import segment_pool as _sp
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.optim import quant as _quant
 
 BACKENDS = ("naive", "ref", "cuda", "auto")
@@ -397,3 +400,55 @@ def gmm(x: torch.Tensor, w: torch.Tensor, backend: Optional[str] = None) -> torc
     if b in ("naive", "ref"):
         return torch.einsum("ecd,edf->ecf", x, w.to(x.dtype))
     return _GMM.apply(x, w.to(x.dtype))
+
+
+# ===========================================================================
+# ssd_chunk: the Mamba-2 SSD's intra-chunk terms, G chunks at once
+# ===========================================================================
+
+class _SSDChunk(torch.autograd.Function):
+    """x (G, Q, P), dt (G, Q), A (G,), B, C (G, Q, N), one dtype ->
+    (y_diag (G, Q, P), states (G, P, N), chunk_decay (G,), state_decay
+    (G, Q)), all fp32, through the ssd_chunk kernel (B6).
+
+    Backward: the VJP of the kernel's plain version ``ssd_chunk_plain``,
+    recomputed from the saved x, dt, A, B and C (the pattern of
+    :class:`_FlashAttention`).  The JAX model differentiates its own
+    einsums (``models/mamba2.py::ssd_chunked``), which compute the same
+    function: the Pallas kernel has no ``custom_vjp``, so no backward kernel
+    is owed.  An output whose cotangent is None (or that no path reaches) is
+    left out of the VJP."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C):
+        ctx.save_for_backward(x, dt, A, B, C)
+        return _ssd.ssd_chunk(x.contiguous(), dt.contiguous(), A.contiguous(),
+                              B.contiguous(), C.contiguous())
+
+    @staticmethod
+    def backward(ctx, *gs):
+        need = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+            live = [t for t in ins if t.requires_grad]
+            pairs = [(o, g) for o, g in zip(_ssd.ssd_chunk_plain(*ins), gs) if g is not None]
+            if not (live and pairs):
+                return (None,) * 5
+            outs, cots = zip(*pairs)
+            grads = iter(torch.autograd.grad(outs, live, cots, allow_unused=True))
+        return tuple(next(grads) if n else None for n in need)
+
+
+def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+              C: torch.Tensor, backend: Optional[str] = None):
+    """The SSD's intra-chunk terms of G chunks: x (G, Q, P), dt (G, Q), A
+    (G,), B, C (G, Q, N) -> (y_diag (G, Q, P), states (G, P, N), chunk_decay
+    (G,), state_decay (G, Q)), fp32.
+
+    ``naive``/``ref``: the plain version ``ssd_chunk_plain``.  ``cuda``: the
+    ssd_chunk kernel (B6; on a CPU tensor its plain version) inside
+    :class:`_SSDChunk`; nothing falls back to the plain version."""
+    b = resolve_backend(backend, x.device)
+    if b in ("naive", "ref"):
+        return _ssd.ssd_chunk_plain(x, dt, A, B, C)
+    return _SSDChunk.apply(x, dt, A, B, C)

@@ -64,7 +64,7 @@ def ssd_chunk(x, dt, A, B, C):
     state_decay (G, Q)), all fp32."""
     if x.device.type == "cpu":
         return ssd_chunk_plain(x, dt, A, B, C)
-    require_no_grad("ssd_chunk", x, dt, A, B, C)
+    require_no_grad("ssd_chunk", x, dt, A, B, C, missing="dispatch._SSDChunk")
     check_tensor("x", x, 3, _DTYPES, x.device)
     for name, t, nd in (("dt", dt, 2), ("A", A, 1), ("B", B, 3), ("C", C, 3)):
         check_tensor(name, t, nd, (x.dtype,), x.device)

@@ -30,8 +30,9 @@ task's H subset from a counter-based hash of (23, step, task, example).
 Both run on ``--device`` (default ``cuda``; it raises without a card
 unless ``--device cpu`` is given) with ``--kernel-backend auto``, the
 hand-written kernels on the card (flash attention on every GQA layer of
-the LM, the gmm kernel on every MoE layer's experts, forward and
-backward).  A preempted run exits 75 after flushing a checkpoint.
+the LM and on zamba2's shared block, the gmm kernel on every MoE layer's
+experts, the ssd_chunk kernel on every SSD chunk of mamba2 and zamba2,
+forward and backward).  A preempted run exits 75 after flushing a checkpoint.
 
 Not ported: the multi-device flags (ROADMAP A12).
 """
@@ -211,9 +212,9 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, default="minitron-4b",
-                    help="LM to train (the transformers are ported, dense, MoE "
-                         "and MLA alike; the gmm kernel runs the MoE experts "
-                         "forward and backward on a card)")
+                    help="LM to train (the transformers, dense, MoE and MLA, "
+                         "mamba2 and the zamba2 hybrid are ported; whisper is "
+                         "not, ROADMAP A14d)")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--batch", type=int, default=8)
@@ -271,7 +272,7 @@ def main(argv=None) -> None:
                     default="auto",
                     help="kernel backend (repro_torch.kernels.dispatch) of the "
                          "episodic aggregation kernels and of the LM's flash "
-                         "attention and gmm: auto = the hand-written CUDA kernels on a "
+                         "attention, gmm and ssd_chunk: auto = the hand-written CUDA kernels on a "
                          "GPU and ref on the CPU.  The JAX launcher defaults to "
                          "ref because its Pallas kernels run in interpret mode "
                          "off the TPU; here the kernels are the main path")

@@ -10,8 +10,8 @@ the JAX package's ``repro/models/registry.py``.
     cache = api.init_cache(cfg, batch_size, max_seq, device)
     params = api.compute_params(params, cfg)     # matmul weights cast once
 
-The transformers (dense, MoE, MLA) are ported.  The other families raise,
-naming the item that ports them.
+The transformers (dense, MoE, MLA), mamba2 and the zamba2 hybrid are
+ported.  The encoder-decoder family raises, naming the item that ports it.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ import dataclasses
 from typing import Callable
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import mamba2, transformer, zamba2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,9 +41,25 @@ _APIS = {
         init_cache=transformer.init_cache,
         compute_params=transformer.compute_params,
     ),
+    "mamba2": ModelAPI(
+        init=mamba2.init_mamba2,
+        loss=mamba2.loss,
+        prefill=mamba2.prefill,
+        decode_step=mamba2.decode_step,
+        init_cache=mamba2.init_cache,
+        compute_params=mamba2.compute_params,
+    ),
+    "hybrid": ModelAPI(
+        init=zamba2.init_zamba2,
+        loss=zamba2.loss,
+        prefill=zamba2.prefill,
+        decode_step=zamba2.decode_step,
+        init_cache=zamba2.init_cache,
+        compute_params=zamba2.compute_params,
+    ),
 }
 
-_NOT_PORTED = {"mamba2": "A14c", "hybrid": "A14c", "encdec": "A14d"}
+_NOT_PORTED = {"encdec": "A14d"}
 
 
 def get_api(cfg: ModelConfig) -> ModelAPI:

@@ -15,9 +15,11 @@ package's ``jax.random.categorical`` draws; the same seed gives the same
 stream).
 
 Prefill and decode run on ``kernel_backend`` (``auto``: the kernels on a
-CUDA device: flash attention on every GQA prefill layer, the gmm kernel on
-every MoE expert projection, prefill and decode).  The matmul weights are cast to the compute dtype once,
-at construction (:func:`repro_torch.models.transformer.compute_params`).
+CUDA device: flash attention on every GQA prefill layer, zamba2's shared
+block included, the gmm kernel on every MoE expert projection, prefill and
+decode, the ssd_chunk kernel on every SSD chunk of a mamba2 or zamba2
+prefill).  The matmul weights are cast to the compute dtype once,
+at construction (the model API's ``compute_params``).
 The episodic workload is served by
 :class:`repro_torch.serve.episodic.EpisodicServeEngine`.
 """
@@ -213,11 +215,16 @@ class ServeEngine:
 
 
 def _splice_cache(full: Dict, pre: Dict) -> Dict:
-    """Copy a prefill cache (capacity: the prompt's positions) into the head
-    of a ``max_seq`` cache, in place; returns ``full`` at the prefill's
-    ``len``."""
+    """Copy a prefill cache into a ``max_seq`` cache, in place; returns
+    ``full`` at the prefill's ``len``.  The SSM layers' states (``conv``,
+    ``ssm``) are O(1) in the sequence and are copied whole; every other leaf
+    is (L, B, S, ...) with the prompt's S positions (k, v (.., H, D); MLA's
+    ckv, krope (.., R); zamba2's per-site k, v), copied into the head of
+    the sequence axis."""
     for k, t in pre.items():
-        if k != "len":      # (L, B, S, ...): k, v (.., H, D); MLA's ckv, krope (.., R)
+        if k in ("conv", "ssm"):
+            full[k].copy_(t)
+        elif k != "len":
             full[k][:, :, :t.shape[2]] = t
     full["len"] = pre["len"]
     return full

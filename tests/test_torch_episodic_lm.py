@@ -259,8 +259,27 @@ def test_lm_backbone_features_match_jax(dtype):
 
 
 def test_mamba2_backbone_raises_naming_a14c():
-    with pytest.raises(NotImplementedError, match="A14c"):
-        make_lm_backbone(t_smoke("mamba2-780m"))
+    """The mamba2 backbone once raised here, naming A14c; it now builds and
+    its features (final-state FiLM at the per-layer mean) match the JAX
+    package's on both backends, with a FiLM list and without."""
+    jc = dataclasses.replace(j_smoke("mamba2-780m"), compute_dtype="float32")
+    tc = dataclasses.replace(t_smoke("mamba2-780m"), compute_dtype="float32")
+    jbb, tbb = j_lm_bb(jc), make_lm_backbone(tc)
+    assert tbb.feature_dim == jbb.feature_dim and tuple(tbb.film_sites) == tuple(jbb.film_sites)
+    jp = jbb.init(jax.random.key(0))
+    tp = lm_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, jc.vocab, size=(3, 20)).astype(np.int32)
+    film = [_film(rng, ()) for _ in range(jc.n_layers)]
+    for f in (None, film):
+        want = jbb.features(jp, jnp.asarray(toks), None if f is None else [
+            {k: jnp.asarray(v) for k, v in s.items()} for s in f])
+        for backend in BACKENDS:
+            with td.use_backend(backend):
+                got = tbb.features(tp, torch.from_numpy(toks).long(), None if f is None else [
+                    {k: torch.from_numpy(v) for k, v in s.items()} for s in f])
+            assert got.dtype == torch.float32 and got.shape == (3, jc.d_model)
+            assert _rel(got, want) <= TOL_FWD
 
 
 # ---------------------------------------------------------------------------

@@ -87,8 +87,8 @@ def test_lm_launcher_runs_and_resumes_exactly(tmp_path):
 
 def test_lm_launcher_refuses_unported_families(tmp_path):
     from repro_torch.launch.train import main
-    with pytest.raises(NotImplementedError, match="A14c"):
-        main(["--arch", "mamba2-780m", "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="A14d"):
+        main(["--arch", "whisper-base", "--device", "cpu", "--ckpt-dir", str(tmp_path)])
 
 
 def test_examples_run(tmp_path, capsys):

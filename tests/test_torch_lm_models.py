@@ -213,10 +213,10 @@ def test_attention_window_and_softcap_mask():
         assert float((got - want).abs().max()) <= 1e-6
 
 
-@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-7b", "whisper-base"])
+@pytest.mark.parametrize("arch", ["whisper-base"])
 def test_unported_families_raise_naming_their_item(arch):
     cfg = treg.get_smoke_config(arch)
-    item = {"mamba2-780m": "A14c", "zamba2-7b": "A14c", "whisper-base": "A14d"}[arch]
+    item = {"whisper-base": "A14d"}[arch]
     with pytest.raises(NotImplementedError, match=item):
         api = get_api(cfg)
         api.init(torch.Generator().manual_seed(0), cfg)
