@@ -1,7 +1,7 @@
 """Drive the PyTorch port's episodic serving and training paths, its
 episodic LM meta-training, its LM training and its LM decode serving
-(dense, MoE and MLA transformers, the mamba2 SSM and the zamba2 hybrid)
-on one NVIDIA GPU.
+(dense, MoE and MLA transformers, the mamba2 SSM, the zamba2 hybrid and
+the whisper encoder-decoder) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # needs one CUDA card, nvcc and the repo
 
@@ -260,10 +260,43 @@ Phases, each of which fails the run (non-zero exit) on any error:
    plain versions (B5 beside SDPA); and ``python -m
    repro_torch.launch.serve --arch mamba2-780m`` and ``--arch zamba2-7b``
    (smoke configs) on the card as subprocesses, which must exit 0;
+6e. whisper-base at full width and depth (6 encoder and 6 decoder
+   layers, d_model 512, 8 heads of 64, 1500 frames, vocab 51865; random
+   weights drawn on the card from seed 0, fp32 params, bf16 compute).
+   Served through ``ServeEngine`` at 4 slots (prompts 64 x 4, then 32 and
+   128, 32 new tokens each; the engine's zero frames, as the reference
+   feeds them), failing unless every ``prefill`` launched B5 on "wgmma" 12
+   times (6 bidirectional at S 1500, then 6 causal at the prompt's
+   length), no ``decode_step`` launched anything, and nothing else
+   launched (tokens/s, peak memory); the gate of phase 6b with the model
+   API driven directly on seeded random frames (zero frames make every
+   encoder state exactly 0 and would hide any encoder fault): ``ref`` in
+   bf16 (greedy), the kernel path and ``ref`` in fp32 compute
+   teacher-forced on its tokens, held on the logits and on each layer's
+   cross k and v, and a planted fault (the encoder's B5 launched causal)
+   that it must flag; prefill ms at 64 and 128 tokens on the kernels and
+   on ``ref`` in turns, the first-token latency and a decode step at 4
+   slots beside their bounds, one profiled prefill and decode step (B5's
+   share, idle share).  Trained through ``make_train_step`` (every block
+   checkpointed) on the token pipeline's tokens (B 8, S 448, whisper's
+   text context) and seeded random frames (8, 1500, 512): one step on the
+   kernels, on ``ref`` in bf16 and in fp32 compute, phase 5f's gate (every
+   leaf against its own bf16 error), failing unless B5 launched 12 times
+   in the forward and 12 in the checkpoints' recompute (6 bidirectional
+   each), all on "wgmma", and nothing else; a fault planted in B5's
+   backward (the encoder's recompute masked causally) that the gate must
+   flag; three steps through ``train()`` (losses, ms a step, tokens/s,
+   peak memory; launches counted on exactly that run) and one profiled
+   step beside the step's FLOP bound.  B5 at the path's shapes
+   (bidirectional at (1, 1500) and (8, 1500), causal at the prompt lengths
+   and at (8, 448)) against its plain version and beside SDPA; and
+   ``python -m repro_torch.launch.serve --arch whisper-base`` and ``python
+   -m repro_torch.examples.serve_lm --arch whisper-base`` (smoke config)
+   on the card as subprocesses, which must exit 0;
 7. run the phases' subprocesses (the launchers and examples that phases
-   4b, 5, 5b, 5c, 5d, 5e, 5f, 6b, 6c and 6d name), all at once after every
-   timed reading, each of which must exit 0 and print what its phase
-   expects;
+   4b, 5, 5b, 5c, 5d, 5e, 5f, 6b, 6c, 6d and 6e name), all at once after
+   every timed reading, each of which must exit 0 and print what its
+   phase expects;
 8. print the ``kernels`` JSON line, the card line and, last, the result.
 
 In the ``kernels`` line, ``ms`` is the mean time of back-to-back wrapper
@@ -286,10 +319,12 @@ for the episodic kernels, LM serving of minitron-4b (phase 6b) for flash
 attention, LM serving of kimi-k2 (phase 6c) for gmm, LM serving of
 mamba2-780m (phase 6d) for ssd_chunk (``ops_launches``,
 ``lm_serve_gemma2_launches``, ``lm_serve_kimi_launches``,
-``lm_serve_deepseek_launches`` and ``lm_serve_zamba2_launches`` give the
+``lm_serve_deepseek_launches``, ``lm_serve_zamba2_launches``,
+``lm_serve_whisper_launches`` and ``lm_whisper_train_launches`` give the
 other counts, ``lm_prefill_cases`` flash attention's numbers at the
 prefill shapes, ``lm_zamba2_cases`` its numbers at zamba2-7b's head dim
-112, ``lm_moe_cases`` gmm's at phase 6c's and ``lm_ssm_cases``
+112, ``lm_whisper_cases`` its numbers at whisper-base's shapes (phase
+6e), ``lm_moe_cases`` gmm's at phase 6c's and ``lm_ssm_cases``
 ssd_chunk's at phases 6d's and 5f's shapes);
 ``train_launches`` those of B1-B3 in the five training-loop steps of phase
 5, of flash attention in the three steps of phase 5c, of gmm in the
@@ -312,7 +347,8 @@ device-sampler loop), ``algo1`` (the two per-task steps), ``fig4``,
 and ``lm_ssm_episodic`` (phase 5f's), ``lm_serve`` and ``lm_serve_gemma2``
 (phase 6b's counted engine runs), ``lm_serve_kimi`` and
 ``lm_serve_deepseek`` (phase 6c's), ``lm_serve_mamba2`` and
-``lm_serve_zamba2`` (phase 6d's).
+``lm_serve_zamba2`` (phase 6d's), ``lm_serve_whisper`` and
+``lm_whisper_train`` (phase 6e's engine run and three steps).
 
 It imports no JAX.
 """
@@ -2515,14 +2551,15 @@ def pretrain_batch(cfg, step: int, dev, seq: int = PRETRAIN_SEQ, hidden: int = 0
 
 
 @contextlib.contextmanager
-def recorded_windows(calls):
-    """Every flash attention launch in the block appends its window (None:
-    global) to ``calls``."""
+def recorded_flash(calls, read=lambda q, kw: kw.get("window")):
+    """Every flash attention launch in the block appends ``read(q, its
+    keyword arguments)`` to ``calls``: by default its window (None:
+    global)."""
     from repro_torch.kernels import flash_attention as fa
     orig = fa.flash_attention_gqa
 
     def rec(q, k, v, **kw):
-        calls.append(kw.get("window"))
+        calls.append(read(q, kw))
         return orig(q, k, v, **kw)
 
     fa.flash_attention_gqa = rec
@@ -2542,7 +2579,7 @@ def pretrain_grads(cfg, params, batch, backend):
     from repro_torch.models.registry import get_api
     live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     windows = []
-    with dispatch.use_backend(backend), torch.enable_grad(), recorded_windows(windows):
+    with dispatch.use_backend(backend), torch.enable_grad(), recorded_flash(windows):
         torch.cuda.synchronize()
         _build.launches.reset()
         loss, _ = get_api(cfg).loss(tree_rebuild(params, live), batch, cfg, backend=None)
@@ -2643,14 +2680,15 @@ def pretrain_parity(cfg, dev, hidden: int):
 
 
 def pretrain_loop(cfg, dev, seq: int = PRETRAIN_SEQ, want=None, categories=None,
-                  label: str = "pretrain"):
+                  label: str = "pretrain", batch_at=None, batch_size: int = PRETRAIN_BATCH):
     """PRETRAIN_STEPS steps of ``make_train_step`` through ``train()`` from
     ``make_init_state`` (seed 0) on the pipeline's batches of ``seq``
-    tokens, no checkpoint, the launch counts set to 0 just before and read
-    just after, which must be ``want`` (default: B5 on "wgmma" in the
-    forward and the checkpoints' recompute of every layer, and nothing
-    else); then one step timed and one profiled (device time by
-    ``categories``, default LM_CATEGORIES)."""
+    tokens (or ``batch_at(step)``'s, of ``batch_size`` sequences), no
+    checkpoint, the launch counts set to 0 just before and read just
+    after, which must be ``want`` (default: B5 on "wgmma" in the forward
+    and the checkpoints' recompute of every layer, and nothing else); then
+    one step timed and one profiled (device time by ``categories``,
+    default LM_CATEGORIES)."""
     import torch
     from repro_torch.common.tree import tree_leaves
     from repro_torch.kernels import _build
@@ -2661,20 +2699,20 @@ def pretrain_loop(cfg, dev, seq: int = PRETRAIN_SEQ, want=None, categories=None,
     n_params = sum(p.numel() for p in tree_leaves(state["params"]))
     held = torch.cuda.memory_allocated(dev)
     step = make_train_step(cfg, adamw_for(cfg))
+    batch_at = batch_at or (lambda s: pretrain_batch(cfg, s, dev, seq))
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     _build.launches.reset()
-    result = train(state, step, lambda s: pretrain_batch(cfg, s, dev, seq), PRETRAIN_STEPS,
-                   log_every=1)
+    result = train(state, step, batch_at, PRETRAIN_STEPS, log_every=1)
     torch.cuda.synchronize(dev)
     counts = _build.launches.snapshot()
     peak = torch.cuda.max_memory_allocated(dev)
     losses = [m["loss"] for m in result.metrics_history]
     ms = [t * 1e3 for t in result.step_times]
-    tokens = PRETRAIN_BATCH * seq
+    tokens = batch_size * seq
     tok_s = tokens * (len(ms) - 1) / (sum(ms[1:]) / 1e3)
     reckoned = 16 * n_params          # fp32 params, grads, AdamW mu and nu
-    print(f"{label} loop: {cfg.name}, {PRETRAIN_STEPS} steps of B {PRETRAIN_BATCH} S "
+    print(f"{label} loop: {cfg.name}, {PRETRAIN_STEPS} steps of B {batch_size} S "
           f"{seq}, losses {losses}, ms per step {ms}, {tok_s:.1f} tokens/s (first "
           f"step excluded), peak memory {peak} B against {reckoned} B reckoned for fp32 "
           f"params, grads and AdamW state ({n_params} params; {held} B held before the "
@@ -2688,7 +2726,7 @@ def pretrain_loop(cfg, dev, seq: int = PRETRAIN_SEQ, want=None, categories=None,
     if counts != want:
         fail(f"{label} loop: launches {counts}; want {want} ({PRETRAIN_STEPS} steps: the "
              f"forward and the checkpoints' recompute) and nothing else")
-    batch = pretrain_batch(cfg, PRETRAIN_STEPS, dev, seq)
+    batch = batch_at(PRETRAIN_STEPS)
     wall = _counted(lambda: step(state, batch))[2]
     busy, cats, table = device_breakdown(
         lambda: step(state, batch), categories or LM_CATEGORIES,
@@ -3723,7 +3761,7 @@ def flash_case(randn, label, b, s, hq, hkv, d, dtype, main=False, lib=False,
     esz = q.element_size()
     sdpa = (lambda q, k, v: F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=True, enable_gqa=True)) if lib else None
+        is_causal=kw["causal"], enable_gqa=True)) if lib else None
     return dict(label=label, fn=ops.flash_attention_gqa, route=fa.flash_route(q, k, v),
                 plain=fa.flash_attention_gqa_plain, lib=sdpa, args=(q, k, v),
                 kw=kw, tol=OPS_TOL["flash_attention"][str(dtype).split(".")[1]],
@@ -4104,15 +4142,17 @@ def lm_errs(got, want, skip=frozenset()):
 
 
 def lm_gate(label: str, runs, fault: bool = False, skip=frozenset(), run: str = "got",
-            states: bool = False):
+            states: bool = False, states_name: str = "prefill SSM states"):
     """Hold ``run`` (the kernel path ``got``, or a planted fault's run)
     against ``ref32`` at LM_GATE times the error of ``ref16``, on every
-    logits row but those in ``skip`` and, with ``states``, on the SSM
-    states each prefill left in the cache (:func:`ssm_state_err`; at
+    logits row but those in ``skip`` and, with ``states``, on the
+    per-layer tensors each prefill left in ``runs["states"]`` (read by
+    :func:`ssm_state_err`; ``states_name`` names them): the SSM states (at
     random initialisation the SSD is about 1 % of each mixer's output
     beside its D skip, under bf16's rounding of their sum, so a fault
     inside B6 barely moves the logits, while the states are B6's own
-    product); returns the readings.  A fault must fail the gate."""
+    product) or whisper's cross k and v (the encoder's only way to the
+    logits); returns the readings.  A fault must fail the gate."""
     def errs(a, b):
         e = lm_errs(runs[a], runs[b], skip)
         return e + (ssm_state_err(runs["states"][a], runs["states"][b]),) if states else e
@@ -4122,7 +4162,7 @@ def lm_gate(label: str, runs, fault: bool = False, skip=frozenset(), run: str = 
     passed = all(g <= lim for g, lim in zip(e_got, limit))
     show = lambda es: "/".join(f"{e:.3e}" for e in es)  # noqa: E731
     print(f"  {label}: vs fp32 ref, prefill/decode logits"
-          f"{' / prefill SSM states' if states else ''} err {show(e_got)} (gate "
+          f"{' / ' + states_name if states else ''} err {show(e_got)} (gate "
           f"{show(limit)} = {LM_GATE}x bf16 ref's {show(e_ref)}); vs bf16 ref "
           f"{show(e_pair)} "
           f"{('MISSED' if passed else 'caught') if fault else ('ok' if passed else 'FAIL')}",
@@ -4896,38 +4936,40 @@ def engine_calls(record) -> dict:
     return {n: sum(1 for c, _ in record if c == n) for n in ("prefill", "decode_step")}
 
 
-def ssm_counted(cfg, params16, reqs, slots, max_seq, dev):
+def engine_counted(cfg, params16, reqs, slots, max_seq, dev, want, passes=None):
     """One engine run on the kernels with the launch counts set to 0 just
     before and read just after, each model call's launches recorded: every
-    ``prefill`` must have launched B6 on "wgmma" once a mamba layer and B5
-    once a shared site, no ``decode_step`` anything, and nothing else.
-    Returns (requests, counts, calls, wall s, peak B)."""
+    ``prefill`` must have launched ``want``, no ``decode_step`` anything,
+    and nothing else; with ``passes``, B5's launches, each as
+    :func:`causal_and_length` reads it, must be ``passes`` in order.
+    Returns (counts, calls, wall s, peak B)."""
     import torch
     from repro_torch.kernels import _build
-    record = []
+    record, flash = [], []
     eng = launches_by_call(lm_engine(cfg, params16, "cuda", slots, max_seq), record)
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     _build.launches.reset()
     t0 = time.perf_counter()
-    eng.run_to_completion(reqs)
+    with recorded_flash(flash, causal_and_length):
+        eng.run_to_completion(reqs)
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
     counts = _build.launches.snapshot()
     peak = torch.cuda.max_memory_allocated(dev)
-    want = ssm_want(cfg, dev)
     calls = engine_calls(record)
     bad = [(c, got) for c, got in record if got != (want if c == "prefill" else {})]
     total = {k: n * len(reqs) for k, n in want.items()}
-    if bad or calls["prefill"] != len(reqs) or counts != total:
+    if bad or calls["prefill"] != len(reqs) or counts != total or \
+            (passes is not None and flash != passes):
         fail(f"{cfg.name}: launches {counts} over engine calls {calls}; want {want} a "
              f"prefill and none a decode step ({len(bad)} calls differ, first "
-             f"{bad[:2]})")
+             f"{bad[:2]}; B5's (causal, S) {flash[:14]}..., want {(passes or [])[:14]}...)")
     for r in reqs:
         if not r.done or len(r.out_tokens) != r.max_new_tokens or \
                 not all(0 <= t < cfg.vocab for t in r.out_tokens):
             fail(f"{cfg.name} request {r.uid}: done={r.done}, tokens {r.out_tokens}")
-    return reqs, counts, calls, wall, peak
+    return counts, calls, wall, peak
 
 
 def ssm_bounds(cfg, s: int, b: int, k_len: int):
@@ -5106,7 +5148,9 @@ def ssm_serve_one(arch, slots, prompts, max_new, dev, launches, fault: bool):
     for backend in ("cuda", "ref"):         # cuBLAS handles, allocator
         lm_engine(cfg, p16, backend, 1, 128).run_to_completion(
             lm_requests(cfg, (64,), 2, seed=1))
-    served, counts, calls, wall, peak = ssm_counted(cfg, p16, reqs(), slots, max_seq, dev)
+    served = reqs()
+    counts, calls, wall, peak = engine_counted(cfg, p16, served, slots, max_seq, dev,
+                                               ssm_want(cfg, dev))
     key = f"lm_serve_{arch.split('-')[0]}"
     launches[key] = counts
     n_tok = sum(len(r.out_tokens) for r in served)
@@ -5161,6 +5205,450 @@ def run_ssm_serve(dev, launches):
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
     print(f"phase 6d: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6e: whisper, the encoder-decoder, served and trained
+# ---------------------------------------------------------------------------
+
+WHISPER_SLOTS = 4
+# wave 1: four prompts of one length decode as one stacked cohort; wave 2:
+# ragged lengths, which decode slot by slot
+WHISPER_PROMPTS = (64, 64, 64, 64, 32, 128)
+WHISPER_MAX_NEW = 32
+WHISPER_PREFILL_LENGTHS = (64, 128)
+WHISPER_DECODE_POS = 96
+WHISPER_TRAIN_BATCH = 8
+WHISPER_TRAIN_SEQ = 448             # whisper's text context
+
+
+def whisper_frames(cfg, b: int, seed: int, dev):
+    """(b, n_frontend_tokens, d_model) standard normal frame embeddings
+    drawn on the card from ``seed``."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((b, cfg.n_frontend_tokens, cfg.d_model), generator=g, device=dev)
+
+
+def whisper_attn(cfg):
+    """(matmul weights of a self-attention and MLP block, of the cross
+    attention's q and o projections, of its k and v projections; the
+    attention FLOPs of one (query, key) pair over every head)."""
+    a = cfg.attention
+    d, hd, kvd = cfg.d_model, a.n_heads * a.head_dim, a.n_kv_heads * a.head_dim
+    block = d * (hd + 2 * kvd) + hd * d + 3 * d * cfg.d_ff
+    return block, 2 * d * hd, 2 * d * hd, 4.0 * a.head_dim * a.n_heads
+
+
+def whisper_fwd_flops(cfg, s: int) -> float:
+    """The forward FLOPs of one sequence: the encoder over its frames
+    (bidirectional attention), the decoder over ``s`` tokens (causal
+    self-attention, cross attention to every frame, the cross k and v
+    projections of the frames), without the LM head."""
+    block, cross_qo, cross_kv, pair = whisper_attn(cfg)
+    se = cfg.n_frontend_tokens
+    enc = cfg.n_encoder_layers * (2.0 * block * se + pair * se * se)
+    dec = cfg.n_layers * (2.0 * (block + cross_qo) * s + 2.0 * cross_kv * se
+                          + pair * (attn_pairs(s, True, None) + s * se))
+    return enc + dec
+
+
+def whisper_bounds(cfg, s: int, b: int, k_len: int):
+    """(prefill bound ms, by; decode bound ms, by).  Prefill of one prompt of
+    ``s`` tokens: every matmul weight of both stacks in bf16 and the fp32
+    tied embedding (the LM head) read once, :func:`whisper_fwd_flops` and
+    the last token's head at the bf16 tensor-core peak.  A decode step of
+    ``b`` slots: the decoder's weights but the cross k and v projections
+    (bf16) and the fp32 head read once, each slot's ``k_len`` cached keys
+    and values and its cross k and v of every frame (bf16) read once; the
+    FLOPs of its weight matmuls, attention over ``k_len`` keys and every
+    frame, and the head."""
+    block, cross_qo, cross_kv, pair = whisper_attn(cfg)
+    a, d, se, nl = cfg.attention, cfg.d_model, cfg.n_frontend_tokens, cfg.n_layers
+    head_bytes, head_flops = 4.0 * cfg.vocab_padded * d, 2.0 * d * cfg.vocab_padded
+    pre_bytes = 2.0 * (cfg.n_encoder_layers * block + nl * (block + cross_qo + cross_kv)) \
+        + head_bytes
+    dec_weights = nl * (block + cross_qo)
+    cache = 2.0 * 2 * b * nl * (k_len * a.n_kv_heads + se * a.n_heads) * a.head_dim
+    dec_flops = b * (2.0 * dec_weights + nl * pair * (k_len + se) + head_flops)
+    return (bound_ms(pre_bytes, whisper_fwd_flops(cfg, s) + head_flops, BF16_FLOPS),
+            bound_ms(2.0 * dec_weights + head_bytes + cache, dec_flops, BF16_FLOPS))
+
+
+def causal_and_length(q, kw):
+    """What :func:`recorded_flash` keeps of a launch for whisper: (causal,
+    S)."""
+    return kw.get("causal", True), q.shape[1]
+
+
+def whisper_pass(cfg, s: int):
+    """The (causal, S) of each B5 launch of one forward: every encoder layer
+    bidirectional over the frames, then every decoder layer causal over the
+    ``s`` tokens."""
+    return [(False, cfg.n_frontend_tokens)] * cfg.n_encoder_layers + [(True, s)] * cfg.n_layers
+
+
+def whisper_gate_batches(cfg, dev):
+    """The serving traffic's prompts as the gate drives them, each run of
+    equal lengths as one batch, each batch on seeded random frames:
+    [(uids, tokens (b, s), frames (b, S_enc, d_model))]."""
+    import torch
+    reqs = lm_requests(cfg, WHISPER_PROMPTS, WHISPER_MAX_NEW, seed=0)
+    out = []
+    for _, group in itertools.groupby(reqs, key=lambda r: len(r.prompt)):
+        group = list(group)
+        toks = torch.tensor([r.prompt.tolist() for r in group], dtype=torch.long, device=dev)
+        out.append(([r.uid for r in group], toks,
+                    whisper_frames(cfg, len(group), 10 + group[0].uid, dev)))
+    return out
+
+
+def whisper_drive(cfg, params, backend, batches, forced=None):
+    """Each batch of :func:`whisper_gate_batches` through ``api.prefill`` on
+    ``backend``, spliced into a cache, then ``api.decode_step`` to
+    WHISPER_MAX_NEW tokens: teacher-forced on ``forced`` (uid -> tokens),
+    else greedy.  Returns (logits rows by uid over the true vocab, tokens
+    by uid, [each prefill's cross k, then cross v, fp32])."""
+    import torch
+    from repro_torch.models.registry import get_api
+    from repro_torch.serve.engine import _splice_cache
+    api = get_api(cfg)
+    rows, tokens, states = {}, {}, []
+    with torch.no_grad():
+        for uids, toks, frames in batches:
+            b, s = toks.shape
+            logits, pre = api.prefill(params, dict(tokens=toks, frontend_embeds=frames), cfg,
+                                      backend=backend)
+            states += [pre["cross_k"].float(), pre["cross_v"].float()]
+            cache = _splice_cache(api.init_cache(cfg, b, s + WHISPER_MAX_NEW, toks.device),
+                                  pre)
+            for j in range(WHISPER_MAX_NEW):
+                nxt = (torch.tensor([forced[u][j] for u in uids], device=toks.device)
+                       if forced else logits[:, :cfg.vocab].argmax(-1))
+                for r, u in enumerate(uids):
+                    rows.setdefault(u, []).append(logits[r, :cfg.vocab].float())
+                    tokens.setdefault(u, []).append(int(nxt[r]))
+                if j + 1 < WHISPER_MAX_NEW:
+                    logits, cache = api.decode_step(params, cache, nxt[:, None], cfg,
+                                                    backend=backend)
+    return rows, tokens, states
+
+
+@contextlib.contextmanager
+def encoder_b5_causal():
+    """The planted serving fault: B5 launched causal where the encoder asks
+    for bidirectional attention."""
+    from repro_torch.kernels import flash_attention as fa
+    orig = fa.flash_attention_gqa
+    fa.flash_attention_gqa = lambda q, k, v, **kw: orig(q, k, v, **{**kw, "causal": True})
+    try:
+        yield
+    finally:
+        fa.flash_attention_gqa = orig
+
+
+def whisper_serve_gate(cfg, params, p16, dev):
+    """Phase 6b's gate, with the API driven directly on seeded random
+    frames (the engine's zero frames make every encoder state exactly 0,
+    which would hide any fault of the encoder): ``ref`` in bf16 (greedy;
+    its tokens forced on the others), the kernel path, ``ref`` in fp32
+    compute and the kernel path with the encoder's B5 run causal, held on
+    the logits and on each layer's cross k and v."""
+    import dataclasses
+    batches = whisper_gate_batches(cfg, dev)
+    runs = {"states": {}}
+    runs["ref16"], forced, runs["states"]["ref16"] = whisper_drive(cfg, p16, "ref", batches)
+    runs["got"], _, runs["states"]["got"] = whisper_drive(cfg, p16, "cuda", batches, forced)
+    runs["ref32"], _, runs["states"]["ref32"] = whisper_drive(
+        dataclasses.replace(cfg, compute_dtype="float32"), params, "ref", batches, forced)
+    with encoder_b5_causal():
+        runs["fault"], _, runs["states"]["fault"] = whisper_drive(cfg, p16, "cuda", batches,
+                                                                  forced)
+    kw = dict(states=True, states_name="prefill cross k and v")
+    out = dict(frames="random normal, seeded", batches=[len(u) for u, _, _ in batches],
+               gate=lm_gate(f"{cfg.name} kernel path", runs, **kw),
+               planted_fault=lm_gate(f"{cfg.name} planted fault: the encoder's B5 causal",
+                                     runs, fault=True, run="fault", **kw))
+    cross = max(float(t.abs().max()) for t in runs["states"]["got"])
+    print(f"  {cfg.name} gate: max|cross k, v| {cross:.3f} on random frames", flush=True)
+    if not cross > 0:
+        fail(f"{cfg.name}: the cross k and v are 0 on random frames")
+    return out
+
+
+def whisper_timings(cfg, p16, dev):
+    """Prefill ms by prompt length (random frames) on the kernels and on
+    ``ref`` in turns, the first-token latency (``add_request``: prefill on
+    zero frames, splice, first sample), a decode step at WHISPER_SLOTS
+    slots, each beside its bound, and one profiled prefill and decode
+    step (B5's share, idle share)."""
+    import torch
+    from repro_torch.models.registry import get_api
+    api = get_api(cfg)
+    g = torch.Generator(device=dev).manual_seed(2)
+    out = dict(prefill={})
+    batches = {}
+    for n in WHISPER_PREFILL_LENGTHS:
+        batch = batches[n] = dict(
+            tokens=torch.randint(0, cfg.vocab, (1, n), generator=g, device=dev),
+            frontend_embeds=whisper_frames(cfg, 1, 20 + n, dev))
+        k_ms, r_ms = time_pair_ms(lambda: api.prefill(p16, batch, cfg, backend="cuda"),
+                                  lambda: api.prefill(p16, batch, cfg, backend="ref"),
+                                  iters=5, reps=3)
+        eng = lm_engine(cfg, p16, "cuda", 1, n + 8)
+        ftl = []
+        for r in lm_requests(cfg, (n,) * 3, 1, seed=4):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            eng.add_request(r)            # a budget of 1: the slot frees at once
+            ftl.append((time.perf_counter() - t0) * 1e3)
+        (b_ms, b_by), _ = whisper_bounds(cfg, n, 1, n)
+        out["prefill"][n] = dict(ms=k_ms, ref_ms=r_ms, first_token_ms=statistics.median(ftl),
+                                 bound_ms=b_ms, bound_by=b_by)
+        print(f"  {cfg.name} prefill S{n} (and {cfg.n_frontend_tokens} frames): {k_ms:.3f} ms "
+              f"on the kernels, {r_ms:.3f} ms on ref, first token "
+              f"{statistics.median(ftl):.3f} ms; bound {b_ms:.4f} ms ({b_by})", flush=True)
+    b = WHISPER_SLOTS
+    cache = api.init_cache(cfg, b, WHISPER_DECODE_POS + 8, dev)
+    cache["len"] = WHISPER_DECODE_POS
+    toks = torch.zeros((b, 1), dtype=torch.long, device=dev)
+    # the cache is written in place at position len: each call rewrites the same one
+    ms = time_ms(lambda: api.decode_step(p16, dict(cache), toks, cfg), iters=10, reps=3)
+    _, (b_ms, b_by) = whisper_bounds(cfg, 1, b, WHISPER_DECODE_POS + 1)
+    out["decode"] = dict(slots=b, ms=ms, tokens_per_s=b * 1e3 / ms, bound_ms=b_ms,
+                         bound_by=b_by, pos=WHISPER_DECODE_POS)
+    print(f"  {cfg.name} decode step at {b} slots, position {WHISPER_DECODE_POS}: {ms:.3f} ms "
+          f"({b * 1e3 / ms:.1f} tokens/s); bound {b_ms:.4f} ms ({b_by})", flush=True)
+    n = WHISPER_PREFILL_LENGTHS[0]
+    out["trace_prefill"] = trace_lm(lambda: api.prefill(p16, batches[n], cfg, backend="cuda"),
+                                    out["prefill"][n]["ms"], f"{cfg.name} prefill S{n}")
+    out["trace_decode"] = trace_lm(lambda: api.decode_step(p16, dict(cache), toks, cfg), ms,
+                                   f"{cfg.name} decode step at {b} slots")
+    return out
+
+
+def whisper_serve(cfg, dev, launches):
+    """The serving half of phase 6e: the counted engine run, the gate on
+    random frames and its planted fault, the timings."""
+    import torch
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.models import whisper as TW
+    params = TW.init_whisper(torch.Generator(device=dev).manual_seed(0), cfg)
+    p16 = TW.compute_params(params, cfg)
+    for backend in ("cuda", "ref"):         # cuBLAS handles, allocator
+        lm_engine(cfg, p16, backend, 1, 64).run_to_completion(
+            lm_requests(cfg, (16,), 2, seed=1))
+    reqs = lm_requests(cfg, WHISPER_PROMPTS, WHISPER_MAX_NEW, seed=0)
+    n = cfg.n_encoder_layers + cfg.n_layers
+    counts, calls, wall, peak = engine_counted(
+        cfg, p16, reqs, WHISPER_SLOTS, max(WHISPER_PROMPTS) + WHISPER_MAX_NEW + 8, dev,
+        {"flash_attention": n, "flash_attention/wgmma": n},
+        [c for r in reqs for c in whisper_pass(cfg, len(r.prompt))])
+    launches["lm_serve_whisper"] = counts
+    n_tok = sum(len(r.out_tokens) for r in reqs)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"path lm_serve_whisper: {cfg.name} ({cfg.n_encoder_layers} + {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_frontend_tokens} frames, {n_params} params), "
+          f"{len(reqs)} requests (prompts {WHISPER_PROMPTS}, zero frames as the engine feeds "
+          f"them), {n_tok} tokens in {wall:.3f} s on {WHISPER_SLOTS} slots: "
+          f"{n_tok / wall:.1f} tokens/s, peak memory {peak} B, engine calls {calls}, "
+          f"launches {counts}", flush=True)
+    out = dict(arch=cfg.name, params=n_params, requests=len(reqs), tokens=n_tok,
+               seconds=wall, tokens_per_s=n_tok / wall, peak_bytes=peak, launches=counts,
+               calls=calls, **whisper_serve_gate(cfg, params, p16, dev))
+    mark("6e: whisper-base serving gate done")
+    out.update(whisper_timings(cfg, p16, dev))
+    del params, p16
+    torch.cuda.empty_cache()
+    return out
+
+
+def whisper_train_batch(cfg, step: int, dev):
+    """The token pipeline's batch of ``step`` (vocab, WHISPER_TRAIN_SEQ
+    tokens, WHISPER_TRAIN_BATCH sequences, branching 4, seed 0) on ``dev``,
+    with random frames drawn on the card from seed 1000 + ``step``."""
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig, batch_to_device
+    b = TokenPipeline(TokenPipelineConfig(vocab=cfg.vocab, seq_len=WHISPER_TRAIN_SEQ,
+                                          global_batch=WHISPER_TRAIN_BATCH, branching=4,
+                                          seed=0)).batch_at(step)
+    batch = batch_to_device(b, dev)
+    batch["frontend_embeds"] = whisper_frames(cfg, WHISPER_TRAIN_BATCH, 1000 + step, dev)
+    return batch
+
+
+def whisper_grads(cfg, params, batch, backend):
+    """:func:`pretrain_grads` with each B5 launch's (causal, S) recorded,
+    forward and backward, under ``flash``."""
+    calls = []
+    with recorded_flash(calls, causal_and_length):
+        r = pretrain_grads(cfg, params, batch, backend)
+    n = len(r[3]["windows"][0])
+    r[3]["flash"] = (calls[:n], calls[n:])
+    return r
+
+
+def check_whisper_step(label, cfg, r):
+    """Fail unless one step launched B5 on "wgmma" once a layer of each
+    stack in the forward (the encoder's bidirectional over the frames, the
+    decoder's causal over the tokens) and once a layer in the checkpoints'
+    recompute (the decoder's blocks first), and nothing else."""
+    n = cfg.n_encoder_layers + cfg.n_layers
+    want = {"flash_attention": n, "flash_attention/wgmma": n}
+    got = {part: r[part] for part in ("forward", "backward")}
+    passes = whisper_pass(cfg, WHISPER_TRAIN_SEQ)
+    if got != dict(forward=want, backward=want) or r["flash"] != (passes, passes[::-1]):
+        fail(f"{label}: launches {got}, B5's (causal, S) {r['flash']}; want {want} in the "
+             f"forward and in the backward, as {passes} and its reverse")
+
+
+def b5_encoder_backward_causal():
+    """(label, backward): B5's backward with the causal mask on every call,
+    the encoder's recomputed attention masked causally."""
+    from repro_torch.kernels import dispatch
+    backward = dispatch._FlashAttention.backward
+
+    def encoder_causal(ctx, g):
+        causal, ctx.causal = ctx.causal, True
+        try:
+            return backward(ctx, g)
+        finally:
+            ctx.causal = causal
+
+    return "B5 backward: the encoder's recompute masked causally", encoder_causal
+
+
+def whisper_train_parity(cfg, dev):
+    """One step's loss and gradient on the kernels, on ``ref`` in bf16 and on
+    ``ref`` in fp32 compute, from the same params (drawn on the card from
+    seed 0) and batch 0, through the gate read leaf by leaf; then the fault
+    planted in B5's backward, which the gate must flag."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.registry import get_api
+    params = get_api(cfg).init(torch.Generator(device=dev).manual_seed(0), cfg)
+    batch = whisper_train_batch(cfg, 0, dev)
+    ref32 = whisper_grads(dataclasses.replace(cfg, compute_dtype="float32"), params, batch,
+                          "ref")
+    ref16 = whisper_grads(cfg, params, batch, "ref")
+    ref16_errs = lm_grad_errs(ref16, ref32, PRETRAIN_GATE_PREFIXES)
+    ref16_loss = ref16[0]
+    del ref16
+    got = whisper_grads(cfg, params, batch, "cuda")
+    check_whisper_step(f"{cfg.name} step", cfg, got[3])
+    print(f"train whisper {cfg.name}: {cfg.n_encoder_layers} + {cfg.n_layers} layers, B "
+          f"{WHISPER_TRAIN_BATCH} S {WHISPER_TRAIN_SEQ} and {cfg.n_frontend_tokens} random "
+          f"frames, loss cuda {got[0]:.6g} ref {ref16_loss:.6g} fp32 {ref32[0]:.6g}; "
+          f"launches forward {got[3]['forward']}, backward {got[3]['backward']}", flush=True)
+    out = dict(loss=got[0], ref16_loss=ref16_loss, ref32_loss=ref32[0],
+               launches={k: got[3][k] for k in ("forward", "backward")},
+               gate=pretrain_gate(f"{cfg.name} LM step", got, ref32, ref16_errs,
+                                  per_leaf=True))
+    del got
+    label, fn = b5_encoder_backward_causal()
+    with planted_backward(dispatch._FlashAttention, fn):
+        bad = whisper_grads(cfg, params, batch, "cuda")
+    out["planted_fault"] = dict(fault=label, **pretrain_gate(
+        f"planted fault: {label}", bad, ref32, ref16_errs, fault=True, per_leaf=True))
+    del bad, ref32, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def whisper_train_loop(cfg, dev):
+    """:func:`pretrain_loop` on :func:`whisper_train_batch`, B5 once a layer
+    of each stack in each step's forward and recompute, beside the step's
+    bound: the forward's FLOPs three times (the recompute not counted) at
+    the bf16 peak, the fp32 unembed at the fp32 rate."""
+    n = PRETRAIN_STEPS * 2 * (cfg.n_encoder_layers + cfg.n_layers)
+    b, s = WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ
+    r = pretrain_loop(cfg, dev, s, want={"flash_attention": n, "flash_attention/wgmma": n},
+                      label="train whisper", batch_at=lambda i: whisper_train_batch(cfg, i, dev),
+                      batch_size=b)
+    bf16 = 3 * b * whisper_fwd_flops(cfg, s)
+    f32 = 3 * 2.0 * b * s * cfg.vocab_padded * cfg.d_model
+    bound = (bf16 / BF16_FLOPS + f32 / FP32_FLOPS) * 1e3
+    step_ms = statistics.median(r["step_ms"][1:])
+    b5 = r["trace"]["categories"].get("B5 flash_attention", {}).get("device_ms", 0.0)
+    r.update(bound=dict(ms=bound, bf16_flops=bf16, f32_flops=f32, share=bound / step_ms),
+             b5_ms=b5, b5_share=b5 / max(r["trace"]["busy_ms"], 1e-9))
+    print(f"train whisper bound: {bf16:.4g} bf16 FLOPs + {f32:.4g} f32 FLOPs = {bound:.2f} ms "
+          f"a step; the loop's median step {step_ms:.2f} ms ({100 * bound / step_ms:.1f} % "
+          f"of the bound's rate); B5 {b5:.2f} ms of a step's device time "
+          f"({100 * r['b5_share']:.1f} %)", flush=True)
+    return r
+
+
+def whisper_kernel_specs(dev):
+    """B5 at the path's shapes (8 heads of 64, bf16): the encoder's
+    bidirectional attention over 1500 frames at a prefill's batch of 1 and
+    at the training batch, the decoder's causal attention at the prompt
+    lengths and the training length, each against its plain version and
+    timed beside SDPA, as :func:`check_kernels` takes them."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(9)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g).to(device=dev, dtype=dtype)
+
+    bf, se, bt = torch.bfloat16, 1500, WHISPER_TRAIN_BATCH
+    case = lambda label, b, s, causal: flash_case(  # noqa: E731
+        randn, f"whisper-base {label} B{b} S{s} Hq8 Hkv8 D64 "
+               f"{'causal' if causal else 'non-causal'}", b, s, 8, 8, 64, bf, main=True,
+        lib=True, iters=(20, 5), causal=causal)
+    return [dict(name="flash_attention", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                 replaces="src/repro/kernels/flash_attention.py:89",
+                 symbol="flash_attention_wgmma_kernel", cases=[
+        case("encoder", 1, se, False), case("encoder train", bt, se, False),
+        *(case("decoder prefill", 1, n, True) for n in sorted(set(WHISPER_PROMPTS))),
+        case("decoder train", bt, WHISPER_TRAIN_SEQ, True)])]
+
+
+def run_whisper_example():
+    """``python -m repro_torch.examples.serve_lm --arch whisper-base`` (its
+    smoke config) on the card as a subprocess, which must exit 0."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        return run_chain([(["-m", "repro_torch.examples.serve_lm", "--arch", "whisper-base",
+                            "--requests", "2"], "all requests complete")], tmp)
+
+
+def run_whisper(dev, launches):
+    """Phase 6e: whisper-base at full width and depth (random weights drawn
+    on the card from seed 0, fp32 params, bf16 compute): served through
+    ``ServeEngine`` and gated on random frames, trained through
+    ``make_train_step``; B5 at the path's shapes; the serving launcher and
+    example as subprocesses."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    t_phase = time.perf_counter()
+    cfg = get_config("whisper-base")
+    if (cfg.remat_policy, cfg.compute_dtype, cfg.param_dtype, cfg.opt_state_dtype,
+            cfg.n_frontend_tokens) != ("nothing", "bfloat16", "float32", "float32", 1500):
+        fail(f"{cfg.name}: expected remat 'nothing', bf16 compute, fp32 params and AdamW "
+             f"state, 1500 frames")
+    out = dict(kind="lm_whisper", arch=cfg.name)
+    out["serve"] = whisper_serve(cfg, dev, launches)
+    mark("6e: whisper-base serving done")
+    out["train"] = dict(batch=WHISPER_TRAIN_BATCH, seq=WHISPER_TRAIN_SEQ,
+                        parity=whisper_train_parity(cfg, dev))
+    mark("6e: whisper-base training parity and planted fault done")
+    out["train"]["loop"] = whisper_train_loop(cfg, dev)
+    launches["lm_whisper_train"] = out["train"]["loop"]["launches"]
+    mark("6e: whisper-base training loop done")
+    rows = check_kernels(whisper_kernel_specs(dev))
+    if any(r != "wgmma" for r in rows["flash_attention"]["routes"]):
+        fail(f"B5 at whisper's shapes took routes {rows['flash_attention']['routes']}")
+    out["flash_kernel"] = rows["flash_attention"]
+    b5 = out["serve"]["trace_prefill"]
+    print(f"phase 6e: B5 {b5['kernel_ms']:.3f} ms = {100 * b5['kernel_share']:.1f} % of a "
+          f"prefill's device time", flush=True)
+    torch.cuda.empty_cache()
+    defer(out, "launcher", run_lm_serve_launcher, ["--arch", "whisper-base"])
+    defer(out, "example", run_whisper_example)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 6e: {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -5230,6 +5718,9 @@ def main() -> int:
     ssm_serve = run_ssm_serve(dev, launches)
     summary.append(ssm_serve)
     mark("phase 6d done")
+    whisper = run_whisper(dev, launches)
+    summary.append(whisper)
+    mark("phase 6e done")
     run_deferred()
     mark("subprocesses done")
     # each kernel counted on the path that runs it: flash attention on LM
@@ -5249,12 +5740,14 @@ def main() -> int:
     rows["flash_attention"]["lm_pretrain_cases"] = lm_pretrain["kernel_cases"]
     rows["flash_attention"]["lm_zamba2_cases"] = (ssm_serve["flash_kernel"]["cases"]
                                                   + ssm_train["flash_kernel"]["cases"])
+    rows["flash_attention"]["lm_whisper_cases"] = whisper["flash_kernel"]["cases"]
     rows["flash_attention"]["max_abs_err"] = max(rows["flash_attention"]["max_abs_err"],
                                                  prefill_row["max_abs_err"],
                                                  lm_train["kernel_max_abs_err"],
                                                  lm_pretrain["kernel_max_abs_err"],
                                                  ssm_serve["flash_kernel"]["max_abs_err"],
-                                                 ssm_train["flash_kernel"]["max_abs_err"])
+                                                 ssm_train["flash_kernel"]["max_abs_err"],
+                                                 whisper["flash_kernel"]["max_abs_err"])
     rows["ssd_chunk"]["lm_ssm_cases"] = (ssm_serve["ssd_kernel"]["cases"]
                                          + ssm_train["ssd_kernel"]["cases"])
     rows["ssd_chunk"]["max_abs_err"] = max(rows["ssd_chunk"]["max_abs_err"],
@@ -5291,7 +5784,8 @@ def main() -> int:
                                                        "lm_serve_kimi", "lm_serve_deepseek",
                                                        "lm_moe_episodic", "lm_serve_zamba2",
                                                        "lm_ssm_train_zamba2",
-                                                       "lm_ssm_episodic")
+                                                       "lm_ssm_episodic", "lm_serve_whisper",
+                                                       "lm_whisper_train")
             if p != path_of[n] and n in launches[p]})
         | {k: rows[n][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                    "bound_by", "library_ms", "library_device_ms",
@@ -5299,7 +5793,8 @@ def main() -> int:
         | ({"main_cases": [{k: t[k] for k in case_keys} for t in rows[n]["cases"]]}
            if len(rows[n]["cases"]) > 1 else {})
         | ({f"lm_{c}_cases": [{k: t[k] for k in case_keys} for t in rows[n][f"lm_{c}_cases"]]
-            for c in ("prefill", "train", "pretrain", "moe", "moe_train", "ssm", "zamba2")
+            for c in ("prefill", "train", "pretrain", "moe", "moe_train", "ssm", "zamba2",
+                      "whisper")
             if f"lm_{c}_cases" in rows[n]})
         for n in rows]}))
     print(card)

@@ -21,14 +21,16 @@ carries a JAX LM's params (stacked layers, leading L axis; an MoE layer's
 router, (L, E, D, F) experts and nested ``shared`` dict; MLA's latent
 projections and norms; mamba2's 3-D depthwise ``conv_w`` (L, c, k);
 zamba2's ``mamba`` stack and its ``shared`` block, whose 2-D MLP leaves
-share the experts' keys) across as they are, ``lm_state_from_numpy`` /
+share the experts' keys; whisper's ``encoder`` and ``decoder`` stacks, at
+most 3-D) across as they are, ``lm_state_from_numpy`` /
 ``lm_state_to_numpy`` an LM train state ``dict(params, opt)`` (AdamW
 ``mu`` and ``nu`` in fp32, bf16 or int8 ``{q, scale, n}``, and ``count``)
 both ways, and ``lm_cache_from_numpy`` its cache (``k``, ``v`` (L, B, S,
 H, D), or MLA's latent ``ckv`` (L, B, S, R) and ``krope`` (L, B, S,
 rope); mamba2's ``conv`` (L, B, c, k-1) and fp32 ``ssm`` (L, B, h, p, n);
 zamba2's per-site ``k``, ``v`` (G, B, S, H, D) beside its mamba layers'
-states; ``len`` a Python int in the port).  A meta-learner over an LM backbone
+states; whisper's ``cross_k``, ``cross_v`` (L, B, S_enc, H, D) beside its
+``k``, ``v``; ``len`` a Python int in the port).  A meta-learner over an LM backbone
 crosses with ``learner_params_from_numpy`` (and back with
 ``learner_params_to_numpy``): its ``bb`` subtree as an LM tree, the rest
 (set encoder, FiLM generator, head generator) as above.  A leaf's rank

@@ -54,6 +54,19 @@ class TokenPipeline:
             step += 1
 
 
+def require_tokens_only(cfg) -> None:
+    """Raise ``ValueError`` for a model whose loss reads more than tokens:
+    whisper's (the ``encdec`` family) needs ``frontend_embeds`` beside them,
+    which this pipeline does not yield.  The JAX package's LM launcher has
+    no whisper path either (ROADMAP R6); whisper trains through
+    ``make_train_step`` on a batch that carries its frames."""
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"{cfg.name}: the token pipeline yields no frontend_embeds, which the "
+            f"encoder-decoder's loss reads (ROADMAP R6); train it through "
+            f"make_train_step on batches that carry its frames")
+
+
 def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     """A numpy batch as torch tensors on ``device``; integer arrays (token
     ids) become int64, the index dtype of the port's embedding lookup."""

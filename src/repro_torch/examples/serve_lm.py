@@ -5,11 +5,12 @@ smoke config through :class:`repro_torch.serve.engine.ServeEngine`.
     python -m repro_torch.examples.serve_lm --arch gemma2-2b --requests 6
 
 It runs on ``--device`` (default ``cuda``: flash attention on every GQA
-prefill layer, the gmm kernel on every MoE expert projection, the
-ssd_chunk kernel on every SSD chunk of a mamba2 or zamba2 prefill; it
-raises without a card unless ``--device cpu`` is given).  The
-transformers (dense GQA, MoE, MLA), mamba2 and zamba2 are ported; whisper
-raises, naming ROADMAP A14d.
+prefill layer, whisper's encoder layers included, the gmm kernel on every
+MoE expert projection, the ssd_chunk kernel on every SSD chunk of a mamba2
+or zamba2 prefill; it raises without a card unless ``--device cpu`` is
+given).  Every family is served: the transformers (dense GQA, MoE, MLA),
+mamba2, zamba2 and whisper (prefilled on zero frames, as the JAX engine
+does).
 """
 from __future__ import annotations
 

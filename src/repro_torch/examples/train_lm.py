@@ -12,7 +12,9 @@ attention on every attention layer, ssd_chunk on every SSD chunk; it
 raises without a card unless ``--device cpu`` is given).  ``--full``
 trains the full assigned config on that one device instead: gemma2-2b's
 fp32 params, gradients and AdamW state (41.8 GB) fit an 80 GB card,
-minitron-4b's (81.6 GB) do not.
+minitron-4b's (81.6 GB) do not.  ``--arch whisper-base`` is refused, as
+by the training launcher: its loss reads frames the token pipeline does
+not yield (ROADMAP R6).
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.configs.registry import ARCH_IDS, get_config, get_smoke_config
-from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig, batch_to_device
+from repro_torch.data.tokens import (TokenPipeline, TokenPipelineConfig, batch_to_device,
+                                     require_tokens_only)
 from repro_torch.optim.schedules import cosine_schedule
 from repro_torch.serve.episodic import resolve_device
 from repro_torch.train.checkpoint import CheckpointManager
@@ -57,8 +60,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="torch device (default cuda; cpu runs without a GPU)")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     cfg = get_config(args.arch) if args.full else scaled_100m(args.arch)
+    require_tokens_only(cfg)
+    device = resolve_device(args.device)
     print(f"arch={cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
           f"vocab={cfg.vocab} device={device}", flush=True)
 

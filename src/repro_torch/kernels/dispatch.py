@@ -2,9 +2,10 @@
 
 Every support-set aggregation the meta-learners run (per-class feature
 sums, the Simple CNAPs raw second moment, the Mahalanobis head), the
-quantized head matmul, the LM trunk's causal self-attention, the MoE
-layer's grouped expert matmuls and the Mamba-2 SSD's intra-chunk terms go
-through the ops here.  Each op picks an implementation per *backend*:
+quantized head matmul, the LM trunks' self-attention (causal, or
+bidirectional in whisper's encoder), the MoE layer's grouped expert
+matmuls and the Mamba-2 SSD's intra-chunk terms go through the ops here.
+Each op picks an implementation per *backend*:
 
   ``naive``  the literal composite (per-example expansion, then a reduce);
              for the second moment it forms the per-example (B, F, F)
@@ -290,7 +291,8 @@ def int8_matmul(x: torch.Tensor, qs, backend: Optional[str] = None
 
 
 # ===========================================================================
-# flash_attention: causal self-attention of the LM trunk
+# flash_attention: full-sequence self-attention, causal (the LM trunks, a
+# decoder) or bidirectional (whisper's encoder)
 # ===========================================================================
 
 
@@ -304,53 +306,57 @@ def _attention_transcription():
 
 class _FlashAttention(torch.autograd.Function):
     """q (B, S, Hq, D), k, v (B, S, Hkv, D) -> (B, S, Hq, D) in q's dtype,
-    causal, through the kernel (``ops.flash_attention_gqa``).
+    causal or not, through the kernel (``ops.flash_attention_gqa``).
 
-    Backward: the VJP of the transcription ``attention_scores``, recomputed
-    from the saved q, k and v.  That transcription is what the JAX trunk
-    differentiates: its LM layers never call the Pallas kernel, which has
-    no ``custom_vjp``, so no backward kernel is owed.  The two sides round
-    P differently in 16-bit dtypes: the forward rounds the un-normalised P
-    in registers before P V, the backward's recomputed P is the
-    transcription's (softmax in fp32, the normalised P rounded to v's
-    dtype).  In fp32 both are the same function to summation order."""
+    Backward: the VJP of the transcription ``attention_scores`` with the
+    same mask (``causal``, ``window``), recomputed from the saved q, k and
+    v.  That transcription is what the JAX models differentiate: their
+    layers never call the Pallas kernel, which has no ``custom_vjp``, so
+    no backward kernel is owed.  The two sides round P differently in
+    16-bit dtypes: the forward rounds the un-normalised P in registers
+    before P V, the backward's recomputed P is the transcription's (softmax
+    in fp32, the normalised P rounded to v's dtype).  In fp32 both are the
+    same function to summation order."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window, softcap):
+    def forward(ctx, q, k, v, causal, window, softcap):
         ctx.save_for_backward(q, k, v)
-        ctx.window, ctx.softcap = window, softcap
+        ctx.causal, ctx.window, ctx.softcap = causal, window, softcap
         return _fa.flash_attention_gqa(q.contiguous(), k.contiguous(), v.contiguous(),
-                                       causal=True, window=window, softcap=softcap)
+                                       causal=causal, window=window, softcap=softcap)
 
     @staticmethod
     def backward(ctx, g):
         need = ctx.needs_input_grad[:3]
         with torch.enable_grad():
             qkv = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
-            out = _attention_transcription()(*qkv, causal=True, window=ctx.window,
+            out = _attention_transcription()(*qkv, causal=ctx.causal, window=ctx.window,
                                              cap=ctx.softcap)
             live = [t for t in qkv if t.requires_grad]
             grads = iter(torch.autograd.grad(out, live, g)) if live else iter(())
-        return tuple(next(grads) if n else None for n in need) + (None, None)
+        return tuple(next(grads) if n else None for n in need) + (None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: Optional[int] = None, softcap: Optional[float] = None,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None,
                     backend: Optional[str] = None) -> torch.Tensor:
-    """Causal self-attention: q (B, S, Hq, D), k, v (B, S, Hkv, D), Hq a
-    multiple of Hkv -> (B, S, Hq, D) in q's dtype.  Keys with
-    ``q_pos - k_pos < window`` are seen; ``softcap`` caps the logits.
+    """Full-sequence self-attention: q (B, S, Hq, D), k, v (B, S, Hkv, D),
+    Hq a multiple of Hkv -> (B, S, Hq, D) in q's dtype.  ``causal``: keys
+    at or before each query's position only (bidirectional otherwise);
+    keys with ``q_pos - k_pos < window`` are seen; ``softcap`` caps the
+    logits.
 
     ``naive``/``ref``: the transcription ``attention_scores``.  ``cuda``:
     the kernel inside :class:`_FlashAttention` (a window at least S long
     masks nothing, so the kernel is given none)."""
     b = resolve_backend(backend, q.device)
     if b in ("naive", "ref"):
-        return _attention_transcription()(q, k, v, causal=True, window=window,
+        return _attention_transcription()(q, k, v, causal=causal, window=window,
                                           cap=softcap)
     if window is not None and window >= q.shape[1]:
         window = None
-    return _FlashAttention.apply(q, k, v, window, softcap)
+    return _FlashAttention.apply(q, k, v, causal, window, softcap)
 
 
 # ===========================================================================

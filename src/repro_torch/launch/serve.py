@@ -4,18 +4,19 @@ and episodic personalization (``--episodic``).
 LM token decode, continuous batching over the KV-cache API
 (:class:`repro_torch.serve.engine.ServeEngine`), on the smoke config of
 ``--arch`` (a transformer: dense GQA, or MoE / MLA as kimi-k2-1t-a32b and
-deepseek-v2-236b; mamba2-780m; the zamba2-7b hybrid; whisper is not
-ported, ROADMAP A14d) with random weights from ``--seed``:
+deepseek-v2-236b; mamba2-780m; the zamba2-7b hybrid; the whisper-base
+encoder-decoder, prefilled on zero frames as the JAX engine does) with
+random weights from ``--seed``:
 
     python -m repro_torch.launch.serve --arch minitron-4b --requests 8 \
         --slots 4 --max-new 16
 
 Prompts are ``--prompt-len`` tokens drawn from numpy's generator seeded
 with 0, as the JAX launcher draws them.  On a card every GQA prefill layer
-(zamba2's shared block too) runs the flash attention kernel, every MoE
-expert projection, in prefill and decode, the gmm kernel, and every SSD
-chunk of a mamba2 or zamba2 prefill the ssd_chunk kernel
-(``--kernel-backend auto``).
+(zamba2's shared block and whisper's encoder, bidirectional, too) runs
+the flash attention kernel, every MoE expert projection, in prefill and
+decode, the gmm kernel, and every SSD chunk of a mamba2 or zamba2 prefill
+the ssd_chunk kernel (``--kernel-backend auto``).
 
 Episodic serving:
 

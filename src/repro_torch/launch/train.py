@@ -12,6 +12,9 @@ seed 0, AdamW in the config's state dtype, a cosine schedule (or
 :class:`repro_torch.data.tokens.TokenPipeline` (seed 0), through the
 fault-tolerant loop with checkpoints and resume.  The step updates the
 state in place (:func:`repro_torch.train.step.make_train_step`).
+``--arch whisper-base`` is refused before any state is built: whisper's
+loss reads frame embeddings, which the token pipeline does not yield, and
+the JAX launcher has no whisper path either (ROADMAP R6).
 
     python -m repro_torch.launch.train --episodic --steps 100 \\
         --tasks-per-step 8 --learner simple_cnaps --schedule cosine
@@ -64,7 +67,8 @@ def _finish_preempted(e) -> None:
 
 def run_lm(args) -> None:
     from repro_torch.configs.registry import get_smoke_config
-    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig, batch_to_device
+    from repro_torch.data.tokens import (TokenPipeline, TokenPipelineConfig, batch_to_device,
+                                         require_tokens_only)
     from repro_torch.faults import PreemptionSignal
     from repro_torch.kernels import dispatch
     from repro_torch.optim.schedules import schedule_for
@@ -73,9 +77,10 @@ def run_lm(args) -> None:
     from repro_torch.train.loop import PreemptedError, train
     from repro_torch.train.step import adamw_for, make_init_state, make_train_step
 
+    cfg = get_smoke_config(args.arch)
+    require_tokens_only(cfg)
     device = resolve_device(args.device)
     n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
-    cfg = get_smoke_config(args.arch)
     if args.full:
         print(f"[warn] --full needs >=256 devices (have {n_dev}); running the smoke "
               f"config on one device", flush=True)
@@ -213,8 +218,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, default="minitron-4b",
                     help="LM to train (the transformers, dense, MoE and MLA, "
-                         "mamba2 and the zamba2 hybrid are ported; whisper is "
-                         "not, ROADMAP A14d)")
+                         "mamba2 and the zamba2 hybrid; whisper's loss reads "
+                         "frames the token pipeline does not yield, so it is "
+                         "refused, ROADMAP R6)")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--batch", type=int, default=8)

@@ -8,10 +8,11 @@ Layouts are the JAX package's: a weight is (d_in, d_out) and is used as
 (on its device; see :mod:`repro_torch.common.init`) and take ``lead``, a
 leading shape for stacked layers.
 
-Full-sequence attention takes a kernel backend, one of
-:data:`repro_torch.kernels.dispatch.BACKENDS`, and goes through
-:func:`repro_torch.kernels.dispatch.flash_attention`: ``cuda`` runs the
-hand-written flash attention kernel
+Full-sequence self-attention, causal (:func:`gqa_attention`) or
+bidirectional (:func:`gqa_attention_bidir`, whisper's encoder), takes a
+kernel backend, one of :data:`repro_torch.kernels.dispatch.BACKENDS`, and
+goes through :func:`repro_torch.kernels.dispatch.flash_attention`: ``cuda``
+runs the hand-written flash attention kernel
 (:func:`repro_torch.kernels.ops.flash_attention_gqa`; on a CPU tensor its
 plain version) inside an autograd Function whose backward is the VJP of
 :func:`attention_scores`, every other backend the transcription
@@ -188,6 +189,18 @@ def gqa_attention(p: Params, x: torch.Tensor, a: AttentionConfig, *,
     b, s, _ = x.shape
     q, k, v = gqa_project_qkv(p, x, a, torch.arange(s, device=x.device))
     o = causal_attention(q, k, v, window=window, cap=a.attn_softcap, backend=backend)
+    return o.reshape(b, s, -1) @ p["wo"].to(x.dtype)
+
+
+def gqa_attention_bidir(p: Params, x: torch.Tensor, a: AttentionConfig, *,
+                        backend: Optional[str] = "auto") -> torch.Tensor:
+    """Full-sequence bidirectional GQA self-attention (whisper's encoder):
+    every position sees every other, on ``backend`` as
+    :func:`causal_attention` runs."""
+    b, s, _ = x.shape
+    q, k, v = gqa_project_qkv(p, x, a, torch.arange(s, device=x.device))
+    o = dispatch.flash_attention(q, k, v, causal=False, softcap=a.attn_softcap,
+                                 backend=backend)
     return o.reshape(b, s, -1) @ p["wo"].to(x.dtype)
 
 

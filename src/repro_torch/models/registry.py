@@ -10,8 +10,10 @@ the JAX package's ``repro/models/registry.py``.
     cache = api.init_cache(cfg, batch_size, max_seq, device)
     params = api.compute_params(params, cfg)     # matmul weights cast once
 
-The transformers (dense, MoE, MLA), mamba2 and the zamba2 hybrid are
-ported.  The encoder-decoder family raises, naming the item that ports it.
+Every family is ported: the transformers (dense, MoE, MLA), mamba2, the
+zamba2 hybrid and the whisper encoder-decoder.  Whisper's ``loss`` and
+``prefill`` read ``batch['frontend_embeds']`` (B, S_enc, d_model) beside
+the tokens.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import dataclasses
 from typing import Callable
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import mamba2, transformer, zamba2
+from repro_torch.models import mamba2, transformer, whisper, zamba2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,14 +59,16 @@ _APIS = {
         init_cache=zamba2.init_cache,
         compute_params=zamba2.compute_params,
     ),
+    "encdec": ModelAPI(
+        init=whisper.init_whisper,
+        loss=whisper.loss,
+        prefill=whisper.prefill,
+        decode_step=whisper.decode_step,
+        init_cache=whisper.init_cache,
+        compute_params=whisper.compute_params,
+    ),
 }
-
-_NOT_PORTED = {"encdec": "A14d"}
 
 
 def get_api(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP {_NOT_PORTED[cfg.family]})")
     return _APIS[cfg.family]

@@ -16,10 +16,13 @@ stream).
 
 Prefill and decode run on ``kernel_backend`` (``auto``: the kernels on a
 CUDA device: flash attention on every GQA prefill layer, zamba2's shared
-block included, the gmm kernel on every MoE expert projection, prefill and
-decode, the ssd_chunk kernel on every SSD chunk of a mamba2 or zamba2
-prefill).  The matmul weights are cast to the compute dtype once,
-at construction (the model API's ``compute_params``).
+block and both of whisper's stacks included, the gmm kernel on every MoE
+expert projection, prefill and decode, the ssd_chunk kernel on every SSD
+chunk of a mamba2 or zamba2 prefill).  A model with a frontend (whisper's
+encoder, phi-3-vision's stub) is prefilled on zero frame embeddings, as
+the reference engine does: whisper's encoder then gives exactly zero.
+The matmul weights are cast to the compute dtype once, at construction
+(the model API's ``compute_params``).
 The episodic workload is served by
 :class:`repro_torch.serve.episodic.EpisodicServeEngine`.
 """
@@ -214,15 +217,21 @@ class ServeEngine:
         return requests
 
 
+# leaves of a prefill cache that do not grow with the decoder's sequence:
+# the SSM layers' states and whisper's cross k and v of the encoder's frames
+_WHOLE_LEAVES = ("conv", "ssm", "cross_k", "cross_v")
+
+
 def _splice_cache(full: Dict, pre: Dict) -> Dict:
     """Copy a prefill cache into a ``max_seq`` cache, in place; returns
     ``full`` at the prefill's ``len``.  The SSM layers' states (``conv``,
-    ``ssm``) are O(1) in the sequence and are copied whole; every other leaf
-    is (L, B, S, ...) with the prompt's S positions (k, v (.., H, D); MLA's
-    ckv, krope (.., R); zamba2's per-site k, v), copied into the head of
-    the sequence axis."""
+    ``ssm``, O(1) in the sequence) and whisper's ``cross_k`` and ``cross_v``
+    (the encoder's frames) are copied whole, as the reference does; every
+    other leaf is (L, B, S, ...) with the prompt's S positions (k, v (..,
+    H, D); MLA's ckv, krope (.., R); zamba2's per-site k, v), copied into
+    the head of the sequence axis."""
     for k, t in pre.items():
-        if k in ("conv", "ssm"):
+        if k in _WHOLE_LEAVES:
             full[k].copy_(t)
         elif k != "len":
             full[k][:, :, :t.shape[2]] = t

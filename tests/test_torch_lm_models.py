@@ -215,11 +215,22 @@ def test_attention_window_and_softcap_mask():
 
 @pytest.mark.parametrize("arch", ["whisper-base"])
 def test_unported_families_raise_naming_their_item(arch):
+    """The last family to be ported (whisper, A14d) now builds and runs one
+    prefill on random frames: finite logits over the padded vocab and a
+    cache of the prompt's positions and the encoder's frames."""
+    from repro_torch.models import whisper as TW
     cfg = treg.get_smoke_config(arch)
-    item = {"whisper-base": "A14d"}[arch]
-    with pytest.raises(NotImplementedError, match=item):
-        api = get_api(cfg)
-        api.init(torch.Generator().manual_seed(0), cfg)
+    api = get_api(cfg)
+    assert api.prefill is TW.prefill
+    params = api.init(torch.Generator().manual_seed(0), cfg)
+    g = torch.Generator().manual_seed(1)
+    batch = dict(tokens=torch.randint(0, cfg.vocab, (2, 5), generator=g),
+                 frontend_embeds=torch.randn(2, cfg.n_frontend_tokens, cfg.d_model,
+                                             generator=g))
+    logits, cache = api.prefill(params, batch, cfg)
+    assert logits.shape == (2, cfg.vocab_padded) and bool(logits[:, :cfg.vocab].isfinite().all())
+    assert cache["len"] == 5 and cache["k"].shape[2] == 5
+    assert cache["cross_k"].shape[2] == cfg.n_frontend_tokens
 
 
 def test_params_cross_with_their_leaves():
