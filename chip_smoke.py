@@ -8,6 +8,15 @@ the whisper encoder-decoder) on one NVIDIA GPU.
 Phases, each of which fails the run (non-zero exit) on any error:
 
 1. the card's name and power limit, and the torch / CUDA versions;
+1b. the roofline of ``repro_torch.roofline``: the H100's data-sheet peaks
+   beside the card's own total memory, the 40 (arch x shape) cells' bounds
+   (derived from the peaks, not measured), and the abstract specs of
+   ``repro_torch.launch.specs`` against real tensors on the card: for
+   whisper-base, mamba2-780m and gemma2-2b at full width and depth, ``init``
+   in fp32 on the card must give, leaf for leaf, the shapes and dtypes of
+   ``abstract_params_for`` and raise ``torch.cuda.memory_allocated`` by 4
+   bytes a param of ``param_counts`` within 1 %, and ``init_cache`` at 4
+   slots of 2048 positions those of ``abstract_cache_for``;
 2. build the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at ragged and wide ones (the Mahalanobis head and
@@ -310,8 +319,10 @@ events on each side of one call queued behind a sleep kernel, and
 larger of the bytes over the HBM rate and the FLOPs, counted once, over the
 peak rate of the units that do them (fp32 for the episodic kernels and the
 "simt" routes, bf16 tensor cores for the "wgmma" routes) at the main path's
-shape; a timed case whose call or device time reads below its bound fails
-the run.  ``route`` says how the kernel is written (CUDA C++), ``routes`` which of
+shape (``repro_torch.roofline.bound_ms``: every peak, bound and state
+reckoning of the script is the package's, ``repro_torch.roofline``); a
+timed case whose call or device time reads below its bound fails the run.
+``route`` says how the kernel is written (CUDA C++), ``routes`` which of
 its own routes each main case took, and ``main_cases`` gives every main
 case's numbers where a kernel has more than one.  ``launches`` counts the
 launches of the path that runs the kernel: the Simple CNAPs serving path
@@ -369,11 +380,12 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 (non-tensor) and
-# dense bf16 tensor-core FLOP/s
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-BF16_FLOPS = 989e12
+# the H100's peaks and the paths' bounds are the package's
+from repro_torch.roofline import (BF16_FLOPS, FP32_FLOPS, HBM_BYTES_PER_S,  # noqa: E402
+                                  attn_pairs, bound_ms, lm_bounds, moe_bounds,
+                                  moe_train_bound, pretrain_bound, ssm_bounds, ssm_shape,
+                                  ssm_train_bound, state_bytes, whisper_bounds,
+                                  whisper_train_bound)
 
 
 def fail(msg: str) -> None:
@@ -550,12 +562,6 @@ def call_device_ms(fn, n: int = 50):
     return _per_call_ms(fn, n, lambda name: True)
 
 
-def bound_ms(nbytes: float, flops: float, peak: float = FP32_FLOPS):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def row_err(got, want) -> float:
     """The largest error of a row: max|got - want| over each row (the last
     axis; a 1-D tensor is one row) over that row's max|want|.  A row whose
@@ -666,6 +672,101 @@ def check_kernels(specs, counted=None):
         row["routes"] = [t["route"] or "simt" for t in row["cases"]]
         rows[name] = row
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 1b: the roofline, and the abstract specs against real tensors
+# ---------------------------------------------------------------------------
+
+ROOFLINE_MODELS = ("whisper-base", "mamba2-780m", "gemma2-2b")
+ROOFLINE_CACHE = (4, 2048)          # slots, positions
+ROOFLINE_MEMORY_TOL = 0.01
+
+
+def _specs(tree) -> dict:
+    """{path: (shape, dtype)} of a tree's tensors, {path: value} of the rest
+    (a cache's ``len``)."""
+    from repro_torch.common.tree import tree_paths
+    return {p: (tuple(t.shape), t.dtype) if hasattr(t, "shape") else t
+            for p, t in tree_paths(tree).items()}
+
+
+def _spec_mismatch(got: dict, want: dict) -> list:
+    return [(p, got.get(p), want.get(p)) for p in sorted(set(got) | set(want))
+            if got.get(p) != want.get(p)]
+
+
+def abstract_against_real(arch: str, dev) -> dict:
+    """One model of phase 1b: ``init`` in fp32 on the card against
+    ``abstract_params_for`` (leaf for leaf, and the rise of the allocated
+    bytes against 4 bytes a param of ``param_counts``), then ``init_cache``
+    against ``abstract_cache_for``; each freed before the next."""
+    import torch
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.specs import abstract_cache_for, abstract_params_for
+    from repro_torch.models.registry import get_api
+    from repro_torch.roofline import param_counts
+    cfg = get_config(arch)
+    if cfg.param_dtype != "float32":
+        fail(f"phase 1b: {arch} draws its params in {cfg.param_dtype}, not fp32")
+    api = get_api(cfg)
+    want = _specs(abstract_params_for(cfg))
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    params = api.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize(dev)
+    rise = torch.cuda.memory_allocated(dev) - before
+    bad = _spec_mismatch(_specs(params), want)
+    if bad or not all(t.is_cuda for t in tree_leaves(params)):
+        fail(f"phase 1b: {arch}'s params on the card against abstract_params_for: {bad[:5]}")
+    n = param_counts(cfg)["total"]
+    err = abs(rise - 4 * n) / (4 * n)
+    del params
+    slots, positions = ROOFLINE_CACHE
+    cache = _specs(api.init_cache(cfg, slots, positions, dev))
+    bad_cache = _spec_mismatch(cache, _specs(abstract_cache_for(
+        cfg, ShapeSpec("phase 1b", positions, slots, "decode"))))
+    torch.cuda.empty_cache()
+    print(f"  {arch}: {len(want)} param leaves on the card equal abstract_params_for's "
+          f"in shape and dtype; memory_allocated rose {rise} B against 4 x {n:.0f} params "
+          f"= {4 * n:.0f} B ({100 * err:.4f} %); init_cache({slots}, {positions}): "
+          f"{len(cache)} leaves, {len(bad_cache)} differ from abstract_cache_for", flush=True)
+    if err > ROOFLINE_MEMORY_TOL:
+        fail(f"phase 1b: {arch}'s params took {rise} B on the card, {100 * err:.3f} % off "
+             f"4 bytes a param of param_counts ({n:.0f})")
+    if bad_cache:
+        fail(f"phase 1b: {arch}'s cache on the card against abstract_cache_for: "
+             f"{bad_cache[:5]} (of {sorted(cache)})")
+    return dict(arch=arch, leaves=len(want), params=n, allocated_rise=rise,
+                reckoned=4 * n, rel_err=err, cache_leaves=len(cache))
+
+
+def run_roofline(dev, card: str) -> dict:
+    """Phase 1b: the card beside the package's peaks, the 40-cell table,
+    and the abstract specs against real tensors on the card."""
+    import torch
+    from repro_torch import roofline as R
+    t_phase = time.perf_counter()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    peaks = dict(bf16_flops=R.BF16_FLOPS, fp16_flops=R.FP16_FLOPS, fp8_flops=R.FP8_FLOPS,
+                 int8_ops=R.INT8_OPS, tf32_flops=R.TF32_FLOPS, fp32_flops=R.FP32_FLOPS,
+                 hbm_bytes_per_s=R.HBM_BYTES_PER_S, hbm_bytes=R.HBM_BYTES)
+    print(f"roofline: card {card}; the H100 SXM data sheet's peaks at 700 W "
+          f"(repro_torch.roofline.constants): {peaks}; the card's total_memory {total} B "
+          f"beside HBM_BYTES {R.HBM_BYTES:.0f} B", flush=True)
+    rows = R.cell_rows()
+    if len(rows) != 40:
+        fail(f"phase 1b: cell_rows gave {len(rows)} cells, not 40 (10 archs x 4 shapes)")
+    print("roofline: the 40 (arch x shape) cells on one H100, bounds derived from the data "
+          "sheet's peaks (not measured):", flush=True)
+    print(R.format_markdown(rows), flush=True)
+    models = [abstract_against_real(arch, dev) for arch in ROOFLINE_MODELS]
+    out = dict(peaks=peaks, total_memory=total, cells=rows, models=models,
+               seconds=time.perf_counter() - t_phase)
+    print(f"phase 1b: {out['seconds']:.1f} s", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2711,7 +2812,7 @@ def pretrain_loop(cfg, dev, seq: int = PRETRAIN_SEQ, want=None, categories=None,
     ms = [t * 1e3 for t in result.step_times]
     tokens = batch_size * seq
     tok_s = tokens * (len(ms) - 1) / (sum(ms[1:]) / 1e3)
-    reckoned = 16 * n_params          # fp32 params, grads, AdamW mu and nu
+    reckoned = state_bytes(n_params, cfg.opt_state_dtype, cfg.param_dtype)
     print(f"{label} loop: {cfg.name}, {PRETRAIN_STEPS} steps of B {batch_size} S "
           f"{seq}, losses {losses}, ms per step {ms}, {tok_s:.1f} tokens/s (first "
           f"step excluded), peak memory {peak} B against {reckoned} B reckoned for fp32 "
@@ -2738,22 +2839,6 @@ def pretrain_loop(cfg, dev, seq: int = PRETRAIN_SEQ, want=None, categories=None,
                 reckoned_bytes=reckoned, params=n_params, held_bytes=held, launches=counts,
                 trace=dict(busy_ms=busy, step_wall_ms=wall, idle_share=1 - busy / wall,
                            categories=cats, top=table[:40]))
-
-
-def pretrain_bound(cfg, b: int, s: int):
-    """(bound ms, bf16 FLOPs, f32 FLOPs) of one step, forward and backward
-    (3x the forward's FLOPs, the checkpoints' recompute not counted): the
-    trunk's weight matmuls and attention (causal pairs within each layer's
-    window) on the bf16 tensor cores, the f32 unembed at the fp32 rate; the
-    two in sequence, since each waits on the other's output."""
-    a = cfg.attention
-    d, hq, hkv, dh, f = cfg.d_model, a.n_heads, a.n_kv_heads, a.head_dim, cfg.d_ff
-    per_token = 2 * (d * hq * dh + 2 * d * hkv * dh + hq * dh * d + 3 * d * f)
-    from repro_torch.models.transformer import layer_windows
-    pairs = sum(attn_pairs(s, True, w if w < s else None) for w in layer_windows(cfg))
-    bf16 = 3 * (cfg.n_layers * per_token * b * s + 4.0 * dh * b * hq * pairs)
-    f32 = 3 * 2.0 * b * s * cfg.vocab_padded * d
-    return (bf16 / BF16_FLOPS + f32 / FP32_FLOPS) * 1e3, bf16, f32
 
 
 def pretrain_minitron(dev):
@@ -3185,32 +3270,6 @@ def moe_train_parity(cfg, dev):
     return out
 
 
-def moe_train_bound(cfg, b: int, s: int, kept: int, n_params: int):
-    """(bound ms, by, bf16 FLOPs, f32 FLOPs, bytes) of one training step.
-    FLOPs: 3x the forward's (the checkpoints' recompute not counted): MLA's
-    projections, the shared experts and the ``kept`` routes' expert
-    projections (this batch's routing) on the bf16 tensor cores; MLA's
-    transcription (causal pairs), the router and the unembed in fp32, at
-    the fp32 rate, in sequence with the bf16 work.  Bytes: the bf16 params,
-    mu and nu read once and written once."""
-    a, m = cfg.attention, cfg.moe
-    qk, h = a.qk_nope_dim + a.qk_rope_dim, a.n_heads
-    attn = (cfg.d_model * a.q_lora_rank + a.q_lora_rank * h * qk
-            + cfg.d_model * (a.kv_lora_rank + a.qk_rope_dim)
-            + a.kv_lora_rank * h * (a.qk_nope_dim + a.v_head_dim) + h * a.v_head_dim * cfg.d_model)
-    shared = 3 * m.n_shared * cfg.d_model * m.d_ff
-    t = b * s
-    bf16 = 3 * 2.0 * (cfg.n_layers * t * (attn + shared) + kept * 3 * cfg.d_model * m.d_ff)
-    pairs = b * attn_pairs(s, True, None)
-    f32 = 3 * 2.0 * (cfg.n_layers * (pairs * h * (qk + a.v_head_dim) + t * cfg.d_model * m.n_experts)
-                     + t * cfg.vocab_padded * cfg.d_model)
-    nbytes = 2 * 3 * 2.0 * n_params
-    t_ops = (bf16 / BF16_FLOPS + f32 / FP32_FLOPS) * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", bf16, f32,
-            nbytes)
-
-
 def moe_train_loop(cfg, dev):
     """MOE_TRAIN_STEPS steps of ``make_train_step`` through ``train()`` from
     ``make_init_state`` (seed 0: the parity's weights) on the pipeline's
@@ -3238,7 +3297,7 @@ def moe_train_loop(cfg, dev):
     ms = [t * 1e3 for t in result.step_times]
     tokens = PRETRAIN_BATCH * MOE_TRAIN_SEQ
     tok_s = tokens * (len(ms) - 1) / (sum(ms[1:]) / 1e3)
-    reckoned = 8 * n_params           # bf16 params, grads, AdamW mu and nu
+    reckoned = state_bytes(n_params, cfg.opt_state_dtype, cfg.param_dtype)
     print(f"moe train loop: {cfg.name}, {MOE_TRAIN_STEPS} steps of B {PRETRAIN_BATCH} S "
           f"{MOE_TRAIN_SEQ}, losses {losses}, ms per step {ms}, {tok_s:.1f} tokens/s (first "
           f"step excluded), peak memory {peak} B against {reckoned} B reckoned for bf16 "
@@ -3512,28 +3571,6 @@ def b6_dt_head_zeroed(nh: int):
     return "B6 backward: dt's cotangent zeroed for head 0", dt_head_zeroed
 
 
-def ssm_flops(cfg, s: int) -> float:
-    """The forward FLOPs of one sequence of ``s`` tokens through the trunk of
-    an SSM or hybrid config (weight matmuls, the SSD, the shared block's
-    causal attention), without the LM head."""
-    from repro_torch.models import mamba2 as TM
-    sc = cfg.ssm
-    nm, sites, h = ssm_shape(cfg)
-    d, di, p, n, q = cfg.d_model, sc.d_inner(cfg.d_model), sc.head_dim, sc.d_state, \
-        sc.chunk_size
-    mm = d * TM.in_proj_dim(cfg) + di * d
-    chunks = -(-s // q)
-    ssd = h * (chunks * (q * (q + 1) * (n + p) + 2.0 * q * p * n) + 2.0 * s * p * n)
-    flops = nm * (2.0 * mm * s + ssd)
-    if sites:
-        a = cfg.attention
-        shared = d * (a.n_heads + 2 * a.n_kv_heads) * a.head_dim + a.n_heads * a.head_dim * d \
-            + 3 * d * cfg.d_ff
-        flops += sites * (2.0 * shared * s + 4.0 * a.head_dim * a.n_heads
-                          * attn_pairs(s, True, None))
-    return flops
-
-
 def ssm_check_step(label, cfg, r, dev):
     """Fail unless one step's forward launched B6 on "wgmma" once a mamba
     layer and B5 once a shared site, the backward B6 once a mamba layer
@@ -3657,9 +3694,7 @@ def ssm_train_loop(cfg, dev, seq: int, label: str):
     the fp32 rate."""
     r = pretrain_loop(cfg, dev, seq, want=ssm_steps_want(cfg, dev, PRETRAIN_STEPS),
                       categories=SSM_CATEGORIES, label=label)
-    bf16 = 3 * PRETRAIN_BATCH * ssm_flops(cfg, seq)
-    f32 = 3 * 2.0 * PRETRAIN_BATCH * seq * cfg.vocab_padded * cfg.d_model
-    bound = (bf16 / BF16_FLOPS + f32 / FP32_FLOPS) * 1e3
+    bound, bf16, f32 = ssm_train_bound(cfg, PRETRAIN_BATCH, seq)
     step_ms = statistics.median(r["step_ms"][1:])
     b6 = r["trace"]["categories"].get("B6 ssd_chunk", {}).get("device_ms", 0.0)
     r.update(bound=dict(ms=bound, bf16_flops=bf16, f32_flops=f32, share=bound / step_ms),
@@ -3734,15 +3769,6 @@ def run_ssm_train(dev, launches):
 OPS_TOL = {"flash_attention": {"float32": 2e-5, "bfloat16": 1e-2, "float16": 2e-3},
            "gmm": {"float32": 1e-5, "bfloat16": 1e-2, "float16": 2e-3},
            "ssd_chunk": {"float32": 1e-4, "bfloat16": 1e-4, "float16": 1e-4}}
-
-
-def attn_pairs(s: int, causal: bool, window) -> int:
-    """Unmasked (query, key) pairs of one head."""
-    if not causal:
-        return s * s if window is None else sum(s - max(0, q - window + 1) for q in range(s))
-    if window is None:
-        return s * (s + 1) // 2
-    return sum(min(q + 1, window) for q in range(s))
 
 
 def flash_case(randn, label, b, s, hq, hkv, d, dtype, main=False, lib=False,
@@ -4243,26 +4269,6 @@ def lm_counted(cfg, params16, reqs, slots, max_seq, dev):
     return served, counts, wall, peak
 
 
-def lm_bounds(cfg, s: int, b: int, k_len: int):
-    """(prefill bound ms, by; decode bound ms, by).  The bytes: the layers'
-    matmul weights in bf16 and the fp32 LM head, each read once (the
-    embedding's rows are a gather), and for decode the cache's k_len
-    positions of b slots.  The FLOPs, at the bf16 tensor-core peak:
-    prefill of s tokens (the matmuls, causal attention's pairs, the last
-    token's LM head); a decode step of b tokens (the matmuls, the head)."""
-    a = cfg.attention
-    per_layer = cfg.d_model * (a.n_heads + 2 * a.n_kv_heads) * a.head_dim \
-        + a.n_heads * a.head_dim * cfg.d_model + 3 * cfg.d_model * cfg.d_ff
-    weights = 2.0 * cfg.n_layers * per_layer + 4.0 * cfg.vocab_padded * cfg.d_model
-    head_flops = 2.0 * cfg.d_model * cfg.vocab_padded
-    flops = 2.0 * cfg.n_layers * per_layer * s + head_flops \
-        + cfg.n_layers * 4.0 * a.head_dim * a.n_heads * attn_pairs(s, True, None)
-    cache = 2.0 * 2 * b * k_len * cfg.n_layers * a.n_kv_heads * a.head_dim
-    return (bound_ms(weights, flops, BF16_FLOPS),
-            bound_ms(weights + cache, b * (2.0 * cfg.n_layers * per_layer + head_flops),
-                     BF16_FLOPS))
-
-
 def trace_lm(fn, wall_ms: float, label: str, top: int = 8, categories=LM_CATEGORIES,
              kernel: str = "B5 flash_attention"):
     """One call of ``fn`` under torch.profiler: device busy time by kind of
@@ -4702,44 +4708,6 @@ def captured_gmm(store: list):
     return gmm_replaced(lambda gmm: lambda x, w: (store.append((x, w)), gmm(x, w))[1])
 
 
-def moe_bounds(cfg, s: int, b: int, k_len: int):
-    """(prefill bound ms, by; decode bound ms, by).  The bytes: every bf16
-    weight read once, every expert's included (the capacity buffer runs
-    each expert, tokens or none), the LM head once (the embedding's rows
-    are a gather), and for decode the cache's k_len positions of b slots.
-    The FLOPs, at the bf16 tensor-core peak, count what the tokens need:
-    the attention projections, causal attention's pairs, k experts and the
-    shared ones a token, the router, the last token's (decode: each
-    token's) LM head."""
-    a, m = cfg.attention, cfg.moe
-    if a.kind == "mla":
-        qk, h = a.qk_nope_dim + a.qk_rope_dim, a.n_heads
-        attn = (cfg.d_model * a.q_lora_rank + a.q_lora_rank * h * qk
-                + cfg.d_model * (a.kv_lora_rank + a.qk_rope_dim)
-                + a.kv_lora_rank * h * (a.qk_nope_dim + a.v_head_dim)
-                + h * a.v_head_dim * cfg.d_model)
-        pair_flops = 2.0 * h * (qk + a.v_head_dim)
-        cache_row = a.kv_lora_rank + a.qk_rope_dim
-    else:
-        attn = cfg.d_model * (a.n_heads + 2 * a.n_kv_heads) * a.head_dim \
-            + a.n_heads * a.head_dim * cfg.d_model
-        pair_flops = 4.0 * a.n_heads * a.head_dim
-        cache_row = 2 * a.n_kv_heads * a.head_dim
-    experts = 3 * m.n_experts * cfg.d_model * m.d_ff
-    active = 3 * (m.top_k + m.n_shared) * cfg.d_model * m.d_ff + cfg.d_model * m.n_experts
-    shared = 3 * m.n_shared * cfg.d_model * m.d_ff
-    head = cfg.vocab_padded * cfg.d_model
-    weights = 2.0 * (cfg.n_layers * (attn + experts + shared + cfg.d_model * m.n_experts)
-                     + head)
-    per_token = 2.0 * cfg.n_layers * (attn + active)
-    prefill = bound_ms(weights, per_token * s + 2.0 * head
-                       + cfg.n_layers * pair_flops * attn_pairs(s, True, None), BF16_FLOPS)
-    cache = 2.0 * b * k_len * cfg.n_layers * cache_row
-    decode = bound_ms(weights + cache, b * (per_token + 2.0 * head
-                                            + cfg.n_layers * pair_flops * k_len), BF16_FLOPS)
-    return prefill, decode
-
-
 def moe_timings(cfg, params, dev):
     """Prefill ms at MOE_PREFILL tokens, a decode step at MOE_SLOTS slots
     (position MOE_DECODE_POS), each beside its bound, one profile of each;
@@ -4875,14 +4843,6 @@ SSM_DECODE_POS = 1024
 SSM_CATEGORIES = (("B6 ssd_chunk", ("ssd_wgmma", "ssd_chunk_kernel")),) + LM_CATEGORIES
 
 
-def ssm_shape(cfg):
-    """(mamba layers, shared sites, SSD heads) of an SSM or hybrid config."""
-    from repro_torch.models import zamba2 as TZ
-    if cfg.family == "hybrid":
-        return TZ.n_mamba_layers(cfg), TZ.layout(cfg)[0], cfg.ssm.n_heads(cfg.d_model)
-    return cfg.n_layers, 0, cfg.ssm.n_heads(cfg.d_model)
-
-
 def hybrid_flash_route(cfg, dev) -> str:
     """The route ``flash_route`` picks for the shared block's attention (bf16
     q, k, v of the config's heads; zamba2-7b's head dim 112 is no "wgmma"
@@ -4970,39 +4930,6 @@ def engine_counted(cfg, params16, reqs, slots, max_seq, dev, want, passes=None):
                 not all(0 <= t < cfg.vocab for t in r.out_tokens):
             fail(f"{cfg.name} request {r.uid}: done={r.done}, tokens {r.out_tokens}")
     return counts, calls, wall, peak
-
-
-def ssm_bounds(cfg, s: int, b: int, k_len: int):
-    """(prefill bound ms, by; decode bound ms, by) of ``cfg`` (mamba2 or
-    zamba2).  The bytes: the mamba blocks' and the shared block's matmul
-    and conv weights in bf16, their fp32 SSM parameters and norms, the fp32
-    tied embedding read once by the LM head; a decode step of ``b`` slots
-    also reads and writes every layer's conv and fp32 SSM states and reads
-    each site's first ``k_len`` cached keys and values.  The FLOPs, at the
-    bf16 tensor-core peak: prefill of ``s`` tokens (:func:`ssm_flops`, and
-    the last token's head); a decode step of ``b`` tokens (the weight
-    matmuls, the state update and read-out, attention over ``k_len`` keys,
-    the head)."""
-    from repro_torch.models import mamba2 as TM
-    sc = cfg.ssm
-    nm, sites, h = ssm_shape(cfg)
-    d, di, p, n = cfg.d_model, sc.d_inner(cfg.d_model), sc.head_dim, sc.d_state
-    c = TM.conv_dim(cfg)
-    mm = d * TM.in_proj_dim(cfg) + di * d                          # a mamba block's matmuls
-    shared, cache, attn = 0, 0.0, 0.0
-    if sites:
-        a = cfg.attention
-        shared = d * (a.n_heads + 2 * a.n_kv_heads) * a.head_dim + a.n_heads * a.head_dim * d \
-            + 3 * d * cfg.d_ff
-        cache = 2.0 * 2 * b * k_len * sites * a.n_kv_heads * a.head_dim
-        attn = sites * (2.0 * shared + 4.0 * a.head_dim * a.n_heads * k_len)
-    weights = 2.0 * (nm * (mm + c * sc.d_conv + c) + shared) + 4.0 * nm * (3 * h + d + di) \
-        + 4.0 * cfg.vocab_padded * d
-    head = 2.0 * d * cfg.vocab_padded
-    states = 2.0 * nm * b * (2 * c * (sc.d_conv - 1) + 4 * h * p * n)
-    dec_flops = b * (nm * (2.0 * mm + 4.0 * h * p * n) + attn + head)
-    return (bound_ms(weights, ssm_flops(cfg, s) + head, BF16_FLOPS),
-            bound_ms(weights + states + cache, dec_flops, BF16_FLOPS))
 
 
 def ssm_timings(cfg, params16, slots: int, dev):
@@ -5229,51 +5156,6 @@ def whisper_frames(cfg, b: int, seed: int, dev):
     import torch
     g = torch.Generator(device=dev).manual_seed(seed)
     return torch.randn((b, cfg.n_frontend_tokens, cfg.d_model), generator=g, device=dev)
-
-
-def whisper_attn(cfg):
-    """(matmul weights of a self-attention and MLP block, of the cross
-    attention's q and o projections, of its k and v projections; the
-    attention FLOPs of one (query, key) pair over every head)."""
-    a = cfg.attention
-    d, hd, kvd = cfg.d_model, a.n_heads * a.head_dim, a.n_kv_heads * a.head_dim
-    block = d * (hd + 2 * kvd) + hd * d + 3 * d * cfg.d_ff
-    return block, 2 * d * hd, 2 * d * hd, 4.0 * a.head_dim * a.n_heads
-
-
-def whisper_fwd_flops(cfg, s: int) -> float:
-    """The forward FLOPs of one sequence: the encoder over its frames
-    (bidirectional attention), the decoder over ``s`` tokens (causal
-    self-attention, cross attention to every frame, the cross k and v
-    projections of the frames), without the LM head."""
-    block, cross_qo, cross_kv, pair = whisper_attn(cfg)
-    se = cfg.n_frontend_tokens
-    enc = cfg.n_encoder_layers * (2.0 * block * se + pair * se * se)
-    dec = cfg.n_layers * (2.0 * (block + cross_qo) * s + 2.0 * cross_kv * se
-                          + pair * (attn_pairs(s, True, None) + s * se))
-    return enc + dec
-
-
-def whisper_bounds(cfg, s: int, b: int, k_len: int):
-    """(prefill bound ms, by; decode bound ms, by).  Prefill of one prompt of
-    ``s`` tokens: every matmul weight of both stacks in bf16 and the fp32
-    tied embedding (the LM head) read once, :func:`whisper_fwd_flops` and
-    the last token's head at the bf16 tensor-core peak.  A decode step of
-    ``b`` slots: the decoder's weights but the cross k and v projections
-    (bf16) and the fp32 head read once, each slot's ``k_len`` cached keys
-    and values and its cross k and v of every frame (bf16) read once; the
-    FLOPs of its weight matmuls, attention over ``k_len`` keys and every
-    frame, and the head."""
-    block, cross_qo, cross_kv, pair = whisper_attn(cfg)
-    a, d, se, nl = cfg.attention, cfg.d_model, cfg.n_frontend_tokens, cfg.n_layers
-    head_bytes, head_flops = 4.0 * cfg.vocab_padded * d, 2.0 * d * cfg.vocab_padded
-    pre_bytes = 2.0 * (cfg.n_encoder_layers * block + nl * (block + cross_qo + cross_kv)) \
-        + head_bytes
-    dec_weights = nl * (block + cross_qo)
-    cache = 2.0 * 2 * b * nl * (k_len * a.n_kv_heads + se * a.n_heads) * a.head_dim
-    dec_flops = b * (2.0 * dec_weights + nl * pair * (k_len + se) + head_flops)
-    return (bound_ms(pre_bytes, whisper_fwd_flops(cfg, s) + head_flops, BF16_FLOPS),
-            bound_ms(2.0 * dec_weights + head_bytes + cache, dec_flops, BF16_FLOPS))
 
 
 def causal_and_length(q, kw):
@@ -5566,9 +5448,7 @@ def whisper_train_loop(cfg, dev):
     r = pretrain_loop(cfg, dev, s, want={"flash_attention": n, "flash_attention/wgmma": n},
                       label="train whisper", batch_at=lambda i: whisper_train_batch(cfg, i, dev),
                       batch_size=b)
-    bf16 = 3 * b * whisper_fwd_flops(cfg, s)
-    f32 = 3 * 2.0 * b * s * cfg.vocab_padded * cfg.d_model
-    bound = (bf16 / BF16_FLOPS + f32 / FP32_FLOPS) * 1e3
+    bound, bf16, f32 = whisper_train_bound(cfg, b, s)
     step_ms = statistics.median(r["step_ms"][1:])
     b5 = r["trace"]["categories"].get("B5 flash_attention", {}).get("device_ms", 0.0)
     r.update(bound=dict(ms=bound, bf16_flops=bf16, f32_flops=f32, share=bound / step_ms),
@@ -5664,6 +5544,8 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}", flush=True)
+    roofline = run_roofline(dev, card)
+    mark("phase 1b done")
 
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -5759,7 +5641,7 @@ def main() -> int:
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
-        dict(card=card, kernels=rows, paths=summary, launches=launches,
+        dict(card=card, roofline=roofline, kernels=rows, paths=summary, launches=launches,
              planted_faults=planted), indent=1))
     # "train_launches": the launches of the episodic kernels in the five
     # steps of the training loop (phase 5), of flash attention in the three

@@ -11,7 +11,10 @@ A12).
 
 Beside it, the model configs of the JAX package (``AttentionConfig``,
 ``MoEConfig``, ``SSMConfig``, ``ModelConfig``), copied field for field so
-that every architecture's ``CONFIG`` and ``SMOKE`` equal the JAX package's.
+that every architecture's ``CONFIG`` and ``SMOKE`` equal the JAX package's,
+and its step shapes (``ShapeSpec``, ``SHAPES``, ``SHAPES_BY_NAME``), the
+(arch x shape) cells that the roofline (:mod:`repro_torch.roofline`) and
+the abstract specs (:mod:`repro_torch.launch.specs`) cover.
 The port reads the fields of the model (widths, attention variant, scales,
 ``compute_dtype``); the JAX package's sharding and rematerialisation knobs
 (``remat_policy``, ``shard_activations_model``, ``moe_shard_map``,
@@ -21,7 +24,7 @@ so the configs stay equal, and change nothing on one device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 from repro_torch.kernels.dispatch import BACKENDS
 
@@ -216,3 +219,23 @@ class MetaTrainConfig:
                 f"dp_shards={self.dp_shards}, dcn_shards={self.dcn_shards}, "
                 f"grad_reduce={self.grad_reduce!r}: multi-GPU is not ported "
                 f"(ROADMAP A12); train on one device")
+
+
+# -- step shapes (the input-shape set of the LM-family archs) ----------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # 'train' | 'prefill' | 'decode'
+
+
+SHAPES: Tuple[ShapeSpec, ...] = (
+    ShapeSpec("train_4k", 4096, 256, "train"),
+    ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    ShapeSpec("decode_32k", 32768, 128, "decode"),
+    ShapeSpec("long_500k", 524288, 1, "decode"),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}

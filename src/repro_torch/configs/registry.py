@@ -5,6 +5,8 @@ port's copy of the JAX package's ``repro/configs/registry.py``.
 """
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
 from repro_torch.configs import (
     deepseek_v2_236b,
     gemma2_2b,
@@ -34,7 +36,7 @@ _MODULES = {
 
 ARCH_IDS = tuple(_MODULES)
 
-# Archs whose decode path is sub-quadratic in context.
+# Archs whose decode path is sub-quadratic in context (run long_500k).
 LONG_CONTEXT_OK = ("mamba2-780m", "zamba2-7b")
 
 
@@ -44,3 +46,16 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return _MODULES[arch].SMOKE
+
+
+def all_configs() -> Dict[str, Tuple[ModelConfig, ModelConfig]]:
+    return {k: (m.CONFIG, m.SMOKE) for k, m in _MODULES.items()}
+
+
+def cell_supported(arch: str, shape_name: str) -> Tuple[bool, str]:
+    """Is (arch x shape) a cell of the roofline table? Returns (ok, reason)."""
+    if shape_name == "long_500k" and arch not in LONG_CONTEXT_OK:
+        return False, ("full-attention decode at 524288 ctx is O(S) mem / "
+                       "O(S^2) aggregate — sub-quadratic archs only "
+                       "(see DESIGN.md long_500k applicability)")
+    return True, ""

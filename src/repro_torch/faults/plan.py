@@ -188,4 +188,7 @@ def advance_clock(clock: Callable[[], float], dt: float) -> None:
         clock.advance(dt)
     else:
         import time
+        # lint: allow(clock-discipline): the wall-clock half of the
+        # injectable-clock contract itself — launchers land here, tests
+        # always inject a fake clock and never reach this branch
         time.sleep(dt)

@@ -1,0 +1,498 @@
+"""The analytical H100 roofline of the port, the counterpart of the JAX
+package's ``repro/roofline/analysis.py``.
+
+The JAX package reads FLOPs and bytes from compiled HLO; the port counts
+them from the configs.  Two layers:
+
+* the bounds of the paths ``chip_smoke.py`` times (a prefill, a decode
+  step, a training step of each family), each the least time one H100
+  could take: the larger of the bytes the path must move over HBM's rate
+  and its FLOPs over the peak of the units that do them
+  (:mod:`repro_torch.roofline.constants`);
+* the three-term analysis of every (arch x shape) cell, from the same
+  functions at the cell's batch and length::
+
+      T_compute  = bf16 FLOPs / bf16 peak + fp32 FLOPs / fp32 peak
+      T_memory   = bytes / HBM rate
+      T_coll     = 0 on one card (multi-GPU: ROADMAP A12)
+      bottleneck = argmax of the three
+      MODEL_FLOPS = 6 N_active D (train; 2 N_active D for an inference pass)
+      useful ratio = MODEL_FLOPS / the bound's FLOPs
+      roofline fraction = T_ideal / T_bound,  T_ideal = MODEL_FLOPS / bf16 peak
+
+Every number here is derived from NVIDIA's data-sheet peaks; none is
+measured.  The model modules are imported inside the functions that need
+them, so importing the roofline imports no model code.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Dict, List
+
+from repro_torch.common.tree import tree_leaves, tree_paths
+from repro_torch.configs.base import SHAPES, SHAPES_BY_NAME, ModelConfig, ShapeSpec
+from repro_torch.configs.registry import ARCH_IDS, cell_supported, get_config
+from repro_torch.optim.quant import BLOCK as QUANT_BLOCK
+from repro_torch.roofline.constants import BF16_FLOPS, FP32_FLOPS, HBM_BYTES, HBM_BYTES_PER_S
+
+_ITEMSIZE = {"float32": 4, "bfloat16": 2}
+
+
+def bound_ms(nbytes: float, flops: float, peak: float = FP32_FLOPS):
+    """(ms, "bytes" or "operations"): the larger of ``nbytes`` over HBM's
+    rate and ``flops`` over ``peak``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attn_pairs(s: int, causal: bool, window) -> int:
+    """Unmasked (query, key) pairs of one head."""
+    if not causal:
+        return s * s if window is None else sum(s - max(0, q - window + 1) for q in range(s))
+    if window is None:
+        return s * (s + 1) // 2
+    return sum(min(q + 1, window) for q in range(s))
+
+
+# -- training state ----------------------------------------------------------
+
+def state_bytes(n_params: int, state_dtype: str, param_dtype: str) -> int:
+    """Bytes of the training state of ``n_params`` params: the params and
+    their gradients in ``param_dtype``, AdamW's mu and nu in
+    ``state_dtype``: 16 a param in fp32, 8 in bf16.  An int8 moment
+    carries an fp32 scale for each block of QUANT_BLOCK values
+    (``optim/quant.py``); a leaf's padding to whole blocks is not
+    counted."""
+    p = _ITEMSIZE[param_dtype]
+    if state_dtype == "int8":
+        return 2 * p * n_params + 2 * (n_params + 4 * n_params // QUANT_BLOCK)
+    return 2 * p * n_params + 2 * _ITEMSIZE[state_dtype] * n_params
+
+
+def adamw_update_bytes(n_params: int, cfg: ModelConfig) -> float:
+    """Bytes AdamW's update moves: the params, mu and nu each read once and
+    written once, that is the training state (:func:`state_bytes`) but the
+    gradients, twice."""
+    state = state_bytes(n_params, cfg.opt_state_dtype, cfg.param_dtype)
+    return 2.0 * (state - _ITEMSIZE[cfg.param_dtype] * n_params)
+
+
+# -- dense GQA transformers ----------------------------------------------------
+
+def lm_work(cfg: ModelConfig, s: int, b: int, k_len: int):
+    """((prefill bytes, FLOPs), (decode bytes, FLOPs)) of :func:`lm_bounds`.
+    A layer with a sliding window attends to (and a decode step reads the
+    cache of) at most its window's keys."""
+    from repro_torch.models.transformer import layer_windows
+    a = cfg.attention
+    windows = layer_windows(cfg)
+    per_layer = cfg.d_model * (a.n_heads + 2 * a.n_kv_heads) * a.head_dim \
+        + a.n_heads * a.head_dim * cfg.d_model + 3 * cfg.d_model * cfg.d_ff
+    weights = 2.0 * cfg.n_layers * per_layer + 4.0 * cfg.vocab_padded * cfg.d_model
+    head_flops = 2.0 * cfg.d_model * cfg.vocab_padded
+    pairs = sum(attn_pairs(s, True, w if w < s else None) for w in windows)
+    flops = 2.0 * cfg.n_layers * per_layer * s + head_flops \
+        + 4.0 * a.head_dim * a.n_heads * pairs
+    keys = sum(min(k_len, w) for w in windows)
+    cache = 2.0 * 2 * b * keys * a.n_kv_heads * a.head_dim
+    decode = b * (2.0 * cfg.n_layers * per_layer + head_flops
+                  + 4.0 * a.head_dim * a.n_heads * keys)
+    return (weights, flops), (weights + cache, decode)
+
+
+def lm_bounds(cfg: ModelConfig, s: int, b: int, k_len: int):
+    """(prefill bound ms, by; decode bound ms, by).  The bytes: the layers'
+    matmul weights in bf16 and the fp32 LM head, each read once (the
+    embedding's rows are a gather), and for decode the cache's k_len
+    positions of b slots.  The FLOPs, at the bf16 tensor-core peak:
+    prefill of s tokens (the matmuls, causal attention's pairs, the last
+    token's LM head); a decode step of b tokens (the matmuls, attention
+    over the k_len keys, the head)."""
+    (pb, pf), (db, df) = lm_work(cfg, s, b, k_len)
+    return bound_ms(pb, pf, BF16_FLOPS), bound_ms(db, df, BF16_FLOPS)
+
+
+def pretrain_bound(cfg: ModelConfig, b: int, s: int):
+    """(bound ms, bf16 FLOPs, f32 FLOPs) of one step, forward and backward
+    (3x the forward's FLOPs, the checkpoints' recompute not counted): the
+    trunk's weight matmuls and attention (causal pairs within each layer's
+    window) on the bf16 tensor cores, the f32 unembed at the fp32 rate; the
+    two in sequence, since each waits on the other's output."""
+    a = cfg.attention
+    d, hq, hkv, dh, f = cfg.d_model, a.n_heads, a.n_kv_heads, a.head_dim, cfg.d_ff
+    per_token = 2 * (d * hq * dh + 2 * d * hkv * dh + hq * dh * d + 3 * d * f)
+    from repro_torch.models.transformer import layer_windows
+    pairs = sum(attn_pairs(s, True, w if w < s else None) for w in layer_windows(cfg))
+    bf16 = 3 * (cfg.n_layers * per_token * b * s + 4.0 * dh * b * hq * pairs)
+    f32 = 3 * 2.0 * b * s * cfg.vocab_padded * d
+    return (bf16 / BF16_FLOPS + f32 / FP32_FLOPS) * 1e3, bf16, f32
+
+
+# -- MoE and MLA transformers ------------------------------------------------------
+
+def _moe_attention(cfg: ModelConfig):
+    """(attention matmul weights of a layer, FLOPs of one (query, key) pair
+    over every head, cached values a position of a layer) of an MLA or GQA
+    config."""
+    a = cfg.attention
+    if a.kind == "mla":
+        qk, h = a.qk_nope_dim + a.qk_rope_dim, a.n_heads
+        attn = (cfg.d_model * a.q_lora_rank + a.q_lora_rank * h * qk
+                + cfg.d_model * (a.kv_lora_rank + a.qk_rope_dim)
+                + a.kv_lora_rank * h * (a.qk_nope_dim + a.v_head_dim)
+                + h * a.v_head_dim * cfg.d_model)
+        return attn, 2.0 * h * (qk + a.v_head_dim), a.kv_lora_rank + a.qk_rope_dim
+    attn = cfg.d_model * (a.n_heads + 2 * a.n_kv_heads) * a.head_dim \
+        + a.n_heads * a.head_dim * cfg.d_model
+    return attn, 4.0 * a.n_heads * a.head_dim, 2 * a.n_kv_heads * a.head_dim
+
+
+def moe_work(cfg: ModelConfig, s: int, b: int, k_len: int):
+    """((prefill bytes, FLOPs), (decode bytes, FLOPs)) of :func:`moe_bounds`."""
+    m = cfg.moe
+    attn, pair_flops, cache_row = _moe_attention(cfg)
+    experts = 3 * m.n_experts * cfg.d_model * m.d_ff
+    active = 3 * (m.top_k + m.n_shared) * cfg.d_model * m.d_ff + cfg.d_model * m.n_experts
+    shared = 3 * m.n_shared * cfg.d_model * m.d_ff
+    head = cfg.vocab_padded * cfg.d_model
+    weights = 2.0 * (cfg.n_layers * (attn + experts + shared + cfg.d_model * m.n_experts)
+                     + head)
+    per_token = 2.0 * cfg.n_layers * (attn + active)
+    prefill = per_token * s + 2.0 * head + cfg.n_layers * pair_flops * attn_pairs(s, True, None)
+    cache = 2.0 * b * k_len * cfg.n_layers * cache_row
+    decode = b * (per_token + 2.0 * head + cfg.n_layers * pair_flops * k_len)
+    return (weights, prefill), (weights + cache, decode)
+
+
+def moe_bounds(cfg: ModelConfig, s: int, b: int, k_len: int):
+    """(prefill bound ms, by; decode bound ms, by).  The bytes: every bf16
+    weight read once, every expert's included (the capacity buffer runs
+    each expert, tokens or none), the LM head once (the embedding's rows
+    are a gather), and for decode the cache's k_len positions of b slots.
+    The FLOPs, at the bf16 tensor-core peak, count what the tokens need:
+    the attention projections, causal attention's pairs, k experts and the
+    shared ones a token, the router, the last token's (decode: each
+    token's) LM head."""
+    (pb, pf), (db, df) = moe_work(cfg, s, b, k_len)
+    return bound_ms(pb, pf, BF16_FLOPS), bound_ms(db, df, BF16_FLOPS)
+
+
+def moe_train_bound(cfg: ModelConfig, b: int, s: int, kept: int, n_params: int):
+    """(bound ms, by, bf16 FLOPs, f32 FLOPs, bytes) of one training step.
+    FLOPs: 3x the forward's (the checkpoints' recompute not counted): the
+    attention projections, the shared experts and the ``kept`` routes'
+    expert projections (this batch's routing, summed over the layers) on the bf16 tensor cores, GQA
+    attention's causal pairs there too (B5); MLA's transcription (causal
+    pairs), the router and the unembed in fp32, at the fp32 rate, in
+    sequence with the bf16 work.  Bytes: AdamW's update of ``n_params``
+    params (:func:`adamw_update_bytes`; bf16 params, mu and nu read once and
+    written once)."""
+    m = cfg.moe
+    attn, pair_flops, _ = _moe_attention(cfg)
+    shared = 3 * m.n_shared * cfg.d_model * m.d_ff
+    t = b * s
+    bf16 = 3 * 2.0 * (cfg.n_layers * t * (attn + shared) + kept * 3 * cfg.d_model * m.d_ff)
+    f32 = 3 * 2.0 * (cfg.n_layers * t * cfg.d_model * m.n_experts
+                     + t * cfg.vocab_padded * cfg.d_model)
+    pairs = 3 * cfg.n_layers * pair_flops * b * attn_pairs(s, True, None)
+    if cfg.attention.kind == "mla":
+        f32 += pairs
+    else:
+        bf16 += pairs
+    nbytes = adamw_update_bytes(n_params, cfg)
+    t_ops = (bf16 / BF16_FLOPS + f32 / FP32_FLOPS) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", bf16, f32,
+            nbytes)
+
+
+# -- mamba2 and the zamba2 hybrid -------------------------------------------------
+
+def ssm_shape(cfg: ModelConfig):
+    """(mamba layers, shared sites, SSD heads) of an SSM or hybrid config."""
+    from repro_torch.models import zamba2 as TZ
+    if cfg.family == "hybrid":
+        return TZ.n_mamba_layers(cfg), TZ.layout(cfg)[0], cfg.ssm.n_heads(cfg.d_model)
+    return cfg.n_layers, 0, cfg.ssm.n_heads(cfg.d_model)
+
+
+def _shared_block(cfg: ModelConfig) -> int:
+    """Matmul weights of the hybrid's shared attention and MLP block."""
+    a, d = cfg.attention, cfg.d_model
+    return d * (a.n_heads + 2 * a.n_kv_heads) * a.head_dim + a.n_heads * a.head_dim * d \
+        + 3 * d * cfg.d_ff
+
+
+def ssm_flops(cfg: ModelConfig, s: int) -> float:
+    """The forward FLOPs of one sequence of ``s`` tokens through the trunk of
+    an SSM or hybrid config (weight matmuls, the SSD, the shared block's
+    causal attention), without the LM head."""
+    from repro_torch.models import mamba2 as TM
+    sc = cfg.ssm
+    nm, sites, h = ssm_shape(cfg)
+    d, di, p, n, q = cfg.d_model, sc.d_inner(cfg.d_model), sc.head_dim, sc.d_state, \
+        sc.chunk_size
+    mm = d * TM.in_proj_dim(cfg) + di * d
+    chunks = -(-s // q)
+    ssd = h * (chunks * (q * (q + 1) * (n + p) + 2.0 * q * p * n) + 2.0 * s * p * n)
+    flops = nm * (2.0 * mm * s + ssd)
+    if sites:
+        a = cfg.attention
+        flops += sites * (2.0 * _shared_block(cfg) * s + 4.0 * a.head_dim * a.n_heads
+                          * attn_pairs(s, True, None))
+    return flops
+
+
+def ssm_work(cfg: ModelConfig, s: int, b: int, k_len: int):
+    """((prefill bytes, FLOPs), (decode bytes, FLOPs)) of :func:`ssm_bounds`."""
+    from repro_torch.models import mamba2 as TM
+    sc = cfg.ssm
+    nm, sites, h = ssm_shape(cfg)
+    d, di, p, n = cfg.d_model, sc.d_inner(cfg.d_model), sc.head_dim, sc.d_state
+    c = TM.conv_dim(cfg)
+    mm = d * TM.in_proj_dim(cfg) + di * d                          # a mamba block's matmuls
+    shared, cache, attn = 0, 0.0, 0.0
+    if sites:
+        a = cfg.attention
+        shared = _shared_block(cfg)
+        cache = 2.0 * 2 * b * k_len * sites * a.n_kv_heads * a.head_dim
+        attn = sites * (2.0 * shared + 4.0 * a.head_dim * a.n_heads * k_len)
+    weights = 2.0 * (nm * (mm + c * sc.d_conv + c) + shared) + 4.0 * nm * (3 * h + d + di) \
+        + 4.0 * cfg.vocab_padded * d
+    head = 2.0 * d * cfg.vocab_padded
+    states = 2.0 * nm * b * (2 * c * (sc.d_conv - 1) + 4 * h * p * n)
+    dec_flops = b * (nm * (2.0 * mm + 4.0 * h * p * n) + attn + head)
+    return (weights, ssm_flops(cfg, s) + head), (weights + states + cache, dec_flops)
+
+
+def ssm_bounds(cfg: ModelConfig, s: int, b: int, k_len: int):
+    """(prefill bound ms, by; decode bound ms, by) of ``cfg`` (mamba2 or
+    zamba2).  The bytes: the mamba blocks' and the shared block's matmul
+    and conv weights in bf16, their fp32 SSM parameters and norms, the fp32
+    tied embedding read once by the LM head; a decode step of ``b`` slots
+    also reads and writes every layer's conv and fp32 SSM states and reads
+    each site's first ``k_len`` cached keys and values.  The FLOPs, at the
+    bf16 tensor-core peak: prefill of ``s`` tokens (:func:`ssm_flops`, and
+    the last token's head); a decode step of ``b`` tokens (the weight
+    matmuls, the state update and read-out, attention over ``k_len`` keys,
+    the head)."""
+    (pb, pf), (db, df) = ssm_work(cfg, s, b, k_len)
+    return bound_ms(pb, pf, BF16_FLOPS), bound_ms(db, df, BF16_FLOPS)
+
+
+def ssm_train_bound(cfg: ModelConfig, b: int, s: int):
+    """(bound ms, bf16 FLOPs, f32 FLOPs) of one training step of an SSM or
+    hybrid config: the forward's FLOPs three times (the recompute not
+    counted) at the bf16 peak, the fp32 unembed at the fp32 rate."""
+    bf16 = 3 * b * ssm_flops(cfg, s)
+    f32 = 3 * 2.0 * b * s * cfg.vocab_padded * cfg.d_model
+    return (bf16 / BF16_FLOPS + f32 / FP32_FLOPS) * 1e3, bf16, f32
+
+
+# -- the whisper encoder-decoder -----------------------------------------------------
+
+def _whisper_attn(cfg: ModelConfig):
+    """(matmul weights of a self-attention and MLP block, of the cross
+    attention's q and o projections, of its k and v projections; the
+    attention FLOPs of one (query, key) pair over every head)."""
+    a = cfg.attention
+    d, hd, kvd = cfg.d_model, a.n_heads * a.head_dim, a.n_kv_heads * a.head_dim
+    block = d * (hd + 2 * kvd) + hd * d + 3 * d * cfg.d_ff
+    return block, 2 * d * hd, 2 * d * hd, 4.0 * a.head_dim * a.n_heads
+
+
+def whisper_fwd_flops(cfg: ModelConfig, s: int) -> float:
+    """The forward FLOPs of one sequence: the encoder over its frames
+    (bidirectional attention), the decoder over ``s`` tokens (causal
+    self-attention, cross attention to every frame, the cross k and v
+    projections of the frames), without the LM head."""
+    block, cross_qo, cross_kv, pair = _whisper_attn(cfg)
+    se = cfg.n_frontend_tokens
+    enc = cfg.n_encoder_layers * (2.0 * block * se + pair * se * se)
+    dec = cfg.n_layers * (2.0 * (block + cross_qo) * s + 2.0 * cross_kv * se
+                          + pair * (attn_pairs(s, True, None) + s * se))
+    return enc + dec
+
+
+def whisper_work(cfg: ModelConfig, s: int, b: int, k_len: int):
+    """((prefill bytes, FLOPs), (decode bytes, FLOPs)) of :func:`whisper_bounds`."""
+    block, cross_qo, cross_kv, pair = _whisper_attn(cfg)
+    a, d, se, nl = cfg.attention, cfg.d_model, cfg.n_frontend_tokens, cfg.n_layers
+    head_bytes, head_flops = 4.0 * cfg.vocab_padded * d, 2.0 * d * cfg.vocab_padded
+    pre_bytes = 2.0 * (cfg.n_encoder_layers * block + nl * (block + cross_qo + cross_kv)) \
+        + head_bytes
+    dec_weights = nl * (block + cross_qo)
+    cache = 2.0 * 2 * b * nl * (k_len * a.n_kv_heads + se * a.n_heads) * a.head_dim
+    dec_flops = b * (2.0 * dec_weights + nl * pair * (k_len + se) + head_flops)
+    return ((pre_bytes, whisper_fwd_flops(cfg, s) + head_flops),
+            (2.0 * dec_weights + head_bytes + cache, dec_flops))
+
+
+def whisper_bounds(cfg: ModelConfig, s: int, b: int, k_len: int):
+    """(prefill bound ms, by; decode bound ms, by).  Prefill of one prompt of
+    ``s`` tokens: every matmul weight of both stacks in bf16 and the fp32
+    tied embedding (the LM head) read once, :func:`whisper_fwd_flops` and
+    the last token's head at the bf16 tensor-core peak.  A decode step of
+    ``b`` slots: the decoder's weights but the cross k and v projections
+    (bf16) and the fp32 head read once, each slot's ``k_len`` cached keys
+    and values and its cross k and v of every frame (bf16) read once; the
+    FLOPs of its weight matmuls, attention over ``k_len`` keys and every
+    frame, and the head."""
+    (pb, pf), (db, df) = whisper_work(cfg, s, b, k_len)
+    return bound_ms(pb, pf, BF16_FLOPS), bound_ms(db, df, BF16_FLOPS)
+
+
+def whisper_train_bound(cfg: ModelConfig, b: int, s: int):
+    """(bound ms, bf16 FLOPs, f32 FLOPs) of one training step of ``b``
+    sequences of ``s`` tokens over their frames: the forward's FLOPs three
+    times (the recompute not counted) at the bf16 peak, the fp32 unembed at
+    the fp32 rate."""
+    bf16 = 3 * b * whisper_fwd_flops(cfg, s)
+    f32 = 3 * 2.0 * b * s * cfg.vocab_padded * cfg.d_model
+    return (bf16 / BF16_FLOPS + f32 / FP32_FLOPS) * 1e3, bf16, f32
+
+
+# -- the (arch x shape) cells ------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _tree_counts(cfg: ModelConfig):
+    """(total, active, embed, bytes) of ``cfg``'s abstract params."""
+    from repro_torch.launch.specs import abstract_params_for
+    total = active = embed = 0.0
+    nbytes = 0
+    for path, leaf in tree_paths(abstract_params_for(cfg)).items():
+        n = float(leaf.numel())
+        total += n
+        nbytes += leaf.numel() * leaf.element_size()
+        if path.split("/")[-1] in ("embed", "lm_head"):
+            embed += n                      # embeddings excluded from 6ND flops
+        elif cfg.moe is not None and "ffn" in path and leaf.dim() >= 3 \
+                and leaf.shape[-3] == cfg.moe.n_experts:
+            active += n * cfg.moe.top_k / cfg.moe.n_experts
+        else:
+            active += n
+    return total, active, embed, nbytes
+
+
+def param_counts(cfg: ModelConfig) -> Dict[str, float]:
+    """(total, active, embed) parameter counts from the abstract param tree.
+    Expert banks (3D+ leaves under 'ffn' with leading E) count at top_k / E
+    toward active; ``embed`` and ``lm_head`` leaves count toward embed, not
+    active."""
+    total, active, embed, _ = _tree_counts(cfg)
+    return dict(total=total, active=active, embed=embed)
+
+
+def model_flops(cfg: ModelConfig, shape_name: str) -> float:
+    """Global MODEL_FLOPS for one step of this cell."""
+    s = SHAPES_BY_NAME[shape_name]
+    n_active = param_counts(cfg)["active"]
+    if s.kind == "train":
+        tokens = s.global_batch * s.seq_len
+        return 6.0 * n_active * tokens
+    if s.kind == "prefill":
+        tokens = s.global_batch * s.seq_len
+        return 2.0 * n_active * tokens
+    # decode: one token per sequence
+    return 2.0 * n_active * s.global_batch
+
+
+def _serving_work(cfg: ModelConfig):
+    if cfg.family in ("mamba2", "hybrid"):
+        return ssm_work
+    if cfg.family == "encdec":
+        return whisper_work
+    return moe_work if cfg.moe is not None else lm_work
+
+
+def cell_work(cfg: ModelConfig, shape: ShapeSpec):
+    """(bytes, bf16 FLOPs, f32 FLOPs) of one step of the cell, from the
+    family's bound function at the cell's batch B and length S: a training
+    step of B x S (its bytes AdamW's update; an MoE step keeps every route,
+    top_k a token in every layer); a prefill of B prompts of S tokens (the
+    weights read once, B times one prompt's FLOPs); a decode step of B
+    slots against an S-deep cache."""
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        n = param_counts(cfg)["total"]
+        if cfg.moe is not None:
+            kept = cfg.n_layers * b * s * cfg.moe.top_k
+            _, _, bf16, f32, nbytes = moe_train_bound(cfg, b, s, kept, n)
+            return nbytes, bf16, f32
+        train = {"mamba2": ssm_train_bound, "hybrid": ssm_train_bound,
+                 "encdec": whisper_train_bound}.get(cfg.family, pretrain_bound)
+        _, bf16, f32 = train(cfg, b, s)
+        return adamw_update_bytes(n, cfg), bf16, f32
+    work = _serving_work(cfg)
+    if shape.kind == "prefill":
+        nbytes, flops = work(cfg, s, 1, s)[0]
+        return nbytes, b * flops, 0.0
+    nbytes, flops = work(cfg, 1, b, s)[1]
+    return nbytes, flops, 0.0
+
+
+def _state_bytes_of_cell(cfg: ModelConfig, shape: ShapeSpec) -> int:
+    """Device bytes the cell holds before activations: the training state
+    (:func:`state_bytes`); the params for prefill; the params and the cache
+    for decode."""
+    total, _, _, param_bytes = _tree_counts(cfg)
+    if shape.kind == "train":
+        return state_bytes(int(total), cfg.opt_state_dtype, cfg.param_dtype)
+    if shape.kind == "prefill":
+        return param_bytes
+    from repro_torch.launch.specs import abstract_cache_for
+    cache = abstract_cache_for(cfg, shape)
+    return param_bytes + sum(t.numel() * t.element_size() for t in tree_leaves(cache)
+                             if hasattr(t, "numel"))
+
+
+def analyze_cell(arch: str, shape_name: str) -> Dict:
+    """The three-term roofline of one (arch x shape) cell on one H100, with
+    the JAX package's keys; a cell that :func:`cell_supported` refuses
+    gives its ``skipped`` row."""
+    ok, reason = cell_supported(arch, shape_name)
+    if not ok:
+        return dict(arch=arch, shape=shape_name, mesh="single", skipped=reason[:60])
+    cfg, shape = get_config(arch), SHAPES_BY_NAME[shape_name]
+    nbytes, bf16, f32 = cell_work(cfg, shape)
+    t_compute = bf16 / BF16_FLOPS + f32 / FP32_FLOPS
+    t_memory = nbytes / HBM_BYTES_PER_S
+    terms = dict(compute=t_compute, memory=t_memory, collective=0.0)
+    bottleneck = max(terms, key=terms.get)
+    mf = model_flops(cfg, shape_name)
+    state = _state_bytes_of_cell(cfg, shape)
+    return dict(
+        arch=arch, shape=shape_name, mesh="single", chips=1,
+        t_compute=t_compute, t_memory=t_memory, t_collective=0.0,
+        bottleneck=bottleneck,
+        model_flops=mf, useful_ratio=mf / max(bf16 + f32, 1.0),
+        roofline_fraction=mf / BF16_FLOPS / max(terms.values()),
+        state_bytes_per_device=state,
+        hbm_headroom_gib=(HBM_BYTES - state) / 2**30,
+    )
+
+
+def cell_rows() -> List[Dict]:
+    """:func:`analyze_cell` of every arch in ``ARCH_IDS`` x every shape in
+    ``SHAPES``, in that order."""
+    return [analyze_cell(arch, s.name) for arch in ARCH_IDS for s in SHAPES]
+
+
+def format_markdown(rows) -> str:
+    hdr = ("| arch | shape | T_comp (ms) | T_mem (ms) | T_coll (ms) | "
+           "bottleneck | useful | roofline frac | state GiB/chip |")
+    sep = "|" + "---|" * 9
+    lines = [hdr, sep]
+    for r in rows:
+        if "skipped" in r:
+            lines.append(f"| {r['arch']} | {r['shape']} | — | — | — | "
+                         f"skipped | — | — | — |")
+            continue
+        lines.append(
+            f"| {r['arch']} | {r['shape']} | {1e3*r['t_compute']:.2f} | "
+            f"{1e3*r['t_memory']:.2f} | {1e3*r['t_collective']:.2f} | "
+            f"{r['bottleneck']} | {r['useful_ratio']:.2f} | "
+            f"{r['roofline_fraction']:.3f} | "
+            f"{r['state_bytes_per_device']/2**30:.2f} |")
+    return "\n".join(lines)

@@ -1,0 +1,19 @@
+"""Peaks of one NVIDIA H100 SXM (80 GB HBM3), the port's target device.
+
+From NVIDIA's H100 data sheet, SXM part, dense rates (without sparsity),
+which assume the card's full power limit of 700 W; a card set below it
+(``nvidia-smi --query-gpu=power.limit``) runs slower under load, so a share
+of these peaks is stated beside the card's limit.  The JAX package's
+``repro/roofline/constants.py`` is TPU v5e's: none of its numbers apply
+here.  The link rates of a multi-card mesh come with multi-GPU (ROADMAP
+A12).
+"""
+
+BF16_FLOPS = 989e12          # dense bf16 tensor-core FLOP/s
+FP16_FLOPS = 989e12          # dense fp16 tensor-core FLOP/s
+FP8_FLOPS = 1979e12          # dense fp8 tensor-core FLOP/s
+INT8_OPS = 1979e12           # dense int8 tensor-core OP/s
+TF32_FLOPS = 495e12          # dense TF32 tensor-core FLOP/s
+FP32_FLOPS = 67e12           # fp32 FLOP/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12    # HBM3 bytes/s
+HBM_BYTES = 80e9             # HBM3 capacity

@@ -116,6 +116,9 @@ def save_array_tree(file, tree: Tree) -> None:
     ``os.replace``) is the caller's job."""
     arrays, dtypes = encode_array_tree(to_jax_layout(tree))
     crc = _tree_crc32(arrays, dtypes)
+    # lint: allow(atomic-publish): atomicity is this function's documented
+    # caller contract — the warm tier's put hands in a tmp path and
+    # publishes it with os.replace
     with open(file, "wb") as f:
         np.savez(f, __dtypes__=np.asarray(json.dumps(dtypes)),
                  __crc32__=np.uint32(crc), **arrays)
