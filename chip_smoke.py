@@ -191,6 +191,30 @@ Phases, each of which fails the run (non-zero exit) on any error:
    at the steps' shapes against their plain versions; and ``python -m
    repro_torch.launch.train --arch mamba2-780m --steps 3`` (smoke config)
    on the card as a subprocess, which must exit 0;
+5g. data-parallel LITE meta-training of phase 5's Simple CNAPs (224 px,
+   5-way 10-shot, 6 queries a class, h 8, chunks of 16, T 8 from the
+   device sampler, seed 0), the ranks as subprocesses of this one (which
+   holds no process group), cuDNN and cuBLAS deterministic in them: (a)
+   one rank on NCCL, the (1, 1) mesh's ``pmean`` step bit-equal to the
+   ``mesh=None`` step and its ``compressed`` step bit-equal to quantize,
+   dequantize and sum on one card (NCCL's init, all-reduce and int8
+   all-gather on the card); (b) 4 ranks of a 2 x 2 mesh on gloo, each
+   with its own CUDA context on the one card (NCCL refuses two ranks on a
+   card), T 2 each: the ``pmean`` step against (a)'s ``mesh=None`` step,
+   ``accum_steps`` 2 against 1 and ``compressed`` against the composition
+   on one card, with phase 5's Simple CNAPs tolerances on the loss, each
+   gradient leaf (AdamW's first moment after one update) and the params;
+   every rank's state bit-equal to rank 0's; B1-B3 launched on every
+   rank; the collectives the same with and without accumulation; the
+   payload each rank handed them equal to ``roofline.dp_payloads``; a non-zero
+   residual; a NaN planted in rank 3's tasks skipped by every rank, state
+   bit-equal; each rank's step ms and peak memory (4 ranks sharing one
+   card: not a scaling figure) beside ``dp_collective_ms`` at 2 x 2
+   (derived from the link rates, not measured); (c) ``python -m
+   torch.distributed.run --standalone --nproc-per-node 4 -m
+   repro_torch.launch.train --episodic`` at 2 x 2, compressed, accum 2,
+   on gloo: exit 0 with ``world=4``, then "nothing to do" on the same
+   directory, and on NCCL a refusal that names the cause (deferred);
 6. drive the LM-side kernel entry point ``repro_torch.kernels.ops`` once
    at published widths (flash attention of gemma2-2b's local and global
    layers and of minitron-4b, kimi-k2's expert matmul, mamba2-780m's SSD
@@ -303,7 +327,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    -m repro_torch.examples.serve_lm --arch whisper-base`` (smoke config)
    on the card as subprocesses, which must exit 0;
 7. run the phases' subprocesses (the launchers and examples that phases
-   4b, 5, 5b, 5c, 5d, 5e, 5f, 6b, 6c, 6d and 6e name), all at once after
+   4b, 5, 5b, 5c, 5d, 5e, 5f, 5g, 6b, 6c, 6d and 6e name), all at once after
    every timed reading, each of which must exit 0 and print what its
    phase expects;
 8. print the ``kernels`` JSON line, the card line and, last, the result.
@@ -355,7 +379,9 @@ device-sampler loop), ``algo1`` (the two per-task steps), ``fig4``,
 ``fomaml`` and ``finetuner`` (their serving runs), ``lm_train`` (phase
 5c's three steps), ``lm_pretrain`` (phase 5d's three steps), ``lm_moe_train`` and
 ``lm_moe_episodic`` (phase 5e's), ``lm_ssm_train``, ``lm_ssm_train_zamba2``
-and ``lm_ssm_episodic`` (phase 5f's), ``lm_serve`` and ``lm_serve_gemma2``
+and ``lm_ssm_episodic`` (phase 5f's), ``dp_train`` (rank 0's ``pmean`` step
+of phase 5g (b); every rank's counts are under ``paths``), ``lm_serve`` and
+``lm_serve_gemma2``
 (phase 6b's counted engine runs), ``lm_serve_kimi`` and
 ``lm_serve_deepseek`` (phase 6c's), ``lm_serve_mamba2`` and
 ``lm_serve_zamba2`` (phase 6d's), ``lm_serve_whisper`` and
@@ -3757,6 +3783,376 @@ def run_ssm_train(dev, launches):
 
 
 # ---------------------------------------------------------------------------
+# phase 5g: data-parallel meta-training, one process a rank
+# ---------------------------------------------------------------------------
+
+DP_TOL = TRAIN_TOL["simple_cnaps"]
+DP_RANK_TIMEOUT = 400.0
+# cuDNN and cuBLAS pick deterministic algorithms in the ranks, so that one
+# step computed twice, or by two processes, is bit-equal
+DP_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+
+
+def dp_setup(dev):
+    """Phase 5's full-width Simple CNAPs (seed 0) and a T 8 batch of its task
+    shape from the device sampler (seed 17, step 0), H scores of (0, 0)."""
+    import torch
+    from repro_torch.core.lite import index_scores
+    from repro_torch.data.episodic import EpisodicImageConfig, task_batch_at
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    learner, params = build_model("simple_cnaps", dev)
+    cfg = EpisodicImageConfig(way=5, shot=10, query_per_class=6, image_size=IMAGE_SIZE)
+    batch = task_batch_at(17, cfg, TRAIN_TASKS, 0, dev)
+    scores = index_scores(0, 0, range(TRAIN_TASKS), batch.support_y.shape[1], dev)
+    return learner, params, batch, scores
+
+
+def dp_step(learner, mesh, **kw):
+    """The task-batched step on the kernels (backend ``cuda``), phase 5's
+    LITE, AdamW without weight decay."""
+    from repro_torch.core.episodic_train import make_batched_meta_train_step
+    from repro_torch.core.lite import LiteSpec
+    from repro_torch.kernels import dispatch
+    from repro_torch.optim.adamw import AdamWConfig
+    inner = make_batched_meta_train_step(learner, LiteSpec(**TRAIN_LITE),
+                                         adamw=AdamWConfig(weight_decay=0.0), mesh=mesh, **kw)
+
+    def step(*args):
+        with dispatch.use_backend("cuda"):
+            return inner(*args)
+
+    return step
+
+
+def _timed(fn, dev):
+    """(fn's result, its synchronised ms, the kernel launches it made)."""
+    import torch
+    from repro_torch.kernels import _build
+    torch.cuda.synchronize(dev)
+    _build.launches.reset()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return out, (time.perf_counter() - t0) * 1e3, _build.launches.snapshot()
+
+
+def dp_errors(got, ref):
+    """(params, opt, metrics) of a step against ``ref``'s, each relative: the
+    loss; each gradient leaf, read as AdamW's first moment after one update
+    from a fresh state (mu = (1 - b1) g), against its leaf's max; the params,
+    over the elements whose reference gradient exceeds the gradient
+    tolerance of its leaf's largest (as phase 5's ``update_errors``)."""
+    from repro_torch.common.tree import tree_paths
+    p, o, m = got
+    rp, ro, rm = ref
+    loss = abs(float(m["loss"]) - float(rm["loss"])) / abs(float(rm["loss"]))
+    gm, rmu = tree_paths(o["mu"]), tree_paths(ro["mu"])
+    grad = max(float((gm[k] - v).abs().max()) / float(v.abs().max()) if float(v.abs().max()) > 0
+               else float(gm[k].abs().max()) for k, v in rmu.items())
+    pp, rpp = tree_paths(p), tree_paths(rp)
+    params = 0.0
+    for k, v in rpp.items():
+        g = rmu[k].abs()
+        keep = g > DP_TOL["grad"] * float(g.max())
+        if keep.any():
+            params = max(params, float((pp[k] - v).abs()[keep].max()) /
+                         max(float(v.abs().max()), 1e-30))
+    ok = loss <= DP_TOL["loss"] and grad <= DP_TOL["grad"] and params <= DP_TOL["params"]
+    return dict(loss_err=loss, grad_err=grad, params_err=params, ok=ok)
+
+
+def _digest(tree) -> str:
+    """A hash of every leaf's bytes, to show two ranks hold the same state."""
+    import hashlib
+    import torch
+    from repro_torch.common.tree import tree_leaves
+    h = hashlib.sha256()
+    for t in tree_leaves(tree):
+        h.update(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def dp_rank_nccl1(out_dir):
+    """Phase 5g (a), one rank on NCCL: the (1, 1) mesh's ``pmean`` step
+    bit-equal to the ``mesh=None`` step; its ``compressed`` step bit-equal
+    to quantize, dequantize and sum on one card."""
+    import torch
+    from repro_torch.common.tree import tree_map
+    from repro_torch.core.episodic_train import init_ef_state, make_batched_meta_grads
+    from repro_torch.core.lite import LiteSpec
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import collectives
+    from repro_torch.launch.mesh import init_distributed, make_two_level_dp_mesh
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.optim.clip import clip_by_global_norm
+    from repro_torch.optim.compress import ef_compress, zeros_error
+    dev = init_distributed("cuda", backend="nccl", init_method=os.environ["RANKS_INIT_METHOD"])
+    mesh = make_two_level_dp_mesh(1, 1)
+    learner, params, batch, scores = dp_setup(dev)
+    cfg = AdamWConfig(weight_decay=0.0)
+    opt = adamw_init(params, cfg)
+    single = dp_step(learner, None)
+    single(params, opt, batch, scores)                     # cuDNN / allocator warm-up
+    ref, ms_single, _ = _timed(lambda: single(params, opt, batch, scores), dev)
+    pmean = dp_step(learner, mesh)
+    pmean(params, opt, batch, scores)                      # NCCL's communicators start
+    collectives.counter.reset()
+    got, ms_mesh, counts = _timed(lambda: pmean(params, opt, batch, scores), dev)
+    coll = collectives.counter.snapshot()
+    pmean_equal = _bit_equal(got[0], ref[0]) and _bit_equal(got[1], ref[1]) and \
+        torch.equal(got[2]["loss"], ref[2]["loss"])
+    opt_c = dict(opt, ef=init_ef_state(params, 1))
+    collectives.counter.reset()
+    pc, oc, mc = dp_step(learner, mesh, grad_reduce="compressed")(params, opt_c, batch, scores)
+    coll_c = collectives.counter.snapshot()
+    with dispatch.use_backend("cuda"):
+        _, _, g = make_batched_meta_grads(learner, LiteSpec(**TRAIN_LITE))(params, batch, scores)
+    g_hat, err = ef_compress(g, zeros_error(g))
+    g_hat, _ = clip_by_global_norm(tree_map(lambda x: x / 1, g_hat), 10.0)
+    pw, _ = adamw_update(params, g_hat, opt, 1e-3, cfg)
+    comp_equal = _bit_equal(pc, pw) and _bit_equal(tree_map(lambda e: e[0], oc["ef"]), err)
+    torch.save(dict(params=ref[0], opt=ref[1], metrics=ref[2]),
+               os.path.join(out_dir, "single.pt"))
+    return dict(backend=mesh.backend, device=str(dev), pmean_bit_equal=pmean_equal,
+                compressed_bit_equal=comp_equal, loss=float(ref[2]["loss"]),
+                single_ms=ms_single, mesh_ms=ms_mesh, launches=counts, collectives=coll,
+                collectives_compressed=coll_c)
+
+
+def dp_rank_gloo4(out_dir):
+    """Phase 5g (b), one of 4 ranks of a 2 x 2 mesh on gloo, every rank on
+    the one card: the ``pmean`` step against (a)'s ``mesh=None`` step,
+    ``accum_steps`` 2 against 1, ``compressed`` against the composition
+    (rank 0), the launches and collectives of each, a NaN in rank 3's tasks."""
+    import dataclasses
+    import torch
+    from repro_torch.common.tree import tree_leaves, tree_map
+    from repro_torch.core.episodic_train import (init_ef_state, make_batched_meta_grads,
+                                                 take_tasks)
+    from repro_torch.core.lite import LiteSpec
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import collectives
+    from repro_torch.launch.mesh import init_distributed, make_two_level_dp_mesh
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.optim.clip import clip_by_global_norm
+    from repro_torch.optim.compress import compressed_scale_bytes, ef_compress, zeros_error
+    from repro_torch.roofline import dp_payloads
+    dev = init_distributed("cuda", backend="gloo", init_method=os.environ["RANKS_INIT_METHOD"])
+    mesh = make_two_level_dp_mesh(2, 2)
+    learner, params, batch, scores = dp_setup(dev)
+    cfg = AdamWConfig(weight_decay=0.0)
+    opt = adamw_init(params, cfg)
+    single = torch.load(os.path.join(out_dir, "single.pt"), map_location=dev)
+    ref = (single["params"], single["opt"], single["metrics"])
+    pbytes = sum(p.numel() * p.element_size() for p in tree_leaves(params))
+    out = dict(rank=mesh.rank, coords=mesh.coords, device=str(dev), backend=mesh.backend)
+
+    def run(name, fn, want_payload):
+        collectives.counter.reset()
+        torch.cuda.reset_peak_memory_stats(dev)
+        res, ms, counts = _timed(fn, dev)
+        out[name] = dict(ms=ms, launches=counts, collectives=collectives.counter.snapshot(),
+                         payload=collectives.counter.payload(), want_payload=want_payload,
+                         peak_bytes=torch.cuda.max_memory_allocated(dev),
+                         # the residual is each dcn row's own
+                         digest=_digest((res[0], {k: v for k, v in res[1].items() if k != "ef"})))
+        return res
+
+    pmean = dp_step(learner, mesh)
+    pmean(params, opt, batch, scores)                      # cuDNN / allocator warm-up
+    got = run("pmean", lambda: pmean(params, opt, batch, scores), dp_payloads(pbytes))
+    out["pmean"]["vs_single"] = dp_errors(got, ref)
+    acc2 = run("accum2", lambda: dp_step(learner, mesh, accum_steps=2)(params, opt, batch, scores),
+               dp_payloads(pbytes))
+    out["accum2"]["vs_accum1"] = dp_errors(acc2, got)
+    opt_c = dict(opt, ef=init_ef_state(params, 2))
+    comp = dp_step(learner, mesh, grad_reduce="compressed")
+    pc, oc, mc = run("compressed", lambda: comp(params, opt_c, batch, scores),
+                     dp_payloads(pbytes, "compressed", compressed_scale_bytes(params)))
+    out["compressed"]["ef_l1"] = sum(float(e.abs().sum()) for e in tree_leaves(oc["ef"]))
+    if mesh.rank == 0:
+        # the composition on one card: each shard's gradient, the mean over
+        # data, ef_compress on each dcn row, the sum over dcn / 2, clip, AdamW
+        grads = make_batched_meta_grads(learner, LiteSpec(**TRAIN_LITE))
+        with dispatch.use_backend("cuda"):
+            shard = [grads(params, take_tasks(batch, 2 * r, 2 * r + 2),
+                           scores[2 * r:2 * r + 2])[2] for r in range(4)]
+        rows = [tree_map(lambda a, b: (a + b) / 2, shard[2 * c], shard[2 * c + 1])
+                for c in range(2)]
+        hats = [ef_compress(r, zeros_error(r))[0] for r in rows]
+        g, _ = clip_by_global_norm(tree_map(lambda a, b: (a + b) / 2, *hats), 10.0)
+        pw, ow = adamw_update(params, g, opt, 1e-3, cfg)
+        out["compressed"]["vs_composition"] = dp_errors((pc, oc, mc), (pw, ow, mc))
+        out["compressed"]["composition_bit_equal"] = _bit_equal(pc, pw)
+    bad = dataclasses.replace(batch, support_x=batch.support_x.clone())
+    bad.support_x[6:8] = float("nan")                     # rank 3's two tasks only
+    skips = {}
+    for name, fn, state in (("pmean", pmean, got[:2]), ("compressed", comp, (pc, oc))):
+        p2, o2, m2 = fn(*state, bad, scores)
+        skips[name] = dict(nonfinite=float(m2["nonfinite"]),
+                           same=_bit_equal(p2, state[0]) and _bit_equal(o2, state[1]))
+    out["nan_skip"] = skips
+    return out
+
+
+def dp_rank_main(which: str, out_dir: str) -> int:
+    """One rank of phase 5g, run as ``python chip_smoke.py --dp-rank
+    <nccl1|gloo4> <dir>`` with the rank's environment
+    (:func:`repro_torch.launch.local_ranks.run_ranks`); writes its reading
+    to ``<dir>/<which>_rank<r>.json``."""
+    import torch.distributed as dist
+    out = {"nccl1": dp_rank_nccl1, "gloo4": dp_rank_gloo4}[which](out_dir)
+    with open(os.path.join(out_dir, f"{which}_rank{os.environ['RANK']}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def dp_ranks(which: str, world: int, tmp):
+    """Run the ranks of ``which`` and return their readings, rank order."""
+    from repro_torch.launch.local_ranks import RanksFailed, run_ranks
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), **DP_ENV}
+    t0 = time.perf_counter()
+    try:
+        run_ranks([sys.executable, str(ROOT / "chip_smoke.py"), "--dp-rank", which, str(tmp)],
+                  world, os.path.join(tmp, f"store_{which}"), env=env, cwd=ROOT,
+                  timeout=DP_RANK_TIMEOUT)
+    except RanksFailed as e:
+        fail(f"phase 5g {which}: {e}")
+    secs = time.perf_counter() - t0
+    return [json.loads(pathlib.Path(tmp, f"{which}_rank{r}.json").read_text())
+            for r in range(world)], secs
+
+
+def run_dp_launcher():
+    """``torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train
+    --episodic`` at 2 x 2 with the compressed reduction and accumulation on
+    gloo on the card: it must exit 0 and print ``world=4``; again on the same
+    directory, "nothing to do"; on NCCL, with 4 ranks on one card, it must
+    refuse with the mesh's message and not train."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_launcher_") as tmp:
+        base = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc-per-node", "4", "-m", "repro_torch.launch.train", "--episodic",
+                "--steps", "3", "--tasks-per-step", "8", "--dp-shards", "2", "--dcn-shards",
+                "2", "--grad-reduce", "compressed", "--accum-steps", "2", "--device", "cuda",
+                "--ckpt-dir", tmp]
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+        runs, said = {}, {}
+        for name, extra in (("train", ["--dist-backend", "gloo"]),
+                            ("resume", ["--dist-backend", "gloo"]),
+                            ("nccl", ["--dist-backend", "nccl"])):
+            t0 = time.perf_counter()
+            proc = subprocess.run(base + extra, cwd=ROOT, env=env, capture_output=True,
+                                  text=True, timeout=600)
+            said[name] = proc.stdout + proc.stderr
+            runs[name] = dict(exit=proc.returncode, seconds=time.perf_counter() - t0,
+                              stdout=proc.stdout[-1500:], stderr=proc.stderr[-1500:])
+    done = [l for l in runs["train"]["stdout"].splitlines() if l.startswith("done at step")]
+    print(f"dp launcher (torchrun, 4 ranks, gloo, 2 x 2 compressed, accum 2): exit "
+          f"{runs['train']['exit']} in {runs['train']['seconds']:.1f} s; "
+          f"{done[-1] if done else runs['train']['stdout'][-400:]}; rerun exit "
+          f"{runs['resume']['exit']}; on nccl exit {runs['nccl']['exit']}", flush=True)
+    if runs["train"]["exit"] != 0 or not done or "world=4 backend=gloo" not in done[-1]:
+        fail(f"the dp launcher failed: {runs['train']}")
+    if runs["resume"]["exit"] != 0 or "nothing to do" not in runs["resume"]["stdout"]:
+        fail(f"the dp launcher's rerun did not resume: {runs['resume']}")
+    if runs["nccl"]["exit"] == 0 or "NCCL takes one rank a card" not in said["nccl"] \
+            or "done at step" in said["nccl"]:
+        fail(f"the dp launcher on NCCL with 4 ranks on one card did not refuse: {runs['nccl']}")
+    return runs
+
+
+def run_dp_train(dev, launches):
+    """Phase 5g: data-parallel LITE meta-training of phase 5's Simple CNAPs,
+    the ranks in subprocesses (this process holds no process group).  (a)
+    one rank on NCCL; (b) 4 ranks on gloo sharing the card; (c) the
+    launcher under torchrun, deferred."""
+    import tempfile
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.optim.compress import compressed_scale_bytes
+    from repro_torch.roofline import dp_collective_ms, dp_wire_bytes
+    t_phase = time.perf_counter()
+    out = dict(kind="dp_train", tasks_per_step=TRAIN_TASKS, image_size=IMAGE_SIZE,
+               lite=TRAIN_LITE)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        (a,), secs_a = dp_ranks("nccl1", 1, tmp)
+        print(f"dp (a) 1 rank on {a['backend']} ({a['device']}), (1, 1) mesh: pmean step "
+              f"bit-equal to the mesh=None step: {a['pmean_bit_equal']}; compressed step "
+              f"bit-equal to quantize, dequantize, sum on one card: "
+              f"{a['compressed_bit_equal']}; loss {a['loss']:.6f}; step ms {a['single_ms']:.1f} "
+              f"(mesh=None), {a['mesh_ms']:.1f} (mesh); collectives {a['collectives']}, "
+              f"compressed {a['collectives_compressed']}; launches {a['launches']}; "
+              f"{secs_a:.1f} s with the process's start", flush=True)
+        if not (a["pmean_bit_equal"] and a["compressed_bit_equal"]):
+            fail(f"phase 5g (a): the NCCL world of 1 is not bit-equal to one process: {a}")
+        _need("dp (a) NCCL pmean step", a["launches"],
+              ("segment_sum", "class_second_moment", "mahalanobis"))
+        b, secs_b = dp_ranks("gloo4", 4, tmp)
+    out.update(nccl1=a, gloo4=b, seconds_a=secs_a, seconds_b=secs_b)
+    r0 = b[0]
+    for r in b:
+        tag = f"dp (b) rank {r['rank']} {r['coords']}"
+        for name in ("pmean", "accum2", "compressed"):
+            _need(f"{tag} {name} step", r[name]["launches"],
+                  ("segment_sum", "class_second_moment", "mahalanobis"))
+            if r[name]["payload"] != r[name]["want_payload"]:
+                fail(f"{tag} {name}: payload {r[name]['payload']} B, dp_payloads says "
+                     f"{r[name]['want_payload']} B")
+            if r[name]["digest"] != r0[name]["digest"]:
+                fail(f"{tag} {name}: state differs from rank 0's")
+        if r["pmean"]["collectives"] != r["accum2"]["collectives"]:
+            fail(f"{tag}: collectives {r['pmean']['collectives']} at accum 1, "
+                 f"{r['accum2']['collectives']} at accum 2")
+        for name, key in (("pmean", "vs_single"), ("accum2", "vs_accum1")):
+            if not r[name][key]["ok"]:
+                fail(f"{tag} {name} {key}: {r[name][key]} (tolerance {DP_TOL})")
+        if not r["compressed"]["ef_l1"] > 0:
+            fail(f"{tag}: the error-feedback residual is zero")
+        for name, s in r["nan_skip"].items():
+            if s != dict(nonfinite=1.0, same=True):
+                fail(f"{tag}: a NaN in rank 3's tasks, {name} step: {s}")
+    if not r0["compressed"]["vs_composition"]["ok"]:
+        fail(f"dp (b) compressed against the composition: {r0['compressed']['vs_composition']}")
+    for r in b:
+        print(f"dp (b) rank {r['rank']} {r['coords']} on {r['device']} ({r['backend']}): "
+              f"pmean {r['pmean']['ms']:.1f} ms, peak {r['pmean']['peak_bytes']} B; accum 2 "
+              f"{r['accum2']['ms']:.1f} ms; compressed {r['compressed']['ms']:.1f} ms; "
+              f"launches {r['pmean']['launches']}; collectives {r['pmean']['collectives']} "
+              f"(compressed {r['compressed']['collectives']}); payload {r['pmean']['payload']} B "
+              f"(compressed {r['compressed']['payload']} B) = dp_payloads; NaN skip "
+              f"{r['nan_skip']}", flush=True)
+    print(f"dp (b) these times are of 4 ranks sharing one H100 over gloo (host-staged), not "
+          f"a scaling figure.  Against (a)'s mesh=None step: {r0['pmean']['vs_single']}; "
+          f"accum 2 against 1: {r0['accum2']['vs_accum1']}; compressed against the "
+          f"composition: {r0['compressed']['vs_composition']} (bit-equal "
+          f"{r0['compressed']['composition_bit_equal']}); residual L1 "
+          f"{r0['compressed']['ef_l1']:.6g}", flush=True)
+    _, params = build_model("simple_cnaps", dev)
+    pbytes = sum(p.numel() * p.element_size() for p in tree_leaves(params))
+    scale_bytes = compressed_scale_bytes(params)
+    del params
+    derived = {g: dp_collective_ms(pbytes, 2, 2, g, scale_bytes)
+               for g in ("pmean", "compressed")}
+    out["derived_collective_ms"] = derived
+    out["wire_bytes"] = {g: dp_wire_bytes(pbytes, 2, 2, g, scale_bytes)
+                         for g in ("pmean", "compressed")}
+    print(f"dp 2 x 2 collectives a step at the links' rates (derived from NVLink 4's 450 GB/s "
+          f"and InfiniBand NDR's 50 GB/s each way, not measured): pmean "
+          f"{derived['pmean']:.3f} ms, compressed {derived['compressed']:.3f} ms for "
+          f"{pbytes} B of fp32 params; wire bytes a rank derived from the payloads by the "
+          f"ring all-reduce and all-gather factors: {out['wire_bytes']}", flush=True)
+    launches["dp_train"] = r0["pmean"]["launches"]
+    defer(out, "launcher", run_dp_launcher)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 5g: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the LM-side kernel entry point repro_torch.kernels.ops
 # ---------------------------------------------------------------------------
 
@@ -5588,6 +5984,8 @@ def main() -> int:
     ssm_train = run_ssm_train(dev, launches)
     summary.append(ssm_train)
     mark("phase 5f done")
+    summary.append(run_dp_train(dev, launches))
+    mark("phase 5g done")
     ops_rows, ops_planted = run_ops_path(dev, launches)
     planted += ops_planted
     mark("phase 6 done")
@@ -5687,4 +6085,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_rank_main(sys.argv[2], sys.argv[3]))
     sys.exit(main())

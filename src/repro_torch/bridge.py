@@ -62,21 +62,44 @@ def is_conv_weight(t, key) -> bool:
             and t.is_floating_point())
 
 
-def _walk(tree: Any, fn, key=None) -> Any:
-    """``tree`` rebuilt with ``fn(leaf, key)`` at every leaf, ``key`` the
-    leaf's dict key (None in a list); a quantized dict goes to ``fn``
-    whole."""
+# the error-feedback residual ``opt['ef']`` stacks one copy of the params
+# per dcn row on a leading axis: a conv weight there is 5-D, (dcn, O, I, H,
+# W) here and (dcn, H, W, I, O) in the JAX package
+EF_OIHW_TO_HWIO = (0, 3, 4, 2, 1)
+EF_HWIO_TO_OIHW = (0, 4, 3, 1, 2)
+
+
+def is_stacked_conv_weight(t, path: str) -> bool:
+    """A leaf of an ``ef`` subtree (``path`` has an ``ef`` part) that stacks
+    conv weights: 5-D floating, its key not an expert's."""
+    parts = path.split("/")
+    return ("ef" in parts[:-1] and parts[-1] not in EXPERT_KEYS and torch.is_tensor(t)
+            and t.dim() == 5 and t.is_floating_point())
+
+
+def _walk(tree: Any, fn, path: str = "") -> Any:
+    """``tree`` rebuilt with ``fn(leaf, path)`` at every leaf, ``path`` the
+    leaf's dict keys and list indices joined by "/"; a quantized dict goes
+    to ``fn`` whole."""
     if isinstance(tree, dict) and not is_quantized(tree):
-        return {k: _walk(v, fn, k) for k, v in tree.items()}
+        return {k: _walk(v, fn, f"{path}/{k}") for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_walk(v, fn) for v in tree)
-    return fn(tree, key)
+        return type(tree)(_walk(v, fn, f"{path}/{i}") for i, v in enumerate(tree))
+    return fn(tree, path)
+
+
+def _leaf_to_jax_layout(t, path: str) -> Any:
+    if is_conv_weight(t, path.rsplit("/", 1)[-1]):
+        return t.permute(*OIHW_TO_HWIO).contiguous()
+    if is_stacked_conv_weight(t, path):
+        return t.permute(*EF_OIHW_TO_HWIO).contiguous()
+    return t
 
 
 def to_jax_layout(tree: Any) -> Any:
-    """The port's tree with its conv weights turned OIHW -> HWIO."""
-    return _walk(tree, lambda t, key: t.permute(*OIHW_TO_HWIO).contiguous()
-                 if is_conv_weight(t, key) else t)
+    """The port's tree with its conv weights turned OIHW -> HWIO (and the
+    stacked ones of an ``ef`` subtree on their trailing four dims)."""
+    return _walk(tree, _leaf_to_jax_layout)
 
 
 def _from_np(a, device) -> Any:
@@ -88,11 +111,12 @@ def _from_np(a, device) -> Any:
     return torch.from_numpy(a).to(device)
 
 
-def _leaf_from_numpy(a, key, device) -> Any:
+def _leaf_from_numpy(a, path, device) -> Any:
     if is_quantized(a):
         return _lm_leaf_from_numpy(a, device)
     t = _from_np(a, device)
-    return t.permute(*HWIO_TO_OIHW).contiguous() if is_conv_weight(t, key) else t
+    return t.permute(*HWIO_TO_OIHW).contiguous() \
+        if is_conv_weight(t, path.rsplit("/", 1)[-1]) else t
 
 
 def _to_np(t) -> Any:
@@ -108,7 +132,7 @@ def _to_np(t) -> Any:
 def params_from_numpy(tree: Any, device="cuda") -> Any:
     """JAX-layout numpy params -> port params on ``device``: the card
     unless the caller asks for the CPU."""
-    return _walk(tree, lambda a, key: _leaf_from_numpy(a, key, device))
+    return _walk(tree, lambda a, path: _leaf_from_numpy(a, path, device))
 
 
 def params_to_numpy(tree: Any) -> Any:

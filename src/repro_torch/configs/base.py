@@ -1,13 +1,10 @@
 """The port's own copy of the JAX package's ``MetaTrainConfig``
 (``repro/configs/base.py``), with the same construction-time checks.
 
-Two differences: ``kernel_backend`` takes the port's backends
+One difference: ``kernel_backend`` takes the port's backends
 (``naive | ref | cuda | auto``) and defaults to ``auto``, which is the
 hand-written kernels on a CUDA device (the JAX package defaults to
-``ref`` because its kernels run in interpret mode off the TPU); and the
-multi-device knobs (``dp_shards``, ``dcn_shards``, ``grad_reduce=
-'compressed'``) raise, because multi-GPU training is not ported (ROADMAP
-A12).
+``ref`` because its kernels run in interpret mode off the TPU).
 
 Beside it, the model configs of the JAX package (``AttentionConfig``,
 ``MoEConfig``, ``SSMConfig``, ``ModelConfig``), copied field for field so
@@ -147,8 +144,11 @@ class MetaTrainConfig:
 
     tasks_per_step: tasks whose gradients are averaged into ONE optimizer
       step (1 reproduces paper Algorithm 1).
-    dp_shards, dcn_shards, grad_reduce: the JAX package's data-parallel
-      knobs; only 1, 1 and 'pmean' are accepted until A12.
+    dp_shards: ranks of the data-parallel ``data`` axis (one node's cards).
+    dcn_shards: ranks of the node-level ``dcn`` axis; > 1 needs a two-level
+      mesh (repro_torch.launch.mesh.make_two_level_dp_mesh).
+    grad_reduce: the cross-node gradient reduction, 'pmean' (exact) or
+      'compressed' (int8 error feedback, repro_torch.optim.compress).
     accum_steps: sequential gradient-accumulation chunks of the tasks per
       optimizer step, so tasks_per_step can exceed what one pass holds.
       Divisibility (tasks_per_step % (dp_shards * dcn_shards *
@@ -213,12 +213,6 @@ class MetaTrainConfig:
         if self.kernel_backend not in BACKENDS:
             raise ValueError(f"kernel_backend={self.kernel_backend!r} (want one "
                              f"of {BACKENDS})")
-        if self.dp_shards > 1 or self.dcn_shards > 1 or \
-                self.grad_reduce == "compressed":
-            raise ValueError(
-                f"dp_shards={self.dp_shards}, dcn_shards={self.dcn_shards}, "
-                f"grad_reduce={self.grad_reduce!r}: multi-GPU is not ported "
-                f"(ROADMAP A12); train on one device")
 
 
 # -- step shapes (the input-shape set of the LM-family archs) ----------------

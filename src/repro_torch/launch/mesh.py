@@ -1,0 +1,250 @@
+"""Data-parallel meshes as ``torch.distributed`` process groups (the dp
+half of the JAX package's ``repro/launch/mesh.py``), one process a rank.
+
+Two-level data-parallel mesh contract (the task-batched meta-training
+step, :func:`repro_torch.core.episodic_train.make_batched_meta_train_step`):
+
+* :func:`make_two_level_dp_mesh` ``(dcn, dp)`` lays the ranks out
+  process-major, as the JAX package's ``jax.devices()`` are: rank =
+  dcn_index * dp + data_index.  ``torchrun`` numbers ranks node-major, so
+  a ``dcn`` row is a node and the ``data`` group rides its NVLink.
+* The task axis of a batch shards over both axes, in that order; params
+  and optimizer state are replicated, except the compressed reduction's
+  error-feedback residual ``opt_state['ef']``, of which each rank holds
+  its ``dcn`` row (the JAX package's ``P('dcn')`` leaf; a checkpoint holds
+  the whole ``(dcn, ...)`` leaf).
+* Gradients are averaged first over ``data`` (one all-reduce, fast), then
+  once over ``dcn``, exactly or by the int8 error-feedback all-gather
+  (:func:`repro_torch.optim.compress.compressed_all_reduce`).  With
+  ``accum_steps`` each rank sums its task chunks before the reduction, so
+  the collectives a step do not grow with it.
+* At ``dcn`` 1 the extra reduction is over a group of one and the step is
+  bit-identical to the 1-D :func:`make_dp_mesh` path.  The collectives a
+  step makes and the payload it hands each are counted by
+  :mod:`repro_torch.launch.collectives`.
+
+Every rank builds every group, in the same order, as ``torch.distributed``
+requires.  Each group, and the default one, times out after 60 s, so a
+rank that dies ends its peers' waits with an error.  That timeout is why
+the groups are made here and not by
+``torch.distributed.device_mesh.init_device_mesh``: it gives its groups
+the backend's default timeout (30 min on gloo) unless each axis is given
+backend options whose timeout is a private field (``_timeout``).  A host group on gloo
+over every rank carries the control traffic (barriers, the preemption
+verdict, objects) without a device synchronisation.
+
+:func:`init_distributed` makes the default group from ``torchrun``'s
+environment: NCCL for a ``cuda`` device, gloo for ``cpu``.  NCCL takes one
+rank a card (two ranks on one card fail in NCCL's own init, "Duplicate GPU
+detected"); more ranks on a node than it has cards raise before that.
+gloo takes ``cuda`` tensors as they are (all-reduce SUM and MIN, the list
+all-gather of int8 and fp32: checked on torch 2.11 on an H100), copying
+them through host memory itself, so ranks may share a card under gloo; the
+wrappers hand it the device tensors.
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.launch.collectives import counter
+
+TIMEOUT = datetime.timedelta(seconds=60)
+
+
+def _world_hint(need: int) -> str:
+    return (f"start {need} ranks, one process each: `python -m torch.distributed.run "
+            f"--nproc-per-node {need} ...` (torchrun) on the cards, or on the CPU "
+            f"`init_distributed('cpu', init_method='file:///<dir>/pg')` in each of "
+            f"{need} processes with RANK and WORLD_SIZE set (gloo with a file:// store, "
+            f"as the tests run it)")
+
+
+def world_size() -> int:
+    """The world of the default group, or of ``WORLD_SIZE`` before it is made
+    (1 where neither is set)."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def check_world(need: int, what: str) -> None:
+    """Raise unless the world holds exactly ``need`` ranks."""
+    have = world_size()
+    if have != need:
+        raise ValueError(f"{what} = {need} but the world has {have} rank(s); "
+                         f"{_world_hint(need)}")
+
+
+def init_distributed(device, backend: Optional[str] = None,
+                     init_method: Optional[str] = None) -> torch.device:
+    """Make the default process group from ``RANK``, ``WORLD_SIZE`` and
+    ``LOCAL_RANK`` (as ``torchrun`` sets them; 0, 1, 0 where unset) and
+    return this rank's device.  ``backend`` defaults to NCCL on ``cuda``
+    and gloo on ``cpu``; an explicit one is used as given.  NCCL with more
+    ranks on this node (``LOCAL_WORLD_SIZE``) than it has cards raises,
+    naming the cause; it never turns into gloo.  On ``cuda`` NCCL gives
+    rank ``LOCAL_RANK`` the card ``cuda:LOCAL_RANK``; gloo shares the
+    cards round-robin.  ``init_method`` defaults to ``env://``
+    (``MASTER_ADDR`` / ``MASTER_PORT``, which torchrun sets)."""
+    import torch.distributed as dist
+    device = torch.device(device)
+    rank = int(os.environ.get("RANK", "0"))
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"backend={backend!r} (want 'nccl' or 'gloo')")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("device cuda: torch.cuda.is_available() is false; give "
+                               "--device cpu to run on gloo without a card")
+        cards = torch.cuda.device_count()
+        per_node = int(os.environ.get("LOCAL_WORLD_SIZE", str(local + 1)))
+        if backend == "nccl" and per_node > cards:
+            raise RuntimeError(
+                f"NCCL takes one rank a card, but this node runs {per_node} ranks on "
+                f"{cards} card(s): start at most {cards} rank(s) a node "
+                f"(--nproc-per-node {cards}), or choose gloo (--dist-backend gloo), "
+                f"which stages every collective through host memory")
+        device = torch.device("cuda", local if backend == "nccl" else local % cards)
+        torch.cuda.set_device(device)
+    elif backend == "nccl":
+        raise ValueError("NCCL runs on cuda devices only: give --device cuda, or gloo "
+                         "on the CPU")
+    dist.init_process_group(backend, init_method=init_method or "env://", rank=rank,
+                            world_size=world, timeout=TIMEOUT)
+    return device
+
+
+@dataclasses.dataclass(frozen=True)
+class DPMesh:
+    """A data-parallel mesh over the ranks of the default group.
+
+    ``shape`` reads as the JAX mesh's: ``{"data": D}`` or ``{"dcn": C,
+    "data": D}``; ``coords`` this rank's index along each axis; ``groups``
+    one process group per axis, the ranks that share this rank's other
+    coordinates; ``host_group`` gloo over every rank."""
+
+    shape: Dict[str, int]
+    axis_names: Tuple[str, ...]
+    coords: Dict[str, int]
+    groups: Dict[str, Any]
+    host_group: Any
+    rank: int
+    backend: str
+
+    @property
+    def size(self) -> int:
+        out = 1
+        for n in self.shape.values():
+            out *= n
+        return out
+
+    def all_reduce(self, t: torch.Tensor, axis: str, op: str = "sum") -> torch.Tensor:
+        """``t`` reduced over ``axis`` (``sum`` or ``min``) in place;
+        returns it."""
+        import torch.distributed as dist
+        counter.add("all_reduce", axis, t.numel() * t.element_size())
+        rop = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN}[op]
+        dist.all_reduce(t, op=rop, group=self.groups[axis])
+        return t
+
+    def all_gather(self, t: torch.Tensor, axis: str) -> List[torch.Tensor]:
+        """Every rank's ``t`` along ``axis``, in rank order (list form)."""
+        import torch.distributed as dist
+        counter.add("all_gather", axis, t.numel() * t.element_size())
+        t = t.contiguous()
+        out = [torch.empty_like(t) for _ in range(self.shape[axis])]
+        dist.all_gather(out, t, group=self.groups[axis])
+        return out
+
+    def barrier(self) -> None:
+        import torch.distributed as dist
+        counter.add("barrier", "host", 0)
+        dist.barrier(group=self.host_group)
+
+    def any_rank(self, flag: bool) -> bool:
+        """True on every rank when ``flag`` is true on any (host group)."""
+        import torch.distributed as dist
+        t = torch.tensor([1 if flag else 0], dtype=torch.int32)
+        counter.add("all_reduce", "host", t.numel() * t.element_size())
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.host_group)
+        return bool(t.item())
+
+    def broadcast_object(self, obj: Any = None, src: int = 0) -> Any:
+        """Rank ``src``'s ``obj`` on every rank (host group, pickled)."""
+        import torch.distributed as dist
+        box = [obj]
+        counter.add("broadcast", "host", 0)
+        dist.broadcast_object_list(box, src=src, group=self.host_group)
+        return box[0]
+
+
+def _build(shape: Dict[str, int], axes: Sequence[str]) -> DPMesh:
+    """Every rank builds every group of every axis, in one order, then the
+    host group; returns this rank's mesh."""
+    import torch.distributed as dist
+    import numpy as np
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError(f"no process group: call init_distributed first; "
+                         f"{_world_hint(int(np.prod([shape[a] for a in axes])))}")
+    sizes = [shape[a] for a in axes]
+    grid = np.arange(int(np.prod(sizes))).reshape(sizes)
+    rank = dist.get_rank()
+    where = [int(i) for i in np.argwhere(grid == rank)[0]]
+    groups = {}
+    for k, axis in enumerate(axes):
+        lines = np.moveaxis(grid, k, -1).reshape(-1, sizes[k])
+        for line in lines:
+            ranks = [int(r) for r in line]
+            g = dist.new_group(ranks, timeout=TIMEOUT)
+            if rank in ranks:
+                groups[axis] = g
+    backend = dist.get_backend()
+    host = dist.new_group(list(range(grid.size)), timeout=TIMEOUT, backend="gloo")
+    return DPMesh(shape=dict(zip(axes, sizes)), axis_names=tuple(axes),
+                  coords=dict(zip(axes, where)), groups=groups, host_group=host,
+                  rank=rank, backend=backend)
+
+
+def make_dp_mesh(shards: int, axis: str = "data") -> DPMesh:
+    """1-D data-parallel mesh over ``shards`` ranks (the task-batched
+    meta-training step shards the task axis over it)."""
+    if shards < 1:
+        raise ValueError(f"dp_shards must be >= 1, got {shards}")
+    check_world(shards, "dp_shards")
+    return _build({axis: shards}, (axis,))
+
+
+def make_two_level_dp_mesh(dcn_shards: int, dp_shards: int, dcn_axis: str = "dcn",
+                           axis: str = "data") -> DPMesh:
+    """Two-level data-parallel mesh: an outer node-level ``dcn`` axis (the
+    slow links: the cross-node gradient reduction) times an inner ``data``
+    axis (the node's NVLink); rows of the (dcn, data) grid are nodes under
+    torchrun's node-major ranks."""
+    if dcn_shards < 1 or dp_shards < 1:
+        raise ValueError(f"dcn_shards={dcn_shards}, dp_shards={dp_shards} must be >= 1")
+    check_world(dcn_shards * dp_shards,
+                f"dcn_shards*dp_shards = {dcn_shards}*{dp_shards}")
+    return _build({dcn_axis: dcn_shards, axis: dp_shards}, (dcn_axis, axis))
+
+
+def make_mesh_for(devices_shape, axes) -> DPMesh:
+    """A mesh of any shape over the whole world (the elastic re-mesh)."""
+    shape = dict(zip(axes, (int(n) for n in devices_shape)))
+    need = 1
+    for n in shape.values():
+        need *= n
+    check_world(need, f"mesh {shape}")
+    return _build(shape, tuple(axes))
+
+
+def make_test_mesh() -> DPMesh:
+    """Every rank of the world as a (data, model) = (n, 1) mesh."""
+    return make_mesh_for((world_size(), 1), ("data", "model"))

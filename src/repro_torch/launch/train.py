@@ -1,12 +1,12 @@
 """Training launcher for the PyTorch port (the JAX package's
-``repro/launch/train.py`` on one device).
+``repro/launch/train.py``).
 
     python -m repro_torch.launch.train --arch gemma2-2b --steps 200 \\
         --batch 8 --seq 128 --ckpt-dir /tmp/ck
 
 LM training (the default): the arch's smoke config (``--full`` prints the
 JAX launcher's warning and runs the smoke config too, since the
-production mesh is multi-GPU work, ROADMAP A12) with random weights from
+production mesh is multi-GPU work, ROADMAP A12 part 2) with random weights from
 seed 0, AdamW in the config's state dtype, a cosine schedule (or
 ``--schedule wsd``) from ``--peak-lr``, batches from
 :class:`repro_torch.data.tokens.TokenPipeline` (seed 0), through the
@@ -37,7 +37,21 @@ the LM and on zamba2's shared block, the gmm kernel on every MoE layer's
 experts, the ssd_chunk kernel on every SSD chunk of mamba2 and zamba2,
 forward and backward).  A preempted run exits 75 after flushing a checkpoint.
 
-Not ported: the multi-device flags (ROADMAP A12).
+Data-parallel meta-training runs one process a rank under ``torchrun``:
+
+    python -m torch.distributed.run --nproc-per-node 8 -m repro_torch.launch.train \\
+        --episodic --tasks-per-step 32 --dp-shards 8
+    torchrun --nnodes 2 --nproc-per-node 8 ... -m repro_torch.launch.train \\
+        --episodic --tasks-per-step 32 --dp-shards 8 --dcn-shards 2 --grad-reduce compressed
+
+``--dp-shards`` x ``--dcn-shards`` must equal the world size.  The task axis
+is sharded over a 1-D ``data`` mesh, or over ``(dcn, data)`` where
+``--dcn-shards`` > 1 or the reduction is compressed
+(:mod:`repro_torch.launch.mesh`); ``--dist-backend`` picks NCCL (the default
+on ``cuda``, one rank a card) or gloo (the default on ``cpu``; on ``cuda``
+several ranks may share a card).  Rank 0 prints and writes the checkpoints;
+every rank reads them, and a compressed run's directory ends in
+``_ef<dcn>``.  The LM path (no ``--episodic``) stays on one card.
 """
 from __future__ import annotations
 
@@ -121,21 +135,13 @@ def run_lm(args) -> None:
 
 
 def run_episodic(args) -> None:
-    from repro_torch.configs.base import MetaTrainConfig
-    from repro_torch.core.lite import LiteSpec
-    from repro_torch.core.meta_learners import MetaLearnerConfig, make_learner
-    from repro_torch.core.set_encoder import SetEncoderConfig
-    from repro_torch.data.episodic import (EpisodicImageConfig, HostEpisodicConfig,
-                                           host_task_batch_at, task_batch_at)
-    from repro_torch.faults import PreemptionSignal
-    from repro_torch.models.conv_backbone import ConvBackboneConfig, make_conv_backbone
-    from repro_torch.optim.adamw import AdamWConfig
-    from repro_torch.serve.episodic import resolve_device
-    from repro_torch.train.checkpoint import CheckpointManager
-    from repro_torch.train.loop import PreemptedError, train
-    from repro_torch.train.step import make_episodic_init_state, make_episodic_train_step
+    import torch.distributed as dist
 
-    device = resolve_device(args.device)
+    from repro_torch.configs.base import MetaTrainConfig
+    from repro_torch.launch.mesh import (check_world, init_distributed, make_dp_mesh,
+                                         make_two_level_dp_mesh)
+    from repro_torch.serve.episodic import resolve_device
+
     meta = MetaTrainConfig(tasks_per_step=args.tasks_per_step,
                            dp_shards=args.dp_shards, dcn_shards=args.dcn_shards,
                            grad_reduce=args.grad_reduce,
@@ -145,15 +151,49 @@ def run_episodic(args) -> None:
                            total_steps=args.steps, lite_dtype=args.lite_dtype,
                            prefetch=args.prefetch, donate=not args.no_donate,
                            kernel_backend=args.kernel_backend)
-    print(f"episodic meta-training: learner={args.learner} "
-          f"tasks_per_step={meta.tasks_per_step} dp_shards={meta.dp_shards} "
-          f"dcn_shards={meta.dcn_shards} grad_reduce={meta.grad_reduce} "
-          f"accum_steps={meta.accum_steps} "
-          f"schedule={meta.schedule or 'constant'} "
-          f"prefetch={meta.prefetch} donate={meta.donate} "
-          f"lite_dtype={meta.lite_dtype or 'float32'} "
-          f"data_source={args.data_source} "
-          f"kernel_backend={meta.kernel_backend} device={device}", flush=True)
+    two_level = meta.dcn_shards > 1 or meta.grad_reduce == "compressed"
+    shards = meta.dp_shards * meta.dcn_shards
+    check_world(shards, f"dp_shards*dcn_shards = {meta.dp_shards}*{meta.dcn_shards}")
+    mesh = None
+    if two_level or shards > 1:
+        device = init_distributed(args.device, backend=args.dist_backend)
+        try:
+            mesh = make_two_level_dp_mesh(meta.dcn_shards, meta.dp_shards) if two_level \
+                else make_dp_mesh(meta.dp_shards)
+            _run_episodic(args, meta, mesh, device)
+        finally:
+            dist.destroy_process_group()
+    else:
+        _run_episodic(args, meta, None, resolve_device(args.device))
+
+
+def _run_episodic(args, meta, mesh, device) -> None:
+    from repro_torch.core.lite import LiteSpec
+    from repro_torch.core.meta_learners import MetaLearnerConfig, make_learner
+    from repro_torch.core.set_encoder import SetEncoderConfig
+    from repro_torch.data.episodic import (EpisodicImageConfig, HostEpisodicConfig,
+                                           host_task_batch_at, task_batch_at)
+    from repro_torch.faults import PreemptionSignal
+    from repro_torch.models.conv_backbone import ConvBackboneConfig, make_conv_backbone
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.checkpoint import CheckpointManager, MeshCheckpointManager
+    from repro_torch.train.loop import PreemptedError, train
+    from repro_torch.train.step import make_episodic_init_state, make_episodic_train_step
+
+    lead = mesh is None or mesh.rank == 0
+    say = (lambda msg: print(msg, flush=True)) if lead else None
+    world = 1 if mesh is None else mesh.size
+    backend = "none" if mesh is None else mesh.backend
+    if lead:
+        print(f"episodic meta-training: learner={args.learner} "
+              f"tasks_per_step={meta.tasks_per_step} dp_shards={meta.dp_shards} "
+              f"dcn_shards={meta.dcn_shards} grad_reduce={meta.grad_reduce} "
+              f"accum_steps={meta.accum_steps} "
+              f"schedule={meta.schedule or 'constant'} "
+              f"prefetch={meta.prefetch} donate={meta.donate} "
+              f"lite_dtype={meta.lite_dtype or 'float32'} "
+              f"world={world} backend={backend} data_source={args.data_source} "
+              f"kernel_backend={meta.kernel_backend} device={device}", flush=True)
 
     backbone = make_conv_backbone(ConvBackboneConfig(widths=(16, 32), feature_dim=64))
     learner = make_learner(MetaLearnerConfig(kind=args.learner, way=5), backbone,
@@ -162,9 +202,12 @@ def run_episodic(args) -> None:
     lite = LiteSpec(h=meta.lite_h, chunk_size=meta.lite_chunk,
                     compute_dtype=meta.lite_dtype)
     adamw = AdamWConfig(weight_decay=0.0)
-    state = make_episodic_init_state(learner, adamw)(
+    state = make_episodic_init_state(learner, adamw, meta)(
         torch.Generator().manual_seed(0), device)
-    step = make_episodic_train_step(learner, lite, meta, adamw)
+    step = make_episodic_train_step(learner, lite, meta, adamw, mesh=mesh)
+    # every rank draws all T tasks of the step (the samplers are pure
+    # functions of it) and the step keeps the rank's block of the task axis,
+    # as the JAX launcher's batch_put with a task sharding does
 
     if args.data_source == "host":
         hcfg = HostEpisodicConfig(way=5, shot=10, query_per_class=6,
@@ -186,9 +229,15 @@ def run_episodic(args) -> None:
 
         batch_put = None
 
+    # a distinct default directory per state template: a compressed run's
+    # holds opt['ef'] with (dcn, ...) leaves, and a checkpoint restores only
+    # into its own template
+    suffix = f"_ef{meta.dcn_shards}" if meta.grad_reduce == "compressed" else ""
     ckpt_dir = args.ckpt_dir or os.path.join(
-        tempfile.gettempdir(), f"repro_torch_train_ckpt_episodic_{args.learner}")
+        tempfile.gettempdir(), f"repro_torch_train_ckpt_episodic_{args.learner}{suffix}")
     ckpt = CheckpointManager(ckpt_dir, keep=3)
+    if mesh is not None:
+        ckpt = MeshCheckpointManager(ckpt, mesh)
     preempt = PreemptionSignal().install()
     try:
         result = train(state, step, batch_at, args.steps, ckpt=ckpt,
@@ -197,9 +246,14 @@ def run_episodic(args) -> None:
                        prefetch=meta.prefetch, donate=meta.donate,
                        batch_put=batch_put, preempt=preempt,
                        max_nonfinite=args.max_nonfinite_skips,
-                       data_retries=args.data_retries)
+                       data_retries=args.data_retries,
+                       agree=None if mesh is None else mesh.any_rank, log=say)
     except PreemptedError as e:
+        if not lead:
+            sys.exit(EXIT_PREEMPTED)
         _finish_preempted(e)
+    if not lead:
+        return
     if not result.metrics_history:
         print(f"nothing to do: checkpoint already at step {result.step} "
               f"(resumed_from={result.resumed_from})")
@@ -209,7 +263,8 @@ def run_episodic(args) -> None:
           f"{result.metrics_history[-1]['loss']:.4f}; "
           f"accuracy {result.metrics_history[-1]['accuracy']:.3f}; "
           f"throughput {result.throughput(meta.tasks_per_step):.1f} tasks/s; "
-          f"{_fault_summary(result)}", flush=True)
+          f"{_fault_summary(result)} world={world} backend={backend} device={device}",
+          flush=True)
 
 
 def main(argv=None) -> None:
@@ -235,7 +290,7 @@ def main(argv=None) -> None:
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--pods", type=int, default=1,
                     help="pods of the production mesh, read with --full on "
-                         ">= 256 devices only (ROADMAP A12)")
+                         ">= 256 devices only (ROADMAP A12 part 2)")
     ap.add_argument("--full", action="store_true",
                     help="full assigned config on the production mesh; with "
                          "fewer than 256 devices it warns and runs the smoke "
@@ -246,13 +301,21 @@ def main(argv=None) -> None:
                     choices=["protonets", "cnaps", "simple_cnaps"])
     ap.add_argument("--tasks-per-step", type=int, default=8)
     ap.add_argument("--dp-shards", type=int, default=1,
-                    help="data-parallel shards of the task axis: only 1 until "
-                         "multi-GPU is ported (ROADMAP A12)")
+                    help="--episodic: ranks of the data-parallel 'data' axis (a "
+                         "node's cards); dp x dcn must be torchrun's world size")
     ap.add_argument("--dcn-shards", type=int, default=1,
-                    help="host-level shards: only 1 until A12")
+                    help="--episodic: ranks of the node-level 'dcn' axis; > 1 "
+                         "builds the two-level (dcn, data) mesh")
     ap.add_argument("--grad-reduce", choices=["pmean", "compressed"],
-                    default="pmean", help="cross-host gradient reduction: only "
-                                          "pmean (one device) until A12")
+                    default="pmean",
+                    help="--episodic: the cross-node (dcn) gradient reduction, "
+                         "exact pmean or int8 error feedback (needs "
+                         "--dcn-shards >= 2)")
+    ap.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                    help="torch.distributed backend of a data-parallel run: nccl "
+                         "(default on cuda, one rank a card) or gloo (default on "
+                         "cpu; on cuda ranks may share a card).  The JAX launcher "
+                         "has no such flag: JAX has no backend to choose")
     ap.add_argument("--accum-steps", type=int, default=1,
                     help="sequential gradient-accumulation chunks of the tasks "
                          "per optimizer step")

@@ -14,11 +14,14 @@ them from the configs.  Two layers:
 
       T_compute  = bf16 FLOPs / bf16 peak + fp32 FLOPs / fp32 peak
       T_memory   = bytes / HBM rate
-      T_coll     = 0 on one card (multi-GPU: ROADMAP A12)
+      T_coll     = 0 on one card (a mesh for the cells: ROADMAP A12 part 2)
       bottleneck = argmax of the three
       MODEL_FLOPS = 6 N_active D (train; 2 N_active D for an inference pass)
       useful ratio = MODEL_FLOPS / the bound's FLOPs
       roofline fraction = T_ideal / T_bound,  T_ideal = MODEL_FLOPS / bf16 peak
+
+and the wire bytes and link times of the data-parallel meta-training step
+(:func:`dp_payloads`, :func:`dp_wire_bytes`, :func:`dp_collective_ms`).
 
 Every number here is derived from NVIDIA's data-sheet peaks; none is
 measured.  The model modules are imported inside the functions that need
@@ -27,13 +30,14 @@ them, so importing the roofline imports no model code.
 from __future__ import annotations
 
 import functools
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 from repro_torch.common.tree import tree_leaves, tree_paths
 from repro_torch.configs.base import SHAPES, SHAPES_BY_NAME, ModelConfig, ShapeSpec
 from repro_torch.configs.registry import ARCH_IDS, cell_supported, get_config
 from repro_torch.optim.quant import BLOCK as QUANT_BLOCK
-from repro_torch.roofline.constants import BF16_FLOPS, FP32_FLOPS, HBM_BYTES, HBM_BYTES_PER_S
+from repro_torch.roofline.constants import (BF16_FLOPS, FP32_FLOPS, HBM_BYTES, HBM_BYTES_PER_S,
+                                            IB_BYTES_PER_S, NVLINK_BYTES_PER_S)
 
 _ITEMSIZE = {"float32": 4, "bfloat16": 2}
 
@@ -471,6 +475,73 @@ def analyze_cell(arch: str, shape_name: str) -> Dict:
         state_bytes_per_device=state,
         hbm_headroom_gib=(HBM_BYTES - state) / 2**30,
     )
+
+
+def ring_all_reduce_bytes(nbytes: int, g: int) -> float:
+    """Bytes one rank sends in a ring all-reduce of ``nbytes`` over ``g``
+    ranks: 2 (g - 1) / g of the buffer (none in a group of one)."""
+    return 2.0 * (g - 1) / g * nbytes if g > 1 else 0.0
+
+
+def all_gather_bytes(nbytes: int, g: int) -> float:
+    """Bytes one rank sends in an all-gather of its ``nbytes`` over ``g``
+    ranks: its part to each of the g - 1 others."""
+    return float((g - 1) * nbytes)
+
+
+def dp_payloads(n_param_bytes: int, grad_reduce: str = "pmean",
+                scale_bytes: Optional[int] = None) -> Dict[str, int]:
+    """The bytes one rank hands the collectives of one step of the
+    two-level data-parallel meta-training step
+    (:func:`repro_torch.core.episodic_train.make_batched_meta_train_step`),
+    by ``kind/axis`` as :mod:`repro_torch.launch.collectives` counts them,
+    for fp32 params of ``n_param_bytes``.  Over ``data``: one all-reduce of
+    the gradient with the loss and accuracy (8 bytes).  Over ``dcn``: the
+    int32 finite verdict, then the same all-reduce (``pmean``), or the loss
+    and accuracy and two all-gathers, of the int8 payload (one byte a
+    parameter) and of the fp32 block scales, ``scale_bytes`` of them
+    (``compressed``: :func:`repro_torch.optim.compress.compressed_scale_bytes`
+    of the params).  A 1-D mesh makes the ``data`` all-reduce alone."""
+    buf = n_param_bytes + 8
+    if grad_reduce == "pmean":
+        return {"all_reduce/data": buf, "all_reduce/dcn": 4 + buf}
+    if scale_bytes is None:
+        raise ValueError("grad_reduce='compressed' needs scale_bytes: "
+                         "repro_torch.optim.compress.compressed_scale_bytes(params)")
+    return {"all_reduce/data": buf, "all_reduce/dcn": 4 + 8,
+            "all_gather/dcn": n_param_bytes // 4 + scale_bytes}
+
+
+def dp_wire_stages(n_param_bytes: int, dp: int, dcn: int, grad_reduce: str = "pmean",
+                   scale_bytes: Optional[int] = None) -> Dict[str, float]:
+    """Bytes one rank sends over each mesh axis in one step on a (dcn, dp)
+    mesh: :func:`dp_payloads` through the textbook algorithms, a ring
+    all-reduce (:func:`ring_all_reduce_bytes`) and an all-gather
+    (:func:`all_gather_bytes`) over the axis's ranks."""
+    sizes = dict(data=dp, dcn=dcn)
+    out = dict(data=0.0, dcn=0.0)
+    for key, nbytes in dp_payloads(n_param_bytes, grad_reduce, scale_bytes).items():
+        kind, axis = key.split("/")
+        wire = ring_all_reduce_bytes if kind == "all_reduce" else all_gather_bytes
+        out[axis] += wire(nbytes, sizes[axis])
+    return out
+
+
+def dp_wire_bytes(n_param_bytes: int, dp: int, dcn: int, grad_reduce: str = "pmean",
+                  scale_bytes: Optional[int] = None) -> float:
+    """The sum of :func:`dp_wire_stages`: the bytes one rank sends a step.
+    At 2 x 2 with ``pmean`` it is 2.0 x the fp32 param bytes, plus 20 bytes
+    of scalars."""
+    return sum(dp_wire_stages(n_param_bytes, dp, dcn, grad_reduce, scale_bytes).values())
+
+
+def dp_collective_ms(n_param_bytes: int, dp: int, dcn: int, grad_reduce: str = "pmean",
+                     scale_bytes: Optional[int] = None) -> float:
+    """The step's collectives at the links' rates: the ``data`` stage on
+    NVLink, the ``dcn`` stage on InfiniBand, one after the other; derived
+    from the data sheets, not measured."""
+    st = dp_wire_stages(n_param_bytes, dp, dcn, grad_reduce, scale_bytes)
+    return (st["data"] / NVLINK_BYTES_PER_S + st["dcn"] / IB_BYTES_PER_S) * 1e3
 
 
 def cell_rows() -> List[Dict]:

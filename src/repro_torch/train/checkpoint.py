@@ -16,6 +16,9 @@ The leaves are stored in the JAX package's layout
 ``mu``/``nu`` HWIO, int8 ``{q, scale, n}`` state as it is.  A step
 directory written by either package restores in the other.
 
+:class:`MeshCheckpointManager` is the same directory under a
+data-parallel mesh: rank 0 writes, every rank reads.
+
 :func:`save_array_tree` / :func:`load_array_tree` write and read one
 self-describing npz per tree (the dtype sidecar and the crc32 ride inside
 it as ``__dtypes__`` and ``__crc32__``), byte for byte the JAX package's
@@ -33,8 +36,9 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.bridge import HWIO_TO_OIHW, is_conv_weight, to_jax_layout
-from repro_torch.common.tree import tree_paths
+from repro_torch.bridge import (EF_HWIO_TO_OIHW, HWIO_TO_OIHW, is_conv_weight,
+                                is_stacked_conv_weight, to_jax_layout)
+from repro_torch.common.tree import tree_leaves, tree_map, tree_paths
 from repro_torch.faults.plan import CKPT_PRE_COMMIT, CKPT_PRE_REPLACE, InjectedKill
 from repro_torch.optim.quant import is_quantized
 
@@ -100,6 +104,8 @@ def _decode(path: str, arr: np.ndarray, dtype_str: str, like, in_quantized: bool
         t = torch.from_numpy(np.array(arr))
     if not in_quantized and is_conv_weight(like, path.rsplit("/", 1)[-1]):
         t = t.permute(*HWIO_TO_OIHW)
+    elif not in_quantized and is_stacked_conv_weight(like, path):
+        t = t.permute(*EF_HWIO_TO_OIHW)
     if t.shape != like.shape:
         raise ValueError(f"checkpoint leaf {path}: shape {tuple(t.shape)} in the port's "
                          f"layout, the template's {tuple(like.shape)}")
@@ -220,6 +226,89 @@ class CheckpointManager:
 
     def restore_latest(self, template: Tree):
         step = self.latest_step()
+        if step is None:
+            return None
+        state, extra = self.restore(step, template)
+        return step, state, extra
+
+
+def ef_specs(state: Tree, mesh) -> Tree:
+    """The spec tree of a data-parallel meta-training state
+    (:mod:`repro_torch.train.elastic`): every leaf replicated but the
+    error-feedback residual ``opt['ef']``, split on its leading axis over
+    the outer (``dcn``) axis of the two-level ``mesh``."""
+    dcn_axis = mesh.axis_names[0]
+
+    def walk(tree, in_ef):
+        if isinstance(tree, dict):
+            return {k: walk(v, in_ef or (k == "ef")) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v, in_ef) for v in tree)
+        return (dcn_axis,) + (None,) * (tree.dim() - 1) if in_ef else None
+
+    return walk(state, False) if "ef" in state.get("opt", {}) else \
+        tree_map(lambda _: None, state)
+
+
+class MeshCheckpointManager:
+    """A :class:`CheckpointManager` shared by the ranks of a data-parallel
+    mesh (:class:`repro_torch.launch.mesh.DPMesh`).
+
+    Only rank 0 writes.  Before it writes, the ranks that hold distinct
+    ``opt['ef']`` rows (``data`` index 0) all-gather them over their
+    ``dcn`` group, so the file holds the JAX package's whole ``(dcn, ...)``
+    leaf and stays topology-free.  A barrier follows every save, so every
+    rank then reads the same committed steps; each restores the whole
+    state and keeps its own ``ef`` row.  Every rank must call ``save``
+    together (the training loop does: its decisions rest on the metrics,
+    which the ranks agree on)."""
+
+    def __init__(self, inner: CheckpointManager, mesh):
+        self.inner = inner
+        self.mesh = mesh
+        # a two-level mesh is (dcn, data): the ef rows split over its outer axis
+        *outer, self.data_axis = mesh.axis_names
+        self.dcn_axis = outer[0] if outer else None
+
+    def _own_rows(self, state: Tree) -> Tree:
+        """``state`` with each ``ef`` leaf cut to this rank's row."""
+        if "ef" not in state.get("opt", {}):
+            return state
+        n = self.mesh.shape.get(self.dcn_axis, 1)
+        i = self.mesh.coords.get(self.dcn_axis, 0)
+        ef = tree_map(lambda e: e[i:i + 1] if e.shape[0] == n and n > 1 else e,
+                      state["opt"]["ef"])
+        return dict(state, opt=dict(state["opt"], ef=ef))
+
+    def save(self, step: int, state: Tree, extra: Optional[Dict] = None):
+        from repro_torch.train.elastic import gather_state
+        path = None
+        if self.mesh.coords[self.data_axis] == 0:
+            local = self._own_rows(state)
+            host = gather_state(local, self.mesh, ef_specs(local, self.mesh))
+            if self.mesh.rank == 0:
+                path = self.inner.save(step, tree_map(torch.from_numpy, host), extra)
+        self.mesh.barrier()
+        return path
+
+
+    def restore(self, step: int, template: Tree) -> Tuple[Tree, Dict]:
+        """The whole state at ``step`` (``template``'s ``ef`` leaves may be
+        the whole ``(dcn, ...)`` leaf or one row), with this rank's ``ef``
+        row."""
+        if "ef" in template.get("opt", {}):
+            n = self.mesh.shape.get(self.dcn_axis, 1)
+            ef = tree_map(lambda e: torch.empty((n,) + tuple(e.shape[1:]), dtype=e.dtype,
+                                                device="meta"), template["opt"]["ef"])
+            template = dict(template, opt=dict(template["opt"], ef=ef))
+        state, extra = self.inner.restore(step, template)
+        if "ef" in state.get("opt", {}):
+            dev = tree_leaves(state["params"])[0].device
+            state["opt"]["ef"] = tree_map(lambda e: e.to(dev), state["opt"]["ef"])
+        return self._own_rows(state), extra
+
+    def restore_latest(self, template: Tree):
+        step = self.inner.latest_step()
         if step is None:
             return None
         state, extra = self.restore(step, template)

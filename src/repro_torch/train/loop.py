@@ -25,10 +25,18 @@ one device, eager PyTorch).
 * All timing reads the injectable ``clock`` (default ``time.time``); a
   ``train.straggler`` fault advances it, so straggler detection is
   testable with a fake clock and no sleeps.
+* Under a data-parallel mesh every rank runs the loop: the skip and
+  rollback decisions rest on the step's metrics, which the ranks agree on
+  (:func:`repro_torch.core.episodic_train.make_batched_meta_train_step`),
+  the sync points are the same on every rank, ``agree`` makes the
+  preemption verdict every rank's, and ``ckpt`` is a
+  :class:`repro_torch.train.checkpoint.MeshCheckpointManager` (rank 0
+  writes, every rank reads); ``log`` is None on every rank but one.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -137,7 +145,10 @@ def train(state: Tree,
           max_rollbacks: int = 1,
           data_retries: int = 2,
           data_backoff_s: float = 0.05,
-          clock: Optional[Callable[[], float]] = None) -> TrainResult:
+          clock: Optional[Callable[[], float]] = None,
+          agree: Optional[Callable[[bool], bool]] = None,
+          log: Optional[Callable[[str], None]] = functools.partial(print, flush=True)
+          ) -> TrainResult:
     """Run (and resume) training.  ``batch_at(step)`` must be deterministic
     in ``step``; with checkpointed state that makes restarts exact.
 
@@ -157,7 +168,9 @@ def train(state: Tree,
     consecutive skipped steps before a rollback (``max_rollbacks`` of
     them, needing ``ckpt`` and ``state_template``) or
     :class:`DivergenceError`; ``data_retries`` / ``data_backoff_s`` bound
-    the transient-data retry; ``clock`` replaces ``time.time``."""
+    the transient-data retry; ``clock`` replaces ``time.time``.  ``agree``
+    (a mesh's ``any_rank``) turns this rank's preemption verdict into every
+    rank's; ``log`` prints the step and rollback lines (None: silent)."""
     del donate
     _clock = clock if clock is not None else time.time
     if fault_plan is not None:
@@ -218,6 +231,8 @@ def train(state: Tree,
                 if fault_plan is not None and \
                         fault_plan.fire(TRAIN_PREEMPT, step) is not None:
                     preempted = True
+                if agree is not None:
+                    preempted = agree(preempted)
                 if preempted:
                     # the state holds steps up to step-1: flush a checkpoint
                     # AT step so the rerun resumes right here
@@ -259,8 +274,8 @@ def train(state: Tree,
                     span_t0 = None
                     if diverged_at is not None:
                         raise _Diverged(diverged_at)
-                    if log_every and step % log_every == 0:
-                        print(f"step {step}: {history[-1]}", flush=True)
+                    if log is not None and log_every and step % log_every == 0:
+                        log(f"step {step}: {history[-1]}")
                 if ckpt is not None and (step + 1) % ckpt_every == 0:
                     ckpt.save(step + 1, state)
             return state
@@ -296,9 +311,9 @@ def train(state: Tree,
             del step_times[r - base_start:]
             nonfinite_steps[:] = [s for s in nonfinite_steps if s < r]
             monitor.flagged[:] = [s for s in monitor.flagged if s < r]
-            print(f"divergence at step {d.step}: rolled back to committed "
-                  f"checkpoint at step {r} "
-                  f"(rollback {rollbacks_done}/{max_rollbacks})", flush=True)
+            if log is not None:
+                log(f"divergence at step {d.step}: rolled back to committed "
+                    f"checkpoint at step {r} (rollback {rollbacks_done}/{max_rollbacks})")
             attempt_start = r
 
     if ckpt is not None:

@@ -107,11 +107,20 @@ def make_eval_step(cfg: ModelConfig) -> Callable:
     return eval_step
 
 
-def make_episodic_init_state(learner, adamw_cfg: AdamWConfig) -> Callable:
-    """``init_state(gen: torch.Generator, device) -> dict(params, opt)``."""
+def make_episodic_init_state(learner, adamw_cfg: AdamWConfig, meta_cfg=None) -> Callable:
+    """``init_state(gen: torch.Generator, device) -> dict(params, opt)``.
+    A ``meta_cfg`` with ``grad_reduce='compressed'`` adds the error-feedback
+    residual of every ``dcn`` row to the optimizer state (``opt['ef']``,
+    :func:`repro_torch.core.episodic_train.init_ef_state`), so checkpoints
+    carry it and compressed restarts stay exact."""
+    from repro_torch.core.episodic_train import init_ef_state
+
     def init_state(gen: torch.Generator, device) -> State:
         params = learner.init(gen, device)
-        return dict(params=params, opt=adamw_init(params, adamw_cfg))
+        opt = adamw_init(params, adamw_cfg)
+        if meta_cfg is not None and meta_cfg.grad_reduce == "compressed":
+            opt["ef"] = init_ef_state(params, meta_cfg.dcn_shards)
+        return dict(params=params, opt=opt)
 
     return init_state
 
@@ -127,20 +136,33 @@ def batch_scores(batch: Dict) -> torch.Tensor:
 
 
 def make_episodic_train_step(learner, lite, meta_cfg,
-                             adamw_cfg: AdamWConfig = None) -> Callable:
+                             adamw_cfg: AdamWConfig = None, mesh=None,
+                             dp_axis: str = "data", dcn_axis: str = "dcn") -> Callable:
     """``meta_cfg``: :class:`repro_torch.configs.base.MetaTrainConfig`
-    (one device; it refuses the multi-device knobs).  A configured
-    ``meta_cfg.schedule`` replaces the constant lr with one keyed on the
-    optimizer's update count."""
+    (``tasks_per_step`` is the data side's concern; ``dp_shards > 1``,
+    ``dcn_shards > 1`` or ``compressed`` need ``mesh``, a 1-D
+    :func:`repro_torch.launch.mesh.make_dp_mesh` or a two-level
+    ``make_two_level_dp_mesh``, and every rank passes the global batch).  A
+    configured ``meta_cfg.schedule`` replaces the constant lr with one
+    keyed on the optimizer's update count."""
     from repro_torch.core.episodic_train import make_batched_meta_train_step
 
     adamw_cfg = adamw_cfg or AdamWConfig(weight_decay=0.0)
+    needs_mesh = meta_cfg.dp_shards > 1 or meta_cfg.dcn_shards > 1 \
+        or meta_cfg.grad_reduce == "compressed"
+    if needs_mesh and mesh is None:
+        raise ValueError(f"dp_shards={meta_cfg.dp_shards} / "
+                         f"dcn_shards={meta_cfg.dcn_shards} / "
+                         f"grad_reduce={meta_cfg.grad_reduce!r} requires a "
+                         f"mesh (repro_torch.launch.mesh.make_dp_mesh or "
+                         f"make_two_level_dp_mesh)")
     inner = make_batched_meta_train_step(
         learner, lite, adamw=adamw_cfg, lr=meta_cfg.lr,
         max_grad_norm=meta_cfg.max_grad_norm,
         schedule=schedule_for(meta_cfg.schedule, meta_cfg.lr,
                               meta_cfg.warmup_steps, meta_cfg.total_steps),
-        accum_steps=meta_cfg.accum_steps,
+        mesh=mesh, dp_axis=dp_axis, dcn_axis=dcn_axis,
+        grad_reduce=meta_cfg.grad_reduce, accum_steps=meta_cfg.accum_steps,
         skip_nonfinite=meta_cfg.skip_nonfinite)
 
     def train_step(state: State, batch: Dict) -> Tuple[State, Dict]:

@@ -201,7 +201,8 @@ def test_launcher_runs_on_the_cpu(tmp_path):
 
 def test_launcher_refusals(tmp_path):
     from repro_torch.launch.train import main
-    with pytest.raises(ValueError, match="multi-GPU is not ported"):
+    # two shards in a world of one process: the mesh's message, naming torchrun
+    with pytest.raises(ValueError, match=r"world has 1 rank.*--nproc-per-node 2"):
         main(["--episodic", "--device", "cpu", "--dp-shards", "2",
               "--ckpt-dir", str(tmp_path)])
     with pytest.raises(SystemExit):

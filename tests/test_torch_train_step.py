@@ -232,8 +232,10 @@ def test_meta_train_config_checks():
         MetaTrainConfig(tasks_per_step=3, accum_steps=2)
     for kw in (dict(dp_shards=2), dict(dcn_shards=2),
                dict(dcn_shards=2, grad_reduce="compressed")):
-        with pytest.raises(ValueError, match="multi-GPU is not ported"):
-            MetaTrainConfig(tasks_per_step=4, **kw)
+        # data-parallel training is ported: the knobs construct
+        cfg = MetaTrainConfig(tasks_per_step=4, **kw)
+        assert (cfg.dp_shards, cfg.dcn_shards) == (kw.get("dp_shards", 1),
+                                                   kw.get("dcn_shards", 1))
     with pytest.raises(ValueError, match="CROSS-HOST"):
         MetaTrainConfig(grad_reduce="compressed")
     with pytest.raises(ValueError, match="kernel_backend"):
