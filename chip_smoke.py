@@ -53,6 +53,26 @@ Phases, each of which fails the run (non-zero exit) on any error:
    goes on); and ``python -m repro_torch.launch.serve --episodic`` with a
    warm directory, an SLO, a bounded queue and a deadline as a
    subprocess, whose ``store:`` line must show spills and rehydrates;
+4c. multi-replica serving at phase 4's width (Simple CNAPs, int8
+   backbone, 224 px, 6 users and 2 support-less repeats from the device
+   sampler, cuDNN deterministic): (a) in this process, 2 replicas of the
+   router (``repro_torch.serve.replica``) bit-equal to the solo engine, B1-B4
+   counted on that run, and a ``replica.dead`` failover over a warm
+   directory whose rerouted repeats rehydrate bit-equal to their first
+   logits; then ranks as subprocesses (``python chip_smoke.py
+   --serve-rank <nccl1|gloo4> <dir>``): (b) one rank on NCCL, the router on
+   a (1, 1) replica mesh under each serving layout bit-equal to the solo
+   engine; (c) 4 ranks on gloo sharing the card as 2 replicas x 2, under
+   each layout: logits within ``LOGIT_TOL`` of (a)'s solo engine, both ranks
+   of a group the same, B1-B4 on every rank, B4 at K 128 on "cp16" under
+   ``weight_stationary``, one engine step's payloads equal to
+   ``roofline.serving_payloads``, no collective outside ``serve`` and the
+   host group; one rank's partial product dropped from the all-reduce
+   under ``weight_stationary``, which the gate must flag; ``replica.dead``
+   on group 1 rerouted and rehydrated bit-equal; the layout chooser's rows
+   on one group; (d) ``python -m torch.distributed.run --nproc-per-node 4
+   -m repro_torch.launch.serve --episodic --replicas 2 --serve-layout auto
+   --serve-quant int8`` on gloo, which must exit 0 and print its replicas;
 5. LITE episodic meta-training on the kernels, at the same full width
    (224 x 224 images, 8 tasks a step from the host sampler, 5-way 10-shot
    with 6 queries a class, h 8, chunks of 16, random weights): one step of
@@ -327,7 +347,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    -m repro_torch.examples.serve_lm --arch whisper-base`` (smoke config)
    on the card as subprocesses, which must exit 0;
 7. run the phases' subprocesses (the launchers and examples that phases
-   4b, 5, 5b, 5c, 5d, 5e, 5f, 5g, 6b, 6c, 6d and 6e name), all at once after
+   4b, 4c, 5, 5b, 5c, 5d, 5e, 5f, 5g, 6b, 6c, 6d and 6e name), all at once after
    every timed reading, each of which must exit 0 and print what its
    phase expects;
 8. print the ``kernels`` JSON line, the card line and, last, the result.
@@ -374,7 +394,9 @@ forward and backward, and ``lm_pretrain_launches`` flash attention's in
 the three steps of phase 5d (``lm_pretrain_cases``
 its numbers at phase 5d's shapes).  ``chiprun_out/chip_smoke.json`` holds every reading, the training
 phases' under ``paths``, and every path's launches under ``launches``:
-``serve_warm`` (phase 4b's warm-tier run), ``train_device`` (the
+``serve_warm`` (phase 4b's warm-tier run), ``serve_replica`` (phase 4c (a)'s
+router run; every rank's counts are under ``paths``; in the ``kernels``
+line as ``serve_replica_launches``), ``train_device`` (the
 device-sampler loop), ``algo1`` (the two per-task steps), ``fig4``,
 ``fomaml`` and ``finetuner`` (their serving runs), ``lm_train`` (phase
 5c's three steps), ``lm_pretrain`` (phase 5d's three steps), ``lm_moe_train`` and
@@ -933,6 +955,10 @@ def kernel_cases(dev):
              "int8_matmul_kernel", [
                  im_case("main M128 K256 N256", 128, 256, 256, route="cp16"),
                  im_case("query M32 K256 N256", 32, 256, 256, route="cp16", main=True),
+                 # a rank's K-slice under the weight_stationary layout on a
+                 # group of 2 (phase 4c): the query dispatch and an adapt chunk
+                 im_case("kslice M32 K128 N256", 32, 128, 256, route="cp16", main=True),
+                 im_case("kslice M128 K128 N256", 128, 128, 256, route="cp16", main=True),
                  im_case("ragged M50 K200 N300 (N % 16: cp4)", 50, 200, 300, route="cp4"),
                  im_case("ragged M50 K130 N300 (K % 4: cp4)", 50, 130, 300, route="cp4"),
                  im_case("ragged M50 K200 N320", 50, 200, 320, route="cp16"),
@@ -1460,6 +1486,408 @@ def run_serve_warm(dev, launches):
         defer(out, "launcher", run_serve_launcher, round(1.5 * wave_ms * 1e3))
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 4b: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: multi-replica serving and the serving layouts
+# ---------------------------------------------------------------------------
+
+REPLICA_UIDS = (0, 1, 2, 3, 4, 5)        # homed on both of 2 replicas
+REPLICA_REPEATS = (0, 1)
+REPLICA_RANK_TIMEOUT = 400.0
+REPLICA_LAYOUTS = ("training", "weight_stationary", "replicated")
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN picks deterministic algorithms inside, as it did before after."""
+    import torch
+    was = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = was
+
+
+def replica_model(dev):
+    """Phase 4's Simple CNAPs (seed 0), phase 4b's traffic maker, and phase
+    4b's engine keywords."""
+    from repro_torch.core.lite import LiteSpec
+    from repro_torch.data.episodic import plan_buckets
+    learner, params = build_model("simple_cnaps", dev)
+    kw = dict(lite=LiteSpec(exact=True, chunk_size=32), n_slots=4, query_chunk=8,
+              support_buckets=plan_buckets([50]), kernel_backend="cuda",
+              clock=time.perf_counter, device=dev, serve_quant="int8")
+    return learner, params, warm_traffic(dev), kw
+
+
+def replica_requests(make):
+    return make(REPLICA_UIDS) + make(REPLICA_REPEATS, support=False)
+
+
+def _logits_err(got, want) -> float:
+    """max |got - want| over max |want| of each request, the largest."""
+    import numpy as np
+    return max(float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(got, want))
+
+
+def _same_bits(got, want) -> bool:
+    import numpy as np
+    return len(got) == len(want) and all(a.shape == b.shape and np.array_equal(a, b)
+                                         for a, b in zip(got, want))
+
+
+def _failover_uids():
+    """Three uids of the 12 users homed on replica 1 of 2, and one more to
+    evict the last of them from its L1 of 1."""
+    from repro_torch.serve.replica import uid_replica
+    ones = [u for u in range(WARM_USERS) if uid_replica(u, 2) == 1]
+    return ones[:3], ones[3]
+
+
+def replica_failover(learner, params, make, kw, warm_dir, mesh=None, layout=None):
+    """The JAX package's failover test at full width: three users homed on
+    replica 1 spill (an L1 of 1), ``replica.dead`` fires at 1, their
+    support-less repeats reroute to replica 0 and rehydrate there.  Returns
+    the counters and whether every repeat's logits are its first run's
+    bits."""
+    from repro_torch.faults import REPLICA_DEAD, FaultPlan
+    from repro_torch.serve.replica import ReplicatedServeEngine
+    u1, evict = _failover_uids()
+    router = ReplicatedServeEngine(learner, params, replicas=2, mesh=mesh, warm_dir=warm_dir,
+                                   serve_layout=layout, **dict(kw, cache_capacity=1))
+    first = router.run_to_completion(make(u1))
+    router.run_to_completion(make([evict]))
+    router.fault_plan = FaultPlan.single(REPLICA_DEAD, at=1)
+    repeats = router.run_to_completion(make(u1, support=False))
+    s = router.stats()
+    return dict(replica_failovers=s["replica_failovers"], live=s["live_replicas"],
+                rerouted=s["rerouted_requests"], failover_failed=s["failover_failed"],
+                rehydrates=s["rehydrates"], tasks_adapted=s["tasks_adapted"],
+                served=all(r.done and not r.failed for r in repeats),
+                bit_equal=_same_bits([r.all_logits() for r in repeats],
+                                     [r.all_logits() for r in first]),
+                fired=[list(f) for f in router.fault_plan.fired])
+
+
+def failover_ok(f, n: int = 3) -> bool:
+    return (f["replica_failovers"] == 1 and f["live"] == 1 and f["rerouted"] == n
+            and f["failover_failed"] == 0 and f["served"] and f["bit_equal"]
+            and f["tasks_adapted"] == n + 1 and f["rehydrates"] >= n)
+
+
+def serve_rank_nccl1(out_dir):
+    """Phase 4c (b), one rank on NCCL: the router on a (1, 1) replica mesh
+    under each layout, bit-equal to the solo engine in this process."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import collectives
+    from repro_torch.launch.mesh import init_distributed, make_replica_mesh
+    from repro_torch.serve.episodic import EpisodicServeEngine
+    from repro_torch.serve.replica import ReplicatedServeEngine
+    dev = init_distributed("cuda", backend="nccl", init_method=os.environ["RANKS_INIT_METHOD"])
+    mesh = make_replica_mesh(1, 1)
+    learner, params, make, kw = replica_model(dev)
+    solo = EpisodicServeEngine(learner, params, **kw).run_to_completion(replica_requests(make))
+    want = [r.all_logits() for r in solo]
+    out = dict(backend=mesh.backend, device=str(dev))
+    for layout in REPLICA_LAYOUTS:
+        router = ReplicatedServeEngine(learner, params, replicas=1, mesh=mesh,
+                                       serve_layout=layout, **kw)
+        _build.launches.reset()
+        collectives.counter.reset()
+        got = router.run_to_completion(replica_requests(make))
+        out[layout] = dict(bit_equal=_same_bits([r.all_logits() for r in got], want),
+                           launches=_build.launches.snapshot(),
+                           collectives=collectives.counter.snapshot())
+    return out
+
+
+def serve_rank_gloo4(out_dir):
+    """Phase 4c (c), one of 4 ranks on gloo sharing the card as 2 replicas x
+    2: the router under each layout against (a)'s solo logits, the two
+    ranks of a group, B1-B4 and B4's K, one engine step's payloads, a
+    dropped partial product, ``replica.dead`` on group 1, the chooser."""
+    import hashlib
+    import numpy as np
+    import torch
+    from repro_torch.core.episodic import stack_task_states
+    from repro_torch.kernels import _build, dispatch
+    from repro_torch.launch import collectives
+    from repro_torch.launch.mesh import init_distributed, make_replica_mesh
+    from repro_torch.roofline import choose_replica_serving_layout, serving_payloads
+    from repro_torch.serve import quant_params
+    from repro_torch.serve.episodic import EpisodicServeEngine
+    from repro_torch.serve.replica import ReplicatedServeEngine
+    dev = init_distributed("cuda", backend="gloo", init_method=os.environ["RANKS_INIT_METHOD"])
+    mesh = make_replica_mesh(2, 2)
+    own = mesh.coords["replica"]
+    learner, params, make, kw = replica_model(dev)
+    with np.load(os.path.join(out_dir, "solo.npz")) as z:
+        want = [z[str(i)] for i in range(len(z.files))]
+    ks = []
+    plain = dispatch._im.int8_matmul
+
+    def recorded(x, q, scale):
+        ks.append(int(x.shape[1]))
+        return plain(x, q, scale)
+
+    dispatch._im.int8_matmul = recorded
+    out = dict(rank=mesh.rank, coords=mesh.coords, device=str(dev), backend=mesh.backend)
+
+    def run(layout):
+        router = ReplicatedServeEngine(learner, params, replicas=2, mesh=mesh,
+                                       serve_layout=layout, **kw)
+        reqs = replica_requests(make)
+        for r in reqs:
+            router.submit(r)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        while router.busy:
+            router.step()
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        mine = b"".join(r.all_logits().tobytes() for i, r in enumerate(reqs)
+                        if router._home[i] == own)
+        router.sync_results()
+        return [r.all_logits() for r in reqs], hashlib.sha256(mine).hexdigest()[:16], ms
+
+    sw = quant_params.quantize_frozen(learner, params, "int8")
+    cap = kw["support_buckets"][-1]
+    for layout in REPLICA_LAYOUTS:
+        _build.launches.reset()
+        collectives.counter.reset()
+        ks.clear()
+        got, digest, ms = run(layout)
+        row = dict(err=_logits_err(got, want), own_digest=digest, ms=ms,
+                   launches=_build.launches.snapshot(), ks=sorted(set(ks)),
+                   collectives=collectives.counter.snapshot(),
+                   finite=all(bool(np.isfinite(g).all()) for g in got))
+        # one step of a group's engine: one adapt and one predict dispatch
+        eng = EpisodicServeEngine(learner, params, mesh=mesh, serve_layout=layout, **kw)
+        for r in make(REPLICA_UIDS[:kw["n_slots"]]):
+            eng.submit(r)
+        collectives.counter.reset()
+        eng.step()
+        payload = collectives.counter.payload()
+        expect = serving_payloads(sw, layout, 2, kw["n_slots"], cap, dispatch="adapt", way=5,
+                                  chunk=kw["lite"].chunk_size)
+        for k, v in serving_payloads(sw, layout, 2, kw["n_slots"], kw["query_chunk"]).items():
+            expect[k] = expect.get(k, 0) + v
+        row.update(payload=payload, want_payload=expect,
+                   dispatches=[eng.adapt_dispatches, eng.predict_dispatches])
+        out[layout] = row
+    # a planted fault: group 0's rank 1 drops its partial product from the sum
+    summed = quant_params._sum_over_group
+
+    def dropped(mesh_, axis, t):
+        if mesh_.coords == {"replica": 0, "serve": 1}:
+            t.zero_()
+        return summed(mesh_, axis, t)
+
+    quant_params._sum_over_group = dropped
+    try:
+        got, _, _ = run("weight_stationary")
+    finally:
+        quant_params._sum_over_group = summed
+    out["planted"] = dict(err=_logits_err(got, want))
+    dispatch._im.int8_matmul = plain
+    out["failover"] = replica_failover(learner, params, make, kw,
+                                       os.path.join(out_dir, "warm"), mesh=mesh)
+    # the chooser on group 0, over two adapted tasks' first query chunk
+    probe = EpisodicServeEngine(learner, params, **kw)
+    probe.run_to_completion(make(REPLICA_UIDS[:2]))
+    states = stack_task_states([probe.store.l1.peek(u) for u in REPLICA_UIDS[:2]])
+    qx = torch.stack([torch.from_numpy(r.query_x[:kw["query_chunk"]])
+                      for r in make(REPLICA_UIDS[:2])]).to(dev)
+
+    def predict(w, st, q):
+        with dispatch.use_backend("cuda"):
+            return learner.predict_batch(quant_params.serving_params(w), st, q)
+
+    pick = choose_replica_serving_layout(predict, sw, (states, qx), mesh)
+    out["chooser"] = dict(choice=pick["choice"],
+                          per_replica_wire_bytes=pick["per_replica_wire_bytes"],
+                          rows={k: {c: v[c] for c in ("wire_bytes", "collective_count",
+                                                      "t_compute", "t_memory",
+                                                      "t_collective", "bottleneck", "score")}
+                                for k, v in pick["rows"].items()})
+    return out
+
+
+def serve_rank_main(which: str, out_dir: str) -> int:
+    """One rank of phase 4c, run as ``python chip_smoke.py --serve-rank
+    <nccl1|gloo4> <dir>`` with the rank's environment; writes its reading
+    to ``<dir>/<which>_rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False      # as main() sets them
+    torch.backends.cudnn.allow_tf32 = False
+    with deterministic_cudnn():
+        out = {"nccl1": serve_rank_nccl1, "gloo4": serve_rank_gloo4}[which](out_dir)
+    with open(os.path.join(out_dir, f"{which}_rank{os.environ['RANK']}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def serve_ranks(which: str, world: int, tmp):
+    """Run the ranks of ``which`` and return their readings, rank order."""
+    from repro_torch.launch.local_ranks import RanksFailed, run_ranks
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), **DP_ENV}
+    t0 = time.perf_counter()
+    try:
+        run_ranks([sys.executable, str(ROOT / "chip_smoke.py"), "--serve-rank", which,
+                   str(tmp)], world, os.path.join(tmp, f"store_{which}"), env=env, cwd=ROOT,
+                  timeout=REPLICA_RANK_TIMEOUT)
+    except RanksFailed as e:
+        fail(f"phase 4c {which}: {e}")
+    secs = time.perf_counter() - t0
+    return [json.loads(pathlib.Path(tmp, f"{which}_rank{r}.json").read_text())
+            for r in range(world)], secs
+
+
+def run_replica_launcher():
+    """``torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve
+    --episodic --replicas 2 --serve-layout auto --serve-quant int8`` on gloo
+    on the card: it must exit 0 and print world=4, the layout rows and
+    both replicas."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_replica_launcher_") as tmp:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "4", "-m", "repro_torch.launch.serve", "--episodic",
+               "--learner", "simple_cnaps", "--serve-quant", "int8", "--replicas", "2",
+               "--serve-layout", "auto", "--dist-backend", "gloo", "--requests", "16",
+               "--warm-dir", tmp, "--cache-capacity", "2"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
+                              env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        secs = time.perf_counter() - t0
+    said = proc.stdout
+    lines = [l.strip() for l in said.splitlines()
+             if "layout=" in l or "replicas:" in l or "layout " in l]
+    print(f"replica launcher (torchrun, 4 ranks, gloo, --replicas 2 --serve-layout auto): "
+          f"exit {proc.returncode} in {secs:.1f} s; {' | '.join(lines)}", flush=True)
+    if proc.returncode != 0 or "world=4" not in said or "replicas: 2/2 live" not in said \
+            or "device=cuda" not in said or "layout weight_stationary" not in said:
+        fail(f"the replica launcher failed (exit {proc.returncode}):\n{said[-2000:]}\n"
+             f"{proc.stderr[-2000:]}")
+    return dict(cmd=cmd[1:], exit=proc.returncode, seconds=secs, lines=lines)
+
+
+def run_serve_replica(dev, launches):
+    """Phase 4c, with cuDNN deterministic (the later phases' timings keep
+    its settings as they were)."""
+    with deterministic_cudnn():
+        return _run_serve_replica(dev, launches)
+
+
+def _run_serve_replica(dev, launches):
+    """Phase 4c: (a) the router in this process; (b) one NCCL rank; (c) 4
+    gloo ranks as 2 replicas x 2; (d) the launcher under torchrun,
+    deferred."""
+    import tempfile
+    import numpy as np
+    from repro_torch.kernels import _build
+    from repro_torch.serve.episodic import EpisodicServeEngine
+    from repro_torch.serve.replica import ReplicatedServeEngine
+    t_phase = time.perf_counter()
+    learner, params, make, kw = replica_model(dev)
+    out = dict(kind="serve_replica", users=len(REPLICA_UIDS), repeats=len(REPLICA_REPEATS))
+    solo = EpisodicServeEngine(learner, params, **kw).run_to_completion(replica_requests(make))
+    want = [r.all_logits() for r in solo]
+    _build.launches.reset()
+    router = ReplicatedServeEngine(learner, params, replicas=2, **kw)
+    got = router.run_to_completion(replica_requests(make))
+    counts = _build.launches.snapshot()
+    s = router.stats()
+    bit_equal = _same_bits([r.all_logits() for r in got], want)
+    print(f"replica (a) 2 replicas in one process: logits bit-equal to the solo engine: "
+          f"{bit_equal}; adapted {s['tasks_adapted']}, per replica "
+          f"{[p['tasks_adapted'] for p in s['per_replica']]}; launches {counts}", flush=True)
+    if not bit_equal or s["tasks_adapted"] != len(REPLICA_UIDS):
+        fail("phase 4c (a): the router is not bit-equal to the solo engine")
+    _need("replica (a) router", counts,
+          ("segment_sum", "class_second_moment", "mahalanobis", "int8_matmul"))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_replica_") as tmp:
+        fo = replica_failover(learner, params, make, kw, os.path.join(tmp, "warm_a"))
+        print(f"replica (a) replica.dead at 1 over a warm directory: {fo}", flush=True)
+        if not failover_ok(fo):
+            fail(f"phase 4c (a): the failover did not reroute and rehydrate bit-equal: {fo}")
+        np.savez(os.path.join(tmp, "solo.npz"), **{str(i): w for i, w in enumerate(want)})
+        del learner, params, router, solo
+        (b,), secs_b = serve_ranks("nccl1", 1, tmp)
+        c, secs_c = serve_ranks("gloo4", 4, tmp)
+    out.update(a=dict(bit_equal=bit_equal, launches=counts, failover=fo), nccl1=b, gloo4=c,
+               seconds_b=secs_b, seconds_c=secs_c)
+    for layout in REPLICA_LAYOUTS:
+        r = b[layout]
+        print(f"replica (b) 1 rank on {b['backend']} ({b['device']}), {layout}: bit-equal to "
+              f"the solo engine {r['bit_equal']}; collectives {r['collectives']}", flush=True)
+        if not r["bit_equal"]:
+            fail(f"phase 4c (b): the NCCL world of 1 under {layout} is not bit-equal")
+        _need(f"replica (b) {layout}", r["launches"],
+              ("segment_sum", "class_second_moment", "mahalanobis", "int8_matmul"))
+    for r in c:
+        tag = f"replica (c) rank {r['rank']} {r['coords']}"
+        for layout in REPLICA_LAYOUTS:
+            row = r[layout]
+            _need(f"{tag} {layout}", row["launches"],
+                  ("segment_sum", "class_second_moment", "mahalanobis", "int8_matmul"))
+            if row["err"] > LOGIT_TOL or not row["finite"]:
+                fail(f"{tag} {layout}: logits rel err {row['err']:.3e} against (a)'s solo "
+                     f"engine (tol {LOGIT_TOL:.0e})")
+            peer = c[r["rank"] ^ 1][layout]
+            if row["own_digest"] != peer["own_digest"]:
+                fail(f"{tag} {layout}: its group's two ranks hold different logits")
+            if row["launches"].get("int8_matmul/cp16", 0) != row["launches"]["int8_matmul"]:
+                fail(f"{tag} {layout}: int8 matmul launches off the 16-byte copies: "
+                     f"{row['launches']}")
+            want_k = [128] if layout == "weight_stationary" else [256]
+            if row["ks"] != want_k:
+                fail(f"{tag} {layout}: B4 ran at K {row['ks']}, not {want_k}")
+            if row["payload"] != row["want_payload"] or row["dispatches"] != [1, 1]:
+                fail(f"{tag} {layout}: payload {row['payload']} B in dispatches "
+                     f"{row['dispatches']}, serving_payloads says {row['want_payload']} B")
+            if any(not (k.endswith("/serve") or k.endswith("/host"))
+                   for k in row["collectives"]):
+                fail(f"{tag} {layout}: a collective outside serve and host: "
+                     f"{row['collectives']}")
+        print(f"{tag} on {r['device']} ({r['backend']}): "
+              + "; ".join(f"{lo} err {r[lo]['err']:.3e}, {r[lo]['ms']:.1f} ms, payload "
+                          f"{r[lo]['payload']} B, B4 K {r[lo]['ks']}"
+                          for lo in REPLICA_LAYOUTS)
+              + f"; planted dropped partial err {r['planted']['err']:.3e}", flush=True)
+        if r["planted"]["err"] <= LOGIT_TOL:
+            fail(f"{tag}: a partial product dropped from weight_stationary's all-reduce "
+                 f"passed the gate ({r['planted']['err']:.3e})")
+        if not failover_ok(r["failover"]):
+            fail(f"{tag}: replica.dead on group 1: {r['failover']}")
+    pick = c[0]["chooser"]
+    if any(x["chooser"] != pick for x in c):
+        fail("phase 4c (c): the ranks disagree on the chooser's result")
+    rows = pick["rows"]
+    best = min(v["score"] for v in rows.values())
+    if rows["replicated"]["wire_bytes"] != 0 or not (
+            0 < rows["weight_stationary"]["wire_bytes"] < rows["training"]["wire_bytes"]) \
+            or pick["choice"] != next(lo for lo in REPLICA_LAYOUTS
+                                      if rows[lo]["score"] == best):
+        fail(f"phase 4c (c): the chooser's rows break its rule: {pick}")
+    print(f"replica (c) chooser on group 0: choice {pick['choice']}, per-replica wire "
+          f"{pick['per_replica_wire_bytes']} B; rows "
+          + "; ".join(f"{lo} wire {v['wire_bytes']:.0f} B, compute {v['t_compute'] * 1e3:.4f} "
+                      f"ms, memory {v['t_memory'] * 1e3:.4f} ms, collective "
+                      f"{v['t_collective'] * 1e3:.5f} ms ({v['bottleneck']})"
+                      for lo, v in rows.items())
+          + " (derived from the data-sheet rates, not measured)", flush=True)
+    print(f"replica (c) these times are of 4 ranks sharing one H100 over gloo (host-staged), "
+          f"not a scaling figure; ranks took {secs_c:.1f} s with their processes' start, "
+          f"(b) {secs_b:.1f} s", flush=True)
+    launches["serve_replica"] = counts
+    defer(out, "launcher", run_replica_launcher)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 4c: {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -5968,6 +6396,8 @@ def main() -> int:
              f"copies: {served}")
     summary.append(run_serve_warm(dev, launches))
     mark("phase 4b done")
+    summary.append(run_serve_replica(dev, launches))
+    mark("phase 4c done")
     summary.append(run_training(dev, launches))
     mark("phase 5 done")
     summary.append(run_training_rest(dev, launches, summary[-1]))
@@ -6060,7 +6490,8 @@ def main() -> int:
         | ({"train_launches": launches[train_path[n]][n]} if n in train_path else {})
         | ({"lm_train_launches": launches["lm_train"][n]}
            if n in launches["lm_train"] and train_path.get(n) != "lm_train" else {})
-        | ({f"{p}_launches": launches[p][n] for p in ("ops", "lm_serve_gemma2", "lm_pretrain",
+        | ({f"{p}_launches": launches[p][n] for p in ("ops", "serve_replica", "lm_serve_gemma2",
+                                                       "lm_pretrain",
                                                        "lm_serve_kimi", "lm_serve_deepseek",
                                                        "lm_moe_episodic", "lm_serve_zamba2",
                                                        "lm_ssm_train_zamba2",
@@ -6087,4 +6518,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:
         sys.exit(dp_rank_main(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--serve-rank"]:
+        sys.exit(serve_rank_main(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -8,6 +8,7 @@ from typing import Dict, List, Sequence
 import torch
 
 from repro_torch.common.init import lecun_normal, normal_init
+from repro_torch.common.linear import matmul
 
 
 def apply_film(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -52,7 +53,7 @@ def generate_film_params(params: Dict, z: torch.Tensor) -> List[Dict]:
     {gamma, beta} of shape (C,) or (T, C)."""
     out = []
     for site in params["sites"]:
-        h = torch.relu(z @ site["w1"] + site["b1"])
-        out.append(dict(gamma=h @ site["w_gamma"] + site["b_gamma"],
-                        beta=h @ site["w_beta"] + site["b_beta"]))
+        h = torch.relu(matmul(z, site["w1"]) + site["b1"])
+        out.append(dict(gamma=matmul(h, site["w_gamma"]) + site["b_gamma"],
+                        beta=matmul(h, site["w_beta"]) + site["b_beta"]))
     return out

@@ -43,6 +43,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.common.init import lecun_normal
+from repro_torch.common.linear import matmul
 from repro_torch.common.tree import (tree_detach, tree_leaves, tree_map,
                                      tree_rebuild)
 from repro_torch.core.episodic import TaskBatch
@@ -291,8 +292,8 @@ def _make_cnaps_family(cfg: MetaLearnerConfig, bb: BackboneDef,
                 state["sinv"] = dispatch.chol_inverse(state["chol"])
         else:
             hg = params["head_gen"]
-            h = torch.relu(mu @ hg["w1"] + hg["b1"])
-            wb = h @ hg["w2"] + hg["b2"]
+            h = torch.relu(matmul(mu, hg["w1"]) + hg["b1"])
+            wb = matmul(h, hg["w2"]) + hg["b2"]
             state["w"] = wb[..., :fdim]                             # (T, C, F)
             state["b"] = wb[..., fdim]                              # (T, C)
         return state
@@ -332,7 +333,7 @@ def make_fomaml(cfg: MetaLearnerConfig, bb: BackboneDef) -> MetaLearner:
 
     def _logits_p(p, x):
         """(B, ...) examples -> (B, way) under one lane's weights ``p``."""
-        return bb.features(p["bb"], x, None).float() @ p["head"]["w"] + p["head"]["b"]
+        return matmul(bb.features(p["bb"], x, None).float(), p["head"]["w"]) + p["head"]["b"]
 
     def _inner_adapt(params, sx, sy, sw):
         """One task's ``inner_steps`` SGD steps on its support loss, from

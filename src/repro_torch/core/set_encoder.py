@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common.init import lecun_normal
+from repro_torch.common.linear import matmul
 
 KINDS = ("conv", "mlp", "tokens")
 
@@ -78,8 +79,8 @@ def encode_set(params: Dict, x: torch.Tensor, cfg: SetEncoderConfig
     if cfg.kind in ("mlp", "tokens"):
         if cfg.kind == "tokens":
             x = token_histogram(x, cfg.in_channels)
-        h = torch.relu(x @ params["w1"] + params["b1"])
-        return h @ params["w2"] + params["b2"]
+        h = torch.relu(matmul(x, params["w1"]) + params["b1"])
+        return matmul(h, params["w2"]) + params["b2"]
     if cfg.kind != "conv":
         raise ValueError(f"unknown set encoder kind {cfg.kind!r}; choose from {KINDS}")
     h = x.permute(0, 3, 1, 2)                           # NCHW view
@@ -89,4 +90,4 @@ def encode_set(params: Dict, x: torch.Tensor, cfg: SetEncoderConfig
         h = torch.relu(h)
         h = F.max_pool2d(h, 2, 2)
     h = h.mean(dim=(2, 3))
-    return h @ params["head"]["w"] + params["head"]["b"]
+    return matmul(h, params["head"]["w"]) + params["head"]["b"]

@@ -11,14 +11,14 @@ from typing import Optional, Sequence
 from repro_torch.faults.plan import (ALL_SITES, CKPT_PRE_COMMIT,
                                      CKPT_PRE_REPLACE, DATA_NAN,
                                      DATA_TRANSIENT, FAULT_SITES,
-                                     TRAIN_PREEMPT, TRAIN_STRAGGLER,
+                                     REPLICA_DEAD, TRAIN_PREEMPT, TRAIN_STRAGGLER,
                                      WARM_CORRUPT, WARM_VANISH, FaultPlan,
                                      FaultSpec, InjectedKill,
                                      TransientDataError, advance_clock)
 
 __all__ = [
     "ALL_SITES", "CKPT_PRE_COMMIT", "CKPT_PRE_REPLACE", "DATA_NAN",
-    "DATA_TRANSIENT", "FAULT_SITES", "TRAIN_PREEMPT", "TRAIN_STRAGGLER",
+    "DATA_TRANSIENT", "FAULT_SITES", "REPLICA_DEAD", "TRAIN_PREEMPT", "TRAIN_STRAGGLER",
     "WARM_CORRUPT", "WARM_VANISH",
     "FaultPlan", "FaultSpec", "InjectedKill", "TransientDataError",
     "advance_clock", "PreemptionSignal",

@@ -1,6 +1,6 @@
 """Deterministic fault-injection plans: the port's copy of the JAX
 package's ``repro/faults/plan.py``, for the sites that the training loop,
-the checkpointer and the serving warm tier fire.
+the checkpointer, the serving warm tier and the replica router fire.
 
 A :class:`FaultPlan` is a seeded, fully deterministic schedule of
 :class:`FaultSpec` triggers ``(site, at, kind)`` that the fault-tolerant
@@ -28,11 +28,16 @@ signals.
                             quarantines it
 ``warm.vanish``             remove the warm directory before a spill — the
                             store degrades to L1-only
+``replica.dead``            a serving replica group dies mid-run: the
+                            replica router quarantines it and re-routes its
+                            unfinished requests to the surviving replicas
+                            (spilled states rehydrate there bit-exactly,
+                            the rest re-adapts or fails terminally)
 ==========================  ================================================
 
-``at`` is the step, or the task uid at the warm sites (``None`` matches
-any); ``count`` bounds how many times a spec fires; every firing is
-recorded in ``plan.fired``.
+``at`` is the step, the task uid at the warm sites, or the replica index
+at ``replica.dead`` (``None`` matches any); ``count`` bounds how many times
+a spec fires; every firing is recorded in ``plan.fired``.
 """
 from __future__ import annotations
 
@@ -50,9 +55,11 @@ CKPT_PRE_COMMIT = "ckpt.pre_commit"
 CKPT_PRE_REPLACE = "ckpt.pre_replace"
 WARM_CORRUPT = "warm.corrupt"
 WARM_VANISH = "warm.vanish"
+REPLICA_DEAD = "replica.dead"
 
 ALL_SITES = (DATA_NAN, DATA_TRANSIENT, TRAIN_PREEMPT, TRAIN_STRAGGLER,
-             CKPT_PRE_COMMIT, CKPT_PRE_REPLACE, WARM_CORRUPT, WARM_VANISH)
+             CKPT_PRE_COMMIT, CKPT_PRE_REPLACE, WARM_CORRUPT, WARM_VANISH,
+             REPLICA_DEAD)
 
 # every FaultSpec.site must be one of these (checked at construction), and
 # every injection point names its site by the constants above (the lint

@@ -1,5 +1,6 @@
-"""Data-parallel meshes as ``torch.distributed`` process groups (the dp
-half of the JAX package's ``repro/launch/mesh.py``), one process a rank.
+"""Data-parallel and serving-replica meshes as ``torch.distributed``
+process groups (the JAX package's ``repro/launch/mesh.py`` without its
+production meshes), one process a rank.
 
 Two-level data-parallel mesh contract (the task-batched meta-training
 step, :func:`repro_torch.core.episodic_train.make_batched_meta_train_step`):
@@ -22,6 +23,13 @@ step, :func:`repro_torch.core.episodic_train.make_batched_meta_train_step`):
   bit-identical to the 1-D :func:`make_dp_mesh` path.  The collectives a
   step makes and the payload it hands each are counted by
   :mod:`repro_torch.launch.collectives`.
+
+Serving replicas (:func:`make_replica_mesh`, for
+:class:`repro_torch.serve.replica.ReplicatedServeEngine`) are a ``(replica,
+serve)`` mesh, process-major as above: rank = replica * d + serve index.
+A rank's ``serve`` group is its replica group, over which its engine's
+serving layout makes its collectives; no collective spans two replica
+groups except on the host group.
 
 Every rank builds every group, in the same order, as ``torch.distributed``
 requires.  Each group, and the default one, times out after 60 s, so a
@@ -124,10 +132,10 @@ def init_distributed(device, backend: Optional[str] = None,
 
 @dataclasses.dataclass(frozen=True)
 class DPMesh:
-    """A data-parallel mesh over the ranks of the default group.
+    """A mesh over the ranks of the default group.
 
-    ``shape`` reads as the JAX mesh's: ``{"data": D}`` or ``{"dcn": C,
-    "data": D}``; ``coords`` this rank's index along each axis; ``groups``
+    ``shape`` reads as the JAX mesh's: ``{"data": D}``, ``{"dcn": C,
+    "data": D}`` or ``{"replica": R, "serve": d}``; ``coords`` this rank's index along each axis; ``groups``
     one process group per axis, the ranks that share this rank's other
     coordinates; ``host_group`` gloo over every rank."""
 
@@ -164,6 +172,23 @@ class DPMesh:
         dist.all_gather(out, t, group=self.groups[axis])
         return out
 
+    def rank_at(self, **coords: int) -> int:
+        """The global rank at this rank's coordinates with ``coords``
+        replaced (``mesh.rank_at(serve=0)``: this rank's serve-group lead)."""
+        where = dict(self.coords, **coords)
+        rank = 0
+        for axis in self.axis_names:
+            rank = rank * self.shape[axis] + where[axis]
+        return rank
+
+    def broadcast(self, t: torch.Tensor, axis: str, src: int = 0) -> torch.Tensor:
+        """``t`` of the rank at index ``src`` along ``axis``, in place on every
+        rank of this rank's ``axis`` group; returns it."""
+        import torch.distributed as dist
+        counter.add("broadcast", axis, t.numel() * t.element_size())
+        dist.broadcast(t, src=self.rank_at(**{axis: src}), group=self.groups[axis])
+        return t
+
     def barrier(self) -> None:
         import torch.distributed as dist
         counter.add("barrier", "host", 0)
@@ -184,6 +209,14 @@ class DPMesh:
         counter.add("broadcast", "host", 0)
         dist.broadcast_object_list(box, src=src, group=self.host_group)
         return box[0]
+
+    def all_gather_object(self, obj: Any) -> List[Any]:
+        """Every rank's ``obj``, in rank order (host group, pickled)."""
+        import torch.distributed as dist
+        out = [None] * self.size
+        counter.add("all_gather", "host", 0)
+        dist.all_gather_object(out, obj, group=self.host_group)
+        return out
 
 
 def _build(shape: Dict[str, int], axes: Sequence[str]) -> DPMesh:
@@ -233,6 +266,28 @@ def make_two_level_dp_mesh(dcn_shards: int, dp_shards: int, dcn_axis: str = "dcn
     check_world(dcn_shards * dp_shards,
                 f"dcn_shards*dp_shards = {dcn_shards}*{dp_shards}")
     return _build({dcn_axis: dcn_shards, axis: dp_shards}, (dcn_axis, axis))
+
+
+def make_replica_mesh(replicas: int, devices_per_replica: int,
+                      axis: str = "serve") -> DPMesh:
+    """The ``(replica, axis)`` mesh of a replicated serving deployment
+    (:class:`repro_torch.serve.replica.ReplicatedServeEngine`): ``replicas``
+    disjoint groups of ``devices_per_replica`` ranks each, process-major
+    (rank = replica * d + index), so that a group is one node's cards under
+    torchrun.  This rank's ``axis`` group is its replica group: weights
+    placed on it stay there, and every collective its engine's serving
+    layout makes runs within it; nothing spans two groups but the host
+    group's control traffic.  Weights are replicated per group and the
+    task population is partitioned across groups by uid hash."""
+    if replicas < 1:
+        raise ValueError(f"replicas must be >= 1, got {replicas}")
+    if devices_per_replica < 1:
+        raise ValueError(f"devices_per_replica must be >= 1, got "
+                         f"{devices_per_replica}")
+    need = replicas * devices_per_replica
+    check_world(need, f"replicas*devices_per_replica = {replicas}*"
+                      f"{devices_per_replica}")
+    return _build({"replica": replicas, axis: devices_per_replica}, ("replica", axis))
 
 
 def make_mesh_for(devices_shape, axes) -> DPMesh:

@@ -40,8 +40,28 @@ differs from the JAX launcher's (which samples with ``jax.random``).  Runs
 on ``--device`` (default ``cuda``; pass ``--device cpu`` to run without a
 GPU).  ``--learner`` takes every kind: fomaml serves in fp32 (it freezes no
 weights), finetuner with ``--serve-quant int8`` runs its frozen head
-through the int8 matmul kernel.  Not ported: ``--replicas`` and
-``--serve-layout`` (ROADMAP A12).
+through the int8 matmul kernel.
+
+``--replicas R`` serves through the replica router
+(:class:`repro_torch.serve.replica.ReplicatedServeEngine`): uid-hash
+routing over R engines, each with its own L1 and a copy of the weights,
+the warm directory in ``--warm-shards`` uid-hash subdirs.  In one process
+the replicas share ``--device``.  Under ``torchrun`` each of the W ranks is
+one process, the replicas groups of d = W / R ranks
+(:func:`repro_torch.launch.mesh.make_replica_mesh`), and
+``--serve-layout`` places the weights on each group: ``weight_stationary``
+keeps a K-slice of every 2-D product weight on each rank and sums the
+partial products, ``training`` gathers every split leaf before a dispatch,
+``replicated`` moves nothing, ``auto`` scores the three on one group's
+predict dispatch over a probe batch
+(:func:`repro_torch.roofline.analysis.choose_replica_serving_layout`) and
+resolves to ``none`` on a group of one rank.  ``--dist-backend`` picks NCCL
+(the default on ``cuda``, one rank a card) or gloo (ranks may share a
+card).  Every rank serves the same request stream; rank 0 prints::
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.serve --episodic --replicas 2 \
+        --serve-layout auto --serve-quant int8 --dist-backend gloo
 """
 from __future__ import annotations
 
@@ -78,15 +98,71 @@ def build_requests(n_requests: int, repeat_frac: float, shot: int,
 
 
 def run_episodic(args, clock: Callable[[], float] = time.monotonic) -> dict:
+    """Episodic serving; under torchrun (a world of several ranks) on a
+    replica mesh of the world, torn down at the end."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import (init_distributed, make_replica_mesh,
+                                         world_size)
+    from repro_torch.serve.episodic import resolve_device
+
+    if args.replicas < 1:
+        raise ValueError(f"--replicas must be >= 1, got {args.replicas}")
+    world = world_size()
+    if world == 1:
+        return _run_episodic(args, clock, None, resolve_device(args.device))
+    if world % args.replicas:
+        raise ValueError(f"--replicas {args.replicas} does not divide the world of "
+                         f"{world} ranks: start a multiple of it (--nproc-per-node)")
+    device = init_distributed(args.device, backend=args.dist_backend)
+    try:
+        mesh = make_replica_mesh(args.replicas, world // args.replicas)
+        return _run_episodic(args, clock, mesh, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def _probe_layout(args, learner, params, lite, buckets, mesh, device, backend):
+    """``--serve-layout auto`` on a group of several ranks: the layouts
+    scored on one group's predict dispatch over two probe tasks."""
+    from repro_torch.core.episodic import Task
+    from repro_torch.data.episodic import (HostEpisodicConfig, collate_task_batch,
+                                           host_task_batch_at)
+    from repro_torch.kernels import dispatch
+    from repro_torch.roofline.analysis import choose_replica_serving_layout
+    from repro_torch.serve.quant_params import quantize_frozen, serving_params
+
+    sw = quantize_frozen(learner, params, args.serve_quant)
+    cfg = HostEpisodicConfig(way=5, shot=args.shot, query_per_class=4,
+                             image_size=args.image_size)
+    b = host_task_batch_at(args.seed + 1, cfg, 2, 0)
+    tasks = [Task(support_x=b.support_x[i], support_y=b.support_y[i],
+                  query_x=b.query_x[i], query_y=b.query_y[i], way=5) for i in range(2)]
+    batch = collate_task_batch(tasks, support_size=max(buckets),
+                               query_size=b.query_x.shape[1]).to(device)
+    with dispatch.use_backend(backend):
+        states = learner.adapt_batch(serving_params(sw), batch, lite)
+
+    def predict(w, st, qx):
+        with dispatch.use_backend(backend):
+            return learner.predict_batch(serving_params(w), st, qx)
+
+    return choose_replica_serving_layout(predict, sw, (states, batch.query_x), mesh)
+
+
+def _run_episodic(args, clock, mesh, device) -> dict:
     from repro_torch.core.lite import LiteSpec
     from repro_torch.core.meta_learners import MetaLearnerConfig, make_learner
     from repro_torch.core.set_encoder import SetEncoderConfig
     from repro_torch.data.episodic import plan_buckets
+    from repro_torch.kernels import dispatch
     from repro_torch.models.conv_backbone import (ConvBackboneConfig,
                                                   make_conv_backbone)
-    from repro_torch.serve.episodic import EpisodicServeEngine, resolve_device
+    from repro_torch.serve.episodic import EpisodicServeEngine
+    from repro_torch.serve.replica import ReplicatedServeEngine
 
-    device = resolve_device(args.device)
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
     backbone = make_conv_backbone(ConvBackboneConfig(widths=(16, 32),
                                                      feature_dim=64))
     learner = make_learner(
@@ -99,15 +175,30 @@ def run_episodic(args, clock: Callable[[], float] = time.monotonic) -> dict:
                                 args.image_size, args.seed)
     reqs = cold + warm
     buckets = plan_buckets([r.support_x.shape[0] for r in reqs], max_buckets=2)
-    engine = EpisodicServeEngine(
-        learner, params, lite=lite, n_slots=args.slots,
-        query_chunk=args.query_chunk, support_buckets=buckets,
-        kernel_backend=args.kernel_backend,
+    # the layout: a named one is placed as it is; auto scores the three on
+    # one group of several ranks and is nothing to place on a group of one
+    group = mesh.shape["serve"] if mesh is not None else 1
+    serve_layout, layout_rows = args.serve_layout, None
+    if serve_layout == "auto" and group > 1:
+        pick = _probe_layout(args, learner, params, lite, buckets, mesh, device,
+                             dispatch.resolve_backend(args.kernel_backend, device))
+        serve_layout, layout_rows = pick["choice"], pick["rows"]
+    elif serve_layout == "auto":
+        serve_layout = "none"
+    engine_kw = dict(
+        lite=lite, n_slots=args.slots, query_chunk=args.query_chunk,
+        support_buckets=buckets, kernel_backend=args.kernel_backend,
         cache_capacity=args.cache_capacity, warm_dir=args.warm_dir,
-        warm_shards=args.warm_shards or 1, query_slo_us=args.query_slo_us,
-        adapt_cost_hint_us=args.adapt_cost_hint_us, max_queue=args.max_queue,
-        deadline_us=args.deadline_us, serve_quant=args.serve_quant,
-        device=device)
+        query_slo_us=args.query_slo_us, adapt_cost_hint_us=args.adapt_cost_hint_us,
+        max_queue=args.max_queue, deadline_us=args.deadline_us,
+        serve_quant=args.serve_quant, device=device,
+        serve_layout=None if serve_layout == "none" else serve_layout)
+    if args.replicas > 1:
+        engine = ReplicatedServeEngine(learner, params, replicas=args.replicas,
+                                       mesh=mesh, warm_shards=args.warm_shards, **engine_kw)
+    else:
+        engine = EpisodicServeEngine(learner, params, mesh=mesh,
+                                     warm_shards=args.warm_shards or 1, **engine_kw)
     # cold wave first, so every repeat finds its user's state cached
     t0 = clock()
     engine.run_to_completion(cold)
@@ -118,15 +209,17 @@ def run_episodic(args, clock: Callable[[], float] = time.monotonic) -> dict:
     # abandoned past its deadline, failed on a quarantined state)
     if not all(r.done or r.rejected for r in reqs):
         raise RuntimeError("engine finished with requests in no terminal state")
-    print(f"episodic serve: learner={args.learner} {len(reqs)} requests "
-          f"({len(cold)} distinct users) in {dt:.2f}s on {args.slots} slots, "
-          f"device={device} backend={engine.kernel_backend}")
-    print(f"  tasks adapted {s['tasks_adapted']} ({s['tasks_adapted']/dt:.1f}/s), "
+    backend = dispatch.resolve_backend(args.kernel_backend, device)
+    world = 1 if mesh is None else mesh.size
+    say(f"episodic serve: learner={args.learner} {len(reqs)} requests "
+        f"({len(cold)} distinct users) in {dt:.2f}s on {args.slots} slots, "
+        f"device={device} backend={backend} world={world}")
+    say(f"  tasks adapted {s['tasks_adapted']} ({s['tasks_adapted']/dt:.1f}/s), "
           f"queries {s['queries_served']} ({s['queries_served']/dt:.1f}/s), "
           f"cache hit-rate {s['hit_rate']:.2f}, "
           f"compiles adapt={s['adapt_compiles']} "
           f"predict={s['predict_compiles']}")
-    print(f"  latency: adapt p50/p99 {s['adapt_p50_us']:.0f}/"
+    say(f"  latency: adapt p50/p99 {s['adapt_p50_us']:.0f}/"
           f"{s['adapt_p99_us']:.0f} us, query (first logit) p50/p99 "
           f"{s['query_p50_us']:.0f}/{s['query_p99_us']:.0f} us; "
           f"store: evictions={s['evictions']} spills={s['spills']} "
@@ -134,18 +227,30 @@ def run_episodic(args, clock: Callable[[], float] = time.monotonic) -> dict:
           f"{s['spill_mean_us']:.0f} us, rehydrate "
           f"{s['rehydrate_mean_us']:.0f} us), "
           f"slo_preemptions={s['slo_preemptions']}")
-    print(f"  degradation: quarantined={s['quarantined']} "
+    say(f"  degradation: quarantined={s['quarantined']} "
           f"spill_errors={s['spill_errors']} "
           f"rejections={s['rejections']} "
           f"deadline_abandoned={s['deadline_abandoned']} "
           f"failed_requests={s['failed_requests']}")
-    print(f"  weights: quant={args.serve_quant} resident "
-          f"{s['param_bytes_resident']} B (fp32 {s['param_bytes_fp32']} B; "
-          f"frozen slice {s['frozen_param_bytes_resident']} / "
-          f"{s['frozen_param_bytes_fp32']} B)")
+    say(f"  weights: quant={args.serve_quant} layout={serve_layout} resident "
+        f"{s['param_bytes_resident']} B (fp32 {s['param_bytes_fp32']} B; "
+        f"frozen slice {s['frozen_param_bytes_resident']} / "
+        f"{s['frozen_param_bytes_fp32']} B)")
+    if layout_rows is not None:
+        for lo, r in layout_rows.items():
+            say(f"    layout {lo:18s} wire={r['wire_bytes']:12.0f} B "
+                f"bottleneck={r['bottleneck']}")
+    if args.replicas > 1:
+        say(f"  replicas: {s['live_replicas']}/{s['n_replicas']} live, "
+            f"failovers={s['replica_failovers']} rerouted={s['rerouted_requests']}")
+        for i, p in enumerate(s["per_replica"]):
+            say(f"    replica {i}: adapted={p['tasks_adapted']:.0f} "
+                f"queries={p['queries_served']:.0f} hit_rate={p['hit_rate']:.2f} "
+                f"compiles adapt={p['adapt_compiles']:.0f} "
+                f"predict={p['predict_compiles']:.0f}")
     for r in reqs[:4]:
-        print(f"  req uid={r.uid}: cache_hit={r.cache_hit} "
-              f"preds={r.predictions()[:8].tolist()}")
+        say(f"  req uid={r.uid}: cache_hit={r.cache_hit} "
+            f"preds={r.predictions()[:8].tolist()}")
     return s
 
 
@@ -223,7 +328,39 @@ def main(argv: Optional[List[str]] = None,
                          "(default: off, evictions discard)")
     ap.add_argument("--warm-shards", type=int, default=None,
                     help="uid-hash shard subdirs under --warm-dir (default: "
-                         "none, the files at its root)")
+                         "8 with --replicas > 1, else none, the files at its "
+                         "root; keep it fixed across deployments of the same "
+                         "warm root: resizing --replicas re-routes uids but "
+                         "never moves their warm files)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="serving replicas (repro_torch.serve.replica): each "
+                         "replica owns a full copy of the serving weights on "
+                         "its own group of ranks (world / replicas under "
+                         "torchrun, make_replica_mesh) and its own L1 state "
+                         "cache; requests route by stable uid hash, the "
+                         "shared --warm-dir is partitioned into uid-hash "
+                         "shard subdirs, and no dispatch's collective ever "
+                         "crosses a group (default: 1, a single engine)")
+    ap.add_argument("--serve-layout",
+                    choices=["auto", "none", "training", "weight_stationary",
+                             "replicated"],
+                    default="none",
+                    help="serving weight placement on a replica's group of "
+                         "ranks: auto = run the predict dispatch under every "
+                         "candidate on one group and pick the least largest "
+                         "roofline term (repro_torch.roofline.analysis."
+                         "choose_serving_layout), weight_stationary = keep a "
+                         "K-slice of each matmul weight on each rank (small-"
+                         "batch serving moves partial products, not gathered "
+                         "weights), training = the weight-gathered train "
+                         "placement, replicated = every rank holds all "
+                         "weights (default: none, nothing placed)")
+    ap.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                    help="torch.distributed backend under torchrun: nccl "
+                         "(default on cuda, one rank a card) or gloo (default "
+                         "on cpu; on cuda ranks may share a card).  The JAX "
+                         "launcher has no such flag: JAX has no backend to "
+                         "choose")
     ap.add_argument("--query-slo-us", type=float, default=None,
                     help="per-request first-logit SLO in microseconds: a "
                          "pending adapt wave is deferred when it would push "

@@ -25,6 +25,10 @@ class BackboneDef:
     quant_native_paths: '/'-joined param paths whose weight ``features``
       consumes directly in the blockwise int8 ``{q, scale, n}`` form
       (through :func:`repro_torch.kernels.dispatch.int8_matmul`).
+    product_paths: '/'-joined param paths of 2-D weights that ``features``
+      reads only as the right operand of
+      :func:`repro_torch.common.linear.matmul`, so that a serving layout
+      may keep a K-slice of each on a rank (``weight_stationary``).
     """
 
     init: Callable[..., Tree]
@@ -33,3 +37,4 @@ class BackboneDef:
     film_sites: Sequence[int]
     name: str = "backbone"
     quant_native_paths: Sequence[str] = ()
+    product_paths: Sequence[str] = ()

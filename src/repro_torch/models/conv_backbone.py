@@ -3,8 +3,11 @@ block (the pool only while H, W >= 2), a global mean, and a linear head.
 The paper's large-image regime is 224 x 224 at the default widths.
 
 Inputs are NHWC; the convolutions run on an NCHW view through cuDNN, as the
-JAX package leaves them to XLA.  Conv weights are OIHW.  A head weight in
-the blockwise int8 form goes through ``dispatch.int8_matmul``.
+JAX package leaves them to XLA.  Conv weights are OIHW.  The head's product
+goes through :func:`repro_torch.common.linear.matmul`: a head weight in the
+blockwise int8 form runs the ``int8_matmul`` kernel, a K-slice of it (the
+``weight_stationary`` serving layout) its slice's product summed over the
+serving group.
 """
 from __future__ import annotations
 
@@ -15,8 +18,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common.init import lecun_normal
+from repro_torch.common.linear import matmul
 from repro_torch.core.film import apply_film
-from repro_torch.kernels import dispatch
 from repro_torch.models.backbone import BackboneDef
 
 
@@ -56,10 +59,7 @@ def conv_features(params: Dict, x: torch.Tensor, film: Optional[List[Dict]],
         if h.shape[2] >= 2 and h.shape[3] >= 2:
             h = F.max_pool2d(h, 2, 2)
     h = h.mean(dim=(2, 3))
-    w = params["head"]["w"]
-    if isinstance(w, dict):
-        return dispatch.int8_matmul(h, w) + params["head"]["b"]
-    return h @ w + params["head"]["b"]
+    return matmul(h, params["head"]["w"]) + params["head"]["b"]
 
 
 def make_conv_backbone(cfg: ConvBackboneConfig) -> BackboneDef:
@@ -70,4 +70,5 @@ def make_conv_backbone(cfg: ConvBackboneConfig) -> BackboneDef:
         film_sites=tuple(cfg.widths),
         name=cfg.name,
         quant_native_paths=("head/w",),
+        product_paths=("head/w",),
     )

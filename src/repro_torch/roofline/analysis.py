@@ -567,3 +567,276 @@ def format_markdown(rows) -> str:
             f"{r['roofline_fraction']:.3f} | "
             f"{r['state_bytes_per_device']/2**30:.2f} |")
     return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# the serving layouts of a replica group and their chooser
+#
+# Serving turns training's balance around: a batch is a few episodes while
+# the frozen weights are the big tensors, so the training layout (every
+# leaf split on its largest dim and gathered before each dispatch) pays
+# its weights' bytes on the wire at every dispatch.  weight_stationary
+# keeps each 2-D product weight's K-slice on its rank and sums the partial
+# products (activations) over the group; replicated moves nothing.  The JAX
+# package scores each candidate on its compiled HLO; the port has none, so
+# it runs the predict dispatch once under each layout on the group, reads
+# the payloads its collectives were handed (``launch.collectives``) and
+# prices them with the ring all-reduce and all-gather factors at NVLink's
+# rate, beside the analytic FLOPs and bytes of the backbone's forward.
+# ---------------------------------------------------------------------------
+
+SERVING_LAYOUTS = ("training", "weight_stationary", "replicated")
+
+
+def _largest_divisible_dim(shape, n: int) -> int:
+    """Index of the largest dim divisible by n (the first of equals), or -1."""
+    best, best_d = -1, 0
+    for i, d in enumerate(shape):
+        if d % n == 0 and d > best_d:
+            best, best_d = i, d
+    return best
+
+
+def _weight_leaf_spec(shape, layout: str, axis: str, n: int) -> tuple:
+    """The JAX package's PartitionSpec of one serving-weight leaf of
+    ``shape`` (in its layout: conv weights HWIO) as a tuple, ``axis`` at the
+    split dim, ``()`` for a whole leaf.  training: the largest dim ``n``
+    divides; weight_stationary: dim 0 of a 2-D leaf (the contracting dim of
+    its product) that ``n`` divides; replicated: nothing."""
+    if layout not in SERVING_LAYOUTS:
+        raise ValueError(f"unknown serving layout {layout!r}; choose from {SERVING_LAYOUTS}")
+    if not shape or n <= 1 or layout == "replicated":
+        return ()
+    if layout == "weight_stationary":
+        return (axis, None) if len(shape) == 2 and shape[0] % n == 0 else ()
+    i = _largest_divisible_dim(shape, n)
+    if i < 0:
+        return ()
+    return tuple(axis if k == i else None for k in range(len(shape)))
+
+
+def _batch_leaf_spec(shape, layout: str, axis: str, n: int) -> tuple:
+    """A batch operand's spec: training splits its leading (task-lane)
+    dim; the serving layouts keep the batch whole on every rank."""
+    if layout == "training" and shape and n > 1 and shape[0] % n == 0:
+        return (axis,)
+    return ()
+
+
+def split_dim(spec: tuple) -> Optional[int]:
+    """The dim a spec splits, or None."""
+    for i, a in enumerate(spec):
+        if a is not None:
+            return i
+    return None
+
+
+def _conv_spec(shape, layout: str, axis: str, n: int) -> tuple:
+    """The spec of a port conv weight (OIHW), chosen on its HWIO shape."""
+    from repro_torch.bridge import HWIO_TO_OIHW, OIHW_TO_HWIO
+    hwio = tuple(shape[i] for i in OIHW_TO_HWIO)
+    spec = _weight_leaf_spec(hwio, layout, axis, n)
+    return tuple(spec[i] for i in HWIO_TO_OIHW) if spec else ()
+
+
+def serving_shardings(tree, n: int, layout: str, axis: str = "serve"):
+    """The spec of every leaf of a serving-weights tree (a params tree, a
+    quantized ``{q, scale, n}`` leaf's parts each by its own shape) under
+    ``layout`` on a group of ``n`` ranks; a conv weight's dim is chosen in
+    the JAX layout (HWIO), so that both packages split the same tensor
+    dim."""
+    from repro_torch.bridge import is_conv_weight
+    from repro_torch.optim.quant import is_quantized
+
+    def walk(t, key):
+        if is_quantized(t):                 # q and scale: the JAX layout already
+            return {k: _weight_leaf_spec(tuple(getattr(v, "shape", ())), layout, axis, n)
+                    for k, v in t.items()}
+        if isinstance(t, dict):
+            return {k: walk(v, k) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v, key) for v in t]
+        shape = tuple(getattr(t, "shape", ()))
+        if is_conv_weight(t, key):
+            return _conv_spec(shape, layout, axis, n)
+        return _weight_leaf_spec(shape, layout, axis, n)
+
+    return walk(tree, "")
+
+
+def batch_shardings(tree, n: int, layout: str, axis: str = "serve"):
+    """The spec of every batch operand (tensors of a dispatch's inputs)."""
+    from repro_torch.common.tree import tree_map
+    return tree_map(lambda t: _batch_leaf_spec(tuple(getattr(t, "shape", ())), layout,
+                                               axis, n), tree)
+
+
+def _lite_rows(n: int, chunk: Optional[int]) -> int:
+    """Rows a LITE serve estimator runs over n support rows in ``chunk``s."""
+    if chunk is None or chunk >= n:
+        return n
+    return -(-n // chunk) * chunk
+
+
+def serving_payloads(weights, layout: str, group: int, lanes: int, rows: int, *,
+                     dispatch: str = "predict", way: int = 0,
+                     chunk: Optional[int] = None) -> Dict[str, int]:
+    """The bytes one rank of a ``group``-rank serving group hands its
+    collectives in one dispatch, by ``kind/axis`` as
+    :mod:`repro_torch.launch.collectives` counts them (payloads, no ring or
+    all-gather factor), for ``weights`` (a
+    :class:`repro_torch.serve.quant_params.ServingWeights` before placement)
+    under ``layout``; ``lanes`` task lanes of ``rows`` query rows
+    (``predict``) or support rows (``adapt``, with the learner's ``way`` and
+    the LITE ``chunk``).  Every leaf the layout splits and the dispatch does
+    not read as a K-slice is all-gathered, this rank's part of it;
+    under ``weight_stationary`` each product with a split weight all-reduces
+    its fp32 partial product, (its rows, N): in a predict dispatch the
+    backbone's over the query rows, in an adapt dispatch the kind's
+    products over their ``PRODUCT_LEAVES`` rows."""
+    from repro_torch.serve.quant_params import _spec_paths, _walk, is_quantized_leaf
+    if group <= 1 or layout in (None, "none", "replicated"):
+        return {}
+    axis = "serve"
+    specs = _spec_paths(serving_shardings(weights.tree, group, layout, axis))
+    products = dict(weights.products) if layout == "weight_stationary" else {}
+    in_rows = dict(chunks=lanes * _lite_rows(rows, chunk), support=lanes * rows,
+                   tasks=lanes, classes=lanes * way)
+    gathered, reduced = 0, 0
+
+    def nbytes(t):
+        return t.numel() * t.element_size() // group
+
+    def visit(path, leaf):
+        nonlocal gathered, reduced
+        parts = ({f"{path}/q": leaf["q"], f"{path}/scale": leaf["scale"]}
+                 if is_quantized_leaf(leaf) else {path: leaf})
+        dims = {p: split_dim(specs.get(p, ())) for p in parts}
+        if path in products and all(d == 0 for d in dims.values()):
+            role = products[path]
+            if dispatch == "adapt" or path.startswith("bb/"):
+                m = lanes * rows if dispatch == "predict" else in_rows[role]
+                n = (leaf["q"] if is_quantized_leaf(leaf) else leaf).shape[1]
+                reduced += m * n * 4
+            return leaf
+        gathered += sum(nbytes(t) for p, t in parts.items() if dims[p] is not None)
+        return leaf
+
+    _walk(weights.tree, visit)
+    out = {}
+    if reduced:
+        out[f"all_reduce/{axis}"] = reduced
+    if gathered:
+        out[f"all_gather/{axis}"] = gathered
+    return out
+
+
+def serving_wire_bytes(payload: Dict[str, int], group: int) -> float:
+    """Bytes one rank sends for ``payload`` (``kind/axis`` -> bytes) over a
+    group of ``group`` ranks: ring all-reduce and all-gather factors."""
+    wire = 0.0
+    for key, nbytes in payload.items():
+        kind = key.split("/")[0]
+        if kind == "all_reduce":
+            wire += ring_all_reduce_bytes(nbytes, group)
+        elif kind == "all_gather":
+            wire += all_gather_bytes(nbytes, group)
+    return wire
+
+
+def serving_predict_work(weights, query_shape, layout: str, group: int):
+    """(FLOPs, bytes) one rank spends in a predict dispatch over queries of
+    ``query_shape`` (T, M, H, W, C) under ``layout``: the conv backbone's
+    forward (3x3 SAME convolutions, a 2x2 pool after each while H, W >= 2,
+    the head) over the T * M images, and the bytes of the weights it reads
+    (a K-slice of a split product weight under ``weight_stationary``, else
+    the whole leaf), the images and the features."""
+    from repro_torch.serve.quant_params import _walk, is_quantized_leaf
+    t, m, h, w = (int(d) for d in query_shape[:4])
+    imgs = t * m
+    products = {p for p, _ in weights.products} if layout == "weight_stationary" else set()
+    flops, wbytes, feat = 0.0, 0, 0
+    bb = weights.tree.get("bb", {}) if isinstance(weights.tree, dict) else {}
+    for blk in bb.get("blocks", []):
+        wt = blk["w"]
+        if is_quantized_leaf(wt):
+            kh, kw, cin, cout = wt["q"].shape                   # HWIO
+        else:
+            cout, cin, kh, kw = wt.shape                        # OIHW
+        flops += 2.0 * kh * kw * cin * cout * h * w * imgs
+        if h >= 2 and w >= 2:
+            h, w = h // 2, w // 2
+    head = bb.get("head", {}).get("w")
+    if head is not None:
+        k, n = (head["q"] if is_quantized_leaf(head) else head).shape
+        split = "bb/head/w" in products and group > 1 and k % group == 0
+        flops += 2.0 * k * n * imgs / (group if split else 1)
+        feat = imgs * n * 4
+
+    def visit(path, leaf):
+        nonlocal wbytes
+        parts = [leaf["q"], leaf["scale"]] if is_quantized_leaf(leaf) else [leaf]
+        size = sum(p.numel() * p.element_size() for p in parts if hasattr(p, "numel"))
+        wbytes += size // group if path in products and group > 1 and \
+            parts[0].shape[0] % group == 0 else size
+        return leaf
+
+    if isinstance(weights.tree, dict) and "bb" in weights.tree:
+        _walk(weights.tree["bb"], lambda p, leaf: visit(f"bb/{p}", leaf))
+    in_bytes = imgs * int(query_shape[2]) * int(query_shape[3]) * int(query_shape[4]) * 4
+    return flops, wbytes + in_bytes + feat
+
+
+def score_serving_layout(fn, weights, args, mesh, layout: str) -> Dict:
+    """Run ``fn(placed, *args)`` (the predict dispatch, e.g.
+    ``learner.predict_batch(serving_params(w), states, query_x)``) once with
+    ``weights`` placed under ``layout`` on ``mesh``'s ``serve`` group, and
+    score it with the three terms: the payloads its collectives were handed
+    on the wire (:func:`serving_wire_bytes`) at NVLink's rate, and
+    :func:`serving_predict_work`'s FLOPs at the fp32 peak and bytes at
+    HBM's rate.  The JAX package's row keys; ``bottleneck`` names the
+    largest term and ``score`` is its time."""
+    from repro_torch.launch import collectives
+    from repro_torch.serve.quant_params import place_serving_weights
+    group = mesh.shape["serve"]
+    placed = place_serving_weights(weights, mesh, layout)
+    before_b, before_c = collectives.counter.payload(), collectives.counter.snapshot()
+    fn(placed, *args)
+    after_b, after_c = collectives.counter.payload(), collectives.counter.snapshot()
+    payload = {k: v - before_b.get(k, 0) for k, v in after_b.items()
+               if k.endswith("/serve") and v != before_b.get(k, 0)}
+    count = sum(v - before_c.get(k, 0) for k, v in after_c.items() if k.endswith("/serve"))
+    wire = serving_wire_bytes(payload, group)
+    flops, nbytes = serving_predict_work(weights, args[-1].shape, layout, group)
+    terms = dict(compute=flops / FP32_FLOPS, memory=nbytes / HBM_BYTES_PER_S,
+                 collective=wire / NVLINK_BYTES_PER_S)
+    return dict(layout=layout, wire_bytes=wire, payload=payload, collective_count=count,
+                dot_flops=flops, bytes_accessed=nbytes, t_compute=terms["compute"],
+                t_memory=terms["memory"], t_collective=terms["collective"],
+                bottleneck=max(terms, key=terms.get), score=max(terms.values()))
+
+
+def choose_serving_layout(fn, weights, args, mesh, layouts=SERVING_LAYOUTS) -> Dict:
+    """Score every layout of ``layouts`` on ``mesh``'s group
+    (:func:`score_serving_layout`) and pick the one whose largest term is
+    least, ties going to the earlier entry.  Returns ``{"choice": name,
+    "rows": {layout: row}}``."""
+    rows = {lo: score_serving_layout(fn, weights, args, mesh, lo) for lo in layouts}
+    return dict(choice=min(layouts, key=lambda lo: rows[lo]["score"]), rows=rows)
+
+
+def choose_replica_serving_layout(fn, weights, args, mesh, layouts=SERVING_LAYOUTS) -> Dict:
+    """The layout of a replicated deployment, scored on one replica group
+    and applied to all: the groups of :func:`repro_torch.launch.mesh.
+    make_replica_mesh` are congruent, so group 0's ranks score it (every
+    collective within their group) and rank 0 hands the result to every
+    rank over the host group.  Returns :func:`choose_serving_layout`'s dict
+    and ``per_replica_wire_bytes``, the winner's wire bytes: what each
+    replica's rank sends a predict dispatch, not a deployment total."""
+    out = None
+    if mesh.coords.get("replica", 0) == 0:
+        out = choose_serving_layout(fn, weights, args, mesh, layouts)
+        out["per_replica_wire_bytes"] = out["rows"][out["choice"]]["wire_bytes"]
+    if mesh.shape.get("replica", 1) > 1:
+        out = mesh.broadcast_object(out, src=0)
+    return out

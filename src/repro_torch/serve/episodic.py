@@ -41,8 +41,21 @@ device is not available; a CPU run must ask for it.  The kernel backend
 (:mod:`repro_torch.kernels.dispatch`) is fixed at construction: ``auto``
 resolves to the CUDA kernels on a GPU and to ``ref`` on the CPU.
 
-Not ported: the JAX engine's sharded serving layouts (``serve_layout``,
-``mesh``) and the replica router (``repro/serve/replica.py``).
+* **Serving layouts** — with ``mesh`` (a replica group from
+  :func:`repro_torch.launch.mesh.make_replica_mesh`, one process a rank)
+  and ``serve_layout``, the weights are placed in the layout on the
+  group's ranks (:func:`repro_torch.serve.quant_params.place_serving_weights`)
+  and every dispatch runs under it: ``weight_stationary`` multiplies this
+  rank's K-slice of each split product weight and sums the partial
+  products over the group; ``training`` gathers every split leaf before a
+  dispatch; ``replicated`` moves nothing.  The batch stays whole on every
+  rank, as in the JAX engine, so every rank of the group adapts, stores and
+  serves the same tasks and holds the same logits.  Only the group's rank
+  of ``serve`` index 0 writes the warm tier; the others read what it
+  wrote, and learn at each spill whether it landed.  With ``query_slo_us``
+  or ``deadline_us`` set the group reads index 0's clock, so that its
+  ranks take the same scheduling decisions.  Several replicas route
+  through :class:`repro_torch.serve.replica.ReplicatedServeEngine`.
 """
 from __future__ import annotations
 
@@ -69,8 +82,8 @@ from repro_torch.data.episodic import (bucket_for, collate_task_batch,
                                        iter_query_chunks)
 from repro_torch.faults.plan import WARM_CORRUPT, WARM_VANISH
 from repro_torch.kernels import dispatch
-from repro_torch.serve.quant_params import (dequantize_params, param_bytes,
-                                            quantize_frozen)
+from repro_torch.serve.quant_params import (param_bytes, place_serving_weights,
+                                            quantize_frozen, serving_params)
 from repro_torch.train.checkpoint import (ChecksumError, load_array_tree,
                                           save_array_tree)
 from repro_torch.train.pipeline import BucketedStepCache
@@ -262,14 +275,21 @@ class WarmTaskStore:
     (``quarantine_uid_N_K.npz``), the sidecar and template dropped,
     ``quarantined`` bumped, and ``get`` returns None.  ``fault_plan`` site
     ``warm.corrupt`` truncates a uid's just-published npz to ``payload``
-    bytes (default 16)."""
+    bytes (default 16).
+
+    A store with ``writer=False`` reads what another process's store over
+    the same directory writes (a serving group's other ranks): it never
+    writes, renames or removes a file, and its quarantine only drops the
+    entry from its own view."""
 
     def __init__(self, directory: str | pathlib.Path, fault_plan=None,
-                 shards: int = 1):
+                 shards: int = 1, writer: bool = True):
         if shards < 1:
             raise ValueError(f"shards must be >= 1, got {shards}")
         self.dir = pathlib.Path(directory)
-        self.dir.mkdir(parents=True, exist_ok=True)
+        self.writer = writer
+        if writer:
+            self.dir.mkdir(parents=True, exist_ok=True)
         self.shards = int(shards)
         self._templates: Dict[int, Tree] = {}
         # the subdir each known uid's files live in: its canonical shard,
@@ -293,7 +313,8 @@ class WarmTaskStore:
         except (OSError, ValueError, KeyError, TypeError) as e:
             print(f"warm tier: dropping unreadable template sidecar "
                   f"{side.name} ({type(e).__name__}: {e})", flush=True)
-            side.unlink(missing_ok=True)
+            if self.writer:
+                side.unlink(missing_ok=True)
             return False
 
     def _shard_dir(self, uid: int) -> pathlib.Path:
@@ -324,6 +345,8 @@ class WarmTaskStore:
         return False
 
     def put(self, uid: int, state: Tree) -> None:
+        if not self.writer:
+            raise RuntimeError("a reading warm store (writer=False) writes nothing")
         home = self._shard_dir(uid)
         if home != self.dir:
             # parents=False: a vanished warm root stays an OSError for the
@@ -358,8 +381,13 @@ class WarmTaskStore:
     def _quarantine(self, uid: int, err: Exception) -> None:
         path = self._path(uid)
         self.quarantined += 1
-        self._tmpl_path(uid).unlink(missing_ok=True)
         self._templates.pop(uid, None)
+        if not self.writer:
+            self._homes.pop(uid, None)
+            print(f"warm tier: dropped uid={uid} ({type(err).__name__}: {err}; "
+                  f"the writer quarantines the file)", flush=True)
+            return
+        self._tmpl_path(uid).unlink(missing_ok=True)
         if path.exists():
             aside = path.parent / f"quarantine_uid_{uid}_{self.quarantined}.npz"
             os.replace(path, aside)
@@ -409,16 +437,23 @@ class TwoTierTaskStore:
     counted once in ``spill_errors``, and the store serves L1-only from
     then on; a discarded state re-adapts on its next request.  The copy
     from the card to the host (spill) and back (rehydrate) lies outside
-    every ``except``: a device error propagates."""
+    every ``except``: a device error propagates.
+
+    ``spilled(ok) -> ok`` is called after every spill with whether it
+    landed: a serving group's ranks agree there that the writer's
+    (``warm_writer``) file is on disk before any of them reads it."""
 
     def __init__(self, capacity: int = 64,
                  warm_dir: Optional[str | pathlib.Path] = None,
                  fault_plan=None, warm_shards: int = 1, device="cuda",
-                 clock: Callable[[], float] = time.perf_counter):
+                 clock: Callable[[], float] = time.perf_counter,
+                 warm_writer: bool = True,
+                 spilled: Optional[Callable[[bool], bool]] = None):
         self.device = resolve_device(device)
         self.warm = (WarmTaskStore(warm_dir, fault_plan=fault_plan,
-                                   shards=warm_shards)
+                                   shards=warm_shards, writer=warm_writer)
                      if warm_dir is not None else None)
+        self._spilled = spilled
         self.l1 = TaskStateCache(capacity, on_evict=self._spill)
         self._fault_plan = fault_plan
         self._clock = clock
@@ -446,15 +481,22 @@ class TwoTierTaskStore:
         t0 = self._clock()
         host = tree_map(lambda t: t.cpu(), state)
         if self._fault_plan is not None and \
-                self._fault_plan.fire(WARM_VANISH, uid) is not None:
+                self._fault_plan.fire(WARM_VANISH, uid) is not None and self.warm.writer:
             shutil.rmtree(self.warm.dir, ignore_errors=True)
-        try:
-            self.warm.put(uid, host)
-        except OSError as e:
+        err = None
+        if self.warm.writer:
+            try:
+                self.warm.put(uid, host)
+            except OSError as e:
+                err = e
+        if self._spilled is not None and not self._spilled(err is None):
+            err = err or OSError(f"the serving group's warm writer failed to spill "
+                                 f"uid={uid}")
+        if err is not None:
             self.spill_errors += 1
             self.warm_disabled = True
-            print(f"warm tier: spill of uid={uid} failed ({type(e).__name__}: "
-                  f"{e}); degrading to L1-only, evicted states will re-adapt",
+            print(f"warm tier: spill of uid={uid} failed ({type(err).__name__}: "
+                  f"{err}); degrading to L1-only, evicted states will re-adapt",
                   flush=True)
             return
         self.spill_s += self._clock() - t0
@@ -511,6 +553,15 @@ class EpisodicServeEngine:
     ``max_queue`` bounds the admission queue (admitted requests are never
     dropped for it); ``deadline_us`` abandons a request still without logits
     that long after its enqueue.  All default off.
+
+    ``serve_layout`` (a name of
+    :data:`repro_torch.roofline.analysis.SERVING_LAYOUTS`) with ``mesh``
+    (:func:`repro_torch.launch.mesh.make_replica_mesh`: its ``serve``
+    group) places the weights in that layout on the group's ranks; the
+    module docstring says what each dispatch then does.  Resolve ``'auto'``
+    with :func:`repro_torch.roofline.analysis.choose_serving_layout` before
+    construction: the engine applies a layout, it does not score one.
+    ``stats()``'s parameter bytes count the whole tree, before placement.
     """
 
     def __init__(self, learner: MetaLearner, params: Tree, *,
@@ -526,7 +577,8 @@ class EpisodicServeEngine:
                  max_queue: Optional[int] = None,
                  deadline_us: Optional[float] = None,
                  serve_quant: str = "none", device="cuda",
-                 warm_shards: int = 1):
+                 warm_shards: int = 1, serve_layout: Optional[str] = None,
+                 mesh=None):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         if max_queue is not None and max_queue < 1:
@@ -537,16 +589,23 @@ class EpisodicServeEngine:
         params = tree_to(params, self.device)
         self._weights = quantize_frozen(learner, params, serve_quant)
         self._param_bytes = param_bytes(self._weights)
+        self.serve_layout = serve_layout
+        self.mesh = mesh
+        self._weights = place_serving_weights(self._weights, mesh, serve_layout)
         self.lite = lite if lite is not None else LiteSpec(exact=True,
                                                            chunk_size=32)
         self.n_slots = n_slots
         self.query_chunk = query_chunk
         self.support_buckets = tuple(sorted(support_buckets))
         self.clock = clock if clock is not None else time.monotonic
-        self.store = TwoTierTaskStore(cache_capacity, warm_dir,
-                                      fault_plan=fault_plan,
-                                      warm_shards=warm_shards,
-                                      device=self.device, clock=self.clock)
+        group = mesh.shape["serve"] if mesh is not None else 1
+        if group > 1 and (query_slo_us is not None or deadline_us is not None):
+            self.clock = self._group_clock(self.clock)
+        self.store = TwoTierTaskStore(
+            cache_capacity, warm_dir, fault_plan=fault_plan, warm_shards=warm_shards,
+            device=self.device, clock=self.clock,
+            warm_writer=group == 1 or mesh.coords["serve"] == 0,
+            spilled=self._group_spilled if group > 1 else None)
         self.query_slo_us = query_slo_us
         self.max_queue = max_queue
         self.deadline_us = deadline_us
@@ -557,12 +616,12 @@ class EpisodicServeEngine:
 
         def _adapt_fn(weights, batch):
             with dispatch.use_backend(self.kernel_backend):
-                return learner.adapt_batch(dequantize_params(weights), batch,
+                return learner.adapt_batch(serving_params(weights), batch,
                                            self.lite)
 
         def _predict_fn(weights, states, qx):
             with dispatch.use_backend(self.kernel_backend):
-                return learner.predict_batch(dequantize_params(weights),
+                return learner.predict_batch(serving_params(weights),
                                              states, qx)
 
         self._adapt = BucketedStepCache(_adapt_fn)
@@ -582,6 +641,22 @@ class EpisodicServeEngine:
         self.failed_requests = 0
         self.adapt_dispatches = 0
         self.predict_dispatches = 0
+
+    # -- a serving group's agreement -------------------------------------------
+
+    def _group_scalar(self, value, dtype) -> torch.Tensor:
+        """``value`` as the group's ``serve`` index 0 holds it, on every rank
+        (on the card for NCCL, on the host for gloo)."""
+        dev = self.device if self.mesh.backend == "nccl" else "cpu"
+        return self.mesh.broadcast(torch.tensor([value], dtype=dtype, device=dev), "serve")
+
+    def _group_clock(self, base: Callable[[], float]) -> Callable[[], float]:
+        """``base`` as the group's ``serve`` index 0 reads it, on every rank."""
+        return lambda: float(self._group_scalar(base(), torch.float64).item())
+
+    def _group_spilled(self, ok: bool) -> bool:
+        """Whether the group's warm writer's spill landed, on every rank."""
+        return bool(self._group_scalar(1 if ok else 0, torch.int32).item())
 
     # -- scheduling ----------------------------------------------------------
 
@@ -835,9 +910,12 @@ class EpisodicServeEngine:
         return requests
 
     def drain_unfinished(self) -> List[EpisodicRequest]:
-        """Remove and return every request still owed logits, live lanes
-        first (slot order), then the queue in FIFO order, leaving the
-        engine empty."""
+        """Remove and return every request this engine still owes logits,
+        live lanes first (slot order is admission order), then the queue in
+        FIFO order, leaving the engine empty.  The replica-failover hook:
+        when a replica group dies, the router drains its engine and
+        re-routes the requests to the survivors (a spilled state
+        rehydrates there from the warm tier; the rest re-adapts)."""
         out: List[EpisodicRequest] = []
         for i, s in enumerate(self._slots):
             if s is not None:
@@ -850,6 +928,7 @@ class EpisodicServeEngine:
 
     @property
     def busy(self) -> bool:
+        """True while any request is queued or live in a slot."""
         return bool(self._queue) or any(s is not None for s in self._slots)
 
     # -- observability -------------------------------------------------------
