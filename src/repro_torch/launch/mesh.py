@@ -290,6 +290,12 @@ def make_replica_mesh(replicas: int, devices_per_replica: int,
     return _build({"replica": replicas, axis: devices_per_replica}, ("replica", axis))
 
 
+def serve_axis(mesh: DPMesh) -> str:
+    """The serving group's axis of a replica mesh: its last, whatever name
+    :func:`make_replica_mesh` gave it (``serve`` by default)."""
+    return mesh.axis_names[-1]
+
+
 def make_mesh_for(devices_shape, axes) -> DPMesh:
     """A mesh of any shape over the whole world (the elastic re-mesh)."""
     shape = dict(zip(axes, (int(n) for n in devices_shape)))

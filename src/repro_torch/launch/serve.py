@@ -156,6 +156,7 @@ def _run_episodic(args, clock, mesh, device) -> dict:
     from repro_torch.core.set_encoder import SetEncoderConfig
     from repro_torch.data.episodic import plan_buckets
     from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import serve_axis
     from repro_torch.models.conv_backbone import (ConvBackboneConfig,
                                                   make_conv_backbone)
     from repro_torch.serve.episodic import EpisodicServeEngine
@@ -177,7 +178,7 @@ def _run_episodic(args, clock, mesh, device) -> dict:
     buckets = plan_buckets([r.support_x.shape[0] for r in reqs], max_buckets=2)
     # the layout: a named one is placed as it is; auto scores the three on
     # one group of several ranks and is nothing to place on a group of one
-    group = mesh.shape["serve"] if mesh is not None else 1
+    group = mesh.shape[serve_axis(mesh)] if mesh is not None else 1
     serve_layout, layout_rows = args.serve_layout, None
     if serve_layout == "auto" and group > 1:
         pick = _probe_layout(args, learner, params, lite, buckets, mesh, device,

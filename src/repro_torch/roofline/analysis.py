@@ -680,9 +680,9 @@ def _lite_rows(n: int, chunk: Optional[int]) -> int:
 
 def serving_payloads(weights, layout: str, group: int, lanes: int, rows: int, *,
                      dispatch: str = "predict", way: int = 0,
-                     chunk: Optional[int] = None) -> Dict[str, int]:
-    """The bytes one rank of a ``group``-rank serving group hands its
-    collectives in one dispatch, by ``kind/axis`` as
+                     chunk: Optional[int] = None, axis: str = "serve") -> Dict[str, int]:
+    """The bytes one rank of a ``group``-rank serving group (mesh axis
+    ``axis``) hands its collectives in one dispatch, by ``kind/axis`` as
     :mod:`repro_torch.launch.collectives` counts them (payloads, no ring or
     all-gather factor), for ``weights`` (a
     :class:`repro_torch.serve.quant_params.ServingWeights` before placement)
@@ -697,7 +697,6 @@ def serving_payloads(weights, layout: str, group: int, lanes: int, rows: int, *,
     from repro_torch.serve.quant_params import _spec_paths, _walk, is_quantized_leaf
     if group <= 1 or layout in (None, "none", "replicated"):
         return {}
-    axis = "serve"
     specs = _spec_paths(serving_shardings(weights.tree, group, layout, axis))
     products = dict(weights.products) if layout == "weight_stationary" else {}
     in_rows = dict(chunks=lanes * _lite_rows(rows, chunk), support=lanes * rows,
@@ -790,22 +789,24 @@ def serving_predict_work(weights, query_shape, layout: str, group: int):
 def score_serving_layout(fn, weights, args, mesh, layout: str) -> Dict:
     """Run ``fn(placed, *args)`` (the predict dispatch, e.g.
     ``learner.predict_batch(serving_params(w), states, query_x)``) once with
-    ``weights`` placed under ``layout`` on ``mesh``'s ``serve`` group, and
+    ``weights`` placed under ``layout`` on ``mesh``'s serving group, and
     score it with the three terms: the payloads its collectives were handed
     on the wire (:func:`serving_wire_bytes`) at NVLink's rate, and
     :func:`serving_predict_work`'s FLOPs at the fp32 peak and bytes at
     HBM's rate.  The JAX package's row keys; ``bottleneck`` names the
     largest term and ``score`` is its time."""
     from repro_torch.launch import collectives
+    from repro_torch.launch.mesh import serve_axis
     from repro_torch.serve.quant_params import place_serving_weights
-    group = mesh.shape["serve"]
+    axis = serve_axis(mesh)
+    group = mesh.shape[axis]
     placed = place_serving_weights(weights, mesh, layout)
     before_b, before_c = collectives.counter.payload(), collectives.counter.snapshot()
     fn(placed, *args)
     after_b, after_c = collectives.counter.payload(), collectives.counter.snapshot()
     payload = {k: v - before_b.get(k, 0) for k, v in after_b.items()
-               if k.endswith("/serve") and v != before_b.get(k, 0)}
-    count = sum(v - before_c.get(k, 0) for k, v in after_c.items() if k.endswith("/serve"))
+               if k.endswith(f"/{axis}") and v != before_b.get(k, 0)}
+    count = sum(v - before_c.get(k, 0) for k, v in after_c.items() if k.endswith(f"/{axis}"))
     wire = serving_wire_bytes(payload, group)
     flops, nbytes = serving_predict_work(weights, args[-1].shape, layout, group)
     terms = dict(compute=flops / FP32_FLOPS, memory=nbytes / HBM_BYTES_PER_S,

@@ -82,6 +82,7 @@ from repro_torch.data.episodic import (bucket_for, collate_task_batch,
                                        iter_query_chunks)
 from repro_torch.faults.plan import WARM_CORRUPT, WARM_VANISH
 from repro_torch.kernels import dispatch
+from repro_torch.launch.mesh import serve_axis
 from repro_torch.serve.quant_params import (param_bytes, place_serving_weights,
                                             quantize_frozen, serving_params)
 from repro_torch.train.checkpoint import (ChecksumError, load_array_tree,
@@ -598,13 +599,13 @@ class EpisodicServeEngine:
         self.query_chunk = query_chunk
         self.support_buckets = tuple(sorted(support_buckets))
         self.clock = clock if clock is not None else time.monotonic
-        group = mesh.shape["serve"] if mesh is not None else 1
+        group = mesh.shape[serve_axis(mesh)] if mesh is not None else 1
         if group > 1 and (query_slo_us is not None or deadline_us is not None):
             self.clock = self._group_clock(self.clock)
         self.store = TwoTierTaskStore(
             cache_capacity, warm_dir, fault_plan=fault_plan, warm_shards=warm_shards,
             device=self.device, clock=self.clock,
-            warm_writer=group == 1 or mesh.coords["serve"] == 0,
+            warm_writer=group == 1 or mesh.coords[serve_axis(mesh)] == 0,
             spilled=self._group_spilled if group > 1 else None)
         self.query_slo_us = query_slo_us
         self.max_queue = max_queue
@@ -645,10 +646,11 @@ class EpisodicServeEngine:
     # -- a serving group's agreement -------------------------------------------
 
     def _group_scalar(self, value, dtype) -> torch.Tensor:
-        """``value`` as the group's ``serve`` index 0 holds it, on every rank
+        """``value`` as the serving group's index 0 holds it, on every rank
         (on the card for NCCL, on the host for gloo)."""
         dev = self.device if self.mesh.backend == "nccl" else "cpu"
-        return self.mesh.broadcast(torch.tensor([value], dtype=dtype, device=dev), "serve")
+        return self.mesh.broadcast(torch.tensor([value], dtype=dtype, device=dev),
+                                   serve_axis(self.mesh))
 
     def _group_clock(self, base: Callable[[], float]) -> Callable[[], float]:
         """``base`` as the group's ``serve`` index 0 reads it, on every rank."""

@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.bridge import HWIO_TO_OIHW, OIHW_TO_HWIO
 from repro_torch.common.linear import KSlice
+from repro_torch.launch.mesh import serve_axis
 from repro_torch.optim.quant import dequantize, quantize
 from repro_torch.optim.quant import is_quantized as is_quantized_leaf
 
@@ -82,10 +83,10 @@ class ServingWeights:
     mode: 'none' | 'int8'.
     products: (path, rows) of the 2-D leaves read only through
       ``common.linear.matmul`` (``PRODUCT_LEAVES``).
-    layout, splits, mesh, axis: set by :func:`place_serving_weights`:
-      the layout, (path, dim, rows of the whole leaf along it) of every
-      leaf kept as this rank's shard (a quantized leaf's ``q`` and
-      ``scale`` as ``path/q`` and ``path/scale``), the mesh and its axis.
+    layout, splits, mesh: set by :func:`place_serving_weights`: the
+      layout, (path, dim, rows of the whole leaf along it) of every leaf
+      kept as this rank's shard (a quantized leaf's ``q`` and ``scale`` as
+      ``path/q`` and ``path/scale``), and the mesh.
     """
 
     tree: Tree
@@ -97,7 +98,6 @@ class ServingWeights:
     layout: str = "none"
     splits: Tuple[Tuple[str, int, int], ...] = ()
     mesh: Any = None
-    axis: str = "serve"
 
 
 def _walk(tree: Tree, fn, path: str = "") -> Tree:
@@ -194,8 +194,8 @@ def dequantize_params(sw: ServingWeights, tree: Optional[Tree] = None) -> Tree:
 
 
 def place_serving_weights(sw: ServingWeights, mesh, layout) -> ServingWeights:
-    """Place serving weights in a named layout on ``mesh``'s ``serve`` group
-    (:func:`repro_torch.launch.mesh.make_replica_mesh`): this rank keeps its
+    """Place serving weights in a named layout on ``mesh``'s serving group
+    (:func:`repro_torch.launch.mesh.make_replica_mesh`, its last axis): this rank keeps its
     shard of every leaf the layout splits
     (:func:`repro_torch.roofline.analysis.serving_shardings`), so the
     weights stay within the group.  ``mesh=None`` or ``layout in (None,
@@ -213,7 +213,7 @@ def place_serving_weights(sw: ServingWeights, mesh, layout) -> ServingWeights:
             "repro_torch.roofline.analysis.choose_serving_layout before placing "
             "the serving weights")
     from repro_torch.roofline.analysis import serving_shardings, split_dim
-    axis = sw.axis
+    axis = serve_axis(mesh)
     n, idx = mesh.shape[axis], mesh.coords[axis]
     specs = _spec_paths(serving_shardings(sw.tree, n, layout, axis))
     splits = []
@@ -261,7 +261,8 @@ def serving_view(sw: ServingWeights) -> Tree:
     all-gather a part).  Unplaced weights are their tree."""
     if not sw.splits:
         return sw.tree
-    mesh, axis = sw.mesh, sw.axis
+    mesh = sw.mesh
+    axis = serve_axis(mesh)
     n, idx = mesh.shape[axis], mesh.coords[axis]
     split = {p: d for p, d, _ in sw.splits}
     products = {p for p, _ in sw.products} if sw.layout == "weight_stationary" else set()

@@ -53,6 +53,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 from repro_torch.faults.plan import REPLICA_DEAD
+from repro_torch.launch.mesh import serve_axis
 from repro_torch.serve.episodic import (EpisodicRequest, EpisodicServeEngine,
                                         _pctl, stable_uid_hash)
 
@@ -129,6 +130,7 @@ class ReplicatedServeEngine:
         self.mesh = mesh
         self.fault_plan = fault_plan
         self.own = mesh.coords["replica"] if mesh is not None else None
+        self.axis = serve_axis(mesh) if mesh is not None else None
 
         def engine(r):
             return EpisodicServeEngine(learner, params, mesh=mesh, warm_dir=warm_dir,
@@ -166,15 +168,23 @@ class ReplicatedServeEngine:
     def _local(self, r: int) -> bool:
         return self.mesh is None or r == self.own
 
+    def _lead(self, r: int) -> int:
+        """Mesh mode: the global rank of replica ``r``'s serving index 0."""
+        return self.mesh.rank_at(**{"replica": r, self.axis: 0})
+
     def submit(self, req: EpisodicRequest) -> bool:
         """Route ``req`` by uid and enqueue it on its replica, whose bounded
         queue may reject it with that replica's ``retry_after_us``.  In mesh
-        mode a request for another group is recorded and returns True; its
-        outcome arrives with the results."""
+        mode a request for another group is recorded, stamped with this
+        rank's engine's clock (so that a failover here keeps its enqueue
+        time, as in one process), and returns True; its outcome arrives
+        with the results."""
         r = self.route(req.uid)
         if self.mesh is not None:
             self._submitted.append(req)
             self._home.append(r)
+            if req.t_enqueue is None:
+                req.t_enqueue = self.replicas[self.own].clock()
         if not self._local(r):
             return True
         return self.replicas[r].submit(req)
@@ -198,7 +208,7 @@ class ReplicatedServeEngine:
         mine = self.replicas[r].drain_unfinished() if r == self.own else []
         seq = {id(q): i for i, q in enumerate(self._submitted)}
         seqs = self.mesh.broadcast_object([seq[id(q)] for q in mine],
-                                          src=self.mesh.rank_at(replica=r, serve=0))
+                                          src=self._lead(r))
         return [(i, self._submitted[i]) for i in seqs]
 
     def quarantine_replica(self, r: int) -> None:
@@ -281,7 +291,7 @@ class ReplicatedServeEngine:
         if self.mesh is None:
             return
         for r in range(self.n_replicas):
-            src = self.mesh.rank_at(replica=r, serve=0)
+            src = self._lead(r)
             mine = None
             if self.mesh.rank == src:
                 mine = {i: {f: getattr(q, f) for f in _OUTCOME}
@@ -304,7 +314,7 @@ class ReplicatedServeEngine:
         every = self.mesh.all_gather_object(
             (self.mesh.coords, own(self.replicas[self.own]),
              (self.rerouted_requests, self.failover_failed)))
-        leads = {c["replica"]: (o, k) for c, o, k in every if c["serve"] == 0}
+        leads = {c["replica"]: (o, k) for c, o, k in every if c[self.axis] == 0}
         per = [leads[r][0] for r in range(self.n_replicas)]
         return per, tuple(sum(leads[r][1][j] for r in leads) for j in range(2))
 

@@ -23,13 +23,17 @@ them) cover the mesh mode:
   ``SERVING_LAYOUTS``.  ``replicated`` is bit-equal to one solo engine in
   this process; ``weight_stationary`` and ``training`` sum in another order,
   so their logits are held at the tolerances above and Simple CNAPs' head
-  inputs (the adapted FiLM and class means) at 1e-5 of max.  Both ranks of a
-  group hold the same logits; a dispatch's payloads equal
-  ``roofline.serving_payloads``; no collective runs outside ``serve`` and
-  the host group; a ``replica.dead`` fault on group 1 gives the in-process
-  router's counts and bits.
+  inputs (the adapted FiLM and class means) at 1e-5 of max.  Every layout
+  is also held, at the same tolerances, against the JAX engine's
+  ``serve_layout`` on two replica meshes of 2 forced host devices, run in a
+  subprocess beside the ranks.  Both ranks of a group hold the same logits;
+  a dispatch's payloads equal ``roofline.serving_payloads``; no collective
+  runs outside ``serve`` and the host group; a ``replica.dead`` fault on
+  group 1 gives the in-process router's counts, bits, enqueue times and
+  pooled latencies.
 * 2 ranks as one group of 2: a replica group's predict wire equals a solo
-  2-rank engine's, and a group of 4's (the first launch) is larger.
+  2-rank engine's, and a group of 4's (the first launch) is larger; a
+  serving axis named ``tp`` is read from the mesh by every consumer.
 
 The layouts cannot run on the card here; chip_smoke.py phase 4c runs them
 there.
@@ -39,6 +43,7 @@ import json
 import os
 import pathlib
 import pickle
+import subprocess
 import sys
 
 import jax
@@ -369,6 +374,10 @@ def probe():
     fn = lambda w, s, q: tl.predict_batch(serving_params(w), s, q)
     return fn, sw, (stack_task_states(st), qx)
 
+DEAD_KEYS = ("replica_failovers", "live_replicas", "rerouted_requests", "failover_failed",
+             "tasks_adapted", "rehydrates", "spills", "query_p50_us", "query_p99_us",
+             "adapt_p50_us", "adapt_p99_us")
+
 if which == "2x2":
     mesh = make_replica_mesh(2, 2)
     own = mesh.coords["replica"]
@@ -423,30 +432,93 @@ if which == "2x2":
     info["pick"] = dict(choice=pick["choice"], per_replica=pick["per_replica_wire_bytes"],
                         rows={k: {c: v[c] for c in ("wire_bytes", "score", "bottleneck")}
                               for k, v in pick["rows"].items()})
-    # replica.dead on group 1, the reference's failover scenario
+    # replica.dead on group 1, the reference's failover scenario, on a
+    # clock every rank sets alike: 1.0 while submitting, 2.0 while stepping
+    now = [0.0]
     router = ReplicatedServeEngine(tl, tp, replicas=2, mesh=mesh, warm_dir=inp["warm"],
-                                   **dict(kw, cache_capacity=1))
+                                   clock=lambda: now[0], **dict(kw, cache_capacity=1))
     router.run_to_completion(reqs(uids=inp["u1"]))
     router.run_to_completion(reqs(uids=inp["u1_evict"]))
     router.fault_plan = FaultPlan.single(REPLICA_DEAD, at=1)
     rep = reqs(False, inp["u1"])
-    router.run_to_completion(rep)
+    now[0] = 1.0
+    for r in rep:
+        router.submit(r)
+    now[0] = 2.0
+    router.run_to_completion([])
     s = router.stats()
-    info["dead"] = {k: s[k] for k in ("replica_failovers", "live_replicas",
-                                      "rerouted_requests", "failover_failed",
-                                      "tasks_adapted", "rehydrates", "spills")}
+    info["dead"] = {k: s[k] for k in DEAD_KEYS}
     for i, r in enumerate(rep):
         arrays[f"dead/{i}"] = r.all_logits()
     info["dead"]["done"] = [bool(r.done and not r.failed) for r in rep]
+    info["dead"]["t_enqueue"] = [r.t_enqueue for r in rep]
     mesh4 = make_replica_mesh(1, 4)
     info["ws_wire_group4"] = score_serving_layout(*probe(), mesh4, "weight_stationary")["wire_bytes"]
     info["ws_wire_group2"] = score_serving_layout(*probe(), mesh, "weight_stationary")["wire_bytes"]
 else:
     mesh = make_replica_mesh(1, 2)
     info["ws_wire_solo2"] = score_serving_layout(*probe(), mesh, "weight_stationary")["wire_bytes"]
+    # a serving axis named otherwise: the engine, the router, the warm
+    # tier's writer, the group clock and the chooser read it from the mesh
+    mesh_tp = make_replica_mesh(1, 2, axis="tp")
+    collectives.counter.reset()
+    router = ReplicatedServeEngine(tl, tp, replicas=1, mesh=mesh_tp,
+                                   serve_layout="weight_stationary", query_slo_us=1e12,
+                                   deadline_us=1e12, warm_dir=inp["warm"] + "_tp",
+                                   **dict(kw, cache_capacity=1))
+    rs = router.run_to_completion(reqs() + reqs(False, inp["uids"][:2]))
+    for i, r in enumerate(rs):
+        arrays[f"tp/all/{i}"] = r.all_logits()
+    s = router.stats()
+    info["tp"] = dict(keys=sorted(collectives.counter.snapshot()),
+                      counts={k: s[k] for k in ("tasks_adapted", "spills", "rehydrates",
+                                                "cache_hits")},
+                      wire=score_serving_layout(*probe(), mesh_tp,
+                                                "weight_stationary")["wire_bytes"])
 np.savez(os.path.join(out_dir, f"{which}_rank{rank}.npz"), **arrays)
 with open(os.path.join(out_dir, f"{which}_rank{rank}.json"), "w") as f:
     json.dump(info, f)
+'''
+
+JAX_LAYOUT_CODE = r'''
+import pickle, sys
+import jax, jax.numpy as jnp, numpy as np
+from repro.core.lite import LiteSpec
+from repro.core.meta_learners import MetaLearnerConfig, make_learner
+from repro.core.set_encoder import SetEncoderConfig
+from repro.launch.mesh import make_replica_mesh
+from repro.models.conv_backbone import ConvBackboneConfig, make_conv_backbone
+from repro.roofline.analysis import SERVING_LAYOUTS
+from repro.serve.episodic import EpisodicRequest
+from repro.serve.replica import ReplicatedServeEngine, uid_replica
+
+inp = pickle.load(open(sys.argv[1], "rb"))
+assert len(jax.devices()) == 4
+lr = make_learner(MetaLearnerConfig(kind="simple_cnaps", way=5),
+                  make_conv_backbone(ConvBackboneConfig(widths=(8, 16), feature_dim=48)),
+                  SetEncoderConfig(conv_blocks=2, conv_width=8, task_dim=16))
+params = jax.tree.map(jnp.asarray, inp["params"])
+kw = dict(lite=LiteSpec(exact=True, chunk_size=8), n_slots=2, query_chunk=4,
+          support_buckets=(16,), kernel_backend="ref", serve_quant="int8")
+uids = inp["uids"]
+arrays = {}
+for layout in SERVING_LAYOUTS:
+    router = ReplicatedServeEngine(lr, params, replicas=2, meshes=make_replica_mesh(2, 2),
+                                   serve_layout=layout, **kw)
+    rs = [EpisodicRequest(uid=u, support_x=inp["tasks"][u][0] if sup else None,
+                          support_y=inp["tasks"][u][1] if sup else None,
+                          query_x=inp["tasks"][u][2], way=5)
+          for sup, us in ((True, uids), (False, uids[:2])) for u in us]
+    router.run_to_completion(rs)
+    for i, r in enumerate(rs):
+        assert r.done and not r.failed
+        arrays[f"{layout}/all/{i}"] = r.all_logits()
+    for u in uids:
+        st = router.replicas[uid_replica(u, 2)].store.l1.get(u)
+        arrays[f"{layout}/mu/{u}"] = np.asarray(st["mu"])
+        arrays[f"{layout}/film/{u}"] = np.concatenate(
+            [np.concatenate([np.ravel(f["gamma"]), np.ravel(f["beta"])]) for f in st["film"]])
+np.savez(sys.argv[2], **arrays)
 '''
 
 UIDS = list(range(4))
@@ -464,15 +536,31 @@ def ranks(tmp_path_factory):
     with open(d / "inp.pkl", "wb") as f:
         pickle.dump(inp, f)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # the JAX engine's layouts on 4 host devices, beside the gloo ranks
+    jax_env = dict(env, JAX_PLATFORMS="cpu",
+                   XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    ref = subprocess.Popen([sys.executable, "-c", JAX_LAYOUT_CODE, str(d / "inp.pkl"),
+                            str(d / "jax_layouts.npz")], env=jax_env,
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     out = {}
-    for which, world in (("2x2", 4), ("solo2", 2)):
-        run_ranks([sys.executable, "-c", RANK_CODE, str(d / "inp.pkl"), str(d), which],
-                  world, d / f"store_{which}", env=env, timeout=240)
-        out[which] = []
-        for r in range(world):
-            with np.load(d / f"{which}_rank{r}.npz") as z:
-                arrays = {k: z[k] for k in z.files}
-            out[which].append((arrays, json.loads((d / f"{which}_rank{r}.json").read_text())))
+    try:
+        for which, world in (("2x2", 4), ("solo2", 2)):
+            run_ranks([sys.executable, "-c", RANK_CODE, str(d / "inp.pkl"), str(d), which],
+                      world, d / f"store_{which}", env=env, timeout=240)
+            out[which] = []
+            for r in range(world):
+                with np.load(d / f"{which}_rank{r}.npz") as z:
+                    arrays = {k: z[k] for k in z.files}
+                out[which].append((arrays,
+                                   json.loads((d / f"{which}_rank{r}.json").read_text())))
+        said, _ = ref.communicate(timeout=240)
+    finally:
+        if ref.poll() is None:
+            ref.kill()
+            ref.wait()
+    assert ref.returncode == 0, said[-3000:]
+    with np.load(d / "jax_layouts.npz") as z:
+        out["jax"] = {k: z[k] for k in z.files}
     return out, inp
 
 
@@ -556,23 +644,36 @@ def test_group_clock_keeps_the_ranks_in_step(ranks):
 
 
 def test_replica_dead_on_group_one_matches_in_process_router(ranks, tmp_path):
+    """The counts, the bits and the enqueue times: a request rerouted off
+    the dead group keeps the time it was submitted at (1.0 on the clock
+    both runs set alike, not the 2.0 of the step that rerouted it), so the
+    pooled latencies include the detour in both modes."""
     out, inp = ranks
+    now = [0.0]
     router = ReplicatedServeEngine(*_models("simple_cnaps")[2:], replicas=2,
                                    warm_dir=tmp_path / "warm", cache_capacity=1,
                                    lite=LiteSpec(exact=True, chunk_size=8), device="cpu",
-                                   kernel_backend="ref", serve_quant="int8", **ENGINE_KW)
+                                   kernel_backend="ref", serve_quant="int8",
+                                   clock=lambda: now[0], **ENGINE_KW)
     router.run_to_completion([_request(u) for u in inp["u1"]])
     router.run_to_completion([_request(u) for u in inp["u1_evict"]])
     router.fault_plan = FaultPlan.single(REPLICA_DEAD, at=1)
     rep = [_request(u, False) for u in inp["u1"]]
-    router.run_to_completion(rep)
+    now[0] = 1.0
+    for r in rep:
+        router.submit(r)
+    now[0] = 2.0
+    router.run_to_completion([])
     s = router.stats()
+    assert [r.t_enqueue for r in rep] == [1.0] * len(rep)
     for arrays, info in out["2x2"]:
         dead = info["dead"]
         for k in ("replica_failovers", "live_replicas", "rerouted_requests",
-                  "failover_failed", "tasks_adapted", "rehydrates", "spills"):
+                  "failover_failed", "tasks_adapted", "rehydrates", "spills",
+                  "query_p50_us", "query_p99_us", "adapt_p50_us", "adapt_p99_us"):
             assert dead[k] == s[k], (k, dead[k], s[k])
         assert dead["done"] == [True] * len(rep)
+        assert dead["t_enqueue"] == [r.t_enqueue for r in rep]
         for i, r in enumerate(rep):
             np.testing.assert_array_equal(arrays[f"dead/{i}"], r.all_logits())
     assert s["replica_failovers"] == 1 and s["rerouted_requests"] == len(inp["u1"])
@@ -599,3 +700,44 @@ def test_replica_wire_follows_the_group_not_the_deployment(ranks):
     solo2 = {info["ws_wire_solo2"] for _, info in out["solo2"]}
     assert len(group2) == len(group4) == len(solo2) == 1
     assert group2 == solo2 and min(group4) > min(group2) > 0
+
+
+@pytest.mark.parametrize("layout", ["training", "weight_stationary", "replicated"])
+def test_two_groups_match_the_reference_layouts(ranks, layout):
+    """The port's 2 x 2 gloo ranks against the JAX engine's ``serve_layout``
+    on 2 replica meshes of 2 host devices, on the same params and tasks:
+    logits at the serving tolerance, Simple CNAPs' head inputs (class means
+    and adapted FiLM) at 1e-5 of max."""
+    out, _ = ranks
+    ref = out["jax"]
+    for arrays, _ in out["2x2"]:
+        got = [k for k in arrays if k.startswith(f"{layout}/all/")]
+        assert got and len(got) == len([k for k in ref if k.startswith(f"{layout}/all/")])
+        for k in got:
+            _close(arrays[k], ref[k], "simple_cnaps")
+        for u in UIDS:
+            for part in ("mu", "film"):
+                k = f"{layout}/{part}/{u}"
+                if k in arrays:
+                    want = ref[k]
+                    assert np.abs(arrays[k] - want).max() <= TOL_HEAD_INPUTS * np.abs(want).max()
+
+
+def test_serving_axis_is_read_from_the_mesh(ranks):
+    """``make_replica_mesh(..., axis="tp")``: every collective of the group
+    runs on ``tp``, the warm tier spills and rehydrates through the group's
+    writer, and the logits and the chooser's wire are those of the
+    default axis."""
+    out, _ = ranks
+    _, rs = _solo_run()
+    wires = set()
+    for arrays, info in out["solo2"]:
+        row = info["tp"]
+        assert any(k.endswith("/tp") for k in row["keys"])
+        assert all(k.endswith("/tp") or k.endswith("/host") for k in row["keys"])
+        assert row["counts"]["tasks_adapted"] == len(UIDS)
+        assert row["counts"]["spills"] > 0 and row["counts"]["rehydrates"] > 0
+        for i, r in enumerate(rs):
+            _close(arrays[f"tp/all/{i}"], r.all_logits(), "simple_cnaps")
+        wires.add(row["wire"])
+    assert wires == {info["ws_wire_solo2"] for _, info in out["solo2"]}

@@ -124,6 +124,7 @@ def test_batch_leaf_rules_match_reference(layout):
 
 def _stand_in(n, idx):
     return types.SimpleNamespace(shape={"replica": 1, "serve": n},
+                                 axis_names=("replica", "serve"),
                                  coords={"replica": 0, "serve": idx})
 
 
@@ -167,6 +168,7 @@ class _Group:
 
     def __init__(self, n):
         self.shape = {"replica": 1, "serve": n}
+        self.axis_names = ("replica", "serve")
         self.coords = {"replica": 0, "serve": 0}
 
     def all_reduce(self, t, axis):
