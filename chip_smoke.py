@@ -1,5 +1,6 @@
 """Drive the PyTorch port's episodic serving and training paths, its
-episodic LM meta-training, its LM training and its LM decode serving
+episodic LM meta-training, its LM training (on one card and over a (data,
+model) mesh of ranks sharing it) and its LM decode serving
 (dense, MoE and MLA transformers, the mamba2 SSM, the zamba2 hybrid and
 the whisper encoder-decoder) on one NVIDIA GPU.
 
@@ -10,6 +11,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
 1. the card's name and power limit, and the torch / CUDA versions;
 1b. the roofline of ``repro_torch.roofline``: the H100's data-sheet peaks
    beside the card's own total memory, the 40 (arch x shape) cells' bounds
+   (and their train cells on the production meshes of 256 and 512 chips)
    (derived from the peaks, not measured), and the abstract specs of
    ``repro_torch.launch.specs`` against real tensors on the card: for
    whisper-base, mamba2-780m and gemma2-2b at full width and depth, ``init``
@@ -84,7 +86,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    every leaf the reference trains gets a gradient; then the same check
    must flag three faults planted in the kernels' backwards (B1's dx
    zeroed for one class, B2's g + g^T dropped, B3's dmu sign flipped);
-   five Simple CNAPs steps through ``train()`` (loss, ms per step, tasks/s
+   three Simple CNAPs steps through ``train()`` (loss, ms per step, tasks/s
    without the first step, peak memory; launches counted on exactly that
    run) and one more step profiled (device time by kind of kernel, idle
    share); the peak memory of a LITE step against an exact step on the
@@ -133,7 +135,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    against its plain version and SDPA; and ``python -m
    repro_torch.examples.episodic_lm --steps 2`` on the card as a
    subprocess, which must exit 0;
-5d. LM training of gemma2-2b at full width and depth as published (fp32
+5d. LM training of gemma2-2b at full width on 13 of its 26 layers (fp32
    params and AdamW state, bf16 compute, every block checkpointed, loss
    chunks of 512; random weights drawn on the card from seed 0) on the
    token pipeline (vocab 256000, B 2, S 4608, branching 4, seed 0): one
@@ -142,13 +144,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
    first 512 tokens repeated, so that what the window hides is coherent),
    failing unless the kernel path's loss and worst leaf are within
    ``LM_GATE`` times the bf16 ``ref`` run's own error, every leaf gets a
-   gradient, B5 launched 26 times in the forward and 26 in the
-   checkpoints' recompute, all on "wgmma", with the window on the 13
+   gradient, B5 launched 13 times in the forward and 13 in the
+   checkpoints' recompute, all on "wgmma", with the window on the 7
    local layers and none on the global ones, and nothing else launched;
    three faults planted in B5's backward (phase 5c's two and the window
-   dropped) that the gate must flag; three steps of ``make_train_step``
+   dropped) that the gate must flag; two steps of ``make_train_step``
    through ``train()`` (losses, ms a step, tokens/s without the first,
-   peak memory beside the 41.8 GB of fp32 params, gradients and AdamW
+   peak memory beside ``roofline.state_bytes`` of fp32 params, gradients and AdamW
    state; launches counted on exactly that run) and one profiled step
    (device time by kind, idle share, B5's share) beside the step's FLOP
    bound; one step of minitron-4b at full width and depth with int8 AdamW
@@ -189,7 +191,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    repro_torch.launch.train --arch deepseek-v2-236b --steps 3`` (smoke
    config) on the card as a subprocess, which must exit 0;
 5f. training through the SSM and hybrid models: LM training of
-   mamba2-780m at full width and depth as published (fp32 params and
+   mamba2-780m at full width on 24 of its 48 layers (fp32 params and
    AdamW state, bf16 compute, every block checkpointed, loss chunks of
    512; random weights drawn on the card from seed 0) on the token
    pipeline (B 2, S 4096): one step's loss and gradient on the kernels,
@@ -199,13 +201,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the forward and once in the checkpoints' recompute and nothing else,
    and a second identical step gave the same bits; a fault planted in
    B6's autograd Function (dt's cotangent zeroed for head 0) that the
-   gate must flag; three steps of ``make_train_step`` through ``train()``
+   gate must flag; two steps of ``make_train_step`` through ``train()``
    (losses, ms a step, tokens/s, peak memory; launches counted on exactly
    that run) and one profiled step beside the step's bound; zamba2-7b at
    full width on 12 of its 81 layers (two shared sites, B 2, S 2048) the
    same way, B5 once a site in the forward on the route its head dim 112
    takes, without the fault; Simple CNAPs and ProtoNets (``tokens``
-   encoder) over mamba2-780m at full width and depth, phase 5c's tasks
+   encoder) over mamba2-780m at full width (Simple CNAPs at full depth,
+   ProtoNets, which trains every weight, at 12 of 48 layers), phase 5c's tasks
    and gate, B6 once a layer a pass (inside its Function where the trunk
    is trained, ProtoNets' recompute too) and B1-B3 at F 1536; B6 and B5
    at the steps' shapes against their plain versions; and ``python -m
@@ -235,6 +238,34 @@ Phases, each of which fails the run (non-zero exit) on any error:
    repro_torch.launch.train --episodic`` at 2 x 2, compressed, accum 2,
    on gloo: exit 0 with ``world=4``, then "nothing to do" on the same
    directory, and on NCCL a refusal that names the cause (deferred);
+5h. LM parallelism over a (data, model) mesh, the ranks gloo
+   subprocesses sharing the card, after the one-device reference in this
+   process (each data shard alone, saved to host files, the card then
+   freed): (a) deepseek-v2-236b's MoE layer at published width (E 160, D
+   5120, F 1536, top 6, 2 shared experts; drawn in bf16 from seed 11, each
+   rank's E/m experts cut as drawn), T 2 x 1024 tokens, on 4 ranks as
+   (data 2, model 2), ``moe_ffn_sharded`` in the 'hidden' and 'seq'
+   layouts: each rank's block of y within 1e-5 of max|y| of ``moe_ffn`` on
+   its data shard (fp32 operands, the same bf16-representable inputs) and
+   its aux within 1e-6, bf16 within ``LM_GATE`` times the one-device bf16
+   run's error against fp32, B7 three times a call on the rank's E/m
+   experts, a dropped reduce-scatter caught; (b) the sharded step
+   (``make_mesh_grads``, ``make_train_step(mesh=)``, the state drawn
+   sharded): at the smoke config on the same 2 x 2, the gathered gradient
+   against the mean of one-process steps on each data shard (fp32 compute
+   routed as the kernel path, and bf16) within ``LM_GATE``, a factor of m
+   planted on the model gather's VJP caught; deepseek-v2 at full width on
+   1 layer as phase 5e (bf16 params and state, B 1 x S 2048) on 2 ranks as
+   (data 1, model 2), 4 ranks of it passing 80 GB (``PERF.md``), each leaf
+   held block by block against the same block of the one-device
+   reference, B7 on the rank's 80 experts by role (3 forward, 3
+   recompute, 3 dx, 3 dw); (c) each step's counted payloads equal to
+   ``roofline.lm_step_payloads``; B7 at the step's shapes on E 80 beside E
+   160 against its plain version and ``torch.bmm``; (d) deferred: one
+   NCCL rank, the (1, 1) test mesh's step bit-equal to the step without a
+   mesh, and ``torchrun --nproc-per-node 4 -m repro_torch.launch.train
+   --arch deepseek-v2-236b --full`` on gloo (the warning, the (4, 1) test
+   mesh, exit 0);
 6. drive the LM-side kernel entry point ``repro_torch.kernels.ops`` once
    at published widths (flash attention of gemma2-2b's local and global
    layers and of minitron-4b, kimi-k2's expert matmul, mamba2-780m's SSD
@@ -293,10 +324,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    beside ``torch.bmm`` in turns and beside the bytes bound; and ``python
    -m repro_torch.launch.serve --arch deepseek-v2-236b`` (smoke config) on
    the card as a subprocess, which must exit 0;
-6d. LM decode serving of the SSM and hybrid models at full width and
-   depth: mamba2-780m (48 layers, 4 slots, prompts 1024 x 4 then 1000 and
-   2048, 16 new tokens) and zamba2-7b (81 layers: 68 mamba, 13 sites of
-   the shared block; 2 slots, prompts 1024, 1024, then 512 and 2048, 8
+6d. LM decode serving of the SSM and hybrid models at full width:
+   mamba2-780m (all 48 layers, 4 slots, prompts 1024 x 4 then 1000 and
+   2048, 8 new tokens) and zamba2-7b (42 of 81 layers: 35 mamba, 7 sites
+   of the shared block; 2 slots, prompts 1024, 1024, then 512 and 2048, 8
    new tokens), random weights drawn on the card from seed 0, bf16
    compute, through ``ServeEngine``, failing unless every ``prefill``
    launched B6 on "wgmma" once a mamba layer and B5 once a shared site (on
@@ -338,7 +369,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    in the forward and 12 in the checkpoints' recompute (6 bidirectional
    each), all on "wgmma", and nothing else; a fault planted in B5's
    backward (the encoder's recompute masked causally) that the gate must
-   flag; three steps through ``train()`` (losses, ms a step, tokens/s,
+   flag; two steps through ``train()`` (losses, ms a step, tokens/s,
    peak memory; launches counted on exactly that run) and one profiled
    step beside the step's FLOP bound.  B5 at the path's shapes
    (bidirectional at (1, 1500) and (8, 1500), causal at the prompt lengths
@@ -381,33 +412,36 @@ prefill shapes, ``lm_zamba2_cases`` its numbers at zamba2-7b's head dim
 112, ``lm_whisper_cases`` its numbers at whisper-base's shapes (phase
 6e), ``lm_moe_cases`` gmm's at phase 6c's and ``lm_ssm_cases``
 ssd_chunk's at phases 6d's and 5f's shapes);
-``train_launches`` those of B1-B3 in the five training-loop steps of phase
+``train_launches`` those of B1-B3 in the three training-loop steps of phase
 5, of flash attention in the three steps of phase 5c, of gmm in the
-three LM training steps of phase 5e and of ssd_chunk in the three
+three LM training steps of phase 5e and of ssd_chunk in the two
 mamba2-780m steps of phase 5f (``lm_ssm_train_zamba2_launches`` and
 ``lm_ssm_episodic_launches`` its launches in zamba2-7b's steps and in the
 episodic Simple CNAPs step's forward; ``lm_train_launches`` B1-B3's in
 phase 5c; ``lm_train_cases`` flash attention's numbers at phase 5c's
 shapes), ``lm_moe_episodic_launches`` gmm's in the three episodic steps
 of phase 5e, ``lm_moe_train_cases`` gmm's numbers at phase 5e's shapes,
-forward and backward, and ``lm_pretrain_launches`` flash attention's in
-the three steps of phase 5d (``lm_pretrain_cases``
-its numbers at phase 5d's shapes).  ``chiprun_out/chip_smoke.json`` holds every reading, the training
+forward and backward, ``lm_ep_cases`` its numbers at a rank's E/m experts
+and at all E (phase 5h), ``lm_mesh_launches`` its launches in phase 5h's
+full-width sharded step on rank 0, and ``lm_pretrain_launches`` flash
+attention's in the two steps of phase 5d (``lm_pretrain_cases`` its
+numbers at phase 5d's shapes).  ``chiprun_out/chip_smoke.json`` holds every reading, the training
 phases' under ``paths``, and every path's launches under ``launches``:
 ``serve_warm`` (phase 4b's warm-tier run), ``serve_replica`` (phase 4c (a)'s
 router run; every rank's counts are under ``paths``; in the ``kernels``
 line as ``serve_replica_launches``), ``train_device`` (the
 device-sampler loop), ``algo1`` (the two per-task steps), ``fig4``,
 ``fomaml`` and ``finetuner`` (their serving runs), ``lm_train`` (phase
-5c's three steps), ``lm_pretrain`` (phase 5d's three steps), ``lm_moe_train`` and
+5c's three steps), ``lm_pretrain`` (phase 5d's two steps), ``lm_moe_train`` and
 ``lm_moe_episodic`` (phase 5e's), ``lm_ssm_train``, ``lm_ssm_train_zamba2``
 and ``lm_ssm_episodic`` (phase 5f's), ``dp_train`` (rank 0's ``pmean`` step
-of phase 5g (b); every rank's counts are under ``paths``), ``lm_serve`` and
+of phase 5g (b); every rank's counts are under ``paths``), ``lm_mesh`` (rank
+0's sharded step of phase 5h (b) at full width), ``lm_serve`` and
 ``lm_serve_gemma2``
 (phase 6b's counted engine runs), ``lm_serve_kimi`` and
 ``lm_serve_deepseek`` (phase 6c's), ``lm_serve_mamba2`` and
 ``lm_serve_zamba2`` (phase 6d's), ``lm_serve_whisper`` and
-``lm_whisper_train`` (phase 6e's engine run and three steps).
+``lm_whisper_train`` (phase 6e's engine run and two steps).
 
 It imports no JAX.
 """
@@ -810,9 +844,16 @@ def run_roofline(dev, card: str) -> dict:
     print("roofline: the 40 (arch x shape) cells on one H100, bounds derived from the data "
           "sheet's peaks (not measured):", flush=True)
     print(R.format_markdown(rows), flush=True)
+    mesh_rows = {}
+    for mesh, shape in R.PRODUCTION_MESHES.items():
+        mesh_rows[mesh] = R.cell_rows(mesh)
+        print(f"roofline: the same cells on the production mesh {shape} (train only: the port "
+              f"has no LM serving mesh), per chip, derived (NVLink for a model group within "
+              f"a node, InfiniBand otherwise), not measured:", flush=True)
+        print(R.format_markdown(mesh_rows[mesh]), flush=True)
     models = [abstract_against_real(arch, dev) for arch in ROOFLINE_MODELS]
-    out = dict(peaks=peaks, total_memory=total, cells=rows, models=models,
-               seconds=time.perf_counter() - t_phase)
+    out = dict(peaks=peaks, total_memory=total, cells=rows, mesh_cells=mesh_rows,
+               models=models, seconds=time.perf_counter() - t_phase)
     print(f"phase 1b: {out['seconds']:.1f} s", flush=True)
     return out
 
@@ -1898,6 +1939,10 @@ def _run_serve_replica(dev, launches):
 TRAIN_TASKS = 8                              # tasks_per_step
 TRAIN_LITE = dict(h=8, chunk_size=16)
 TRAIN_STEPS = 5
+# phase 5's loop on the numpy host sampler, each 224 px batch about 8 s of
+# host time: 3 steps (5 before phase 5h; the device sampler's loop of 5b
+# keeps TRAIN_STEPS)
+HOST_LOOP_STEPS = 3
 # the CPU tests' tolerances (tests/test_torch_train_learners.py and
 # test_torch_train_step.py), each relative to the leaf's max|ref|: the
 # kernel path against the plain path on the same card
@@ -2211,7 +2256,7 @@ def trace_train_step(step, state, batch, wall_ms: float, top: int = 15):
 def run_training(dev, launches):
     """Phase 5: LITE meta-training on the kernels.  One step of Simple CNAPs
     and of ProtoNets on ``cuda`` against ``ref`` (gradients, and params after
-    AdamW); planted backward faults; five Simple CNAPs steps through
+    AdamW); planted backward faults; three Simple CNAPs steps through
     ``train()`` (launch counts set to 0 just before and read just after:
     the training path's counts); one profiled step; the peak memory of a
     LITE step against an exact one; the launcher as a subprocess."""
@@ -2247,27 +2292,27 @@ def run_training(dev, launches):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
         torch.cuda.synchronize(dev)
         _build.launches.reset()
-        res = train_loop_run(learner, params, dev, TRAIN_STEPS, TRAIN_TASKS, ckpt_dir)
+        res = train_loop_run(learner, params, dev, HOST_LOOP_STEPS, TRAIN_TASKS, ckpt_dir)
         torch.cuda.synchronize(dev)
         counts = _build.launches.snapshot()
     peak = torch.cuda.max_memory_allocated(dev)
     losses = [m["loss"] for m in res.metrics_history]
     ms = [1e3 * t for t in res.step_times]
-    print(f"train loop simple_cnaps: {TRAIN_STEPS} steps of T {TRAIN_TASKS} at "
+    print(f"train loop simple_cnaps: {HOST_LOOP_STEPS} steps of T {TRAIN_TASKS} at "
           f"{IMAGE_SIZE} px, losses {losses}, ms per step {ms}, tasks/s "
           f"{res.throughput(TRAIN_TASKS, skip=1):.3f} (first step excluded), peak "
           f"memory {peak} B, launches {counts}", flush=True)
-    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses) \
+    if len(losses) != HOST_LOOP_STEPS or not all(math.isfinite(x) for x in losses) \
             or res.nonfinite_steps or res.rollbacks:
         fail(f"train loop: losses {losses}, skipped steps {res.nonfinite_steps}, "
              f"rollbacks {res.rollbacks}")
     for k in ("segment_sum", "class_second_moment", "mahalanobis"):
-        if counts.get(k, 0) < TRAIN_STEPS:
+        if counts.get(k, 0) < HOST_LOOP_STEPS:
             fail(f"train loop: kernel {k} launched {counts.get(k, 0)} times in "
-                 f"{TRAIN_STEPS} steps: {counts}")
+                 f"{HOST_LOOP_STEPS} steps: {counts}")
     launches["train"] = counts
     out.update(losses=losses, step_ms=ms, tasks_per_s=res.throughput(TRAIN_TASKS, skip=1),
-               peak_bytes=peak, launches=counts, steps=TRAIN_STEPS)
+               peak_bytes=peak, launches=counts, steps=HOST_LOOP_STEPS)
 
     # one more step, timed and then profiled, on the loop's final state
     from repro_torch.configs.base import MetaTrainConfig
@@ -2276,8 +2321,8 @@ def run_training(dev, launches):
     step = make_episodic_train_step(learner, LiteSpec(**TRAIN_LITE), MetaTrainConfig(
         tasks_per_step=TRAIN_TASKS, kernel_backend="cuda"), AdamWConfig(weight_decay=0.0))
     t0 = time.perf_counter()
-    batch = dict(tasks=host_train_batch.__wrapped__(TRAIN_TASKS, TRAIN_STEPS).to(dev),
-                 key=(0, TRAIN_STEPS))
+    batch = dict(tasks=host_train_batch.__wrapped__(TRAIN_TASKS, HOST_LOOP_STEPS).to(dev),
+                 key=(0, HOST_LOOP_STEPS))
     torch.cuda.synchronize(dev)
     out["host_batch_ms"] = (time.perf_counter() - t0) * 1e3
     print(f"  one batch from the host sampler (T {TRAIN_TASKS}, {IMAGE_SIZE} px), moved to "
@@ -2748,11 +2793,13 @@ def lm_grads(learner, params, batch, scores, backend, lite=None):
             dict(zip(tree_paths(params), grads)), dict(forward=fwd, backward=bwd))
 
 
-def lm_grad_errs(got, want, prefixes):
+def lm_grad_errs(got, want, prefixes, device=None):
     """(loss error, {leaf: error}) of run ``got`` against run ``want``: the
     loss's relative error, and each leaf's max|got - want| over its
     max|want| for the leaves under ``prefixes``.  Fails if a leaf that
-    ``want`` trains (a non-zero gradient) gets none in ``got``."""
+    ``want`` trains (a non-zero gradient) gets none in ``got``.  With
+    ``device``, each pair of leaves is moved there (from the host) to be
+    compared."""
     loss_err = abs(got[0] - want[0]) / max(abs(want[0]), 1e-30)
     errs = {}
     for k, w in want[2].items():
@@ -2761,6 +2808,8 @@ def lm_grad_errs(got, want, prefixes):
             if g is not None and k.startswith(prefixes):
                 fail(f"leaf {k}: a gradient where the reference has none")
             continue
+        if device is not None and g is not None:
+            g, w = g.to(device), w.to(device)
         scale = float(w.abs().max())
         if g is None or (scale > 0 and float(g.abs().max()) == 0):
             fail(f"leaf {k}: the reference trains it, this run gives it no gradient")
@@ -2769,20 +2818,23 @@ def lm_grad_errs(got, want, prefixes):
 
 
 def lm_train_gate(label: str, runs, prefixes, fault: bool = False, ref16_errs=None,
-                  per_leaf: bool = False):
+                  per_leaf: bool = False, device=None, got_errs=None):
     """Phase 6b's gate on a training step: run ``got`` (the kernel path, or a
     planted fault's run) against the fp32-compute ``ref32`` run, at LM_GATE
     times the bf16 ``ref16`` run's own error (or ``ref16_errs``, that
     run's :func:`lm_grad_errs` taken before), for the loss and for the
     worst gradient leaf under ``prefixes``; with ``per_leaf``, for every
-    leaf against its own bf16 error too.  A fault must fail it."""
-    if runs["ref32"][0] == 0 or not any(
+    leaf against its own bf16 error too.  A fault must fail it.  ``got_errs``:
+    ``got``'s :func:`lm_grad_errs` taken before (block by block on the ranks
+    that hold it), the fp32 run's gradient then checked where it was
+    written."""
+    if runs["ref32"][0] == 0 or (got_errs is None and not any(
             w is not None and float(w.abs().max()) > 0 for k, w in runs["ref32"][2].items()
-            if k.startswith(prefixes)):
+            if k.startswith(prefixes))):
         fail(f"{label}: the fp32 run's loss or gradient is exactly 0 (a saturated "
              f"softmax): the gate would hold nothing")
     l_ref, e_ref = ref16_errs or lm_grad_errs(runs["ref16"], runs["ref32"], prefixes)
-    l_got, e_got = lm_grad_errs(runs["got"], runs["ref32"], prefixes)
+    l_got, e_got = got_errs or lm_grad_errs(runs["got"], runs["ref32"], prefixes, device)
     worst_ref, worst_got = max(e_ref.values()), max(e_got.values())
     worst_leaf = max(e_got, key=e_got.get)
     over = sum(e_got[k] > LM_GATE * e_ref[k] for k in e_got)
@@ -3072,14 +3124,19 @@ def run_episodic_lm_example():
 
 
 # ---------------------------------------------------------------------------
-# phase 5d: LM training of gemma2-2b at full width and depth
+# phase 5d: LM training of gemma2-2b at full width
 # ---------------------------------------------------------------------------
 
 PRETRAIN_BATCH = 2
 # past gemma2-2b's window of 4096 (the local layers mask keys) and 9 loss
 # chunks of 512
 PRETRAIN_SEQ = 4608
-PRETRAIN_STEPS = 3
+# 2 steps through ``train()`` in phases 5d, 5f and 6e (3 before phase 5h):
+# tokens/s reads the second
+PRETRAIN_STEPS = 2
+# gemma2-2b in phase 5d at 13 of its 26 layers (7 local, 6 global; all 26
+# before phase 5h), cut for the whole script's time
+PRETRAIN_LAYERS = 13
 # the parity step's sequences keep their first PRETRAIN_HIDDEN tokens at
 # their first token, so that what the window hides from the last positions
 # is coherent (phase 6b's reason): on the pipeline's tokens as drawn, a
@@ -3437,16 +3494,17 @@ def pretrain_kernel_specs(dev):
 
 
 def run_lm_pretrain(dev, launches):
-    """Phase 5d: LM training of gemma2-2b at full width and depth as
-    published (fp32 params and AdamW state, bf16 compute, every block
+    """Phase 5d: LM training of gemma2-2b at full width on PRETRAIN_LAYERS
+    of its 26 layers (fp32 params and AdamW state, bf16 compute, every block
     checkpointed, loss chunks of 512; random weights drawn on the card
     from seed 0) on the token pipeline at B 2, S 4608; minitron-4b with
     int8 state; remat "dots" against "none"; the launchers as
     subprocesses; B5 at the step's shapes."""
+    import dataclasses
     import torch
     from repro_torch.configs.registry import get_config
     t_phase = time.perf_counter()
-    cfg = get_config("gemma2-2b")
+    cfg = dataclasses.replace(get_config("gemma2-2b"), n_layers=PRETRAIN_LAYERS)
     if (cfg.remat_policy, cfg.compute_dtype, cfg.param_dtype, cfg.opt_state_dtype,
             cfg.loss_chunk) != ("nothing", "bfloat16", "float32", "float32", 512):
         fail(f"{cfg.name}: expected remat 'nothing', bf16 compute, fp32 params and state, "
@@ -4001,6 +4059,7 @@ SSM_TRAIN_SEQ = 4096
 # and the shared block (so its gradient sums two sites), then 2 tail mamba
 # layers.  Full depth would need 16 B a param for 5.62 G params, 90 GB
 ZAMBA_TRAIN_LAYERS = 12
+SSM_TRAIN_LAYERS = 24            # mamba2-780m in phase 5f (all 48 before phase 5h)
 ZAMBA_TRAIN_SEQ = 2048
 def ssm_steps_want(cfg, dev, steps: int):
     """The launches of ``steps`` training steps: each step's forward and
@@ -4085,9 +4144,13 @@ def ssm_train_parity(cfg, dev, seq: int, plant: bool):
     return out
 
 
+SSM_PROTO_LAYERS = 12          # ProtoNets over mamba2-780m (48 before phase 5h)
+
+
 def ssm_episodic(dev, launches):
     """Simple CNAPs and ProtoNets (``tokens`` set encoder) over mamba2-780m
-    at full width and depth, phase 5c's tasks and gate (ProtoNets' tasks at
+    at full width, Simple CNAPs at full depth and ProtoNets at
+    SSM_PROTO_LAYERS, phase 5c's tasks and gate (ProtoNets' tasks at
     concentration LM_PROTO_CONCENTRATION), LITE h 8: one step each on the
     kernels against ``ref`` in bf16 and in fp32 compute.  B6 runs once a
     layer for each pass of the forward (the H pass, the no-grad complement
@@ -4096,10 +4159,10 @@ def ssm_episodic(dev, launches):
     H pass and the queries), as the bare wrapper where nothing in the trunk
     needs grad (the complement; Simple CNAPs' frozen trunk, FiLM'd only at
     its final states).  B1-B3 at F 1536."""
+    import dataclasses
     import torch
     from repro_torch.configs.registry import get_config
-    cfg = get_config("mamba2-780m")
-    n = cfg.n_layers
+    full = get_config("mamba2-780m")
     n_comp = LM_TASK["way"] * LM_TASK["shot"] - LM_TRAIN_LITE["h"]
     passes = -(-n_comp // LM_TRAIN_LITE["chunk_size"]) + 2      # H, chunks, queries
     out = {}
@@ -4107,6 +4170,10 @@ def ssm_episodic(dev, launches):
             ("simple_cnaps", ("enc/", "film_gen/"),
              ("segment_sum", "class_second_moment", "mahalanobis")),
             ("protonets", ("bb/",), ("segment_sum",))):
+        # ProtoNets trains every weight of the trunk: SSM_PROTO_LAYERS of them
+        cfg = dataclasses.replace(full, n_layers=SSM_PROTO_LAYERS) if kind == "protonets" \
+            else full
+        n = cfg.n_layers
         learner = lm_learner(kind, cfg)
         params = learner.init(torch.Generator(device=dev).manual_seed(0), dev)
         kw = dict(concentration=LM_PROTO_CONCENTRATION) if kind == "protonets" else {}
@@ -4162,7 +4229,7 @@ def ssm_train_loop(cfg, dev, seq: int, label: str):
 
 def run_ssm_train(dev, launches):
     """Phase 5f: training through the SSM and hybrid models.  LM training of
-    mamba2-780m at full width and depth as published (fp32 params and
+    mamba2-780m at full width on SSM_TRAIN_LAYERS of its 48 layers (fp32 params and
     AdamW state, bf16 compute, every block checkpointed, loss chunks of
     512; random weights drawn on the card from seed 0) at B 2 x S 4096;
     zamba2-7b at full width on ZAMBA_TRAIN_LAYERS layers at B 2 x S 2048;
@@ -4172,7 +4239,7 @@ def run_ssm_train(dev, launches):
     import torch
     from repro_torch.configs.registry import get_config
     t_phase = time.perf_counter()
-    cfg = get_config("mamba2-780m")
+    cfg = dataclasses.replace(get_config("mamba2-780m"), n_layers=SSM_TRAIN_LAYERS)
     zcfg = dataclasses.replace(get_config("zamba2-7b"), n_layers=ZAMBA_TRAIN_LAYERS)
     for c in (cfg, zcfg):
         if (c.remat_policy, c.compute_dtype, c.param_dtype, c.opt_state_dtype,
@@ -4455,43 +4522,55 @@ def dp_ranks(which: str, world: int, tmp):
             for r in range(world)], secs
 
 
+DP_LAUNCHER_ARGS = ["--episodic", "--steps", "3", "--tasks-per-step", "8", "--dp-shards", "2",
+                    "--dcn-shards", "2", "--grad-reduce", "compressed", "--accum-steps", "2",
+                    "--device", "cuda"]
+
+
+def _dp_launch(extra, ckpt_dir):
+    base = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+            "4", "-m", "repro_torch.launch.train"] + DP_LAUNCHER_ARGS + ["--ckpt-dir", ckpt_dir]
+    t0 = time.perf_counter()
+    proc = subprocess.run(base + extra, cwd=ROOT,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                          capture_output=True, text=True, timeout=600)
+    return dict(exit=proc.returncode, seconds=time.perf_counter() - t0,
+                stdout=proc.stdout[-1500:], stderr=proc.stderr[-1500:],
+                said=proc.stdout + proc.stderr)
+
+
 def run_dp_launcher():
     """``torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train
     --episodic`` at 2 x 2 with the compressed reduction and accumulation on
     gloo on the card: it must exit 0 and print ``world=4``; again on the same
-    directory, "nothing to do"; on NCCL, with 4 ranks on one card, it must
-    refuse with the mesh's message and not train."""
+    directory, "nothing to do"."""
     import tempfile
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_launcher_") as tmp:
-        base = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-                "--nproc-per-node", "4", "-m", "repro_torch.launch.train", "--episodic",
-                "--steps", "3", "--tasks-per-step", "8", "--dp-shards", "2", "--dcn-shards",
-                "2", "--grad-reduce", "compressed", "--accum-steps", "2", "--device", "cuda",
-                "--ckpt-dir", tmp]
-        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-        runs, said = {}, {}
-        for name, extra in (("train", ["--dist-backend", "gloo"]),
-                            ("resume", ["--dist-backend", "gloo"]),
-                            ("nccl", ["--dist-backend", "nccl"])):
-            t0 = time.perf_counter()
-            proc = subprocess.run(base + extra, cwd=ROOT, env=env, capture_output=True,
-                                  text=True, timeout=600)
-            said[name] = proc.stdout + proc.stderr
-            runs[name] = dict(exit=proc.returncode, seconds=time.perf_counter() - t0,
-                              stdout=proc.stdout[-1500:], stderr=proc.stderr[-1500:])
+        runs = {name: _dp_launch(["--dist-backend", "gloo"], tmp) for name in ("train", "resume")}
     done = [l for l in runs["train"]["stdout"].splitlines() if l.startswith("done at step")]
     print(f"dp launcher (torchrun, 4 ranks, gloo, 2 x 2 compressed, accum 2): exit "
           f"{runs['train']['exit']} in {runs['train']['seconds']:.1f} s; "
           f"{done[-1] if done else runs['train']['stdout'][-400:]}; rerun exit "
-          f"{runs['resume']['exit']}; on nccl exit {runs['nccl']['exit']}", flush=True)
+          f"{runs['resume']['exit']}", flush=True)
     if runs["train"]["exit"] != 0 or not done or "world=4 backend=gloo" not in done[-1]:
         fail(f"the dp launcher failed: {runs['train']}")
     if runs["resume"]["exit"] != 0 or "nothing to do" not in runs["resume"]["stdout"]:
         fail(f"the dp launcher's rerun did not resume: {runs['resume']}")
-    if runs["nccl"]["exit"] == 0 or "NCCL takes one rank a card" not in said["nccl"] \
-            or "done at step" in said["nccl"]:
-        fail(f"the dp launcher on NCCL with 4 ranks on one card did not refuse: {runs['nccl']}")
-    return runs
+    return {k: {kk: vv for kk, vv in v.items() if kk != "said"} for k, v in runs.items()}
+
+
+def run_dp_launcher_nccl():
+    """The same launcher on NCCL, with 4 ranks on one card: it must refuse
+    with the mesh's message and not train."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_launcher_nccl_") as tmp:
+        run = _dp_launch(["--dist-backend", "nccl"], tmp)
+    print(f"dp launcher on nccl, 4 ranks on one card: exit {run['exit']} in "
+          f"{run['seconds']:.1f} s", flush=True)
+    if run["exit"] == 0 or "NCCL takes one rank a card" not in run["said"] \
+            or "done at step" in run["said"]:
+        fail(f"the dp launcher on NCCL with 4 ranks on one card did not refuse: {run}")
+    return {k: v for k, v in run.items() if k != "said"}
 
 
 def run_dp_train(dev, launches):
@@ -4575,8 +4654,636 @@ def run_dp_train(dev, launches):
           f"ring all-reduce and all-gather factors: {out['wire_bytes']}", flush=True)
     launches["dp_train"] = r0["pmean"]["launches"]
     defer(out, "launcher", run_dp_launcher)
+    defer(out, "launcher_nccl", run_dp_launcher_nccl)
     out["seconds"] = time.perf_counter() - t_phase
     print(f"phase 5g: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5h: LM parallelism over a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+LM_MESH_ARCH = "deepseek-v2-236b"
+LM_MESH_TOKENS = 1024            # (a): a data shard's tokens, T = 2 x 1024
+LM_MESH_SEQ = 2048               # (b) at full width: B 1 x S 2048 on (data 1, model 2)
+LM_MESH_SMOKE = (4, 64)          # (b) on 2 x 2: the smoke config, B 4 x S 64
+LM_MESH_EP_TOL = 1e-5            # (a) fp32: of max|y|, only the partial sums' order differs
+LM_MESH_AUX_TOL = 1e-6           # (a) fp32: relative
+LM_MESH_RANK_TIMEOUT = 400.0
+LM_MESH_LAYOUTS = ("hidden", "seq")
+
+
+def ep_moe_params(dev, mesh=None):
+    """deepseek-v2's MoE layer at published width (E 160, D 5120, F 1536,
+    top 6, 2 shared experts), drawn in bf16 on the card from seed 11; with
+    ``mesh``, this rank's E/m experts, each leaf cut as it is drawn."""
+    import torch
+    from repro_torch.common.init import drawn_as
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import moe as M
+    from repro_torch.sharding.ctx import P
+    from repro_torch.sharding.place import init_sharded
+    cfg = get_config(LM_MESH_ARCH)
+
+    def draw(g, d):
+        with drawn_as(torch.bfloat16):
+            return M.init_moe(g, cfg.d_model, cfg.moe, d)
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    if mesh is None:
+        return cfg, draw(gen, dev)
+    bank = P("model", None, None)
+    specs = dict(router=P(None, None), w_gate=bank, w_up=bank, w_down=bank,
+                 shared=dict(w_gate=P(None, None), w_up=P(None, None), w_down=P(None, None)))
+    return cfg, init_sharded(draw, gen, dev, specs, mesh)
+
+
+def ep_tokens(cfg, dev):
+    """(2 x LM_MESH_TOKENS, D) bf16 tokens from seed 12, drawn on the card."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(12)
+    return torch.randn((2 * LM_MESH_TOKENS, cfg.d_model), generator=g,
+                       device=dev).to(torch.bfloat16)
+
+
+def ep_block(t, coords, shape, layout):
+    """A rank's block of (T, D) tokens: its data shard's rows, then its
+    model block of them ('hidden': columns, 'seq': rows)."""
+    nd, nm = shape["data"], shape["model"]
+    di, mi = coords["data"], coords["model"]
+    t = t[di * t.shape[0] // nd:(di + 1) * t.shape[0] // nd]
+    if layout == "hidden":
+        return t[:, mi * t.shape[1] // nm:(mi + 1) * t.shape[1] // nm]
+    return t[mi * t.shape[0] // nm:(mi + 1) * t.shape[0] // nm]
+
+
+def mesh_smoke_cfg():
+    from repro_torch.configs.registry import get_smoke_config
+    return get_smoke_config(LM_MESH_ARCH)
+
+
+def full_mesh_cfg():
+    """deepseek-v2 at full width on MOE_TRAIN_LAYERS layer(s), as phase 5e."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config(LM_MESH_ARCH), n_layers=MOE_TRAIN_LAYERS)
+
+
+def full_mesh_batch(cfg, dev):
+    """The token pipeline's batch 0 of phase 5e, its first row: B 1 x S
+    LM_MESH_SEQ."""
+    return {k: v[:1] for k, v in pretrain_batch(cfg, 0, dev, seq=LM_MESH_SEQ).items()}
+
+
+def mesh_smoke_batch(cfg, dev):
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig, batch_to_device
+    b, s = LM_MESH_SMOKE
+    return batch_to_device(TokenPipeline(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=s, global_batch=b, branching=4, seed=0)).batch_at(0), dev)
+
+
+def shard_mean_grads(cfg, params, batch, backend, shards, force=None):
+    """The mean over ``shards`` data shards of one process's loss and
+    gradient on each shard alone (:func:`moe_train_grads`); ``force``: each
+    shard's expert ids to route by."""
+    rows = batch["tokens"].shape[0] // shards
+    runs = [moe_train_grads(cfg, params, {k: v[i * rows:(i + 1) * rows] for k, v in
+                                          batch.items()}, backend,
+                            force=None if force is None else force[i])
+            for i in range(shards)]
+    grads = {k: None if runs[0][2][k] is None else
+             sum(r[2][k].float() for r in runs) / shards for k in runs[0][2]}
+    return sum(r[0] for r in runs) / shards, None, grads
+
+
+def lm_mesh_reference(dev, tmp):
+    """One process, before the ranks: (a)'s one-device ``moe_ffn`` on each
+    data shard in fp32 and bf16 (the same bf16-representable inputs), and
+    (b)'s smoke step on each data shard alone (fp32 compute routed as the
+    kernel path, bf16), saved to host files; B7 at the full-width step's
+    E/m slice beside the whole bank; then the card is freed."""
+    import torch
+    from repro_torch.kernels import gmm as gm
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as TT
+    cfg, p16 = ep_moe_params(dev)
+    x16 = ep_tokens(cfg, dev)
+    p32 = {k: ({kk: vv.float() for kk, vv in v.items()} if isinstance(v, dict) else v.float())
+           for k, v in p16.items()}
+    ref = dict(y32=[], y16=[], aux32=[], aux16=[], err16=[])
+    for d in range(2):
+        xs = x16[d * LM_MESH_TOKENS:(d + 1) * LM_MESH_TOKENS]
+        y32, a32 = M.moe_ffn(p32, xs.float(), cfg.moe, backend="cuda")
+        y16, a16 = M.moe_ffn(p16, xs, cfg.moe, backend="cuda")
+        ref["y32"].append(y32.cpu())
+        ref["y16"].append(y16.cpu())
+        ref["aux32"].append(float(a32))
+        ref["aux16"].append(float(a16))
+        ref["err16"].append(global_err(y16, y32))
+    torch.save(ref, os.path.join(tmp, "ep_ref.pt"))
+    mark("5h: (a) reference done")
+    # B7 at (b)'s full-width step shapes: a rank's E/m experts beside all E
+    g = torch.Generator(device=dev).manual_seed(13)
+    c = M.capacity(LM_MESH_SEQ, cfg.moe)
+    cases = []
+    for e in (cfg.moe.n_experts // 2, cfg.moe.n_experts):
+        a = (torch.randn(e, c, cfg.d_model, generator=g, device=dev)).to(torch.bfloat16)
+        w = p16["w_gate"][:e]
+        cases.append(dict(
+            label=f"deepseek EP forward x @ w E{e} M{c} K{cfg.d_model} N{cfg.moe.d_ff}",
+            fn=ops.gmm, plain=gm.gmm_plain, lib=torch.bmm, route=gm.gmm_route(a, w),
+            args=(a, w), tol=OPS_TOL["gmm"]["bfloat16"], main=True, iters=(5, 3),
+            bytes=2 * (e * c * cfg.d_model + e * cfg.d_model * cfg.moe.d_ff
+                       + e * c * cfg.moe.d_ff),
+            flops=2.0 * e * c * cfg.d_model * cfg.moe.d_ff, peak=BF16_FLOPS))
+    row = check_kernels([dict(name="gmm", source="src/repro_torch/kernels/csrc/gmm.cu",
+                              replaces="src/repro/kernels/gmm.py:37",
+                              symbol="gmm_wgmma_kernel", cases=cases)])["gmm"]
+    del p16, p32, x16, cases
+    torch.cuda.empty_cache()
+    mark("5h: B7 cases done")
+    # (b) on 2 x 2 at the smoke config: each data shard alone
+    import dataclasses
+    scfg = mesh_smoke_cfg()
+    params = TT.init_transformer(torch.Generator(device=dev).manual_seed(0), scfg,
+                                 at_param_dtype=True)
+    batch = mesh_smoke_batch(scfg, dev)
+    rows = batch["tokens"].shape[0] // 2
+    routed = [forward_routes(scfg, params, {k: v[i * rows:(i + 1) * rows]
+                                            for k, v in batch.items()}, "cuda")
+              for i in range(2)]
+    cfg32 = dataclasses.replace(scfg, compute_dtype="float32")
+    ref32 = shard_mean_grads(cfg32, params, batch, "ref", 2, force=routed)
+    ref16 = shard_mean_grads(scfg, params, batch, "ref", 2)
+    torch.save(dict(ref32=(ref32[0], None, {k: v.cpu() for k, v in ref32[2].items()}),
+                    ref16_errs=lm_grad_errs(ref16, ref32, ("",))),
+               os.path.join(tmp, "smoke_ref.pt"))
+    del params, ref32, ref16
+    torch.cuda.empty_cache()
+    # (b) at full width on (data 1, model 2): one device on the whole batch,
+    # fp32 compute routed as the kernel path, and bf16 on ref
+    cfg = full_mesh_cfg()
+    params = TT.init_transformer(torch.Generator(device=dev).manual_seed(0), cfg,
+                                 at_param_dtype=True)
+    batch = full_mesh_batch(cfg, dev)
+    routed = forward_routes(cfg, params, batch, "cuda")
+    ref32 = moe_train_grads(dataclasses.replace(cfg, compute_dtype="float32"), params, batch,
+                            "ref", force=routed + routed[::-1])
+    ref32 = (ref32[0], None, {k: v.cpu() for k, v in ref32[2].items()})
+    ref16 = moe_train_grads(cfg, params, batch, "ref")
+    del params
+    ref16_errs = lm_grad_errs(ref16, ref32, ("",), dev)
+    del ref16
+    torch.cuda.empty_cache()
+    mark("5h: (b) full-width reference done")
+    if not any(float(w.abs().max()) > 0 for w in ref32[2].values() if w is not None):
+        fail("phase 5h (b): the fp32 run's gradient is exactly 0: the gate would hold nothing")
+    torch.save(dict(ref32=ref32, ref16_errs=ref16_errs), os.path.join(tmp, "full_ref.pt"))
+    del ref32
+    return row
+
+
+def _planted_model_factor():
+    """The model axis's gather VJP scaled by the axis's size (the gradient
+    summed over model where each rank holds the whole): the gate must flag
+    it."""
+    from repro_torch.launch import mesh as MM
+    backward = MM._AllGather.backward
+
+    def scaled(ctx, g):
+        out = backward(ctx, g)
+        mesh, axes, _, vjp = ctx.args
+        return (out[0] * mesh.size_of(axes) if vjp == "slice" else out[0],) + out[1:]
+
+    return planted_backward(MM._AllGather, scaled)
+
+
+def _dropped_reduce_scatter():
+    """The EP body's reduce-scatter over model (``moe.reduce_scatter``)
+    replaced by this rank's block of its own partial sum: the other ranks'
+    experts go missing."""
+    from repro_torch.launch.mesh import local_block
+    from repro_torch.models import moe as M
+    orig = M.reduce_scatter
+
+    @contextlib.contextmanager
+    def planted():
+        M.reduce_scatter = lambda t, mesh, axes, dim=0: local_block(t, mesh, axes, dim)
+        try:
+            yield
+        finally:
+            M.reduce_scatter = orig
+
+    return planted()
+
+
+@contextlib.contextmanager
+def counted_gmm_forwards(counts: dict):
+    """Count into ``counts`` B7's autograd Function's forwards in the block:
+    ``forward`` those on this thread, ``recompute`` those a checkpoint's
+    recompute runs on the backward's thread (on the card, autograd runs the
+    backward on a thread of its own)."""
+    import threading
+    from repro_torch.kernels import dispatch
+    orig = dispatch._GMM.__dict__["forward"]
+    main = threading.get_ident()
+
+    def counted(ctx, x, w):
+        key = "forward" if threading.get_ident() == main else "recompute"
+        counts[key] = counts.get(key, 0) + 1
+        return orig.__func__(ctx, x, w)
+
+    dispatch._GMM.forward = staticmethod(counted)
+    try:
+        yield
+    finally:
+        dispatch._GMM.forward = orig
+
+
+def sharded_grads(grads_of, state, batch, dev):
+    """The sharded loss and this rank's gradient blocks on the kernels:
+    (loss, {path: block}, launches, products): B7's backward products and
+    its forwards by thread (:func:`counted_gmm_forwards`), the seconds."""
+    import torch
+    from repro_torch.kernels import _build, dispatch
+    products = {}
+    torch.cuda.synchronize(dev)
+    _build.launches.reset()
+    t0 = time.perf_counter()
+    with dispatch.use_backend("cuda"), counted_gmm_products(products), \
+            counted_gmm_forwards(products):
+        loss, _, grads = grads_of(state["params"], batch)
+    torch.cuda.synchronize(dev)
+    products["grads_s"] = time.perf_counter() - t0
+    return float(loss), grads, _build.launches.snapshot(), products
+
+
+def gathered_grads(grads_of, state, batch, specs, mesh, dev):
+    """:func:`sharded_grads`, each leaf then gathered whole onto the host
+    (every rank joins): (loss, None, {path: gradient}, launches,
+    products)."""
+    from repro_torch.sharding.place import gather_leaf, spec_paths
+    at = spec_paths(specs["params"])
+    loss, grads, launches, products = sharded_grads(grads_of, state, batch, dev)
+    whole = {}
+    for k in list(grads):
+        g = gather_leaf(grads.pop(k), at[k], mesh)
+        whole[k] = g.cpu()
+        del g
+    return loss, None, whole, launches, products
+
+
+def lm_rank_ep4(out_dir):
+    """Phase 5h (a) and (b) at the smoke config, one of 4 gloo ranks sharing
+    the card as (data 2, model 2)."""
+    import torch
+    from repro_torch.kernels import _build, dispatch
+    from repro_torch.launch import collectives
+    from repro_torch.launch.mesh import init_distributed, make_mesh_for
+    from repro_torch.models import moe as M
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.roofline import lm_step_payloads
+    from repro_torch.train.step import (lm_state_specs, make_mesh_grads,
+                                        make_sharded_init_state, make_train_step)
+    dev = init_distributed("cuda", backend="gloo", init_method=os.environ["RANKS_INIT_METHOD"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh_for((2, 2), ("data", "model"))
+    out = dict(rank=mesh.rank, coords=mesh.coords, device=str(dev), backend=mesh.backend)
+    # (a) the MoE layer at published width, expert-parallel
+    cfg, p16 = ep_moe_params(dev, mesh)
+    x16 = ep_tokens(cfg, dev)
+    ref = torch.load(os.path.join(out_dir, "ep_ref.pt"))
+    p32 = {k: ({kk: vv.float() for kk, vv in v.items()} if isinstance(v, dict) else v.float())
+           for k, v in p16.items()}
+    di = mesh.coords["data"]
+    out["ep"] = {}
+    for layout in LM_MESH_LAYOUTS:
+        for dt, p in (("float32", p32), ("bfloat16", p16)):
+            x = ep_block(x16, mesh.coords, mesh.shape, layout)
+            x = x.float() if dt == "float32" else x
+            collectives.counter.reset()
+            (y, aux), launches, ms = _counted(
+                lambda: M.moe_ffn_sharded(p, x.contiguous(), cfg.moe, mesh, layout,
+                                          backend="cuda"))
+            want = ep_block(ref["y32"][di].to(dev), dict(data=0, model=mesh.coords["model"]),
+                            dict(data=1, model=2), layout)
+            scale = float(ref["y32"][di].abs().max())
+            err = float((y.float() - want).abs().max()) / scale
+            aux_want = sum(ref["aux32" if dt == "float32" else "aux16"]) / 2
+            out["ep"][f"{layout}/{dt}"] = dict(
+                err=err, aux=float(aux), aux_want=aux_want,
+                aux_err=abs(float(aux) - aux_want) / abs(aux_want), ms=ms, launches=launches,
+                collectives=collectives.counter.snapshot(),
+                payload=collectives.counter.payload(), err16=ref["err16"][di])
+    x = ep_block(x16, mesh.coords, mesh.shape, "hidden").float().contiguous()
+    with _dropped_reduce_scatter():
+        y, _ = M.moe_ffn_sharded(p32, x, cfg.moe, mesh, "hidden", backend="cuda")
+    want = ep_block(ref["y32"][di].to(dev), dict(data=0, model=mesh.coords["model"]),
+                    dict(data=1, model=2), "hidden")
+    out["ep_planted"] = float((y.float() - want).abs().max()) / float(ref["y32"][di].abs().max())
+    del p16, p32, x16, ref, y, x, want
+    torch.cuda.empty_cache()
+    # (b) the smoke config's step on 2 x 2
+    scfg = mesh_smoke_cfg()
+    adam = AdamWConfig(state_dtype=scfg.opt_state_dtype)
+    _, specs = lm_state_specs(scfg, adam, mesh)
+    state = make_sharded_init_state(scfg, adam, mesh)(torch.Generator(device=dev).manual_seed(0),
+                                                       dev)
+    batch = mesh_smoke_batch(scfg, dev)
+    sref = torch.load(os.path.join(out_dir, "smoke_ref.pt"))
+    grads_of = make_mesh_grads(scfg, adam, mesh)
+    got = gathered_grads(grads_of, state, batch, specs, mesh, dev)
+    with _planted_model_factor():
+        bad = gathered_grads(grads_of, state, batch, specs, mesh, dev)
+    if mesh.rank == 0:
+        gate = lm_train_gate("5h (b) smoke 2 x 2 step", dict(got=got, ref32=sref["ref32"]),
+                             ("",), ref16_errs=sref["ref16_errs"])
+        planted = lm_train_gate("5h (b) planted fault: the model gather's VJP x m",
+                                dict(got=bad, ref32=sref["ref32"]), ("",), fault=True,
+                                ref16_errs=sref["ref16_errs"])
+        out["smoke_gate"] = {k: v for k, v in gate.items() if not k.endswith("leaf_errors")}
+        out["smoke_planted"] = {k: v for k, v in planted.items()
+                                if not k.endswith("leaf_errors")}
+    step = make_train_step(scfg, adam, mesh=mesh)
+    collectives.counter.reset()
+    _build.launches.reset()
+    with dispatch.use_backend("cuda"):
+        _, m = step(state, batch)
+    out["smoke_step"] = dict(loss=float(m["loss"]), nonfinite=float(m["nonfinite"]),
+                             launches=_build.launches.snapshot(),
+                             payload=collectives.counter.payload(),
+                             want_payload=lm_step_payloads(scfg, mesh.shape, *LM_MESH_SMOKE,
+                                                           state_dtype=adam.state_dtype))
+    return out
+
+
+def lm_rank_step2(out_dir):
+    """Phase 5h (b) at full width, one of 2 gloo ranks sharing the card as
+    (data 1, model 2): deepseek-v2 at 1 layer, bf16 params and AdamW state,
+    B 1 x S 2048; the sharded gradient gathered leaf by leaf and held by
+    rank 0 against the one-device reference (read from the host file the
+    main process wrote before the ranks started); one step's payloads and
+    launches."""
+    import torch
+    from repro_torch.kernels import _build, dispatch
+    from repro_torch.launch import collectives
+    from repro_torch.launch.mesh import init_distributed, make_mesh_for
+    from repro_torch.roofline import lm_step_payloads, mesh_state_bytes
+    from repro_torch.sharding.place import shard_leaf, spec_paths
+    from repro_torch.train.step import (adamw_for, lm_state_specs, make_mesh_grads,
+                                        make_sharded_init_state, make_train_step)
+    dev = init_distributed("cuda", backend="gloo", init_method=os.environ["RANKS_INIT_METHOD"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh_for((1, 2), ("data", "model"))
+    cfg = full_mesh_cfg()
+    adam = adamw_for(cfg)
+    lead = mesh.rank == 0
+    t0 = time.perf_counter()
+    times = {}
+    out = dict(rank=mesh.rank, coords=mesh.coords, device=str(dev), backend=mesh.backend,
+               reckoned_state_bytes=mesh_state_bytes(cfg, mesh.shape), seconds=times)
+    _, specs = lm_state_specs(cfg, adam, mesh)
+    state = make_sharded_init_state(cfg, adam, mesh)(torch.Generator(device=dev).manual_seed(0),
+                                                      dev)
+    out["held_bytes"] = torch.cuda.memory_allocated(dev)
+    times["init"] = time.perf_counter() - t0
+    batch = full_mesh_batch(cfg, dev)
+    loss, blocks, launches, products = sharded_grads(make_mesh_grads(cfg, adam, mesh), state,
+                                                     batch, dev)
+    out["b7_launches"], out["b7_products"] = launches, products
+    times["grads"] = time.perf_counter() - t0
+    # each leaf's error from the blocks: every rank its block against the same
+    # block of the reference, the maxima over the ranks (the gathered leaf's)
+    ref = torch.load(os.path.join(out_dir, "full_ref.pt"), mmap=True)
+    at = spec_paths(specs["params"])
+    keys = list(blocks)
+    maxima = torch.stack([torch.stack([
+        (g.float() - w.float()).abs().max(), w.float().abs().max(), g.float().abs().max()])
+        for k, g in blocks.items()
+        for w in (shard_leaf(ref["ref32"][2][k], at[k], mesh).to(dev),)])
+    del blocks
+    maxima = -mesh.all_reduce(-maxima, "model", op="min")
+    errs = {}
+    for k, (diff, scale, gmax) in zip(keys, maxima.tolist()):
+        if scale > 0 and gmax == 0:
+            fail(f"phase 5h (b): leaf {k}: the reference trains it, the mesh gives it none")
+        errs[k] = diff / max(scale, 1e-30)
+    times["errors"] = time.perf_counter() - t0
+    step = make_train_step(cfg, adam, mesh=mesh)
+    collectives.counter.reset()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.launches.reset()
+    t1 = time.perf_counter()
+    with dispatch.use_backend("cuda"):
+        _, m = step(state, batch)
+    torch.cuda.synchronize(dev)
+    out["step"] = dict(ms=(time.perf_counter() - t1) * 1e3, loss=float(m["loss"]),
+                       nonfinite=float(m["nonfinite"]), launches=_build.launches.snapshot(),
+                       payload=collectives.counter.payload(),
+                       want_payload=lm_step_payloads(cfg, mesh.shape, 1, LM_MESH_SEQ,
+                                                     state_dtype=adam.state_dtype),
+                       peak_bytes=torch.cuda.max_memory_allocated(dev))
+    times["step"] = time.perf_counter() - t0
+    del state, step
+    torch.cuda.empty_cache()
+    if lead:
+        l_got = abs(loss - ref["ref32"][0]) / max(abs(ref["ref32"][0]), 1e-30)
+        gate = lm_train_gate("5h (b) deepseek-v2 1 layer (1, 2) step",
+                             dict(got=(loss, None, None), ref32=ref["ref32"]), ("",),
+                             ref16_errs=ref["ref16_errs"], got_errs=(l_got, errs))
+        out["gate"] = {k: v for k, v in gate.items() if not k.endswith("leaf_errors")}
+        out["losses"] = dict(got=loss, ref32=ref["ref32"][0])
+    return out
+
+
+def lm_rank_nccl1(out_dir):
+    """Phase 5h (d), one rank on NCCL: the smoke config's step on the (1, 1)
+    test mesh bit-equal to the step without a mesh."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import init_distributed, make_test_mesh
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import make_init_state, make_sharded_init_state, make_train_step
+    dev = init_distributed("cuda", backend="nccl", init_method=os.environ["RANKS_INIT_METHOD"])
+    mesh = make_test_mesh()
+    cfg = mesh_smoke_cfg()
+    adam = AdamWConfig(state_dtype=cfg.opt_state_dtype)
+    batch = mesh_smoke_batch(cfg, dev)
+    gen = lambda: torch.Generator(device=dev).manual_seed(0)  # noqa: E731
+    one = make_init_state(cfg, adam)(gen(), dev)
+    sharded = make_sharded_init_state(cfg, adam, mesh)(gen(), dev)
+    with dispatch.use_backend("cuda"):
+        _, m1 = make_train_step(cfg, adam)(one, batch)
+        _, m2 = make_train_step(cfg, adam, mesh=mesh)(sharded, batch)
+    return dict(backend=mesh.backend, device=str(dev), mesh=mesh.shape,
+                bit_equal=_bit_equal(one, sharded) and bool(m1["loss"] == m2["loss"]),
+                loss=float(m1["loss"]))
+
+
+def lm_rank_main(which: str, out_dir: str) -> int:
+    """One rank of phase 5h, run as ``python chip_smoke.py --lm-rank
+    <ep4|step2|nccl1> <dir>``; writes its reading to
+    ``<dir>/<which>_rank<r>.json``."""
+    import torch.distributed as dist
+    out = {"ep4": lm_rank_ep4, "step2": lm_rank_step2,
+           "nccl1": lm_rank_nccl1}[which](out_dir)
+    with open(os.path.join(out_dir, f"{which}_rank{os.environ['RANK']}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def lm_ranks(which: str, world: int, tmp):
+    """Run the ranks of ``which`` and return their readings, rank order."""
+    from repro_torch.launch.local_ranks import RanksFailed, run_ranks
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), **DP_ENV}
+    t0 = time.perf_counter()
+    try:
+        run_ranks([sys.executable, str(ROOT / "chip_smoke.py"), "--lm-rank", which, str(tmp)],
+                  world, os.path.join(tmp, f"store_{which}"), env=env, cwd=ROOT,
+                  timeout=LM_MESH_RANK_TIMEOUT)
+    except RanksFailed as e:
+        fail(f"phase 5h {which}: {e}")
+    secs = time.perf_counter() - t0
+    return [json.loads(pathlib.Path(tmp, f"{which}_rank{r}.json").read_text())
+            for r in range(world)], secs
+
+
+def run_lm_mesh_nccl1():
+    """(d) one NCCL rank, deferred: the (1, 1) mesh's step bit-equal."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_nccl1_") as tmp:
+        (a,), secs = lm_ranks("nccl1", 1, tmp)
+    print(f"lm mesh (d) 1 rank on {a['backend']} ({a['device']}), mesh {a['mesh']}: the "
+          f"smoke step bit-equal to the step without a mesh: {a['bit_equal']}; loss "
+          f"{a['loss']:.6f}; {secs:.1f} s", flush=True)
+    if not a["bit_equal"]:
+        fail(f"phase 5h (d): the NCCL world of 1 is not bit-equal to one process: {a}")
+    return dict(a, seconds=secs)
+
+
+def run_lm_mesh_launcher():
+    """(d) ``torchrun --standalone --nproc-per-node 4 -m
+    repro_torch.launch.train --arch deepseek-v2-236b --full`` on gloo,
+    deferred: the smoke config on the (4, 1) test mesh, the reference's
+    warning printed, rank 0's lines once."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_launcher_") as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "4", "-m", "repro_torch.launch.train", "--arch",
+             LM_MESH_ARCH, "--full", "--steps", "2", "--batch", "4", "--seq", "64",
+             "--device", "cuda", "--dist-backend", "gloo", "--ckpt-dir", tmp],
+            cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+            capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    done = [l for l in lines if l.startswith("done at step")]
+    print(f"lm mesh launcher (torchrun, 4 ranks, gloo, --full): exit {proc.returncode} in "
+          f"{secs:.1f} s; {[l for l in lines if l.startswith(('[warn]', 'arch='))]}; "
+          f"{done[-1] if done else proc.stdout[-400:]}", flush=True)
+    if proc.returncode != 0 or len(done) != 1 \
+            or "[warn] --full needs >=256 devices (have 4)" not in proc.stdout \
+            or "mesh={'data': 4, 'model': 1} backend=gloo" not in proc.stdout:
+        fail(f"the LM launcher under torchrun failed: {proc.stdout[-1500:]} "
+             f"{proc.stderr[-1500:]}")
+    return dict(exit=proc.returncode, seconds=secs, stdout=proc.stdout[-1500:])
+
+
+def run_lm_mesh(dev, launches):
+    """Phase 5h: LM parallelism.  The one-device reference first, in this
+    process, then the card freed; (a) and (b) at the smoke config on 4 gloo
+    ranks as (data 2, model 2); (b) at full width on 2 gloo ranks as (data
+    1, model 2); (c) the payloads against the roofline's; (d) deferred."""
+    import tempfile
+    import torch
+    t_phase = time.perf_counter()
+    out = dict(kind="lm_mesh", arch=LM_MESH_ARCH, tokens=2 * LM_MESH_TOKENS,
+               seq=LM_MESH_SEQ, smoke=LM_MESH_SMOKE)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_mesh_") as tmp:
+        row = lm_mesh_reference(dev, tmp)
+        mark("5h: one-device reference done")
+        ep4, secs4 = lm_ranks("ep4", 4, tmp)
+        mark("5h: 2 x 2 ranks done")
+        step2, secs2 = lm_ranks("step2", 2, tmp)
+        mark("5h: (1, 2) ranks done")
+    out.update(ep4=ep4, step2=step2, seconds_ep4=secs4, seconds_step2=secs2,
+               kernel_cases=row["cases"], kernel_max_abs_err=row["max_abs_err"])
+    # (a) each rank's block against the shard's moe_ffn
+    for r in ep4:
+        for key, e in r["ep"].items():
+            layout, dt = key.split("/")
+            ok = e["err"] <= (LM_MESH_EP_TOL if dt == "float32" else LM_GATE * e["err16"])
+            ok = ok and (dt != "float32" or e["aux_err"] <= LM_MESH_AUX_TOL)
+            print(f"lm mesh (a) rank {r['rank']} {r['coords']} {layout} {dt}: y err "
+                  f"{e['err']:.3e} of max|y| (tol "
+                  f"{LM_MESH_EP_TOL if dt == 'float32' else LM_GATE * e['err16']:.3e}), aux "
+                  f"{e['aux']:.7g} vs {e['aux_want']:.7g} ({e['aux_err']:.2e}), {e['ms']:.1f} "
+                  f"ms, launches {e['launches']}, collectives {e['collectives']}", flush=True)
+            if not ok:
+                fail(f"phase 5h (a) rank {r['rank']} {key}: {e}")
+            if e["launches"].get("gmm", 0) != 3:
+                fail(f"phase 5h (a) rank {r['rank']} {key}: B7 launches {e['launches']}, "
+                     f"want 3 (the three projections of the rank's experts)")
+        print(f"lm mesh (a) rank {r['rank']}: a dropped reduce-scatter reads "
+              f"{r['ep_planted']:.3e} of max|y| {'caught' if r['ep_planted'] > LM_MESH_EP_TOL else 'MISSED'}",
+              flush=True)
+        if not r["ep_planted"] > LM_MESH_EP_TOL:
+            fail("phase 5h (a): the dropped reduce-scatter was not caught")
+    r0 = ep4[0]
+    if not (r0["smoke_gate"]["passed"] and not r0["smoke_planted"]["passed"]):
+        fail(f"phase 5h (b) smoke: gate {r0['smoke_gate']}, planted {r0['smoke_planted']}")
+    s0 = step2[0]
+    for label, g in (("(b) smoke 2 x 2", r0["smoke_gate"]),
+                     ("(b) smoke 2 x 2, planted: the model gather's VJP x m", r0["smoke_planted"]),
+                     ("(b) full width (1, 2)", s0["gate"])):
+        print(f"lm mesh {label}: loss err {g['loss_err']:.3e} (bf16 ref {g['ref16_loss_err']:.3e}), "
+              f"worst leaf {g['worst_leaf_err']:.3e} at {g['worst_leaf']} (bf16 ref "
+              f"{g['ref16_worst_leaf_err']:.3e}), {g['leaves']} leaves: "
+              f"{'passed' if g['passed'] else 'flagged'}", flush=True)
+    if not s0["gate"]["passed"]:
+        fail(f"phase 5h (b) full width: gate {s0['gate']}")
+    # (c) payloads, and the launches of the full-width step
+    for r in ep4 + step2:
+        st = r.get("smoke_step") or r["step"]
+        if st["payload"] != st["want_payload"] or st["nonfinite"]:
+            fail(f"phase 5h (c) rank {r['rank']}: payload {st['payload']}, the roofline's "
+                 f"{st['want_payload']}, nonfinite {st['nonfinite']}")
+    p, l = s0["b7_products"], s0["b7_launches"]
+    roles = {k: p.get(k, 0) for k in ("forward", "recompute", "dx", "dw")}
+    print(f"lm mesh (b) B7 launches by role on rank 0's E/m experts: {roles}, "
+          f"{l.get('gmm/wgmma', 0)} of {l.get('gmm', 0)} on wgmma; the gradient in "
+          f"{p['grads_s']:.1f} s; each leaf held block by block against the same block of "
+          f"the reference, the leaf's error the largest over the ranks", flush=True)
+    if roles != dict(forward=3, recompute=3, dx=3, dw=3) or l != {"gmm": 12, "gmm/wgmma": 12}:
+        fail(f"phase 5h (b): B7 launches {l}, by role {roles}; want 3 of each, all on wgmma, "
+             f"and nothing else")
+    out["b7_roles"] = roles
+    for r in step2:
+        n = 12 * MOE_TRAIN_LAYERS
+        if r["step"]["launches"] != {"gmm": n, "gmm/wgmma": n}:
+            fail(f"phase 5h (b) rank {r['rank']}: the step's launches {r['step']['launches']}, "
+                 f"want B7 {n} times on wgmma and nothing else")
+        print(f"lm mesh (b) rank {r['rank']} {r['coords']}: step {r['step']['ms']:.1f} ms, loss "
+              f"{r['step']['loss']:.6f}, peak {r['step']['peak_bytes']} B, state held "
+              f"{r['held_bytes']} B (params and AdamW state; roofline.mesh_state_bytes, which "
+              f"counts the gradients too, {r['reckoned_state_bytes']} B), "
+              f"payload {r['step']['payload']} = lm_step_payloads; seconds into the rank "
+              f"{r['seconds']}", flush=True)
+    launches["lm_mesh"] = s0["step"]["launches"]
+    e80, e160 = row["cases"]
+    print(f"lm mesh B7: E 80 (a rank's experts at model 2) {e80['device_ms']} ms device, "
+          f"E 160 {e160['device_ms']} ms device, bound {e80['bound_ms']:.4f} / "
+          f"{e160['bound_ms']:.4f} ms.  These runs share one card between the ranks: no "
+          f"scaling figure", flush=True)
+    defer(out, "nccl1", run_lm_mesh_nccl1)
+    defer(out, "launcher", run_lm_mesh_launcher)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 5h: {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -5660,8 +6367,11 @@ def run_moe_serve_launcher():
 # then 1000 (a ragged last chunk: the zero-padded tail) and 2048 slot by
 # slot; zamba2-7b (5.62 G params, 22.5 GB in fp32 and 11 GB of bf16 compute
 # copies): a stacked pair, then 512 and 2048
-SSM_SERVE = (("mamba2-780m", 4, (1024, 1024, 1024, 1024, 1000, 2048), 16),
-             ("zamba2-7b", 2, (1024, 1024, 512, 2048), 8))
+# (arch, slots, prompts, new tokens, layers): mamba2-780m decodes 8 new
+# tokens a request (16 before phase 5h), zamba2-7b serves 42 of its 81
+# layers (35 mamba, 7 shared sites; all 81 before phase 5h)
+SSM_SERVE = (("mamba2-780m", 4, (1024, 1024, 1024, 1024, 1000, 2048), 8, 48),
+             ("zamba2-7b", 2, (1024, 1024, 512, 2048), 8, 42))
 SSM_PREFILL_LENGTHS = (1024, 2048)
 SSM_DECODE_POS = 1024
 SSM_CATEGORIES = (("B6 ssd_chunk", ("ssd_wgmma", "ssd_chunk_kernel")),) + LM_CATEGORIES
@@ -5883,14 +6593,15 @@ def ssm_state_err(got, want) -> float:
     return worst
 
 
-def ssm_serve_one(arch, slots, prompts, max_new, dev, launches, fault: bool):
-    """One model of phase 6d: the counted engine run, the gate (and the
-    planted B6 fault, with ``fault``), the timings."""
+def ssm_serve_one(arch, slots, prompts, max_new, layers, dev, launches, fault: bool):
+    """One model of phase 6d at ``layers`` layers: the counted engine run,
+    the gate (and the planted B6 fault, with ``fault``), the timings."""
+    import dataclasses
     import torch
     from repro_torch.common.tree import tree_leaves
     from repro_torch.configs.registry import get_config
     from repro_torch.models.registry import get_api
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
     params = get_api(cfg).init(torch.Generator(device=dev).manual_seed(0), cfg)
     p16 = get_api(cfg).compute_params(params, cfg)
     nm, sites, h = ssm_shape(cfg)
@@ -5932,14 +6643,14 @@ def ssm_serve_one(arch, slots, prompts, max_new, dev, launches, fault: bool):
 
 def run_ssm_serve(dev, launches):
     """Phase 6d: LM decode serving of mamba2-780m and zamba2-7b at full
-    width and depth (random weights drawn on the card from seed 0, bf16
+    width, at SSM_SERVE's depths (random weights drawn on the card from seed 0, bf16
     compute) through ``ServeEngine``; B6 and B5 at the path's shapes; the
     launchers as subprocesses."""
     import torch
     t_phase = time.perf_counter()
     out = dict(kind="lm_serve_ssm")
-    for (arch, slots, prompts, max_new), fault in zip(SSM_SERVE, (True, False)):
-        out[arch] = ssm_serve_one(arch, slots, prompts, max_new, dev, launches, fault)
+    for (arch, slots, prompts, max_new, layers), fault in zip(SSM_SERVE, (True, False)):
+        out[arch] = ssm_serve_one(arch, slots, prompts, max_new, layers, dev, launches, fault)
     specs = ssm_path_specs(dev, [
         (f"mamba2-780m prefill S{n} G{n // 256 * 48} Q256 P64 N128 fp32", n // 256 * 48, 64, 128)
         for n in SSM_PREFILL_LENGTHS] + [
@@ -6416,6 +7127,9 @@ def main() -> int:
     mark("phase 5f done")
     summary.append(run_dp_train(dev, launches))
     mark("phase 5g done")
+    lm_mesh = run_lm_mesh(dev, launches)
+    summary.append(lm_mesh)
+    mark("phase 5h done")
     ops_rows, ops_planted = run_ops_path(dev, launches)
     planted += ops_planted
     mark("phase 6 done")
@@ -6443,8 +7157,10 @@ def main() -> int:
     prefill_row = lm_serve["prefill_kernel"]
     rows["gmm"]["lm_moe_cases"] = moe_serve["gmm_cases"]
     rows["gmm"]["lm_moe_train_cases"] = moe_train["kernel_cases"]
+    rows["gmm"]["lm_ep_cases"] = lm_mesh["kernel_cases"]
     rows["gmm"]["max_abs_err"] = max(rows["gmm"]["max_abs_err"], moe_serve["gmm_max_abs_err"],
-                                     moe_train["kernel_max_abs_err"])
+                                     moe_train["kernel_max_abs_err"],
+                                     lm_mesh["kernel_max_abs_err"])
     rows["flash_attention"]["lm_prefill_cases"] = prefill_row["cases"]
     rows["flash_attention"]["lm_train_cases"] = lm_train["kernel_cases"]
     rows["flash_attention"]["lm_pretrain_cases"] = lm_pretrain["kernel_cases"]
@@ -6491,7 +7207,7 @@ def main() -> int:
         | ({"lm_train_launches": launches["lm_train"][n]}
            if n in launches["lm_train"] and train_path.get(n) != "lm_train" else {})
         | ({f"{p}_launches": launches[p][n] for p in ("ops", "serve_replica", "lm_serve_gemma2",
-                                                       "lm_pretrain",
+                                                       "lm_pretrain", "lm_mesh",
                                                        "lm_serve_kimi", "lm_serve_deepseek",
                                                        "lm_moe_episodic", "lm_serve_zamba2",
                                                        "lm_ssm_train_zamba2",
@@ -6504,7 +7220,7 @@ def main() -> int:
         | ({"main_cases": [{k: t[k] for k in case_keys} for t in rows[n]["cases"]]}
            if len(rows[n]["cases"]) > 1 else {})
         | ({f"lm_{c}_cases": [{k: t[k] for k in case_keys} for t in rows[n][f"lm_{c}_cases"]]
-            for c in ("prefill", "train", "pretrain", "moe", "moe_train", "ssm", "zamba2",
+            for c in ("prefill", "train", "pretrain", "moe", "moe_train", "ep", "ssm", "zamba2",
                       "whisper")
             if f"lm_{c}_cases" in rows[n]})
         for n in rows]}))
@@ -6520,4 +7236,6 @@ if __name__ == "__main__":
         sys.exit(dp_rank_main(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--serve-rank"]:
         sys.exit(serve_rank_main(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--lm-rank"]:
+        sys.exit(lm_rank_main(sys.argv[2], sys.argv[3]))
     sys.exit(main())

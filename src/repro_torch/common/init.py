@@ -6,7 +6,10 @@ computes, carry its weights across with :mod:`repro_torch.bridge`.
 
 Inside :func:`drawn_as` every draw is cast to the given dtype as soon as it
 is drawn, before the next: a model's fp32 draws then never coexist, and
-the numbers are those of casting the whole tree after init."""
+the numbers are those of casting the whole tree after init.  Inside
+:func:`draws_kept` every draw, once cast, is handed to a function whose
+result takes its place (the sharded init keeps a rank's block of each leaf
+and frees the rest before the next is drawn)."""
 from __future__ import annotations
 
 import contextlib
@@ -18,6 +21,8 @@ import torch
 
 _draw_dtype: contextvars.ContextVar = contextvars.ContextVar("repro_torch_draw_dtype",
                                                              default=None)
+_draw_keep: contextvars.ContextVar = contextvars.ContextVar("repro_torch_draw_keep",
+                                                            default=None)
 
 
 @contextlib.contextmanager
@@ -31,6 +36,18 @@ def drawn_as(dtype: Optional[torch.dtype]):
         _draw_dtype.reset(token)
 
 
+@contextlib.contextmanager
+def draws_kept(keep):
+    """Scope in which :func:`normal_init` returns ``keep(draw)`` in place of
+    each draw (after :func:`drawn_as`'s cast, before the move to its
+    device)."""
+    token = _draw_keep.set(keep)
+    try:
+        yield
+    finally:
+        _draw_keep.reset(token)
+
+
 def normal_init(gen: torch.Generator, shape, std: float = 0.02,
                 device=None) -> torch.Tensor:
     """``std`` times standard normals drawn on ``gen``'s device (a CUDA
@@ -41,7 +58,10 @@ def normal_init(gen: torch.Generator, shape, std: float = 0.02,
     only temporary."""
     t = torch.randn(shape, generator=gen, device=gen.device).mul_(std)
     dt = _draw_dtype.get()
-    return (t if dt is None else t.to(dt)).to(device)
+    if dt is not None:
+        t = t.to(dt)
+    keep = _draw_keep.get()
+    return (t if keep is None else keep(t)).to(device)
 
 
 def lecun_normal(gen: torch.Generator, shape, fan_in: int,

@@ -52,11 +52,32 @@ def abstract_params_for(cfg: ModelConfig):
     # init draws on its generator's device, and no generator exists on
     # ``meta``: run it on a CPU generator under fake tensors, which allocate
     # nothing and carry shape and dtype.  FakeTensorMode is private API of
-    # torch, so it is imported here and nowhere else.
+    # torch, so it is imported in this module and nowhere else.
     from torch._subclasses.fake_tensor import FakeTensorMode
     with FakeTensorMode():
         params = get_api(cfg).init(torch.Generator(), cfg)
     return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), params)
+
+
+def draw_paths(init_fn) -> list:
+    """The leaf path of each draw of ``init_fn(gen, "cpu")`` (a tree of
+    params drawn through :func:`repro_torch.common.init.normal_init`), in
+    draw order, from one run under fake tensors on a CPU generator, which
+    allocates nothing (the sharded init cuts each draw by its leaf's
+    spec)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.common.init import draws_kept
+    from repro_torch.common.tree import tree_paths
+    drawn = []
+    with FakeTensorMode():
+        with draws_kept(lambda t: drawn.append(t) or t):
+            tree = init_fn(torch.Generator(), "cpu")
+        where = {id(t): path for path, t in tree_paths(tree).items()}
+    paths = [where.get(id(t)) for t in drawn]
+    if None in paths:
+        raise ValueError("a draw of the init function is not a leaf of its tree")
+    return paths
 
 
 def shape_by_name(name: str) -> ShapeSpec:

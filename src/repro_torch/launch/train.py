@@ -4,14 +4,23 @@
     python -m repro_torch.launch.train --arch gemma2-2b --steps 200 \\
         --batch 8 --seq 128 --ckpt-dir /tmp/ck
 
-LM training (the default): the arch's smoke config (``--full`` prints the
-JAX launcher's warning and runs the smoke config too, since the
-production mesh is multi-GPU work, ROADMAP A12 part 2) with random weights from
-seed 0, AdamW in the config's state dtype, a cosine schedule (or
+LM training (the default): the arch's smoke config with random weights
+from seed 0, AdamW in the config's state dtype, a cosine schedule (or
 ``--schedule wsd``) from ``--peak-lr``, batches from
 :class:`repro_torch.data.tokens.TokenPipeline` (seed 0), through the
 fault-tolerant loop with checkpoints and resume.  The step updates the
 state in place (:func:`repro_torch.train.step.make_train_step`).
+Under ``torchrun`` the LM trains on a (data, model) mesh of the world's
+ranks (:mod:`repro_torch.sharding`): with ``--full`` and a world of 256 x
+``--pods`` the published config on the production mesh (16 x 16, or
+``pods`` x 16 x 16), otherwise the smoke config on the (world, 1) test
+mesh, ``--full`` printing the JAX launcher's warning.  The state is drawn
+sharded, each rank keeps its data rows of the global batch, rank 0 prints,
+and a checkpoint holds whole leaves, so it restores on another mesh::
+
+    python -m torch.distributed.run --nproc-per-node 8 -m repro_torch.launch.train \\
+        --arch deepseek-v2-236b --batch 8 --seq 128
+
 ``--arch whisper-base`` is refused before any state is built: whisper's
 loss reads frame embeddings, which the token pipeline does not yield, and
 the JAX launcher has no whisper path either (ROADMAP R6).
@@ -51,7 +60,7 @@ is sharded over a 1-D ``data`` mesh, or over ``(dcn, data)`` where
 on ``cuda``, one rank a card) or gloo (the default on ``cpu``; on ``cuda``
 several ranks may share a card).  Rank 0 prints and writes the checkpoints;
 every rank reads them, and a compressed run's directory ends in
-``_ef<dcn>``.  The LM path (no ``--episodic``) stays on one card.
+``_ef<dcn>``.
 """
 from __future__ import annotations
 
@@ -80,39 +89,74 @@ def _finish_preempted(e) -> None:
 
 
 def run_lm(args) -> None:
-    from repro_torch.configs.registry import get_smoke_config
+    """One device, or under ``torchrun`` (``RANK`` and ``WORLD_SIZE`` set) a
+    (data, model) mesh of the world's ranks."""
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import init_distributed
+        device = init_distributed(args.device, backend=args.dist_backend)
+        try:
+            _run_lm(args, device, distributed=True)
+        finally:
+            dist.destroy_process_group()
+    else:
+        from repro_torch.serve.episodic import resolve_device
+        _run_lm(args, resolve_device(args.device), distributed=False)
+
+
+def _run_lm(args, device, distributed: bool) -> None:
+    from repro_torch.configs.registry import get_config, get_smoke_config
     from repro_torch.data.tokens import (TokenPipeline, TokenPipelineConfig, batch_to_device,
                                          require_tokens_only)
     from repro_torch.faults import PreemptionSignal
     from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import make_production_mesh, make_test_mesh, world_size
     from repro_torch.optim.schedules import schedule_for
-    from repro_torch.serve.episodic import resolve_device
-    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.checkpoint import CheckpointManager, ShardedCheckpointManager
     from repro_torch.train.loop import PreemptedError, train
-    from repro_torch.train.step import adamw_for, make_init_state, make_train_step
+    from repro_torch.train.step import (adamw_for, lm_state_specs, make_init_state,
+                                        make_sharded_init_state, make_train_step)
 
-    cfg = get_smoke_config(args.arch)
+    mesh, n_dev = None, 1
+    if distributed:
+        n_dev = world_size()
+        if args.full and n_dev >= 256 * args.pods:
+            mesh = make_production_mesh(multi_pod=args.pods > 1, pods=args.pods)
+            cfg = get_config(args.arch)
+        else:
+            mesh = make_test_mesh()
+            cfg = get_smoke_config(args.arch)
+    else:
+        cfg = get_smoke_config(args.arch)
+        n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
     require_tokens_only(cfg)
-    device = resolve_device(args.device)
-    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
-    if args.full:
+    lead = mesh is None or mesh.rank == 0
+    if args.full and cfg.name != args.arch and lead:
         print(f"[warn] --full needs >=256 devices (have {n_dev}); running the smoke "
-              f"config on one device", flush=True)
-    print(f"arch={cfg.name} devices={n_dev} device={device}", flush=True)
+              f"config on the test mesh", flush=True)
+    if lead:
+        where = "" if mesh is None else f" mesh={mesh.shape} backend={mesh.backend}"
+        print(f"arch={cfg.name}{where} devices={n_dev} device={device}", flush=True)
 
-    init = make_init_state(cfg, adamw_for(cfg))
+    adamw = adamw_for(cfg)
     sched = schedule_for(args.schedule or "cosine", args.peak_lr,
                          max(args.steps // 50, 1), args.steps)
-    step = make_train_step(cfg, adamw_for(cfg), schedule=sched)
+    step = make_train_step(cfg, adamw, schedule=sched, mesh=mesh)
+    init = make_init_state(cfg, adamw) if mesh is None \
+        else make_sharded_init_state(cfg, adamw, mesh)
     state = init(torch.Generator(device=device).manual_seed(0), device)
     pipe = TokenPipeline(TokenPipelineConfig(vocab=cfg.vocab, seq_len=args.seq,
                                              global_batch=args.batch))
 
     def batch_at(s):
+        # every rank builds the global batch; a mesh step keeps its data rows
         return batch_to_device(pipe.batch_at(s), device)
 
     ckpt = CheckpointManager(args.ckpt_dir or os.path.join(
         tempfile.gettempdir(), f"repro_torch_train_ckpt_{cfg.name}"), keep=3)
+    if mesh is not None:
+        ckpt = ShardedCheckpointManager(ckpt, mesh, *lm_state_specs(cfg, adamw, mesh))
     preempt = PreemptionSignal().install()
     try:
         with dispatch.use_backend(args.kernel_backend):
@@ -120,9 +164,15 @@ def run_lm(args) -> None:
                            ckpt_every=args.ckpt_every, state_template=state,
                            log_every=25, preempt=preempt,
                            max_nonfinite=args.max_nonfinite_skips,
-                           data_retries=args.data_retries)
+                           data_retries=args.data_retries,
+                           agree=None if mesh is None else mesh.any_rank,
+                           log=(lambda msg: print(msg, flush=True)) if lead else None)
     except PreemptedError as e:
+        if not lead:
+            sys.exit(EXIT_PREEMPTED)
         _finish_preempted(e)
+    if not lead:
+        return
     if not result.metrics_history:
         print(f"nothing to do: checkpoint already at step {result.step} "
               f"(resumed_from={result.resumed_from})")
@@ -289,12 +339,12 @@ def main(argv=None) -> None:
                          "(--episodic) in the temporary directory")
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--pods", type=int, default=1,
-                    help="pods of the production mesh, read with --full on "
-                         ">= 256 devices only (ROADMAP A12 part 2)")
+                    help="pods of the production mesh (pod, data 16, model 16), "
+                         "read with --full under torchrun on 256 x pods ranks")
     ap.add_argument("--full", action="store_true",
-                    help="full assigned config on the production mesh; with "
-                         "fewer than 256 devices it warns and runs the smoke "
-                         "config")
+                    help="the published config on the production mesh; under "
+                         "torchrun with fewer than 256 x --pods ranks, or on one "
+                         "device, it warns and runs the smoke config")
     ap.add_argument("--episodic", action="store_true",
                     help="task-batched LITE meta-training workload")
     ap.add_argument("--learner", default="protonets",
@@ -312,7 +362,7 @@ def main(argv=None) -> None:
                          "exact pmean or int8 error feedback (needs "
                          "--dcn-shards >= 2)")
     ap.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
-                    help="torch.distributed backend of a data-parallel run: nccl "
+                    help="torch.distributed backend of a run under torchrun: nccl "
                          "(default on cuda, one rank a card) or gloo (default on "
                          "cpu; on cuda ranks may share a card).  The JAX launcher "
                          "has no such flag: JAX has no backend to choose")

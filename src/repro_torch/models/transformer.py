@@ -49,6 +49,7 @@ from repro_torch.core.film import apply_film
 from repro_torch.kernels import dispatch
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.sharding.ctx import active_mesh, use_mesh
 
 Params = Dict
 AUX_COEF = 0.01
@@ -61,16 +62,37 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 def moe_dispatch(lp: Params, h2d: torch.Tensor, cfg: ModelConfig,
                  backend: Optional[str] = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
-    """The MoE FFN of one layer on (T, D) tokens, on one device.  The JAX
-    package routes to its expert-parallel ``moe_ffn_sharded`` under a mesh
-    (``cfg.moe_shard_map``); the port's counterpart is a process group of
-    more than one rank, and that path is ROADMAP A12."""
-    if cfg.moe_shard_map and torch.distributed.is_available() \
-            and torch.distributed.is_initialized() and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: the expert-parallel MoE dispatch over several ranks is "
-            f"ROADMAP A12; the port runs moe_ffn on one device")
-    return M.moe_ffn(lp, h2d, cfg.moe, backend=backend)
+    """The MoE FFN of one layer on (T, D) tokens.  On one device (no
+    :func:`repro_torch.sharding.ctx.active_mesh`) ``moe_ffn``.  Under an
+    active mesh ``h2d`` is this data shard's tokens, whole on every model
+    rank (the port replicates dense compute over ``model``), and with
+    ``cfg.moe_shard_map`` the layer runs expert-parallel
+    (``moe_ffn_sharded``) in the residual's layout,
+    ``cfg.activation_layout`` if ``cfg.shard_activations_model`` else
+    ``"seq"``, as the reference picks it (``transformer.py:44-48``): the
+    tokens are cut to the layout's block, and the output gathered back
+    (Megatron's sequence-parallel pair: the cut's backward gathers, the
+    gather's takes this rank's block, since every model rank holds the
+    whole gradient of a value it holds whole).  The shared experts run on
+    the whole tokens.  Where the layout's dim does not divide, or without
+    ``moe_shard_map``, ``moe_ffn`` runs on the global tokens, as GSPMD runs
+    it in the reference (``moe_ffn_global``)."""
+    from repro_torch.launch.mesh import all_gather, split
+    mesh = active_mesh()
+    if mesh is None:
+        return M.moe_ffn(lp, h2d, cfg.moe, backend=backend)
+    layout = cfg.activation_layout if cfg.shard_activations_model else "seq"
+    t, d = h2d.shape
+    n_model = mesh.shape.get("model", 1)
+    if not cfg.moe_shard_map or (d if layout == "hidden" else t) % n_model:
+        return M.moe_ffn_global(lp, h2d, cfg.moe, mesh, backend)
+    dim = 1 if layout == "hidden" else 0
+    x_local = split(h2d, mesh, "model", dim)
+    y, aux = M.moe_ffn_sharded(lp, x_local, cfg.moe, mesh, layout, backend, shared=False)
+    y = all_gather(y, mesh, "model", dim, vjp="slice")
+    if cfg.moe.n_shared > 0:
+        y = y + M._shared_ffn(lp["shared"], h2d)
+    return y, aux
 
 
 def _ffn(lp: Params, h: torch.Tensor, cfg: ModelConfig, backend: Optional[str]
@@ -227,6 +249,13 @@ def _remat(cfg: ModelConfig) -> Optional[Dict]:
     return {}
 
 
+def _block_under(mesh, *args):
+    """:func:`block` under ``mesh`` (a checkpoint's recompute, in the
+    backward, sees the mesh of its forward)."""
+    with use_mesh(mesh):
+        return block(*args)
+
+
 def trunk(params: Params, x: torch.Tensor, cfg: ModelConfig,
           backend: Optional[str] = "auto", film: Optional[Dict] = None
           ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -240,14 +269,16 @@ def trunk(params: Params, x: torch.Tensor, cfg: ModelConfig,
     forward, and its kernels, a second time."""
     remat = _remat(cfg) if torch.is_grad_enabled() else None
     # resolved now: a checkpoint's recompute runs in the backward, outside
-    # the caller's use_backend scope
+    # the caller's use_backend and use_mesh scopes (on another thread, on
+    # the card)
     backend = dispatch.resolve_backend(backend, x.device)
+    mesh = active_mesh()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, w in enumerate(layer_windows(cfg)):
         f = None if film is None else {k: v[i] for k, v in film.items()}
         if remat is not None:
             # the block draws no random numbers: no RNG state to restore
-            x, a = checkpoint(block, cfg, _layer(params, i), x, w, backend, f,
+            x, a = checkpoint(_block_under, mesh, cfg, _layer(params, i), x, w, backend, f,
                               use_reentrant=False, preserve_rng_state=False, **remat)
         else:
             x, a = block(cfg, _layer(params, i), x, w, backend, f)

@@ -14,7 +14,8 @@ them from the configs.  Two layers:
 
       T_compute  = bf16 FLOPs / bf16 peak + fp32 FLOPs / fp32 peak
       T_memory   = bytes / HBM rate
-      T_coll     = 0 on one card (a mesh for the cells: ROADMAP A12 part 2)
+      T_coll     = 0 on one card; on a mesh the step's collectives' wire bytes
+                   at the links' rates (:func:`lm_step_payloads`)
       bottleneck = argmax of the three
       MODEL_FLOPS = 6 N_active D (train; 2 N_active D for an inference pass)
       useful ratio = MODEL_FLOPS / the bound's FLOPs
@@ -22,6 +23,17 @@ them from the configs.  Two layers:
 
 and the wire bytes and link times of the data-parallel meta-training step
 (:func:`dp_payloads`, :func:`dp_wire_bytes`, :func:`dp_collective_ms`).
+
+``analyze_cell(arch, shape, mesh=)`` also reads a train cell on the
+production LM mesh, ``"single"`` (data 16 x model 16, 256 H100s) or
+``"multi"`` (2 x 16 x 16, 512), as the port's sharded step runs it
+(:mod:`repro_torch.sharding`): the dense compute split over the data
+ranks and replicated over ``model``, the experts of an expert-parallel
+layer over every chip; the state per chip the sanitized rules' blocks;
+T_coll the payloads of :func:`lm_step_payloads` through the ring factors,
+a ``model`` group of at most 8 cards (one node) on NVLink and every other
+group on InfiniBand.  The port has no LM serving mesh, so a mesh's prefill
+and decode cells are skipped.
 
 Every number here is derived from NVIDIA's data-sheet peaks; none is
 measured.  The model modules are imported inside the functions that need
@@ -451,13 +463,17 @@ def _state_bytes_of_cell(cfg: ModelConfig, shape: ShapeSpec) -> int:
                              if hasattr(t, "numel"))
 
 
-def analyze_cell(arch: str, shape_name: str) -> Dict:
-    """The three-term roofline of one (arch x shape) cell on one H100, with
-    the JAX package's keys; a cell that :func:`cell_supported` refuses
-    gives its ``skipped`` row."""
+def analyze_cell(arch: str, shape_name: str, mesh: Optional[str] = None) -> Dict:
+    """The three-term roofline of one (arch x shape) cell, with the JAX
+    package's keys: on one H100 (``mesh=None``; the row's ``mesh`` is
+    "single", ``chips`` 1), or on the production mesh ``"single"`` (256
+    chips) or ``"multi"`` (512, :func:`mesh_cell`).  A cell that
+    :func:`cell_supported` refuses gives its ``skipped`` row."""
     ok, reason = cell_supported(arch, shape_name)
     if not ok:
-        return dict(arch=arch, shape=shape_name, mesh="single", skipped=reason[:60])
+        return dict(arch=arch, shape=shape_name, mesh=mesh or "single", skipped=reason[:60])
+    if mesh is not None:
+        return mesh_cell(arch, shape_name, mesh)
     cfg, shape = get_config(arch), SHAPES_BY_NAME[shape_name]
     nbytes, bf16, f32 = cell_work(cfg, shape)
     t_compute = bf16 / BF16_FLOPS + f32 / FP32_FLOPS
@@ -544,10 +560,297 @@ def dp_collective_ms(n_param_bytes: int, dp: int, dcn: int, grad_reduce: str = "
     return (st["data"] / NVLINK_BYTES_PER_S + st["dcn"] / IB_BYTES_PER_S) * 1e3
 
 
-def cell_rows() -> List[Dict]:
+# -- the LM mesh -------------------------------------------------------------------------
+
+PRODUCTION_MESHES = {"single": {"data": 16, "model": 16},
+                     "multi": {"pod": 2, "data": 16, "model": 16}}
+CARDS_PER_NODE = 8            # an H100 SXM node (NVIDIA's DGX H100)
+
+
+class _MeshShape:
+    """Axis sizes and nothing else: what the rules' ``sanitize`` reads."""
+
+    def __init__(self, shape: Dict[str, int]):
+        self.shape = dict(shape)
+
+
+def _prod(xs) -> int:
+    out = 1
+    for x in xs:
+        out *= x
+    return out
+
+
+def _axes_label(names) -> str:
+    return "+".join(names)
+
+
+def _reshard_payloads(block, src, dst, sizes: Dict[str, int], item: int):
+    """The all-gathers :func:`repro_torch.sharding.place.reshard` makes to
+    take a block of shape ``block`` under ``src`` to ``dst``: [(axes,
+    bytes)], and the block's shape under ``dst``."""
+    from repro_torch.sharding.ctx import entry_names
+    cur, out = list(block), []
+    moved = [d for d in range(len(cur)) if entry_names(src[d]) != entry_names(dst[d])]
+    for d in moved:
+        names = entry_names(src[d])
+        if names and _prod(sizes[a] for a in names) > 1:
+            out.append((names, _prod(cur) * item))
+            cur[d] *= _prod(sizes[a] for a in names)
+    for d in moved:
+        names = entry_names(dst[d])
+        if names:
+            cur[d] //= _prod(sizes[a] for a in names)
+    return out, bool(moved)
+
+
+def ep_layer_payloads(cfg: ModelConfig, sizes: Dict[str, int], t_loc: int) -> Dict[str, int]:
+    """The payloads one MoE layer of the sharded step hands its collectives
+    on ``t_loc`` tokens a data shard, forward and backward (the forward's
+    twice under a remat policy: the checkpoint's recompute runs it again),
+    by ``kind/axis``, as ``transformer.moe_dispatch`` makes them.
+    Expert-parallel: the reference's body moves 2 x T_loc x D a layer (its
+    all-gather of the block, its reduce-scatter of y); the port's dense
+    compute is whole on every model rank, so the layer also cuts its
+    tokens to the block and gathers y back (Megatron's sequence-parallel
+    pair), and the backward all-reduces the router's gradient over model.
+    The fallback gathers the tokens over the data ranks."""
+    from repro_torch.models.moe import ep_applies
+    out: Dict[str, int] = {}
+
+    def add(kind, names, nbytes, times=1):
+        key = f"{kind}/{_axes_label(names)}"
+        out[key] = out.get(key, 0) + nbytes * times
+
+    m = cfg.moe
+    dax = ("pod", "data") if "pod" in sizes else ("data",)
+    n_data, n_model = _prod(sizes[a] for a in dax), sizes.get("model", 1)
+    layout = cfg.activation_layout if cfg.shard_activations_model else "seq"
+    d, item = cfg.d_model, _ITEMSIZE[cfg.compute_dtype]
+    p_item = _ITEMSIZE[cfg.param_dtype]
+    fwd = 2 if cfg.remat_policy != "none" else 1
+    x = t_loc * d * item
+    if not cfg.moe_shard_map or (d if layout == "hidden" else t_loc) % n_model:
+        if n_data > 1:
+            add("all_gather", dax, x, fwd)
+            add("all_reduce", dax, 4, fwd)
+            add("reduce_scatter", dax, n_data * x)
+        return out
+    if n_model > 1:
+        add("all_gather", ("model",), x // n_model, fwd)        # the body's gather
+        add("reduce_scatter", ("model",), x)                     # its VJP
+        add("all_gather", ("model",), x // n_model, fwd)        # y gathered back
+        add("all_gather", ("model",), x // n_model)              # the cut's VJP
+    if ep_applies(m, sizes, t_loc, d, layout):
+        add("reduce_scatter", ("model",), x, fwd)                # y out of the body
+        add("all_gather", ("model",), x // n_model)              # its VJP
+        add("all_reduce", ("model",), d * m.n_experts * p_item)  # the router's gradient
+    else:
+        if n_model > 1:
+            for w in (d * m.n_experts, 3 * m.n_experts * d * m.d_ff):
+                add("all_reduce", ("model",), w * p_item)
+        if n_data > 1:
+            add("all_gather", dax, x, fwd)
+            add("reduce_scatter", dax, n_data * x)
+    if n_data > 1:
+        add("all_reduce", dax, 4, fwd)                            # aux over data
+    if n_model > 1:
+        add("all_reduce", ("model",), 4, fwd)                     # aux over model
+    return out
+
+
+def lm_step_payloads(cfg: ModelConfig, mesh_shape: Dict[str, int], B: int, S: int,
+                     state_dtype: Optional[str] = None, skip_nonfinite: bool = True
+                     ) -> Dict[str, int]:
+    """The bytes one rank hands the collectives of one sharded LM step
+    (:func:`repro_torch.train.step.make_train_step` with ``mesh=``) on a B
+    x S token batch, by ``kind/axis`` as :mod:`repro_torch.launch.
+    collectives` counts them: each leaf's FSDP and model all-gathers (the
+    expert banks of an expert-parallel layer stay split over model), the
+    reduce-scatters of their VJPs over the data axes, the all-reduce over
+    data of a leaf no data axis splits; the MoE layers'
+    (:func:`ep_layer_payloads`); the loss's mean over data, the finite
+    verdict on the host group, the clip's sum over each axis; an int8
+    state's reshards.  An axis of one rank makes no call."""
+    from repro_torch.common.tree import tree_paths as paths_of
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.quant import BLOCK
+    from repro_torch.sharding.ctx import entry_names
+    from repro_torch.sharding.place import block_shape, spec_paths
+    from repro_torch.train.step import _at, expert_bank, ep_layer, lm_state_specs
+    sizes = dict(mesh_shape)
+    adam = AdamWConfig(state_dtype=state_dtype or cfg.opt_state_dtype)
+    whole, specs = lm_state_specs(cfg, adam, _MeshShape(sizes))
+    dax = ("pod", "data") if "pod" in sizes else ("data",)
+    n_data = _prod(sizes[a] for a in dax)
+    t_loc = B // n_data * S
+    ep = ep_layer(cfg, _MeshShape(sizes), t_loc)
+    out: Dict[str, int] = {}
+
+    def add(kind, names, nbytes):
+        key = f"{kind}/{_axes_label(names)}"
+        out[key] = out.get(key, 0) + nbytes
+
+    spec_at = spec_paths(specs["params"])
+    leaves = list(paths_of(whole["params"]).items())
+    for path, leaf in leaves:
+        spec = spec_at[path]
+        item = leaf.element_size()
+        block = block_shape(leaf.shape, spec, sizes)
+        cur = list(block)
+        split = [(d, entry_names(e)) for d, e in enumerate(spec)
+                 if entry_names(e) and _prod(sizes[a] for a in entry_names(e)) > 1]
+        for d, names in split:
+            if "model" not in names:
+                add("all_gather", names, _prod(cur) * item)
+                cur[d] *= _prod(sizes[a] for a in names)
+                add("reduce_scatter", names, _prod(cur) * item)
+        if not (ep and expert_bank(path, leaf.dim())):
+            for d, names in split:
+                if names == ("model",):
+                    add("all_gather", names, _prod(cur) * item)
+                    cur[d] *= sizes["model"]
+        named = {a for e in spec for a in entry_names(e)}
+        if n_data > 1 and not set(dax) <= named:
+            add("all_reduce", dax, _prod(block) * item)
+    if n_data > 1:
+        add("all_reduce", dax, 4)                                 # the loss
+    if cfg.moe is not None:
+        for k, v in ep_layer_payloads(cfg, sizes, t_loc).items():
+            out[k] = out.get(k, 0) + v * cfg.n_layers
+    if skip_nonfinite:
+        add("all_reduce", ("host",), 4)
+    for a, n in sizes.items():
+        if n > 1:
+            add("all_reduce", (a,), 4)                            # the clip
+    if adam.state_dtype == "int8":
+        for path, leaf in leaves:
+            sp = spec_at[path]
+            qspec = _at(specs["opt"]["mu"], path)
+            sq, ss = qspec["q"], qspec["scale"]
+            item = leaf.element_size()
+            block = block_shape(leaf.shape, sp, sizes)
+            last = entry_names(sp[-1]) if leaf.dim() else ()
+            u = tuple(sp)
+            if last and _prod(sizes[a] for a in last) > 1 and block[-1] % BLOCK:
+                u = u[:-1] + (None,)
+            nb = (leaf.shape[-1] + BLOCK - 1) // BLOCK
+            sshape = tuple(leaf.shape[:-1]) + (nb,)
+            moves = []
+            for _ in range(2):                                    # the param, its gradient
+                moves += _reshard_payloads(block, sp, u, sizes, item)[0]
+            for _ in ("mu", "nu"):
+                for shape, spec, it in ((leaf.shape, sq, 1), (sshape, ss, 4)):
+                    there, moved = _reshard_payloads(block_shape(shape, spec, sizes), spec,
+                                                     u, sizes, it)
+                    moves += there
+                    if moved:
+                        moves += _reshard_payloads(block_shape(shape, u, sizes), u, spec,
+                                                   sizes, it)[0]
+            for names, nbytes in moves:
+                add("all_gather", names, nbytes)
+    return out
+
+
+def _link_bytes_per_s(names, sizes: Dict[str, int]) -> float:
+    """A group's link rate: NVLink for a ``model`` group within one node,
+    InfiniBand for any other (the data and pod axes, and a model axis
+    wider than a node)."""
+    if tuple(names) == ("model",) and sizes["model"] <= CARDS_PER_NODE:
+        return NVLINK_BYTES_PER_S
+    return IB_BYTES_PER_S
+
+
+def lm_step_collective_s(payloads: Dict[str, int], sizes: Dict[str, int]) -> float:
+    """Seconds of a step's collectives, one after another: each payload
+    through the ring factors (an all-gather sends (g - 1) times its part, a
+    reduce-scatter (g - 1) / g of its buffer, an all-reduce twice that)
+    over its group's link (:func:`_link_bytes_per_s`); the host group's
+    verdict is not counted.  Derived from the data sheets, not measured."""
+    total = 0.0
+    for key, nbytes in payloads.items():
+        kind, label = key.split("/")
+        if label == "host":
+            continue
+        names = tuple(label.split("+"))
+        g = _prod(sizes[a] for a in names)
+        wire = {"all_gather": all_gather_bytes(nbytes, g),
+                "reduce_scatter": (g - 1) / g * nbytes,
+                "all_reduce": ring_all_reduce_bytes(nbytes, g)}[kind]
+        total += wire / _link_bytes_per_s(names, sizes)
+    return total
+
+
+def mesh_state_bytes(cfg: ModelConfig, sizes: Dict[str, int]) -> int:
+    """Bytes of one chip's training state on a mesh: its blocks of the
+    params and their gradients and of AdamW's state, by the sanitized
+    rules (:func:`repro_torch.train.step.lm_state_specs`)."""
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.sharding.ctx import is_spec
+    from repro_torch.sharding.place import block_shape
+    from repro_torch.train.step import lm_state_specs
+    whole, specs = lm_state_specs(cfg, AdamWConfig(state_dtype=cfg.opt_state_dtype),
+                                  _MeshShape(sizes))
+    total = 0
+    for part, mult in (("params", 2), ("opt", 1)):
+        leaves = [t for t in tree_leaves(whole[part]) if hasattr(t, "shape")]
+        sp = [s for s, t in zip(tree_leaves(specs[part], is_leaf=is_spec),
+                                tree_leaves(whole[part])) if hasattr(t, "shape")]
+        total += mult * sum(_prod(block_shape(t.shape, s, sizes)) * t.element_size()
+                            for t, s in zip(leaves, sp))
+    return total
+
+
+def mesh_cell(arch: str, shape_name: str, mesh: str) -> Dict:
+    """A train cell on the production mesh ``mesh`` ("single": 16 x 16,
+    "multi": 2 x 16 x 16) as the port's sharded step runs it: the dense
+    FLOPs over the data ranks (replicated over ``model``), an
+    expert-parallel layer's experts over every chip (a fallback layer runs
+    the global tokens' experts on every chip), the bytes AdamW moves in the
+    chip's state, T_coll of :func:`lm_step_payloads`.  Prefill and decode
+    cells are skipped: the port has no LM serving mesh."""
+    from repro_torch.train.step import ep_layer
+    sizes = PRODUCTION_MESHES[mesh]
+    chips = _prod(sizes.values())
+    cfg, shape = get_config(arch), SHAPES_BY_NAME[shape_name]
+    row = dict(arch=arch, shape=shape_name, mesh=mesh)
+    if shape.kind != "train":
+        return dict(row, skipped="no LM serving mesh in the port (A12 part 3 trains)")
+    dax = ("pod", "data") if "pod" in sizes else ("data",)
+    n_data = _prod(sizes[a] for a in dax)
+    b, s = shape.global_batch, shape.seq_len
+    if b % n_data:
+        return dict(row, skipped=f"batch {b} does not split over {n_data} data ranks")
+    nbytes, bf16, f32 = cell_work(cfg, shape)
+    experts = 0.0                # the expert projections' bf16 FLOPs, the whole batch
+    if cfg.moe is not None:
+        experts = 3 * 2.0 * cfg.n_layers * b * s * cfg.moe.top_k * 3 * cfg.d_model \
+            * cfg.moe.d_ff
+    # a fallback layer runs the global tokens' experts on every chip
+    expert_chip = experts / chips if ep_layer(cfg, _MeshShape(sizes), b // n_data * s) \
+        else experts
+    flops_chip = (bf16 - experts + f32) / n_data + expert_chip
+    t_compute = ((bf16 - experts) / n_data + expert_chip) / BF16_FLOPS \
+        + f32 / n_data / FP32_FLOPS
+    state = mesh_state_bytes(cfg, sizes)
+    total_state = state_bytes(int(param_counts(cfg)["total"]), cfg.opt_state_dtype,
+                              cfg.param_dtype)
+    t_memory = nbytes * state / total_state / HBM_BYTES_PER_S
+    payloads = lm_step_payloads(cfg, sizes, b, s)
+    t_coll = lm_step_collective_s(payloads, sizes)
+    terms = dict(compute=t_compute, memory=t_memory, collective=t_coll)
+    mf = model_flops(cfg, shape_name)
+    return dict(row, chips=chips, t_compute=t_compute, t_memory=t_memory,
+                t_collective=t_coll, bottleneck=max(terms, key=terms.get), model_flops=mf,
+                useful_ratio=mf / chips / max(flops_chip, 1.0),
+                roofline_fraction=mf / (chips * BF16_FLOPS) / max(terms.values()),
+                state_bytes_per_device=state, hbm_headroom_gib=(HBM_BYTES - state) / 2**30)
+
+
+def cell_rows(mesh: Optional[str] = None) -> List[Dict]:
     """:func:`analyze_cell` of every arch in ``ARCH_IDS`` x every shape in
     ``SHAPES``, in that order."""
-    return [analyze_cell(arch, s.name) for arch in ARCH_IDS for s in SHAPES]
+    return [analyze_cell(arch, s.name, mesh) for arch in ARCH_IDS for s in SHAPES]
 
 
 def format_markdown(rows) -> str:

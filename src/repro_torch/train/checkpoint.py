@@ -313,3 +313,45 @@ class MeshCheckpointManager:
             return None
         state, extra = self.restore(step, template)
         return step, state, extra
+
+
+class ShardedCheckpointManager:
+    """A :class:`CheckpointManager` shared by the ranks of an LM mesh whose
+    state rests as blocks (:func:`repro_torch.train.step.
+    make_sharded_init_state`).  A checkpoint holds whole leaves in the
+    single-device layout, so one written on one mesh restores on another
+    (and on one device): every rank joins the all-gathers of each leaf in
+    turn, rank 0 keeps it on the host and writes; every rank reads the
+    whole state and keeps its blocks.  ``whole`` is the state's whole tree
+    on ``meta`` and ``specs`` its spec tree for ``mesh``
+    (:func:`repro_torch.train.step.lm_state_specs`).  Every rank must call
+    ``save`` together, as the training loop does."""
+
+    def __init__(self, inner: CheckpointManager, mesh, whole: Tree, specs: Tree):
+        self.inner = inner
+        self.mesh = mesh
+        self.whole = whole
+        self.specs = specs
+
+    def save(self, step: int, state: Tree, extra: Optional[Dict] = None):
+        from repro_torch.sharding.place import gather_tree
+        host = gather_tree(state, self.specs, self.mesh, device="cpu")
+        path = self.inner.save(step, host, extra) if self.mesh.rank == 0 else None
+        self.mesh.barrier()
+        return path
+
+    def restore(self, step: int, template: Tree) -> Tuple[Tree, Dict]:
+        """The state at ``step`` as this rank's blocks, on the device of
+        ``template``'s leaves."""
+        from repro_torch.sharding.place import shard_tree
+        state, extra = self.inner.restore(step, self.whole)
+        dev = tree_leaves(template["params"])[0].device
+        state = shard_tree(state, self.specs, self.mesh)
+        return tree_map(lambda t: t.to(dev) if torch.is_tensor(t) else t, state), extra
+
+    def restore_latest(self, template: Tree):
+        step = self.inner.latest_step()
+        if step is None:
+            return None
+        state, extra = self.restore(step, template)
+        return step, state, extra

@@ -236,11 +236,17 @@ def test_loss_through_moe_on_cuda_backend_raises():
 
 
 def test_moe_dispatch_over_ranks_raises_naming_a12(monkeypatch):
+    """Over several ranks but with no active mesh the layer is ``moe_ffn``
+    on this rank's tokens, bit for bit; under ``use_mesh`` it runs
+    expert-parallel (tests/test_torch_moe_ep.py), and nothing raises."""
+    from repro_torch.models import moe as M
     _, tc = _cfgs("kimi-k2-1t-a32b")
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a: 4)
-    with pytest.raises(NotImplementedError, match="A12"):
-        TT.moe_dispatch({}, torch.zeros(4, tc.d_model), tc)
+    p = M.init_moe(torch.Generator().manual_seed(0), tc.d_model, tc.moe)
+    x = torch.randn(4, tc.d_model, generator=torch.Generator().manual_seed(1))
+    got, want = TT.moe_dispatch(p, x, tc), M.moe_ffn(p, x, tc.moe)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 # ---------------------------------------------------------------------------

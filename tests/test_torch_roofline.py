@@ -381,3 +381,92 @@ def test_roofline_imports_no_model_code():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          check=True, env=dict(os.environ, PYTHONPATH=src))
     assert out.stdout.strip() == "[]"
+
+
+# -- the cells on the production LM mesh ----------------------------------------------
+
+MESH_KINDS = {"single": dict(data=16, model=16), "multi": dict(pod=2, data=16, model=16)}
+
+
+class _Stub:
+    def __init__(self, shape):
+        self.shape = dict(shape)
+
+
+@pytest.fixture(scope="module")
+def mesh_rows():
+    return {m: R.cell_rows(m) for m in MESH_KINDS}
+
+
+def test_single_card_rows_are_unchanged_by_the_mesh(rows):
+    """``analyze_cell`` without a mesh is the one-card row it was (mesh
+    "single", one chip, no collective time)."""
+    for r in rows:
+        if "skipped" not in r:
+            assert (r["mesh"], r["chips"], r["t_collective"]) == ("single", 1, 0.0)
+            assert r == R.analyze_cell(r["arch"], r["shape"])
+
+
+def _block_bytes(state, specs, sizes) -> int:
+    """Bytes of one chip's blocks of ``state`` under the reference's
+    sanitized ``specs`` (each dim divided by its entry's axis sizes; the
+    dry run's ``_analytic_state_bytes``, which is not imported here: that
+    module sets process-wide XLA flags on import)."""
+    from repro.sharding import rules as J
+    total = 0
+    flat_s = jax.tree.leaves(state)
+    flat_p = jax.tree.leaves(specs, is_leaf=lambda x: isinstance(x, J.P))
+    for a, sp in zip(flat_s, flat_p):
+        denom = 1
+        for entry in sp:
+            for name in (() if entry is None else entry if isinstance(entry, tuple)
+                         else (entry,)):
+                denom *= sizes[name]
+        total += int(np.prod(a.shape)) // denom * np.dtype(a.dtype).itemsize
+    return total
+
+
+@pytest.mark.parametrize("mesh", list(MESH_KINDS))
+def test_mesh_rows_state_is_the_rules_block_bytes(mesh, mesh_rows):
+    """Each train row's state per chip is the sum of its blocks' bytes under
+    the reference's sanitized rules: params and AdamW state (its int8 ``n``
+    scalars taken out: they are Python ints in the port) plus the
+    gradients, blocks of the params."""
+    from repro.optim.adamw import AdamWConfig as JAdamW
+    from repro.sharding import rules as J
+    from repro.train.step import make_init_state as j_init_state
+    stub = _Stub(MESH_KINDS[mesh])
+    chips = int(np.prod(list(MESH_KINDS[mesh].values())))
+    for r in mesh_rows[mesh]:
+        if r["shape"] != "train_4k":
+            assert "skipped" in r
+            continue
+        cfg = jreg.get_config(r["arch"])
+        state = jax.eval_shape(j_init_state(cfg, JAdamW(state_dtype=cfg.opt_state_dtype)),
+                               jax.random.key(0))
+        specs = J.sanitize(dict(params=J.param_specs(state["params"]),
+                                opt=J.opt_state_specs(state["opt"])), state, stub)
+        want = _block_bytes(state, specs, stub.shape) \
+            + _block_bytes(state["params"], specs["params"], stub.shape)
+        ns = sum(1 for path, _ in jax.tree_util.tree_flatten_with_path(state["opt"])[0]
+                 if getattr(path[-1], "key", None) == "n")
+        assert r["state_bytes_per_device"] == want - 4 * ns, r["arch"]
+        assert r["chips"] == chips and r["mesh"] == mesh
+        assert r["t_collective"] > 0
+        assert set(r) == set(R.analyze_cell(r["arch"], r["shape"]))
+
+
+def test_mesh_payloads_count_the_expert_parallel_layer():
+    """One MoE layer's payloads at deepseek-v2's width on 16 x 16, 'hidden'
+    layout, T_loc tokens: the reference body's gather of the (T_loc, D/m)
+    block and reduce-scatter of the (T_loc, D) partial y, forward (twice:
+    the remat's recompute) and their VJPs; the boundary pair; the router's
+    gradient."""
+    cfg = treg.get_config("deepseek-v2-236b")
+    t, d, m = 4096, cfg.d_model, 16
+    got = R.ep_layer_payloads(cfg, dict(data=16, model=16), t)
+    x = t * d * 2
+    assert got["reduce_scatter/model"] == 2 * x + x
+    assert got["all_gather/model"] == 2 * (x // m) + x // m + 2 * (x // m) + x // m
+    assert got["all_reduce/model"] == d * cfg.moe.n_experts * 2 + 2 * 4
+    assert got["all_reduce/data"] == 2 * 4
