@@ -19,6 +19,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``abstract_params_for`` and raise ``torch.cuda.memory_allocated`` by 4
    bytes a param of ``param_counts`` within 1 %, and ``init_cache`` at 4
    slots of 2048 positions those of ``abstract_cache_for``;
+1c. the dry run of the sharded LM train step (``python -m
+   repro_torch.launch.dryrun --shape train_4k``) on the production meshes
+   (256 and 512 fake ranks), four host processes at the lowest priority, no
+   card visible, started here and checked with the deferred checks at the
+   end: every admitted cell
+   ``ok``, its payloads equal to ``roofline.lm_step_payloads``; prints
+   ``format_markdown(load_table(..))`` of each mesh and each cell's FLOPs a
+   chip beside the analytic mesh row's, with the ratio;
 2. build the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at ragged and wide ones (the Mahalanobis head and
@@ -75,6 +83,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
    on one group; (d) ``python -m torch.distributed.run --nproc-per-node 4
    -m repro_torch.launch.serve --episodic --replicas 2 --serve-layout auto
    --serve-quant int8`` on gloo, which must exit 0 and print its replicas;
+4d. the contract cells of ``repro_torch.lint.contracts`` on the card:
+   ``replica_2x2`` and ``int8_ws`` on 4 gloo ranks sharing it,
+   ``compile_flat``, and ``lite_outer`` at full width (phase 5's Simple
+   CNAPs, 256 features, 224 px, 8 tasks, LITE h 8), none of which may give
+   a finding, B1-B4 launched by them (``contracts`` in the kernels line);
+   each cell's readings and the largest (.., F, F) tensor recorded; then
+   each cell with its violation planted (the ranks, ``python chip_smoke.py
+   --contract-rank ...``, run each rank cell again with a host-group
+   collective in the audited dispatch and an fp32 copy handed to it; the
+   bucket padding off; the per-example outer product), each of which must
+   give a finding;
 5. LITE episodic meta-training on the kernels, at the same full width
    (224 x 224 images, 8 tasks a step from the host sampler, 5-way 10-shot
    with 6 queries a class, h 8, chunks of 16, random weights): one step of
@@ -429,7 +448,8 @@ numbers at phase 5d's shapes).  ``chiprun_out/chip_smoke.json`` holds every read
 phases' under ``paths``, and every path's launches under ``launches``:
 ``serve_warm`` (phase 4b's warm-tier run), ``serve_replica`` (phase 4c (a)'s
 router run; every rank's counts are under ``paths``; in the ``kernels``
-line as ``serve_replica_launches``), ``train_device`` (the
+line as ``serve_replica_launches``), ``contracts`` (phase 4d's cells, this
+process and its 4 ranks summed; ``contracts_launches``), ``train_device`` (the
 device-sampler loop), ``algo1`` (the two per-task steps), ``fig4``,
 ``fomaml`` and ``finetuner`` (their serving runs), ``lm_train`` (phase
 5c's three steps), ``lm_pretrain`` (phase 5d's two steps), ``lm_moe_train`` and
@@ -1930,6 +1950,262 @@ def _run_serve_replica(dev, launches):
     out["seconds"] = time.perf_counter() - t_phase
     print(f"phase 4c: {out['seconds']:.1f} s", flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: the contract cells on the running program
+# ---------------------------------------------------------------------------
+
+CONTRACT_KERNELS = ("segment_sum", "class_second_moment", "mahalanobis", "int8_matmul")
+
+
+@contextlib.contextmanager
+def _planted_rank_violations():
+    """A collective on the host group (the world's 4 ranks) inside every
+    weight-stationary partial sum, and ``serving_params`` handing the
+    dispatch every quantized leaf dequantized to fp32."""
+    import dataclasses
+    from repro_torch.bridge import HWIO_TO_OIHW
+    from repro_torch.common.linear import KSlice
+    from repro_torch.optim.quant import dequantize, is_quantized
+    from repro_torch.serve import quant_params as qp
+    sum_over_group, serving_params = qp._sum_over_group, qp.serving_params
+
+    def wide(mesh, axis, t):
+        mesh.any_rank(False)
+        return sum_over_group(mesh, axis, t)
+
+    def fp32_copy(sw):
+        def visit(path, leaf):
+            if isinstance(leaf, KSlice) and is_quantized(leaf.local):
+                return dataclasses.replace(leaf, local=dequantize(leaf.local))
+            if is_quantized(leaf):
+                w = dequantize(leaf)
+                return w.permute(*HWIO_TO_OIHW).contiguous() if w.dim() == 4 else w
+            return leaf
+        return qp._walk(qp.serving_view(sw), visit)
+
+    qp._sum_over_group, qp.serving_params = wide, fp32_copy
+    try:
+        yield
+    finally:
+        qp._sum_over_group, qp.serving_params = sum_over_group, serving_params
+
+
+def contract_rank(argv) -> int:
+    """One rank of phase 4d's rank cells, run as ``python chip_smoke.py
+    --contract-rank <device> <dir> <cell>...``: each cell as
+    ``contracts.rank_main`` runs it, then again with the violations of
+    :func:`_planted_rank_violations`, its findings kept in the readings as
+    ``planted/<cell>`` (one launch of the ranks for both)."""
+    from repro_torch.kernels import _build
+    from repro_torch.lint import contracts
+
+    def with_plant(name, cell):
+        def run(dev, report):
+            msgs = cell(dev, report)
+            counts = _build.launches.snapshot()
+            with _planted_rank_violations():
+                report[f"planted/{name}"] = cell(dev, {})
+            _build.launches.reset()                 # the planted run's launches do not count
+            _build.launches._counts.update(counts)
+            return msgs
+        return run
+
+    for name in contracts.RANK_CELLS:
+        contracts.CELLS[name] = with_plant(name, contracts.CELLS[name])
+    return contracts.rank_main(list(argv))
+
+
+def _per_example_second_moment(f, weights, accum_dtype=None, backend=None):
+    """The class second moment through the per-example (T, B, F, F) outer
+    product: what ``lite_outer`` must flag."""
+    import torch
+    return torch.einsum("tbc,tbij->tcij", weights.to(f.dtype),
+                        torch.einsum("tbi,tbj->tbij", f, f))
+
+
+def _planted_contracts(C, report):
+    """Each cell with its violation planted: {cell: findings}; the rank
+    cells' came back with their readings (:func:`contract_rank`)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.serve import episodic
+    caught = {name: report.pop(f"planted/{name}") for name in C.RANK_CELLS}
+    bucket_for = episodic.bucket_for
+    episodic.bucket_for = lambda n, buckets: n
+    try:
+        caught["compile_flat"] = [f.message for f in C.run_cells(["compile_flat"], "cuda")]
+    finally:
+        episodic.bucket_for = bucket_for
+    second_moment = dispatch.class_second_moment
+    dispatch.class_second_moment = _per_example_second_moment
+    try:
+        caught["lite_outer"] = [f.message for f in C.run_cells(["lite_outer"], "cuda",
+                                                               C.LITE_OUTER_FULL)]
+    finally:
+        dispatch.class_second_moment = second_moment
+    return caught
+
+
+def run_contracts(dev, launches):
+    """Phase 4d: the four contract cells of ``repro_torch.lint.contracts``
+    on the card (``lite_outer`` at full width: phase 5's Simple CNAPs, 256
+    features, 224 px, 8 tasks, LITE h 8; the rank cells on 4 gloo ranks
+    sharing it), none of which may give a finding, B1-B4 launched by them;
+    then each cell with its violation planted, each of which must."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.lint import contracts as C
+    t_phase = time.perf_counter()
+    report = {}
+    torch.cuda.synchronize()
+    _build.launches.reset()
+    worker = C.worker_argv
+    C.worker_argv = lambda: [sys.executable, str(ROOT / "chip_smoke.py"), "--contract-rank"]
+    try:
+        findings = C.run_cells(None, "cuda", C.LITE_OUTER_FULL, report=report)
+    finally:
+        C.worker_argv = worker
+    torch.cuda.synchronize()
+    counts = _build.launches.snapshot()
+    for k, v in report.pop("rank_launches", {}).items():
+        counts[k] = counts.get(k, 0) + v
+    for f in findings:
+        print(f"contracts: {f.format()}", flush=True)
+    if findings:
+        fail(f"phase 4d: {len(findings)} contract finding(s) on the card")
+    lite = report["lite_outer"]
+    print(f"contracts: no finding in {list(C.CELLS)} on the card; replica_2x2 widths "
+          f"{report['replica_2x2']['widths']}, payload {report['replica_2x2']['payload']}; "
+          f"int8_ws payloads {report['int8_ws']['payload']}, handed {report['int8_ws']['handed']}"
+          f", frozen {report['int8_ws']['param_bytes']['frozen_resident_bytes']} B of "
+          f"{report['int8_ws']['param_bytes']['frozen_fp32_bytes']} fp32; compile_flat "
+          f"{report['compile_flat']}; lite_outer at full width: the largest (.., F, F) "
+          f"tensor {lite['largest']} of {lite['recorded']} recorded, budget "
+          f"{lite['budget']}; launches {counts}", flush=True)
+    _need("phase 4d contract cells", counts, CONTRACT_KERNELS)
+    t_clean = time.perf_counter() - t_phase
+    caught = _planted_contracts(C, report)
+    for name, msgs in caught.items():
+        print(f"contracts: planted {name}: {len(msgs)} finding(s): {msgs[:2]}", flush=True)
+        if not msgs:
+            fail(f"phase 4d: the violation planted in {name} gave no finding")
+    if not any("all_reduce/host ran on a group of 4" in m for m in caught["replica_2x2"]):
+        fail(f"phase 4d: replica_2x2 did not name the host-group collective: "
+             f"{caught['replica_2x2']}")
+    if not any("no int8 leaf" in m for m in caught["int8_ws"]):
+        fail(f"phase 4d: int8_ws did not flag the fp32 copy: {caught['int8_ws']}")
+    launches["contracts"] = counts
+    out = dict(kind="contracts", report=report, launches=counts, planted=caught,
+               seconds=time.perf_counter() - t_phase)
+    print(f"phase 4d: {out['seconds']:.1f} s ({t_clean:.1f} s the cells and the ranks' "
+          f"planted cells, the rest the planted compile_flat and lite_outer)", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 1c: the dry run of the sharded LM train step on fake worlds
+# ---------------------------------------------------------------------------
+
+DRYRUN_MESHES = ("single", "multi")
+# kimi-k2's cells trace in 100-140 s each, the other nine archs' in 190-210 s
+# together (one core, a mesh): four processes of about even length
+DRYRUN_SPLIT = (("kimi-k2-1t-a32b",),
+                ("deepseek-v2-236b", "phi-3-vision-4.2b", "mamba2-780m", "minicpm-2b",
+                 "minitron-4b", "qwen2-72b", "gemma2-2b", "zamba2-7b", "whisper-base"))
+DRYRUN_TIMEOUT = 900.0
+DRYRUN_PROCS = []
+
+
+def _stop_dryrun() -> None:
+    for proc, _, _ in DRYRUN_PROCS:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def start_dryrun() -> list:
+    """Phase 1c's four host processes (``python -m repro_torch.launch.dryrun
+    --shape train_4k --mesh <m> --arch ... --force``, each mesh's archs in
+    the two groups of ``DRYRUN_SPLIT``), started now so that they run beside
+    the card's phases, at the lowest priority, so that the phases' host
+    threads keep their cores; no card is visible to them."""
+    import atexit
+    out_dir = ROOT / "build" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": "",
+           "OMP_NUM_THREADS": "1"}
+    atexit.register(_stop_dryrun)
+    for mesh in DRYRUN_MESHES:
+        for i, archs in enumerate(DRYRUN_SPLIT):
+            out, log = out_dir / f"{mesh}_{i}.json", out_dir / f"{mesh}_{i}.log"
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--shape", "train_4k",
+                 "--mesh", mesh, "--out", str(out), "--force"]
+                + [a for arch in archs for a in ("--arch", arch)],
+                cwd=ROOT, env=env, stdout=open(log, "w"), stderr=subprocess.STDOUT,
+                preexec_fn=lambda: os.nice(19))
+            DRYRUN_PROCS.append((proc, out, log))
+    return DRYRUN_PROCS
+
+
+def check_dryrun(procs) -> dict:
+    """Phase 1c's check, deferred: every admitted ``train_4k`` cell on both
+    meshes recorded ``ok`` with its payloads equal to
+    ``roofline.lm_step_payloads``; prints ``format_markdown(load_table(..))``
+    and each cell's FLOPs a chip beside the analytic row's."""
+    from repro_torch import roofline as R
+    from repro_torch.configs.registry import ARCH_IDS, cell_supported, get_config
+    t0 = time.perf_counter()
+    merged = {}
+    for proc, out, log in procs:
+        try:
+            rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - T_START)))
+        except subprocess.TimeoutExpired:
+            _stop_dryrun()
+            fail(f"phase 1c: the dry run ({out.name}) ran past {DRYRUN_TIMEOUT:.0f} s")
+        said = pathlib.Path(log).read_text()
+        if rc != 0:
+            fail(f"phase 1c: the dry run ({out.name}) exited {rc}: {said[-3000:]}")
+        merged.update(json.loads(out.read_text()))
+        print(f"dry run ({out.name}) ended {said.strip().splitlines()[-1]}", flush=True)
+    path = ROOT / "build" / "dryrun" / "both.json"
+    path.write_text(json.dumps(merged, indent=1))
+    cells, lines = [], []
+    for mesh in DRYRUN_MESHES:
+        sizes = R.PRODUCTION_MESHES[mesh]
+        for arch in ARCH_IDS:
+            if not cell_supported(arch, "train_4k")[0]:
+                continue
+            rec = merged.get(f"{arch}/train_4k/{mesh}")
+            if rec is None or rec.get("status") != "ok":
+                fail(f"phase 1c: {arch}/train_4k/{mesh}: {rec and rec.get('status')}")
+            want = R.lm_step_payloads(get_config(arch), sizes, 256, 4096)
+            if rec["collectives"] != want:
+                fail(f"phase 1c: {arch}/train_4k/{mesh}: payloads {rec['collectives']} "
+                     f"against lm_step_payloads {want}")
+            row = R.analyze_cell(arch, "train_4k", mesh)
+            analytic = row["model_flops"] / row["chips"] / row["useful_ratio"]
+            ratio = rec["flops_per_device"] / analytic
+            bmm = rec["flops_by_op"].get("aten.bmm", 0) / rec["flops_per_device"]
+            cells.append(dict(key=f"{arch}/{mesh}", program=rec["flops_per_device"],
+                              analytic=analytic, ratio=ratio, bmm_share=bmm,
+                              trace_s=rec["trace_s"], bytes=rec["bytes_per_device"],
+                              state=rec["state_bytes_per_device"]))
+            lines.append(f"| {arch} | {mesh} | {rec['flops_per_device']:.4e} | {analytic:.4e} "
+                         f"| {ratio:.4f} | {bmm:.3f} | {rec['trace_s']:.1f} |")
+    for mesh in DRYRUN_MESHES:
+        print(f"dry run ({mesh}, {R.PRODUCTION_MESHES[mesh]}): the roofline of one rank's "
+              f"traced step (FLOPs and payloads counted on the program, bytes its eager "
+              f"unfused traffic, the ref backend, on the host), derived, not measured:",
+              flush=True)
+        print(R.format_markdown(R.load_table(path, mesh)), flush=True)
+    print("dry run: FLOPs a chip, the program's against the analytic mesh row's "
+          "(cell_rows(mesh)):\n| arch | mesh | program | analytic | ratio | bmm share | "
+          "trace s |\n|---|---|---|---|---|---|---|\n" + "\n".join(lines), flush=True)
+    print(f"phase 1c: {len(cells)} cells, payloads equal to lm_step_payloads; waited "
+          f"{time.perf_counter() - t0:.1f} s at the end", flush=True)
+    return dict(cells=cells)
 
 
 # ---------------------------------------------------------------------------
@@ -7081,6 +7357,9 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
     roofline = run_roofline(dev, card)
     mark("phase 1b done")
+    dryrun = {}
+    defer(dryrun, "cells", check_dryrun, start_dryrun())
+    mark("phase 1c started (four host processes, checked with the deferred checks)")
 
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -7109,6 +7388,8 @@ def main() -> int:
     mark("phase 4b done")
     summary.append(run_serve_replica(dev, launches))
     mark("phase 4c done")
+    summary.append(run_contracts(dev, launches))
+    mark("phase 4d done")
     summary.append(run_training(dev, launches))
     mark("phase 5 done")
     summary.append(run_training_rest(dev, launches, summary[-1]))
@@ -7146,6 +7427,7 @@ def main() -> int:
     summary.append(whisper)
     mark("phase 6e done")
     run_deferred()
+    summary.append(dict(kind="dryrun", **dryrun))
     mark("subprocesses done")
     # each kernel counted on the path that runs it: flash attention on LM
     # serving's prefills, gmm on MoE serving's expert projections (kimi-k2),
@@ -7206,7 +7488,8 @@ def main() -> int:
         | ({"train_launches": launches[train_path[n]][n]} if n in train_path else {})
         | ({"lm_train_launches": launches["lm_train"][n]}
            if n in launches["lm_train"] and train_path.get(n) != "lm_train" else {})
-        | ({f"{p}_launches": launches[p][n] for p in ("ops", "serve_replica", "lm_serve_gemma2",
+        | ({f"{p}_launches": launches[p][n] for p in ("ops", "serve_replica", "contracts",
+                                                       "lm_serve_gemma2",
                                                        "lm_pretrain", "lm_mesh",
                                                        "lm_serve_kimi", "lm_serve_deepseek",
                                                        "lm_moe_episodic", "lm_serve_zamba2",
@@ -7238,4 +7521,6 @@ if __name__ == "__main__":
         sys.exit(serve_rank_main(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--lm-rank"]:
         sys.exit(lm_rank_main(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--contract-rank"]:
+        sys.exit(contract_rank(sys.argv[2:]))
     sys.exit(main())

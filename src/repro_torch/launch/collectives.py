@@ -19,6 +19,14 @@ the call, not parsed from a compiled program.
     step(...)
     collectives.counter.snapshot()   # {"all_reduce/data": 1, ...}
     collectives.counter.payload()    # {"all_reduce/data": 8 + 4 * n, ...}
+    collectives.counter.widths()     # {"all_reduce/data": 4, ...}
+
+``widths()`` is the widest process group each ``kind/axis`` ran on (an
+axis's group, the joined axes' group, or the host group over the whole
+world): a serving replica's collectives must stay within its group, and
+the contract cell ``replica_2x2`` (:mod:`repro_torch.lint.contracts`)
+reads it, the port's counterpart of the group sizes the JAX package
+parses from a compiled program's replica groups.
 """
 from __future__ import annotations
 
@@ -31,21 +39,30 @@ class CollectiveCounter:
     def __init__(self):
         self._calls: Dict[str, int] = {}
         self._bytes: Dict[str, int] = {}
+        self._widths: Dict[str, int] = {}
 
-    def add(self, kind: str, axis: str, nbytes: int) -> None:
+    def add(self, kind: str, axis: str, nbytes: int, width: int = 1) -> None:
+        """One call of ``kind`` on ``axis``'s group of ``width`` ranks,
+        handed ``nbytes``."""
         key = f"{kind}/{axis}"
         self._calls[key] = self._calls.get(key, 0) + 1
         self._bytes[key] = self._bytes.get(key, 0) + nbytes
+        self._widths[key] = max(self._widths.get(key, 0), width)
 
     def reset(self) -> None:
         self._calls.clear()
         self._bytes.clear()
+        self._widths.clear()
 
     def snapshot(self) -> Dict[str, int]:
         return dict(self._calls)
 
     def payload(self) -> Dict[str, int]:
         return dict(self._bytes)
+
+    def widths(self) -> Dict[str, int]:
+        """The widest group, in ranks, that each ``kind/axis`` ran on."""
+        return dict(self._widths)
 
 
 counter = CollectiveCounter()

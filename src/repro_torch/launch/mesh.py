@@ -204,7 +204,8 @@ class DPMesh:
         """``t`` reduced over ``axis`` (``sum`` or ``min``) in place;
         returns it."""
         import torch.distributed as dist
-        counter.add("all_reduce", _label(axis), t.numel() * t.element_size())
+        counter.add("all_reduce", _label(axis), t.numel() * t.element_size(),
+                    self.size_of(axis))
         rop = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN}[op]
         dist.all_reduce(t, op=rop, group=self.group(axis))
         return t
@@ -215,7 +216,7 @@ class DPMesh:
         rank's ``t``."""
         import torch.distributed as dist
         n = self.size_of(axis)
-        counter.add("all_gather", _label(axis), t.numel() * t.element_size())
+        counter.add("all_gather", _label(axis), t.numel() * t.element_size(), n)
         x = t.movedim(dim, 0).contiguous()
         out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
                           device=x.device)
@@ -230,7 +231,7 @@ class DPMesh:
         of which this rank keeps its own; the payload is the whole ``t``."""
         import torch.distributed as dist
         n = self.size_of(axis)
-        counter.add("reduce_scatter", _label(axis), t.numel() * t.element_size())
+        counter.add("reduce_scatter", _label(axis), t.numel() * t.element_size(), n)
         x = t.movedim(dim, 0).contiguous()
         if x.shape[0] % n:
             raise ValueError(f"dim {dim} of size {x.shape[0]} does not split over "
@@ -244,7 +245,7 @@ class DPMesh:
     def all_gather(self, t: torch.Tensor, axis: str) -> List[torch.Tensor]:
         """Every rank's ``t`` along ``axis``, in rank order (list form)."""
         import torch.distributed as dist
-        counter.add("all_gather", axis, t.numel() * t.element_size())
+        counter.add("all_gather", axis, t.numel() * t.element_size(), self.size_of(axis))
         t = t.contiguous()
         out = [torch.empty_like(t) for _ in range(self.shape[axis])]
         dist.all_gather(out, t, group=self.groups[axis])
@@ -263,20 +264,20 @@ class DPMesh:
         """``t`` of the rank at index ``src`` along ``axis``, in place on every
         rank of this rank's ``axis`` group; returns it."""
         import torch.distributed as dist
-        counter.add("broadcast", axis, t.numel() * t.element_size())
+        counter.add("broadcast", axis, t.numel() * t.element_size(), self.size_of(axis))
         dist.broadcast(t, src=self.rank_at(**{axis: src}), group=self.groups[axis])
         return t
 
     def barrier(self) -> None:
         import torch.distributed as dist
-        counter.add("barrier", "host", 0)
+        counter.add("barrier", "host", 0, self.size)
         dist.barrier(group=self.host_group)
 
     def any_rank(self, flag: bool) -> bool:
         """True on every rank when ``flag`` is true on any (host group)."""
         import torch.distributed as dist
         t = torch.tensor([1 if flag else 0], dtype=torch.int32)
-        counter.add("all_reduce", "host", t.numel() * t.element_size())
+        counter.add("all_reduce", "host", t.numel() * t.element_size(), self.size)
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.host_group)
         return bool(t.item())
 
@@ -284,7 +285,7 @@ class DPMesh:
         """Rank ``src``'s ``obj`` on every rank (host group, pickled)."""
         import torch.distributed as dist
         box = [obj]
-        counter.add("broadcast", "host", 0)
+        counter.add("broadcast", "host", 0, self.size)
         dist.broadcast_object_list(box, src=src, group=self.host_group)
         return box[0]
 
@@ -292,7 +293,7 @@ class DPMesh:
         """Every rank's ``obj``, in rank order (host group, pickled)."""
         import torch.distributed as dist
         out = [None] * self.size
-        counter.add("all_gather", "host", 0)
+        counter.add("all_gather", "host", 0, self.size)
         dist.all_gather_object(out, obj, group=self.host_group)
         return out
 
@@ -330,7 +331,11 @@ def _build(shape: Dict[str, int], axes: Sequence[str]) -> DPMesh:
             if rank in ranks:
                 groups[("pod", "data")] = g
     backend = dist.get_backend()
-    host = dist.new_group(list(range(grid.size)), timeout=TIMEOUT, backend="gloo")
+    # gloo cannot run on the store of a ``fake`` world (torch's one-process
+    # stand-in for a large world, the dry run's), so there the host group
+    # is fake too
+    host = dist.new_group(list(range(grid.size)), timeout=TIMEOUT,
+                          backend="fake" if backend == "fake" else "gloo")
     return DPMesh(shape=dict(zip(axes, sizes)), axis_names=tuple(axes),
                   coords=dict(zip(axes, where)), groups=groups, host_group=host,
                   rank=rank, backend=backend)

@@ -32,8 +32,15 @@ Suppression, inline and audited, the reason mandatory::
 
 A pragma on a comment line of its own (or a block of them) covers the next
 code line.  ``allow(...)`` without a reason is itself a finding
-(``lint-pragma``).  The JAX package's compiled-program contracts
-(``--contracts``) have no counterpart yet (ROADMAP A13 part 2).
+(``lint-pragma``).
+
+``--contracts`` also runs the contract cells on the port's running
+program (:mod:`repro_torch.lint.contracts`, the counterpart of the JAX
+package's compiled-HLO cells): ``replica_2x2`` and ``int8_ws`` on 4 gloo
+ranks of this host, ``compile_flat`` and ``lite_outer`` in this process;
+a cell's violation prints as ``contracts/<cell>:0: contract-<rule>: ...``::
+
+    PYTHONPATH=src python -m repro_torch.lint --contracts --no-ast --device cpu
 """
 from repro_torch.lint.engine import (Finding, LintContext, Rule, default_targets,
                                      findings_json, lint_file, lint_paths, lint_source,

@@ -24,6 +24,10 @@ them from the configs.  Two layers:
 and the wire bytes and link times of the data-parallel meta-training step
 (:func:`dp_payloads`, :func:`dp_wire_bytes`, :func:`dp_collective_ms`).
 
+``load_table(path, mesh)`` reads the same rows from the dry run's records
+(:mod:`repro_torch.launch.dryrun`): FLOPs, bytes and payloads counted on
+one rank's traced step, not from the configs.
+
 ``analyze_cell(arch, shape, mesh=)`` also reads a train cell on the
 production LM mesh, ``"single"`` (data 16 x model 16, 256 H100s) or
 ``"multi"`` (2 x 16 x 16, 512), as the port's sharded step runs it
@@ -801,15 +805,39 @@ def mesh_state_bytes(cfg: ModelConfig, sizes: Dict[str, int]) -> int:
     return total
 
 
+def mesh_step_flops(cfg: ModelConfig, shape: ShapeSpec, sizes: Dict[str, int]):
+    """(bf16, fp32) FLOPs one chip spends in a train step of ``cfg`` on
+    ``shape``'s global batch over a mesh of axis ``sizes``, from
+    :func:`cell_work`: the dense FLOPs split over the data ranks
+    (replicated over ``model``), an expert-parallel layer's expert
+    projections over every chip, a fallback layer's the global tokens' on
+    every chip."""
+    from repro_torch.train.step import ep_layer
+    chips = _prod(sizes.values())
+    n_data = _prod(sizes[a] for a in (("pod", "data") if "pod" in sizes else ("data",)))
+    b, s = shape.global_batch, shape.seq_len
+    _, bf16, f32 = cell_work(cfg, shape)
+    experts = 0.0                # the expert projections' bf16 FLOPs, the whole batch
+    if cfg.moe is not None:
+        experts = 3 * 2.0 * cfg.n_layers * b * s * cfg.moe.top_k * 3 * cfg.d_model \
+            * cfg.moe.d_ff
+    expert_chip = experts / chips if ep_layer(cfg, _MeshShape(sizes), b // n_data * s) \
+        else experts
+    return (bf16 - experts) / n_data + expert_chip, f32 / n_data
+
+
 def mesh_cell(arch: str, shape_name: str, mesh: str) -> Dict:
     """A train cell on the production mesh ``mesh`` ("single": 16 x 16,
-    "multi": 2 x 16 x 16) as the port's sharded step runs it: the dense
-    FLOPs over the data ranks (replicated over ``model``), an
-    expert-parallel layer's experts over every chip (a fallback layer runs
-    the global tokens' experts on every chip), the bytes AdamW moves in the
-    chip's state, T_coll of :func:`lm_step_payloads`.  Prefill and decode
-    cells are skipped: the port has no LM serving mesh."""
-    from repro_torch.train.step import ep_layer
+    "multi": 2 x 16 x 16) as the port's sharded step runs it, counted from
+    the config: the dense FLOPs over the data ranks (replicated over
+    ``model``), an expert-parallel layer's experts over every chip (a
+    fallback layer runs the global tokens' experts on every chip), the
+    bytes AdamW moves in the chip's state, T_coll of
+    :func:`lm_step_payloads`.  Its program-derived twin is
+    :func:`load_table` over the dry run's records
+    (:mod:`repro_torch.launch.dryrun`), which counts the same step's FLOPs,
+    bytes and payloads on one rank's trace.  Prefill and decode cells are
+    skipped: the port has no LM serving mesh."""
     sizes = PRODUCTION_MESHES[mesh]
     chips = _prod(sizes.values())
     cfg, shape = get_config(arch), SHAPES_BY_NAME[shape_name]
@@ -821,17 +849,10 @@ def mesh_cell(arch: str, shape_name: str, mesh: str) -> Dict:
     b, s = shape.global_batch, shape.seq_len
     if b % n_data:
         return dict(row, skipped=f"batch {b} does not split over {n_data} data ranks")
-    nbytes, bf16, f32 = cell_work(cfg, shape)
-    experts = 0.0                # the expert projections' bf16 FLOPs, the whole batch
-    if cfg.moe is not None:
-        experts = 3 * 2.0 * cfg.n_layers * b * s * cfg.moe.top_k * 3 * cfg.d_model \
-            * cfg.moe.d_ff
-    # a fallback layer runs the global tokens' experts on every chip
-    expert_chip = experts / chips if ep_layer(cfg, _MeshShape(sizes), b // n_data * s) \
-        else experts
-    flops_chip = (bf16 - experts + f32) / n_data + expert_chip
-    t_compute = ((bf16 - experts) / n_data + expert_chip) / BF16_FLOPS \
-        + f32 / n_data / FP32_FLOPS
+    nbytes = cell_work(cfg, shape)[0]
+    bf16_chip, f32_chip = mesh_step_flops(cfg, shape, sizes)
+    flops_chip = bf16_chip + f32_chip
+    t_compute = bf16_chip / BF16_FLOPS + f32_chip / FP32_FLOPS
     state = mesh_state_bytes(cfg, sizes)
     total_state = state_bytes(int(param_counts(cfg)["total"]), cfg.opt_state_dtype,
                               cfg.param_dtype)
@@ -851,6 +872,52 @@ def cell_rows(mesh: Optional[str] = None) -> List[Dict]:
     """:func:`analyze_cell` of every arch in ``ARCH_IDS`` x every shape in
     ``SHAPES``, in that order."""
     return [analyze_cell(arch, s.name, mesh) for arch in ARCH_IDS for s in SHAPES]
+
+
+def record_row(rec: Dict) -> Dict:
+    """The roofline row of one ``ok`` record of the dry run
+    (:mod:`repro_torch.launch.dryrun`), measured from the program's trace:
+    T_comp its bf16 FLOPs at the bf16 peak and the rest at fp32's, T_mem
+    its bytes (eager and unfused: every op's operands and results) over
+    HBM's rate, T_coll its payloads through :func:`lm_step_collective_s`,
+    the useful ratio :func:`model_flops` a chip over its FLOPs (so a row's
+    FLOPs a chip are ``model_flops / chips / useful_ratio``, as in
+    :func:`mesh_cell`'s); the state a chip its params and AdamW state (no
+    gradients).  The keys are :func:`analyze_cell`'s."""
+    cfg = get_config(rec["arch"])
+    chips, flops = rec["chips"], rec["flops_per_device"]
+    bf16 = rec.get("flops_by_dtype", {}).get("bfloat16", 0)
+    t_compute = bf16 / BF16_FLOPS + (flops - bf16) / FP32_FLOPS
+    t_memory = rec["bytes_per_device"] / HBM_BYTES_PER_S
+    t_coll = lm_step_collective_s(rec["collectives"], rec["mesh_shape"])
+    terms = dict(compute=t_compute, memory=t_memory, collective=t_coll)
+    mf = model_flops(cfg, rec["shape"])
+    state = rec["state_bytes_per_device"]
+    return dict(arch=rec["arch"], shape=rec["shape"], mesh=rec["mesh"], chips=chips,
+                t_compute=t_compute, t_memory=t_memory, t_collective=t_coll,
+                bottleneck=max(terms, key=terms.get), model_flops=mf,
+                useful_ratio=mf / chips / max(flops, 1.0),
+                roofline_fraction=mf / (chips * BF16_FLOPS) / max(terms.values()),
+                state_bytes_per_device=state, hbm_headroom_gib=(HBM_BYTES - state) / 2**30)
+
+
+def load_table(path, mesh: str = "single") -> List[Dict]:
+    """The rows :func:`format_markdown` prints, from the dry run's records
+    at ``path`` on ``mesh`` (:func:`record_row`), sorted by key; a skipped
+    record gives its ``skipped`` row, a failed one none."""
+    import json
+    import pathlib
+    recs = json.loads(pathlib.Path(path).read_text())
+    rows = []
+    for _, rec in sorted(recs.items()):
+        if rec.get("mesh") != mesh:
+            continue
+        if rec.get("status") == "skipped":
+            rows.append(dict(arch=rec["arch"], shape=rec["shape"], mesh=mesh,
+                             skipped=rec["reason"][:60]))
+        elif rec.get("status") == "ok":
+            rows.append(record_row(rec))
+    return rows
 
 
 def format_markdown(rows) -> str:

@@ -101,14 +101,15 @@ def reshard(t: torch.Tensor, src, dst, mesh) -> torch.Tensor:
         names = entry_names(src[d])
         if names and mesh.size_of(names) > 1:
             t = mesh.all_gather_tensor(t, names, d)
-    whole = t
+    cut = False
     for d in moved:
         names = entry_names(dst[d])
         if names and mesh.size_of(names) > 1:
             step = t.shape[d] // mesh.size_of(names)
             t = t.narrow(d, mesh.index_of(names) * step, step)
-    return t.clone() if t.data_ptr() == whole.data_ptr() and t.numel() != whole.numel() \
-        else t.contiguous()
+            cut = True
+    # a block cut from a gathered leaf is copied out, so the whole leaf is freed
+    return t.clone(memory_format=torch.contiguous_format) if cut else t.contiguous()
 
 
 def gather_for_use(t: torch.Tensor, spec, mesh, keep_model: bool = False) -> torch.Tensor:

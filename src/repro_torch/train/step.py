@@ -90,9 +90,12 @@ def make_sharded_init_state(cfg: ModelConfig, adamw_cfg: AdamWConfig, mesh) -> C
     from repro_torch.sharding.place import block_shape, init_sharded
     api = get_api(cfg)
     whole, specs = lm_state_specs(cfg, adamw_cfg, mesh)
-    # the zero state of a one-element leaf: each part's single value
-    tiny = adamw_init(tree_map(lambda t: torch.zeros((1,) * t.dim(), dtype=t.dtype),
-                               whole["params"]), adamw_cfg)
+    # the zero state of a one-element leaf: each part's single value, read
+    # here, once, so that init_state reads no tensor's value (it also runs
+    # on fake tensors, in the dry run)
+    tiny = tree_map(lambda t: t.reshape(-1)[0].item() if torch.is_tensor(t) else t,
+                    adamw_init(tree_map(lambda t: torch.zeros((1,) * t.dim(), dtype=t.dtype),
+                                        whole["params"]), adamw_cfg))
 
     def init_state(gen: torch.Generator, device=None) -> State:
         params = init_sharded(lambda g, d: api.init(g, cfg, d, at_param_dtype=True), gen,
@@ -102,8 +105,8 @@ def make_sharded_init_state(cfg: ModelConfig, adamw_cfg: AdamWConfig, mesh) -> C
         def block(w, spec, one):
             if not torch.is_tensor(w):
                 return w                    # an int8 part's trailing dim n
-            return torch.full(block_shape(w.shape, spec, mesh.shape), one.reshape(-1)[0].item(),
-                              dtype=w.dtype, device=dev)
+            return torch.full(block_shape(w.shape, spec, mesh.shape), one, dtype=w.dtype,
+                              device=dev)
 
         opt = {k: tree_map(block, whole["opt"][k], specs["opt"][k], tiny[k])
                for k in ("mu", "nu")}
