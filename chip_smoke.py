@@ -2,7 +2,8 @@
 episodic LM meta-training, its LM training (on one card and over a (data,
 model) mesh of ranks sharing it) and its LM decode serving
 (dense, MoE and MLA transformers, the mamba2 SSM, the zamba2 hybrid and
-the whisper encoder-decoder) on one NVIDIA GPU.
+the whisper encoder-decoder; on one card and over a (data, model) mesh of
+ranks sharing it) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # needs one CUDA card, nvcc and the repo
 
@@ -19,14 +20,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``abstract_params_for`` and raise ``torch.cuda.memory_allocated`` by 4
    bytes a param of ``param_counts`` within 1 %, and ``init_cache`` at 4
    slots of 2048 positions those of ``abstract_cache_for``;
-1c. the dry run of the sharded LM train step (``python -m
-   repro_torch.launch.dryrun --shape train_4k``) on the production meshes
-   (256 and 512 fake ranks), four host processes at the lowest priority, no
-   card visible, started here and checked with the deferred checks at the
-   end: every admitted cell
-   ``ok``, its payloads equal to ``roofline.lm_step_payloads``; prints
-   ``format_markdown(load_table(..))`` of each mesh and each cell's FLOPs a
-   chip beside the analytic mesh row's, with the ratio;
+1c. the dry run (``python -m repro_torch.launch.dryrun``) of every shape
+   on the production meshes (256 and 512 fake ranks): the sharded LM train
+   step, ``api.prefill`` and ``api.decode_step`` on placed params and
+   caches; five host processes at the lowest priority, no card visible,
+   started here and checked with the deferred checks at the end: every
+   admitted cell ``ok`` (20 ``train_4k``, 44 ``prefill_32k`` /
+   ``decode_32k`` / ``long_500k``), its payloads equal to
+   ``roofline.lm_step_payloads`` (whisper-base's ``train_4k`` on ``single``
+   pure data parallel: FLOPs a chip within 10 % of 1/16 of the trace with
+   16 rows a chip) or
+   ``roofline.lm_serve_payloads``; deepseek-v2's ``prefill_32k`` on
+   ``single`` at least 3x fewer wire bytes than under ``--variant
+   baseline`` (a fifth process); prints ``format_markdown(load_table(..))``
+   of each mesh and each cell's FLOPs a chip beside the analytic mesh
+   row's, with the ratio;
 2. build the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at ragged and wide ones (the Mahalanobis head and
@@ -154,7 +162,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    against its plain version and SDPA; and ``python -m
    repro_torch.examples.episodic_lm --steps 2`` on the card as a
    subprocess, which must exit 0;
-5d. LM training of gemma2-2b at full width on 13 of its 26 layers (fp32
+5d. LM training of gemma2-2b at full width on 8 of its 26 layers (fp32
    params and AdamW state, bf16 compute, every block checkpointed, loss
    chunks of 512; random weights drawn on the card from seed 0) on the
    token pipeline (vocab 256000, B 2, S 4608, branching 4, seed 0): one
@@ -299,7 +307,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    zeroed, every other chunk's states zeroed) and fail unless the same
    check flags each;
 6b. LM decode serving (``repro_torch.serve.engine.ServeEngine``) of
-   minitron-4b at full width and 16 of its 32 layers (cut to keep the
+   minitron-4b at full width and 8 of its 32 layers (cut to keep the
    whole run within its time), random weights drawn on the card
    from seed 0, bf16 compute, 4 slots: 8 requests (prompts 1024 x 4, then
    512, 2048, 512, 2048, so the first cohort decodes stacked and the
@@ -344,8 +352,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    -m repro_torch.launch.serve --arch deepseek-v2-236b`` (smoke config) on
    the card as a subprocess, which must exit 0;
 6d. LM decode serving of the SSM and hybrid models at full width:
-   mamba2-780m (all 48 layers, 4 slots, prompts 1024 x 4 then 1000 and
-   2048, 8 new tokens) and zamba2-7b (42 of 81 layers: 35 mamba, 7 sites
+   mamba2-780m (24 of 48 layers, 4 slots, prompts 1024 x 4 then 1000 and
+   2048, 8 new tokens) and zamba2-7b (28 of 81 layers: 24 mamba, 4 sites
    of the shared block; 2 slots, prompts 1024, 1024, then 512 and 2048, 8
    new tokens), random weights drawn on the card from seed 0, bf16
    compute, through ``ServeEngine``, failing unless every ``prefill``
@@ -396,10 +404,37 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``python -m repro_torch.launch.serve --arch whisper-base`` and ``python
    -m repro_torch.examples.serve_lm --arch whisper-base`` (smoke config)
    on the card as subprocesses, which must exit 0;
+6f. LM prefill and decode over a (data 2, model 2) mesh of 4 gloo ranks
+   sharing the card (``python chip_smoke.py --lm-rank serve4 <dir>``), at
+   full width: gemma2-2b at 2 of its 26 layers, one local and one global
+   (prompts of 4608, the first 512 tokens one token; its 4 kv heads put the
+   cache's sequence over model), deepseek-v2 at 1 layer (prompts of 1024;
+   MLA's latent over the sequence, B7 on a rank's 80 of 160 experts) and
+   mamba2-780m at 12 of 48
+   (prompts of 2048; the SSM's heads and the conv's channels over model),
+   2 rows (one a data rank), params drawn as the one-device init's blocks
+   (``init_sharded``) with the bf16 runs' weights (``compute_params``, the
+   vocab tables in bf16 too): the prefill under ``use_mesh`` on the
+   kernels, then 2 decode steps (deepseek-v2: 1) from the bf16 reference's
+   cache placed by ``place_lm_cache``.  Each rank's logits rows and prefill
+   cache blocks are gated against a one-process fp32-compute ``ref`` run on
+   its row at LM_GATE times the bf16 ``ref`` run's own error (deepseek-v2:
+   the rows whose token every run routes alike); the payloads of a prefill
+   and a decode step must equal ``roofline.lm_serve_payloads``, the cache
+   layouts ``SERVE_MESH_SPECS``, B5, B7 and B6 must launch in the prefills;
+   a planted fault (the first sequence block's partial dropped from every
+   merge) must fail gemma2-2b's gate on every rank; prints each rank's
+   prefill and decode ms (ranks time-slicing one card beside the deferred
+   checks: no scaling figure), peak memory and stages.  The references run
+   in this process while the ranks start; the ranks' passes run with the
+   deferred checks (a rank's passes run at gloo's rate, about 1.6 GB/s over
+   the 4 ranks: every pass gathers every layer); and the quickstart (``python -m
+   repro_torch.examples.quickstart``) on the card as a subprocess, which
+   must exit 0 and print the reference's lines;
 7. run the phases' subprocesses (the launchers and examples that phases
-   4b, 4c, 5, 5b, 5c, 5d, 5e, 5f, 5g, 6b, 6c, 6d and 6e name), all at once after
-   every timed reading, each of which must exit 0 and print what its
-   phase expects;
+   4b, 4c, 5, 5b, 5c, 5d, 5e, 5f, 5g, 6b, 6c, 6d, 6e and 6f name, and 6f's
+   ranks), all at once after every timed reading, each of which must exit 0
+   and print what its phase expects;
 8. print the ``kernels`` JSON line, the card line and, last, the result.
 
 In the ``kernels`` line, ``ms`` is the mean time of back-to-back wrapper
@@ -456,7 +491,9 @@ device-sampler loop), ``algo1`` (the two per-task steps), ``fig4``,
 ``lm_moe_episodic`` (phase 5e's), ``lm_ssm_train``, ``lm_ssm_train_zamba2``
 and ``lm_ssm_episodic`` (phase 5f's), ``dp_train`` (rank 0's ``pmean`` step
 of phase 5g (b); every rank's counts are under ``paths``), ``lm_mesh`` (rank
-0's sharded step of phase 5h (b) at full width), ``lm_serve`` and
+0's sharded step of phase 5h (b) at full width), ``lm_serve_mesh`` (phase
+6f's prefills and decode steps, every rank's summed; in the ``kernels``
+line as ``lm_serve_mesh_launches``), ``lm_serve`` and
 ``lm_serve_gemma2``
 (phase 6b's counted engine runs), ``lm_serve_kimi`` and
 ``lm_serve_deepseek`` (phase 6c's), ``lm_serve_mamba2`` and
@@ -867,9 +904,9 @@ def run_roofline(dev, card: str) -> dict:
     mesh_rows = {}
     for mesh, shape in R.PRODUCTION_MESHES.items():
         mesh_rows[mesh] = R.cell_rows(mesh)
-        print(f"roofline: the same cells on the production mesh {shape} (train only: the port "
-              f"has no LM serving mesh), per chip, derived (NVLink for a model group within "
-              f"a node, InfiniBand otherwise), not measured:", flush=True)
+        print(f"roofline: the same cells on the production mesh {shape} (train, prefill and "
+              f"decode), per chip, derived (NVLink for a model group within a node, "
+              f"InfiniBand otherwise), not measured:", flush=True)
         print(R.format_markdown(mesh_rows[mesh]), flush=True)
     models = [abstract_against_real(arch, dev) for arch in ROOFLINE_MODELS]
     out = dict(peaks=peaks, total_memory=total, cells=rows, mesh_cells=mesh_rows,
@@ -2108,13 +2145,20 @@ def run_contracts(dev, launches):
 # ---------------------------------------------------------------------------
 
 DRYRUN_MESHES = ("single", "multi")
-# kimi-k2's cells trace in 100-140 s each, the other nine archs' in 190-210 s
-# together (one core, a mesh): four processes of about even length
-DRYRUN_SPLIT = (("kimi-k2-1t-a32b",),
-                ("deepseek-v2-236b", "phi-3-vision-4.2b", "mamba2-780m", "minicpm-2b",
-                 "minitron-4b", "qwen2-72b", "gemma2-2b", "zamba2-7b", "whisper-base"))
+# every shape of each arch in one process a mesh: kimi-k2 and deepseek-v2
+# (kimi-k2's train cell traced in 81-95 s, deepseek-v2's in 27 s, their
+# prefill and decode cells in 10-30 s each), and the other eight; a fifth
+# process traces deepseek-v2's prefill_32k on ``single`` under the
+# ``baseline`` variant
+DRYRUN_SPLIT = (("kimi-k2-1t-a32b", "deepseek-v2-236b"),
+                ("phi-3-vision-4.2b", "mamba2-780m", "minicpm-2b", "minitron-4b", "qwen2-72b",
+                 "gemma2-2b", "zamba2-7b", "whisper-base"))
+DRYRUN_BASELINE = ("deepseek-v2-236b", "prefill_32k", "single")
 DRYRUN_TIMEOUT = 900.0
 DRYRUN_PROCS = []
+# whisper-base's train_4k on single traced with 16 rows a chip, replicated
+# over model, as it was before the dry run read tp_enabled=False
+DRYRUN_WHISPER_REPLICATED = 5.3242e13
 
 
 def _stop_dryrun() -> None:
@@ -2125,39 +2169,48 @@ def _stop_dryrun() -> None:
 
 
 def start_dryrun() -> list:
-    """Phase 1c's four host processes (``python -m repro_torch.launch.dryrun
-    --shape train_4k --mesh <m> --arch ... --force``, each mesh's archs in
-    the two groups of ``DRYRUN_SPLIT``), started now so that they run beside
-    the card's phases, at the lowest priority, so that the phases' host
-    threads keep their cores; no card is visible to them."""
+    """Phase 1c's five host processes (``python -m repro_torch.launch.dryrun
+    --mesh <m> --arch ... --force``, every shape of each mesh's archs in
+    the two groups of ``DRYRUN_SPLIT``, and ``DRYRUN_BASELINE`` under
+    ``--variant baseline``), started now so that they run beside the card's
+    phases, at the lowest priority, so that the phases' host threads keep
+    their cores; no card is visible to them."""
     import atexit
     out_dir = ROOT / "build" / "dryrun"
     out_dir.mkdir(parents=True, exist_ok=True)
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": "",
            "OMP_NUM_THREADS": "1"}
     atexit.register(_stop_dryrun)
-    for mesh in DRYRUN_MESHES:
-        for i, archs in enumerate(DRYRUN_SPLIT):
-            out, log = out_dir / f"{mesh}_{i}.json", out_dir / f"{mesh}_{i}.log"
-            proc = subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.launch.dryrun", "--shape", "train_4k",
-                 "--mesh", mesh, "--out", str(out), "--force"]
-                + [a for arch in archs for a in ("--arch", arch)],
-                cwd=ROOT, env=env, stdout=open(log, "w"), stderr=subprocess.STDOUT,
-                preexec_fn=lambda: os.nice(19))
-            DRYRUN_PROCS.append((proc, out, log))
+    runs = [(f"{mesh}_{i}", ["--mesh", mesh] + [a for arch in archs for a in ("--arch", arch)])
+            for mesh in DRYRUN_MESHES for i, archs in enumerate(DRYRUN_SPLIT)]
+    arch, shape, mesh = DRYRUN_BASELINE
+    runs.append(("baseline", ["--arch", arch, "--shape", shape, "--mesh", mesh, "--variant",
+                              "baseline"]))
+    for name, args in runs:
+        out, log = out_dir / f"{name}.json", out_dir / f"{name}.log"
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--out", str(out), "--force"]
+            + args, cwd=ROOT, env=env, stdout=open(log, "w"), stderr=subprocess.STDOUT,
+            preexec_fn=lambda: os.nice(19))
+        DRYRUN_PROCS.append((proc, out, log))
     return DRYRUN_PROCS
 
 
 def check_dryrun(procs) -> dict:
-    """Phase 1c's check, deferred: every admitted ``train_4k`` cell on both
-    meshes recorded ``ok`` with its payloads equal to
-    ``roofline.lm_step_payloads``; prints ``format_markdown(load_table(..))``
-    and each cell's FLOPs a chip beside the analytic row's."""
+    """Phase 1c's check, deferred: every admitted cell of every shape on both
+    meshes recorded ``ok``, a train cell's payloads equal to
+    ``roofline.lm_step_payloads`` (under the batch axes the record names:
+    whisper-base's ``train_4k`` on ``single`` pure data parallel), a
+    prefill or decode cell's to ``roofline.lm_serve_payloads``;
+    deepseek-v2's prefill_32k on ``single`` handing its collectives at
+    least 3x fewer wire bytes than under ``baseline``; prints
+    ``format_markdown(load_table(..))`` and each cell's FLOPs a chip beside
+    the analytic mesh row's."""
     from repro_torch import roofline as R
+    from repro_torch.configs.base import SHAPES
     from repro_torch.configs.registry import ARCH_IDS, cell_supported, get_config
     t0 = time.perf_counter()
-    merged = {}
+    merged, baseline = {}, None
     for proc, out, log in procs:
         try:
             rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - T_START)))
@@ -2167,7 +2220,11 @@ def check_dryrun(procs) -> dict:
         said = pathlib.Path(log).read_text()
         if rc != 0:
             fail(f"phase 1c: the dry run ({out.name}) exited {rc}: {said[-3000:]}")
-        merged.update(json.loads(out.read_text()))
+        recs = json.loads(out.read_text())
+        if out.name == "baseline.json":
+            baseline = recs["/".join(DRYRUN_BASELINE)]
+        else:
+            merged.update(recs)
         print(f"dry run ({out.name}) ended {said.strip().splitlines()[-1]}", flush=True)
     path = ROOT / "build" / "dryrun" / "both.json"
     path.write_text(json.dumps(merged, indent=1))
@@ -2175,25 +2232,55 @@ def check_dryrun(procs) -> dict:
     for mesh in DRYRUN_MESHES:
         sizes = R.PRODUCTION_MESHES[mesh]
         for arch in ARCH_IDS:
-            if not cell_supported(arch, "train_4k")[0]:
-                continue
-            rec = merged.get(f"{arch}/train_4k/{mesh}")
-            if rec is None or rec.get("status") != "ok":
-                fail(f"phase 1c: {arch}/train_4k/{mesh}: {rec and rec.get('status')}")
-            want = R.lm_step_payloads(get_config(arch), sizes, 256, 4096)
-            if rec["collectives"] != want:
-                fail(f"phase 1c: {arch}/train_4k/{mesh}: payloads {rec['collectives']} "
-                     f"against lm_step_payloads {want}")
-            row = R.analyze_cell(arch, "train_4k", mesh)
-            analytic = row["model_flops"] / row["chips"] / row["useful_ratio"]
-            ratio = rec["flops_per_device"] / analytic
-            bmm = rec["flops_by_op"].get("aten.bmm", 0) / rec["flops_per_device"]
-            cells.append(dict(key=f"{arch}/{mesh}", program=rec["flops_per_device"],
-                              analytic=analytic, ratio=ratio, bmm_share=bmm,
-                              trace_s=rec["trace_s"], bytes=rec["bytes_per_device"],
-                              state=rec["state_bytes_per_device"]))
-            lines.append(f"| {arch} | {mesh} | {rec['flops_per_device']:.4e} | {analytic:.4e} "
-                         f"| {ratio:.4f} | {bmm:.3f} | {rec['trace_s']:.1f} |")
+            cfg = get_config(arch)
+            for shape in SHAPES:
+                key = f"{arch}/{shape.name}/{mesh}"
+                rec = merged.get(key)
+                if not cell_supported(arch, shape.name)[0]:
+                    if rec is None or rec.get("status") != "skipped":
+                        fail(f"phase 1c: {key}: {rec and rec.get('status')}, not skipped")
+                    continue
+                if rec is None or rec.get("status") != "ok":
+                    fail(f"phase 1c: {key}: {rec and rec.get('status')}")
+                b, s = shape.global_batch, shape.seq_len
+                if shape.kind == "train":
+                    bax = tuple(rec["batch_axes"]) if rec.get("batch_axes") else None
+                    want = R.lm_step_payloads(cfg, sizes, b, s, batch_axes=bax)
+                else:
+                    want = R.lm_serve_payloads(cfg, sizes, b, s, shape.kind)
+                if rec["collectives"] != want:
+                    fail(f"phase 1c: {key}: payloads {rec['collectives']} against the "
+                         f"roofline's {want}")
+                row = R.analyze_cell(arch, shape.name, mesh)
+                analytic = row["model_flops"] / row["chips"] / row["useful_ratio"]
+                ratio = rec["flops_per_device"] / analytic
+                bmm = rec["flops_by_op"].get("aten.bmm", 0) / max(rec["flops_per_device"], 1)
+                cells.append(dict(key=key, program=rec["flops_per_device"], analytic=analytic,
+                                  ratio=ratio, bmm_share=bmm, trace_s=rec["trace_s"],
+                                  bytes=rec["bytes_per_device"],
+                                  state=rec["state_bytes_per_device"],
+                                  wire=R.collective_wire_bytes(rec["collectives"], sizes)))
+                lines.append(f"| {arch} | {shape.name} | {mesh} | {rec['flops_per_device']:.4e} "
+                             f"| {analytic:.4e} | {ratio:.4f} | {bmm:.3f} | "
+                             f"{rec['state_bytes_per_device']:.4e} | {rec['trace_s']:.1f} |")
+    whisper = merged["whisper-base/train_4k/single"]
+    w_ratio = whisper["flops_per_device"] / (DRYRUN_WHISPER_REPLICATED / 16)
+    print(f"dry run: whisper-base/train_4k/single batch over {whisper['batch_axes']}, "
+          f"{whisper['flops_per_device']:.4e} FLOPs a chip, {w_ratio:.4f} of 1/16 of the "
+          f"replicated {DRYRUN_WHISPER_REPLICATED:.4e}; collectives "
+          f"{sorted(whisper['collectives'])}", flush=True)
+    if abs(w_ratio - 1) > 0.1 or whisper["batch_axes"] != ["data", "model"]:
+        fail(f"phase 1c: whisper-base/train_4k/single is not pure data parallel: {w_ratio}")
+    sizes = R.PRODUCTION_MESHES[DRYRUN_BASELINE[2]]
+    opt = merged["/".join(DRYRUN_BASELINE)]
+    wires = {v: R.collective_wire_bytes(r["collectives"], sizes)
+             for v, r in (("baseline", baseline), ("optimized", opt))}
+    print(f"dry run: {'/'.join(DRYRUN_BASELINE)} collective wire bytes, optimized "
+          f"{wires['optimized']:.4e} against baseline {wires['baseline']:.4e} "
+          f"({wires['baseline'] / wires['optimized']:.2f}x; want at least 3x); payloads "
+          f"baseline {baseline['collectives']}, optimized {opt['collectives']}", flush=True)
+    if not wires["optimized"] * 3 < wires["baseline"]:
+        fail(f"phase 1c: the expert-parallel MoE moves {wires}, not 3x under the baseline")
     for mesh in DRYRUN_MESHES:
         print(f"dry run ({mesh}, {R.PRODUCTION_MESHES[mesh]}): the roofline of one rank's "
               f"traced step (FLOPs and payloads counted on the program, bytes its eager "
@@ -2201,11 +2288,12 @@ def check_dryrun(procs) -> dict:
               flush=True)
         print(R.format_markdown(R.load_table(path, mesh)), flush=True)
     print("dry run: FLOPs a chip, the program's against the analytic mesh row's "
-          "(cell_rows(mesh)):\n| arch | mesh | program | analytic | ratio | bmm share | "
-          "trace s |\n|---|---|---|---|---|---|---|\n" + "\n".join(lines), flush=True)
-    print(f"phase 1c: {len(cells)} cells, payloads equal to lm_step_payloads; waited "
+          "(cell_rows(mesh)):\n| arch | shape | mesh | program | analytic | ratio | bmm share | "
+          "state B a chip | trace s |\n|---|---|---|---|---|---|---|---|---|\n"
+          + "\n".join(lines), flush=True)
+    print(f"phase 1c: {len(cells)} cells, payloads equal to the roofline's; waited "
           f"{time.perf_counter() - t0:.1f} s at the end", flush=True)
-    return dict(cells=cells)
+    return dict(cells=cells, baseline_wire=wires, whisper_ratio=w_ratio)
 
 
 # ---------------------------------------------------------------------------
@@ -2993,8 +3081,8 @@ def run_training_rest(dev, launches, host_loop):
 # ---------------------------------------------------------------------------
 
 LM_TRAIN_TASKS = 2                           # tasks a step
-# minitron-4b's 32 layers cut to 16 (here and in phase 6b), so that the
-# whole script stays within the time it took before phase 5d was added
+# minitron-4b's 32 layers cut to 16, so that the whole script stays within
+# its time (at 8 the gate no longer sees the planted dq fault)
 LM_TRAIN_LAYERS = 16
 LM_TRAIN_LITE = dict(h=8, chunk_size=8)
 LM_TRAIN_STEPS = 3
@@ -3410,9 +3498,9 @@ PRETRAIN_SEQ = 4608
 # 2 steps through ``train()`` in phases 5d, 5f and 6e (3 before phase 5h):
 # tokens/s reads the second
 PRETRAIN_STEPS = 2
-# gemma2-2b in phase 5d at 13 of its 26 layers (7 local, 6 global; all 26
-# before phase 5h), cut for the whole script's time
-PRETRAIN_LAYERS = 13
+# gemma2-2b in phase 5d at 8 of its 26 layers (4 local, 4 global; all 26
+# before phase 5h, 13 before phase 6f), cut for the whole script's time
+PRETRAIN_LAYERS = 8
 # the parity step's sequences keep their first PRETRAIN_HIDDEN tokens at
 # their first token, so that what the window hides from the last positions
 # is coherent (phase 6b's reason): on the pipeline's tokens as drawn, a
@@ -5404,8 +5492,8 @@ def lm_rank_main(which: str, out_dir: str) -> int:
     <ep4|step2|nccl1> <dir>``; writes its reading to
     ``<dir>/<which>_rank<r>.json``."""
     import torch.distributed as dist
-    out = {"ep4": lm_rank_ep4, "step2": lm_rank_step2,
-           "nccl1": lm_rank_nccl1}[which](out_dir)
+    out = {"ep4": lm_rank_ep4, "step2": lm_rank_step2, "nccl1": lm_rank_nccl1,
+           "serve4": lm_rank_serve4}[which](out_dir)
     with open(os.path.join(out_dir, f"{which}_rank{os.environ['RANK']}.json"), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
@@ -5889,7 +5977,7 @@ def run_ops_path(dev, launches):
 
 LM_SLOTS = 4
 LM_MAX_NEW = 16
-LM_SERVE_LAYERS = 16        # minitron-4b's 32 cut to 16, as in phase 5c
+LM_SERVE_LAYERS = 8         # minitron-4b's 32 cut to 8 (16 before phase 6f)
 # wave 1: four prompts of one length decode as one stacked cohort; wave 2:
 # ragged lengths, which decode slot by slot
 LM_PROMPTS = (1024, 1024, 1024, 1024, 512, 2048, 512, 2048)
@@ -6428,6 +6516,10 @@ def moe_runs(cfg, params, fault=None):
     for name, c, backend, ctx in plan:
         runs[name], timeline = {}, []
         reqs = moe_reqs(cfg)
+        # the previous run's cached blocks released: the fp32 run casts a
+        # whole expert bank at once (21 GB at kimi-k2's width), and phase
+        # 6f's idle ranks hold their contexts on the card meanwhile
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         with recording_routes(timeline), (ctx() if ctx else contextlib.nullcontext()):
             lm_engine(c, params, backend, MOE_SLOTS, max_seq, record=runs[name],
@@ -6644,10 +6736,11 @@ def run_moe_serve_launcher():
 # slot; zamba2-7b (5.62 G params, 22.5 GB in fp32 and 11 GB of bf16 compute
 # copies): a stacked pair, then 512 and 2048
 # (arch, slots, prompts, new tokens, layers): mamba2-780m decodes 8 new
-# tokens a request (16 before phase 5h), zamba2-7b serves 42 of its 81
-# layers (35 mamba, 7 shared sites; all 81 before phase 5h)
-SSM_SERVE = (("mamba2-780m", 4, (1024, 1024, 1024, 1024, 1000, 2048), 8, 48),
-             ("zamba2-7b", 2, (1024, 1024, 512, 2048), 8, 42))
+# tokens a request (16 before phase 5h) at 24 of its 48 layers (48 before
+# phase 6f), zamba2-7b serves 28 of its 81 layers (24 mamba, 4 shared
+# sites; all 81 before phase 5h, 42 before phase 6f)
+SSM_SERVE = (("mamba2-780m", 4, (1024, 1024, 1024, 1024, 1000, 2048), 8, 24),
+             ("zamba2-7b", 2, (1024, 1024, 512, 2048), 8, 28))
 SSM_PREFILL_LENGTHS = (1024, 2048)
 SSM_DECODE_POS = 1024
 SSM_CATEGORIES = (("B6 ssd_chunk", ("ssd_wgmma", "ssd_chunk_kernel")),) + LM_CATEGORIES
@@ -7343,6 +7436,504 @@ def run_whisper(dev, launches):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6f: LM prefill and decode over a (data 2, model 2) mesh of ranks
+# ---------------------------------------------------------------------------
+
+# (arch, layers, prompt, decode steps): full width, depth and steps cut for
+# the run's time (a pass re-gathers every layer, and gloo moves about 1.6
+# GB/s over the 4 ranks sharing the host: a deepseek-v2 decode step takes
+# about 9.5 s, a gemma2-2b one at 13 layers 5.2 s, and the passes share the
+# host with the deferred checks); gemma2-2b's 2 layers are one local and one
+# global; B SERVE_MESH_ROWS rows, one a data rank; the planted fault's run
+# decodes one step
+SERVE_MESH_MODELS = (("gemma2-2b", 2, 4608, 2), ("deepseek-v2-236b", 1, 1024, 1),
+                     ("mamba2-780m", 12, 2048, 2))
+SERVE_MESH_ROWS = 2
+SERVE_MESH_WAIT = 300.0        # a rank's wait for a reference's file
+SERVE_MESH_TIMEOUT = 600.0     # the ranks' whole run
+SERVE_MESH = {}                # the ranks' processes, logs and directory
+# positions past the prompt in the decode cache: an even length, so that the
+# sequence still splits over model
+SERVE_MESH_ROOM = 8
+# the kernels each model's path must launch on every rank
+SERVE_MESH_KERNELS = {"gemma2-2b": ("flash_attention",), "deepseek-v2-236b": ("gmm",),
+                      "mamba2-780m": ("ssd_chunk",)}
+# the cache layouts each model must take: the sequence over model (gemma2's
+# 4 kv heads and MLA's latent), the SSM's heads and channels over model
+SERVE_MESH_SPECS = {
+    "gemma2-2b": {"k": "P(None, 'data', 'model', None, None)",
+                  "v": "P(None, 'data', 'model', None, None)"},
+    "deepseek-v2-236b": {"ckv": "P(None, 'data', 'model', None)",
+                         "krope": "P(None, 'data', 'model', None)"},
+    "mamba2-780m": {"conv": "P(None, 'data', 'model', None)",
+                    "ssm": "P(None, 'data', 'model', None, None)"}}
+
+
+def serve_mesh_cfg(arch: str, layers: int):
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config(arch), n_layers=layers)
+
+
+def serve_mesh_inputs(cfg, prompt: int, steps: int = 2):
+    """The global batch (SERVE_MESH_ROWS x ``prompt`` tokens; gemma2's first
+    GEMMA_HIDDEN tokens of a row one token, as phase 6b's, so the window
+    hides something coherent) and the ``steps`` decode tokens of each row,
+    on the host."""
+    import torch
+    g = torch.Generator().manual_seed(21)
+    tokens = torch.randint(0, cfg.vocab, (SERVE_MESH_ROWS, prompt), generator=g)
+    if cfg.local_global:
+        tokens[:, :GEMMA_HIDDEN] = tokens[:, :1]
+    return tokens, torch.randint(0, cfg.vocab, (steps, SERVE_MESH_ROWS), generator=g)
+
+
+def serve_mesh_narrow(api, params, cfg):
+    """The bf16 runs' weights: ``compute_params``' (the layers' matmul
+    weights in bf16) and the vocab tables in bf16 too (they are the mesh's
+    largest gather; both bf16 runs share their rounding)."""
+    import torch
+    p = api.compute_params(params, cfg)
+    return {k: (v.to(torch.bfloat16) if k in ("embed", "lm_head") else v) for k, v in p.items()}
+
+
+def _spliced(api, cfg, cache, max_seq: int, dev):
+    """A one-device prefill's cache in an empty cache of ``max_seq``
+    positions (the sequence leaves copied in, the states whole)."""
+    full = api.init_cache(cfg, cache[next(k for k in cache if k != "len")].shape[1], max_seq,
+                          dev)
+    for k, v in cache.items():
+        if k == "len":
+            full[k] = v
+        elif k in ("k", "v", "ckv", "krope"):
+            full[k][:, :, :v.shape[2]] = v
+        else:
+            full[k].copy_(v)
+    return full
+
+
+def serve_mesh_reference(dev, tmp):
+    """One process, before the ranks: each model's ``ref`` run in bf16
+    (from ``compute_params``' weights) and in fp32 compute, each data
+    shard's row alone (an MoE layer's capacity is the shard's, as under the
+    mesh): the prefill's logits and cache, then the model's decode steps
+    teacher-forced on the same tokens from the prefill's cache spliced into
+    one of prompt + SERVE_MESH_ROOM positions, every logits row (true vocab)
+    and, for an MoE model, each row's token's kept experts; saved to host
+    files (each written under another name, then renamed: a rank waits for
+    the name) with the bf16 run's spliced cache, which the ranks place and
+    decode from.  Then the card is freed."""
+    import dataclasses
+    import torch
+    from repro_torch.models.registry import get_api
+    for arch, layers, prompt, steps in SERVE_MESH_MODELS:
+        cfg = serve_mesh_cfg(arch, layers)
+        api = get_api(cfg)
+        params = api.init(torch.Generator(device=dev).manual_seed(0), cfg, dev,
+                          at_param_dtype=True)
+        tokens, new = serve_mesh_inputs(cfg, prompt, steps)
+        saved = {}
+        for name, c, p in (("ref16", cfg, serve_mesh_narrow(api, params, cfg)),
+                           ("ref32", dataclasses.replace(cfg, compute_dtype="float32"), params)):
+            rows, routes, caches, spliced = {}, {}, [], []
+            for d in range(SERVE_MESH_ROWS):
+                timeline = []
+                with recording_routes(timeline):
+                    logits, cache = api.prefill(p, dict(tokens=tokens[d:d + 1].to(dev)), c,
+                                                backend="ref")
+                    rows[d] = [logits[0, :cfg.vocab].float().cpu()]
+                    routes[d] = [kept_experts(timeline[-1][1], cfg)[-1]] if timeline else []
+                    caches.append({k: v for k, v in cache.items() if k != "len"})
+                    full = _spliced(api, c, cache, prompt + SERVE_MESH_ROOM, dev)
+                    if name == "ref16":
+                        spliced.append({k: (v.to("cpu", copy=True) if torch.is_tensor(v)
+                                            else v) for k, v in full.items()})
+                    for t in range(steps):
+                        timeline.clear()
+                        logits, full = api.decode_step(p, full, new[t, d:d + 1, None].to(dev), c,
+                                                       backend="ref")
+                        rows[d].append(logits[0, :cfg.vocab].float().cpu())
+                        if timeline:
+                            routes[d].append(kept_experts(timeline[-1][1], cfg)[0])
+                    del full
+            saved[name] = dict(rows=rows, routes=routes, cache={
+                k: torch.cat([c_[k] for c_ in caches], 1).cpu() for k in caches[0]})
+            if name == "ref16":
+                saved["spliced"] = {k: (torch.cat([s[k] for s in spliced], 1)
+                                        if torch.is_tensor(spliced[0][k]) else spliced[0][k])
+                                    for k in spliced[0]}
+            del caches
+        path = os.path.join(tmp, f"serve4_{arch}.pt")
+        torch.save(dict(saved, tokens=tokens, new=new), path + ".part")
+        os.replace(path + ".part", path)
+        del params, saved
+        torch.cuda.empty_cache()
+        mark(f"6f: {arch} one-device reference done")
+
+
+def _block_errs(got: dict, want: dict, specs: dict, mesh) -> float:
+    """The worst leaf's error of this rank's cache blocks against the same
+    blocks of a whole cache, each over its block's max|want|."""
+    from repro_torch.sharding.place import shard_leaf
+    worst = 0.0
+    for k, spec in specs.items():
+        w = shard_leaf(want[k], spec, mesh).to(got[k].device)
+        worst = max(worst, global_err(got[k], w))
+    return worst
+
+
+def lm_rank_serve4(out_dir):
+    """Phase 6f, one of 4 gloo ranks sharing the card as (data 2, model 2):
+    each model's blocks drawn (``init_sharded``, the blocks of the one-device
+    init) and narrowed (``compute_params``), the global batch's prefill
+    under ``use_mesh`` on the kernels (its logits row and cache blocks
+    against the reference's), then the model's decode steps from the
+    reference's bf16 cache placed by ``place_lm_cache``; the payloads, the
+    launches, each call's ms and the peak memory; for gemma2-2b a planted
+    fault (the first sequence block's partial dropped from every merge)."""
+    import torch
+    from repro_torch.common.tree import tree_paths
+    from repro_torch.kernels import _build
+    from repro_torch.launch import collectives
+    from repro_torch.launch.mesh import init_distributed, make_mesh_for
+    from repro_torch.launch.specs import abstract_params_for
+    from repro_torch.models import layers as L
+    from repro_torch.models.registry import get_api
+    from repro_torch.roofline import lm_serve_payloads
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.ctx import use_mesh
+    from repro_torch.sharding.place import init_sharded, place_lm_cache, shard_leaf
+    t_rank = time.perf_counter()
+    dev = init_distributed("cuda", backend="gloo", init_method=os.environ["RANKS_INIT_METHOD"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh_for((2, 2), ("data", "model"))
+    stages = [("mesh", time.perf_counter() - t_rank)]
+    out = dict(rank=mesh.rank, coords=mesh.coords, device=str(dev), backend=mesh.backend,
+               models={}, stages=stages)
+    row = mesh.coords["data"]
+
+    def timed(fn):
+        torch.cuda.synchronize(dev)
+        collectives.counter.reset()
+        _build.launches.reset()
+        t0 = time.perf_counter()
+        with use_mesh(mesh):
+            res = fn()
+        torch.cuda.synchronize(dev)
+        return res, (time.perf_counter() - t0) * 1e3, collectives.counter.payload(), \
+            _build.launches.snapshot()
+
+    for arch, layers, prompt, steps in SERVE_MESH_MODELS:
+        cfg = serve_mesh_cfg(arch, layers)
+        api = get_api(cfg)
+        abstract = abstract_params_for(cfg)
+        pspecs = rules.sanitize(rules.param_specs(abstract), abstract, mesh)
+        blocks = init_sharded(lambda g, d: api.init(g, cfg, d, at_param_dtype=True),
+                              torch.Generator(device=dev).manual_seed(0), dev, pspecs, mesh)
+        blocks = serve_mesh_narrow(api, blocks, cfg)
+        stages.append((f"{arch} blocks", time.perf_counter() - t_rank))
+        path = os.path.join(out_dir, f"serve4_{arch}.pt")
+        t_wait = time.perf_counter()
+        while not os.path.exists(path):
+            if os.path.exists(os.path.join(out_dir, "serve4_stop")):
+                raise RuntimeError("the main process stopped before phase 6f")
+            if time.perf_counter() - t_wait > SERVE_MESH_WAIT:
+                raise RuntimeError(f"no {path} after {SERVE_MESH_WAIT:.0f} s")
+            time.sleep(0.2)
+        stages.append((f"{arch} waited", time.perf_counter() - t_rank))
+        ref = torch.load(path, mmap=True)
+        stages.append((f"{arch} reference read", time.perf_counter() - t_rank))
+        dtypes = {p: str(t.dtype).replace("torch.", "") for p, t in tree_paths(blocks).items()}
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        batch = dict(tokens=ref["tokens"].to(dev))
+        timeline = []
+        with recording_routes(timeline):
+            (logits, cache), pre_ms, pre_pay, pre_launch = timed(
+                lambda: api.prefill(blocks, batch, cfg, backend="cuda"))
+        stages.append((f"{arch} prefill", time.perf_counter() - t_rank))
+        rows = [logits[0, :cfg.vocab].float().cpu()]
+        routes = [kept_experts(timeline[-1][1], cfg)[-1]] if timeline else []
+        specs = cache["specs"]
+        blocks_err = {n: _block_errs(cache, ref[n]["cache"], specs, mesh)
+                      for n in ("ref16", "ref32")}
+        blocks_err["ref16_vs_ref32"] = _block_errs(
+            {k: shard_leaf(ref["ref16"]["cache"][k], specs[k], mesh) for k in specs},
+            ref["ref32"]["cache"], specs, mesh)
+        del cache, logits
+        stages.append((f"{arch} block errors", time.perf_counter() - t_rank))
+
+        def decode(steps):
+            mc = place_lm_cache(dict(ref["spliced"]), mesh)
+            mc = {k: (v.to(dev) if torch.is_tensor(v) else v) for k, v in mc.items()}
+            got, rts, ms, pay, launch = [], [], [], {}, {}
+            for t in range(steps):
+                timeline.clear()
+                with recording_routes(timeline):
+                    (lg, mc), step_ms, pay, step_launch = timed(
+                        lambda: api.decode_step(blocks, mc, ref["new"][t, :, None].to(dev),
+                                                cfg, backend="cuda"))
+                got.append(lg[0, :cfg.vocab].float().cpu())
+                if timeline:
+                    rts.append(kept_experts(timeline[-1][1], cfg)[0])
+                ms.append(step_ms)
+                for k, v in step_launch.items():
+                    launch[k] = launch.get(k, 0) + v
+            return got, rts, ms, pay, launch
+
+        got, rts, dec_ms, dec_pay, dec_launch = decode(steps)
+        stages.append((f"{arch} decode", time.perf_counter() - t_rank))
+        rows += got
+        routes += rts
+        peak = torch.cuda.max_memory_allocated(dev)
+        res = dict(prefill_ms=pre_ms, decode_ms=dec_ms, peak_bytes=peak, held_bytes=held,
+                   prefill_payload=pre_pay, decode_payload=dec_pay,
+                   want_prefill=lm_serve_payloads(cfg, mesh.shape, SERVE_MESH_ROWS, prompt,
+                                                  "prefill", dtypes),
+                   want_decode=lm_serve_payloads(cfg, mesh.shape, SERVE_MESH_ROWS,
+                                                 prompt + SERVE_MESH_ROOM, "decode", dtypes),
+                   launches_prefill=pre_launch, launches_decode=dec_launch,
+                   specs={k: repr(v) for k, v in specs.items()}, blocks_err=blocks_err,
+                   routes=[r.tolist() for r in routes], row=row)
+        if arch == "gemma2-2b":
+            merge = L.merge_partials
+
+            def dropped(m, s, o, mesh_, axes):
+                if axes and mesh_.index_of(axes) == 0:
+                    m, s, o = torch.full_like(m, float("-inf")), torch.zeros_like(s), \
+                        torch.zeros_like(o)
+                return merge(m, s, o, mesh_, axes)
+
+            L.merge_partials = dropped
+            try:
+                res["fault_rows"] = [rows[0]] + decode(1)[0]
+            finally:
+                L.merge_partials = merge
+        torch.save(dict(rows=rows, fault=res.pop("fault_rows", None)),
+                   os.path.join(out_dir, f"serve4_{arch}_rank{mesh.rank}_rows.pt"))
+        out["models"][arch] = res
+        del blocks, ref
+        torch.cuda.empty_cache()
+        stages.append((f"{arch} done", time.perf_counter() - t_rank))
+    return out
+
+
+def serve_mesh_gate(arch, cfg, ref, ranks, rows_of) -> dict:
+    """Each rank's logits rows (its data shard's row: the prefill's and
+    decode steps') against the fp32 ``ref`` run's at LM_GATE
+    times the bf16 ``ref`` run's own error (:func:`lm_gate`), and its
+    prefill's cache blocks likewise; an MoE model's rows read only where
+    the three runs keep the row's token on the same experts (phase 6c's
+    reason), at least MOE_MIN_READ of the data shards' rows, a prefill row
+    among them.  gemma2-2b's planted fault must
+    fail the logits gate."""
+    gates, skipped = [], {}
+    for r in ranks:
+        m = r["models"][arch]
+        uid = m["row"]
+        runs = {n: {uid: ref[n]["rows"][uid]} for n in ("ref16", "ref32")}
+        got = rows_of(r["rank"])
+        runs["got"] = {uid: got["rows"]}
+        skip = set()
+        if cfg.moe is not None:
+            for j, mine in enumerate(m["routes"]):
+                if any(ref[n]["routes"][uid][j].tolist() != mine for n in ("ref16", "ref32")):
+                    skip.add((uid, j))
+            skipped.setdefault(uid, set()).update(skip)
+            n_rows = len(ref["ref32"]["rows"][uid])
+            print(f"  {arch} rank {r['rank']}: the gate reads {n_rows - len(skip)} of {n_rows} "
+                  f"rows (left out, a routing that differs between the runs: {sorted(skip)})",
+                  flush=True)
+        g = lm_gate(f"{arch} rank {r['rank']} {r['coords']}", runs, skip=frozenset(skip))
+        be = m["blocks_err"]
+        ok = be["ref32"] <= LM_GATE * be["ref16_vs_ref32"]
+        print(f"  {arch} rank {r['rank']}: prefill cache blocks {m['specs']} vs fp32 ref "
+              f"{be['ref32']:.3e} (gate {LM_GATE * be['ref16_vs_ref32']:.3e} = {LM_GATE}x bf16 "
+              f"ref's {be['ref16_vs_ref32']:.3e}); vs bf16 ref {be['ref16']:.3e} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"phase 6f {arch} rank {r['rank']}: the cache blocks are outside their gate")
+        g["blocks"] = be
+        if got["fault"] is not None:
+            n = len(got["fault"])
+            cut = {k: {uid: v[uid][:n]} for k, v in runs.items()}
+            cut["fault"] = {uid: got["fault"]}
+            g["planted"] = lm_gate(f"{arch} rank {r['rank']} planted fault: the first sequence "
+                                   f"block's partial dropped from the merge (prefill and "
+                                   f"{n - 1} decode step)", cut, fault=True, run="fault")
+        gates.append(g)
+    if cfg.moe is not None:
+        # over the data shards' rows, as phase 6c reads its requests': at
+        # least MOE_MIN_READ of them, a prefill row among them
+        n_rows = sum(len(ref["ref32"]["rows"][u]) for u in skipped)
+        left = sum(len(v) for v in skipped.values())
+        if left > (1 - MOE_MIN_READ) * n_rows or all((u, 0) in v for u, v in skipped.items()):
+            fail(f"phase 6f {arch}: the gate reads {n_rows - left} of {n_rows} rows: {skipped}")
+    return dict(gates=gates)
+
+
+def run_quickstart():
+    """``python -m repro_torch.examples.quickstart`` at its defaults on the
+    card as a subprocess: exit 0 and the reference's lines."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.examples.quickstart"], cwd=ROOT,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                          capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    held = [ln for ln in lines if ln.startswith("held-out task accuracy:")]
+    print(f"quickstart (cuda): exit {proc.returncode} in {secs:.1f} s; "
+          f"{[ln for ln in lines if ln.startswith(('step', 'batched'))][-2:]}; "
+          f"{held[-1] if held else proc.stdout[-300:]}", flush=True)
+    steps = [ln for ln in lines if ln.startswith("step ")]
+    if proc.returncode != 0 or len(held) != 1 or len(steps) != 6 \
+            or sum(ln.startswith("batched step") for ln in lines) != 4:
+        fail(f"the quickstart failed on the card:\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    return dict(exit=proc.returncode, seconds=secs, heldout=held[0])
+
+
+def _stop_serve_mesh() -> None:
+    """Stop phase 6f's ranks (at exit: a rank waiting for its references
+    reads the stop file; any still running is killed) and remove their
+    directory."""
+    import shutil
+    tmp = SERVE_MESH.get("tmp")
+    if tmp and os.path.isdir(tmp):
+        pathlib.Path(tmp, "serve4_stop").touch()
+    for proc, _ in SERVE_MESH.get("procs", []):
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if tmp:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def start_serve_mesh() -> None:
+    """Start phase 6f's 4 rank processes (``python chip_smoke.py --lm-rank
+    serve4 <dir>``, a ``file://`` store in the directory) now: their
+    start-up (imports, the card, the mesh, the first model's blocks) runs
+    beside the references, then each waits for a model's reference."""
+    import atexit
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_mesh_")
+    atexit.register(_stop_serve_mesh)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), **DP_ENV}
+    init = f"file://{tmp}/pg_serve4"
+    procs = []
+    for r in range(4):
+        log = open(os.path.join(tmp, f"rank{r}.log"), "w+")
+        e = dict(env, RANK=str(r), WORLD_SIZE="4", LOCAL_RANK=str(r), LOCAL_WORLD_SIZE="4",
+                 RANKS_INIT_METHOD=init)
+        procs.append((subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                        "--lm-rank", "serve4", tmp], env=e, cwd=ROOT,
+                                       stdout=log, stderr=subprocess.STDOUT, text=True), log))
+    SERVE_MESH.update(tmp=tmp, procs=procs, t0=time.perf_counter())
+
+
+def _serve_mesh_wait():
+    """The ranks' readings, rank order, once all have exited 0 (a rank that
+    fails fails the run, its peers killed)."""
+    procs = SERVE_MESH["procs"]
+    while any(p.poll() is None for p, _ in procs):
+        bad = [r for r, (p, _) in enumerate(procs) if p.poll() not in (None, 0)]
+        if bad or time.perf_counter() - SERVE_MESH["t0"] > SERVE_MESH_TIMEOUT:
+            r = bad[0] if bad else next(r for r, (p, _) in enumerate(procs) if p.poll() is None)
+            log = procs[r][1]
+            log.seek(0)
+            said = log.read()[-4000:]
+            _stop_serve_mesh()
+            fail(f"phase 6f: rank {r} of 4 failed or ran past {SERVE_MESH_TIMEOUT:.0f} s:\n{said}")
+        time.sleep(0.1)
+    for r, (p, log) in enumerate(procs):
+        if p.returncode != 0:
+            log.seek(0)
+            fail(f"phase 6f: rank {r} exited {p.returncode}: {log.read()[-4000:]}")
+    return [json.loads(pathlib.Path(SERVE_MESH["tmp"], f"serve4_rank{r}.json").read_text())
+            for r in range(4)]
+
+
+def serve_mesh_ranks(out, tmp, launches):
+    """Phase 6f's checks, run with the deferred subprocess checks: the ranks
+    waited for, then each rank's gate, payloads against
+    ``roofline.lm_serve_payloads``, launches, ms and peak memory; the
+    ranks' directory is removed after."""
+    import torch
+    counts = {}
+    t0 = time.perf_counter()
+    try:
+        ranks = _serve_mesh_wait()
+        secs = time.perf_counter() - t0
+        out.update(seconds_ranks=secs)
+        for arch, layers, prompt, steps in SERVE_MESH_MODELS:
+            cfg = serve_mesh_cfg(arch, layers)
+            ref = torch.load(os.path.join(tmp, f"serve4_{arch}.pt"), mmap=True)
+            print(f"lm serve mesh (6f): {arch} at {layers} layers, full width, B "
+                  f"{SERVE_MESH_ROWS} x S {prompt}, {steps} decode step(s), on 4 gloo "
+                  f"ranks as (data 2, model 2) time-slicing one card beside the deferred "
+                  f"subprocess checks (no scaling figure):", flush=True)
+            for r in ranks:
+                m = r["models"][arch]
+                for kind in ("prefill", "decode"):
+                    if m[f"{kind}_payload"] != m[f"want_{kind}"]:
+                        fail(f"phase 6f {arch} rank {r['rank']}: {kind} payloads "
+                             f"{m[f'{kind}_payload']} against lm_serve_payloads "
+                             f"{m[f'want_{kind}']}")
+                if m["specs"] != SERVE_MESH_SPECS[arch]:
+                    fail(f"phase 6f {arch} rank {r['rank']}: cache specs {m['specs']}, want "
+                         f"{SERVE_MESH_SPECS[arch]}")
+                for k in SERVE_MESH_KERNELS[arch]:
+                    if m["launches_prefill"].get(k, 0) < 1:
+                        fail(f"phase 6f {arch} rank {r['rank']}: {k} not launched in the "
+                             f"prefill: {m['launches_prefill']}")
+                for part in ("launches_prefill", "launches_decode"):
+                    for k, v in m[part].items():
+                        counts[k] = counts.get(k, 0) + v
+                print(f"  rank {r['rank']} {r['coords']}: prefill {m['prefill_ms']:.1f} ms, "
+                      f"decode {statistics.median(m['decode_ms']):.1f} ms a step (median of "
+                      f"{steps}); peak {m['peak_bytes']} B ({m['held_bytes']} B of "
+                      f"blocks); launches prefill {m['launches_prefill']}, decode "
+                      f"{m['launches_decode']}; payloads = lm_serve_payloads: prefill "
+                      f"{m['prefill_payload']}, decode step {m['decode_payload']}", flush=True)
+            rows_of = lambda rank: torch.load(  # noqa: E731
+                os.path.join(tmp, f"serve4_{arch}_rank{rank}_rows.pt"))
+            out[arch] = serve_mesh_gate(arch, cfg, ref, ranks, rows_of)
+            del ref
+        out["ranks"] = ranks
+    finally:
+        _stop_serve_mesh()
+    launches["lm_serve_mesh"] = counts
+    print(f"phase 6f ranks: {secs:.1f} s after phase 6f's references; rank 0's stages (s "
+          f"from its start): "
+          f"{[(k, round(v, 1)) for k, v in ranks[0]['stages']]}; launches {counts}", flush=True)
+    return counts
+
+
+def run_serve_mesh(dev, launches):
+    """Phase 6f: LM prefill and decode over a (data 2, model 2) mesh of 4
+    gloo ranks sharing the card.  The ranks start first
+    (:func:`start_serve_mesh`; their start-up and first weights overlap the
+    references, each rank waiting for a model's reference before its
+    prefill); the one-device references in this process, then the card
+    freed; the ranks' passes and their checks deferred
+    (:func:`serve_mesh_ranks`), with the quickstart."""
+    import torch
+    t_phase = time.perf_counter()
+    out = dict(kind="lm_serve_mesh", mesh=dict(data=2, model=2), rows=SERVE_MESH_ROWS,
+               models=[dict(arch=a, layers=n, prompt=p, decode_steps=k)
+                       for a, n, p, k in SERVE_MESH_MODELS])
+    start_serve_mesh()
+    tmp = SERVE_MESH["tmp"]
+    serve_mesh_reference(dev, tmp)
+    torch.cuda.empty_cache()
+    defer(out, "launches", serve_mesh_ranks, out, tmp, launches)
+    defer(out, "quickstart", run_quickstart)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 6f: {out['seconds']:.1f} s (the references; the ranks run on with the "
+          f"deferred checks)", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7359,7 +7950,7 @@ def main() -> int:
     mark("phase 1b done")
     dryrun = {}
     defer(dryrun, "cells", check_dryrun, start_dryrun())
-    mark("phase 1c started (four host processes, checked with the deferred checks)")
+    mark("phase 1c started (five host processes, checked with the deferred checks)")
 
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -7426,6 +8017,8 @@ def main() -> int:
     whisper = run_whisper(dev, launches)
     summary.append(whisper)
     mark("phase 6e done")
+    summary.append(run_serve_mesh(dev, launches))
+    mark("phase 6f done")
     run_deferred()
     summary.append(dict(kind="dryrun", **dryrun))
     mark("subprocesses done")
@@ -7491,6 +8084,7 @@ def main() -> int:
         | ({f"{p}_launches": launches[p][n] for p in ("ops", "serve_replica", "contracts",
                                                        "lm_serve_gemma2",
                                                        "lm_pretrain", "lm_mesh",
+                                                       "lm_serve_mesh",
                                                        "lm_serve_kimi", "lm_serve_deepseek",
                                                        "lm_moe_episodic", "lm_serve_zamba2",
                                                        "lm_ssm_train_zamba2",

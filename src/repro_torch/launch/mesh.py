@@ -35,7 +35,8 @@ LM meshes (:func:`make_production_mesh`, :func:`make_test_mesh`) are
 ``(data, model)`` or ``(pod, data, model)``, rank = (pod * D + data) * M +
 model; where both ``pod`` and ``data`` exist the mesh also holds their
 joint group, over which FSDP leaves are split (``mesh.group(("pod",
-"data"))``).  :meth:`DPMesh.all_gather_tensor` and
+"data"))``), and the joint (data, model) and (pod, data, model) groups.
+:meth:`DPMesh.all_gather_tensor` and
 :meth:`DPMesh.reduce_scatter_tensor` join and split one tensor along a
 dim, and the autograd functions below (:func:`all_gather`,
 :func:`reduce_scatter`, :func:`split`, :func:`grad_all_reduce`,
@@ -318,18 +319,23 @@ def _build(shape: Dict[str, int], axes: Sequence[str]) -> DPMesh:
             g = dist.new_group(ranks, timeout=TIMEOUT)
             if rank in ranks:
                 groups[axis] = g
-    # the joint (pod, data) group of an LM mesh, the FSDP axes: ranks that
-    # share every other coordinate, in (pod, data) order
-    if "pod" in axes and "data" in axes:
-        k0, k1 = axes.index("pod"), axes.index("data")
-        if k1 != k0 + 1:
-            raise ValueError(f"axes {axes}: 'pod' must come just before 'data'")
-        n = sizes[k0] * sizes[k1]
-        for line in np.moveaxis(grid, (k0, k1), (-2, -1)).reshape(-1, n):
+    # the joint groups of an LM mesh: (pod, data), the FSDP axes; (data,
+    # model) and (pod, data, model), over which a long sequence's cache
+    # splits and a pure data-parallel batch runs; each the ranks that share
+    # every other coordinate, in the axes' order
+    for joint in (("pod", "data"), ("data", "model"), ("pod", "data", "model")):
+        if not all(a in axes for a in joint):
+            continue
+        ks = [axes.index(a) for a in joint]
+        if ks != list(range(ks[0], ks[0] + len(ks))):
+            raise ValueError(f"axes {axes}: {joint} must come in that order, one after "
+                             f"another")
+        n = int(np.prod([sizes[k] for k in ks]))
+        for line in np.moveaxis(grid, ks, list(range(-len(ks), 0))).reshape(-1, n):
             ranks = [int(r) for r in line]
             g = dist.new_group(ranks, timeout=TIMEOUT)
             if rank in ranks:
-                groups[("pod", "data")] = g
+                groups[joint] = g
     backend = dist.get_backend()
     # gloo cannot run on the store of a ``fake`` world (torch's one-process
     # stand-in for a large world, the dry run's), so there the host group

@@ -135,6 +135,65 @@ def attention_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, sq, hq, v.shape[-1]).to(q.dtype)
 
 
+def _partial_softmax(logits: torch.Tensor):
+    """(max, sum, weights) of f32 ``logits`` (..., K) masked with -inf: the
+    weights exp(logits - max), 0 where masked; a row with no key left has
+    max -inf, sum 0 and weights 0 (never NaN)."""
+    m = logits.amax(-1)
+    p = torch.exp(logits - torch.where(torch.isfinite(m), m, torch.zeros_like(m))[..., None])
+    return m, p.sum(-1), p
+
+
+def merge_partials(m: torch.Tensor, s: torch.Tensor, o: torch.Tensor, mesh, axes
+                   ) -> torch.Tensor:
+    """Softmax-weighted values from the partials of the key blocks that the
+    ranks of ``axes`` hold: ``m`` and ``s`` (...) this rank's running max
+    and sum, ``o`` (..., D) its weighted values, f32.  The partials are
+    all-gathered in one call (every rank joins, with or without a key) and
+    merged in rank order: each block rescaled by exp(m_r - max), a block
+    that saw no key (m_r = -inf) by 0.  No axes: o / s."""
+    if axes:
+        packed = torch.cat([o, s[..., None], m[..., None]], dim=-1)
+        every = mesh.all_gather_tensor(packed[None], axes, 0)
+        o, s, m = every[..., :-2], every[..., -2], every[..., -1]
+        w = torch.exp(m - m.amax(0))
+        o = (o * w[..., None]).sum(0)
+        s = (s * w).sum(0)
+    return o / s[..., None]
+
+
+def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, lo: int,
+                    pos: Optional[int], window: Optional[int] = None,
+                    cap: Optional[float] = None, mesh=None, axes=()) -> torch.Tensor:
+    """Decode attention on one block of a cache split over the sequence:
+    q (B, Sq, Hq, Dh) at position ``pos`` against the block's keys k, v
+    (B, S_blk, Hkv, Dh) at global positions lo .. lo + S_blk - 1, of which
+    those up to ``pos`` are read (all of them where ``pos`` is None: cross
+    attention); the softcap and the window apply on global positions before
+    the merge over the ranks of ``axes`` (:func:`merge_partials`).  A block
+    past ``pos`` or outside the window adds exactly 0.  Returns (B, Sq, Hq,
+    Dv) in q's dtype; the logits, the softmax and the products in f32."""
+    b, sq, hq, dh = q.shape
+    hkv, dv = k.shape[2], v.shape[-1]
+    g = hq // hkv
+    n = k.shape[1] if pos is None else max(0, min(k.shape[1], pos + 1 - lo))
+    if n == 0:
+        m = torch.full((b, hkv, g, sq), float("-inf"), dtype=torch.float32, device=q.device)
+        s, o = torch.zeros_like(m), torch.zeros((b, hkv, g, sq, dv), dtype=torch.float32,
+                                                device=q.device)
+    else:
+        logits = dot_f32("bqkgd,bskd->bkgqs", q.reshape(b, sq, hkv, g, dh), k[:, :n]) \
+            * dh ** -0.5
+        logits = softcap(logits, cap)
+        if pos is not None and window is not None:
+            kpos = lo + torch.arange(n, device=q.device)
+            logits = logits.masked_fill(~((pos - kpos) < window), float("-inf"))
+        m, s, p = _partial_softmax(logits)
+        o = dot_f32("bkgqs,bskd->bkgqd", p, v[:, :n])
+    o = merge_partials(m, s, o, mesh, axes)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dv).to(q.dtype)
+
+
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      window: Optional[int] = None, cap: Optional[float] = None,
                      backend: Optional[str] = "auto") -> torch.Tensor:
@@ -275,15 +334,40 @@ def mla_attention(p: Params, x: torch.Tensor, a: AttentionConfig, eps: float,
     return o.reshape(b, s, -1) @ p["wo"].to(x.dtype)
 
 
+def mla_block_attention(q_lat: torch.Tensor, q_rope: torch.Tensor, ckv: torch.Tensor,
+                        krope: torch.Tensor, *, lo: int, pos: int, cap: Optional[float],
+                        scale: float, mesh=None, axes=()) -> torch.Tensor:
+    """MLA's absorbed decode on one block of the latent cache split over the
+    sequence: q_lat (B, S, H, R) and q_rope (B, S, H, rope) against the
+    block's ckv (B, S_blk, R) and krope (B, S_blk, rope) at global positions
+    lo .., those up to ``pos`` read, merged over the ranks of ``axes`` as
+    :func:`block_attention` merges.  Returns o_lat (B, S, H, R) f32."""
+    b, sq, h, r = q_lat.shape
+    n = max(0, min(ckv.shape[1], pos + 1 - lo))
+    if n == 0:
+        m = torch.full((b, h, sq), float("-inf"), dtype=torch.float32, device=q_lat.device)
+        s, o = torch.zeros_like(m), torch.zeros((b, h, sq, r), dtype=torch.float32,
+                                                device=q_lat.device)
+    else:
+        logits = (dot_f32("bshr,bkr->bhsk", q_lat, ckv[:, :n]) +
+                  dot_f32("bshn,bkn->bhsk", q_rope, krope[:, :n]))
+        m, s, p = _partial_softmax(softcap(logits * scale, cap))
+        o = dot_f32("bhsk,bkr->bhsr", p, ckv[:, :n])
+    return merge_partials(m, s, o, mesh, axes).permute(0, 2, 1, 3)
+
+
 def mla_decode_attention(p: Params, x: torch.Tensor, a: AttentionConfig, eps: float,
                          cache_ckv: torch.Tensor, cache_krope: torch.Tensor,
-                         cache_len: int) -> torch.Tensor:
+                         cache_len: int, view=None) -> torch.Tensor:
     """Absorbed-matmul MLA decode: the queries are mapped into the latent
     space (q_nope . wk_b per head) and attend to the R-wide latent cache
     directly.  x: (B, S, D) at positions ``cache_len`` ..; cache_ckv (B,
     Smax, R) and cache_krope (B, Smax, rope) already hold them.  Only the
     first ``cache_len + 1`` positions are attended: the reference masks the
-    rest to -1e30 (softmax weight exactly 0)."""
+    rest to -1e30 (softmax weight exactly 0).  ``view``: a serving view
+    over a mesh (:class:`repro_torch.sharding.serve.MeshView`), whose cache
+    is this rank's block of the sequence: the block's partial softmax,
+    merged over the ranks that split it (:func:`mla_block_attention`)."""
     b, s, _ = x.shape
     h, rope, nope, dv = a.n_heads, a.qk_rope_dim, a.qk_nope_dim, a.v_head_dim
     r = a.kv_lora_rank
@@ -291,12 +375,16 @@ def mla_decode_attention(p: Params, x: torch.Tensor, a: AttentionConfig, eps: fl
     q_nope, q_rope = mla_queries(p, x, a, eps, positions)
     wk_b = p["wk_b"].to(x.dtype).reshape(r, h, nope)
     q_lat = torch.einsum("bshn,rhn->bshr", q_nope, wk_b)
-    ckv, krope = cache_ckv[:, :cache_len + 1], cache_krope[:, :cache_len + 1]
-    logits = (dot_f32("bshr,bkr->bhsk", q_lat, ckv) +
-              dot_f32("bshn,bkn->bhsk", q_rope, krope))
-    logits = softcap(logits * ((nope + rope) ** -0.5), a.attn_softcap)
-    probs = torch.softmax(logits, dim=-1)
-    o_lat = dot_f32("bhsk,bkr->bshr", probs.to(ckv.dtype), ckv)
+    if view is not None and view.mesh is not None:
+        o_lat = view.attend_latent(q_lat, q_rope, cache_ckv, cache_krope, cache_len,
+                                   scale=(nope + rope) ** -0.5, cap=a.attn_softcap)
+    else:
+        ckv, krope = cache_ckv[:, :cache_len + 1], cache_krope[:, :cache_len + 1]
+        logits = (dot_f32("bshr,bkr->bhsk", q_lat, ckv) +
+                  dot_f32("bshn,bkn->bhsk", q_rope, krope))
+        logits = softcap(logits * ((nope + rope) ** -0.5), a.attn_softcap)
+        probs = torch.softmax(logits, dim=-1)
+        o_lat = dot_f32("bhsk,bkr->bshr", probs.to(ckv.dtype), ckv)
     wv_b = p["wv_b"].to(x.dtype).reshape(r, h, dv)
     o = torch.einsum("bshr,rhd->bshd", o_lat.to(x.dtype), wv_b)
     return o.reshape(b, s, -1) @ p["wo"].to(x.dtype)

@@ -35,6 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import dispatch
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as TT
+from repro_torch.sharding import serve as SV
 
 Params = Dict
 # matmul and conv weights of a block, cast to the compute dtype at every
@@ -341,50 +342,70 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, device="cuda") -
 def prefill(params: Params, batch: Dict, cfg: ModelConfig, backend: Optional[str] = "auto"
             ) -> Tuple[torch.Tensor, Dict]:
     """Full forward over the prompt (``batch['tokens']`` (B, S) int64);
-    returns (last-token logits (B, Vp) f32, the cache after S tokens)."""
+    returns (last-token logits (B, Vp) f32, the cache after S tokens).
+    Under an active mesh, this rank's rows on its blocks, as
+    :func:`repro_torch.models.transformer.prefill` runs them: the whole
+    mixer for its rows (B6 on every SSD chunk), then its block of the
+    states, ``ssm``'s heads and ``conv``'s channels."""
     tokens = batch["tokens"]
-    x = L.embed(params["embed"], tokens, _dtype(cfg))
+    b_all, s = tokens.shape
+    view = SV.begin(params, cfg, b_all, s, shapes=SV.cache_shapes(cfg, b_all, s))
+    tokens = view.rows(tokens)
+    x = L.embed(view.get("embed"), tokens, _dtype(cfg))
     conv, ssm = [], []
     for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+        lp = view.layer("layers", i)
         hn = L.rms_norm(x, lp["norm"], cfg.norm_eps)
         out, (conv_s, ssm_s) = mamba_mixer(lp, hn, cfg, want_state=True, backend=backend)
         x = x + out
-        conv.append(conv_s)
-        ssm.append(ssm_s)
+        conv.append(view.cut("conv", conv_s))
+        ssm.append(view.cut("ssm", ssm_s))
+        del lp
     h = L.rms_norm(x[:, -1:, :], params["final_norm"], cfg.norm_eps)
-    return TT.logits_head(params, h, cfg)[:, 0, :], dict(
-        conv=torch.stack(conv), ssm=torch.stack(ssm), len=tokens.shape[1])
+    return TT.logits_head(TT._head(view, cfg), h, cfg)[:, 0, :], view.finish(dict(
+        conv=torch.stack(conv), ssm=torch.stack(ssm), len=s))
 
 
 def mamba_decode_mixer(lp: Params, x: torch.Tensor, cfg: ModelConfig,
-                       conv_state: torch.Tensor, ssm_state: torch.Tensor):
+                       conv_state: torch.Tensor, ssm_state: torch.Tensor, view=None):
     """Single-token recurrence. x: (b, d_model); conv_state: (b, c, k-1);
     ssm_state: (b, h, p, n) f32.  Returns (y (b, d_model), new conv state,
-    new SSM state (fp32))."""
+    new SSM state (fp32)).
+
+    ``view``: a serving view over a mesh
+    (:class:`repro_torch.sharding.serve.MeshView`) whose states are this
+    rank's blocks, ``conv``'s channels and ``ssm``'s heads: the rank
+    convolves its channels (the conv outputs gathered over the axes that
+    split them), updates its heads' states and gathers y over the axes
+    that split the heads before the gated norm and the output projection."""
     s_cfg = cfg.ssm
     b = x.shape[0]
     d_inner = s_cfg.d_inner(cfg.d_model)
     nh, hp, gn, n = (s_cfg.n_heads(cfg.d_model), s_cfg.head_dim, s_cfg.n_groups,
                      s_cfg.d_state)
     z, xBC, dt = _split_zxbcdt(x @ lp["in_proj"].to(x.dtype), cfg)
+    view = view or SV.LocalView(None)
+    c0, cn = view.channels("conv", 2, xBC.shape[-1])
+    h0, hn = view.channels("ssm", 2, nh)
 
-    window = torch.cat([conv_state, xBC[:, :, None]], dim=-1)          # (b,c,k)
+    window = torch.cat([conv_state, xBC[:, c0:c0 + cn, None]], dim=-1)   # (b,c,k)
     new_conv_state = window[..., 1:]
-    conv_out = torch.sum(window * lp["conv_w"].to(x.dtype), dim=-1) + lp["conv_b"].to(x.dtype)
-    xBC = F.silu(conv_out)
+    conv_out = torch.sum(window * lp["conv_w"][c0:c0 + cn].to(x.dtype), dim=-1) \
+        + lp["conv_b"][c0:c0 + cn].to(x.dtype)
+    xBC = F.silu(view.join("conv", 2, conv_out, 1))
 
-    xs = xBC[..., :d_inner].reshape(b, nh, hp)
+    xs = xBC[..., :d_inner].reshape(b, nh, hp)[:, h0:h0 + hn]
     Bv = xBC[..., d_inner:d_inner + gn * n].reshape(b, gn, n).repeat_interleave(nh // gn, 1)
     Cv = xBC[..., d_inner + gn * n:].reshape(b, gn, n).repeat_interleave(nh // gn, 1)
-    dt = F.softplus(dt.float() + lp["dt_bias"])                        # (b, h)
-    A = -torch.exp(lp["A_log"])
+    Bv, Cv = Bv[:, h0:h0 + hn], Cv[:, h0:h0 + hn]
+    dt = F.softplus(dt.float() + lp["dt_bias"])[:, h0:h0 + hn]          # (b, h)
+    A = -torch.exp(lp["A_log"][h0:h0 + hn])
     dA = torch.exp(dt * A)                                              # (b, h)
     upd = torch.einsum("bh,bhn,bhp->bhpn", dt, Bv.float(), xs.float())
     new_state = ssm_state * dA[..., None, None] + upd
     y = torch.einsum("bhpn,bhn->bhp", new_state, Cv.float()).to(x.dtype)
-    y = y + xs * lp["D"].to(x.dtype)[None, :, None]
-    y = y.reshape(b, d_inner)
+    y = y + xs * lp["D"][h0:h0 + hn].to(x.dtype)[None, :, None]
+    y = view.join("ssm", 2, y.reshape(b, hn * hp), 1)
     y = L.rms_norm(y * F.silu(z), lp["gate_norm"], cfg.norm_eps)
     return y @ lp["out_proj"].to(x.dtype), new_conv_state, new_state
 
@@ -395,16 +416,20 @@ def decode_step(params: Params, cache: Dict, tokens: torch.Tensor, cfg: ModelCon
     the cache at ``len + 1``).  The new conv and SSM states are written into
     the cache's tensors in place (the JAX package returns new ones): the
     returned cache shares them, and the one passed in must not be decoded
-    from again.  No kernel runs here: ``backend`` is taken for the API's
-    sake."""
+    from again.  Under an active mesh, this rank's rows on its blocks
+    (:func:`mamba_decode_mixer`).  No kernel runs here: ``backend`` is
+    taken for the API's sake."""
     del backend
-    x = L.embed(params["embed"], tokens[:, 0], _dtype(cfg))
+    view = SV.begin(params, cfg, tokens.shape[0], 1, cache=cache)
+    tokens = view.rows(tokens)
+    x = L.embed(view.get("embed"), tokens[:, 0], _dtype(cfg))
     conv, ssm = cache["conv"], cache["ssm"]
     for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+        lp = view.layer("layers", i)
         hn = L.rms_norm(x, lp["norm"], cfg.norm_eps)
-        out, conv[i], ssm[i] = mamba_decode_mixer(lp, hn, cfg, conv[i], ssm[i])
+        out, conv[i], ssm[i] = mamba_decode_mixer(lp, hn, cfg, conv[i], ssm[i], view)
         x = x + out
+        del lp
     h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return TT.logits_head(params, h[:, None, :], cfg)[:, 0, :], {**cache,
-                                                                 "len": cache["len"] + 1}
+    return TT.logits_head(TT._head(view, cfg), h[:, None, :], cfg)[:, 0, :], {
+        **cache, "len": cache["len"] + 1}

@@ -49,6 +49,7 @@ from repro_torch.core.film import apply_film
 from repro_torch.kernels import dispatch
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.sharding import serve as SV
 from repro_torch.sharding.ctx import active_mesh, use_mesh
 
 Params = Dict
@@ -386,36 +387,55 @@ def prefill(params: Params, batch: Dict, cfg: ModelConfig,
             backend: Optional[str] = "auto") -> Tuple[torch.Tensor, Dict]:
     """Full forward over the prompt (``batch['tokens']`` (B, S) int64, and
     ``frontend_embeds`` for a frontend model); returns (last-token logits
-    (B, Vp) f32, the cache of the prompt's S positions)."""
+    (B, Vp) f32, the cache of the prompt's S positions).
+
+    Under an active mesh (:func:`repro_torch.sharding.ctx.use_mesh`)
+    ``params`` are this rank's blocks and ``batch`` the global batch: the
+    rank runs its rows (:mod:`repro_torch.sharding.serve`), gathers each
+    layer's leaves as it reaches it, keeps its block of each cache leaf
+    (with the specs under ``"specs"``) and returns its rows' logits."""
     a = cfg.attention
     mla = a.kind == "mla"
-    x = embed_inputs(params, batch, cfg)
-    b, s, _ = x.shape
+    tokens = batch["tokens"]
+    b_all = tokens.shape[0]
+    s = tokens.shape[1] + (batch["frontend_embeds"].shape[1]
+                           if cfg.frontend is not None and "frontend_embeds" in batch else 0)
+    view = SV.begin(params, cfg, b_all, s, shapes=SV.cache_shapes(cfg, b_all, s))
+    batch = {k: view.rows(v) for k, v in batch.items()}
+    x = embed_inputs(dict(embed=view.get("embed")), batch, cfg)
+    b = x.shape[0]
     positions = torch.arange(s, device=x.device)
-    new = lambda *shape: torch.empty((cfg.n_layers, b, s, *shape), dtype=x.dtype,
-                                     device=x.device)
+    new = lambda name, *shape: view.empty(name, (cfg.n_layers, b_all, s, *shape),  # noqa: E731
+                                          x.dtype, x.device)
     if mla:
-        cache = dict(ckv=new(a.kv_lora_rank), krope=new(a.qk_rope_dim))
+        cache = dict(ckv=new("ckv", a.kv_lora_rank), krope=new("krope", a.qk_rope_dim))
     else:
-        cache = dict(k=new(a.n_kv_heads, a.head_dim), v=new(a.n_kv_heads, a.head_dim))
+        cache = dict(k=new("k", a.n_kv_heads, a.head_dim), v=new("v", a.n_kv_heads, a.head_dim))
     for i, w in enumerate(layer_windows(cfg)):
-        lp = _layer(params, i)
+        lp = view.layer("layers", i)
         h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
         if mla:
             ckv, krope = L.mla_latent(lp["attn"], h, a, cfg.norm_eps, positions)
-            cache["ckv"][i], cache["krope"][i] = ckv, krope.reshape(b, s, -1)
+            cache["ckv"][i] = view.cut("ckv", ckv)
+            cache["krope"][i] = view.cut("krope", krope.reshape(b, s, -1))
             attn_out = L.mla_attention(lp["attn"], h, a, cfg.norm_eps, latent=(ckv, krope))
         else:
-            ks, vs = cache["k"], cache["v"]
-            q, ks[i], vs[i] = L.gqa_project_qkv(lp["attn"], h, a, positions)
-            o = L.causal_attention(q, ks[i], vs[i], window=w, cap=a.attn_softcap,
-                                   backend=backend)
+            q, k, v = L.gqa_project_qkv(lp["attn"], h, a, positions)
+            cache["k"][i], cache["v"][i] = view.cut("k", k), view.cut("v", v)
+            o = L.causal_attention(q, k, v, window=w, cap=a.attn_softcap, backend=backend)
             attn_out = o.reshape(b, s, -1) @ lp["attn"]["wo"].to(h.dtype)
         x = x + cfg.residual_scale * attn_out
         h = L.rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
         x = x + cfg.residual_scale * _ffn(lp, h, cfg, backend)[0]
+        del lp
     h = L.rms_norm(x[:, -1:, :], params["final_norm"], cfg.norm_eps)
-    return logits_head(params, h, cfg)[:, 0, :], dict(cache, len=s)
+    return logits_head(_head(view, cfg), h, cfg)[:, 0, :], view.finish(dict(cache, len=s))
+
+
+def _head(view, cfg: ModelConfig) -> Params:
+    """The leaves :func:`logits_head` reads, whole."""
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    return {name: view.get(name)}
 
 
 def decode_step(params: Params, cache: Dict, tokens: torch.Tensor,
@@ -431,39 +451,46 @@ def decode_step(params: Params, cache: Dict, tokens: torch.Tensor,
     the one passed in must not be decoded from again.  Only the first
     ``len + 1`` positions are attended: the reference masks the rest to
     -1e30, whose softmax weight is exactly 0, so the slice computes the
-    same up to summation order."""
+    same up to summation order.
+
+    Under an active mesh ``params`` and ``cache`` are this rank's blocks
+    (:func:`repro_torch.sharding.place.place_lm_cache`, or a prefill under
+    the mesh) and ``tokens`` the global batch's: the rank decodes its rows,
+    writes the new position where its block holds it and attends on its
+    block, the partial softmax merged over the ranks that split the
+    sequence and the heads gathered over those that split them."""
     a = cfg.attention
     mla = a.kind == "mla"
-    x = L.embed(params["embed"], tokens, _dtype(cfg)) * cfg.embed_scale
+    view = SV.begin(params, cfg, tokens.shape[0], 1, cache=cache)
+    tokens = view.rows(tokens)
+    x = L.embed(view.get("embed"), tokens, _dtype(cfg)) * cfg.embed_scale
     pos = int(cache["len"])
-    kv = [cache[n] for n in (("ckv", "krope") if mla else ("k", "v"))]
-    if pos >= kv[0].shape[2]:
+    names = ("ckv", "krope") if mla else ("k", "v")
+    kv = [cache[n] for n in names]
+    if view.mesh is None and pos >= kv[0].shape[2]:
         raise ValueError(f"the cache holds {kv[0].shape[2]} positions; it is full")
     b = tokens.shape[0]
     positions = torch.full((b, 1), pos, device=x.device)
-    q_pos = torch.full((1,), pos, device=x.device)
-    k_pos = torch.arange(pos + 1, device=x.device)
     for i, w in enumerate(layer_windows(cfg)):
-        lp = _layer(params, i)
+        lp = view.layer("layers", i)
         h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
         if mla:
             ckv_c, krope_c = kv[0][i], kv[1][i]
             ckv, krope = L.mla_latent(lp["attn"], h, a, cfg.norm_eps, positions)
-            ckv_c[:, pos] = ckv[:, 0]
-            krope_c[:, pos] = krope[:, 0, 0]
+            view.write(ckv_c, "ckv", pos, ckv[:, 0])
+            view.write(krope_c, "krope", pos, krope[:, 0, 0])
             attn_out = L.mla_decode_attention(lp["attn"], h, a, cfg.norm_eps, ckv_c,
-                                              krope_c, pos)
+                                              krope_c, pos, view=view)
         else:
             k_c, v_c = kv[0][i], kv[1][i]
             q, k, v = L.gqa_project_qkv(lp["attn"], h, a, positions)
-            k_c[:, pos] = k[:, 0]
-            v_c[:, pos] = v[:, 0]
-            o = L.attention_scores(q, k_c[:, :pos + 1], v_c[:, :pos + 1], causal=False,
-                                   window=w, cap=a.attn_softcap, q_positions=q_pos,
-                                   k_positions=k_pos, k_len=pos + 1)
+            view.write(k_c, "k", pos, k[:, 0])
+            view.write(v_c, "v", pos, v[:, 0])
+            o = view.attend("k", q, k_c, v_c, pos, window=w, cap=a.attn_softcap)
             attn_out = o.reshape(b, 1, -1) @ lp["attn"]["wo"].to(h.dtype)
         x = x + cfg.residual_scale * attn_out
         h = L.rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
         x = x + cfg.residual_scale * _ffn(lp, h, cfg, backend)[0]
+        del lp
     h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return logits_head(params, h, cfg)[:, 0, :], {**cache, "len": pos + 1}
+    return logits_head(_head(view, cfg), h, cfg)[:, 0, :], {**cache, "len": pos + 1}

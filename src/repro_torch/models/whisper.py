@@ -38,6 +38,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import dispatch
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as TT
+from repro_torch.sharding import serve as SV
 
 Params = Dict
 
@@ -185,11 +186,17 @@ def cross_kv(cp: Params, enc: torch.Tensor, cfg: ModelConfig, dtype: torch.dtype
 
 
 def cross_attention_cached(cp: Params, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           cfg: ModelConfig) -> torch.Tensor:
+                           cfg: ModelConfig, view=None) -> torch.Tensor:
+    """Cross attention of x on one layer's cross k and v; ``view``: a
+    serving view over a mesh whose k and v are this rank's blocks
+    (:meth:`repro_torch.sharding.serve.MeshView.attend`)."""
     a = cfg.attention
     b, s, _ = x.shape
     q = (x @ cp["wq"].to(x.dtype)).reshape(b, s, a.n_heads, a.head_dim)
-    o = L.attention_scores(q, k, v, causal=False)
+    if view is not None and view.mesh is not None:
+        o = view.attend("cross_k", q, k, v, None)
+    else:
+        o = L.attention_scores(q, k, v, causal=False)
     return o.reshape(b, s, -1) @ cp["wo"].to(x.dtype)
 
 
@@ -246,32 +253,48 @@ def prefill(params: Params, batch: Dict, cfg: ModelConfig, backend: Optional[str
     the prompt ``batch['tokens']`` (B, S) int64; returns (last-token logits
     (B, Vp) f32, the cache of the prompt's S positions and every layer's
     cross k and v).  The decoder's self-attention runs causal on
-    ``backend`` (B5 on ``cuda``), as the encoder's runs bidirectional."""
+    ``backend`` (B5 on ``cuda``), as the encoder's runs bidirectional.
+    Under an active mesh, this rank's rows on its blocks (both stacks'
+    layers gathered as they are reached; each layer's self and cross k and
+    v cut to this rank's blocks), as
+    :func:`repro_torch.models.transformer.prefill` runs them."""
     a = cfg.attention
-    tokens = batch["tokens"]
-    enc = encode(params, batch["frontend_embeds"], cfg, backend)
-    x = L.embed(params["embed"], tokens, _dtype(cfg))
-    b, s, _ = x.shape
-    se = enc.shape[1]
+    tokens, frames = batch["tokens"], batch["frontend_embeds"]
+    b_all, s = tokens.shape
+    se = frames.shape[1]
+    view = SV.begin(params, cfg, b_all, s + se, shapes=SV.cache_shapes(cfg, b_all, s, se))
+    tokens, frames = view.rows(tokens), view.rows(frames)
+    if view.mesh is None:
+        enc = encode(params, frames, cfg, backend)
+    else:
+        enc = frames.to(_dtype(cfg))
+        for i in range(cfg.n_encoder_layers):
+            enc = enc_block(view.layer("encoder", i), enc, cfg, backend)
+        enc = L.rms_norm(enc, params["enc_norm"], cfg.norm_eps)
+    x = L.embed(view.get("embed"), tokens, _dtype(cfg))
+    b = x.shape[0]
     positions = torch.arange(s, device=x.device)
-    new = lambda n, h: torch.empty((cfg.n_layers, b, n, h, a.head_dim),  # noqa: E731
-                                   dtype=x.dtype, device=x.device)
-    ks, vs = new(s, a.n_kv_heads), new(s, a.n_kv_heads)
-    cks, cvs = new(se, a.n_heads), new(se, a.n_heads)
+    new = lambda name, n, h: view.empty(name, (cfg.n_layers, b_all, n, h, a.head_dim),  # noqa: E731
+                                        x.dtype, x.device)
+    ks, vs = new("k", s, a.n_kv_heads), new("v", s, a.n_kv_heads)
+    cks, cvs = new("cross_k", se, a.n_heads), new("cross_v", se, a.n_heads)
     for i in range(cfg.n_layers):
-        lp = _layer(params["decoder"], i)
+        lp = view.layer("decoder", i)
         h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        q, ks[i], vs[i] = L.gqa_project_qkv(lp["attn"], h, a, positions)
-        o = L.causal_attention(q, ks[i], vs[i], cap=a.attn_softcap, backend=backend)
+        q, k, v = L.gqa_project_qkv(lp["attn"], h, a, positions)
+        ks[i], vs[i] = view.cut("k", k), view.cut("v", v)
+        o = L.causal_attention(q, k, v, cap=a.attn_softcap, backend=backend)
         x = x + o.reshape(b, s, -1) @ lp["attn"]["wo"].to(h.dtype)
         h = L.rms_norm(x, lp["cross_norm"], cfg.norm_eps)
-        cks[i], cvs[i] = cross_kv(lp["cross"], enc, cfg, h.dtype)
-        x = x + cross_attention_cached(lp["cross"], h, cks[i], cvs[i], cfg)
+        ck, cv = cross_kv(lp["cross"], enc, cfg, h.dtype)
+        cks[i], cvs[i] = view.cut("cross_k", ck), view.cut("cross_v", cv)
+        x = x + cross_attention_cached(lp["cross"], h, ck, cv, cfg)
         h = L.rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
         x = x + L.mlp(lp["ffn"], h)
+        del lp
     h = L.rms_norm(x[:, -1:, :], params["final_norm"], cfg.norm_eps)
-    return TT.logits_head(params, h, cfg)[:, 0, :], dict(k=ks, v=vs, cross_k=cks,
-                                                         cross_v=cvs, len=s)
+    return TT.logits_head(TT._head(view, cfg), h, cfg)[:, 0, :], view.finish(dict(
+        k=ks, v=vs, cross_k=cks, cross_v=cvs, len=s))
 
 
 def decode_step(params: Params, cache: Dict, tokens: torch.Tensor, cfg: ModelConfig,
@@ -280,31 +303,33 @@ def decode_step(params: Params, cache: Dict, tokens: torch.Tensor, cfg: ModelCon
     the cache at ``len + 1``).  The new k and v are written into the cache's
     tensors in place (see :func:`repro_torch.models.transformer.decode_step`);
     only the first ``len + 1`` positions are attended, and the cross k and v
-    are read as the prefill left them.  No kernel runs here."""
+    are read as the prefill left them.  Under an active mesh, this rank's
+    rows on its blocks (self and cross attention on this rank's blocks,
+    merged over the ranks that split them).  No kernel runs here."""
     del backend
     a = cfg.attention
     pos = int(cache["len"])
-    if pos >= cache["k"].shape[2]:
+    view = SV.begin(params, cfg, tokens.shape[0], 1, cache=cache)
+    if view.mesh is None and pos >= cache["k"].shape[2]:
         raise ValueError(f"the cache holds {cache['k'].shape[2]} positions; it is full")
+    tokens = view.rows(tokens)
     b = tokens.shape[0]
-    x = L.embed(params["embed"], tokens, _dtype(cfg))
+    x = L.embed(view.get("embed"), tokens, _dtype(cfg))
     positions = torch.full((b, 1), pos, device=x.device)
-    q_pos = torch.full((1,), pos, device=x.device)
-    k_pos = torch.arange(pos + 1, device=x.device)
     for i in range(cfg.n_layers):
-        lp = _layer(params["decoder"], i)
+        lp = view.layer("decoder", i)
         k_c, v_c = cache["k"][i], cache["v"][i]
         h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
         q, k, v = L.gqa_project_qkv(lp["attn"], h, a, positions)
-        k_c[:, pos] = k[:, 0]
-        v_c[:, pos] = v[:, 0]
-        o = L.attention_scores(q, k_c[:, :pos + 1], v_c[:, :pos + 1], causal=False,
-                               q_positions=q_pos, k_positions=k_pos, k_len=pos + 1)
+        view.write(k_c, "k", pos, k[:, 0])
+        view.write(v_c, "v", pos, v[:, 0])
+        o = view.attend("k", q, k_c, v_c, pos)
         x = x + o.reshape(b, 1, -1) @ lp["attn"]["wo"].to(h.dtype)
         h = L.rms_norm(x, lp["cross_norm"], cfg.norm_eps)
         x = x + cross_attention_cached(lp["cross"], h, cache["cross_k"][i],
-                                       cache["cross_v"][i], cfg)
+                                       cache["cross_v"][i], cfg, view)
         h = L.rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
         x = x + L.mlp(lp["ffn"], h)
+        del lp
     h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return TT.logits_head(params, h, cfg)[:, 0, :], {**cache, "len": pos + 1}
+    return TT.logits_head(TT._head(view, cfg), h, cfg)[:, 0, :], {**cache, "len": pos + 1}

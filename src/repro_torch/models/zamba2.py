@@ -30,6 +30,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as MB
 from repro_torch.models import transformer as TT
+from repro_torch.sharding import serve as SV
 
 Params = Dict
 
@@ -161,40 +162,56 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, device="cuda") -
         len=0)
 
 
+def _sites(cfg: ModelConfig):
+    """The index of the shared site after each mamba layer, in depth order
+    (None where none follows): :func:`_mamba_layers`' order."""
+    g, pg, tail = layout(cfg)
+    return [gi if j == pg - 1 else None for gi in range(g) for j in range(pg)] + [None] * tail
+
+
 def prefill(params: Params, batch: Dict, cfg: ModelConfig, backend: Optional[str] = "auto"
             ) -> Tuple[torch.Tensor, Dict]:
     """Full forward over the prompt (``batch['tokens']`` (B, S) int64);
     returns (last-token logits (B, Vp) f32, the cache of the prompt's S
     positions).  The shared block's attention runs on ``backend`` (B5 on
-    ``cuda``)."""
+    ``cuda``).  Under an active mesh, this rank's rows on its blocks (the
+    mamba layers as :func:`repro_torch.models.mamba2.prefill` runs them,
+    each site's k and v as :func:`repro_torch.models.transformer.prefill`
+    keeps them; the shared block gathered once)."""
     tokens = batch["tokens"]
     a = cfg.attention
-    x = L.embed(params["embed"], tokens, getattr(torch, cfg.compute_dtype))
-    b, s, _ = x.shape
+    b_all, s = tokens.shape
+    view = SV.begin(params, cfg, b_all, s, shapes=SV.cache_shapes(cfg, b_all, s))
+    tokens = view.rows(tokens)
+    x = L.embed(view.get("embed"), tokens, getattr(torch, cfg.compute_dtype))
+    b = x.shape[0]
     g, _, _ = layout(cfg)
     positions = torch.arange(s, device=x.device)
-    sp = params["shared"]
+    sp = view.get("shared")
     conv, ssm = [], []
-    kv = lambda: torch.empty((g, b, s, a.n_kv_heads, a.head_dim), dtype=x.dtype,  # noqa: E731
-                             device=x.device)
-    ks, vs = kv(), kv()
-    for lp, site in _mamba_layers(params, cfg):
+    kv = lambda name: view.empty(name, (g, b_all, s, a.n_kv_heads, a.head_dim),  # noqa: E731
+                                 x.dtype, x.device)
+    ks, vs = kv("k"), kv("v")
+    for i, site in enumerate(_sites(cfg)):
+        lp = view.layer("mamba", i)
         hn = L.rms_norm(x, lp["norm"], cfg.norm_eps)
         out, (conv_s, ssm_s) = MB.mamba_mixer(lp, hn, cfg, want_state=True, backend=backend)
         x = x + out
-        conv.append(conv_s)
-        ssm.append(ssm_s)
+        conv.append(view.cut("conv", conv_s))
+        ssm.append(view.cut("ssm", ssm_s))
+        del lp
         if site is None:
             continue
         hn = L.rms_norm(x, sp["attn_norm"], cfg.norm_eps)
-        q, ks[site], vs[site] = L.gqa_project_qkv(sp["attn"], hn, a, positions)
-        o = L.causal_attention(q, ks[site], vs[site], cap=a.attn_softcap, backend=backend)
+        q, k, v = L.gqa_project_qkv(sp["attn"], hn, a, positions)
+        ks[site], vs[site] = view.cut("k", k), view.cut("v", v)
+        o = L.causal_attention(q, k, v, cap=a.attn_softcap, backend=backend)
         x = x + o.reshape(b, s, -1) @ sp["attn"]["wo"].to(x.dtype)
         hn = L.rms_norm(x, sp["ffn_norm"], cfg.norm_eps)
         x = x + L.mlp(sp["ffn"], hn)
     h = L.rms_norm(x[:, -1:, :], params["final_norm"], cfg.norm_eps)
-    return TT.logits_head(params, h, cfg)[:, 0, :], dict(
-        conv=torch.stack(conv), ssm=torch.stack(ssm), k=ks, v=vs, len=s)
+    return TT.logits_head(TT._head(view, cfg), h, cfg)[:, 0, :], view.finish(dict(
+        conv=torch.stack(conv), ssm=torch.stack(ssm), k=ks, v=vs, len=s))
 
 
 def decode_step(params: Params, cache: Dict, tokens: torch.Tensor, cfg: ModelConfig,
@@ -203,35 +220,38 @@ def decode_step(params: Params, cache: Dict, tokens: torch.Tensor, cfg: ModelCon
     the cache at ``len + 1``).  The new mamba states and each site's new k
     and v are written into the cache's tensors in place (see
     :func:`repro_torch.models.transformer.decode_step`); only each site's
-    first ``len + 1`` positions are attended.  No kernel runs here."""
+    first ``len + 1`` positions are attended.  Under an active mesh, this
+    rank's rows on its blocks, as the transformer and mamba2 decode them.
+    No kernel runs here."""
     del backend
     a = cfg.attention
     pos = int(cache["len"])
-    if pos >= cache["k"].shape[2]:
+    view = SV.begin(params, cfg, tokens.shape[0], 1, cache=cache)
+    if view.mesh is None and pos >= cache["k"].shape[2]:
         raise ValueError(f"the cache holds {cache['k'].shape[2]} positions; it is full")
+    tokens = view.rows(tokens)
     b = tokens.shape[0]
-    x = L.embed(params["embed"], tokens[:, 0], getattr(torch, cfg.compute_dtype))
-    sp = params["shared"]
+    x = L.embed(view.get("embed"), tokens[:, 0], getattr(torch, cfg.compute_dtype))
+    sp = view.get("shared")
     conv, ssm = cache["conv"], cache["ssm"]
     positions = torch.full((b, 1), pos, device=x.device)
-    q_pos = torch.full((1,), pos, device=x.device)
-    k_pos = torch.arange(pos + 1, device=x.device)
-    for i, (lp, site) in enumerate(_mamba_layers(params, cfg)):
+    for i, site in enumerate(_sites(cfg)):
+        lp = view.layer("mamba", i)
         hn = L.rms_norm(x, lp["norm"], cfg.norm_eps)
-        out, conv[i], ssm[i] = MB.mamba_decode_mixer(lp, hn, cfg, conv[i], ssm[i])
+        out, conv[i], ssm[i] = MB.mamba_decode_mixer(lp, hn, cfg, conv[i], ssm[i], view)
         x = x + out
+        del lp
         if site is None:
             continue
         k_c, v_c = cache["k"][site], cache["v"][site]
         hn = L.rms_norm(x[:, None, :], sp["attn_norm"], cfg.norm_eps)
         q, k, v = L.gqa_project_qkv(sp["attn"], hn, a, positions)
-        k_c[:, pos] = k[:, 0]
-        v_c[:, pos] = v[:, 0]
-        o = L.attention_scores(q, k_c[:, :pos + 1], v_c[:, :pos + 1], causal=False,
-                               cap=a.attn_softcap, q_positions=q_pos, k_positions=k_pos,
-                               k_len=pos + 1)
+        view.write(k_c, "k", pos, k[:, 0])
+        view.write(v_c, "v", pos, v[:, 0])
+        o = view.attend("k", q, k_c, v_c, pos, cap=a.attn_softcap)
         h2 = x[:, None, :] + o.reshape(b, 1, -1) @ sp["attn"]["wo"].to(x.dtype)
         hn = L.rms_norm(h2, sp["ffn_norm"], cfg.norm_eps)
         x = (h2 + L.mlp(sp["ffn"], hn))[:, 0, :]
     h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return TT.logits_head(params, h[:, None, :], cfg)[:, 0, :], {**cache, "len": pos + 1}
+    return TT.logits_head(TT._head(view, cfg), h[:, None, :], cfg)[:, 0, :], {
+        **cache, "len": pos + 1}

@@ -8,9 +8,11 @@ shape) cell and the serving layouts' payloads and chooser
     print(format_markdown(cell_rows()))       # the 40-cell table
 """
 from repro_torch.roofline.analysis import (PRODUCTION_MESHES, SERVING_LAYOUTS, analyze_cell,
-                                           attn_pairs, ep_layer_payloads, lm_step_collective_s,
-                                           lm_step_payloads, load_table, mesh_state_bytes,
-                                           mesh_step_flops,
+                                           attn_pairs, collective_wire_bytes, ep_layer_payloads,
+                                           lm_step_collective_s,
+                                           lm_serve_payloads, lm_step_payloads, load_table,
+                                           mesh_serve_flops, mesh_state_bytes, mesh_step_flops,
+                                           moe_serve_payloads, serve_state_bytes,
                                            record_row,
                                            batch_shardings, bound_ms, cell_rows,
                                            choose_replica_serving_layout,
@@ -31,8 +33,11 @@ from repro_torch.roofline.constants import (BF16_FLOPS, FP8_FLOPS, FP16_FLOPS, F
 __all__ = [
     "BF16_FLOPS", "FP8_FLOPS", "FP16_FLOPS", "FP32_FLOPS", "HBM_BYTES", "HBM_BYTES_PER_S",
     "IB_BYTES_PER_S", "INT8_OPS", "NVLINK_BYTES_PER_S", "PRODUCTION_MESHES", "SERVING_LAYOUTS",
-    "TF32_FLOPS", "analyze_cell", "attn_pairs", "ep_layer_payloads", "lm_step_collective_s",
-    "lm_step_payloads", "load_table", "mesh_state_bytes", "mesh_step_flops", "record_row", "batch_shardings", "bound_ms", "cell_rows",
+    "TF32_FLOPS", "analyze_cell", "attn_pairs", "collective_wire_bytes", "ep_layer_payloads",
+    "lm_step_collective_s",
+    "lm_serve_payloads", "lm_step_payloads", "load_table", "mesh_serve_flops",
+    "mesh_state_bytes", "mesh_step_flops", "moe_serve_payloads", "record_row",
+    "serve_state_bytes", "batch_shardings", "bound_ms", "cell_rows",
     "choose_replica_serving_layout", "choose_serving_layout", "dp_collective_ms",
     "dp_payloads", "dp_wire_bytes", "dp_wire_stages", "format_markdown", "lm_bounds",
     "model_flops", "moe_bounds", "moe_train_bound", "param_counts", "pretrain_bound",

@@ -28,7 +28,7 @@ and the wire bytes and link times of the data-parallel meta-training step
 (:mod:`repro_torch.launch.dryrun`): FLOPs, bytes and payloads counted on
 one rank's traced step, not from the configs.
 
-``analyze_cell(arch, shape, mesh=)`` also reads a train cell on the
+``analyze_cell(arch, shape, mesh=)`` also reads a cell on the
 production LM mesh, ``"single"`` (data 16 x model 16, 256 H100s) or
 ``"multi"`` (2 x 16 x 16, 512), as the port's sharded step runs it
 (:mod:`repro_torch.sharding`): the dense compute split over the data
@@ -36,8 +36,11 @@ ranks and replicated over ``model``, the experts of an expert-parallel
 layer over every chip; the state per chip the sanitized rules' blocks;
 T_coll the payloads of :func:`lm_step_payloads` through the ring factors,
 a ``model`` group of at most 8 cards (one node) on NVLink and every other
-group on InfiniBand.  The port has no LM serving mesh, so a mesh's prefill
-and decode cells are skipped.
+group on InfiniBand.  A mesh's prefill and decode cells read
+``api.prefill`` and ``api.decode_step`` on placed params and cache
+(:mod:`repro_torch.sharding.serve`): the dense compute split over the
+ranks the rows split over, the state a chip its params' and cache's
+blocks, T_coll the payloads of :func:`lm_serve_payloads`.
 
 Every number here is derived from NVIDIA's data-sheet peaks; none is
 measured.  The model modules are imported inside the functions that need
@@ -55,7 +58,7 @@ from repro_torch.optim.quant import BLOCK as QUANT_BLOCK
 from repro_torch.roofline.constants import (BF16_FLOPS, FP32_FLOPS, HBM_BYTES, HBM_BYTES_PER_S,
                                             IB_BYTES_PER_S, NVLINK_BYTES_PER_S)
 
-_ITEMSIZE = {"float32": 4, "bfloat16": 2}
+_ITEMSIZE = {"float32": 4, "bfloat16": 2, "float16": 2}
 
 
 def bound_ms(nbytes: float, flops: float, peak: float = FP32_FLOPS):
@@ -589,6 +592,13 @@ def _axes_label(names) -> str:
     return "+".join(names)
 
 
+def _batch_axes(sizes: Dict[str, int], batch_axes=None) -> tuple:
+    """The axes a batch splits over: ``batch_axes``, else (pod,) data."""
+    if batch_axes is not None:
+        return tuple(batch_axes)
+    return ("pod", "data") if "pod" in sizes else ("data",)
+
+
 def _reshard_payloads(block, src, dst, sizes: Dict[str, int], item: int):
     """The all-gathers :func:`repro_torch.sharding.place.reshard` makes to
     take a block of shape ``block`` under ``src`` to ``dst``: [(axes,
@@ -664,18 +674,20 @@ def ep_layer_payloads(cfg: ModelConfig, sizes: Dict[str, int], t_loc: int) -> Di
 
 
 def lm_step_payloads(cfg: ModelConfig, mesh_shape: Dict[str, int], B: int, S: int,
-                     state_dtype: Optional[str] = None, skip_nonfinite: bool = True
-                     ) -> Dict[str, int]:
+                     state_dtype: Optional[str] = None, skip_nonfinite: bool = True,
+                     batch_axes: Optional[tuple] = None) -> Dict[str, int]:
     """The bytes one rank hands the collectives of one sharded LM step
     (:func:`repro_torch.train.step.make_train_step` with ``mesh=``) on a B
     x S token batch, by ``kind/axis`` as :mod:`repro_torch.launch.
     collectives` counts them: each leaf's FSDP and model all-gathers (the
     expert banks of an expert-parallel layer stay split over model), the
     reduce-scatters of their VJPs over the data axes, the all-reduce over
-    data of a leaf no data axis splits; the MoE layers'
+    the data axes a leaf's spec does not split; the MoE layers'
     (:func:`ep_layer_payloads`); the loss's mean over data, the finite
     verdict on the host group, the clip's sum over each axis; an int8
-    state's reshards.  An axis of one rank makes no call."""
+    state's reshards.  An axis of one rank makes no call.  ``batch_axes``:
+    the step's (:func:`repro_torch.train.step.make_train_step`), which take
+    the place of the data axes."""
     from repro_torch.common.tree import tree_paths as paths_of
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.optim.quant import BLOCK
@@ -684,8 +696,8 @@ def lm_step_payloads(cfg: ModelConfig, mesh_shape: Dict[str, int], B: int, S: in
     from repro_torch.train.step import _at, expert_bank, ep_layer, lm_state_specs
     sizes = dict(mesh_shape)
     adam = AdamWConfig(state_dtype=state_dtype or cfg.opt_state_dtype)
-    whole, specs = lm_state_specs(cfg, adam, _MeshShape(sizes))
-    dax = ("pod", "data") if "pod" in sizes else ("data",)
+    whole, specs = lm_state_specs(cfg, adam, _MeshShape(sizes), batch_axes)
+    dax = _batch_axes(sizes, batch_axes)
     n_data = _prod(sizes[a] for a in dax)
     t_loc = B // n_data * S
     ep = ep_layer(cfg, _MeshShape(sizes), t_loc)
@@ -715,8 +727,9 @@ def lm_step_payloads(cfg: ModelConfig, mesh_shape: Dict[str, int], B: int, S: in
                     add("all_gather", names, _prod(cur) * item)
                     cur[d] *= sizes["model"]
         named = {a for e in spec for a in entry_names(e)}
-        if n_data > 1 and not set(dax) <= named:
-            add("all_reduce", dax, _prod(block) * item)
+        rest = tuple(a for a in dax if a not in named)
+        if rest and _prod(sizes[a] for a in rest) > 1:
+            add("all_reduce", rest, _prod(block) * item)
     if n_data > 1:
         add("all_reduce", dax, 4)                                 # the loss
     if cfg.moe is not None:
@@ -756,6 +769,172 @@ def lm_step_payloads(cfg: ModelConfig, mesh_shape: Dict[str, int], B: int, S: in
     return out
 
 
+def _gather_payloads(add, shape, spec, sizes: Dict[str, int], item: int,
+                     keep_model: bool = False) -> None:
+    """The all-gathers :func:`repro_torch.sharding.place.gather_for_use`
+    makes to take a block of a leaf of ``shape`` under ``spec`` whole (its
+    data axes' dims, then ``model``'s unless ``keep_model``)."""
+    from repro_torch.sharding.ctx import entry_names
+    from repro_torch.sharding.place import block_shape
+    cur = list(block_shape(shape, spec, sizes))
+    split = [(d, entry_names(e)) for d, e in enumerate(spec)
+             if entry_names(e) and _prod(sizes[a] for a in entry_names(e)) > 1]
+    for d, names in split:
+        if "model" not in names:
+            add("all_gather", names, _prod(cur) * item)
+            cur[d] *= _prod(sizes[a] for a in names)
+    if not keep_model:
+        for d, names in split:
+            if names == ("model",):
+                add("all_gather", names, _prod(cur) * item)
+                cur[d] *= sizes["model"]
+
+
+def moe_serve_payloads(cfg: ModelConfig, sizes: Dict[str, int], t_loc: int) -> Dict[str, int]:
+    """The payloads one MoE layer of a prefill or decode step under a mesh
+    hands its collectives on ``t_loc`` tokens a data shard, by
+    ``kind/axis``: ``transformer.moe_dispatch``'s forward
+    (:func:`ep_layer_payloads` less the backward)."""
+    from repro_torch.models.moe import ep_applies
+    out: Dict[str, int] = {}
+
+    def add(kind, names, nbytes):
+        key = f"{kind}/{_axes_label(names)}"
+        out[key] = out.get(key, 0) + nbytes
+
+    dax = _batch_axes(sizes)
+    n_data, n_model = _prod(sizes[a] for a in dax), sizes.get("model", 1)
+    layout = cfg.activation_layout if cfg.shard_activations_model else "seq"
+    x = t_loc * cfg.d_model * _ITEMSIZE[cfg.compute_dtype]
+    if not cfg.moe_shard_map or (cfg.d_model if layout == "hidden" else t_loc) % n_model:
+        if n_data > 1:
+            add("all_gather", dax, x)
+            add("all_reduce", dax, 4)
+        return out
+    if n_model > 1:
+        add("all_gather", ("model",), x // n_model)              # the body's gather
+        add("all_gather", ("model",), x // n_model)              # y gathered back
+    if ep_applies(cfg.moe, sizes, t_loc, cfg.d_model, layout):
+        add("reduce_scatter", ("model",), x)                     # y out of the body
+    elif n_data > 1:
+        add("all_gather", dax, x)                                # the fallback's tokens
+    if n_data > 1:
+        add("all_reduce", dax, 4)                                # aux over data
+    if n_model > 1:
+        add("all_reduce", ("model",), 4)                         # aux over model
+    return out
+
+
+# the stacked layers of each family's param tree, and the top-level leaves a
+# prefill or decode gathers whole (once a use)
+_STACKS = ("layers", "mamba", "encoder", "decoder")
+
+
+def serve_cache_layout(cfg: ModelConfig, sizes: Dict[str, int], B: int, S: int, kind: str):
+    """(the cache's whole shapes, their sanitized specs, the axes the rows
+    split over, the tokens a row runs) of a ``kind`` ("prefill" or
+    "decode") step of B rows: a prefill of S tokens writes a cache of its S
+    positions (and a vision frontend's tokens; whisper's cross k and v at
+    the config's frames), a decode step reads an S-deep one."""
+    from repro_torch.sharding.serve import cache_shapes, cache_specs_for, row_axes
+    front = cfg.n_frontend_tokens if (kind == "prefill" and cfg.frontend is not None) else 0
+    seq = S + (front if cfg.family == "transformer" else 0)
+    shapes = cache_shapes(cfg, B, seq)
+    specs = cache_specs_for(shapes, B, sizes)
+    per_row = (S + front) if kind == "prefill" else 1
+    return shapes, specs, row_axes(specs, sizes), per_row
+
+
+def lm_serve_payloads(cfg: ModelConfig, mesh_shape: Dict[str, int], B: int, S: int,
+                      kind: str, param_dtype="float32") -> Dict[str, int]:
+    """The bytes one rank hands the collectives of one ``api.prefill`` (a
+    B x S prompt batch) or ``api.decode_step`` (B rows against an S-deep
+    cache) under a mesh of axis sizes ``mesh_shape``
+    (:mod:`repro_torch.sharding.serve`), by ``kind/axis`` as
+    :mod:`repro_torch.launch.collectives` counts them, on params placed in
+    ``param_dtype`` (one dtype's name, or ``{path: name}`` where the
+    leaves differ: ``compute_params`` narrows the layers' matmul weights
+    only): each leaf gathered whole where it is used (a stacked leaf one
+    layer at a time, broadcast from the rank that holds the layer where the
+    rules split the layer dim; the expert banks of an expert-parallel layer
+    left split over ``model``; a top-level leaf once, the tied embedding
+    serving the head too; whisper's encoder at prefill only); each MoE
+    layer's forward (:func:`moe_serve_payloads`); and at
+    decode each attention layer's merge of the partial softmax over the
+    axes that split its cache's sequence ((rows, heads, Dv + 2) f32), its
+    heads' outputs gathered over the axes that split the heads, and each
+    mamba layer's conv outputs and y gathered over the axes that split
+    their channels and heads."""
+    from repro_torch.sharding.place import block_shape
+    from repro_torch.sharding.serve import _group, param_spec_at
+    from repro_torch.launch.specs import abstract_params_for
+    from repro_torch.common.tree import tree_paths as paths_of
+    from repro_torch.train.step import ep_layer, expert_bank
+    if kind not in ("prefill", "decode"):
+        raise ValueError(f"kind={kind!r} (want 'prefill' or 'decode')")
+    sizes = dict(mesh_shape)
+    shapes, specs, rows, per_row = serve_cache_layout(cfg, sizes, B, S, kind)
+    n_rows = _prod(sizes[a] for a in rows)
+    b_loc = B // n_rows
+    ep = ep_layer(cfg, _MeshShape(sizes), b_loc * per_row)
+    c_item = _ITEMSIZE[cfg.compute_dtype]
+    out: Dict[str, int] = {}
+
+    def item_of(path: str) -> int:
+        dt = param_dtype if isinstance(param_dtype, str) else param_dtype[path]
+        return _ITEMSIZE[dt]
+
+    def add(kind_, names, nbytes, times=1):
+        key = f"{kind_}/{_axes_label(names)}"
+        out[key] = out.get(key, 0) + nbytes * times
+
+    spec_at = param_spec_at(cfg, sizes)
+    for path, leaf in paths_of(abstract_params_for(cfg)).items():
+        top, spec, shape = path.split("/")[0], spec_at[path], tuple(leaf.shape)
+        if top in _STACKS:
+            if top == "encoder" and kind == "decode":
+                continue
+            lax = _group(spec, 0, sizes)
+            layer = block_shape(shape[1:], spec[1:], sizes)
+            for _ in range(shape[0]):
+                if lax:
+                    add("broadcast", lax, _prod(layer) * item_of(path))
+                _gather_payloads(add, shape[1:], spec[1:], sizes, item_of(path),
+                                 ep and expert_bank(path, len(shape)))
+        elif top in ("embed", "lm_head", "shared"):
+            _gather_payloads(add, shape, spec, sizes, item_of(path))
+    if cfg.moe is not None:
+        for k, v in moe_serve_payloads(cfg, sizes, b_loc * per_row).items():
+            out[k] = out.get(k, 0) + v * cfg.n_layers
+    if kind == "prefill":
+        return out
+    a = cfg.attention
+
+    def attn(name, n_layers, hq, dv):
+        sx, hx = _group(specs[name], 2, sizes), _group(specs[name], 3, sizes)
+        h_loc = hq // (_prod(sizes[x] for x in hx) if hx else 1)
+        if sx:
+            add("all_gather", sx, b_loc * h_loc * (dv + 2) * 4, n_layers)
+        if hx:
+            add("all_gather", hx, b_loc * h_loc * dv * c_item, n_layers)
+
+    if "ckv" in specs:
+        attn("ckv", cfg.n_layers, a.n_heads, a.kv_lora_rank)
+    elif "k" in specs:
+        attn("k", shapes["k"][0], a.n_heads, a.head_dim)
+    if "cross_k" in specs:
+        attn("cross_k", cfg.n_layers, a.n_heads, a.head_dim)
+    if "conv" in specs:
+        n_mamba, c = shapes["conv"][0], shapes["conv"][2]
+        ssm = shapes["ssm"]
+        for name, width in (("conv", c), ("ssm", ssm[2] * ssm[3])):
+            ax = _group(specs[name], 2, sizes)
+            if ax:
+                add("all_gather", ax, b_loc * width // _prod(sizes[x] for x in ax) * c_item,
+                    n_mamba)
+    return out
+
+
 def _link_bytes_per_s(names, sizes: Dict[str, int]) -> float:
     """A group's link rate: NVLink for a ``model`` group within one node,
     InfiniBand for any other (the data and pod axes, and a model axis
@@ -765,36 +944,55 @@ def _link_bytes_per_s(names, sizes: Dict[str, int]) -> float:
     return IB_BYTES_PER_S
 
 
-def lm_step_collective_s(payloads: Dict[str, int], sizes: Dict[str, int]) -> float:
-    """Seconds of a step's collectives, one after another: each payload
-    through the ring factors (an all-gather sends (g - 1) times its part, a
-    reduce-scatter (g - 1) / g of its buffer, an all-reduce twice that)
-    over its group's link (:func:`_link_bytes_per_s`); the host group's
-    verdict is not counted.  Derived from the data sheets, not measured."""
-    total = 0.0
+def _wire(kind: str, nbytes: int, g: int) -> float:
+    """The bytes a collective of ``kind`` handed ``nbytes`` puts on each
+    rank's link in a group of ``g`` (the ring factors: an all-gather sends
+    (g - 1) times its part, a reduce-scatter (g - 1) / g of its buffer, an
+    all-reduce twice that, a pipelined broadcast its buffer once)."""
+    return {"all_gather": all_gather_bytes(nbytes, g),
+            "reduce_scatter": (g - 1) / g * nbytes,
+            "all_reduce": ring_all_reduce_bytes(nbytes, g),
+            "broadcast": float(nbytes)}[kind]
+
+
+def _collective_terms(payloads: Dict[str, int], sizes: Dict[str, int]):
+    """(axes, wire bytes) of each payload but the host group's verdict."""
     for key, nbytes in payloads.items():
         kind, label = key.split("/")
         if label == "host":
             continue
         names = tuple(label.split("+"))
-        g = _prod(sizes[a] for a in names)
-        wire = {"all_gather": all_gather_bytes(nbytes, g),
-                "reduce_scatter": (g - 1) / g * nbytes,
-                "all_reduce": ring_all_reduce_bytes(nbytes, g)}[kind]
-        total += wire / _link_bytes_per_s(names, sizes)
-    return total
+        yield names, _wire(kind, nbytes, _prod(sizes[a] for a in names))
 
 
-def mesh_state_bytes(cfg: ModelConfig, sizes: Dict[str, int]) -> int:
+def collective_wire_bytes(payloads: Dict[str, int], sizes: Dict[str, int]) -> float:
+    """The wire bytes of a step's payloads (:func:`_wire`), every group's
+    summed: the measure the reference's guard on the MoE dispatch compares
+    (``tests/test_distributed.py:142-159``)."""
+    return sum(w for _, w in _collective_terms(payloads, sizes))
+
+
+def lm_step_collective_s(payloads: Dict[str, int], sizes: Dict[str, int]) -> float:
+    """Seconds of a step's collectives, one after another: each payload's
+    wire bytes (:func:`_wire`) over its group's link
+    (:func:`_link_bytes_per_s`); the host group's verdict is not counted.
+    Derived from the data sheets, not measured."""
+    return sum(w / _link_bytes_per_s(names, sizes) for names, w in
+               _collective_terms(payloads, sizes))
+
+
+def mesh_state_bytes(cfg: ModelConfig, sizes: Dict[str, int],
+                     batch_axes: Optional[tuple] = None) -> int:
     """Bytes of one chip's training state on a mesh: its blocks of the
     params and their gradients and of AdamW's state, by the sanitized
-    rules (:func:`repro_torch.train.step.lm_state_specs`)."""
+    rules (:func:`repro_torch.train.step.lm_state_specs`, ``model``
+    stripped where ``batch_axes`` hold it)."""
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.sharding.ctx import is_spec
     from repro_torch.sharding.place import block_shape
     from repro_torch.train.step import lm_state_specs
     whole, specs = lm_state_specs(cfg, AdamWConfig(state_dtype=cfg.opt_state_dtype),
-                                  _MeshShape(sizes))
+                                  _MeshShape(sizes), batch_axes)
     total = 0
     for part, mult in (("params", 2), ("opt", 1)):
         leaves = [t for t in tree_leaves(whole[part]) if hasattr(t, "shape")]
@@ -805,16 +1003,17 @@ def mesh_state_bytes(cfg: ModelConfig, sizes: Dict[str, int]) -> int:
     return total
 
 
-def mesh_step_flops(cfg: ModelConfig, shape: ShapeSpec, sizes: Dict[str, int]):
+def mesh_step_flops(cfg: ModelConfig, shape: ShapeSpec, sizes: Dict[str, int],
+                    batch_axes: Optional[tuple] = None):
     """(bf16, fp32) FLOPs one chip spends in a train step of ``cfg`` on
     ``shape``'s global batch over a mesh of axis ``sizes``, from
     :func:`cell_work`: the dense FLOPs split over the data ranks
-    (replicated over ``model``), an expert-parallel layer's expert
-    projections over every chip, a fallback layer's the global tokens' on
-    every chip."""
+    (replicated over ``model``; split over ``batch_axes`` where given), an
+    expert-parallel layer's expert projections over every chip, a fallback
+    layer's the global tokens' on every chip."""
     from repro_torch.train.step import ep_layer
     chips = _prod(sizes.values())
-    n_data = _prod(sizes[a] for a in (("pod", "data") if "pod" in sizes else ("data",)))
+    n_data = _prod(sizes[a] for a in _batch_axes(sizes, batch_axes))
     b, s = shape.global_batch, shape.seq_len
     _, bf16, f32 = cell_work(cfg, shape)
     experts = 0.0                # the expert projections' bf16 FLOPs, the whole batch
@@ -836,31 +1035,118 @@ def mesh_cell(arch: str, shape_name: str, mesh: str) -> Dict:
     :func:`lm_step_payloads`.  Its program-derived twin is
     :func:`load_table` over the dry run's records
     (:mod:`repro_torch.launch.dryrun`), which counts the same step's FLOPs,
-    bytes and payloads on one rank's trace.  Prefill and decode cells are
-    skipped: the port has no LM serving mesh."""
+    bytes and payloads on one rank's trace.  A config with
+    ``tp_enabled=False`` whose batch covers the mesh runs pure data
+    parallel (:func:`repro_torch.sharding.rules.tp_off_batch_axes`), as
+    the dry run traces it.  A prefill or decode cell is
+    :func:`_serve_cell`'s row, ``api.prefill`` / ``api.decode_step`` on
+    placed params and cache (:mod:`repro_torch.sharding.serve`)."""
+    from repro_torch.sharding.rules import tp_off_batch_axes
     sizes = PRODUCTION_MESHES[mesh]
     chips = _prod(sizes.values())
     cfg, shape = get_config(arch), SHAPES_BY_NAME[shape_name]
     row = dict(arch=arch, shape=shape_name, mesh=mesh)
-    if shape.kind != "train":
-        return dict(row, skipped="no LM serving mesh in the port (A12 part 3 trains)")
-    dax = ("pod", "data") if "pod" in sizes else ("data",)
-    n_data = _prod(sizes[a] for a in dax)
     b, s = shape.global_batch, shape.seq_len
+    if shape.kind != "train":
+        return _serve_cell(cfg, shape, sizes, row)
+    bax = tp_off_batch_axes(cfg.tp_enabled, b, sizes)
+    n_data = _prod(sizes[a] for a in _batch_axes(sizes, bax))
     if b % n_data:
         return dict(row, skipped=f"batch {b} does not split over {n_data} data ranks")
     nbytes = cell_work(cfg, shape)[0]
-    bf16_chip, f32_chip = mesh_step_flops(cfg, shape, sizes)
+    bf16_chip, f32_chip = mesh_step_flops(cfg, shape, sizes, bax)
     flops_chip = bf16_chip + f32_chip
     t_compute = bf16_chip / BF16_FLOPS + f32_chip / FP32_FLOPS
-    state = mesh_state_bytes(cfg, sizes)
+    state = mesh_state_bytes(cfg, sizes, bax)
     total_state = state_bytes(int(param_counts(cfg)["total"]), cfg.opt_state_dtype,
                               cfg.param_dtype)
     t_memory = nbytes * state / total_state / HBM_BYTES_PER_S
-    payloads = lm_step_payloads(cfg, sizes, b, s)
+    payloads = lm_step_payloads(cfg, sizes, b, s, batch_axes=bax)
     t_coll = lm_step_collective_s(payloads, sizes)
     terms = dict(compute=t_compute, memory=t_memory, collective=t_coll)
     mf = model_flops(cfg, shape_name)
+    return dict(row, chips=chips, t_compute=t_compute, t_memory=t_memory,
+                t_collective=t_coll, bottleneck=max(terms, key=terms.get), model_flops=mf,
+                useful_ratio=mf / chips / max(flops_chip, 1.0),
+                roofline_fraction=mf / (chips * BF16_FLOPS) / max(terms.values()),
+                state_bytes_per_device=state, hbm_headroom_gib=(HBM_BYTES - state) / 2**30)
+
+
+def serve_state_bytes(cfg: ModelConfig, sizes: Dict[str, int], B: int, S: int, kind: str
+                      ) -> int:
+    """Bytes of one chip's params (fp32, as ``api.init`` draws them) and
+    cache blocks in a prefill or decode cell on a mesh, by the sanitized
+    rules (:func:`repro_torch.sharding.place.lm_serve_layout` and
+    :func:`serve_cache_layout`): the reference's ``_analytic_state_bytes``
+    of both."""
+    from repro_torch.sharding.ctx import is_spec
+    from repro_torch.sharding.place import block_shape, lm_serve_layout
+    params, pspecs = lm_serve_layout(cfg, sizes)
+    total = sum(_prod(block_shape(t.shape, sp, sizes)) * t.element_size()
+                for t, sp in zip(tree_leaves(params), tree_leaves(pspecs, is_leaf=is_spec)))
+    shapes, specs, _, _ = serve_cache_layout(cfg, sizes, B, S, kind)
+    return total + sum(_prod(block_shape(sh, specs[k], sizes))
+                       * (4 if k == "ssm" else _ITEMSIZE[cfg.compute_dtype])
+                       for k, sh in shapes.items())
+
+
+def mesh_serve_flops(cfg: ModelConfig, shape: ShapeSpec, sizes: Dict[str, int]):
+    """(bf16, fp32) FLOPs one chip spends in a prefill or decode step of
+    ``shape`` over a mesh of axis ``sizes`` (:mod:`repro_torch.sharding.
+    serve`), from :func:`cell_work`: the dense FLOPs split over the ranks
+    the rows split over and replicated over the rest, a decode step's
+    attention over its cache also over the ranks that split the cache's
+    sequence or heads, an expert-parallel layer's expert projections over
+    the ``model`` ranks too, a fallback layer's the global tokens' on every
+    chip."""
+    from repro_torch.train.step import ep_layer
+    b, s = shape.global_batch, shape.seq_len
+    _, _, rows, per_row = serve_cache_layout(cfg, sizes, b, s, shape.kind)
+    n_rows = _prod(sizes[a] for a in rows)
+    _, bf16, f32 = cell_work(cfg, shape)
+    experts = 0.0
+    if cfg.moe is not None:
+        tokens = b * s if shape.kind == "prefill" else b
+        experts = 2.0 * cfg.n_layers * tokens * cfg.moe.top_k * 3 * cfg.d_model * cfg.moe.d_ff
+    ep = ep_layer(cfg, _MeshShape(sizes), b // n_rows * per_row)
+    expert_chip = experts / n_rows / sizes.get("model", 1) if ep else experts
+    if shape.kind == "decode":
+        # attention over the cache runs on this chip's block of it
+        from repro_torch.sharding.place import block_shape
+        shapes, specs = serve_cache_layout(cfg, sizes, b, s, shape.kind)[:2]
+        name = next((k for k in ("ckv", "k") if k in shapes), None)
+        if name is not None:
+            work = _serving_work(cfg)
+            attn = work(cfg, 1, b, s)[1][1] - work(cfg, 1, b, 0)[1][1]
+            blk = block_shape(shapes[name], specs[name], sizes)
+            split = _prod(shapes[name][2:]) / _prod(blk[2:])
+            bf16 -= attn * (1 - 1 / split)
+    return (bf16 - experts) / n_rows + expert_chip, f32 / n_rows
+
+
+def _serve_cell(cfg: ModelConfig, shape: ShapeSpec, sizes: Dict[str, int], row: Dict) -> Dict:
+    """A prefill or decode cell on a production mesh: FLOPs a chip from
+    :func:`mesh_serve_flops`; bytes every weight read once (each chip
+    gathers every layer) and the chip's block of the cache; T_coll of
+    :func:`lm_serve_payloads` on fp32 params; the state a chip its blocks
+    of the params and the cache (:func:`serve_state_bytes`)."""
+    from repro_torch.sharding.place import block_shape
+    chips = _prod(sizes.values())
+    b, s = shape.global_batch, shape.seq_len
+    shapes, specs, _, _ = serve_cache_layout(cfg, sizes, b, s, shape.kind)
+    work = _serving_work(cfg)
+    weights = work(cfg, s, 1, s)[0][0]
+    cache_whole = work(cfg, 1, b, s)[1][0] - weights if shape.kind == "decode" else 0.0
+    frac = sum(_prod(block_shape(sh, specs[k], sizes)) for k, sh in shapes.items()) \
+        / max(sum(_prod(sh) for sh in shapes.values()), 1)
+    bf16_chip, f32_chip = mesh_serve_flops(cfg, shape, sizes)
+    flops_chip = bf16_chip + f32_chip
+    t_compute = bf16_chip / BF16_FLOPS + f32_chip / FP32_FLOPS
+    t_memory = (weights + cache_whole * frac) / HBM_BYTES_PER_S
+    t_coll = lm_step_collective_s(lm_serve_payloads(cfg, sizes, b, s, shape.kind), sizes)
+    terms = dict(compute=t_compute, memory=t_memory, collective=t_coll)
+    mf = model_flops(cfg, shape.name)
+    state = serve_state_bytes(cfg, sizes, b, s, shape.kind)
     return dict(row, chips=chips, t_compute=t_compute, t_memory=t_memory,
                 t_collective=t_coll, bottleneck=max(terms, key=terms.get), model_flops=mf,
                 useful_ratio=mf / chips / max(flops_chip, 1.0),

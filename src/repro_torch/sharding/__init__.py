@@ -26,7 +26,18 @@ LM mesh contract (the sharded LM step,
   slice; a leaf whole on every data rank is all-reduced over data);
 * the loss is normalised by the global token count; the global-norm clip
   counts each block's squares once; AdamW updates the blocks in place; a
-  non-finite gradient anywhere skips the step on every rank.
+  non-finite gradient anywhere skips the step on every rank;
+* ``batch_axes`` holding ``model`` (a config with ``tp_enabled=False``
+  whose batch covers the mesh, :func:`~repro_torch.sharding.rules.
+  tp_off_batch_axes`) makes the step pure data parallel: ``model``
+  stripped from every spec, the batch over (pod,) data and model.
+
+LM serving over the same mesh (every family's ``prefill`` and
+``decode_step`` under :func:`~repro_torch.sharding.ctx.use_mesh`) reads
+its params, rows and cache through :mod:`~repro_torch.sharding.serve`:
+the params as placed above, each layer's leaves gathered as reached; the
+cache as this rank's blocks under the sanitized ``cache_specs``
+(:func:`~repro_torch.sharding.place.place_lm_cache`).
 
 The reference's ``sharding/__init__.py`` also re-exports ``shard_map``
 across a JAX relocation; the port has no such API to re-export.  Its
@@ -35,8 +46,8 @@ PyTorch lays out every tensor explicitly.
 """
 from repro_torch.sharding.ctx import P, active_mesh, residual_spec, sanitize_tree, use_mesh
 from repro_torch.sharding.rules import (FSDP, batch_specs, cache_specs, opt_state_specs,
-                                        param_specs, sanitize, strip_axes)
+                                        param_specs, sanitize, strip_axes, tp_off_batch_axes)
 
 __all__ = ["FSDP", "P", "active_mesh", "batch_specs", "cache_specs", "opt_state_specs",
            "param_specs", "residual_spec", "sanitize", "sanitize_tree", "strip_axes",
-           "use_mesh"]
+           "tp_off_batch_axes", "use_mesh"]

@@ -174,5 +174,47 @@ def spec_paths(specs: Tree, prefix: str = "") -> Dict[str, Any]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the serving placement: an LM's params and cache over a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+def lm_serve_layout(cfg, mesh_shape: Dict[str, int]):
+    """(the whole params of ``cfg`` on ``meta``, fp32 as ``api.init`` draws
+    them, their sanitized spec tree) on a mesh of axis sizes
+    ``mesh_shape``: the reference's serving placement of the params
+    (``repro/launch/dryrun.py:154-195``, ``rules.param_specs`` then
+    ``sanitize``), which :func:`place_lm_params` gives a rank's blocks of.
+    The dry run traces on these blocks and the roofline counts them."""
+    from repro_torch.launch.specs import abstract_params_for
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.serve import _Sizes
+    params = abstract_params_for(cfg)
+    return params, rules.sanitize(rules.param_specs(params), params, _Sizes(mesh_shape))
+
+
+def place_lm_params(params: Tree, mesh) -> Tree:
+    """This rank's blocks of an LM's whole ``params`` under
+    ``rules.param_specs``, sanitized for ``mesh``: what ``prefill`` and
+    ``decode_step`` take under :func:`repro_torch.sharding.ctx.use_mesh`
+    (they gather each layer's leaves as they reach it)."""
+    from repro_torch.sharding import rules
+    return shard_tree(params, rules.sanitize(rules.param_specs(params), params, mesh), mesh)
+
+
+def place_lm_cache(cache: Dict, mesh) -> Dict:
+    """This rank's blocks of a whole cache (global batch; ``init_cache``'s,
+    or a one-device prefill's spliced into a longer one) under the
+    sanitized ``rules.cache_specs``
+    (:func:`repro_torch.sharding.serve.cache_specs_for`), with ``len`` and
+    the specs under ``"specs"``: what ``decode_step`` takes under the
+    mesh."""
+    from repro_torch.sharding.serve import META_KEYS, cache_specs_for
+    shapes = {k: tuple(v.shape) for k, v in cache.items() if k not in META_KEYS}
+    specs = cache_specs_for(shapes, next(iter(shapes.values()))[1], mesh.shape)
+    return dict({k: shard_leaf(cache[k], specs[k], mesh) for k in shapes}, len=cache["len"],
+                specs=specs)
+
+
 __all__ = ["P", "block_shape", "gather_for_use", "gather_leaf", "gather_tree", "init_sharded",
-           "owns_block", "reshard", "shard_leaf", "shard_tree"]
+           "lm_serve_layout", "owns_block", "place_lm_cache", "place_lm_params", "reshard",
+           "shard_leaf", "shard_tree"]

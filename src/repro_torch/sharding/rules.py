@@ -18,7 +18,8 @@ reference's ``_path_str`` joins them.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Tuple
+import math
+from typing import Any, Callable, Optional, Tuple
 
 from repro_torch.common.tree import tree_map
 from repro_torch.sharding.ctx import P, is_spec, sanitize_tree
@@ -175,6 +176,25 @@ def cache_specs(abstract_cache: Any, batch_size: int, data_size: int,
 
 def sanitize(specs: Any, abstract: Any, mesh) -> Any:
     return sanitize_tree(specs, abstract, mesh)
+
+
+def tp_off_batch_axes(tp_enabled: bool, global_batch: int, mesh_shape) -> Optional[Tuple[str, ...]]:
+    """The reference dry run's ``tp_enabled=False`` rule
+    (``repro/launch/dryrun.py:114-135``): walk ``pod``, ``data``, ``model``
+    in that order, adding an axis while ``global_batch`` divides by the
+    product so far.  Where that product is the whole mesh and the config
+    turns tensor parallelism off, the batch splits over those axes (pure
+    data parallelism, ``model`` folded into the batch) and ``model`` is
+    stripped from every spec (:func:`strip_axes`): the axes are returned.
+    Otherwise None: the batch splits over (pod,) data and ``model`` stays."""
+    sizes = dict(mesh_shape)
+    axes, prod = [], 1
+    for ax in ("pod", "data", "model"):
+        if ax in sizes and global_batch % (prod * sizes[ax]) == 0:
+            axes.append(ax)
+            prod *= sizes[ax]
+    full_dp = prod == math.prod(sizes.values())
+    return tuple(axes) if (not tp_enabled and full_dp and "model" in axes) else None
 
 
 def strip_axes(specs: Any, axes=("model",)) -> Any:

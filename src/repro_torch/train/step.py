@@ -24,7 +24,7 @@ is a pure function of its step.  It returns a new state.
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -55,13 +55,18 @@ def make_init_state(cfg: ModelConfig, adamw_cfg: AdamWConfig) -> Callable:
     return init_state
 
 
-def lm_state_specs(cfg: ModelConfig, adamw_cfg: AdamWConfig, mesh) -> Tuple[State, Any]:
+def lm_state_specs(cfg: ModelConfig, adamw_cfg: AdamWConfig, mesh,
+                   batch_axes: Optional[Tuple[str, ...]] = None) -> Tuple[State, Any]:
     """(the whole state on ``meta``, its sanitized spec tree): the rules'
     ``param_specs`` and ``opt_state_specs`` of ``make_init_state``'s
     tree (params in ``cfg.param_dtype``), sanitized for ``mesh`` (anything
-    with a ``shape`` dict)."""
+    with a ``shape`` dict).  ``batch_axes`` holding ``model`` (pure data
+    parallelism, :func:`repro_torch.sharding.rules.tp_off_batch_axes`)
+    strips ``model`` from every spec first."""
     from repro_torch.sharding import rules
     state, specs = _abstract_lm_state(cfg, adamw_cfg)
+    if batch_axes is not None and "model" in batch_axes:
+        specs = rules.strip_axes(specs)
     return state, rules.sanitize(specs, state, mesh)
 
 
@@ -79,17 +84,19 @@ def _abstract_lm_state(cfg: ModelConfig, adamw_cfg: AdamWConfig):
                        opt=rules.opt_state_specs(state["opt"]))
 
 
-def make_sharded_init_state(cfg: ModelConfig, adamw_cfg: AdamWConfig, mesh) -> Callable:
+def make_sharded_init_state(cfg: ModelConfig, adamw_cfg: AdamWConfig, mesh,
+                            batch_axes: Optional[Tuple[str, ...]] = None) -> Callable:
     """``init_state(gen, device) -> dict(params, opt)``: this rank's blocks
     of :func:`make_init_state`'s state under :func:`lm_state_specs`.  The
     params are drawn one leaf at a time on ``gen``, each cut to its block
     before the next (:func:`repro_torch.sharding.place.init_sharded`), so
     the blocks are the single-device init's and the peak is the largest
     leaf; the AdamW state is made as its blocks (its zero state is one value
-    a leaf part, so a block is that value in the block's shape)."""
+    a leaf part, so a block is that value in the block's shape).
+    ``batch_axes``: :func:`make_train_step`'s."""
     from repro_torch.sharding.place import block_shape, init_sharded
     api = get_api(cfg)
-    whole, specs = lm_state_specs(cfg, adamw_cfg, mesh)
+    whole, specs = lm_state_specs(cfg, adamw_cfg, mesh, batch_axes)
     # the zero state of a one-element leaf: each part's single value, read
     # here, once, so that init_state reads no tensor's value (it also runs
     # on fake tensors, in the dry run)
@@ -119,7 +126,8 @@ def make_sharded_init_state(cfg: ModelConfig, adamw_cfg: AdamWConfig, mesh) -> C
 def make_train_step(cfg: ModelConfig, adamw_cfg: AdamWConfig,
                     schedule: Callable | None = None,
                     max_grad_norm: float = 1.0,
-                    skip_nonfinite: bool = True, mesh=None) -> Callable:
+                    skip_nonfinite: bool = True, mesh=None,
+                    batch_axes: Optional[Tuple[str, ...]] = None) -> Callable:
     """``train_step(state, batch) -> (state, metrics)``: the loss and its
     gradient (attention on the current kernel backend,
     :func:`repro_torch.kernels.dispatch.use_backend`; ``auto`` by default),
@@ -137,14 +145,20 @@ def make_train_step(cfg: ModelConfig, adamw_cfg: AdamWConfig,
 
     ``mesh``: the step over a (data, model) mesh on this rank's blocks
     (:func:`make_sharded_init_state`); every rank passes the global batch
-    and gets the global metrics."""
+    and gets the global metrics.  ``batch_axes``: the axes the batch splits
+    over, (pod,) data by default (:func:`repro_torch.models.moe.data_axes`);
+    axes that hold ``model`` (:func:`repro_torch.sharding.rules.
+    tp_off_batch_axes`, a config with ``tp_enabled=False`` whose batch
+    covers the mesh) make the step pure data parallel: ``model`` stripped
+    from every spec, each rank its own rows.  The state must be laid out
+    under the same axes (:func:`make_sharded_init_state`)."""
     api = get_api(cfg)
     if schedule is None:
         schedule = functools.partial(cosine_schedule, peak=3e-4, warmup_steps=2000,
                                      total_steps=100000)
     if mesh is not None:
         return _mesh_train_step(cfg, adamw_cfg, schedule, max_grad_norm, skip_nonfinite,
-                                mesh)
+                                mesh, batch_axes)
 
     def train_step(state: State, batch: Dict) -> Tuple[State, Dict]:
         leaves = tree_leaves(state["params"])
@@ -249,7 +263,8 @@ def _rebuild_quantized(tmpl, parts: list, is_quantized):
     return tree_map(lambda _: next(it), tmpl, is_leaf=is_quantized)
 
 
-def make_mesh_grads(cfg: ModelConfig, adamw_cfg: AdamWConfig, mesh) -> Callable:
+def make_mesh_grads(cfg: ModelConfig, adamw_cfg: AdamWConfig, mesh,
+                    batch_axes: Optional[Tuple[str, ...]] = None) -> Callable:
     """``grads(params, batch) -> (loss, metrics, {path: gradient block})``:
     the sharded step's loss and gradient (:mod:`repro_torch.sharding`).
     Each leaf is gathered for use (the expert banks of an expert-parallel
@@ -258,17 +273,22 @@ def make_mesh_grads(cfg: ModelConfig, adamw_cfg: AdamWConfig, mesh) -> Callable:
     over the data ranks (every shard holds B / n whole rows, so the mean of
     the shards' means is the global count's mean) and the aux loss comes
     averaged from the MoE layers; the gradient lands as this rank's blocks,
-    summed over the data axes (a leaf no data axis splits is all-reduced
-    over them).  ``params`` are this rank's blocks."""
+    summed over the data axes (all-reduced over the data axes a leaf's spec
+    does not split).  ``params`` are this rank's blocks.  ``batch_axes``:
+    :func:`make_train_step`'s (the data ranks above are then the ranks of
+    those axes)."""
     from repro_torch.launch.mesh import pmean
     from repro_torch.models.moe import data_axes
     from repro_torch.models.transformer import AUX_COEF
     from repro_torch.sharding.ctx import entry_names, use_mesh
     from repro_torch.sharding.place import gather_for_use, spec_paths
     api = get_api(cfg)
-    _, specs = lm_state_specs(cfg, adamw_cfg, mesh)
+    _, specs = lm_state_specs(cfg, adamw_cfg, mesh, batch_axes)
     spec_at = spec_paths(specs["params"])
-    dax = data_axes(mesh)
+    dax = tuple(batch_axes) if batch_axes is not None else data_axes(mesh)
+    if "model" in dax and cfg.moe is not None:
+        raise ValueError(f"{cfg.name}: an MoE layer splits its experts over model; it has "
+                         f"no pure data-parallel step (batch_axes={dax})")
     n_data = mesh.size_of(dax)
 
     def grads_of(params, batch: Dict):
@@ -297,8 +317,9 @@ def make_mesh_grads(cfg: ModelConfig, adamw_cfg: AdamWConfig, mesh) -> Callable:
             if grads[i] is None:
                 grads[i] = torch.zeros_like(p)
             named = {a for e in spec_at[path] for a in entry_names(e)}
-            if n_data > 1 and not set(dax) <= named:
-                mesh.all_reduce(grads[i], dax)
+            rest = tuple(a for a in dax if a not in named)
+            if rest and mesh.size_of(rest) > 1:
+                mesh.all_reduce(grads[i], rest)
         return loss.detach(), dict(nll=nll.detach(), aux=metrics["aux"].detach()), \
             dict(zip(paths, grads))
 
@@ -306,15 +327,16 @@ def make_mesh_grads(cfg: ModelConfig, adamw_cfg: AdamWConfig, mesh) -> Callable:
 
 
 def _mesh_train_step(cfg: ModelConfig, adamw_cfg: AdamWConfig, schedule: Callable,
-                     max_grad_norm: float, skip_nonfinite: bool, mesh) -> Callable:
+                     max_grad_norm: float, skip_nonfinite: bool, mesh,
+                     batch_axes: Optional[Tuple[str, ...]]) -> Callable:
     """The LM step over a (data, model) mesh: :func:`make_mesh_grads`, the
     global-norm clip summing each block's squares once (on the first rank
     that holds it) over every axis, AdamW on the blocks in place, skipped
     on every rank if any rank's gradient is not finite."""
     from repro_torch.sharding.place import owns_block, spec_paths
-    _, specs = lm_state_specs(cfg, adamw_cfg, mesh)
+    _, specs = lm_state_specs(cfg, adamw_cfg, mesh, batch_axes)
     spec_at = spec_paths(specs["params"])
-    grads_of = make_mesh_grads(cfg, adamw_cfg, mesh)
+    grads_of = make_mesh_grads(cfg, adamw_cfg, mesh, batch_axes)
 
     def train_step(state: State, batch: Dict) -> Tuple[State, Dict]:
         loss, metrics, by_path = grads_of(state["params"], batch)

@@ -36,9 +36,12 @@ from repro_torch.configs.base import ShapeSpec
 from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as M
-from repro_torch.roofline import (HBM_BYTES_PER_S, analyze_cell, format_markdown, load_table,
+from repro_torch.configs.registry import cell_supported
+from repro_torch.roofline import (HBM_BYTES_PER_S, analyze_cell, collective_wire_bytes,
+                                  format_markdown, lm_serve_payloads, load_table,
                                   lm_step_collective_s, lm_step_payloads, mesh_state_bytes,
                                   mesh_step_flops, model_flops)
+from repro_torch.sharding.rules import tp_off_batch_axes
 
 pytestmark = pytest.mark.torch_port
 torch.set_num_threads(1)
@@ -47,6 +50,10 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 SMOKE_SHAPE = ShapeSpec("smoke", 32, 4, "train")
 SMOKE_FLOPS = (1.0, 1.2)        # program over analytic, smoke configs on (2, 2)
 FULL_FLOPS = (1.6, 1.8)         # deepseek-v2 train_4k on single
+# gemma2-2b on single, program over analytic: prefill computes every (q, k)
+# score of its 32768 positions where the row counts causal and windowed
+# pairs; decode is the row's within its rounding
+SERVE_FLOPS = {"prefill_32k": (1.0, 4.0), "decode_32k": (0.9, 1.3)}
 STATE_ARCHS = ("gemma2-2b", "deepseek-v2-236b", "mamba2-780m")
 
 
@@ -181,21 +188,41 @@ def test_state_bytes_against_the_reference(deepseek_record):
         dryrun.fake_world(4)
 
 
-def test_load_table_reads_the_records(deepseek_record, tmp_path):
+@pytest.fixture(scope="module")
+def deepseek_prefill():
+    """deepseek-v2's prefill_32k on ``single`` under both variants."""
+    recs = {v: dryrun.run_cell("deepseek-v2-236b", "prefill_32k", "single", variant=v)
+            for v in dryrun.VARIANTS}
+    dryrun.fake_world(4)
+    return recs
+
+
+def test_load_table_reads_the_records(deepseek_record, deepseek_prefill, tmp_path):
     path = tmp_path / "dryrun.json"
-    skipped = dryrun.run_cell("deepseek-v2-236b", "prefill_32k", "single")
-    assert skipped == dict(arch="deepseek-v2-236b", shape="prefill_32k", mesh="single",
-                           chips=256, status="skipped", reason=dryrun.SERVING_SKIP)
+    served = deepseek_prefill["optimized"]
+    assert served["status"] == "ok" and served["kind"] == "prefill"
+    assert served["variant"] == "optimized" and served["chips"] == 256
+    assert served["collectives"] == lm_serve_payloads(get_config("deepseek-v2-236b"),
+                                                      dict(data=16, model=16), 32, 32768,
+                                                      "prefill")
+    reason = cell_supported("gemma2-2b", "long_500k")[1]
+    skipped = dict(arch="gemma2-2b", shape="long_500k", mesh="single", status="skipped",
+                   reason=reason)
     failed = dict(arch="gemma2-2b", shape="train_4k", mesh="single", status="fail", error="x")
     other = dict(deepseek_record, mesh="multi")
     dryrun.write_results(path, {"deepseek-v2-236b/train_4k/single": deepseek_record,
-                                "deepseek-v2-236b/prefill_32k/single": skipped,
+                                "deepseek-v2-236b/prefill_32k/single": served,
+                                "gemma2-2b/long_500k/single": skipped,
                                 "gemma2-2b/train_4k/single": failed,
                                 "deepseek-v2-236b/train_4k/multi": other})
     rows = load_table(path, "single")
-    assert [r["shape"] for r in rows] == ["prefill_32k", "train_4k"]
-    assert rows[0] == dict(arch="deepseek-v2-236b", shape="prefill_32k", mesh="single",
-                           skipped=dryrun.SERVING_SKIP[:60])
+    assert [r["shape"] for r in rows] == ["prefill_32k", "train_4k", "long_500k"]
+    assert rows[2] == dict(arch="gemma2-2b", shape="long_500k", mesh="single",
+                           skipped=reason[:60])
+    prow, pwant = rows[0], analyze_cell("deepseek-v2-236b", "prefill_32k", "single")
+    assert set(prow) == set(pwant) and prow["t_collective"] == pwant["t_collective"]
+    assert prow["state_bytes_per_device"] == pwant["state_bytes_per_device"] \
+        == served["state_bytes_per_device"]
     row, want = rows[1], analyze_cell("deepseek-v2-236b", "train_4k", "single")
     assert set(row) == set(want)
     cfg = get_config("deepseek-v2-236b")
@@ -206,12 +233,108 @@ def test_load_table_reads_the_records(deepseek_record, tmp_path):
     assert row["t_memory"] == deepseek_record["bytes_per_device"] / HBM_BYTES_PER_S
     assert row["state_bytes_per_device"] == deepseek_record["state_bytes_per_device"]
     table = format_markdown(rows)
-    assert table.count("\n") == 3 and "| deepseek-v2-236b | train_4k |" in table
+    assert table.count("\n") == 4 and "| deepseek-v2-236b | train_4k |" in table
     assert len(load_table(path, "multi")) == 1
 
 
+def test_optimized_moe_dispatch_moves_a_third_of_the_baseline(deepseek_prefill):
+    """The counterpart of the reference's guard on its MoE dispatch
+    (``tests/test_distributed.py:142-159``): deepseek-v2's prefill_32k on
+    ``single`` hands its collectives at least 3x fewer wire bytes under
+    ``optimized`` (expert parallel) than under ``baseline`` (the MoE on
+    the global tokens, every expert bank gathered over model)."""
+    sizes = dict(data=16, model=16)
+    wire = {v: collective_wire_bytes(r["collectives"], sizes)
+            for v, r in deepseek_prefill.items()}
+    assert wire["optimized"] * 3 < wire["baseline"], wire
+    assert "reduce_scatter/model" in deepseek_prefill["optimized"]["collectives"]
+    assert "reduce_scatter/model" not in deepseek_prefill["baseline"]["collectives"]
+
+
+@pytest.fixture(scope="module")
+def gemma_serving():
+    recs = {s: dryrun.run_cell("gemma2-2b", s, "single") for s in ("prefill_32k", "decode_32k")}
+    dryrun.fake_world(4)
+    return recs
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+def test_serving_cell_against_the_mesh_row(gemma_serving, shape):
+    """gemma2-2b's prefill and decode at full config on ``single``: payloads
+    equal ``lm_serve_payloads``, the state the mesh row's, FLOPs a chip
+    within ``SERVE_FLOPS`` of the mesh row's (the plain attention computes
+    every (query, key) score where the row counts causal and windowed
+    pairs; decode reads the cache to ``len``)."""
+    rec, cfg = gemma_serving[shape], get_config("gemma2-2b")
+    sizes = dict(data=16, model=16)
+    row = analyze_cell("gemma2-2b", shape, "single")
+    b, s = rec["global_batch"], rec["seq_len"]
+    assert rec["status"] == "ok" and rec["kind"] == shape.split("_")[0]
+    assert rec["collectives"] == lm_serve_payloads(cfg, sizes, b, s, rec["kind"])
+    assert lm_step_collective_s(rec["collectives"], sizes) == row["t_collective"]
+    assert rec["state_bytes_per_device"] == row["state_bytes_per_device"]
+    assert rec["cache_len"] == (s if rec["kind"] == "prefill" else s - 1)
+    analytic = row["model_flops"] / row["chips"] / row["useful_ratio"]
+    ratio = rec["flops_per_device"] / analytic
+    assert SERVE_FLOPS[shape][0] <= ratio <= SERVE_FLOPS[shape][1], ratio
+    widths = {k: w for k, w in rec["collective_widths"].items()}
+    assert all(w in (16, 256) for w in widths.values()), widths
+
+
+def test_whisper_train_single_is_pure_data_parallel():
+    """whisper-base turns tensor parallelism off and its train_4k batch of
+    256 covers the 256-chip mesh: one row a chip, ``model`` stripped from
+    every spec, FLOPs a chip 1/16 of the 16-rows-a-chip trace (5.3242e13),
+    and the mesh row agrees."""
+    from repro_torch.sharding.ctx import entry_names, is_spec
+    from repro_torch.train.step import adamw_for, lm_state_specs
+    from repro_torch.common.tree import tree_leaves
+    rec = dryrun.run_cell("whisper-base", "train_4k", "single")
+    dryrun.fake_world(4)
+    cfg, sizes = get_config("whisper-base"), dict(data=16, model=16)
+    assert rec["batch_axes"] == ["data", "model"]
+    assert abs(rec["flops_per_device"] / (5.3242e13 / 16) - 1) <= 0.10
+    _, specs = lm_state_specs(cfg, adamw_for(cfg), _Sizes(sizes), ("data", "model"))
+    assert not any("model" in entry_names(e) for sp in tree_leaves(specs, is_leaf=is_spec)
+                   for e in sp)
+    assert rec["collectives"] == lm_step_payloads(cfg, sizes, 256, 4096,
+                                                  batch_axes=("data", "model"))
+    assert not any(k.startswith("all_gather/model") for k in rec["collectives"])
+    row = analyze_cell("whisper-base", "train_4k", "single")
+    analytic = row["model_flops"] / row["chips"] / row["useful_ratio"]
+    assert 1.0 <= rec["flops_per_device"] / analytic <= 1.6
+    assert lm_step_collective_s(rec["collectives"], sizes) == row["t_collective"]
+    # multi: 256 rows do not cover 512 chips; tensor parallelism stays on
+    assert tp_off_batch_axes(cfg.tp_enabled, 256, dict(pod=2, data=16, model=16)) is None
+
+
+class _Sizes:
+    def __init__(self, shape):
+        self.shape = dict(shape)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "deepseek-v2-236b", "mamba2-780m", "zamba2-7b",
+                                  "whisper-base"])
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_smoke_serving_on_a_fake_world_of_4(arch, kind):
+    """A smoke config's prefill (4 x 32 prompts) and decode (4 rows against
+    a 32-deep cache) on a fake world of 4 as (data 2, model 2): payloads
+    equal ``lm_serve_payloads``, the state the params' and cache's blocks.
+    The mesh is built here: the module's fixture's groups end with the
+    world that an earlier test's production cell left."""
+    from repro_torch.roofline import serve_state_bytes
+    dryrun.fake_world(4)
+    smoke_mesh = M.make_mesh_for((2, 2), ("data", "model"))
+    cfg = get_smoke_config(arch)
+    shape = ShapeSpec(f"smoke_{kind}", 32, 4, kind)
+    rec = dryrun.trace_serve(cfg, shape, smoke_mesh)
+    assert rec["collectives"] == lm_serve_payloads(cfg, smoke_mesh.shape, 4, 32, kind)
+    assert rec["state_bytes_per_device"] == serve_state_bytes(cfg, smoke_mesh.shape, 4, 32, kind)
+    assert rec["flops_per_device"] > 0 and rec["backend"] == "ref"
+
+
 def _fake_cell(calls, fail=()):
-    def run_cell(arch, shape, mesh, clock=None):
+    def run_cell(arch, shape, mesh, clock=None, variant="optimized"):
         calls.append((arch, shape, mesh))
         if arch in fail:
             raise RuntimeError(f"{arch} broke")
@@ -266,6 +389,8 @@ def test_production_mesh_builds_every_group_on_fake_worlds():
         mesh = M.make_production_mesh(multi_pod=multi)
         axes = ("pod", "data", "model") if multi else ("data", "model")
         assert mesh.axis_names == axes and mesh.size == world
-        assert set(mesh.groups) == set(axes) | ({("pod", "data")} if multi else set())
+        joint = {("pod", "data"), ("data", "model"), ("pod", "data", "model")} if multi \
+            else {("data", "model")}
+        assert set(mesh.groups) == set(axes) | joint
         assert mesh.host_group is not None
     dryrun.fake_world(4)

@@ -235,7 +235,7 @@ def test_loss_through_moe_on_cuda_backend_raises():
         assert _rel(a, b) <= 1e-4
 
 
-def test_moe_dispatch_over_ranks_raises_naming_a12(monkeypatch):
+def test_moe_dispatch_without_a_mesh_is_moe_ffn_bit_for_bit(monkeypatch):
     """Over several ranks but with no active mesh the layer is ``moe_ffn``
     on this rank's tokens, bit for bit; under ``use_mesh`` it runs
     expert-parallel (tests/test_torch_moe_ep.py), and nothing raises."""

@@ -426,26 +426,63 @@ def _block_bytes(state, specs, sizes) -> int:
     return total
 
 
+def _reference_tp_off(cfg, batch, sizes) -> bool:
+    """The reference dry run's ``tp_off`` (``repro/launch/dryrun.py:114-
+    135``), inline: that module sets process-wide XLA flags on import."""
+    prod = 1
+    for ax in ("pod", "data", "model"):
+        if ax in sizes and batch % (prod * sizes[ax]) == 0:
+            prod *= sizes[ax]
+    return not cfg.tp_enabled and prod == int(np.prod(list(sizes.values())))
+
+
 @pytest.mark.parametrize("mesh", list(MESH_KINDS))
 def test_mesh_rows_state_is_the_rules_block_bytes(mesh, mesh_rows):
     """Each train row's state per chip is the sum of its blocks' bytes under
-    the reference's sanitized rules: params and AdamW state (its int8 ``n``
-    scalars taken out: they are Python ints in the port) plus the
-    gradients, blocks of the params."""
+    the reference's sanitized rules, ``model`` stripped where the
+    reference's ``tp_enabled=False`` rule strips it (whisper-base on
+    ``single``): params and AdamW state (its int8 ``n`` scalars taken out:
+    they are Python ints in the port) plus the gradients, blocks of the
+    params.  Each prefill and decode row's is its fp32 params' blocks and
+    its cache's (the reference's ``_analytic_state_bytes`` of both) under
+    ``param_specs`` and ``cache_specs(cache, B, data)``; a prefill's cache
+    holds its prompt's positions and a vision frontend's."""
+    from repro.models.registry import get_api as j_get_api
     from repro.optim.adamw import AdamWConfig as JAdamW
     from repro.sharding import rules as J
     from repro.train.step import make_init_state as j_init_state
     stub = _Stub(MESH_KINDS[mesh])
     chips = int(np.prod(list(MESH_KINDS[mesh].values())))
     for r in mesh_rows[mesh]:
-        if r["shape"] != "train_4k":
-            assert "skipped" in r
+        if "skipped" in r:
+            assert r["shape"] == "long_500k", r
             continue
         cfg = jreg.get_config(r["arch"])
+        shape = jbase.SHAPES_BY_NAME[r["shape"]]
+        if r["shape"] != "train_4k":
+            params = j_abstract_params_for(cfg)
+            seq = shape.seq_len + (cfg.n_frontend_tokens if shape.kind == "prefill"
+                                   and cfg.frontend is not None
+                                   and cfg.family == "transformer" else 0)
+            cache = jax.eval_shape(lambda: j_get_api(cfg).init_cache(cfg, shape.global_batch,
+                                                                     seq))
+            cache = {k: v for k, v in cache.items() if k != "len"}
+            pspecs = J.sanitize(J.param_specs(params), params, stub)
+            cspecs = J.sanitize(J.cache_specs(cache, shape.global_batch, stub.shape["data"]),
+                                cache, stub)
+            want = _block_bytes(params, pspecs, stub.shape) \
+                + _block_bytes(cache, cspecs, stub.shape)
+            assert r["state_bytes_per_device"] == want, (r["arch"], r["shape"])
+            assert r["chips"] == chips and r["t_collective"] > 0
+            assert set(r) == set(R.analyze_cell(r["arch"], r["shape"]))
+            continue
         state = jax.eval_shape(j_init_state(cfg, JAdamW(state_dtype=cfg.opt_state_dtype)),
                                jax.random.key(0))
-        specs = J.sanitize(dict(params=J.param_specs(state["params"]),
-                                opt=J.opt_state_specs(state["opt"])), state, stub)
+        specs = dict(params=J.param_specs(state["params"]),
+                     opt=J.opt_state_specs(state["opt"]))
+        if _reference_tp_off(cfg, shape.global_batch, stub.shape):
+            specs = J.strip_axes(specs)
+        specs = J.sanitize(specs, state, stub)
         want = _block_bytes(state, specs, stub.shape) \
             + _block_bytes(state["params"], specs["params"], stub.shape)
         ns = sum(1 for path, _ in jax.tree_util.tree_flatten_with_path(state["opt"])[0]
@@ -454,6 +491,76 @@ def test_mesh_rows_state_is_the_rules_block_bytes(mesh, mesh_rows):
         assert r["chips"] == chips and r["mesh"] == mesh
         assert r["t_collective"] > 0
         assert set(r) == set(R.analyze_cell(r["arch"], r["shape"]))
+
+
+def test_serving_payloads_count_the_decode_merges():
+    """A dense decode step's payloads are its prefill's (the same param
+    gathers at the same rows) plus each layer's merge of the partial
+    softmax over the ranks that split the cache's sequence: gemma2-2b's 4
+    kv heads do not split over 16, so its B 128 rows go 8 a data rank and
+    its sequence over model, (8 rows, 8 heads, 256 + 2) f32 a layer."""
+    cfg = treg.get_config("gemma2-2b")
+    sizes = MESH_KINDS["single"]
+    pre = R.lm_serve_payloads(cfg, sizes, 128, 32768, "prefill")
+    dec = R.lm_serve_payloads(cfg, sizes, 128, 32768, "decode")
+    merge = cfg.n_layers * 8 * 8 * (256 + 2) * 4
+    assert dec == dict(pre, **{"all_gather/model": pre["all_gather/model"] + merge})
+    # the tied embedding is gathered once, for the embedding and the head
+    d, v = cfg.d_model, cfg.vocab_padded
+    assert pre["all_gather/data"] >= (v // 16) * (d // 16) * 4
+    with pytest.raises(ValueError, match="kind="):
+        R.lm_serve_payloads(cfg, sizes, 128, 32768, "train")
+
+
+def test_serving_payloads_by_the_cache_layout():
+    """phi-3-vision's 32 kv heads split over model: its decode gathers each
+    layer's heads ((4 rows, 2 heads, 96) bf16 on ``multi``), with no merge;
+    mamba2-780m's decode gathers each layer's conv outputs and y over model;
+    deepseek-v2's MoE runs expert-parallel at prefill (a reduce-scatter over
+    model a layer) and in its ``moe_serve_payloads``."""
+    phi = treg.get_config("phi-3-vision-4.2b")
+    sizes = MESH_KINDS["multi"]
+    pre = R.lm_serve_payloads(phi, sizes, 128, 32768, "prefill")
+    dec = R.lm_serve_payloads(phi, sizes, 128, 32768, "decode")
+    a = phi.attention
+    heads = phi.n_layers * 4 * (a.n_heads // 16) * a.head_dim * 2
+    assert dec["all_gather/model"] - pre["all_gather/model"] == heads
+    mamba = treg.get_config("mamba2-780m")
+    pre = R.lm_serve_payloads(mamba, MESH_KINDS["single"], 128, 32768, "prefill")
+    dec = R.lm_serve_payloads(mamba, MESH_KINDS["single"], 128, 32768, "decode")
+    sc = mamba.ssm
+    c = sc.d_inner(mamba.d_model) + 2 * sc.n_groups * sc.d_state
+    assert dec["all_gather/model"] - pre["all_gather/model"] == \
+        mamba.n_layers * 8 * (c + sc.d_inner(mamba.d_model)) // 16 * 2
+    ds = treg.get_config("deepseek-v2-236b")
+    got = R.lm_serve_payloads(ds, MESH_KINDS["single"], 32, 32768, "prefill")
+    t_loc = 2 * 32768
+    moe = R.moe_serve_payloads(ds, MESH_KINDS["single"], t_loc)
+    assert moe == {"all_gather/model": 2 * t_loc * ds.d_model * 2 // 16,
+                   "reduce_scatter/model": t_loc * ds.d_model * 2,
+                   "all_reduce/data": 4, "all_reduce/model": 4}
+    assert got["reduce_scatter/model"] == ds.n_layers * moe["reduce_scatter/model"]
+
+
+def test_mesh_serve_flops_split_the_rows_and_the_experts():
+    """A dense prefill's FLOPs a chip are the cell's over the data ranks
+    (replicated over model); deepseek-v2's expert projections also split
+    over model; long_500k's one row runs whole on every chip."""
+    sizes = MESH_KINDS["single"]
+    for arch in ("gemma2-2b", "deepseek-v2-236b"):
+        cfg = treg.get_config(arch)
+        shape = tbase.SHAPES_BY_NAME["prefill_32k"]
+        bf16, f32 = R.mesh_serve_flops(cfg, shape, sizes)
+        _, whole, _ = R.analysis.cell_work(cfg, shape)
+        if cfg.moe is None:
+            assert bf16 == whole / 16 and f32 == 0
+        else:
+            experts = 2.0 * cfg.n_layers * 32 * 32768 * cfg.moe.top_k * 3 * cfg.d_model \
+                * cfg.moe.d_ff
+            assert bf16 == pytest.approx((whole - experts) / 16 + experts / 256, rel=1e-12)
+    cfg = treg.get_config("mamba2-780m")
+    shape = tbase.SHAPES_BY_NAME["long_500k"]
+    assert R.mesh_serve_flops(cfg, shape, sizes)[0] == R.analysis.cell_work(cfg, shape)[1]
 
 
 def test_mesh_payloads_count_the_expert_parallel_layer():
