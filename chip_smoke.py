@@ -406,16 +406,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
    on the card as subprocesses, which must exit 0;
 6f. LM prefill and decode over a (data 2, model 2) mesh of 4 gloo ranks
    sharing the card (``python chip_smoke.py --lm-rank serve4 <dir>``), at
-   full width: gemma2-2b at 2 of its 26 layers, one local and one global
+   full width: gemma2-2b at 6 of its 26 layers, 3 local and 3 global
    (prompts of 4608, the first 512 tokens one token; its 4 kv heads put the
    cache's sequence over model), deepseek-v2 at 1 layer (prompts of 1024;
    MLA's latent over the sequence, B7 on a rank's 80 of 160 experts) and
-   mamba2-780m at 12 of 48
+   mamba2-780m at 24 of 48
    (prompts of 2048; the SSM's heads and the conv's channels over model),
    2 rows (one a data rank), params drawn as the one-device init's blocks
    (``init_sharded``) with the bf16 runs' weights (``compute_params``, the
    vocab tables in bf16 too): the prefill under ``use_mesh`` on the
-   kernels, then 2 decode steps (deepseek-v2: 1) from the bf16 reference's
+   kernels, then 4 decode steps (deepseek-v2: 2) from the bf16 reference's
    cache placed by ``place_lm_cache``.  Each rank's logits rows and prefill
    cache blocks are gated against a one-process fp32-compute ``ref`` run on
    its row at LM_GATE times the bf16 ``ref`` run's own error (deepseek-v2:
@@ -517,7 +517,10 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
+# ``python chip_smoke.py --serve-ms SRC OUT`` times the package under SRC
+# (another checkout's ``src``: serve_ms_main); every other run, this one's
+sys.path.insert(0, str(pathlib.Path(sys.argv[2]).resolve() if sys.argv[1:2] == ["--serve-ms"]
+                       else ROOT / "src"))
 
 # the H100's peaks and the paths' bounds are the package's
 from repro_torch.roofline import (BF16_FLOPS, FP32_FLOPS, HBM_BYTES_PER_S,  # noqa: E402
@@ -7443,12 +7446,12 @@ def run_whisper(dev, launches):
 # (arch, layers, prompt, decode steps): full width, depth and steps cut for
 # the run's time (a pass re-gathers every layer, and gloo moves about 1.6
 # GB/s over the 4 ranks sharing the host: a deepseek-v2 decode step takes
-# about 9.5 s, a gemma2-2b one at 13 layers 5.2 s, and the passes share the
-# host with the deferred checks); gemma2-2b's 2 layers are one local and one
-# global; B SERVE_MESH_ROWS rows, one a data rank; the planted fault's run
-# decodes one step
-SERVE_MESH_MODELS = (("gemma2-2b", 2, 4608, 2), ("deepseek-v2-236b", 1, 1024, 1),
-                     ("mamba2-780m", 12, 2048, 2))
+# about 9.5 s, a gemma2-2b one 4.3 s at 2 layers and 6.5 s at 13, and the
+# passes share the host with the deferred checks); gemma2-2b's 6 layers are
+# 3 local and 3 global; B SERVE_MESH_ROWS rows, one a data rank; the planted
+# fault's run decodes one step
+SERVE_MESH_MODELS = (("gemma2-2b", 6, 4608, 4), ("deepseek-v2-236b", 1, 1024, 2),
+                     ("mamba2-780m", 24, 2048, 4))
 SERVE_MESH_ROWS = 2
 SERVE_MESH_WAIT = 300.0        # a rank's wait for a reference's file
 SERVE_MESH_TIMEOUT = 600.0     # the ranks' whole run
@@ -8108,7 +8111,69 @@ def main() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# one-card LM prefill and decode times of a checkout (--serve-ms)
+# ---------------------------------------------------------------------------
+
+# (arch, layers, decode slots): phases 6b's and 6d's one-card models at the
+# depths they served before phase 6f took their time (16 of minitron-4b's
+# 32 layers, all 48 of mamba2-780m's, 42 of zamba2-7b's 81)
+SERVE_MS_MODELS = (("minitron-4b", 16, (4, 1)), ("mamba2-780m", 48, (4,)),
+                   ("zamba2-7b", 42, (2,)))
+SERVE_MS_PREFILL = (1024, 2048)
+SERVE_MS_POS = 1024
+
+
+def serve_ms_main(src: str, out_path: str) -> int:
+    """``python chip_smoke.py --serve-ms SRC OUT``: one-card prefill ms (B 1,
+    SERVE_MS_PREFILL tokens, the kernels on) and decode-step ms (at position
+    SERVE_MS_POS) of SERVE_MS_MODELS, bf16 compute on random weights from
+    seed 0, with the ``repro_torch`` under SRC; writes {arch: {layers,
+    prefill: {S: ms}, decode: {slots: ms}}} and the card line to OUT.  Run
+    it on two checkouts in turns (a b b a) in one call to compare them on
+    the same shapes and timer."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models.registry import get_api
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build()
+    _build.library()
+    out = dict(src=src, card=card_line())
+    for arch, layers, slots in SERVE_MS_MODELS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        api = get_api(cfg)
+        p16 = api.compute_params(api.init(torch.Generator(device=dev).manual_seed(0), cfg),
+                                 cfg)
+        g = torch.Generator(device=dev).manual_seed(2)
+        row = dict(layers=layers, prefill={}, decode={})
+        for n in SERVE_MS_PREFILL:
+            batch = dict(tokens=torch.randint(0, cfg.vocab, (1, n), generator=g, device=dev))
+            row["prefill"][n] = time_ms(lambda: api.prefill(p16, batch, cfg, backend="cuda"),
+                                        iters=3, reps=5)
+        for b in slots:
+            cache = api.init_cache(cfg, b, SERVE_MS_POS + 8, dev)
+            cache["len"] = SERVE_MS_POS
+            toks = torch.zeros((b, 1), dtype=torch.long, device=dev)
+            # written in place at position len: each call rewrites the same one
+            row["decode"][b] = time_ms(lambda: api.decode_step(p16, dict(cache), toks, cfg),
+                                       iters=10, reps=5)
+        print(f"serve ms {arch} ({layers} layers) under {src}: {row}", flush=True)
+        out[arch] = row
+        del p16, cache
+        torch.cuda.empty_cache()
+    with open(out_path, "w") as f:
+        json.dump(out, f, indent=1)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--serve-ms"]:
+        sys.exit(serve_ms_main(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--dp-rank"]:
         sys.exit(dp_rank_main(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--serve-rank"]:

@@ -349,7 +349,7 @@ def prefill(params: Params, batch: Dict, cfg: ModelConfig, backend: Optional[str
     states, ``ssm``'s heads and ``conv``'s channels."""
     tokens = batch["tokens"]
     b_all, s = tokens.shape
-    view = SV.begin(params, cfg, b_all, s, shapes=SV.cache_shapes(cfg, b_all, s))
+    view = SV.begin(params, cfg, b_all, s, seq=s)
     tokens = view.rows(tokens)
     x = L.embed(view.get("embed"), tokens, _dtype(cfg))
     conv, ssm = [], []
@@ -364,6 +364,12 @@ def prefill(params: Params, batch: Dict, cfg: ModelConfig, backend: Optional[str
     h = L.rms_norm(x[:, -1:, :], params["final_norm"], cfg.norm_eps)
     return TT.logits_head(TT._head(view, cfg), h, cfg)[:, 0, :], view.finish(dict(
         conv=torch.stack(conv), ssm=torch.stack(ssm), len=s))
+
+
+def _part(t: torch.Tensor, dim: int, lo: int, n: int) -> torch.Tensor:
+    """``t``'s [lo, lo + n) along ``dim``: ``t`` itself where that is all of
+    it (one device: no slicing op on the decode's host-bound path)."""
+    return t if lo == 0 and n == t.shape[dim] else t.narrow(dim, lo, n)
 
 
 def mamba_decode_mixer(lp: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -387,24 +393,26 @@ def mamba_decode_mixer(lp: Params, x: torch.Tensor, cfg: ModelConfig,
     view = view or SV.LocalView(None)
     c0, cn = view.channels("conv", 2, xBC.shape[-1])
     h0, hn = view.channels("ssm", 2, nh)
+    conv = lambda t, dim: _part(t, dim, c0, cn)        # noqa: E731
+    heads = lambda t, dim: _part(t, dim, h0, hn)       # noqa: E731
 
-    window = torch.cat([conv_state, xBC[:, c0:c0 + cn, None]], dim=-1)   # (b,c,k)
+    window = torch.cat([conv_state, conv(xBC, 1)[:, :, None]], dim=-1)  # (b,c,k)
     new_conv_state = window[..., 1:]
-    conv_out = torch.sum(window * lp["conv_w"][c0:c0 + cn].to(x.dtype), dim=-1) \
-        + lp["conv_b"][c0:c0 + cn].to(x.dtype)
+    conv_out = torch.sum(window * conv(lp["conv_w"], 0).to(x.dtype), dim=-1) \
+        + conv(lp["conv_b"], 0).to(x.dtype)
     xBC = F.silu(view.join("conv", 2, conv_out, 1))
 
-    xs = xBC[..., :d_inner].reshape(b, nh, hp)[:, h0:h0 + hn]
+    xs = heads(xBC[..., :d_inner].reshape(b, nh, hp), 1)
     Bv = xBC[..., d_inner:d_inner + gn * n].reshape(b, gn, n).repeat_interleave(nh // gn, 1)
     Cv = xBC[..., d_inner + gn * n:].reshape(b, gn, n).repeat_interleave(nh // gn, 1)
-    Bv, Cv = Bv[:, h0:h0 + hn], Cv[:, h0:h0 + hn]
-    dt = F.softplus(dt.float() + lp["dt_bias"])[:, h0:h0 + hn]          # (b, h)
-    A = -torch.exp(lp["A_log"][h0:h0 + hn])
+    Bv, Cv = heads(Bv, 1), heads(Cv, 1)
+    dt = heads(F.softplus(dt.float() + lp["dt_bias"]), 1)               # (b, h)
+    A = -torch.exp(heads(lp["A_log"], 0))
     dA = torch.exp(dt * A)                                              # (b, h)
     upd = torch.einsum("bh,bhn,bhp->bhpn", dt, Bv.float(), xs.float())
     new_state = ssm_state * dA[..., None, None] + upd
     y = torch.einsum("bhpn,bhn->bhp", new_state, Cv.float()).to(x.dtype)
-    y = y + xs * lp["D"][h0:h0 + hn].to(x.dtype)[None, :, None]
+    y = y + xs * heads(lp["D"], 0).to(x.dtype)[None, :, None]
     y = view.join("ssm", 2, y.reshape(b, hn * hp), 1)
     y = L.rms_norm(y * F.silu(z), lp["gate_norm"], cfg.norm_eps)
     return y @ lp["out_proj"].to(x.dtype), new_conv_state, new_state

@@ -400,7 +400,7 @@ def prefill(params: Params, batch: Dict, cfg: ModelConfig,
     b_all = tokens.shape[0]
     s = tokens.shape[1] + (batch["frontend_embeds"].shape[1]
                            if cfg.frontend is not None and "frontend_embeds" in batch else 0)
-    view = SV.begin(params, cfg, b_all, s, shapes=SV.cache_shapes(cfg, b_all, s))
+    view = SV.begin(params, cfg, b_all, s, seq=s)
     batch = {k: view.rows(v) for k, v in batch.items()}
     x = embed_inputs(dict(embed=view.get("embed")), batch, cfg)
     b = x.shape[0]
@@ -462,13 +462,12 @@ def decode_step(params: Params, cache: Dict, tokens: torch.Tensor,
     a = cfg.attention
     mla = a.kind == "mla"
     view = SV.begin(params, cfg, tokens.shape[0], 1, cache=cache)
-    tokens = view.rows(tokens)
-    x = L.embed(view.get("embed"), tokens, _dtype(cfg)) * cfg.embed_scale
     pos = int(cache["len"])
     names = ("ckv", "krope") if mla else ("k", "v")
     kv = [cache[n] for n in names]
-    if view.mesh is None and pos >= kv[0].shape[2]:
-        raise ValueError(f"the cache holds {kv[0].shape[2]} positions; it is full")
+    view.check_room(names[0], kv[0], pos)
+    tokens = view.rows(tokens)
+    x = L.embed(view.get("embed"), tokens, _dtype(cfg)) * cfg.embed_scale
     b = tokens.shape[0]
     positions = torch.full((b, 1), pos, device=x.device)
     for i, w in enumerate(layer_windows(cfg)):

@@ -119,10 +119,6 @@ def compute_params(params: Params, cfg: ModelConfig) -> Params:
     return out
 
 
-def _layer(stack: Params, i: int) -> Params:
-    return tree_map(lambda t: t[i], stack)
-
-
 # --------------------------------------------------------------------------
 # forward
 # --------------------------------------------------------------------------
@@ -145,9 +141,11 @@ def dec_block(lp: Params, x: torch.Tensor, enc: torch.Tensor, cfg: ModelConfig,
     return x + L.mlp(lp["ffn"], h)
 
 
-def _stack(block, stack: Params, n: int, x: torch.Tensor, extra: tuple, cfg: ModelConfig,
+def _stack(block, layer, n: int, x: torch.Tensor, extra: tuple, cfg: ModelConfig,
            backend: Optional[str]) -> torch.Tensor:
-    """``x`` through the ``n`` stacked blocks of ``stack``.  While grad is
+    """``x`` through ``n`` blocks, block ``i``'s params ``layer(i)`` (a
+    serving view's :meth:`~repro_torch.sharding.serve.LocalView.layer` of
+    one stack, which under a mesh gathers the layer).  While grad is
     enabled under ``remat_policy`` "nothing" or "dots" each block runs under
     ``torch.utils.checkpoint`` (the reference remats both stacks): its
     recompute in the backward runs the block's forward, and B5, again."""
@@ -156,7 +154,7 @@ def _stack(block, stack: Params, n: int, x: torch.Tensor, extra: tuple, cfg: Mod
     # the caller's use_backend scope
     backend = dispatch.resolve_backend(backend, x.device)
     for i in range(n):
-        args = (_layer(stack, i), x, *extra, cfg, backend)
+        args = (layer(i), x, *extra, cfg, backend)
         if remat is None:
             x = block(*args)
         else:
@@ -167,11 +165,14 @@ def _stack(block, stack: Params, n: int, x: torch.Tensor, extra: tuple, cfg: Mod
 
 
 def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig,
-           backend: Optional[str] = "auto") -> torch.Tensor:
+           backend: Optional[str] = "auto", view=None) -> torch.Tensor:
     """frames: (B, S_enc, D) stub embeddings -> encoder states (B, S_enc, D)
-    in the compute dtype."""
+    in the compute dtype.  ``view``: the serving view whose layers the
+    encoder reads (the whole ``params`` by default)."""
+    view = view or SV.LocalView(params)
     x = frames.to(_dtype(cfg))
-    x = _stack(enc_block, params["encoder"], cfg.n_encoder_layers, x, (), cfg, backend)
+    x = _stack(enc_block, lambda i: view.layer("encoder", i), cfg.n_encoder_layers, x, (),
+               cfg, backend)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -193,10 +194,7 @@ def cross_attention_cached(cp: Params, x: torch.Tensor, k: torch.Tensor, v: torc
     a = cfg.attention
     b, s, _ = x.shape
     q = (x @ cp["wq"].to(x.dtype)).reshape(b, s, a.n_heads, a.head_dim)
-    if view is not None and view.mesh is not None:
-        o = view.attend("cross_k", q, k, v, None)
-    else:
-        o = L.attention_scores(q, k, v, causal=False)
+    o = (view or SV.LocalView(None)).attend("cross_k", q, k, v, None)
     return o.reshape(b, s, -1) @ cp["wo"].to(x.dtype)
 
 
@@ -209,7 +207,9 @@ def decode_trunk(params: Params, x: torch.Tensor, enc: torch.Tensor, cfg: ModelC
                  backend: Optional[str] = "auto") -> torch.Tensor:
     """Embedded tokens (B, S, D) and encoder states -> final hidden
     states."""
-    x = _stack(dec_block, params["decoder"], cfg.n_layers, x, (enc,), cfg, backend)
+    view = SV.LocalView(params)
+    x = _stack(dec_block, lambda i: view.layer("decoder", i), cfg.n_layers, x, (enc,), cfg,
+               backend)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -262,15 +262,9 @@ def prefill(params: Params, batch: Dict, cfg: ModelConfig, backend: Optional[str
     tokens, frames = batch["tokens"], batch["frontend_embeds"]
     b_all, s = tokens.shape
     se = frames.shape[1]
-    view = SV.begin(params, cfg, b_all, s + se, shapes=SV.cache_shapes(cfg, b_all, s, se))
+    view = SV.begin(params, cfg, b_all, s + se, seq=s, s_enc=se)
     tokens, frames = view.rows(tokens), view.rows(frames)
-    if view.mesh is None:
-        enc = encode(params, frames, cfg, backend)
-    else:
-        enc = frames.to(_dtype(cfg))
-        for i in range(cfg.n_encoder_layers):
-            enc = enc_block(view.layer("encoder", i), enc, cfg, backend)
-        enc = L.rms_norm(enc, params["enc_norm"], cfg.norm_eps)
+    enc = encode(params, frames, cfg, backend, view)
     x = L.embed(view.get("embed"), tokens, _dtype(cfg))
     b = x.shape[0]
     positions = torch.arange(s, device=x.device)
@@ -310,8 +304,7 @@ def decode_step(params: Params, cache: Dict, tokens: torch.Tensor, cfg: ModelCon
     a = cfg.attention
     pos = int(cache["len"])
     view = SV.begin(params, cfg, tokens.shape[0], 1, cache=cache)
-    if view.mesh is None and pos >= cache["k"].shape[2]:
-        raise ValueError(f"the cache holds {cache['k'].shape[2]} positions; it is full")
+    view.check_room("k", cache["k"], pos)
     tokens = view.rows(tokens)
     b = tokens.shape[0]
     x = L.embed(view.get("embed"), tokens, _dtype(cfg))

@@ -181,7 +181,7 @@ def prefill(params: Params, batch: Dict, cfg: ModelConfig, backend: Optional[str
     tokens = batch["tokens"]
     a = cfg.attention
     b_all, s = tokens.shape
-    view = SV.begin(params, cfg, b_all, s, shapes=SV.cache_shapes(cfg, b_all, s))
+    view = SV.begin(params, cfg, b_all, s, seq=s)
     tokens = view.rows(tokens)
     x = L.embed(view.get("embed"), tokens, getattr(torch, cfg.compute_dtype))
     b = x.shape[0]
@@ -227,8 +227,7 @@ def decode_step(params: Params, cache: Dict, tokens: torch.Tensor, cfg: ModelCon
     a = cfg.attention
     pos = int(cache["len"])
     view = SV.begin(params, cfg, tokens.shape[0], 1, cache=cache)
-    if view.mesh is None and pos >= cache["k"].shape[2]:
-        raise ValueError(f"the cache holds {cache['k'].shape[2]} positions; it is full")
+    view.check_room("k", cache["k"], pos)
     tokens = view.rows(tokens)
     b = tokens.shape[0]
     x = L.embed(view.get("embed"), tokens[:, 0], getattr(torch, cfg.compute_dtype))

@@ -125,6 +125,7 @@ class LocalView:
 
     def __init__(self, params: Params):
         self.params = params
+        self._positions: Dict[Tuple[int, Any], Tuple[torch.Tensor, torch.Tensor]] = {}
 
     def rows(self, t: torch.Tensor) -> torch.Tensor:
         return t
@@ -160,13 +161,27 @@ class LocalView:
         from repro_torch.models import layers as L
         if pos is None:
             return L.attention_scores(q, k, v, causal=False)
-        dev = q.device
+        key = (pos, q.device)
+        if key not in self._positions:          # made once a step, not once a layer
+            self._positions[key] = (torch.full((1,), pos, device=q.device),
+                                    torch.arange(pos + 1, device=q.device))
+        q_pos, k_pos = self._positions[key]
         return L.attention_scores(q, k[:, :pos + 1], v[:, :pos + 1], causal=False, window=window,
-                                  cap=cap, q_positions=torch.full((1,), pos, device=dev),
-                                  k_positions=torch.arange(pos + 1, device=dev), k_len=pos + 1)
+                                  cap=cap, q_positions=q_pos, k_positions=k_pos, k_len=pos + 1)
 
     def finish(self, cache: Dict) -> Dict:
         return cache
+
+    def seq_len(self, name: str, leaf: torch.Tensor) -> int:
+        """The whole sequence length of cache leaf ``name`` (L, B, S, ...)."""
+        return leaf.shape[2]
+
+    def check_room(self, name: str, leaf: torch.Tensor, pos: int) -> None:
+        """Raise where decode would write position ``pos`` past the end of
+        cache leaf ``name``."""
+        n = self.seq_len(name, leaf)
+        if pos >= n:
+            raise ValueError(f"the cache holds {n} positions; it is full")
 
 
 class MeshView(LocalView):
@@ -324,13 +339,19 @@ class MeshView(LocalView):
     def finish(self, cache: Dict) -> Dict:
         return dict(cache, specs=self.specs)
 
+    def seq_len(self, name: str, leaf: torch.Tensor) -> int:
+        axes = _group(self.specs[name], 2, self.sizes)
+        return leaf.shape[2] * (self.mesh.size_of(axes) if axes else 1)
+
 
 def begin(params: Params, cfg, batch: int, tokens_per_row: int,
-          cache: Optional[Dict] = None, shapes: Optional[Dict[str, tuple]] = None):
+          cache: Optional[Dict] = None, seq: Optional[int] = None,
+          s_enc: Optional[int] = None):
     """The view of one step: :class:`LocalView` without an active mesh;
     under one, :class:`MeshView` with the cache's specs (``cache["specs"]``
-    at decode, or :func:`cache_specs_for` of the ``shapes`` prefill will
-    write, for a global batch of ``batch`` rows)."""
+    at decode, or :func:`cache_specs_for` of the cache of ``seq`` positions,
+    and ``s_enc`` encoder positions, that prefill will write for a global
+    batch of ``batch`` rows)."""
     mesh = active_mesh()
     if mesh is None:
         return LocalView(params)
@@ -341,5 +362,5 @@ def begin(params: Params, cfg, batch: int, tokens_per_row: int,
                              "the mesh")
         specs = cache["specs"]
     else:
-        specs = cache_specs_for(shapes, batch, mesh.shape)
+        specs = cache_specs_for(cache_shapes(cfg, batch, seq, s_enc), batch, mesh.shape)
     return MeshView(params, cfg, mesh, specs, batch, tokens_per_row)

@@ -32,10 +32,12 @@ a rank's E/m experts).  Per rank:
   equal to ``roofline.lm_serve_payloads``.
 
 A planted fault (the first sequence block's partial dropped from the merge)
-must fail the decode comparison.  The same launch checks the sharded train
-step with its batch over (data, model) and ``model`` stripped from every
-spec (``tp_enabled=False``, whisper-smoke): its loss and first moment
-equal the one-device step's.
+must fail the decode comparison.  Decoding from a mesh prefill's own cache,
+which holds exactly S positions, raises as on one device.  The same launch
+checks the sharded train step with ``model`` stripped from every spec and
+the batch over every axis (``tp_enabled=False``, whisper-smoke), on this
+mesh and on a (pod 2, data 1, model 2) one: its loss and first moment
+equal the JAX package's one-device ``make_train_step`` on the whole batch.
 """
 import dataclasses
 import json
@@ -52,7 +54,10 @@ import torch
 
 from repro.configs import registry as jreg
 from repro.models.registry import get_api as j_get_api
+from repro.optim import AdamWConfig as JAdamW
+from repro.optim import adamw_init as j_adamw_init
 from repro.sharding import rules as J
+from repro.train.step import make_train_step as j_make_train_step
 from repro_torch.launch.local_ranks import run_ranks
 
 pytestmark = pytest.mark.torch_port
@@ -94,12 +99,13 @@ from repro_torch.launch import collectives
 from repro_torch.launch.mesh import init_distributed, make_mesh_for
 from repro_torch.models import layers
 from repro_torch.models.registry import get_api
-from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.optim.adamw import AdamWConfig, adamw_init
 from repro_torch.roofline import lm_serve_payloads
 from repro_torch.sharding.ctx import use_mesh
-from repro_torch.sharding.place import gather_tree, place_lm_cache, place_lm_params
-from repro_torch.train.step import (lm_state_specs, make_init_state, make_sharded_init_state,
-                                    make_train_step)
+from repro_torch.sharding.place import (gather_tree, place_lm_cache, place_lm_params,
+                                        shard_tree, spec_paths)
+from repro_torch.sharding.rules import tp_off_batch_axes
+from repro_torch.train.step import lm_state_specs, make_train_step
 
 inp = pickle.load(open(sys.argv[1], "rb"))
 out_dir = sys.argv[2]
@@ -136,6 +142,14 @@ for name in inp["cases"]:
     for k, v in cache.items():
         if torch.is_tensor(v):
             arrays[f"{name}/prefill/{k}"] = v.numpy()
+    full = None
+    if inp["cases"][name][0] != "mamba2-780m":
+        # the prefill's own cache holds exactly S positions: decode refuses it
+        try:
+            with use_mesh(mesh):
+                api.decode_step(params, cache, torch.full((inp["B"], 1), 1), cfg)
+        except ValueError as e:
+            full = str(e)
     mc = decode(api, params, place_lm_cache(lm_cache_from_numpy(inp["spliced"][name], "cpu"),
                                             mesh), cfg, name, "decode")
     dec = collectives.counter.payload()
@@ -143,7 +157,7 @@ for name in inp["cases"]:
         if torch.is_tensor(v):
             arrays[f"{name}/decoded/{k}"] = v.numpy()
     info[name] = dict(
-        len=[cache["len"], mc["len"]], prefill_payload=pre, decode_payload=dec,
+        len=[cache["len"], mc["len"]], full=full, prefill_payload=pre, decode_payload=dec,
         want_prefill=lm_serve_payloads(cfg, mesh.shape, inp["B"], inp["S"], "prefill"),
         want_decode=lm_serve_payloads(cfg, mesh.shape, inp["B"], inp["MAX"], "decode"),
         specs={k: repr(v) for k, v in mc["specs"].items()})
@@ -162,23 +176,28 @@ for name in inp["cases"]:
         finally:
             layers.merge_partials = merge
 
-# the sharded train step with tp_enabled=False: the batch over (data, model)
+# the sharded train step with tp_enabled=False (whisper-smoke, the batch
+# over every axis): on this (data, model) mesh and on a (pod, data, model)
+# one, each from the reference's params placed under the stripped specs
 cfg = cfg_of("whisper")
-adam, bax = AdamWConfig(), ("data", "model")
+adam = AdamWConfig()
 tbatch = {k: torch.from_numpy(v) for k, v in inp["batch"]["whisper"].items()}
-one = make_init_state(cfg, adam)(torch.Generator().manual_seed(3), "cpu")
-_, m1 = make_train_step(cfg, adam, schedule=lambda c: 1e-3)(one, tbatch)
-sharded = make_sharded_init_state(cfg, adam, mesh, bax)(torch.Generator().manual_seed(3), "cpu")
-collectives.counter.reset()
-sharded, m2 = make_train_step(cfg, adam, schedule=lambda c: 1e-3, mesh=mesh,
-                              batch_axes=bax)(sharded, tbatch)
-_, specs = lm_state_specs(cfg, adam, mesh, bax)
-mu = gather_tree(sharded["opt"]["mu"], specs["opt"]["mu"], mesh)
-info["tp_off"] = dict(loss=[float(m1["loss"]), float(m2["loss"])],
-                      keys=sorted(collectives.counter.payload()))
-for k, v in tree_paths(mu).items():
-    arrays[f"tp_off/mu/{k}"] = v.numpy()
-    arrays[f"tp_off/want/{k}"] = tree_paths(one["opt"]["mu"])[k].numpy()
+for tag, m in (("tp_off", mesh), ("tp_off_pod", make_mesh_for((2, 1, 2),
+                                                              ("pod", "data", "model")))):
+    # the rule with tensor parallelism off (the smoke config keeps it on)
+    bax = tp_off_batch_axes(False, inp["B"], m.shape)
+    _, specs = lm_state_specs(cfg, adam, m, bax)
+    p = lm_params_from_numpy(inp["params"]["whisper"], "cpu")
+    sharded = shard_tree(dict(params=p, opt=adamw_init(p, adam)), specs, m)
+    collectives.counter.reset()
+    sharded, m2 = make_train_step(cfg, adam, schedule=lambda c: 1e-3, mesh=m,
+                                  batch_axes=bax)(sharded, tbatch)
+    mu = gather_tree(sharded["opt"]["mu"], specs["opt"]["mu"], m)
+    info[tag] = dict(loss=float(m2["loss"]), batch_axes=list(bax),
+                     keys=sorted(collectives.counter.payload()),
+                     specs=sorted({repr(s) for s in spec_paths(specs["params"]).values()}))
+    for k, v in tree_paths(mu).items():
+        arrays[f"{tag}/mu/{k}"] = v.numpy()
 np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
 with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
     json.dump(info, f)
@@ -222,6 +241,21 @@ def _reference(name, params, batch):
             cat([o[3] for o in out]), cat([o[4] for o in out]))
 
 
+def _tp_off_reference(params, batch):
+    """The JAX package's one-device ``make_train_step`` on the whole batch
+    (whisper-smoke, lr 1e-3, AdamW's defaults): (loss, {path: first
+    moment})."""
+    cfg = _cfg(jreg, "whisper")
+    jp = jax.tree.map(jnp.asarray, params)
+    adam = JAdamW()
+    step = jax.jit(j_make_train_step(cfg, adam, schedule=lambda c: 1e-3))
+    state, m = step(dict(params=jp, opt=j_adamw_init(jp, adam)),
+                    {k: jnp.asarray(v) for k, v in batch.items()})
+    mu = {"/".join(str(getattr(k, "key", k)) for k in path): np.asarray(v)
+          for path, v in jax.tree_util.tree_flatten_with_path(state["opt"]["mu"])[0]}
+    return float(m["loss"]), mu
+
+
 class _Stub:
     def __init__(self, shape):
         self.shape = dict(shape)
@@ -262,6 +296,7 @@ def served(tmp_path_factory):
         batches[name] = batch
         refs[name] = _reference(name, params[name], batch)
         spliced[name] = refs[name][4]
+    refs["tp_off"] = _tp_off_reference(params["whisper"], batches["whisper"])
     inp = dict(params=params, batch=batches, spliced=spliced, cases=CASES, B=B, S=S, MAX=MAX,
                decode_tokens=DECODE_TOKENS)
     with open(d / "inp.pkl", "wb") as f:
@@ -347,6 +382,17 @@ def test_payloads_equal_the_roofline(served, name):
         assert got["decode_payload"] == got["want_decode"], name
 
 
+def test_decoding_a_full_mesh_cache_raises(served):
+    """A mesh prefill keeps exactly S positions of its cache (each rank a
+    block of S / 2 where the sequence splits): a decode step from it raises
+    on every rank, naming the whole length, as on one device."""
+    ranks, _ = served
+    for _, info in ranks:
+        for name in CASES:
+            if CASES[name][0] != "mamba2-780m":
+                assert info[name]["full"] == f"the cache holds {S} positions; it is full", name
+
+
 def test_a_dropped_partial_fails_the_comparison(served):
     """The first sequence block's partial dropped from the merge: the
     global layers lose 12 of their keys, and the logits leave TOL on every
@@ -360,17 +406,39 @@ def test_a_dropped_partial_fails_the_comparison(served):
         assert all(np.isfinite(errs)) and min(errs) > 100 * TOL, errs
 
 
+def _check_tp_off(served, tag, axes):
+    ranks, refs = served
+    loss, want_mu = refs["tp_off"]
+    for arrays, info in ranks:
+        got = info[tag]
+        assert got["batch_axes"] == list(axes)
+        assert abs(got["loss"] - loss) <= TOL * abs(loss), (tag, got["loss"], loss)
+        assert not any("model" in sp for sp in got["specs"]), got["specs"]
+        assert not any(k.startswith(("all_gather/model", "reduce_scatter/model"))
+                       for k in got["keys"]), got["keys"]
+        mus = {k[len(tag) + 4:]: v for k, v in arrays.items() if k.startswith(f"{tag}/mu/")}
+        assert mus.keys() == want_mu.keys()
+        for k, v in mus.items():
+            want = want_mu[k]
+            assert np.abs(v - want).max() <= TOL * max(np.abs(want).max(), 1e-30), (tag, k)
+
+
 def test_tp_off_step_equals_the_one_device_step(served):
     """whisper-smoke's sharded step with its 4 rows one a rank (batch over
-    (data, model), ``model`` stripped from every spec): the loss within TOL
-    of the one-device step's on the whole batch, each leaf's first moment
-    within TOL of its max; no collective gathers over model."""
-    ranks, _ = served
-    for arrays, info in ranks:
-        one, sharded = info["tp_off"]["loss"]
-        assert abs(one - sharded) <= TOL * abs(one)
-        assert not any(k.startswith(("all_gather/model", "reduce_scatter/model"))
-                       for k in info["tp_off"]["keys"])
-        for k in (k for k in arrays if k.startswith("tp_off/mu/")):
-            want = arrays[k.replace("/mu/", "/want/")]
-            assert np.abs(arrays[k] - want).max() <= TOL * max(np.abs(want).max(), 1e-30), k
+    (data, model), ``model`` stripped from every spec), from the JAX
+    package's params placed under those specs: the loss within TOL of the
+    JAX package's one-device ``make_train_step`` on the whole batch, each
+    leaf's first moment within TOL of its max; no collective gathers over
+    model."""
+    _check_tp_off(served, "tp_off", ("data", "model"))
+
+
+def test_tp_off_step_on_a_pod_mesh_equals_the_one_device_step(served):
+    """The same step on a (pod 2, data 1, model 2) mesh: the batch over
+    (pod, data, model), each leaf split over (pod, data) at most, so its
+    gradient is summed over ``model`` alone, the batch axis its spec leaves
+    unsplit (summing it over the whole batch group would add the other
+    pod's different blocks); against the same JAX step."""
+    _check_tp_off(served, "tp_off_pod", ("pod", "data", "model"))
+    for _, info in served[0]:
+        assert "all_reduce/model" in info["tp_off_pod"]["keys"]
