@@ -208,10 +208,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (losses, ms a step, tokens/s, peak memory beside the 40.2 GB of bf16
    params, gradients and AdamW state, which must fit the card; launches
    counted on exactly that run) and one profiled step beside the step's
-   bound; B7 at the step's shapes (the forward, dx on the transposed copy
-   of w, dw on the transposed copy of x, K = 200) against its plain
-   version, beside ``torch.bmm`` and the bytes bound, and the two copies
-   timed; then Simple CNAPs over deepseek-v2 at full width and 2 of its 60
+   bound; B7 at the step's shapes (the forward, dx on w^T and dw on x^T,
+   both transposed views of the stored tensors as the backward hands them,
+   K = 200) against its plain version, beside ``torch.bmm`` on the same
+   views and the bytes bound; then Simple CNAPs over deepseek-v2 at full width and 2 of its 60
    layers (18.0 GB of frozen bf16 trunk), phase 5c's tasks and gate, B7's
    launches by role (no dw: a dw product fails the phase) and B1-B3's,
    three steps through the example's step; and ``python -m
@@ -232,8 +232,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (losses, ms a step, tokens/s, peak memory; launches counted on exactly
    that run) and one profiled step beside the step's bound; zamba2-7b at
    full width on 12 of its 81 layers (two shared sites, B 2, S 2048) the
-   same way, B5 once a site in the forward on the route its head dim 112
-   takes, without the fault; Simple CNAPs and ProtoNets (``tokens``
+   same way, B5 once a site in the forward on "wgmma" (its head dim 112
+   runs the 128-wide tensor-core kernel), without the fault; Simple CNAPs and ProtoNets (``tokens``
    encoder) over mamba2-780m at full width (Simple CNAPs at full depth,
    ProtoNets, which trains every weight, at 12 of 48 layers), phase 5c's tasks
    and gate, B6 once a layer a pass (inside its Function where the trunk
@@ -295,11 +295,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
    mesh, exit 0);
 6. drive the LM-side kernel entry point ``repro_torch.kernels.ops`` once
    at published widths (flash attention of gemma2-2b's local and global
-   layers and of minitron-4b, kimi-k2's expert matmul, mamba2-780m's SSD
-   chunks in fp32 and in bf16), count each kernel's launches and fail
-   unless every main call of gmm, flash attention and ssd_chunk took the
-   tensor-core route ("wgmma"), then hold every output, and ragged shapes
-   on both routes, against the plain versions and time kernel, plain
+   layers, of minitron-4b, of zamba2-7b's head dim 112 and of
+   phi-3-vision's 96, kimi-k2's expert matmul, mamba2-780m's SSD chunks in
+   fp32 and in bf16), count each kernel's launches and fail unless every
+   main call of gmm, flash attention and ssd_chunk took the tensor-core
+   route ("wgmma"), then hold every output, and ragged shapes on both
+   routes (gmm's also on the backward's transposed views of x and w),
+   against the plain versions and time kernel, plain
    version and library call, as phase 3 does; then plant faults in flash
    attention at S 8192 (late rows zeroed, the wrong kv head, the window
    halved or one key block short) and in ssd_chunk at the mamba2-780m shape
@@ -357,8 +359,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    of the shared block; 2 slots, prompts 1024, 1024, then 512 and 2048, 8
    new tokens), random weights drawn on the card from seed 0, bf16
    compute, through ``ServeEngine``, failing unless every ``prefill``
-   launched B6 on "wgmma" once a mamba layer and B5 once a shared site (on
-   the route ``flash_route`` picks at head dim 112), no ``decode_step``
+   launched B6 on "wgmma" once a mamba layer and B5 on "wgmma" once a
+   shared site (head dim 112), no ``decode_step
    launched anything, and nothing else launched (tokens/s, peak memory);
    the same traffic through ``ref`` (greedy) and teacher-forced through
    the kernel path and ``ref`` in fp32 compute: phase 6b's gate on the
@@ -517,10 +519,11 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-# ``python chip_smoke.py --serve-ms SRC OUT`` times the package under SRC
-# (another checkout's ``src``: serve_ms_main); every other run, this one's
-sys.path.insert(0, str(pathlib.Path(sys.argv[2]).resolve() if sys.argv[1:2] == ["--serve-ms"]
-                       else ROOT / "src"))
+# ``python chip_smoke.py --serve-ms SRC OUT`` and ``--kernel-ms SRC OUT``
+# time the package under SRC (another checkout's ``src``: serve_ms_main,
+# kernel_ms_main); every other run, this one's
+sys.path.insert(0, str(pathlib.Path(sys.argv[2]).resolve()
+                       if sys.argv[1:2] in (["--serve-ms"], ["--kernel-ms"]) else ROOT / "src"))
 
 # the H100's peaks and the paths' bounds are the package's
 from repro_torch.roofline import (BF16_FLOPS, FP32_FLOPS, HBM_BYTES_PER_S,  # noqa: E402
@@ -4209,9 +4212,10 @@ def moe_train_loop(cfg, dev):
 def moe_train_kernel_specs(cfg, dev):
     """B7 at the training step's shapes (E 160, C 200, D 5120, F 1536): the
     forward (and the recompute) x @ w, dx = g w^T and dw = x^T g (K = C =
-    200, not a multiple of B7's 64-deep slab), on the contiguous transposed
-    copies the Function makes, against its plain version, timed beside
-    ``torch.bmm`` and the bytes bound; and the two copies, timed."""
+    200, not a multiple of B7's 64-deep slab), on the transposed views of
+    the stored w and x that the Function hands the kernel (no copy),
+    against its plain version, timed beside ``torch.bmm`` on the same views
+    and the bytes bound."""
     import torch
     from repro_torch.kernels import gmm as gm
     from repro_torch.kernels import ops
@@ -4225,15 +4229,7 @@ def moe_train_kernel_specs(cfg, dev):
 
     w = randn(e, d, f, scale=d ** -0.5)
     x, dout = randn(e, c, d), randn(e, c, f)
-    copies = {}
-    for name, t in (("w^T", w), ("x^T", x)):
-        ms = time_ms(lambda: t.transpose(1, 2).contiguous(), iters=5, reps=3)
-        nbytes = 2 * t.numel() * t.element_size()
-        copies[name] = dict(shape=list(t.shape), bytes=nbytes, ms=ms,
-                            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
-        print(f"  B7 backward's copy {name} of {tuple(t.shape)}: {nbytes} B read and written "
-              f"in {ms:.4f} ms (bound {copies[name]['bound_ms']:.4f} ms)", flush=True)
-    w_t, x_t = w.transpose(1, 2).contiguous(), x.transpose(1, 2).contiguous()
+    w_t, x_t = w.transpose(1, 2), x.transpose(1, 2)      # views, as _GMM.backward hands them
     cases = []
     for label, a, b in (("forward x @ w", x, w), ("dx = g @ w^T", dout, w_t),
                         ("dw = x^T @ g", x_t, dout)):
@@ -4247,7 +4243,7 @@ def moe_train_kernel_specs(cfg, dev):
             flops=2.0 * ee * m * k * n, peak=BF16_FLOPS))
     return [dict(name="gmm", source="src/repro_torch/kernels/csrc/gmm.cu",
                  replaces="src/repro/kernels/gmm.py:37", symbol="gmm_wgmma_kernel",
-                 cases=cases)], copies
+                 cases=cases)]
 
 
 def moe_episodic(dev, launches):
@@ -4394,7 +4390,7 @@ def run_moe_train(dev, launches):
           f"(MLA's transcription, the router, the unembed) at {FP32_FLOPS:.4g}/s, {nbytes:.4g} "
           f"B of state: {bound:.1f} ms a step ({by}); the loop's median step {step_ms:.1f} ms "
           f"({100 * bound / step_ms:.1f} % of the bound's rate)", flush=True)
-    specs, out["copies"] = moe_train_kernel_specs(cfg, dev)
+    specs = moe_train_kernel_specs(cfg, dev)
     row = check_kernels(specs)["gmm"]
     if any(t["route"] != "wgmma" for t in row["cases"]):
         fail(f"{cfg.name}: B7 at the training step's shapes took routes {row['routes']}")
@@ -4636,6 +4632,8 @@ def run_ssm_train(dev, launches):
           ZAMBA_TRAIN_SEQ)]))
     if any(r != "wgmma" for r in rows["ssd_chunk"]["routes"]):
         fail(f"B6 at the training steps' shapes took routes {rows['ssd_chunk']['routes']}")
+    if any(r != "wgmma" for r in rows["flash_attention"]["routes"]):
+        fail(f"B5 at zamba2's training shapes took routes {rows['flash_attention']['routes']}")
     out["ssd_kernel"], out["flash_kernel"] = rows["ssd_chunk"], rows["flash_attention"]
     torch.cuda.empty_cache()
     defer(out, "launcher", run_ssm_train_launcher)
@@ -5751,8 +5749,13 @@ def ops_cases(dev):
                     flops=4.0 * d * bh * attn_pairs(s, kw["causal"], kw.get("window")),
                     peak=FP32_FLOPS)
 
-    def gmm(label, e, c, d, f, dtype, main=False, offset=False):
-        x, w = randn(e, c, d, dtype=dtype), randn(e, d, f, dtype=dtype, scale=d ** -0.5)
+    def gmm(label, e, c, d, f, dtype, main=False, offset=False, views=""):
+        """``views``: "x" and / or "w" come as transposed views of stored
+        (E, D, C) and (E, F, D) tensors, as B7's backward hands them."""
+        x = randn(e, d, c, dtype=dtype).transpose(1, 2) if "x" in views else \
+            randn(e, c, d, dtype=dtype)
+        w = randn(e, f, d, dtype=dtype, scale=d ** -0.5).transpose(1, 2) if "w" in views \
+            else randn(e, d, f, dtype=dtype, scale=d ** -0.5)
         if offset:
             x, w = unaligned(x), unaligned(w)
         esz = x.element_size()
@@ -5772,8 +5775,8 @@ def ops_cases(dev):
     return [
         # gemma2-2b: 8 query heads over 4 kv heads, head_dim 256, softcap 50,
         # local layers window 4096; minitron-4b: 24 over 8, head_dim 128.  The
-        # bf16 / fp16 cases at head dims 64, 128 and 256 take the "wgmma"
-        # route, the fp32, other head dims and unaligned ones the "simt" route
+        # bf16 / fp16 cases at head dims 64, 96, 112, 128 and 256 take the
+        # "wgmma" route, the fp32, other head dims and unaligned ones "simt"
         spec("flash_attention", "flash_attention.cu",
              "src/repro/kernels/flash_attention.py:89", "flash_attention_wgmma_kernel", [
             flash("minitron-4b B1 S8192 Hq24 Hkv8 D128 causal", 1, 8192, 24, 8, 128,
@@ -5783,6 +5786,12 @@ def ops_cases(dev):
             flash("gemma2-2b local B1 S8192 Hq8 Hkv4 D256 window4096 cap50", 1, 8192, 8,
                   4, 256, torch.bfloat16, main=True, causal=True, window=4096,
                   softcap=50.0),
+            # zamba2-7b's shared block, 32 heads of 112, and phi-3-vision's
+            # 32 of 96: the 128-wide tensor-core kernel on zero-filled columns
+            flash("zamba2-7b B1 S1024 Hq32 Hkv32 D112 causal", 1, 1024, 32, 32, 112,
+                  torch.bfloat16, main=True, lib=True, causal=True),
+            flash("phi-3-vision B1 S2048 Hq32 Hkv32 D96 causal", 1, 2048, 32, 32, 96,
+                  torch.bfloat16, main=True, lib=True, causal=True),
             *(flash_bh(f"ragged BH2 S100 D32 causal={c} window={w} cap={cap}", 2, 100,
                        32, causal=c, window=w, softcap=cap)
               for c, w, cap in ((True, None, None), (False, None, None), (True, 24, None),
@@ -5799,6 +5808,12 @@ def ops_cases(dev):
                   torch.bfloat16, causal=False, window=50),
             flash("ragged B1 S200 Hq4 Hkv1 D256 fp16 window100 cap50", 1, 200, 4, 1, 256,
                   torch.float16, causal=True, window=100, softcap=50.0),
+            flash("ragged B2 S200 Hq4 Hkv2 D112 window64 cap30", 2, 200, 4, 2, 112,
+                  torch.bfloat16, causal=True, window=64, softcap=30.0),
+            flash("ragged B1 S130 Hq3 Hkv1 D96 fp16 non-causal", 1, 130, 3, 1, 96,
+                  torch.float16, causal=False),
+            flash("ragged B1 S77 Hq2 Hkv1 D112 fp32 (simt)", 1, 77, 2, 1, 112,
+                  torch.float32, causal=True, window=30),
             flash("ragged B1 S77 Hq2 Hkv1 D80 bf16 (head dim: simt)", 1, 77, 2, 1, 80,
                   torch.bfloat16, causal=True),
             flash("ragged B1 S100 Hq2 Hkv1 D128 bf16 unaligned (simt)", 1, 100, 2, 1, 128,
@@ -5814,7 +5829,18 @@ def ops_cases(dev):
             gmm("ragged E3 C130 D200 F264", 3, 130, 200, 264, torch.bfloat16),
             gmm("ragged E2 C77 D136 F72", 2, 77, 136, 72, torch.float16),
             gmm("ragged E2 C64 D128 F128 unaligned (simt)", 2, 64, 128, 128,
-                torch.bfloat16, offset=True)]),
+                torch.bfloat16, offset=True),
+            # the backward's transposed views: w^T (dx), x^T (dw), both
+            gmm("ragged E2 C70 D128 F136 w^T view", 2, 70, 128, 136, torch.bfloat16,
+                views="w"),
+            gmm("ragged E2 C136 D70 F136 x^T view", 2, 136, 70, 136, torch.bfloat16,
+                views="x"),
+            gmm("ragged E3 C72 D136 F200 x^T and w^T views fp16", 3, 72, 136, 200,
+                torch.float16, views="xw"),
+            gmm("ragged E2 C70 D128 F136 x^T view (C 70: simt)", 2, 70, 128, 136,
+                torch.bfloat16, views="x"),
+            gmm("ragged E2 C70 D128 F136 x^T and w^T views fp32 (simt)", 2, 70, 128, 136,
+                torch.float32, views="xw")]),
         # mamba2-780m: 48 heads of 64 x 128 state, chunk 256, batch 1 x 8192
         # tokens = 32 chunks; fp32, and bf16 (the model's compute dtype).
         # P and N multiples of 16 (P <= 64, N <= 128) take the "wgmma"
@@ -6751,8 +6777,8 @@ SSM_CATEGORIES = (("B6 ssd_chunk", ("ssd_wgmma", "ssd_chunk_kernel")),) + LM_CAT
 
 def hybrid_flash_route(cfg, dev) -> str:
     """The route ``flash_route`` picks for the shared block's attention (bf16
-    q, k, v of the config's heads; zamba2-7b's head dim 112 is no "wgmma"
-    head dim)."""
+    q, k, v of the config's heads; zamba2-7b's head dim 112 takes "wgmma",
+    the 128-wide kernel on zero-filled columns)."""
     import torch
     from repro_torch.kernels.flash_attention import flash_route
     a = cfg.attention
@@ -6762,15 +6788,19 @@ def hybrid_flash_route(cfg, dev) -> str:
 
 def ssm_want(cfg, dev, passes: int = 1, recompute: bool = False):
     """The launches of ``passes`` full-sequence forwards (a prefill, or a
-    training forward): B6 on "wgmma" once a mamba layer, B5 once a shared
-    site on the route its head dim takes; with ``recompute``, those of the
+    training forward): B6 on "wgmma" once a mamba layer, B5 on "wgmma" once
+    a shared site (the run fails if ``flash_route`` would send the shared
+    block's attention elsewhere); with ``recompute``, those of the
     checkpoints' recompute, which runs the mamba blocks only."""
     nm, sites, _ = ssm_shape(cfg)
     n = passes * nm
     want = {"ssd_chunk": n, "ssd_chunk/wgmma": n}
     if sites and not recompute:
         route = hybrid_flash_route(cfg, dev)
-        want |= {"flash_attention": passes * sites, f"flash_attention/{route}": passes * sites}
+        if route != "wgmma":
+            fail(f"{cfg.name}: B5 at head dim {cfg.attention.head_dim} routes to {route}, "
+                 f"not wgmma")
+        want |= {"flash_attention": passes * sites, "flash_attention/wgmma": passes * sites}
     return want
 
 
@@ -6947,7 +6977,8 @@ def ssm_path_specs(dev, shapes, flash_shapes):
     if flash_shapes:
         specs.append(dict(
             name="flash_attention", source=src + "flash_attention.cu",
-            replaces="src/repro/kernels/flash_attention.py:89", symbol="flash_attention_kernel",
+            replaces="src/repro/kernels/flash_attention.py:89",
+            symbol="flash_attention_wgmma_kernel",
             cases=[flash_case(randn, label, b, s, 32, 32, 112, torch.bfloat16, main=True,
                               lib=True, iters=(5, 3), causal=True)
                    for label, b, s in flash_shapes]))
@@ -7033,6 +7064,8 @@ def run_ssm_serve(dev, launches):
     rows = check_kernels(specs)
     if any(r != "wgmma" for r in rows["ssd_chunk"]["routes"]):
         fail(f"B6 at the SSM path's shapes took routes {rows['ssd_chunk']['routes']}")
+    if any(r != "wgmma" for r in rows["flash_attention"]["routes"]):
+        fail(f"B5 at zamba2's prefill shapes took routes {rows['flash_attention']['routes']}")
     out["ssd_kernel"], out["flash_kernel"] = rows["ssd_chunk"], rows["flash_attention"]
     for arch in ("mamba2-780m", "zamba2-7b"):
         defer(out, f"launcher_{arch}", run_lm_serve_launcher, ["--arch", arch])
@@ -8171,9 +8204,90 @@ def serve_ms_main(src: str, out_path: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# B5 and B7 at the shapes their redesigns aimed at, on any checkout
+# (--kernel-ms)
+# ---------------------------------------------------------------------------
+
+# (label, B, S, heads, head dim): zamba2-7b's shared block (prefill, and the
+# training step's B 2) and phi-3-vision's attention, causal, bf16
+KERNEL_MS_FLASH = (("zamba2-7b B1 S1024 D112", 1, 1024, 32, 112),
+                   ("zamba2-7b B1 S2048 D112", 1, 2048, 32, 112),
+                   ("zamba2-7b train B2 S2048 D112", 2, 2048, 32, 112),
+                   ("phi-3-vision B1 S2048 D96", 1, 2048, 32, 96))
+# (label, E, C, D, F): B7's forward at phase 6c's serving shapes (kimi-k2's
+# prefill and decode gate projections, deepseek-v2's prefill gate) and at
+# phase 6's kimi-k2 ops shape, beside the training shapes
+KERNEL_MS_GMM = (("kimi-k2 gate E384 C32 D7168 F2048", 384, 32, 7168, 2048),
+                 ("kimi-k2 decode gate E384 C8 D7168 F2048", 384, 8, 7168, 2048),
+                 ("deepseek-v2 gate E160 C56 D5120 F1536", 160, 56, 5120, 1536),
+                 ("kimi-k2 ops E8 C512 D7168 F2048", 8, 512, 7168, 2048))
+
+
+def kernel_ms_main(src: str, out_path: str) -> int:
+    """``python chip_smoke.py --kernel-ms SRC OUT``: with the ``repro_torch``
+    under SRC, the ms of one call (CUDA events over back-to-back calls) of
+    B5 at KERNEL_MS_FLASH through ``ops.flash_attention_gqa`` and its route,
+    of B7 at KERNEL_MS_GMM through ``ops.gmm``, and of B7 at deepseek-v2's
+    training shapes (E 160, C 200, D 5120, F 1536, bf16) through
+    ``dispatch.gmm``: the forward, and the backward of
+    its autograd Function alone (dx and dw, and whatever copies the
+    Function makes), with the memory the backward allocates above what it
+    was handed (``max_memory_allocated``); writes them and the card line to
+    OUT.  Run it on two checkouts in turns (a b b a) in one call."""
+    import torch
+    from repro_torch.kernels import _build, dispatch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    _build.build()
+    _build.library()
+    g = torch.Generator(device=dev).manual_seed(9)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(torch.bfloat16)
+
+    out = dict(src=src, card=card_line(), flash={}, gmm={})
+    for label, b, s_len, h, d in KERNEL_MS_FLASH:
+        q, k, v = (randn(b, s_len, h, d) for _ in range(3))
+        out["flash"][label] = dict(route=fa.flash_route(q, k, v), ms=time_ms(
+            lambda: ops.flash_attention_gqa(q, k, v, causal=True), iters=10, reps=5))
+        del q, k, v
+    for label, e, c, d, f in KERNEL_MS_GMM:
+        x, w = randn(e, c, d), randn(e, d, f, scale=d ** -0.5)
+        out["gmm"][label] = time_ms(lambda: ops.gmm(x, w), iters=5, reps=5)
+        del x, w
+    torch.cuda.empty_cache()
+    e, c, d, f = 160, 200, 5120, 1536
+    x = randn(e, c, d).requires_grad_(True)
+    w = randn(e, d, f, scale=d ** -0.5).requires_grad_(True)
+    dout = randn(e, c, f)
+    with torch.no_grad():
+        out["gmm"]["forward_ms"] = time_ms(lambda: dispatch.gmm(x, w, backend="cuda"),
+                                           iters=5, reps=5)
+    y = dispatch.gmm(x, w, backend="cuda")
+    backward = lambda: torch.autograd.grad(y, (x, w), dout, retain_graph=True)  # noqa: E731
+    out["gmm"]["backward_ms"] = time_ms(backward, iters=3, reps=5)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads = backward()
+    torch.cuda.synchronize()
+    out["gmm"]["backward_peak_bytes_above_inputs"] = torch.cuda.max_memory_allocated() - base
+    out["gmm"]["grads_bytes"] = sum(t.numel() * t.element_size() for t in grads)
+    print(f"kernel ms under {src}: {out}", flush=True)
+    with open(out_path, "w") as fh:
+        json.dump(out, fh, indent=1)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--serve-ms"]:
         sys.exit(serve_ms_main(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--kernel-ms"]:
+        sys.exit(kernel_ms_main(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--dp-rank"]:
         sys.exit(dp_rank_main(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--serve-rank"]:

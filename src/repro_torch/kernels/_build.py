@@ -49,7 +49,8 @@ _SIGNATURES = {
     # ..., route (0 "simt", 1 "wgmma"), stream
     "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _L, _L, _L, _L, _L, _L, _I, _I, _I, _F, _F, _I, _P),
-    "rt_gmm": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # ..., E, C, D, F, x stored transposed, w stored transposed, route, stream
+    "rt_gmm": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "rt_ssd_chunk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 

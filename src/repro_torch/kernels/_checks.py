@@ -1,7 +1,7 @@
 """Argument checks shared by the kernel wrappers: the kernels take only
-contiguous CUDA tensors of the stated dtypes, shapes and one device, and
-no tensor that autograd would follow; and whether TMA can read a tensor,
-which the route choices ask."""
+contiguous CUDA tensors (gmm: or transposed views of them) of the stated
+dtypes, shapes and one device, and no tensor that autograd would follow;
+and whether TMA can read a tensor, which the route choices ask."""
 from __future__ import annotations
 
 from typing import Callable, Sequence, Union
@@ -36,9 +36,11 @@ def require_no_grad(name: str, *ts: torch.Tensor, missing: str = "") -> None:
 
 
 def check_tensor(name: str, t: torch.Tensor, ndim: int,
-                 dtypes: Sequence[torch.dtype], device: torch.device) -> None:
+                 dtypes: Sequence[torch.dtype], device: torch.device,
+                 transposed_ok: bool = False) -> None:
     """The messages are built only when a check fails: this runs on every
-    kernel call."""
+    kernel call.  ``transposed_ok``: the transpose of a contiguous tensor in
+    the last two axes passes too (:func:`stored_transposed`)."""
     if not isinstance(t, torch.Tensor):
         raise ValueError(f"{name}: expected a tensor")
     on = t.device
@@ -50,8 +52,16 @@ def check_tensor(name: str, t: torch.Tensor, ndim: int,
         raise ValueError(f"{name}: expected {ndim}-D, got shape {tuple(t.shape)}")
     if t.dtype not in dtypes:
         raise ValueError(f"{name}: dtype {t.dtype} not in {list(dtypes)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
+    if not t.is_contiguous() and not (transposed_ok and stored_transposed(t)):
+        raise ValueError(f"{name}: must be contiguous" + (
+            " or the transpose of a contiguous tensor in its last two axes"
+            if transposed_ok else ""))
+
+
+def stored_transposed(t: torch.Tensor) -> bool:
+    """Whether ``t`` is not contiguous but the transpose of its last two
+    axes is: a view that reads a contiguous tensor as its transpose."""
+    return not t.is_contiguous() and t.transpose(-2, -1).is_contiguous()
 
 
 def tma_ready(*ts: torch.Tensor) -> bool:

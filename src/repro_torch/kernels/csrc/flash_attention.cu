@@ -21,9 +21,10 @@
 // flash_route) from dtype, layout and head dim before the launch, never
 // after a failure:
 //
-// "wgmma" (bf16 / fp16, D of 64, 128 or 256, 16-byte-aligned bases and
-// strides), after FlashAttention-3 but smaller.  One block per (128 query
-// rows, b * Hq + h), the last query blocks (the longest causal rows) first:
+// "wgmma" (bf16 / fp16, D of 64, 96, 112, 128 or 256, 16-byte-aligned
+// bases and strides), after FlashAttention-3 but smaller.  One block per
+// (128 query rows, b * Hq + h), the last query blocks (the longest causal
+// rows) first:
 // two consumer warpgroups of 64 rows each and one producer warpgroup,
 // which gives most of its registers to the consumers (setmaxnreg: 40 and
 // 232 a thread; one of its threads issues every load).  The producer loads
@@ -56,6 +57,16 @@
 // 2e-7 of tanh, so 1e-5 on a logit at softcap 50); tanh.approx.f32's 2^-11
 // would move such logits by up to 0.02 and p by about 2 %.  The softcap and
 // mask choices are made outside the per-element loops.
+//
+//   Head dims 96 (phi-3-vision) and 112 (zamba2) run the D = 128 template:
+// the tensor maps span the true head dim and the boxes stay two 64-column
+// atoms a row, so TMA zero fills columns d..127 of q, K and V in shared
+// memory (rows of 192 or 224 bytes are multiples of 16, as TMA needs).  q
+// K^T over 128 columns is then exactly q K^T over d, scale stays d^-1/2, and
+// the output's columns past d (P times V's zeros) are not stored.  The
+// price is 128/112 (128/96) of the MMA work of a native width, and it
+// reuses a template whose swizzle and descriptors are proven; a native N =
+// 112 / 96 P V would need a second atom 48 or 32 columns wide.
 //
 // "simt" (fp32, other head dims, or a layout TMA cannot take): the first
 // kernel, unchanged.  One block of 256 threads per (64 query rows, b * Hq +
@@ -332,7 +343,7 @@ __global__ void __launch_bounds__(TcCfg<D>::kThreads, 1)
     flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                                  const __grid_constant__ CUtensorMap kmap,
                                  const __grid_constant__ CUtensorMap vmap, T* __restrict__ o,
-                                 int Hq, int Hkv, int S, long long o_sb, long long o_sh,
+                                 int Hq, int Hkv, int S, int d, long long o_sb, long long o_sh,
                                  long long o_ss, int causal, int window, int has_softcap,
                                  float softcap, float scale) {
   using Cfg = TcCfg<D>;
@@ -516,6 +527,8 @@ __global__ void __launch_bounds__(TcCfg<D>::kThreads, 1)
   }
 
   // the row sums over the 4 lanes of a row, then out = acc / max(l, 1e-30)
+  // on the head dim's d <= D columns (past d the accumulator holds the 0s
+  // of V's zero-filled columns, which are not stored)
   T* ob = o + b * o_sb + h * o_sh;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -527,23 +540,26 @@ __global__ void __launch_bounds__(TcCfg<D>::kThreads, 1)
     if (row >= S) continue;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      store2(ob + row * o_ss + 8 * j + col0, acc[4 * j + 2 * r] * inv,
-             acc[4 * j + 2 * r + 1] * inv);
+      if (D == d || 8 * j < d)
+        store2(ob + row * o_ss + 8 * j + col0, acc[4 * j + 2 * r] * inv,
+               acc[4 * j + 2 * r + 1] * inv);
   }
 }
 
+// D: the template's head dim (64, 128 or 256); d <= D the tensors' own.
 template <typename T, bool F16, int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
-                 int S, long long q_sb, long long q_sh, long long q_ss, long long kv_sb,
+                 int S, int d, long long q_sb, long long q_sh, long long q_ss, long long kv_sb,
                  long long kv_sh, long long kv_ss, int causal, int window, int has_softcap,
                  float softcap, float scale, cudaStream_t stream) {
   using Cfg = TcCfg<D>;
-  // 4-D maps over (D, S, H, B) by byte strides; a head axis of extent 1 may
-  // come with stride 0, which TMA refuses, so it gets the next axis' extent
+  // 4-D maps over (d, S, H, B) by byte strides; a head axis of extent 1 may
+  // come with stride 0, which TMA refuses, so it gets the next axis' extent.
+  // The boxes span D columns: those past d arrive as zeros
   auto make = [&](CUtensorMap* map, const void* ptr, int H, long long sb, long long sh,
                   long long ss, uint32_t rows) {
     if (H == 1) sh = ss * S;
-    const uint64_t dims[4] = {(uint64_t)D, (uint64_t)S, (uint64_t)H, (uint64_t)B};
+    const uint64_t dims[4] = {(uint64_t)d, (uint64_t)S, (uint64_t)H, (uint64_t)B};
     const uint64_t strides[3] = {(uint64_t)ss * 2, (uint64_t)sh * 2, (uint64_t)sb * 2};
     const uint32_t box[4] = {64, rows, 1, 1};
     return hopper::make_tensor_map(map, F16, 4, ptr, dims, strides, box);
@@ -556,9 +572,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
   if (err == cudaSuccess) err = hopper::allow_smem(kern, Cfg::kSmem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + Cfg::kBM - 1) / Cfg::kBM, B * Hq);
-  kern<<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(qmap, kmap, vmap, (T*)o, Hq, Hkv, S, q_sb,
-                                                    q_sh, q_ss, causal, window, has_softcap,
-                                                    softcap, scale);
+  kern<<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(qmap, kmap, vmap, (T*)o, Hq, Hkv, S, d,
+                                                    q_sb, q_sh, q_ss, causal, window,
+                                                    has_softcap, softcap, scale);
   return (int)cudaGetLastError();
 }
 
@@ -567,11 +583,11 @@ int launch_wgmma_d(const void* q, const void* k, const void* v, void* o, int B, 
                    int S, int D, long long q_sb, long long q_sh, long long q_ss, long long kv_sb,
                    long long kv_sh, long long kv_ss, int causal, int window, int has_softcap,
                    float softcap, float scale, cudaStream_t stream) {
-#define RT_FA_WGMMA(DP)                                                                      \
-  return launch_wgmma<T, F16, DP>(q, k, v, o, B, Hq, Hkv, S, q_sb, q_sh, q_ss, kv_sb, kv_sh, \
+#define RT_FA_WGMMA(DP)                                                                       \
+  return launch_wgmma<T, F16, DP>(q, k, v, o, B, Hq, Hkv, S, D, q_sb, q_sh, q_ss, kv_sb, kv_sh, \
                                   kv_ss, causal, window, has_softcap, softcap, scale, stream)
   if (D == 64) RT_FA_WGMMA(64);
-  if (D == 128) RT_FA_WGMMA(128);
+  if (D == 96 || D == 112 || D == 128) RT_FA_WGMMA(128);  // 96, 112: zero-filled to 128
   if (D == 256) RT_FA_WGMMA(256);
 #undef RT_FA_WGMMA
   return (int)cudaErrorInvalidValue;
@@ -582,8 +598,8 @@ int launch_wgmma_d(const void* q, const void* k, const void* v, void* o, int B, 
 // q, o: (B, S, Hq, D) and k, v: (B, S, Hkv, D) by element strides (batch,
 // head, sequence; D contiguous), one dtype: 0 fp32, 1 bf16, 2 fp16.
 // window < 0 means none; D <= 256.  route 0 = "simt", 1 = "wgmma" (bf16 /
-// fp16, D of 64, 128 or 256, 16-byte-aligned bases and strides).  Returns
-// the cudaError_t of the launch.
+// fp16, D of 64, 96, 112, 128 or 256, 16-byte-aligned bases and strides).
+// Returns the cudaError_t of the launch.
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, void* o, int dtype,
                                   int B, int Hq, int Hkv, int S, int D, long long q_sb,
                                   long long q_sh, long long q_ss, long long kv_sb, long long kv_sh,

@@ -1,12 +1,13 @@
 // The Hopper (sm_90a) parts shared by the tensor-core kernels (gmm.cu,
 // flash_attention.cu and ssd_scan.cu; mahalanobis.cu and int8_matmul.cu use
 // its mbarriers and cp.async): TMA tensor maps made on the host,
-// mbarriers, TMA tile loads into 128-byte-swizzled shared memory, wgmma
-// shared-memory descriptors, cp.async and the async-proxy fence for tiles
-// that threads write, wgmma fence / commit / wait, named barriers, register
-// rebalancing between warpgroups (setmaxnreg), and the wgmma.mma_async
+// mbarriers, TMA tile loads into 128-byte-swizzled shared memory and TMA
+// tile stores out of it, wgmma shared-memory descriptors, cp.async and the
+// async-proxy fence for tiles that threads write, wgmma fence / commit /
+// wait, named barriers, register rebalancing between warpgroups
+// (setmaxnreg), and the wgmma.mma_async
 // instructions (m64nNk16, bf16 or fp16 in, fp32 accumulate) for N = 64, 128
-// and 256, with A from shared memory or from registers.
+// and 256, with A from shared memory (K- or M-major) or from registers.
 //
 // Shared-memory tiles.  Every operand tile is loaded by TMA (or written by
 // threads in the same layout, ssd_scan.cu) with
@@ -16,13 +17,13 @@
 // starts at r * 128 bytes and its 16-byte chunks are permuted by r % 8, so
 // every atom starts on a 1024-byte boundary.  wgmma reads such a tile through
 // a descriptor with the same 128-byte swizzle:
-//   * K-major (the contiguous axis is the reduction axis; A always, B of
-//     Q K^T): SBO = 1024 (from one 8-row group to the next), LBO unused;
+//   * K-major (the contiguous axis is the reduction axis; A but gmm's x^T,
+//     B of Q K^T and of gmm's g w^T): SBO = 1024 (from one 8-row group to the next), LBO unused;
 //     the k-th 16-value slice of an atom starts k * 32 bytes in.
-//   * MN-major (the contiguous axis is N; B of x @ w and of P V): LBO = the
-//     atom size (from one 64-column atom to the next along N), SBO = 1024
-//     (from 8 rows of K to the next 8); the k-th 16-row slice starts k * 2048
-//     bytes in.
+//   * MN-major (the contiguous axis is M or N; B of x @ w and of P V, A of
+//     gmm's x^T g): LBO = the atom size (from one 64-column atom to the next
+//     along M or N), SBO = 1024 (from 8 rows of K to the next 8); the k-th
+//     16-row slice starts k * 2048 bytes in.
 #pragma once
 
 #include <cuda.h>
@@ -60,6 +61,14 @@ inline cudaError_t make_tensor_map(CUtensorMap* map, bool f16, int rank, const v
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
     encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
   }
+  // the encoder needs a current context, which a thread that has made no
+  // runtime call yet lacks (autograd's device thread, when a backward's
+  // first launch is a kernel of this library): make the device's primary
+  // context current
+  int dev = 0;
+  cudaError_t ctx = cudaGetDevice(&dev);
+  if (ctx == cudaSuccess) ctx = cudaSetDevice(dev);
+  if (ctx != cudaSuccess) return ctx;
   const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
   const CUresult r = encode(
       map, f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
@@ -159,6 +168,42 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
       "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// device: TMA tile stores (shared -> global, completion by bulk group)
+// ---------------------------------------------------------------------------
+
+// Copy the box at shared `src` (1024-byte aligned, laid out as the map's
+// swizzle lays out a load) to the map's tensor at element coordinates (c0,
+// c1, c2), innermost first.  Elements outside the tensor are not written,
+// so the box masks a ragged edge.  Before it: every thread that wrote
+// `src` runs fence_proxy_async, then a barrier; after it, bulk_commit.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];" ::"l"(
+          (uint64_t)map),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Close this thread's bulk stores issued since the last commit into a group.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk groups still read shared
+// memory (their sources may then be overwritten).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+// Wait until at most N of this thread's bulk groups are still incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -280,9 +325,9 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11," \
       " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23," \
       " %24, %25, %26, %27, %28, %29, %30, %31}," \
-      " %32, %33, p, 1, 1, 0, %35;\n}\n"                                            \
+      " %32, %33, p, 1, 1, %35, %36;\n}\n"                                          \
       : HP_ACC32                                                                   \
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB))
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB))
 #define HP_WGMMA_RS_N64(TY)                                                        \
   asm volatile(                                                                    \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                 \
@@ -304,9 +349,9 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
       " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
       " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59," \
       " %60, %61, %62, %63}," \
-      " %64, %65, p, 1, 1, 0, %67;\n}\n"                                            \
+      " %64, %65, p, 1, 1, %67, %68;\n}\n"                                          \
       : HP_ACC64                                                                   \
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB))
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB))
 #define HP_WGMMA_RS_N128(TY)                                                        \
   asm volatile(                                                                    \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                                 \
@@ -336,9 +381,9 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
       " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107," \
       " %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119," \
       " %120, %121, %122, %123, %124, %125, %126, %127}," \
-      " %128, %129, p, 1, 1, 0, %131;\n}\n"                                            \
+      " %128, %129, p, 1, 1, %131, %132;\n}\n"                                      \
       : HP_ACC128                                                                   \
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB))
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB))
 #define HP_WGMMA_RS_N256(TY)                                                        \
   asm volatile(                                                                    \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"                                 \
@@ -358,10 +403,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
       : HP_ACC128                                                                   \
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB))
 
-// D (64 x N) += A (64 x 16 in shared memory, K-major, descriptor da) *
-// B (16 x N in shared memory, descriptor db; K-major if TB = 0, N-major if
-// TB = 1).  scale_d = 0 overwrites D instead.
-template <int N, bool F16, int TB>
+// D (64 x N) += A (64 x 16 in shared memory, descriptor da; K-major if
+// TA = 0, M-major if TA = 1) * B (16 x N in shared memory, descriptor db;
+// K-major if TB = 0, N-major if TB = 1).  scale_d = 0 overwrites D instead.
+// The transposed layouts (TA or TB = 1) exist for 16-bit operands only.
+template <int N, bool F16, int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
                                          int scale_d) {
   static_assert(N == 64 || N == 128 || N == 256, "wgmma N");

@@ -371,17 +371,19 @@ class _GMM(torch.autograd.Function):
     and dw = x^T g, (E, D, C) @ (E, C, F); each only where
     ``needs_input_grad`` asks for it, so a frozen weight (the CNAPs
     family's trunk) launches no dw.  Both are grouped matmuls, B7's own
-    contract, so both run on B7.  B7 reads its B operand row-major (K, N)
-    through TMA, so w^T and x^T are given to it as contiguous transposed
-    copies (a copy of w^T is one expert projection's weight: 2.52 GB at
-    deepseek-v2).  dw's K is the capacity C, a multiple of 8 (``moe.capacity``),
-    so x^T's rows are 16-byte aligned and TMA can read it; a K that is not a
-    multiple of B7's 64-deep slab is zero filled by the TMA box."""
+    contract, so both run on B7, which takes w^T and x^T as the transposed
+    views they are and reads the stored w and x in place: no transposed
+    copy is made (one of w^T would be one expert projection's weight, 2.52
+    GB at deepseek-v2).  dw's K is the capacity C, a multiple of 8
+    (``moe.capacity``), so x's stored rows are 16-byte aligned and TMA can
+    read x^T; a K that is not a multiple of B7's 64-deep slab is zero
+    filled by the TMA box."""
 
     @staticmethod
     def forward(ctx, x, w):
+        x, w = x.contiguous(), w.contiguous()
         ctx.save_for_backward(x, w)
-        return _gm.gmm(x.contiguous(), w.contiguous())
+        return _gm.gmm(x, w)
 
     @staticmethod
     def backward(ctx, g):
@@ -389,9 +391,9 @@ class _GMM(torch.autograd.Function):
         g = g.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = _gm.gmm(g, w.transpose(1, 2).contiguous())
+            dx = _gm.gmm(g, w.transpose(1, 2))
         if ctx.needs_input_grad[1]:
-            dw = _gm.gmm(x.transpose(1, 2).contiguous(), g)
+            dw = _gm.gmm(x.transpose(1, 2), g)
         return dx, dw
 
 

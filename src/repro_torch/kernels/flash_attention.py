@@ -14,10 +14,12 @@ tensor it runs the plain PyTorch version beside it.
 
 The kernel has two routes, and :func:`flash_route` picks one before the
 launch from dtype, head dim and layout alone: ``"wgmma"`` (tensor cores fed
-by TMA) for bf16 and fp16 at head dims 64, 128 and 256 that TMA can read,
-``"simt"`` (fp32 on the CUDA cores) otherwise.  This is a dispatch by dtype
-and layout, not a fallback: a launch that fails raises, and nothing retries
-it on the other route.
+by TMA) for bf16 and fp16 at head dims 64, 96, 112, 128 and 256 that TMA
+can read (96 and 112, phi-3-vision's and zamba2's, on the 128-wide kernel
+with the columns past the head dim zero filled), ``"simt"`` (fp32 on the
+CUDA cores) otherwise.  This is a dispatch by dtype and layout, not a
+fallback: a launch that fails raises, and nothing retries it on the other
+route.
 """
 from __future__ import annotations
 
@@ -32,7 +34,9 @@ from repro_torch.kernels.ref import attention_ref
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)  # codes 0, 1, 2
 MAX_HEAD_DIM = 256
-WGMMA_HEAD_DIMS = (64, 128, 256)   # the tensor-core kernel's template cases
+# the tensor-core kernel's head dims: 96 and 112 run the 128 template on
+# zero-filled columns
+WGMMA_HEAD_DIMS = (64, 96, 112, 128, 256)
 
 
 # the plain version on (BH, S, D): the dense-softmax oracle

@@ -28,6 +28,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro_torch.kernels import _build
+from repro_torch.kernels._checks import check_tensor, stored_transposed
 from repro_torch.kernels.flash_attention import flash_route
 from repro_torch.kernels.gmm import gmm_route
 from repro_torch.kernels.ssd_scan import ssd_route
@@ -74,6 +75,26 @@ GMM_CASES = {
     "w view, rows 28 apart": (lambda: (torch.zeros(2, 3, 16, dtype=BF), _wide((2, 16, 24), 4, BF)),
                               "simt"),
     "D 0": (lambda: (torch.zeros(2, 3, 0, dtype=BF), torch.zeros(2, 0, 24, dtype=BF)), "simt"),
+    # the backward's operands: views of the stored x (E, C, D) and w (E, D, F)
+    "x^T view (dw = x^T g)": (lambda: (torch.zeros(2, 8, 16, dtype=BF).transpose(1, 2),
+                                       torch.zeros(2, 8, 24, dtype=BF)), "wgmma"),
+    "w^T view (dx = g w^T)": (lambda: (torch.zeros(2, 3, 24, dtype=BF),
+                                       torch.zeros(2, 16, 24, dtype=BF).transpose(1, 2)),
+                              "wgmma"),
+    "x^T and w^T views, fp16": (lambda: (torch.zeros(2, 16, 8, dtype=F16).transpose(1, 2),
+                                         torch.zeros(2, 24, 16, dtype=F16).transpose(1, 2)),
+                                "wgmma"),
+    "x^T view, stored rows of 24 bytes (C 12)": (
+        lambda: (torch.zeros(2, 16, 12, dtype=BF).transpose(1, 2),
+                 torch.zeros(2, 12, 24, dtype=BF)), "simt"),
+    "w^T view, out rows of 24 bytes (N 12)": (
+        lambda: (torch.zeros(2, 3, 16, dtype=BF),
+                 torch.zeros(2, 12, 16, dtype=BF).transpose(1, 2)), "simt"),
+    "w^T view, base off 16 bytes": (
+        lambda: (torch.zeros(2, 3, 16, dtype=BF), _offset((2, 24, 16), BF).transpose(1, 2)),
+        "simt"),
+    "x^T view, fp32": (lambda: (torch.zeros(2, 8, 16).transpose(1, 2), torch.zeros(2, 8, 24)),
+                       "simt"),
 }
 
 
@@ -82,6 +103,32 @@ def test_gmm_route(case):
     make, want = GMM_CASES[case]
     x, w = make()
     assert gmm_route(x, w) == want
+
+
+def test_gmm_checks_take_the_transposed_layout_only():
+    """gmm's operands may be the transpose of a contiguous tensor in their
+    last two axes (``stored_transposed``), and ``check_tensor`` lets
+    that layout alone through, only where the wrapper asks."""
+    class _Cuda(torch.Tensor):
+        @property
+        def device(self):
+            return torch.device("cuda", 0)
+
+    dev = torch.device("cuda", 0)
+    viewed = torch.zeros(2, 8, 16).transpose(1, 2)
+    assert stored_transposed(viewed) and not stored_transposed(torch.zeros(2, 16, 8))
+    assert not stored_transposed(torch.zeros(2, 16, 8)[:, :, :4])
+    check_tensor("x", viewed.as_subclass(_Cuda), 3, (F32,), dev, transposed_ok=True)
+    for t, ok, msg in ((viewed, False, "x: must be contiguous"),
+                       (torch.zeros(2, 16, 12)[:, :, :8], True,
+                        "x: must be contiguous or the transpose of a contiguous tensor in its "
+                        "last two axes"),
+                       (torch.zeros(4, 8, 16).transpose(0, 2), True,
+                        "x: must be contiguous or the transpose of a contiguous tensor in its "
+                        "last two axes")):
+        with pytest.raises(ValueError) as err:
+            check_tensor("x", t.as_subclass(_Cuda), 3, (F32,), dev, transposed_ok=ok)
+        assert str(err.value) == msg
 
 
 def _gqa(d, dtype, s=8, hq=4, hkv=2):
@@ -95,6 +142,12 @@ FLASH_CASES = {
     "bf16 D256": (lambda: _gqa(256, BF), "wgmma"),
     "fp16 D128": (lambda: _gqa(128, F16), "wgmma"),
     "fp32 D128": (lambda: _gqa(128, F32), "simt"),
+    "bf16 D112 (zamba2)": (lambda: _gqa(112, BF, hq=4, hkv=4), "wgmma"),
+    "fp16 D112": (lambda: _gqa(112, F16), "wgmma"),
+    "bf16 D96 (phi-3-vision)": (lambda: _gqa(96, BF, hq=4, hkv=4), "wgmma"),
+    "fp16 D96": (lambda: _gqa(96, F16), "wgmma"),
+    "fp32 D112": (lambda: _gqa(112, F32), "simt"),
+    "(BH, S, D) bf16 D112": (lambda: (torch.zeros(2, 8, 112, dtype=BF),) * 3, "wgmma"),
     "bf16 D80: no template case": (lambda: _gqa(80, BF), "simt"),
     "bf16 D32: no template case": (lambda: _gqa(32, BF), "simt"),
     "k and v fp16 under bf16 q": (lambda: (_gqa(128, BF)[0], *_gqa(128, F16)[1:]), "simt"),
@@ -156,6 +209,8 @@ ATTN_CASES = [  # (S, D, causal, window, softcap)
     (256, 256, True, None, 50.0),
     (256, 256, True, 96, 50.0),
     (200, 128, False, 64, 30.0),
+    (200, 112, True, None, None),       # zamba2's head dim
+    (256, 96, False, 64, 30.0),         # phi-3-vision's
 ]
 
 

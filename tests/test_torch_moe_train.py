@@ -204,6 +204,35 @@ def test_gmm_function_matches_einsum_vjp(c, monkeypatch):
     assert _rel(dx, want[0]) <= TOL_VJP
 
 
+def test_gmm_backward_reads_views_and_matches_jax_grad(monkeypatch):
+    """``_GMM.backward`` hands the gmm wrapper w^T and x^T as transposed
+    views of the saved w and x (non-contiguous, on their storage: no copy),
+    and dx, dw on those views match ``jax.grad`` of the JAX package's
+    ``ref.gmm_ref`` at E 3, C 40, D 64, F 48 within TOL_VJP."""
+    from repro.kernels import ref as jref
+    rng = np.random.default_rng(5)
+    e, c, d, f = 3, 40, 64, 48
+    x = rng.standard_normal((e, c, d)).astype(np.float32)
+    w = (rng.standard_normal((e, d, f)) * d ** -0.5).astype(np.float32)
+    g = rng.standard_normal((e, c, f)).astype(np.float32)
+    want = jax.grad(lambda a, b: jnp.sum(jref.gmm_ref(a, b) * g), argnums=(0, 1))(
+        jnp.asarray(x), jnp.asarray(w))
+    seen, wrapper = [], tgm.gmm
+    monkeypatch.setattr(tgm, "gmm", lambda a, b: seen.append((a, b)) or wrapper(a, b))
+    xs, ws = (torch.from_numpy(t).requires_grad_(True) for t in (x, w))
+    got = torch.autograd.grad(dispatch.gmm(xs, ws, backend="cuda"), (xs, ws),
+                              torch.from_numpy(g))
+    (fx, fw), (g_dx, wt), (xt, g_dw) = seen
+    assert fx.is_contiguous() and fw.is_contiguous()
+    assert g_dx.is_contiguous() and g_dw.is_contiguous()
+    for view, stored, shape in ((wt, ws, (e, f, d)), (xt, xs, (e, d, c))):
+        assert tuple(view.shape) == shape and not view.is_contiguous()
+        assert view.transpose(1, 2).is_contiguous()
+        assert view.data_ptr() == stored.data_ptr()       # the saved tensor itself
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and _rel(a, b) <= TOL_VJP
+
+
 # ---------------------------------------------------------------------------
 # the MoE layer's pack and combine
 # ---------------------------------------------------------------------------
