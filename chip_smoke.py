@@ -147,10 +147,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
    times the bf16 ``ref`` run's own error against the fp32 run, every leaf
    the reference trains gets a gradient, B5 launched on "wgmma" in the
    forward (the H pass, the complement chunks, the queries) and in the
-   backward (the checkpoints' recompute) and nothing else in the
-   backward, and B1-B3 (B3 on its "stream" route) in the differentiated
-   step; two faults planted in B5's backward (dv of the last kv head
-   zeroed, dq's sign flipped past S/2) that the same gate must flag;
+   backward (the checkpoints' recompute), its backward kernel (K5b) on
+   "mma" once a layer but the first of each differentiated pass (dq and
+   dk / dv each time; the first layer's q, k, v need no gradient) and
+   nothing else in the backward, and B1-B3 (B3 on its "stream" route) in
+   the differentiated step; two faults planted on the outputs of B5's
+   backward kernel (dv of the last kv head zeroed, dq's sign flipped past
+   S/2) that the same gate must flag;
    three steps through the example's step (loss, ms a step, tasks/s
    without the first, launches counted on exactly that run) and one
    profiled step; the peak memory of a LITE step against an exact step,
@@ -171,11 +174,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
    first 512 tokens repeated, so that what the window hides is coherent),
    failing unless the kernel path's loss and worst leaf are within
    ``LM_GATE`` times the bf16 ``ref`` run's own error, every leaf gets a
-   gradient, B5 launched 13 times in the forward and 13 in the
-   checkpoints' recompute, all on "wgmma", with the window on the 7
-   local layers and none on the global ones, and nothing else launched;
-   three faults planted in B5's backward (phase 5c's two and the window
-   dropped) that the gate must flag; two steps of ``make_train_step``
+   gradient, B5 launched once a layer in the forward and once in the
+   checkpoints' recompute, all on "wgmma", with the window on the local
+   layers and none on the global ones, its backward kernel on "mma" once
+   a layer, and nothing else launched; a second identical step on the
+   kernels that must give the same bits; three faults planted on the
+   outputs of B5's backward kernel (phase 5c's two, and the kernel called
+   with the window dropped) that the gate must flag; two steps of
+   ``make_train_step``
    through ``train()`` (losses, ms a step, tokens/s without the first,
    peak memory beside ``roofline.state_bytes`` of fp32 params, gradients and AdamW
    state; launches counted on exactly that run) and one profiled step
@@ -225,15 +231,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
    on ``ref`` in bf16 and on ``ref`` in fp32 compute, failing unless the
    kernel path's loss and worst leaf are within ``LM_GATE`` times the
    bf16 ``ref`` run's own error, B6 launched on "wgmma" once a layer in
-   the forward and once in the checkpoints' recompute and nothing else,
-   and a second identical step gave the same bits; a fault planted in
-   B6's autograd Function (dt's cotangent zeroed for head 0) that the
-   gate must flag; two steps of ``make_train_step`` through ``train()``
+   the forward and once in the checkpoints' recompute, its backward
+   kernel (K6b) on "mma" once a layer, and nothing else, and a second
+   identical step gave the same bits; a fault planted on the output of
+   B6's backward kernel (dt's gradient zeroed for head 0) that the gate
+   must flag; two steps of ``make_train_step`` through ``train()``
    (losses, ms a step, tokens/s, peak memory; launches counted on exactly
    that run) and one profiled step beside the step's bound; zamba2-7b at
    full width on 12 of its 81 layers (two shared sites, B 2, S 2048) the
    same way, B5 once a site in the forward on "wgmma" (its head dim 112
-   runs the 128-wide tensor-core kernel), without the fault; Simple CNAPs and ProtoNets (``tokens``
+   runs the 128-wide tensor-core kernel) and its backward kernel once a
+   site on "mma", without the fault; Simple CNAPs and ProtoNets (``tokens``
    encoder) over mamba2-780m at full width (Simple CNAPs at full depth,
    ProtoNets, which trains every weight, at 12 of 48 layers), phase 5c's tasks
    and gate, B6 once a layer a pass (inside its Function where the trunk
@@ -307,7 +315,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
    halved or one key block short) and in ssd_chunk at the mamba2-780m shape
    (A one head off, the last 32 dt of each chunk zeroed, y rows past Q/2
    zeroed, every other chunk's states zeroed) and fail unless the same
-   check flags each;
+   check flags each; then hold the two backward kernels against their
+   closed forms at every path shape that trains through them (B5's at
+   gemma2-2b's local and global layers, minitron-4b's H pass and queries,
+   whisper-base's encoder and decoder, zamba2-7b's shared block; B6's at
+   mamba2-780m's and zamba2-7b's steps, against an fp64 evaluation of
+   the closed form, and a chunk of Q 100) and at ragged shapes on both
+   routes, time each beside its bound, its closed form and, where there
+   is no softcap, SDPA's backward (``torch.autograd.grad`` through it,
+   its forward timed apart and subtracted), and fail unless every path
+   shape took "mma";
 6b. LM decode serving (``repro_torch.serve.engine.ServeEngine``) of
    minitron-4b at full width and 8 of its 32 layers (cut to keep the
    whole run within its time), random weights drawn on the card
@@ -396,9 +413,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    kernels, on ``ref`` in bf16 and in fp32 compute, phase 5f's gate (every
    leaf against its own bf16 error), failing unless B5 launched 12 times
    in the forward and 12 in the checkpoints' recompute (6 bidirectional
-   each), all on "wgmma", and nothing else; a fault planted in B5's
-   backward (the encoder's recompute masked causally) that the gate must
-   flag; two steps through ``train()`` (losses, ms a step, tokens/s,
+   each), all on "wgmma", its backward kernel 12 times on "mma", and
+   nothing else; a fault planted on B5's backward kernel (called with the
+   causal mask on the encoder's attention) that the gate must flag; two steps through ``train()`` (losses, ms a step, tokens/s,
    peak memory; launches counted on exactly that run) and one profiled
    step beside the step's FLOP bound.  B5 at the path's shapes
    (bidirectional at (1, 1500) and (8, 1500), causal at the prompt lengths
@@ -481,7 +498,13 @@ forward and backward, ``lm_ep_cases`` its numbers at a rank's E/m experts
 and at all E (phase 5h), ``lm_mesh_launches`` its launches in phase 5h's
 full-width sharded step on rank 0, and ``lm_pretrain_launches`` flash
 attention's in the two steps of phase 5d (``lm_pretrain_cases`` its
-numbers at phase 5d's shapes).  ``chiprun_out/chip_smoke.json`` holds every reading, the training
+numbers at phase 5d's shapes).  The two backward kernels have rows of
+their own, ``flash_attention_bwd`` (B5's) and ``ssd_chunk_bwd`` (B6's):
+``replaces`` names the TPU kernel whose gradient they compute (it has
+none of its own), ``launches`` counts those of the LM training steps of
+phase 5d (gemma2-2b) and 5f (mamba2-780m), ``train_launches`` those of
+phase 5c's and 5f's steps, and ``main_cases`` the numbers at the path
+shapes of phase 6's last check.  ``chiprun_out/chip_smoke.json`` holds every reading, the training
 phases' under ``paths``, and every path's launches under ``launches``:
 ``serve_warm`` (phase 4b's warm-tier run), ``serve_replica`` (phase 4c (a)'s
 router run; every rank's counts are under ``paths``; in the ``kernels``
@@ -707,16 +730,20 @@ def call_device_ms(fn, n: int = 50):
     return _per_call_ms(fn, n, lambda name: True)
 
 
-def row_err(got, want) -> float:
+def row_err(got, want, floor: float = 0.0) -> float:
     """The largest error of a row: max|got - want| over each row (the last
     axis; a 1-D tensor is one row) over that row's max|want|.  A row whose
     values are small beside the rest of the tensor (late rows of causal
-    attention, which average thousands of keys) is held to its own scale."""
+    attention, which average thousands of keys) is held to its own scale;
+    with ``floor``, to no less than ``floor`` times the tensor's max|want|
+    (a gradient row whose true value is 0, as dq of the first query of
+    causal attention, which sees one key, is left by the fp32 sums with
+    rounding noise alone)."""
     g, w = got.float(), want.float()
     if w.dim() > 1:
         g, w = g.reshape(-1, w.shape[-1]), w.reshape(-1, w.shape[-1])
     err = (g - w).abs().amax(dim=-1)
-    scale = w.abs().amax(dim=-1).clamp_min(1e-30)
+    scale = w.abs().amax(dim=-1).clamp_min(max(1e-30, floor * float(w.abs().max())))
     return float((err / scale).max())
 
 
@@ -766,7 +793,7 @@ def check_kernels(specs, counted=None):
             want = _as_tuple(c.get("oracle", c["plain"])(*args, **kw))
             err_abs = max(float((a.float() - b.float()).abs().max())
                           for a, b in zip(got, want))
-            err_row = max(row_err(a, b) for a, b in zip(got, want))
+            err_row = max(row_err(a, b, c.get("row_floor", 0.0)) for a, b in zip(got, want))
             err_glob = max(global_err(a, b) for a, b in zip(got, want))
             ok = (all(a.shape == b.shape and a.dtype == b.dtype for a, b in zip(got, want))
                   and all(bool(torch.isfinite(a).all()) for a in got) and err_row <= tol)
@@ -789,10 +816,16 @@ def check_kernels(specs, counted=None):
                 lib = (lambda: c["lib"](*args)) if c["lib"] else None
                 k_ms, lib_ms = time_pair_ms(kern, lib, it, reps) if lib else \
                     (time_ms(kern, it, reps), None)
+                lib_dev = call_device_ms(lib, n=it) if lib else None
+                if lib and c.get("lib_minus"):    # a backward: its forward timed apart
+                    fwd_ms = time_ms(c["lib_minus"], it, reps)
+                    fwd_dev = call_device_ms(c["lib_minus"], n=it)
+                    lib_ms -= fwd_ms
+                    lib_dev = lib_dev - fwd_dev if lib_dev and fwd_dev else None
                 t = dict(shape=c["label"], route=c.get("route"), ms=k_ms,
                          plain_ms=time_ms(lambda: c["plain"](*args, **kw), it, reps),
                          library_ms=lib_ms, library=c.get("lib_note"),
-                         library_device_ms=call_device_ms(lib, n=it) if lib else None,
+                         library_device_ms=lib_dev,
                          bound_ms=b_ms, bound_by=b_by, bytes=c["bytes"], flops=c["flops"])
                 t["device_ms"], t["device_timer"] = kernel_device_ms(
                     kern, c.get("symbol", spec["symbol"]), n=it, floor=b_ms)
@@ -3102,6 +3135,7 @@ LM_PROTO_CONCENTRATION = 1.0
 # realistic sequence length over the full vocab
 LM_TASK = dict(way=5, shot=8, query_per_class=2, seq_len=256)
 LM_TRAIN_CATEGORIES = (   # device kernel name -> what it is, first match wins
+    ("B5 backward", ("flash_bwd",)),
     ("B5 flash_attention", ("flash_attention",)),
     ("B1 segment_sum", ("segment_sum_kernel",)),
     ("B2 class_second_moment", ("second_moment_kernel",)),
@@ -3225,38 +3259,71 @@ def lm_train_gate(label: str, runs, prefixes, fault: bool = False, ref16_errs=No
                 leaf_errors=e_got, ref16_leaf_errors=e_ref)
 
 
+@contextlib.contextmanager
+def planted_kernel(module, name: str, make):
+    """``module.name`` (a kernel wrapper) replaced for the block by
+    ``make(original)``: the Functions look their kernels up on the module at
+    each call, so a fault planted there spoils what the backward runs."""
+    orig = getattr(module, name)
+    setattr(module, name, make(orig))
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
 def b5_backward_faults():
-    """(label, backward) of the two faults planted in B5's backward, each
-    the Function's own backward with its result spoilt: dv of the last kv
-    head zeroed, and dq's sign flipped for the rows past S/2."""
-    from repro_torch.kernels import dispatch
-    backward = dispatch._FlashAttention.backward
+    """(label, make) of the two faults planted on the outputs of B5's
+    backward kernel (``flash_attention_gqa_bwd``), each for
+    :func:`planted_kernel`: dv of the last kv head zeroed, and dq's sign
+    flipped for the rows past S/2."""
+    def dv_last_kv_head_zeroed(kernel):
+        def run(*a, **kw):
+            dq, dk, dv = kernel(*a, **kw)
+            if dv is not None:
+                dv[:, :, -1] = 0
+            return dq, dk, dv
+        return run
 
-    def dv_last_kv_head_zeroed(ctx, g):
-        dq, dk, dv, *rest = backward(ctx, g)
-        if dv is not None:
-            dv = dv.clone()
-            dv[:, :, -1] = 0
-        return (dq, dk, dv, *rest)
+    def dq_sign_flipped_late(kernel):
+        def run(*a, **kw):
+            dq, dk, dv = kernel(*a, **kw)
+            if dq is not None:
+                dq[:, dq.shape[1] // 2:] *= -1
+            return dq, dk, dv
+        return run
 
-    def dq_sign_flipped_late(ctx, g):
-        dq, *rest = backward(ctx, g)
-        if dq is not None:
-            dq = dq.clone()
-            dq[:, dq.shape[1] // 2:] *= -1
-        return (dq, *rest)
+    return (("B5 backward kernel: dv of the last kv head zeroed", dv_last_kv_head_zeroed),
+            ("B5 backward kernel: dq's sign flipped past S/2", dq_sign_flipped_late))
 
-    return (("B5 backward: dv of the last kv head zeroed", dv_last_kv_head_zeroed),
-            ("B5 backward: dq's sign flipped past S/2", dq_sign_flipped_late))
+
+def b5_roles(launches):
+    """B5's launches of a differentiated pass by role: the forward kernel in
+    the forward and in the checkpoints' recompute, the backward kernel
+    (K5b) and its products dq and dk / dv, and how many of each kernel's
+    launches took the tensor cores."""
+    fwd, bwd = launches["forward"], launches["backward"]
+    return dict(forward=fwd.get("flash_attention", 0), recompute=bwd.get("flash_attention", 0),
+                backward=bwd.get("flash_attention_bwd", 0),
+                dq=bwd.get("flash_attention_bwd/dq", 0), dkv=bwd.get("flash_attention_bwd/dkv", 0),
+                wgmma=fwd.get("flash_attention/wgmma", 0) + bwd.get("flash_attention/wgmma", 0),
+                mma=bwd.get("flash_attention_bwd/mma", 0))
+
+
+def b5_bwd_want(n: int) -> dict:
+    """The counts of ``n`` calls of B5's backward kernel on the tensor
+    cores, each computing dq and dk / dv."""
+    return {"flash_attention_bwd": n, "flash_attention_bwd/mma": n,
+            "flash_attention_bwd/dq": n, "flash_attention_bwd/dkv": n} if n else {}
 
 
 def lm_parity(kind, cfg, params, batch, scores, prefixes, plant: bool = False):
     """One LITE step of ``kind`` on the kernels (counted) against ``ref`` in
     bf16 and in fp32 compute from the same params, tasks and H scores,
-    through the gate; with ``plant``, the two faults planted in B5's
-    backward, which the same gate must flag."""
+    through the gate; with ``plant``, the two faults planted on the outputs
+    of B5's backward kernel, which the same gate must flag."""
     import dataclasses
-    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import flash_attention as _fa
     learner = lm_learner(kind, cfg)
     lm_grads(learner, params, batch, scores, "cuda")            # allocator, cuBLAS
     runs = dict(got=lm_grads(learner, params, batch, scores, "cuda"),
@@ -3273,8 +3340,8 @@ def lm_parity(kind, cfg, params, batch, scores, prefixes, plant: bool = False):
                gate=lm_train_gate(f"{cfg.name} {kind} LITE step", runs, prefixes))
     if plant:
         out["planted_faults"] = []
-        for label, fn in b5_backward_faults():
-            with planted_backward(dispatch._FlashAttention, fn):
+        for label, make in b5_backward_faults():
+            with planted_kernel(_fa, "flash_attention_gqa_bwd", make):
                 got = lm_grads(learner, params, batch, scores, "cuda")
             r = lm_train_gate(f"planted fault: {label}", {**runs, "got": got}, prefixes,
                               fault=True)
@@ -3433,18 +3500,27 @@ def run_lm_train(dev, launches):
     n_comp = LM_TASK["way"] * LM_TASK["shot"] - LM_TRAIN_LITE["h"]
     chunks = -(-n_comp // LM_TRAIN_LITE["chunk_size"])
     want_fwd, want_bwd = (chunks + 2) * n_layers, 2 * n_layers   # H, chunks, queries
-    if fwd.get("flash_attention") != want_fwd or bwd.get("flash_attention") != want_bwd \
-            or fwd.get("flash_attention/wgmma") != want_fwd \
-            or bwd.get("flash_attention/wgmma") != want_bwd:
-        fail(f"train lm: B5 launches forward {fwd}, backward {bwd}; want {want_fwd} in the "
-             f"forward (the H pass, {chunks} complement chunks, the queries) and {want_bwd} "
-             f"in the backward (the checkpoints' recompute of the H pass and the queries), "
-             f"all on wgmma")
+    # the backward kernel: FiLM modulates a block's output, so the first
+    # layer's q, k and v come from the frozen embedding alone and nothing
+    # asks for their gradient; every later layer's, in the H pass and the
+    # queries
+    want_k5b = 2 * (n_layers - 1)
+    roles = b5_roles(r["launches"])
+    want = dict(forward=want_fwd, recompute=want_bwd, backward=want_k5b, dq=want_k5b,
+                dkv=want_k5b, wgmma=want_fwd + want_bwd, mma=want_k5b)
+    print(f"  train lm: B5 launches by role {roles}", flush=True)
+    if roles != want:
+        fail(f"train lm: B5 launches forward {fwd}, backward {bwd}, by role {roles}; want "
+             f"{want}: {want_fwd} in the forward (the H pass, {chunks} complement chunks, "
+             f"the queries), {want_bwd} in the backward (the checkpoints' recompute of the H "
+             f"pass and the queries) all on wgmma, and {want_k5b} of the backward kernel "
+             f"(dq and dk / dv each; none for the first layer) on mma")
     _need("train lm forward", fwd, ("segment_sum", "class_second_moment", "mahalanobis"))
     if fwd.get("mahalanobis/stream") != fwd.get("mahalanobis"):
         fail(f"train lm: the Mahalanobis head did not take the stream route: {fwd}")
     if any(not k.startswith("flash_attention") for k in bwd):
-        fail(f"train lm: the backward launched more than B5's recompute: {bwd}")
+        fail(f"train lm: the backward launched more than B5's recompute and backward kernel: "
+             f"{bwd}")
     out["parity_simple_cnaps"] = r
     torch.cuda.empty_cache()
     mark("5c: Simple CNAPs parity and planted faults done")
@@ -3585,33 +3661,33 @@ def pretrain_gate(label: str, got, ref32, ref16_errs, fault: bool = False,
 
 
 def b5_window_dropped():
-    """(label, backward): B5's backward with the window dropped, the local
-    layers differentiated as global ones."""
-    from repro_torch.kernels import dispatch
-    backward = dispatch._FlashAttention.backward
+    """(label, make): B5's backward kernel called with the window dropped,
+    the local layers differentiated as global ones (for
+    :func:`planted_kernel`)."""
+    def window_dropped(kernel):
+        return lambda *a, **kw: kernel(*a, **{**kw, "window": None})
 
-    def window_dropped(ctx, g):
-        window, ctx.window = ctx.window, None
-        try:
-            return backward(ctx, g)
-        finally:
-            ctx.window = window
-
-    return "B5 backward: the window dropped (local layers as global)", window_dropped
+    return "B5 backward kernel: the window dropped (local layers as global)", window_dropped
 
 
-def check_pretrain_launches(label, cfg, r, want_fwd: int, want_bwd: int, seq: int):
+def check_pretrain_launches(label, cfg, r, want_fwd: int, want_bwd: int, seq: int,
+                            want_k5b: int = None):
     """Fail unless B5 launched ``want_fwd`` times in the forward and
-    ``want_bwd`` in the backward, all on "wgmma", nothing else launched,
-    and the forward's windows were the config's layer by layer (the local
-    window on the even layers, none on the odd; a window of at least
-    ``seq`` keys is none), the checkpoints' recompute the same in reverse."""
+    ``want_bwd`` in the backward (the recompute), all on "wgmma", its
+    backward kernel ``want_k5b`` times (default ``want_fwd``: every layer's
+    attention is differentiated) on "mma", dq and dk / dv each time,
+    nothing else launched, and the forward's windows were the config's layer
+    by layer (the local window on the even layers, none on the odd; a window
+    of at least ``seq`` keys is none), the checkpoints' recompute the same
+    in reverse."""
     from repro_torch.models.transformer import layer_windows
     want = {part: {k: n for k in ("flash_attention", "flash_attention/wgmma")} if n else {}
             for part, n in (("forward", want_fwd), ("backward", want_bwd))}
+    want["backward"] |= b5_bwd_want(want_fwd if want_k5b is None else want_k5b)
     got = {part: r[part] for part in ("forward", "backward")}
     if got != want:
-        fail(f"{label}: launches {got}; want {want} (B5 on wgmma and nothing else)")
+        fail(f"{label}: launches {got}; want {want} (B5 on wgmma, its backward kernel on "
+             f"mma, and nothing else)")
     layer = [w if w < seq else None for w in layer_windows(cfg)]
     for part, calls, order in zip(("forward", "backward"), r["windows"], (1, -1)):
         if calls and calls != layer[::order]:
@@ -3622,15 +3698,16 @@ def pretrain_parity(cfg, dev, hidden: int):
     """One step's loss and gradient on the kernels, on ``ref`` in bf16 and on
     ``ref`` in fp32 compute, from the same params (drawn on the card from
     seed 0) and the pipeline's batch 0 (its first ``hidden`` tokens
-    repeated), through the gate; then the three faults planted in B5's
-    backward, which the gate must flag."""
+    repeated), through the gate; the same step again on the kernels, which
+    must give the same bits; then the three faults planted on B5's backward
+    kernel, which the gate must flag."""
     import dataclasses
     import torch
-    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import flash_attention as _fa
     from repro_torch.models.registry import get_api
     params = get_api(cfg).init(torch.Generator(device=dev).manual_seed(0), cfg)
     batch = pretrain_batch(cfg, 0, dev, hidden=hidden)
-    pretrain_grads(cfg, params, batch, "cuda")              # allocator, cuBLAS
+    first = pretrain_grads(cfg, params, batch, "cuda")      # allocator, cuBLAS; the bits
     ref32 = pretrain_grads(dataclasses.replace(cfg, compute_dtype="float32"), params, batch,
                            "ref")
     ref16 = pretrain_grads(cfg, params, batch, "ref")
@@ -3639,19 +3716,24 @@ def pretrain_parity(cfg, dev, hidden: int):
     del ref16
     mark("5d: ref runs done")
     got = pretrain_grads(cfg, params, batch, "cuda")
+    same = got[0] == first[0] and all(equal_bits(got[2][k], first[2][k]) for k in got[2])
+    del first
     n = cfg.n_layers
     check_pretrain_launches(f"{cfg.name} step", cfg, got[3], n, n, PRETRAIN_SEQ)
     print(f"pretrain {cfg.name}: {n} layers, B {PRETRAIN_BATCH} S {PRETRAIN_SEQ} (first "
           f"{hidden} tokens repeated), loss cuda {got[0]:.6g} ref {ref16_loss:.6g} fp32 "
           f"{ref32[0]:.6g}; launches forward {got[3]['forward']}, backward "
-          f"{got[3]['backward']}; windows a pass {got[3]['windows'][0][:2]}...", flush=True)
+          f"{got[3]['backward']}; windows a pass {got[3]['windows'][0][:2]}...; a second "
+          f"identical step bit-equal: {same}", flush=True)
+    if not same:
+        fail(f"{cfg.name}: two identical steps on the kernels gave different bits")
     out = dict(hidden=hidden, loss=got[0], ref16_loss=ref16_loss, ref32_loss=ref32[0],
-               launches={k: got[3][k] for k in ("forward", "backward")},
+               bit_equal=same, launches={k: got[3][k] for k in ("forward", "backward")},
                gate=pretrain_gate(f"{cfg.name} LM step", got, ref32, ref16_errs))
     del got
     out["planted_faults"] = []
-    for label, fn in (*b5_backward_faults(), b5_window_dropped()):
-        with planted_backward(dispatch._FlashAttention, fn):
+    for label, make in (*b5_backward_faults(), b5_window_dropped()):
+        with planted_kernel(_fa, "flash_attention_gqa_bwd", make):
             bad = pretrain_grads(cfg, params, batch, "cuda")
         r = pretrain_gate(f"planted fault: {label}", bad, ref32, ref16_errs, fault=True)
         out["planted_faults"].append(dict(fault=label, **r))
@@ -3668,7 +3750,8 @@ def pretrain_loop(cfg, dev, seq: int = PRETRAIN_SEQ, want=None, categories=None,
     tokens (or ``batch_at(step)``'s, of ``batch_size`` sequences), no
     checkpoint, the launch counts set to 0 just before and read just
     after, which must be ``want`` (default: B5 on "wgmma" in the forward
-    and the checkpoints' recompute of every layer, and nothing else); then
+    and the checkpoints' recompute of every layer, its backward kernel on
+    "mma" once a layer, and nothing else); then
     one step timed and one profiled (device time by ``categories``,
     default LM_CATEGORIES)."""
     import torch
@@ -3704,10 +3787,11 @@ def pretrain_loop(cfg, dev, seq: int = PRETRAIN_SEQ, want=None, categories=None,
         fail(f"{label} loop: losses {losses}, metrics {result.metrics_history}")
     n = PRETRAIN_STEPS * 2 * cfg.n_layers
     if want is None:
-        want = {"flash_attention": n, "flash_attention/wgmma": n}
+        want = {"flash_attention": n, "flash_attention/wgmma": n} | b5_bwd_want(n // 2)
     if counts != want:
         fail(f"{label} loop: launches {counts}; want {want} ({PRETRAIN_STEPS} steps: the "
-             f"forward and the checkpoints' recompute) and nothing else")
+             f"forward, the checkpoints' recompute and the backward kernels) and nothing "
+             f"else")
     batch = batch_at(PRETRAIN_STEPS)
     wall = _counted(lambda: step(state, batch))[2]
     busy, cats, table = device_breakdown(
@@ -3771,7 +3855,7 @@ def pretrain_dots(cfg, dev):
     none = pretrain_grads(c, params, batch, "cuda")
     dots = pretrain_grads(dataclasses.replace(c, remat_policy="dots"), params, batch, "cuda")
     n = c.n_layers
-    check_pretrain_launches("remat none", c, none[3], n, 0, PRETRAIN_SEQ)
+    check_pretrain_launches("remat none", c, none[3], n, 0, PRETRAIN_SEQ, want_k5b=n)
     check_pretrain_launches("remat dots", c, dots[3], n, n, PRETRAIN_SEQ)
     l_ref, e_ref = ref16_errs
     l_got, e_got = lm_grad_errs(dots, none, PRETRAIN_GATE_PREFIXES)
@@ -4424,34 +4508,44 @@ SSM_TRAIN_SEQ = 4096
 ZAMBA_TRAIN_LAYERS = 12
 SSM_TRAIN_LAYERS = 24            # mamba2-780m in phase 5f (all 48 before phase 5h)
 ZAMBA_TRAIN_SEQ = 2048
+def ssm_bwd_want(cfg, passes: int = 1):
+    """The backward kernels' launches of ``passes`` differentiated passes:
+    B6's (K6b) on "mma" once a mamba layer, B5's (K5b) on "mma" once a
+    shared site, dq and dk / dv each time."""
+    nm, sites, _ = ssm_shape(cfg)
+    return {"ssd_chunk_bwd": passes * nm, "ssd_chunk_bwd/mma": passes * nm} \
+        | b5_bwd_want(passes * sites)
+
+
 def ssm_steps_want(cfg, dev, steps: int):
-    """The launches of ``steps`` training steps: each step's forward and
-    its checkpoints' recompute (:func:`ssm_want`)."""
+    """The launches of ``steps`` training steps: each step's forward, its
+    checkpoints' recompute (:func:`ssm_want`) and its backward kernels
+    (:func:`ssm_bwd_want`)."""
     fwd, rec = ssm_want(cfg, dev, steps), ssm_want(cfg, dev, steps, recompute=True)
-    return {k: fwd.get(k, 0) + rec.get(k, 0) for k in fwd}
+    return {k: fwd.get(k, 0) + rec.get(k, 0) for k in fwd} | ssm_bwd_want(cfg, steps)
 
 
 def b6_dt_head_zeroed(nh: int):
-    """(label, backward): B6's backward with dt's cotangent zeroed for head 0
-    of every chunk (G is (b, nc, h) flattened, h = ``nh``)."""
-    from repro_torch.kernels import dispatch
-    backward = dispatch._SSDChunk.backward
+    """(label, make): B6's backward kernel (``ssd_chunk_bwd``) with dt's
+    gradient zeroed for head 0 of every chunk (G is (b, nc, h) flattened,
+    h = ``nh``), for :func:`planted_kernel`."""
+    def dt_head_zeroed(kernel):
+        def run(*a, **kw):
+            gx, gdt, *rest = kernel(*a, **kw)
+            gdt.view(-1, nh, gdt.shape[-1])[:, 0] = 0
+            return (gx, gdt, *rest)
+        return run
 
-    def dt_head_zeroed(ctx, *gs):
-        dx, ddt, *rest = backward(ctx, *gs)
-        if ddt is not None:
-            ddt = ddt.clone()
-            ddt.view(-1, nh, ddt.shape[-1])[:, 0] = 0
-        return (dx, ddt, *rest)
-
-    return "B6 backward: dt's cotangent zeroed for head 0", dt_head_zeroed
+    return "B6 backward kernel: dt's gradient zeroed for head 0", dt_head_zeroed
 
 
 def ssm_check_step(label, cfg, r, dev):
     """Fail unless one step's forward launched B6 on "wgmma" once a mamba
     layer and B5 once a shared site, the backward B6 once a mamba layer
-    (the checkpoints' recompute), and nothing else."""
-    want = dict(forward=ssm_want(cfg, dev), backward=ssm_want(cfg, dev, recompute=True))
+    (the checkpoints' recompute) and the backward kernels (K6b once a mamba
+    layer, K5b once a shared site), and nothing else."""
+    want = dict(forward=ssm_want(cfg, dev),
+                backward=ssm_want(cfg, dev, recompute=True) | ssm_bwd_want(cfg))
     got = {part: r[part] for part in ("forward", "backward")}
     if got != want:
         fail(f"{label}: launches {got}; want {want}")
@@ -4465,10 +4559,10 @@ def ssm_train_parity(cfg, dev, seq: int, plant: bool):
     of its max from the fp32 run's, which sets the worst-leaf gate wider
     than a fault in one head's dt moves ``dt_bias``); the same step again
     on the kernels, which must give the same bits; with ``plant``, the
-    fault planted in B6's backward, which the gate must flag."""
+    fault planted on B6's backward kernel, which the gate must flag."""
     import dataclasses
     import torch
-    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import ssd_scan as _ssd
     from repro_torch.models.registry import get_api
     params = get_api(cfg).init(torch.Generator(device=dev).manual_seed(0), cfg)
     batch = pretrain_batch(cfg, 0, dev, seq)
@@ -4496,8 +4590,8 @@ def ssm_train_parity(cfg, dev, seq: int, plant: bool):
                                   per_leaf=True))
     del got
     if plant:
-        label, fn = b6_dt_head_zeroed(cfg.ssm.n_heads(cfg.d_model))
-        with planted_backward(dispatch._SSDChunk, fn):
+        label, make = b6_dt_head_zeroed(cfg.ssm.n_heads(cfg.d_model))
+        with planted_kernel(_ssd, "ssd_chunk_bwd", make):
             bad = pretrain_grads(cfg, params, batch, "cuda")
         out["planted_fault"] = dict(fault=label, **pretrain_gate(
             f"planted fault: {label}", bad, ref32, ref16_errs, fault=True, per_leaf=True))
@@ -4547,11 +4641,13 @@ def ssm_episodic(dev, launches):
         want = (passes * n, n_bwd)
         got = tuple((part.get("ssd_chunk", 0), part.get("ssd_chunk/wgmma", 0)) for part in
                     (fwd, bwd))
-        if got != tuple((w, w) for w in want) or any(
+        k6b = (bwd.get("ssd_chunk_bwd", 0), bwd.get("ssd_chunk_bwd/mma", 0))
+        if got != tuple((w, w) for w in want) or k6b != (n_bwd, n_bwd) or any(
                 not k.startswith("ssd_chunk") for k in bwd):
             fail(f"train ssm {kind}: launches forward {fwd}, backward {bwd}; want B6 on "
                  f"wgmma {want[0]} times in the forward ({passes} passes of {n} layers) and "
-                 f"{want[1]} in the backward, and nothing else there")
+                 f"{want[1]} in the backward, its backward kernel on mma {n_bwd} times, and "
+                 f"nothing else there")
         _need(f"train ssm {kind} forward", fwd, kernels)
         out[kind] = r
         del learner, params, batch, scores
@@ -5971,6 +6067,156 @@ def check_planted_faults(flash, ssd):
     return read_faults(planted)
 
 
+# the backward kernels against their closed forms, per row (row_err): B5's
+# dq, dk, dv are bf16 sums over up to S keys of dS (rounded to bf16 by the
+# kernel, 2^-9 relative, not by the plain version) times k or q, then
+# rounded to bf16 (2^-8); fp32 as the forward's.  A row of B5's gradients
+# is held to at least BWD_ROW_FLOOR of its tensor's max: dq of a query that
+# sees one key is 0 (dP = Delta), and the two sides' fp32 sums leave
+# different noise there.  B6's fp32 path shapes are held against an fp64
+# evaluation of the closed form (bwd_fp64_held)
+BWD_TOL = {"flash_attention_bwd": {"float32": 2e-5, "bfloat16": 3e-2, "float16": 1e-2},
+           "ssd_chunk_bwd": 1e-4}
+BWD_ROW_FLOOR = 1e-2
+
+
+def flash_bwd_case(randn, label, b, s, hq, hkv, d, dtype, main=False, lib=False,
+                   iters=(3, 3), **kw):
+    """A case of B5's backward kernel (``flash_attention_gqa_bwd``) on q (b,
+    s, hq, d), k, v (b, s, hkv, d) and a cotangent drawn by ``randn``, from
+    the forward kernel's output and lse, as :func:`check_kernels` takes it;
+    ``lib`` times SDPA's backward beside it (``torch.autograd.grad``
+    through ``F.scaled_dot_product_attention``, its forward timed apart and
+    subtracted)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.roofline import flash_bwd_work
+    q, k, v, do = (randn(b, s, h, d, dtype=dtype) for h in (hq, hkv, hkv, hq))
+    o, lse = fa.flash_attention_gqa(q, k, v, with_lse=True, **kw)
+    nbytes, flops = flash_bwd_work(b, s, hq, hkv, d, q.element_size(), kw["causal"],
+                                   kw.get("window"))
+    case = dict(label=label, fn=fa.flash_attention_gqa_bwd,
+                plain=fa.flash_attention_gqa_bwd_plain, route=fa.flash_bwd_route(q, k, v, do),
+                lib=None, args=(q, k, v, o, lse, do), kw=kw,
+                tol=BWD_TOL["flash_attention_bwd"][str(dtype).split(".")[1]],
+                row_floor=BWD_ROW_FLOOR, main=main, iters=iters, bytes=nbytes, flops=flops,
+                peak=BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+    if lib:
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=kw["causal"],
+                                                  enable_gqa=True)
+
+        case |= dict(lib=lambda *_: torch.autograd.grad(sdpa(), (qt, kt, vt), dot),
+                     lib_minus=sdpa, lib_note="SDPA's backward through torch.autograd.grad, "
+                                              "its forward timed apart and subtracted")
+    return case
+
+
+def ssd_bwd_case(g, dev, label, gg, q, p, n, dtype=None, main=False, cots=(1, 1, 1, 1),
+                 iters=(3, 3)):
+    """A case of B6's backward kernel (``ssd_chunk_bwd``) on :func:`ssd_case`'s
+    inputs and fp32 cotangents of its four outputs (those of ``cots``; the
+    others None), as :func:`check_kernels` takes it.  The work counted
+    once, at the rate of the units that do it."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.roofline import ssd_bwd_work
+    fwd = ssd_case(g, dev, label, gg, q, p, n, dtype)
+    x, dt, A, B, C = fwd["args"]
+    shapes = ((gg, q, p), (gg, p, n), (gg,), (gg, q))
+    cot = [torch.randn(*sh, generator=g).to(dev) if on else None
+           for sh, on in zip(shapes, cots)]
+    route = ssd.ssd_bwd_route(x, dt, A, B, C)
+    nbytes, flops = ssd_bwd_work(gg, q, p, n, x.element_size(), tuple(map(bool, cots)))
+    return dict(label=label, fn=ssd.ssd_chunk_bwd, plain=ssd.ssd_chunk_bwd_plain, lib=None,
+                route=route, args=(x, dt, A, B, C, *cot), tol=BWD_TOL["ssd_chunk_bwd"],
+                main=main, iters=iters, bytes=nbytes, flops=flops,
+                peak=BF16_FLOPS if route == "mma" else FP32_FLOPS)
+
+
+def bwd_fp64_held(case):
+    """A B6 backward case held against the closed form evaluated in fp64 (its
+    outputs cast to fp32), at LM_GATE times the fp32 plain version's own
+    per-row error against it (at least the case's tolerance), as
+    :func:`fp64_held` holds the forward."""
+    from repro_torch.kernels import ssd_scan as ssd
+    args64 = [a.double() if a is not None else None for a in case["args"]]
+    want = tuple(t.float() for t in ssd.ssd_chunk_bwd_plain(*args64))
+    own = max(row_err(a, b) for a, b in zip(case["plain"](*case["args"]), want))
+    return case | dict(oracle=lambda *a: want, tol=max(case["tol"], LM_GATE * own),
+                       plain_row_err_vs_fp64=own)
+
+
+def backward_kernel_specs(dev):
+    """The two backward kernels at every path shape that trains through
+    them, and at ragged shapes on both routes, as :func:`check_kernels`
+    takes them: B5's (K5b) at gemma2-2b's step (phase 5d), minitron-4b's
+    LITE H pass and queries (5c), whisper-base's encoder and decoder (6e)
+    and zamba2-7b's shared block (5f), bf16, beside SDPA's backward where
+    there is no softcap; B6's (K6b) at mamba2-780m's and zamba2-7b's steps
+    (5f), fp32 operands, held against fp64, and on a chunk whose Q is not a
+    multiple of 64."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(10)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g).to(device=dev, dtype=dtype)
+
+    bf, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    fl = functools.partial(flash_bwd_case, randn)
+    sb = functools.partial(ssd_bwd_case, g, dev)
+    b, s = PRETRAIN_BATCH, PRETRAIN_SEQ
+    n_h = LM_TRAIN_TASKS * LM_TRAIN_LITE["h"]
+    n_q = LM_TRAIN_TASKS * LM_TASK["way"] * LM_TASK["query_per_class"]
+    sq, bt, ws = LM_TASK["seq_len"], WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ
+    src = "src/repro_torch/kernels/csrc/"
+    return [
+        dict(name="flash_attention_bwd", source=src + "flash_attention_bwd.cu",
+             replaces="src/repro/kernels/flash_attention.py:89", symbol="flash_bwd", cases=[
+            fl(f"gemma2-2b local B{b} S{s} Hq8 Hkv4 D256 window4096 cap50", b, s, 8, 4, 256,
+               bf, main=True, causal=True, window=4096, softcap=50.0),
+            fl(f"gemma2-2b global B{b} S{s} Hq8 Hkv4 D256 cap50", b, s, 8, 4, 256, bf,
+               main=True, causal=True, softcap=50.0),
+            fl(f"minitron-4b LITE H pass B{n_h} S{sq} Hq24 Hkv8 D128 causal", n_h, sq, 24, 8,
+               128, bf, main=True, lib=True, iters=(10, 5), causal=True),
+            fl(f"minitron-4b queries B{n_q} S{sq} Hq24 Hkv8 D128 causal", n_q, sq, 24, 8, 128,
+               bf, main=True, lib=True, iters=(10, 5), causal=True),
+            fl(f"whisper-base encoder train B{bt} S1500 Hq8 Hkv8 D64 non-causal", bt, 1500, 8,
+               8, 64, bf, main=True, lib=True, iters=(10, 5), causal=False),
+            fl(f"whisper-base decoder train B{bt} S{ws} Hq8 Hkv8 D64 causal", bt, ws, 8, 8, 64,
+               bf, main=True, lib=True, iters=(10, 5), causal=True),
+            fl(f"zamba2-7b train B{b} S{ZAMBA_TRAIN_SEQ} Hq32 Hkv32 D112 causal", b,
+               ZAMBA_TRAIN_SEQ, 32, 32, 112, bf, main=True, lib=True, iters=(5, 3),
+               causal=True),
+            fl("ragged B2 S130 Hq2 Hkv1 D96 window30 non-causal", 2, 130, 2, 1, 96, bf,
+               causal=False, window=30),
+            fl("ragged B2 S100 Hq4 Hkv2 D128 fp16 causal", 2, 100, 4, 2, 128, f16,
+               causal=True),
+            fl("ragged B2 S77 Hq4 Hkv2 D64 fp32 cap5 (simt)", 2, 77, 4, 2, 64, f32,
+               causal=True, softcap=5.0),
+            fl("ragged B2 S77 Hq4 Hkv2 D40 non-causal (simt)", 2, 77, 4, 2, 40, bf,
+               causal=False)]),
+        dict(name="ssd_chunk_bwd", source=src + "ssd_scan_bwd.cu",
+             replaces="src/repro/kernels/ssd_scan.py:56", symbol="ssd_bwd", cases=[
+            bwd_fp64_held(sb(f"mamba2-780m train G{b * SSM_TRAIN_SEQ // 256 * 48} Q256 P64 "
+                             f"N128 fp32", b * SSM_TRAIN_SEQ // 256 * 48, 256, 64, 128,
+                             main=True)),
+            bwd_fp64_held(sb(f"zamba2-7b train G{b * ZAMBA_TRAIN_SEQ // 256 * 112} Q256 P64 "
+                             f"N64 fp32", b * ZAMBA_TRAIN_SEQ // 256 * 112, 256, 64, 64,
+                             main=True)),
+            bwd_fp64_held(sb("ragged G96 Q100 P64 N128 fp32", 96, 100, 64, 128)),
+            sb("ragged G8 Q128 P64 N128 bf16, gy alone", 8, 128, 64, 128, bf,
+               cots=(1, 0, 0, 0)),
+            sb("ragged G8 Q64 P32 N32 fp32, no gy", 8, 64, 32, 32, cots=(0, 1, 1, 1)),
+            sb("ragged G4 Q50 P20 N12 fp32 (simt)", 4, 50, 20, 12),
+            sb("ragged G3 Q600 P16 N16 fp32 (Q: simt)", 3, 600, 16, 16)]),
+    ]
+
+
 def run_ops_path(dev, launches):
     """Drive repro_torch.kernels.ops once on every main shape with the
     launch counts set to 0 just before and read just after; then hold each
@@ -6026,6 +6272,7 @@ GEMMA_PROMPTS = (4608, 1024)
 GEMMA_HIDDEN = 512
 GEMMA_MAX_NEW = 8
 LM_CATEGORIES = (   # device kernel name -> what it is, first match wins
+    ("B5 backward", ("flash_bwd",)),
     ("B5 flash_attention", ("flash_attention",)),
     ("GEMMs (cuBLAS)", ("gemm", "nvjet", "cutlass", "gemv", "xmma", "splitk", "dot_kernel")),
     ("reductions", ("reduce", "softmax", "norm")),
@@ -6772,7 +7019,8 @@ SSM_SERVE = (("mamba2-780m", 4, (1024, 1024, 1024, 1024, 1000, 2048), 8, 24),
              ("zamba2-7b", 2, (1024, 1024, 512, 2048), 8, 28))
 SSM_PREFILL_LENGTHS = (1024, 2048)
 SSM_DECODE_POS = 1024
-SSM_CATEGORIES = (("B6 ssd_chunk", ("ssd_wgmma", "ssd_chunk_kernel")),) + LM_CATEGORIES
+SSM_CATEGORIES = (("B6 backward", ("ssd_bwd",)),
+                  ("B6 ssd_chunk", ("ssd_wgmma", "ssd_chunk_kernel"))) + LM_CATEGORIES
 
 
 def hybrid_flash_route(cfg, dev) -> str:
@@ -7314,40 +7562,36 @@ def check_whisper_step(label, cfg, r):
     """Fail unless one step launched B5 on "wgmma" once a layer of each
     stack in the forward (the encoder's bidirectional over the frames, the
     decoder's causal over the tokens) and once a layer in the checkpoints'
-    recompute (the decoder's blocks first), and nothing else."""
+    recompute (the decoder's blocks first), its backward kernel on "mma"
+    once a layer, and nothing else."""
     n = cfg.n_encoder_layers + cfg.n_layers
     want = {"flash_attention": n, "flash_attention/wgmma": n}
     got = {part: r[part] for part in ("forward", "backward")}
     passes = whisper_pass(cfg, WHISPER_TRAIN_SEQ)
-    if got != dict(forward=want, backward=want) or r["flash"] != (passes, passes[::-1]):
+    if got != dict(forward=want, backward=want | b5_bwd_want(n)) \
+            or r["flash"] != (passes, passes[::-1]):
         fail(f"{label}: launches {got}, B5's (causal, S) {r['flash']}; want {want} in the "
              f"forward and in the backward, as {passes} and its reverse")
 
 
 def b5_encoder_backward_causal():
-    """(label, backward): B5's backward with the causal mask on every call,
-    the encoder's recomputed attention masked causally."""
-    from repro_torch.kernels import dispatch
-    backward = dispatch._FlashAttention.backward
+    """(label, make): B5's backward kernel called with the causal mask on
+    every call, the encoder's attention differentiated as causal (for
+    :func:`planted_kernel`)."""
+    def encoder_causal(kernel):
+        return lambda *a, **kw: kernel(*a, **{**kw, "causal": True})
 
-    def encoder_causal(ctx, g):
-        causal, ctx.causal = ctx.causal, True
-        try:
-            return backward(ctx, g)
-        finally:
-            ctx.causal = causal
-
-    return "B5 backward: the encoder's recompute masked causally", encoder_causal
+    return "B5 backward kernel: the encoder's attention masked causally", encoder_causal
 
 
 def whisper_train_parity(cfg, dev):
     """One step's loss and gradient on the kernels, on ``ref`` in bf16 and on
     ``ref`` in fp32 compute, from the same params (drawn on the card from
     seed 0) and batch 0, through the gate read leaf by leaf; then the fault
-    planted in B5's backward, which the gate must flag."""
+    planted on B5's backward kernel, which the gate must flag."""
     import dataclasses
     import torch
-    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import flash_attention as _fa
     from repro_torch.models.registry import get_api
     params = get_api(cfg).init(torch.Generator(device=dev).manual_seed(0), cfg)
     batch = whisper_train_batch(cfg, 0, dev)
@@ -7368,8 +7612,8 @@ def whisper_train_parity(cfg, dev):
                gate=pretrain_gate(f"{cfg.name} LM step", got, ref32, ref16_errs,
                                   per_leaf=True))
     del got
-    label, fn = b5_encoder_backward_causal()
-    with planted_backward(dispatch._FlashAttention, fn):
+    label, make = b5_encoder_backward_causal()
+    with planted_kernel(_fa, "flash_attention_gqa_bwd", make):
         bad = whisper_grads(cfg, params, batch, "cuda")
     out["planted_fault"] = dict(fault=label, **pretrain_gate(
         f"planted fault: {label}", bad, ref32, ref16_errs, fault=True, per_leaf=True))
@@ -7385,7 +7629,8 @@ def whisper_train_loop(cfg, dev):
     the bf16 peak, the fp32 unembed at the fp32 rate."""
     n = PRETRAIN_STEPS * 2 * (cfg.n_encoder_layers + cfg.n_layers)
     b, s = WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ
-    r = pretrain_loop(cfg, dev, s, want={"flash_attention": n, "flash_attention/wgmma": n},
+    r = pretrain_loop(cfg, dev, s, want={"flash_attention": n, "flash_attention/wgmma": n}
+                      | b5_bwd_want(n // 2),
                       label="train whisper", batch_at=lambda i: whisper_train_batch(cfg, i, dev),
                       batch_size=b)
     bound, bf16, f32 = whisper_train_bound(cfg, b, s)
@@ -8040,6 +8285,12 @@ def main() -> int:
     mark("phase 5h done")
     ops_rows, ops_planted = run_ops_path(dev, launches)
     planted += ops_planted
+    bwd_rows = check_kernels(backward_kernel_specs(dev))
+    for name, route in (("flash_attention_bwd", "mma"), ("ssd_chunk_bwd", "mma")):
+        mains = [t["route"] for t in bwd_rows[name]["cases"]]
+        if mains != [route] * len(mains):
+            fail(f"{name}: the path shapes took routes {mains}, not {route}")
+    torch.cuda.empty_cache()
     mark("phase 6 done")
     lm_serve = run_lm_serve(dev, launches)
     summary.append(lm_serve)
@@ -8060,11 +8311,14 @@ def main() -> int:
     mark("subprocesses done")
     # each kernel counted on the path that runs it: flash attention on LM
     # serving's prefills, gmm on MoE serving's expert projections (kimi-k2),
-    # ssd_chunk on the SSD chunks of mamba2-780m's prefills
+    # ssd_chunk on the SSD chunks of mamba2-780m's prefills, the backward
+    # kernels on the training steps of gemma2-2b (B5's) and mamba2-780m
+    # (B6's)
     path_of = {n: "simple_cnaps" for n in rows} | {n: "ops" for n in ops_rows} \
         | {"flash_attention": "lm_serve", "gmm": "lm_serve_kimi",
-           "ssd_chunk": "lm_serve_mamba2"}
-    rows |= ops_rows
+           "ssd_chunk": "lm_serve_mamba2", "flash_attention_bwd": "lm_pretrain",
+           "ssd_chunk_bwd": "lm_ssm_train"}
+    rows |= ops_rows | bwd_rows
     prefill_row = lm_serve["prefill_kernel"]
     rows["gmm"]["lm_moe_cases"] = moe_serve["gmm_cases"]
     rows["gmm"]["lm_moe_train_cases"] = moe_train["kernel_cases"]
@@ -8110,7 +8364,9 @@ def main() -> int:
                  "bound_by", "library_ms", "library_device_ms")
     train_path = {n: "train" for n in launches["train"]} | {"flash_attention": "lm_train",
                                                              "gmm": "lm_moe_train",
-                                                             "ssd_chunk": "lm_ssm_train"}
+                                                             "ssd_chunk": "lm_ssm_train",
+                                                             "flash_attention_bwd": "lm_train",
+                                                             "ssd_chunk_bwd": "lm_ssm_train"}
     print(json.dumps({"kernels": [
         {k: rows[n][k] for k in ("name", "route", "source", "replaces")}
         | {"launches": launches[path_of[n]][n]}
@@ -8224,6 +8480,39 @@ KERNEL_MS_GMM = (("kimi-k2 gate E384 C32 D7168 F2048", 384, 32, 7168, 2048),
                  ("kimi-k2 ops E8 C512 D7168 F2048", 8, 512, 7168, 2048))
 
 
+# the two Functions' backwards at phase 5d's and 5f's shapes: (label, B, S,
+# Hq, Hkv, D, keywords) of B5 in bf16, (label, G, P, N) of B6 (Q 256, fp32)
+KERNEL_MS_FLASH_BWD = (
+    ("gemma2-2b local B2 S4608 D256", 2, 4608, 8, 4, 256,
+     dict(causal=True, window=4096, softcap=50.0)),
+    ("gemma2-2b global B2 S4608 D256", 2, 4608, 8, 4, 256, dict(causal=True, softcap=50.0)),
+    ("zamba2-7b train B2 S2048 D112", 2, 2048, 32, 32, 112, dict(causal=True)))
+KERNEL_MS_SSD_BWD = (("mamba2-780m train G1536 P64 N128", 1536, 64, 128),
+                     ("zamba2-7b train G1792 P64 N64", 1792, 64, 64))
+
+
+def function_backward_ms(forward, inputs, cotangent):
+    """The backward alone of an autograd Function's output (``forward()``'s
+    output, or each of its outputs, against ``cotangent(output)``): its ms
+    a call (CUDA events over back-to-back calls, the graph retained) and
+    the memory it allocates above what it was handed (the inputs, the
+    saved tensors, the outputs and the cotangents)."""
+    import torch
+    outs = forward()
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    cots = [cotangent(o) for o in outs]
+    backward = lambda: torch.autograd.grad(outs, inputs, cots, retain_graph=True)  # noqa: E731
+    ms = time_ms(backward, iters=3, reps=5)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads = backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    return dict(ms=ms, peak_bytes_above_inputs=peak,
+                grads_bytes=sum(t.numel() * t.element_size() for t in grads))
+
+
 def kernel_ms_main(src: str, out_path: str) -> int:
     """``python chip_smoke.py --kernel-ms SRC OUT``: with the ``repro_torch``
     under SRC, the ms of one call (CUDA events over back-to-back calls) of
@@ -8233,7 +8522,9 @@ def kernel_ms_main(src: str, out_path: str) -> int:
     ``dispatch.gmm``: the forward, and the backward of
     its autograd Function alone (dx and dw, and whatever copies the
     Function makes), with the memory the backward allocates above what it
-    was handed (``max_memory_allocated``); writes them and the card line to
+    was handed (``max_memory_allocated``); then the backwards of B5's and
+    B6's Functions alone at KERNEL_MS_FLASH_BWD and KERNEL_MS_SSD_BWD, with
+    theirs (:func:`function_backward_ms`); writes them and the card line to
     OUT.  Run it on two checkouts in turns (a b b a) in one call."""
     import torch
     from repro_torch.kernels import _build, dispatch
@@ -8277,6 +8568,25 @@ def kernel_ms_main(src: str, out_path: str) -> int:
     torch.cuda.synchronize()
     out["gmm"]["backward_peak_bytes_above_inputs"] = torch.cuda.max_memory_allocated() - base
     out["gmm"]["grads_bytes"] = sum(t.numel() * t.element_size() for t in grads)
+    del x, w, dout, y, grads
+    torch.cuda.empty_cache()
+    out["flash_backward"], out["ssd_backward"] = {}, {}
+    for label, b, s_len, hq, hkv, d, kw in KERNEL_MS_FLASH_BWD:
+        q, k, v = (randn(b, s_len, h, d).requires_grad_(True) for h in (hq, hkv, hkv))
+        out["flash_backward"][label] = function_backward_ms(
+            lambda: dispatch.flash_attention(q, k, v, backend="cuda", **kw), (q, k, v),
+            lambda o: randn(*o.shape))
+        del q, k, v
+    for label, gg, p, n in KERNEL_MS_SSD_BWD:
+        gen = torch.Generator(device=dev).manual_seed(11)
+        x, B, C = (torch.randn(gg, 256, m, generator=gen, device=dev).requires_grad_(True)
+                   for m in (p, n, n))
+        dt = (torch.rand(gg, 256, generator=gen, device=dev) * 0.1).requires_grad_(True)
+        A = (-1.0 - 15.0 * torch.rand(gg, generator=gen, device=dev)).requires_grad_(True)
+        out["ssd_backward"][label] = function_backward_ms(
+            lambda: dispatch.ssd_chunk(x, dt, A, B, C, backend="cuda"), (x, dt, A, B, C),
+            lambda o: torch.randn(o.shape, generator=gen, device=dev))
+        del x, dt, A, B, C
     print(f"kernel ms under {src}: {out}", flush=True)
     with open(out_path, "w") as fh:
         json.dump(out, fh, indent=1)

@@ -32,9 +32,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 # the route argument of the kernels that have two (gmm, flash attention,
-# ssd_chunk):
-# its code is the index here
-ROUTES = ("simt", "wgmma")
+# ssd_chunk and the two backwards): its code is the index here.  "wgmma":
+# the forward kernels' warpgroup products; "mma": the backward kernels'
+# warp-level mma.sync
+ROUTES = ("simt", "wgmma", "mma")
 
 # C entry point -> argument types after the pointers (all return cudaError_t)
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -46,12 +47,20 @@ _SIGNATURES = {
     "rt_mahalanobis": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # ..., M, K, N, NB, then the plan: tile_m, chunk, stages, vec
     "rt_int8_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # ..., route (0 "simt", 1 "wgmma"), stream
-    "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    # q, k, v, o, lse (or null), ..., route (0 "simt", 1 "wgmma"), stream
+    "rt_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _L, _L, _L, _L, _L, _L, _I, _I, _I, _F, _F, _I, _P),
+    # q, k, v, o, lse, dout, dq, dk, dv, delta, ..., need_dq, need_dkv,
+    # route (0 "simt", 2 "mma"), stream
+    "rt_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _L, _L, _L, _L, _L, _L, _I, _I, _I, _F, _F, _I, _I, _I, _P),
     # ..., E, C, D, F, x stored transposed, w stored transposed, route, stream
     "rt_gmm": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "rt_ssd_chunk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, dt, A, B, C (fp32), gy, gst, gcd, gsd (each or null), gx, gdt, gA,
+    # gB, gC, scratch, G, Q, P, N, route (0 "simt", 2 "mma"), stream
+    "rt_ssd_chunk_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -4,7 +4,7 @@ dtypes, shapes and one device, and no tensor that autograd would follow;
 and whether TMA can read a tensor, which the route choices ask."""
 from __future__ import annotations
 
-from typing import Callable, Sequence, Union
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 
@@ -16,7 +16,7 @@ def require(cond: bool, msg: Union[str, Callable[[], str]]) -> None:
         raise ValueError(msg() if callable(msg) else msg)
 
 
-def require_no_grad(name: str, *ts: torch.Tensor, missing: str = "") -> None:
+def require_no_grad(name: str, *ts: Optional[torch.Tensor], missing: str = "") -> None:
     """Raise when grad mode is on and a tensor that requires grad reaches a
     kernel.  A kernel writes its result into a fresh ``torch.empty``
     through a foreign call, so autograd sees no ``grad_fn`` and would drop
@@ -26,7 +26,7 @@ def require_no_grad(name: str, *ts: torch.Tensor, missing: str = "") -> None:
     whose forward runs with grad mode off; every other caller must detach
     or run under ``torch.no_grad``.  ``missing`` names the Function that
     differentiates through the kernel, for the message."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts):
         raise RuntimeError(
             f"{name}: a tensor that requires grad reached the CUDA kernel "
             f"outside its autograd.Function; the kernel's output has no "
@@ -73,10 +73,11 @@ def tma_ready(*ts: torch.Tensor) -> bool:
                for t in ts)
 
 
-def ptr(t: torch.Tensor) -> int:
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     """A tensor's address, as the C entry points take it (their argument
-    types are declared, so ctypes converts the int)."""
-    return t.data_ptr()
+    types are declared, so ctypes converts the int); None, a null pointer,
+    for a missing tensor."""
+    return None if t is None else t.data_ptr()
 
 
 # the current stream's raw handle without building a Stream object, where

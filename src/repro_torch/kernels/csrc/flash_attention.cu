@@ -113,9 +113,10 @@ constexpr size_t smem_floats() {
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o, int Hq, int Hkv, int S,
-                           int D, long long q_sb, long long q_sh, long long q_ss, long long kv_sb,
-                           long long kv_sh, long long kv_ss, int causal, int window,
+                           const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                           int Hq, int Hkv, int S, int D, long long q_sb, long long q_sh,
+                           long long q_ss, long long kv_sb, long long kv_sh, long long kv_ss,
+                           int causal, int window,
                            int has_softcap, float softcap, float scale) {
   constexpr int QS = DP + 1;        // padded row stride of the q and k tiles
   constexpr int kCols = DP / kGroups;  // output columns per thread
@@ -255,6 +256,8 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();  // row_l is final
 
+  if (lse != nullptr && tid < kBQ && q0 + tid < S)  // a row with no key: +inf
+    lse[(size_t)bh * S + q0 + tid] = row_l[tid] > 0.f ? row_m[tid] + logf(row_l[tid]) : INFINITY;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int r = ty * kRows + i, s = q0 + r;
@@ -269,9 +272,10 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, int DP>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int S,
-           int D, long long q_sb, long long q_sh, long long q_ss, long long kv_sb, long long kv_sh,
-           long long kv_ss, int causal, int window, int has_softcap, float softcap, float scale,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Hq,
+           int Hkv, int S, int D, long long q_sb, long long q_sh, long long q_ss, long long kv_sb,
+           long long kv_sh, long long kv_ss, int causal, int window, int has_softcap,
+           float softcap, float scale,
            cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<DP>();
   auto kern = flash_attention_kernel<T, DP>;
@@ -281,20 +285,20 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, 
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid((S + kBQ - 1) / kBQ, B * Hq);
-  kern<<<grid, kThreads, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, (T*)o, Hq, Hkv, S,
-                                         D, q_sb, q_sh, q_ss, kv_sb, kv_sh, kv_ss, causal, window,
-                                         has_softcap, softcap, scale);
+  kern<<<grid, kThreads, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, (T*)o, lse, Hq,
+                                         Hkv, S, D, q_sb, q_sh, q_ss, kv_sb, kv_sh, kv_ss, causal,
+                                         window, has_softcap, softcap, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int S,
-             int D, long long q_sb, long long q_sh, long long q_ss, long long kv_sb,
+int launch_d(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Hq,
+             int Hkv, int S, int D, long long q_sb, long long q_sh, long long q_ss, long long kv_sb,
              long long kv_sh, long long kv_ss, int causal, int window, int has_softcap,
              float softcap, float scale, cudaStream_t stream) {
 #define RT_FA_LAUNCH(DP)                                                                       \
-  return launch<T, DP>(q, k, v, o, B, Hq, Hkv, S, D, q_sb, q_sh, q_ss, kv_sb, kv_sh, kv_ss,     \
-                       causal, window, has_softcap, softcap, scale, stream)
+  return launch<T, DP>(q, k, v, o, lse, B, Hq, Hkv, S, D, q_sb, q_sh, q_ss, kv_sb, kv_sh,    \
+                       kv_ss, causal, window, has_softcap, softcap, scale, stream)
   if (D <= 32) RT_FA_LAUNCH(32);
   if (D <= 64) RT_FA_LAUNCH(64);
   if (D <= 128) RT_FA_LAUNCH(128);
@@ -343,8 +347,9 @@ __global__ void __launch_bounds__(TcCfg<D>::kThreads, 1)
     flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                                  const __grid_constant__ CUtensorMap kmap,
                                  const __grid_constant__ CUtensorMap vmap, T* __restrict__ o,
-                                 int Hq, int Hkv, int S, int d, long long o_sb, long long o_sh,
-                                 long long o_ss, int causal, int window, int has_softcap,
+                                 float* __restrict__ lse, int Hq, int Hkv, int S, int d,
+                                 long long o_sb, long long o_sh, long long o_ss, int causal,
+                                 int window, int has_softcap,
                                  float softcap, float scale) {
   using Cfg = TcCfg<D>;
   constexpr int BM = Cfg::kBM, BK = Cfg::kBK;
@@ -538,6 +543,10 @@ __global__ void __launch_bounds__(TcCfg<D>::kThreads, 1)
     const float inv = 1.f / fmaxf(lr, 1e-30f);
     const int row = row0 + 8 * r;
     if (row >= S) continue;
+    // the row's log-sum-exp, natural log (m is in the log2 domain); a row
+    // with no key: +inf
+    if (lse != nullptr && lane % 4 == 0)
+      lse[(size_t)bh * S + row] = lr > 0.f ? (m[r] + log2f(lr)) * 0.6931471805599453f : INFINITY;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       if (D == d || 8 * j < d)
@@ -548,9 +557,10 @@ __global__ void __launch_bounds__(TcCfg<D>::kThreads, 1)
 
 // D: the template's head dim (64, 128 or 256); d <= D the tensors' own.
 template <typename T, bool F16, int D>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
-                 int S, int d, long long q_sb, long long q_sh, long long q_ss, long long kv_sb,
-                 long long kv_sh, long long kv_ss, int causal, int window, int has_softcap,
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Hq,
+                 int Hkv, int S, int d, long long q_sb, long long q_sh, long long q_ss,
+                 long long kv_sb, long long kv_sh, long long kv_ss, int causal, int window,
+                 int has_softcap,
                  float softcap, float scale, cudaStream_t stream) {
   using Cfg = TcCfg<D>;
   // 4-D maps over (d, S, H, B) by byte strides; a head axis of extent 1 may
@@ -572,20 +582,22 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
   if (err == cudaSuccess) err = hopper::allow_smem(kern, Cfg::kSmem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + Cfg::kBM - 1) / Cfg::kBM, B * Hq);
-  kern<<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(qmap, kmap, vmap, (T*)o, Hq, Hkv, S, d,
+  kern<<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(qmap, kmap, vmap, (T*)o, lse, Hq, Hkv, S, d,
                                                     q_sb, q_sh, q_ss, causal, window,
                                                     has_softcap, softcap, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, bool F16>
-int launch_wgmma_d(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
-                   int S, int D, long long q_sb, long long q_sh, long long q_ss, long long kv_sb,
-                   long long kv_sh, long long kv_ss, int causal, int window, int has_softcap,
+int launch_wgmma_d(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int Hq, int Hkv, int S, int D, long long q_sb, long long q_sh, long long q_ss,
+                   long long kv_sb, long long kv_sh, long long kv_ss, int causal, int window,
+                   int has_softcap,
                    float softcap, float scale, cudaStream_t stream) {
 #define RT_FA_WGMMA(DP)                                                                       \
-  return launch_wgmma<T, F16, DP>(q, k, v, o, B, Hq, Hkv, S, D, q_sb, q_sh, q_ss, kv_sb, kv_sh, \
-                                  kv_ss, causal, window, has_softcap, softcap, scale, stream)
+  return launch_wgmma<T, F16, DP>(q, k, v, o, lse, B, Hq, Hkv, S, D, q_sb, q_sh, q_ss, kv_sb,  \
+                                  kv_sh, kv_ss, causal, window, has_softcap, softcap, scale,  \
+                                  stream)
   if (D == 64) RT_FA_WGMMA(64);
   if (D == 96 || D == 112 || D == 128) RT_FA_WGMMA(128);  // 96, 112: zero-filled to 128
   if (D == 256) RT_FA_WGMMA(256);
@@ -599,23 +611,26 @@ int launch_wgmma_d(const void* q, const void* k, const void* v, void* o, int B, 
 // head, sequence; D contiguous), one dtype: 0 fp32, 1 bf16, 2 fp16.
 // window < 0 means none; D <= 256.  route 0 = "simt", 1 = "wgmma" (bf16 /
 // fp16, D of 64, 96, 112, 128 or 256, 16-byte-aligned bases and strides).
-// Returns the cudaError_t of the launch.
-extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, void* o, int dtype,
-                                  int B, int Hq, int Hkv, int S, int D, long long q_sb,
+// lse: null, or (B, Hq, S) fp32 for the rows' natural log-sum-exp of the
+// (softcapped, scaled) logits, +inf for a row that sees no key (the
+// backward reads it).  Returns the cudaError_t of the launch.
+extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, void* o, void* lse,
+                                  int dtype, int B, int Hq, int Hkv, int S, int D, long long q_sb,
                                   long long q_sh, long long q_ss, long long kv_sb, long long kv_sh,
                                   long long kv_ss, int causal, int window, int has_softcap,
                                   float softcap, float scale, int route, void* stream) {
   if (B == 0 || Hq == 0 || S == 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || D <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  float* l = (float*)lse;
   if (route == 1) {
     switch (dtype) {
       case 1:
-        return launch_wgmma_d<__nv_bfloat16, false>(q, k, v, o, B, Hq, Hkv, S, D, q_sb, q_sh,
+        return launch_wgmma_d<__nv_bfloat16, false>(q, k, v, o, l, B, Hq, Hkv, S, D, q_sb, q_sh,
                                                     q_ss, kv_sb, kv_sh, kv_ss, causal, window,
                                                     has_softcap, softcap, scale, st);
       case 2:
-        return launch_wgmma_d<__half, true>(q, k, v, o, B, Hq, Hkv, S, D, q_sb, q_sh, q_ss,
+        return launch_wgmma_d<__half, true>(q, k, v, o, l, B, Hq, Hkv, S, D, q_sb, q_sh, q_ss,
                                             kv_sb, kv_sh, kv_ss, causal, window, has_softcap,
                                             softcap, scale, st);
       default:
@@ -625,14 +640,15 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, v
   if (route != 0) return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
-      return launch_d<float>(q, k, v, o, B, Hq, Hkv, S, D, q_sb, q_sh, q_ss, kv_sb, kv_sh, kv_ss,
-                             causal, window, has_softcap, softcap, scale, st);
+      return launch_d<float>(q, k, v, o, l, B, Hq, Hkv, S, D, q_sb, q_sh, q_ss, kv_sb, kv_sh,
+                             kv_ss, causal, window, has_softcap, softcap, scale, st);
     case 1:
-      return launch_d<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, S, D, q_sb, q_sh, q_ss, kv_sb, kv_sh,
-                                     kv_ss, causal, window, has_softcap, softcap, scale, st);
+      return launch_d<__nv_bfloat16>(q, k, v, o, l, B, Hq, Hkv, S, D, q_sb, q_sh, q_ss, kv_sb,
+                                     kv_sh, kv_ss, causal, window, has_softcap, softcap, scale,
+                                     st);
     case 2:
-      return launch_d<__half>(q, k, v, o, B, Hq, Hkv, S, D, q_sb, q_sh, q_ss, kv_sb, kv_sh, kv_ss,
-                              causal, window, has_softcap, softcap, scale, st);
+      return launch_d<__half>(q, k, v, o, l, B, Hq, Hkv, S, D, q_sb, q_sh, q_ss, kv_sb, kv_sh,
+                              kv_ss, causal, window, has_softcap, softcap, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

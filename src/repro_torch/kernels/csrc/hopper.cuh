@@ -7,7 +7,10 @@
 // wait, named barriers, register rebalancing between warpgroups
 // (setmaxnreg), and the wgmma.mma_async
 // instructions (m64nNk16, bf16 or fp16 in, fp32 accumulate) for N = 64, 128
-// and 256, with A from shared memory (K- or M-major) or from registers.
+// and 256, with A from shared memory (K- or M-major) or from registers; and
+// for the backward kernels (flash_attention_bwd*.cu, ssd_scan_bwd.cu) the
+// warp-level mma.sync (m16n8k16) with ldmatrix, and the three-way bf16
+// split of fp32 operands.
 //
 // Shared-memory tiles.  Every operand tile is loaded by TMA (or written by
 // threads in the same layout, ssd_scan.cu) with
@@ -28,6 +31,7 @@
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -433,6 +437,96 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   } else {
     if constexpr (F16) HP_WGMMA_RS_N256(f16); else HP_WGMMA_RS_N256(bf16);
   }
+}
+
+// ---------------------------------------------------------------------------
+// device: warp-level mma.sync (m16n8k16, bf16 or fp16 in, fp32 accumulate)
+// and ldmatrix, for the backward kernels (flash_attention_bwd.cu,
+// ssd_scan_bwd.cu).  Lane l of a warp holds rows l / 4 and l / 4 + 8 and
+// columns 2 (l % 4) + c of the 16 x 8 accumulator: d[2 i + c] for row
+// l / 4 + 8 i.  An A fragment (16 x 16) packs two such accumulators of
+// adjacent 8-column tiles: a[0] = tile 0 row l / 4, a[1] = tile 0 row
+// l / 4 + 8, a[2], a[3] the same of tile 1, each the 16-bit values of
+// (d[2 i], d[2 i + 1]), the first in the low half.
+// ---------------------------------------------------------------------------
+
+// fp32 operands on bf16 tensor cores (ssd_scan.cu, ssd_scan_bwd.cu):
+// (a, b) -> three packed bf16 pairs, hi = bf16(v), mid = bf16(v - hi), lo =
+// bf16(v - hi - mid); each difference is exact in fp32.
+__device__ __forceinline__ void split3(float a, float b, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  a = __fsub_rn(a, hf.x);
+  b = __fsub_rn(b, hf.y);
+  __nv_bfloat162 m = __floats2bfloat162_rn(a, b);
+  const float2 mf = __bfloat1622float2(m);
+  __nv_bfloat162 l = __floats2bfloat162_rn(__fsub_rn(a, mf.x), __fsub_rn(b, mf.y));
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  mid = *reinterpret_cast<uint32_t*>(&m);
+  lo = *reinterpret_cast<uint32_t*>(&l);
+}
+
+// Wait until at most N of this thread's cp.async groups are still running.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Four 8 x 8 matrices of 16-bit values from shared memory: lanes 8 m .. 8 m
+// + 7 give the row addresses of matrix m (16 bytes each); r[m] gets lane
+// l's pair (row l / 4, columns 2 (l % 4), + 1) of it, or with trans the
+// pair (rows 2 (l % 4), + 1, column l / 4).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d (16 x 8, fp32) += a (16 x 16) b (16 x 8), b[0] rows 0-7 of b, b[1] rows 8-15.
+template <bool F16>
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  if constexpr (F16) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+        "{%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+        "{%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+}
+
+// The ldmatrix address of lane `lane` for the A fragment of rows r0 .. r0 +
+// 15, columns k0 .. k0 + 15 of a row-major 16-bit tile with rows `stride`
+// bytes apart (ldsm_x4 gives a[0..3]).
+__device__ __forceinline__ uint32_t frag_a_addr(uint32_t base, int stride, int r0, int k0,
+                                                int lane) {
+  return base + (r0 + lane % 16) * stride + (k0 + 8 * (lane / 16)) * 2;
+}
+// B fragments of two 8-column tiles n0 .. n0 + 15, depth k0 .. k0 + 15, of a
+// tile stored n-major (row n holds its k values contiguously, as K of
+// q K^T): ldsm_x4 at this address gives {b0, b1} of tile n0 in r[0], r[1]
+// and of tile n0 + 8 in r[2], r[3].
+__device__ __forceinline__ uint32_t frag_b_addr(uint32_t base, int stride, int n0, int k0,
+                                                int lane) {
+  return base + (n0 + lane % 8 + 8 * (lane / 16)) * stride + (k0 + 8 * ((lane / 8) % 2)) * 2;
+}
+// The same two tiles of a tile stored k-major (row k holds its n values
+// contiguously, as V of P V): ldsm_x4_t at this address.
+__device__ __forceinline__ uint32_t frag_bt_addr(uint32_t base, int stride, int n0, int k0,
+                                                 int lane) {
+  return base + (k0 + lane % 8 + 8 * ((lane / 8) % 2)) * stride + (n0 + 8 * (lane / 16)) * 2;
 }
 
 }  // namespace hopper

@@ -268,25 +268,7 @@ __device__ __forceinline__ uint32_t swz(int r, int c8) {
   return (c8 / 8) * kTcAtom + r * 128 + (((c8 % 8) ^ (r & 7)) << 4);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (a, b) -> three packed bf16 pairs: hi = bf16(v), mid = bf16(v - hi),
-// lo = bf16(v - hi - mid); each difference is exact in fp32.
-__device__ __forceinline__ void split3(float a, float b, uint32_t& hi, uint32_t& mid,
-                                       uint32_t& lo) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  a = __fsub_rn(a, hf.x);
-  b = __fsub_rn(b, hf.y);
-  __nv_bfloat162 m = __floats2bfloat162_rn(a, b);
-  const float2 mf = __bfloat1622float2(m);
-  hi = *reinterpret_cast<uint32_t*>(&h);
-  mid = *reinterpret_cast<uint32_t*>(&m);
-  lo = pack_bf16(__fsub_rn(a, mf.x), __fsub_rn(b, mf.y));
-}
+using hopper::split3;  // (a, b) -> packed bf16 hi, mid, lo pairs
 
 // Split 8 values into the three tiles at `dst` (tile_bytes apart), chunk
 // offset `off`.

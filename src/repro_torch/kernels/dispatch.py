@@ -30,12 +30,12 @@ On ``cuda`` the six differentiable ops (``segment_sum``,
 ``gmm``, ``ssd_chunk``) reach their kernels inside a
 ``torch.autograd.Function``: the forward launches the kernel.  For B1-B3 the backward is the JAX package's
 own ``custom_vjp`` backwards (``repro/kernels/dispatch.py``) written over
-the task-lane axis T, in plain einsums; for flash attention it is the VJP
-of the transcription the JAX trunk differentiates
-(``models/layers.py::attention_scores``), recomputed from the saved q, k
-and v; for gmm both backward products are grouped matmuls, and run on the
-gmm kernel itself; for ssd_chunk it is the VJP of the kernel's plain
-version, recomputed from the saved operands.  A kernel wrapper refuses a tensor that requires grad
+the task-lane axis T, in plain einsums; for flash attention and ssd_chunk
+it is a backward kernel of its own (the VJP of the transcription the JAX
+trunk differentiates, ``models/layers.py::attention_scores``, and of the
+kernel's plain version), from the saved operands; for gmm both backward
+products are grouped matmuls, and run on the gmm kernel itself.  A kernel
+wrapper refuses a tensor that requires grad
 anywhere else (:func:`repro_torch.kernels._checks.require_no_grad`), so a
 path that forgets its Function fails instead of training a frozen model.
 ``int8_matmul`` is forward only by contract.
@@ -306,35 +306,44 @@ def _attention_transcription():
 
 class _FlashAttention(torch.autograd.Function):
     """q (B, S, Hq, D), k, v (B, S, Hkv, D) -> (B, S, Hq, D) in q's dtype,
-    causal or not, through the kernel (``ops.flash_attention_gqa``).
+    causal or not, through the kernel (``ops.flash_attention_gqa``), which
+    also writes the rows' log-sum-exp for the backward.
 
-    Backward: the VJP of the transcription ``attention_scores`` with the
-    same mask (``causal``, ``window``), recomputed from the saved q, k and
-    v.  That transcription is what the JAX models differentiate: their
-    layers never call the Pallas kernel, which has no ``custom_vjp``, so
-    no backward kernel is owed.  The two sides round P differently in
-    16-bit dtypes: the forward rounds the un-normalised P in registers
-    before P V, the backward's recomputed P is the transcription's (softmax
-    in fp32, the normalised P rounded to v's dtype).  In fp32 both are the
-    same function to summation order."""
+    Backward: the backward kernel (``flash_attention_gqa_bwd``, on a CPU
+    tensor its closed form) from the saved q, k, v, output and lse, with
+    the same mask (``causal``, ``window``) and softcap; dq only where
+    ``needs_input_grad`` asks for q, dk and dv where it asks for k or v.
+    It computes the VJP of the transcription ``attention_scores``, which is
+    what the JAX models differentiate: their layers never call the Pallas
+    kernel, which has no ``custom_vjp``, so the reference owes no backward
+    kernel, and the port's is its own.  The two sides round P differently
+    in 16-bit dtypes: the forward rounds the un-normalised P in registers
+    before P V, the backward recomputes P normalised from the lse in fp32
+    and rounds it to v's dtype for dv (the transcription's rounding), and
+    rounds dS to q's dtype for dq and dk (the kernel's own).  In fp32 the
+    backward is the transcription's VJP to summation order."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap):
-        ctx.save_for_backward(q, k, v)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = _fa.flash_attention_gqa(q, k, v, causal=causal, window=window,
+                                         softcap=softcap, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window, ctx.softcap = causal, window, softcap
-        return _fa.flash_attention_gqa(q.contiguous(), k.contiguous(), v.contiguous(),
-                                       causal=causal, window=window, softcap=softcap)
+        ctx.set_materialize_grads(False)
+        return o
 
     @staticmethod
     def backward(ctx, g):
         need = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
-            qkv = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
-            out = _attention_transcription()(*qkv, causal=ctx.causal, window=ctx.window,
-                                             cap=ctx.softcap)
-            live = [t for t in qkv if t.requires_grad]
-            grads = iter(torch.autograd.grad(out, live, g)) if live else iter(())
-        return tuple(next(grads) if n else None for n in need) + (None, None, None)
+        if g is None or not any(need):
+            return (None,) * 6
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _fa.flash_attention_gqa_bwd(
+            q, k, v, o, lse, g.contiguous(), causal=ctx.causal, window=ctx.window,
+            softcap=ctx.softcap, need_dq=need[0], need_dkv=need[1] or need[2])
+        return (dq if need[0] else None, dk if need[1] else None, dv if need[2] else None,
+                None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -419,32 +428,30 @@ class _SSDChunk(torch.autograd.Function):
     (y_diag (G, Q, P), states (G, P, N), chunk_decay (G,), state_decay
     (G, Q)), all fp32, through the ssd_chunk kernel (B6).
 
-    Backward: the VJP of the kernel's plain version ``ssd_chunk_plain``,
-    recomputed from the saved x, dt, A, B and C (the pattern of
-    :class:`_FlashAttention`).  The JAX model differentiates its own
-    einsums (``models/mamba2.py::ssd_chunked``), which compute the same
-    function: the Pallas kernel has no ``custom_vjp``, so no backward kernel
-    is owed.  An output whose cotangent is None (or that no path reaches) is
-    left out of the VJP."""
+    Backward: the backward kernel (``ssd_scan.ssd_chunk_bwd``, on a CPU
+    tensor its closed form) from the saved x, dt, A, B and C; an output
+    whose cotangent is None (no path reaches it) is left out, and no zeros
+    are made for it.  It computes the VJP of ``ssd_chunk_plain``, the
+    function the JAX model differentiates through its own einsums
+    (``models/mamba2.py::ssd_chunked``): the Pallas kernel has no
+    ``custom_vjp``, so the reference owes no backward kernel, and the
+    port's is its own."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C):
-        ctx.save_for_backward(x, dt, A, B, C)
-        return _ssd.ssd_chunk(x.contiguous(), dt.contiguous(), A.contiguous(),
-                              B.contiguous(), C.contiguous())
+        ins = tuple(t.contiguous() for t in (x, dt, A, B, C))
+        ctx.save_for_backward(*ins)
+        ctx.set_materialize_grads(False)
+        return _ssd.ssd_chunk(*ins)
 
     @staticmethod
     def backward(ctx, *gs):
         need = ctx.needs_input_grad[:5]
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
-            live = [t for t in ins if t.requires_grad]
-            pairs = [(o, g) for o, g in zip(_ssd.ssd_chunk_plain(*ins), gs) if g is not None]
-            if not (live and pairs):
-                return (None,) * 5
-            outs, cots = zip(*pairs)
-            grads = iter(torch.autograd.grad(outs, live, cots, allow_unused=True))
-        return tuple(next(grads) if n else None for n in need)
+        if not any(need) or all(g is None for g in gs):
+            return (None,) * 5
+        ins = ctx.saved_tensors
+        grads = _ssd.ssd_chunk_bwd(*ins, *gs)
+        return tuple(g.to(t.dtype) if n else None for g, t, n in zip(grads, ins, need))
 
 
 def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,

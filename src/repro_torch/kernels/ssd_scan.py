@@ -19,6 +19,12 @@ read, ``"simt"`` (fp32 on the
 CUDA cores) otherwise.  This is a dispatch by dtype and layout, not a
 fallback: a launch that fails raises, and nothing retries it on the other
 route.
+
+The backward (``csrc/ssd_scan_bwd.cu``, :func:`ssd_chunk_bwd`) has the
+same two widths of routes, picked by :func:`ssd_bwd_route`: ``"mma"``
+(warp-level mma.sync on three-way bf16 splits) where the forward takes
+``"wgmma"``, ``"simt"`` otherwise.  Its plain version is the closed form
+:func:`ssd_chunk_bwd_plain`.
 """
 from __future__ import annotations
 
@@ -43,6 +49,70 @@ def ssd_chunk_plain(x, dt, A, B, C):
     return y.transpose(0, 1), st, cd, sd.transpose(0, 1)
 
 
+def ssd_chunk_bwd_plain(x, dt, A, B, C, gy=None, gst=None, gcd=None, gsd=None):
+    """The closed form of the backward: the cotangents gy (G, Q, P), gst (G,
+    P, N), gcd (G,), gsd (G, Q) of :func:`ssd_chunk`'s four outputs, each
+    None when missing -> (gx, gdt, gA, gB, gC) shaped as the inputs, in fp32
+    (fp64 for fp64 inputs).  Per chunk, with c = cumsum(dt A), L[l, s] =
+    exp(c_l - c_s) for l >= s, CB = C B^T, u = dt x, w = exp(c_last - c) dt:
+
+        G2 = (gy u^T) o L;  gu = (CB o L)^T gy
+        gC = G2 B;  gB = G2^T C + diag(w) x gst;  gx = dt gu + diag(w) B gst^T
+        gw = rowsum(x o B gst^T)
+        gc = rowsum(G2 o CB) - colsum(G2 o CB) - gw w + gsd exp(c),
+             plus sum(gw w) + gcd exp(c_last) at the last step
+        ga = reverse cumsum(gc);  gdt = rowsum(x o gu) + gw exp(c_last - c) + A ga
+        gA = sum(ga dt)"""
+    f = torch.promote_types(x.dtype, torch.float32)
+    x, dt, A, B, C = (t.to(f) for t in (x, dt, A, B, C))
+    q = x.shape[1]
+    c = torch.cumsum(dt * A[:, None], dim=1)                    # (G, Q)
+    last = c[:, -1:]
+    w = torch.exp(last - c) * dt
+    gx, gB, gC = torch.zeros_like(x), torch.zeros_like(B), torch.zeros_like(C)
+    gc, gdt = torch.zeros_like(dt), torch.zeros_like(dt)
+    if gy is not None:
+        gy = gy.to(f)
+        pos = torch.arange(q, device=x.device)
+        mask = pos[:, None] >= pos[None, :]
+        # exp only where l >= s: above the diagonal c_l - c_s > 0 may overflow
+        L = torch.where(mask, torch.exp(torch.where(mask, c[:, :, None] - c[:, None, :], 0.0)),
+                        0.0)
+        CB = C @ B.transpose(1, 2)
+        G2 = (gy @ (dt[..., None] * x).transpose(1, 2)) * L
+        gu = (CB * L).transpose(1, 2) @ gy
+        gC = G2 @ B
+        gB = G2.transpose(1, 2) @ C
+        E = G2 * CB
+        gc = E.sum(2) - E.sum(1)
+        gx = dt[..., None] * gu
+        gdt = (x * gu).sum(2)
+    if gst is not None:
+        gst = gst.to(f)
+        bg = B @ gst.transpose(1, 2)                            # (G, Q, P)
+        gx = gx + w[..., None] * bg
+        gB = gB + w[..., None] * (x @ gst)
+        gw = (x * bg).sum(2)
+        gc = gc - gw * w
+        gc[:, -1] += (gw * w).sum(1)
+        gdt = gdt + gw * torch.exp(last - c)
+    if gcd is not None:
+        gc[:, -1] += gcd.to(f) * torch.exp(last[:, 0])
+    if gsd is not None:
+        gc = gc + gsd.to(f) * torch.exp(c)
+    ga = torch.flip(torch.cumsum(torch.flip(gc, (1,)), dim=1), (1,))
+    gdt = gdt + A[:, None] * ga
+    return gx, gdt, (ga * dt).sum(1), gB, gC
+
+
+def _wgmma_shapes(x, dt, A, B, C) -> bool:
+    """The tensor-core routes' dtypes and widths (both directions)."""
+    q, p, n = x.shape[-2], x.shape[-1], B.shape[-1]
+    return (x.dtype in _DTYPES and 0 < q <= WGMMA_MAX_Q
+            and all(t.dtype == x.dtype for t in (dt, A, B, C))
+            and 0 < p <= WGMMA_MAX_P and p % 16 == 0 and 0 < n <= WGMMA_MAX_N and n % 16 == 0)
+
+
 def ssd_route(x, dt, A, B, C) -> str:
     """``"wgmma"`` for x, dt, A, B, C of one dtype of fp32/bf16/fp16, P and
     N multiples of 16 with P <= 64 and N <= 128, chunks of at most 512
@@ -51,20 +121,18 @@ def ssd_route(x, dt, A, B, C) -> str:
     bases and rows; the kernel reads them by 16-byte loads), else
     ``"simt"``.  A plain function of dtypes, shapes, strides and
     addresses."""
-    q, p, n = x.shape[-2], x.shape[-1], B.shape[-1]
-    tc = (x.dtype in _DTYPES and 0 < q <= WGMMA_MAX_Q and all(t.dtype == x.dtype for t in (dt, A, B, C))
-          and 0 < p <= WGMMA_MAX_P and p % 16 == 0 and 0 < n <= WGMMA_MAX_N
-          and n % 16 == 0)
-    return "wgmma" if tc and tma_ready(x, B, C) else "simt"
+    return "wgmma" if _wgmma_shapes(x, dt, A, B, C) and tma_ready(x, B, C) else "simt"
 
 
-def ssd_chunk(x, dt, A, B, C):
-    """x: (G, Q, P); dt: (G, Q); A: (G,); B, C: (G, Q, N), one dtype of
-    fp32/bf16/fp16 -> (y_diag (G, Q, P), states (G, P, N), chunk_decay (G,),
-    state_decay (G, Q)), all fp32."""
-    if x.device.type == "cpu":
-        return ssd_chunk_plain(x, dt, A, B, C)
-    require_no_grad("ssd_chunk", x, dt, A, B, C, missing="dispatch._SSDChunk")
+def ssd_bwd_route(x, dt, A, B, C) -> str:
+    """The backward's route: ``"mma"`` where :func:`ssd_route` gives
+    ``"wgmma"`` (the same dtypes, widths and alignment), else ``"simt"``.
+    A plain function of dtypes, shapes, strides and addresses."""
+    return "mma" if _wgmma_shapes(x, dt, A, B, C) and tma_ready(x, B, C) else "simt"
+
+
+def _checked(x, dt, A, B, C):
+    """The kernels' argument checks on x, dt, A, B, C -> (G, Q, P, N)."""
     check_tensor("x", x, 3, _DTYPES, x.device)
     for name, t, nd in (("dt", dt, 2), ("A", A, 1), ("B", B, 3), ("C", C, 3)):
         check_tensor(name, t, nd, (x.dtype,), x.device)
@@ -75,6 +143,17 @@ def ssd_chunk(x, dt, A, B, C):
             lambda: f"x {tuple(x.shape)}, dt {tuple(dt.shape)}, A {tuple(A.shape)}, "
             f"B {tuple(B.shape)}, C {tuple(C.shape)}")
     require(q > 0, "empty chunk")
+    return g, q, p, n
+
+
+def ssd_chunk(x, dt, A, B, C):
+    """x: (G, Q, P); dt: (G, Q); A: (G,); B, C: (G, Q, N), one dtype of
+    fp32/bf16/fp16 -> (y_diag (G, Q, P), states (G, P, N), chunk_decay (G,),
+    state_decay (G, Q)), all fp32."""
+    if x.device.type == "cpu":
+        return ssd_chunk_plain(x, dt, A, B, C)
+    require_no_grad("ssd_chunk", x, dt, A, B, C, missing="dispatch._SSDChunk")
+    g, q, p, n = _checked(x, dt, A, B, C)
     route = ssd_route(x, dt, A, B, C)
     f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty((g, q, p), **f32)
@@ -86,3 +165,45 @@ def ssd_chunk(x, dt, A, B, C):
                   _DTYPES.index(x.dtype), g, q, p, n, _build.ROUTES.index(route),
                   stream(x.device), route=route)
     return y, st, cd, sd
+
+
+def ssd_chunk_bwd(x, dt, A, B, C, gy=None, gst=None, gcd=None, gsd=None):
+    """The backward of :func:`ssd_chunk`: x, dt, A, B, C as there and the
+    fp32 cotangents of its outputs, gy (G, Q, P), gst (G, P, N), gcd (G,),
+    gsd (G, Q), each None when missing (no zeros are made for it) -> (gx,
+    gdt, gA, gB, gC) fp32, shaped as the inputs.  On a CUDA tensor one
+    launch of the backward kernel, counted under ``ssd_chunk_bwd`` (and its
+    route)."""
+    if x.device.type == "cpu":
+        return ssd_chunk_bwd_plain(x, dt, A, B, C, gy, gst, gcd, gsd)
+    require_no_grad("ssd_chunk_bwd", x, dt, A, B, C, gy, gst, gcd, gsd)
+    g, q, p, n = _checked(x, dt, A, B, C)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    cots = []
+    for name, t, shape in (("gy", gy, (g, q, p)), ("gst", gst, (g, p, n)), ("gcd", gcd, (g,)),
+                           ("gsd", gsd, (g, q))):
+        if t is not None:
+            t = t.float().contiguous()
+            if t.data_ptr() % 16:   # the 16-byte loads of the "mma" route
+                t = t.clone()
+            check_tensor(name, t, len(shape), (torch.float32,), x.device)
+            require(t.shape == shape, lambda: f"{name} {tuple(t.shape)}, want {shape}")
+        cots.append(t)
+    gy, gst, gcd, gsd = cots
+    route = ssd_bwd_route(x, dt, A, B, C)
+    # the kernel takes fp32 (its math is fp32 either way): 16-bit inputs,
+    # which no model path gives it, are widened here
+    x, dt, A, B, C = (t.float() for t in (x, dt, A, B, C))
+    # what the kernel leaves unwritten (no cotangent reaches it) is zero
+    gs = gy is not None or gst is not None
+    gx = (torch.empty if gs else torch.zeros)((g, q, p), **f32)
+    gB = (torch.empty if gs else torch.zeros)((g, q, n), **f32)
+    gC = (torch.empty if gy is not None else torch.zeros)((g, q, n), **f32)
+    gdt = torch.empty((g, q), **f32)
+    gA = torch.empty((g,), **f32)
+    scratch = torch.empty((4, g, q), **f32)
+    _build.launch("rt_ssd_chunk_bwd", "ssd_chunk_bwd", ptr(x), ptr(dt), ptr(A), ptr(B), ptr(C),
+                  ptr(gy), ptr(gst), ptr(gcd), ptr(gsd), ptr(gx), ptr(gdt), ptr(gA), ptr(gB),
+                  ptr(gC), ptr(scratch), g, q, p, n, _build.ROUTES.index(route),
+                  stream(x.device), route=route)
+    return gx, gdt, gA, gB, gC

@@ -9,6 +9,7 @@ shape) cell and the serving layouts' payloads and chooser
 """
 from repro_torch.roofline.analysis import (PRODUCTION_MESHES, SERVING_LAYOUTS, analyze_cell,
                                            attn_pairs, collective_wire_bytes, ep_layer_payloads,
+                                           flash_bwd_work, ssd_bwd_work,
                                            lm_step_collective_s,
                                            lm_serve_payloads, lm_step_payloads, load_table,
                                            mesh_serve_flops, mesh_state_bytes, mesh_step_flops,
@@ -33,7 +34,7 @@ from repro_torch.roofline.constants import (BF16_FLOPS, FP8_FLOPS, FP16_FLOPS, F
 __all__ = [
     "BF16_FLOPS", "FP8_FLOPS", "FP16_FLOPS", "FP32_FLOPS", "HBM_BYTES", "HBM_BYTES_PER_S",
     "IB_BYTES_PER_S", "INT8_OPS", "NVLINK_BYTES_PER_S", "PRODUCTION_MESHES", "SERVING_LAYOUTS",
-    "TF32_FLOPS", "analyze_cell", "attn_pairs", "collective_wire_bytes", "ep_layer_payloads",
+    "TF32_FLOPS", "analyze_cell", "attn_pairs", "collective_wire_bytes", "flash_bwd_work", "ssd_bwd_work", "ep_layer_payloads",
     "lm_step_collective_s",
     "lm_serve_payloads", "lm_step_payloads", "load_table", "mesh_serve_flops",
     "mesh_state_bytes", "mesh_step_flops", "moe_serve_payloads", "record_row",

@@ -78,6 +78,36 @@ def attn_pairs(s: int, causal: bool, window) -> int:
     return sum(min(q + 1, window) for q in range(s))
 
 
+def flash_bwd_work(b: int, s: int, hq: int, hkv: int, d: int, itemsize: int, causal: bool,
+                   window) -> tuple:
+    """(bytes, FLOPs) of flash attention's backward (``flash_attention_gqa_bwd``)
+    on q, o, do (b, s, hq, d), k, v (b, s, hkv, d): q, k, v, o, do and the
+    fp32 lse (b, hq, s) read once, dq, dk and dv written once, in the
+    inputs' dtype; 10 d FLOPs a seen (query, key) pair of a query head (q
+    k^T and do v^T recomputed, dv, dk and dq: five products of 2 d), as
+    :func:`attn_pairs` counts the pairs."""
+    nbytes = itemsize * (4 * b * s * hq * d + 4 * b * s * hkv * d) + 4 * b * hq * s
+    return nbytes, 10.0 * d * b * hq * attn_pairs(s, causal, window)
+
+
+def ssd_bwd_work(g: int, q: int, p: int, n: int, itemsize: int,
+                 cotangents=(True, True, True, True)) -> tuple:
+    """(bytes, FLOPs) of the SSD chunk's backward (``ssd_chunk_bwd``) on G
+    chunks of q steps: x, dt, A, B, C read once in their dtype, the fp32
+    cotangents that are given (gy, gst, gcd, gsd) read once, the fp32 gx,
+    gdt, gA, gB, gC written once; the products counted once below the
+    diagonal (C B^T, gy u^T, M^T gy, G2 B, G2^T C: 2 (3 n + 2 p) FLOPs a pair
+    (l >= s) with gy) and the state's two (B gst^T, x gst: 4 q p n with
+    gst)."""
+    gy, gst, gcd, gsd = cotangents
+    ins = itemsize * (q * p + q + 1 + 2 * q * n)
+    cots = 4 * (gy * q * p + gst * p * n + gcd + gsd * q)
+    outs = 4 * (q * p + q + 1 + 2 * q * n)
+    pairs = q * (q + 1) // 2
+    flops = gy * 2.0 * pairs * (3 * n + 2 * p) + gst * 4.0 * q * p * n
+    return g * (ins + cots + outs), g * flops
+
+
 # -- training state ----------------------------------------------------------
 
 def state_bytes(n_params: int, state_dtype: str, param_dtype: str) -> int:

@@ -290,9 +290,10 @@ def test_mamba2_backbone_raises_naming_a14c():
 def test_flash_attention_op_forward_and_backward(window, cap):
     """``dispatch.flash_attention`` on ``cuda`` with CPU tensors: the
     Function's forward (the kernel's plain version) within TOL_FWD of the
-    transcription, its backward (the VJP of the transcription recomputed
-    from q, k, v) bit-equal to autograd through the transcription; a
-    tensor that needs no gradient gets none."""
+    transcription, its backward (the backward kernel's closed form,
+    ``flash_attention_gqa_bwd_plain``, from the forward's output and lse)
+    bit-equal to that closed form and within TOL_FWD of autograd through the
+    transcription; a tensor that needs no gradient gets none."""
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(2, 24, h, 16, generator=g) for h in (4, 2, 2))
     dout = torch.randn(2, 24, 4, 16, generator=g)
@@ -307,11 +308,14 @@ def test_flash_attention_op_forward_and_backward(window, cap):
     got, grads = run(lambda *a: td.flash_attention(*a, window=window, softcap=cap,
                                                    backend="cuda"))
     assert _rel(got, want) <= TOL_FWD
-    for a, b in zip(grads, wgrads):
-        assert torch.equal(a, b)
+    kw = dict(causal=True, window=window, softcap=cap)
+    o, lse = tfa.flash_attention_gqa_plain(q, k, v, with_lse=True, **kw)
+    closed = tfa.flash_attention_gqa_bwd_plain(q, k, v, o, lse, dout, **kw)
+    for a, b, w in zip(grads, closed, wgrads):
+        assert torch.equal(a, b) and _rel(a, w) <= TOL_FWD
     _, part = run(lambda *a: td.flash_attention(*a, window=window, softcap=cap,
                                                 backend="cuda"), (False, True, False))
-    assert part[0] is None and part[2] is None and torch.equal(part[1], wgrads[1])
+    assert part[0] is None and part[2] is None and torch.equal(part[1], closed[1])
     ref = td.flash_attention(q, k, v, window=window, softcap=cap, backend="ref")
     assert torch.equal(ref, L.attention_scores(q, k, v, causal=True, window=window, cap=cap))
 

@@ -29,9 +29,9 @@ import torch
 from repro.kernels import ops as jops
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import check_tensor, stored_transposed
-from repro_torch.kernels.flash_attention import flash_route
+from repro_torch.kernels.flash_attention import flash_bwd_route, flash_route
 from repro_torch.kernels.gmm import gmm_route
-from repro_torch.kernels.ssd_scan import ssd_route
+from repro_torch.kernels.ssd_scan import ssd_bwd_route, ssd_route
 
 pytestmark = pytest.mark.torch_port
 torch.set_num_threads(1)
@@ -168,6 +168,23 @@ FLASH_CASES = {
 def test_flash_route(case):
     make, want = FLASH_CASES[case]
     assert flash_route(*make()) == want
+
+
+# the backward's route: "mma" wherever the forward's is "wgmma", with the
+# output's cotangent (laid out as q) readable too
+FLASH_BWD_CASES = {
+    **{k: (lambda make=make: (*make(), torch.empty_like(make()[0])),
+           "mma" if want == "wgmma" else "simt") for k, (make, want) in FLASH_CASES.items()},
+    "do base off 16 bytes": (lambda: (*_gqa(128, BF), _offset((1, 8, 4, 128), BF)), "simt"),
+    "do fp16 under bf16 q": (lambda: (*_gqa(128, BF), torch.zeros(1, 8, 4, 128, dtype=F16)),
+                             "simt"),
+}
+
+
+@pytest.mark.parametrize("case", list(FLASH_BWD_CASES))
+def test_flash_bwd_route(case):
+    make, want = FLASH_BWD_CASES[case]
+    assert flash_bwd_route(*make()) == want
 
 
 # ---------------------------------------------------------------------------
@@ -309,6 +326,14 @@ SSD_CASES = {
 def test_ssd_route(case):
     make, want = SSD_CASES[case]
     assert ssd_route(*make()) == want
+
+
+@pytest.mark.parametrize("case", list(SSD_CASES))
+def test_ssd_bwd_route(case):
+    """The backward's route is "mma" exactly where the forward's is
+    "wgmma": the same dtypes, widths, chunk length and alignment."""
+    make, want = SSD_CASES[case]
+    assert ssd_bwd_route(*make()) == ("mma" if want == "wgmma" else "simt")
 
 
 def _split3(t: torch.Tensor):

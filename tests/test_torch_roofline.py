@@ -577,3 +577,41 @@ def test_mesh_payloads_count_the_expert_parallel_layer():
     assert got["all_gather/model"] == 2 * (x // m) + x // m + 2 * (x // m) + x // m
     assert got["all_reduce/model"] == d * cfg.moe.n_experts * 2 + 2 * 4
     assert got["all_reduce/data"] == 2 * 4
+
+
+# the backward kernels' work at the training steps' shapes, reckoned by hand:
+# gemma2-2b's (B 2, S 4608, 8 / 4 heads of 256, bf16) local layers (window
+# 4096: 4096 * 4097 / 2 + 512 * 4096 pairs a head) and global layers (4608 *
+# 4609 / 2), 10 * 256 FLOPs a pair; bytes (4 * 2 * 4608 * (8 + 4) * 256) * 2
+# + 4 * 2 * 8 * 4608.  mamba2-780m's SSD (G 1536, Q 256, P 64, N 128, fp32):
+# a chunk reads 4 * (256 * 64 + 256 + 1 + 2 * 256 * 128) bytes of inputs, 4 *
+# (256 * 64 + 64 * 128 + 1 + 256) of cotangents and writes the inputs' size
+# again; 2 * 32896 * (3 * 128 + 2 * 64) + 4 * 256 * 64 * 128 FLOPs
+@pytest.mark.parametrize("args,want", [
+    ((2, 4608, 8, 4, 256, 2, True, 4096),
+     (2 * 4 * 2 * 4608 * 12 * 256 + 4 * 2 * 8 * 4608,
+      10.0 * 256 * 2 * 8 * (4096 * 4097 // 2 + 512 * 4096))),
+    ((2, 4608, 8, 4, 256, 2, True, None),
+     (2 * 4 * 2 * 4608 * 12 * 256 + 4 * 2 * 8 * 4608,
+      10.0 * 256 * 2 * 8 * (4608 * 4609 // 2))),
+    ((8, 1500, 8, 8, 64, 2, False, None),
+     (2 * 4 * 8 * 1500 * 16 * 64 + 4 * 8 * 8 * 1500, 10.0 * 64 * 8 * 8 * 1500 * 1500)),
+])
+def test_flash_bwd_work_by_hand(args, want):
+    assert R.flash_bwd_work(*args) == want
+
+
+def test_ssd_bwd_work_by_hand():
+    ins = 4 * (256 * 64 + 256 + 1 + 2 * 256 * 128)
+    cots = 4 * (256 * 64 + 64 * 128 + 1 + 256)
+    flops = 2.0 * 32896 * (3 * 128 + 2 * 64) + 4.0 * 256 * 64 * 128
+    assert R.ssd_bwd_work(1536, 256, 64, 128, 4) == (1536 * (2 * ins + cots), 1536 * flops)
+    # gy alone: no state term, gy's bytes only
+    nbytes, f = R.ssd_bwd_work(1792, 256, 64, 64, 4, (True, False, False, False))
+    assert nbytes == 1792 * (2 * 4 * (256 * 64 + 256 + 1 + 2 * 256 * 64) + 4 * 256 * 64)
+    assert f == 1792 * 2.0 * 32896 * (3 * 64 + 2 * 64)
+    # the bounds: bytes for the SSD (0.347 ms), operations for gemma2-2b's
+    # attention (0.434 and 0.440 ms) at the data sheet's rates
+    assert R.bound_ms(*R.ssd_bwd_work(1536, 256, 64, 128, 4), R.BF16_FLOPS)[1] == "bytes"
+    ms, by = R.bound_ms(*R.flash_bwd_work(2, 4608, 8, 4, 256, 2, True, 4096), R.BF16_FLOPS)
+    assert by == "operations" and abs(ms - 0.4344) < 1e-3

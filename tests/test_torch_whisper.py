@@ -49,6 +49,7 @@ from repro_torch.bridge import (is_conv_weight, lm_cache_from_numpy, lm_params_f
 from repro_torch.common.tree import tree_leaves, tree_paths, tree_rebuild
 from repro_torch.configs import registry as treg
 from repro_torch.kernels import dispatch as td
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.models import layers as L
 from repro_torch.models import whisper as TW
 from repro_torch.models.registry import get_api
@@ -311,8 +312,10 @@ def test_flash_attention_op_without_the_causal_mask(s):
     """``dispatch.flash_attention(causal=False)`` on ``cuda`` with CPU
     tensors at a ragged S: the Function's forward (the kernel's plain
     version) within TOL of the transcription ``attention_scores(causal=
-    False)``, its backward (that transcription's VJP, recomputed) bit-equal
-    to autograd through it, and different from the causal one's."""
+    False)``, its backward (the backward kernel's closed form,
+    ``flash_attention_gqa_bwd_plain``, from the forward's output and lse)
+    bit-equal to that closed form and within TOL of autograd through the
+    transcription, and different from the causal one's."""
     g = torch.Generator().manual_seed(s)
     q, k, v = (torch.randn(2, s, h, 16, generator=g) for h in (4, 2, 2))
     dout = torch.randn(2, s, 4, 16, generator=g)
@@ -326,8 +329,10 @@ def test_flash_attention_op_without_the_causal_mask(s):
     want, wgrads = run(lambda *a: L.attention_scores(*a, causal=False))
     got, grads = run(lambda *a: td.flash_attention(*a, causal=False, backend="cuda"))
     assert _rel(got, want) <= TOL
-    for a, b in zip(grads, wgrads):
-        assert torch.equal(a, b)
+    o, lse = tfa.flash_attention_gqa_plain(q, k, v, with_lse=True, causal=False)
+    closed = tfa.flash_attention_gqa_bwd_plain(q, k, v, o, lse, dout, causal=False)
+    for a, b, w in zip(grads, closed, wgrads):
+        assert torch.equal(a, b) and _rel(a, w) <= TOL
     causal, cgrads = run(lambda *a: td.flash_attention(*a, causal=True, backend="cuda"))
     assert _rel(causal, want) > 1e-2 and _rel(cgrads[1], wgrads[1]) > 1e-2
     assert torch.equal(td.flash_attention(q, k, v, causal=False, backend="ref"), want)
