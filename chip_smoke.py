@@ -148,7 +148,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the reference trains gets a gradient, B5 launched on "wgmma" in the
    forward (the H pass, the complement chunks, the queries) and in the
    backward (the checkpoints' recompute), its backward kernel (K5b) on
-   "mma" once a layer but the first of each differentiated pass (dq and
+   "wgmma" once a layer but the first of each differentiated pass (dq and
    dk / dv each time; the first layer's q, k, v need no gradient) and
    nothing else in the backward, and B1-B3 (B3 on its "stream" route) in
    the differentiated step; two faults planted on the outputs of B5's
@@ -176,7 +176,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``LM_GATE`` times the bf16 ``ref`` run's own error, every leaf gets a
    gradient, B5 launched once a layer in the forward and once in the
    checkpoints' recompute, all on "wgmma", with the window on the local
-   layers and none on the global ones, its backward kernel on "mma" once
+   layers and none on the global ones, its backward kernel on "wgmma" once
    a layer, and nothing else launched; a second identical step on the
    kernels that must give the same bits; three faults planted on the
    outputs of B5's backward kernel (phase 5c's two, and the kernel called
@@ -232,7 +232,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    kernel path's loss and worst leaf are within ``LM_GATE`` times the
    bf16 ``ref`` run's own error, B6 launched on "wgmma" once a layer in
    the forward and once in the checkpoints' recompute, its backward
-   kernel (K6b) on "mma" once a layer, and nothing else, and a second
+   kernel (K6b) on "wgmma" once a layer, and nothing else, and a second
    identical step gave the same bits; a fault planted on the output of
    B6's backward kernel (dt's gradient zeroed for head 0) that the gate
    must flag; two steps of ``make_train_step`` through ``train()``
@@ -241,7 +241,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    full width on 12 of its 81 layers (two shared sites, B 2, S 2048) the
    same way, B5 once a site in the forward on "wgmma" (its head dim 112
    runs the 128-wide tensor-core kernel) and its backward kernel once a
-   site on "mma", without the fault; Simple CNAPs and ProtoNets (``tokens``
+   site on "wgmma", without the fault; Simple CNAPs and ProtoNets (``tokens``
    encoder) over mamba2-780m at full width (Simple CNAPs at full depth,
    ProtoNets, which trains every weight, at 12 of 48 layers), phase 5c's tasks
    and gate, B6 once a layer a pass (inside its Function where the trunk
@@ -324,7 +324,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    routes, time each beside its bound, its closed form and, where there
    is no softcap, SDPA's backward (``torch.autograd.grad`` through it,
    its forward timed apart and subtracted), and fail unless every path
-   shape took "mma";
+   shape took "wgmma";
 6b. LM decode serving (``repro_torch.serve.engine.ServeEngine``) of
    minitron-4b at full width and 8 of its 32 layers (cut to keep the
    whole run within its time), random weights drawn on the card
@@ -413,7 +413,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    kernels, on ``ref`` in bf16 and in fp32 compute, phase 5f's gate (every
    leaf against its own bf16 error), failing unless B5 launched 12 times
    in the forward and 12 in the checkpoints' recompute (6 bidirectional
-   each), all on "wgmma", its backward kernel 12 times on "mma", and
+   each), all on "wgmma", its backward kernel 12 times on "wgmma", and
    nothing else; a fault planted on B5's backward kernel (called with the
    causal mask on the encoder's attention) that the gate must flag; two steps through ``train()`` (losses, ms a step, tokens/s,
    peak memory; launches counted on exactly that run) and one profiled
@@ -3307,13 +3307,13 @@ def b5_roles(launches):
                 backward=bwd.get("flash_attention_bwd", 0),
                 dq=bwd.get("flash_attention_bwd/dq", 0), dkv=bwd.get("flash_attention_bwd/dkv", 0),
                 wgmma=fwd.get("flash_attention/wgmma", 0) + bwd.get("flash_attention/wgmma", 0),
-                mma=bwd.get("flash_attention_bwd/mma", 0))
+                bwd_wgmma=bwd.get("flash_attention_bwd/wgmma", 0))
 
 
 def b5_bwd_want(n: int) -> dict:
     """The counts of ``n`` calls of B5's backward kernel on the tensor
     cores, each computing dq and dk / dv."""
-    return {"flash_attention_bwd": n, "flash_attention_bwd/mma": n,
+    return {"flash_attention_bwd": n, "flash_attention_bwd/wgmma": n,
             "flash_attention_bwd/dq": n, "flash_attention_bwd/dkv": n} if n else {}
 
 
@@ -3507,14 +3507,14 @@ def run_lm_train(dev, launches):
     want_k5b = 2 * (n_layers - 1)
     roles = b5_roles(r["launches"])
     want = dict(forward=want_fwd, recompute=want_bwd, backward=want_k5b, dq=want_k5b,
-                dkv=want_k5b, wgmma=want_fwd + want_bwd, mma=want_k5b)
+                dkv=want_k5b, wgmma=want_fwd + want_bwd, bwd_wgmma=want_k5b)
     print(f"  train lm: B5 launches by role {roles}", flush=True)
     if roles != want:
         fail(f"train lm: B5 launches forward {fwd}, backward {bwd}, by role {roles}; want "
              f"{want}: {want_fwd} in the forward (the H pass, {chunks} complement chunks, "
              f"the queries), {want_bwd} in the backward (the checkpoints' recompute of the H "
              f"pass and the queries) all on wgmma, and {want_k5b} of the backward kernel "
-             f"(dq and dk / dv each; none for the first layer) on mma")
+             f"(dq and dk / dv each; none for the first layer) on wgmma")
     _need("train lm forward", fwd, ("segment_sum", "class_second_moment", "mahalanobis"))
     if fwd.get("mahalanobis/stream") != fwd.get("mahalanobis"):
         fail(f"train lm: the Mahalanobis head did not take the stream route: {fwd}")
@@ -3675,7 +3675,7 @@ def check_pretrain_launches(label, cfg, r, want_fwd: int, want_bwd: int, seq: in
     """Fail unless B5 launched ``want_fwd`` times in the forward and
     ``want_bwd`` in the backward (the recompute), all on "wgmma", its
     backward kernel ``want_k5b`` times (default ``want_fwd``: every layer's
-    attention is differentiated) on "mma", dq and dk / dv each time,
+    attention is differentiated) on "wgmma", dq and dk / dv each time,
     nothing else launched, and the forward's windows were the config's layer
     by layer (the local window on the even layers, none on the odd; a window
     of at least ``seq`` keys is none), the checkpoints' recompute the same
@@ -3687,7 +3687,7 @@ def check_pretrain_launches(label, cfg, r, want_fwd: int, want_bwd: int, seq: in
     got = {part: r[part] for part in ("forward", "backward")}
     if got != want:
         fail(f"{label}: launches {got}; want {want} (B5 on wgmma, its backward kernel on "
-             f"mma, and nothing else)")
+             f"wgmma, and nothing else)")
     layer = [w if w < seq else None for w in layer_windows(cfg)]
     for part, calls, order in zip(("forward", "backward"), r["windows"], (1, -1)):
         if calls and calls != layer[::order]:
@@ -3751,7 +3751,7 @@ def pretrain_loop(cfg, dev, seq: int = PRETRAIN_SEQ, want=None, categories=None,
     checkpoint, the launch counts set to 0 just before and read just
     after, which must be ``want`` (default: B5 on "wgmma" in the forward
     and the checkpoints' recompute of every layer, its backward kernel on
-    "mma" once a layer, and nothing else); then
+    "wgmma" once a layer, and nothing else); then
     one step timed and one profiled (device time by ``categories``,
     default LM_CATEGORIES)."""
     import torch
@@ -4510,10 +4510,10 @@ SSM_TRAIN_LAYERS = 24            # mamba2-780m in phase 5f (all 48 before phase 
 ZAMBA_TRAIN_SEQ = 2048
 def ssm_bwd_want(cfg, passes: int = 1):
     """The backward kernels' launches of ``passes`` differentiated passes:
-    B6's (K6b) on "mma" once a mamba layer, B5's (K5b) on "mma" once a
+    B6's (K6b) on "wgmma" once a mamba layer, B5's (K5b) on "wgmma" once a
     shared site, dq and dk / dv each time."""
     nm, sites, _ = ssm_shape(cfg)
-    return {"ssd_chunk_bwd": passes * nm, "ssd_chunk_bwd/mma": passes * nm} \
+    return {"ssd_chunk_bwd": passes * nm, "ssd_chunk_bwd/wgmma": passes * nm} \
         | b5_bwd_want(passes * sites)
 
 
@@ -4641,12 +4641,12 @@ def ssm_episodic(dev, launches):
         want = (passes * n, n_bwd)
         got = tuple((part.get("ssd_chunk", 0), part.get("ssd_chunk/wgmma", 0)) for part in
                     (fwd, bwd))
-        k6b = (bwd.get("ssd_chunk_bwd", 0), bwd.get("ssd_chunk_bwd/mma", 0))
+        k6b = (bwd.get("ssd_chunk_bwd", 0), bwd.get("ssd_chunk_bwd/wgmma", 0))
         if got != tuple((w, w) for w in want) or k6b != (n_bwd, n_bwd) or any(
                 not k.startswith("ssd_chunk") for k in bwd):
             fail(f"train ssm {kind}: launches forward {fwd}, backward {bwd}; want B6 on "
                  f"wgmma {want[0]} times in the forward ({passes} passes of {n} layers) and "
-                 f"{want[1]} in the backward, its backward kernel on mma {n_bwd} times, and "
+                 f"{want[1]} in the backward, its backward kernel on wgmma {n_bwd} times, and "
                  f"nothing else there")
         _need(f"train ssm {kind} forward", fwd, kernels)
         out[kind] = r
@@ -6135,7 +6135,7 @@ def ssd_bwd_case(g, dev, label, gg, q, p, n, dtype=None, main=False, cots=(1, 1,
     return dict(label=label, fn=ssd.ssd_chunk_bwd, plain=ssd.ssd_chunk_bwd_plain, lib=None,
                 route=route, args=(x, dt, A, B, C, *cot), tol=BWD_TOL["ssd_chunk_bwd"],
                 main=main, iters=iters, bytes=nbytes, flops=flops,
-                peak=BF16_FLOPS if route == "mma" else FP32_FLOPS)
+                peak=BF16_FLOPS if route == "wgmma" else FP32_FLOPS)
 
 
 def bwd_fp64_held(case):
@@ -6157,9 +6157,11 @@ def backward_kernel_specs(dev):
     takes them: B5's (K5b) at gemma2-2b's step (phase 5d), minitron-4b's
     LITE H pass and queries (5c), whisper-base's encoder and decoder (6e)
     and zamba2-7b's shared block (5f), bf16, beside SDPA's backward where
-    there is no softcap; B6's (K6b) at mamba2-780m's and zamba2-7b's steps
-    (5f), fp32 operands, held against fp64, and on a chunk whose Q is not a
-    multiple of 64."""
+    there is no softcap, and at ragged shapes (among them the tensor-core
+    route's hardest tile edges: D 256 causal with a window at S 333, and
+    fp16 D 64 bidirectional at S 1493); B6's (K6b) at mamba2-780m's and
+    zamba2-7b's steps (5f), fp32 operands, held against fp64, and on a chunk
+    whose Q is not a multiple of 64."""
     import torch
     g = torch.Generator(device="cpu").manual_seed(10)
 
@@ -6194,6 +6196,10 @@ def backward_kernel_specs(dev):
                causal=True),
             fl("ragged B2 S130 Hq2 Hkv1 D96 window30 non-causal", 2, 130, 2, 1, 96, bf,
                causal=False, window=30),
+            fl("ragged B1 S333 Hq4 Hkv2 D256 window100 causal", 1, 333, 4, 2, 256, bf,
+               causal=True, window=100),
+            fl("ragged B2 S1493 Hq4 Hkv4 D64 fp16 non-causal", 2, 1493, 4, 4, 64, f16,
+               causal=False),
             fl("ragged B2 S100 Hq4 Hkv2 D128 fp16 causal", 2, 100, 4, 2, 128, f16,
                causal=True),
             fl("ragged B2 S77 Hq4 Hkv2 D64 fp32 cap5 (simt)", 2, 77, 4, 2, 64, f32,
@@ -7562,7 +7568,7 @@ def check_whisper_step(label, cfg, r):
     """Fail unless one step launched B5 on "wgmma" once a layer of each
     stack in the forward (the encoder's bidirectional over the frames, the
     decoder's causal over the tokens) and once a layer in the checkpoints'
-    recompute (the decoder's blocks first), its backward kernel on "mma"
+    recompute (the decoder's blocks first), its backward kernel on "wgmma"
     once a layer, and nothing else."""
     n = cfg.n_encoder_layers + cfg.n_layers
     want = {"flash_attention": n, "flash_attention/wgmma": n}
@@ -8286,7 +8292,7 @@ def main() -> int:
     ops_rows, ops_planted = run_ops_path(dev, launches)
     planted += ops_planted
     bwd_rows = check_kernels(backward_kernel_specs(dev))
-    for name, route in (("flash_attention_bwd", "mma"), ("ssd_chunk_bwd", "mma")):
+    for name, route in (("flash_attention_bwd", "wgmma"), ("ssd_chunk_bwd", "wgmma")):
         mains = [t["route"] for t in bwd_rows[name]["cases"]]
         if mains != [route] * len(mains):
             fail(f"{name}: the path shapes took routes {mains}, not {route}")
@@ -8480,13 +8486,16 @@ KERNEL_MS_GMM = (("kimi-k2 gate E384 C32 D7168 F2048", 384, 32, 7168, 2048),
                  ("kimi-k2 ops E8 C512 D7168 F2048", 8, 512, 7168, 2048))
 
 
-# the two Functions' backwards at phase 5d's and 5f's shapes: (label, B, S,
-# Hq, Hkv, D, keywords) of B5 in bf16, (label, G, P, N) of B6 (Q 256, fp32)
+# the two Functions' backwards at phase 5d's and 5f's shapes, and B5's at
+# the whisper encoder's (6e) and minitron-4b's H pass (5c): (label, B, S, Hq,
+# Hkv, D, keywords) of B5 in bf16, (label, G, P, N) of B6 (Q 256, fp32)
 KERNEL_MS_FLASH_BWD = (
     ("gemma2-2b local B2 S4608 D256", 2, 4608, 8, 4, 256,
      dict(causal=True, window=4096, softcap=50.0)),
     ("gemma2-2b global B2 S4608 D256", 2, 4608, 8, 4, 256, dict(causal=True, softcap=50.0)),
-    ("zamba2-7b train B2 S2048 D112", 2, 2048, 32, 32, 112, dict(causal=True)))
+    ("zamba2-7b train B2 S2048 D112", 2, 2048, 32, 32, 112, dict(causal=True)),
+    ("whisper-base encoder train B8 S1500 D64", 8, 1500, 8, 8, 64, dict(causal=False)),
+    ("minitron-4b LITE H pass B16 S256 D128", 16, 256, 24, 8, 128, dict(causal=True)))
 KERNEL_MS_SSD_BWD = (("mamba2-780m train G1536 P64 N128", 1536, 64, 128),
                      ("zamba2-7b train G1792 P64 N64", 1792, 64, 64))
 

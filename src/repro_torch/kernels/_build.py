@@ -33,9 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # the route argument of the kernels that have two (gmm, flash attention,
 # ssd_chunk and the two backwards): its code is the index here.  "wgmma":
-# the forward kernels' warpgroup products; "mma": the backward kernels'
-# warp-level mma.sync
-ROUTES = ("simt", "wgmma", "mma")
+# warpgroup products on the tensor cores; "simt": the CUDA cores
+ROUTES = ("simt", "wgmma")
 
 # C entry point -> argument types after the pointers (all return cudaError_t)
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -51,14 +50,14 @@ _SIGNATURES = {
     "rt_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _L, _L, _L, _L, _L, _L, _I, _I, _I, _F, _F, _I, _P),
     # q, k, v, o, lse, dout, dq, dk, dv, delta, ..., need_dq, need_dkv,
-    # route (0 "simt", 2 "mma"), stream
+    # route (0 "simt", 1 "wgmma"), stream
     "rt_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _L, _L, _L, _L, _L, _L, _I, _I, _I, _F, _F, _I, _I, _I, _P),
     # ..., E, C, D, F, x stored transposed, w stored transposed, route, stream
     "rt_gmm": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "rt_ssd_chunk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, dt, A, B, C (fp32), gy, gst, gcd, gsd (each or null), gx, gdt, gA,
-    # gB, gC, scratch, G, Q, P, N, route (0 "simt", 2 "mma"), stream
+    # gB, gC, scratch, G, Q, P, N, route (0 "simt", 1 "wgmma"), stream
     "rt_ssd_chunk_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _P),
 }

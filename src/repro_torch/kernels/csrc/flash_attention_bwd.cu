@@ -26,38 +26,74 @@
 // dq, dk, dv out) are 0.23 GB (`roofline.flash_bwd_work`).
 //
 // Deterministic, with no atomics: three kernels, each output written once.
-//   * delta: one warp a query row, rowsum(dO o O) in fp32.
-//   * dkv: one block per (64-key tile, b * Hkv + kv head), which loops over
-//     the Hq / Hkv query heads of its group and the 64-row query tiles the
-//     mask leaves (the causal diagonal and the window skip the rest), and
-//     keeps dK and dV of its keys in registers.
-//   * dq: one block per (64-row query tile, b * Hq + h), the last tiles
-//     first, which loops over the key tiles the mask leaves, as the forward
-//     does, and keeps dQ in registers.
-// Each recomputes S and dP, as FlashAttention-2's backward does.
+//   * delta: rowsum(dO o O) in fp32, 16-byte loads of 16-bit rows where the
+//     layout allows (else one warp a row).
+//   * dkv: one block per (key tile, b * Hkv + kv head), key tile 0 first
+//     (under the causal mask it sees the most query tiles), which loops
+//     over the Hq / Hkv query heads of its group and the 64-row query tiles
+//     the mask leaves (the causal diagonal and the window skip the rest),
+//     and keeps dK and dV of its keys in registers.
+//   * dq: one block per (query tile, b * Hq + h), the last tiles first,
+//     which loops over the key tiles the mask leaves, as the forward does,
+//     and keeps dQ in registers.
+// Each recomputes S and dP, as FlashAttention-2's backward does: 14 D FLOPs
+// a seen pair issued against the 10 D counted.
 //
 // Two routes, chosen by the caller (kernels/flash_attention.py:
 // flash_bwd_route) from dtype, layout and head dim before the launch:
 //
-// "mma" (bf16 / fp16, D of 64, 96, 112, 128 or 256, 16-byte-aligned bases
-// and strides; its kernels in flash_attention_bwd_mma.cu, built in
-// parallel with this file): warp-level mma.sync (m16n8k16) with ldmatrix
-// from padded shared-memory tiles (rows 16 bytes longer than the tile, so
-// the 8 rows of one ldmatrix fall in different banks).  Four warps take 16
-// rows each of the block's fixed tile (keys in dkv, query rows in dq); at
-// D = 256 the output columns are split over two warp sets (eight warps),
-// because a 16 x 256 fp32 accumulator pair (dK and dV) would be 256
-// registers a thread: each set computes the scores of half the other
-// tile's rows and the sets trade P and dS, rounded to 16 bits, through
-// shared memory.  The looped tiles are double-buffered by cp.async: the
-// next tile's copies run under this tile's products.  S and dP stay in the
-// accumulator registers; P and dS become the A fragments of the next
-// products in registers (rounded to the input dtype, dS's rounding being
-// the one the plain version does not make, 2^-9 relative in bf16).  Head
-// dims 96 and 112 run the D = 128 template on zero-filled columns (the
-// copies zero fill past d), whose products are skipped.
+// "wgmma" (bf16 / fp16, D of 64, 96, 112, 128 or 256, 16-byte-aligned bases
+// and strides; its kernels in flash_attention_bwd_wgmma.cu, built in
+// parallel with this file), on the forward's "wgmma" parts
+// (flash_attention.cu): 4-D TMA tensor maps over (D, S, H, B) by the
+// tensors' own strides, so GQA needs no copy and rows past S arrive as
+// zeros; a producer warpgroup, one thread of which keeps a ring of tiles
+// in flight on mbarriers and which gives its registers to the consumers
+// (setmaxnreg); consumer warpgroups on wgmma, the fp32 scores and their
+// elementwise work on the accumulator fragments in registers.  What bound
+// the warp-level mma.sync route it replaces (1.6-3.8x SDPA's backward,
+// 9-15 % of its bound): every warp reloading the other tile's B fragments
+// from shared memory for its own 16 rows, copies issued by every thread,
+// and, above all, the elementwise pass: a mask test around each element's
+// exp made a branch of every element, which took three quarters of the
+// time (measured by building the kernels without that pass).  Here one
+// wgmma per 16-deep slice reads each operand once for a warpgroup's 64
+// rows, one thread issues each tile's copies, p and dS are taken for every
+// element of a tile and the mask (only on tiles that cross S, the causal
+// diagonal or the window's edge) zeroes them by selects, and the exp is
+// the special function unit's, its results below 2^-126 flushed to 0.
+//   * dkv at D <= 128: 128 keys a block, 64 a consumer warpgroup, each
+//     computing its keys' four products: S^T = K q^T and dP^T = V dO^T
+//     (both operands K-major, one commit), P^T and dS^T on the fragments,
+//     then dV += P^T dO and dK += dS^T q with A from registers and B read
+//     N-major, as the forward reads V.  A query tile (q, dO) loaded once
+//     serves 128 keys; a ring of 3 (D 128) or 4 (D 64) stages.
+//   * dkv at D = 256, where dK and dV of 64 keys are 256 fp32 a thread: 64
+//     keys a block, split by product, which keeps registers in bounds (a
+//     thread holds a 64 x 64 score tile and one 64 x D accumulator, 32 +
+//     128 fp32, as the forward's consumer does): warpgroup 0 computes S^T
+//     and owns dV, warpgroup 1 computes dP^T and owns dK.  P^T (times 1 -
+//     tanh^2 under the softcap: the factor dS takes from S) passes from 0
+//     to 1 as fp32 through a 16 KB tile in shared memory, each thread's 32
+//     values in the slots of its fragment, under two named barriers.
+//   In both, the lse and Delta of a stage's rows are written to shared
+//   memory by the producer warp's lanes, which arrive on the stage's
+//   barrier beside the TMA bytes.
+//   * dq: one warpgroup per 64 query rows (two at D <= 128, one at D = 256,
+//     where q, dO and two stages of K and V take 192 KB), 128 keys a tile
+//     at D = 64 (64 above), a ring of 3 stages (2 at D = 256): S = q K^T
+//     and dP = dO V^T, dS on the fragments, dQ += dS K with K read N-major.
+//     With two warpgroups they take turns at the tensor cores, as the
+//     forward's do: a turn issues dQ += dS K of the last tile and S, dP of
+//     this one, then waits once.
+// P and dS are rounded to the input dtype in registers before they enter a
+// product (dS's rounding is the one the plain version does not make, 2^-9
+// relative in bf16).  Rows past S read lse = +inf, so their p is exactly 0.
+// Head dims 96 and 112 run the D = 128 template: the tensor maps span the
+// true head dim, TMA zero fills the columns up to 128, and the outputs'
+// columns past d are not stored.
 //
-// "simt" (fp32, other head dims, or a layout 16-byte loads cannot read):
+// "simt" (fp32, other head dims, or a layout TMA cannot read):
 // fp32 on the CUDA cores, 32 x 32 tiles, 256 threads.  The score tile
 // is formed in shared memory, one (query, key) pair of dot products a
 // thread at a time, then each thread accumulates D / 8 columns of one row
@@ -68,8 +104,9 @@ namespace {
 
 using namespace flash_bwd;
 
-// ---- Delta = rowsum(dO o O): one warp a row (b, h, s) -------------------
+// ---- Delta = rowsum(dO o O) ---------------------------------------------
 
+// One warp a row (b, h, s), any dtype and layout.
 template <typename T>
 __global__ void __launch_bounds__(256)
     flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
@@ -84,6 +121,34 @@ __global__ void __launch_bounds__(256)
 #pragma unroll
   for (int m = 16; m > 0; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
   if (lane == 0) delta[row] = acc;
+}
+
+// 16-bit rows of D % 8 == 0 values at 16-byte-aligned addresses: C lanes a
+// row (D / 8 rounded up to a power of two), each reading 16 bytes of o and
+// of dO, so a warp takes 32 / C rows in two loads a lane; the C lanes' sums
+// are added by shuffles in a fixed order.
+template <typename T, int C>
+__global__ void __launch_bounds__(256)
+    flash_bwd_delta_vec_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                               float* __restrict__ delta, int Hq, int S, int D, long long sb,
+                               long long sh, long long ss, int rows) {
+  const int lane = threadIdx.x % 32, c = lane % C;
+  const int row = (blockIdx.x * 8 + threadIdx.x / 32) * (32 / C) + lane / C;
+  float acc = 0.f;
+  if (row < rows && 8 * c < D) {
+    const int s = row % S, bh = row / S;
+    const size_t off =
+        (size_t)(bh / Hq) * sb + (size_t)(bh % Hq) * sh + (size_t)s * ss + 8 * (size_t)c;
+    const uint4 a = *reinterpret_cast<const uint4*>(o + off);
+    const uint4 b = *reinterpret_cast<const uint4*>(dout + off);
+    const T* x = reinterpret_cast<const T*>(&a);
+    const T* y = reinterpret_cast<const T*>(&b);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc = fmaf(to_f32(x[k]), to_f32(y[k]), acc);
+  }
+#pragma unroll
+  for (int m = C / 2; m > 0; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
+  if (row < rows && c == 0) delta[row] = acc;
 }
 
 // ---- the "simt" route ----------------------------------------------------
@@ -274,8 +339,25 @@ __global__ void __launch_bounds__(kSThreads)
 template <typename T>
 int launch_delta(const Args& a, const Att& at, cudaStream_t st) {
   const int rows = a.B * a.Hq * at.S;
-  flash_bwd_delta_kernel<T><<<(rows + 7) / 8, 256, 0, st>>>(
-      (const T*)a.o, (const T*)a.dout, a.delta, a.Hq, at.S, at.D, a.q_sb, a.q_sh, a.q_ss, rows);
+  const bool vec = sizeof(T) == 2 && at.D % 8 == 0 &&
+                   (((uintptr_t)a.o | (uintptr_t)a.dout) % 16) == 0 &&
+                   (a.q_sb | a.q_sh | a.q_ss) % 8 == 0;
+  const int c = at.D <= 64 ? 8 : at.D <= 128 ? 16 : 32;
+#define RT_DELTA_VEC(C)                                                                      \
+  flash_bwd_delta_vec_kernel<T, C><<<(rows + 8 * (32 / C) - 1) / (8 * (32 / C)), 256, 0, st>>>( \
+      (const T*)a.o, (const T*)a.dout, a.delta, a.Hq, at.S, at.D, a.q_sb, a.q_sh, a.q_ss, rows)
+  if (vec && c == 8) {
+    RT_DELTA_VEC(8);
+  } else if (vec && c == 16) {
+    RT_DELTA_VEC(16);
+  } else if (vec) {
+    RT_DELTA_VEC(32);
+  } else {
+    flash_bwd_delta_kernel<T><<<(rows + 7) / 8, 256, 0, st>>>(
+        (const T*)a.o, (const T*)a.dout, a.delta, a.Hq, at.S, at.D, a.q_sb, a.q_sh, a.q_ss,
+        rows);
+  }
+#undef RT_DELTA_VEC
   return (int)cudaGetLastError();
 }
 
@@ -319,7 +401,7 @@ int launch_simt_d(const Args& a, const Att& at, cudaStream_t st) {
 // sequence; D contiguous); k, v, dk, dv: (B, S, Hkv, D) by kv_*; lse and
 // delta (scratch): (B, Hq, S) fp32, lse the forward's row log-sum-exp.  One
 // dtype: 0 fp32, 1 bf16, 2 fp16.  window < 0 means none.  need_dq /
-// need_dkv: which outputs to compute.  route 0 = "simt", 2 = "mma" (bf16 /
+// need_dkv: which outputs to compute.  route 0 = "simt", 1 = "wgmma" (bf16 /
 // fp16, D of 64, 96, 112, 128 or 256, 16-byte-aligned bases and strides).
 // Returns the cudaError_t of the first launch that failed, else 0.
 extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
@@ -332,7 +414,7 @@ extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* 
                                       int route, void* stream) {
   if (B == 0 || Hq == 0 || S == 0 || (!need_dq && !need_dkv)) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > 256) return (int)cudaErrorInvalidValue;
-  if (route != 0 && route != 2) return (int)cudaErrorInvalidValue;
+  if (route != 0 && route != 1) return (int)cudaErrorInvalidValue;
   Att at;
   at.S = S;
   at.D = D;
@@ -354,11 +436,11 @@ extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* 
     case 1:
       e = launch_delta<__nv_bfloat16>(a, at, st);
       if (e != 0) return e;
-      return route == 2 ? run_mma(a, at, dtype, st) : launch_simt_d<__nv_bfloat16>(a, at, st);
+      return route == 1 ? run_wgmma(a, at, dtype, st) : launch_simt_d<__nv_bfloat16>(a, at, st);
     case 2:
       e = launch_delta<__half>(a, at, st);
       if (e != 0) return e;
-      return route == 2 ? run_mma(a, at, dtype, st) : launch_simt_d<__half>(a, at, st);
+      return route == 1 ? run_wgmma(a, at, dtype, st) : launch_simt_d<__half>(a, at, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,8 +1,8 @@
 // Flash attention's backward: what its two translation units share.
 // flash_attention_bwd.cu holds Delta's kernel, the "simt" route and the
-// entry point; flash_attention_bwd_mma.cu the "mma" route (two files, so
-// that nvcc builds them in parallel).  See flash_attention_bwd.cu for the
-// function, the bound and the design.
+// entry point; flash_attention_bwd_wgmma.cu the "wgmma" route (two files,
+// so that nvcc builds them in parallel).  See flash_attention_bwd.cu for
+// the function, the bound and the design.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -97,9 +97,9 @@ struct Args {
   int need_dq, need_dkv;
 };
 
-// The "mma" route's dkv and dq kernels (flash_attention_bwd_mma.cu) for
-// dtype 1 (bf16) or 2 (fp16), after Delta's kernel; the cudaError_t of the
-// first launch that failed, else 0.
-int run_mma(const Args& a, const Att& at, int dtype, cudaStream_t st);
+// The "wgmma" route's dkv and dq kernels (flash_attention_bwd_wgmma.cu)
+// for dtype 1 (bf16) or 2 (fp16), after Delta's kernel; the cudaError_t of
+// the first launch that failed, else 0.
+int run_wgmma(const Args& a, const Att& at, int dtype, cudaStream_t st);
 
 }  // namespace flash_bwd

@@ -1,16 +1,16 @@
 // The Hopper (sm_90a) parts shared by the tensor-core kernels (gmm.cu,
-// flash_attention.cu and ssd_scan.cu; mahalanobis.cu and int8_matmul.cu use
-// its mbarriers and cp.async): TMA tensor maps made on the host,
+// flash_attention.cu, flash_attention_bwd_wgmma.cu, ssd_scan.cu and
+// ssd_scan_bwd.cu; mahalanobis.cu and int8_matmul.cu use its mbarriers and
+// cp.async): TMA tensor maps made on the host,
 // mbarriers, TMA tile loads into 128-byte-swizzled shared memory and TMA
 // tile stores out of it, wgmma shared-memory descriptors, cp.async and the
 // async-proxy fence for tiles that threads write, wgmma fence / commit /
 // wait, named barriers, register rebalancing between warpgroups
 // (setmaxnreg), and the wgmma.mma_async
 // instructions (m64nNk16, bf16 or fp16 in, fp32 accumulate) for N = 64, 128
-// and 256, with A from shared memory (K- or M-major) or from registers; and
-// for the backward kernels (flash_attention_bwd*.cu, ssd_scan_bwd.cu) the
-// warp-level mma.sync (m16n8k16) with ldmatrix, and the three-way bf16
-// split of fp32 operands.
+// and 256 (and 32 with A from shared memory, for ssd_scan_bwd.cu), with A
+// from shared memory (K- or M-major) or from registers; and the three-way
+// bf16 split of fp32 operands (ssd_scan.cu, ssd_scan_bwd.cu).
 //
 // Shared-memory tiles.  Every operand tile is loaded by TMA (or written by
 // threads in the same layout, ssd_scan.cu) with
@@ -317,11 +317,20 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #define HP_ACC8(i)                                                                   \
   "+f"(d[(i) + 0]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), "+f"(d[(i) + 4]), \
       "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
+#define HP_ACC16 HP_ACC8(0), HP_ACC8(8)
 #define HP_ACC32_AT(i) HP_ACC8(i), HP_ACC8((i) + 8), HP_ACC8((i) + 16), HP_ACC8((i) + 24)
 #define HP_ACC32 HP_ACC32_AT(0)
 #define HP_ACC64 HP_ACC32_AT(0), HP_ACC32_AT(32)
 #define HP_ACC128 HP_ACC32_AT(0), HP_ACC32_AT(32), HP_ACC32_AT(64), HP_ACC32_AT(96)
 
+#define HP_WGMMA_SS_N32(TY)                                                        \
+  asm volatile(                                                                    \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                                 \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." #TY "." #TY " "                  \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}," \
+      " %16, %17, p, 1, 1, %19, %20;\n}\n"                                          \
+      : HP_ACC16                                                                   \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB))
 #define HP_WGMMA_SS_N64(TY)                                                        \
   asm volatile(                                                                    \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                 \
@@ -414,8 +423,10 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 template <int N, bool F16, int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
                                          int scale_d) {
-  static_assert(N == 64 || N == 128 || N == 256, "wgmma N");
-  if constexpr (N == 64) {
+  static_assert(N == 32 || N == 64 || N == 128 || N == 256, "wgmma N");
+  if constexpr (N == 32) {
+    if constexpr (F16) HP_WGMMA_SS_N32(f16); else HP_WGMMA_SS_N32(bf16);
+  } else if constexpr (N == 64) {
     if constexpr (F16) HP_WGMMA_SS_N64(f16); else HP_WGMMA_SS_N64(bf16);
   } else if constexpr (N == 128) {
     if constexpr (F16) HP_WGMMA_SS_N128(f16); else HP_WGMMA_SS_N128(bf16);
@@ -440,14 +451,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 }
 
 // ---------------------------------------------------------------------------
-// device: warp-level mma.sync (m16n8k16, bf16 or fp16 in, fp32 accumulate)
-// and ldmatrix, for the backward kernels (flash_attention_bwd.cu,
-// ssd_scan_bwd.cu).  Lane l of a warp holds rows l / 4 and l / 4 + 8 and
-// columns 2 (l % 4) + c of the 16 x 8 accumulator: d[2 i + c] for row
-// l / 4 + 8 i.  An A fragment (16 x 16) packs two such accumulators of
-// adjacent 8-column tiles: a[0] = tile 0 row l / 4, a[1] = tile 0 row
-// l / 4 + 8, a[2], a[3] the same of tile 1, each the 16-bit values of
-// (d[2 i], d[2 i + 1]), the first in the low half.
+// device: the three-way bf16 split of fp32 operands
 // ---------------------------------------------------------------------------
 
 // fp32 operands on bf16 tensor cores (ssd_scan.cu, ssd_scan_bwd.cu):
@@ -465,68 +469,6 @@ __device__ __forceinline__ void split3(float a, float b, uint32_t& hi, uint32_t&
   hi = *reinterpret_cast<uint32_t*>(&h);
   mid = *reinterpret_cast<uint32_t*>(&m);
   lo = *reinterpret_cast<uint32_t*>(&l);
-}
-
-// Wait until at most N of this thread's cp.async groups are still running.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-// Four 8 x 8 matrices of 16-bit values from shared memory: lanes 8 m .. 8 m
-// + 7 give the row addresses of matrix m (16 bytes each); r[m] gets lane
-// l's pair (row l / 4, columns 2 (l % 4), + 1) of it, or with trans the
-// pair (rows 2 (l % 4), + 1, column l / 4).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d (16 x 8, fp32) += a (16 x 16) b (16 x 8), b[0] rows 0-7 of b, b[1] rows 8-15.
-template <bool F16>
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  if constexpr (F16) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-        "{%8, %9}, {%0, %1, %2, %3};"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-        "{%8, %9}, {%0, %1, %2, %3};"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-}
-
-// The ldmatrix address of lane `lane` for the A fragment of rows r0 .. r0 +
-// 15, columns k0 .. k0 + 15 of a row-major 16-bit tile with rows `stride`
-// bytes apart (ldsm_x4 gives a[0..3]).
-__device__ __forceinline__ uint32_t frag_a_addr(uint32_t base, int stride, int r0, int k0,
-                                                int lane) {
-  return base + (r0 + lane % 16) * stride + (k0 + 8 * (lane / 16)) * 2;
-}
-// B fragments of two 8-column tiles n0 .. n0 + 15, depth k0 .. k0 + 15, of a
-// tile stored n-major (row n holds its k values contiguously, as K of
-// q K^T): ldsm_x4 at this address gives {b0, b1} of tile n0 in r[0], r[1]
-// and of tile n0 + 8 in r[2], r[3].
-__device__ __forceinline__ uint32_t frag_b_addr(uint32_t base, int stride, int n0, int k0,
-                                                int lane) {
-  return base + (n0 + lane % 8 + 8 * (lane / 16)) * stride + (k0 + 8 * ((lane / 8) % 2)) * 2;
-}
-// The same two tiles of a tile stored k-major (row k holds its n values
-// contiguously, as V of P V): ldsm_x4_t at this address.
-__device__ __forceinline__ uint32_t frag_bt_addr(uint32_t base, int stride, int n0, int k0,
-                                                 int lane) {
-  return base + (k0 + lane % 8 + 8 * ((lane / 8) % 2)) * stride + (n0 + 8 * (lane / 16)) * 2;
 }
 
 }  // namespace hopper

@@ -23,37 +23,63 @@
 // 128, fp32): its bytes (x, B, C and the cotangents in, the five gradients
 // out: 0.76 MB a chunk, 1.16 GB a call, `roofline.ssd_bwd_work`) at 3.35
 // TB/s, 0.347 ms; its products, counted once, are 2 Q (Q + 1) / 2 (3 N + 2
-// P) + 4 Q P N FLOPs a chunk, 0.065 TFLOP a call.  The route below issues
-// six part products for each and recomputes C B^T and gy u^T in both of
-// its tile passes, about 0.5 PFLOP of bf16 mma a call.
+// P) + 4 Q P N FLOPs a chunk, 0.065 TFLOP a call.  The tensor-core route
+// below issues six part products for each and recomputes C B^T and gy u^T
+// in both of its tile passes, about 0.5 PFLOP of bf16 products a call, 0.5
+// ms at the 989 TFLOP/s of bf16 tensor cores.  On the H100 the products
+// took half of its time at that shape (read by building it without them);
+// the other half is the work around them in one block an SM (its 199 KB of
+// shared memory allow no second): the chunk's cumsum and the strip's split
+// at each block's start, the split of each streamed tile, the sums'
+// exchange at its end.
 //
 // Deterministic, with no atomics: three kernels, each output written once.
-//   * "l": one block per (64-row tile i of l, chunk).  For each tile j <= i
-//     of s: CB and gM of the (i, j) tile (recomputed), G2, the row sums of
-//     G2 o CB, and gC_i += G2 B_j in registers.  Writes gC and the row sums.
-//   * "s": one block per (tile j of s, chunk).  For each tile i >= j: CB^T
-//     and gM^T, G2^T and M^T, the column sums, gB_j += G2^T C_i and gu_j +=
-//     M^T gy_i; then the state's terms (B gst^T, x gst).  Writes gx, gB and
-//     per step the column sums, gw and sum_p x o gu.
+//   * "l": one block per (64-row strip i of l, chunk), the last strips (the
+//     longest) first.  For each tile j <= i of s: CB and gM of the (i, j)
+//     tile (recomputed), G2, the row sums of G2 o CB, and gC_i += G2 B_j.
+//     Writes gC and the row sums.
+//   * "s": one block per (strip j of s, chunk), strip 0 first.  For each
+//     tile i >= j: CB^T and gM^T, G2^T and M^T, the column sums, gB_j +=
+//     G2^T C_i and gu_j += M^T gy_i; then the state's terms (B gst^T, x
+//     gst).  Writes gx, gB and per step the column sums, gw and sum_p x o gu.
 //   * "fin": one block per chunk: the O(Q) rest (gc, the reverse cumsum,
 //     gdt, gA), from those per-step sums.
 // A missing cotangent is a flag: "l" does not run without gy, "s" without
-// gy and gst, and their terms are left out.
+// gy and gst, and their terms are left out.  Every sum runs in a fixed
+// order.
 //
 // Two routes, chosen by the caller (kernels/ssd_scan.py: ssd_bwd_route) from
 // dtype, widths and alignment before the launch, as the forward's:
 //
-// "mma" (P and N multiples of 16, P <= 64, N <= 128, Q <= 512, 16-byte
-// aligned bases): four strips of 16 rows a block, warp-level mma.sync
-// (m16n8k16, bf16) on padded shared-memory tiles; at N > 64 each strip is
-// shared by two warps that take half of the other tile's 64 steps and add
-// their partial sums in shared memory at the end (in a fixed order).  fp32 accuracy as the
-// forward gets it: every operand, the inputs and the fp32 intermediates
-// (G2, M) alike, enters as three bf16 parts, hi = bf16(v), mid = bf16(v -
-// hi), lo = bf16(v - hi - mid); a product sums the six leading part
-// products, and each 16-deep slice is summed alone by the tensor cores and
-// added to its accumulator in fp32 on the CUDA cores (their own fp32 sum
+// "wgmma" (P and N multiples of 16, P <= 64, N <= 128, Q <= 512, 16-byte
+// aligned bases), on the forward's "wgmma" parts (ssd_wgmma.cuh).  fp32
+// accuracy as the forward gets it: every operand, the inputs and the fp32
+// intermediates (G2, M, w o x) alike, enters as three bf16 parts, hi =
+// bf16(v), mid = bf16(v - hi), lo = bf16(v - hi - mid); a product sums the
+// six leading part products, each 16-deep slice summed alone by the tensor
+// cores and added to its accumulator in fp32 (their own fp32 sum
 // truncates).  u = dt o x is taken as x with dt applied to the product.
+// What bound the warp-level mma.sync route it replaces (11 % of its bytes
+// bound): each streamed tile copied and split synchronously (two barriers a
+// tile, no copy under the products), every warp reloading the other tile's
+// fragments for its own 16 rows, and one block an SM with nothing to hide
+// the loads.  Here a block of two warpgroups takes one 64-row strip: its
+// fixed tiles (C_i and gy_i in "l", B_j and x_j in "s") are split once into
+// 128-byte-swizzled planes, and the streamed tile pair's fp32 rows are
+// copied by cp.async under the current tile's products, then split by all
+// threads.  Warpgroup h computes the 64 x 32 half of each score tile at
+// columns 32 h .. 32 h + 31 (wgmma m64n32, both operands K-major) and the
+// accumulating products over those 32 steps (A from the split fragments in
+// registers, B read N-major): both warpgroups issue the same products, and
+// each holds one 64 x NT accumulator (and in "s" the 64 x 64 gu) over half
+// the steps.  The halves are added in shared memory at the end, warpgroup
+// 0's first.  A whole strip per warpgroup, as the forward's y kernel runs
+// it, would need both strips' fixed tiles and the streamed pair's planes
+// and staging, 266 KB at N 128.  In "s", gst's rows are staged under the
+// last tile's products and split into C_i's planes.  The elementwise work
+// (G2, M) takes exp of every element, of values clamped into the chunk, and
+// the mask by a select: a condition around the exp made a branch of every
+// element.  c = cumsum(dt A) is kept in fp64 (chunk_c).
 //
 // "simt" (other widths, Q past 512, layouts 16-byte loads cannot read):
 // fp32 on the CUDA cores, the same three kernels on 32-row tiles, 256
@@ -64,45 +90,55 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "ssd_wgmma.cuh"
 
 namespace {
 
+using namespace ssd_wgmma;
+
 // In-place inclusive scan of v[0, Q) (reverse: from the end) by warp 0 of
-// the block: lane t adds its ceil(Q / 32) consecutive values in order, the
-// lanes' totals are scanned by shuffles, and each lane adds the totals
-// before it.  Every thread of the block must reach the barriers around it.
-__device__ __forceinline__ void warp_scan(float* v, int Q, bool reverse) {
+// the block, added in fp64 and rounded to F once per value: lane t adds its
+// ceil(Q / 32) consecutive values in order, the lanes' totals are scanned by
+// shuffles, and each lane adds the totals before it.  Every thread of the
+// block must reach the barriers around it.
+template <typename F>
+__device__ __forceinline__ void warp_scan(F* v, int Q, bool reverse) {
   if (threadIdx.x >= 32) return;
   const int lane = threadIdx.x, K = (Q + 31) / 32;
-  auto at = [&](int i) -> float& { return v[reverse ? Q - 1 - i : i]; };
-  float run = 0.f;
+  auto at = [&](int i) -> F& { return v[reverse ? Q - 1 - i : i]; };
+  double run = 0.0;
+  for (int k = 0; k < K; ++k) {
+    const int i = lane * K + k;
+    if (i < Q) run += at(i);
+  }
+  double inc = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const double up = __shfl_up_sync(0xffffffffu, inc, off);
+    if (lane >= off) inc += up;
+  }
+  run = inc - run;  // the totals of the lanes before
   for (int k = 0; k < K; ++k) {
     const int i = lane * K + k;
     if (i < Q) {
       run += at(i);
-      at(i) = run;
+      at(i) = (F)run;
     }
-  }
-  float inc = run;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float up = __shfl_up_sync(0xffffffffu, inc, off);
-    if (lane >= off) inc += up;
-  }
-  const float excl = inc - run;
-  for (int k = 0; k < K; ++k) {
-    const int i = lane * K + k;
-    if (i < Q) at(i) += excl;
   }
 }
 
-// dt of chunk g into dts[0, Q) and c = cumsum(dt A) into c[0, Q); ends
-// with a barrier.
-__device__ __forceinline__ void chunk_c(const float* __restrict__ dt, float a, float* dts, float* c,
+// dt of chunk g into dts[0, Q) and c = cumsum(dt A) into c[0, Q) (C:
+// float on the "simt" route; double on the "wgmma" route and in the
+// finishing kernel, where each dt A is exact and c is rounded once, so that
+// exp(c_l - c_s) is taken of an exact difference: |c| reaches a few hundred
+// in a chunk, where fp32 holds it to 1.5e-5, which moved the gradients by
+// twice the fp32 plain version's own error); ends with a barrier.
+template <typename C>
+__device__ __forceinline__ void chunk_c(const float* __restrict__ dt, float a, float* dts, C* c,
                                         int Q) {
   for (int i = threadIdx.x; i < Q; i += blockDim.x) {
     dts[i] = dt[i];
-    c[i] = dts[i] * a;
+    c[i] = (C)dts[i] * (C)a;
   }
   __syncthreads();
   warp_scan(c, Q, false);
@@ -127,38 +163,38 @@ __global__ void __launch_bounds__(32)
                        const float* __restrict__ gcd, const float* __restrict__ gsd,
                        float* __restrict__ gdt, float* __restrict__ gA, int Q, int has_l,
                        int has_s) {
-  extern __shared__ float fsm[];
-  float* dts = fsm;
-  float* c = dts + Q;
-  float* gc = c + Q;
+  extern __shared__ double fsm[];
+  double* c = fsm;
+  float* dts = reinterpret_cast<float*>(c + Q);
+  float* gc = dts + Q;
   const int g = blockIdx.x, lane = threadIdx.x;
   const size_t gq = (size_t)g * Q;
   const float a = A[g];
   chunk_c(dt + gq, a, dts, c, Q);
-  const float last = c[Q - 1];
+  const double last = c[Q - 1];
   float tot = 0.f;  // sum of gw o w
   for (int s = lane; s < Q; s += 32) {
     float v = 0.f;
     if (has_l) v += rs[gq + s];
     if (has_s) {
-      const float w = expf(last - c[s]) * dts[s];
+      const float w = expf((float)(last - c[s])) * dts[s];
       v -= cs[gq + s] + gw[gq + s] * w;
       tot += gw[gq + s] * w;
     }
-    if (gsd != nullptr) v += gsd[gq + s] * expf(c[s]);
+    if (gsd != nullptr) v += gsd[gq + s] * (float)exp(c[s]);
     gc[s] = v;
   }
 #pragma unroll
   for (int m = 16; m > 0; m >>= 1) tot += __shfl_xor_sync(0xffffffffu, tot, m);
   __syncwarp();
-  if (lane == 0) gc[Q - 1] += tot + (gcd != nullptr ? gcd[g] * expf(last) : 0.f);
+  if (lane == 0) gc[Q - 1] += tot + (gcd != nullptr ? gcd[g] * (float)exp(last) : 0.f);
   __syncwarp();
   warp_scan(gc, Q, true);  // ga
   __syncwarp();
   float ga_dt = 0.f;
   for (int s = lane; s < Q; s += 32) {
     float v = a * gc[s];
-    if (has_s) v += xgu[gq + s] + gw[gq + s] * expf(last - c[s]);
+    if (has_s) v += xgu[gq + s] + gw[gq + s] * expf((float)(last - c[s]));
     gdt[gq + s] = v;
     ga_dt += gc[s] * dts[s];
   }
@@ -365,452 +401,405 @@ __global__ void __launch_bounds__(kSThreads)
   }
 }
 
-// ---- the "mma" route -----------------------------------------------------
+// ---- the "wgmma" route ---------------------------------------------------
 //
-// Every operand tile is 64 rows of W (64 or NT) bf16 columns, rows padded by
-// 16 bytes, in three planes (hi, mid, lo) one after the other.
+// Tiles as the forward's (ssd_wgmma.cuh): 64 rows of NT (N rounded up to
+// 64 or 128) or 64 bf16 columns in the 128-byte swizzle, three planes (hi,
+// mid, lo) each, written by threads.
 
-constexpr int kMT = 64;
+constexpr int kWgThreads = 256;  // two warpgroups a block
 
-template <int W>
-__host__ __device__ constexpr int row_bytes() { return (W + 8) * 2; }
-template <int W>
-__host__ __device__ constexpr int plane_bytes() { return kMT * row_bytes<W>(); }
-template <int W>
-__host__ __device__ constexpr int tile3_bytes() { return 3 * plane_bytes<W>(); }
-
-using hopper::split3;  // (a, b) -> packed bf16 hi, mid, lo pairs
-
-// 8 floats at p (16-byte aligned).
-__device__ __forceinline__ void get8(const float* p, float (&f)[8]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-}
-
-// Rows [r0, r0 + 64) of the (rows, cols) row-major tensor at src (cols a
-// multiple of 16, 16-byte-aligned rows) into the three planes at dst,
-// zeros past rows and past cols.
-template <int W>
-__device__ __forceinline__ void load3(const float* __restrict__ src, int r0, int rows, int cols,
-                                      uint8_t* dst) {
-  constexpr int kChunks = W / 8;
-  for (int i = threadIdx.x; i < kMT * kChunks; i += blockDim.x) {
-    const int r = i / kChunks, c8 = i % kChunks;
-    float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (r0 + r < rows && 8 * c8 < cols) get8(src + (size_t)(r0 + r) * cols + 8 * c8, f);
-    uint4 h, m, l;
-    split3(f[0], f[1], h.x, m.x, l.x);
-    split3(f[2], f[3], h.y, m.y, l.y);
-    split3(f[4], f[5], h.z, m.z, l.z);
-    split3(f[6], f[7], h.w, m.w, l.w);
-    uint8_t* at = dst + r * row_bytes<W>() + 16 * c8;
-    *reinterpret_cast<uint4*>(at) = h;
-    *reinterpret_cast<uint4*>(at + plane_bytes<W>()) = m;
-    *reinterpret_cast<uint4*>(at + 2 * plane_bytes<W>()) = l;
-  }
-}
-
-// the part products summed for two split operands, q = 0 .. 5, smallest
-// first: part pa(q) of A times part pb(q) of B: (hi, lo), (lo, hi),
-// (mid, mid), (hi, mid), (mid, hi), (hi, hi)
-__host__ __device__ constexpr int pa(int q) { return q == 1 ? 2 : q == 2 || q == 4 ? 1 : 0; }
-__host__ __device__ constexpr int pb(int q) { return q == 0 ? 2 : q == 2 || q == 3 ? 1 : 0; }
-
-__device__ __forceinline__ void add4(float (&d)[4], const float (&t)[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) d[e] = __fadd_rn(d[e], t[e]);
-}
-
-// acc (16 x 16 NP) = X[r0 .. r0 + 15] Y[n0 .. n0 + 16 NP - 1]^T over the
-// first K columns (a multiple of 16) of two split tiles of width W.  The
-// NP pairs of 8-column tiles take each part product in turn, so 2 NP
-// accumulators are in flight.
-template <int W, int NP>
-__device__ __forceinline__ void xyt3(float (&acc)[2 * NP][4], uint32_t xs, uint32_t ys, int r0,
-                                     int n0, int K, int lane) {
-  constexpr int RB = row_bytes<W>(), PB = plane_bytes<W>();
-#pragma unroll
-  for (int j = 0; j < 2 * NP; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll 1
-  for (int kk = 0; 16 * kk < K; ++kk) {
-    uint32_t a[3][4], b[NP][3][4];
-#pragma unroll
-    for (int p = 0; p < 3; ++p) {
-      hopper::ldsm_x4(a[p], hopper::frag_a_addr(xs + p * PB, RB, r0, 16 * kk, lane));
-#pragma unroll
-      for (int n2 = 0; n2 < NP; ++n2)
-        hopper::ldsm_x4(b[n2][p],
-                        hopper::frag_b_addr(ys + p * PB, RB, n0 + 16 * n2, 16 * kk, lane));
-    }
-    float t[2 * NP][4];
-#pragma unroll
-    for (int j = 0; j < 2 * NP; ++j) t[j][0] = t[j][1] = t[j][2] = t[j][3] = 0.f;
-#pragma unroll
-    for (int q = 0; q < 6; ++q)
-#pragma unroll
-      for (int n2 = 0; n2 < NP; ++n2) {
-        hopper::mma16816<false>(t[2 * n2], a[pa(q)], b[n2][pb(q)][0], b[n2][pb(q)][1]);
-        hopper::mma16816<false>(t[2 * n2 + 1], a[pa(q)], b[n2][pb(q)][2], b[n2][pb(q)][3]);
-      }
-#pragma unroll
-    for (int j = 0; j < 2 * NP; ++j) add4(acc[j], t[j]);
-  }
-}
-
-// acc (16 x W) += A (16 x 16 KQ: split, KQ k16 fragments a part) Y[k0 ..
-// k0 + 16 KQ - 1] with Y a split tile of width W stored k-major; columns at
-// or past ncols skipped.  Each 16-deep slice is summed alone and added in
-// fp32; two column pairs take each part product in turn.
-template <int W, int KQ>
-__device__ __forceinline__ void ay3(float (&acc)[W / 8][4], const uint32_t (&a)[3][KQ][4],
-                                    uint32_t ys, int k0, int ncols, int lane) {
-  constexpr int RB = row_bytes<W>(), PB = plane_bytes<W>();
-#pragma unroll
-  for (int n4 = 0; n4 < W / 32; ++n4) {
-    if (32 * n4 >= ncols) break;
-#pragma unroll
-    for (int kq = 0; kq < KQ; ++kq) {
-      uint32_t b[2][3][4];
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int p = 0; p < 3; ++p)
-          hopper::ldsm_x4_t(b[h][p], hopper::frag_bt_addr(ys + p * PB, RB, 32 * n4 + 16 * h,
-                                                          k0 + 16 * kq, lane));
-      float t[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) t[j][0] = t[j][1] = t[j][2] = t[j][3] = 0.f;
-#pragma unroll
-      for (int q = 0; q < 6; ++q)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          hopper::mma16816<false>(t[2 * h], a[pa(q)][kq], b[h][pb(q)][0], b[h][pb(q)][1]);
-          hopper::mma16816<false>(t[2 * h + 1], a[pa(q)][kq], b[h][pb(q)][2], b[h][pb(q)][3]);
-        }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) add4(acc[4 * n4 + j], t[j]);
-    }
-  }
-}
-
-// The split A fragments (three parts of NT8 / 2 k16 fragments) of a 16 x 8
-// NT8 accumulator.
-template <int NT8>
-__device__ __forceinline__ void frags3(const float (&v)[NT8][4], uint32_t (&a)[3][NT8 / 2][4]) {
-#pragma unroll
-  for (int kq = 0; kq < NT8 / 2; ++kq)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        split3(v[2 * kq + h][2 * i], v[2 * kq + h][2 * i + 1], a[0][kq][2 * h + i],
-               a[1][kq][2 * h + i], a[2][kq][2 * h + i]);
-}
-
+// Shared memory of the l and s kernels: the block's fixed strip (an NT- and
+// a 64-wide tile of three planes), the streamed tile pair (the same), their
+// fp32 staging areas, dt (Qp floats) and c (Qp doubles), and 1024 bytes for
+// the alignment.
 template <int NT>
-constexpr size_t mma_smem(int Qp) {
-  return 2 * (size_t)tile3_bytes<NT>() + 2 * (size_t)tile3_bytes<64>() + 2 * (size_t)Qp * 4;
+constexpr size_t wg_smem(int Qp) {
+  return 2 * (3 * (size_t)tile_bytes<NT>() + 3 * (size_t)tile_bytes<64>()) +
+         stage_bytes<float, NT>() + stage_bytes<float, 64>() +
+         (size_t)Qp * (sizeof(float) + sizeof(double)) +
+         1024;
 }
 
-// "l" on the tensor cores: grid (ceil(Q / 64), G), 128 H threads.  Warp w
-// takes rows l0 + 16 (w % 4) .. + 15 and part h = w / 4 of the H parts of
-// each 64-step tile of s: its 64 / H columns of CB and gM, and their share
-// of gC_i += G2 B_j (over those steps); with H = 2 the two parts' gC and
-// row sums are added in shared memory at the end, in a fixed order.
-template <int NT, int H>
-__global__ void __launch_bounds__(128 * H, 1)
-    ssd_bwd_l_mma(const float* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
-                  const float* __restrict__ Bm, const float* __restrict__ Cm,
-                  const float* __restrict__ gy, float* __restrict__ gC, float* __restrict__ rs,
-                  int Q, int P, int N) {
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  uint8_t* cs = smem_raw;                     // C_i
-  uint8_t* bs = cs + tile3_bytes<NT>();       // B_j, then the halves' partial sums
-  uint8_t* gys = bs + tile3_bytes<NT>();      // gy_i
-  uint8_t* xs = gys + tile3_bytes<64>();      // x_j
-  float* dts = reinterpret_cast<float*>(xs + tile3_bytes<64>());
-  float* c = dts + (Q + 63) / 64 * 64;
-  constexpr int CW = 64 / H, NP = 4 / H;  // a warp's columns of the tile, pairs of 8
-  const int g = blockIdx.y, i = blockIdx.x, l0 = 64 * i;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = 16 * (warp % 4), h = warp / 4;
-  const size_t gq = (size_t)g * Q;
-  chunk_c(dt + gq, A[g], dts, c, Q);
-  load3<NT>(Cm + gq * N, l0, Q, N, cs);
-  load3<64>(gy + gq * P, l0, Q, P, gys);
-  float acc[NT / 8][4];
+// X (64 x K, three planes at xa) Y^T over K = 16 KS, on rows 32 h .. 32 h +
+// 31 of Y (three planes at ya), both K-major, WX and WY their tiles' plane
+// bytes: each 16-deep slice of the six part products summed by the tensor
+// cores, the slices added in fp32 (slices, ssd_wgmma.cuh).
+template <int KS, int WX, int WY>
+__device__ __forceinline__ void xyt_half(float (&d)[16], uint32_t xa, uint32_t ya, int h) {
+  slices<KS>(d, [&](float(&acc)[16], int kk, bool add) {
+    const uint32_t off = (kk / 4) * kTcAtom + (kk % 4) * 32;
 #pragma unroll
-  for (int j = 0; j < NT / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float rsum[2] = {0.f, 0.f};
-  const uint32_t ca = hopper::smem_u32(cs), ba = hopper::smem_u32(bs);
-  const uint32_t ga = hopper::smem_u32(gys), xa = hopper::smem_u32(xs);
-  for (int j = 0; j <= i; ++j) {
-    const int s0 = 64 * j;
-    __syncthreads();  // the last tile is done with bs and xs
-    load3<NT>(Bm + gq * N, s0, Q, N, bs);
-    load3<64>(x + gq * P, s0, Q, P, xs);
-    __syncthreads();
-    float cb[2 * NP][4], gm[2 * NP][4];
-    xyt3<NT, NP>(cb, ca, ba, r0, CW * h, N, lane);  // C_i B_j^T, this part's columns
-    xyt3<64, NP>(gm, ga, xa, r0, CW * h, P, lane);  // gy_i x_j^T
-#pragma unroll
-    for (int jj = 0; jj < 2 * NP; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int l = l0 + r0 + lane / 4 + 8 * (e >> 1);
-        const int s = s0 + CW * h + 8 * jj + 2 * (lane % 4) + (e & 1);
-        const float g2 = s < Q ? gm[jj][e] * dts[s] * decay(c, l, s, Q) : 0.f;
-        rsum[e >> 1] += g2 * cb[jj][e];
-        gm[jj][e] = g2;
-      }
-    uint32_t af[3][NP][4];
-    frags3(gm, af);
-    ay3<NT, NP>(acc, af, ba, CW * h, N, lane);  // gC_i += G2 B_j over this part's steps
-  }
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    rsum[k] += __shfl_xor_sync(0xffffffffu, rsum[k], 1);
-    rsum[k] += __shfl_xor_sync(0xffffffffu, rsum[k], 2);
-  }
-  float* part = reinterpret_cast<float*>(bs);  // [64][NT] gC, then [64] row sums
-  float* prs = part + 64 * NT;
-  if constexpr (H == 2) {
-    __syncthreads();  // done with bs: the second part's sums go there
-    if (h == 1) {
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const int row = r0 + lane / 4 + 8 * k;
-#pragma unroll
-        for (int jj = 0; jj < NT / 8; ++jj)
-          *reinterpret_cast<float2*>(part + row * NT + 8 * jj + 2 * (lane % 4)) =
-              make_float2(acc[jj][2 * k], acc[jj][2 * k + 1]);
-        if (lane % 4 == 0) prs[row] = rsum[k];
-      }
+    for (int i = 0; i < 6; ++i) {
+      const int q = pair_order(i);
+      hopper::wgmma_ss<32, false, 0>(acc, hopper::smem_desc(xa + pair_a(q) * WX + off, 16, 1024),
+                                     hopper::smem_desc(ya + pair_b(q) * WY + off + h * 4096, 16,
+                                                       1024),
+                                     add || i > 0);
     }
-    __syncthreads();
-    if (h == 1) return;
-  }
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const int row = r0 + lane / 4 + 8 * k, l = l0 + row;
-    if (l >= Q) continue;
-    if (lane % 4 == 0) rs[gq + l] = rsum[k] + (H == 2 ? prs[row] : 0.f);
-#pragma unroll
-    for (int jj = 0; jj < NT / 8; ++jj) {
-      const int n = 8 * jj + 2 * (lane % 4);
-      if (n < N) {
-        float2 o = make_float2(0.f, 0.f);
-        if constexpr (H == 2) o = *reinterpret_cast<const float2*>(part + row * NT + n);
-        *reinterpret_cast<float2*>(gC + (gq + l) * N + n) =
-            make_float2(acc[jj][2 * k] + o.x, acc[jj][2 * k + 1] + o.y);
-      }
-    }
-  }
+  }, true);
 }
 
-// "s" on the tensor cores: grid (ceil(Q / 64), G), 128 H threads.  Warp w
-// takes rows s0 + 16 (w % 4) .. + 15 and part h = w / 4 of each 64-step
-// tile of l, as in "l"; with H = 2 the parts' gB, gu and column sums are
-// added in shared memory, then the first part's warps add the state's
-// terms and write.
-template <int NT, int H>
-__global__ void __launch_bounds__(128 * H, 1)
-    ssd_bwd_s_mma(const float* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
-                  const float* __restrict__ Bm, const float* __restrict__ Cm,
-                  const float* __restrict__ gy, const float* __restrict__ gst,
-                  float* __restrict__ gx, float* __restrict__ gB, float* __restrict__ csum,
-                  float* __restrict__ gw, float* __restrict__ xgu, int Q, int P, int N) {
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  uint8_t* bs = smem_raw;                     // B_j
-  uint8_t* xs = bs + tile3_bytes<NT>();       // x_j
-  uint8_t* cs = xs + tile3_bytes<64>();       // C_i, then the partial sums, then gst
-  uint8_t* gys = cs + tile3_bytes<NT>();      // gy_i (the partial sums run into it)
-  float* dts = reinterpret_cast<float*>(gys + tile3_bytes<64>());
-  float* c = dts + (Q + 63) / 64 * 64;
-  constexpr int CW = 64 / H, NP = 4 / H;  // a warp's columns of the tile, pairs of 8
-  const int g = blockIdx.y, j = blockIdx.x, s0 = 64 * j;
+// acc (64 x W) += A (64 x 32, split fragments a) Y[32 h .. 32 h + 31], Y a
+// tile of three planes at ya (plane bytes WY) read N-major, slice by slice.
+template <int W, int WY>
+__device__ __forceinline__ void ay_half(float (&acc)[W / 2], const uint32_t (&a)[3][2][4],
+                                        uint32_t ya, int h) {
+  slices<2>(acc, [&](float(&d)[W / 2], int kk, bool add) {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      const int q = pair_order(i);
+      hopper::wgmma_rs<W, false, 1>(
+          d, a[pair_a(q)][kk],
+          hopper::smem_desc(ya + pair_b(q) * WY + (2 * h + kk) * 2048, kTcAtom, 1024),
+          add || i > 0);
+    }
+  }, false);
+}
+
+// The split A fragments (three parts of two k16 fragments) of a 64 x 32
+// accumulator.
+__device__ __forceinline__ void frags3(const float (&v)[16], uint32_t (&a)[3][2][4]) {
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int k = jj / 2, i = 2 * (jj % 2) + r;
+      split3(v[4 * jj + 2 * r], v[4 * jj + 2 * r + 1], a[0][k][i], a[1][k][i], a[2][k][i]);
+    }
+}
+
+// "l" on the tensor cores: grid (ceil(Q / 64), G), the longest strips (the
+// last) first.  The block's strip i of l: C_i and gy_i split once; tile j
+// <= i of s streamed (B_j, x_j: cp.async of the next tile's fp32 rows under
+// this tile's products, split by all threads at the next step).  Warpgroup
+// h takes columns 32 h .. 32 h + 31 of each (i, j) tile: CB = C_i B_j^T
+// and gM = gy_i x_j^T there, G2 = gM dt L, the row sums of G2 o CB, and gC_i
+// += G2 B_j over those 32 steps of s.  The two warpgroups' gC and row sums
+// are added at the end through shared memory, warpgroup 0's first.
+template <int NT>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    ssd_bwd_l_wgmma(const float* __restrict__ x, const float* __restrict__ dt,
+                    const float* __restrict__ A, const float* __restrict__ Bm,
+                    const float* __restrict__ Cm, const float* __restrict__ gy,
+                    float* __restrict__ gC, float* __restrict__ rs, int Q, int P, int N) {
+  constexpr int kNT = tile_bytes<NT>(), kXT = tile_bytes<64>();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = hopper::align_1024(smem_raw);
+  uint8_t* cs = sm;              // C_i, three planes
+  uint8_t* gys = cs + 3 * kNT;   // gy_i
+  uint8_t* bs = gys + 3 * kXT;   // B_j
+  uint8_t* xs = bs + 3 * kNT;    // x_j
+  uint8_t* bst = xs + 3 * kXT;   // B_j + 1, x_j + 1 staged as fp32 rows
+  uint8_t* xst = bst + stage_bytes<float, NT>();
+  const int nT = (Q + kTcRows - 1) / kTcRows;
+  float* dts = reinterpret_cast<float*>(xst + stage_bytes<float, 64>());
+  double* c = reinterpret_cast<double*>(dts + nT * kTcRows);
+  const int g = blockIdx.y, i = nT - 1 - (int)blockIdx.x, l0 = kTcRows * i;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = 16 * (warp % 4), h = warp / 4;
+  const int h = __shfl_sync(0xffffffffu, warp / 4, 0);  // uniform, as the compiler sees it
+  const int tid = threadIdx.x % 128;
+  const int row0 = 16 * (warp % 4) + lane / 4, col0 = 2 * (lane % 4);
   const size_t gq = (size_t)g * Q;
-  chunk_c(dt + gq, A[g], dts, c, Q);
-  load3<NT>(Bm + gq * N, s0, Q, N, bs);
-  load3<64>(x + gq * P, s0, Q, P, xs);
-  const uint32_t ba = hopper::smem_u32(bs), ca = hopper::smem_u32(cs);
-  const uint32_t xa = hopper::smem_u32(xs), ga = hopper::smem_u32(gys);
-  float accb[NT / 8][4], accu[8][4];
-#pragma unroll
-  for (int jj = 0; jj < NT / 8; ++jj) accb[jj][0] = accb[jj][1] = accb[jj][2] = accb[jj][3] = 0.f;
-#pragma unroll
-  for (int jj = 0; jj < 8; ++jj) accu[jj][0] = accu[jj][1] = accu[jj][2] = accu[jj][3] = 0.f;
-  float colsum[2] = {0.f, 0.f};
-  // this thread's rows s0 + r0 + lane / 4 (+ 8) and their dt
-  float dtr[2];
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const int s = s0 + r0 + lane / 4 + 8 * k;
-    dtr[k] = s < Q ? dts[s] : 0.f;
-  }
-  const int nT = (Q + 63) / 64;
-  for (int i = gy != nullptr ? j : nT; i < nT; ++i) {
-    const int l0 = 64 * i;
-    __syncthreads();  // the last tile is done with cs and gys
-    load3<NT>(Cm + gq * N, l0, Q, N, cs);
-    load3<64>(gy + gq * P, l0, Q, P, gys);
-    __syncthreads();
-    float cb[2 * NP][4], gm[2 * NP][4];
-    xyt3<NT, NP>(cb, ba, ca, r0, CW * h, N, lane);  // B_j C_i^T, this part's columns
-    xyt3<64, NP>(gm, xa, ga, r0, CW * h, P, lane);  // x_j gy_i^T
-#pragma unroll
-    for (int jj = 0; jj < 2 * NP; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int s = s0 + r0 + lane / 4 + 8 * (e >> 1);
-        const int l = l0 + CW * h + 8 * jj + 2 * (lane % 4) + (e & 1);
-        const float L = s < Q ? decay(c, l, s, Q) : 0.f;
-        const float g2 = gm[jj][e] * dtr[e >> 1] * L;
-        colsum[e >> 1] += g2 * cb[jj][e];
-        gm[jj][e] = g2;
-        cb[jj][e] *= L;
-      }
-    uint32_t af[3][NP][4];
-    frags3(gm, af);
-    ay3<NT, NP>(accb, af, ca, CW * h, N, lane);  // gB_j += G2^T C_i over this part's steps
-    frags3(cb, af);
-    ay3<64, NP>(accu, af, ga, CW * h, P, lane);  // gu_j += M^T gy_i
-  }
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    colsum[k] += __shfl_xor_sync(0xffffffffu, colsum[k], 1);
-    colsum[k] += __shfl_xor_sync(0xffffffffu, colsum[k], 2);
-  }
-  if constexpr (H == 2) {
-    float* pb = reinterpret_cast<float*>(cs);  // [64][NT] gB, [64][64] gu, [64] column sums
-    float* pu = pb + 64 * NT;
-    float* pc = pu + 64 * 64;
-    __syncthreads();  // done with cs and gys: the second part's sums go there
-    if (h == 1) {
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const int row = r0 + lane / 4 + 8 * k;
-#pragma unroll
-        for (int jj = 0; jj < NT / 8; ++jj)
-          *reinterpret_cast<float2*>(pb + row * NT + 8 * jj + 2 * (lane % 4)) =
-              make_float2(accb[jj][2 * k], accb[jj][2 * k + 1]);
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj)
-          *reinterpret_cast<float2*>(pu + row * 64 + 8 * jj + 2 * (lane % 4)) =
-              make_float2(accu[jj][2 * k], accu[jj][2 * k + 1]);
-        if (lane % 4 == 0) pc[row] = colsum[k];
-      }
-    }
-    __syncthreads();
-    if (h == 0) {
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const int row = r0 + lane / 4 + 8 * k;
-#pragma unroll
-        for (int jj = 0; jj < NT / 8; ++jj) {
-          const float2 o =
-              *reinterpret_cast<const float2*>(pb + row * NT + 8 * jj + 2 * (lane % 4));
-          accb[jj][2 * k] += o.x;
-          accb[jj][2 * k + 1] += o.y;
-        }
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-          const float2 o =
-              *reinterpret_cast<const float2*>(pu + row * 64 + 8 * jj + 2 * (lane % 4));
-          accu[jj][2 * k] += o.x;
-          accu[jj][2 * k + 1] += o.y;
-        }
-        colsum[k] += pc[row];
-      }
-    }
-  }
-  // the state's terms: bg = B_j gst^T (16 x P, kept for gx and gw), and
-  // gB_j += (w o x_j) gst, the A fragments of w o x built from x in
-  // registers
-  const float last = c[Q - 1];
+  const float* bg = Bm + gq * N;
   const float* xg = x + gq * P;
-  float w[2];
+  // tile 0's copies run under the cumsum and the strip's split
+  stage_tile<float, NT, kWgThreads>(bg, 0, Q, N, bst);
+  stage_tile<float, 64, kWgThreads>(xg, 0, Q, P, xst);
+  hopper::cp_async_commit();
+  chunk_c(dt + gq, A[g], dts, c, Q);
+  load_tile<float, NT, kWgThreads>(Cm + gq * N, l0, Q, N, cs, threadIdx.x);
+  load_tile<float, 64, kWgThreads>(gy + gq * P, l0, Q, P, gys, threadIdx.x);
+  float acc[NT / 2];
 #pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const int s = s0 + r0 + lane / 4 + 8 * k;
-    w[k] = s < Q ? expf(last - c[s]) * dtr[k] : 0.f;
+  for (int e = 0; e < NT / 2; ++e) acc[e] = 0.f;
+  float rsum[2] = {0.f, 0.f};
+  double cl[2];
+  int lr[2];  // this thread's rows l0 + row0 (+ 8) and their c
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lr[r] = l0 + row0 + 8 * r;
+    cl[r] = c[min(lr[r], Q - 1)];
   }
-  float bg[8][4];
-#pragma unroll
-  for (int jj = 0; jj < 8; ++jj) bg[jj][0] = bg[jj][1] = bg[jj][2] = bg[jj][3] = 0.f;
-  if (gst != nullptr) {
-    __syncthreads();  // done with the partial sums in cs
-    load3<NT>(gst + (size_t)g * P * N, 0, P, N, cs);
+  const uint32_t ca = hopper::smem_u32(cs), ga = hopper::smem_u32(gys);
+  const uint32_t ba = hopper::smem_u32(bs), xa = hopper::smem_u32(xs);
+  for (int j = 0; j <= i; ++j) {
+    const int s0 = kTcRows * j;
+    hopper::cp_async_wait_all();
+    __syncthreads();  // tile j is staged; the last tile's products are done
+    convert_tile<float, NT, kWgThreads>(bst, bs);
+    convert_tile<float, 64, kWgThreads>(xst, xs);
+    hopper::fence_proxy_async();
     __syncthreads();
-    if (h == 0) {
-      float half[4][4];
-      xyt3<NT, 2>(half, ba, ca, r0, 0, N, lane);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) bg[jj][e] = half[jj][e];
-      xyt3<NT, 2>(half, ba, ca, r0, 32, N, lane);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) bg[4 + jj][e] = half[jj][e];
-      // A fragment m of k16 slice kq: row r0 + lane / 4 + 8 (m % 2), columns
-      // 16 kq + 8 (m / 2) + 2 (lane % 4) + {0, 1}
-      uint32_t af[3][4][4];
-#pragma unroll
-      for (int kq = 0; kq < 4; ++kq)
-#pragma unroll
-        for (int m = 0; m < 4; ++m) {
-          const int s = s0 + r0 + lane / 4 + 8 * (m % 2);
-          const int p = 16 * kq + 8 * (m / 2) + 2 * (lane % 4);
-          float v0 = 0.f, v1 = 0.f;
-          if (s < Q && p < P) {
-            v0 = w[m % 2] * xg[(size_t)s * P + p];
-            v1 = w[m % 2] * xg[(size_t)s * P + p + 1];
-          }
-          split3(v0, v1, af[0][kq][m], af[1][kq][m], af[2][kq][m]);
-        }
-      ay3<NT, 4>(accb, af, ca, 0, N, lane);
+    if (j < i) {  // tile j + 1's copies run under this tile's products
+      stage_tile<float, NT, kWgThreads>(bg, s0 + kTcRows, Q, N, bst);
+      stage_tile<float, 64, kWgThreads>(xg, s0 + kTcRows, Q, P, xst);
+      hopper::cp_async_commit();
     }
+    float cb[16], gm[16];
+    xyt_half<NT / 16, kNT, kNT>(cb, ca, ba, h);  // C_i B_j^T
+    xyt_half<4, kXT, kXT>(gm, ga, xa, h);        // gy_i x_j^T
+    // G2 = gM dt L on the fragments: the exp is taken for every element (of
+    // values clamped into the chunk) and the mask applied by a select, as a
+    // condition around it made a branch of every element
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int cx = 0; cx < 2; ++cx) {
+        const int sg = s0 + 32 * h + 8 * jj + col0 + cx, sq = min(sg, Q - 1);
+        const double cs_ = c[sq];
+        const float dt_ = dts[sq];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int e = 4 * jj + 2 * r + cx;
+          const float v = gm[e] * dt_ * expf((float)(cl[r] - cs_));
+          const float g2 = sg <= lr[r] && lr[r] < Q ? v : 0.f;
+          rsum[r] += g2 * cb[e];
+          gm[e] = g2;
+        }
+      }
+    uint32_t af[3][2][4];
+    frags3(gm, af);
+    ay_half<NT, kNT>(acc, af, ba, h);  // gC_i += G2 B_j over this warpgroup's steps
   }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 1);
+    rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 2);
+  }
+  __syncthreads();  // done with the streamed tiles: warpgroup 1's sums go there
+  float* part = reinterpret_cast<float*>(bs);  // [NT / 2][128] gC, [2][128] row sums
+  if (h == 1) {
+#pragma unroll
+    for (int e = 0; e < NT / 2; ++e) part[e * 128 + tid] = acc[e];
+    part[(NT / 2) * 128 + tid] = rsum[0];
+    part[(NT / 2 + 1) * 128 + tid] = rsum[1];
+  }
+  __syncthreads();
   if (h == 1) return;
 #pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const int s = s0 + r0 + lane / 4 + 8 * k;
+  for (int r = 0; r < 2; ++r) {
+    const int l = l0 + row0 + 8 * r;
+    if (l >= Q) continue;
+    if (lane % 4 == 0) rs[gq + l] = rsum[r] + part[(NT / 2 + r) * 128 + tid];
+#pragma unroll
+    for (int jj = 0; jj < NT / 8; ++jj) {
+      const int n = 8 * jj + col0, e = 4 * jj + 2 * r;
+      if (n < N)
+        *reinterpret_cast<float2*>(gC + (gq + l) * N + n) =
+            make_float2(acc[e] + part[e * 128 + tid], acc[e + 1] + part[(e + 1) * 128 + tid]);
+    }
+  }
+}
+
+// "s" on the tensor cores: grid (ceil(Q / 64), G), strip 0 (the longest)
+// first.  The block's strip j of s: B_j and x_j split once; tile i >= j of
+// l streamed (C_i, gy_i), as in "l", and then gst (its P rows in the place
+// of C_i), staged under the last tile's products.  Warpgroup h takes
+// columns 32 h .. 32 h + 31 of each (j, i) tile: CB^T = B_j C_i^T and gM^T =
+// x_j gy_i^T there, G2^T and M^T = CB^T o L, the column sums, gu_j += M^T
+// gy_i and gB_j += G2^T C_i over those 32 steps of l.  Then the state's
+// terms on the same split, over 32 values of p each: bg = B_j gst^T and gB_j
+// += (w o x_j) gst.  The two warpgroups' sums are added through shared
+// memory, warpgroup 0's first, and warpgroup 0 writes.
+template <int NT>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    ssd_bwd_s_wgmma(const float* __restrict__ x, const float* __restrict__ dt,
+                    const float* __restrict__ A, const float* __restrict__ Bm,
+                    const float* __restrict__ Cm, const float* __restrict__ gy,
+                    const float* __restrict__ gst, float* __restrict__ gx,
+                    float* __restrict__ gB, float* __restrict__ csum, float* __restrict__ gw,
+                    float* __restrict__ xgu, int Q, int P, int N) {
+  constexpr int kNT = tile_bytes<NT>(), kXT = tile_bytes<64>();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = hopper::align_1024(smem_raw);
+  uint8_t* bs = sm;              // B_j, three planes
+  uint8_t* xs = bs + 3 * kNT;    // x_j
+  uint8_t* cs = xs + 3 * kXT;    // C_i, then gst, then the partial sums
+  uint8_t* gys = cs + 3 * kNT;   // gy_i
+  uint8_t* cst = gys + 3 * kXT;  // C_i + 1, gy_i + 1 (or gst) staged as fp32 rows
+  uint8_t* gyst = cst + stage_bytes<float, NT>();
+  const int nT = (Q + kTcRows - 1) / kTcRows;
+  float* dts = reinterpret_cast<float*>(gyst + stage_bytes<float, 64>());
+  double* c = reinterpret_cast<double*>(dts + nT * kTcRows);
+  const int g = blockIdx.y, j = blockIdx.x, s0 = kTcRows * j;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int h = __shfl_sync(0xffffffffu, warp / 4, 0);  // uniform, as the compiler sees it
+  const int tid = threadIdx.x % 128;
+  const int row0 = 16 * (warp % 4) + lane / 4, col0 = 2 * (lane % 4);
+  const size_t gq = (size_t)g * Q;
+  const float* cg = Cm + gq * N;
+  const float* gyg = gy + gq * P;
+  const float* gsg = gst + (size_t)g * P * N;
+  // the first streamed tile's copies (or gst's) run under the cumsum and
+  // the strip's split
+  if (gy != nullptr) {
+    stage_tile<float, NT, kWgThreads>(cg, s0, Q, N, cst);
+    stage_tile<float, 64, kWgThreads>(gyg, s0, Q, P, gyst);
+  } else if (gst != nullptr) {
+    stage_tile<float, NT, kWgThreads>(gsg, 0, P, N, cst);
+  }
+  hopper::cp_async_commit();
+  chunk_c(dt + gq, A[g], dts, c, Q);
+  const float* xg = x + gq * P;
+  load_tile<float, NT, kWgThreads>(Bm + gq * N, s0, Q, N, bs, threadIdx.x);
+  load_tile<float, 64, kWgThreads>(xg, s0, Q, P, xs, threadIdx.x);
+  float accb[NT / 2], accu[32];
+#pragma unroll
+  for (int e = 0; e < NT / 2; ++e) accb[e] = 0.f;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) accu[e] = 0.f;
+  float colsum[2] = {0.f, 0.f}, dtr[2], w[2];
+  double cs_[2];
+  int sr[2];
+  const double last = c[Q - 1];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // this thread's rows s0 + row0 (+ 8)
+    const int sg = s0 + row0 + 8 * r;
+    sr[r] = sg;
+    cs_[r] = c[min(sg, Q - 1)];
+    dtr[r] = sg < Q ? dts[sg] : 0.f;
+    w[r] = sg < Q ? expf((float)(last - c[sg])) * dtr[r] : 0.f;
+  }
+  const uint32_t ba = hopper::smem_u32(bs), xa = hopper::smem_u32(xs);
+  const uint32_t ca = hopper::smem_u32(cs), ga = hopper::smem_u32(gys);
+  for (int i = gy != nullptr ? j : nT; i < nT; ++i) {
+    const int l0 = kTcRows * i;
+    hopper::cp_async_wait_all();
+    __syncthreads();  // tile i is staged; the last tile's products are done
+    convert_tile<float, NT, kWgThreads>(cst, cs);
+    convert_tile<float, 64, kWgThreads>(gyst, gys);
+    hopper::fence_proxy_async();
+    __syncthreads();
+    if (i + 1 < nT) {  // tile i + 1's copies (or gst's) run under this tile's products
+      stage_tile<float, NT, kWgThreads>(cg, l0 + kTcRows, Q, N, cst);
+      stage_tile<float, 64, kWgThreads>(gyg, l0 + kTcRows, Q, P, gyst);
+      hopper::cp_async_commit();
+    } else if (gst != nullptr) {
+      stage_tile<float, NT, kWgThreads>(gsg, 0, P, N, cst);
+      hopper::cp_async_commit();
+    }
+    float cb[16], gm[16];
+    xyt_half<NT / 16, kNT, kNT>(cb, ba, ca, h);  // B_j C_i^T
+    xyt_half<4, kXT, kXT>(gm, xa, ga, h);        // x_j gy_i^T
+    // G2^T and M^T on the fragments, the exp for every element and the mask
+    // by a select, as in "l"
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int cx = 0; cx < 2; ++cx) {
+        const int l = l0 + 32 * h + 8 * jj + col0 + cx;
+        const double cl = c[min(l, Q - 1)];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int e = 4 * jj + 2 * r + cx;
+          const float ex = expf((float)(cl - cs_[r]));
+          const float L = sr[r] <= l && l < Q ? ex : 0.f;
+          const float g2 = gm[e] * dtr[r] * L;
+          colsum[r] += g2 * cb[e];
+          gm[e] = g2;
+          cb[e] *= L;
+        }
+      }
+    // one set of split fragments live at a time
+    uint32_t mf[3][2][4];
+    frags3(cb, mf);
+    ay_half<64, kXT>(accu, mf, ga, h);   // gu_j += M^T gy_i over this warpgroup's steps
+    uint32_t af[3][2][4];
+    frags3(gm, af);
+    ay_half<NT, kNT>(accb, af, ca, h);   // gB_j += G2^T C_i
+  }
+  // the state's terms on this warpgroup's 32 values of p
+  float bg[16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) bg[e] = 0.f;
+  if (gst != nullptr) {
+    hopper::cp_async_wait_all();
+    __syncthreads();  // gst is staged; the last tile's products are done
+    convert_tile<float, NT, kWgThreads>(cst, cs);
+    hopper::fence_proxy_async();
+    __syncthreads();
+    xyt_half<NT / 16, kNT, kNT>(bg, ba, ca, h);  // B_j gst^T
+    // (w o x_j) as split A fragments: row row0 + 8 (m % 2), value p = 32 h
+    // + 16 kk + 8 (m / 2) + col0 (+ 1)
+    uint32_t wf[3][2][4];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int sg = s0 + row0 + 8 * (m % 2);
+        const int p = 32 * h + 16 * kk + 8 * (m / 2) + col0;
+        float v0 = 0.f, v1 = 0.f;
+        if (sg < Q && p < P) {
+          v0 = w[m % 2] * xg[(size_t)sg * P + p];
+          v1 = w[m % 2] * xg[(size_t)sg * P + p + 1];
+        }
+        split3(v0, v1, wf[0][kk][m], wf[1][kk][m], wf[2][kk][m]);
+      }
+    ay_half<NT, kNT>(accb, wf, ca, h);  // gB_j += (w o x_j) gst
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    colsum[r] += __shfl_xor_sync(0xffffffffu, colsum[r], 1);
+    colsum[r] += __shfl_xor_sync(0xffffffffu, colsum[r], 2);
+  }
+  __syncthreads();  // done with gst and the streamed tiles: warpgroup 1's sums go there
+  // [NT / 2][128] gB, [32][128] gu, [16][128] bg, [2][128] column sums
+  float* pb = reinterpret_cast<float*>(cs);
+  float* pu = pb + (NT / 2) * 128;
+  float* pg = pu + 32 * 128;
+  float* pc = pg + 16 * 128;
+  if (h == 1) {
+#pragma unroll
+    for (int e = 0; e < NT / 2; ++e) pb[e * 128 + tid] = accb[e];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) pu[e * 128 + tid] = accu[e];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) pg[e * 128 + tid] = bg[e];
+    pc[tid] = colsum[0];
+    pc[128 + tid] = colsum[1];
+  }
+  __syncthreads();
+  if (h == 1) return;
+#pragma unroll
+  for (int e = 0; e < NT / 2; ++e) accb[e] += pb[e * 128 + tid];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) accu[e] += pu[e * 128 + tid];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int sg = s0 + row0 + 8 * r;
+    const float cr = colsum[r] + pc[r * 128 + tid];
     float gws = 0.f, xgus = 0.f;
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
-      const int p = 8 * jj + 2 * (lane % 4);
-      if (s < Q && p < P) {
-        const float x0 = xg[(size_t)s * P + p], x1 = xg[(size_t)s * P + p + 1];
-        const float u0 = accu[jj][2 * k], u1 = accu[jj][2 * k + 1];
-        const float b0 = bg[jj][2 * k], b1 = bg[jj][2 * k + 1];
-        *reinterpret_cast<float2*>(gx + (gq + s) * P + p) =
-            make_float2(dtr[k] * u0 + w[k] * b0, dtr[k] * u1 + w[k] * b1);
+      const int p = 8 * jj + col0, e = 4 * jj + 2 * r;
+      // bg of p < 32 is this warpgroup's, of p >= 32 warpgroup 1's
+      const float b0 = jj < 4 ? bg[e] : pg[(e - 16) * 128 + tid];
+      const float b1 = jj < 4 ? bg[e + 1] : pg[(e - 15) * 128 + tid];
+      if (sg < Q && p < P) {
+        const float x0 = xg[(size_t)sg * P + p], x1 = xg[(size_t)sg * P + p + 1];
+        const float u0 = accu[e], u1 = accu[e + 1];
+        *reinterpret_cast<float2*>(gx + (gq + sg) * P + p) =
+            make_float2(dtr[r] * u0 + w[r] * b0, dtr[r] * u1 + w[r] * b1);
         gws += x0 * b0 + x1 * b1;
         xgus += x0 * u0 + x1 * u1;
       }
     }
 #pragma unroll
     for (int jj = 0; jj < NT / 8; ++jj) {
-      const int n = 8 * jj + 2 * (lane % 4);
-      if (s < Q && n < N)
-        *reinterpret_cast<float2*>(gB + (gq + s) * N + n) =
-            make_float2(accb[jj][2 * k], accb[jj][2 * k + 1]);
+      const int n = 8 * jj + col0, e = 4 * jj + 2 * r;
+      if (sg < Q && n < N)
+        *reinterpret_cast<float2*>(gB + (gq + sg) * N + n) = make_float2(accb[e], accb[e + 1]);
     }
 #pragma unroll
     for (int m = 1; m < 4; m <<= 1) {
       gws += __shfl_xor_sync(0xffffffffu, gws, m);
       xgus += __shfl_xor_sync(0xffffffffu, xgus, m);
     }
-    if (s < Q && lane % 4 == 0) {
-      csum[gq + s] = colsum[k];
-      gw[gq + s] = gws;
-      xgu[gq + s] = xgus;
+    if (sg < Q && lane % 4 == 0) {
+      csum[gq + sg] = cr;
+      gw[gq + sg] = gws;
+      xgu[gq + sg] = xgus;
     }
   }
 }
@@ -827,7 +816,7 @@ int finish(const Args& a, cudaStream_t st) {
   const size_t gqs = (size_t)a.G * a.Q;
   float* rs = a.scratch;
   const int has_s = a.gy != nullptr || a.gst != nullptr;
-  ssd_bwd_fin_kernel<<<a.G, 32, 3 * (size_t)a.Q * sizeof(float), st>>>(
+  ssd_bwd_fin_kernel<<<a.G, 32, (size_t)a.Q * (sizeof(double) + 2 * sizeof(float)), st>>>(
       a.dt, a.A, rs, rs + gqs, rs + 2 * gqs, rs + 3 * gqs, a.gcd, a.gsd,
       a.gdt, a.gA, a.Q, a.gy != nullptr, has_s);
   return (int)cudaGetLastError();
@@ -863,29 +852,26 @@ int launch_simt(const Args& a, cudaStream_t st) {
   return finish(a, st);
 }
 
-template <int NT, int H>
-int launch_mma(const Args& a, cudaStream_t st) {
+template <int NT>
+int launch_wgmma(const Args& a, cudaStream_t st) {
   const size_t gqs = (size_t)a.G * a.Q;
   float* rs = a.scratch;
-  const int nT = (a.Q + kMT - 1) / kMT;
-  const size_t smem = mma_smem<NT>(nT * kMT);
+  const int nT = (a.Q + kTcRows - 1) / kTcRows;
+  const size_t smem = wg_smem<NT>(nT * kTcRows);
   const dim3 grid(nT, a.G);
-  auto kl = ssd_bwd_l_mma<NT, H>;
-  auto ks = ssd_bwd_s_mma<NT, H>;
+  auto kl = ssd_bwd_l_wgmma<NT>;
+  auto ks = ssd_bwd_s_wgmma<NT>;
   cudaError_t e = hopper::allow_smem(kl, smem);
   if (e == cudaSuccess) e = hopper::allow_smem(ks, smem);
   if (e != cudaSuccess) return (int)e;
   if (a.gy != nullptr) {
-    kl<<<grid, 128 * H, smem, st>>>(a.x, a.dt, a.A,
-                                      a.B, a.C, a.gy, a.gC, rs, a.Q, a.P,
-                                      a.N);
+    kl<<<grid, kWgThreads, smem, st>>>(a.x, a.dt, a.A, a.B, a.C, a.gy, a.gC, rs, a.Q, a.P, a.N);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
   if (a.gy != nullptr || a.gst != nullptr) {
-    ks<<<grid, 128 * H, smem, st>>>(a.x, a.dt, a.A,
-                                      a.B, a.C, a.gy, a.gst, a.gx, a.gB,
-                                      rs + gqs, rs + 2 * gqs, rs + 3 * gqs, a.Q, a.P, a.N);
+    ks<<<grid, kWgThreads, smem, st>>>(a.x, a.dt, a.A, a.B, a.C, a.gy, a.gst, a.gx, a.gB,
+                                       rs + gqs, rs + 2 * gqs, rs + 3 * gqs, a.Q, a.P, a.N);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
@@ -896,12 +882,8 @@ int run(const Args& a, int route, cudaStream_t st) {
   if (route == 0) return launch_simt(a, st);
   if (a.P % 16 != 0 || a.N % 16 != 0 || a.P > 64 || a.N > 128 || a.Q > 512)
     return (int)cudaErrorInvalidValue;
-  // N <= 64: four warps a block (two blocks fit an SM); N <= 128: eight,
-  // the strips' columns in two parts (on the H100, zamba2-7b's G 1792 N 64
-  // read 2.28 ms with four warps and 2.65 with eight, mamba2-780m's G 1536
-  // N 128 3.24 ms with eight and 4.56 with four)
-  if (a.N <= 64) return launch_mma<64, 1>(a, st);
-  return launch_mma<128, 2>(a, st);
+  if (a.N <= 64) return launch_wgmma<64>(a, st);
+  return launch_wgmma<128>(a, st);
 }
 
 }  // namespace
@@ -911,7 +893,7 @@ int run(const Args& a, int route, cudaStream_t st) {
 // (G,), gsd (G, Q).  Gradients fp32: gx, gdt, gA, gB, gC shaped as the
 // inputs; gC is written only with gy, gx and gB only with gy or gst (the
 // caller zeroes what is not written).  scratch: 4 G Q floats.  route 0 =
-// "simt", 2 = "mma" (P and N multiples of 16, P <= 64, N <= 128, Q <= 512,
+// "simt", 1 = "wgmma" (P and N multiples of 16, P <= 64, N <= 128, Q <= 512,
 // 16-byte-aligned bases).  Returns the cudaError_t of the first launch
 // that failed, else 0.
 extern "C" int rt_ssd_chunk_bwd(const void* x, const void* dt, const void* A, const void* B,
@@ -920,7 +902,7 @@ extern "C" int rt_ssd_chunk_bwd(const void* x, const void* dt, const void* A, co
                                 void* gC, void* scratch, int G, int Q, int P, int N, int route,
                                 void* stream) {
   if (G == 0) return 0;
-  if (Q <= 0 || (route != 0 && route != 2)) return (int)cudaErrorInvalidValue;
+  if (Q <= 0 || (route != 0 && route != 1)) return (int)cudaErrorInvalidValue;
   Args a{(const float*)x, (const float*)dt, (const float*)A, (const float*)B, (const float*)C,
          (const float*)gy, (const float*)gst, (const float*)gcd, (const float*)gsd, (float*)gx,
          (float*)gdt, (float*)gA, (float*)gB, (float*)gC, (float*)scratch, G, Q, P, N};

@@ -24,9 +24,9 @@ route.
 The backward (``csrc/flash_attention_bwd.cu``,
 :func:`flash_attention_gqa_bwd`) takes the forward's row log-sum-exp,
 which :func:`flash_attention_gqa` writes only when asked (``with_lse``).
-:func:`flash_bwd_route` picks its route: ``"mma"`` (warp-level mma.sync)
-for bf16 and fp16 at the head dims above that 16-byte loads can read,
-``"simt"`` otherwise.  Its plain version is the closed form
+:func:`flash_bwd_route` picks its route: ``"wgmma"`` (warpgroup products
+fed by TMA, as the forward's) for bf16 and fp16 at the head dims above that
+TMA can read, ``"simt"`` otherwise.  Its plain version is the closed form
 :func:`flash_attention_gqa_bwd_plain`.
 """
 from __future__ import annotations
@@ -144,14 +144,14 @@ def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
 
 def flash_bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     do: torch.Tensor) -> str:
-    """The backward's route: ``"mma"`` for bf16 or fp16 q, k, v and do of
-    one dtype, a head dim in :data:`WGMMA_HEAD_DIMS`, that 16-byte loads can
-    read (:func:`~repro_torch.kernels._checks.tma_ready`), else
+    """The backward's route: ``"wgmma"`` for bf16 or fp16 q, k, v and do of
+    one dtype, a head dim in :data:`WGMMA_HEAD_DIMS`, that TMA can read
+    (:func:`~repro_torch.kernels._checks.tma_ready`), else
     ``"simt"``.  A plain function of dtypes, shapes, strides and
     addresses."""
     tc = (q.dtype in (torch.bfloat16, torch.float16)
           and all(t.dtype == q.dtype for t in (k, v, do)) and q.shape[-1] in WGMMA_HEAD_DIMS)
-    return "mma" if tc and tma_ready(q, k, v, do) else "simt"
+    return "wgmma" if tc and tma_ready(q, k, v, do) else "simt"
 
 
 def _launch(q, k, v, b, hq, hkv, s, d, q_strides, kv_strides, causal,

@@ -21,9 +21,9 @@ fallback: a launch that fails raises, and nothing retries it on the other
 route.
 
 The backward (``csrc/ssd_scan_bwd.cu``, :func:`ssd_chunk_bwd`) has the
-same two widths of routes, picked by :func:`ssd_bwd_route`: ``"mma"``
-(warp-level mma.sync on three-way bf16 splits) where the forward takes
-``"wgmma"``, ``"simt"`` otherwise.  Its plain version is the closed form
+same two routes, picked by :func:`ssd_bwd_route`: ``"wgmma"`` (warpgroup
+products on three-way bf16 splits, as the forward's) where the forward
+takes ``"wgmma"``, ``"simt"`` otherwise.  Its plain version is the closed form
 :func:`ssd_chunk_bwd_plain`.
 """
 from __future__ import annotations
@@ -125,10 +125,9 @@ def ssd_route(x, dt, A, B, C) -> str:
 
 
 def ssd_bwd_route(x, dt, A, B, C) -> str:
-    """The backward's route: ``"mma"`` where :func:`ssd_route` gives
-    ``"wgmma"`` (the same dtypes, widths and alignment), else ``"simt"``.
-    A plain function of dtypes, shapes, strides and addresses."""
-    return "mma" if _wgmma_shapes(x, dt, A, B, C) and tma_ready(x, B, C) else "simt"
+    """The backward's route: the forward's (:func:`ssd_route`: the same
+    dtypes, widths and alignment)."""
+    return ssd_route(x, dt, A, B, C)
 
 
 def _checked(x, dt, A, B, C):
@@ -184,7 +183,7 @@ def ssd_chunk_bwd(x, dt, A, B, C, gy=None, gst=None, gcd=None, gsd=None):
                            ("gsd", gsd, (g, q))):
         if t is not None:
             t = t.float().contiguous()
-            if t.data_ptr() % 16:   # the 16-byte loads of the "mma" route
+            if t.data_ptr() % 16:   # the 16-byte loads of the "wgmma" route
                 t = t.clone()
             check_tensor(name, t, len(shape), (torch.float32,), x.device)
             require(t.shape == shape, lambda: f"{name} {tuple(t.shape)}, want {shape}")

@@ -1,7 +1,8 @@
 """The route choice of the tensor-core kernels, the numerics of the
 tensor-core route, and the kernel build's digest, on the CPU.
 
-* :func:`gmm_route`, :func:`flash_route` and :func:`ssd_route` pick
+* :func:`gmm_route`, :func:`flash_route`, :func:`ssd_route` and the
+  backwards' :func:`flash_bwd_route` and :func:`ssd_bwd_route` pick
   ``"wgmma"`` or ``"simt"`` from dtype, widths, strides and
   ``data_ptr() % 16`` alone, so CPU tensors (strided views, offset slices)
   exercise every case.
@@ -19,14 +20,22 @@ tensor-core route, and the kernel build's digest, on the CPU.
   on the card.  Rounding P is the one rounding the plain versions do not
   make; at most 2^-9 (bf16) or 2^-12 (fp16) of each p, plus one rounding
   of the output.
+* Dense models of the two backward kernels' "wgmma" routes (attention:
+  P and dS rounded to the dtype where the kernel rounds them; the SSD
+  chunk: G2, M and w o x split three ways, products over
+  :data:`SPLIT_PAIRS`) against ``jax.vjp`` of ``attention_scores`` and of
+  ``ssd_chunk_ref``, with the tolerances stated beside each.
 * ``_build._digest`` hashes every file of ``csrc/``, headers included.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.kernels.ref import ssd_chunk_ref
+from repro.models.layers import attention_scores
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import check_tensor, stored_transposed
 from repro_torch.kernels.flash_attention import flash_bwd_route, flash_route
@@ -170,11 +179,11 @@ def test_flash_route(case):
     assert flash_route(*make()) == want
 
 
-# the backward's route: "mma" wherever the forward's is "wgmma", with the
+# the backward's route: "wgmma" wherever the forward's is, with the
 # output's cotangent (laid out as q) readable too
 FLASH_BWD_CASES = {
-    **{k: (lambda make=make: (*make(), torch.empty_like(make()[0])),
-           "mma" if want == "wgmma" else "simt") for k, (make, want) in FLASH_CASES.items()},
+    **{k: (lambda make=make: (*make(), torch.empty_like(make()[0])), want)
+       for k, (make, want) in FLASH_CASES.items()},
     "do base off 16 bytes": (lambda: (*_gqa(128, BF), _offset((1, 8, 4, 128), BF)), "simt"),
     "do fp16 under bf16 q": (lambda: (*_gqa(128, BF), torch.zeros(1, 8, 4, 128, dtype=F16)),
                              "simt"),
@@ -243,6 +252,87 @@ def test_tc_attention_model_matches_jax(s, d, causal, window, cap, dtype):
     want = jops.flash_attention(jq, jk, jv, **kw)
     assert got.dtype == getattr(torch, dtype) and tuple(got.shape) == want.shape
     assert _row_err(got.float().numpy(), np.asarray(want, np.float32)) <= ROW_TOL[dtype]
+
+
+def _row_err_floor(got, want, floor: float) -> float:
+    """:func:`_row_err` with each row held to no less than ``floor`` times
+    the tensor's max|want|, as ``chip_smoke.py::row_err`` holds the
+    gradients (a row whose true value is about 0, as dq of a query that
+    sees one key, keeps only rounding noise)."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    got, want = got.reshape(-1, want.shape[-1]), want.reshape(-1, want.shape[-1])
+    err = np.abs(got - want).max(axis=-1)
+    scale = np.maximum(np.abs(want).max(axis=-1), max(1e-30, floor * np.abs(want).max()))
+    return float((err / scale).max())
+
+
+def tc_attention_bwd_model(q, k, v, do, *, causal, window, softcap, dtype):
+    """The backward's "wgmma" route, dense: q, do (B, S, Hq, D) and k, v (B,
+    S, Hkv, D) in ``dtype``.  The forward as :func:`tc_attention_model`
+    gives O (rounded to ``dtype``) and the rows' lse; then, with fp32
+    sums: Delta = rowsum(dO o O); P = exp(t - lse) on the mask; dV = P^T
+    dO with P rounded to ``dtype``; dP = dO V^T; dS = g (dP - Delta)
+    scale, g = P (1 - tanh^2) under the softcap, else P; dS rounded to
+    ``dtype``; dQ = dS K and dK = dS^T q, each rounded to ``dtype``."""
+    b, s_len, hq, d = q.shape
+    rep = hq // k.shape[2]
+    f = lambda t: t.float()  # noqa: E731
+    kr, vr = (t.repeat_interleave(rep, dim=2) for t in (k, v))
+    sc = torch.einsum("bqhd,bkhd->bhqk", f(q), f(kr)) * d ** -0.5
+    th = None
+    if softcap is not None:
+        th = torch.tanh(sc / softcap)
+        sc = softcap * th
+    pos = torch.arange(s_len)
+    mask = torch.ones(s_len, s_len, dtype=torch.bool)
+    if causal:
+        mask &= pos[:, None] >= pos[None, :]
+    if window is not None:
+        mask &= (pos[:, None] - pos[None, :]) < window
+    sc = sc.masked_fill(~mask, -torch.inf)
+    lse = torch.logsumexp(sc, dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(sc - lse), 0.0)
+    o = (torch.einsum("bhqk,bkhd->bqhd", p.to(dtype).float(), f(vr))).to(dtype)
+    delta = torch.einsum("bqhd,bqhd->bhq", f(do), f(o))[..., None]
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dtype).float(), f(do))
+    dp = torch.einsum("bqhd,bkhd->bhqk", f(do), f(vr))
+    g = p if th is None else p * (1 - th * th)
+    ds = (g * (dp - delta) * d ** -0.5).to(dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, f(kr))
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, f(q))
+    grp = lambda t: t.reshape(b, s_len, k.shape[2], rep, d).sum(3)  # noqa: E731
+    return dq.to(dtype), grp(dk).to(dtype), grp(dv).to(dtype)
+
+
+# the backward model against jax.vjp in fp32 of the same (dtype-rounded)
+# inputs, per row, rows held to at least 1e-2 of the tensor's max
+# (chip_smoke.py's BWD_ROW_FLOOR): the model's roundings are P and dS to the
+# dtype and the three gradients, and dS's 2^-9 (bf16) is amplified by the
+# cancellation of dQ = dS K, most under the softcap (measured 3.6e-2 in bf16,
+# 4.5e-3 in fp16); 4e-2 in bf16 is the bf16 tolerance of the closed form
+# against jax.vjp (test_torch_backward_kernels.py), 1e-2 in fp16
+BWD_ROW_TOL = {"bfloat16": 4e-2, "float16": 1e-2}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("s,d,causal,window,cap", ATTN_CASES)
+def test_tc_attention_bwd_model_matches_jax_vjp(s, d, causal, window, cap, dtype):
+    """The backward's arithmetic, GQA 2:1, at each variant of ATTN_CASES
+    (S 256 and the ragged 200), against jax.vjp of the JAX package's
+    ``attention_scores`` in fp32 on the same inputs rounded to the dtype."""
+    rng = np.random.default_rng(17)
+    shapes = ((1, s, 2, d), (1, s, 1, d), (1, s, 1, d), (1, s, 2, d))
+    tq, tk, tv, tdo = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+                       .to(getattr(torch, dtype)) for sh in shapes)
+    got = tc_attention_bwd_model(tq, tk, tv, tdo, causal=causal, window=window, softcap=cap,
+                                 dtype=getattr(torch, dtype))
+    jq, jk, jv, jdo = (jnp.asarray(t.float().numpy()) for t in (tq, tk, tv, tdo))
+    _, vjp = jax.vjp(lambda q, k, v: attention_scores(q, k, v, causal=causal, window=window,
+                                                      cap=cap), jq, jk, jv)
+    for name, t, w in zip("qkv", got, vjp(jdo)):
+        assert t.dtype == getattr(torch, dtype) and tuple(t.shape) == w.shape, name
+        err = _row_err_floor(t.float().numpy(), np.asarray(w, np.float32), 1e-2)
+        assert err <= BWD_ROW_TOL[dtype], (name, err)
 
 
 def tc_gmm_model(x, w, slab: int = 64):
@@ -330,10 +420,10 @@ def test_ssd_route(case):
 
 @pytest.mark.parametrize("case", list(SSD_CASES))
 def test_ssd_bwd_route(case):
-    """The backward's route is "mma" exactly where the forward's is
-    "wgmma": the same dtypes, widths, chunk length and alignment."""
+    """The backward's route is "wgmma" exactly where the forward's is: the
+    same dtypes, widths, chunk length and alignment."""
     make, want = SSD_CASES[case]
-    assert ssd_bwd_route(*make()) == ("mma" if want == "wgmma" else "simt")
+    assert ssd_bwd_route(*make()) == want
 
 
 def _split3(t: torch.Tensor):
@@ -446,6 +536,73 @@ def test_tc_ssd_model_matches_jax(q, p, n, dtype):
     for t, j in zip(got, want):
         assert tuple(t.shape) == j.shape
         assert _row_err(t.numpy(), np.asarray(j, np.float32)) <= SSD_MODEL_TOL
+
+
+def tc_ssd_bwd_model(x, dt, A, B, C, gy, gst, gcd, gsd):
+    """The backward's "wgmma" route, dense, one chunk at a time, in fp32:
+    x, B, C, the cotangents and the fp32 intermediates G2 = (gy u^T) o L, M
+    = (C B^T) o L and w o x entering every product split three ways into
+    bf16, each product summed over :data:`SPLIT_PAIRS`; the row and column
+    sums of G2 o CB, gx, gw and sum_p x o gu, and the O(Q) rest (gc, its
+    reverse cumsum, gdt, gA) as the finishing kernel takes them."""
+    outs = [[] for _ in range(5)]
+    for g in range(x.shape[0]):
+        xs, bs, cs, gys, gsts = (_split3(t[g]) for t in (x, B, C, gy, gst))
+        dtg, a = dt[g], A[g]
+        q = x.shape[1]
+        c = torch.cumsum(dtg * a, 0)
+        mask = torch.tril(torch.ones(q, q, dtype=torch.bool))
+        L = torch.where(mask, torch.exp(torch.where(mask, c[:, None] - c[None, :], 0.0)), 0.0)
+        cb = _split_matmul(cs, [t.T for t in bs])
+        g2 = _split_matmul(gys, [t.T for t in xs]) * dtg[None, :] * L
+        e = g2 * cb
+        gC = _split_matmul(_split3(g2), bs)
+        gB = _split_matmul([t.T for t in _split3(g2)], cs)
+        gu = _split_matmul([t.T for t in _split3(cb * L)], gys)
+        w = torch.exp(c[-1] - c) * dtg
+        bg = _split_matmul(bs, [t.T for t in gsts])
+        gB = gB + _split_matmul(_split3(w[:, None] * x[g]), gsts)
+        gx = dtg[:, None] * gu + w[:, None] * bg
+        gw = (x[g] * bg).sum(1)
+        gc = e.sum(1) - e.sum(0) - gw * w + gsd[g] * torch.exp(c)
+        gc[-1] += (gw * w).sum() + gcd[g] * torch.exp(c[-1])
+        ga = torch.flip(torch.cumsum(torch.flip(gc, (0,)), 0), (0,))
+        gdt = (x[g] * gu).sum(1) + gw * torch.exp(c[-1] - c) + a * ga
+        for out, t in zip(outs, (gx, gdt, (ga * dtg).sum(), gB, gC)):
+            out.append(t)
+    return tuple(torch.stack(o) for o in outs)
+
+
+# per row against jax.vjp in fp32: the route's budget on the card is 1e-4
+# per row against the closed form (chip_smoke.py's BWD_TOL); its model must
+# stay within a quarter of it
+SSD_BWD_MODEL_TOL = 2.5e-5
+
+
+@pytest.mark.parametrize("q,p,n", [(128, 32, 64), (100, 64, 128)])
+def test_tc_ssd_bwd_model_matches_jax_vjp(q, p, n):
+    """The backward's arithmetic at a chunk of two 64-row strips and at a
+    ragged one (Q 100) at the widths of mamba2-780m (P 64, N 128), against
+    jax.vjp of the JAX package's ``ssd_chunk_ref`` with the chunks as its
+    heads, cotangents on all four outputs."""
+    rng = np.random.default_rng(19)
+    ins = _ssd_numpy(rng, 2, q, p, n)
+    cots = [rng.standard_normal(sh).astype(np.float32)
+            for sh in ((2, q, p), (2, p, n), (2,), (2, q))]
+    got = tc_ssd_bwd_model(*(torch.from_numpy(a) for a in ins + cots))
+    x, dt, A, B, C = (jnp.asarray(a) for a in ins)
+
+    def f(x, dt, A, B, C):
+        y, st, cd, sd = ssd_chunk_ref(x.transpose(1, 0, 2), dt.T, A, B.transpose(1, 0, 2),
+                                      C.transpose(1, 0, 2))
+        return y.transpose(1, 0, 2), st, cd, sd.T
+
+    _, vjp = jax.vjp(f, x, dt, A, B, C)
+    for name, t, w in zip(("x", "dt", "A", "B", "C"), got,
+                          vjp(tuple(jnp.asarray(c) for c in cots))):
+        assert tuple(t.shape) == w.shape, name
+        err = _row_err(t.numpy(), np.asarray(w, np.float32))
+        assert err <= SSD_BWD_MODEL_TOL, (name, err)
 
 
 def test_block_cumsum_model_is_a_cumsum():
